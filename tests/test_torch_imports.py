@@ -1,0 +1,77 @@
+"""The port's import rule and device rule.
+
+* Importing every module of ``znicz_tpu_torch`` (and ``chip_smoke``)
+  in a fresh interpreter brings in no ``jax*`` module and nothing of
+  ``znicz_tpu`` — careful: ``znicz_tpu_torch`` itself starts with
+  ``znicz_tpu``.
+* Entry points run on CUDA unless told ``device="cpu"``; without CUDA
+  they raise instead of carrying on on the CPU.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy
+import pytest
+import torch
+
+from znicz_tpu_torch.core.backends import default_device
+from znicz_tpu_torch.serving.engine import InferenceEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+before = set(sys.modules)
+import znicz_tpu_torch
+names = ["znicz_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(znicz_tpu_torch.__path__,
+                                          "znicz_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+new = set(sys.modules) - before
+bad = sorted(n for n in new if n.startswith("jax") or n == "znicz_tpu"
+             or n.startswith("znicz_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_znicz_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    doc = json.loads(out.strip().splitlines()[-1])
+    assert doc["bad"] == []
+    for name in ("znicz_tpu_torch.ops.cuda_pooling",
+                 "znicz_tpu_torch.serving.server",
+                 "znicz_tpu_torch.samples.alexnet"):
+        assert name in doc["modules"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_needs_cuda_unless_cpu_asked(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device("cuda")
+    assert default_device("cpu") == torch.device("cpu")
+
+
+def test_engine_refuses_to_fall_back_to_cpu(no_cuda):
+    # a one-layer package: 4 inputs -> softmax over 2 classes
+    package = ({"format": 1, "input_sample_shape": [4], "layers": [
+        {"type": "softmax", "arrays": {"weights": "w.npy", "bias": "b.npy"}}]},
+        {"w.npy": numpy.ones((2, 4), numpy.float32),
+         "b.npy": numpy.zeros(2, numpy.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(package, max_batch=2)
+    engine = InferenceEngine(package, max_batch=2, device="cpu")
+    assert engine.device.type == "cpu" and engine.ready

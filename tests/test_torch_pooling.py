@@ -1,0 +1,120 @@
+"""The port's pooling (znicz_tpu_torch.ops.pooling) against the JAX
+package: max/maxabs values and winner offsets BIT-equal to the Pallas
+kernel (interpret mode on the CPU, as the JAX package's own tests run
+it) and to the numpy twin; avg pooling against ``pooling_fwd_jax``."""
+
+import numpy
+import pytest
+import jax.numpy as jnp
+import torch
+
+from znicz_tpu.ops import pooling as jax_pool
+from znicz_tpu.ops.pallas_pooling import max_pooling_offsets_pallas
+from znicz_tpu_torch.ops import cuda_pooling
+from znicz_tpu_torch.ops import pooling
+
+#: (sy, sx, c, ky, kx, sliding): the JAX package's GEOMS (the second and
+#: third overhang the edge) and an AlexNet-like overlapping 3x3/s2 pool
+GEOMS = [
+    (6, 6, 3, 2, 2, (2, 2)),
+    (5, 7, 2, 3, 2, (2, 3)),
+    (4, 4, 1, 3, 3, (3, 3)),
+    (13, 13, 8, 3, 3, (2, 2)),
+]
+
+
+def _bits(a):
+    """float32 bit pattern (bf16 -> f32 is exact, so equal f32 bits are
+    equal bf16 bits)."""
+    return numpy.ascontiguousarray(a, dtype=numpy.float32).view(numpy.int32)
+
+
+def _tied_input(geom, seed):
+    sy, sx, c = geom[:3]
+    x = numpy.random.RandomState(seed).uniform(
+        -1, 1, (2, sy, sx, c)).astype(numpy.float32)
+    # exact ties inside windows pin the first-winner rule; the second
+    # row ties the first in |x| only, which pins it for maxabs
+    x[:, 0, :2, :] = 0.5
+    x[:, 1, :2, :] = -0.5
+    return x
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("use_abs", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_max_pooling_plain_bit_equal_to_pallas_and_numpy(geom, use_abs,
+                                                         dtype):
+    _, _, _, ky, kx, sliding = geom
+    x32 = _tied_input(geom, 11)
+    if dtype == "bfloat16":
+        xt = torch.from_numpy(x32).to(torch.bfloat16)
+        xj = jnp.asarray(x32).astype(jnp.bfloat16)
+        xn = xt.float().numpy()  # the bf16 values, exactly, in f32
+    else:
+        xt, xj, xn = torch.from_numpy(x32), x32, x32
+    v, o = pooling.max_pooling_plain(xt, ky, kx, sliding, use_abs)
+    jv, jo = max_pooling_offsets_pallas(xj, ky, kx, sliding, use_abs)
+    nv, no = jax_pool.max_pooling_numpy(xn, ky, kx, sliding, use_abs)
+    assert v.dtype == xt.dtype and o.dtype == torch.int32
+    assert v.shape == tuple(jv.shape)
+    assert (_bits(v.float().numpy()) ==
+            _bits(numpy.asarray(jv.astype(jnp.float32)))).all()
+    assert (_bits(v.float().numpy()) == _bits(nv)).all()
+    assert (o.numpy() == numpy.asarray(jo)).all()
+    assert (o.numpy() == no).all()
+
+
+@pytest.mark.parametrize("use_abs", [False, True])
+def test_max_pooling_plain_minus_inf_inputs(use_abs):
+    """A real -inf wins its window (an all -inf window yields -inf at the
+    window origin) — bit-equal to the Pallas kernel and the numpy twin."""
+    x = numpy.random.RandomState(5).uniform(
+        -1, 1, (2, 5, 7, 3)).astype(numpy.float32)
+    x[0, :3, :3, 0] = -numpy.inf
+    x[1, 2, 4, :] = -numpy.inf
+    v, o = pooling.max_pooling_plain(torch.from_numpy(x), 3, 2, (2, 3),
+                                     use_abs)
+    jv, jo = max_pooling_offsets_pallas(x, 3, 2, (2, 3), use_abs)
+    nv, no = jax_pool.max_pooling_numpy(x, 3, 2, (2, 3), use_abs)
+    assert (_bits(v.numpy()) == _bits(numpy.asarray(jv))).all()
+    assert (_bits(v.numpy()) == _bits(nv)).all()
+    assert (o.numpy() == numpy.asarray(jo)).all() and (o.numpy() == no).all()
+    assert numpy.isneginf(v.numpy()[0, 0, 0, 0])
+
+
+def test_max_pooling_dispatch_runs_plain_on_cpu_and_kernel_refuses_cpu():
+    """On a CPU tensor ``max_pooling`` is the plain version; the kernel's
+    wrapper never falls back — it refuses a CPU tensor, and counts no
+    launch."""
+    x = torch.from_numpy(_tied_input(GEOMS[3], 3))
+    v, o = pooling.max_pooling(x, 3, 3, (2, 2))
+    pv, po = pooling.max_pooling_plain(x, 3, 3, (2, 2))
+    assert torch.equal(v, pv) and torch.equal(o, po)
+    before = cuda_pooling.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
+    assert cuda_pooling.LAUNCHES == before
+
+
+@pytest.mark.parametrize("sy", range(1, 9))
+def test_output_spatial_matches_jax(sy):
+    for sx, ky, kx, sliding in ((7, 3, 2, (2, 3)), (5, 2, 2, (2, 2)),
+                                (sy + 1, 1, 3, (3, 1))):
+        assert pooling.output_spatial(sy, sx, ky, kx, sliding) == \
+            tuple(jax_pool.output_spatial(sy, sx, ky, kx, sliding))
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("dtype", [numpy.float32, numpy.float64])
+def test_avg_pooling_matches_jax(geom, dtype):
+    """Truncated-window divisor; rtol 1e-6 (f32: atol 1e-7 covers the
+    different summation order of the window sums)."""
+    sy, sx, c, ky, kx, sliding = geom
+    x = numpy.random.RandomState(2).uniform(
+        -1, 1, (3, sy, sx, c)).astype(dtype)
+    got = pooling.avg_pooling(torch.from_numpy(x), ky, kx, sliding)
+    want = jax_pool.pooling_fwd_jax(x, ky, kx, sliding, mode="avg")
+    numpy.testing.assert_allclose(
+        got.numpy(), numpy.asarray(want), rtol=1e-6,
+        atol=1e-7 if dtype == numpy.float32 else 0)

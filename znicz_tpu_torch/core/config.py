@@ -1,0 +1,62 @@
+"""A small attribute-dict configuration tree.
+
+Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
+reads: the ``root.common.serving`` knobs of the serving slice and the
+``root.common.telemetry`` gate.  Namespaces auto-vivify on attribute
+access; assigning a dict merges it into the node.
+"""
+
+
+class Config(object):
+    """One node of the config tree."""
+
+    def __init__(self, path="root"):
+        object.__setattr__(self, "_path_", path)
+
+    def __getattr__(self, name):
+        if name.startswith("_") and name.endswith("_"):
+            raise AttributeError(name)
+        child = Config("%s.%s" % (self._path_, name))
+        object.__setattr__(self, name, child)
+        return child
+
+    def __setattr__(self, name, value):
+        if isinstance(value, dict):
+            getattr(self, name).update(value)
+            return
+        object.__setattr__(self, name, value)
+
+    def update(self, value):
+        """Recursively merge a dict into this node."""
+        for k, v in value.items():
+            setattr(self, k, v)
+        return self
+
+    def get(self, name, default=None):
+        return self.__dict__.get(name, default)
+
+    def as_dict(self):
+        return {k: (v.as_dict() if isinstance(v, Config) else v)
+                for k, v in self.__dict__.items()
+                if not (k.startswith("_") and k.endswith("_"))}
+
+    def __repr__(self):
+        return "<Config %s: %s>" % (self._path_, sorted(self.as_dict()))
+
+
+#: The global configuration root.
+root = Config("root")
+
+root.common.update({
+    "serving": {
+        "host": "127.0.0.1",
+        "port": 8899,
+        "max_batch": 64,          # micro-batch ceiling = largest bucket
+        "max_delay_ms": 5.0,      # batching window after first request
+        "queue_limit": 256,       # queued ROWS before 429 backpressure
+        "timeout_ms": 1000.0,     # per-request deadline in the queue
+        "warmup": True,           # run every bucket once before ready
+        "max_body_bytes": 16 << 20,  # larger request bodies get 413
+    },
+    "telemetry": {"enabled": False},
+})

@@ -1,0 +1,23 @@
+"""Local response normalization (AlexNet/Caffe cross-channel LRN),
+forward, on NHWC tensors.
+
+Counterpart of ``znicz_tpu/ops/normalization.py`` (``lrn_forward_jax``
+:21-50): with ``s_i = k + alpha * sum_{j in window(i)} x_j^2`` over the
+channel window ``[i - n//2, i + n//2]``, ``y_i = x_i / s_i^beta``.  The
+windowed channel sum is one product with a (C, C) 0/1 band matrix on
+the channel axis, as in the JAX package.
+"""
+
+import torch
+
+
+def _band_matrix(c, n, dtype, device):
+    """(c, c) 0/1 band: M[i, j] = 1 iff j is inside i's channel window."""
+    idx = torch.arange(c, device=device)
+    return ((idx[:, None] - idx[None, :]).abs() <= n // 2).to(dtype)
+
+
+def lrn_forward(x, alpha=1e-4, beta=0.75, k=2, n=5):
+    m = _band_matrix(x.shape[3], n, x.dtype, x.device)
+    s = k + alpha * (torch.square(x) @ m)
+    return x / torch.pow(s, beta)

@@ -1,0 +1,184 @@
+"""AlexNet — the heaviest model of the zoo that the serving engine
+serves, as a deployment package made from a seed.
+
+Counterpart of ``znicz_tpu/samples/research/alexnet.py``
+(``make_layers`` :27, a copy): conv_str 96 11x11 s4 -> max_pool 3x3 s2
+-> LRN -> ZeroFiller(grouping 2) -> conv_str 256 5x5 pad 2 -> pool ->
+LRN -> ZeroFiller -> conv_str 384 3x3 pad 1 -> conv_str 384 ->
+ZeroFiller -> conv_str 256 -> pool -> ZeroFiller -> fc 4096 -> str ->
+dropout -> fc 4096 -> str -> dropout -> softmax 1000, on a 227x227x3
+input: about 62 M float32 parameters.
+
+:func:`init_package` builds the ``(manifest, arrays)`` pair that
+``znicz_tpu.export.export_package`` writes for a freshly initialised
+network: gaussian weights with each layer's stddev, constant biases,
+and every ``zero_filter`` grouping mask folded into the next layer's
+weights with the ZeroFiller formula ``mask = (k % g) != (c % g)``
+(``znicz_tpu/units/zerofilling.py:58-65``), the mask kept beside them
+as provenance.  Everything is drawn from ``numpy.random.RandomState
+(seed)``; no weights are downloaded.
+"""
+
+import numpy
+
+from znicz_tpu_torch.export import PACKAGE_FORMAT, serving_manifest
+from znicz_tpu_torch.ops.conv import output_spatial as conv_spatial
+from znicz_tpu_torch.ops.pooling import output_spatial as pool_spatial
+
+BASE_LR = 0.01
+WD = 0.0005
+_CONV_BWD = {"learning_rate": BASE_LR, "learning_rate_bias": BASE_LR * 2,
+             "weights_decay": WD, "weights_decay_bias": 0,
+             "gradient_moment": 0.9, "gradient_moment_bias": 0.9}
+
+
+def make_layers(n_classes=1000):
+    """The AlexNet layer list (reference config:111-230)."""
+    return [
+        {"name": "conv_str1", "type": "conv_str",
+         "->": {"n_kernels": 96, "kx": 11, "ky": 11,
+                "padding": (0, 0, 0, 0), "sliding": (4, 4),
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 0},
+         "<-": dict(_CONV_BWD, factor_ortho=0.001)},
+        {"name": "max_pool1", "type": "max_pooling",
+         "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}},
+        {"name": "norm1", "type": "norm",
+         "n": 5, "alpha": 0.0001, "beta": 0.75},
+        {"name": "grouping1", "type": "zero_filter", "grouping": 2},
+        {"name": "conv_str2", "type": "conv_str",
+         "->": {"n_kernels": 256, "kx": 5, "ky": 5,
+                "padding": (2, 2, 2, 2), "sliding": (1, 1),
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 1},
+         "<-": dict(_CONV_BWD)},
+        {"name": "max_pool2", "type": "max_pooling",
+         "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}},
+        {"name": "norm2", "type": "norm",
+         "n": 5, "alpha": 0.0001, "beta": 0.75},
+        {"name": "grouping2", "type": "zero_filter", "grouping": 2},
+        {"name": "conv_str3", "type": "conv_str",
+         "->": {"n_kernels": 384, "kx": 3, "ky": 3,
+                "padding": (1, 1, 1, 1), "sliding": (1, 1),
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 0},
+         "<-": dict(_CONV_BWD)},
+        {"name": "conv_str4", "type": "conv_str",
+         "->": {"n_kernels": 384, "kx": 3, "ky": 3,
+                "padding": (1, 1, 1, 1), "sliding": (1, 1),
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 1},
+         "<-": dict(_CONV_BWD)},
+        {"name": "grouping3", "type": "zero_filter", "grouping": 2},
+        {"name": "conv_str5", "type": "conv_str",
+         "->": {"n_kernels": 256, "kx": 3, "ky": 3,
+                "padding": (1, 1, 1, 1), "sliding": (1, 1),
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 1},
+         "<-": dict(_CONV_BWD)},
+        {"name": "max_pool5", "type": "max_pooling",
+         "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}},
+        {"name": "grouping5", "type": "zero_filter", "grouping": 2},
+        {"name": "fc6", "type": "all2all",
+         "->": {"output_sample_shape": 4096,
+                "weights_filling": "gaussian", "weights_stddev": 0.005,
+                "bias_filling": "constant", "bias_stddev": 1},
+         "<-": dict(_CONV_BWD)},
+        {"name": "relu6", "type": "activation_str"},
+        {"name": "drop6", "type": "dropout", "dropout_ratio": 0.5},
+        {"name": "fc7", "type": "all2all",
+         "->": {"output_sample_shape": 4096,
+                "weights_filling": "gaussian", "weights_stddev": 0.005,
+                "bias_filling": "constant", "bias_stddev": 1},
+         "<-": dict(_CONV_BWD)},
+        {"name": "relu7", "type": "activation_str"},
+        {"name": "drop7", "type": "dropout", "dropout_ratio": 0.5},
+        {"name": "fc_softmax8", "type": "softmax",
+         "->": {"output_sample_shape": n_classes,
+                "weights_filling": "gaussian", "weights_stddev": 0.01,
+                "bias_filling": "constant", "bias_stddev": 0},
+         "<-": dict(_CONV_BWD)}]
+
+
+def _fill(rand, filling, shape, stddev):
+    """The fillings AlexNet's config uses (reference all2all.py:119-127)."""
+    if filling == "gaussian":
+        return rand.normal(0, stddev, shape).astype(numpy.float32)
+    if filling == "constant":
+        return numpy.full(shape, stddev, numpy.float32)
+    raise ValueError("Invalid filling type %s" % filling)
+
+
+def _grouping_mask(shape, grouping):
+    """The ZeroFiller mask over (kernels, weights per kernel)."""
+    k = numpy.arange(shape[0])[:, None] % grouping
+    c = numpy.arange(shape[1])[None, :] % grouping
+    return (k != c).astype(numpy.float32)
+
+
+def init_package(seed, n_classes=1000, size=227, layers=None):
+    """``(manifest, arrays)`` of a freshly initialised AlexNet (or of
+    ``layers``, a list in the same format) on a ``size`` x ``size`` x 3
+    input, drawn from ``RandomState(seed)``."""
+    layers = make_layers(n_classes) if layers is None else layers
+    rand = numpy.random.RandomState(seed)
+    h, w, c = size, size, 3
+    entries, arrays = [], {}
+    grouping = None
+    for i, layer in enumerate(layers):
+        tpe, fwd = layer["type"], layer.get("->", {})
+        if tpe == "zero_filter":
+            grouping = int(layer.get("grouping", 2))
+            continue
+        entry = {"type": tpe, "name": layer["name"], "arrays": {},
+                 "include_bias": False, "weights_transposed": False}
+        weights = bias = None
+        if tpe.startswith("conv"):
+            k, ky, kx = fwd["n_kernels"], fwd["ky"], fwd["kx"]
+            padding = list(fwd.get("padding", (0, 0, 0, 0)))
+            sliding = list(fwd.get("sliding", (1, 1)))
+            weights = (k, ky * kx * c)
+            entry.update(n_kernels=k, ky=ky, kx=kx, padding=padding,
+                         sliding=sliding)
+            h, w = conv_spatial(h, w, ky, kx, padding, sliding)
+            c = k
+        elif tpe == "softmax" or tpe.startswith("all2all"):
+            k = int(fwd["output_sample_shape"])
+            weights = (k, h * w * c)
+            h, w, c = 1, 1, k
+        elif tpe in ("max_pooling", "avg_pooling"):
+            ky, kx = fwd["ky"], fwd["kx"]
+            sliding = list(fwd.get("sliding", (kx, ky)))
+            entry.update(ky=ky, kx=kx, sliding=sliding)
+            h, w = pool_spatial(h, w, ky, kx, sliding)
+        elif tpe == "norm":
+            entry.update(alpha=layer.get("alpha", 0.0001),
+                         beta=layer.get("beta", 0.75), k=layer.get("k", 2),
+                         n=layer.get("n", 5))
+        if weights is not None:
+            wts = _fill(rand, fwd["weights_filling"], weights,
+                        fwd["weights_stddev"])
+            bias = _fill(rand, fwd["bias_filling"], (weights[0],),
+                         fwd["bias_stddev"])
+            entry["include_bias"] = True
+            if grouping is not None:
+                mask = _grouping_mask(weights, grouping)
+                wts *= mask
+                arrays["layer%d_zero_filter_mask.npy" % i] = mask
+                entry["arrays"]["zero_filter_mask"] = \
+                    "layer%d_zero_filter_mask.npy" % i
+                entry["zero_filter_grouping"] = grouping
+                grouping = None
+            for attr, value in (("weights", wts), ("bias", bias)):
+                fname = "layer%d_%s.npy" % (i, attr)
+                arrays[fname] = value
+                entry["arrays"][attr] = fname
+        elif grouping is not None:
+            raise ValueError("zero_filter precedes %r which has no "
+                             "weights" % layer["name"])
+        entries.append(entry)
+    shape = [size, size, 3]
+    manifest = {"format": PACKAGE_FORMAT, "workflow": "AlexNetWorkflow",
+                "layers": entries, "input_sample_shape": shape,
+                "serving": serving_manifest(shape)}
+    return manifest, arrays
