@@ -1,7 +1,8 @@
 """The port's pooling (znicz_tpu_torch.ops.pooling) against the JAX
 package: max/maxabs values and winner offsets BIT-equal to the Pallas
 kernel (interpret mode on the CPU, as the JAX package's own tests run
-it) and to the numpy twin; avg pooling against ``pooling_fwd_jax``."""
+it) and to the numpy twin; avg pooling against ``pooling_fwd_jax``; the
+Hopper kernel's choices made before a launch (vector width, tiles)."""
 
 import numpy
 import pytest
@@ -14,12 +15,21 @@ from znicz_tpu_torch.ops import cuda_pooling
 from znicz_tpu_torch.ops import pooling
 
 #: (sy, sx, c, ky, kx, sliding): the JAX package's GEOMS (the second and
-#: third overhang the edge) and an AlexNet-like overlapping 3x3/s2 pool
+#: third overhang the edge), an AlexNet-like overlapping 3x3/s2 pool,
+#: and the Hopper kernel's tile edges that chip_smoke.py checks on the
+#: card (TILE_EDGES there): 28 tiles of one output row; 13 output rows
+#: in tiles of 4 over 36 channels (a multiple of the 16-byte vector, not
+#: of the slab); the MNIST pool's 87 channels at 2x2/s2; rows wider
+#: than a tile (column tiles)
 GEOMS = [
     (6, 6, 3, 2, 2, (2, 2)),
     (5, 7, 2, 3, 2, (2, 3)),
     (4, 4, 1, 3, 3, (3, 3)),
     (13, 13, 8, 3, 3, (2, 2)),
+    (57, 57, 96, 3, 3, (2, 2)),
+    (27, 27, 36, 3, 3, (2, 2)),
+    (24, 24, 87, 2, 2, (2, 2)),
+    (7, 700, 32, 3, 3, (2, 2)),
 ]
 
 
@@ -91,10 +101,82 @@ def test_max_pooling_dispatch_runs_plain_on_cpu_and_kernel_refuses_cpu():
     v, o = pooling.max_pooling(x, 3, 3, (2, 2))
     pv, po = pooling.max_pooling_plain(x, 3, 3, (2, 2))
     assert torch.equal(v, pv) and torch.equal(o, po)
-    before = cuda_pooling.LAUNCHES
+    counts = (cuda_pooling.LAUNCHES, cuda_pooling.LAUNCHES_WIDE,
+              cuda_pooling.LAUNCHES_NARROW)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
-    assert cuda_pooling.LAUNCHES == before
+    assert (cuda_pooling.LAUNCHES, cuda_pooling.LAUNCHES_WIDE,
+            cuda_pooling.LAUNCHES_NARROW) == counts
+
+
+#: channels each thread owns, by dtype and C, on 16-byte-aligned storage
+WIDTHS = {
+    torch.float32: {1: 1, 3: 1, 36: 4, 87: 1, 96: 4, 256: 4},
+    torch.float16: {1: 1, 3: 1, 36: 1, 87: 1, 96: 8, 256: 8},
+    torch.bfloat16: {1: 1, 3: 1, 36: 1, 87: 1, 96: 8, 256: 8},
+}
+
+
+@pytest.mark.parametrize("dtype", list(WIDTHS))
+@pytest.mark.parametrize("c", [1, 3, 36, 87, 96, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_vector_width_from_shape_and_alignment(dtype, c, aligned):
+    """16-byte vectors only where C and the storage's address are both
+    multiples of 16 bytes; storage one element past a 16-byte boundary
+    (a contiguous slice) takes one channel a thread."""
+    n = 2 * 5 * 5 * c
+    buf = torch.zeros(n + 1, dtype=dtype)
+    x = (buf[:n] if aligned else buf[1:]).view(2, 5, 5, c)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == aligned
+    assert cuda_pooling.vector_width(x) == \
+        (WIDTHS[dtype][c] if aligned else 1)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_tiles_cover_the_output(geom, dtype):
+    """The plan's tile fits its budget (or, for a window larger than the
+    budget, shared memory), its slab spans at most 128 bytes and its
+    threads at most 256 (the kernel's launch bounds)."""
+    sy, sx, c, ky, kx, sliding = geom
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    wide = 16 // itemsize
+    for vec in (1, wide) if c % wide == 0 else (1,):
+        plan = cuda_pooling.launch_plan((2, sy, sx, c), itemsize, vec, ky,
+                                        kx, sliding)
+        ny, nx = pooling.output_spatial(sy, sx, ky, kx, sliding)
+        rows = min(sy, (plan.ti - 1) * sliding[1] + ky)
+        cols = min(sx, (plan.tj - 1) * sliding[0] + kx)
+        pack = vec * itemsize
+        assert plan.smem == rows * cols * plan.lanes * pack
+        assert plan.smem <= cuda_pooling.TILE_BYTES
+        assert 1 <= plan.ti <= ny and 1 <= plan.tj <= nx
+        assert plan.lanes * pack <= cuda_pooling.SLAB_BYTES
+        assert plan.lanes * vec < c + vec  # no lane wholly past C
+
+
+def test_launch_plan_alexnet_and_tile_edges():
+    """AlexNet's pools take 16-byte vectors in tiles of at most 32 KB;
+    the tile-edge geometries really reach their edges."""
+    for shape in ((64, 55, 55, 96), (64, 27, 27, 256), (64, 13, 13, 256)):
+        x = torch.zeros(shape)
+        assert cuda_pooling.vector_width(x) == 4
+        plan = cuda_pooling.launch_plan(shape, 4, 4, 3, 3, (2, 2))
+        assert plan.smem <= 32 * 1024 and plan.lanes == 8
+    # 13 output rows in tiles that do not divide them; 9 packs of 4
+    # channels over slabs of 8
+    plan = cuda_pooling.launch_plan((2, 27, 27, 36), 4, 4, 3, 3, (2, 2))
+    assert 13 % plan.ti != 0 and 9 % plan.lanes != 0
+    # a row wider than a tile: column tiles, the last one partial
+    plan = cuda_pooling.launch_plan((2, 7, 700, 32), 4, 4, 3, 3, (2, 2))
+    assert plan.tj < 350 and 350 % plan.tj != 0 and 3 % plan.ti != 0
+    # a window that no 128-byte slab fits narrows the slab; one that no
+    # shared memory fits is refused
+    plan = cuda_pooling.launch_plan((1, 100, 100, 64), 4, 4, 64, 64,
+                                    (1, 1))
+    assert plan.lanes == 1 and plan.smem == 64 * 64 * 16
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_pooling.launch_plan((1, 300, 300, 64), 4, 4, 200, 200, (1, 1))
 
 
 @pytest.mark.parametrize("sy", range(1, 9))

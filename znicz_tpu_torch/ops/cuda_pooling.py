@@ -8,18 +8,27 @@ maxabs pooling over NHWC returning the window value and the int32
 flat NHWC winner offset, first winner on ties.
 
 Bound: memory — the input read once plus values and offsets written
-once, over the H100's 3.35 TB/s.  Design: one thread per output
-element with channels fastest (coalesced NHWC loads), a loop over the
-truncated window seeded by its origin cell, a strict ``>`` on float32
-keys; see the source for details.  Its plain PyTorch version is
-:func:`znicz_tpu_torch.ops.pooling.max_pooling_plain`.
+once, over the H100's 3.35 TB/s.  Design (details in the source): a
+3-D grid of channel slab x tile of output rows x batch row, with int32
+index arithmetic and no division; each block stages its input rows
+once in shared memory with 16-byte ``cp.async`` and every overlapping
+window reads them there; each thread owns a 16-byte vector of channels
+and stores values and offsets as 16-byte vectors.  Its plain PyTorch
+version is :func:`znicz_tpu_torch.ops.pooling.max_pooling_plain`.
 
-The library is built by :mod:`znicz_tpu_torch.ops.cuda_build` at the
-first launch and loaded with ``ctypes``.  ``LAUNCHES`` counts the
-kernel's launches; nothing else adds to it.
+Before each launch the wrapper chooses, from shape and alignment
+alone, the vector width (:func:`vector_width`) and the tiles
+(:func:`launch_plan`); nothing is chosen on a failed launch, which
+raises.  The library is built by :mod:`znicz_tpu_torch.ops.cuda_build`
+at the first launch and loaded with ``ctypes``.  ``LAUNCHES_WIDE``
+(16-byte vectors) and ``LAUNCHES_NARROW`` (one channel a thread) count
+the kernel's launches by width, ``LAUNCHES`` their sum; nothing else
+adds to them.
 """
 
+import collections
 import ctypes
+import functools
 import threading
 
 import torch
@@ -31,8 +40,24 @@ SOURCE = "max_pooling_offsets.cu"
 #: TPU kernel this one replaces (file:line of its pl.pallas_call)
 REPLACES = "znicz_tpu/ops/pallas_pooling.py:97"
 
-#: launches of the kernel since the counter was last set to 0
+#: launches of the kernel since the counters were last set to 0: at
+#: 16-byte vectors, at one channel a thread, and both together
+LAUNCHES_WIDE = 0
+LAUNCHES_NARROW = 0
 LAUNCHES = 0
+
+#: shared memory a block's tile takes at most, so that the 227 KB an
+#: H100 SM gives its blocks never limits how many share it (registers
+#: do); chip_smoke.py times the kernel at 16-64 KB
+TILE_BYTES = 32 * 1024
+#: the most shared memory a block may take (the kernel's kMaxSmem)
+MAX_SMEM = 227 * 1024
+#: bytes of channels one block spans: a 128-byte line of each cell
+SLAB_BYTES = 128
+
+#: one launch's tiles: ``lanes`` threads across a channel slab, ``ti``
+#: output rows and ``tj`` output columns a tile, ``smem`` bytes of it
+Plan = collections.namedtuple("Plan", "lanes ti tj smem")
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _lib = None
@@ -46,13 +71,57 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(cuda_build.build(SOURCE))
             lib.max_pooling_offsets.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 +
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
                 [ctypes.c_void_p])
             lib.max_pooling_offsets.restype = ctypes.c_int
             lib.max_pooling_offsets_error_string.argtypes = [ctypes.c_int]
             lib.max_pooling_offsets_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def vector_width(x):
+    """Channels each thread owns for NHWC ``x``: a 16-byte vector (4 in
+    float32, 8 in float16/bfloat16) when the channel count and the
+    storage's address are both multiples of 16 bytes, else 1."""
+    nbytes = x.element_size()
+    if x.shape[-1] * nbytes % 16 == 0 and x.data_ptr() % 16 == 0:
+        return 16 // nbytes
+    return 1
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(shape, itemsize, vec, ky, kx, sliding):
+    """The :data:`Plan` of one launch on NHWC ``shape``.
+
+    A slab spans ``SLAB_BYTES`` of channels (fewer when C is small); a
+    tile spans all output columns unless one row of windows overflows
+    ``TILE_BYTES``, and as many output rows as fit in it, evened out
+    over the tiles.  Raises if even one window does not fit in
+    shared memory."""
+    _, h, w, c = shape
+    ny, nx = output_spatial(h, w, ky, kx, sliding)
+    sx, sy = sliding
+    pack = vec * itemsize
+    lanes = min(SLAB_BYTES // pack, -(-c // vec))
+
+    def row_bytes(tj, lanes):  # one input row of a tile
+        return min(w, (tj - 1) * sx + kx) * lanes * pack
+    window_rows = min(h, ky)
+    tj = nx
+    while tj > 1 and window_rows * row_bytes(tj, lanes) > TILE_BYTES:
+        tj = -(-tj // 2)
+    while lanes > 1 and window_rows * row_bytes(tj, lanes) > TILE_BYTES:
+        lanes //= 2
+    rows = TILE_BYTES // row_bytes(tj, lanes)
+    ti = ny if rows >= h else max(1, (rows - ky) // sy + 1)
+    ti = -(-ny // -(-ny // min(ti, ny)))  # the same rows in every tile
+    smem = min(h, (ti - 1) * sy + ky) * row_bytes(tj, lanes)
+    if smem > MAX_SMEM:
+        raise ValueError("max_pooling_offsets: a %dx%d window of %d-byte "
+                         "cells needs %d bytes of shared memory, over %d"
+                         % (ky, kx, pack, smem, MAX_SMEM))
+    return Plan(lanes, ti, tj, smem)
 
 
 def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
@@ -62,7 +131,7 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
     bfloat16 with fewer than 2^31 elements (int32 offsets).  Launches
     on the current stream without synchronising; raises if the launch
     is refused."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_NARROW
     if not x.is_cuda:
         raise ValueError("max_pooling_offsets needs a CUDA tensor, got %s"
                          % x.device)
@@ -90,16 +159,23 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
                           device=x.device)
     if values.numel() == 0:
         return values, offsets
-    lib = load()
+    vec = vector_width(x)
+    plan = launch_plan(tuple(x.shape), x.element_size(), vec, ky, kx,
+                       (sx, sy))
+    lib = _lib or load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.max_pooling_offsets(
             x.data_ptr(), values.data_ptr(), offsets.data_ptr(),
-            _DTYPES[x.dtype], b, h, w, c, ny, nx, ky, kx, sy, sx,
-            int(bool(use_abs)), stream)
+            _DTYPES[x.dtype], vec, b, h, w, c, ny, nx, ky, kx, sy, sx,
+            plan.lanes, plan.ti, plan.tj, int(bool(use_abs)), stream)
     if err:
         raise RuntimeError(
             "max_pooling_offsets launch failed: %s"
             % lib.max_pooling_offsets_error_string(err).decode())
+    if vec == 1:
+        LAUNCHES_NARROW += 1
+    else:
+        LAUNCHES_WIDE += 1
     LAUNCHES += 1
     return values, offsets
