@@ -10,25 +10,30 @@ failure (the script then exits non-zero and prints no result line):
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — ``nvcc`` builds every kernel of the port from
-   ``znicz_tpu_torch/csrc`` and ptxas's registers, shared memory and
-   spills of each instantiation are printed;
-3. kernels — each kernel against its plain PyTorch version on the card
-   at the shapes the serving path gives it (AlexNet's three max pools
-   at batch 64: f32, and max_pool1 in bf16 and f16), on small
-   edge-overhanging geometries, on the kernel's tile edges (output rows
-   not a multiple of a tile's, channels not a multiple of a slab's,
-   the MNIST pool's 87 channels) and on storage that is not 16-byte
-   aligned, with forced ties, values and offsets BIT-equal; each case
-   prints the vector width it launched at, and AlexNet's shapes must
-   take 16-byte vectors, 87 channels and unaligned storage one
-   channel.  Then kernel, plain version and ``F.max_pool2d`` (the
+   ``znicz_tpu_torch/csrc``, one process per source, all at once, and
+   ptxas's registers, shared memory and spills of each instantiation
+   are printed;
+3. kernels — the forward kernel against its plain PyTorch version on
+   the card at the shapes the serving path gives it (AlexNet's three
+   max pools at batch 64: f32, and max_pool1 in bf16 and f16), on
+   small edge-overhanging geometries, on the kernel's tile edges
+   (output rows not a multiple of a tile's, channels not a multiple of
+   a slab's, the MNIST pool's 87 channels) and on storage that is not
+   16-byte aligned, with forced ties, values and offsets BIT-equal;
+   each case prints the vector width it launched at, and AlexNet's
+   shapes must take 16-byte vectors, 87 channels and unaligned storage
+   one channel.  Then kernel, plain version and ``F.max_pool2d`` (the
    library yardstick, never called by the port) timed with CUDA events
    after an L2 flush and a device spin that keeps the host's enqueue
    out of the window (median of 50 samples, 200 where the bound is
-   under 10 us), beside the bound from bytes at 3.35 TB/s and the
-   host's own time per call; an empty launch gives the method's floor,
+   under 10 us; a sample the host stalled past the spin is taken
+   again), beside the bound from bytes at 3.35 TB/s and the host's own
+   time per call; an empty launch gives the method's floor,
    and the kernel is also timed at tile budgets of 16, 32 and 64 KB;
-4. serve — a full-width AlexNet package (227x227x3, 1000 classes,
+4. backward kernel — the max-pool backward kernel against its plain
+   version on the same 46 cases (offsets from the forward kernel, a
+   random gradient), BIT-equal, zero cells included;
+5. serve — a full-width AlexNet package (227x227x3, 1000 classes,
    random weights from a seed) served over HTTP by ``ServingServer``
    with every bucket up to 64 warmed; batches of 1, 3, 17 and 64 rows
    in JSON and ``.npy`` must all answer 200 with softmax rows, every
@@ -37,17 +42,44 @@ failure (the script then exits non-zero and prints no result line):
    of each size) must match the port's plain forward run on the CPU
    within 1e-4 in log-probability, i.e. 1e-4 relative on every
    probability (float32, TF32 off on the card); the same rows run with
-   TF32 let in are printed beside, as a control.  Then
-   images/s over 20 back-to-back batch-64 engine dispatches, request
-   latency p50/p99, and a per-layer device-time breakdown, whose pool
-   layers give each pool's in-model (warm-L2) time.
+   TF32 let in, and both sides against the CPU's forward in float64,
+   are printed beside.  The same batch, dispatched 5 times at each
+   reply size, must give the same bits at every max pool and at the
+   softmax, and those of ``engine.predict``; the same forward with
+   ``cudnn.deterministic`` is printed beside as a witness of cuDNN's
+   choice of algorithm.  Then images/s over 20 back-to-back batch-64
+   engine dispatches, request latency p50/p99, and a per-layer
+   device-time breakdown, whose pool layers give each pool's in-model
+   (warm-L2) time;
+6. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
+   batch 128: one step on the kernels against one on the "gather"
+   lowering from the same state (loss and n_err equal, every update
+   within ``GATHER_STEP_RTOL``, while a backward that drops the last
+   row of windows must read above it); one batch-2 step on the card
+   against the CPU's plain path in float64, tensor by tensor (the
+   update before it is added within ``CPU_STEP_RATIO`` times the CPU's
+   own float32 update's distance, while a TF32 control must exceed
+   that; each conv's gates and output gradient and each pool's winners
+   traced beside); then the main path, 3
+   epochs of 4 windows of 4 steps over 2,048 prototype images on the
+   card, one readback per epoch, finite losses and parameters, exactly
+   3 forward and 3 backward kernel launches a step and no plain pooling
+   on the card; then a step's device time split forward / backward /
+   update, with the host held ahead, and the host's enqueue time;
+7. train kernels — both kernels at batch 128 bit-equal to their plain
+   versions, then cold beside their bounds, plain versions and library
+   yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``).
 
-The line before the last is the ``{"kernels": [...]}`` JSON — for the
-pooling kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
+The line before the last is the ``{"kernels": [...]}`` JSON.  For the
+forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
-summed over the three AlexNet pools, and ``launches`` and
-``launches_by_width`` count the serve phase's HTTP requests only; the
-last line is ``{"ok": true, "device": {...}}``.
+summed over the three AlexNet pools, ``train`` holds the same per
+batch-128 step, and ``launches`` counts the serve requests' and the
+train epochs' launches (``launches_by_path``).  For the backward
+kernel the times are per batch-128 step and ``launches`` counts the
+train epochs'.  ``max_abs_err`` is the largest difference from the
+plain version that the run measured over every case the kernel was
+checked on.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -91,6 +123,34 @@ TILE_EDGES = ((2, 57, 57, 96, 3, 3, (2, 2)), (2, 27, 27, 36, 3, 3, (2, 2)),
               (2, 24, 24, 87, 2, 2, (2, 2)), (2, 7, 700, 32, 3, 3, (2, 2)))
 #: the kernel's two widths: 16-byte vectors of channels, one channel
 WIDE, NARROW = "16-byte", "1-channel"
+#: the train phase: batch 128 (the published AlexNet minibatch,
+#: Krizhevsky et al. 2012), 2,048 prototype images of 10 classes, 3
+#: epochs of 4 windows of 4 steps
+TRAIN_BATCH, TRAIN_IMAGES, TRAIN_CLASSES = 128, 2048, 10
+EPOCHS, WINDOWS, WINDOW_STEPS = 3, 4, 4
+TRAIN_POOLS = (("max_pool1", (128, 55, 55, 96)),
+               ("max_pool2", (128, 27, 27, 256)),
+               ("max_pool5", (128, 13, 13, 256)))
+#: the kernels' step against the "gather" step (plain forward, scatter
+#: backward) from one state: each parameter's update within this
+#: relative difference of the tensor's largest update (only the order
+#: of the adds into a cell that wins two windows differs); a backward
+#: that drops the last row of windows must read above it.  On an H100
+#: 80GB HBM3 at 700 W the kernels read 6.5e-7, that control 0.49 and
+#: one window of one image dropped 9.6e-3
+GATHER_STEP_RTOL = 1e-5
+#: the card's batch-2 update in f32 against the CPU's plain path in
+#: f64, tensor by tensor, relative to the tensor's largest update:
+#: within CPU_STEP_RATIO times the CPU's own f32 update's reading (at
+#: least CPU_STEP_FLOOR), and a TF32 control must exceed that at some
+#: tensor.  Updates are read before they are added to the weights (the
+#: velocity slot after one step from zero velocity).  f32 itself sits
+#: 1e-6 (FC layers) to 4e-2 (conv1) from the exact update, on either
+#: device; on an H100 80GB HBM3 at 700 W the card's f32 read 0.29 to
+#: 1.4 times the CPU's f32 and TF32 15 to 6,700 times
+CPU_STEP_RATIO, CPU_STEP_FLOOR = 4.0, 1e-6
+#: dispatches of the same serve batch that must give the same bits
+SERVE_REPEATS = 5
 
 
 def say(*args):
@@ -106,21 +166,39 @@ def phase_device(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    say("== device: %s; torch %s, CUDA %s, %d device(s)"
-        % (name, torch.__version__, torch.version.cuda,
-           torch.cuda.device_count()))
+    say("== device: %s; torch %s, CUDA %s, cuDNN %s, %d device(s); host "
+        "CPU %s" % (name, torch.__version__, torch.version.cuda,
+                    torch.backends.cudnn.version(),
+                    torch.cuda.device_count(), _cpu_model()))
     say(smi)
     return name, smi
 
 
+def _cpu_model():
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
+
+
 def phase_build():
     from znicz_tpu_torch.ops import cuda_build, cuda_pooling
+    from znicz_tpu_torch.ops import cuda_pooling_backward
     t0 = time.perf_counter()
+    cuda_build.build_all()
     cuda_pooling.load()
-    say("== build: %.2f s (nvcc of %s, or its cached library); ptxas:"
-        % (time.perf_counter() - t0, cuda_pooling.SOURCE))
-    for line in cuda_build.ptxas_report(cuda_pooling.SOURCE):
-        say("   " + line)
+    cuda_pooling_backward.load()
+    say("== build: %.2f s (one nvcc per source, all at once, or the cached "
+        "libraries): %s" % (time.perf_counter() - t0,
+                            ", ".join(cuda_build.sources())))
+    for source in cuda_build.sources():
+        say("   ptxas, %s:" % source)
+        for line in cuda_build.ptxas_report(source):
+            say("     " + line)
 
 
 def _bits(t):
@@ -142,7 +220,7 @@ def _check_pool(torch, x, ky, kx, sliding, use_abs, label):
         bad = (o != po).sum().item() if o.shape == po.shape else -1
         raise RuntimeError("kernel disagrees with its plain version: %s "
                            "(%d offsets differ)" % (label, bad))
-    return (v.float() - pv.float()).abs().max().item(), width
+    return _max_abs_diff(v, pv), width
 
 
 def _tied(torch, gen, shape, dtype):
@@ -209,8 +287,10 @@ def _median_ms(torch, fn, flush, cycles_per_ms, iters):
     the slowest of three warm-up calls), then the start event, ``fn``
     and the end event, and waits for the end.  So the device reaches the
     start event with ``fn``'s work already queued and never idles inside
-    the window on the host.  Raises if the host's enqueue, from the spin
-    to the end event, ever reaches the spin's length."""
+    the window on the host.  A sample whose enqueue, from the spin to
+    the end event, reaches the spin's length (a stall of the shared
+    host) is dropped and taken again; more than ``iters // 10`` such
+    samples raise."""
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -219,10 +299,10 @@ def _median_ms(torch, fn, flush, cycles_per_ms, iters):
     torch.cuda.synchronize()
     spin_ms = max(SPIN_MS, 4e3 * max(warm))
     cycles = int(spin_ms * cycles_per_ms)
-    device, host, window = [], [], []
+    device, host, stalls = [], [], []
     gc.disable()  # no collection inside a window
     try:
-        for _ in range(iters):
+        while len(device) < iters:
             flush()
             torch.cuda._sleep(cycles)
             start = torch.cuda.Event(enable_timing=True)
@@ -233,15 +313,25 @@ def _median_ms(torch, fn, flush, cycles_per_ms, iters):
             fn()
             t2 = time.perf_counter()
             end.record()
-            window.append((time.perf_counter() - t0) * 1e3)
-            host.append((t2 - t1) * 1e3)
+            window = (time.perf_counter() - t0) * 1e3
             end.synchronize()
+            if window >= spin_ms:
+                stalls.append(window)
+                if len(stalls) > iters // 10:
+                    raise RuntimeError(
+                        "the host's enqueue outlasted the %.4f ms device "
+                        "spin in %d samples (%s ms)" % (
+                            spin_ms, len(stalls),
+                            ", ".join("%.4f" % w for w in stalls)))
+                continue
+            host.append((t2 - t1) * 1e3)
             device.append(start.elapsed_time(end))
     finally:
         gc.enable()
-    if max(window) >= spin_ms:
-        raise RuntimeError("the host took %.4f ms to enqueue, the device "
-                           "spin lasts %.4f ms" % (max(window), spin_ms))
+    if stalls:
+        say("   (%d sample(s) taken again: the host's enqueue took %s ms, "
+            "the spin lasts %.4f ms)" % (
+                len(stalls), ", ".join("%.4f" % w for w in stalls), spin_ms))
     return statistics.median(device), statistics.median(host)
 
 
@@ -477,11 +567,24 @@ def phase_serve(torch, card, cycles_per_ms):
     cpu = engine_mod.InferenceEngine(path, buckets=(len(rows),),
                                      warmup=False, device="cpu")
     ref = cpu.predict(images[list(rows)])
+    # the same forward in float64 on the CPU, to tell the card's error
+    # from the CPU's own
+    with torch.inference_mode():
+        ref64 = engine_mod.forward(
+            cpu.layers, [{k: v.double() if v.is_floating_point() else v
+                          for k, v in p.items()} for p in cpu.params],
+            torch.from_numpy(images[list(rows)]).double()).numpy()
     del cpu
     got = [(out[[i for i in rows if i < n]], ref[[k for k, i in
                                                   enumerate(rows) if i < n]])
            for n, out in replies]
     err = _prob_errors(got)
+    # row 0 from every reply size, card against card: a spread here is
+    # the card's, one only against the CPU is the CPU's
+    spread = _prob_errors([(out[:1], replies[0][1][:1])
+                           for _, out in replies])
+    by_size = ["%d: %.3g" % (n, _prob_errors([pair])[1])
+               for (n, _), pair in zip(replies, got)]
     # the control: the same rows on the card with TF32 let in
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -501,6 +604,15 @@ def phase_serve(torch, card, cycles_per_ms):
            tf32_err[0], tf32_err[1]))
     # 1e-4 relative on every probability: on an H100 80GB HBM3 at
     # 700 W, f32 read 1.4e-6 and the TF32 control 1.0e-3
+    ref_err = _prob_errors([(ref, ref64)])
+    card64 = _prob_errors([(out[[i for i in rows if i < n]],
+                            ref64[[k for k, i in enumerate(rows) if i < n]])
+                           for n, out in replies])
+    say("   row 0 across the reply sizes on the card: max |diff log p| "
+        "%.3g; against the CPU, reply by reply: %s; against the CPU in "
+        "f64: the card %.3g, the CPU's f32 %.3g"
+        % (spread[1], ", ".join(by_size), card64[1], ref_err[1]))
+    _serve_repeats(torch, engine, images, rows, ref)
     if not err[1] <= LOG_P_TOL:
         raise RuntimeError("GPU rows differ from the CPU plain forward: "
                            "max |diff log p| %g > %g" % (err[1], LOG_P_TOL))
@@ -522,6 +634,67 @@ def phase_serve(torch, card, cycles_per_ms):
                card))
     return by_width, _layer_breakdown(torch, engine, images, card,
                                       cycles_per_ms)
+
+
+def _serve_repeats(torch, engine, images, rows, ref):
+    """At each reply size of the requests, the engine's forward of the
+    same padded batch dispatched ``SERVE_REPEATS`` times: every max
+    pool's output and the softmax rows must be bit-identical from one
+    dispatch to the next and to ``engine.predict``'s.  Then the witness:
+    the same forward with ``cudnn.deterministic``, its rows against the
+    CPU's ``ref`` and whether its bits equal the default's."""
+    import numpy
+    from znicz_tpu_torch.serving.engine import apply_layer
+    pools = [i for i, e in enumerate(engine.layers)
+             if e["type"] == "max_pooling"]
+    names = [engine.layers[i].get("name", "pool%d" % i) for i in pools]
+
+    def run(x):
+        outs = []
+        y = x
+        with torch.inference_mode():
+            for i, (entry, p) in enumerate(zip(engine.layers,
+                                               engine.params)):
+                y = apply_layer(entry, p, y)
+                if i in pools:
+                    outs.append(y.clone())
+        return outs + [y]
+
+    witness = []
+    for n in (1, 3, 17, 64):
+        bucket = engine.bucket_for(n)
+        x = numpy.zeros((bucket,) + images.shape[1:], numpy.float32)
+        x[:n] = images[:n]
+        xd = torch.from_numpy(x).to("cuda")
+        first = run(xd)
+        for _ in range(SERVE_REPEATS - 1):
+            for name, a, b in zip(names + ["softmax"], first, run(xd)):
+                if not _bits_equal(torch, a, b):
+                    raise RuntimeError(
+                        "the same batch of %d rows gave other bits at %s "
+                        "on another dispatch (max |diff| %g)"
+                        % (bucket, name, _max_abs_diff(a, b)))
+        out = first[-1][:n].cpu().numpy()
+        if not numpy.array_equal(out.view(numpy.uint32), engine.predict(
+                images[:n]).view(numpy.uint32)):
+            raise RuntimeError("engine.predict of %d rows gave other bits "
+                               "than its layer-by-layer forward" % n)
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = run(xd)[-1][:n].cpu().numpy()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        idx = [i for i in rows if i < n]
+        witness.append("%d: %s, %.3g" % (
+            n, "same bits" if numpy.array_equal(
+                det.view(numpy.uint32), out.view(numpy.uint32))
+            else "other bits", _prob_errors([(det[idx], ref[[
+                k for k, i in enumerate(rows) if i < n]])])[1]))
+    say("   the same batch dispatched %d times at each reply size: every "
+        "max pool's output and the softmax rows bit-identical, and equal "
+        "to engine.predict's; with cudnn.deterministic, by reply size "
+        "(bits against the default's, max |diff log p| against the "
+        "CPU): %s" % (SERVE_REPEATS, "; ".join(witness)))
 
 
 def _layer_breakdown(torch, engine, images, card, cycles_per_ms):
@@ -577,6 +750,577 @@ def _layer_breakdown(torch, engine, images, card, cycles_per_ms):
     return ms
 
 
+def _bits_equal(torch, a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(_bits(a), _bits(b))
+
+
+def phase_backward_kernel(torch):
+    """The backward kernel against its plain version, bit for bit, on the
+    forward's cases: offsets from the forward kernel, a random gradient
+    in the input's type (stored off a 16-byte boundary where the input
+    is), values and zero cells alike.  Returns the max |difference|."""
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_cases = 0
+    max_err = 0.0
+    for label, x, ky, kx, sliding, _ in _cases(torch, gen):
+        widths = set()
+        for use_abs in (False, True):
+            _, offs = cuda_pooling.max_pooling_offsets(x, ky, kx, sliding,
+                                                       use_abs)
+            n = offs.numel()
+            buf = torch.randn(n + 1, generator=gen, device="cuda").to(
+                x.dtype)
+            err = (buf[1:] if x.data_ptr() % 16 else buf[:n]).view(
+                offs.shape)
+            grad = cuda_pooling_backward.max_pooling_offsets_backward(
+                err, offs, tuple(x.shape), ky, kx, sliding)
+            want = pooling.max_pooling_backward_plain(
+                err, offs, tuple(x.shape), ky, kx, sliding)
+            torch.cuda.synchronize()
+            if not _bits_equal(torch, grad, want):
+                raise RuntimeError(
+                    "backward kernel disagrees with its plain version: %s "
+                    "use_abs=%s (%d cells differ)" % (
+                        label, use_abs, (grad != want).sum().item()))
+            max_err = max(max_err, _max_abs_diff(grad, want))
+            widths.add(cuda_pooling_backward.vector_width(err, offs, grad))
+            n_cases += 1
+        say("   backward %s: bit-equal (%d nonzero cells), max and maxabs, "
+            "%s channel(s) a thread" % (label, (want != 0).sum().item(),
+                                        "/".join(map(str, sorted(widths)))))
+    say("== backward kernel: max_pooling_offsets_backward bit-equal to "
+        "max_pooling_backward_plain on %d cases" % n_cases)
+    return max_err
+
+
+def _max_abs_diff(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _rel_diffs(got, want):
+    """max |got - want| / max |want| over each parameter tensor of two
+    ``[{"w", "b"}]`` lists."""
+    out = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            ref = w[k].double()
+            diff = (g[k].double() - ref).abs().max()
+            out["%d%s" % (i, k)] = (diff / ref.abs().max()).item()
+    return out
+
+
+def _worst(rel, net):
+    """``(the largest of a _rel_diffs dict, "layer:type.w|b" of it)``."""
+    key = max(rel, key=rel.get)
+    return rel[key], "%s:%s.%s" % (key[:-1], net.specs[int(key[:-1])].type,
+                                  key[-1])
+
+
+def _set_pool_impl(net, impl):
+    for spec in net.specs:
+        if spec.kind == "pool":
+            spec.impl = impl
+
+
+def _set_dropout(net, ratio):
+    for spec in net.specs:
+        if spec.kind == "dropout":
+            spec.ratio = ratio
+
+
+def _step_updates(net, x, labels):
+    """One step from the loaded state: ``(loss, n_err, updates, weight
+    moves)`` on the host in float64.  ``updates`` are the updates before
+    they were added (the velocity slot, which the state starts at zero);
+    ``weight moves`` are ``p_after - p_before``, which also carry the
+    rounding of the weights' storage."""
+    if any(bool(slots["vel"].any()) for s in net.state
+           for slots in s.values()):
+        raise RuntimeError("the step must start from zero velocity")
+    before = [{k: v.double().cpu() for k, v in p.items()}
+              for p in net.params]
+    m = net.step(x, labels)
+    upd = [{k: slots["vel"].double().cpu() for k, slots in s.items()}
+           for s in net.state]
+    moves = [{k: v.double().cpu() - before[i][k] for k, v in p.items()}
+             for i, p in enumerate(net.params)]
+    return m["loss"].item(), int(m["n_err"]), upd, moves
+
+
+def _dropping_backward(real, region):
+    """``real`` (the backward kernel's wrapper) with the gradient of the
+    windows at ``region`` of every pool set to 0 — a wrong backward, the
+    step check's control."""
+    def backward(err, offsets, x_shape, ky, kx, sliding):
+        err = err.clone()
+        err[region] = 0
+        return real(err, offsets, x_shape, ky, kx, sliding)
+    return backward
+
+
+def _gather_check(torch, net, sd0, x, lbl):
+    """One step under the kernels and one under "gather" from ``sd0``,
+    then the controls: the kernel step with a backward that drops the
+    last row of windows (the bottom-edge cells lose one covering
+    window), and one that drops one window of one image."""
+    from znicz_tpu_torch.ops import cuda_pooling_backward
+    real = cuda_pooling_backward.max_pooling_offsets_backward
+    runs = (("kernels", "offsets", None), ("gather", "gather", None),
+            ("control, last window row dropped", "offsets",
+             (slice(None), -1)),
+            ("control, one window of one image dropped", "offsets",
+             (0, -1, -1)))
+    steps = {}
+    for name, impl, region in runs:
+        _set_pool_impl(net, impl)
+        net.load_state_dict(sd0)
+        if region is not None:
+            cuda_pooling_backward.max_pooling_offsets_backward = \
+                _dropping_backward(real, region)
+        try:
+            steps[name] = _step_updates(net, x, lbl)[:3]
+        finally:
+            cuda_pooling_backward.max_pooling_offsets_backward = real
+    _set_pool_impl(net, "offsets")
+    want = steps.pop("gather")
+    readings = {k: _worst(_rel_diffs(v[2], want[2]), net)
+                for k, v in steps.items()}
+    say("   step, batch %d, against the gather step (loss %.9g, n_err %d): "
+        "loss, n_err, max rel diff of the update of the worst tensor: %s"
+        % (TRAIN_BATCH, want[0], want[1], "; ".join(
+            "%s: %.9g, %d, %.3g (%s)" % ((k,) + steps[k][:2] + readings[k])
+            for k in steps)))
+    if steps["kernels"][:2] != want[:2]:
+        raise RuntimeError("the kernel step and the gather step differ in "
+                           "loss or n_err")
+    if not readings["kernels"][0] <= GATHER_STEP_RTOL:
+        raise RuntimeError("kernel and gather steps' updates differ by "
+                           "%g > %g" % (readings["kernels"][0],
+                                        GATHER_STEP_RTOL))
+    control = readings["control, last window row dropped"][0]
+    if not control > GATHER_STEP_RTOL:
+        raise RuntimeError("a backward that drops the last row of windows "
+                           "reads %g, within the %g limit: the check cannot "
+                           "see it" % (control, GATHER_STEP_RTOL))
+
+
+def _trace(torch, net, x, labels):
+    """One forward and backward of ``net`` from its state on the batch
+    ``x`` (no dropout), recorded on the host: each conv's strict-relu
+    gate (output > 0) and the gradient at its output, each max pool's
+    winners, and how far the sums of the first conv's weight gradient
+    cancel (the largest sum of |terms|, |dL/dpre| |input| over images
+    and positions, of a weight over the largest |gradient|: an error u
+    relative to each term moves the gradient by up to that many times
+    u of its largest value)."""
+    from znicz_tpu_torch.ops import conv as conv_ops
+    from znicz_tpu_torch.ops import pooling as pool_ops
+    from znicz_tpu_torch.parallel import fused
+    spec = net.specs[0]
+    if spec.kind != "conv" or spec.activation != "strict_relu":
+        raise RuntimeError("expected a strict-relu conv first, got %s" % spec)
+    real_conv, real_pool = conv_ops.forward, pool_ops.max_pooling_train
+    rec = {"inputs": [], "gates": [], "grads": [], "winners": []}
+
+    def conv(x_in, *args, **kwargs):
+        y = real_conv(x_in, *args, **kwargs)
+        i = len(rec["gates"])
+        rec["inputs"].append(x_in.detach())
+        rec["gates"].append(y.detach() > 0)
+        rec["grads"].append(None)
+        y.register_hook(lambda g: rec["grads"].__setitem__(i, g))
+        return y
+
+    def pool(*args, **kwargs):
+        values, offsets = real_pool(*args, **kwargs)
+        rec["winners"].append(offsets.cpu())
+        return values, offsets
+    dtype = net.params[0]["w"].dtype
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in fused._apply_weight_masks(net.params, net.specs)]
+    conv_ops.forward, pool_ops.max_pooling_train = conv, pool
+    try:
+        with torch.enable_grad():
+            loss, _ = fused._loss_and_stats(
+                leaves, torch.as_tensor(x).to(net.device, dtype),
+                torch.as_tensor(labels).to(net.device, torch.int32),
+                net.specs)
+            grad, = torch.autograd.grad(loss, [leaves[0]["w"]])
+    finally:
+        conv_ops.forward, pool_ops.max_pooling_train = real_conv, real_pool
+    d_pre = rec["grads"][0] * rec["gates"][0]  # strict relu's gradient
+    w = leaves[0]["w"].detach().requires_grad_()
+    with torch.enable_grad():
+        y_abs = real_conv(rec["inputs"][0].abs(), w, None, spec.ky, spec.kx,
+                          spec.padding, spec.sliding, include_bias=False)
+        terms, = torch.autograd.grad(y_abs, [w], d_pre.abs())
+    return {"gates": [g.cpu() for g in rec["gates"]],
+            "grads": [g.double().cpu() for g in rec["grads"]],
+            "winners": rec["winners"],
+            "cancellation": (terms.max() / grad.abs().max()).item()}
+
+
+def _trace_diffs(got, exact):
+    """Per conv: gates that differ and max |dL/d(output) difference| over
+    the largest; per pool: winners that differ."""
+    return {"gates": ["%d" % (g != e).sum().item()
+                      for g, e in zip(got["gates"], exact["gates"])],
+            "grads": ["%.3g" % ((g - e).abs().max() / e.abs().max()).item()
+                      for g, e in zip(got["grads"], exact["grads"])],
+            "winners": ["%d" % (g != e).sum().item()
+                        for g, e in zip(got["winners"], exact["winners"])]}
+
+
+def _cpu_check(torch, net, sd0, data, labels):
+    """One batch-2 step, dropout 0, on the card in f32 and with TF32 let
+    in, and on the CPU's plain path in f32 and f64, from ``sd0``: the
+    updates against the CPU's f64 ones, tensor by tensor, with the
+    forward's gates and winners and the backward's gradients at each
+    conv traced beside."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.samples import alexnet
+    x, lbl = data[:2], labels[:2]
+    t0 = time.perf_counter()
+    steps, traces = {}, {}
+    for dtype in (numpy.float64, numpy.float32):
+        name = "cpu %s" % numpy.dtype(dtype).name
+        ref = fused.FusedNet(alexnet.make_layers(), (227, 227, 3),
+                             rand=prng.RandomGenerator().seed(0),
+                             pool_impl="offsets", device="cpu", dtype=dtype)
+        ref.load_state_dict({k: sd0[k] for k in ("params", "opt",
+                                                 "hypers")})
+        _set_dropout(ref, 0.0)
+        traces[name] = _trace(torch, ref, x, lbl)
+        steps[name] = _step_updates(ref, x, lbl)
+        del ref
+    cpu_s = time.perf_counter() - t0
+    _set_dropout(net, 0.0)
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            net.load_state_dict(sd0)
+            if not tf32:
+                traces["card f32"] = _trace(torch, net, x, lbl)
+            steps["card tf32" if tf32 else "card f32"] = _step_updates(
+                net, x, lbl)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _set_dropout(net, 0.5)
+    exact = steps.pop("cpu float64")
+    upd = {k: _worst(_rel_diffs(v[2], exact[2]), net)
+           for k, v in steps.items()}
+    moves = {k: _worst(_rel_diffs(v[3], exact[3]), net)
+             for k, v in steps.items()}
+    say("   step, batch 2, dropout 0, against the CPU's plain path in f64 "
+        "(loss %.9g; %.1f s on the CPU): loss, then max rel diff of the "
+        "worst tensor's update before it is added, and of p_after - "
+        "p_before: %s" % (exact[0], cpu_s, "; ".join(
+            "%s: %.9g, %.3g (%s), %.3g (%s)" % ((k, steps[k][0]) + upd[k] +
+                                                moves[k])
+            for k in steps)))
+    t_exact = traces.pop("cpu float64")
+    n_gates = [g.numel() for g in t_exact["gates"]]
+    n_wins = [w.numel() for w in t_exact["winners"]]
+    say("   traced against the CPU's f64 step: the first conv's weight "
+        "gradient sums terms up to %.4g times its largest value; conv by "
+        "conv (of %s gates), strict-relu gates that differ, max |diff| of "
+        "the gradient at the output over its largest; pool by pool (of %s "
+        "winners), winners that differ: %s" % (
+            t_exact["cancellation"], "/".join(map(str, n_gates)),
+            "/".join(map(str, n_wins)), "; ".join(
+                "%s: gates %s, gradients %s, winners %s" % (
+                    (k,) + tuple("/".join(v) for v in _trace_diffs(
+                        t, t_exact).values()))
+                for k, t in traces.items())))
+    rel = {k: _rel_diffs(v[2], exact[2]) for k, v in steps.items()}
+    bound = {t: CPU_STEP_RATIO * max(r, CPU_STEP_FLOOR)
+             for t, r in rel["cpu float32"].items()}
+    say("   the updates tensor by tensor (card f32 / card tf32 / cpu f32; "
+        "bound %g times the CPU's f32, at least %g): %s" % (
+            CPU_STEP_RATIO, CPU_STEP_RATIO * CPU_STEP_FLOOR, ", ".join(
+                "%s %s" % (t, "/".join("%.3g" % rel[k][t] for k in (
+                    "card f32", "card tf32", "cpu float32")))
+                for t in bound)))
+    over = [t for t in bound if not rel["card f32"][t] <= bound[t]]
+    if over:
+        raise RuntimeError("the card's f32 update is farther from the "
+                           "CPU's f64 one than %g times the CPU's f32 at %s"
+                           % (CPU_STEP_RATIO, ", ".join(over)))
+    seen = [t for t in bound if rel["card tf32"][t] > bound[t]]
+    say("   the TF32 control exceeds the bound at %d of %d tensors"
+        % (len(seen), len(bound)))
+    if not seen:
+        raise RuntimeError("the TF32 control stays within the bound at "
+                           "every tensor: the check cannot see it")
+
+
+def phase_train(torch, card, cycles_per_ms):
+    """Full-width AlexNet trained through the port's FusedNet on the
+    card: the step checks, 3 epochs of windows, the step breakdown."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.samples import alexnet
+
+    t0 = time.perf_counter()
+    data, labels = alexnet.synthetic_images(TRAIN_IMAGES,
+                                            n_classes=TRAIN_CLASSES)
+    say("== train: %d prototype images of %d classes, %.2f GB, made in "
+        "%.2f s" % (len(data), TRAIN_CLASSES, data.nbytes / 1e9,
+                    time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    net = fused.FusedNet(alexnet.make_layers(), (227, 227, 3),
+                         rand=prng.RandomGenerator().seed(0),
+                         pool_impl="offsets", dropout_seed=0)
+    n_params = sum(t.numel() for p in net.params for t in p.values())
+    say("   FusedNet: full-width AlexNet, %d parameters, f32, "
+        "pool_impl='offsets', built in %.2f s" % (
+            n_params, time.perf_counter() - t0))
+    sd0 = net.state_dict()
+    x = data[:TRAIN_BATCH]
+    lbl = labels[:TRAIN_BATCH]
+
+    # 1. the kernels' step against the gather step; 2. the card against
+    # the CPU; cuDNN's deterministic algorithms for both
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _gather_check(torch, net, sd0, x, lbl)
+    _cpu_check(torch, net, sd0, data, labels)
+    torch.backends.cudnn.deterministic = False
+
+    # 3. the main path: 3 epochs of sliced windows, counts from 0
+    net.load_state_dict(sd0)
+    del sd0
+    t0 = time.perf_counter()
+    net.set_dataset(data, labels)
+    torch.cuda.synchronize()
+    say("   set_dataset: %.2f s" % (time.perf_counter() - t0))
+    x_dev = torch.from_numpy(x).to("cuda")
+    lbl_dev = torch.from_numpy(lbl).to("cuda")
+    del data, x, lbl
+    hypers_s = fused.stack_hypers(net.hypers, WINDOW_STEPS)
+    per_epoch = WINDOWS * WINDOW_STEPS * TRAIN_BATCH
+    rates = []
+    cuda_pooling.LAUNCHES = 0
+    cuda_pooling.LAUNCHES_WIDE = cuda_pooling.LAUNCHES_NARROW = 0
+    cuda_pooling_backward.LAUNCHES = 0
+    pooling.PLAIN_CUDA_CALLS = 0
+    for epoch in range(EPOCHS):
+        perm = numpy.random.RandomState(100 + epoch).permutation(
+            TRAIN_IMAGES)[:per_epoch]
+        net.set_epoch_perm(perm, 0)
+        net.reset_window_acc()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for w in range(WINDOWS):
+            starts = [(w * WINDOW_STEPS + k) * TRAIN_BATCH
+                      for k in range(WINDOW_STEPS)]
+            stats = net.run_window_sliced(
+                starts, TRAIN_BATCH, [TRAIN_BATCH] * WINDOW_STEPS, hypers_s)
+            losses.append(stats["loss"])
+        # the epoch's one readback
+        host = net.host_fetch({"acc": net.window_acc,
+                               "loss": torch.stack(losses)})
+        dt = time.perf_counter() - t0
+        rates.append(per_epoch / dt)
+        window_loss = host["loss"].mean(axis=1)
+        say("   epoch %d: window mean losses %s, n_err %s, max_err_sum "
+            "%.6g; %.2f s, %.1f images/s; %s" % (
+                epoch + 1, " ".join("%.6f" % v for v in window_loss),
+                host["acc"]["n_err"].tolist(),
+                float(host["acc"]["max_err_sum"]), dt, rates[-1], card))
+        if not numpy.isfinite(host["loss"]).all():
+            raise RuntimeError("a loss is not finite: %s" % host["loss"])
+        if int(host["acc"]["n_err"][1]) != per_epoch:
+            raise RuntimeError("epoch %d evaluated %d rows, not %d" % (
+                epoch + 1, host["acc"]["n_err"][1], per_epoch))
+    launches = {"forward": cuda_pooling.LAUNCHES,
+                "forward_by_width": {WIDE: cuda_pooling.LAUNCHES_WIDE,
+                                     NARROW: cuda_pooling.LAUNCHES_NARROW},
+                "backward": cuda_pooling_backward.LAUNCHES,
+                "plain_on_card": pooling.PLAIN_CUDA_CALLS}
+    n_steps = EPOCHS * WINDOWS * WINDOW_STEPS
+    if not net.params_finite():
+        raise RuntimeError("a parameter is not finite after training")
+    say("   %d steps: %s; parameters finite" % (n_steps, launches))
+    if launches["forward"] != 3 * n_steps or \
+            launches["backward"] != 3 * n_steps or \
+            launches["forward_by_width"][NARROW] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("expected 3 forward and 3 backward kernel "
+                           "launches a step at 16-byte vectors and no plain "
+                           "pooling on the card, got %s for %d steps"
+                           % (launches, n_steps))
+    say("   images/s over the timed epochs: %s, %.1f over epochs 2-%d; %s"
+        % (" ".join("%.1f" % r for r in rates),
+           per_epoch * (EPOCHS - 1) / sum(per_epoch / r for r in rates[1:]),
+           EPOCHS, card))
+    breakdown = _step_breakdown(torch, net, x_dev, lbl_dev, cycles_per_ms,
+                                card)
+    return launches, breakdown
+
+
+def _step_breakdown(torch, net, x, lbl, cycles_per_ms, card):
+    """Device ms of one batch-128 train step split into forward (with
+    the loss), backward and update, and the host's enqueue time of the
+    step: CUDA events at the step's marks, median of 10, after a device
+    spin of four times the slowest warm-up enqueue so the host is ahead
+    of the device all through the step.  Raises if the host's enqueue
+    ever reaches the spin."""
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        net.step(x, lbl)
+        warm.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    spin_ms = 4e3 * max(warm)
+    parts = ("forward", "backward", "update")
+    samples = {k: [] for k in parts + ("host",)}
+    gc.disable()
+    try:
+        for _ in range(10):
+            torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+            events = {}
+
+            def mark(name):
+                events[name] = torch.cuda.Event(enable_timing=True)
+                events[name].record()
+            t0 = time.perf_counter()
+            mark("start")
+            net.step(x, lbl, mark=mark)
+            samples["host"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            for a, b in zip(("start",) + parts, parts):
+                samples[b].append(events[a].elapsed_time(events[b]))
+    finally:
+        gc.enable()
+    if max(samples["host"]) >= spin_ms:
+        raise RuntimeError("the host took %.4f ms to enqueue a step, the "
+                           "device spin lasts %.4f ms"
+                           % (max(samples["host"]), spin_ms))
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    total = sum(ms[k] for k in parts)
+    say("   one train step, batch %d, device ms (median of 10, host ahead "
+        "by a %.1f ms spin): forward %.4f, backward %.4f, update %.4f, "
+        "total %.4f (%.1f images/s of device time); the host enqueues it "
+        "in %.4f ms; peak device memory %.1f GB; %s"
+        % (TRAIN_BATCH, spin_ms, ms["forward"], ms["backward"], ms["update"],
+           total, TRAIN_BATCH / total * 1e3, ms["host"],
+           torch.cuda.max_memory_allocated() / 1e9, card))
+    ms["total"] = total
+    return ms
+
+
+def phase_train_kernels(torch, card, cycles_per_ms):
+    """Both kernels at the three training shapes (batch 128): checked
+    bit for bit against their plain versions (values and offsets; the
+    gradient), then timed cold beside their bounds, their plain versions
+    and the library yardsticks (``F.max_pool2d``;
+    ``max_pool2d_with_indices_backward`` on its indices), which the port
+    never calls.  Returns the rows and each kernel's max |difference|."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    rows = {"forward": {}, "backward": {}}
+    max_err = {"forward": 0.0, "backward": 0.0}
+    for label, shape in TRAIN_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x_nchw = x.permute(0, 3, 1, 2)
+        b, h, w, c = shape
+        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        n_in, n_out = x.numel(), b * ny * nx * c
+        values, offs = cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
+        err = torch.randn(offs.shape, generator=gen, device="cuda")
+        grad = cuda_pooling_backward.max_pooling_offsets_backward(
+            err, offs, shape, 3, 3, (2, 2))
+        p_values, p_offs = pooling.max_pooling_plain(x, 3, 3, (2, 2))
+        p_grad = pooling.max_pooling_backward_plain(err, offs, shape, 3, 3,
+                                                    (2, 2))
+        torch.cuda.synchronize()
+        if not (_bits_equal(torch, values, p_values) and
+                torch.equal(offs, p_offs)):
+            raise RuntimeError("forward kernel disagrees with its plain "
+                               "version at %s %s" % (label, shape))
+        if not _bits_equal(torch, grad, p_grad):
+            raise RuntimeError("backward kernel disagrees with its plain "
+                               "version at %s %s (%d cells differ)" % (
+                                   label, shape,
+                                   (grad != p_grad).sum().item()))
+        max_err["forward"] = max(max_err["forward"],
+                                 _max_abs_diff(values, p_values))
+        max_err["backward"] = max(max_err["backward"],
+                                  _max_abs_diff(grad, p_grad))
+        say("   %s %s f32: both kernels bit-equal to their plain versions "
+            "(values and offsets; the gradient, %d nonzero cells)"
+            % (label, shape, (p_grad != 0).sum().item()))
+        del values, grad, p_values, p_offs, p_grad
+        err_nchw = err.permute(0, 3, 1, 2)
+        _, idx = F.max_pool2d(x_nchw, 3, 2, ceil_mode=True,
+                              return_indices=True)
+        work = {
+            # input read, values and offsets written; 9 compares an output
+            "forward": (n_in * 4 + n_out * 8, n_out * 9, {
+                "ms": lambda: cuda_pooling.max_pooling_offsets(
+                    x, 3, 3, (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_plain(
+                    x, 3, 3, (2, 2)),
+                "library_ms": lambda: F.max_pool2d(
+                    x_nchw, 3, 2, ceil_mode=True, return_indices=True)}),
+            # err and offsets read, the input gradient written; each
+            # window's offsets compared by its 9 cells, its err added once
+            "backward": (n_out * 8 + n_in * 4, n_out * 10, {
+                "ms": lambda: cuda_pooling_backward
+                .max_pooling_offsets_backward(err, offs, shape, 3, 3,
+                                              (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_backward_plain(
+                    err, offs, shape, 3, 3, (2, 2)),
+                "library_ms": lambda: torch.ops.aten
+                .max_pool2d_with_indices_backward(
+                    err_nchw, x_nchw, [3, 3], [2, 2], [0, 0], [1, 1], True,
+                    idx)})}
+        for kind, (nbytes, ops, fns) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            iters = SMALL_TIMING_ITERS if bound < 0.01 else TIMING_ITERS
+            row = {"bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            for key, fn in fns.items():
+                row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                    torch, fn, flush, cycles_per_ms, iters)
+            rows[kind][label] = row
+            say("   %s %s %s f32: kernel %.4f ms (host enqueue %.4f ms), "
+                "plain %.4f ms, library %.4f ms, bound %.4f ms (%.1f MB), "
+                "%.0f%% of bound; %d samples; %s"
+                % (kind, label, shape, row["ms"], row["host_ms"],
+                   row["plain_ms"], row["library_ms"], bound, nbytes / 1e6,
+                   100 * bound / row["ms"], iters, card))
+    return rows, max_err
+
+
+def _sums(rows):
+    """Per-step sums of the timings over the three pools."""
+    rec = {k: sum(r[k] for r in rows.values())
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    rec["host_enqueue_ms"] = sum(r["host_ms"] for r in rows.values())
+    rec["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                      for r in rows.values())
+                       else "operations")
+    return rec
+
+
 def main():
     import torch
     name, smi = phase_device(torch)
@@ -586,25 +1330,39 @@ def main():
     except ImportError as e:
         raise SystemExit("chip_smoke: the znicz_tpu_torch package is not "
                          "beside this script (%s)" % e)
-    from znicz_tpu_torch.ops import cuda_pooling
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     card = "[%s]" % smi
     phase_build()
     cycles_per_ms = _spin_cycles_per_ms(torch)
     rows, max_err = phase_kernels(torch, card, cycles_per_ms)
+    backward_err = phase_backward_kernel(torch)
     by_width, layer_ms = phase_serve(torch, card, cycles_per_ms)
     for label in rows:
         say("   %s in the model: %.4f ms (warm L2), cold alone %.4f ms; %s"
             % (label, layer_ms[label], rows[label]["ms"], card))
+    train_launches, _ = phase_train(torch, card, cycles_per_ms)
+    train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
-    kernel = {"name": "max_pooling_offsets", "route": "cuda",
-              "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
-              "replaces": cuda_pooling.REPLACES,
-              "launches": sum(by_width.values()),
-              "launches_by_width": by_width}
-    kernel.update(kernel_record(rows, max_err, layer_ms))
-    say(json.dumps({"kernels": [kernel]}))
+    forward = {"name": "max_pooling_offsets", "route": "cuda",
+               "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
+               "replaces": cuda_pooling.REPLACES,
+               "launches": sum(by_width.values()) + train_launches["forward"],
+               "launches_by_path": {"serve": sum(by_width.values()),
+                                    "train": train_launches["forward"]},
+               "launches_by_width": by_width}
+    forward.update(kernel_record(rows, max(max_err, train_err["forward"]),
+                                 layer_ms))
+    forward["train"] = _sums(train_rows["forward"])
+    backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
+                "source": "znicz_tpu_torch/csrc/" +
+                cuda_pooling_backward.SOURCE,
+                "replaces": cuda_pooling_backward.REPLACES,
+                "launches": train_launches["backward"],
+                "max_abs_err": max(backward_err, train_err["backward"])}
+    backward.update(_sums(train_rows["backward"]))
+    say(json.dumps({"kernels": [forward, backward]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

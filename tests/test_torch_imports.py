@@ -47,6 +47,12 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
     doc = json.loads(out.strip().splitlines()[-1])
     assert doc["bad"] == []
     for name in ("znicz_tpu_torch.ops.cuda_pooling",
+                 "znicz_tpu_torch.ops.cuda_pooling_backward",
+                 "znicz_tpu_torch.ops.gd_math",
+                 "znicz_tpu_torch.ops.evaluator",
+                 "znicz_tpu_torch.ops.init",
+                 "znicz_tpu_torch.core.prng",
+                 "znicz_tpu_torch.parallel.fused",
                  "znicz_tpu_torch.serving.server",
                  "znicz_tpu_torch.samples.alexnet"):
         assert name in doc["modules"]

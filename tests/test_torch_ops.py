@@ -99,3 +99,83 @@ def test_lrn_forward_matches_jax(c, n, k):
     y = normalization.lrn_forward(torch.from_numpy(x), alpha=1e-4,
                                   beta=0.75, k=k, n=n)
     _close(y, jax_norm.lrn_forward_jax(x, alpha=1e-4, beta=0.75, k=k, n=n))
+
+
+# -- gradients, float64: autograd of the port against jax.vjp ----------
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+GRAD_TOL = dict(rtol=1e-12, atol=1e-15)
+
+
+def _vjp_pair(port_fn, jax_fn, args, seed):
+    """Port autograd and jax.vjp of the same function, same float64
+    inputs and cotangent; returns (port grads, jax grads)."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    y = port_fn(*ts)
+    ct = numpy.random.RandomState(seed).uniform(-1, 1, tuple(y.shape))
+    got = torch.autograd.grad(y, ts, torch.from_numpy(ct))
+    yj, vjp = jax.vjp(jax_fn, *[jnp.asarray(a) for a in args])
+    numpy.testing.assert_allclose(y.detach().numpy(), numpy.asarray(yj),
+                                  **GRAD_TOL)
+    return [g.numpy() for g in got], [numpy.asarray(g) for g in vjp(ct)]
+
+
+@pytest.mark.parametrize("name", ["linear", "tanh", "relu", "strict_relu",
+                                  "sigmoid"])
+def test_activation_gradient_matches_jax(name):
+    """Through the output, with the reference's rounded constants (tanh's
+    derivative cancels to ~1e-10 at |x| = 20, where the 1-ulp difference
+    of the two libraries' tanh shows: hence the atol); strict relu's
+    gradient at 0 is 0, as the JAX package pins it."""
+    x = numpy.concatenate([[-20.0, -1e-3, 0.0, 0.0, 1e-3, 14.9, 15.0, 15.1],
+                           numpy.random.RandomState(1).uniform(-20, 20, 64)])
+    got, want = _vjp_pair(lambda t: activations.apply(name, t),
+                          lambda a: jax_act.apply_jax(name, a), [x], 2)
+    numpy.testing.assert_allclose(got[0], want[0], **GRAD_TOL)
+    if name == "strict_relu":
+        assert (got[0][2:4] == 0).all()
+
+
+@pytest.mark.parametrize("padding,sliding", [
+    ((1, 2, 0, 1), (2, 1)), ((2, 2, 2, 2), (1, 1)), ((0, 0, 0, 0), (4, 4))])
+def test_conv_gradients_match_jax(padding, sliding):
+    """Input, weights ``(K, ky*kx*C)`` and bias gradients of the conv in
+    the JAX package's layouts."""
+    ky, kx, c, k = 3, 3, 4, 6
+    r = numpy.random.RandomState(3)
+    args = [r.uniform(-1, 1, (2, 9, 8, c)), r.uniform(-1, 1, (k, ky * kx * c)),
+            r.uniform(-1, 1, (k,))]
+    got, want = _vjp_pair(
+        lambda x, w, b: conv.forward(x, w, b, ky, kx, padding, sliding),
+        lambda x, w, b: jax_conv.forward_jax(x, w, b, ky, kx, padding,
+                                             sliding), args, 4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        numpy.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("c,n", [(12, 5), (7, 3)])
+def test_lrn_gradient_matches_jax_autodiff(c, n):
+    """The fused path differentiates ``lrn_forward_jax`` by autodiff;
+    the port's autograd of the same band-matrix product agrees."""
+    x = numpy.random.RandomState(5).uniform(-3, 3, (2, 3, 4, c))
+    got, want = _vjp_pair(
+        lambda t: normalization.lrn_forward(t, 1e-4, 0.75, 2, n),
+        lambda a: jax_norm.lrn_forward_jax(a, alpha=1e-4, beta=0.75, k=2,
+                                           n=n), [x], 6)
+    numpy.testing.assert_allclose(got[0], want[0], **GRAD_TOL)
+
+
+def test_dense_gradients_match_jax():
+    r = numpy.random.RandomState(7)
+    args = [r.uniform(-1, 1, (5, 2, 3, 4)), r.uniform(-1, 1, (7, 24)),
+            r.uniform(-1, 1, (7,))]
+    got, want = _vjp_pair(
+        lambda x, w, b: dense.forward(x, w, b, activation="tanh"),
+        lambda x, w, b: jax_dense.forward_jax(x, w, b, activation="tanh"),
+        args, 8)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        numpy.testing.assert_allclose(g, w, **GRAD_TOL)

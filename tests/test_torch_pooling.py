@@ -200,3 +200,155 @@ def test_avg_pooling_matches_jax(geom, dtype):
     numpy.testing.assert_allclose(
         got.numpy(), numpy.asarray(want), rtol=1e-6,
         atol=1e-7 if dtype == numpy.float32 else 0)
+
+
+# -- the training side: backward, autograd, the lowerings ---------------
+
+from znicz_tpu_torch.ops import cuda_pooling_backward  # noqa: E402
+
+
+def _zero_signs_differ_only(got, want):
+    """``got`` equals ``want`` as numbers, and bit for bit wherever
+    ``want`` is not zero; a zero of ``got`` is +0.0."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert (got == want).all()
+    ints = {4: numpy.int32, 8: numpy.int64}[got.itemsize]
+    nz = want != 0
+    assert (got.view(ints)[nz] == want.view(ints)[nz]).all()
+    assert (got.view(ints)[~nz] == 0).all()
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("use_abs", [False, True])
+@pytest.mark.parametrize("dtype", [numpy.float32, numpy.float64])
+def test_max_pooling_backward_plain_bit_equal_to_jax(geom, use_abs, dtype):
+    """The plain backward against ``_maxpool_bwd_dense`` on the JAX
+    package's winner offsets: bit-equal.  The one difference is the
+    sign of a zero where windows do not overlap: there the JAX function
+    multiplies each gradient by a 0/1 one-hot (a negative gradient
+    times 0 is -0.0), while the plain version, like the kernel, sums
+    from +0.0."""
+    _, _, _, ky, kx, sliding = geom
+    x = _tied_input(geom, 13).astype(dtype)
+    _, offs = jax_pool.max_pooling_gather_jax(x, ky, kx, sliding, use_abs)
+    offs = numpy.array(offs)
+    err = numpy.random.RandomState(17).uniform(-1, 1, offs.shape).astype(
+        dtype)
+    want = numpy.asarray(jax_pool._maxpool_bwd_dense(
+        jnp.asarray(err), jnp.asarray(offs), x.shape, ky, kx, sliding))
+    got = pooling.max_pooling_backward_plain(
+        torch.from_numpy(err), torch.from_numpy(offs), x.shape, ky, kx,
+        sliding).numpy()
+    _zero_signs_differ_only(got, want)
+    if tuple(sliding) != (kx, ky):  # overlapping: the very same bits
+        assert (got.view(numpy.uint8) == want.view(numpy.uint8)).all()
+
+
+@pytest.mark.parametrize("geom", [GEOMS[0], GEOMS[1],
+                                  (7, 7, 3, 3, 3, (2, 2))])
+@pytest.mark.parametrize("use_abs", [False, True])
+def test_max_pooling_train_gradcheck(geom, use_abs):
+    """Numerical gradients of the autograd function in float64 (untied
+    inputs: a small step moves no winner); the offsets take none."""
+    sy, sx, c, ky, kx, sliding = geom
+    x = torch.from_numpy(numpy.random.RandomState(3).uniform(
+        -1, 1, (2, sy, sx, c))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda t: pooling.max_pooling_train(t, ky, kx, sliding,
+                                            use_abs)[0], (x,))
+    _, offs = pooling.max_pooling_train(x, ky, kx, sliding, use_abs)
+    assert not offs.requires_grad and offs.dtype == torch.int32
+
+
+@pytest.mark.parametrize("geom", [GEOMS[1], GEOMS[3], GEOMS[6]])
+@pytest.mark.parametrize("use_abs", [False, True])
+def test_lowerings_agree_on_cpu(geom, use_abs):
+    """On the CPU the "offsets" function runs the plain versions: its
+    values and input gradient equal the plain forward and backward bit
+    for bit, and the "gather" and "reduce_window" lowerings give the
+    same values and (untied data) the same gradient."""
+    sy, sx, c, ky, kx, sliding = geom
+    x0 = torch.from_numpy(numpy.random.RandomState(4).uniform(
+        -1, 1, (2, sy, sx, c)))
+    err = torch.from_numpy(numpy.random.RandomState(5).uniform(
+        -1, 1, (2,) + pooling.output_spatial(sy, sx, ky, kx, sliding) +
+        (c,)))
+    mode = "maxabs" if use_abs else "max"
+    results = []
+    for fn in (lambda t: pooling.max_pooling_train(t, ky, kx, sliding,
+                                                   use_abs)[0],
+               lambda t: pooling.max_pooling_gather(t, ky, kx, sliding,
+                                                    use_abs),
+               lambda t: pooling.pooling_reduce_window(t, ky, kx, sliding,
+                                                       mode)):
+        x = x0.clone().requires_grad_()
+        y = fn(x)
+        y.backward(err)
+        results.append((y.detach(), x.grad))
+    pv, po = pooling.max_pooling_plain(x0, ky, kx, sliding, use_abs)
+    assert torch.equal(results[0][0], pv)
+    assert torch.equal(results[0][1], pooling.max_pooling_backward_plain(
+        err, po, x0.shape, ky, kx, sliding))
+    for y, g in results[1:]:
+        assert torch.equal(y, pv)
+        torch.testing.assert_close(g, results[0][1], rtol=1e-15, atol=0)
+
+
+def test_backward_dispatch_runs_plain_on_cpu_and_kernel_refuses_cpu():
+    x = torch.from_numpy(_tied_input(GEOMS[3], 3))
+    _, o = pooling.max_pooling_plain(x, 3, 3, (2, 2))
+    err = torch.randn(o.shape, generator=torch.Generator().manual_seed(0))
+    got = pooling.max_pooling_backward(err, o, x.shape, 3, 3, (2, 2))
+    assert torch.equal(got, pooling.max_pooling_backward_plain(
+        err, o, x.shape, 3, 3, (2, 2)))
+    launches = cuda_pooling_backward.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_pooling_backward.max_pooling_offsets_backward(
+            err, o, x.shape, 3, 3, (2, 2))
+    assert cuda_pooling_backward.LAUNCHES == launches
+
+
+def test_backward_kernel_guards():
+    """Everything the kernel does not take is refused before the launch
+    (and before the device is looked at), and counts no launch."""
+    f = cuda_pooling_backward.max_pooling_offsets_backward
+    err = torch.zeros(2, 3, 3, 4)
+    offs = torch.zeros(2, 3, 3, 4, dtype=torch.int32)
+    x_shape = (2, 7, 7, 4)
+    launches = cuda_pooling_backward.LAUNCHES
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        f(err.double(), offs, x_shape, 3, 3, (2, 2))
+    with pytest.raises(TypeError, match="int32"):
+        f(err, offs.long(), x_shape, 3, 3, (2, 2))
+    with pytest.raises(ValueError, match="4-D"):
+        f(err[0], offs[0], x_shape, 3, 3, (2, 2))
+    with pytest.raises(ValueError, match="overflow"):
+        shape = (2, 3, 3, 2 ** 28)  # views of one element: no memory
+        f(torch.zeros(1).expand(shape),
+          torch.zeros(1, dtype=torch.int32).expand(shape),
+          (2, 7, 7, 2 ** 28), 3, 3, (2, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        f(err.transpose(1, 2), offs, x_shape, 3, 3, (2, 2))
+    with pytest.raises(ValueError, match="positive"):
+        f(err, offs, x_shape, 3, 0, (2, 2))
+    for bad in ((3, 7, 7, 4), (2, 9, 9, 4), (2, 7, 7, 5)):
+        with pytest.raises(ValueError, match="pooling of"):
+            f(err, offs, bad, 3, 3, (2, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        f(err, offs, x_shape, 3, 3, (2, 2))
+    assert cuda_pooling_backward.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (torch.float32, 96, 4), (torch.float32, 87, 1), (torch.float32, 36, 4),
+    (torch.bfloat16, 96, 8), (torch.float16, 36, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_backward_vector_width(dtype, c, want, aligned):
+    """16-byte vectors where C and all three addresses allow them."""
+    n = 2 * 3 * 3 * c
+    buf = torch.zeros(n + 4, dtype=dtype)
+    err = (buf[:n] if aligned else buf[1:n + 1]).view(2, 3, 3, c)
+    offs = torch.zeros((2, 3, 3, c), dtype=torch.int32)
+    grad = torch.zeros((2, 7, 7, c), dtype=dtype)
+    assert cuda_pooling_backward.vector_width(err, offs, grad) == \
+        (want if aligned else 1)

@@ -1,7 +1,8 @@
-"""Activation functions (forward) on tensors.
+"""Activation functions on tensors, with the JAX package's gradients.
 
 Counterpart of ``znicz_tpu/ops/activations.py`` (``apply_jax`` :71,
-``ext_apply_jax`` :127), with the reference's constants:
+``ext_apply_jax`` :127, ``derivative_jax`` :143), with the reference's
+constants:
 
 * tanh is the SCALED tanh ``1.7159 * tanh(0.6666 x)``;
 * "relu" is Znicz's softplus ``log(1 + e^x)``, the identity above
@@ -10,12 +11,24 @@ Counterpart of ``znicz_tpu/ops/activations.py`` (``apply_jax`` :71,
 * sigmoid is ``1 / (1 + e^-x)``;
 * the standalone-unit family: log ``log(x + sqrt(x^2 + 1))``, the
   tanhlog hybrid and sincos (cos on even flat indices, sin on odd).
+
+Gradients.  The JAX package differentiates tanh, softplus "relu",
+sigmoid and strict relu through their OUTPUT y with the reference's
+rounded constants (``_with_output_vjp`` :44-69): tanh'
+``1.14381894 - 0.388484177 y^2``, softplus' ``1 - e^-y``, strict
+relu' ``[y > 0]`` (0 at the tie, where autograd of ``max`` would give
+0.5), sigmoid' ``y (1 - y)``.  :func:`apply` does the same through a
+``torch.autograd.Function`` when its input needs a gradient; plain
+autograd of ``torch.tanh`` differs from the rounded constants by about
+1e-9 per layer.
 """
 
 import torch
 
 TANH_A = 1.7159
 TANH_B = 0.6666
+TANH_DA = 1.14381894     # A * B
+TANH_DB = -0.388484177   # -(B / A)
 
 # TanhLog hybrid constants (reference activation.py:525-532)
 TANHLOG_D = 3
@@ -23,10 +36,7 @@ TANHLOG_A = 0.242528761112
 TANHLOG_B = 305.459953195
 
 
-def apply(name, x):
-    """A fused-layer activation epilogue by name."""
-    if name == "linear":
-        return x
+def _forward(name, x):
     if name == "tanh":
         return TANH_A * torch.tanh(TANH_B * x)
     if name == "relu":
@@ -37,6 +47,46 @@ def apply(name, x):
     if name == "sigmoid":
         return 1.0 / (1.0 + torch.exp(-x))
     raise ValueError("unknown activation %r" % name)
+
+
+def derivative(name, y):
+    """f'(x) expressed through the output y = f(x)."""
+    if name == "linear":
+        return torch.ones_like(y)
+    if name == "tanh":
+        return y * y * TANH_DB + TANH_DA
+    if name == "relu":
+        return 1.0 - torch.exp(-y)
+    if name == "strict_relu":
+        return (y > 0).to(y.dtype)
+    if name == "sigmoid":
+        return y * (1.0 - y)
+    raise ValueError("unknown activation %r" % name)
+
+
+class _OutputGrad(torch.autograd.Function):
+    """f(x) whose backward is ``ct * derivative(name, y)``."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        y = _forward(name, x)
+        ctx.save_for_backward(y)
+        ctx.name = name
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        y, = ctx.saved_tensors
+        return ct * derivative(ctx.name, y), None
+
+
+def apply(name, x):
+    """A fused-layer activation epilogue by name."""
+    if name == "linear":
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _OutputGrad.apply(x, name)
+    return _forward(name, x)
 
 
 def ext_apply(name, x):

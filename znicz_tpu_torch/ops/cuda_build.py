@@ -1,10 +1,11 @@
-"""Builds a CUDA source of the port (``znicz_tpu_torch/csrc``) into a
-shared library with a plain C interface, for ``ctypes``.
+"""Builds the CUDA sources of the port (``znicz_tpu_torch/csrc``) into
+shared libraries with a plain C interface, for ``ctypes``.
 
-The source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
+Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC -Xptxas -v`` into
 ``build/znicz_tpu_torch/`` under the repository root, at first use,
 named by a hash of its content and flags so an edited source rebuilds.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 ptxas's report of each kernel (registers, shared memory, spills) is
 kept beside the library, in ``<library>.log``; :func:`ptxas_report`
 reads it.  Nothing here runs at import: the CPU tests import every
@@ -31,29 +32,58 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def sources():
+    """Every CUDA source of the port, by file name."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def library_path(source):
+    """Where ``csrc/<source>``'s library is (or will be) built."""
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, "lib%s-%s.so"
+                        % (os.path.splitext(source)[0], digest))
+
+
+def build_all(names=None):
+    """Compile every source of ``names`` (all of :func:`sources` by
+    default) that is not built yet, one ``nvcc`` per source, all
+    started together; returns ``{source: library path}``.  Raises with
+    nvcc's output when a compile fails, after every compile ended."""
+    names = sources() if names is None else list(names)
+    outs = {name: library_path(name) for name in names}
+    todo = [name for name in names if not os.path.exists(outs[name])]
+    if not todo:
+        return outs
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = "%s.%d.tmp" % (outs[name], os.getpid())
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc] + list(NVCC_FLAGS) +
+            ["-o", tmp, os.path.join(CSRC_DIR, name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append("nvcc failed for %s:\n%s" % (name, log))
+            continue
+        with open(outs[name] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, outs[name])  # atomic: no half-written library
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(source):
     """Compile ``csrc/<source>`` unless it is built already; returns
     the library's path.  Raises with nvcc's output when the compile
-    fails.  The caller serialises calls."""
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, "lib%s-%s.so"
-                       % (os.path.splitext(source)[0], digest))
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (out, os.getpid())
-    proc = subprocess.run([_nvcc()] + list(NVCC_FLAGS) + ["-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for %s:\n%s%s"
-                           % (source, proc.stdout, proc.stderr))
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: no half-written library
-    return out
+    fails.  The caller serialises calls of one source."""
+    return build_all([source])[source]
 
 
 def ptxas_report(source):

@@ -1,9 +1,10 @@
-"""Pooling forward on NHWC tensors: max / maxabs with winner offsets,
-and avg.
+"""Pooling on NHWC tensors: max / maxabs with winner offsets, and avg,
+forward and, for training, backward.
 
 Counterpart of ``znicz_tpu/ops/pooling.py`` (``output_spatial`` :29,
-``max_pooling_jax`` :77-94, ``pooling_fwd_jax`` :313-351), with the
-reference semantics:
+``max_pooling_jax`` :77-94, ``_maxpool_bwd_dense`` :118,
+``max_pooling_train_jax`` :158-191, ``pooling_fwd_jax`` :313-351),
+with the reference semantics:
 
 * ``sliding`` is ``(x, y)``; the output size is ceil-mode,
   ``out = ceil((s - k) / stride) + 1``, so windows may overhang the
@@ -16,12 +17,33 @@ reference semantics:
 
 :func:`max_pooling` launches the hand-written CUDA kernel
 (:mod:`znicz_tpu_torch.ops.cuda_pooling`) for a CUDA tensor and runs
-:func:`max_pooling_plain` for a CPU tensor.  There is no fallback from
-the kernel to the plain version: on the card it launches or raises.
+:func:`max_pooling_plain` for a CPU tensor; :func:`max_pooling_backward`
+does the same with the backward kernel
+(:mod:`znicz_tpu_torch.ops.cuda_pooling_backward`) and
+:func:`max_pooling_backward_plain`.  There is no fallback from a
+kernel to its plain version: on the card it launches or raises.
+
+Training lowerings of a max pool (the fused path's ``PoolSpec.impl``,
+``znicz_tpu/parallel/fused.py:210-250``):
+
+* "offsets" — :func:`max_pooling_train`, an autograd function over the
+  two kernels (their plain versions on the CPU);
+* "gather" — :func:`max_pooling_gather`: the plain argmax, then a
+  gather whose autograd backward is a scatter-add;
+* "reduce_window" — :func:`pooling_reduce_window`: ``F.max_pool2d`` on
+  the channels_last view; the JAX package leaves this one to XLA.
+
+``PLAIN_CUDA_CALLS`` counts calls of the plain max-pool versions on
+CUDA tensors (the card's path runs the kernels; the plain versions
+run there only as a reference).
 """
 
 import torch
 import torch.nn.functional as F
+
+#: calls of max_pooling_plain / max_pooling_backward_plain on CUDA
+#: tensors since the counter was last set to 0
+PLAIN_CUDA_CALLS = 0
 
 
 def output_spatial(sy, sx, ky, kx, sliding):
@@ -73,14 +95,22 @@ def max_pooling_plain(x, ky, kx, sliding, use_abs=False):
     first-winner tie rule.  A window wholly past the edge (only when
     the stride exceeds the window) yields 0 at its origin offset, as
     the TPU kernel does."""
-    key = torch.abs(x) if use_abs else x
-    key = key.to(torch.promote_types(x.dtype, torch.float32))
-    kwin, ny, nx = _windows(key, ky, kx, sliding, float("-inf"))
-    q = torch.argmax(kwin, dim=4)
+    global PLAIN_CUDA_CALLS
+    if x.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    q, ny, nx = _winners(x, ky, kx, sliding, use_abs)
     vwin, _, _ = _windows(x, ky, kx, sliding, 0.0)
     values = torch.gather(vwin, 4, q.unsqueeze(4)).squeeze(4)
     offsets = _flat_offsets(x.shape, ny, nx, kx, sliding, q)
     return values, offsets.to(torch.int32)
+
+
+def _winners(x, ky, kx, sliding, use_abs):
+    """Window cell index of each output's winner ``(B, ny, nx, C)``."""
+    key = torch.abs(x) if use_abs else x
+    key = key.detach().to(torch.promote_types(x.dtype, torch.float32))
+    kwin, ny, nx = _windows(key, ky, kx, sliding, float("-inf"))
+    return torch.argmax(kwin, dim=4), ny, nx
 
 
 def max_pooling(x, ky, kx, sliding, use_abs=False):
@@ -93,6 +123,136 @@ def max_pooling(x, ky, kx, sliding, use_abs=False):
     if x.device.type != "cpu":
         raise ValueError("max_pooling: no path for device %s" % x.device)
     return max_pooling_plain(x, ky, kx, sliding, use_abs)
+
+
+def max_pooling_backward_plain(err, offsets, x_shape, ky, kx, sliding):
+    """The plain PyTorch version of the max-pooling backward kernel:
+    the input gradient ``x_shape`` of a max pool whose forward recorded
+    ``offsets``.
+
+    A gather that visits, for each input cell, the windows covering it:
+    for dy ascending, then dx ascending, window ``((y - dy) / sy,
+    (x - dx) / sx)`` adds its ``err`` where it covers the cell and its
+    offset is the cell's flat index.  The sum starts from +0.0 and is
+    taken in ``err``'s type, in the order of the JAX package's
+    ``_maxpool_bwd_dense`` shifted accumulation."""
+    global PLAIN_CUDA_CALLS
+    if err.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    b, h, w, c = x_shape
+    ny, nx = err.shape[1], err.shape[2]
+    sx, sy = sliding
+    dev = err.device
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    cell = ((torch.arange(b, device=dev).view(b, 1, 1, 1) * h +
+             ys.view(1, h, 1, 1)) * w + xs.view(1, 1, w, 1)) * c + \
+        torch.arange(c, device=dev).view(1, 1, 1, c)
+    zero = torch.zeros((), dtype=err.dtype, device=dev)
+    grad = torch.zeros(tuple(x_shape), dtype=err.dtype, device=dev)
+
+    def covering(pos, d, stride, n):
+        """Window index along one axis, and whether it covers ``pos``."""
+        o = pos - d
+        ok = (o >= 0) & (o % stride == 0) & (o // stride < n)
+        return torch.where(ok, o // stride, 0), ok
+
+    for dy in range(ky):
+        iy, oky = covering(ys, dy, sy, ny)
+        err_y = err.index_select(1, iy)
+        offs_y = offsets.index_select(1, iy)
+        for dx in range(kx):
+            ix, okx = covering(xs, dx, sx, nx)
+            hit = (oky.view(1, h, 1, 1) & okx.view(1, 1, w, 1) &
+                   (offs_y.index_select(2, ix) == cell))
+            grad = grad + torch.where(hit, err_y.index_select(2, ix), zero)
+    return grad
+
+
+def max_pooling_backward(err, offsets, x_shape, ky, kx, sliding):
+    """The input gradient of a max pool from its winner offsets — the
+    kernel for CUDA tensors, :func:`max_pooling_backward_plain` for CPU
+    tensors."""
+    if err.is_cuda:
+        from znicz_tpu_torch.ops import cuda_pooling_backward
+        return cuda_pooling_backward.max_pooling_offsets_backward(
+            err, offsets, x_shape, ky, kx, sliding)
+    if err.device.type != "cpu":
+        raise ValueError("max_pooling_backward: no path for device %s"
+                         % err.device)
+    return max_pooling_backward_plain(err, offsets, x_shape, ky, kx,
+                                      sliding)
+
+
+class _MaxPoolingTrain(torch.autograd.Function):
+    """Max pooling whose backward routes each window's gradient to its
+    recorded winner; the offsets take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx, sliding, use_abs):
+        values, offsets = max_pooling(x.contiguous(), ky, kx, sliding,
+                                      use_abs)
+        ctx.mark_non_differentiable(offsets)
+        ctx.save_for_backward(offsets)
+        ctx.geometry = (tuple(x.shape), ky, kx, sliding)
+        return values, offsets
+
+    @staticmethod
+    def backward(ctx, err, _):
+        offsets, = ctx.saved_tensors
+        x_shape, ky, kx, sliding = ctx.geometry
+        return (max_pooling_backward(err.contiguous(), offsets, x_shape,
+                                     ky, kx, sliding),
+                None, None, None, None)
+
+
+def max_pooling_train(x, ky, kx, sliding, use_abs=False):
+    """Differentiable max/maxabs pooling: ``(values, int32 offsets)``
+    with the first-winner rule, forward and backward on the kernels for
+    a CUDA tensor (counterpart of ``max_pooling_train_jax``)."""
+    return _MaxPoolingTrain.apply(x, int(ky), int(kx), tuple(sliding),
+                                  bool(use_abs))
+
+
+def max_pooling_gather(x, ky, kx, sliding, use_abs=False):
+    """Differentiable max/maxabs pooling values by the plain argmax and a
+    gather (the "gather" lowering): its backward is autograd's
+    scatter-add to the first winners."""
+    global PLAIN_CUDA_CALLS
+    if x.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    q, _, _ = _winners(x, ky, kx, sliding, use_abs)
+    vwin, _, _ = _windows(x, ky, kx, sliding, 0.0)
+    return torch.gather(vwin, 4, q.unsqueeze(4)).squeeze(4)
+
+
+def pooling_reduce_window(x, ky, kx, sliding, mode="max"):
+    """Offset-free pooling (the "reduce_window" lowering, counterpart of
+    ``pooling_fwd_jax``): ``F.max_pool2d`` in ceil mode on the
+    channels_last view for max, the larger-magnitude of the window max
+    and min for maxabs, :func:`avg_pooling` for avg.  Ties route as
+    ``max_pool2d``'s backward routes them."""
+    if mode == "avg":
+        return avg_pooling(x, ky, kx, sliding)
+    if mode not in ("max", "maxabs"):
+        raise ValueError(mode)
+    ny, nx = output_spatial(x.shape[1], x.shape[2], ky, kx, sliding)
+    xn = x.permute(0, 3, 1, 2)
+
+    def pool(t):
+        y = F.max_pool2d(t, (ky, kx), (sliding[1], sliding[0]),
+                         ceil_mode=True)
+        if tuple(y.shape[2:]) != (ny, nx):
+            # max_pool2d drops a last window that starts past the edge
+            raise ValueError("pooling_reduce_window: a %dx%d window at "
+                             "stride %s leaves windows past the edge"
+                             % (ky, kx, tuple(sliding)))
+        return y.permute(0, 2, 3, 1)
+    mx = pool(xn)
+    if mode == "max":
+        return mx
+    mn = -pool(-xn)
+    return torch.where(torch.abs(mx) >= torch.abs(mn), mx, mn)
 
 
 def _trunc_divisor(sy, sx, ky, kx, sliding, ny, nx, dtype, device):

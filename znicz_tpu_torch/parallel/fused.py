@@ -1,0 +1,933 @@
+"""Fused training — forward, softmax-CE gradient and per-layer update as
+one step on the device.
+
+Counterpart of ``znicz_tpu/parallel/fused.py``, single device,
+softmax objective: the spec building (``layer_hyper``, ``build_specs``
+:349-559), the pure functions (``init_params`` :570,
+``init_opt_state`` :606, ``forward`` :622-803, ``_loss_and_stats``
+:805, ``default_hypers`` :2272, ``_apply_weight_masks`` :2291,
+``_train_step`` :2305, ``flops_per_image`` :981) and
+:class:`FusedNet` (:997-2258).
+
+What maps to what:
+
+* a jitted step becomes eager PyTorch: the forward on the ports of
+  the JAX package's ops, the gradient from ``torch.autograd.grad`` of
+  the mean softmax-CE loss, the update from
+  :func:`znicz_tpu_torch.ops.gd_math.update`;
+* a window's ``lax.scan`` becomes a Python loop of K steps over the
+  device-resident dataset; the evaluator's stats fold into a
+  device-resident accumulator, and nothing inside a window reads the
+  device back (no ``.item()``, no ``.cpu()``, no ``bool()`` of a
+  tensor): the caller reads the accumulator once per epoch;
+* the ``jax.random`` key becomes a ``torch.Generator`` on the net's
+  device, seeded with ``dropout_seed``; dropout keeps ``rand >= ratio``
+  and scales by ``1 / (1 - ratio)`` as the JAX package does, from
+  other random numbers (the two generators differ by design);
+* max pooling under ``pool_impl="offsets"`` runs the hand-written
+  forward and backward kernels on the card
+  (:func:`znicz_tpu_torch.ops.pooling.max_pooling_train`).
+
+Not in this slice (each raises and is listed in ``ROADMAP.md``): a
+mesh, ``objective="mse"``, ``compute_dtype``, ``pool_impl="reshape"``,
+and the deconv, depooling and stochastic-pooling layers.
+"""
+
+from dataclasses import dataclass, field
+
+import numpy
+import torch
+import torch.nn.functional as F
+
+from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core.backends import default_device
+from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
+from znicz_tpu_torch.ops import conv as conv_ops
+from znicz_tpu_torch.ops import init as init_ops
+from znicz_tpu_torch.ops import normalization as norm_ops
+from znicz_tpu_torch.ops import pooling as pool_ops
+from znicz_tpu_torch.params import (tree_map, train_state_from_numpy,
+                                    train_state_to_numpy)
+
+#: the FC family: activation and the weights-magnitude constant C of
+#: the unit class of each type (znicz_tpu/units/all2all.py)
+FC_TYPES = {"all2all": ("linear", 10), "all2all_tanh": ("tanh", 9.0),
+            "all2all_relu": ("relu", 10), "all2all_str": ("strict_relu", 10),
+            "all2all_sigmoid": ("sigmoid", 1), "softmax": ("linear", 10)}
+CONV_TYPES = {"conv": "linear", "conv_tanh": "tanh",
+              "conv_sigmoid": "sigmoid", "conv_relu": "relu",
+              "conv_str": "strict_relu"}
+POOL_TYPES = {"max_pooling": "max", "maxabs_pooling": "maxabs",
+              "avg_pooling": "avg"}
+ACTIVATION_TYPES = {"activation_tanh": "tanh",
+                    "activation_sigmoid": "sigmoid",
+                    "activation_relu": "relu",
+                    "activation_str": "strict_relu",
+                    "activation_log": "log",
+                    "activation_tanhlog": "tanhlog",
+                    "activation_sincos": "sincos"}
+#: layer types the JAX fused path trains and this port does not yet
+LATER_TYPES = ("stochastic_pooling", "stochastic_abs_pooling",
+               "stochastic_pool_depool", "stochastic_abs_pool_depool",
+               "deconv", "depooling")
+
+#: strictly monotonically increasing activations — applied after a
+#: following max pool, where they commute with it.  "relu" (softplus,
+#: with a seam at 15) and strict relu are not strictly increasing.
+_MONOTONIC_ACTS = frozenset(("linear", "tanh", "sigmoid"))
+
+DEFAULT_HYPER = dict(lr=0.01, wd=0.00005, l1_vs_l2=0.0, moment=0.0,
+                     acc_alpha=0.0, acc_beta=0.0, gd_alpha=0.0, gd_beta=1.0,
+                     factor_ortho=0.0)
+
+_LATER = "not in this slice of the port (see ROADMAP.md)"
+
+
+def layer_hyper(layer, defaults=None):
+    """(hyper, hyper_bias, flags) for one layer dict: top-level keys
+    merged under the "<-" backward kwargs."""
+    layer = dict(layer)
+    for k in ("type", "name", "->"):
+        layer.pop(k, None)
+    bwd = dict(layer.pop("<-", {}))
+    merged = dict(layer)
+    merged.update(bwd)
+    return _parse_hyper(merged, dict(DEFAULT_HYPER, **(defaults or {})))
+
+
+def _parse_hyper(bwd, defaults):
+    """(hyper, hyper_bias, flags) from a layer's backward kwargs."""
+    hyper = dict(defaults)
+    hyper.update(
+        lr=bwd.get("learning_rate", defaults["lr"]),
+        wd=bwd.get("weights_decay", defaults["wd"]),
+        l1_vs_l2=bwd.get("l1_vs_l2", defaults["l1_vs_l2"]),
+        moment=bwd.get("gradient_moment", defaults["moment"]),
+        acc_alpha=bwd.get("acc_alpha", defaults["acc_alpha"]),
+        acc_beta=bwd.get("acc_beta", defaults["acc_beta"]),
+        gd_alpha=bwd.get("gd_alpha", defaults["gd_alpha"]),
+        gd_beta=bwd.get("gd_beta", defaults["gd_beta"]),
+        factor_ortho=bwd.get("factor_ortho", defaults["factor_ortho"]))
+    hyper_bias = dict(hyper)
+    hyper_bias.update(
+        lr=bwd.get("learning_rate_bias", hyper["lr"]),
+        wd=bwd.get("weights_decay_bias", 0.0),
+        l1_vs_l2=bwd.get("l1_vs_l2_bias", hyper["l1_vs_l2"]),
+        moment=bwd.get("gradient_moment_bias", hyper["moment"]),
+        factor_ortho=0.0)
+    flags = dict(accumulate=bool(bwd.get("accumulate_gradient", False)),
+                 apply=True,
+                 solvers=frozenset(bwd.get("solvers", ())),
+                 ortho=bool(hyper["factor_ortho"]),
+                 variant_moment=bwd.get("variant_moment_gradient", True))
+    return hyper, hyper_bias, flags
+
+
+@dataclass
+class FCSpec:
+    """One fully-connected layer; weights ``(n_out, n_in)``."""
+    type: str
+    n_in: int
+    n_out: int
+    activation: str
+    hyper: dict = field(default_factory=dict)
+    hyper_bias: dict = field(default_factory=dict)
+    flags: dict = field(default_factory=dict)
+    weights_stddev: float = None
+    bias_stddev: float = None
+    weights_filling: str = "uniform"
+    bias_filling: str = "uniform"
+    include_bias: bool = True
+
+    kind = "fc"
+
+    @property
+    def is_softmax(self):
+        return self.type == "softmax"
+
+    @property
+    def out_shape(self):
+        return (self.n_out,)
+
+    def init_stddev(self):
+        """The magnitude heuristic with the type's C, capped at 0.5."""
+        if self.weights_stddev is not None:
+            return self.weights_stddev
+        vle = init_ops.weights_magnitude(FC_TYPES[self.type][1], self.n_in,
+                                         self.n_out, self.weights_filling)
+        return min(vle, 0.5)
+
+
+@dataclass
+class ConvSpec:
+    """One convolutional layer: NHWC, weights ``(n_kernels, ky*kx*C)``,
+    padding (left, top, right, bottom), sliding (x, y)."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    n_kernels: int
+    kx: int
+    ky: int
+    padding: tuple
+    sliding: tuple
+    activation: str
+    hyper: dict = field(default_factory=dict)
+    hyper_bias: dict = field(default_factory=dict)
+    flags: dict = field(default_factory=dict)
+    weights_stddev: float = None
+    bias_stddev: float = None
+    weights_filling: str = "uniform"
+    bias_filling: str = "uniform"
+    include_bias: bool = True
+    max_supposed: float = 1.0
+
+    kind = "conv"
+    is_softmax = False
+
+    @property
+    def n_channels(self):
+        return self.in_shape[2]
+
+    def init_stddev(self):
+        """``1 / (max_supposed * sqrt(kx*ky*C))`` (a third for a gaussian
+        filling), capped at 0.05."""
+        if self.weights_stddev is not None:
+            return self.weights_stddev
+        vle = 1.0 / (self.max_supposed *
+                     numpy.sqrt(self.kx * self.ky * self.n_channels))
+        if self.weights_filling == "gaussian":
+            vle /= 3
+        return min(vle, 0.05)
+
+
+@dataclass
+class PoolSpec:
+    """max / maxabs / avg pooling, ceil-mode.  ``impl`` is the max-pool
+    lowering: "reduce_window" (the default), "offsets" (the kernels) or
+    "gather" (see :mod:`znicz_tpu_torch.ops.pooling`)."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    mode: str
+    kx: int
+    ky: int
+    sliding: tuple
+    impl: str = "reduce_window"
+
+    kind = "pool"
+    is_softmax = False
+
+
+@dataclass
+class LRNSpec:
+    """Cross-channel local response normalization."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    alpha: float = 1e-4
+    beta: float = 0.75
+    k: float = 2.0
+    n: int = 5
+
+    kind = "lrn"
+    is_softmax = False
+
+
+@dataclass
+class ActivationSpec:
+    """A standalone activation layer."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    activation: str = "linear"
+
+    kind = "activation"
+    is_softmax = False
+
+
+@dataclass
+class ZeroFillSpec:
+    """A ``zero_filter`` layer: identity in the chain; its grouping mask
+    goes to the next layer with weights (``weight_mask``)."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    grouping: int
+
+    kind = "zerofill"
+    is_softmax = False
+
+
+@dataclass
+class DropoutSpec:
+    """Inverted dropout: ``keep / (1 - ratio)`` in training."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple
+    ratio: float = 0.5
+
+    kind = "dropout"
+    is_softmax = False
+
+
+def _normalize_sample_shape(shape):
+    if isinstance(shape, (int, numpy.integer)):
+        return (int(shape),)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 2:    # (H, W) -> one implicit channel
+        shape = shape + (1,)
+    return shape
+
+
+def build_specs(layers, input_sample_shape, defaults=None):
+    """The spec list of a declarative ``layers`` config (dicts with
+    "type", forward kwargs at the top or under "->", backward kwargs
+    under "<-"); sample shapes thread through the geometry."""
+    defaults = dict(DEFAULT_HYPER, **(defaults or {}))
+    specs = []
+    pending_grouping = None  # zero_filter masks the NEXT layer's weights
+    shape = _normalize_sample_shape(input_sample_shape)
+    for layer in layers:
+        orig_layer = layer
+        layer = dict(layer)
+        tpe = layer.pop("type")
+        layer.pop("name", None)
+        fwd = dict(layer.pop("->", {}))
+        layer.pop("<-", None)
+        fwd.update(layer)
+        if tpe in FC_TYPES:
+            oshape = fwd.get("output_sample_shape",
+                             fwd.get("output_samples"))
+            if oshape is None:
+                raise ValueError("layer %r needs output_sample_shape" % tpe)
+            n_out = int(numpy.prod(oshape))
+            hyper, hyper_bias, flags = layer_hyper(orig_layer, defaults)
+            specs.append(FCSpec(
+                type=tpe, n_in=int(numpy.prod(shape)), n_out=n_out,
+                activation=FC_TYPES[tpe][0],
+                hyper=hyper, hyper_bias=hyper_bias, flags=flags,
+                weights_stddev=fwd.get("weights_stddev"),
+                bias_stddev=fwd.get("bias_stddev"),
+                weights_filling=fwd.get("weights_filling", "uniform"),
+                bias_filling=fwd.get("bias_filling", "uniform"),
+                include_bias=fwd.get("include_bias", True)))
+            shape = (n_out,)
+        elif tpe in CONV_TYPES:
+            if len(shape) != 3:
+                raise ValueError(
+                    "conv layer %r needs a (H, W, C) input, have %r"
+                    % (tpe, shape))
+            kx, ky = int(fwd["kx"]), int(fwd["ky"])
+            n_kernels = int(fwd["n_kernels"])
+            padding = tuple(fwd.get("padding", (0, 0, 0, 0)))
+            sliding = tuple(fwd.get("sliding", (1, 1)))
+            ny, nx = conv_ops.output_spatial(
+                shape[0], shape[1], ky, kx, padding, sliding)
+            hyper, hyper_bias, flags = layer_hyper(orig_layer, defaults)
+            specs.append(ConvSpec(
+                type=tpe, in_shape=shape, out_shape=(ny, nx, n_kernels),
+                n_kernels=n_kernels, kx=kx, ky=ky,
+                padding=padding, sliding=sliding,
+                activation=CONV_TYPES[tpe],
+                hyper=hyper, hyper_bias=hyper_bias, flags=flags,
+                weights_stddev=fwd.get("weights_stddev"),
+                bias_stddev=fwd.get("bias_stddev"),
+                weights_filling=fwd.get("weights_filling", "uniform"),
+                bias_filling=fwd.get("bias_filling", "uniform"),
+                include_bias=fwd.get("include_bias", True),
+                max_supposed=fwd.get("input_max_supposed", 1.0)))
+            shape = (ny, nx, n_kernels)
+        elif tpe in POOL_TYPES:
+            if len(shape) != 3:
+                raise ValueError(
+                    "pooling layer %r needs a (H, W, C) input, have %r"
+                    % (tpe, shape))
+            kx, ky = int(fwd["kx"]), int(fwd["ky"])
+            sliding = tuple(fwd.get("sliding") or (kx, ky))
+            ny, nx = pool_ops.output_spatial(
+                shape[0], shape[1], ky, kx, sliding)
+            out_shape = (ny, nx, shape[2])
+            specs.append(PoolSpec(
+                type=tpe, in_shape=shape, out_shape=out_shape,
+                mode=POOL_TYPES[tpe], kx=kx, ky=ky, sliding=sliding))
+            shape = out_shape
+        elif tpe == "norm":
+            if len(shape) != 3:
+                raise ValueError(
+                    "LRN layer needs a (H, W, C) input, have %r" % (shape,))
+            specs.append(LRNSpec(
+                type=tpe, in_shape=shape, out_shape=shape,
+                alpha=fwd.get("alpha", 1e-4), beta=fwd.get("beta", 0.75),
+                k=fwd.get("k", 2), n=fwd.get("n", 5)))
+        elif tpe in ACTIVATION_TYPES:
+            specs.append(ActivationSpec(
+                type=tpe, in_shape=shape, out_shape=shape,
+                activation=ACTIVATION_TYPES[tpe]))
+        elif tpe == "dropout":
+            specs.append(DropoutSpec(
+                type=tpe, in_shape=shape, out_shape=shape,
+                ratio=fwd.get("dropout_ratio", 0.5)))
+        elif tpe == "zero_filter":
+            pending_grouping = int(fwd.get("grouping", 2))
+            if pending_grouping < 2:
+                raise ValueError("grouping value %d is invalid"
+                                 % pending_grouping)
+            specs.append(ZeroFillSpec(
+                type=tpe, in_shape=shape, out_shape=shape,
+                grouping=pending_grouping))
+        elif tpe in LATER_TYPES:
+            raise NotImplementedError("layer type %r is %s" % (tpe, _LATER))
+        else:
+            raise ValueError("fused path does not support layer type %r"
+                             % tpe)
+        spec = specs[-1]
+        if pending_grouping is not None and spec.kind in ("fc", "conv"):
+            # the ZeroFiller mask of this layer's weights: (k % G != c % G)
+            if spec.kind == "fc":
+                kernels, chans = spec.n_out, spec.n_in
+            else:
+                kernels = spec.n_kernels
+                chans = spec.kx * spec.ky * spec.n_channels
+            g = pending_grouping
+            if chans % g:
+                raise ValueError(
+                    "Non-multiple of grouping weights shape: (%d, %d), "
+                    "grouping=%d" % (kernels, chans, g))
+            krow = numpy.arange(kernels)[:, None] % g
+            ccol = numpy.arange(chans)[None, :] % g
+            spec.weight_mask = (krow != ccol).astype(numpy.float64)
+            pending_grouping = None
+    return specs
+
+
+def init_params(specs, rand=None, dtype=numpy.float32):
+    """Host numpy parameters, one ``{"w", "b"}`` dict per spec (``{}``
+    for layers without weights), drawn from ``rand`` (default
+    ``prng.get()``) weights then bias, layer by layer — the JAX
+    package's draws for the same stream."""
+    rand = rand or prng.get()
+    params = []
+    for spec in specs:
+        if spec.kind == "fc":
+            w_shape = (spec.n_out, spec.n_in)
+            n_bias = spec.n_out
+        elif spec.kind == "conv":
+            w_shape = (spec.n_kernels,
+                       spec.kx * spec.ky * spec.n_channels)
+            n_bias = spec.n_kernels
+        else:
+            params.append({})
+            continue
+        stddev = spec.init_stddev()
+        bias_stddev = spec.bias_stddev if spec.bias_stddev is not None \
+            else stddev
+        w = numpy.zeros(w_shape, dtype=dtype)
+        init_ops.fill_array(rand, spec.weights_filling, w, stddev)
+        p = {"w": w}
+        if spec.include_bias:
+            b = numpy.zeros(n_bias, dtype=dtype)
+            init_ops.fill_array(rand, spec.bias_filling, b, bias_stddev)
+            p["b"] = b
+        params.append(p)
+    return params
+
+
+def init_opt_state(specs, params):
+    """Optimizer state mirroring ``params`` (tensors): one
+    :func:`gd_math.init_state` per parameter, velocity always kept."""
+    states = []
+    for spec, p in zip(specs, params):
+        states.append({name: gd_math.init_state(
+            p[name], dict(spec.flags, need_vel=True))
+            for name in ("w", "b") if name in p})
+    return states
+
+
+def _mask(spec, w):
+    """The spec's grouping mask as a tensor like ``w`` (cached on the
+    spec per dtype and device), or None."""
+    mask = getattr(spec, "weight_mask", None)
+    if mask is None:
+        return None
+    cache = spec.__dict__.setdefault("_mask_tensors", {})
+    key = (w.dtype, w.device)
+    if key not in cache:
+        cache[key] = torch.as_tensor(mask).to(device=w.device,
+                                              dtype=w.dtype)
+    return cache[key]
+
+
+def forward(params, x, specs, return_logits=False, generator=None,
+            train=False):
+    """The forward pass through the whole spec stack.
+
+    With ``return_logits`` the softmax head is left un-normalized.
+    Dropout masks are drawn from ``generator`` when ``train``; otherwise
+    dropout is the identity.  A strictly monotonic conv activation is
+    applied after a following max pool (``_MONOTONIC_ACTS``)."""
+    y = x
+    deferred_act = None
+    for i, (p, spec) in enumerate(zip(params, specs)):
+        if deferred_act is not None and spec.kind != "pool":
+            raise AssertionError("deferred activation not consumed")
+        if spec.kind == "fc":
+            w = p["w"]
+            mask = _mask(spec, w)
+            if mask is not None:
+                w = w * mask
+            y = dense.forward(y, w, p.get("b"),
+                              "linear" if spec.is_softmax
+                              else spec.activation,
+                              include_bias="b" in p)
+            if spec.is_softmax and not return_logits:
+                y = torch.softmax(y, dim=1)
+        elif spec.kind == "conv":
+            y = y.reshape((y.shape[0],) + spec.in_shape)
+            w = p["w"]
+            mask = _mask(spec, w)
+            if mask is not None:
+                w = w * mask
+            act = spec.activation
+            if (act in _MONOTONIC_ACTS and i + 1 < len(specs)
+                    and specs[i + 1].kind == "pool"
+                    and specs[i + 1].mode == "max"):
+                deferred_act, act = act, "linear"
+            y = conv_ops.forward(y, w, p.get("b"), spec.ky, spec.kx,
+                                 spec.padding, spec.sliding,
+                                 activation=act, include_bias="b" in p)
+        elif spec.kind == "pool":
+            y = y.reshape((y.shape[0],) + spec.in_shape)
+            if spec.mode != "avg" and spec.impl == "offsets":
+                y, _ = pool_ops.max_pooling_train(
+                    y, spec.ky, spec.kx, spec.sliding,
+                    spec.mode == "maxabs")
+            elif spec.mode != "avg" and spec.impl == "gather":
+                y = pool_ops.max_pooling_gather(
+                    y, spec.ky, spec.kx, spec.sliding,
+                    spec.mode == "maxabs")
+            else:
+                y = pool_ops.pooling_reduce_window(
+                    y, spec.ky, spec.kx, spec.sliding, spec.mode)
+            if deferred_act is not None:
+                y = activations.apply(deferred_act, y)
+                deferred_act = None
+        elif spec.kind == "lrn":
+            y = y.reshape((y.shape[0],) + spec.in_shape)
+            y = norm_ops.lrn_forward(y, alpha=spec.alpha, beta=spec.beta,
+                                     k=spec.k, n=spec.n)
+        elif spec.kind == "activation":
+            y = activations.apply(spec.activation, y)
+        elif spec.kind == "dropout":
+            if train and generator is not None:
+                keep = torch.rand(y.shape, generator=generator,
+                                  device=y.device, dtype=y.dtype) >= \
+                    spec.ratio
+                y = y * keep.to(y.dtype) / (1.0 - spec.ratio)
+        elif spec.kind != "zerofill":  # pragma: no cover
+            raise AssertionError(spec.kind)
+    return y
+
+
+def _loss_and_stats(params, x, labels, specs, generator=None):
+    """Mean softmax-CE loss over the rows labelled >= 0, the number of
+    them misclassified, the softmax output and its int32 argmax."""
+    y = forward(params, x, specs, return_logits=True, generator=generator,
+                train=True)
+    logp = F.log_softmax(y, dim=1)
+    valid = labels >= 0
+    lbl = labels.clamp(min=0)
+    ce = -torch.gather(logp, 1, lbl[:, None].long())[:, 0]
+    ce = torch.where(valid, ce, 0.0)
+    loss = ce.sum() / valid.sum().clamp(min=1)
+    max_idx = torch.argmax(y, dim=1).to(torch.int32)
+    n_err = (valid & (max_idx != lbl)).sum()
+    return loss, (n_err, torch.exp(logp.detach()), max_idx)
+
+
+def default_hypers(specs):
+    """The live hyperparameters: ``{"w": {...}, "b": {...}}`` per spec
+    with weights (``{}`` for the others), from the config."""
+    hypers = []
+    for spec in specs:
+        if spec.kind in ("fc", "conv"):
+            h = {"w": dict(spec.hyper)}
+            if spec.include_bias:
+                h["b"] = dict(spec.hyper_bias)
+            hypers.append(h)
+        else:
+            hypers.append({})
+    return hypers
+
+
+def _apply_weight_masks(params, specs):
+    """Re-zero the grouped weight positions before the step, so weight
+    decay and ortho see masked weights (the unit graph's order)."""
+    out = []
+    for spec, p in zip(specs, params):
+        if "w" in p:
+            mask = _mask(spec, p["w"])
+            if mask is not None:
+                p = dict(p, w=p["w"] * mask)
+        out.append(p)
+    return out
+
+
+def _train_step(params, state, x, labels, specs, generator=None,
+                hypers=None, with_output=False, mark=None):
+    """One step: ``(new_params, new_state, metrics)``.  ``mark``, when
+    given, is called with "forward", "backward" and "update" as each
+    part has been enqueued."""
+    with torch.no_grad():
+        params = _apply_weight_masks(params, specs)
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in params]
+    with torch.enable_grad():
+        loss, (n_err, probs, max_idx) = _loss_and_stats(
+            leaves, x, labels, specs, generator)
+        if mark is not None:
+            mark("forward")
+        flat = [v for p in leaves for v in p.values()]
+        grads = iter(torch.autograd.grad(loss, flat))
+    if mark is not None:
+        mark("backward")
+    if hypers is None:
+        hypers = [None] * len(params)
+    new_params, new_state = [], []
+    for spec, p, st, hy in zip(specs, params, state, hypers):
+        np_, nst = {}, {}
+        for name in p:   # "w" then "b", the order of ``flat``
+            g = next(grads)
+            if name == "w":
+                hyper, flags = hy["w"] if hy else spec.hyper, spec.flags
+            else:
+                hyper = hy["b"] if hy else spec.hyper_bias
+                flags = dict(spec.flags, ortho=False)
+            np_[name], nst[name], _ = gd_math.update(
+                p[name], g.to(p[name].dtype), st[name], hyper, flags)
+        new_params.append(np_)
+        new_state.append(nst)
+    if mark is not None:
+        mark("update")
+    metrics = {"loss": loss.detach(), "n_err": n_err}
+    if with_output:
+        metrics["output"] = probs
+        metrics["max_idx"] = max_idx
+    return new_params, new_state, metrics
+
+
+def flops_per_image(specs):
+    """Forward FLOPs per sample (matmul and conv MACs x 2); a train
+    step is about 3 x forward."""
+    total = 0
+    for spec in specs:
+        if spec.kind == "fc":
+            total += 2 * spec.n_in * spec.n_out
+        elif spec.kind == "conv":
+            ny, nx, k = spec.out_shape
+            total += 2 * ny * nx * k * spec.kx * spec.ky * spec.n_channels
+    return total
+
+
+def _hypers_at(hypers_s, k):
+    """Step ``k``'s hypers from a pytree whose leaves are host arrays
+    with a leading step axis (a 0-d leaf holds for every step)."""
+    def leaf(v):
+        a = numpy.asarray(v)
+        return float(a if a.ndim == 0 else a[k])
+    return tree_map(leaf, hypers_s)
+
+
+def stack_hypers(hypers, n_steps):
+    """A window's per-step hypers: ``hypers`` with every leaf repeated
+    along a leading axis of ``n_steps`` (host float64 arrays)."""
+    return tree_map(lambda v: numpy.full(n_steps, v, numpy.float64),
+                     hypers)
+
+
+_TORCH_DTYPES = {numpy.dtype(numpy.float32): torch.float32,
+                 numpy.dtype(numpy.float64): torch.float64}
+
+
+class FusedNet:
+    """Trainer for a feed-forward spec stack on one device.
+
+    ``device`` is the card (``cuda``) unless the caller passes "cpu";
+    without CUDA it raises.  ``pool_impl`` picks every max pool's
+    lowering ("offsets", "gather", or the default "reduce_window").
+    ``dropout_seed`` seeds the net's ``torch.Generator``."""
+
+    def __init__(self, layers, input_sample_shape, mesh=None, rand=None,
+                 dtype=numpy.float32, defaults=None, dropout_seed=0,
+                 compute_dtype=None, pool_impl=None, objective="softmax",
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError("a mesh is %s" % _LATER)
+        if objective != "softmax":
+            raise NotImplementedError("objective %r is %s"
+                                      % (objective, _LATER))
+        if compute_dtype is not None:
+            raise NotImplementedError("compute_dtype is %s" % _LATER)
+        if pool_impl == "reshape":
+            raise NotImplementedError("pool_impl='reshape' is %s" % _LATER)
+        if pool_impl not in (None, "reduce_window", "offsets", "gather"):
+            raise ValueError("unknown pool_impl %r" % (pool_impl,))
+        self.device = default_device(device)
+        if self.device.type == "cuda":
+            # f32 products and convolutions in full f32, as the reference
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.specs = build_specs(layers, input_sample_shape, defaults)
+        for spec in self.specs:
+            if spec.kind == "pool":
+                spec.impl = pool_impl or "reduce_window"
+        if not self.specs[-1].is_softmax:
+            raise ValueError(
+                "the fused softmax objective needs a 'softmax' head "
+                "(got %r)" % self.specs[-1].type)
+        if any(s.is_softmax for s in self.specs[:-1]):
+            raise ValueError(
+                "softmax is only supported as the head of a fused net")
+        self.input_sample_shape = _normalize_sample_shape(input_sample_shape)
+        self.objective = objective
+        self.dtype = numpy.dtype(dtype)
+        self._tdtype = _TORCH_DTYPES[self.dtype]
+        self._win_acc = None
+        self._data_d = self._labels_d = None
+        self._data_p = self._labels_p = None
+        params_host = init_params(self.specs, rand, self.dtype)
+        self.params = self._place(params_host)
+        self.state = init_opt_state(self.specs, self.params)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(dropout_seed))
+        #: live hyperparameters (python floats), used by :meth:`step`
+        self.hypers = default_hypers(self.specs)
+
+    # -- placement ----------------------------------------------------------
+    def _place(self, tree):
+        """A pytree of host arrays as tensors on the net's device,
+        floating leaves in the net's dtype."""
+        def put(v):
+            t = torch.as_tensor(numpy.asarray(v))
+            if t.is_floating_point():
+                t = t.to(self._tdtype)
+            return t.to(self.device)
+        return tree_map(put, tree)
+
+    def _batch(self, x, labels=None):
+        x = torch.as_tensor(x).to(self.device, self._tdtype)
+        if labels is None:
+            return x, None
+        return x, torch.as_tensor(labels).to(self.device, torch.int32)
+
+    # -- steps --------------------------------------------------------------
+    def step(self, x, labels, hypers=None, mark=None):
+        """One train step on a host or device batch.  Returns {"loss",
+        "n_err", "output", "max_idx"} as device tensors.  ``hypers``
+        overrides the live hyperparameters for this step; ``mark`` is
+        passed to the step (see :func:`_train_step`)."""
+        x, labels = self._batch(x, labels)
+        self.params, self.state, metrics = _train_step(
+            self.params, self.state, x, labels, self.specs, self._gen,
+            self.hypers if hypers is None else hypers, with_output=True,
+            mark=mark)
+        return metrics
+
+    def run_steps(self, xs, labels_s):
+        """Train steps over stacked minibatches ``xs (K, B, ...)``,
+        ``labels_s (K, B)``; returns the per-step {"loss", "n_err"}
+        stacked on the device."""
+        losses, errs = [], []
+        for x, lbl in zip(xs, labels_s):
+            x, lbl = self._batch(x, lbl)
+            self.params, self.state, m = _train_step(
+                self.params, self.state, x, lbl, self.specs, self._gen,
+                self.hypers)
+            losses.append(m["loss"])
+            errs.append(m["n_err"])
+        return {"loss": torch.stack(losses), "n_err": torch.stack(errs)}
+
+    # -- device-resident data -------------------------------------------------
+    def set_dataset(self, data, labels):
+        """Place the whole training set on the device once (rows in the
+        net's dtype, labels int32)."""
+        self._data_d, self._labels_d = self._batch(
+            numpy.ascontiguousarray(data),
+            numpy.full(len(data), -1, numpy.int32)
+            if labels is None or not len(labels) else labels)
+        self._data_p = self._labels_p = None
+
+    @property
+    def has_dataset(self):
+        return self._data_d is not None
+
+    def set_epoch_perm(self, perm, pad):
+        """The epoch's shuffled dataset on the device, once per
+        reshuffle: ``data_p[i] = data[perm[i]]`` plus ``pad`` zero rows
+        labelled -1, so every window's slices stay in range."""
+        if not self.has_dataset:
+            raise RuntimeError("set_dataset() before set_epoch_perm")
+        p = torch.as_tensor(numpy.array(perm, dtype=numpy.int64)).to(
+            self.device)
+        data = self._data_d.index_select(0, p)
+        labels = self._labels_d.index_select(0, p)
+        self._data_p = torch.cat([data, data.new_zeros(
+            (int(pad),) + tuple(data.shape[1:]))])
+        self._labels_p = torch.cat([labels, labels.new_full((int(pad),),
+                                                            -1)])
+
+    @property
+    def has_epoch_perm(self):
+        return self._data_p is not None
+
+    # -- windows --------------------------------------------------------------
+    def _run_window(self, n_steps, batch, fetch, batch_sizes, hypers_s):
+        """K steps; ``fetch(k)`` gives step k's ``(x, labels)`` on the
+        device; ``batch_sizes (K,)`` masks padded rows; ``hypers_s`` is
+        the hyper pytree with a leading K axis (:func:`stack_hypers`).
+        Stats fold on the device; nothing is read back."""
+        n_classes = int(self.specs[-1].n_out)
+        nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
+        conf = torch.zeros((n_classes, n_classes), dtype=torch.int32,
+                           device=self.device)
+        mx = torch.zeros((), dtype=self._tdtype, device=self.device)
+        rows = torch.arange(batch, device=self.device)
+        sizes = numpy.asarray(batch_sizes, dtype=numpy.int64)
+        losses = []
+        m = None
+        for k in range(n_steps):
+            x, lbl = fetch(k)
+            bs = int(sizes[k])
+            lbl = torch.where(rows < bs, lbl, -1)
+            hy = _hypers_at(hypers_s, k)
+            self.params, self.state, m = _train_step(
+                self.params, self.state, x, lbl, self.specs, self._gen, hy,
+                with_output=True)
+            d_nerr, d_conf, d_mx = evaluator.eval_stats(
+                m["output"], m["max_idx"], lbl, bs, n_classes)
+            nerr, conf = nerr + d_nerr, conf + d_conf
+            mx = torch.maximum(mx, d_mx)
+            losses.append(m["loss"])
+        acc = self._window_acc()
+        acc = {"n_err": acc["n_err"] + nerr,
+               "confusion": acc["confusion"] + conf,
+               "max_err_sum": torch.maximum(acc["max_err_sum"], mx)}
+        self._win_acc = acc
+        return {"loss": torch.stack(losses), "n_err": nerr,
+                "confusion": conf, "max_err_sum": mx,
+                "output": m["output"], "max_idx": m["max_idx"],
+                "acc": acc}
+
+    def run_window_indexed(self, idx_s, batch_sizes, hypers_s):
+        """Windowed training over the device dataset (:meth:`set_dataset`)
+        from dataset row indices ``idx_s (K, B)`` (-1: a padded slot)."""
+        if not self.has_dataset:
+            raise RuntimeError("set_dataset() before run_window_indexed")
+        idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64)).to(
+            self.device)
+
+        def fetch(k):
+            idx = idx_s[k]
+            safe = idx.clamp(min=0)
+            lbl = torch.where(idx < 0, -1,
+                              self._labels_d.index_select(0, safe))
+            return self._data_d.index_select(0, safe), lbl
+        return self._run_window(idx_s.shape[0], idx_s.shape[1], fetch,
+                                batch_sizes, hypers_s)
+
+    def run_window_sliced(self, starts, batch, batch_sizes, hypers_s):
+        """Windowed training over the epoch's shuffled dataset
+        (:meth:`set_epoch_perm`): step k reads rows ``starts[k]`` to
+        ``starts[k] + batch`` (host ints; a start past the end is
+        clamped as ``dynamic_slice`` clamps it)."""
+        if not self.has_epoch_perm:
+            raise RuntimeError("set_epoch_perm() before run_window_sliced")
+        starts = numpy.asarray(starts, dtype=numpy.int64)
+        batch = int(batch)
+        last = self._data_p.shape[0] - batch
+
+        def fetch(k):
+            s = min(max(int(starts[k]), 0), last)
+            return self._data_p[s:s + batch], self._labels_p[s:s + batch]
+        return self._run_window(len(starts), batch, fetch, batch_sizes,
+                                hypers_s)
+
+    # -- the epoch accumulator ----------------------------------------------
+    def window_acc_zeros(self):
+        """Host zeros of the epoch accumulator."""
+        n_classes = int(self.specs[-1].n_out)
+        return {"n_err": numpy.zeros(2, numpy.int32),
+                "confusion": numpy.zeros((n_classes, n_classes),
+                                         numpy.int32),
+                "max_err_sum": numpy.zeros((), self.dtype)}
+
+    def _window_acc(self):
+        if self._win_acc is None:
+            self._win_acc = self._place(self.window_acc_zeros())
+        return self._win_acc
+
+    @property
+    def window_acc(self):
+        """The epoch accumulator on the device (None after a reset)."""
+        return self._win_acc
+
+    def window_acc_host(self):
+        """One host copy of the epoch accumulator, or None."""
+        if self._win_acc is None:
+            return None
+        return self.host_fetch(self._win_acc)
+
+    def reset_window_acc(self):
+        """Zero the epoch accumulator (at every epoch boundary)."""
+        self._win_acc = None
+
+    # -- reads ----------------------------------------------------------------
+    @staticmethod
+    def host_fetch(tree):
+        """Host numpy copies of a pytree of tensors."""
+        return tree_map(lambda t: t.detach().cpu().numpy()
+                         if isinstance(t, torch.Tensor) else t, tree)
+
+    def params_finite(self):
+        """Whether every parameter is finite: one reduction on the
+        device and one readback."""
+        return bool(torch.stack([torch.isfinite(t).all()
+                                 for p in self.params
+                                 for t in p.values()]).all())
+
+    def predict(self, x):
+        """The softmax output of a batch, on the device."""
+        x, _ = self._batch(x)
+        with torch.no_grad():
+            return forward(self.params, x, self.specs)
+
+    def predict_with_idx(self, x):
+        """(softmax output, int32 argmax) of a batch, on the device."""
+        probs = self.predict(x)
+        return probs, torch.argmax(probs, dim=1).to(torch.int32)
+
+    def host_params(self):
+        return self.host_fetch(self.params)
+
+    # -- checkpoint / resume --------------------------------------------------
+    def state_dict(self):
+        """Parameters, optimizer slots, the generator's state and the
+        live hypers as host values: resuming from it is exact."""
+        sd = train_state_to_numpy(self.params, self.state, self.hypers)
+        sd["key"] = self._gen.get_state().numpy()
+        return sd
+
+    def load_state_dict(self, sd):
+        """Restore :meth:`state_dict` output.  ``"key"`` is optional (a
+        state carried over from the JAX package has none the port can
+        use) and must be this port's generator state."""
+        self.params, self.state, hypers = train_state_from_numpy(
+            sd, self.device, self._tdtype)
+        if hypers is not None:
+            self.hypers = hypers
+        key = sd.get("key")
+        if key is not None:
+            key = numpy.asarray(key)
+            if key.dtype != numpy.uint8:
+                raise ValueError("'key' of dtype %s is not a torch "
+                                 "generator state" % key.dtype)
+            self._gen.set_state(torch.from_numpy(key.copy()))

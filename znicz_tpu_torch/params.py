@@ -1,4 +1,4 @@
-"""Host parameters -> the port's device tensors.
+"""Host parameters <-> the port's device tensors.
 
 The JAX engine keeps each loaded model's host parameters as
 ``_Model.host_params``: a list with one ``{attribute: ndarray}`` per
@@ -12,6 +12,11 @@ tensors on ``device``, in the layout the port computes with:
 * conv weights of a ``weights_transposed`` layer are transposed back to
   ``(K, ky*kx*C)`` once here as well;
 * floating arrays are float32, the one serving dtype of the port.
+
+:func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry
+a fused trainer's state (parameters, optimizer slots, hypers) between
+host arrays — the JAX package's ``FusedNet.state_dict()`` among them —
+and the port's device tensors, in the fused path's layout, unchanged.
 """
 
 import numpy
@@ -33,3 +38,40 @@ def params_from_numpy(layers, host_params, device):
                 numpy.ascontiguousarray(value)).to(device)
         out.append(p)
     return out
+
+
+def tree_map(fn, tree):
+    """``fn`` of every leaf of a pytree of dicts, lists and tuples (both
+    sequences come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def train_state_from_numpy(sd, device, dtype=None):
+    """``(params, opt, hypers)`` on ``device`` from a training state of
+    host arrays: a JAX ``FusedNet.state_dict()`` or any dict with
+    ``"params"`` and ``"opt"`` (and optionally ``"hypers"``) in the
+    fused layout — ``[{"w", "b"}]`` per spec, FC weights ``(out, in)``,
+    conv weights ``(K, ky*kx*C)``, ``[{"w": {slot: array}, ...}]`` for
+    the optimizer.  Floating arrays become ``dtype`` (their own when
+    None); hypers become python floats, or None when absent."""
+    def put(v):
+        t = torch.from_numpy(numpy.array(v))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+    hypers = sd.get("hypers")
+    return (tree_map(put, sd["params"]), tree_map(put, sd["opt"]),
+            None if hypers is None else tree_map(float, hypers))
+
+
+def train_state_to_numpy(params, opt, hypers=None):
+    """The inverse of :func:`train_state_from_numpy`: ``{"params",
+    "opt", "hypers"}`` of host numpy arrays (hypers as floats)."""
+    def get(t):
+        return t.detach().cpu().numpy()
+    return {"params": tree_map(get, params), "opt": tree_map(get, opt),
+            "hypers": None if hypers is None else tree_map(float, hypers)}

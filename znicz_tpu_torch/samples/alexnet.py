@@ -15,13 +15,22 @@ network: gaussian weights with each layer's stddev, constant biases,
 and every ``zero_filter`` grouping mask folded into the next layer's
 weights with the ZeroFiller formula ``mask = (k % g) != (c % g)``
 (``znicz_tpu/units/zerofilling.py:58-65``), the mask kept beside them
-as provenance.  Everything is drawn from ``numpy.random.RandomState
-(seed)``; no weights are downloaded.
+as provenance.  Everything is drawn from a
+:class:`~znicz_tpu_torch.core.prng.RandomGenerator` seeded with
+``seed``, through the fill rules of :mod:`znicz_tpu_torch.ops.init`;
+no weights are downloaded.
+
+:func:`synthetic_images` makes the sample's training data: the
+prototype-class images of ``SyntheticImagenetLoader.load_data``
+(``znicz_tpu/samples/research/alexnet.py:109``) with the loader's
+"linear" normalization.
 """
 
 import numpy
 
+from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.export import PACKAGE_FORMAT, serving_manifest
+from znicz_tpu_torch.ops.init import fill_array
 from znicz_tpu_torch.ops.conv import output_spatial as conv_spatial
 from znicz_tpu_torch.ops.pooling import output_spatial as pool_spatial
 
@@ -101,12 +110,33 @@ def make_layers(n_classes=1000):
 
 
 def _fill(rand, filling, shape, stddev):
-    """The fillings AlexNet's config uses (reference all2all.py:119-127)."""
-    if filling == "gaussian":
-        return rand.normal(0, stddev, shape).astype(numpy.float32)
-    if filling == "constant":
-        return numpy.full(shape, stddev, numpy.float32)
-    raise ValueError("Invalid filling type %s" % filling)
+    """A float32 array of ``shape`` filled by the fused path's rules."""
+    arr = numpy.zeros(shape, numpy.float32)
+    fill_array(rand, filling, arr, stddev)
+    return arr
+
+
+def synthetic_images(n, seed=0x1337, n_classes=10, size=227):
+    """``(data, labels)``: ``n`` prototype-class ``size`` x ``size`` x 3
+    float32 images and their int32 labels ``i % n_classes``.
+
+    As ``SyntheticImagenetLoader.load_data``: one uniform [0, 255)
+    prototype per class, each image its class's prototype plus gaussian
+    noise of deviation 25, all from ``RandomState(seed)`` in that
+    order; then the loader's "linear" normalization, a map of the whole
+    set's [min, max] onto [-1, 1] (the loader fits it on its train
+    slice, which is the whole set here)."""
+    r = numpy.random.RandomState(seed)
+    protos = r.uniform(0, 255, (n_classes, size, size, 3))
+    labels = (numpy.arange(n) % n_classes).astype(numpy.int32)
+    data = numpy.empty((n, size, size, 3), numpy.float32)
+    for i in range(n):
+        data[i] = protos[labels[i]] + r.normal(0, 25, (size, size, 3))
+    lo, hi = float(data.min()), float(data.max())
+    data -= lo
+    data *= 2.0 / ((hi - lo) or 1.0)
+    data -= 1.0
+    return data, labels
 
 
 def _grouping_mask(shape, grouping):
@@ -119,9 +149,9 @@ def _grouping_mask(shape, grouping):
 def init_package(seed, n_classes=1000, size=227, layers=None):
     """``(manifest, arrays)`` of a freshly initialised AlexNet (or of
     ``layers``, a list in the same format) on a ``size`` x ``size`` x 3
-    input, drawn from ``RandomState(seed)``."""
+    input, drawn from ``RandomGenerator().seed(seed)``."""
     layers = make_layers(n_classes) if layers is None else layers
-    rand = numpy.random.RandomState(seed)
+    rand = prng.RandomGenerator().seed(seed)
     h, w, c = size, size, 3
     entries, arrays = [], {}
     grouping = None
