@@ -29,10 +29,17 @@ failure (the script then exits non-zero and prints no result line):
    under 10 us; a sample the host stalled past the spin is taken
    again), beside the bound from bytes at 3.35 TB/s and the host's own
    time per call; an empty launch gives the method's floor,
-   and the kernel is also timed at tile budgets of 16, 32 and 64 KB;
+   and the kernel is also timed at tile budgets of 16, 24, 32 and 64
+   KB;
 4. backward kernel — the max-pool backward kernel against its plain
    version on the same 46 cases (offsets from the forward kernel, a
-   random gradient), BIT-equal, zero cells included;
+   random gradient), then on its own tile edges in f32, f16 and bf16
+   (windows staged by two tiles, column tiles, the MNIST pool at one
+   channel a thread, runtime strides in row and column tiles, cells no
+   window covers, a gradient off a 16-byte boundary), BIT-equal, zero
+   cells included; both instantiations (stride 2, runtime stride) at
+   both widths must be among the cases, and each one's count is
+   printed;
 5. serve — a full-width AlexNet package (227x227x3, 1000 classes,
    random weights from a seed) served over HTTP by ``ServingServer``
    with every bucket up to 64 warmed; batches of 1, 3, 17 and 64 rows
@@ -64,11 +71,14 @@ failure (the script then exits non-zero and prints no result line):
    epochs of 4 windows of 4 steps over 2,048 prototype images on the
    card, one readback per epoch, finite losses and parameters, exactly
    3 forward and 3 backward kernel launches a step and no plain pooling
-   on the card; then a step's device time split forward / backward /
-   update, with the host held ahead, and the host's enqueue time;
+   on the card, every backward launch at 16-byte vectors; then a
+   step's device time split forward / backward / update, with the host
+   held ahead, and the host's enqueue time;
 7. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
-   yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``).
+   yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
+   and the backward at its runtime-stride instantiation and at tile
+   budgets of 16, 24, 32 and 64 KB.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -77,9 +87,12 @@ summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, and ``launches`` counts the serve requests' and the
 train epochs' launches (``launches_by_path``).  For the backward
 kernel the times are per batch-128 step and ``launches`` counts the
-train epochs'.  ``max_abs_err`` is the largest difference from the
-plain version that the run measured over every case the kernel was
-checked on.  The last line is ``{"ok": true, "device": {...}}``.
+train epochs'.  ``launches_by_width`` splits each kernel's launches by
+vector width, and ``ptxas`` gives the registers and spilled bytes of
+its instantiations.  ``max_abs_err`` is the largest difference from
+the plain version that the run measured over every case the kernel was
+checked on.  A line before it gives each phase's wall seconds.  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -101,8 +114,9 @@ F32_OPS_PER_S = 67e12
 #: of a launch takes tens of microseconds, and stalls of a millisecond
 #: were seen on a shared host
 SPIN_MS = 2.0
-#: tile budgets (KB of shared memory a block) the kernel is also timed at
-TILE_SWEEP_KB = (16, 32, 64)
+#: tile budgets (KB of shared memory a block) the kernels are also
+#: timed at
+TILE_SWEEP_KB = (16, 24, 32, 64)
 #: samples per kernel timing; shapes whose bound is under 10 us take more
 TIMING_ITERS, SMALL_TIMING_ITERS = 50, 200
 #: the serve phase's limit on |log p_card - log p_cpu|
@@ -121,6 +135,17 @@ GEOMS = ((6, 6, 3, 2, 2, (2, 2)), (5, 7, 2, 3, 2, (2, 3)),
 #: output columns over 350, in row tiles of 2 over 3)
 TILE_EDGES = ((2, 57, 57, 96, 3, 3, (2, 2)), (2, 27, 27, 36, 3, 3, (2, 2)),
               (2, 24, 24, 87, 2, 2, (2, 2)), (2, 7, 700, 32, 3, 3, (2, 2)))
+#: (b, h, w, c, ky, kx, sliding) at the backward kernel's own tile
+#: edges: 2x2/s2 windows straddling tiles of an odd number of rows;
+#: 3x3/s2 in odd tiles (the halo row falls on either parity); column
+#: tiles; the MNIST pool's 87 channels at one channel a thread; runtime
+#: strides in 15 row tiles and in column tiles; a stride past the
+#: window, so some cells no window covers
+BACKWARD_TILE_EDGES = (
+    (2, 57, 57, 96, 2, 2, (2, 2)), (2, 41, 41, 64, 3, 3, (2, 2)),
+    (2, 7, 700, 32, 3, 3, (2, 2)), (3, 24, 24, 87, 2, 2, (2, 2)),
+    (2, 60, 150, 32, 3, 3, (3, 3)), (2, 5, 1200, 16, 3, 3, (3, 3)),
+    (2, 20, 20, 8, 2, 2, (3, 3)))
 #: the kernel's two widths: 16-byte vectors of channels, one channel
 WIDE, NARROW = "16-byte", "1-channel"
 #: the train phase: batch 128 (the published AlexNet minibatch,
@@ -199,6 +224,20 @@ def phase_build():
         say("   ptxas, %s:" % source)
         for line in cuda_build.ptxas_report(source):
             say("     " + line)
+
+
+def _ptxas(source):
+    """Registers (least, most) and spilled bytes (stores + loads, summed)
+    of ``source``'s kernels, from ptxas's report."""
+    import re
+    from znicz_tpu_torch.ops import cuda_build
+    regs, spill = [], 0
+    for line in cuda_build.ptxas_report(source):
+        regs += [int(n) for n in re.findall(r"Used (\d+) registers", line)]
+        spill += sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", line))
+    return {"registers": [min(regs), max(regs)], "spill_bytes": spill,
+            "kernels": len(regs)}
 
 
 def _bits(t):
@@ -335,19 +374,33 @@ def _median_ms(torch, fn, flush, cycles_per_ms, iters):
     return statistics.median(device), statistics.median(host)
 
 
-def _tile_sweep(torch, cuda_pooling, fn, flush, cycles_per_ms, iters):
-    """Kernel ms of ``fn`` at each tile budget of ``TILE_SWEEP_KB``."""
-    chosen = cuda_pooling.TILE_BYTES
+def _tile_sweep(torch, module, fn, flush, cycles_per_ms, iters):
+    """Kernel ms of ``fn`` at each tile budget of ``TILE_SWEEP_KB`` of
+    the wrapper ``module``'s launch plan."""
+    chosen = module.TILE_BYTES
     sweep = {}
     try:
         for kb in TILE_SWEEP_KB:
-            cuda_pooling.TILE_BYTES = kb << 10
-            cuda_pooling.launch_plan.cache_clear()
+            module.TILE_BYTES = kb << 10
+            module.launch_plan.cache_clear()
             sweep[kb] = _median_ms(torch, fn, flush, cycles_per_ms, iters)[0]
     finally:
-        cuda_pooling.TILE_BYTES = chosen
-        cuda_pooling.launch_plan.cache_clear()
+        module.TILE_BYTES = chosen
+        module.launch_plan.cache_clear()
     return sweep
+
+
+def _runtime_stride_ms(torch, fn, flush, cycles_per_ms, iters):
+    """Kernel ms of ``fn`` with the backward's launch plans sent to its
+    runtime-stride instantiation: the yardstick of the stride-2 one."""
+    from znicz_tpu_torch.ops import cuda_pooling_backward
+    plan = cuda_pooling_backward.launch_plan
+    cuda_pooling_backward.launch_plan = \
+        lambda *args: plan(*args)._replace(stride2=False)
+    try:
+        return _median_ms(torch, fn, flush, cycles_per_ms, iters)[0]
+    finally:
+        cuda_pooling_backward.launch_plan = plan
 
 
 def phase_kernels(torch, card, cycles_per_ms):
@@ -755,44 +808,94 @@ def _bits_equal(torch, a, b):
         torch.equal(_bits(a), _bits(b))
 
 
-def phase_backward_kernel(torch):
-    """The backward kernel against its plain version, bit for bit, on the
-    forward's cases: offsets from the forward kernel, a random gradient
-    in the input's type (stored off a 16-byte boundary where the input
-    is), values and zero cells alike.  Returns the max |difference|."""
+def _check_backward(torch, x, err_buf, ky, kx, sliding, use_abs, label):
+    """The backward kernel against its plain version, bit for bit, on
+    offsets from the forward kernel over ``x`` and a gradient taken from
+    ``err_buf`` (a flat buffer longer than the gradient: from its second
+    element where ``x`` lies off a 16-byte boundary, else its first).
+    Returns ``(max |difference|, nonzero cells, (instantiation, width))``."""
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     from znicz_tpu_torch.ops import pooling
+    _, offs = cuda_pooling.max_pooling_offsets(x, ky, kx, sliding, use_abs)
+    n = offs.numel()
+    err = (err_buf[1:n + 1] if x.data_ptr() % 16 else err_buf[:n]).view(
+        offs.shape)
+    wide = cuda_pooling_backward.LAUNCHES_WIDE
+    grad = cuda_pooling_backward.max_pooling_offsets_backward(
+        err, offs, tuple(x.shape), ky, kx, sliding)
+    width = WIDE if cuda_pooling_backward.LAUNCHES_WIDE > wide else NARROW
+    want = pooling.max_pooling_backward_plain(
+        err, offs, tuple(x.shape), ky, kx, sliding)
+    torch.cuda.synchronize()
+    if not _bits_equal(torch, grad, want):
+        raise RuntimeError(
+            "backward kernel disagrees with its plain version: %s use_abs=%s "
+            "(%d cells differ)" % (label, use_abs,
+                                   (grad != want).sum().item()))
+    plan = cuda_pooling_backward.launch_plan(
+        tuple(x.shape), x.element_size(),
+        cuda_pooling_backward.vector_width(err, offs, grad), ky, kx,
+        tuple(sliding))
+    kind = "stride 2" if plan.stride2 else "runtime stride"
+    return _max_abs_diff(grad, want), (want != 0).sum().item(), (kind, width)
+
+
+def _backward_edge_cases(torch, gen):
+    """``(label, x, ky, kx, sliding)`` at the backward kernel's tile
+    edges, in f32, f16 and bf16, and the first two once more with the
+    input (so the gradient) off a 16-byte boundary."""
+    for b, h, w, c, ky, kx, sliding in BACKWARD_TILE_EDGES:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            yield ("backward tile edge %s %s" % (
+                (b, h, w, c, ky, kx, sliding), dtype),
+                _tied(torch, gen, (b, h, w, c), dtype), ky, kx, sliding)
+    for (b, h, w, c, ky, kx, sliding), dtype in zip(
+            BACKWARD_TILE_EDGES[:2], (torch.float32, torch.bfloat16)):
+        n = b * h * w * c
+        buf = _tied(torch, gen, (n + 1,), dtype)
+        yield ("backward tile edge %s %s, unaligned" % (
+            (b, h, w, c, ky, kx, sliding), dtype),
+            buf[1:].view(b, h, w, c), ky, kx, sliding)
+
+
+def phase_backward_kernel(torch):
+    """The backward kernel against its plain version, bit for bit, on the
+    forward's cases and its own tile edges: offsets from the forward
+    kernel, a random gradient in the input's type (stored off a 16-byte
+    boundary where the input is), values and zero cells alike.  Both
+    instantiations must be among the cases at both widths.  Returns the
+    max |difference|."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     n_cases = 0
     max_err = 0.0
-    for label, x, ky, kx, sliding, _ in _cases(torch, gen):
-        widths = set()
+    taken = {(k, wd): 0 for k in ("stride 2", "runtime stride")
+             for wd in (WIDE, NARROW)}
+    cases = [c[:5] for c in _cases(torch, gen)] + list(
+        _backward_edge_cases(torch, gen))
+    for label, x, ky, kx, sliding in cases:
+        kinds = set()
+        nonzero = 0
         for use_abs in (False, True):
-            _, offs = cuda_pooling.max_pooling_offsets(x, ky, kx, sliding,
-                                                       use_abs)
-            n = offs.numel()
-            buf = torch.randn(n + 1, generator=gen, device="cuda").to(
-                x.dtype)
-            err = (buf[1:] if x.data_ptr() % 16 else buf[:n]).view(
-                offs.shape)
-            grad = cuda_pooling_backward.max_pooling_offsets_backward(
-                err, offs, tuple(x.shape), ky, kx, sliding)
-            want = pooling.max_pooling_backward_plain(
-                err, offs, tuple(x.shape), ky, kx, sliding)
-            torch.cuda.synchronize()
-            if not _bits_equal(torch, grad, want):
-                raise RuntimeError(
-                    "backward kernel disagrees with its plain version: %s "
-                    "use_abs=%s (%d cells differ)" % (
-                        label, use_abs, (grad != want).sum().item()))
-            max_err = max(max_err, _max_abs_diff(grad, want))
-            widths.add(cuda_pooling_backward.vector_width(err, offs, grad))
+            buf = torch.randn(x.numel() + 1, generator=gen,
+                              device="cuda").to(x.dtype)
+            err, nz, kind = _check_backward(torch, x, buf, ky, kx, sliding,
+                                            use_abs, label)
+            max_err = max(max_err, err)
+            nonzero += nz
+            kinds.add(kind)
+            taken[kind] += 1
             n_cases += 1
         say("   backward %s: bit-equal (%d nonzero cells), max and maxabs, "
-            "%s channel(s) a thread" % (label, (want != 0).sum().item(),
-                                        "/".join(map(str, sorted(widths)))))
+            "%s" % (label, nonzero, "; ".join(
+                "%s, %s" % k for k in sorted(kinds))))
     say("== backward kernel: max_pooling_offsets_backward bit-equal to "
-        "max_pooling_backward_plain on %d cases" % n_cases)
+        "max_pooling_backward_plain on %d cases; by instantiation and "
+        "width: %s" % (n_cases, ", ".join(
+            "%s at %s: %d" % (k + (n,)) for k, n in taken.items())))
+    missing = [k for k, n in taken.items() if not n]
+    if missing:
+        raise RuntimeError("no case of the backward kernel took %s"
+                           % missing)
     return max_err
 
 
@@ -1113,6 +1216,8 @@ def phase_train(torch, card, cycles_per_ms):
     cuda_pooling.LAUNCHES = 0
     cuda_pooling.LAUNCHES_WIDE = cuda_pooling.LAUNCHES_NARROW = 0
     cuda_pooling_backward.LAUNCHES = 0
+    cuda_pooling_backward.LAUNCHES_WIDE = 0
+    cuda_pooling_backward.LAUNCHES_NARROW = 0
     pooling.PLAIN_CUDA_CALLS = 0
     for epoch in range(EPOCHS):
         perm = numpy.random.RandomState(100 + epoch).permutation(
@@ -1148,6 +1253,9 @@ def phase_train(torch, card, cycles_per_ms):
                 "forward_by_width": {WIDE: cuda_pooling.LAUNCHES_WIDE,
                                      NARROW: cuda_pooling.LAUNCHES_NARROW},
                 "backward": cuda_pooling_backward.LAUNCHES,
+                "backward_by_width": {
+                    WIDE: cuda_pooling_backward.LAUNCHES_WIDE,
+                    NARROW: cuda_pooling_backward.LAUNCHES_NARROW},
                 "plain_on_card": pooling.PLAIN_CUDA_CALLS}
     n_steps = EPOCHS * WINDOWS * WINDOW_STEPS
     if not net.params_finite():
@@ -1156,6 +1264,7 @@ def phase_train(torch, card, cycles_per_ms):
     if launches["forward"] != 3 * n_steps or \
             launches["backward"] != 3 * n_steps or \
             launches["forward_by_width"][NARROW] or \
+            launches["backward_by_width"][WIDE] != 3 * n_steps or \
             launches["plain_on_card"]:
         raise RuntimeError("expected 3 forward and 3 backward kernel "
                            "launches a step at 16-byte vectors and no plain "
@@ -1227,7 +1336,9 @@ def phase_train_kernels(torch, card, cycles_per_ms):
     gradient), then timed cold beside their bounds, their plain versions
     and the library yardsticks (``F.max_pool2d``;
     ``max_pool2d_with_indices_backward`` on its indices), which the port
-    never calls.  Returns the rows and each kernel's max |difference|."""
+    never calls, and the backward at its runtime-stride instantiation
+    and at each tile budget of ``TILE_SWEEP_KB``.  Returns the rows and
+    each kernel's max |difference|."""
     import torch.nn.functional as F
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     from znicz_tpu_torch.ops import pooling
@@ -1307,6 +1418,21 @@ def phase_train_kernels(torch, card, cycles_per_ms):
                 % (kind, label, shape, row["ms"], row["host_ms"],
                    row["plain_ms"], row["library_ms"], bound, nbytes / 1e6,
                    100 * bound / row["ms"], iters, card))
+        row = rows["backward"][label]
+        iters = SMALL_TIMING_ITERS if row["bound_ms"] < 0.01 else \
+            TIMING_ITERS
+        say("   backward %s plan: %s" % (
+            label, cuda_pooling_backward.launch_plan(shape, 4, 4, 3, 3,
+                                                     (2, 2))))
+        row["runtime_stride_ms"] = _runtime_stride_ms(
+            torch, work["backward"][2]["ms"], flush, cycles_per_ms, iters)
+        say("   backward %s at the runtime-stride instantiation: %.4f ms "
+            "(stride 2: %.4f ms before it, at 24 KB in the sweep after "
+            "it); %s" % (label, row["runtime_stride_ms"], row["ms"], card))
+        say("   backward %s kernel ms by tile budget in KB: %s" % (
+            label, json.dumps(_tile_sweep(
+                torch, cuda_pooling_backward, work["backward"][2]["ms"],
+                flush, cycles_per_ms, iters))))
     return rows, max_err
 
 
@@ -1323,6 +1449,7 @@ def _sums(rows):
 
 def main():
     import torch
+    marks = [("start", time.perf_counter())]
     name, smi = phase_device(torch)
     sys.path.insert(0, HERE)
     try:
@@ -1333,15 +1460,21 @@ def main():
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     card = "[%s]" % smi
     phase_build()
+    marks.append(("build", time.perf_counter()))
     cycles_per_ms = _spin_cycles_per_ms(torch)
     rows, max_err = phase_kernels(torch, card, cycles_per_ms)
+    marks.append(("kernels", time.perf_counter()))
     backward_err = phase_backward_kernel(torch)
+    marks.append(("backward kernel", time.perf_counter()))
     by_width, layer_ms = phase_serve(torch, card, cycles_per_ms)
+    marks.append(("serve", time.perf_counter()))
     for label in rows:
         say("   %s in the model: %.4f ms (warm L2), cold alone %.4f ms; %s"
             % (label, layer_ms[label], rows[label]["ms"], card))
     train_launches, _ = phase_train(torch, card, cycles_per_ms)
+    marks.append(("train", time.perf_counter()))
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
+    marks.append(("train kernels", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -1351,7 +1484,10 @@ def main():
                "launches": sum(by_width.values()) + train_launches["forward"],
                "launches_by_path": {"serve": sum(by_width.values()),
                                     "train": train_launches["forward"]},
-               "launches_by_width": by_width}
+               "launches_by_width": {
+                   k: by_width[k] + train_launches["forward_by_width"][k]
+                   for k in by_width},
+               "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),
                                  layer_ms))
     forward["train"] = _sums(train_rows["forward"])
@@ -1360,8 +1496,15 @@ def main():
                 cuda_pooling_backward.SOURCE,
                 "replaces": cuda_pooling_backward.REPLACES,
                 "launches": train_launches["backward"],
+                "launches_by_width": train_launches["backward_by_width"],
+                "ptxas": _ptxas(cuda_pooling_backward.SOURCE),
                 "max_abs_err": max(backward_err, train_err["backward"])}
     backward.update(_sums(train_rows["backward"]))
+    backward["runtime_stride_ms"] = sum(
+        r["runtime_stride_ms"] for r in train_rows["backward"].values())
+    say("== wall seconds by phase (device, import and build first): %s"
+        % ", ".join("%s %.1f" % (phase, t - marks[i][1])
+                    for i, (phase, t) in enumerate(marks[1:])))
     say(json.dumps({"kernels": [forward, backward]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -294,18 +294,24 @@ def test_lowerings_agree_on_cpu(geom, use_abs):
         torch.testing.assert_close(g, results[0][1], rtol=1e-15, atol=0)
 
 
+def _backward_counts():
+    return (cuda_pooling_backward.LAUNCHES,
+            cuda_pooling_backward.LAUNCHES_WIDE,
+            cuda_pooling_backward.LAUNCHES_NARROW)
+
+
 def test_backward_dispatch_runs_plain_on_cpu_and_kernel_refuses_cpu():
     x = torch.from_numpy(_tied_input(GEOMS[3], 3))
     _, o = pooling.max_pooling_plain(x, 3, 3, (2, 2))
     err = torch.randn(o.shape, generator=torch.Generator().manual_seed(0))
+    counts = _backward_counts()
     got = pooling.max_pooling_backward(err, o, x.shape, 3, 3, (2, 2))
     assert torch.equal(got, pooling.max_pooling_backward_plain(
         err, o, x.shape, 3, 3, (2, 2)))
-    launches = cuda_pooling_backward.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_pooling_backward.max_pooling_offsets_backward(
             err, o, x.shape, 3, 3, (2, 2))
-    assert cuda_pooling_backward.LAUNCHES == launches
+    assert _backward_counts() == counts
 
 
 def test_backward_kernel_guards():
@@ -315,7 +321,7 @@ def test_backward_kernel_guards():
     err = torch.zeros(2, 3, 3, 4)
     offs = torch.zeros(2, 3, 3, 4, dtype=torch.int32)
     x_shape = (2, 7, 7, 4)
-    launches = cuda_pooling_backward.LAUNCHES
+    counts = _backward_counts()
     with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
         f(err.double(), offs, x_shape, 3, 3, (2, 2))
     with pytest.raises(TypeError, match="int32"):
@@ -336,7 +342,11 @@ def test_backward_kernel_guards():
             f(err, offs, bad, 3, 3, (2, 2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         f(err, offs, x_shape, 3, 3, (2, 2))
-    assert cuda_pooling_backward.LAUNCHES == launches
+    # windows whose staged err and offsets no shared memory holds
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_pooling_backward.launch_plan((1, 300, 300, 64), 4, 4, 200, 200,
+                                          (1, 1))
+    assert _backward_counts() == counts
 
 
 @pytest.mark.parametrize("dtype,c,want", [
@@ -352,3 +362,184 @@ def test_backward_vector_width(dtype, c, want, aligned):
     grad = torch.zeros((2, 7, 7, c), dtype=dtype)
     assert cuda_pooling_backward.vector_width(err, offs, grad) == \
         (want if aligned else 1)
+
+
+# -- the backward kernel's launch plan (chosen before the launch) --------
+
+#: (b, h, w, c, ky, kx, sliding) of the backward kernel's tile edges that
+#: chip_smoke.py checks on the card (BACKWARD_TILE_EDGES there)
+BACKWARD_TILE_EDGES = [
+    (2, 57, 57, 96, 2, 2, (2, 2)),  # 2x2/s2 in odd tiles: windows straddle
+    (2, 41, 41, 64, 3, 3, (2, 2)),  # 3x3/s2 in odd tiles: alternating halo
+    (2, 7, 700, 32, 3, 3, (2, 2)),  # column tiles
+    (3, 24, 24, 87, 2, 2, (2, 2)),  # the MNIST pool, one channel a thread
+    (2, 60, 150, 32, 3, 3, (3, 3)),  # runtime stride, 15 row tiles
+    (2, 5, 1200, 16, 3, 3, (3, 3)),  # runtime stride, column tiles
+    (2, 20, 20, 8, 2, 2, (3, 3)),  # stride past the window: uncovered cells
+]
+#: the batch-128 AlexNet training shapes and their plans in float32 at
+#: 16-byte vectors
+TRAIN_PLANS = {
+    (128, 55, 55, 96): cuda_pooling_backward.Plan(
+        8, 4, 55, 3, 27, 20736, (8, 28, 1), (3, 14, 128), True),
+    (128, 27, 27, 256): cuda_pooling_backward.Plan(
+        8, 9, 27, 6, 13, 19968, (8, 27, 1), (8, 3, 128), True),
+    (128, 13, 13, 256): cuda_pooling_backward.Plan(
+        8, 13, 13, 6, 6, 9216, (8, 13, 2), (8, 1, 128), True),
+}
+BACKWARD_PLAN_CASES = ([(2,) + g for g in GEOMS] + BACKWARD_TILE_EDGES +
+                       [s + (3, 3, (2, 2)) for s in TRAIN_PLANS])
+
+
+def _window_span(lo, hi, k, s, n_out):
+    """``(first, last)`` window touching input cells ``[lo, hi)`` along
+    one axis, as the kernel works them out for a tile (``first_window``
+    and ``oy_hi`` in the source)."""
+    t = lo - k + 1
+    return (0 if t <= 0 else -(-t // s)), min(n_out - 1, (hi - 1) // s)
+
+
+def _walk(pos, k, s, n_out):
+    """The windows a cell at ``pos`` visits, in the kernel's order: from
+    ``min(n_out - 1, pos // s)`` down while ``pos - o*s < k``."""
+    o = min(n_out - 1, pos // s)
+    out = []
+    while o >= 0 and pos - o * s < k:
+        out.append(o)
+        o -= 1
+    return out
+
+
+def _tiles_of_axis(n, tile, n_blocks):
+    """``(lo, hi)`` of the tiles a grid of ``n_blocks`` walks over ``n``
+    cells in steps of ``tile`` (the kernel's strided loop)."""
+    return [(lo, min(n, lo + tile)) for blk in range(n_blocks)
+            for lo in range(blk * tile, n, n_blocks * tile)]
+
+
+@pytest.mark.parametrize("case", BACKWARD_PLAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_launch_plan_covers_the_input(case, dtype):
+    """The grid's tiles cover every input cell exactly once; the windows
+    staged for a tile are exactly those that touch it, no more than the
+    plan's rows x columns, and hold every window each of its cells walks
+    (dy then dx ascending); the staged tile stays within ``TILE_BYTES``,
+    the block within the launch bounds, and the stride-2 instantiation
+    is chosen exactly for sliding (2, 2)."""
+    b, h, w, c, ky, kx, sliding = case
+    sx, sy = sliding
+    ny, nx = pooling.output_spatial(h, w, ky, kx, sliding)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    wide = 16 // itemsize
+    for vec in (1, wide) if c % wide == 0 else (1,):
+        plan = cuda_pooling_backward.launch_plan((b, h, w, c), itemsize, vec,
+                                                 ky, kx, sliding)
+        lanes, by, bz = plan.block
+        gx, gy, gz = plan.grid
+        assert lanes == plan.lanes and lanes * by * bz <= 256
+        assert gy <= 65535 and gz <= 65535
+        assert plan.smem == plan.rows * plan.cols * lanes * (
+            vec * itemsize + 4 * vec)
+        assert plan.smem <= cuda_pooling_backward.TILE_BYTES
+        assert plan.stride2 == (tuple(sliding) == (2, 2))
+        channels = sorted(ch for blk in range(gx) for lane in range(lanes)
+                          for ch in range((blk * lanes + lane) * vec,
+                                          (blk * lanes + lane + 1) * vec)
+                          if (blk * lanes + lane) * vec < c)
+        assert channels == list(range(c))
+        assert sorted(i for z in range(gz) for i in range(z, b, gz)) == \
+            list(range(b))
+        for n, tile, n_blocks, k, s, n_out, most in (
+                (h, plan.ti, gy, ky, sy, ny, plan.rows),
+                (w, plan.tj, 1, kx, sx, nx, plan.cols)):
+            tiles = _tiles_of_axis(n, tile, n_blocks)
+            assert sorted(i for lo, hi in tiles for i in range(lo, hi)) == \
+                list(range(n))
+            for lo, hi in tiles:
+                first, last = _window_span(lo, hi, k, s, n_out)
+                touch = [o for o in range(n_out)
+                         if o * s <= hi - 1 and o * s + k - 1 >= lo]
+                assert list(range(first, last + 1)) == touch
+                assert len(touch) <= most
+                for pos in range(lo, hi):
+                    covering = [o for o in touch if o * s <= pos < o * s + k]
+                    assert _walk(pos, k, s, n_out) == covering[::-1]
+
+
+def test_backward_launch_plans_at_alexnet_training_shapes():
+    """The plans of the batch-128 training step's three backward launches
+    (float32, 16-byte vectors): the stride-2 instantiation, tiles of 4,
+    9 and 13 input rows within 24 KB; other strides take the runtime
+    one."""
+    for shape, plan in TRAIN_PLANS.items():
+        c = shape[3]
+        assert cuda_pooling_backward.vector_width(
+            torch.zeros(2, 3, 3, c), torch.zeros(2, 3, 3, c,
+                                                 dtype=torch.int32),
+            torch.zeros(2, 7, 7, c)) == 4
+        assert cuda_pooling_backward.launch_plan(shape, 4, 4, 3, 3,
+                                                 (2, 2)) == plan
+    assert cuda_pooling_backward.launch_plan(
+        (2, 24, 24, 87), 4, 1, 2, 2, (2, 2)).stride2
+    for ky, kx, sliding in ((3, 2, (2, 3)), (3, 3, (3, 3)), (3, 3, (1, 2))):
+        assert not cuda_pooling_backward.launch_plan(
+            (2, 13, 13, 8), 4, 4, ky, kx, sliding).stride2
+
+
+class _StubLibrary:
+    """Stands in for the kernel's library: records each launch's
+    arguments and returns ``code``."""
+
+    def __init__(self, code=0):
+        self.code = code
+        self.calls = []
+
+    def max_pooling_offsets_backward(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def max_pooling_offsets_backward_error_string(self, code):
+        return b"stub error %d" % code
+
+
+def test_backward_launch_counters_only_count(monkeypatch):
+    """The wrapper's launch path with the card's library stood in for:
+    the library receives the plan's tiles, block, grid and
+    instantiation; each launch it accepts adds one to ``LAUNCHES`` and
+    to the counter of its width, whatever they held, and a refused one
+    raises and adds to none."""
+    import contextlib
+    import types
+    stub = _StubLibrary()
+    monkeypatch.setattr(cuda_pooling_backward, "_lib", stub)
+    monkeypatch.setattr(cuda_pooling_backward, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    for name, start in (("LAUNCHES", 5), ("LAUNCHES_WIDE", 3),
+                        ("LAUNCHES_NARROW", 2)):
+        monkeypatch.setattr(cuda_pooling_backward, name, start)
+    f = cuda_pooling_backward.max_pooling_offsets_backward
+
+    def run(c, aligned=True):
+        n = 2 * 13 * 13 * c
+        buf = torch.zeros(n + 1)
+        err = (buf[:n] if aligned else buf[1:]).view(2, 13, 13, c)
+        offs = torch.zeros((2, 13, 13, c), dtype=torch.int32)
+        return f(err, offs, (2, 27, 27, c), 3, 3, (2, 2))
+    grad = run(96)
+    assert grad.shape == (2, 27, 27, 96) and _backward_counts() == (6, 4, 2)
+    plan = cuda_pooling_backward.launch_plan((2, 27, 27, 96), 4, 4, 3, 3,
+                                             (2, 2))
+    assert stub.calls[0][3:] == (
+        0, 4, 1, 2, 27, 27, 96, 13, 13, 3, 3, 2, 2, plan.ti, plan.tj,
+        plan.rows, plan.cols) + plan.block + plan.grid + (7,)
+    run(87)
+    assert _backward_counts() == (7, 4, 3) and stub.calls[1][4] == 1
+    run(96, aligned=False)
+    assert _backward_counts() == (8, 4, 4) and stub.calls[2][4] == 1
+    stub.code = 9
+    with pytest.raises(RuntimeError, match="stub error 9"):
+        run(96)
+    assert _backward_counts() == (8, 4, 4) and len(stub.calls) == 4

@@ -4,22 +4,42 @@
 Counterpart of ``znicz_tpu/ops/pooling.py::_maxpool_bwd_dense`` (:118),
 the backward of the fused path's "offsets" pooling: each input cell
 receives the gradients of the windows whose recorded winner it is,
-summed from +0.0 over the window offsets dy then dx ascending.  Each
-thread owns one cell (and a 16-byte vector of channels where C and the
-three addresses allow it, one channel otherwise) and writes it once,
-so there are no atomics and the bits are the same on every run; they
-equal those of its plain PyTorch version,
+summed from +0.0 over the window offsets dy then dx ascending, and is
+written once (cells no window covers as +0.0), so there are no atomics
+and the bits are the same on every run; they equal those of its plain
+PyTorch version,
 :func:`znicz_tpu_torch.ops.pooling.max_pooling_backward_plain`.
 
 Bound: memory — the gradient and the offsets read once plus the input
-gradient written once, over the H100's 3.35 TB/s.
+gradient written once, over the H100's 3.35 TB/s.  Design (details in
+the source): a 3-D grid of channel slab x tile of input rows x batch
+row, with int32 index arithmetic and no division per cell; each block
+stages the err and offsets of the windows that touch its tile once in
+shared memory with 16-byte ``cp.async``, and every cell reads its
+covering windows there instead of through L1/L2 once for each cell a
+window covers; each thread owns a 16-byte vector of channels and
+stores it as one.  The kernel is instantiated with the stride as the
+constant 2 (every pool on the port's paths), where the window walk
+shifts instead of dividing, and once with runtime strides for every
+other geometry.  Tiles stage at most ``TILE_BYTES`` = 24 KB, the
+budget that timed fastest on the H100: 4, 9 and 13 input rows at
+AlexNet's three training pools.  Each pool still takes one launch, a
+floor that at max_pool5 is about half the bound.
 
-The library is built by :mod:`znicz_tpu_torch.ops.cuda_build` at the
-first launch and loaded with ``ctypes``.  ``LAUNCHES`` counts the
-kernel's launches; nothing else adds to it.
+Before each launch the wrapper chooses, from shape and alignment
+alone, the vector width (:func:`vector_width`), the tiles, the block
+and grid shapes and the instantiation (:func:`launch_plan`); nothing
+is chosen on a failed launch, which raises.  The library is built by
+:mod:`znicz_tpu_torch.ops.cuda_build` at the first launch and loaded
+with ``ctypes``.  ``LAUNCHES_WIDE`` (16-byte vectors) and
+``LAUNCHES_NARROW`` (one channel a thread) count the kernel's launches
+by width, ``LAUNCHES`` their sum, both instantiations alike; nothing
+else adds to them.
 """
 
+import collections
 import ctypes
+import functools
 import threading
 
 import torch
@@ -31,8 +51,34 @@ SOURCE = "max_pooling_offsets_backward.cu"
 #: the JAX function this kernel takes the place of (file:line)
 REPLACES = "znicz_tpu/ops/pooling.py:118"
 
-#: launches of the kernel since the counter was last set to 0
+#: launches of the kernel since the counters were last set to 0: at
+#: 16-byte vectors, at one channel a thread, and both together
+LAUNCHES_WIDE = 0
+LAUNCHES_NARROW = 0
 LAUNCHES = 0
+
+#: shared memory a block's staged windows take at most, so that the
+#: 227 KB an H100 SM gives its blocks never limits how many share it;
+#: chip_smoke.py times the kernel at 16-64 KB, and on the H100 24 KB
+#: beat the forward's 32 KB by 2-3% at AlexNet's two larger pools
+TILE_BYTES = 24 * 1024
+#: the most shared memory a block may take (the kernel's kMaxSmem)
+MAX_SMEM = 227 * 1024
+#: bytes of channels one block spans: a 128-byte line of each cell
+SLAB_BYTES = 128
+#: threads of a block (the kernel's launch bounds); the most blocks of
+#: the grid's y and z dimensions (both stride on past it)
+MAX_THREADS = 256
+MAX_GRID_YZ = 65535
+
+#: one launch: ``lanes`` threads across a channel slab; ``ti`` input
+#: rows and ``tj`` input columns a tile; ``rows`` x ``cols`` windows
+#: staged for it at most, ``smem`` bytes; ``block`` = (lanes, input
+#: columns, input rows) threads and ``grid`` = (slabs, row tiles, batch
+#: rows) blocks; ``stride2``: the instantiation with the stride as the
+#: constant 2 (else runtime strides)
+Plan = collections.namedtuple(
+    "Plan", "lanes ti tj rows cols smem block grid stride2")
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _lib = None
@@ -46,7 +92,7 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(cuda_build.build(SOURCE))
             lib.max_pooling_offsets_backward.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 +
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 23 +
                 [ctypes.c_void_p])
             lib.max_pooling_offsets_backward.restype = ctypes.c_int
             fn = lib.max_pooling_offsets_backward_error_string
@@ -66,6 +112,63 @@ def vector_width(err, offsets, grad):
             t.data_ptr() % 16 == 0 for t in (err, offsets, grad)):
         return vec
     return 1
+
+
+def _staged(n, k, s, n_out):
+    """The most windows (size ``k``, stride ``s``, ``n_out`` of them)
+    that touch ``n`` neighbouring input cells: the windows a tile of
+    ``n`` rows (or columns) stages, wherever it starts."""
+    return min(n_out, (n + k - 2) // s + 1)
+
+
+def _even(n, most):
+    """The least ``m <= most`` that cuts ``n`` into as few parts."""
+    return -(-n // -(-n // min(most, n)))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(shape, itemsize, vec, ky, kx, sliding):
+    """The :data:`Plan` of one launch that makes the input gradient of
+    NHWC ``shape``.
+
+    A slab spans ``SLAB_BYTES`` of channels (fewer when C is small); a
+    tile spans all input columns unless the windows of one row overflow
+    ``TILE_BYTES``, and as many input rows as keep its staged windows
+    (err and offsets) within it, evened out over the tiles.  The
+    block's columns are evened out over as few passes as
+    ``MAX_THREADS`` allows, and its rows take the threads left.  Raises
+    if even the windows of one input cell do not fit in shared
+    memory."""
+    b, h, w, c = shape
+    ny, nx = output_spatial(h, w, ky, kx, sliding)
+    sx, sy = sliding
+    pack = vec * itemsize
+    cell = pack + 4 * vec  # a staged window of one lane: err and offsets
+    lanes = min(SLAB_BYTES // pack, -(-c // vec))
+
+    def row_bytes(tj, lanes):  # the windows of one output row a tile stages
+        return _staged(tj, kx, sx, nx) * lanes * cell
+    window_rows = _staged(1, ky, sy, ny)
+    tj = w
+    while tj > 1 and window_rows * row_bytes(tj, lanes) > TILE_BYTES:
+        tj = -(-tj // 2)
+    while lanes > 1 and window_rows * row_bytes(tj, lanes) > TILE_BYTES:
+        lanes //= 2
+    fit = TILE_BYTES // row_bytes(tj, lanes)
+    ti = _even(h, h if fit >= ny else max(1, fit * sy - ky + 1))
+    rows, cols = _staged(ti, ky, sy, ny), _staged(tj, kx, sx, nx)
+    smem = rows * cols * lanes * cell
+    if smem > MAX_SMEM:
+        raise ValueError("max_pooling_offsets_backward: the windows of a "
+                         "%dx%d/%s tile of %d-byte cells need %d bytes of "
+                         "shared memory, over %d"
+                         % (ti, tj, tuple(sliding), pack, smem, MAX_SMEM))
+    by = _even(tj, MAX_THREADS // lanes)
+    bz = _even(ti, MAX_THREADS // (lanes * by))
+    grid = (-(-(-(-c // vec)) // lanes), min(-(-h // ti), MAX_GRID_YZ),
+            min(b, MAX_GRID_YZ))
+    return Plan(lanes, ti, tj, rows, cols, smem, (lanes, by, bz), grid,
+                (sx, sy) == (2, 2))
 
 
 def _check(err, offsets, x_shape, ky, kx, sliding):
@@ -115,7 +218,7 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     int32, with fewer than 2^31 elements in the input.  Launches on the
     current stream without synchronising; raises if the launch is
     refused."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_NARROW
     ky, kx = int(ky), int(kx)
     sx, sy = int(sliding[0]), int(sliding[1])
     b, h, w, c = (int(s) for s in x_shape)
@@ -124,16 +227,23 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     if grad.numel() == 0:
         return grad
     vec = vector_width(err, offsets, grad)
+    plan = launch_plan((b, h, w, c), err.element_size(), vec, ky, kx,
+                       (sx, sy))
     lib = _lib or load()
     with torch.cuda.device(err.device):
         stream = torch.cuda.current_stream(err.device).cuda_stream
         code = lib.max_pooling_offsets_backward(
             err.data_ptr(), offsets.data_ptr(), grad.data_ptr(),
-            _DTYPES[err.dtype], vec, b, h, w, c, err.shape[1], err.shape[2],
-            ky, kx, sy, sx, stream)
+            _DTYPES[err.dtype], vec, int(plan.stride2), b, h, w, c,
+            err.shape[1], err.shape[2], ky, kx, sy, sx, plan.ti, plan.tj,
+            plan.rows, plan.cols, *plan.block, *plan.grid, stream)
     if code:
         raise RuntimeError(
             "max_pooling_offsets_backward launch failed: %s"
             % lib.max_pooling_offsets_backward_error_string(code).decode())
+    if vec == 1:
+        LAUNCHES_NARROW += 1
+    else:
+        LAUNCHES_WIDE += 1
     LAUNCHES += 1
     return grad
