@@ -58,7 +58,28 @@ failure (the script then exits non-zero and prints no result line):
    engine dispatches, request latency p50/p99, and a per-layer
    device-time breakdown, whose pool layers give each pool's in-model
    (warm-L2) time;
-6. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
+6. workflow — full-width AlexNet trained by the workflow CLI,
+   ``python -m znicz_tpu_torch alexnet --fused pool_impl=offsets`` at
+   batch 128 over 2,048 TRAIN and 256 VALID prototype images for 3
+   epochs, run in this process (``__main__.main``) in f32 with TF32 off
+   and ``cudnn.deterministic``, snapshots under ``build/`` (deleted
+   after).  Each epoch must evaluate 2,048 TRAIN and 256 VALID rows
+   with finite stats within their segments; the kernels must launch 3
+   times forward a train step and a VALID minibatch and 3 times
+   backward a step, all at 16-byte vectors, with no plain pooling on
+   the card; and each TRAIN segment must read the device back once
+   (counted here by swapping ``torch.Tensor``'s reading methods; the
+   synchronizing operations of PyTorch's sync debug mode are printed
+   beside).  The run's windows (``FusedNet.run_window_indexed``,
+   recorded by a wrapper) are replayed on a fresh ``FusedNet`` from the
+   run's initial state: each epoch's TRAIN stats, the VALID n_err of
+   ``predict_with_idx`` over the VALID rows, and the final parameters
+   and optimizer state must equal the run's bit for bit.  Then the CLI
+   resumes the newest snapshot of an epoch before the last
+   (``--snapshot``; the snapshotter writes after the epochs that
+   improved) and must end bit-equal to the uninterrupted run.  Prints
+   each epoch's TRAIN images/s and the host's wall time per window;
+7. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
    batch 128: one step on the kernels against one on the "gather"
    lowering from the same state (loss and n_err equal, every update
    within ``GATHER_STEP_RTOL``, while a backward that drops the last
@@ -67,14 +88,15 @@ failure (the script then exits non-zero and prints no result line):
    update before it is added within ``CPU_STEP_RATIO`` times the CPU's
    own float32 update's distance, while a TF32 control must exceed
    that; each conv's gates and output gradient and each pool's winners
-   traced beside); then the main path, 3
-   epochs of 4 windows of 4 steps over 2,048 prototype images on the
+   traced beside); then the main path, 3 epochs of 4 windows of 4
+   steps over 2,048 prototype images (the first rows of the workflow
+   phase's draw, made once in a thread started with the script) on the
    card, one readback per epoch, finite losses and parameters, exactly
    3 forward and 3 backward kernel launches a step and no plain pooling
    on the card, every backward launch at 16-byte vectors; then a
    step's device time split forward / backward / update, with the host
    held ahead, and the host's enqueue time;
-7. train kernels — both kernels at batch 128 bit-equal to their plain
+8. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
    and the backward at its runtime-stride instantiation and at tile
@@ -84,17 +106,19 @@ The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
 summed over the three AlexNet pools, ``train`` holds the same per
-batch-128 step, and ``launches`` counts the serve requests' and the
-train epochs' launches (``launches_by_path``).  For the backward
-kernel the times are per batch-128 step and ``launches`` counts the
-train epochs'.  ``launches_by_width`` splits each kernel's launches by
-vector width, and ``ptxas`` gives the registers and spilled bytes of
-its instantiations.  ``max_abs_err`` is the largest difference from
+batch-128 step, and ``launches`` counts the serve requests', the train
+epochs' and the workflow run's launches (``launches_by_path``).  For
+the backward kernel the times are per batch-128 step and ``launches``
+counts the train epochs' and the workflow run's.
+``launches_by_width`` splits each kernel's launches by vector width,
+and ``ptxas`` gives the registers and spilled bytes of its
+instantiations.  ``max_abs_err`` is the largest difference from
 the plain version that the run measured over every case the kernel was
 checked on.  A line before it gives each phase's wall seconds.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import gc
 import http.client
 import io
@@ -156,6 +180,10 @@ EPOCHS, WINDOWS, WINDOW_STEPS = 3, 4, 4
 TRAIN_POOLS = (("max_pool1", (128, 55, 55, 96)),
                ("max_pool2", (128, 27, 27, 256)),
                ("max_pool5", (128, 13, 13, 256)))
+#: the workflow phase: the CLI's AlexNet at batch TRAIN_BATCH over
+#: 2,048 TRAIN and 256 VALID prototype images (the loader's draw,
+#: [VALID | TRAIN]) for 3 epochs
+WORKFLOW_TRAIN, WORKFLOW_VALID, WORKFLOW_EPOCHS = 2048, 256, 3
 #: the kernels' step against the "gather" step (plain forward, scatter
 #: backward) from one state: each parameter's update within this
 #: relative difference of the tensor's largest update (only the order
@@ -1164,13 +1192,502 @@ def _cpu_check(torch, net, sd0, data, labels):
                            "every tensor: the check cannot see it")
 
 
+class _Prototypes(object):
+    """``alexnet.prototype_images`` drawn once, before the phases: a
+    draw of ``n`` images is the prefix of any larger draw with the same
+    seed, classes and size, so while installed (``with``) the workflow
+    phase's loader (2,304 images, in its run and in the resumed run)
+    and the train phase (2,048) take copies of this one draw."""
+
+    def __init__(self, alexnet, n, seed=0x1337, n_classes=TRAIN_CLASSES,
+                 size=227):
+        self.alexnet, self.real = alexnet, alexnet.prototype_images
+        self.n, self.key = n, (seed, n_classes, size)
+        self.data, self.labels = self.real(n, *self.key)
+
+    def __call__(self, n, seed=0x1337, n_classes=10, size=227):
+        if (seed, n_classes, size) != self.key or n > self.n:
+            return self.real(n, seed, n_classes, size)
+        return self.data[:n].copy(), self.labels[:n].copy()
+
+    def __enter__(self):
+        self.alexnet.prototype_images = self
+        return self
+
+    def __exit__(self, *exc):
+        self.alexnet.prototype_images = self.real
+
+
+class _Readbacks(object):
+    """Counts reads of CUDA tensors back to the host while installed:
+    ``.cpu()``, ``.item()``, ``.tolist()``, ``.numpy()``, ``bool()``,
+    ``int()``, ``float()``, ``index()``, ``.to()`` a CPU device and
+    ``copy_`` into a CPU tensor, keyed by ``where()`` at the call
+    (``counts``).  Beside them, ``syncs`` counts the synchronizing CUDA
+    operations that PyTorch's sync debug mode reports, those inside
+    its own ops included.  It swaps ``torch.Tensor``'s methods and
+    ``warnings.showwarning`` and puts them back; nothing in the package
+    reads it."""
+
+    METHODS = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+               "__float__", "__index__", "to", "copy_")
+
+    def __init__(self, torch, where):
+        self.torch, self.where = torch, where
+        self.counts = collections.Counter()
+        self.syncs = collections.Counter()
+        self.paused = False
+        self._saved = {}
+        self._warnings = None
+
+    def _showwarning(self, message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            if not self.paused:
+                self.syncs[self.where()] += 1
+            return
+        self._real_showwarning(message, *args, **kwargs)
+
+    def _wrap(self, name, real):
+        tensor = self.torch.Tensor
+
+        def method(t, *args, **kwargs):
+            out = real(t, *args, **kwargs)
+            if self.paused:
+                return out
+            if name == "to":
+                hit = t.is_cuda and isinstance(out, tensor) and \
+                    not out.is_cuda
+            elif name == "copy_":
+                hit = not t.is_cuda and isinstance(args[0], tensor) and \
+                    args[0].is_cuda
+            else:
+                hit = t.is_cuda
+            if hit:
+                self.counts[self.where()] += 1
+            return out
+        return method
+
+    def __enter__(self):
+        import warnings
+        tensor = self.torch.Tensor
+        for name in self.METHODS:
+            self._saved[name] = tensor.__dict__.get(name)
+            setattr(tensor, name, self._wrap(name, getattr(tensor, name)))
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        self._real_showwarning = warnings.showwarning
+        warnings.showwarning = self._showwarning
+        if self.torch.cuda.is_available():
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self.torch.cuda.is_available():
+            self.torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        for name, real in self._saved.items():
+            if real is None:
+                delattr(self.torch.Tensor, name)
+            else:
+                setattr(self.torch.Tensor, name, real)
+
+
+def _zero_counts():
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    for mod in (cuda_pooling, cuda_pooling_backward):
+        mod.LAUNCHES = mod.LAUNCHES_WIDE = mod.LAUNCHES_NARROW = 0
+    pooling.PLAIN_CUDA_CALLS = 0
+
+
+def _counts():
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    return {"forward": cuda_pooling.LAUNCHES,
+            "forward_by_width": {WIDE: cuda_pooling.LAUNCHES_WIDE,
+                                 NARROW: cuda_pooling.LAUNCHES_NARROW},
+            "backward": cuda_pooling_backward.LAUNCHES,
+            "backward_by_width": {
+                WIDE: cuda_pooling_backward.LAUNCHES_WIDE,
+                NARROW: cuda_pooling_backward.LAUNCHES_NARROW},
+            "plain_on_card": pooling.PLAIN_CUDA_CALLS}
+
+
+def _workflow_argv(snapdir, *extra):
+    argv = ["alexnet", "--fused", "pool_impl=offsets"]
+    for key, value in (("loader.minibatch_size", TRAIN_BATCH),
+                       ("loader.n_train", WORKFLOW_TRAIN),
+                       ("loader.n_valid", WORKFLOW_VALID),
+                       ("decision.max_epochs", WORKFLOW_EPOCHS),
+                       ("snapshotter.directory", snapdir)):
+        argv += ["--config", "alexnet.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+class _WorkflowProbe(object):
+    """Wrappers around the workflow's units, installed for the phase
+    and put back after it (nothing in the package reads them): the
+    trainer's initialize (the run's units, and its initial state), every
+    ``FusedNet.run_window_indexed`` call of the run's net (its epoch,
+    row indices on the card, sizes and hypers), the loader's shuffled
+    TRAIN order at each epoch's first window (a host copy), the host's
+    wall time of each TRAIN window, each ``predict_with_idx`` of the
+    run's net, the decision at each segment end, and each snapshot
+    written."""
+
+    def __init__(self, torch):
+        import numpy
+        from znicz_tpu_torch.loader.base import VALID
+        from znicz_tpu_torch.parallel import fused
+        from znicz_tpu_torch.units import decision, fused_trainer, nn_units
+        self.torch = torch
+        self.ctx = {}
+        self.calls, self.windows, self.segments, self.snapshots = \
+            [], [], [], []
+        self.orders = {}
+        self.predicts = 0
+        self.readbacks = _Readbacks(torch, self._where)
+        probe = self
+        trainer_cls = fused_trainer.FusedForwardBackward
+        owners = {"initialize": trainer_cls,
+                  "_run_train_window": trainer_cls,
+                  "run_window_indexed": fused.FusedNet,
+                  "predict_with_idx": fused.FusedNet,
+                  "on_last_minibatch": decision.DecisionGD,
+                  "export": nn_units.NNSnapshotterToFile}
+        #: the real functions, put back by :meth:`close`
+        self.real = real = {name: getattr(owner, name)
+                            for name, owner in owners.items()}
+
+        def initialize(unit, device=None, **kwargs):
+            real["initialize"](unit, device=device, **kwargs)
+            probe.ctx.update(trainer=unit, net=unit.net, wf=unit.workflow,
+                             loader=unit.loader_unit)
+            if "state0" not in probe.ctx:
+                probe.readbacks.paused = True
+                probe.ctx["state0"] = unit.net.state_dict()
+                probe.readbacks.paused = False
+
+        def _run_train_window(unit):
+            t0 = time.perf_counter()
+            epoch = unit.loader_unit.epoch_number
+            # the host's TRAIN order of the epoch, before its first window
+            probe.orders.setdefault(
+                epoch, unit.loader_unit.train_indices.copy())
+            n = real["_run_train_window"](unit)
+            probe.windows.append((epoch, n, t0, time.perf_counter() - t0))
+            return n
+
+        def run_window_indexed(net, idx_s, batch_sizes, hypers_s):
+            if net is probe.ctx.get("net"):
+                probe.calls.append((probe.ctx["loader"].epoch_number,
+                                    idx_s.clone(), list(batch_sizes),
+                                    hypers_s))
+            return real["run_window_indexed"](net, idx_s, batch_sizes,
+                                              hypers_s)
+
+        def predict_with_idx(net, x):
+            if net is probe.ctx.get("net"):
+                probe.predicts += 1
+            return real["predict_with_idx"](net, x)
+
+        def on_last_minibatch(d):
+            real["on_last_minibatch"](d)
+            c = d.minibatch_class
+            # VALID is served after the loader counted the epoch
+            probe.segments.append({
+                "epoch": d.epoch_number - (c == VALID), "class": c,
+                "n_err": d.epoch_n_err[c],
+                "n": d.epoch_n_evaluated_samples[c],
+                "confusion": numpy.array(d.confusion_matrixes[c]),
+                "max_err_sum": d.max_err_y_sums[c],
+                "t": time.perf_counter()})
+
+        def export(snap):
+            t0 = time.perf_counter()
+            probe.readbacks.paused = True
+            try:
+                path = real["export"](snap)
+            finally:
+                probe.readbacks.paused = False
+            probe.snapshots.append((snap.workflow.loader.epoch_number, path,
+                                    time.perf_counter() - t0))
+            return path
+
+        wrappers = {"initialize": initialize,
+                    "_run_train_window": _run_train_window,
+                    "run_window_indexed": run_window_indexed,
+                    "predict_with_idx": predict_with_idx,
+                    "on_last_minibatch": on_last_minibatch,
+                    "export": export}
+        self._owners = owners
+        for name, owner in owners.items():
+            setattr(owner, name, wrappers[name])
+
+    def _where(self):
+        """The segment being served: (class, epoch) while the run's
+        workflow runs, else "outside"."""
+        wf, loader = self.ctx.get("wf"), self.ctx.get("loader")
+        if wf is None or not wf._running:
+            return "outside"
+        return (loader.minibatch_class, loader.epoch_number)
+
+    def close(self):
+        for name, owner in self._owners.items():
+            setattr(owner, name, self.real[name])
+
+
+def phase_workflow(torch, card):
+    """Full-width AlexNet trained by the workflow CLI on the card
+    (``python -m znicz_tpu_torch alexnet --fused pool_impl=offsets``,
+    run in this process): 3 epochs at batch 128 with the kernel
+    launches, the readbacks and the segment stats checked; the run's
+    windows replayed on a fresh FusedNet from its initial state, bit
+    for bit; the run resumed from its newest snapshot of an epoch
+    before the last, bit for bit.  Returns the run's launches."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+
+    snapdir = os.path.join(HERE, "build", "znicz_tpu_torch",
+                           "workflow_snapshots")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _WorkflowProbe(torch)
+    try:
+        say("== workflow: python -m znicz_tpu_torch %s"
+            % " ".join(_workflow_argv("build/...")))
+        _zero_counts()
+        t0 = time.perf_counter()
+        with probe.readbacks:
+            cli.main(_workflow_argv(snapdir))
+        launches = _counts()
+        run_s = time.perf_counter() - t0
+        run = dict(probe.ctx)
+        steps = sum(len(c[2]) for c in probe.calls)
+        _check_workflow_run(probe, launches, steps, run_s, card)
+        _replay_workflow(torch, probe, run, card)
+        _resume_workflow(torch, probe, run, cli, snapdir)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(snapdir, ignore_errors=True)
+    return launches
+
+
+def _check_workflow_run(probe, launches, steps, run_s, card):
+    """The run's segments, launches, readbacks and timings."""
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    segs = probe.segments
+    got = [(s["epoch"], s["class"], s["n"]) for s in segs]
+    want = [(e, c, n) for e in range(WORKFLOW_EPOCHS)
+            for c, n in ((TRAIN, WORKFLOW_TRAIN), (VALID, WORKFLOW_VALID))]
+    if got != want:
+        raise RuntimeError("segments (epoch, class, rows) %s, not %s"
+                           % (got, want))
+    for s in segs:
+        if not (isinstance(s["n_err"], int) and 0 <= s["n_err"] <= s["n"]
+                and numpy.isfinite(s["max_err_sum"])
+                and int(s["confusion"].sum()) == s["n"]):
+            raise RuntimeError("segment stats out of range: %s" % s)
+    _check_trained_rows(probe)
+    per_epoch = -(-WORKFLOW_TRAIN // TRAIN_BATCH)
+    valid_mbs = -(-WORKFLOW_VALID // TRAIN_BATCH) * WORKFLOW_EPOCHS
+    say("   %d train steps in %d windows and %d VALID minibatches in "
+        "%.2f s (the CLI, from its start: data, FusedNet, snapshots); "
+        "epoch_n_err by epoch (train, valid): %s; snapshots after "
+        "epochs %s (%s s each)" % (
+            steps, len(probe.calls), probe.predicts, run_s,
+            [(s["n_err"], t["n_err"]) for s, t in zip(segs[::2], segs[1::2])],
+            [e for e, _, _ in probe.snapshots],
+            " / ".join("%.2f" % dt for _, _, dt in probe.snapshots)))
+    if steps != per_epoch * WORKFLOW_EPOCHS or probe.predicts != valid_mbs:
+        raise RuntimeError("%d steps and %d VALID minibatches, not %d and "
+                           "%d" % (steps, probe.predicts,
+                                   per_epoch * WORKFLOW_EPOCHS, valid_mbs))
+    say("   launches: %s" % launches)
+    if launches["forward"] != 3 * (steps + valid_mbs) or \
+            launches["backward"] != 3 * steps or \
+            launches["forward_by_width"][NARROW] or \
+            launches["backward_by_width"][NARROW] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("expected 3 forward launches a train step and a "
+                           "VALID minibatch, 3 backward a step, all at "
+                           "16-byte vectors, no plain pooling on the card; "
+                           "got %s" % launches)
+    counts = probe.readbacks.counts
+    train_rb = [counts[(TRAIN, e)] for e in range(WORKFLOW_EPOCHS)]
+    valid_rb = sum(v for k, v in counts.items()
+                   if k != "outside" and k[0] == VALID)
+    syncs = probe.readbacks.syncs
+    say("   host readbacks: TRAIN segment by epoch %s; VALID %d in %d "
+        "minibatches (the evaluator's stats, one each); %d outside the "
+        "run, snapshots not counted; synchronizing CUDA operations "
+        "(sync debug mode): TRAIN segment by epoch %s, VALID %d, outside "
+        "the run %d" % (
+            train_rb, valid_rb, valid_mbs, counts["outside"],
+            [syncs[(TRAIN, e)] for e in range(WORKFLOW_EPOCHS)],
+            sum(v for k, v in syncs.items()
+                if k != "outside" and k[0] == VALID), syncs["outside"]))
+    if train_rb != [1] * WORKFLOW_EPOCHS:
+        raise RuntimeError("expected one readback a TRAIN segment, got %s"
+                           % train_rb)
+    for e in range(WORKFLOW_EPOCHS):
+        wins = [w for w in probe.windows if w[0] == e]
+        seg_s = segs[2 * e]["t"] - wins[0][2]
+        say("   epoch %d: TRAIN %d images in %.3f s, %.1f images/s; host "
+            "wall ms per window (steps): %s; %s" % (
+                e + 1, WORKFLOW_TRAIN, seg_s, WORKFLOW_TRAIN / seg_s,
+                ", ".join("%.1f (%d)" % (1e3 * w[3], w[1]) for w in wins),
+                card))
+
+
+def _check_trained_rows(probe):
+    """The row indices each epoch's windows read on the card, in order
+    and without the -1 padding, are the loader's shuffled TRAIN order of
+    that epoch on the host, a permutation of the TRAIN rows (after the
+    VALID ones): the staged index buffers reached the card intact."""
+    import numpy
+    train_rows = numpy.arange(WORKFLOW_VALID, WORKFLOW_VALID + WORKFLOW_TRAIN)
+    for e in range(WORKFLOW_EPOCHS):
+        order = probe.orders.get(e)
+        if order is None:
+            raise RuntimeError("epoch %d: no TRAIN order recorded" % (e + 1))
+        got = numpy.concatenate([c[1].cpu().numpy().ravel()
+                                 for c in probe.calls if c[0] == e])
+        got = got[got >= 0]
+        if not (numpy.sort(order) == train_rows).all():
+            raise RuntimeError("epoch %d: the loader's TRAIN order is not a "
+                               "permutation of rows %d-%d" % (
+                                   e + 1, train_rows[0], train_rows[-1]))
+        if got.shape != order.shape or not (got == order).all():
+            bad = numpy.flatnonzero(got[:len(order)] != order[:len(got)])
+            raise RuntimeError(
+                "epoch %d: the windows read %d rows on the card, the "
+                "loader's order has %d; first differing position %s"
+                % (e + 1, len(got), len(order),
+                   bad[:1].tolist() or "past the shorter"))
+    if probe.orders[0].tolist() == probe.orders[1].tolist():
+        raise RuntimeError("the TRAIN order was not reshuffled between "
+                           "epochs 1 and 2")
+    say("   trained rows: each epoch's windows read the loader's shuffled "
+        "TRAIN order on the card, row for row (%d rows an epoch)"
+        % len(train_rows))
+
+
+def _replay_workflow(torch, probe, run, card):
+    """The run's windows on a fresh FusedNet from the run's initial
+    state: every epoch's TRAIN stats (n_err, confusion, max_err_sum)
+    and, after each epoch, the VALID n_err of ``predict_with_idx`` over
+    the VALID rows equal the run's; the final parameters and optimizer
+    state equal bit for bit.  Each epoch's windows are timed from a
+    synchronized device to their readback: the same work as the run's
+    TRAIN segment without the control plane."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.parallel import fused
+    t0 = time.perf_counter()
+    trainer, loader = run["trainer"], run["loader"]
+    net = fused.FusedNet(trainer.layers, tuple(trainer.input.shape[1:]),
+                         pool_impl="offsets", device=run["net"].device,
+                         rand=prng.RandomGenerator().seed(1))
+    net.load_state_dict(run["state0"])
+    data = loader.original_data.mem
+    labels = numpy.asarray(loader.original_labels, numpy.int32)
+    net.set_dataset(data, labels)
+    run_window = probe.real["run_window_indexed"]
+    predict = probe.real["predict_with_idx"]
+    rates = []
+    for e in range(WORKFLOW_EPOCHS):
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter()
+        for epoch, idx, sizes, hypers_s in probe.calls:
+            if epoch == e:
+                run_window(net, idx, sizes, hypers_s)
+        acc = net.window_acc_host()
+        rates.append(WORKFLOW_TRAIN / (time.perf_counter() - t_epoch))
+        net.reset_window_acc()
+        seg = probe.segments[2 * e]
+        if int(acc["n_err"][0]) != seg["n_err"] or \
+                int(acc["n_err"][1]) != seg["n"] or \
+                not (acc["confusion"] == seg["confusion"]).all() or \
+                float(acc["max_err_sum"]) != seg["max_err_sum"]:
+            raise RuntimeError("epoch %d: the replay's TRAIN stats %s differ "
+                               "from the run's %s" % (e + 1, acc, seg))
+        n_err = 0
+        for s in range(0, WORKFLOW_VALID, TRAIN_BATCH):
+            _, idx = predict(net, data[s:min(s + TRAIN_BATCH,
+                                             WORKFLOW_VALID)])
+            n_err += int((idx.cpu().numpy() != labels[s:s + len(idx)]).sum())
+        if n_err != probe.segments[2 * e + 1]["n_err"]:
+            raise RuntimeError("epoch %d: predict_with_idx over the VALID "
+                               "rows gives n_err %d, the run %d" % (
+                                   e + 1, n_err,
+                                   probe.segments[2 * e + 1]["n_err"]))
+    _state_bits_equal(torch, net, run["net"], "the replay")
+    say("   replay: %d windows on a fresh FusedNet from the run's initial "
+        "state: TRAIN stats and VALID n_err equal epoch by epoch, "
+        "parameters and optimizer state bit-equal (%.2f s); its TRAIN "
+        "epochs, the same windows driven directly, one readback each: "
+        "%s images/s; %s" % (len(probe.calls), time.perf_counter() - t0,
+                            " ".join("%.1f" % r for r in rates), card))
+
+
+def _state_bits_equal(torch, got, want, what):
+    for name, a, b in (("params", got.params, want.params),
+                       ("optimizer state", got.state, want.state)):
+        for i, (pa, pb) in enumerate(zip(a, b)):
+            for k in pb:
+                ta, tb = pa[k], pb[k]
+                if isinstance(tb, dict):
+                    same = all(_bits_equal(torch, ta[s], tb[s]) for s in tb)
+                else:
+                    same = _bits_equal(torch, ta, tb)
+                if not same:
+                    raise RuntimeError("%s: %s %d:%s differ from the run's"
+                                       % (what, name, i, k))
+
+
+def _resume_workflow(torch, probe, run, cli, snapdir):
+    """The CLI again with ``--snapshot`` of the newest snapshot written
+    after an epoch before the last (the snapshotter writes after the
+    epochs that improved): its final parameters and optimizer state
+    bit-equal to the run's, and its last epochs' stats the run's."""
+    t0 = time.perf_counter()
+    earlier = [(e, path) for e, path, _ in probe.snapshots
+               if e < WORKFLOW_EPOCHS]
+    if not earlier:
+        raise RuntimeError("no snapshot before the last epoch: %s"
+                           % probe.snapshots)
+    epoch, path = max(earlier)
+    segs = list(probe.segments)
+    probe.ctx.clear()
+    probe.ctx["state0"] = None   # not captured again
+    del probe.segments[:]
+    cli.main(_workflow_argv(snapdir, "--snapshot", path))
+    resumed = probe.ctx["net"]
+    want = [(s["epoch"], s["class"], s["n_err"]) for s in segs
+            if s["epoch"] >= epoch]
+    got = [(s["epoch"], s["class"], s["n_err"]) for s in probe.segments]
+    if got != want:
+        raise RuntimeError("the resumed run's segments %s, the run's %s"
+                           % (got, want))
+    _state_bits_equal(torch, resumed, run["net"], "the resumed run")
+    say("   resume: --snapshot %s (after epoch %d) trained epochs %s: "
+        "segment stats equal, parameters and optimizer state bit-equal to "
+        "the run's (%.2f s)" % (
+            os.path.basename(path), epoch,
+            ", ".join(str(e) for e in range(epoch + 1, WORKFLOW_EPOCHS + 1)),
+            time.perf_counter() - t0))
+
+
 def phase_train(torch, card, cycles_per_ms):
     """Full-width AlexNet trained through the port's FusedNet on the
     card: the step checks, 3 epochs of windows, the step breakdown."""
     import numpy
     from znicz_tpu_torch.core import prng
-    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
-    from znicz_tpu_torch.ops import pooling
     from znicz_tpu_torch.parallel import fused
     from znicz_tpu_torch.samples import alexnet
 
@@ -1213,12 +1730,7 @@ def phase_train(torch, card, cycles_per_ms):
     hypers_s = fused.stack_hypers(net.hypers, WINDOW_STEPS)
     per_epoch = WINDOWS * WINDOW_STEPS * TRAIN_BATCH
     rates = []
-    cuda_pooling.LAUNCHES = 0
-    cuda_pooling.LAUNCHES_WIDE = cuda_pooling.LAUNCHES_NARROW = 0
-    cuda_pooling_backward.LAUNCHES = 0
-    cuda_pooling_backward.LAUNCHES_WIDE = 0
-    cuda_pooling_backward.LAUNCHES_NARROW = 0
-    pooling.PLAIN_CUDA_CALLS = 0
+    _zero_counts()
     for epoch in range(EPOCHS):
         perm = numpy.random.RandomState(100 + epoch).permutation(
             TRAIN_IMAGES)[:per_epoch]
@@ -1249,14 +1761,7 @@ def phase_train(torch, card, cycles_per_ms):
         if int(host["acc"]["n_err"][1]) != per_epoch:
             raise RuntimeError("epoch %d evaluated %d rows, not %d" % (
                 epoch + 1, host["acc"]["n_err"][1], per_epoch))
-    launches = {"forward": cuda_pooling.LAUNCHES,
-                "forward_by_width": {WIDE: cuda_pooling.LAUNCHES_WIDE,
-                                     NARROW: cuda_pooling.LAUNCHES_NARROW},
-                "backward": cuda_pooling_backward.LAUNCHES,
-                "backward_by_width": {
-                    WIDE: cuda_pooling_backward.LAUNCHES_WIDE,
-                    NARROW: cuda_pooling_backward.LAUNCHES_NARROW},
-                "plain_on_card": pooling.PLAIN_CUDA_CALLS}
+    launches = _counts()
     n_steps = EPOCHS * WINDOWS * WINDOW_STEPS
     if not net.params_finite():
         raise RuntimeError("a parameter is not finite after training")
@@ -1449,7 +1954,7 @@ def _sums(rows):
 
 def main():
     import torch
-    marks = [("start", time.perf_counter())]
+    start = time.perf_counter()
     name, smi = phase_device(torch)
     sys.path.insert(0, HERE)
     try:
@@ -1457,8 +1962,15 @@ def main():
     except ImportError as e:
         raise SystemExit("chip_smoke: the znicz_tpu_torch package is not "
                          "beside this script (%s)" % e)
+    return _phases(torch, name, "[%s]" % smi, start)
+
+
+def _phases(torch, name, card, start):
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
-    card = "[%s]" % smi
+    from znicz_tpu_torch.samples import alexnet
+    marks = [("start", start), ("device and import", time.perf_counter())]
+    prototypes = _Prototypes(alexnet, WORKFLOW_TRAIN + WORKFLOW_VALID)
+    marks.append(("prototype draw", time.perf_counter()))
     phase_build()
     marks.append(("build", time.perf_counter()))
     cycles_per_ms = _spin_cycles_per_ms(torch)
@@ -1471,21 +1983,29 @@ def main():
     for label in rows:
         say("   %s in the model: %.4f ms (warm L2), cold alone %.4f ms; %s"
             % (label, layer_ms[label], rows[label]["ms"], card))
-    train_launches, _ = phase_train(torch, card, cycles_per_ms)
-    marks.append(("train", time.perf_counter()))
+    with prototypes:
+        workflow_launches = phase_workflow(torch, card)
+        marks.append(("workflow", time.perf_counter()))
+        train_launches, _ = phase_train(torch, card, cycles_per_ms)
+        marks.append(("train", time.perf_counter()))
+    del prototypes
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
     marks.append(("train kernels", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
+    paths = {"train": train_launches, "workflow": workflow_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
-               "launches": sum(by_width.values()) + train_launches["forward"],
-               "launches_by_path": {"serve": sum(by_width.values()),
-                                    "train": train_launches["forward"]},
+               "launches": sum(by_width.values()) + sum(
+                   p["forward"] for p in paths.values()),
+               "launches_by_path": dict(
+                   serve=sum(by_width.values()),
+                   **{k: p["forward"] for k, p in paths.items()}),
                "launches_by_width": {
-                   k: by_width[k] + train_launches["forward_by_width"][k]
+                   k: by_width[k] + sum(p["forward_by_width"][k]
+                                        for p in paths.values())
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),
@@ -1495,14 +2015,18 @@ def main():
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,
                 "replaces": cuda_pooling_backward.REPLACES,
-                "launches": train_launches["backward"],
-                "launches_by_width": train_launches["backward_by_width"],
+                "launches": sum(p["backward"] for p in paths.values()),
+                "launches_by_path": {k: p["backward"]
+                                     for k, p in paths.items()},
+                "launches_by_width": {
+                    k: sum(p["backward_by_width"][k] for p in paths.values())
+                    for k in (WIDE, NARROW)},
                 "ptxas": _ptxas(cuda_pooling_backward.SOURCE),
                 "max_abs_err": max(backward_err, train_err["backward"])}
     backward.update(_sums(train_rows["backward"]))
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
-    say("== wall seconds by phase (device, import and build first): %s"
+    say("== wall seconds by phase: %s"
         % ", ".join("%s %.1f" % (phase, t - marks[i][1])
                     for i, (phase, t) in enumerate(marks[1:])))
     say(json.dumps({"kernels": [forward, backward]}))

@@ -54,7 +54,23 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.core.prng",
                  "znicz_tpu_torch.parallel.fused",
                  "znicz_tpu_torch.serving.server",
-                 "znicz_tpu_torch.samples.alexnet"):
+                 "znicz_tpu_torch.samples.alexnet",
+                 "znicz_tpu_torch.core.mutable",
+                 "znicz_tpu_torch.core.units",
+                 "znicz_tpu_torch.core.workflow",
+                 "znicz_tpu_torch.core.memory",
+                 "znicz_tpu_torch.core.accelerated_units",
+                 "znicz_tpu_torch.core.normalization",
+                 "znicz_tpu_torch.core.snapshotter",
+                 "znicz_tpu_torch.loader.base",
+                 "znicz_tpu_torch.units.evaluator",
+                 "znicz_tpu_torch.units.decision",
+                 "znicz_tpu_torch.units.nn_units",
+                 "znicz_tpu_torch.units.fused_trainer",
+                 "znicz_tpu_torch.standard_workflow_base",
+                 "znicz_tpu_torch.standard_workflow",
+                 "znicz_tpu_torch.launcher",
+                 "znicz_tpu_torch.__main__"):
         assert name in doc["modules"]
 
 

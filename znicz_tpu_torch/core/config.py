@@ -1,10 +1,17 @@
 """A small attribute-dict configuration tree.
 
 Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
-reads: the ``root.common.serving`` knobs of the serving slice and the
-``root.common.telemetry`` gate.  Namespaces auto-vivify on attribute
-access; assigning a dict merges it into the node.
+reads: the ``root.common.serving`` knobs of the serving slice, the
+``root.common.telemetry`` gate, ``root.common.engine.precision_dtype``
+and ``root.common.dirs.snapshots`` of the training workflows, and the
+CLI's ``--config`` parser :func:`apply_override` (:535).  Namespaces
+auto-vivify on attribute access; assigning a dict merges it into the
+node.
 """
+
+import ast
+import json
+import os
 
 
 class Config(object):
@@ -35,10 +42,17 @@ class Config(object):
     def get(self, name, default=None):
         return self.__dict__.get(name, default)
 
+    def __contains__(self, name):
+        return name in self.__dict__
+
     def as_dict(self):
         return {k: (v.as_dict() if isinstance(v, Config) else v)
                 for k, v in self.__dict__.items()
                 if not (k.startswith("_") and k.endswith("_"))}
+
+    def to_json(self):
+        """The tree as JSON text; values JSON cannot hold as their repr."""
+        return json.dumps(self.as_dict(), default=repr, sort_keys=True)
 
     def __repr__(self):
         return "<Config %s: %s>" % (self._path_, sorted(self.as_dict()))
@@ -59,4 +73,29 @@ root.common.update({
         "max_body_bytes": 16 << 20,  # larger request bodies get 413
     },
     "telemetry": {"enabled": False},
+    # minibatch and trainer dtype (None: follow the data, float32)
+    "engine": {"precision_dtype": None},
+    # the snapshotter's default directory, inside the checkout
+    "dirs": {"snapshots": os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), ".snapshots")},
 })
+
+
+def apply_override(assignment, root_cfg=None):
+    """Apply one CLI ``dotted.path=value`` override onto the config
+    root.  Values parse as Python literals, falling back to strings; a
+    leading ``root.`` is accepted and stripped."""
+    path, sep, raw = assignment.partition("=")
+    if not sep:
+        raise SystemExit("--config needs KEY=VALUE, got %r" % assignment)
+    try:
+        value = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        value = raw
+    parts = path.strip().split(".")
+    if parts and parts[0] == "root":
+        parts = parts[1:]
+    node = root if root_cfg is None else root_cfg
+    for p in parts[:-1]:
+        node = getattr(node, p)
+    setattr(node, parts[-1], value)

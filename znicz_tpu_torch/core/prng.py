@@ -101,3 +101,14 @@ def get(key=1):
         rg = _streams[key] = RandomGenerator(key)
     return rg
 
+
+
+def states():
+    """Every registered stream's state (a snapshot's payload)."""
+    return {key: rg.get_state() for key, rg in _streams.items()}
+
+
+def restore(state_map):
+    """Restore the stream states :func:`states` captured."""
+    for key, st in state_map.items():
+        get(key).set_state(st)

@@ -1,0 +1,151 @@
+"""Checkpoint and resume.
+
+Counterpart of ``znicz_tpu/core/snapshotter.py`` (``SnapshotterBase``
+:54, ``SnapshotterToFile`` :168 with ``import_`` and its compression
+choices).  A snapshot is a pickle, compressed with gz, bz2, xz or not
+at all, of
+
+    {"format": 1, "workflow": <class name>, "config": <json>,
+     "units": {unit.name: {attr: value for attr in unit.exports}},
+     "prng": <the prng streams' states>, "suffix": "...", "time": ...}
+
+and holds numpy arrays and Python values only, never tensors (the
+trainer's ``torch.Generator`` state among them), so a snapshot taken
+on the card resumes on the card or on the CPU.  It is named
+``<prefix>_<suffix>.<pid>.pickle[.<compression>]`` and published
+atomically.  Mid-epoch snapshots (``window_interval``) and the
+serving-topology sidecar are not in this slice of the port
+(``ROADMAP.md``).
+"""
+
+import bz2
+import gzip
+import lzma
+import os
+import pickle
+import time
+
+import numpy
+
+from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.core.units import Unit
+
+_WRITERS = {"": open, "gz": gzip.open, "bz2": bz2.open, "xz": lzma.open}
+
+
+class SnapshotterRegistry(type):
+    mapping = {}
+
+    def __init__(cls, name, bases, clsdict):
+        super(SnapshotterRegistry, cls).__init__(name, bases, clsdict)
+        mapping = clsdict.get("MAPPING", None)
+        if mapping:
+            SnapshotterRegistry.mapping[mapping] = cls
+
+
+class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
+    """Collects the units' exports and writes a snapshot when fired."""
+
+    def __init__(self, workflow, **kwargs):
+        super(SnapshotterBase, self).__init__(workflow, **kwargs)
+        if kwargs.get("window_interval"):
+            raise NotImplementedError(
+                "mid-epoch snapshots (window_interval) are not in this "
+                "slice of the port (see ROADMAP.md)")
+        self.prefix = kwargs.get("prefix", "snapshot")
+        self.compression = kwargs.get("compression", "gz")
+        if (self.compression or "") not in _WRITERS:
+            raise ValueError("unknown compression %r (known: %s)"
+                             % (self.compression, sorted(_WRITERS)))
+        self.directory = kwargs.get("directory", root.common.dirs.snapshots)
+        self.interval = kwargs.get("interval", 1)
+        self.time_interval = kwargs.get("time_interval", 0)
+        self.suffix = None
+        self.destination = None
+        self._last_time = 0.0
+        self._since_fire = 0
+
+    def initialize(self, device=None, **kwargs):
+        super(SnapshotterBase, self).initialize(device=device, **kwargs)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def run(self):
+        self._since_fire += 1
+        if self._since_fire < self.interval:
+            return
+        if time.time() - self._last_time < self.time_interval:
+            return
+        self.export()
+        # the interval advances only after a successful export
+        self._since_fire = 0
+        self._last_time = time.time()
+
+    def export(self):
+        """Write a snapshot; return its path."""
+        raise NotImplementedError
+
+    def collect_state(self):
+        """``{unit name: {attr: host value}}`` from the units' exports."""
+        state = {}
+        for unit in self.workflow.units:
+            exports = getattr(unit, "exports", None)
+            if not exports:
+                continue
+            ustate = {}
+            for attr in exports:
+                try:
+                    v = getattr(unit, attr)
+                except AttributeError:
+                    continue
+                if isinstance(v, Array):
+                    v = None if not v else numpy.array(v.mem)
+                ustate[attr] = v
+            state[unit.name] = ustate
+        return state
+
+
+class SnapshotterToFile(SnapshotterBase):
+    """File snapshots."""
+
+    MAPPING = "file"
+
+    def export(self, units_state=None):
+        payload = {
+            "format": 1,
+            "workflow": type(self.workflow).__name__,
+            "config": root.to_json(),
+            "units": self.collect_state() if units_state is None
+            else units_state,
+            # the streams' states make a resumed run draw what the
+            # uninterrupted one draws
+            "prng": prng.states(),
+            "suffix": self.suffix,
+            "time": time.time(),
+        }
+        ext = "." + self.compression if self.compression else ""
+        name = "%s_%s.%d.pickle%s" % (
+            self.prefix, self.suffix or "current", os.getpid(), ext)
+        self.destination = os.path.join(self.directory, name)
+        # atomic and durable publish: a crash mid-write never leaves a
+        # truncated file under the published name
+        tmp = self.destination + ".part"
+        with _WRITERS[self.compression or ""](tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=4)
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        os.replace(tmp, self.destination)
+        self.info("snapshot -> %s", self.destination)
+        return self.destination
+
+    @staticmethod
+    def import_(file_name):
+        """Load a snapshot's state dict (only files this program wrote:
+        unpickling runs code)."""
+        ext = os.path.splitext(file_name)[1].lstrip(".")
+        with _WRITERS.get(ext, open)(file_name, "rb") as f:
+            return pickle.load(f)

@@ -1,0 +1,119 @@
+"""Workflow launcher — the ``run(load, main)`` contract behind the CLI.
+
+Counterpart of ``znicz_tpu/launcher.py`` (``Launcher`` :29 with
+``load`` :110 and ``main`` :282, ``resolve_workflow_module`` :356,
+``run_workflow`` :401).  A workflow module ends with
+``run(load, main)``, where
+
+* ``load(factory, **kwargs) -> (workflow, snapshot_loaded)`` builds
+  the workflow and, with ``--snapshot``, reads the state to restore;
+* ``main(**kwargs)`` initializes the workflow on the launcher's device
+  (the card unless ``device="cpu"``), applies the snapshot, and runs
+  unless ``dry_run``.
+
+Multi-process runs, auto-resume, supervised restarts and crash
+reports are not in this slice of the port (``ROADMAP.md``).
+"""
+
+import importlib
+import importlib.util
+import os
+
+from znicz_tpu_torch.core.logger import Logger
+
+
+class Launcher(Logger):
+    """A standalone launcher implementing ``load`` / ``main``."""
+
+    def __init__(self, snapshot=None, device=None, dry_run=False,
+                 fused=None):
+        super(Launcher, self).__init__(logger_name="Launcher")
+        self.snapshot_path = snapshot
+        self.device = device
+        self.dry_run = dry_run
+        #: fused execution mode handed to StandardWorkflow-based
+        #: samples (True or a config dict)
+        self.fused = fused
+        self.workflow = None
+        self._state = None
+
+    def add_unit(self, unit):
+        # a workflow built with the launcher as its parent registers here
+        self.workflow = unit
+
+    def load(self, factory, **kwargs):
+        """Build the workflow.  ``factory`` is a Workflow subclass
+        (instantiated with this launcher as parent) or a builder
+        returning the workflow.  Returns (workflow, snapshot_loaded)."""
+        if self.snapshot_path:
+            from znicz_tpu_torch.core.snapshotter import SnapshotterToFile
+            self._state = SnapshotterToFile.import_(self.snapshot_path)
+            self.info("will restore snapshot %s", self.snapshot_path)
+        if self.fused is not None:
+            kwargs.setdefault("fused", self.fused)
+        if isinstance(factory, type):
+            wf = factory(self, **kwargs)
+        else:
+            wf = factory(**kwargs)
+        self.workflow = wf
+        return wf, self._state is not None
+
+    def main(self, **kwargs):
+        """Initialize (and restore), then run unless ``dry_run``."""
+        wf = self.workflow
+        if wf is None:
+            raise RuntimeError("main() before load()")
+        wf.initialize(device=self.device, **kwargs)
+        if self._state is not None:
+            from znicz_tpu_torch.units.nn_units import (
+                load_snapshot_into_workflow)
+            load_snapshot_into_workflow(self._state, wf)
+        if not self.dry_run:
+            wf.run()
+        return wf
+
+
+def resolve_workflow_module(spec):
+    """The module of a CLI workflow argument: a file path
+    (``samples/alexnet.py``), a dotted module name
+    (``znicz_tpu_torch.samples.alexnet``) or a sample name
+    (``alexnet``)."""
+    if os.path.sep in spec or spec.endswith(".py"):
+        path = os.path.abspath(spec)
+        name = os.path.splitext(os.path.basename(path))[0]
+        module_spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(module_spec)
+        module_spec.loader.exec_module(module)
+        return module
+    try:
+        return importlib.import_module(spec)
+    except ImportError as e:
+        # fall back to the samples only when SPEC itself was not found;
+        # an ImportError from inside a module must surface
+        first = spec.split(".")[0]
+        if spec.startswith("znicz_tpu") or e.name not in (spec, first):
+            raise
+        return importlib.import_module("znicz_tpu_torch.samples." + spec)
+
+
+def list_samples():
+    """The sample names (modules under ``znicz_tpu_torch.samples``)."""
+    import znicz_tpu_torch.samples as samples_pkg
+    return sorted(fn[:-3] for fn in os.listdir(
+        os.path.dirname(samples_pkg.__file__))
+        if fn.endswith(".py") and not fn.startswith("_"))
+
+
+def run_workflow(spec, snapshot=None, dry_run=False, device=None,
+                 fused=None):
+    """Drive a workflow module's ``run(load, main)``; ``spec`` is a
+    module or anything :func:`resolve_workflow_module` accepts.
+    Returns the workflow."""
+    module = spec if hasattr(spec, "__file__") else \
+        resolve_workflow_module(spec)
+    if not hasattr(module, "run"):
+        raise SystemExit("%s exposes no run(load, main)" % spec)
+    launcher = Launcher(snapshot=snapshot, device=device, dry_run=dry_run,
+                        fused=fused)
+    module.run(launcher.load, launcher.main)
+    return launcher.workflow

@@ -1,0 +1,280 @@
+"""Loader base classes — the minibatch-serving contract.
+
+Counterpart of ``znicz_tpu/loader/base.py`` (:49-466): ``Loader``,
+``FullBatchLoader``, ``IFullBatchLoader``, ``UserLoaderRegistry`` and
+the ``TEST`` / ``VALID`` / ``TRAIN`` classes, without the fault,
+telemetry and profiler hooks.  The MSE mixins (:467-530) are not in
+this slice of the port (``ROADMAP.md``).
+
+Epoch semantics, as the JAX package's:
+
+* one epoch serves every class segment with samples in the order
+  TEST -> TRAIN -> VALID (VALID last, after the epoch's training);
+* ``last_minibatch`` is true on each segment's final minibatch,
+  ``epoch_ended`` also on the epoch's final segment, and
+  ``epoch_number`` counts the epochs served;
+* the TRAIN order is reshuffled every epoch from the loader's stream,
+  ``prng.get(2)`` (:86, :246), and every reshuffle bumps
+  ``shuffle_serial``;
+* the tail minibatch of a segment keeps the buffer size constant and
+  sets ``minibatch_size`` to the true count; padded labels are -1;
+* ``skip_fill``: the fused trainer consumes TRAIN minibatches as
+  device gathers from their indices, so the host fill is skipped for
+  them (``minibatch_data`` / ``minibatch_labels`` then hold the
+  previous fill).
+
+The loader's streams are numpy's, as in the JAX package, so the same
+seed serves the same rows in the same order in either package.
+"""
+
+import numpy
+
+from znicz_tpu_torch.core import normalization
+from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.core.mutable import Bool
+from znicz_tpu_torch.core.units import Unit
+
+TEST, VALID, TRAIN = 0, 1, 2
+CLASS_NAME = {TEST: "test", VALID: "validation", TRAIN: "train"}
+
+#: serving order within one epoch
+SERVE_ORDER = (TEST, TRAIN, VALID)
+
+
+class ILoader(object):
+    """Marker interface."""
+
+
+class IFullBatchLoader(ILoader):
+    pass
+
+
+class UserLoaderRegistry(type):
+    """Registry of loader classes by their ``MAPPING`` name."""
+
+    loaders = {}
+
+    def __init__(cls, name, bases, clsdict):
+        super(UserLoaderRegistry, cls).__init__(name, bases, clsdict)
+        mapping = clsdict.get("MAPPING", None)
+        if mapping:
+            UserLoaderRegistry.loaders[mapping] = cls
+
+    @staticmethod
+    def get_factory(name):
+        try:
+            return UserLoaderRegistry.loaders[name]
+        except KeyError:
+            raise KeyError("Unknown loader %r; known: %s"
+                           % (name, sorted(UserLoaderRegistry.loaders)))
+
+
+class Loader(Unit, metaclass=UserLoaderRegistry):
+    """Serves minibatches; subclasses provide the data."""
+
+    def __init__(self, workflow, **kwargs):
+        super(Loader, self).__init__(workflow, **kwargs)
+        self.max_minibatch_size = kwargs.get("minibatch_size", 100)
+        self.prng = kwargs.get("prng", prng.get(2))
+        self.normalization_type = kwargs.get("normalization_type", "none")
+        self.normalization_parameters = kwargs.get(
+            "normalization_parameters", {})
+        self.class_lengths = [0, 0, 0]
+        self.minibatch_data = Array(name="minibatch_data")
+        self.minibatch_labels = Array(name="minibatch_labels")
+        self.minibatch_indices = Array(name="minibatch_indices")
+        self.minibatch_size = 0
+        self.minibatch_class = TRAIN
+        self.last_minibatch = Bool(False)
+        self.epoch_ended = Bool(False)
+        self.epoch_number = 0
+        self.skip_fill = False
+        self.shuffle_serial = 0
+        self._indices = {}       # class -> index array into the dataset
+        self._segment = 0        # position in the serving order
+        self._offset_in_class = 0
+        #: with the prng streams, the iteration state makes a resumed
+        #: run serve exactly what the uninterrupted run would have
+        self.exports = ["epoch_number", "_segment", "_offset_in_class",
+                        "_indices", "shuffle_serial"]
+        self.normalizer = None
+
+    # -- to be provided by subclasses ---------------------------------------
+    def load_data(self):
+        """Fill class_lengths and prepare the dataset."""
+        raise NotImplementedError
+
+    def create_minibatch_data(self):
+        """Allocate minibatch_data for max_minibatch_size samples."""
+        raise NotImplementedError
+
+    def fill_minibatch(self):
+        """Copy the samples at minibatch_indices into minibatch buffers."""
+        raise NotImplementedError
+
+    # -- common ------------------------------------------------------------
+    @property
+    def total_samples(self):
+        return int(sum(self.class_lengths))
+
+    @property
+    def unique_labels_count(self):
+        """Number of distinct labels — sets the softmax head width."""
+        labels = getattr(self, "original_labels", None)
+        if labels is not None and len(labels):
+            return len(set(labels))
+        raise AttributeError("loader cannot derive unique_labels_count")
+
+    def _serve_order(self):
+        return [c for c in SERVE_ORDER if self.class_lengths[c] > 0]
+
+    def class_index_range(self, clazz):
+        """[start, end) of this class in the dataset's sample axis,
+        laid out [TEST | VALID | TRAIN]."""
+        start = sum(self.class_lengths[:clazz])
+        return start, start + self.class_lengths[clazz]
+
+    def initialize(self, device=None, **kwargs):
+        super(Loader, self).initialize(device=device, **kwargs)
+        self.load_data()
+        if self.total_samples == 0:
+            raise ValueError("%s loaded zero samples" % self.name)
+        if self.max_minibatch_size < 1:
+            raise ValueError("minibatch_size must be >= 1")
+        self.max_minibatch_size = min(self.max_minibatch_size,
+                                      max(self.class_lengths))
+        for clazz in range(3):
+            start, end = self.class_index_range(clazz)
+            self._indices[clazz] = numpy.arange(start, end,
+                                                dtype=numpy.int32)
+        self._shuffle()
+        self.create_minibatch_data()
+        if not self.minibatch_data:
+            raise ValueError("create_minibatch_data did not allocate "
+                             "minibatch_data")
+        if not self.minibatch_labels:
+            self.minibatch_labels.reset(numpy.zeros(
+                self.max_minibatch_size, dtype=numpy.int32))
+        self.minibatch_indices.reset(numpy.zeros(
+            self.max_minibatch_size, dtype=numpy.int32))
+        for arr in (self.minibatch_data, self.minibatch_labels,
+                    self.minibatch_indices):
+            arr.device = device
+        self._segment = 0
+        self._offset_in_class = 0
+        self.info(
+            "%s: %d samples (test %d, validation %d, train %d), mb=%d",
+            self.name, self.total_samples, self.class_lengths[TEST],
+            self.class_lengths[VALID], self.class_lengths[TRAIN],
+            self.max_minibatch_size)
+
+    @property
+    def train_indices(self):
+        """The epoch's shuffled TRAIN order (global dataset indices)."""
+        return self._indices[TRAIN]
+
+    def _shuffle(self):
+        self.prng.shuffle(self._indices[TRAIN])
+        self.shuffle_serial += 1
+
+    def run(self):
+        order = self._serve_order()
+        clazz = order[self._segment]
+        length = self.class_lengths[clazz]
+        off = self._offset_in_class
+        n = min(self.max_minibatch_size, length - off)
+        sel = self._indices[clazz][off:off + n]
+
+        self.minibatch_class = clazz
+        self.minibatch_size = int(n)
+
+        self.minibatch_indices.map_write()
+        idx = self.minibatch_indices.mem
+        idx[:n] = sel
+        idx[n:] = -1
+        if not (self.skip_fill and clazz == TRAIN):
+            self.fill_minibatch()
+            if n < self.max_minibatch_size:
+                self.minibatch_labels.map_write()
+                self.minibatch_labels.mem[n:] = -1
+
+        seg_done = off + n >= length
+        epoch_done = seg_done and self._segment == len(order) - 1
+        self.last_minibatch <<= seg_done
+        self.epoch_ended <<= epoch_done
+        if epoch_done:
+            self.epoch_number += 1
+            self._segment = 0
+            self._offset_in_class = 0
+            self._shuffle()
+        elif seg_done:
+            self._segment += 1
+            self._offset_in_class = 0
+        else:
+            self._offset_in_class = off + n
+
+    def fill_window_slot(self, indices_out):
+        """Copy the just-served minibatch's indices into a row of the
+        caller's staging buffer (valid under ``skip_fill`` too)."""
+        indices_out[...] = self.minibatch_indices.mem.reshape(
+            indices_out.shape)
+
+
+class FullBatchLoader(Loader):
+    """Loader keeping the whole dataset in memory
+    (``original_data`` / ``original_labels`` + normalization)."""
+
+    def __init__(self, workflow, **kwargs):
+        super(FullBatchLoader, self).__init__(workflow, **kwargs)
+        self.original_data = Array(name="original_data")
+        self._original_labels = []
+        self._labels_array = None
+
+    @property
+    def original_labels(self):
+        return self._original_labels
+
+    def create_minibatch_data(self):
+        dtype = root.common.engine.get("precision_dtype")
+        if dtype is None:
+            dtype = self.original_data.dtype
+        self.minibatch_data.reset(numpy.zeros(
+            (self.max_minibatch_size,) + tuple(self.original_data.shape[1:]),
+            dtype=dtype))
+
+    def initialize(self, device=None, **kwargs):
+        self._labels_array = None
+        super(FullBatchLoader, self).initialize(device=device, **kwargs)
+        self._apply_normalization()
+
+    def _apply_normalization(self):
+        """Fit the normalizer on the TRAIN slice of ``original_data``
+        and normalize the whole array in place."""
+        norm_type = self.normalization_type
+        if norm_type in (None, "none"):
+            self.normalizer = normalization.NoneNormalizer()
+            return
+        normalizer = normalization.create(norm_type,
+                                          **self.normalization_parameters)
+        self.original_data.map_write()
+        data = self.original_data.mem
+        flat = data.reshape(data.shape[0], -1)
+        start, end = self.class_index_range(TRAIN)
+        normalizer.analyze(flat[start:end] if end > start else flat)
+        normalizer.normalize(flat)
+        self.normalizer = normalizer
+
+    def fill_minibatch(self):
+        n = self.minibatch_size
+        sel = self.minibatch_indices.mem[:n]
+        self.minibatch_data.map_invalidate()
+        self.minibatch_data.mem[:n] = self.original_data.mem[sel]
+        self.minibatch_labels.map_write()
+        if self._original_labels:
+            labels = self._labels_array
+            if labels is None or len(labels) != len(self._original_labels):
+                labels = self._labels_array = numpy.asarray(
+                    self._original_labels)
+            self.minibatch_labels.mem[:n] = labels[sel]

@@ -39,7 +39,7 @@ import numpy
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core import memory, prng
 from znicz_tpu_torch.core.backends import default_device
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
 from znicz_tpu_torch.ops import conv as conv_ops
@@ -819,11 +819,13 @@ class FusedNet:
 
     def run_window_indexed(self, idx_s, batch_sizes, hypers_s):
         """Windowed training over the device dataset (:meth:`set_dataset`)
-        from dataset row indices ``idx_s (K, B)`` (-1: a padded slot)."""
+        from dataset row indices ``idx_s (K, B)`` (-1: a padded slot), a
+        host array or a tensor (already on the device: no copy)."""
         if not self.has_dataset:
             raise RuntimeError("set_dataset() before run_window_indexed")
-        idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64)).to(
-            self.device)
+        if not isinstance(idx_s, torch.Tensor):
+            idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64))
+        idx_s = idx_s.to(self.device, torch.int64)
 
         def fetch(k):
             idx = idx_s[k]
@@ -862,7 +864,11 @@ class FusedNet:
 
     def _window_acc(self):
         if self._win_acc is None:
-            self._win_acc = self._place(self.window_acc_zeros())
+            # zeros made on the device: a copy from the host would block
+            self._win_acc = tree_map(
+                lambda a: torch.zeros_like(torch.from_numpy(a),
+                                           device=self.device),
+                self.window_acc_zeros())
         return self._win_acc
 
     @property
@@ -880,12 +886,17 @@ class FusedNet:
         """Zero the epoch accumulator (at every epoch boundary)."""
         self._win_acc = None
 
+    def set_window_acc(self, acc):
+        """Restore a host copy of the accumulator (:meth:`window_acc_host`
+        output, or None for zeros) — a mid-segment snapshot's."""
+        self._win_acc = None if acc is None else self._place(acc)
+
     # -- reads ----------------------------------------------------------------
     @staticmethod
     def host_fetch(tree):
-        """Host numpy copies of a pytree of tensors."""
-        return tree_map(lambda t: t.detach().cpu().numpy()
-                         if isinstance(t, torch.Tensor) else t, tree)
+        """Host numpy copies of a pytree of tensors, in one readback
+        (:func:`znicz_tpu_torch.core.memory.host_fetch`)."""
+        return memory.host_fetch(tree)
 
     def params_finite(self):
         """Whether every parameter is finite: one reduction on the

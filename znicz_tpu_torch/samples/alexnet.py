@@ -1,5 +1,6 @@
-"""AlexNet — the heaviest model of the zoo that the serving engine
-serves, as a deployment package made from a seed.
+"""AlexNet — the heaviest model of the zoo: served as a deployment
+package made from a seed, and trained by the workflow CLI
+(``python -m znicz_tpu_torch alexnet --fused``).
 
 Counterpart of ``znicz_tpu/samples/research/alexnet.py``
 (``make_layers`` :27, a copy): conv_str 96 11x11 s4 -> max_pool 3x3 s2
@@ -24,15 +25,27 @@ no weights are downloaded.
 prototype-class images of ``SyntheticImagenetLoader.load_data``
 (``znicz_tpu/samples/research/alexnet.py:109``) with the loader's
 "linear" normalization.
+
+The training workflow is the JAX sample's: ``SyntheticImagenetLoader``
+(the same rows from the same ``RandomState(0x1337)`` recipe), the
+``root.alexnet`` config, :class:`AlexNetWorkflow`, :func:`build` and
+:func:`run`, the launcher contract.  The loader's label count (10)
+sets the softmax head's width; every hidden width is the published
+one.
 """
 
 import numpy
 
 from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.normalization import LinearNormalizer
 from znicz_tpu_torch.export import PACKAGE_FORMAT, serving_manifest
+from znicz_tpu_torch.loader.base import (FullBatchLoader, IFullBatchLoader,
+                                         TEST, VALID, TRAIN)
 from znicz_tpu_torch.ops.init import fill_array
 from znicz_tpu_torch.ops.conv import output_spatial as conv_spatial
 from znicz_tpu_torch.ops.pooling import output_spatial as pool_spatial
+from znicz_tpu_torch.standard_workflow import StandardWorkflow
 
 BASE_LR = 0.01
 WD = 0.0005
@@ -116,27 +129,35 @@ def _fill(rand, filling, shape, stddev):
     return arr
 
 
-def synthetic_images(n, seed=0x1337, n_classes=10, size=227):
+def prototype_images(n, seed=0x1337, n_classes=10, size=227):
     """``(data, labels)``: ``n`` prototype-class ``size`` x ``size`` x 3
-    float32 images and their int32 labels ``i % n_classes``.
+    float32 images before normalization, and their labels
+    ``i % n_classes`` (int32).
 
-    As ``SyntheticImagenetLoader.load_data``: one uniform [0, 255)
-    prototype per class, each image its class's prototype plus gaussian
-    noise of deviation 25, all from ``RandomState(seed)`` in that
-    order; then the loader's "linear" normalization, a map of the whole
-    set's [min, max] onto [-1, 1] (the loader fits it on its train
-    slice, which is the whole set here)."""
+    As ``SyntheticImagenetLoader.load_data``
+    (``znicz_tpu/samples/research/alexnet.py:109-128``): one uniform
+    [0, 255) prototype per class, each image its class's prototype plus
+    gaussian noise of deviation 25, all from ``RandomState(seed)`` in
+    that order, so the first ``m`` images of any ``n >= m`` are the
+    same."""
     r = numpy.random.RandomState(seed)
     protos = r.uniform(0, 255, (n_classes, size, size, 3))
     labels = (numpy.arange(n) % n_classes).astype(numpy.int32)
     data = numpy.empty((n, size, size, 3), numpy.float32)
     for i in range(n):
         data[i] = protos[labels[i]] + r.normal(0, 25, (size, size, 3))
-    lo, hi = float(data.min()), float(data.max())
-    data -= lo
-    data *= 2.0 / ((hi - lo) or 1.0)
-    data -= 1.0
     return data, labels
+
+
+def synthetic_images(n, seed=0x1337, n_classes=10, size=227):
+    """:func:`prototype_images` with the loader's "linear"
+    normalization, a map of the whole set's [min, max] onto [-1, 1]
+    (the loader fits it on its train slice, which is the whole set
+    here)."""
+    data, labels = prototype_images(n, seed, n_classes, size)
+    norm = LinearNormalizer()
+    norm.analyze(data)
+    return norm.normalize(data), labels
 
 
 def _grouping_mask(shape, grouping):
@@ -212,3 +233,70 @@ def init_package(seed, n_classes=1000, size=227, layers=None):
                 "layers": entries, "input_sample_shape": shape,
                 "serving": serving_manifest(shape)}
     return manifest, arrays
+
+
+class SyntheticImagenetLoader(FullBatchLoader, IFullBatchLoader):
+    """Prototype-class RGB images through the full-batch contract
+    (``znicz_tpu/samples/research/alexnet.py:99-128``): the same rows
+    as the JAX package's loader, laid out [VALID | TRAIN]."""
+
+    MAPPING = "synthetic_imagenet_loader"
+
+    def __init__(self, workflow, **kwargs):
+        kwargs.setdefault("normalization_type", "linear")
+        super(SyntheticImagenetLoader, self).__init__(workflow, **kwargs)
+        self.n_classes = kwargs.get("n_classes", 10)
+        self.n_train = kwargs.get("n_train", 40)
+        self.n_valid = kwargs.get("n_valid", 20)
+        self.size = kwargs.get("size", 227)
+
+    def load_data(self):
+        data, labels = prototype_images(self.n_train + self.n_valid,
+                                        0x1337, self.n_classes, self.size)
+        self.original_data.reset(data)
+        del self._original_labels[:]
+        self._original_labels.extend(int(v) for v in labels)
+        self.class_lengths[TEST] = 0
+        self.class_lengths[VALID] = self.n_valid
+        self.class_lengths[TRAIN] = self.n_train
+
+
+#: the sample's config (the JAX sample's, without its learning-rate
+#: schedule, which its build does not link either)
+root.alexnet.update({
+    "decision": {"fail_iterations": 10000, "max_epochs": 10000},
+    "snapshotter": {"prefix": "alexnet", "interval": 1,
+                    "time_interval": 0, "compression": ""},
+    "loss_function": "softmax",
+    "loader_name": "synthetic_imagenet_loader",
+    "loader": {"minibatch_size": 4, "n_classes": 10},
+})
+
+
+class AlexNetWorkflow(StandardWorkflow):
+    """The AlexNet training workflow (``StandardWorkflow``)."""
+
+
+def build(layers=None, loader_config=None, decision_config=None, **kwargs):
+    """An :class:`AlexNetWorkflow` from ``root.alexnet``, with the
+    given config dicts merged over it (the JAX sample's ``build``)."""
+    cfg = root.alexnet
+    loader_cfg = cfg.loader.as_dict()
+    loader_cfg.update(loader_config or {})
+    decision_cfg = cfg.decision.as_dict()
+    decision_cfg.update(decision_config or {})
+    kwargs.setdefault("loss_function", cfg.loss_function)
+    snap_cfg = cfg.snapshotter.as_dict()
+    snap_cfg.update(kwargs.pop("snapshotter_config", None) or {})
+    return AlexNetWorkflow(
+        layers=layers if layers is not None
+        else make_layers(loader_cfg.get("n_classes", 10)),
+        loader_name=cfg.loader_name, loader_config=loader_cfg,
+        decision_config=decision_cfg, snapshotter_config=snap_cfg,
+        **kwargs)
+
+
+def run(load, main):
+    """The launcher contract (``python -m znicz_tpu_torch alexnet``)."""
+    load(build)
+    main()

@@ -1,0 +1,120 @@
+"""StandardWorkflow — the training-graph builder, fused mode.
+
+Counterpart of the fused graph of ``znicz_tpu/standard_workflow.py``
+(``create_fused_workflow`` :62, ``link_fused_trainer`` :76,
+``link_evaluator`` :174, ``link_decision`` :212, ``link_snapshotter``
+:236, ``link_loop``, ``link_end_point``)::
+
+    repeater -> loader -> fused_trainer -> evaluator -> decision
+      -> snapshotter -> (back to repeater) / end_point
+
+with ``decision.complete`` blocking the repeater and the loader and
+opening the end point, and the snapshotter firing at epoch ends that
+improved.  The unit-at-a-time graph (``fused=None``: forwards, GD
+units, ``link_gds``; queue 1 item 2 of ``ROADMAP.md``), a mesh, the
+MSE loss, the learning-rate adjuster, rollback and the plotters are
+not in this slice of the port.
+"""
+
+from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
+from znicz_tpu_torch.standard_workflow_base import StandardWorkflowBase
+from znicz_tpu_torch.units.decision import DecisionsRegistry
+from znicz_tpu_torch.units.evaluator import EvaluatorsRegistry
+from znicz_tpu_torch.units.fused_trainer import FusedForwardBackward
+
+
+class StandardWorkflow(StandardWorkflowBase):
+
+    def __init__(self, workflow=None, **kwargs):
+        super(StandardWorkflow, self).__init__(workflow, **kwargs)
+        self.loss_function = kwargs.get("loss_function", "softmax")
+        if self.loss_function != "softmax":
+            raise NotImplementedError(
+                "loss_function %r is not in this slice of the port (see "
+                "ROADMAP.md)" % self.loss_function)
+        self.decision_name = kwargs.get("decision_name", "decision_gd")
+        self.snapshotter_name = kwargs.get("snapshotter_name", "nnfile")
+        self.evaluator_config = dict(kwargs.get("evaluator_config") or {})
+        self.decision_config = dict(kwargs.get("decision_config") or {})
+        self.snapshotter_config = dict(
+            kwargs.get("snapshotter_config") or {})
+        self.create_workflow()
+
+    def create_workflow(self):
+        if self.fused_config is None:
+            raise NotImplementedError(
+                "the unit-at-a-time graph (fused=None) is not in this "
+                "slice of the port (ROADMAP.md queue 1 item 2); pass "
+                "fused=True or a fused config dict")
+        self.create_fused_workflow()
+
+    def create_fused_workflow(self):
+        self.link_repeater(self.start_point)
+        self.link_loader(self.repeater)
+        self.link_fused_trainer(self.loader)
+        self.link_evaluator(self.fused_trainer)
+        self.link_decision(self.evaluator)
+        self.link_snapshotter(self.decision)
+        self.link_loop(self.snapshotter)
+        self.link_end_point(self.snapshotter)
+
+    def link_fused_trainer(self, *parents):
+        """The fused train-step unit from the ``layers`` config; the
+        ``fused`` config's keys are its keyword arguments."""
+        cfg = dict(self.fused_config)
+        cfg.setdefault("loss", self.loss_function)
+        self.fused_trainer = FusedForwardBackward(
+            self, name="fused_trainer", layers=self.layers, **cfg)
+        self.fused_trainer.link_from(*parents)
+        self.fused_trainer.link_attrs(
+            self.loader, ("input", "minibatch_data"),
+            ("labels", "minibatch_labels"),
+            "minibatch_class", "minibatch_size")
+        # window collection drives the loader directly
+        self.fused_trainer.loader_unit = self.loader
+        return self.fused_trainer
+
+    def link_evaluator(self, *parents):
+        self.evaluator = EvaluatorsRegistry.evaluators[self.loss_function](
+            self, name="evaluator", **self.evaluator_config)
+        self.evaluator.link_from(*parents) \
+            .link_attrs(self.fused_trainer, "output", "max_idx") \
+            .link_attrs(self.loader, ("batch_size", "minibatch_size"),
+                        ("labels", "minibatch_labels"))
+        # windowed TRAIN dispatches hand the evaluator their own stats
+        self.evaluator.stats_source = self.fused_trainer
+        return self.evaluator
+
+    def link_decision(self, *parents):
+        self.decision = DecisionsRegistry.decisions[self.decision_name](
+            self, name="decision", **self.decision_config)
+        self.decision.link_from(*parents) \
+            .link_attrs(self.loader, "minibatch_class", "last_minibatch",
+                        "epoch_ended", "epoch_number")
+        self.decision.link_attrs(
+            self.evaluator, ("minibatch_n_err", "n_err"),
+            ("minibatch_confusion_matrix", "confusion_matrix"),
+            ("minibatch_max_err_y_sum", "max_err_output_sum"))
+        self.repeater.gate_block = self.decision.complete
+        self.loader.gate_block = self.decision.complete
+        return self.decision
+
+    def link_snapshotter(self, *parents):
+        self.snapshotter = SnapshotterRegistry.mapping[
+            self.snapshotter_name](
+            self, name="snapshotter", **self.snapshotter_config)
+        self.snapshotter.link_from(*parents) \
+            .link_attrs(self.decision, ("suffix", "snapshot_suffix"))
+        self.snapshotter.gate_skip = ~self.loader.epoch_ended
+        self.snapshotter.skip = ~self.decision.improved
+        return self.snapshotter
+
+    def link_loop(self, *parents):
+        """Close the training loop back into the repeater."""
+        self.repeater.link_from(*parents)
+        return self.repeater
+
+    def link_end_point(self, *parents):
+        self.end_point.link_from(*parents)
+        self.end_point.gate_block = ~self.decision.complete
+        return self.end_point

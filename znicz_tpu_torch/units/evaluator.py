@@ -1,0 +1,126 @@
+"""Evaluator units — ``err_output`` and the classification stats of
+the last forward.
+
+Counterpart of ``znicz_tpu/units/evaluator.py`` (``EvaluatorsRegistry``
+:17, ``EvaluatorBase`` :37, ``EvaluatorSoftmax`` :85-200).  The stats
+come from :func:`znicz_tpu_torch.ops.evaluator.softmax_ce` on the
+workflow's device and fold into host accumulators in one readback a
+minibatch, or — when the fused trainer ran a window — from the
+window's own stats (:meth:`EvaluatorSoftmax._consume_window_stats`).
+``EvaluatorMSE`` and the testing mode (merged outputs) are not in this
+slice of the port (``ROADMAP.md``).
+"""
+
+import numpy
+
+from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
+from znicz_tpu_torch.core.memory import Array, host_fetch
+from znicz_tpu_torch.ops import evaluator as ev_ops
+
+_LATER = "not in this slice of the port (see ROADMAP.md)"
+
+
+class EvaluatorsRegistry(type):
+    """LOSS-string registry."""
+
+    evaluators = {}
+
+    def __init__(cls, name, bases, clsdict):
+        super(EvaluatorsRegistry, cls).__init__(name, bases, clsdict)
+        loss = clsdict.get("LOSS", None)
+        if loss:
+            EvaluatorsRegistry.evaluators[loss] = cls
+
+
+class EvaluatorBase(AcceleratedUnit, metaclass=EvaluatorsRegistry):
+    """Allocates ``err_output`` like the last forward's ``output``."""
+
+    LOSS = None
+
+    def __init__(self, workflow, **kwargs):
+        for key in ("testing", "mean"):
+            if key in kwargs:
+                raise NotImplementedError(
+                    "the evaluator's %s option is %s (the mean is always "
+                    "taken, as the fused trainer's windows take it)"
+                    % (key, _LATER))
+        super(EvaluatorBase, self).__init__(workflow, **kwargs)
+        self.err_output = Array(name="err_output")
+        self.demand("output", "batch_size")
+
+    def initialize(self, device=None, **kwargs):
+        super(EvaluatorBase, self).initialize(device=device, **kwargs)
+        self.err_output.reset(numpy.zeros(self.output.shape,
+                                          dtype=self.output.dtype))
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Softmax cross-entropy gradient and classification stats."""
+
+    MAPPING = "evaluator_softmax"
+    LOSS = "softmax"
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorSoftmax, self).__init__(workflow, **kwargs)
+        self.confusion_matrix = Array(name="confusion_matrix")
+        self.n_err = Array(name="n_err")
+        self.max_err_output_sum = Array(name="max_err_output_sum")
+        #: a unit exposing ``window_stats`` (the fused trainer): when it
+        #: carries the stats of the window it just ran, those are folded
+        #: — the output then holds only the window's last minibatch
+        self.stats_source = None
+        self.demand("labels", "max_idx")
+        self.exports = ["n_err", "confusion_matrix", "max_err_output_sum"]
+
+    def initialize(self, device=None, **kwargs):
+        super(EvaluatorSoftmax, self).initialize(device=device, **kwargs)
+        out_size = int(numpy.prod(self.output.shape[1:]))
+        self.n_err.reset(numpy.zeros(2, dtype=numpy.int32))
+        self.max_err_output_sum.reset(numpy.zeros(1, self.output.dtype))
+        self.confusion_matrix.reset(numpy.zeros((out_size, out_size),
+                                                dtype=numpy.int32))
+
+    def _accumulate_stats(self, n_err_delta, conf_delta, max_err_sum):
+        """Fold one minibatch's or window's host stats."""
+        self.n_err.map_write()
+        self.n_err.mem += numpy.asarray(n_err_delta)
+        self.confusion_matrix.map_write()
+        self.confusion_matrix.mem += numpy.asarray(conf_delta)
+        self.max_err_output_sum.map_write()
+        self.max_err_output_sum.mem[0] = max(
+            float(self.max_err_output_sum.mem[0]), float(max_err_sum))
+
+    def _consume_window_stats(self):
+        ws = getattr(self.stats_source, "window_stats", None) \
+            if self.stats_source is not None else None
+        if ws is None:
+            return False
+        if ws.get("deferred"):
+            # a mid-segment window: its stats ride the trainer's device
+            # accumulators; the segment-final window delivers the whole
+            # segment's in one readback, and that is folded here
+            return True
+        self._accumulate_stats(ws["n_err"], ws["confusion"],
+                               ws["max_err_sum"])
+        return True
+
+    def run(self):
+        if self._consume_window_stats():
+            return
+        out = self.output.dev
+        out2 = out.reshape(out.shape[0], -1)
+        err, n_err, conf, mx = ev_ops.softmax_ce(
+            out2, self.max_idx.dev, self.labels.dev, int(self.batch_size),
+            int(out2.shape[1]))
+        self.err_output.set_dev(err.reshape(out.shape))
+        self._accumulate_stats(*host_fetch((n_err, conf, mx)))
+
+
+class EvaluatorMSE(EvaluatorBase):
+    """The MSE evaluator — not in this slice of the port."""
+
+    MAPPING = "evaluator_mse"
+    LOSS = "mse"
+
+    def __init__(self, workflow, **kwargs):
+        raise NotImplementedError("EvaluatorMSE is %s" % _LATER)
