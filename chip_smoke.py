@@ -15,14 +15,18 @@ failure (the script then exits non-zero and prints no result line):
    are printed;
 3. kernels — the forward kernel against its plain PyTorch version on
    the card at the shapes the serving path gives it (AlexNet's three
-   max pools at batch 64: f32, and max_pool1 in bf16 and f16), on
-   small edge-overhanging geometries, on the kernel's tile edges
-   (output rows not a multiple of a tile's, channels not a multiple of
-   a slab's, the MNIST pool's 87 channels) and on storage that is not
-   16-byte aligned, with forced ties, values and offsets BIT-equal;
-   each case prints the vector width it launched at, and AlexNet's
-   shapes must take 16-byte vectors, 87 channels and unaligned storage
-   one channel.  Then kernel, plain version and ``F.max_pool2d`` (the
+   max pools at batch 64: f32, and max_pool1 in bf16 and f16), at the
+   MNIST conv sample's two pools (minibatch 60) in f32 and f64, on a
+   global 128x128 pool whose window no shared memory holds (the
+   unstaged instantiation), on small edge-overhanging geometries in
+   f32, bf16, f16 and f64, on the kernel's tile edges (output rows not
+   a multiple of a tile's, channels not a multiple of a slab's, the
+   MNIST pool's 87 channels) in f32, bf16 and f64, and on storage that
+   is not 16-byte aligned, with forced ties, values and offsets
+   BIT-equal (60 cases, max and maxabs); each case prints the vector
+   width it launched at, and AlexNet's and MNIST's pool1 shapes must
+   take 16-byte vectors, 87 channels and unaligned storage one
+   channel.  Then kernel, plain version and ``F.max_pool2d`` (the
    library yardstick, never called by the port) timed with CUDA events
    after an L2 flush and a device spin that keeps the host's enqueue
    out of the window (median of 50 samples, 200 where the bound is
@@ -32,14 +36,15 @@ failure (the script then exits non-zero and prints no result line):
    and the kernel is also timed at tile budgets of 16, 24, 32 and 64
    KB;
 4. backward kernel — the max-pool backward kernel against its plain
-   version on the same 46 cases (offsets from the forward kernel, a
-   random gradient), then on its own tile edges in f32, f16 and bf16
-   (windows staged by two tiles, column tiles, the MNIST pool at one
-   channel a thread, runtime strides in row and column tiles, cells no
-   window covers, a gradient off a 16-byte boundary), BIT-equal, zero
-   cells included; both instantiations (stride 2, runtime stride) at
-   both widths must be among the cases, and each one's count is
-   printed;
+   version on the same cases (offsets from the forward kernel, a
+   random gradient), then on its own tile edges in f32, f16, bf16 and
+   f64 (windows staged by two tiles, column tiles, the MNIST pool at
+   one channel a thread, runtime strides in row and column tiles,
+   cells no window covers, a gradient off a 16-byte boundary) and on
+   96x96 windows at stride 1 that no shared memory holds, BIT-equal,
+   zero cells included (132 cases); both staged instantiations (stride
+   2, runtime stride) at both widths and the unstaged one at 16-byte
+   vectors must be among the cases, and each one's count is printed;
 5. serve — a full-width AlexNet package (227x227x3, 1000 classes,
    random weights from a seed) served over HTTP by ``ServingServer``
    with every bucket up to 64 warmed; batches of 1, 3, 17 and 64 rows
@@ -79,7 +84,29 @@ failure (the script then exits non-zero and prints no result line):
    (``--snapshot``; the snapshotter writes after the epochs that
    improved) and must end bit-equal to the uninterrupted run.  Prints
    each epoch's TRAIN images/s and the host's wall time per window;
-7. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
+7. units — the MNIST conv sample (``root.mnistr_conv``, published
+   widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
+   through the workflow CLI (a workflow file building
+   ``mnist.build(layers=root.mnistr_conv.layers)``, no ``--fused``),
+   in this process, at minibatch 60 over the loader's synthetic set at
+   MNIST's split (60,000 TRAIN, 10,000 VALID rows) for 2 epochs, f32,
+   TF32 off, ``cudnn.deterministic``: the forward kernel must launch
+   exactly twice a minibatch and the backward twice a TRAIN minibatch,
+   half at 16-byte vectors (pool1) and half at one channel (pool2),
+   with no plain pooling on the card and neither ``jax`` nor
+   ``znicz_tpu`` imported; a second run from the same seeds, and the
+   CLI resumed from the epoch-1 snapshot, must end with each epoch's
+   per-class n_err and confusion matrices, the final weights and the
+   optimizer Arrays bit-equal to the run's; the first 4 TRAIN
+   minibatches at full width in f64 on the card (the f64 kernels) and
+   on the CPU (the plain versions) must agree within
+   ``UNITS_F64_RTOL`` of each tensor's largest, the pools' offsets
+   equal.  Prints each epoch's TRAIN images/s, host ms a minibatch,
+   readbacks and sync-debug syncs a minibatch, the same layers and
+   data through ``--fused pool_impl=offsets`` as the yardstick, and
+   both kernels' cold times at the MNIST shapes beside their bounds,
+   plain versions and library calls;
+8. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
    batch 128: one step on the kernels against one on the "gather"
    lowering from the same state (loss and n_err equal, every update
    within ``GATHER_STEP_RTOL``, while a backward that drops the last
@@ -96,7 +123,7 @@ failure (the script then exits non-zero and prints no result line):
    on the card, every backward launch at 16-byte vectors; then a
    step's device time split forward / backward / update, with the host
    held ahead, and the host's enqueue time;
-8. train kernels — both kernels at batch 128 bit-equal to their plain
+9. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
    and the backward at its runtime-stride instantiation and at tile
@@ -106,10 +133,12 @@ The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
 summed over the three AlexNet pools, ``train`` holds the same per
-batch-128 step, and ``launches`` counts the serve requests', the train
-epochs' and the workflow run's launches (``launches_by_path``).  For
-the backward kernel the times are per batch-128 step and ``launches``
-counts the train epochs' and the workflow run's.
+batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools), and
+``launches`` counts the serve requests', the train epochs', the
+workflow run's and the unit graph's launches (``launches_by_path``).
+For the backward kernel the times are per batch-128 step (``mnist``
+per TRAIN minibatch of 60) and ``launches`` counts the train epochs',
+the workflow run's and the unit graph's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -159,6 +188,16 @@ GEOMS = ((6, 6, 3, 2, 2, (2, 2)), (5, 7, 2, 3, 2, (2, 3)),
 #: output columns over 350, in row tiles of 2 over 3)
 TILE_EDGES = ((2, 57, 57, 96, 3, 3, (2, 2)), (2, 27, 27, 36, 3, 3, (2, 2)),
               (2, 24, 24, 87, 2, 2, (2, 2)), (2, 7, 700, 32, 3, 3, (2, 2)))
+#: the MNIST conv sample's two max pools (2x2/s2) at minibatch 60: 64
+#: channels (16-byte vectors) and 87 (one channel a thread)
+MNIST_POOLS = (("pool1", (60, 24, 24, 64)), ("pool2", (60, 8, 8, 87)))
+#: (b, h, w, c, ky, kx, sliding) whose window no shared memory holds, so
+#: the kernel runs unstaged: a global 128x128 pool (128 rows x 2,048 B
+#: = 262,144 B, over the 232,448 B a block may take), and for the
+#: backward 96x96 windows at stride 1 (the 9,216 windows covering one
+#: cell take 294,912 B of err and offsets)
+UNSTAGED = (2, 128, 128, 4, 128, 128, (128, 128))
+BACKWARD_UNSTAGED = (1, 191, 191, 4, 96, 96, (1, 1))
 #: (b, h, w, c, ky, kx, sliding) at the backward kernel's own tile
 #: edges: 2x2/s2 windows straddling tiles of an odd number of rows;
 #: 3x3/s2 in odd tiles (the halo row falls on either parity); column
@@ -204,6 +243,18 @@ GATHER_STEP_RTOL = 1e-5
 CPU_STEP_RATIO, CPU_STEP_FLOOR = 4.0, 1e-6
 #: dispatches of the same serve batch that must give the same bits
 SERVE_REPEATS = 5
+#: the unit phase: the MNIST conv sample through the unit-at-a-time
+#: graph at minibatch 60 (root.mnistr.loader) over the loader's
+#: synthetic set at MNIST's own split, 60,000 TRAIN and 10,000 VALID
+#: rows, for 2 epochs; the prng streams 1 and 2 seeded with UNITS_SEED
+#: and the next integer before each run
+UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 60000, 10000, 60, 2
+UNITS_SEED = 1234
+#: the card's f64 parameters after 4 TRAIN minibatches against the
+#: CPU's, relative to each tensor's largest magnitude: f64 on either
+#: device differs only by the order of the sums (about 1e-15 a
+#: product), far inside this bound
+UNITS_F64_RTOL = 1e-10
 
 
 def say(*args):
@@ -270,7 +321,8 @@ def _ptxas(source):
 
 def _bits(t):
     import torch
-    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
 
 
 def _check_pool(torch, x, ky, kx, sliding, use_abs, label):
@@ -303,7 +355,8 @@ def _tied(torch, gen, shape, dtype):
 def _cases(torch, gen):
     """``(label, x, ky, kx, sliding, width it must launch at or None)``
     of the kernel phase."""
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    f32, bf16, f16, f64 = (torch.float32, torch.bfloat16, torch.float16,
+                           torch.float64)
     for label, shape in ALEXNET_POOLS:
         yield ("%s f32" % label, torch.randn(shape, generator=gen,
                                              device="cuda"),
@@ -311,14 +364,22 @@ def _cases(torch, gen):
     for dtype in (bf16, f16):
         x = torch.randn(ALEXNET_POOLS[0][1], generator=gen, device="cuda")
         yield "max_pool1 %s" % dtype, x.to(dtype), 3, 3, (2, 2), WIDE
+    for label, shape in MNIST_POOLS:
+        for dtype in (f32, f64):
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            yield ("MNIST %s %s" % (label, dtype), x, 2, 2, (2, 2),
+                   WIDE if shape[3] % 4 == 0 else NARROW)
+    b, h, w, c, ky, kx, sliding = UNSTAGED
+    yield ("unstaged %s f32" % (UNSTAGED,),
+           _tied(torch, gen, (b, h, w, c), f32), ky, kx, sliding, WIDE)
     for sy, sx, c, ky, kx, sliding in GEOMS:
-        for dtype in (f32, bf16, f16):
+        for dtype in (f32, bf16, f16, f64):
             yield ("geom %s %s" % ((sy, sx, c, ky, kx, sliding), dtype),
                    _tied(torch, gen, (3, sy, sx, c), dtype), ky, kx,
                    sliding, None)
     for b, h, w, c, ky, kx, sliding in TILE_EDGES:
-        for dtype in (f32, bf16):
-            want = NARROW if c % 4 else WIDE if dtype == f32 else None
+        for dtype in (f32, bf16, f64):
+            want = NARROW if c % 4 else WIDE if dtype != bf16 else None
             yield ("tile edge %s %s" % ((b, h, w, c, ky, kx, sliding),
                                         dtype),
                    _tied(torch, gen, (b, h, w, c), dtype), ky, kx,
@@ -438,6 +499,7 @@ def phase_kernels(torch, card, cycles_per_ms):
     dev = torch.device("cuda")
     max_err = 0.0
     n_cases = 0
+    staged = set()
     for label, x, ky, kx, sliding, want in _cases(torch, gen):
         widths = set()
         for use_abs in (False, True):
@@ -449,13 +511,18 @@ def phase_kernels(torch, card, cycles_per_ms):
         plan = cuda_pooling.launch_plan(
             tuple(x.shape), x.element_size(), cuda_pooling.vector_width(x),
             ky, kx, sliding)
+        staged.add(plan.staged)
         say("   %s: bit-equal, max and maxabs, at width %s; %s"
             % (label, "/".join(sorted(widths)), plan))
         if want is not None and widths != {want}:
             raise RuntimeError("%s launched at width %s, not %s"
                                % (label, widths, want))
+        if label.startswith("unstaged") == plan.staged:
+            raise RuntimeError("%s launched %s" % (
+                label, "staged" if plan.staged else "unstaged"))
     say("== kernels: max_pooling_offsets bit-equal to max_pooling_plain "
-        "on %d cases (values and int32 offsets)" % n_cases)
+        "on %d cases (values and int32 offsets), staged and unstaged"
+        % n_cases)
     flush = torch.ones(32 << 20, device=dev).sum  # reads 128 MiB
     say("   timing: CUDA events around each launch after an L2 flush by "
         "reading 128 MiB and a device spin of at least %.1f ms (%.0f "
@@ -864,16 +931,22 @@ def _check_backward(torch, x, err_buf, ky, kx, sliding, use_abs, label):
         tuple(x.shape), x.element_size(),
         cuda_pooling_backward.vector_width(err, offs, grad), ky, kx,
         tuple(sliding))
-    kind = "stride 2" if plan.stride2 else "runtime stride"
+    kind = "unstaged" if not plan.staged else \
+        "stride 2" if plan.stride2 else "runtime stride"
     return _max_abs_diff(grad, want), (want != 0).sum().item(), (kind, width)
 
 
 def _backward_edge_cases(torch, gen):
     """``(label, x, ky, kx, sliding)`` at the backward kernel's tile
-    edges, in f32, f16 and bf16, and the first two once more with the
-    input (so the gradient) off a 16-byte boundary."""
+    edges, in f32, f16, bf16 and f64, the first two once more with the
+    input (so the gradient) off a 16-byte boundary, and windows that
+    no shared memory holds."""
+    b, h, w, c, ky, kx, sliding = BACKWARD_UNSTAGED
+    yield ("backward unstaged %s f32" % (BACKWARD_UNSTAGED,),
+           _tied(torch, gen, (b, h, w, c), torch.float32), ky, kx, sliding)
     for b, h, w, c, ky, kx, sliding in BACKWARD_TILE_EDGES:
-        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for dtype in (torch.float32, torch.float16, torch.bfloat16,
+                      torch.float64):
             yield ("backward tile edge %s %s" % (
                 (b, h, w, c, ky, kx, sliding), dtype),
                 _tied(torch, gen, (b, h, w, c), dtype), ky, kx, sliding)
@@ -891,13 +964,15 @@ def phase_backward_kernel(torch):
     forward's cases and its own tile edges: offsets from the forward
     kernel, a random gradient in the input's type (stored off a 16-byte
     boundary where the input is), values and zero cells alike.  Both
-    instantiations must be among the cases at both widths.  Returns the
-    max |difference|."""
+    staged instantiations must be among the cases at both widths, and
+    the unstaged one at 16-byte vectors.  Returns the max
+    |difference|."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     n_cases = 0
     max_err = 0.0
     taken = {(k, wd): 0 for k in ("stride 2", "runtime stride")
              for wd in (WIDE, NARROW)}
+    taken[("unstaged", WIDE)] = 0
     cases = [c[:5] for c in _cases(torch, gen)] + list(
         _backward_edge_cases(torch, gen))
     for label, x, ky, kx, sliding in cases:
@@ -911,7 +986,7 @@ def phase_backward_kernel(torch):
             max_err = max(max_err, err)
             nonzero += nz
             kinds.add(kind)
-            taken[kind] += 1
+            taken[kind] = taken.get(kind, 0) + 1
             n_cases += 1
         say("   backward %s: bit-equal (%d nonzero cells), max and maxabs, "
             "%s" % (label, nonzero, "; ".join(
@@ -1683,6 +1758,553 @@ def _resume_workflow(torch, probe, run, cli, snapdir):
             time.perf_counter() - t0))
 
 
+def _units_argv(snapdir, wf_file, *extra):
+    argv = [wf_file]
+    for key, value in (("loader.synthetic_train", UNITS_TRAIN),
+                       ("loader.synthetic_valid", UNITS_VALID),
+                       ("loader.minibatch_size", UNITS_BATCH),
+                       ("decision.max_epochs", UNITS_EPOCHS),
+                       ("snapshotter.directory", snapdir)):
+        argv += ["--config", "mnistr.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+class _UnitsProbe(object):
+    """Wrappers around the workflow engine, installed for the unit phase
+    and put back after it (nothing in the package reads them): every
+    workflow run (its workflow and host start and end times), the
+    decision at each segment end, each snapshot written (named by its
+    epoch, since two epochs with equal errors would share a file name;
+    the readbacks it makes are not counted), and the MNIST loader's
+    synthetic draw, made once: the phase's later loaders with the same
+    sizes take a copy of it (the draw is a function of the sizes
+    alone)."""
+
+    def __init__(self, torch):
+        import numpy
+        from znicz_tpu_torch.core import workflow
+        from znicz_tpu_torch.loader import loader_mnist
+        from znicz_tpu_torch.loader.base import VALID
+        from znicz_tpu_torch.units import decision, nn_units
+        self.runs, self.segments, self.snapshots = [], [], []
+        self.ctx = {}
+        self.draw = None
+        self.readbacks = _Readbacks(torch, self._where)
+        probe = self
+        owners = {"run": workflow.Workflow,
+                  "on_last_minibatch": decision.DecisionGD,
+                  "export": nn_units.NNSnapshotterToFile,
+                  "_load_synthetic": loader_mnist.MnistLoader}
+        self.real = real = {name: owner.__dict__[name]
+                            for name, owner in owners.items()}
+
+        def run(wf):
+            if wf.workflow is not None:   # a nested workflow
+                return real["run"](wf)
+            probe.ctx["wf"] = wf
+            t0 = time.perf_counter()
+            out = real["run"](wf)
+            probe.runs.append({"wf": wf, "t0": t0,
+                               "t1": time.perf_counter()})
+            return out
+
+        def on_last_minibatch(d):
+            real["on_last_minibatch"](d)
+            c = d.minibatch_class
+            probe.segments.append({
+                "epoch": d.epoch_number - (c == VALID), "class": c,
+                "n_err": d.epoch_n_err[c],
+                "n": d.epoch_n_evaluated_samples[c],
+                "confusion": numpy.array(d.confusion_matrixes[c]),
+                "t": time.perf_counter()})
+
+        def export(snap):
+            t0 = time.perf_counter()
+            epoch = snap.workflow.loader.epoch_number
+            snap.prefix = "mnist_epoch%d" % epoch
+            probe.readbacks.paused = True
+            try:
+                path = real["export"](snap)
+            finally:
+                probe.readbacks.paused = False
+            probe.snapshots.append((epoch, path, t0,
+                                    time.perf_counter() - t0))
+            return path
+
+        def _load_synthetic(loader):
+            key = (loader.synthetic_train, loader.synthetic_valid)
+            if probe.draw is None or probe.draw[0] != key:
+                real["_load_synthetic"](loader)
+                probe.draw = (key, list(loader.class_lengths),
+                              loader.original_data.mem.copy(),
+                              list(loader.original_labels))
+                return
+            _, lengths, data, labels = probe.draw
+            loader.class_lengths[:] = lengths
+            loader.original_data.reset(data.copy())
+            loader._original_labels[:] = labels
+
+        self._owners = owners
+        for name, fn in (("run", run), ("on_last_minibatch",
+                                        on_last_minibatch),
+                         ("export", export),
+                         ("_load_synthetic", _load_synthetic)):
+            setattr(owners[name], name, fn)
+
+    def _where(self):
+        wf = self.ctx.get("wf")
+        if wf is None or not wf._running:
+            return "outside"
+        return (wf.loader.minibatch_class, wf.loader.epoch_number)
+
+    def reset(self):
+        self.ctx.clear()
+        del self.runs[:], self.segments[:], self.snapshots[:]
+
+    def close(self):
+        for name, owner in self._owners.items():
+            setattr(owner, name, self.real[name])
+
+
+def _units_state(wf):
+    """Host copies of the run's final forward weights and biases and
+    its GD units' optimizer Arrays, by name."""
+    import numpy
+    out = {}
+    for unit in list(wf.forwards) + [g for g in wf.gds if g is not None]:
+        for attr in ("weights", "bias", "gradient_weights_with_moment",
+                     "gradient_bias_with_moment",
+                     "accumulated_gradient_weights",
+                     "accumulated_gradient_bias"):
+            arr = getattr(unit, attr, None)
+            if arr is not None and arr and not unit.has_linked_attr(attr):
+                out["%s.%s" % (unit.name, attr)] = numpy.array(arr.mem)
+    return out
+
+
+def _units_equal(got, want, what):
+    """Two :func:`_units_state` dicts, bit for bit."""
+    import numpy
+    if sorted(got) != sorted(want):
+        raise RuntimeError("%s: arrays %s, the run's %s" % (
+            what, sorted(got), sorted(want)))
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not numpy.array_equal(g.view(numpy.uint8),
+                                      w.view(numpy.uint8)):
+            raise RuntimeError("%s: %s differs from the run's" % (what, key))
+
+
+def _units_segments(segs):
+    return [(s["epoch"], s["class"], s["n_err"], s["n"],
+             s["confusion"].tolist()) for s in segs]
+
+
+def _units_run(probe, cli, prng, argv):
+    """One CLI run from the phase's seeds; returns the run's record."""
+    probe.reset()
+    prng.get(1).seed(UNITS_SEED)
+    prng.get(2).seed(UNITS_SEED + 1)
+    cli.main(argv)
+    if len(probe.runs) != 1:
+        raise RuntimeError("expected one workflow run, got %d"
+                           % len(probe.runs))
+    run = dict(probe.runs[0])
+    run.update(segments=list(probe.segments),
+               snapshots=list(probe.snapshots), state=_units_state(run["wf"]))
+    return run
+
+
+def _units_rates(run, n_train):
+    """Each epoch's TRAIN images/s on the host clock (from the previous
+    segment's end, or the run's start, to the TRAIN segment's end, less
+    the snapshot writes in it) and the host ms per minibatch over the
+    whole run (less the snapshot writes)."""
+    from znicz_tpu_torch.loader.base import TRAIN
+    rates, start = [], run["t0"]
+    for s in run["segments"]:
+        if s["class"] == TRAIN:
+            snap = sum(dt for _, _, t, dt in run["snapshots"]
+                       if start <= t < s["t"])
+            rates.append(n_train / (s["t"] - start - snap))
+        start = s["t"]
+    snap = sum(dt for _, _, _, dt in run["snapshots"])
+    return rates, run["t1"] - run["t0"] - snap
+
+
+def phase_units(torch, card, cycles_per_ms):
+    """The MNIST conv sample (``root.mnistr_conv``: conv 64 5x5 -> max
+    pool 2x2 -> conv 87 5x5 -> max pool 2x2 -> all2all_relu 791 ->
+    softmax 10) trained by the unit-at-a-time graph through the workflow
+    CLI (a workflow file building ``mnist.build(layers=
+    root.mnistr_conv.layers)``, no ``--fused``), in this process, at
+    minibatch 60 over the loader's synthetic set at MNIST's own split
+    (60,000 TRAIN, 10,000 VALID) for 2 epochs, f32 with TF32 off and
+    ``cudnn.deterministic``: the kernel launches (two forward a
+    minibatch, two backward a TRAIN minibatch, half at 16-byte vectors
+    and half at one channel, no plain pooling on the card) and each
+    epoch's stats are checked; a second run from the same seeds and a
+    run resumed from the epoch-1 snapshot must end bit-equal to it; the
+    same layers and data through ``--fused pool_impl=offsets`` are the
+    yardstick; the first 4 TRAIN minibatches at full width in f64 on the
+    card (the f64 kernels) against the CPU (the plain versions); the
+    kernels' cold times at the MNIST shapes.  Returns the main run's
+    launches and the timing rows."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+
+    base = os.path.join(HERE, "build", "znicz_tpu_torch", "units")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    wf_file = os.path.join(base, "mnist_conv_wf.py")
+    with open(wf_file, "w") as f:
+        f.write("from znicz_tpu_torch.core.config import root\n"
+                "from znicz_tpu_torch.samples import mnist\n\n\n"
+                "def run(load, main):\n"
+                "    load(mnist.build, layers=root.mnistr_conv.layers)\n"
+                "    main()\n")
+    train_mb = -(-UNITS_TRAIN // UNITS_BATCH)
+    valid_mb = -(-UNITS_VALID // UNITS_BATCH)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    try:
+        argv = _units_argv(os.path.join(base, "run"), wf_file)
+        say("== units: python -m znicz_tpu_torch %s"
+            % " ".join(_units_argv("build/...", "WF.py")))
+        _zero_counts()
+        with probe.readbacks:
+            run = _units_run(probe, cli, prng, argv)
+        launches = _counts()
+        _check_units_run(torch, probe, run, launches, train_mb, valid_mb,
+                         card)
+        t0 = time.perf_counter()
+        replay = _units_run(probe, cli, prng, _units_argv(
+            os.path.join(base, "replay"), wf_file))
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the replay's segment stats differ from the "
+                               "run's")
+        _units_equal(replay["state"], run["state"], "the replay")
+        say("   replay: a second CLI run from the same seeds: each epoch's "
+            "per-class n_err and confusion matrices, the final weights "
+            "and optimizer Arrays bit-equal to the run's (%.2f s)"
+            % (time.perf_counter() - t0))
+        del replay
+        _resume_units(probe, cli, prng, run, base, wf_file)
+        _fused_yardstick(torch, probe, cli, prng, run, base, wf_file, card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+    del run
+    gc.collect()
+    _units_card_vs_cpu(torch)
+    rows = _mnist_kernel_times(torch, card, cycles_per_ms)
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, rows
+
+
+def _check_units_run(torch, probe, run, launches, train_mb, valid_mb, card):
+    """The run's segments, launches, readbacks and rates."""
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    segs = run["segments"]
+    got = [(s["epoch"], s["class"], s["n"]) for s in segs]
+    want = [(e, c, n) for e in range(UNITS_EPOCHS)
+            for c, n in ((TRAIN, UNITS_TRAIN), (VALID, UNITS_VALID))]
+    if got != want:
+        raise RuntimeError("segments (epoch, class, rows) %s, not %s"
+                           % (got, want))
+    for s in segs:
+        if not (isinstance(s["n_err"], int) and 0 <= s["n_err"] <= s["n"]
+                and int(s["confusion"].sum()) == s["n"]):
+            raise RuntimeError("segment stats out of range: %s" % s)
+    wf = run["wf"]
+    if [tuple(f.output.shape) for f in wf.forwards] != [
+            (60, 24, 24, 64), (60, 12, 12, 64), (60, 8, 8, 87),
+            (60, 4, 4, 87), (60, 791), (60, 10)]:
+        raise RuntimeError("the graph's output shapes are %s" % [
+            tuple(f.output.shape) for f in wf.forwards])
+    for key, arr in run["state"].items():
+        if not numpy.isfinite(arr).all():
+            raise RuntimeError("%s is not finite" % key)
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on in the unit graph")
+    n_mb = (train_mb + valid_mb) * UNITS_EPOCHS
+    say("   %d epochs: (TRAIN, VALID) n_err by epoch %s of %d and %d "
+        "rows; snapshots after epochs %s" % (
+            UNITS_EPOCHS, [(a["n_err"], b["n_err"])
+                           for a, b in zip(segs[::2], segs[1::2])],
+            UNITS_TRAIN, UNITS_VALID, [e for e, _, _, _ in
+                                       run["snapshots"]]))
+    say("   launches: %s" % launches)
+    half_f, half_b = n_mb, train_mb * UNITS_EPOCHS
+    if launches["forward"] != 2 * n_mb or \
+            launches["backward"] != 2 * train_mb * UNITS_EPOCHS or \
+            launches["forward_by_width"] != {WIDE: half_f, NARROW: half_f} \
+            or launches["backward_by_width"] != {WIDE: half_b,
+                                                 NARROW: half_b} or \
+            launches["plain_on_card"]:
+        raise RuntimeError(
+            "expected 2 forward launches a minibatch and 2 backward a "
+            "TRAIN minibatch (%d and %d), half at 16-byte vectors and half "
+            "at one channel, no plain pooling on the card; got %s"
+            % (2 * n_mb, 2 * half_b, launches))
+    for mod in ("jax", "znicz_tpu"):
+        if mod in sys.modules:
+            raise RuntimeError("%s was imported" % mod)
+    counts, syncs = probe.readbacks.counts, probe.readbacks.syncs
+    rb = {c: sum(v for k, v in counts.items() if k != "outside" and
+                 k[0] == c) for c in (TRAIN, VALID)}
+    sy = {c: sum(v for k, v in syncs.items() if k != "outside" and
+                 k[0] == c) for c in (TRAIN, VALID)}
+    rates, run_s = _units_rates(run, UNITS_TRAIN)
+    say("   host readbacks a minibatch: TRAIN %.3f (%d in %d), VALID %.3f "
+        "(%d in %d), %d outside the run, snapshots not counted; "
+        "synchronizing CUDA operations (sync debug mode) a minibatch: "
+        "TRAIN %.3f, VALID %.3f" % (
+            rb[TRAIN] / (train_mb * UNITS_EPOCHS), rb[TRAIN],
+            train_mb * UNITS_EPOCHS, rb[VALID] / (valid_mb * UNITS_EPOCHS),
+            rb[VALID], valid_mb * UNITS_EPOCHS, counts["outside"],
+            sy[TRAIN] / (train_mb * UNITS_EPOCHS),
+            sy[VALID] / (valid_mb * UNITS_EPOCHS)))
+    say("   unit graph: TRAIN images/s by epoch %s (host clock); %.4f host "
+        "ms a minibatch over the run's %d minibatches (%.2f s, snapshots "
+        "not counted); %s" % (
+            " ".join("%.1f" % r for r in rates), 1e3 * run_s / n_mb, n_mb,
+            run_s, card))
+    run["rates"], run["run_s"] = rates, run_s
+    say("   host ms by unit over the run (Unit.run_time_; the evaluator's "
+        "includes waiting for the device at its readback): %s" % (
+            _unit_times(wf)))
+
+
+def _unit_times(wf):
+    """``name total-ms/runs`` of the workflow's units, the costliest
+    first."""
+    units = sorted((u for u in wf.units if u.run_count_),
+                   key=lambda u: -u.run_time_)
+    return ", ".join("%s %.1f/%d" % (u.name, 1e3 * u.run_time_, u.run_count_)
+                     for u in units)
+
+
+def _resume_units(probe, cli, prng, run, base, wf_file):
+    """The CLI again with ``--snapshot`` of the epoch-1 snapshot: its
+    last epoch's stats, final weights and optimizer Arrays bit-equal to
+    the run's."""
+    t0 = time.perf_counter()
+    first = [p for e, p, _, _ in run["snapshots"] if e == 1]
+    if not first:
+        raise RuntimeError("no snapshot after epoch 1: %s"
+                           % run["snapshots"])
+    resumed = _units_run(probe, cli, prng, _units_argv(
+        os.path.join(base, "resumed"), wf_file, "--snapshot", first[0]))
+    want = [s for s in _units_segments(run["segments"]) if s[0] >= 1]
+    if _units_segments(resumed["segments"]) != want:
+        raise RuntimeError("the resumed run's segments differ from the "
+                           "run's")
+    _units_equal(resumed["state"], run["state"], "the resumed run")
+    say("   resume: --snapshot %s trained epoch 2: segment stats, final "
+        "weights and optimizer Arrays bit-equal to the run's (%.2f s)"
+        % (os.path.basename(first[0]), time.perf_counter() - t0))
+
+
+def _fused_yardstick(torch, probe, cli, prng, run, base, wf_file, card):
+    """The same layers and data through ``--fused pool_impl=offsets``
+    for as many epochs: what the unit graph costs against FusedNet."""
+    fused = _units_run(probe, cli, prng, _units_argv(
+        os.path.join(base, "fused"), wf_file, "--fused",
+        "pool_impl=offsets"))
+    rates, run_s = _units_rates(fused, UNITS_TRAIN)
+    segs = fused["segments"]
+    say("   yardstick, --fused pool_impl=offsets (windows of %d steps): "
+        "TRAIN images/s by epoch %s against the unit graph's %s; the "
+        "whole run %.2f s against %.2f s; (TRAIN, VALID) n_err by epoch "
+        "%s; %s" % (
+            fused["wf"].fused_trainer.window,
+            " ".join("%.1f" % r for r in rates),
+            " ".join("%.1f" % r for r in run["rates"]), run_s,
+            run["run_s"],
+            [(a["n_err"], b["n_err"]) for a, b in zip(segs[::2], segs[1::2])],
+            card))
+    say("   yardstick host ms by unit: %s" % _unit_times(fused["wf"]))
+
+
+def _units_card_vs_cpu(torch):
+    """The first 4 TRAIN minibatches (and the VALID one after them) of
+    the full-width MNIST conv graph in f64, on the card (the f64
+    kernels) and on the CPU (the plain versions), from one initial
+    state: every forward's weights and bias within ``UNITS_F64_RTOL`` of
+    the tensor's largest magnitude, every pool's offsets equal; and the
+    same minibatches through the fused graph (``fused={"pool_impl":
+    "offsets"}``) in f64 on the card, its parameters within the same
+    bound of the CPU's unit graph."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    from znicz_tpu_torch.params import unit_params_to_numpy
+    from znicz_tpu_torch.samples import mnist
+    from znicz_tpu_torch.units.pooling import MaxPooling
+    t0 = time.perf_counter()
+    real_run = MaxPooling.run
+    offsets = {}
+
+    def run(unit):
+        real_run(unit)
+        offsets.setdefault(unit.device.type, []).append(
+            unit.input_offset.dev.cpu().numpy().copy())
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    MaxPooling.run = run
+    before = (cuda_pooling.LAUNCHES, cuda_pooling_backward.LAUNCHES)
+    params = {}
+    plain = pooling.PLAIN_CUDA_CALLS
+    try:
+        for device, fused in (("cuda", None), ("cpu", None),
+                              ("cuda", {"pool_impl": "offsets"})):
+            prng.get(1).seed(UNITS_SEED)
+            prng.get(2).seed(UNITS_SEED + 1)
+            with tempfile.TemporaryDirectory() as snapdir:
+                wf = mnist.build(
+                    layers=root.mnistr_conv.layers,
+                    loader_config={"synthetic_train": 4 * UNITS_BATCH,
+                                   "synthetic_valid": UNITS_BATCH,
+                                   "minibatch_size": UNITS_BATCH},
+                    decision_config={"max_epochs": 1},
+                    snapshotter_config={"directory": snapdir}, fused=fused)
+                wf.initialize(device=device)
+                wf.run()
+            if fused is None:
+                params[device] = unit_params_to_numpy(wf.forwards)
+            else:
+                params["fused"] = [
+                    (p["w"], p["b"]) if p else None
+                    for p in wf.fused_trainer.net.host_params()]
+            if device == "cuda" and fused is None:
+                launched = (cuda_pooling.LAUNCHES - before[0],
+                            cuda_pooling_backward.LAUNCHES - before[1])
+            del wf
+    finally:
+        MaxPooling.run = real_run
+        root.common.engine.precision_dtype = saved
+    fused_launched = (cuda_pooling.LAUNCHES - before[0] - launched[0],
+                      cuda_pooling_backward.LAUNCHES - before[1] -
+                      launched[1])
+    if pooling.PLAIN_CUDA_CALLS != plain:
+        raise RuntimeError("plain pooling ran on the card in f64")
+    worst = {}
+    for graph in ("cuda", "fused"):
+        worst[graph] = 0.0
+        for i, (g, w) in enumerate(zip(params[graph], params["cpu"])):
+            if w is None:
+                continue
+            for a, b in zip(g, w):
+                if a.dtype != numpy.float64:
+                    raise RuntimeError("layer %d ran in %s" % (i, a.dtype))
+                rel = numpy.abs(a - b).max() / numpy.abs(b).max()
+                worst[graph] = max(worst[graph], rel)
+                if not rel <= UNITS_F64_RTOL:
+                    raise RuntimeError(
+                        "layer %d: the card's f64 parameters (%s) %.3g "
+                        "relative from the CPU's, over %g" % (
+                            i, graph, rel, UNITS_F64_RTOL))
+    if len(offsets["cuda"]) != 10 or any(
+            not numpy.array_equal(a, b)
+            for a, b in zip(offsets["cuda"], offsets["cpu"])):
+        raise RuntimeError("the pools' offsets differ between the card and "
+                           "the CPU")
+    if launched != (10, 8) or fused_launched != (10, 8):
+        raise RuntimeError("the f64 runs launched %s and %s kernels "
+                           "(forward, backward), not (10, 8)"
+                           % (launched, fused_launched))
+    say("   card vs CPU, f64, full width, 4 TRAIN minibatches and a VALID "
+        "one: every forward's weights and bias within %.3g of the "
+        "tensor's largest (bound %g), the 10 pools' offsets equal, on %d "
+        "forward and %d backward f64 kernel launches; the fused graph "
+        "(pool_impl='offsets') on the card within %.3g of the CPU's unit "
+        "graph, on %d and %d; no plain pooling on the card (%.2f s)" % (
+            worst["cuda"], UNITS_F64_RTOL, launched[0], launched[1],
+            worst["fused"], fused_launched[0], fused_launched[1],
+            time.perf_counter() - t0))
+
+
+def _mnist_kernel_times(torch, card, cycles_per_ms):
+    """Both kernels at the MNIST pools' shapes (minibatch 60, f32),
+    checked bit for bit against their plain versions, then cold beside
+    their bounds, plain versions and the library calls; returns the
+    rows by kernel and pool."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    rows = {"forward": {}, "backward": {}}
+    for label, shape in MNIST_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x_nchw = x.permute(0, 3, 1, 2)
+        b, h, w, c = shape
+        n_in, n_out = x.numel(), b * (h // 2) * (w // 2) * c
+        values, offs = cuda_pooling.max_pooling_offsets(x, 2, 2, (2, 2))
+        err = torch.randn(offs.shape, generator=gen, device="cuda")
+        grad = cuda_pooling_backward.max_pooling_offsets_backward(
+            err, offs, shape, 2, 2, (2, 2))
+        p_values, p_offs = pooling.max_pooling_plain(x, 2, 2, (2, 2))
+        p_grad = pooling.max_pooling_backward_plain(err, offs, shape, 2, 2,
+                                                    (2, 2))
+        torch.cuda.synchronize()
+        if not (_bits_equal(torch, values, p_values) and
+                torch.equal(offs, p_offs) and
+                _bits_equal(torch, grad, p_grad)):
+            raise RuntimeError("a kernel disagrees with its plain version "
+                               "at MNIST %s %s" % (label, shape))
+        _, idx = F.max_pool2d(x_nchw, 2, 2, ceil_mode=True,
+                              return_indices=True)
+        err_nchw = err.permute(0, 3, 1, 2)
+        work = {
+            "forward": (n_in * 4 + n_out * 8, n_out * 4, {
+                "ms": lambda: cuda_pooling.max_pooling_offsets(
+                    x, 2, 2, (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_plain(
+                    x, 2, 2, (2, 2)),
+                "library_ms": lambda: F.max_pool2d(
+                    x_nchw, 2, 2, ceil_mode=True, return_indices=True)}),
+            "backward": (n_out * 8 + n_in * 4, n_out * 5, {
+                "ms": lambda: cuda_pooling_backward
+                .max_pooling_offsets_backward(err, offs, shape, 2, 2,
+                                              (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_backward_plain(
+                    err, offs, shape, 2, 2, (2, 2)),
+                "library_ms": lambda: torch.ops.aten
+                .max_pool2d_with_indices_backward(
+                    err_nchw, x_nchw, [2, 2], [2, 2], [0, 0], [1, 1], True,
+                    idx)})}
+        for kind, (nbytes, ops, fns) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            row = {"bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "width": WIDE if c % 4 == 0 else NARROW}
+            for key, fn in fns.items():
+                row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                    torch, fn, flush, cycles_per_ms, SMALL_TIMING_ITERS)
+            rows[kind][label] = row
+            say("   MNIST %s %s %s f32 (%s): kernel %.4f ms (host enqueue "
+                "%.4f ms), plain %.4f ms, library %.4f ms, bound %.4f ms "
+                "(%.2f MB), %.0f%% of bound; %d samples; %s" % (
+                    kind, label, shape, row["width"], row["ms"],
+                    row["host_ms"], row["plain_ms"], row["library_ms"],
+                    row["bound_ms"], nbytes / 1e6,
+                    100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS,
+                    card))
+    return rows
+
+
 def phase_train(torch, card, cycles_per_ms):
     """Full-width AlexNet trained through the port's FusedNet on the
     card: the step checks, 3 epochs of windows, the step breakdown."""
@@ -1986,6 +2608,8 @@ def _phases(torch, name, card, start):
     with prototypes:
         workflow_launches = phase_workflow(torch, card)
         marks.append(("workflow", time.perf_counter()))
+        units_launches, mnist_rows = phase_units(torch, card, cycles_per_ms)
+        marks.append(("units", time.perf_counter()))
         train_launches, _ = phase_train(torch, card, cycles_per_ms)
         marks.append(("train", time.perf_counter()))
     del prototypes
@@ -1994,7 +2618,8 @@ def _phases(torch, name, card, start):
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
-    paths = {"train": train_launches, "workflow": workflow_launches}
+    paths = {"train": train_launches, "workflow": workflow_launches,
+             "units": units_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -2011,6 +2636,7 @@ def _phases(torch, name, card, start):
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),
                                  layer_ms))
     forward["train"] = _sums(train_rows["forward"])
+    forward["mnist"] = _sums(mnist_rows["forward"])
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,
@@ -2024,6 +2650,7 @@ def _phases(torch, name, card, start):
                 "ptxas": _ptxas(cuda_pooling_backward.SOURCE),
                 "max_abs_err": max(backward_err, train_err["backward"])}
     backward.update(_sums(train_rows["backward"]))
+    backward["mnist"] = _sums(mnist_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

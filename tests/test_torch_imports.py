@@ -70,7 +70,22 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.standard_workflow_base",
                  "znicz_tpu_torch.standard_workflow",
                  "znicz_tpu_torch.launcher",
-                 "znicz_tpu_torch.__main__"):
+                 "znicz_tpu_torch.__main__",
+                 "znicz_tpu_torch.units.all2all",
+                 "znicz_tpu_torch.units.conv",
+                 "znicz_tpu_torch.units.pooling",
+                 "znicz_tpu_torch.units.gd",
+                 "znicz_tpu_torch.units.gd_conv",
+                 "znicz_tpu_torch.units.gd_pooling",
+                 "znicz_tpu_torch.units.activation",
+                 "znicz_tpu_torch.units.dropout",
+                 "znicz_tpu_torch.units.normalization",
+                 "znicz_tpu_torch.loader.loader_mnist",
+                 "znicz_tpu_torch.samples.mnist",
+                 "znicz_tpu_torch.params",
+                 "znicz_tpu_torch.ops.dense",
+                 "znicz_tpu_torch.ops.conv",
+                 "znicz_tpu_torch.ops.normalization"):
         assert name in doc["modules"]
 
 

@@ -171,12 +171,13 @@ def test_launch_plan_alexnet_and_tile_edges():
     plan = cuda_pooling.launch_plan((2, 7, 700, 32), 4, 4, 3, 3, (2, 2))
     assert plan.tj < 350 and 350 % plan.tj != 0 and 3 % plan.ti != 0
     # a window that no 128-byte slab fits narrows the slab; one that no
-    # shared memory fits is refused
+    # shared memory fits takes the unstaged instantiation, a whole slab
+    # of lanes, one output row and all output columns a block
     plan = cuda_pooling.launch_plan((1, 100, 100, 64), 4, 4, 64, 64,
                                     (1, 1))
-    assert plan.lanes == 1 and plan.smem == 64 * 64 * 16
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_pooling.launch_plan((1, 300, 300, 64), 4, 4, 200, 200, (1, 1))
+    assert plan.lanes == 1 and plan.smem == 64 * 64 * 16 and plan.staged
+    plan = cuda_pooling.launch_plan((1, 300, 300, 64), 4, 4, 200, 200, (1, 1))
+    assert plan == cuda_pooling.Plan(8, 1, 101, 0, False)
 
 
 @pytest.mark.parametrize("sy", range(1, 9))
@@ -322,8 +323,9 @@ def test_backward_kernel_guards():
     offs = torch.zeros(2, 3, 3, 4, dtype=torch.int32)
     x_shape = (2, 7, 7, 4)
     counts = _backward_counts()
-    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
-        f(err.double(), offs, x_shape, 3, 3, (2, 2))
+    with pytest.raises(TypeError,
+                       match="float32, float64, float16 or bfloat16"):
+        f(err.long(), offs, x_shape, 3, 3, (2, 2))
     with pytest.raises(TypeError, match="int32"):
         f(err, offs.long(), x_shape, 3, 3, (2, 2))
     with pytest.raises(ValueError, match="4-D"):
@@ -342,10 +344,12 @@ def test_backward_kernel_guards():
             f(err, offs, bad, 3, 3, (2, 2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         f(err, offs, x_shape, 3, 3, (2, 2))
-    # windows whose staged err and offsets no shared memory holds
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_pooling_backward.launch_plan((1, 300, 300, 64), 4, 4, 200, 200,
-                                          (1, 1))
+    # windows whose staged err and offsets no shared memory holds take
+    # the unstaged instantiation (runtime strides)
+    plan = cuda_pooling_backward.launch_plan((1, 300, 300, 64), 4, 4, 200,
+                                             200, (1, 1))
+    assert not plan.staged and plan.smem == 0 and not plan.stride2
+    assert cuda_pooling_backward.variant(plan) == 2
     assert _backward_counts() == counts
 
 

@@ -17,7 +17,7 @@ packages' prng streams 1 and 2 seeded alike:
   ``epoch_acc``);
 * ``python -m znicz_tpu_torch WORKFLOW.py --device cpu`` trains and
   prints the best error; without CUDA and without ``--device cpu`` it
-  raises; ``fused=None`` (the unit graph) and a mesh raise
+  raises; the MSE loss (in either mode) and a mesh raise
   ``NotImplementedError`` naming ROADMAP.md.
 """
 
@@ -293,8 +293,8 @@ def test_cli_needs_cuda_unless_cpu_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fused": None}, {"fused": {"mesh": 2}}, {"fused": True,
-                                              "loss_function": "mse"}])
+    {"fused": None, "loss_function": "mse"}, {"fused": {"mesh": 2}},
+    {"fused": True, "loss_function": "mse"}])
 def test_left_out_modes_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         alexnet.build(layers=narrow_alexnet(), loader_config=dict(LOADER),

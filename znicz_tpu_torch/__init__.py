@@ -8,8 +8,9 @@ imports neither ``jax`` nor anything of ``znicz_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (:func:`znicz_tpu_torch.core.backends.default_device`).
-The one hand-written Hopper kernel of this slice is max pooling with
-winner offsets (:mod:`znicz_tpu_torch.ops.cuda_pooling`).
+The hand-written Hopper kernels are max pooling with winner offsets
+(:mod:`znicz_tpu_torch.ops.cuda_pooling`) and its backward
+(:mod:`znicz_tpu_torch.ops.cuda_pooling_backward`).
 """
 
 from znicz_tpu_torch.core.backends import default_device

@@ -1,7 +1,11 @@
 """``python -m znicz_tpu_torch`` — the workflow CLI, and ``serve``.
 
-Counterpart of ``znicz_tpu/__main__.py``.  Examples::
+Counterpart of ``znicz_tpu/__main__.py``.  Without ``--fused`` a
+workflow trains through the unit-at-a-time graph (one unit a layer,
+one minibatch at a time), with it through the fused trainer.
+Examples::
 
+    python -m znicz_tpu_torch mnist --config mnistr.decision.max_epochs=5
     python -m znicz_tpu_torch alexnet --fused pool_impl=offsets \\
         --config alexnet.decision.max_epochs=3
     python -m znicz_tpu_torch alexnet --fused --snapshot SNAP.pickle

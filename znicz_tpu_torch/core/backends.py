@@ -22,3 +22,11 @@ def default_device(device=None):
             "CUDA is not available; pass device='cpu' to run on the "
             "CPU")
     return dev
+
+
+def full_f32(device):
+    """f32 products and convolutions in full f32 on the card, as the JAX
+    package computes them (TF32 keeps about three digits)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

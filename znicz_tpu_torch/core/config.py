@@ -3,7 +3,8 @@
 Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
 reads: the ``root.common.serving`` knobs of the serving slice, the
 ``root.common.telemetry`` gate, ``root.common.engine.precision_dtype``
-and ``root.common.dirs.snapshots`` of the training workflows, and the
+and ``root.common.dirs.snapshots`` / ``datasets`` of the training
+workflows, and the
 CLI's ``--config`` parser :func:`apply_override` (:535).  Namespaces
 auto-vivify on attribute access; assigning a dict merges it into the
 node.
@@ -60,6 +61,8 @@ class Config(object):
 
 #: The global configuration root.
 root = Config("root")
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 root.common.update({
     "serving": {
@@ -75,9 +78,10 @@ root.common.update({
     "telemetry": {"enabled": False},
     # minibatch and trainer dtype (None: follow the data, float32)
     "engine": {"precision_dtype": None},
-    # the snapshotter's default directory, inside the checkout
-    "dirs": {"snapshots": os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), ".snapshots")},
+    # the snapshotter's default directory and the datasets' (the MNIST
+    # loader's IDX files), inside the checkout
+    "dirs": {"snapshots": os.path.join(_CHECKOUT, ".snapshots"),
+             "datasets": os.path.join(_CHECKOUT, ".data")},
 })
 
 

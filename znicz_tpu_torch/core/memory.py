@@ -164,6 +164,20 @@ class Array(object):
         return None if self._dev is None else tuple(self._dev.shape)
 
     @property
+    def size(self):
+        """Number of elements (0 when empty)."""
+        shape = self.shape
+        n = 0 if shape is None else 1
+        for d in shape or ():
+            n *= int(d)
+        return n
+
+    @property
+    def sample_size(self):
+        """Elements of one sample (all axes but the first)."""
+        return self.size // self.shape[0]
+
+    @property
     def dtype(self):
         if self._state != DEV and self._host is not None:
             return self._host.dtype

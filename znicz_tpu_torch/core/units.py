@@ -14,8 +14,9 @@ its telemetry hooks:
   ``initialize``;
 * ``exports`` — the attribute names a snapshot captures.
 
-The graph is the epoch-level control plane; per-minibatch compute
-lives in the trainer's tensors.
+The graph is the epoch-level control plane and, in the unit-at-a-time
+training graph, the per-minibatch one too (a unit a layer); in the
+fused graph the per-minibatch compute lives in the trainer's tensors.
 """
 
 import time
@@ -77,6 +78,9 @@ class Unit(Logger):
             self.__dict__.pop(mine, None)
             self._linked_attrs_[mine] = (other, theirs, two_way)
         return self
+
+    def has_linked_attr(self, name):
+        return name in self._linked_attrs_
 
     # -- demands ------------------------------------------------------------
     def demand(self, *names):

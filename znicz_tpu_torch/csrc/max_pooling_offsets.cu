@@ -10,7 +10,9 @@
 // offset of the winner, ((b*H + wy)*W + wx)*C + c, as int32.  The
 // window is ceil-mode and truncated at the right/bottom edge; ties go
 // to the FIRST cell in row-major window order (dy outer, dx inner)
-// through a strict '>' compare on the key (|x| for maxabs, in float32).
+// through a strict '>' compare on the key (|x| for maxabs): in float32
+// for f32/f16/bf16 (exact for the narrower types), in double for f64,
+// where a float key could round two values to one and flip a winner.
 //
 // Bound: memory.  Each input byte is read once and each output written
 // once at best: B*H*W*C*sizeof(T) + B*ny*nx*C*(sizeof(T) + 4) bytes
@@ -32,7 +34,7 @@
 //    shared with the next tile.  Rows and columns past the input are
 //    not staged;
 //  * 16-byte vectors along C: a thread owns VEC neighbouring channels
-//    (4 in f32, 8 in f16/bf16), compares each lane on its own (so the
+//    (2 in f64, 4 in f32, 8 in f16/bf16), compares each lane on its own (so the
 //    tie rule holds per lane), and stores the values as one 16-byte
 //    vector and the offsets as 16-byte int4 vectors.  VEC = 1 serves
 //    channel counts or base pointers that 16 bytes do not divide (the
@@ -51,6 +53,11 @@
 //    5184 blocks of 216 threads; max_pool2 (27x27x256): TI = 4, 31 KB;
 //    max_pool5 (13x13x256): all 13 rows, 21 KB, 512 blocks in one
 //    wave;
+//  * a window that no shared memory holds (its rows x columns x one
+//    lane of the slab past the 227 KB a block may take) runs the
+//    UNSTAGED instantiation: the same grid and the same window walk,
+//    reading each window from device memory (through L1/L2) instead of
+//    a staged tile.  The wrapper's plan picks it, before the launch;
 //  * the loop runs over the TRUNCATED window, so overhanging cells
 //    never win; the window origin seeds the running best, so a real
 //    -inf input wins its window without a sentinel.  A window wholly
@@ -70,11 +77,19 @@ namespace {
 // plan stays far below it)
 constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+// the key a window compares: float for f32/f16/bf16, double for f64
+__device__ __forceinline__ float to_key(float v) { return v; }
+__device__ __forceinline__ float to_key(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_key(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
+__device__ __forceinline__ double to_key(double v) { return v; }
+__device__ __forceinline__ float key_abs(float v) { return fabsf(v); }
+__device__ __forceinline__ double key_abs(double v) { return fabs(v); }
+template <typename T> struct KeyOf { using type = float; };
+template <> struct KeyOf<double> { using type = double; };
+template <typename T>
+using Key = typename KeyOf<T>::type;
 
 template <typename T> __device__ __forceinline__ T zero_value();
 template <> __device__ __forceinline__ float zero_value<float>() {
@@ -86,6 +101,9 @@ template <> __device__ __forceinline__ __half zero_value<__half>() {
 template <> __device__ __forceinline__ __nv_bfloat16
 zero_value<__nv_bfloat16>() {
     return __float2bfloat16(0.0f);
+}
+template <> __device__ __forceinline__ double zero_value<double>() {
+    return 0.0;
 }
 
 // VEC neighbouring channels, moved as one access of VEC*sizeof(T) bytes
@@ -107,21 +125,20 @@ __device__ __forceinline__ void stage(Pack<T, VEC>* dst,
     }
 }
 
-// Output pack (b, i, j, channels c0..c0+VEC) from the staged tile;
-// ``lane_tile`` points at this lane's element of tile cell (0, 0), which
-// holds input cell (row0, col0).
+// Output pack (b, i, j, channels c0..c0+VEC) from the input cells
+// ``cells[wy * row_step + wx * col_step]``: this lane's pack of input
+// cell (wy, wx) of batch row b, in the staged tile or in device memory.
 template <typename T, int VEC>
 __device__ __forceinline__ void pool_window(
-        const Pack<T, VEC>* lane_tile, T* values, int32_t* offsets, int b,
-        int i, int j, int c0, int row0, int col0, int h, int w, int c,
-        int ny, int nx, int ky, int kx, int sy, int sx, int tile_cols,
-        int lanes, int use_abs) {
+        const Pack<T, VEC>* cells, int row_step, int col_step, T* values,
+        int32_t* offsets, int b, int i, int j, int c0, int h, int w, int c,
+        int ny, int nx, int ky, int kx, int sy, int sx, int use_abs) {
     using P = Pack<T, VEC>;
     const int y0 = i * sy;
     const int x0 = j * sx;
     const int origin = ((b * h + y0) * w + x0) * c + c0;
     P best;
-    float key[VEC];
+    Key<T> key[VEC];
     int32_t off[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) off[k] = origin + k;
@@ -131,22 +148,21 @@ __device__ __forceinline__ void pool_window(
     } else {
         const int y1 = min(y0 + ky, h);
         const int x1 = min(x0 + kx, w);
-        best = lane_tile[((y0 - row0) * tile_cols + x0 - col0) * lanes];
+        best = cells[y0 * row_step + x0 * col_step];
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-            key[k] = to_float(best.v[k]);
-            if (use_abs) key[k] = fabsf(key[k]);
+            key[k] = to_key(best.v[k]);
+            if (use_abs) key[k] = key_abs(key[k]);
         }
         for (int wy = y0; wy < y1; ++wy) {
-            const P* row =
-                lane_tile + ((wy - row0) * tile_cols - col0) * lanes;
+            const P* row = cells + wy * row_step;
             const int row_off = (b * h + wy) * w * c + c0;
             for (int wx = (wy == y0 ? x0 + 1 : x0); wx < x1; ++wx) {
-                const P v = row[wx * lanes];
+                const P v = row[wx * col_step];
 #pragma unroll
                 for (int k = 0; k < VEC; ++k) {
-                    float kk = to_float(v.v[k]);
-                    if (use_abs) kk = fabsf(kk);
+                    Key<T> kk = to_key(v.v[k]);
+                    if (use_abs) kk = key_abs(kk);
                     if (kk > key[k]) {  // strict: the first winner stays
                         key[k] = kk;
                         best.v[k] = v.v[k];
@@ -163,13 +179,17 @@ __device__ __forceinline__ void pool_window(
         for (int k = 0; k < VEC; k += 4)
             *reinterpret_cast<int4*>(offsets + out + k) =
                 make_int4(off[k], off[k + 1], off[k + 2], off[k + 3]);
+    } else if constexpr (VEC == 2) {
+        *reinterpret_cast<int2*>(offsets + out) = make_int2(off[0], off[1]);
     } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) offsets[out + k] = off[k];
     }
 }
 
-template <typename T, int VEC>
+// STAGED: the block's input rows go through shared memory (else each
+// window reads device memory)
+template <typename T, int VEC, bool STAGED>
 __global__ void __launch_bounds__(256) max_pooling_offsets_kernel(
         const T* __restrict__ x, T* __restrict__ values,
         int32_t* __restrict__ offsets, int nb, int h, int w, int c, int ny,
@@ -191,43 +211,55 @@ __global__ void __launch_bounds__(256) max_pooling_offsets_kernel(
             for (int j0 = 0; j0 < nx; j0 += tj) {
                 const int col0 = j0 * sx;
                 const int j1 = min(nx, j0 + tj);
-                // stage rows/columns of the tile that lie in the input
-                const int rows = active ? min(tile_rows, h - row0) : 0;
-                const int cols = min(tile_cols, w - col0);
-                for (int r = threadIdx.z; r < rows; r += blockDim.z) {
-                    const P* src = reinterpret_cast<const P*>(
-                        x + ((b * h + row0 + r) * w + col0) * c + c0);
-                    P* dst = stage_row + r * tile_cols * lanes;
-                    for (int q = threadIdx.y; q < cols; q += blockDim.y)
-                        stage<T, VEC>(dst + q * lanes, src + q * c_packs);
+                // input cell (wy, wx) of this lane: staged tile cell
+                // (wy - row0, wx - col0), or the cell in device memory
+                const P* cells = reinterpret_cast<const P*>(
+                    x + b * h * w * c + c0);
+                int row_step = w * c_packs, col_step = c_packs;
+                if constexpr (STAGED) {
+                    // stage rows/columns of the tile that lie in the input
+                    const int rows = active ? min(tile_rows, h - row0) : 0;
+                    const int cols = min(tile_cols, w - col0);
+                    for (int r = threadIdx.z; r < rows; r += blockDim.z) {
+                        const P* src = reinterpret_cast<const P*>(
+                            x + ((b * h + row0 + r) * w + col0) * c + c0);
+                        P* dst = stage_row + r * tile_cols * lanes;
+                        for (int q = threadIdx.y; q < cols; q += blockDim.y)
+                            stage<T, VEC>(dst + q * lanes,
+                                          src + q * c_packs);
+                    }
+                    if constexpr (sizeof(P) == 16)
+                        asm volatile("cp.async.wait_all;\n" ::: "memory");
+                    __syncthreads();
+                    row_step = tile_cols * lanes;
+                    col_step = lanes;
+                    cells = lane_tile - row0 * row_step - col0 * col_step;
                 }
-                if constexpr (sizeof(P) == 16)
-                    asm volatile("cp.async.wait_all;\n" ::: "memory");
-                __syncthreads();
                 if (active) {
                     for (int i = i0 + threadIdx.z; i < i1; i += blockDim.z)
                         for (int j = j0 + threadIdx.y; j < j1;
                              j += blockDim.y)
                             pool_window<T, VEC>(
-                                lane_tile, values, offsets, b, i, j, c0,
-                                row0, col0, h, w, c, ny, nx, ky, kx, sy, sx,
-                                tile_cols, lanes, use_abs);
+                                cells, row_step, col_step, values, offsets,
+                                b, i, j, c0, h, w, c, ny, nx, ky, kx, sy, sx,
+                                use_abs);
                 }
-                __syncthreads();  // the tile is read before it is refilled
+                // the tile is read before it is refilled
+                if constexpr (STAGED) __syncthreads();
             }
         }
     }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool STAGED>
 int launch(const void* x, void* values, void* offsets, int b, int h, int w,
            int c, int ny, int nx, int ky, int kx, int sy, int sx, int lanes,
            int ti, int tj, int use_abs, cudaStream_t stream) {
-    auto kernel = max_pooling_offsets_kernel<T, VEC>;
+    auto kernel = max_pooling_offsets_kernel<T, VEC, STAGED>;
     const int tile_rows = std::min(h, (ti - 1) * sy + ky);
     const int tile_cols = std::min(w, (tj - 1) * sx + kx);
-    const size_t smem =
-        (size_t)tile_rows * tile_cols * lanes * sizeof(Pack<T, VEC>);
+    const size_t smem = STAGED ?
+        (size_t)tile_rows * tile_cols * lanes * sizeof(Pack<T, VEC>) : 0;
     if (lanes < 1 || lanes > 256 || ti < 1 || tj < 1 ||
         smem > (size_t)kMaxSmem)
         return (int)cudaErrorInvalidValue;
@@ -249,47 +281,68 @@ int launch(const void* x, void* values, void* offsets, int b, int h, int w,
     return (int)cudaGetLastError();
 }
 
+template <typename T, int VEC>
+int launch_staged(int staged, const void* x, void* values, void* offsets,
+                  int b, int h, int w, int c, int ny, int nx, int ky, int kx,
+                  int sy, int sx, int lanes, int ti, int tj, int use_abs,
+                  cudaStream_t s) {
+    if (staged)
+        return launch<T, VEC, true>(x, values, offsets, b, h, w, c, ny, nx,
+                                    ky, kx, sy, sx, lanes, ti, tj, use_abs,
+                                    s);
+    return launch<T, VEC, false>(x, values, offsets, b, h, w, c, ny, nx, ky,
+                                 kx, sy, sx, lanes, ti, tj, use_abs, s);
+}
+
 template <typename T>
-int launch_width(int vec, const void* x, void* values, void* offsets, int b,
-                 int h, int w, int c, int ny, int nx, int ky, int kx, int sy,
-                 int sx, int lanes, int ti, int tj, int use_abs,
-                 cudaStream_t s) {
+int launch_width(int vec, int staged, const void* x, void* values,
+                 void* offsets, int b, int h, int w, int c, int ny, int nx,
+                 int ky, int kx, int sy, int sx, int lanes, int ti, int tj,
+                 int use_abs, cudaStream_t s) {
     constexpr int kWide = 16 / sizeof(T);
     if (vec == kWide && c % kWide == 0)
-        return launch<T, kWide>(x, values, offsets, b, h, w, c, ny, nx, ky,
-                                kx, sy, sx, lanes, ti, tj, use_abs, s);
+        return launch_staged<T, kWide>(staged, x, values, offsets, b, h, w,
+                                       c, ny, nx, ky, kx, sy, sx, lanes, ti,
+                                       tj, use_abs, s);
     if (vec == 1)
-        return launch<T, 1>(x, values, offsets, b, h, w, c, ny, nx, ky, kx,
-                            sy, sx, lanes, ti, tj, use_abs, s);
+        return launch_staged<T, 1>(staged, x, values, offsets, b, h, w, c,
+                                   ny, nx, ky, kx, sy, sx, lanes, ti, tj,
+                                   use_abs, s);
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; vec: 16 / sizeof(T)
-// (C and x 16-byte aligned) or 1; lanes, ti, tj: the wrapper's launch
-// plan.  Launches on ``stream`` and does not synchronise; returns the
-// launch's cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16, 3 = float64; vec:
+// 16 / sizeof(T) (C and x 16-byte aligned) or 1; staged: 1 to stage the
+// tiles in shared memory, 0 for the unstaged instantiation; lanes, ti,
+// tj: the wrapper's launch plan.  Launches on ``stream`` and does not
+// synchronise; returns the launch's cudaError_t (0 = success).
 extern "C" int max_pooling_offsets(const void* x, void* values,
-                                   void* offsets, int dtype, int vec, int b,
-                                   int h, int w, int c, int ny, int nx,
-                                   int ky, int kx, int sy, int sx, int lanes,
-                                   int ti, int tj, int use_abs,
-                                   void* stream) {
+                                   void* offsets, int dtype, int vec,
+                                   int staged, int b, int h, int w, int c,
+                                   int ny, int nx, int ky, int kx, int sy,
+                                   int sx, int lanes, int ti, int tj,
+                                   int use_abs, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case 0:
-            return launch_width<float>(vec, x, values, offsets, b, h, w, c,
-                                       ny, nx, ky, kx, sy, sx, lanes, ti, tj,
-                                       use_abs, s);
+            return launch_width<float>(vec, staged, x, values, offsets, b, h,
+                                       w, c, ny, nx, ky, kx, sy, sx, lanes,
+                                       ti, tj, use_abs, s);
         case 1:
-            return launch_width<__half>(vec, x, values, offsets, b, h, w, c,
-                                        ny, nx, ky, kx, sy, sx, lanes, ti,
-                                        tj, use_abs, s);
+            return launch_width<__half>(vec, staged, x, values, offsets, b,
+                                        h, w, c, ny, nx, ky, kx, sy, sx,
+                                        lanes, ti, tj, use_abs, s);
         case 2:
-            return launch_width<__nv_bfloat16>(vec, x, values, offsets, b, h,
-                                               w, c, ny, nx, ky, kx, sy, sx,
-                                               lanes, ti, tj, use_abs, s);
+            return launch_width<__nv_bfloat16>(vec, staged, x, values,
+                                               offsets, b, h, w, c, ny, nx,
+                                               ky, kx, sy, sx, lanes, ti, tj,
+                                               use_abs, s);
+        case 3:
+            return launch_width<double>(vec, staged, x, values, offsets, b,
+                                        h, w, c, ny, nx, ky, kx, sy, sx,
+                                        lanes, ti, tj, use_abs, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -17,7 +17,7 @@
 // oy = (y - dy) / sy and ox = (x - dx) / sx -- the order of
 // pooling.py::max_pooling_backward_plain and of the JAX function's
 // shifted accumulation.  f16 and bf16 sums are rounded to their type
-// after every add, as a sum in that type is.  So the result is
+// after every add, as a sum in that type is; f64 sums in double.  So the result is
 // bit-equal to the plain version.  Each thread writes its cells once,
 // those no window covers (+0.0) and ceil mode's overhang included: no
 // atomics, and the same bits on every run.
@@ -69,7 +69,7 @@
 //    slower at all three pools, the more so the smaller the pool
 //    (PERF.md has the times), so the constant stride stays;
 //  * 16-byte vectors along C: a thread owns VEC neighbouring channels
-//    (4 in f32, 8 in f16/bf16) where C and all three base addresses
+//    (2 in f64, 4 in f32, 8 in f16/bf16) where C and all three base addresses
 //    allow, compares each lane's offset on its own, and stores its cell
 //    as one 16-byte vector, neighbouring lanes at neighbouring
 //    addresses.  VEC = 1 serves the rest, with plain loads to stage;
@@ -91,6 +91,12 @@
 //        blocks of 8 x 27 x 1;
 //      max_pool5 (13x13x256): all 13 rows, 6 x 6 x 8 lanes = 9 KB,
 //        1024 blocks of 8 x 13 x 2;
+//  * windows that no shared memory holds (the err and offsets of the
+//    windows covering one input cell past the 227 KB a block may take)
+//    run the UNSTAGED instantiation: the same grid and the same window
+//    walk at runtime strides, reading each window's err and offset from
+//    device memory (through L1/L2) instead of a staged tile.  The
+//    wrapper's plan picks it, before the launch;
 //  * the launch: one per pool and step, as before.  At max_pool5 an
 //    empty launch between the timing events already reads about half
 //    the 0.0094 ms byte bound, and its 1024 blocks run as one wave
@@ -109,22 +115,31 @@ namespace {
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kMaxThreads = 256;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-    return __bfloat162float(v);
+// a + b rounded to T: exact in float for f16 and bf16 (then rounded
+// once), the type's own add for f32 and f64
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ double add(double a, double b) { return a + b; }
+__device__ __forceinline__ __half add(__half a, __half b) {
+    return __float2half_rn(__half2float(a) + __half2float(b));
+}
+__device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 a,
+                                             __nv_bfloat16 b) {
+    return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
 }
 
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-    return v;
+template <typename T> __device__ __forceinline__ T zero_value();
+template <> __device__ __forceinline__ float zero_value<float>() {
+    return 0.0f;
 }
-template <> __device__ __forceinline__ __half from_float<__half>(float v) {
-    return __float2half_rn(v);
+template <> __device__ __forceinline__ double zero_value<double>() {
+    return 0.0;
+}
+template <> __device__ __forceinline__ __half zero_value<__half>() {
+    return __float2half_rn(0.0f);
 }
 template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
+zero_value<__nv_bfloat16>() {
+    return __float2bfloat16_rn(0.0f);
 }
 
 // VEC neighbouring channels, moved as one access of VEC*sizeof(T) bytes
@@ -133,11 +148,21 @@ struct alignas(sizeof(T) * VEC) Pack {
     T v[VEC];
 };
 
-// their VEC int32 offsets (16-byte aligned from 4 channels up)
+// their VEC int32 offsets, moved as one access of 4*VEC bytes (16-byte
+// aligned from 4 channels up, 8-byte for the two of an f64 vector)
 template <int VEC>
-struct alignas(VEC >= 4 ? 16 : 4) Offsets {
+struct alignas(VEC >= 4 ? 16 : 4 * VEC) Offsets {
     int32_t v[VEC];
 };
+
+// bytes of the staged offsets tile of n windows, rounded up to the
+// alignment of the err tile after it (a whole number of them except for
+// f64, whose err packs are wider than their offsets)
+template <typename T, int VEC>
+__host__ __device__ __forceinline__ size_t offsets_tile_bytes(size_t n) {
+    constexpr size_t align = alignof(Pack<T, VEC>);
+    return (n * sizeof(Offsets<VEC>) + align - 1) / align * align;
+}
 
 // a / s for a >= 0: a shift where s is the constant 2
 __device__ __forceinline__ int div_nonneg(int a, int s) {
@@ -170,8 +195,10 @@ __device__ __forceinline__ void stage(X* dst, const X* src) {
     }
 }
 
-// STRIDE: 2 for sy = sx = 2 as constants, 0 for runtime strides
-template <typename T, int VEC, int STRIDE>
+// STRIDE: 2 for sy = sx = 2 as constants, 0 for runtime strides;
+// STAGED: the windows of a tile go through shared memory (else each is
+// read from device memory)
+template <typename T, int VEC, int STRIDE, bool STAGED>
 __global__ void __launch_bounds__(kMaxThreads) max_pooling_backward_kernel(
         const T* __restrict__ err, const int32_t* __restrict__ offsets,
         T* __restrict__ grad, int nb, int h, int w, int c, int ny, int nx,
@@ -184,11 +211,11 @@ __global__ void __launch_bounds__(kMaxThreads) max_pooling_backward_kernel(
     extern __shared__ __align__(16) unsigned char smem[];
     const int lanes = blockDim.x;
     const int lane = threadIdx.x;
-    // offsets first: their tile is a multiple of 16 bytes from VEC = 4
-    // up, so the err tile after it keeps its own alignment
+    // offsets first, their tile padded to the err tile's alignment
     O* s_off = reinterpret_cast<O*>(smem);
     P* s_err = reinterpret_cast<P*>(
-        smem + (size_t)tile_rows * tile_cols * lanes * sizeof(O));
+        smem + offsets_tile_bytes<T, VEC>((size_t)tile_rows * tile_cols *
+                                          lanes));
     const int c0 = (blockIdx.x * lanes + lane) * VEC;
     // VEC divides C when VEC > 1: a lane is wholly in or wholly out
     const bool active = c0 < c;
@@ -203,22 +230,39 @@ __global__ void __launch_bounds__(kMaxThreads) max_pooling_backward_kernel(
                 const int ox_lo = first_window(x0, kx, sx);
                 const int cols = min(nx - 1, div_nonneg(x1 - 1, sx)) -
                                  ox_lo + 1;
-                // stage the windows that touch the tile
-                for (int r = threadIdx.z; r < rows; r += blockDim.z) {
-                    const int src = ((b * ny + oy_lo + r) * nx + ox_lo) * c +
-                                    c0;
-                    const int dst = r * tile_cols * lanes + lane;
-                    for (int q = threadIdx.y; q < cols; q += blockDim.y) {
-                        stage(s_off + dst + q * lanes,
-                              reinterpret_cast<const O*>(offsets + src +
-                                                         q * c));
-                        stage(s_err + dst + q * lanes,
-                              reinterpret_cast<const P*>(err + src + q * c));
+                // window (oy, ox) of this lane: its err and offsets at
+                // [oy * row_step + ox * col_step] of win_err / win_off,
+                // in the staged tile or in device memory
+                const int batch = b * ny * nx * c + c0;
+                const O* win_off = reinterpret_cast<const O*>(offsets +
+                                                              batch);
+                const P* win_err = reinterpret_cast<const P*>(err + batch);
+                int row_step = nx * (c / VEC), col_step = c / VEC;
+                if constexpr (STAGED) {
+                    // stage the windows that touch the tile
+                    for (int r = threadIdx.z; r < rows; r += blockDim.z) {
+                        const int src =
+                            ((b * ny + oy_lo + r) * nx + ox_lo) * c + c0;
+                        const int dst = r * tile_cols * lanes + lane;
+                        for (int q = threadIdx.y; q < cols;
+                             q += blockDim.y) {
+                            stage(s_off + dst + q * lanes,
+                                  reinterpret_cast<const O*>(offsets + src +
+                                                             q * c));
+                            stage(s_err + dst + q * lanes,
+                                  reinterpret_cast<const P*>(err + src +
+                                                             q * c));
+                        }
                     }
+                    if constexpr (VEC > 1)
+                        asm volatile("cp.async.wait_all;\n" ::: "memory");
+                    __syncthreads();
+                    row_step = tile_cols * lanes;
+                    col_step = lanes;
+                    const int origin = oy_lo * row_step + ox_lo * col_step;
+                    win_off = s_off + lane - origin;
+                    win_err = s_err + lane - origin;
                 }
-                if constexpr (VEC > 1)
-                    asm volatile("cp.async.wait_all;\n" ::: "memory");
-                __syncthreads();
                 if (active) {
                     for (int y = y0 + threadIdx.z; y < y1; y += blockDim.z) {
                         const int oy_top = min(ny - 1, div_nonneg(y, sy));
@@ -230,23 +274,19 @@ __global__ void __launch_bounds__(kMaxThreads) max_pooling_backward_kernel(
                             T acc[VEC];
 #pragma unroll
                             for (int k = 0; k < VEC; ++k)
-                                acc[k] = from_float<T>(0.0f);
+                                acc[k] = zero_value<T>();
                             // dy ascending (oy down), then dx ascending
                             for (int oy = oy_top; oy >= 0 && y - oy * sy < ky;
                                  --oy) {
-                                const int srow =
-                                    ((oy - oy_lo) * tile_cols - ox_lo) *
-                                        lanes + lane;
+                                const int srow = oy * row_step;
                                 for (int ox = ox_top;
                                      ox >= 0 && x - ox * sx < kx; --ox) {
-                                    const O o = s_off[srow + ox * lanes];
-                                    const P e = s_err[srow + ox * lanes];
+                                    const O o = win_off[srow + ox * col_step];
+                                    const P e = win_err[srow + ox * col_step];
 #pragma unroll
                                     for (int k = 0; k < VEC; ++k)
                                         if (o.v[k] == cell + k)
-                                            acc[k] = from_float<T>(
-                                                to_float(acc[k]) +
-                                                to_float(e.v[k]));
+                                            acc[k] = add(acc[k], e.v[k]);
                                 }
                             }
                             P res;
@@ -256,20 +296,22 @@ __global__ void __launch_bounds__(kMaxThreads) max_pooling_backward_kernel(
                         }
                     }
                 }
-                __syncthreads();  // the tile is read before it is refilled
+                // the tile is read before it is refilled
+                if constexpr (STAGED) __syncthreads();
             }
         }
     }
 }
 
-template <typename T, int VEC, int STRIDE>
+template <typename T, int VEC, int STRIDE, bool STAGED>
 int launch(const void* err, const void* offsets, void* grad, int b, int h,
            int w, int c, int ny, int nx, int ky, int kx, int sy, int sx,
            int ti, int tj, int rows, int cols, dim3 block, dim3 grid,
            cudaStream_t stream) {
-    auto kernel = max_pooling_backward_kernel<T, VEC, STRIDE>;
-    const size_t smem = (size_t)rows * cols * block.x *
-                        (sizeof(Pack<T, VEC>) + sizeof(Offsets<VEC>));
+    auto kernel = max_pooling_backward_kernel<T, VEC, STRIDE, STAGED>;
+    const size_t n = (size_t)rows * cols * block.x;
+    const size_t smem = STAGED ?
+        offsets_tile_bytes<T, VEC>(n) + n * sizeof(Pack<T, VEC>) : 0;
     if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {  // the default limit of dynamic shared memory
         const cudaError_t e = cudaFuncSetAttribute(
@@ -283,33 +325,40 @@ int launch(const void* err, const void* offsets, void* grad, int b, int h,
     return (int)cudaGetLastError();
 }
 
+// the instantiations: 1 = stride 2, staged; 0 = runtime strides,
+// staged; 2 = runtime strides, unstaged
 template <typename T, int VEC>
-int launch_stride(int stride2, const void* err, const void* offsets,
-                  void* grad, int b, int h, int w, int c, int ny, int nx,
-                  int ky, int kx, int sy, int sx, int ti, int tj, int rows,
-                  int cols, dim3 block, dim3 grid, cudaStream_t s) {
-    if (stride2)
-        return launch<T, VEC, 2>(err, offsets, grad, b, h, w, c, ny, nx, ky,
-                                 kx, sy, sx, ti, tj, rows, cols, block, grid,
-                                 s);
-    return launch<T, VEC, 0>(err, offsets, grad, b, h, w, c, ny, nx, ky, kx,
-                             sy, sx, ti, tj, rows, cols, block, grid, s);
+int launch_variant(int variant, const void* err, const void* offsets,
+                   void* grad, int b, int h, int w, int c, int ny, int nx,
+                   int ky, int kx, int sy, int sx, int ti, int tj, int rows,
+                   int cols, dim3 block, dim3 grid, cudaStream_t s) {
+    if (variant == 1)
+        return launch<T, VEC, 2, true>(err, offsets, grad, b, h, w, c, ny,
+                                       nx, ky, kx, sy, sx, ti, tj, rows, cols,
+                                       block, grid, s);
+    if (variant == 2)
+        return launch<T, VEC, 0, false>(err, offsets, grad, b, h, w, c, ny,
+                                        nx, ky, kx, sy, sx, ti, tj, rows,
+                                        cols, block, grid, s);
+    return launch<T, VEC, 0, true>(err, offsets, grad, b, h, w, c, ny, nx,
+                                   ky, kx, sy, sx, ti, tj, rows, cols, block,
+                                   grid, s);
 }
 
 template <typename T>
-int launch_width(int vec, int stride2, const void* err, const void* offsets,
+int launch_width(int vec, int variant, const void* err, const void* offsets,
                  void* grad, int b, int h, int w, int c, int ny, int nx,
                  int ky, int kx, int sy, int sx, int ti, int tj, int rows,
                  int cols, dim3 block, dim3 grid, cudaStream_t s) {
     constexpr int kWide = 16 / sizeof(T);
     if (vec == kWide && c % kWide == 0)
-        return launch_stride<T, kWide>(stride2, err, offsets, grad, b, h, w,
-                                       c, ny, nx, ky, kx, sy, sx, ti, tj,
-                                       rows, cols, block, grid, s);
+        return launch_variant<T, kWide>(variant, err, offsets, grad, b, h, w,
+                                        c, ny, nx, ky, kx, sy, sx, ti, tj,
+                                        rows, cols, block, grid, s);
     if (vec == 1)
-        return launch_stride<T, 1>(stride2, err, offsets, grad, b, h, w, c,
-                                   ny, nx, ky, kx, sy, sx, ti, tj, rows, cols,
-                                   block, grid, s);
+        return launch_variant<T, 1>(variant, err, offsets, grad, b, h, w, c,
+                                    ny, nx, ky, kx, sy, sx, ti, tj, rows,
+                                    cols, block, grid, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -322,41 +371,47 @@ int staged(int n, int k, int s, int n_out) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; vec: 16 / sizeof(T)
-// (C and all three pointers 16-byte aligned) or 1; stride2: 1 for the
-// instantiation with sy = sx = 2 as constants.  err and offsets are
-// (b, ny, nx, c), grad (b, h, w, c), all contiguous.  ti x tj input
-// cells a tile, rows x cols staged windows (at least as many as touch
-// a tile), block = (lanes, by, bz) threads and grid = (gx, gy, gz)
-// blocks: the wrapper's launch plan.  Launches on ``stream`` and does
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16, 3 = float64; vec:
+// 16 / sizeof(T) (C and all three pointers 16-byte aligned) or 1;
+// variant: the instantiation, 1 with sy = sx = 2 as constants, 0 with
+// runtime strides, 2 with runtime strides and nothing staged.  err and
+// offsets are (b, ny, nx, c), grad (b, h, w, c), all contiguous.
+// ti x tj input cells a tile, rows x cols staged windows (at least as
+// many as touch a tile), block = (lanes, by, bz) threads and grid =
+// (gx, gy, gz) blocks: the wrapper's launch plan.  Launches on ``stream`` and does
 // not synchronise; returns the launch's cudaError_t (0 = success).
 extern "C" int max_pooling_offsets_backward(
         const void* err, const void* offsets, void* grad, int dtype,
-        int vec, int stride2, int b, int h, int w, int c, int ny, int nx,
+        int vec, int variant, int b, int h, int w, int c, int ny, int nx,
         int ky, int kx, int sy, int sx, int ti, int tj, int rows, int cols,
         int lanes, int by, int bz, int gx, int gy, int gz, void* stream) {
     if (b < 1 || h < 1 || w < 1 || c < 1 || ny < 1 || nx < 1 || ky < 1 ||
         kx < 1 || sy < 1 || sx < 1 || ti < 1 || tj < 1 || lanes < 1 ||
         by < 1 || bz < 1 || lanes * by * bz > kMaxThreads || gx < 1 ||
         (long long)gx * lanes * vec < c || gy < 1 || gy > 65535 || gz < 1 ||
-        gz > 65535 || (stride2 && (sy != 2 || sx != 2)) ||
+        gz > 65535 || variant < 0 || variant > 2 ||
+        (variant == 1 && (sy != 2 || sx != 2)) ||
         rows < staged(ti, ky, sy, ny) || cols < staged(tj, kx, sx, nx))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const dim3 block(lanes, by, bz), grid(gx, gy, gz);
     switch (dtype) {
         case 0:
-            return launch_width<float>(vec, stride2, err, offsets, grad, b, h,
+            return launch_width<float>(vec, variant, err, offsets, grad, b, h,
                                        w, c, ny, nx, ky, kx, sy, sx, ti, tj,
                                        rows, cols, block, grid, s);
         case 1:
-            return launch_width<__half>(vec, stride2, err, offsets, grad, b,
+            return launch_width<__half>(vec, variant, err, offsets, grad, b,
                                         h, w, c, ny, nx, ky, kx, sy, sx, ti,
                                         tj, rows, cols, block, grid, s);
         case 2:
             return launch_width<__nv_bfloat16>(
-                vec, stride2, err, offsets, grad, b, h, w, c, ny, nx, ky, kx,
+                vec, variant, err, offsets, grad, b, h, w, c, ny, nx, ky, kx,
                 sy, sx, ti, tj, rows, cols, block, grid, s);
+        case 3:
+            return launch_width<double>(vec, variant, err, offsets, grad, b,
+                                        h, w, c, ny, nx, ky, kx, sy, sx, ti,
+                                        tj, rows, cols, block, grid, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

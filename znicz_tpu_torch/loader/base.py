@@ -74,6 +74,10 @@ class UserLoaderRegistry(type):
 class Loader(Unit, metaclass=UserLoaderRegistry):
     """Serves minibatches; subclasses provide the data."""
 
+    #: called once the data is loaded and the buffers allocated, before
+    #: normalization (the workflow sets the softmax head's width here)
+    on_initialized = None
+
     def __init__(self, workflow, **kwargs):
         super(Loader, self).__init__(workflow, **kwargs)
         self.max_minibatch_size = kwargs.get("minibatch_size", 100)
@@ -164,6 +168,8 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             arr.device = device
         self._segment = 0
         self._offset_in_class = 0
+        if self.on_initialized is not None:
+            self.on_initialized()
         self.info(
             "%s: %d samples (test %d, validation %d, train %d), mb=%d",
             self.name, self.total_samples, self.class_lengths[TEST],

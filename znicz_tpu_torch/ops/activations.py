@@ -1,8 +1,8 @@
 """Activation functions on tensors, with the JAX package's gradients.
 
 Counterpart of ``znicz_tpu/ops/activations.py`` (``apply_jax`` :71,
-``ext_apply_jax`` :127, ``derivative_jax`` :143), with the reference's
-constants:
+``ext_apply_jax`` :127, ``ext_derivative_jax`` :135, ``derivative_jax``
+:143), with the reference's constants:
 
 * tanh is the SCALED tanh ``1.7159 * tanh(0.6666 x)``;
 * "relu" is Znicz's softplus ``log(1 + e^x)``, the identity above
@@ -104,4 +104,22 @@ def ext_apply(name, x):
         odd = torch.arange(flat.shape[0], device=x.device) % 2 == 1
         return torch.where(odd, torch.sin(flat),
                            torch.cos(flat)).reshape(x.shape)
+    raise ValueError("unknown activation %r" % name)
+
+
+def ext_derivative(name, x, y):
+    """d/dx of the standalone-unit activations from the input ``x`` (and
+    the output ``y`` for tanhlog)."""
+    if name == "log":
+        return 1.0 / torch.sqrt(torch.square(x) + 1)
+    if name == "tanhlog":
+        return torch.where(
+            x > TANHLOG_D, TANHLOG_A / x,
+            torch.where(x < -TANHLOG_D, -TANHLOG_A / x,
+                        torch.square(y) * TANH_DB + TANH_DA))
+    if name == "sincos":
+        flat = x.reshape(-1)
+        odd = torch.arange(flat.shape[0], device=x.device) % 2 == 1
+        return torch.where(odd, torch.cos(flat),
+                           -torch.sin(flat)).reshape(x.shape)
     raise ValueError("unknown activation %r" % name)

@@ -1,8 +1,11 @@
-"""Convolution forward on NHWC tensors.
+"""Convolution forward and backward on NHWC tensors.
 
-Counterpart of ``znicz_tpu/ops/conv.py`` (``forward_jax`` :56-64),
-which lowers through ``lax.conv_general_dilated`` outside any Pallas
-kernel; here the product is ``torch.nn.functional.conv2d``.
+Counterpart of ``znicz_tpu/ops/conv.py`` (``forward_jax`` :56-64,
+``backward_jax`` :67-83), which lowers through
+``lax.conv_general_dilated`` and its VJP outside any Pallas kernel;
+here the products are ``torch.nn.functional.conv2d`` and the
+convolution's own backward (``aten.convolution_backward``, what
+autograd and ``torch.nn.grad`` call).
 
 Geometry (reference conv.py:57-140):
 
@@ -20,6 +23,7 @@ output, permuted back, is NHWC again: no layout copies on the way in
 or out.
 """
 
+import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.ops import activations
@@ -32,20 +36,45 @@ def output_spatial(sy, sx, ky, kx, padding, sliding):
     return ny, nx
 
 
-def forward(x, weights, bias, ky, kx, padding, sliding,
-            activation="linear", include_bias=True):
-    """NHWC conv + bias + activation; returns a contiguous NHWC tensor."""
+def _nchw(x, weights, ky, kx, padding):
+    """``(x, w, pad)``: the channels_last NCHW views of NHWC ``x`` and of
+    ``weights``, ``x`` padded when the padding is not symmetric (conv2d
+    pads symmetrically only), and conv2d's own padding."""
     w = weights.reshape(weights.shape[0], ky, kx, x.shape[3]).permute(
         0, 3, 1, 2)
     xn = x.permute(0, 3, 1, 2)
     left, top, right, bottom = padding
     if left == right and top == bottom:
-        pad = (top, left)
-    else:
-        # conv2d pads symmetrically only
-        xn = F.pad(xn, (left, right, top, bottom))
-        pad = 0
+        return xn, w, (top, left)
+    return F.pad(xn, (left, right, top, bottom)), w, (0, 0)
+
+
+def forward(x, weights, bias, ky, kx, padding, sliding,
+            activation="linear", include_bias=True):
+    """NHWC conv + bias + activation; returns a contiguous NHWC tensor."""
+    xn, w, pad = _nchw(x, weights, ky, kx, padding)
     y = F.conv2d(xn, w, bias if include_bias else None,
                  stride=(sliding[1], sliding[0]), padding=pad)
     # a no-op when conv2d kept channels_last (the expected case)
     return activations.apply(activation, y.permute(0, 2, 3, 1)).contiguous()
+
+
+def backward(inp, err_output, weights, ky, kx, padding, sliding,
+             need_err_input=True, include_bias=True):
+    """``(err_input, grad_weights, grad_bias)`` of the linear conv: the
+    input gradient in NHWC (None unless ``need_err_input``), the
+    weights' gradient ``(K, ky*kx*C)`` and the bias's (None unless
+    ``include_bias``), as the JAX package's VJP gives them."""
+    xn, w, pad = _nchw(inp, weights, ky, kx, padding)
+    en = err_output.permute(0, 3, 1, 2)
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        en, xn, w, None, [sliding[1], sliding[0]], list(pad), [1, 1], False,
+        [0, 0], 1, [bool(need_err_input), True, False])
+    if gx is not None:
+        left, top, right, bottom = padding
+        if (left, top) != (right, bottom):
+            gx = gx[:, :, top:top + inp.shape[1], left:left + inp.shape[2]]
+        gx = gx.permute(0, 2, 3, 1).contiguous()
+    grad_w = gw.permute(0, 2, 3, 1).reshape(weights.shape)
+    grad_b = err_output.sum(dim=(0, 1, 2)) if include_bias else None
+    return gx, grad_w, grad_b

@@ -13,8 +13,11 @@ once, over the H100's 3.35 TB/s.  Design (details in the source): a
 index arithmetic and no division; each block stages its input rows
 once in shared memory with 16-byte ``cp.async`` and every overlapping
 window reads them there; each thread owns a 16-byte vector of channels
-and stores values and offsets as 16-byte vectors.  Its plain PyTorch
-version is :func:`znicz_tpu_torch.ops.pooling.max_pooling_plain`.
+and stores values and offsets as 16-byte vectors.  A window too large
+for shared memory runs the kernel's unstaged instantiation, which reads
+each window from device memory.  float64 compares its keys in double.
+Its plain PyTorch version is
+:func:`znicz_tpu_torch.ops.pooling.max_pooling_plain`.
 
 Before each launch the wrapper chooses, from shape and alignment
 alone, the vector width (:func:`vector_width`) and the tiles
@@ -56,10 +59,14 @@ MAX_SMEM = 227 * 1024
 SLAB_BYTES = 128
 
 #: one launch's tiles: ``lanes`` threads across a channel slab, ``ti``
-#: output rows and ``tj`` output columns a tile, ``smem`` bytes of it
-Plan = collections.namedtuple("Plan", "lanes ti tj smem")
+#: output rows and ``tj`` output columns a tile, ``smem`` bytes of it;
+#: ``staged`` False for a window that no shared memory holds, which the
+#: unstaged instantiation reads from device memory (``smem`` 0)
+Plan = collections.namedtuple("Plan", "lanes ti tj smem staged",
+                              defaults=(True,))
 
-_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+           torch.float64: 3}
 _lib = None
 _lock = threading.Lock()
 
@@ -71,7 +78,7 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(cuda_build.build(SOURCE))
             lib.max_pooling_offsets.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
                 [ctypes.c_void_p])
             lib.max_pooling_offsets.restype = ctypes.c_int
             lib.max_pooling_offsets_error_string.argtypes = [ctypes.c_int]
@@ -81,8 +88,8 @@ def load():
 
 
 def vector_width(x):
-    """Channels each thread owns for NHWC ``x``: a 16-byte vector (4 in
-    float32, 8 in float16/bfloat16) when the channel count and the
+    """Channels each thread owns for NHWC ``x``: a 16-byte vector (2 in
+    float64, 4 in float32, 8 in float16/bfloat16) when the channel count and the
     storage's address are both multiples of 16 bytes, else 1."""
     nbytes = x.element_size()
     if x.shape[-1] * nbytes % 16 == 0 and x.data_ptr() % 16 == 0:
@@ -97,8 +104,9 @@ def launch_plan(shape, itemsize, vec, ky, kx, sliding):
     A slab spans ``SLAB_BYTES`` of channels (fewer when C is small); a
     tile spans all output columns unless one row of windows overflows
     ``TILE_BYTES``, and as many output rows as fit in it, evened out
-    over the tiles.  Raises if even one window does not fit in
-    shared memory."""
+    over the tiles.  Where even one window does not fit in shared
+    memory, the plan is the unstaged instantiation's: a slab of
+    ``SLAB_BYTES``, one output row and all output columns a block."""
     _, h, w, c = shape
     ny, nx = output_spatial(h, w, ky, kx, sliding)
     sx, sy = sliding
@@ -118,17 +126,15 @@ def launch_plan(shape, itemsize, vec, ky, kx, sliding):
     ti = -(-ny // -(-ny // min(ti, ny)))  # the same rows in every tile
     smem = min(h, (ti - 1) * sy + ky) * row_bytes(tj, lanes)
     if smem > MAX_SMEM:
-        raise ValueError("max_pooling_offsets: a %dx%d window of %d-byte "
-                         "cells needs %d bytes of shared memory, over %d"
-                         % (ky, kx, pack, smem, MAX_SMEM))
+        return Plan(min(SLAB_BYTES // pack, -(-c // vec)), 1, nx, 0, False)
     return Plan(lanes, ti, tj, smem)
 
 
 def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
     """``(values, int32 offsets)`` of ``x`` (B, H, W, C) on the card.
 
-    ``x`` must be a contiguous 4-D CUDA tensor of float32, float16 or
-    bfloat16 with fewer than 2^31 elements (int32 offsets).  Launches
+    ``x`` must be a contiguous 4-D CUDA tensor of float32, float64,
+    float16 or bfloat16 with fewer than 2^31 elements (int32 offsets).  Launches
     on the current stream without synchronising; raises if the launch
     is refused."""
     global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_NARROW
@@ -136,8 +142,8 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
         raise ValueError("max_pooling_offsets needs a CUDA tensor, got %s"
                          % x.device)
     if x.dtype not in _DTYPES:
-        raise TypeError("max_pooling_offsets takes float32, float16 or "
-                        "bfloat16, got %s" % x.dtype)
+        raise TypeError("max_pooling_offsets takes float32, float64, "
+                        "float16 or bfloat16, got %s" % x.dtype)
     if x.dim() != 4:
         raise ValueError("max_pooling_offsets takes NHWC (4-D) input, "
                          "got shape %s" % (tuple(x.shape),))
@@ -167,7 +173,8 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.max_pooling_offsets(
             x.data_ptr(), values.data_ptr(), offsets.data_ptr(),
-            _DTYPES[x.dtype], vec, b, h, w, c, ny, nx, ky, kx, sy, sx,
+            _DTYPES[x.dtype], vec, int(plan.staged), b, h, w, c, ny, nx,
+            ky, kx, sy, sx,
             plan.lanes, plan.ti, plan.tj, int(bool(use_abs)), stream)
     if err:
         raise RuntimeError(

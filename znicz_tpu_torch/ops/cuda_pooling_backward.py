@@ -18,10 +18,12 @@ stages the err and offsets of the windows that touch its tile once in
 shared memory with 16-byte ``cp.async``, and every cell reads its
 covering windows there instead of through L1/L2 once for each cell a
 window covers; each thread owns a 16-byte vector of channels and
-stores it as one.  The kernel is instantiated with the stride as the
+stores it as one; float64 sums in double.  The kernel is instantiated with the stride as the
 constant 2 (every pool on the port's paths), where the window walk
 shifts instead of dividing, and once with runtime strides for every
-other geometry.  Tiles stage at most ``TILE_BYTES`` = 24 KB, the
+other geometry, and once more with runtime strides and nothing staged,
+for windows too large for shared memory, which it reads from device
+memory.  Tiles stage at most ``TILE_BYTES`` = 24 KB, the
 budget that timed fastest on the H100: 4, 9 and 13 input rows at
 AlexNet's three training pools.  Each pool still takes one launch, a
 floor that at max_pool5 is about half the bound.
@@ -76,11 +78,15 @@ MAX_GRID_YZ = 65535
 #: staged for it at most, ``smem`` bytes; ``block`` = (lanes, input
 #: columns, input rows) threads and ``grid`` = (slabs, row tiles, batch
 #: rows) blocks; ``stride2``: the instantiation with the stride as the
-#: constant 2 (else runtime strides)
+#: constant 2 (else runtime strides); ``staged`` False for windows that
+#: no shared memory holds, which the unstaged instantiation (runtime
+#: strides) reads from device memory (``smem`` 0)
 Plan = collections.namedtuple(
-    "Plan", "lanes ti tj rows cols smem block grid stride2")
+    "Plan", "lanes ti tj rows cols smem block grid stride2 staged",
+    defaults=(True,))
 
-_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+           torch.float64: 3}
 _lib = None
 _lock = threading.Lock()
 
@@ -103,8 +109,8 @@ def load():
 
 
 def vector_width(err, offsets, grad):
-    """Channels each thread owns: a 16-byte vector of ``err``'s type (4
-    in float32, 8 in float16/bfloat16) when C and the three tensors'
+    """Channels each thread owns: a 16-byte vector of ``err``'s type (2
+    in float64, 4 in float32, 8 in float16/bfloat16) when C and the three tensors'
     addresses allow 16-byte accesses to both ``err``/``grad`` and the
     int32 offsets, else 1."""
     vec = 16 // err.element_size()
@@ -136,9 +142,10 @@ def launch_plan(shape, itemsize, vec, ky, kx, sliding):
     ``TILE_BYTES``, and as many input rows as keep its staged windows
     (err and offsets) within it, evened out over the tiles.  The
     block's columns are evened out over as few passes as
-    ``MAX_THREADS`` allows, and its rows take the threads left.  Raises
-    if even the windows of one input cell do not fit in shared
-    memory."""
+    ``MAX_THREADS`` allows, and its rows take the threads left.  Where
+    even the windows of one input cell do not fit in shared memory, the
+    plan is the unstaged instantiation's: a slab of ``SLAB_BYTES``, one
+    input row and all input columns a block."""
     b, h, w, c = shape
     ny, nx = output_spatial(h, w, ky, kx, sliding)
     sx, sy = sliding
@@ -157,18 +164,27 @@ def launch_plan(shape, itemsize, vec, ky, kx, sliding):
     fit = TILE_BYTES // row_bytes(tj, lanes)
     ti = _even(h, h if fit >= ny else max(1, fit * sy - ky + 1))
     rows, cols = _staged(ti, ky, sy, ny), _staged(tj, kx, sx, nx)
-    smem = rows * cols * lanes * cell
-    if smem > MAX_SMEM:
-        raise ValueError("max_pooling_offsets_backward: the windows of a "
-                         "%dx%d/%s tile of %d-byte cells need %d bytes of "
-                         "shared memory, over %d"
-                         % (ti, tj, tuple(sliding), pack, smem, MAX_SMEM))
+    # the offsets tile is padded to the alignment of the err tile after it
+    # (which only f64's wider packs need)
+    align = min(pack, 16)
+    smem = -(-rows * cols * lanes * 4 * vec // align) * align + \
+        rows * cols * lanes * pack
+    staged = smem <= MAX_SMEM
+    if not staged:
+        lanes, ti, tj, smem = min(SLAB_BYTES // pack, -(-c // vec)), 1, w, 0
+        rows, cols = _staged(ti, ky, sy, ny), _staged(tj, kx, sx, nx)
     by = _even(tj, MAX_THREADS // lanes)
     bz = _even(ti, MAX_THREADS // (lanes * by))
     grid = (-(-(-(-c // vec)) // lanes), min(-(-h // ti), MAX_GRID_YZ),
             min(b, MAX_GRID_YZ))
     return Plan(lanes, ti, tj, rows, cols, smem, (lanes, by, bz), grid,
-                (sx, sy) == (2, 2))
+                staged and (sx, sy) == (2, 2), staged)
+
+
+def variant(plan):
+    """The kernel's instantiation for ``plan``: 1 stride 2, 0 runtime
+    strides, 2 runtime strides unstaged."""
+    return int(plan.stride2) if plan.staged else 2
 
 
 def _check(err, offsets, x_shape, ky, kx, sliding):
@@ -176,7 +192,7 @@ def _check(err, offsets, x_shape, ky, kx, sliding):
     the other guards are testable on the CPU)."""
     if err.dtype not in _DTYPES:
         raise TypeError("max_pooling_offsets_backward takes float32, "
-                        "float16 or bfloat16, got %s" % err.dtype)
+                        "float64, float16 or bfloat16, got %s" % err.dtype)
     if offsets.dtype != torch.int32:
         raise TypeError("offsets must be int32, got %s" % offsets.dtype)
     if err.dim() != 4 or offsets.shape != err.shape or len(x_shape) != 4:
@@ -214,7 +230,7 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     whose forward recorded ``offsets``, on the card.
 
     ``err`` and ``offsets`` are contiguous ``(B, ny, nx, C)`` CUDA
-    tensors, ``err`` float32, float16 or bfloat16 and ``offsets``
+    tensors, ``err`` float32, float64, float16 or bfloat16 and ``offsets``
     int32, with fewer than 2^31 elements in the input.  Launches on the
     current stream without synchronising; raises if the launch is
     refused."""
@@ -234,7 +250,7 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
         stream = torch.cuda.current_stream(err.device).cuda_stream
         code = lib.max_pooling_offsets_backward(
             err.data_ptr(), offsets.data_ptr(), grad.data_ptr(),
-            _DTYPES[err.dtype], vec, int(plan.stride2), b, h, w, c,
+            _DTYPES[err.dtype], vec, variant(plan), b, h, w, c,
             err.shape[1], err.shape[2], ky, kx, sy, sx, plan.ti, plan.tj,
             plan.rows, plan.cols, *plan.block, *plan.grid, stream)
     if code:

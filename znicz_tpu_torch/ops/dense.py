@@ -1,9 +1,9 @@
-"""Fully-connected forward and softmax on tensors.
+"""Fully-connected forward, softmax and backward on tensors.
 
 Counterpart of ``znicz_tpu/ops/dense.py`` (``forward_jax`` :27,
-``softmax_jax`` :37).  ``weights`` is ``(neurons, input_size)`` unless
+``softmax_jax`` :37, ``backward_jax`` :66).  ``weights`` is ``(neurons, input_size)`` unless
 ``weights_transposed``; the forward is ``y = x @ W^T + b``.  The
-product is ``torch.matmul`` — the JAX package leaves it to XLA.
+products are ``torch.matmul`` — the JAX package leaves them to XLA.
 """
 
 import torch
@@ -26,3 +26,23 @@ def softmax(y):
     max_idx = torch.argmax(y, dim=1).to(torch.int32)
     e = torch.exp(y - torch.amax(y, dim=1, keepdim=True))
     return e / torch.sum(e, dim=1, keepdim=True), max_idx
+
+
+def backward(inp, err_output, weights, weights_transposed=False,
+             need_err_input=True, include_bias=True):
+    """``(err_input, grad_weights, grad_bias)``: ``grad_w = e^T x``
+    (``x^T e`` for transposed weights), ``grad_b = sum_rows(e)`` and
+    ``err_input = e W`` (``e W^T``) in ``inp``'s shape; the first is
+    None unless ``need_err_input``, the last unless ``include_bias``."""
+    x2 = inp.reshape(inp.shape[0], -1)
+    e2 = err_output.reshape(err_output.shape[0], -1)
+    if weights_transposed:
+        grad_w = x2.T @ e2
+        err_in = e2 @ weights.T if need_err_input else None
+    else:
+        grad_w = e2.T @ x2
+        err_in = e2 @ weights if need_err_input else None
+    grad_b = e2.sum(dim=0) if include_bias else None
+    if err_in is not None:
+        err_in = err_in.reshape(inp.shape)
+    return err_in, grad_w, grad_b

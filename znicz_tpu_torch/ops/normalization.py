@@ -1,8 +1,8 @@
 """Local response normalization (AlexNet/Caffe cross-channel LRN),
-forward, on NHWC tensors.
+forward and backward, on NHWC tensors.
 
 Counterpart of ``znicz_tpu/ops/normalization.py`` (``lrn_forward_jax``
-:21-50): with ``s_i = k + alpha * sum_{j in window(i)} x_j^2`` over the
+:21-50, ``lrn_backward_jax`` :53): with ``s_i = k + alpha * sum_{j in window(i)} x_j^2`` over the
 channel window ``[i - n//2, i + n//2]``, ``y_i = x_i / s_i^beta``.  The
 windowed channel sum is one product with a (C, C) 0/1 band matrix on
 the channel axis, as in the JAX package.
@@ -21,3 +21,11 @@ def lrn_forward(x, alpha=1e-4, beta=0.75, k=2, n=5):
     m = _band_matrix(x.shape[3], n, x.dtype, x.device)
     s = k + alpha * (torch.square(x) @ m)
     return x / torch.pow(s, beta)
+
+
+def lrn_backward(x, err_output, alpha=1e-4, beta=0.75, k=2, n=5):
+    """The input gradient of :func:`lrn_forward` (autograd over it)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        y = lrn_forward(xg, alpha, beta, k, n)
+        return torch.autograd.grad(y, xg, err_output)[0]

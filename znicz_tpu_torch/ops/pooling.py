@@ -3,7 +3,8 @@ forward and, for training, backward.
 
 Counterpart of ``znicz_tpu/ops/pooling.py`` (``output_spatial`` :29,
 ``max_pooling_jax`` :77-94, ``_maxpool_bwd_dense`` :118,
-``max_pooling_train_jax`` :158-191, ``pooling_fwd_jax`` :313-351),
+``max_pooling_train_jax`` :158-191, ``pooling_fwd_jax`` :313-351,
+``avg_pooling_backward_jax`` :441),
 with the reference semantics:
 
 * ``sliding`` is ``(x, y)``; the output size is ceil-mode,
@@ -271,3 +272,14 @@ def avg_pooling(x, ky, kx, sliding):
     win, ny, nx = _windows(x, ky, kx, sliding, 0.0)
     cnt = _trunc_divisor(h, w, ky, kx, sliding, ny, nx, x.dtype, x.device)
     return win.sum(dim=4) / cnt[None, :, :, None]
+
+
+def avg_pooling_backward(err, ky, kx, sliding, x_shape):
+    """The input gradient ``x_shape`` of :func:`avg_pooling` (autograd
+    over it): each window's err over its truncated size, spread on its
+    cells."""
+    with torch.enable_grad():
+        x = torch.zeros(tuple(x_shape), dtype=err.dtype, device=err.device,
+                        requires_grad=True)
+        return torch.autograd.grad(avg_pooling(x, ky, kx, sliding), x,
+                                   err)[0]

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.core import memory, prng
-from znicz_tpu_torch.core.backends import default_device
+from znicz_tpu_torch.core.backends import default_device, full_f32
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
 from znicz_tpu_torch.ops import conv as conv_ops
 from znicz_tpu_torch.ops import init as init_ops
@@ -672,10 +672,7 @@ class FusedNet:
         if pool_impl not in (None, "reduce_window", "offsets", "gather"):
             raise ValueError("unknown pool_impl %r" % (pool_impl,))
         self.device = default_device(device)
-        if self.device.type == "cuda":
-            # f32 products and convolutions in full f32, as the reference
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        full_f32(self.device)
         self.specs = build_specs(layers, input_sample_shape, defaults)
         for spec in self.specs:
             if spec.kind == "pool":

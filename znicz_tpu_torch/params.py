@@ -13,6 +13,10 @@ tensors on ``device``, in the layout the port computes with:
   ``(K, ky*kx*C)`` once here as well;
 * floating arrays are float32, the one serving dtype of the port.
 
+:func:`unit_params_from_numpy` and :func:`unit_params_to_numpy` carry
+the unit graph's forward weights between host arrays and its forward
+units, layer by layer.
+
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry
 a fused trainer's state (parameters, optimizer slots, hypers) between
 host arrays — the JAX package's ``FusedNet.state_dict()`` among them —
@@ -37,6 +41,30 @@ def params_from_numpy(layers, host_params, device):
             p[attr] = torch.from_numpy(
                 numpy.ascontiguousarray(value)).to(device)
         out.append(p)
+    return out
+
+
+def unit_params_from_numpy(forwards, host_params):
+    """Set each forward unit's ``weights`` / ``bias`` Arrays from
+    ``host_params``, one ``(weights, bias)`` pair of host arrays per
+    forward, in layer order, in the JAX package's layout (which is the
+    unit graph's); a pair of None, or a None in it, leaves that Array
+    as it is.  The arrays take the unit's dtype and upload at the next
+    use."""
+    for unit, pair in zip(forwards, host_params):
+        if pair is not None:
+            unit.apply_params(*pair)
+
+
+def unit_params_to_numpy(forwards):
+    """The inverse of :func:`unit_params_from_numpy`: one ``(weights,
+    bias)`` pair of host arrays per forward unit (None where it has no
+    weights, and for a missing bias)."""
+    out = []
+    for unit in forwards:
+        w, b = getattr(unit, "weights", None), getattr(unit, "bias", None)
+        out.append(None if not w else (
+            numpy.array(w.mem), numpy.array(b.mem) if b else None))
     return out
 
 

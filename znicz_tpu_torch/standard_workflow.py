@@ -1,26 +1,36 @@
-"""StandardWorkflow — the training-graph builder, fused mode.
+"""StandardWorkflow — the training-graph builder.
 
-Counterpart of the fused graph of ``znicz_tpu/standard_workflow.py``
-(``create_fused_workflow`` :62, ``link_fused_trainer`` :76,
-``link_evaluator`` :174, ``link_decision`` :212, ``link_snapshotter``
-:236, ``link_loop``, ``link_end_point``)::
+Counterpart of ``znicz_tpu/standard_workflow.py`` (``create_workflow``
+:49-60, ``create_fused_workflow`` :62, ``link_fused_trainer`` :76,
+``link_gds`` :120-172, ``link_evaluator`` :174-210, ``link_decision``
+:212, ``link_snapshotter`` :236, ``link_loop``, ``link_end_point``).
+The unit-at-a-time graph, the default (``fused=None``)::
+
+    repeater -> loader -> forwards[0..n] -> evaluator -> decision
+      -> snapshotter -> gds[n..0] -> (back to repeater) / end_point
+
+where each forward unit runs one layer on the device and each GD unit
+its backward and update, one minibatch at a time; and the fused graph
+(``fused=True`` or a config dict)::
 
     repeater -> loader -> fused_trainer -> evaluator -> decision
       -> snapshotter -> (back to repeater) / end_point
 
-with ``decision.complete`` blocking the repeater and the loader and
-opening the end point, and the snapshotter firing at epoch ends that
-improved.  The unit-at-a-time graph (``fused=None``: forwards, GD
-units, ``link_gds``; queue 1 item 2 of ``ROADMAP.md``), a mesh, the
-MSE loss, the learning-rate adjuster, rollback and the plotters are
-not in this slice of the port.
+Both have ``decision.complete`` blocking the repeater and the loader
+and opening the end point, and the snapshotter firing at epoch ends
+that improved; the GD units skip VALID minibatches
+(``decision.gd_skip``).  A mesh, the MSE loss, the learning-rate
+adjuster, rollback and the plotters are not in this slice of the port
+(``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
 from znicz_tpu_torch.standard_workflow_base import StandardWorkflowBase
 from znicz_tpu_torch.units.decision import DecisionsRegistry
+from znicz_tpu_torch.units.conv import ConvolutionalBase
 from znicz_tpu_torch.units.evaluator import EvaluatorsRegistry
 from znicz_tpu_torch.units.fused_trainer import FusedForwardBackward
+from znicz_tpu_torch.units.gd_pooling import GDPooling
 
 
 class StandardWorkflow(StandardWorkflowBase):
@@ -41,12 +51,17 @@ class StandardWorkflow(StandardWorkflowBase):
         self.create_workflow()
 
     def create_workflow(self):
-        if self.fused_config is None:
-            raise NotImplementedError(
-                "the unit-at-a-time graph (fused=None) is not in this "
-                "slice of the port (ROADMAP.md queue 1 item 2); pass "
-                "fused=True or a fused config dict")
-        self.create_fused_workflow()
+        if self.fused_config is not None:
+            return self.create_fused_workflow()
+        self.link_repeater(self.start_point)
+        self.link_loader(self.repeater)
+        self.link_forwards(("input", "minibatch_data"), self.loader)
+        self.link_evaluator(self.forwards[-1])
+        self.link_decision(self.evaluator)
+        self.link_snapshotter(self.decision)
+        last_gd = self.link_gds(self.snapshotter)
+        self.link_loop(last_gd)
+        self.link_end_point(last_gd)
 
     def create_fused_workflow(self):
         self.link_repeater(self.start_point)
@@ -72,17 +87,69 @@ class StandardWorkflow(StandardWorkflowBase):
             "minibatch_class", "minibatch_size")
         # window collection drives the loader directly
         self.fused_trainer.loader_unit = self.loader
+        # the trainer is the forward chain for the evaluator
+        self.forwards[:] = [self.fused_trainer]
         return self.fused_trainer
+
+    def link_gds(self, *parents):
+        """Create each forward's GD unit, chained last layer first:
+        each takes ``err_output`` from the previous GD's ``err_input``
+        (the last layer's from the evaluator), the forward's input,
+        weights, bias, offsets, output and geometry, and skips VALID
+        minibatches; the first layer's computes no input gradient.
+        Returns the GD unit that runs last."""
+        self.gds[:] = [None] * len(self.layers)
+        first_gd = None
+        units_to_delete = []
+        for i, layer in reversed(list(enumerate(self.layers))):
+            tpe, _, kwargs = self._get_layer_type_kwargs(layer, i)
+            if not isinstance(self.forwards[i], self.layer_map[tpe].forward):
+                raise TypeError(
+                    "Forward layer %s at position %d is not an instance "
+                    "of %s" % (self.forwards[i], i,
+                               self.layer_map[tpe].forward))
+            try:
+                backward_cls = next(self.layer_map[tpe].backwards)
+            except StopIteration:
+                units_to_delete.append(i)
+                continue
+            unit = backward_cls(self, **kwargs)
+            self.gds[i] = unit
+            if first_gd is not None:
+                unit.link_from(first_gd) \
+                    .link_attrs(first_gd, ("err_output", "err_input"))
+            else:
+                unit.link_from(*parents) \
+                    .link_attrs(self.evaluator, "err_output")
+            first_gd = unit
+            try_link = {"input", "weights", "bias", "input_offset",
+                        "mask", "output"}
+            if isinstance(unit, ConvolutionalBase):
+                try_link.update(ConvolutionalBase.CONV_ATTRS)
+            if isinstance(unit, GDPooling):
+                try_link.update(GDPooling.POOL_ATTRS)
+            attrs = [a for a in sorted(try_link)
+                     if getattr(self.forwards[i], a, None) is not None]
+            unit.link_attrs(self.forwards[i], *attrs)
+            unit.link_attrs(self.loader, ("batch_size", "minibatch_size"))
+            if "mask" in attrs:
+                unit.link_attrs(self.loader, "minibatch_class")
+            unit.gate_skip = self.decision.gd_skip
+        for i in units_to_delete:
+            del self.gds[i]
+        self.gds[0].need_err_input = False
+        return first_gd
 
     def link_evaluator(self, *parents):
         self.evaluator = EvaluatorsRegistry.evaluators[self.loss_function](
             self, name="evaluator", **self.evaluator_config)
         self.evaluator.link_from(*parents) \
-            .link_attrs(self.fused_trainer, "output", "max_idx") \
+            .link_attrs(self.forwards[-1], "output", "max_idx") \
             .link_attrs(self.loader, ("batch_size", "minibatch_size"),
                         ("labels", "minibatch_labels"))
-        # windowed TRAIN dispatches hand the evaluator their own stats
-        self.evaluator.stats_source = self.fused_trainer
+        if self.fused_trainer is not None:
+            # windowed TRAIN dispatches hand the evaluator their own stats
+            self.evaluator.stats_source = self.fused_trainer
         return self.evaluator
 
     def link_decision(self, *parents):

@@ -1,0 +1,128 @@
+"""Convolutional forward units.
+
+Counterpart of ``znicz_tpu/units/conv.py`` (``ConvolutionalBase``
+:68, ``Conv`` and its variants :89-221).  Type strings: conv,
+conv_tanh, conv_sigmoid, conv_relu, conv_str.  Layout NHWC, weights
+``(n_kernels, ky*kx*n_channels)``, padding ``(left, top, right,
+bottom)``, sliding ``(x, y)``; a 3-D ``(B, H, W)`` input is one
+channel (:func:`~znicz_tpu_torch.units.nn_units.as_nhwc`).  The
+product is :func:`znicz_tpu_torch.ops.conv.forward`.  The "gabor"
+weight filling is not in the port yet (``ROADMAP.md``).
+"""
+
+import numpy
+
+from znicz_tpu_torch.ops import conv as conv_ops
+from znicz_tpu_torch.units.nn_units import NNLayerBase, as_nhwc
+
+
+class ConvolutionalBase(object):
+    """The carrier of ``CONV_ATTRS``, the geometry a GD unit takes from
+    its forward."""
+
+    CONV_ATTRS = ("n_kernels", "kx", "ky", "sliding", "padding")
+
+    @property
+    def weights2d_dev(self):
+        """``(n_kernels, ky*kx*C)`` on the device, honouring
+        ``weights_transposed`` with a true transpose."""
+        w = self.weights.dev
+        return w.T if self.weights_transposed else w
+
+
+class Conv(ConvolutionalBase, NNLayerBase):
+    """Convolution with a linear activation."""
+
+    MAPPING = {"conv"}
+    ACTIVATION = "linear"
+
+    def __init__(self, workflow, **kwargs):
+        super(Conv, self).__init__(workflow, **kwargs)
+        try:
+            self.n_kernels = kwargs["n_kernels"]
+            self.kx = kwargs["kx"]
+            self.ky = kwargs["ky"]
+        except KeyError:
+            raise KeyError("n_kernels, kx and ky are required parameters")
+        self.padding = tuple(kwargs.get("padding", (0, 0, 0, 0)))
+        self.sliding = tuple(kwargs.get("sliding", (1, 1)))
+        self.max_supposed = kwargs.get("input_max_supposed", 1.0)
+        self.exports.extend(("kx", "ky", "n_kernels", "padding", "sliding"))
+
+    @property
+    def n_channels(self):
+        s = self.input.shape
+        return self.input.size // (s[0] * s[1] * s[2])
+
+    def get_weights_magnitude(self):
+        vle = 1.0 / (self.max_supposed *
+                     numpy.sqrt(self.kx * self.ky * self.n_channels))
+        if self.weights_filling == "gaussian":
+            vle /= 3
+        return vle
+
+    def initialize(self, device=None, **kwargs):
+        super(Conv, self).initialize(device=device, **kwargs)
+        if len(self.input.shape) not in (3, 4):
+            raise ValueError("conv input must be (B,H,W[,C]), got shape %s"
+                             % (self.input.shape,))
+        if self.weights_filling == "gabor":
+            raise NotImplementedError(
+                "the gabor weight filling is not in this slice of the port "
+                "(see ROADMAP.md)")
+        if self.weights_stddev is None:
+            self.weights_stddev = min(self.get_weights_magnitude(), 0.05)
+        if self.bias_stddev is None:
+            self.bias_stddev = self.weights_stddev
+        kernel_size = self.kx * self.ky * self.n_channels
+        if not self.weights:
+            w = numpy.zeros((self.n_kernels, kernel_size),
+                            dtype=self.input.dtype)
+            self.fill_array(self.weights_filling, w, self.weights_stddev)
+            if self.weights_transposed:
+                w = w.T.copy()
+            self.weights.reset(w)
+        if self.include_bias and not self.bias:
+            b = numpy.zeros(self.n_kernels, dtype=self.input.dtype)
+            self.fill_array(self.bias_filling, b, self.bias_stddev)
+            self.bias.reset(b)
+        ny, nx = conv_ops.output_spatial(
+            self.input.shape[1], self.input.shape[2], self.ky, self.kx,
+            self.padding, self.sliding)
+        out_shape = (self.input.shape[0], ny, nx, self.n_kernels)
+        if self.output and self.output.shape[1:] != out_shape[1:]:
+            raise ValueError("%s: output %s is not %s" % (
+                self.name, self.output.shape, out_shape))
+        if not self.output or self.output.shape[0] != out_shape[0]:
+            self.output.reset(numpy.zeros(out_shape, self.input.dtype))
+
+    def run(self):
+        self.output.set_dev(conv_ops.forward(
+            as_nhwc(self.input.dev), self.weights2d_dev,
+            self.bias.dev if self.include_bias else None,
+            self.ky, self.kx, self.padding, self.sliding,
+            activation=self.ACTIVATION, include_bias=self.include_bias))
+
+
+class ConvTanh(Conv):
+    """``1.7159 tanh(0.6666 x)``."""
+    MAPPING = {"conv_tanh"}
+    ACTIVATION = "tanh"
+
+
+class ConvSigmoid(Conv):
+    """``1 / (1 + e^-x)``."""
+    MAPPING = {"conv_sigmoid"}
+    ACTIVATION = "sigmoid"
+
+
+class ConvRELU(Conv):
+    """Softplus ``log(1 + e^x)``."""
+    MAPPING = {"conv_relu"}
+    ACTIVATION = "relu"
+
+
+class ConvStrictRELU(Conv):
+    """``max(x, 0)``."""
+    MAPPING = {"conv_str"}
+    ACTIVATION = "strict_relu"
