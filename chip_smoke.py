@@ -128,17 +128,51 @@ failure (the script then exits non-zero and prints no result line):
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
    and the backward at its runtime-stride instantiation and at tile
    budgets of 16, 24, 32 and 64 KB.
+10. ae — the MNIST convolutional autoencoder (``root.mnist_ae``, published
+    widths: conv 5 5x5 without bias -> stochastic abs pooling 3x3/s2 ->
+    the depooling, ``GDMaxAbsPooling`` as a forward stage on the backward
+    kernel -> deconv with the conv's weights -> MSE against the input,
+    ``GDDeconv`` the only gradient unit) through the CLI's unit graph,
+    ``python -m znicz_tpu_torch mnist_ae``, in this process at minibatch
+    100 over the synthetic MNIST split (60,000 / 10,000) for 2 epochs,
+    f32, TF32 off, ``cudnn.deterministic``: the backward kernel must
+    launch exactly once a minibatch, TRAIN and VALID (1,400, one channel
+    a thread), the forward kernel never, no plain pooling on the card; a
+    second run and the CLI resumed from the epoch-1 snapshot must end
+    with each epoch's metrics, the weights, the GD's optimizer Arrays and
+    the prng streams bit-equal to the run's; 4 TRAIN minibatches in f64
+    on the card against the CPU within ``AE_F64_RTOL``, the stochastic
+    winners equal.  Then the fused autoencoder stage
+    (``FusedNet(objective="mse")`` on the layer list of
+    ``tests/unit/test_fused_mse_ae.py`` at MnistAE's widths): 4 steps on
+    the kernels bit-equal to the same steps with the pool on
+    ``max_pooling_gather`` and the depooling on the plain backward, f64
+    on the card against the CPU, then one epoch of the TRAIN rows in
+    windows of 8 with exactly one forward (maxabs) and one backward
+    (depooling) launch a step.  Both kernels at (100, 24, 24, 5) bit-equal
+    to their plain versions on the kernel's and on stochastic offsets,
+    then cold beside their bounds, plain versions and library yardsticks
+    (``F.max_pool2d``, which computes max and not maxabs, and
+    ``index_add_``);
+11. mse — the seven-segment regressor (``root.mnist7``) through the
+    CLI's unit graph and through ``--fused``, 2 epochs each at minibatch
+    60 over the same split: each epoch's n_err and MSE printed, no
+    pooling launch; 4 TRAIN minibatches in f64 on the card, the fused
+    graph against the unit graph within ``AE_F64_RTOL``.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
 summed over the three AlexNet pools, ``train`` holds the same per
-batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools), and
+batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
+``ae`` per autoencoder minibatch of 100 (the maxabs pool), and
 ``launches`` counts the serve requests', the train epochs', the
-workflow run's and the unit graph's launches (``launches_by_path``).
-For the backward kernel the times are per batch-128 step (``mnist``
-per TRAIN minibatch of 60) and ``launches`` counts the train epochs',
-the workflow run's and the unit graph's.
+workflow run's, the unit graph's and both autoencoder paths' launches
+(``launches_by_path``).  For the backward kernel the times are per
+batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
+depooling of a minibatch of 100 on stochastic offsets) and
+``launches`` counts the train epochs', the workflow run's, the unit
+graph's and the autoencoder paths'.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -255,6 +289,14 @@ UNITS_SEED = 1234
 #: device differs only by the order of the sums (about 1e-15 a
 #: product), far inside this bound
 UNITS_F64_RTOL = 1e-10
+#: the autoencoder phase: MnistAE (root.mnist_ae, published widths) at
+#: minibatch 100 over the same synthetic MNIST split for 2 epochs; its
+#: pool's input shape; the fused stage's window; f64 card-vs-CPU bound
+AE_BATCH, AE_EPOCHS, AE_WINDOW = 100, 2, 8
+AE_SHAPE = (AE_BATCH, 24, 24, 5)
+AE_F64_RTOL = UNITS_F64_RTOL
+#: the MSE phase: mnist7 (root.mnist7) at minibatch 60 for 2 epochs
+MSE_BATCH, MSE_EPOCHS = 60, 2
 
 
 def say(*args):
@@ -1759,25 +1801,38 @@ def _resume_workflow(torch, probe, run, cli, snapdir):
 
 
 def _units_argv(snapdir, wf_file, *extra):
-    argv = [wf_file]
-    for key, value in (("loader.synthetic_train", UNITS_TRAIN),
-                       ("loader.synthetic_valid", UNITS_VALID),
-                       ("loader.minibatch_size", UNITS_BATCH),
-                       ("decision.max_epochs", UNITS_EPOCHS),
+    return _sample_argv(wf_file, "mnistr", snapdir, UNITS_TRAIN,
+                        UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS, *extra)
+
+
+#: the MNIST loader's synthetic draw by (TRAIN rows, VALID rows): made
+#: once, every later loader of the same sizes takes a copy of it
+_MNIST_DRAWS = {}
+
+
+def _sample_argv(workflow, ns, snapdir, n_train, n_valid, batch, epochs,
+                 *extra):
+    """The CLI's arguments for a workflow trained on the MNIST loader's
+    synthetic set, its config under ``root.<ns>``."""
+    argv = [workflow]
+    for key, value in (("loader.synthetic_train", n_train),
+                       ("loader.synthetic_valid", n_valid),
+                       ("loader.minibatch_size", batch),
+                       ("decision.max_epochs", epochs),
                        ("snapshotter.directory", snapdir)):
-        argv += ["--config", "mnistr.%s=%s" % (key, value)]
+        argv += ["--config", "%s.%s=%s" % (ns, key, value)]
     return argv + list(extra)
 
 
 class _UnitsProbe(object):
-    """Wrappers around the workflow engine, installed for the unit phase
-    and put back after it (nothing in the package reads them): every
-    workflow run (its workflow and host start and end times), the
-    decision at each segment end, each snapshot written (named by its
-    epoch, since two epochs with equal errors would share a file name;
-    the readbacks it makes are not counted), and the MNIST loader's
-    synthetic draw, made once: the phase's later loaders with the same
-    sizes take a copy of it (the draw is a function of the sizes
+    """Wrappers around the workflow engine, installed for the unit,
+    autoencoder and MSE phases and put back after each (nothing in the
+    package reads them): every workflow run (its workflow and host start
+    and end times), the decision at each segment end (after its
+    bookkeeping), each snapshot written (named by its epoch, since two
+    epochs with equal errors would share a file name; the readbacks it
+    makes are not counted), and the MNIST loaders' synthetic draw, made
+    once (``_MNIST_DRAWS``: the draw is a function of the sizes
     alone)."""
 
     def __init__(self, torch):
@@ -1788,11 +1843,10 @@ class _UnitsProbe(object):
         from znicz_tpu_torch.units import decision, nn_units
         self.runs, self.segments, self.snapshots = [], [], []
         self.ctx = {}
-        self.draw = None
         self.readbacks = _Readbacks(torch, self._where)
         probe = self
         owners = {"run": workflow.Workflow,
-                  "on_last_minibatch": decision.DecisionGD,
+                  "_on_last_minibatch": decision.DecisionBase,
                   "export": nn_units.NNSnapshotterToFile,
                   "_load_synthetic": loader_mnist.MnistLoader}
         self.real = real = {name: owner.__dict__[name]
@@ -1809,13 +1863,14 @@ class _UnitsProbe(object):
             return out
 
         def on_last_minibatch(d):
-            real["on_last_minibatch"](d)
+            real["_on_last_minibatch"](d)
             c = d.minibatch_class
             probe.segments.append({
                 "epoch": d.epoch_number - (c == VALID), "class": c,
                 "n_err": d.epoch_n_err[c],
                 "n": d.epoch_n_evaluated_samples[c],
                 "confusion": numpy.array(d.confusion_matrixes[c]),
+                "metrics": getattr(d, "epoch_metrics", (None,) * 3)[c],
                 "t": time.perf_counter()})
 
         def export(snap):
@@ -1833,19 +1888,19 @@ class _UnitsProbe(object):
 
         def _load_synthetic(loader):
             key = (loader.synthetic_train, loader.synthetic_valid)
-            if probe.draw is None or probe.draw[0] != key:
+            if key not in _MNIST_DRAWS:
                 real["_load_synthetic"](loader)
-                probe.draw = (key, list(loader.class_lengths),
-                              loader.original_data.mem.copy(),
-                              list(loader.original_labels))
+                _MNIST_DRAWS[key] = (list(loader.class_lengths),
+                                     loader.original_data.mem.copy(),
+                                     list(loader.original_labels))
                 return
-            _, lengths, data, labels = probe.draw
+            lengths, data, labels = _MNIST_DRAWS[key]
             loader.class_lengths[:] = lengths
             loader.original_data.reset(data.copy())
             loader._original_labels[:] = labels
 
         self._owners = owners
-        for name, fn in (("run", run), ("on_last_minibatch",
+        for name, fn in (("run", run), ("_on_last_minibatch",
                                         on_last_minibatch),
                          ("export", export),
                          ("_load_synthetic", _load_synthetic)):
@@ -1867,10 +1922,15 @@ class _UnitsProbe(object):
 
 
 def _units_state(wf):
-    """Host copies of the run's final forward weights and biases and
-    its GD units' optimizer Arrays, by name."""
+    """Host copies of the run's final forward weights and biases, its GD
+    units' optimizer Arrays and the prng streams' states (the loader's
+    shuffles and the stochastic pools draw from them), by name."""
     import numpy
+    from znicz_tpu_torch.core import prng
     out = {}
+    for key, st in prng.states().items():
+        out["prng%s.key" % key] = numpy.array(st["np"][1])
+        out["prng%s.pos" % key] = numpy.array([st["np"][2]])
     for unit in list(wf.forwards) + [g for g in wf.gds if g is not None]:
         for attr in ("weights", "bias", "gradient_weights_with_moment",
                      "gradient_bias_with_moment",
@@ -1898,7 +1958,7 @@ def _units_equal(got, want, what):
 
 def _units_segments(segs):
     return [(s["epoch"], s["class"], s["n_err"], s["n"],
-             s["confusion"].tolist()) for s in segs]
+             s["confusion"].tolist(), s["metrics"]) for s in segs]
 
 
 def _units_run(probe, cli, prng, argv):
@@ -1993,7 +2053,8 @@ def phase_units(torch, card, cycles_per_ms):
             "and optimizer Arrays bit-equal to the run's (%.2f s)"
             % (time.perf_counter() - t0))
         del replay
-        _resume_units(probe, cli, prng, run, base, wf_file)
+        _resume_units(probe, cli, prng, run, lambda *extra: _units_argv(
+            os.path.join(base, "resumed"), wf_file, *extra))
         _fused_yardstick(torch, probe, cli, prng, run, base, wf_file, card)
     finally:
         probe.close()
@@ -2091,24 +2152,24 @@ def _unit_times(wf):
                      for u in units)
 
 
-def _resume_units(probe, cli, prng, run, base, wf_file):
-    """The CLI again with ``--snapshot`` of the epoch-1 snapshot: its
-    last epoch's stats, final weights and optimizer Arrays bit-equal to
-    the run's."""
+def _resume_units(probe, cli, prng, run, argv):
+    """The CLI again, ``argv("--snapshot", path)``, from the epoch-1
+    snapshot: its last epoch's stats, final weights, optimizer Arrays
+    and prng streams bit-equal to the run's."""
     t0 = time.perf_counter()
     first = [p for e, p, _, _ in run["snapshots"] if e == 1]
     if not first:
         raise RuntimeError("no snapshot after epoch 1: %s"
                            % run["snapshots"])
-    resumed = _units_run(probe, cli, prng, _units_argv(
-        os.path.join(base, "resumed"), wf_file, "--snapshot", first[0]))
+    resumed = _units_run(probe, cli, prng, argv("--snapshot", first[0]))
     want = [s for s in _units_segments(run["segments"]) if s[0] >= 1]
     if _units_segments(resumed["segments"]) != want:
         raise RuntimeError("the resumed run's segments differ from the "
                            "run's")
     _units_equal(resumed["state"], run["state"], "the resumed run")
     say("   resume: --snapshot %s trained epoch 2: segment stats, final "
-        "weights and optimizer Arrays bit-equal to the run's (%.2f s)"
+        "weights, optimizer Arrays and prng streams bit-equal to the "
+        "run's (%.2f s)"
         % (os.path.basename(first[0]), time.perf_counter() - t0))
 
 
@@ -2303,6 +2364,519 @@ def _mnist_kernel_times(torch, card, cycles_per_ms):
                     100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS,
                     card))
     return rows
+
+
+def _ae_argv(snapdir, *extra):
+    return _sample_argv("mnist_ae", "mnist_ae", snapdir, UNITS_TRAIN,
+                        UNITS_VALID, AE_BATCH, AE_EPOCHS, *extra)
+
+
+def _ae_layers():
+    """The fused autoencoder stage (the layer list of
+    ``tests/unit/test_fused_mse_ae.py``) at MnistAE's widths and hypers
+    (``root.mnist_ae``): conv 5 kernels 5x5, no bias -> maxabs pooling
+    3x3/s2 -> depooling tied to it -> deconv tied to the conv."""
+    from znicz_tpu_torch.core.config import root
+    cfg = root.mnist_ae
+    return [
+        {"name": "conv", "type": "conv",
+         "->": {"n_kernels": cfg.n_kernels, "kx": cfg.kx, "ky": cfg.ky,
+                "include_bias": cfg.include_bias,
+                "weights_filling": "uniform"},
+         "<-": {"learning_rate": cfg.learning_rate,
+                "weights_decay": cfg.weights_decay,
+                "gradient_moment": cfg.gradient_moment}},
+        {"name": "pool", "type": "maxabs_pooling",
+         "->": {"kx": cfg.pooling.kx, "ky": cfg.pooling.ky,
+                "sliding": tuple(cfg.pooling.sliding)}},
+        {"name": "depool", "type": "depooling", "->": {"tied_to": "pool"}},
+        {"name": "deconv", "type": "deconv",
+         "->": {"tied_to": "conv", "unsafe_padding": cfg.unsafe_padding}}]
+
+
+def phase_ae(torch, card, cycles_per_ms):
+    """The MNIST convolutional autoencoder (``root.mnist_ae``: conv 5
+    5x5 -> stochastic abs pooling 3x3/s2 -> depooling on the backward
+    kernel -> deconv with the conv's weights, MSE against the input,
+    GDDeconv the only gradient unit) through the CLI's unit graph at
+    minibatch 100 over MNIST's split for 2 epochs, then the fused
+    autoencoder stage (``FusedNet(objective="mse")``, the forward kernel
+    as the maxabs pool and the backward kernel as the depooling) over
+    one epoch of the same TRAIN rows, and both kernels at the
+    autoencoder's shape.  Returns the launches of both paths and the
+    timing rows."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.base import TRAIN
+    base = os.path.join(HERE, "build", "znicz_tpu_torch", "ae")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    train_mb = -(-UNITS_TRAIN // AE_BATCH)
+    valid_mb = -(-UNITS_VALID // AE_BATCH)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    try:
+        say("== ae: python -m znicz_tpu_torch %s"
+            % " ".join(_ae_argv("build/...")))
+        _zero_counts()
+        with probe.readbacks:
+            run = _units_run(probe, cli, prng,
+                             _ae_argv(os.path.join(base, "run")))
+        launches = _counts()
+        _check_ae_run(torch, probe, run, launches, train_mb, valid_mb, card)
+        t0 = time.perf_counter()
+        replay = _units_run(probe, cli, prng,
+                            _ae_argv(os.path.join(base, "replay")))
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the autoencoder replay's epoch metrics "
+                               "differ from the run's")
+        _units_equal(replay["state"], run["state"], "the replay")
+        say("   replay: a second CLI run from the same seeds: each epoch's "
+            "[sum, max, min] metrics, the final weights, the optimizer "
+            "Arrays and the prng streams the stochastic pool draws from "
+            "bit-equal to the run's (%.2f s)" % (time.perf_counter() - t0))
+        del replay
+        _resume_units(probe, cli, prng, run, lambda *extra: _ae_argv(
+            os.path.join(base, "resumed"), *extra))
+        loader = run["wf"].loader
+        start, end = loader.class_index_range(TRAIN)
+        data = loader.original_data.mem[start:end].copy()
+        probe.close()
+        del run, loader
+        gc.collect()
+        shutil.rmtree(base, ignore_errors=True)
+        _ae_card_vs_cpu(torch)
+        # deterministic cuDNN here too: the control step's bit equality
+        # holds only if the deconv's weight gradient sums in one order
+        fused_launches = _ae_fused(torch, data, card)
+        del data
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+    rows = _ae_kernel_times(torch, card, cycles_per_ms)
+    return launches, fused_launches, rows
+
+
+def _check_ae_run(torch, probe, run, launches, train_mb, valid_mb, card):
+    """The autoencoder run's segments, shapes, launches, readbacks and
+    rates."""
+    import math
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    segs = run["segments"]
+    got = [(s["epoch"], s["class"]) for s in segs]
+    want = [(e, c) for e in range(AE_EPOCHS) for c in (TRAIN, VALID)]
+    if got != want:
+        raise RuntimeError("segments (epoch, class) %s, not %s"
+                           % (got, want))
+    for s in segs:
+        m = s["metrics"]
+        if m is None or not all(math.isfinite(v) for v in m) or \
+                not 0 <= m[2] <= m[1] or not 0 < m[0] <= m[1]:
+            raise RuntimeError("segment metrics out of range: %s" % s)
+    wf = run["wf"]
+    shapes = [tuple(a.shape) for a in (wf.conv.output, wf.pool.output,
+                                       wf.depool.err_input,
+                                       wf.deconv.output)]
+    if shapes != [(AE_BATCH, 24, 24, 5), (AE_BATCH, 12, 12, 5),
+                  (AE_BATCH, 24, 24, 5), (AE_BATCH, 28, 28, 1)]:
+        raise RuntimeError("the autoencoder's shapes are %s" % shapes)
+    if wf.deconv.weights is not wf.conv.weights:
+        raise RuntimeError("the deconv does not share the conv's weights")
+    n_mb = (train_mb + valid_mb) * AE_EPOCHS
+    say("   %d epochs: (TRAIN, VALID) reconstruction MSE (avg, max, min) "
+        "by epoch %s; snapshots after epochs %s" % (
+            AE_EPOCHS, [(a["metrics"], b["metrics"])
+                        for a, b in zip(segs[::2], segs[1::2])],
+            [e for e, _, _, _ in run["snapshots"]]))
+    say("   launches: %s" % launches)
+    if launches["backward"] != n_mb or launches["forward"] or \
+            launches["backward_by_width"] != {WIDE: 0, NARROW: n_mb} or \
+            launches["plain_on_card"]:
+        raise RuntimeError(
+            "expected the backward kernel once a minibatch, TRAIN and VALID "
+            "(%d, one channel a thread), the forward kernel never (the pool "
+            "is stochastic), no plain pooling on the card; got %s"
+            % (n_mb, launches))
+    for mod in ("jax", "znicz_tpu"):
+        if mod in sys.modules:
+            raise RuntimeError("%s was imported" % mod)
+    counts, syncs = probe.readbacks.counts, probe.readbacks.syncs
+    n = {TRAIN: train_mb * AE_EPOCHS, VALID: valid_mb * AE_EPOCHS}
+    rb = {c: sum(v for k, v in counts.items() if k != "outside" and
+                 k[0] == c) for c in n}
+    sy = {c: sum(v for k, v in syncs.items() if k != "outside" and
+                 k[0] == c) for c in n}
+    rates, run_s = _units_rates(run, UNITS_TRAIN)
+    say("   host readbacks a minibatch: TRAIN %.3f (%d in %d), VALID %.3f "
+        "(%d in %d), %d outside the run; synchronizing CUDA operations "
+        "(sync debug mode) a minibatch: TRAIN %.3f, VALID %.3f" % (
+            rb[TRAIN] / n[TRAIN], rb[TRAIN], n[TRAIN], rb[VALID] / n[VALID],
+            rb[VALID], n[VALID], counts["outside"], sy[TRAIN] / n[TRAIN],
+            sy[VALID] / n[VALID]))
+    say("   autoencoder unit graph: TRAIN images/s by epoch %s (host "
+        "clock); %.4f host ms a minibatch over the run's %d minibatches "
+        "(%.2f s, snapshots not counted); %s" % (
+            " ".join("%.1f" % r for r in rates), 1e3 * run_s / n_mb, n_mb,
+            run_s, card))
+    say("   host ms by unit over the run: %s" % _unit_times(wf))
+
+
+def _ae_card_vs_cpu(torch):
+    """The first 4 TRAIN minibatches (and a VALID one) of the autoencoder
+    in f64 on the card (the f64 backward kernel as the depooling) and on
+    the CPU (its plain version), from one seed: the shared weights and
+    the GD's velocity within ``AE_F64_RTOL`` of each tensor's largest,
+    and every stochastic winner equal."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.ops import cuda_pooling_backward, pooling
+    from znicz_tpu_torch.samples import mnist_ae
+    from znicz_tpu_torch.units.pooling import StochasticPoolingBase
+    t0 = time.perf_counter()
+    real_run = StochasticPoolingBase.run
+    offsets = {}
+
+    def run(unit):
+        real_run(unit)
+        offsets.setdefault(unit.device.type, []).append(
+            unit.input_offset.dev.cpu().numpy().copy())
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    StochasticPoolingBase.run = run
+    plain = pooling.PLAIN_CUDA_CALLS
+    before = cuda_pooling_backward.LAUNCHES
+    state = {}
+    try:
+        for device in ("cuda", "cpu"):
+            prng.get(1).seed(UNITS_SEED)
+            prng.get(2).seed(UNITS_SEED + 1)
+            with tempfile.TemporaryDirectory() as snapdir:
+                wf = mnist_ae.build(
+                    loader_config={"synthetic_train": 4 * AE_BATCH,
+                                   "synthetic_valid": AE_BATCH,
+                                   "minibatch_size": AE_BATCH},
+                    decision_config={"max_epochs": 1},
+                    snapshotter_config={"directory": snapdir})
+                wf.initialize(device=device)
+                wf.run()
+            state[device] = [numpy.array(a.mem) for a in (
+                wf.conv.weights, wf.gd_deconv.gradient_weights_with_moment)]
+            if device == "cuda":
+                launched = cuda_pooling_backward.LAUNCHES - before
+            del wf
+    finally:
+        StochasticPoolingBase.run = real_run
+        root.common.engine.precision_dtype = saved
+    if pooling.PLAIN_CUDA_CALLS != plain:
+        raise RuntimeError("plain pooling ran on the card in f64")
+    worst = 0.0
+    for g, w in zip(state["cuda"], state["cpu"]):
+        if g.dtype != numpy.float64:
+            raise RuntimeError("the autoencoder ran in %s" % g.dtype)
+        worst = max(worst, numpy.abs(g - w).max() / numpy.abs(w).max())
+    if not worst <= AE_F64_RTOL:
+        raise RuntimeError("the card's f64 autoencoder is %.3g relative "
+                           "from the CPU's, over %g" % (worst, AE_F64_RTOL))
+    if len(offsets["cuda"]) != 5 or any(
+            not numpy.array_equal(a, b)
+            for a, b in zip(offsets["cuda"], offsets["cpu"])):
+        raise RuntimeError("the stochastic winners differ between the card "
+                           "and the CPU")
+    if launched != 5:
+        raise RuntimeError("the f64 autoencoder launched the backward "
+                           "kernel %d times, not 5" % launched)
+    say("   card vs CPU, f64, 4 TRAIN minibatches and a VALID one of 100: "
+        "the shared weights and the velocity within %.3g of the tensor's "
+        "largest (bound %g), the 5 pools' stochastic winners equal, on %d "
+        "f64 depooling launches; no plain pooling on the card (%.2f s)"
+        % (worst, AE_F64_RTOL, launched, time.perf_counter() - t0))
+
+
+def _ae_fused(torch, data, card):
+    """The fused autoencoder stage on the card: 4 steps on the kernels
+    against the same steps with the pool on ``max_pooling_gather`` (its
+    winners from ``max_pooling_plain``) and the depooling on
+    ``max_pooling_backward_plain``, bit for bit; 4 steps in f64 on the
+    card against the CPU; then one epoch of TRAIN steps in windows of
+    ``AE_WINDOW``, one launch of each kernel a step."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.ops import pooling
+    from znicz_tpu_torch.parallel import fused
+    layers = _ae_layers()
+    n = len(data) - len(data) % AE_BATCH
+    steps = n // AE_BATCH
+    idx = numpy.random.RandomState(UNITS_SEED).permutation(len(data))[
+        :n].reshape(steps, AE_BATCH)
+
+    def net_on(device, dtype=numpy.float32):
+        return fused.FusedNet(layers, (28, 28, 1), objective="mse",
+                              rand=prng.RandomGenerator().seed(UNITS_SEED),
+                              dtype=dtype, device=device)
+
+    def four_steps(net):
+        losses = [net.step_mse(data[i], data[i], AE_BATCH)["loss"]
+                  for i in idx[:4]]
+        return torch.stack(losses).cpu(), net
+
+    t0 = time.perf_counter()
+    kernels = four_steps(net_on(None))
+    real = pooling.max_pooling_train, pooling.depooling
+    pooling.max_pooling_train = lambda x, ky, kx, sliding, use_abs: (
+        pooling.max_pooling_gather(x, ky, kx, sliding, use_abs),
+        pooling.max_pooling_plain(x, ky, kx, sliding, use_abs)[1])
+    pooling.depooling = pooling.max_pooling_backward_plain
+    try:
+        control = four_steps(net_on(None))
+    finally:
+        pooling.max_pooling_train, pooling.depooling = real
+    if not torch.equal(kernels[0], control[0]):
+        raise RuntimeError("the fused autoencoder's losses on the kernels "
+                           "differ from the gather / plain steps'")
+    _state_bits_equal(torch, kernels[1], control[1], "the fused "
+                      "autoencoder's state after 4 steps on the kernels")
+    f64 = [four_steps(net_on(d, numpy.float64))[1].host_params()[0]["w"]
+           for d in (None, "cpu")]
+    rel = numpy.abs(f64[0] - f64[1]).max() / numpy.abs(f64[1]).max()
+    if not rel <= AE_F64_RTOL:
+        raise RuntimeError("the fused autoencoder's f64 weights on the card "
+                           "are %.3g relative from the CPU's" % rel)
+    say("   fused autoencoder (FusedNet, objective='mse'): 4 steps on the "
+        "kernels bit-equal to the gather / plain steps (losses %s, every "
+        "parameter and optimizer slot); f64 card vs CPU %.3g (bound %g) "
+        "(%.2f s)" % (" ".join("%.9g" % v for v in kernels[0].tolist()),
+                      rel, AE_F64_RTOL, time.perf_counter() - t0))
+    net = net_on(None)
+    if [s.kind for s in net.specs] != ["conv", "pool", "depool", "deconv"] \
+            or not net.specs[1].record_offsets:
+        raise RuntimeError("the fused autoencoder's specs are %s"
+                           % net.specs)
+    net.set_dataset(data, None, data)
+    hypers = fused.stack_hypers(net.hypers, AE_WINDOW)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for w in range(0, steps, AE_WINDOW):
+        k = min(AE_WINDOW, steps - w)
+        net.run_window_mse_indexed(
+            idx[w:w + k], [AE_BATCH] * k,
+            hypers if k == AE_WINDOW else fused.stack_hypers(net.hypers, k))
+    acc = net.window_acc_host()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    if launches["forward"] != steps or launches["backward"] != steps or \
+            launches["forward_by_width"][WIDE] or \
+            launches["backward_by_width"][WIDE] or launches["plain_on_card"]:
+        raise RuntimeError("expected 1 forward (maxabs) and 1 backward "
+                           "(depooling) launch a step, %d each at one "
+                           "channel, no plain pooling; got %s"
+                           % (steps, launches))
+    m = acc["metrics"]
+    if not (numpy.isfinite(m).all() and 0 < m[2] <= m[1]) or \
+            not net.params_finite():
+        raise RuntimeError("the fused autoencoder's epoch is not finite: "
+                           "%s" % m)
+    say("   fused autoencoder, one epoch: %d steps of %d in windows of %d, "
+        "%.1f images/s (host clock, one readback); reconstruction MSE "
+        "(avg, max, min) %.6f %.6f %.6f; launches %s; %s" % (
+            steps, AE_BATCH, AE_WINDOW, n / dt, m[0] / n, m[1], m[2],
+            launches, card))
+    return launches
+
+
+def _ae_kernel_times(torch, card, cycles_per_ms):
+    """Both kernels at the autoencoder's shape (100, 24, 24, 5) f32,
+    3x3/s2, maxabs: bit-equal to their plain versions on the kernel's own
+    offsets and on stochastic offsets, then cold beside their bounds,
+    plain versions and library yardsticks."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    x = torch.randn(AE_SHAPE, generator=gen, device="cuda")
+    b, h, w, c = AE_SHAPE
+    ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+    n_in, n_out = x.numel(), b * ny * nx * c
+    values, offs = cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2), True)
+    p_values, p_offs = pooling.max_pooling_plain(x, 3, 3, (2, 2), True)
+    rand = torch.randint(0, 1 << 16, (n_out,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    s_values, s_offs = pooling.stochastic_pooling(x, rand, 3, 3, (2, 2),
+                                                  True)
+    checks = [_bits_equal(torch, values, p_values),
+              torch.equal(offs, p_offs)]
+    for v, o in ((values, offs), (s_values, s_offs)):
+        checks.append(_bits_equal(
+            torch, cuda_pooling_backward.max_pooling_offsets_backward(
+                v, o, AE_SHAPE, 3, 3, (2, 2)),
+            pooling.max_pooling_backward_plain(v, o, AE_SHAPE, 3, 3,
+                                               (2, 2))))
+    torch.cuda.synchronize()
+    if not all(checks):
+        raise RuntimeError("a kernel disagrees with its plain version at the "
+                           "autoencoder's shape: %s" % checks)
+    wins = int(torch.bincount(s_offs.view(-1).long()).max())
+    say("   autoencoder %s f32 3x3/s2 maxabs: the forward kernel bit-equal "
+        "to its plain version (values and offsets), the depooling on the "
+        "backward kernel bit-equal to its plain version on the kernel's "
+        "offsets and on stochastic offsets (a cell wins up to %d windows)"
+        % (AE_SHAPE, wins))
+    x_nchw = x.permute(0, 3, 1, 2)
+    flat = s_offs.view(-1).long()
+    work = {
+        "forward": (n_in * 4 + n_out * 8, n_out * 9, {
+            "ms": lambda: cuda_pooling.max_pooling_offsets(
+                x, 3, 3, (2, 2), True),
+            "plain_ms": lambda: pooling.max_pooling_plain(
+                x, 3, 3, (2, 2), True),
+            "library_ms": lambda: F.max_pool2d(
+                x_nchw, 3, 2, ceil_mode=True, return_indices=True)}),
+        "backward": (n_out * 8 + n_in * 4, n_out, {
+            "ms": lambda: cuda_pooling_backward.max_pooling_offsets_backward(
+                s_values, s_offs, AE_SHAPE, 3, 3, (2, 2)),
+            "plain_ms": lambda: pooling.max_pooling_backward_plain(
+                s_values, s_offs, AE_SHAPE, 3, 3, (2, 2)),
+            "library_ms": lambda: torch.zeros(
+                n_in, device="cuda").index_add_(0, flat,
+                                                s_values.view(-1))})}
+    rows = {"forward": {}, "backward": {}}
+    for kind, (nbytes, ops, fns) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        row = {"bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        for key, fn in fns.items():
+            row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                torch, fn, flush, cycles_per_ms, SMALL_TIMING_ITERS)
+        rows[kind]["ae"] = row
+        say("   autoencoder %s %s f32 (one channel): kernel %.4f ms (host "
+            "enqueue %.4f ms), plain %.4f ms, library %.4f ms (%s), bound "
+            "%.5f ms (%.3f MB), %.0f%% of bound; %d samples; %s" % (
+                kind, AE_SHAPE, row["ms"], row["host_ms"], row["plain_ms"],
+                row["library_ms"],
+                "F.max_pool2d, max not maxabs: no one PyTorch call computes "
+                "maxabs" if kind == "forward" else "index_add_",
+                row["bound_ms"], nbytes / 1e6,
+                100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS, card))
+    return rows
+
+
+def _mse_argv(snapdir, *extra):
+    return _sample_argv("mnist7", "mnist7", snapdir, UNITS_TRAIN,
+                        UNITS_VALID, MSE_BATCH, MSE_EPOCHS, *extra)
+
+
+def phase_mse(torch, card):
+    """The seven-segment regressor (``root.mnist7``: all2all_tanh 100 ->
+    100 -> 7, MSE against the digits' codes, the nearest-code n_err)
+    through the CLI's unit graph and through ``--fused``, 2 epochs each
+    at minibatch 60 over MNIST's split, then the first 4 TRAIN
+    minibatches in f64 through both graphs on the card.  No pooling
+    kernel is on this path; none may launch."""
+    import math
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    base = os.path.join(HERE, "build", "znicz_tpu_torch", "mse")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    probe = _UnitsProbe(torch)
+    try:
+        say("== mse: python -m znicz_tpu_torch %s [--fused]"
+            % " ".join(_mse_argv("build/...")))
+        for mode, extra in (("units", ()), ("fused", ("--fused",))):
+            _zero_counts()
+            run = _units_run(probe, cli, prng, _mse_argv(
+                os.path.join(base, mode), *extra))
+            segs = run["segments"]
+            got = [(s["epoch"], s["class"], s["n"]) for s in segs]
+            want = [(e, cl, nr) for e in range(MSE_EPOCHS)
+                    for cl, nr in ((TRAIN, UNITS_TRAIN),
+                                   (VALID, UNITS_VALID))]
+            if got != want:
+                raise RuntimeError("mnist7 %s: segments %s, not %s"
+                                   % (mode, got, want))
+            for s in segs:
+                if not (0 <= s["n_err"] <= s["n"] and all(
+                        math.isfinite(v) for v in s["metrics"])):
+                    raise RuntimeError("mnist7 %s: segment out of range: %s"
+                                       % (mode, s))
+            if any(_counts()[k] for k in ("forward", "backward",
+                                          "plain_on_card")):
+                raise RuntimeError("mnist7 launched pooling: %s" % _counts())
+            wf = run["wf"]
+            if mode == "fused" and wf.fused_trainer.window != 8:
+                raise RuntimeError("mnist7 --fused ran windows of %d"
+                                   % wf.fused_trainer.window)
+            rates, run_s = _units_rates(run, UNITS_TRAIN)
+            say("   mnist7 %s: (TRAIN, VALID) n_err / avg MSE by epoch %s; "
+                "TRAIN images/s by epoch %s (host clock), %.2f s; %s" % (
+                    mode, [("%d/%.6f" % (a["n_err"], a["metrics"][0]),
+                            "%d/%.6f" % (b["n_err"], b["metrics"][0]))
+                           for a, b in zip(segs[::2], segs[1::2])],
+                    " ".join("%.1f" % r for r in rates), run_s, card))
+            del run, wf
+    finally:
+        probe.close()
+    shutil.rmtree(base, ignore_errors=True)
+    _mse_card_f64(torch)
+
+
+def _mse_card_f64(torch):
+    """The first 4 TRAIN minibatches of mnist7 in f64 on the card through
+    the fused graph against the unit graph: every weight and bias within
+    ``AE_F64_RTOL`` of the tensor's largest."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.samples import mnist7
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    params = {}
+    try:
+        for mode, fused_cfg in (("units", None), ("fused", {})):
+            prng.get(1).seed(UNITS_SEED)
+            prng.get(2).seed(UNITS_SEED + 1)
+            with tempfile.TemporaryDirectory() as snapdir:
+                wf = mnist7.build(
+                    loader_config={"synthetic_train": 4 * MSE_BATCH,
+                                   "synthetic_valid": MSE_BATCH,
+                                   "minibatch_size": MSE_BATCH},
+                    decision_config={"max_epochs": 1},
+                    snapshotter_config={"directory": snapdir},
+                    fused=fused_cfg)
+                wf.initialize(device="cuda")
+                wf.run()
+            if fused_cfg is None:
+                params[mode] = [(numpy.array(f.weights.mem),
+                                 numpy.array(f.bias.mem))
+                                for f in wf.forwards]
+            else:
+                params[mode] = [(p["w"], p["b"]) for p in
+                                wf.fused_trainer.net.host_params()]
+            del wf
+    finally:
+        root.common.engine.precision_dtype = saved
+    worst = 0.0
+    for g, w in zip(params["fused"], params["units"]):
+        for a, b in zip(g, w):
+            if a.dtype != numpy.float64:
+                raise RuntimeError("mnist7 ran in %s" % a.dtype)
+            worst = max(worst, numpy.abs(a - b).max() / numpy.abs(b).max())
+    if not worst <= AE_F64_RTOL:
+        raise RuntimeError("mnist7 in f64 on the card: the fused graph is "
+                           "%.3g relative from the unit graph" % worst)
+    say("   mnist7 f64 on the card, 4 TRAIN minibatches: the fused graph's "
+        "weights and biases within %.3g of the unit graph's (bound %g)"
+        % (worst, AE_F64_RTOL))
 
 
 def phase_train(torch, card, cycles_per_ms):
@@ -2615,11 +3189,18 @@ def _phases(torch, name, card, start):
     del prototypes
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
     marks.append(("train kernels", time.perf_counter()))
+    ae_launches, ae_fused_launches, ae_rows = phase_ae(torch, card,
+                                                       cycles_per_ms)
+    marks.append(("ae", time.perf_counter()))
+    phase_mse(torch, card)
+    marks.append(("mse", time.perf_counter()))
+    _MNIST_DRAWS.clear()
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
     paths = {"train": train_launches, "workflow": workflow_launches,
-             "units": units_launches}
+             "units": units_launches, "ae": ae_launches,
+             "ae_fused": ae_fused_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -2637,6 +3218,7 @@ def _phases(torch, name, card, start):
                                  layer_ms))
     forward["train"] = _sums(train_rows["forward"])
     forward["mnist"] = _sums(mnist_rows["forward"])
+    forward["ae"] = _sums(ae_rows["forward"])
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,
@@ -2651,6 +3233,7 @@ def _phases(torch, name, card, start):
                 "max_abs_err": max(backward_err, train_err["backward"])}
     backward.update(_sums(train_rows["backward"]))
     backward["mnist"] = _sums(mnist_rows["backward"])
+    backward["ae"] = _sums(ae_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

@@ -386,22 +386,51 @@ def test_fused_net_needs_cuda_unless_cpu_asked(no_cuda):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "mesh"), ({"objective": "mse"}, "mse"),
+    ({"mesh": object()}, "mesh"),
+    pytest.param({"objective": "mse"}, None, id="kwargs1-mse"),
     ({"compute_dtype": "bfloat16"}, "compute_dtype"),
     ({"pool_impl": "reshape"}, "reshape")])
 def test_later_options_raise(kwargs, match):
+    """Options left for later raise, naming themselves; the MSE
+    objective, once among them (``match`` None), now builds on the net
+    with a linear head and takes a step."""
     make, shape, _ = NETS["mnist_conv"]
+    if match is None:
+        layers = make()
+        layers[-1]["type"] = "all2all"
+        net = fused.FusedNet(layers, shape, device="cpu", **kwargs)
+        x = numpy.random.RandomState(3).uniform(-1, 1, (2, 28, 28))
+        m = net.step_mse(x, numpy.zeros((2, 10)))
+        assert net.objective == "mse" and numpy.isfinite(float(m["loss"]))
+        return
     with pytest.raises(NotImplementedError, match=match):
         fused.FusedNet(make(), shape, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("tpe", ["stochastic_pooling", "deconv",
-                                 "depooling"])
+@pytest.mark.parametrize("tpe", ["stochastic_pooling",
+                                 "stochastic_abs_pooling",
+                                 "stochastic_pool_depool",
+                                 "stochastic_abs_pool_depool"])
 def test_later_layers_raise(tpe):
     layers = [{"type": tpe, "->": {"kx": 2, "ky": 2}},
               _fc("softmax", 3, 0)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fused.build_specs(layers, (4, 4, 1))
+
+
+@pytest.mark.parametrize("tpe", ["deconv", "depooling"])
+def test_tied_layers_need_tied_to(tpe):
+    """A deconv or depooling without ``tied_to``, or tied to a layer of
+    the wrong kind, is refused, as the JAX package refuses it."""
+    layers = [{"name": "c", "type": "conv",
+               "->": {"n_kernels": 2, "kx": 3, "ky": 3}},
+              {"name": "p", "type": "avg_pooling", "->": {"kx": 2, "ky": 2}},
+              {"type": tpe, "->": {}}]
+    with pytest.raises(ValueError, match="tied_to"):
+        fused.build_specs(layers, (8, 8, 1))
+    layers[2]["->"]["tied_to"] = "p" if tpe == "depooling" else "c"
+    with pytest.raises(ValueError, match="tied_to|input"):
+        fused.build_specs(layers, (8, 8, 1))
 
 
 def test_synthetic_images():

@@ -85,7 +85,11 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.params",
                  "znicz_tpu_torch.ops.dense",
                  "znicz_tpu_torch.ops.conv",
-                 "znicz_tpu_torch.ops.normalization"):
+                 "znicz_tpu_torch.ops.normalization",
+                 "znicz_tpu_torch.units.deconv",
+                 "znicz_tpu_torch.units.depooling",
+                 "znicz_tpu_torch.samples.mnist7",
+                 "znicz_tpu_torch.samples.mnist_ae"):
         assert name in doc["modules"]
 
 

@@ -39,7 +39,9 @@ from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.snapshotter import SnapshotterToFile
 from znicz_tpu_torch.loader.base import TRAIN, VALID
-from znicz_tpu_torch.samples import alexnet
+from znicz_tpu_torch.samples import alexnet, mnist7
+from znicz_tpu_torch.units.decision import DecisionMSE
+from znicz_tpu_torch.units.evaluator import EvaluatorMSE
 from znicz_tpu_torch.units.fused_trainer import DEFERRED_WINDOW_STATS
 from znicz_tpu_torch.units.nn_units import load_snapshot_into_workflow
 
@@ -251,7 +253,7 @@ def test_mid_segment_accumulator_resumes(f64, tmp_path):
 
 _WORKFLOW_PY = """
 from test_torch_fused import narrow_alexnet
-from znicz_tpu_torch.samples import alexnet
+from znicz_tpu_torch.samples import alexnet, mnist7
 
 
 def run(load, main):
@@ -296,6 +298,15 @@ def test_cli_needs_cuda_unless_cpu_asked(tmp_path, monkeypatch):
     {"fused": None, "loss_function": "mse"}, {"fused": {"mesh": 2}},
     {"fused": True, "loss_function": "mse"}])
 def test_left_out_modes_raise(kwargs):
+    """Left-out modes raise, naming ROADMAP.md; ``loss_function="mse"``,
+    once left out, now builds the MSE evaluator and decision in both
+    modes (the mnist7 sample)."""
+    if kwargs.get("loss_function") == "mse":
+        wf = mnist7.build(loader_config={"minibatch_size": 8}, **kwargs)
+        assert isinstance(wf.evaluator, EvaluatorMSE)
+        assert isinstance(wf.decision, DecisionMSE)
+        assert (wf.fused_trainer is None) == (kwargs["fused"] is None)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         alexnet.build(layers=narrow_alexnet(), loader_config=dict(LOADER),
                       **kwargs)

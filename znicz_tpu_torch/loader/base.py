@@ -1,10 +1,11 @@
 """Loader base classes — the minibatch-serving contract.
 
 Counterpart of ``znicz_tpu/loader/base.py`` (:49-466): ``Loader``,
-``FullBatchLoader``, ``IFullBatchLoader``, ``UserLoaderRegistry`` and
-the ``TEST`` / ``VALID`` / ``TRAIN`` classes, without the fault,
-telemetry and profiler hooks.  The MSE mixins (:467-530) are not in
-this slice of the port (``ROADMAP.md``).
+``FullBatchLoader``, ``IFullBatchLoader``, ``UserLoaderRegistry``, the
+``TEST`` / ``VALID`` / ``TRAIN`` classes and the MSE mixins
+(``LoaderMSEMixin``, ``FullBatchLoaderMSEMixin``, ``FullBatchLoaderMSE``
+:467-530: per-sample regression targets, optional class targets, a
+targets normalizer), without the fault, telemetry and profiler hooks.
 
 Epoch semantics, as the JAX package's:
 
@@ -255,22 +256,24 @@ class FullBatchLoader(Loader):
         super(FullBatchLoader, self).initialize(device=device, **kwargs)
         self._apply_normalization()
 
-    def _apply_normalization(self):
-        """Fit the normalizer on the TRAIN slice of ``original_data``
-        and normalize the whole array in place."""
-        norm_type = self.normalization_type
+    def _fit_and_normalize(self, array, norm_type, norm_params):
+        """Fit a normalizer on the TRAIN slice of ``array`` and normalize
+        the whole array in place; returns the normalizer."""
         if norm_type in (None, "none"):
-            self.normalizer = normalization.NoneNormalizer()
-            return
-        normalizer = normalization.create(norm_type,
-                                          **self.normalization_parameters)
-        self.original_data.map_write()
-        data = self.original_data.mem
+            return normalization.NoneNormalizer()
+        normalizer = normalization.create(norm_type, **norm_params)
+        array.map_write()
+        data = array.mem
         flat = data.reshape(data.shape[0], -1)
         start, end = self.class_index_range(TRAIN)
         normalizer.analyze(flat[start:end] if end > start else flat)
         normalizer.normalize(flat)
-        self.normalizer = normalizer
+        return normalizer
+
+    def _apply_normalization(self):
+        self.normalizer = self._fit_and_normalize(
+            self.original_data, self.normalization_type,
+            self.normalization_parameters)
 
     def fill_minibatch(self):
         n = self.minibatch_size
@@ -284,3 +287,62 @@ class FullBatchLoader(Loader):
                 labels = self._labels_array = numpy.asarray(
                     self._original_labels)
             self.minibatch_labels.mem[:n] = labels[sel]
+
+
+class LoaderMSEMixin(object):
+    """Per-sample regression targets, the contract ``EvaluatorMSE``
+    trains against: ``minibatch_targets`` (the evaluator's ``target``),
+    optional ``class_targets`` (the nearest-class-target error) and a
+    targets normalizer apart from the data's."""
+
+    def __init__(self, workflow, **kwargs):
+        super(LoaderMSEMixin, self).__init__(workflow, **kwargs)
+        self.minibatch_targets = Array(name="minibatch_targets")
+        self.targets_normalization_type = kwargs.get(
+            "targets_normalization_type", "none")
+        self.targets_normalization_parameters = kwargs.get(
+            "targets_normalization_parameters", {})
+        self.target_normalizer = None
+        self.class_targets = None
+
+    @property
+    def targets_shape(self):
+        return tuple(self.minibatch_targets.shape[1:])
+
+
+class FullBatchLoaderMSEMixin(LoaderMSEMixin):
+    """The whole ``original_targets`` in memory, served per minibatch
+    beside the data."""
+
+    def __init__(self, workflow, **kwargs):
+        super(FullBatchLoaderMSEMixin, self).__init__(workflow, **kwargs)
+        self.original_targets = Array(name="original_targets")
+
+    def create_minibatch_data(self):
+        super(FullBatchLoaderMSEMixin, self).create_minibatch_data()
+        if not self.original_targets:
+            raise ValueError(
+                "%s.load_data must fill original_targets" % self.name)
+        self.minibatch_targets.reset(numpy.zeros(
+            (self.max_minibatch_size,) +
+            tuple(self.original_targets.shape[1:]),
+            dtype=self.minibatch_data.dtype))
+
+    def initialize(self, device=None, **kwargs):
+        super(FullBatchLoaderMSEMixin, self).initialize(
+            device=device, **kwargs)
+        self.minibatch_targets.device = device
+        self.target_normalizer = self._fit_and_normalize(
+            self.original_targets, self.targets_normalization_type,
+            self.targets_normalization_parameters)
+
+    def fill_minibatch(self):
+        super(FullBatchLoaderMSEMixin, self).fill_minibatch()
+        n = self.minibatch_size
+        idx = self.minibatch_indices.mem[:n]
+        self.minibatch_targets.map_invalidate()
+        self.minibatch_targets.mem[:n] = self.original_targets.mem[idx]
+
+
+class FullBatchLoaderMSE(FullBatchLoaderMSEMixin, FullBatchLoader):
+    """A concrete base for full-batch MSE loaders."""

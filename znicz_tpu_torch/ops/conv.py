@@ -1,11 +1,13 @@
 """Convolution forward and backward on NHWC tensors.
 
 Counterpart of ``znicz_tpu/ops/conv.py`` (``forward_jax`` :56-64,
-``backward_jax`` :67-83), which lowers through
+``backward_jax`` :67-83, ``deconv_forward_jax`` :87, ``deconv_hits_jax``
+:121, ``deconv_backward_jax`` :149), which lowers through
 ``lax.conv_general_dilated`` and its VJP outside any Pallas kernel;
 here the products are ``torch.nn.functional.conv2d`` and the
 convolution's own backward (``aten.convolution_backward``, what
-autograd and ``torch.nn.grad`` call).
+autograd and ``torch.nn.grad`` call), and the transposed convolution
+``conv_transpose2d``.
 
 Geometry (reference conv.py:57-140):
 
@@ -78,3 +80,52 @@ def backward(inp, err_output, weights, ky, kx, padding, sliding,
     grad_w = gw.permute(0, 2, 3, 1).reshape(weights.shape)
     grad_b = err_output.sum(dim=(0, 1, 2)) if include_bias else None
     return gx, grad_w, grad_b
+
+
+def deconv_forward(x, weights, ky, kx, padding, sliding, out_shape):
+    """The transposed convolution of NHWC ``x (B, ny, nx, K)`` with the
+    conv weights ``(K, ky*kx*C)``, as scatter-then-crop: window
+    ``(i, j)`` adds ``x[i, j] @ W`` at ``(i*sy, j*sx)`` of a
+    ``((ny-1)*sy + ky, (nx-1)*sx + kx)`` canvas, zero-extended
+    right/bottom where ``padding`` asks for more, and the canvas is
+    cropped to ``out_shape[1:3]`` from ``(top, left)``.  A
+    ``conv_transpose2d`` with ``output_padding`` would refuse some
+    autoencoder geometries (MNIST's 24 -> 28 with padding 4); the canvas
+    takes any."""
+    b, ny, nx, k = x.shape
+    left, top = padding[0], padding[1]
+    c, h, w = out_shape[3], out_shape[1], out_shape[2]
+    w4 = weights.reshape(k, ky, kx, c).permute(0, 3, 1, 2)
+    canvas = F.conv_transpose2d(x.permute(0, 3, 1, 2), w4,
+                                stride=(sliding[1], sliding[0]))
+    pad_y = max(0, top + h - canvas.shape[2])
+    pad_x = max(0, left + w - canvas.shape[3])
+    if pad_y or pad_x:
+        canvas = F.pad(canvas, (0, pad_x, 0, pad_y))
+    return canvas[:, :, top:top + h, left:left + w].permute(
+        0, 2, 3, 1).contiguous()
+
+
+def deconv_hits(batch_ny_nx, ky, kx, padding, sliding, out_shape,
+                dtype=torch.float32, device=None):
+    """``(B, H, W)``: how many windows of :func:`deconv_forward` add into
+    each output cell (the reference Deconv's ``hits``)."""
+    b, ny, nx = batch_ny_nx
+    ones = torch.ones((b, ny, nx, 1), dtype=dtype, device=device)
+    w1 = torch.ones((1, ky * kx), dtype=dtype, device=device)
+    return deconv_forward(ones, w1, ky, kx, padding, sliding,
+                          (b, out_shape[1], out_shape[2], 1))[..., 0]
+
+
+def deconv_backward(inp, err_output, weights, ky, kx, padding, sliding):
+    """``(err_input, grad_weights)``: the gradient of
+    :func:`deconv_forward` (undivided by any hits) with respect to its
+    input ``inp (B, ny, nx, K)`` and to the weights, for the output
+    gradient ``err_output (B, H, W, C)``."""
+    with torch.enable_grad():
+        x = inp.detach().requires_grad_()
+        w = weights.detach().requires_grad_()
+        y = deconv_forward(x, w, ky, kx, padding, sliding,
+                           tuple(err_output.shape))
+        gx, gw = torch.autograd.grad(y, (x, w), err_output)
+    return gx, gw

@@ -4,6 +4,7 @@ forward and, for training, backward.
 Counterpart of ``znicz_tpu/ops/pooling.py`` (``output_spatial`` :29,
 ``max_pooling_jax`` :77-94, ``_maxpool_bwd_dense`` :118,
 ``max_pooling_train_jax`` :158-191, ``pooling_fwd_jax`` :313-351,
+``stochastic_pooling_jax`` :360, ``stochastic_pool_depool_jax`` :395,
 ``avg_pooling_backward_jax`` :441),
 with the reference semantics:
 
@@ -14,14 +15,19 @@ with the reference semantics:
   winner's FLAT NHWC input offset ``((b*H + wy)*W + wx)*C + c`` as
   int32.  Ties go to the FIRST cell in row-major window order (dy
   outer, dx inner); overhanging cells never win;
-* avg divides by the TRUNCATED window size.
+* avg divides by the TRUNCATED window size;
+* stochastic pooling picks each window's winner with probability
+  proportional to its (abs) positive value from a uint16 stream drawn on
+  the host, uniformly over the truncated window when it sums to zero.
 
 :func:`max_pooling` launches the hand-written CUDA kernel
 (:mod:`znicz_tpu_torch.ops.cuda_pooling`) for a CUDA tensor and runs
 :func:`max_pooling_plain` for a CPU tensor; :func:`max_pooling_backward`
 does the same with the backward kernel
 (:mod:`znicz_tpu_torch.ops.cuda_pooling_backward`) and
-:func:`max_pooling_backward_plain`.  There is no fallback from a
+:func:`max_pooling_backward_plain`; :func:`depooling`, the
+autoencoders' scatter of pooled values back to their winners, is that
+backward.  There is no fallback from a
 kernel to its plain version: on the card it launches or raises.
 
 Training lowerings of a max pool (the fused path's ``PoolSpec.impl``,
@@ -183,6 +189,102 @@ def max_pooling_backward(err, offsets, x_shape, ky, kx, sliding):
                          % err.device)
     return max_pooling_backward_plain(err, offsets, x_shape, ky, kx,
                                       sliding)
+
+
+def depooling(values, offsets, x_shape, ky, kx, sliding):
+    """Pooled ``values`` put back at their winners' ``offsets`` in a
+    zero ``x_shape`` tensor, summed where a cell won several windows:
+    :func:`max_pooling_backward` with the values as the gradient (the
+    backward kernel on the card)."""
+    return max_pooling_backward(values, offsets, x_shape, ky, kx, sliding)
+
+
+def _stochastic_keys(x, ky, kx, sliding, use_abs):
+    """``(window values, keys, in-bounds mask, ny, nx)``: the
+    ``(B, ny, nx, C, ky*kx)`` windows (overhang 0), their sampling
+    weights, ``|x|`` or ``max(x, 0)``, 0 on overhanging cells, and the
+    ``(ny, nx, 1, ky*kx)`` mask of in-bounds cells in ``x``'s type."""
+    win, ny, nx = _windows(x, ky, kx, sliding, 0.0)
+    key = torch.abs(win) if use_abs else torch.clamp(win, min=0)
+    b, h, w, c = x.shape
+    rows = torch.arange(ny, device=x.device).view(ny, 1, 1) * sliding[1] + \
+        torch.arange(ky, device=x.device).view(1, ky, 1)
+    cols = torch.arange(nx, device=x.device).view(nx, 1, 1) * sliding[0] + \
+        torch.arange(kx, device=x.device).view(1, 1, kx)
+    valid = ((rows < h).view(ny, 1, ky, 1) &
+             (cols < w).view(1, nx, 1, kx)).reshape(ny, nx, 1, ky * kx).to(
+                 key.dtype)
+    return win, key * valid, valid, ny, nx
+
+
+def _first_hit(key, position):
+    """The first window cell whose running sum of ``key`` reaches
+    ``position`` (cell 0 where none does).  The sums run one cell at a
+    time in window order, so every device adds alike."""
+    n = key.shape[-1]
+    acc = torch.zeros_like(position)
+    q = torch.full(position.shape, n, dtype=torch.int64,
+                   device=position.device)
+    for i in range(n):
+        acc = acc + key[..., i]
+        q = torch.where((q == n) & (position <= acc), i, q)
+    return torch.where(q == n, 0, q)
+
+
+def _window_sum(key):
+    """The sum of ``key`` over its last axis, one cell at a time."""
+    acc = torch.zeros_like(key[..., 0])
+    for i in range(key.shape[-1]):
+        acc = acc + key[..., i]
+    return acc
+
+
+def stochastic_pooling(x, rand, ky, kx, sliding, use_abs=False):
+    """``(values, int32 offsets)`` of stochastic pooling: window ``w``
+    draws ``r = rand[w]`` (uint16 values in an integer tensor on ``x``'s
+    device, row-major over the output) and wins at the first cell whose
+    running sum of keys reaches ``r * sum / 65536``; a window whose keys
+    sum to zero wins at cell ``k = r * n >> 16`` of its truncated
+    ``ty x tx`` window of ``n`` cells.  The values keep their sign."""
+    b, h, w, c = x.shape
+    win, key, _, ny, nx = _stochastic_keys(x, ky, kx, sliding, use_abs)
+    r = rand.reshape(-1)[:b * ny * nx * c].reshape(b, ny, nx, c).long()
+    vsum = _window_sum(key)
+    q_prop = _first_hit(key, r.to(x.dtype) * vsum / 65536.0)
+    ty = torch.clamp(h - torch.arange(ny, device=x.device) * sliding[1],
+                     max=ky).view(1, ny, 1, 1)
+    tx = torch.clamp(w - torch.arange(nx, device=x.device) * sliding[0],
+                     max=kx).view(1, 1, nx, 1)
+    k_trunc = (r * (ty * tx)) >> 16
+    q_unif = torch.div(k_trunc, tx, rounding_mode="floor") * kx + k_trunc % tx
+    q = torch.where(vsum > 0, q_prop, q_unif)
+    values = torch.gather(win, 4, q.unsqueeze(4)).squeeze(4)
+    return values, _flat_offsets(x.shape, ny, nx, kx, sliding, q).to(
+        torch.int32)
+
+
+def stochastic_pool_depool(x, rand, ky, kx, use_abs=False):
+    """``(y, int32 offsets)`` of stochastic pooling and depooling in one
+    (non-overlapping ``ky x kx`` windows): ``y`` has ``x``'s shape, each
+    window's winner keeps its value and every other cell is 0; a window
+    whose keys sum to zero draws over a key of 1 on its in-bounds
+    cells."""
+    sliding = (kx, ky)
+    win, key, valid, ny, nx = _stochastic_keys(x, ky, kx, sliding, use_abs)
+    b, h, w, c = x.shape
+    r = rand.reshape(-1)[:b * ny * nx * c].reshape(b, ny, nx, c)
+    vsum = _window_sum(key)
+    nonzero = vsum > 0
+    total = torch.where(nonzero, vsum, _window_sum(valid))
+    q = _first_hit(torch.where(nonzero[..., None], key, valid.expand_as(
+        key)), r.to(x.dtype) * total / 65536.0)
+    values = torch.gather(win, 4, q.unsqueeze(4)).squeeze(4)
+    offsets = _flat_offsets(x.shape, ny, nx, kx, sliding, q)
+    # a set, as the reference's: :func:`depooling` sums from +0.0 and
+    # would turn a -0.0 winner of a zero-sum window into +0.0
+    y = torch.zeros(x.numel(), dtype=x.dtype, device=x.device).scatter(
+        0, offsets.reshape(-1), values.reshape(-1))
+    return y.reshape(x.shape), offsets.to(torch.int32)
 
 
 class _MaxPoolingTrain(torch.autograd.Function):

@@ -1,13 +1,15 @@
 """Fused training — forward, softmax-CE gradient and per-layer update as
 one step on the device.
 
-Counterpart of ``znicz_tpu/parallel/fused.py``, single device,
-softmax objective: the spec building (``layer_hyper``, ``build_specs``
-:349-559), the pure functions (``init_params`` :570,
-``init_opt_state`` :606, ``forward`` :622-803, ``_loss_and_stats``
-:805, ``default_hypers`` :2272, ``_apply_weight_masks`` :2291,
-``_train_step`` :2305, ``flops_per_image`` :981) and
-:class:`FusedNet` (:997-2258).
+Counterpart of ``znicz_tpu/parallel/fused.py``, single device: the
+spec building (``layer_hyper``, ``build_specs`` :349-559, with the
+autoencoders' ``DeconvSpec`` / ``DepoolSpec`` :279-314), the pure
+functions (``init_params`` :570, ``init_opt_state`` :606, ``forward``
+:622-803, ``_loss_and_stats`` :805, ``_loss_and_stats_mse`` :825,
+``default_hypers`` :2272, ``_apply_weight_masks`` :2291,
+``_train_step`` :2305, ``_train_step_mse`` :905, ``flops_per_image``
+:981) and :class:`FusedNet` (:997-2258), with the softmax and the MSE
+objectives.
 
 What maps to what:
 
@@ -26,11 +28,16 @@ What maps to what:
   other random numbers (the two generators differ by design);
 * max pooling under ``pool_impl="offsets"`` runs the hand-written
   forward and backward kernels on the card
-  (:func:`znicz_tpu_torch.ops.pooling.max_pooling_train`).
+  (:func:`znicz_tpu_torch.ops.pooling.max_pooling_train`);
+* in an autoencoder stage a max pool tied to a depooling records its
+  winners on the forward kernel (the JAX package forces that pool onto
+  its gather, which computes the same function), and the depooling is
+  the backward kernel; a deconv applies its tied conv's weights, which
+  the conv's own application does not train.
 
 Not in this slice (each raises and is listed in ``ROADMAP.md``): a
-mesh, ``objective="mse"``, ``compute_dtype``, ``pool_impl="reshape"``,
-and the deconv, depooling and stochastic-pooling layers.
+mesh, ``compute_dtype``, ``pool_impl="reshape"`` and the stochastic
+pooling layers.
 """
 
 from dataclasses import dataclass, field
@@ -68,8 +75,7 @@ ACTIVATION_TYPES = {"activation_tanh": "tanh",
                     "activation_sincos": "sincos"}
 #: layer types the JAX fused path trains and this port does not yet
 LATER_TYPES = ("stochastic_pooling", "stochastic_abs_pooling",
-               "stochastic_pool_depool", "stochastic_abs_pool_depool",
-               "deconv", "depooling")
+               "stochastic_pool_depool", "stochastic_abs_pool_depool")
 
 #: strictly monotonically increasing activations — applied after a
 #: following max pool, where they commute with it.  "relu" (softplus,
@@ -214,6 +220,9 @@ class PoolSpec:
     sliding: tuple
     impl: str = "reduce_window"
 
+    #: tied to a depooling: the pool records its winners' offsets (set
+    #: on the instance by :func:`build_specs`)
+    record_offsets = False
     kind = "pool"
     is_softmax = False
 
@@ -242,6 +251,39 @@ class ActivationSpec:
     activation: str = "linear"
 
     kind = "activation"
+    is_softmax = False
+
+
+@dataclass
+class DeconvSpec:
+    """A transposed conv with the weights of the conv at spec index
+    ``tied``, in that conv's geometry; only this application trains
+    them (the conv's own runs detached)."""
+    type: str
+    in_shape: tuple      # (ny, nx, K)
+    out_shape: tuple     # (H, W, C): the tied conv's input shape
+    tied: int
+    n_kernels: int
+    kx: int
+    ky: int
+    padding: tuple
+    sliding: tuple
+    unsafe_padding: bool = False
+
+    kind = "deconv"
+    is_softmax = False
+
+
+@dataclass
+class DepoolSpec:
+    """Scatters its input to the winners that the pool at spec index
+    ``tied`` recorded in the same forward pass."""
+    type: str
+    in_shape: tuple
+    out_shape: tuple     # the tied pool's input shape
+    tied: int
+
+    kind = "depool"
     is_softmax = False
 
 
@@ -285,13 +327,14 @@ def build_specs(layers, input_sample_shape, defaults=None):
     under "<-"); sample shapes thread through the geometry."""
     defaults = dict(DEFAULT_HYPER, **(defaults or {}))
     specs = []
+    names = {}               # layer name -> spec index (tied_to)
     pending_grouping = None  # zero_filter masks the NEXT layer's weights
     shape = _normalize_sample_shape(input_sample_shape)
-    for layer in layers:
+    for index, layer in enumerate(layers):
         orig_layer = layer
         layer = dict(layer)
         tpe = layer.pop("type")
-        layer.pop("name", None)
+        name = layer.pop("name", None) or "%s_%d" % (tpe, index)
         fwd = dict(layer.pop("->", {}))
         layer.pop("<-", None)
         fwd.update(layer)
@@ -375,11 +418,49 @@ def build_specs(layers, input_sample_shape, defaults=None):
             specs.append(ZeroFillSpec(
                 type=tpe, in_shape=shape, out_shape=shape,
                 grouping=pending_grouping))
+        elif tpe == "deconv":
+            conv_spec = _tied_spec(fwd, names, specs, "a conv layer")
+            if conv_spec.kind != "conv":
+                raise ValueError("tied_to %r is not a conv layer"
+                                 % fwd["tied_to"])
+            if shape != conv_spec.out_shape:
+                raise ValueError("deconv input %r != tied conv output %r"
+                                 % (shape, conv_spec.out_shape))
+            # only the deconv's application trains the shared weights,
+            # and its "<-" governs their update
+            conv_spec.stop_gradient = True
+            if orig_layer.get("<-"):
+                (conv_spec.hyper, conv_spec.hyper_bias,
+                 conv_spec.flags) = layer_hyper(orig_layer, defaults)
+            specs.append(DeconvSpec(
+                type=tpe, in_shape=shape, out_shape=conv_spec.in_shape,
+                tied=names[fwd["tied_to"]], n_kernels=conv_spec.n_kernels,
+                kx=conv_spec.kx, ky=conv_spec.ky,
+                padding=tuple(conv_spec.padding),
+                sliding=conv_spec.sliding,
+                unsafe_padding=fwd.get("unsafe_padding", False)))
+            shape = conv_spec.in_shape
+        elif tpe == "depooling":
+            pool_spec = _tied_spec(fwd, names, specs, "a pooling layer")
+            if pool_spec.kind != "pool" or pool_spec.mode not in (
+                    "max", "maxabs"):
+                raise ValueError(
+                    "tied_to %r is not an offset-recording pooling"
+                    % fwd["tied_to"])
+            if shape != pool_spec.out_shape:
+                raise ValueError("depooling input %r != tied pool output %r"
+                                 % (shape, pool_spec.out_shape))
+            pool_spec.record_offsets = True
+            specs.append(DepoolSpec(
+                type=tpe, in_shape=shape, out_shape=pool_spec.in_shape,
+                tied=names[fwd["tied_to"]]))
+            shape = pool_spec.in_shape
         elif tpe in LATER_TYPES:
             raise NotImplementedError("layer type %r is %s" % (tpe, _LATER))
         else:
             raise ValueError("fused path does not support layer type %r"
                              % tpe)
+        names[name] = len(specs) - 1
         spec = specs[-1]
         if pending_grouping is not None and spec.kind in ("fc", "conv"):
             # the ZeroFiller mask of this layer's weights: (k % G != c % G)
@@ -398,6 +479,15 @@ def build_specs(layers, input_sample_shape, defaults=None):
             spec.weight_mask = (krow != ccol).astype(numpy.float64)
             pending_grouping = None
     return specs
+
+
+def _tied_spec(fwd, names, specs, what):
+    """The spec a deconv or depooling layer's ``tied_to`` names."""
+    tied = fwd.get("tied_to")
+    if tied is None or tied not in names:
+        raise ValueError("a fused deconv or depooling needs tied_to=<name "
+                         "of %s before it>, got %r" % (what, tied))
+    return specs[names[tied]]
 
 
 def init_params(specs, rand=None, dtype=numpy.float32):
@@ -467,6 +557,7 @@ def forward(params, x, specs, return_logits=False, generator=None,
     applied after a following max pool (``_MONOTONIC_ACTS``)."""
     y = x
     deferred_act = None
+    offsets = {}         # spec index -> winner offsets, for a depooling
     for i, (p, spec) in enumerate(zip(params, specs)):
         if deferred_act is not None and spec.kind != "pool":
             raise AssertionError("deferred activation not consumed")
@@ -487,6 +578,8 @@ def forward(params, x, specs, return_logits=False, generator=None,
             mask = _mask(spec, w)
             if mask is not None:
                 w = w * mask
+            if getattr(spec, "stop_gradient", False):
+                w = w.detach()   # a tied deconv's application trains it
             act = spec.activation
             if (act in _MONOTONIC_ACTS and i + 1 < len(specs)
                     and specs[i + 1].kind == "pool"
@@ -497,7 +590,11 @@ def forward(params, x, specs, return_logits=False, generator=None,
                                  activation=act, include_bias="b" in p)
         elif spec.kind == "pool":
             y = y.reshape((y.shape[0],) + spec.in_shape)
-            if spec.mode != "avg" and spec.impl == "offsets":
+            if spec.record_offsets:
+                y, offsets[i] = pool_ops.max_pooling_train(
+                    y, spec.ky, spec.kx, spec.sliding,
+                    spec.mode == "maxabs")
+            elif spec.mode != "avg" and spec.impl == "offsets":
                 y, _ = pool_ops.max_pooling_train(
                     y, spec.ky, spec.kx, spec.sliding,
                     spec.mode == "maxabs")
@@ -511,6 +608,23 @@ def forward(params, x, specs, return_logits=False, generator=None,
             if deferred_act is not None:
                 y = activations.apply(deferred_act, y)
                 deferred_act = None
+        elif spec.kind == "deconv":
+            y = y.reshape((y.shape[0],) + spec.in_shape)
+            out_shape = (y.shape[0],) + spec.out_shape
+            y = conv_ops.deconv_forward(y, params[spec.tied]["w"], spec.ky,
+                                        spec.kx, spec.padding, spec.sliding,
+                                        out_shape)
+            if spec.unsafe_padding:
+                # the value divided by the hits, the gradient the
+                # undivided scatter's, as the reference's GDDeconv
+                div = y / _hits(spec, y)
+                y = y + (div - y).detach()
+        elif spec.kind == "depool":
+            y = y.reshape((y.shape[0],) + spec.in_shape)
+            t = specs[spec.tied]
+            y = _Depooling.apply(y.contiguous(), offsets[spec.tied],
+                                 (y.shape[0],) + spec.out_shape, t.ky, t.kx,
+                                 t.sliding)
         elif spec.kind == "lrn":
             y = y.reshape((y.shape[0],) + spec.in_shape)
             y = norm_ops.lrn_forward(y, alpha=spec.alpha, beta=spec.beta,
@@ -528,6 +642,37 @@ def forward(params, x, specs, return_logits=False, generator=None,
     return y
 
 
+def _hits(spec, y):
+    """The deconv's window count per output cell, ``(B, H, W, 1)`` like
+    ``y`` and at least 1 (cached on the spec by batch, dtype and
+    device)."""
+    cache = spec.__dict__.setdefault("_hits", {})
+    key = (y.shape[0], y.dtype, y.device)
+    if key not in cache:
+        hits = conv_ops.deconv_hits(
+            (y.shape[0],) + spec.in_shape[:2], spec.ky, spec.kx,
+            spec.padding, spec.sliding, tuple(y.shape), dtype=y.dtype,
+            device=y.device)
+        cache[key] = torch.clamp(hits, min=1)[..., None]
+    return cache[key]
+
+
+class _Depooling(torch.autograd.Function):
+    """:func:`pool_ops.depooling` (the backward kernel on the card),
+    whose gradient takes each value's cotangent back from its winner."""
+
+    @staticmethod
+    def forward(ctx, values, offsets, x_shape, ky, kx, sliding):
+        ctx.save_for_backward(offsets)
+        return pool_ops.depooling(values, offsets, x_shape, ky, kx, sliding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        offsets, = ctx.saved_tensors
+        return (torch.take(grad, offsets.long()), None, None, None, None,
+                None)
+
+
 def _loss_and_stats(params, x, labels, specs, generator=None):
     """Mean softmax-CE loss over the rows labelled >= 0, the number of
     them misclassified, the softmax output and its int32 argmax."""
@@ -542,6 +687,19 @@ def _loss_and_stats(params, x, labels, specs, generator=None):
     max_idx = torch.argmax(y, dim=1).to(torch.int32)
     n_err = (valid & (max_idx != lbl)).sum()
     return loss, (n_err, torch.exp(logp.detach()), max_idx)
+
+
+def _loss_mse(params, x, target, batch_size, specs, generator=None):
+    """``(loss, output)``: ``sum((y - t)^2) / (2 * batch_size)`` over the
+    rows in the batch, whose gradient in ``y`` is the MSE evaluator's
+    ``err_output``, ``(y - t) / batch_size``."""
+    y = forward(params, x, specs, generator=generator, train=True)
+    b = y.shape[0]
+    o2 = y.reshape(b, -1)
+    valid = torch.arange(b, device=y.device) < batch_size
+    diff = torch.where(valid[:, None],
+                       o2 - target.reshape(b, -1).to(o2.dtype), 0)
+    return 0.5 * (diff * diff).sum() / max(int(batch_size), 1), y
 
 
 def default_hypers(specs):
@@ -572,18 +730,17 @@ def _apply_weight_masks(params, specs):
     return out
 
 
-def _train_step(params, state, x, labels, specs, generator=None,
-                hypers=None, with_output=False, mark=None):
-    """One step: ``(new_params, new_state, metrics)``.  ``mark``, when
-    given, is called with "forward", "backward" and "update" as each
-    part has been enqueued."""
+def _grad_step(params, state, specs, hypers, loss_fn, mark=None):
+    """``(new_params, new_state, loss, aux)``: the gradient of
+    ``loss_fn(params) -> (loss, aux)`` and every layer's update.
+    ``mark``, when given, is called with "forward", "backward" and
+    "update" as each part has been enqueued."""
     with torch.no_grad():
         params = _apply_weight_masks(params, specs)
     leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
               for p in params]
     with torch.enable_grad():
-        loss, (n_err, probs, max_idx) = _loss_and_stats(
-            leaves, x, labels, specs, generator)
+        loss, aux = loss_fn(leaves)
         if mark is not None:
             mark("forward")
         flat = [v for p in leaves for v in p.values()]
@@ -608,11 +765,31 @@ def _train_step(params, state, x, labels, specs, generator=None,
         new_state.append(nst)
     if mark is not None:
         mark("update")
-    metrics = {"loss": loss.detach(), "n_err": n_err}
+    return new_params, new_state, loss.detach(), aux
+
+
+def _train_step(params, state, x, labels, specs, generator=None,
+                hypers=None, with_output=False, mark=None):
+    """One softmax step: ``(new_params, new_state, metrics)`` (see
+    :func:`_grad_step` for ``mark``)."""
+    new_params, new_state, loss, (n_err, probs, max_idx) = _grad_step(
+        params, state, specs, hypers,
+        lambda p: _loss_and_stats(p, x, labels, specs, generator), mark)
+    metrics = {"loss": loss, "n_err": n_err}
     if with_output:
         metrics["output"] = probs
         metrics["max_idx"] = max_idx
     return new_params, new_state, metrics
+
+
+def _train_step_mse(params, state, x, target, batch_size, specs,
+                    generator=None, hypers=None, mark=None):
+    """One MSE step: ``(new_params, new_state, {"loss", "output"})``."""
+    new_params, new_state, loss, y = _grad_step(
+        params, state, specs, hypers,
+        lambda p: _loss_mse(p, x, target, batch_size, specs, generator),
+        mark)
+    return new_params, new_state, {"loss": loss, "output": y.detach()}
 
 
 def flops_per_image(specs):
@@ -625,6 +802,9 @@ def flops_per_image(specs):
         elif spec.kind == "conv":
             ny, nx, k = spec.out_shape
             total += 2 * ny * nx * k * spec.kx * spec.ky * spec.n_channels
+        elif spec.kind == "deconv":
+            ny, nx, k = spec.in_shape
+            total += 2 * ny * nx * k * spec.kx * spec.ky * spec.out_shape[2]
     return total
 
 
@@ -653,8 +833,13 @@ class FusedNet:
 
     ``device`` is the card (``cuda``) unless the caller passes "cpu";
     without CUDA it raises.  ``pool_impl`` picks every max pool's
-    lowering ("offsets", "gather", or the default "reduce_window").
-    ``dropout_seed`` seeds the net's ``torch.Generator``."""
+    lowering ("offsets", "gather", or the default "reduce_window"); a
+    pool tied to a depooling records its winners on the forward kernel
+    whatever the choice.  ``dropout_seed`` seeds the net's
+    ``torch.Generator``.  ``objective`` is "softmax" (a softmax head,
+    :meth:`step` and the softmax windows) or "mse" (no softmax layer,
+    :meth:`step_mse` and the MSE windows, whose stats follow
+    ``mse_root`` and ``class_targets`` as they stand at each window)."""
 
     def __init__(self, layers, input_sample_shape, mesh=None, rand=None,
                  dtype=numpy.float32, defaults=None, dropout_seed=0,
@@ -662,9 +847,8 @@ class FusedNet:
                  device=None):
         if mesh is not None:
             raise NotImplementedError("a mesh is %s" % _LATER)
-        if objective != "softmax":
-            raise NotImplementedError("objective %r is %s"
-                                      % (objective, _LATER))
+        if objective not in ("softmax", "mse"):
+            raise ValueError("unknown objective %r" % (objective,))
         if compute_dtype is not None:
             raise NotImplementedError("compute_dtype is %s" % _LATER)
         if pool_impl == "reshape":
@@ -675,13 +859,18 @@ class FusedNet:
         full_f32(self.device)
         self.specs = build_specs(layers, input_sample_shape, defaults)
         for spec in self.specs:
-            if spec.kind == "pool":
+            if spec.kind == "pool" and not spec.record_offsets:
                 spec.impl = pool_impl or "reduce_window"
-        if not self.specs[-1].is_softmax:
+        if objective == "mse":
+            if any(s.is_softmax for s in self.specs):
+                raise ValueError(
+                    "the mse objective does not take a softmax head")
+        elif not self.specs[-1].is_softmax:
             raise ValueError(
                 "the fused softmax objective needs a 'softmax' head "
-                "(got %r)" % self.specs[-1].type)
-        if any(s.is_softmax for s in self.specs[:-1]):
+                "(got %r); pass objective='mse' for regression and "
+                "autoencoder topologies" % self.specs[-1].type)
+        elif any(s.is_softmax for s in self.specs[:-1]):
             raise ValueError(
                 "softmax is only supported as the head of a fused net")
         self.input_sample_shape = _normalize_sample_shape(input_sample_shape)
@@ -689,8 +878,13 @@ class FusedNet:
         self.dtype = numpy.dtype(dtype)
         self._tdtype = _TORCH_DTYPES[self.dtype]
         self._win_acc = None
-        self._data_d = self._labels_d = None
+        self._data_d = self._labels_d = self._targets_d = None
         self._data_p = self._labels_p = None
+        #: the MSE windows' stats, read at every window: the evaluator's
+        #: ``root`` and the nearest-class-target matrix (None: no n_err)
+        self.mse_root = True
+        self.class_targets = None
+        self._ct_cache = None
         params_host = init_params(self.specs, rand, self.dtype)
         self.params = self._place(params_host)
         self.state = init_opt_state(self.specs, self.params)
@@ -717,11 +911,17 @@ class FusedNet:
         return x, torch.as_tensor(labels).to(self.device, torch.int32)
 
     # -- steps --------------------------------------------------------------
+    def _need(self, objective, what):
+        if self.objective != objective:
+            raise ValueError("%s needs the %s objective (this net's is %s)"
+                             % (what, objective, self.objective))
+
     def step(self, x, labels, hypers=None, mark=None):
         """One train step on a host or device batch.  Returns {"loss",
         "n_err", "output", "max_idx"} as device tensors.  ``hypers``
         overrides the live hyperparameters for this step; ``mark`` is
-        passed to the step (see :func:`_train_step`)."""
+        passed to the step (see :func:`_grad_step`)."""
+        self._need("softmax", "step")
         x, labels = self._batch(x, labels)
         self.params, self.state, metrics = _train_step(
             self.params, self.state, x, labels, self.specs, self._gen,
@@ -729,10 +929,25 @@ class FusedNet:
             mark=mark)
         return metrics
 
+    def step_mse(self, x, target, batch_size=None, hypers=None, mark=None):
+        """One MSE train step on a host or device batch against
+        ``target``; rows at or past ``batch_size`` (all by default) are
+        masked.  Returns {"loss", "output"} as device tensors."""
+        self._need("mse", "step_mse")
+        x, _ = self._batch(x)
+        t = self._batch(target)[0]
+        self.params, self.state, metrics = _train_step_mse(
+            self.params, self.state, x, t,
+            x.shape[0] if batch_size is None else int(batch_size),
+            self.specs, self._gen, self.hypers if hypers is None else hypers,
+            mark)
+        return metrics
+
     def run_steps(self, xs, labels_s):
         """Train steps over stacked minibatches ``xs (K, B, ...)``,
         ``labels_s (K, B)``; returns the per-step {"loss", "n_err"}
         stacked on the device."""
+        self._need("softmax", "run_steps")
         losses, errs = [], []
         for x, lbl in zip(xs, labels_s):
             x, lbl = self._batch(x, lbl)
@@ -744,13 +959,16 @@ class FusedNet:
         return {"loss": torch.stack(losses), "n_err": torch.stack(errs)}
 
     # -- device-resident data -------------------------------------------------
-    def set_dataset(self, data, labels):
-        """Place the whole training set on the device once (rows in the
-        net's dtype, labels int32)."""
+    def set_dataset(self, data, labels, targets=None):
+        """Place the whole training set on the device once (rows and
+        the MSE objective's ``targets`` in the net's dtype, labels int32;
+        no labels: -1 each)."""
         self._data_d, self._labels_d = self._batch(
             numpy.ascontiguousarray(data),
             numpy.full(len(data), -1, numpy.int32)
             if labels is None or not len(labels) else labels)
+        self._targets_d = None if targets is None else self._batch(
+            numpy.ascontiguousarray(targets))[0]
         self._data_p = self._labels_p = None
 
     @property
@@ -782,6 +1000,7 @@ class FusedNet:
         device; ``batch_sizes (K,)`` masks padded rows; ``hypers_s`` is
         the hyper pytree with a leading K axis (:func:`stack_hypers`).
         Stats fold on the device; nothing is read back."""
+        self._need("softmax", "a softmax window")
         n_classes = int(self.specs[-1].n_out)
         nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
         conf = torch.zeros((n_classes, n_classes), dtype=torch.int32,
@@ -850,9 +1069,90 @@ class FusedNet:
         return self._run_window(len(starts), batch, fetch, batch_sizes,
                                 hypers_s)
 
+    # -- MSE windows ----------------------------------------------------------
+    def _class_targets_tensor(self):
+        """``class_targets`` on the device in the net's dtype, uploaded
+        again only when its values change; None without them."""
+        if self.class_targets is None:
+            self._ct_cache = None
+            return None
+        ct = numpy.ascontiguousarray(self.class_targets, dtype=self.dtype)
+        key = (ct.shape, ct.tobytes())
+        if self._ct_cache is None or self._ct_cache[0] != key:
+            self._ct_cache = (key, torch.from_numpy(ct.copy()).to(
+                self.device))
+        return self._ct_cache[1]
+
+    def _run_window_mse(self, n_steps, batch, fetch, batch_sizes, hypers_s):
+        """K MSE steps; ``fetch(k)`` gives step k's ``(x, labels,
+        targets)`` on the device.  Each step's evaluator stats (the
+        ``[sum, max, min]`` of :func:`evaluator.mse` with ``mse_root``,
+        and the nearest-class-target ``n_err`` where ``class_targets``
+        is set) fold on the device into the window's and then the epoch
+        accumulator's, in the JAX package's order; nothing is read
+        back."""
+        self._need("mse", "an MSE window")
+        root, ct = bool(self.mse_root), self._class_targets_tensor()
+        zero = torch.zeros((), dtype=self._tdtype, device=self.device)
+        msum, mmax, mmin = zero, zero, zero + float("inf")
+        nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
+        rows = torch.arange(batch, device=self.device)
+        sizes = numpy.asarray(batch_sizes, dtype=numpy.int64)
+        losses = []
+        m = mse_per = None
+        for k in range(n_steps):
+            x, lbl, t = fetch(k)
+            bs = int(sizes[k])
+            self.params, self.state, m = _train_step_mse(
+                self.params, self.state, x, t, bs, self.specs, self._gen,
+                _hypers_at(hypers_s, k))
+            _, md, mse_per = evaluator.mse(m["output"], t, bs, root=root)
+            msum = msum + md[0]
+            mmax = torch.maximum(mmax, md[1])
+            mmin = torch.minimum(mmin, md[2])
+            if ct is not None:
+                nerr = nerr + evaluator.nearest_target_errors(
+                    m["output"], ct, torch.where(rows < bs, lbl, -1), bs)
+            losses.append(m["loss"])
+        acc = self._window_acc()
+        acc = {"metrics": torch.stack([
+            acc["metrics"][0] + msum, torch.maximum(acc["metrics"][1], mmax),
+            torch.minimum(acc["metrics"][2], mmin)]),
+            "n_err": acc["n_err"] + nerr}
+        self._win_acc = acc
+        return {"loss": torch.stack(losses),
+                "metrics": torch.stack([msum, mmax, mmin]),
+                "mse_per": mse_per, "n_err": nerr, "output": m["output"],
+                "acc": acc}
+
+    def run_window_mse_indexed(self, idx_s, batch_sizes, hypers_s):
+        """K MSE steps over the device dataset with targets from dataset
+        row indices ``idx_s (K, B)`` (-1: a padded slot), a host array or
+        a tensor already on the device."""
+        if self._targets_d is None:
+            raise RuntimeError("set_dataset() with targets before "
+                               "run_window_mse_indexed")
+        if not isinstance(idx_s, torch.Tensor):
+            idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64))
+        idx_s = idx_s.to(self.device, torch.int64)
+
+        def fetch(k):
+            idx = idx_s[k]
+            safe = idx.clamp(min=0)
+            lbl = torch.where(idx < 0, -1,
+                              self._labels_d.index_select(0, safe))
+            return (self._data_d.index_select(0, safe), lbl,
+                    self._targets_d.index_select(0, safe))
+        return self._run_window_mse(idx_s.shape[0], idx_s.shape[1], fetch,
+                                    batch_sizes, hypers_s)
+
     # -- the epoch accumulator ----------------------------------------------
     def window_acc_zeros(self):
-        """Host zeros of the epoch accumulator."""
+        """Host zeros of the epoch accumulator (the MSE metrics' min at
+        inf)."""
+        if self.objective == "mse":
+            return {"metrics": numpy.array([0, 0, numpy.inf], self.dtype),
+                    "n_err": numpy.zeros(2, numpy.int32)}
         n_classes = int(self.specs[-1].n_out)
         return {"n_err": numpy.zeros(2, numpy.int32),
                 "confusion": numpy.zeros((n_classes, n_classes),
@@ -866,6 +1166,8 @@ class FusedNet:
                 lambda a: torch.zeros_like(torch.from_numpy(a),
                                            device=self.device),
                 self.window_acc_zeros())
+            if self.objective == "mse":
+                self._win_acc["metrics"][2] = float("inf")
         return self._win_acc
 
     @property
@@ -903,7 +1205,8 @@ class FusedNet:
                                  for t in p.values()]).all())
 
     def predict(self, x):
-        """The softmax output of a batch, on the device."""
+        """The output of a batch (softmax, or the MSE objective's
+        regression), on the device."""
         x, _ = self._batch(x)
         with torch.no_grad():
             return forward(self.params, x, self.specs)

@@ -15,7 +15,8 @@ tensors on ``device``, in the layout the port computes with:
 
 :func:`unit_params_from_numpy` and :func:`unit_params_to_numpy` carry
 the unit graph's forward weights between host arrays and its forward
-units, layer by layer.
+units, layer by layer; a unit whose weights are another's (an
+autoencoder's deconv, which applies its conv's) has no pair of its own.
 
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry
 a fused trainer's state (parameters, optimizer slots, hypers) between
@@ -51,7 +52,15 @@ def unit_params_from_numpy(forwards, host_params):
     unit graph's); a pair of None, or a None in it, leaves that Array
     as it is.  The arrays take the unit's dtype and upload at the next
     use."""
+    seen = set()
     for unit, pair in zip(forwards, host_params):
+        w = getattr(unit, "weights", None)
+        if w is not None and id(w) in seen:
+            if pair is not None:
+                raise ValueError("%s shares its weights with an earlier "
+                                 "layer: its pair must be None" % unit.name)
+            continue
+        seen.add(id(w))
         if pair is not None:
             unit.apply_params(*pair)
 
@@ -59,12 +68,13 @@ def unit_params_from_numpy(forwards, host_params):
 def unit_params_to_numpy(forwards):
     """The inverse of :func:`unit_params_from_numpy`: one ``(weights,
     bias)`` pair of host arrays per forward unit (None where it has no
-    weights, and for a missing bias)."""
-    out = []
+    weights or shares an earlier unit's, and for a missing bias)."""
+    out, seen = [], set()
     for unit in forwards:
         w, b = getattr(unit, "weights", None), getattr(unit, "bias", None)
-        out.append(None if not w else (
+        out.append(None if not w or id(w) in seen else (
             numpy.array(w.mem), numpy.array(b.mem) if b else None))
+        seen.add(id(w))
     return out
 
 

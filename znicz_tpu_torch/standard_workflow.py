@@ -19,9 +19,11 @@ its backward and update, one minibatch at a time; and the fused graph
 Both have ``decision.complete`` blocking the repeater and the loader
 and opening the end point, and the snapshotter firing at epoch ends
 that improved; the GD units skip VALID minibatches
-(``decision.gd_skip``).  A mesh, the MSE loss, the learning-rate
-adjuster, rollback and the plotters are not in this slice of the port
-(``ROADMAP.md``).
+(``decision.gd_skip``).  ``loss_function="mse"`` trains against the
+loader's ``minibatch_targets`` through ``EvaluatorMSE`` and
+``DecisionMSE`` (and, fused, the trainer's MSE windows).  A mesh, the
+learning-rate adjuster, rollback and the plotters are not in this
+slice of the port (``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -38,11 +40,12 @@ class StandardWorkflow(StandardWorkflowBase):
     def __init__(self, workflow=None, **kwargs):
         super(StandardWorkflow, self).__init__(workflow, **kwargs)
         self.loss_function = kwargs.get("loss_function", "softmax")
-        if self.loss_function != "softmax":
-            raise NotImplementedError(
-                "loss_function %r is not in this slice of the port (see "
-                "ROADMAP.md)" % self.loss_function)
-        self.decision_name = kwargs.get("decision_name", "decision_gd")
+        if self.loss_function not in EvaluatorsRegistry.evaluators:
+            raise ValueError("Unknown loss_function %r (known: %s)" % (
+                self.loss_function, sorted(EvaluatorsRegistry.evaluators)))
+        self.decision_name = kwargs.get(
+            "decision_name", "decision_gd" if self.loss_function == "softmax"
+            else "decision_mse")
         self.snapshotter_name = kwargs.get("snapshotter_name", "nnfile")
         self.evaluator_config = dict(kwargs.get("evaluator_config") or {})
         self.decision_config = dict(kwargs.get("decision_config") or {})
@@ -85,6 +88,9 @@ class StandardWorkflow(StandardWorkflowBase):
             self.loader, ("input", "minibatch_data"),
             ("labels", "minibatch_labels"),
             "minibatch_class", "minibatch_size")
+        if self.loss_function == "mse":
+            self.fused_trainer.link_attrs(
+                self.loader, ("target", "minibatch_targets"))
         # window collection drives the loader directly
         self.fused_trainer.loader_unit = self.loader
         # the trainer is the forward chain for the evaluator
@@ -144,12 +150,23 @@ class StandardWorkflow(StandardWorkflowBase):
         self.evaluator = EvaluatorsRegistry.evaluators[self.loss_function](
             self, name="evaluator", **self.evaluator_config)
         self.evaluator.link_from(*parents) \
-            .link_attrs(self.forwards[-1], "output", "max_idx") \
+            .link_attrs(self.forwards[-1], "output") \
             .link_attrs(self.loader, ("batch_size", "minibatch_size"),
                         ("labels", "minibatch_labels"))
+        if self.loss_function == "softmax":
+            self.evaluator.link_attrs(self.forwards[-1], "max_idx")
+        else:
+            self.evaluator.link_attrs(self.loader,
+                                      ("target", "minibatch_targets"))
+            if hasattr(self.loader, "class_targets"):
+                # resolved at run time: a loader fills it in load_data
+                self.evaluator.link_attrs(self.loader, "class_targets")
         if self.fused_trainer is not None:
-            # windowed TRAIN dispatches hand the evaluator their own stats
+            # windowed TRAIN dispatches hand the evaluator their own
+            # stats, computed with the evaluator's flags
             self.evaluator.stats_source = self.fused_trainer
+            if self.loss_function == "mse":
+                self.fused_trainer.stats_root = self.evaluator.root
         return self.evaluator
 
     def link_decision(self, *parents):
@@ -158,10 +175,17 @@ class StandardWorkflow(StandardWorkflowBase):
         self.decision.link_from(*parents) \
             .link_attrs(self.loader, "minibatch_class", "last_minibatch",
                         "epoch_ended", "epoch_number")
-        self.decision.link_attrs(
-            self.evaluator, ("minibatch_n_err", "n_err"),
-            ("minibatch_confusion_matrix", "confusion_matrix"),
-            ("minibatch_max_err_y_sum", "max_err_output_sum"))
+        self.decision.link_attrs(self.evaluator,
+                                 ("minibatch_n_err", "n_err"))
+        if self.decision_name == "decision_mse":
+            self.decision.link_attrs(self.loader, "class_lengths")
+            self.decision.link_attrs(self.evaluator,
+                                     ("minibatch_metrics", "metrics"))
+        else:
+            self.decision.link_attrs(
+                self.evaluator,
+                ("minibatch_confusion_matrix", "confusion_matrix"),
+                ("minibatch_max_err_y_sum", "max_err_output_sum"))
         self.repeater.gate_block = self.decision.complete
         self.loader.gate_block = self.decision.complete
         return self.decision

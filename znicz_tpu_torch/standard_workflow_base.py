@@ -14,10 +14,10 @@ dicts::
 Forward units come from the registry, named ``<name>_forward`` (or
 ``<type>_<index>_forward``, and their GD units ``gd_<name>`` or
 ``gd_<type>_<index>``: the names snapshots key on) and chained; the
-softmax head's width comes from the loader's label count.  The
-mcdnnic topology shorthand, preprocessing workflows and the MSE
-targets' head width are not in this slice of the port
-(``ROADMAP.md``).
+softmax head's width comes from the loader's label count, an MSE
+head's from the loader's ``targets_shape``.  The mcdnnic topology
+shorthand and preprocessing workflows are not in this slice of the
+port (``ROADMAP.md``).
 """
 
 import numpy
@@ -26,8 +26,8 @@ from znicz_tpu_torch.loader.base import UserLoaderRegistry
 from znicz_tpu_torch.units import nn_units
 # importing the layer modules registers their type strings
 from znicz_tpu_torch.units import (  # noqa: F401
-    activation, all2all, conv, dropout, gd, gd_conv, gd_pooling,
-    normalization, pooling)
+    activation, all2all, conv, deconv, depooling, dropout, gd, gd_conv,
+    gd_pooling, normalization, pooling)
 from znicz_tpu_torch.units.all2all import All2AllSoftmax
 from znicz_tpu_torch.units.dropout import DropoutForward
 
@@ -103,7 +103,8 @@ class StandardWorkflowBase(nn_units.NNWorkflow):
 
     def link_forwards(self, init_attrs, *parents):
         """Create and chain the forward units; the softmax head's width
-        is set from the loader's label count once it is initialized."""
+        is set from the loader's label count once it is initialized, a
+        regression head's from the loader's target sample shape."""
         del self.forwards[:]
         for index, layer in enumerate(self.layers):
             tpe, kwargs, _ = self._get_layer_type_kwargs(layer, index)
@@ -128,6 +129,22 @@ class StandardWorkflowBase(nn_units.NNWorkflow):
                 last_fwd.output_sample_shape = ulc
 
             loader.on_initialized = on_initialized
+        elif (self.loader is not None and
+              hasattr(self.loader, "minibatch_targets") and
+              hasattr(last_fwd, "output_sample_shape")):
+            loader = self.loader
+
+            def on_initialized_mse():
+                tshape = loader.targets_shape
+                oss = last_fwd.output_sample_shape
+                if oss != tuple() and tuple(numpy.ravel(oss)) != tshape \
+                        and numpy.prod(oss) != numpy.prod(tshape):
+                    self.warning(
+                        "Overriding %s.output_sample_shape %s with %s "
+                        "(loader targets)", last_fwd.name, oss, tshape)
+                last_fwd.output_sample_shape = tshape
+
+            loader.on_initialized = on_initialized_mse
         return last_fwd
 
     def _add_forward_unit(self, new_unit, init_attrs=None, *parents):

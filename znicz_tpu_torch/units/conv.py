@@ -22,6 +22,11 @@ class ConvolutionalBase(object):
 
     CONV_ATTRS = ("n_kernels", "kx", "ky", "sliding", "padding")
 
+    def link_conv_attrs(self, other):
+        """Take ``CONV_ATTRS`` from ``other`` (a deconv from its conv)."""
+        self.link_attrs(other, *self.CONV_ATTRS)
+        return self
+
     @property
     def weights2d_dev(self):
         """``(n_kernels, ky*kx*C)`` on the device, honouring

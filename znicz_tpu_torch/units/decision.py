@@ -1,14 +1,16 @@
 """Decision units — the training loop's termination and bookkeeping.
 
 Counterpart of ``znicz_tpu/units/decision.py`` (``DecisionsRegistry``
-:38, ``DecisionBase`` :54, ``DecisionGD`` :201-383) without the health
-and telemetry hooks and the master-slave protocol.  ``DecisionGD``
+:38, ``DecisionBase`` :54, ``DecisionGD`` :201-383, ``DecisionMSE``
+:384-448) without the health and telemetry hooks and the master-slave
+protocol.  ``DecisionGD``
 keeps the per-class epoch errors (``epoch_n_err``, ``best_n_err_pt``),
 the minimax(valid, train) improvement that gates the snapshotter
 (``improved``), early stopping (``fail_iterations``, ``max_epochs`` ->
 ``complete``), the snapshot suffix (``validation_1.92_train_0.04``)
-and ``gd_skip <<= minibatch_class != TRAIN``.  ``DecisionMSE`` is not
-in this slice of the port (``ROADMAP.md``).
+and ``gd_skip <<= minibatch_class != TRAIN``.  ``DecisionMSE`` keeps
+each class's epoch ``[avg, max, min]`` MSE (``epoch_metrics``) and
+improves on the average MSE of the epoch's last segment.
 """
 
 import time
@@ -227,11 +229,64 @@ class DecisionGD(DecisionBase):
 
 
 class DecisionMSE(DecisionGD):
-    """The regression decision — not in this slice of the port."""
+    """The regression decision: the evaluator's ``[sum, max, min]``
+    become each class's ``epoch_metrics`` ``(sum / class length, max,
+    min)``; an epoch improves when its last segment's average is the
+    best yet, and training stops ``fail_iterations`` epochs after the
+    last improvement."""
 
     MAPPING = "decision_mse"
     LOSS = "mse"
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "DecisionMSE is not in this slice of the port (see ROADMAP.md)")
+        super(DecisionMSE, self).__init__(workflow, **kwargs)
+        self.epoch_metrics = [None] * 3
+        self.best_metrics = [None] * 3
+        self.minibatch_metrics = None  # linked from the evaluator
+        self.demand("minibatch_metrics", "class_lengths")
+        self.exports = list(self.exports) + ["epoch_metrics",
+                                             "best_metrics"]
+
+    def on_last_minibatch(self):
+        super(DecisionMSE, self).on_last_minibatch()
+        clazz = self.minibatch_class
+        if self.minibatch_metrics is not None and self.minibatch_metrics:
+            m = self.minibatch_metrics.mem
+            n = max(self.class_lengths[clazz], 1)
+            self.epoch_metrics[clazz] = (float(m[0]) / n, float(m[1]),
+                                         float(m[2]))
+
+    def improve_condition(self):
+        clazz = self.minibatch_class
+        cur = self.epoch_metrics[clazz]
+        if cur is None:
+            return False
+        if self.best_metrics[clazz] is None or \
+                cur[0] < self.best_metrics[clazz][0]:
+            self.best_metrics[clazz] = cur
+            return True
+        return False
+
+    def stop_condition(self):
+        return (self.epoch_number - self.improved_epoch_number >
+                self.fail_iterations)
+
+    def fill_statistics(self, stats):
+        clazz = self.minibatch_class
+        if self.epoch_metrics[clazz] is not None:
+            stats.append("avg_mse %.6f max %.6f min %.6f" %
+                         self.epoch_metrics[clazz])
+        super(DecisionMSE, self).fill_statistics(stats)
+
+    def fill_snapshot_suffixes(self, suffixes):
+        for clazz in (TEST, VALID, TRAIN):
+            if self.epoch_metrics[clazz] is not None:
+                suffixes.append("%s_%.6f" % (CLASS_NAME[clazz],
+                                             self.epoch_metrics[clazz][0]))
+
+    def reset_statistics(self):
+        super(DecisionMSE, self).reset_statistics()
+        if self.minibatch_metrics is not None and self.minibatch_metrics:
+            self.minibatch_metrics.map_invalidate()
+            self.minibatch_metrics.mem[:] = 0
+            self.minibatch_metrics.mem[2] = numpy.inf

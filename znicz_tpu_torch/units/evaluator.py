@@ -2,13 +2,14 @@
 the last forward.
 
 Counterpart of ``znicz_tpu/units/evaluator.py`` (``EvaluatorsRegistry``
-:17, ``EvaluatorBase`` :37, ``EvaluatorSoftmax`` :85-200).  The stats
-come from :func:`znicz_tpu_torch.ops.evaluator.softmax_ce` on the
-workflow's device and fold into host accumulators in one readback a
-minibatch, or — when the fused trainer ran a window — from the
-window's own stats (:meth:`EvaluatorSoftmax._consume_window_stats`).
-``EvaluatorMSE`` and the testing mode (merged outputs) are not in this
-slice of the port (``ROADMAP.md``).
+:17, ``EvaluatorBase`` :37, ``EvaluatorSoftmax`` :85-200,
+``EvaluatorMSE`` :202-325).  The stats come from
+:mod:`znicz_tpu_torch.ops.evaluator` on the workflow's device and fold
+into host accumulators in one readback a minibatch, or — when the
+fused trainer ran a window — from the window's own stats
+(``_consume_window_stats``).  The accumulators keep the output's dtype,
+as the JAX package's do.  The testing mode (merged outputs) is not in
+this slice of the port (``ROADMAP.md``).
 """
 
 import numpy
@@ -117,10 +118,85 @@ class EvaluatorSoftmax(EvaluatorBase):
 
 
 class EvaluatorMSE(EvaluatorBase):
-    """The MSE evaluator — not in this slice of the port."""
+    """The MSE gradient, the ``[sum, max, min]`` of the per-sample MSE
+    (``root``: of its square root) and, where the loader has
+    ``class_targets``, the nearest-class-target error ``n_err``."""
 
     MAPPING = "evaluator_mse"
     LOSS = "mse"
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError("EvaluatorMSE is %s" % _LATER)
+        super(EvaluatorMSE, self).__init__(workflow, **kwargs)
+        self.metrics = Array(name="metrics")
+        self.mse = Array(name="mse")
+        self.n_err = Array(name="n_err")
+        self.root = kwargs.get("root", True)
+        self.squared_mse = kwargs.get("squared_mse", False)
+        self.class_targets = None
+        self.labels = None
+        #: a unit exposing ``window_stats`` with "metrics" (the fused
+        #: trainer's MSE windows), as ``EvaluatorSoftmax.stats_source``
+        self.stats_source = None
+        self.demand("target")
+        self.exports = ["metrics", "mse", "n_err"]
+
+    def initialize(self, device=None, **kwargs):
+        super(EvaluatorMSE, self).initialize(device=device, **kwargs)
+        if self.output.size != self.target.size or \
+                self.output.shape[0] != self.target.shape[0]:
+            raise ValueError(
+                "output shape %s and target shape %s are incompatible"
+                % (self.output.shape, self.target.shape))
+        self.metrics.reset(numpy.zeros(3, dtype=self.output.dtype))
+        self.metrics.mem[2] = numpy.inf
+        self.mse.reset(numpy.zeros(self.output.shape[0],
+                                   dtype=self.output.dtype))
+        self.n_err.reset(numpy.zeros(2, dtype=numpy.int32))
+        self.mse.device = self.device
+
+    def _accumulate_stats(self, metrics_delta, n_err_delta):
+        """Fold one minibatch's or window's host stats."""
+        self.metrics.map_write()
+        md = numpy.asarray(metrics_delta)
+        self.metrics.mem[0] += md[0]
+        self.metrics.mem[1] = max(self.metrics.mem[1], md[1])
+        self.metrics.mem[2] = min(self.metrics.mem[2], md[2])
+        if n_err_delta is not None:
+            self.n_err.map_write()
+            self.n_err.mem += numpy.asarray(n_err_delta)
+
+    def _counts_targets(self):
+        return self.class_targets is not None and \
+            bool(self.class_targets) and self.labels is not None
+
+    def _consume_window_stats(self):
+        ws = getattr(self.stats_source, "window_stats", None) \
+            if self.stats_source is not None else None
+        if ws is None:
+            return False
+        if ws.get("deferred"):
+            # a mid-segment window: see EvaluatorSoftmax
+            return True
+        if ws.get("mse_per") is not None:
+            self.mse.mem = numpy.asarray(ws["mse_per"])
+        self._accumulate_stats(
+            ws["metrics"], ws.get("n_err") if self._counts_targets()
+            else None)
+        return True
+
+    def run(self):
+        if self._consume_window_stats():
+            return
+        out = self.output.dev
+        bs = int(self.batch_size)
+        err, md, mse_per = ev_ops.mse(out, self.target.dev, bs,
+                                      root=self.root)
+        self.err_output.set_dev(err)
+        self.mse.set_dev(mse_per)
+        n_err = None
+        if self._counts_targets():
+            if self.class_targets.device is None:
+                self.class_targets.device = self.device
+            n_err = ev_ops.nearest_target_errors(
+                out, self.class_targets.dev, self.labels.dev, bs)
+        self._accumulate_stats(*host_fetch((md, n_err)))

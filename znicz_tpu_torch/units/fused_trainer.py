@@ -22,13 +22,21 @@ its copy has passed; dispatched windows are bounded at
 ``pipeline_depth`` by events, a completion wait and not a transfer.
 VALID minibatches run through ``FusedNet.predict_with_idx``.
 
+With ``loss="mse"`` the unit trains against the loader's targets: its
+windows are ``FusedNet.run_window_mse_indexed`` over the dataset and its
+targets on the device (the JAX trainer takes the sliced window here,
+over the same rows), the segment-final readback carries the
+``[sum, max, min]`` metrics, the nearest-class-target ``n_err``, the
+output and the per-sample MSE, and VALID minibatches run through
+``FusedNet.predict``.
+
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
 host-stacked window (a window over a loader whose fill the device
 gather cannot replay), the JAX trainer's other keys
 (:attr:`FusedForwardBackward.LATER_KEYS`: the mesh, the sliced window,
-the synchronous per-window readback, ...), the MSE objective,
-``FusedNNRollback``, the learning-rate schedules' per-minibatch tick,
-and the fault, health and profiler hooks.
+the synchronous per-window readback, ...), ``FusedNNRollback``, the
+learning-rate schedules' per-minibatch tick, and the fault, health and
+profiler hooks.
 """
 
 import collections
@@ -41,7 +49,8 @@ from znicz_tpu_torch.core import memory, prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.units import Unit
-from znicz_tpu_torch.loader.base import TRAIN, FullBatchLoader
+from znicz_tpu_torch.loader.base import (TRAIN, FullBatchLoader,
+                                         FullBatchLoaderMSEMixin)
 from znicz_tpu_torch.parallel import fused
 from znicz_tpu_torch.params import tree_map
 
@@ -159,11 +168,12 @@ class GDProxy(object):
 class FusedForwardBackward(Unit):
     """One unit = the whole train or eval step over the layer stack.
 
-    Demands ``input`` / ``labels`` / ``minibatch_class`` /
-    ``minibatch_size`` from the loader; provides ``output`` /
-    ``max_idx``.  The ``fused`` config's keys: ``pool_impl`` (None is
-    "reduce_window"; "offsets" runs the hand-written kernels on the
-    card; "gather"), ``dtype`` (default
+    Demands ``input`` / ``minibatch_class`` / ``minibatch_size`` and
+    ``labels`` (softmax) or ``target`` (``loss="mse"``) from the
+    loader; provides ``output`` and, for softmax, ``max_idx``.  The
+    ``fused`` config's keys: ``pool_impl`` (None is "reduce_window";
+    "offsets" runs the hand-written kernels on the card; "gather"),
+    ``dtype`` (default
     ``root.common.engine.precision_dtype``, else float32),
     ``dropout_seed`` and ``window`` (default 8 where the loader's rows
     can be gathered on the device, else 1: a step a minibatch)."""
@@ -179,16 +189,21 @@ class FusedForwardBackward(Unit):
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
                  dropout_seed=0, window=None, loss="softmax", **kwargs):
         later = sorted(set(kwargs) & set(self.LATER_KEYS))
-        if later or loss != "softmax":
+        if later:
             raise NotImplementedError(
-                "fused %s %s" % (", ".join(later) or "loss=%r" % (loss,),
-                                 _LATER))
+                "fused %s %s" % (", ".join(later), _LATER))
+        if loss not in ("softmax", "mse"):
+            raise ValueError("unknown fused loss %r" % (loss,))
         super(FusedForwardBackward, self).__init__(workflow, **kwargs)
         self.layers = copy.deepcopy(list(layers))
         self.pool_impl = pool_impl
         self.dtype = dtype
         self.dropout_seed = dropout_seed
         self.window = None if window is None else int(window)
+        self.loss = loss
+        #: the MSE evaluator's ``root``, mirrored into the net's windows
+        #: (``StandardWorkflow.link_evaluator`` sets it)
+        self.stats_root = True
         self.output = Array(name="output")
         self.max_idx = Array(name="max_idx")
         #: one event per dispatched mid-segment window, oldest first
@@ -206,22 +221,44 @@ class FusedForwardBackward(Unit):
         self.net = None
         self._use_device_data = False
         self.gd_proxies = []
+        # a tied deconv's "<-" governs its conv's shared weights
+        overrides = {layer.get("->", {}).get("tied_to"): layer
+                     for layer in self.layers
+                     if layer.get("type") == "deconv" and layer.get("<-")}
         for i, layer in enumerate(self.layers):
             tpe = layer.get("type")
             if tpe in fused.FC_TYPES or tpe in fused.CONV_TYPES:
                 name = layer.get("name", "%s_%d" % (tpe, i))
-                hyper, hyper_bias, _ = fused.layer_hyper(layer)
+                hyper, hyper_bias, _ = fused.layer_hyper(
+                    overrides.get(name, layer))
                 self.gd_proxies.append(GDProxy("gd_" + name, hyper,
                                                hyper_bias))
-        self.demand("input", "labels", "minibatch_class", "minibatch_size")
+        self.demand("input", "minibatch_class", "minibatch_size",
+                    "target" if loss == "mse" else "labels")
         #: params, optimizer state, generator and hypers (an exact
         #: resume), and the device accumulator drained to the host
         self.exports = ["fused_state", "epoch_acc"]
 
     def _fix_head_width(self):
-        """The softmax head's width from the loader's label count."""
+        """The softmax head's width from the loader's label count, an
+        MSE head's from its target sample shape."""
         last = self.layers[-1]
-        if self.loader_unit is None or last.get("type") != "softmax":
+        if self.loader_unit is None:
+            return
+        if self.loss == "mse":
+            tshape = getattr(self.loader_unit, "targets_shape", None)
+            if last.get("type") in fused.FC_TYPES and tshape:
+                fwd = last.setdefault("->", {})
+                oss = fwd.get("output_sample_shape")
+                if oss is not None and \
+                        int(numpy.prod(oss)) != int(numpy.prod(tshape)):
+                    self.warning("Overriding output_sample_shape %s with %s "
+                                 "(loader targets)", oss, tshape)
+                    fwd["output_sample_shape"] = tuple(tshape)
+                elif oss is None:
+                    fwd["output_sample_shape"] = tuple(tshape)
+            return
+        if last.get("type") != "softmax":
             return
         try:
             ulc = int(self.loader_unit.unique_labels_count)
@@ -250,7 +287,13 @@ class FusedForwardBackward(Unit):
         self.net = fused.FusedNet(
             self.layers, input_sample_shape=tuple(self.input.shape[1:]),
             rand=prng.get(), dtype=dtype, dropout_seed=self.dropout_seed,
-            pool_impl=self.pool_impl, device=device)
+            pool_impl=self.pool_impl, objective=self.loss, device=device)
+        if self.loss == "mse":
+            self.net.mse_root = bool(self.stats_root)
+            ct = getattr(self.loader_unit, "class_targets", None)
+            if ct is not None and ct:
+                mem = numpy.asarray(ct.mem)
+                self.net.class_targets = mem.reshape(mem.shape[0], -1)
         self._staging = _StagingRing(self.PIPELINE_DEPTH + 1,
                                      self.net.device)
         self._setup_device_data()
@@ -263,12 +306,25 @@ class FusedForwardBackward(Unit):
 
     # -- the device-resident dataset ----------------------------------------
     def _loader_qualifies_for_device_data(self):
-        """The loader's fill is the stock FullBatchLoader copy, so a
-        gather from the normalized dataset on the device gives the same
-        rows."""
+        """The loader's fill is the stock FullBatchLoader copy (for MSE,
+        the stock targets fill over it, with targets), so a gather from
+        the normalized dataset on the device gives the same rows."""
         lu = self.loader_unit
-        return (isinstance(lu, FullBatchLoader) and bool(lu.original_data)
-                and type(lu).fill_minibatch is FullBatchLoader.fill_minibatch
+        if not (isinstance(lu, FullBatchLoader) and bool(lu.original_data)):
+            return False
+        if self.loss == "mse":
+            if not (isinstance(lu, FullBatchLoaderMSEMixin)
+                    and type(lu).fill_minibatch
+                    is FullBatchLoaderMSEMixin.fill_minibatch
+                    and bool(lu.original_targets)):
+                return False
+            mro = type(lu).__mro__
+            for klass in mro[mro.index(FullBatchLoaderMSEMixin) + 1:]:
+                fill = klass.__dict__.get("fill_minibatch")
+                if fill is not None:
+                    return fill is FullBatchLoader.__dict__["fill_minibatch"]
+            return False
+        return (type(lu).fill_minibatch is FullBatchLoader.fill_minibatch
                 and len(lu.original_labels) > 0)
 
     def _setup_device_data(self):
@@ -293,11 +349,14 @@ class FusedForwardBackward(Unit):
         directly and stopping at its segment's last minibatch, and run
         them as one window.  Returns the number of steps."""
         loader = self.loader_unit
+        mse = self.loss == "mse"
         if not self.net.has_dataset:
             self.net.set_dataset(
                 numpy.asarray(loader.original_data.mem,
                               dtype=self.input.dtype),
-                loader.original_labels)
+                loader.original_labels,
+                numpy.asarray(loader.original_targets.mem,
+                              dtype=self.target.dtype) if mse else None)
         stage = self._staging.get((self.window, int(self.input.shape[0])))
         sizes = []
         while True:
@@ -308,8 +367,9 @@ class FusedForwardBackward(Unit):
             loader.run()
         n = len(sizes)
         final = bool(loader.last_minibatch)
-        stats = self.net.run_window_indexed(
-            self._staging.upload(n), sizes, self._stacked_hypers(n))
+        run = self.net.run_window_mse_indexed if mse else \
+            self.net.run_window_indexed
+        stats = run(self._staging.upload(n), sizes, self._stacked_hypers(n))
         if not final:
             # no readback: bound the windows in flight with events
             self.window_stats = DEFERRED_WINDOW_STATS
@@ -322,20 +382,26 @@ class FusedForwardBackward(Unit):
                 while len(self._inflight) > self.PIPELINE_DEPTH:
                     self._inflight.popleft().synchronize()
             return n
-        # the segment's one readback: accumulator, output and argmax
+        # the segment's one readback: the accumulator and the last
+        # step's output (with its argmax, or its per-sample MSE)
         acc = self.net.window_acc
-        host = memory.host_fetch({
-            "n_err": acc["n_err"], "confusion": acc["confusion"],
-            "max_err_sum": acc["max_err_sum"], "output": stats["output"],
-            "max_idx": stats["max_idx"]})
-        self.window_stats = {"n_err": host["n_err"],
-                             "confusion": host["confusion"],
-                             "max_err_sum": float(host["max_err_sum"])}
+        fetch = dict(acc, output=stats["output"])
+        fetch.update({"mse_per": stats["mse_per"]} if mse else
+                     {"max_idx": stats["max_idx"]})
+        host = memory.host_fetch(fetch)
+        if mse:
+            self.window_stats = {"metrics": host["metrics"],
+                                 "n_err": host["n_err"],
+                                 "mse_per": host["mse_per"]}
+        else:
+            self.window_stats = {"n_err": host["n_err"],
+                                 "confusion": host["confusion"],
+                                 "max_err_sum": float(host["max_err_sum"])}
+            self.max_idx.mem = host["max_idx"]
         self.net.reset_window_acc()
         self._inflight.clear()
         self.output.mem = host["output"].astype(self.output.dtype,
                                                 copy=False)
-        self.max_idx.mem = host["max_idx"]
         return n
 
     def _current_hypers(self):
@@ -374,6 +440,13 @@ class FusedForwardBackward(Unit):
             self._run_train_window()
             return
         x = self.input.mem
+        if self.loss == "mse":
+            out = self.net.step_mse(
+                x, self.target.mem, int(self.minibatch_size),
+                hypers=self._current_hypers())["output"] if train else \
+                self.net.predict(x)
+            self.output.set_dev(out)
+            return
         if train:
             metrics = self.net.step(
                 x, numpy.asarray(self.labels.mem, dtype=numpy.int32),

@@ -6,7 +6,12 @@ The max variants route each window's err to the winner its forward
 recorded through :func:`znicz_tpu_torch.ops.pooling.
 max_pooling_backward`, the hand-written backward kernel on the card
 (it needs the window: ``kx``, ``ky``, ``sliding`` from ``POOL_ATTRS``);
-avg spreads err over the truncated window.  The JAX unit graph's
+the stochastic poolings route the same way (they record offsets as
+max pooling does); avg spreads err over the truncated window.  As a
+forward stage, ``GDMaxAbsPooling`` is the autoencoders' depooling
+(``samples/mnist_ae.py``): linked to a pool's ``output`` as its
+``err_output`` and left ungated, it puts the pooled values back at their
+winners on every minibatch.  The JAX unit graph's
 backward is a scatter-add in window order and the kernel adds in
 (dy, dx) order: the two are bit-equal where at most two windows share a
 winner (every non-overlapping pool) and agree to rounding elsewhere.
@@ -48,7 +53,8 @@ class GDPooling(PoolingBase, GradientDescentBase):
 class GDMaxPooling(GDPooling):
     """err to the recorded winners (the backward kernel on the card)."""
 
-    MAPPING = {"max_pooling"}
+    MAPPING = {"max_pooling", "stochastic_pooling", "stochastic_pool_depool",
+               "stochastic_abs_pool_depool"}
 
     def __init__(self, workflow, **kwargs):
         super(GDMaxPooling, self).__init__(workflow, **kwargs)
@@ -69,7 +75,7 @@ class GDMaxPooling(GDPooling):
 
 class GDMaxAbsPooling(GDMaxPooling):
     """The same routing as :class:`GDMaxPooling`."""
-    MAPPING = {"maxabs_pooling"}
+    MAPPING = {"maxabs_pooling", "stochastic_abs_pooling"}
 
 
 class GDAvgPooling(GDPooling):

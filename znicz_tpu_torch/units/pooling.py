@@ -1,23 +1,28 @@
 """Pooling forward units.
 
 Counterpart of ``znicz_tpu/units/pooling.py`` (``PoolingBase`` :17,
-``MaxPooling`` / ``MaxAbsPooling`` :122-149, ``AvgPooling`` :254).
-Type strings: max_pooling, maxabs_pooling, avg_pooling.  Geometry and
-offsets are :mod:`znicz_tpu_torch.ops.pooling`'s (ceil-mode windows,
-flat NHWC input offsets of the winners).  On a CUDA tensor
-:class:`MaxPooling` runs the hand-written max-pooling kernel
-(:func:`znicz_tpu_torch.ops.pooling.max_pooling`); on the card a unit
-launches it or raises, and never falls back.  The stochastic variants
-are not in the port yet (``ROADMAP.md``).
+``MaxPooling`` / ``MaxAbsPooling`` :122-149, the stochastic poolings
+:152-251, ``AvgPooling`` :254).  Type strings: max_pooling,
+maxabs_pooling, stochastic_pooling, stochastic_abs_pooling,
+stochastic_pool_depool, stochastic_abs_pool_depool, avg_pooling.
+Geometry and offsets are :mod:`znicz_tpu_torch.ops.pooling`'s
+(ceil-mode windows, flat NHWC input offsets of the winners).  On a
+CUDA tensor :class:`MaxPooling` runs the hand-written max-pooling
+kernel (:func:`znicz_tpu_torch.ops.pooling.max_pooling`); on the card
+a unit launches it or raises, and never falls back.  The stochastic
+poolings draw their uint16 stream on the host from ``prng.get()``, as
+the JAX package's do, so the same seed picks the same winners in
+either package.
 """
 
 import numpy
 
+import torch
+
+from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.ops import pooling as pool_ops
 from znicz_tpu_torch.units.nn_units import Forward, as_nhwc
-
-_LATER = "is not in this slice of the port (see ROADMAP.md)"
 
 
 class PoolingBase(object):
@@ -83,7 +88,7 @@ class Pooling(PoolingBase, Forward):
 
 class OffsetPooling(Pooling):
     """Records the flat input offsets of the values it passes through
-    (``input_offset``, int32)."""
+    (``input_offset``, int32, on the window grid)."""
 
     MAPPING = set()
     hide_from_registry = True
@@ -94,9 +99,12 @@ class OffsetPooling(Pooling):
 
     def initialize(self, device=None, **kwargs):
         super(OffsetPooling, self).initialize(device=device, **kwargs)
-        shape = self.output_shape
-        if not self.input_offset or self.input_offset.shape != shape:
-            self.input_offset.reset(numpy.zeros(shape, dtype=numpy.int32))
+        # the window grid: the output's shape, but not for the in-place
+        # depooling variants, whose output is the input's
+        nx, ny = self.out_sxy
+        grid = (self.input_batch_size, ny, nx, self.n_channels)
+        if not self.input_offset or self.input_offset.shape != grid:
+            self.input_offset.reset(numpy.zeros(grid, dtype=numpy.int32))
         self.input_offset.device = self.device
 
 
@@ -123,13 +131,31 @@ class MaxAbsPooling(MaxPooling):
 
 
 class StochasticPoolingBase(OffsetPooling):
-    """The stochastic poolings: not in this slice of the port."""
+    """Samples each window's winner with probability proportional to its
+    (abs) positive value, from a uint16 stream drawn on the host from
+    ``uniform`` (``prng.get()`` by default), one value a window."""
 
     MAPPING = set()
     hide_from_registry = True
+    USE_ABS = False
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError("%s %s" % (type(self).__name__, _LATER))
+        super(StochasticPoolingBase, self).__init__(workflow, **kwargs)
+        self.uniform = kwargs.get("uniform") or prng.get()
+
+    def _rand(self):
+        """This run's stream, one value a window, on the unit's device."""
+        nx, ny = self.out_sxy
+        size = self.input_batch_size * ny * nx * self.n_channels
+        u16 = self.uniform.randint(0, 1 << 16, size=size, dtype=numpy.uint16)
+        return torch.from_numpy(u16.astype(numpy.int32)).to(self.device)
+
+    def run(self):
+        out, offs = pool_ops.stochastic_pooling(
+            as_nhwc(self.input.dev), self._rand(), self.ky, self.kx,
+            self.sliding, use_abs=self.USE_ABS)
+        self.output.set_dev(out)
+        self.input_offset.set_dev(offs)
 
 
 class StochasticPooling(StochasticPoolingBase):
@@ -138,14 +164,39 @@ class StochasticPooling(StochasticPoolingBase):
 
 class StochasticAbsPooling(StochasticPoolingBase):
     MAPPING = {"stochastic_abs_pooling"}
+    USE_ABS = True
 
 
 class StochasticPoolingDepooling(StochasticPoolingBase):
+    """Stochastic pooling and depooling in one unit: one winner a
+    non-overlapping window keeps its value, every other cell becomes 0;
+    the output has the input's shape."""
+
     MAPPING = {"stochastic_pool_depool"}
 
+    @property
+    def output_shape(self):
+        return tuple(self.input.shape)
 
-class StochasticAbsPoolingDepooling(StochasticPoolingBase):
+    def initialize(self, device=None, **kwargs):
+        if tuple(self.sliding) != (self.kx, self.ky):
+            raise ValueError(
+                "stochastic_pool_depool requires sliding == (kx, ky), "
+                "have %r != (%d, %d)" % (self.sliding, self.kx, self.ky))
+        super(StochasticPoolingDepooling, self).initialize(
+            device=device, **kwargs)
+
+    def run(self):
+        out, offs = pool_ops.stochastic_pool_depool(
+            as_nhwc(self.input.dev), self._rand(), self.ky, self.kx,
+            use_abs=self.USE_ABS)
+        self.output.set_dev(out.reshape(self.output.shape))
+        self.input_offset.set_dev(offs)
+
+
+class StochasticAbsPoolingDepooling(StochasticPoolingDepooling):
     MAPPING = {"stochastic_abs_pool_depool"}
+    USE_ABS = True
 
 
 class AvgPooling(Pooling):
