@@ -88,8 +88,9 @@ failure (the script then exits non-zero and prints no result line):
    widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
    through the workflow CLI (a workflow file building
    ``mnist.build(layers=root.mnistr_conv.layers)``, no ``--fused``),
-   in this process, at minibatch 60 over the loader's synthetic set at
-   MNIST's split (60,000 TRAIN, 10,000 VALID rows) for 2 epochs, f32,
+   in this process, at minibatch 60 over the loader's synthetic set
+   (15,000 TRAIN rows, a quarter of MNIST's, and its 10,000 VALID) for
+   2 epochs, f32,
    TF32 off, ``cudnn.deterministic``: the forward kernel must launch
    exactly twice a minibatch and the backward twice a TRAIN minibatch,
    half at 16-byte vectors (pool1) and half at one channel (pool2),
@@ -134,9 +135,10 @@ failure (the script then exits non-zero and prints no result line):
     kernel -> deconv with the conv's weights -> MSE against the input,
     ``GDDeconv`` the only gradient unit) through the CLI's unit graph,
     ``python -m znicz_tpu_torch mnist_ae``, in this process at minibatch
-    100 over the synthetic MNIST split (60,000 / 10,000) for 2 epochs,
-    f32, TF32 off, ``cudnn.deterministic``: the backward kernel must
-    launch exactly once a minibatch, TRAIN and VALID (1,400, one channel
+    100 over the synthetic MNIST rows of the units phase (15,000 /
+    10,000) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``: the
+    backward kernel must launch exactly once a minibatch, TRAIN and
+    VALID (500, one channel
     a thread), the forward kernel never, no plain pooling on the card; a
     second run and the CLI resumed from the epoch-1 snapshot must end
     with each epoch's metrics, the weights, the GD's optimizer Arrays and
@@ -159,20 +161,48 @@ failure (the script then exits non-zero and prints no result line):
     60 over the same split: each epoch's n_err and MSE printed, no
     pooling launch; 4 TRAIN minibatches in f64 on the card, the fused
     graph against the unit graph within ``AE_F64_RTOL``.
+12. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
+    its ``arbitrary_step`` schedule and ``internal_mean``) at minibatch
+    100 over the CIFAR loader's synthetic set at CIFAR-10's split (50,000
+    TRAIN, 10,000 VALID), f32, TF32 off, ``cudnn.deterministic``.  First
+    both kernels at the path's pools, (100, 32, 32, 32) (caffe pool1)
+    and (100, 32, 32, 96) (nin pool3), 3x3/s2 in ceil mode with a row
+    and a column of overhang: bit-equal to their plain versions on
+    random and tied inputs in f32 and f64, every launch at 16-byte
+    vectors, then cold beside their bounds, plain versions and library
+    yardsticks.  Then ``python -m znicz_tpu_torch cifar`` (the unit
+    graph) for 2 epochs: exactly one forward launch a minibatch (1,200)
+    and one backward a TRAIN minibatch (1,000), all at 16-byte vectors,
+    no plain pooling; the adjuster before the GD chain, ticked once a
+    TRAIN minibatch; a second run and the CLI resumed from the epoch-1
+    snapshot bit-equal to it (each epoch's n_err and confusion, the
+    weights, the optimizer Arrays, every GD's learning rates and the
+    adjuster's count); epoch 1 twice without ``cudnn.deterministic``
+    (whether the two agree is printed, with both runs' images/s); the
+    same through ``--fused pool_impl=offsets`` (the same launches, one
+    readback a TRAIN segment, the adjuster between the loader and the
+    trainer); the nin and mlp variants (``build_variant``) through the
+    unit graph at 2,000 / 500 rows for one epoch (nin's pool3 launches
+    both kernels); and 12 TRAIN minibatches in f64 with the rate cut 10x
+    after the third: the card's unit graph against the CPU's and the
+    card's fused graph (windows of 8, the boundary inside the first)
+    against it, every weight and bias within ``UNITS_F64_RTOL``, equal
+    n_err, the same rate at every step.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
 summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
-``ae`` per autoencoder minibatch of 100 (the maxabs pool), and
-``launches`` counts the serve requests', the train epochs', the
-workflow run's, the unit graph's and both autoencoder paths' launches
+``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
+each CIFAR pool on its own, and ``launches`` counts the serve
+requests', the train epochs', the workflow run's, the unit graph's,
+both autoencoder paths' and both CIFAR graphs' launches
 (``launches_by_path``).  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
-depooling of a minibatch of 100 on stochastic offsets) and
-``launches`` counts the train epochs', the workflow run's, the unit
-graph's and the autoencoder paths'.
+depooling of a minibatch of 100 on stochastic offsets, ``cifar`` per
+pool) and ``launches`` counts the train epochs', the workflow run's,
+the unit graph's, the autoencoder paths' and the CIFAR graphs'.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -279,10 +309,12 @@ CPU_STEP_RATIO, CPU_STEP_FLOOR = 4.0, 1e-6
 SERVE_REPEATS = 5
 #: the unit phase: the MNIST conv sample through the unit-at-a-time
 #: graph at minibatch 60 (root.mnistr.loader) over the loader's
-#: synthetic set at MNIST's own split, 60,000 TRAIN and 10,000 VALID
-#: rows, for 2 epochs; the prng streams 1 and 2 seeded with UNITS_SEED
-#: and the next integer before each run
-UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 60000, 10000, 60, 2
+#: synthetic set, 15,000 TRAIN rows (a quarter of MNIST's 60,000: the
+#: cut that makes room for the CIFAR phase) and MNIST's 10,000 VALID
+#: rows, for 2 epochs; the autoencoder and MSE phases take the same
+#: rows; the prng streams 1 and 2 seeded with UNITS_SEED and the next
+#: integer before each run
+UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 15000, 10000, 60, 2
 UNITS_SEED = 1234
 #: the card's f64 parameters after 4 TRAIN minibatches against the
 #: CPU's, relative to each tensor's largest magnitude: f64 on either
@@ -297,6 +329,29 @@ AE_SHAPE = (AE_BATCH, 24, 24, 5)
 AE_F64_RTOL = UNITS_F64_RTOL
 #: the MSE phase: mnist7 (root.mnist7) at minibatch 60 for 2 epochs
 MSE_BATCH, MSE_EPOCHS = 60, 2
+#: the CIFAR phase: the caffe config (root.cifar: published widths,
+#: schedule and internal_mean) at minibatch 100 over the CIFAR loader's
+#: synthetic set at CIFAR-10's split, 50,000 TRAIN and 10,000 VALID
+#: rows, for 2 epochs, through the unit graph and the fused graph
+CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 50000, 10000, 100, 2
+#: the caffe graph's forward output shapes at minibatch 100
+CIFAR_SHAPES = [(100, 32, 32, 32), (100, 16, 16, 32), (100, 16, 16, 32),
+                (100, 16, 16, 32), (100, 16, 16, 32), (100, 16, 16, 32),
+                (100, 8, 8, 32), (100, 8, 8, 32), (100, 8, 8, 64),
+                (100, 8, 8, 64), (100, 4, 4, 64), (100, 10)]
+#: the max pools on the CIFAR path, 3x3/s2 in ceil mode (32 -> 16: a row
+#: and a column of overhang): the caffe config's pool1 and the nin
+#: variant's pool3, both at 16-byte vectors
+CIFAR_POOLS = (("caffe pool1", (100, 32, 32, 32)),
+               ("nin pool3", (100, 32, 32, 96)))
+#: the schedule-parity check: 12 TRAIN minibatches in f64, the rate
+#: dropped 10x after the third (tests/functional/test_fused_workflow.py's
+#: schedule), the fused graph in windows of 8: the boundary falls inside
+#: the first window
+CIFAR_F64_MB, CIFAR_F64_WINDOW, CIFAR_F64_BOUNDARY = 12, 8, 3
+#: the nin and mlp variants through the unit graph: 2,000 TRAIN and 500
+#: VALID rows, 1 epoch
+CIFAR_VARIANT_TRAIN, CIFAR_VARIANT_VALID = 2000, 500
 
 
 def say(*args):
@@ -1805,9 +1860,10 @@ def _units_argv(snapdir, wf_file, *extra):
                         UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS, *extra)
 
 
-#: the MNIST loader's synthetic draw by (TRAIN rows, VALID rows): made
-#: once, every later loader of the same sizes takes a copy of it
-_MNIST_DRAWS = {}
+#: the MNIST and CIFAR loaders' synthetic draws by (loader, TRAIN rows,
+#: VALID rows): made once, every later loader of the same sizes takes a
+#: copy of it
+_DRAWS = {}
 
 
 def _sample_argv(workflow, ns, snapdir, n_train, n_valid, batch, epochs,
@@ -1831,14 +1887,14 @@ class _UnitsProbe(object):
     and end times), the decision at each segment end (after its
     bookkeeping), each snapshot written (named by its epoch, since two
     epochs with equal errors would share a file name; the readbacks it
-    makes are not counted), and the MNIST loaders' synthetic draw, made
-    once (``_MNIST_DRAWS``: the draw is a function of the sizes
-    alone)."""
+    makes are not counted), and the MNIST and CIFAR loaders' synthetic
+    draws, each made once (``_DRAWS``: a draw is a function of the
+    sizes alone)."""
 
     def __init__(self, torch):
         import numpy
         from znicz_tpu_torch.core import workflow
-        from znicz_tpu_torch.loader import loader_mnist
+        from znicz_tpu_torch.loader import loader_cifar, loader_mnist
         from znicz_tpu_torch.loader.base import VALID
         from znicz_tpu_torch.units import decision, nn_units
         self.runs, self.segments, self.snapshots = [], [], []
@@ -1847,10 +1903,12 @@ class _UnitsProbe(object):
         probe = self
         owners = {"run": workflow.Workflow,
                   "_on_last_minibatch": decision.DecisionBase,
-                  "export": nn_units.NNSnapshotterToFile,
-                  "_load_synthetic": loader_mnist.MnistLoader}
+                  "export": nn_units.NNSnapshotterToFile}
         self.real = real = {name: owner.__dict__[name]
                             for name, owner in owners.items()}
+        loaders = (loader_mnist.MnistLoader, loader_cifar.CifarLoader)
+        self.real_draws = {cls: cls.__dict__["_load_synthetic"]
+                           for cls in loaders}
 
         def run(wf):
             if wf.workflow is not None:   # a nested workflow
@@ -1887,14 +1945,17 @@ class _UnitsProbe(object):
             return path
 
         def _load_synthetic(loader):
-            key = (loader.synthetic_train, loader.synthetic_valid)
-            if key not in _MNIST_DRAWS:
-                real["_load_synthetic"](loader)
-                _MNIST_DRAWS[key] = (list(loader.class_lengths),
-                                     loader.original_data.mem.copy(),
-                                     list(loader.original_labels))
+            base = next(c for c in type(loader).__mro__
+                        if c in probe.real_draws)
+            key = (base.__name__, loader.synthetic_train,
+                   loader.synthetic_valid)
+            if key not in _DRAWS:
+                probe.real_draws[base](loader)
+                _DRAWS[key] = (list(loader.class_lengths),
+                               loader.original_data.mem.copy(),
+                               list(loader.original_labels))
                 return
-            lengths, data, labels = _MNIST_DRAWS[key]
+            lengths, data, labels = _DRAWS[key]
             loader.class_lengths[:] = lengths
             loader.original_data.reset(data.copy())
             loader._original_labels[:] = labels
@@ -1902,9 +1963,10 @@ class _UnitsProbe(object):
         self._owners = owners
         for name, fn in (("run", run), ("_on_last_minibatch",
                                         on_last_minibatch),
-                         ("export", export),
-                         ("_load_synthetic", _load_synthetic)):
+                         ("export", export)):
             setattr(owners[name], name, fn)
+        for cls in loaders:
+            cls._load_synthetic = _load_synthetic
 
     def _where(self):
         wf = self.ctx.get("wf")
@@ -1919,18 +1981,30 @@ class _UnitsProbe(object):
     def close(self):
         for name, owner in self._owners.items():
             setattr(owner, name, self.real[name])
+        for cls, real in self.real_draws.items():
+            cls._load_synthetic = real
 
 
 def _units_state(wf):
     """Host copies of the run's final forward weights and biases, its GD
-    units' optimizer Arrays and the prng streams' states (the loader's
-    shuffles and the stochastic pools draw from them), by name."""
+    units' optimizer Arrays and learning rates, the learning-rate
+    adjuster's count where it has one and the prng streams' states (the
+    loader's shuffles and the stochastic pools draw from them), by
+    name."""
     import numpy
     from znicz_tpu_torch.core import prng
     out = {}
     for key, st in prng.states().items():
         out["prng%s.key" % key] = numpy.array(st["np"][1])
         out["prng%s.pos" % key] = numpy.array([st["np"][2]])
+    adjuster = getattr(wf, "lr_adjuster", None)
+    if adjuster is not None:
+        out["lr_adjuster._minibatches_count"] = numpy.array(
+            [adjuster._minibatches_count])
+    for gd in wf.gds:
+        if gd is not None:
+            out["%s.learning_rates" % gd.name] = numpy.array(
+                [gd.learning_rate, gd.learning_rate_bias], numpy.float64)
     for unit in list(wf.forwards) + [g for g in wf.gds if g is not None]:
         for attr in ("weights", "bias", "gradient_weights_with_moment",
                      "gradient_bias_with_moment",
@@ -1999,8 +2073,8 @@ def phase_units(torch, card, cycles_per_ms):
     softmax 10) trained by the unit-at-a-time graph through the workflow
     CLI (a workflow file building ``mnist.build(layers=
     root.mnistr_conv.layers)``, no ``--fused``), in this process, at
-    minibatch 60 over the loader's synthetic set at MNIST's own split
-    (60,000 TRAIN, 10,000 VALID) for 2 epochs, f32 with TF32 off and
+    minibatch 60 over the loader's synthetic set (``UNITS_TRAIN``
+    TRAIN, ``UNITS_VALID`` VALID rows) for 2 epochs, f32 with TF32 off and
     ``cudnn.deterministic``: the kernel launches (two forward a
     minibatch, two backward a TRAIN minibatch, half at 16-byte vectors
     and half at one channel, no plain pooling on the card) and each
@@ -2068,24 +2142,50 @@ def phase_units(torch, card, cycles_per_ms):
 
 
 def _check_units_run(torch, probe, run, launches, train_mb, valid_mb, card):
-    """The run's segments, launches, readbacks and rates."""
+    """The MNIST conv run's segments, shapes, launches, readbacks and
+    rates: 2 forward launches a minibatch and 2 backward a TRAIN
+    minibatch, half at 16-byte vectors (pool1) and half at one channel
+    (pool2)."""
+    half_f, half_b = (train_mb + valid_mb) * UNITS_EPOCHS, \
+        train_mb * UNITS_EPOCHS
+    _check_graph_run(
+        torch, probe, run, launches,
+        {"forward": 2 * half_f,
+         "forward_by_width": {WIDE: half_f, NARROW: half_f},
+         "backward": 2 * half_b,
+         "backward_by_width": {WIDE: half_b, NARROW: half_b},
+         "plain_on_card": 0},
+        "2 forward launches a minibatch and 2 backward a TRAIN minibatch, "
+        "half at 16-byte vectors and half at one channel",
+        (UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS),
+        [(60, 24, 24, 64), (60, 12, 12, 64), (60, 8, 8, 87), (60, 4, 4, 87),
+         (60, 791), (60, 10)], card, "unit graph")
+
+
+def _check_graph_run(torch, probe, run, launches, want, said, sizes, shapes,
+                     card, what):
+    """A unit-graph run's segments (``sizes``: TRAIN rows, VALID rows,
+    minibatch, epochs), its forwards' output ``shapes``, its launches
+    (exactly ``want``, ``said`` in words), its readbacks and its rates;
+    each epoch's TRAIN images/s and the run's seconds are kept in
+    ``run``."""
     import numpy
     from znicz_tpu_torch.loader.base import TRAIN, VALID
+    n_train, n_valid, batch, epochs = sizes
+    train_mb, valid_mb = -(-n_train // batch), -(-n_valid // batch)
     segs = run["segments"]
     got = [(s["epoch"], s["class"], s["n"]) for s in segs]
-    want = [(e, c, n) for e in range(UNITS_EPOCHS)
-            for c, n in ((TRAIN, UNITS_TRAIN), (VALID, UNITS_VALID))]
-    if got != want:
+    expect = [(e, c, n) for e in range(epochs)
+              for c, n in ((TRAIN, n_train), (VALID, n_valid))]
+    if got != expect:
         raise RuntimeError("segments (epoch, class, rows) %s, not %s"
-                           % (got, want))
+                           % (got, expect))
     for s in segs:
         if not (isinstance(s["n_err"], int) and 0 <= s["n_err"] <= s["n"]
                 and int(s["confusion"].sum()) == s["n"]):
             raise RuntimeError("segment stats out of range: %s" % s)
     wf = run["wf"]
-    if [tuple(f.output.shape) for f in wf.forwards] != [
-            (60, 24, 24, 64), (60, 12, 12, 64), (60, 8, 8, 87),
-            (60, 4, 4, 87), (60, 791), (60, 10)]:
+    if [tuple(f.output.shape) for f in wf.forwards] != shapes:
         raise RuntimeError("the graph's output shapes are %s" % [
             tuple(f.output.shape) for f in wf.forwards])
     for key, arr in run["state"].items():
@@ -2094,26 +2194,16 @@ def _check_units_run(torch, probe, run, launches, train_mb, valid_mb, card):
     if torch.backends.cudnn.allow_tf32 or \
             torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 is on in the unit graph")
-    n_mb = (train_mb + valid_mb) * UNITS_EPOCHS
+    n_mb = (train_mb + valid_mb) * epochs
     say("   %d epochs: (TRAIN, VALID) n_err by epoch %s of %d and %d "
         "rows; snapshots after epochs %s" % (
-            UNITS_EPOCHS, [(a["n_err"], b["n_err"])
-                           for a, b in zip(segs[::2], segs[1::2])],
-            UNITS_TRAIN, UNITS_VALID, [e for e, _, _, _ in
-                                       run["snapshots"]]))
+            epochs, [(a["n_err"], b["n_err"])
+                     for a, b in zip(segs[::2], segs[1::2])],
+            n_train, n_valid, [e for e, _, _, _ in run["snapshots"]]))
     say("   launches: %s" % launches)
-    half_f, half_b = n_mb, train_mb * UNITS_EPOCHS
-    if launches["forward"] != 2 * n_mb or \
-            launches["backward"] != 2 * train_mb * UNITS_EPOCHS or \
-            launches["forward_by_width"] != {WIDE: half_f, NARROW: half_f} \
-            or launches["backward_by_width"] != {WIDE: half_b,
-                                                 NARROW: half_b} or \
-            launches["plain_on_card"]:
-        raise RuntimeError(
-            "expected 2 forward launches a minibatch and 2 backward a "
-            "TRAIN minibatch (%d and %d), half at 16-byte vectors and half "
-            "at one channel, no plain pooling on the card; got %s"
-            % (2 * n_mb, 2 * half_b, launches))
+    if launches != want:
+        raise RuntimeError("expected %s, no plain pooling on the card (%s); "
+                           "got %s" % (said, want, launches))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -2122,21 +2212,20 @@ def _check_units_run(torch, probe, run, launches, train_mb, valid_mb, card):
                  k[0] == c) for c in (TRAIN, VALID)}
     sy = {c: sum(v for k, v in syncs.items() if k != "outside" and
                  k[0] == c) for c in (TRAIN, VALID)}
-    rates, run_s = _units_rates(run, UNITS_TRAIN)
+    rates, run_s = _units_rates(run, n_train)
     say("   host readbacks a minibatch: TRAIN %.3f (%d in %d), VALID %.3f "
         "(%d in %d), %d outside the run, snapshots not counted; "
         "synchronizing CUDA operations (sync debug mode) a minibatch: "
         "TRAIN %.3f, VALID %.3f" % (
-            rb[TRAIN] / (train_mb * UNITS_EPOCHS), rb[TRAIN],
-            train_mb * UNITS_EPOCHS, rb[VALID] / (valid_mb * UNITS_EPOCHS),
-            rb[VALID], valid_mb * UNITS_EPOCHS, counts["outside"],
-            sy[TRAIN] / (train_mb * UNITS_EPOCHS),
-            sy[VALID] / (valid_mb * UNITS_EPOCHS)))
-    say("   unit graph: TRAIN images/s by epoch %s (host clock); %.4f host "
-        "ms a minibatch over the run's %d minibatches (%.2f s, snapshots "
-        "not counted); %s" % (
-            " ".join("%.1f" % r for r in rates), 1e3 * run_s / n_mb, n_mb,
-            run_s, card))
+            rb[TRAIN] / (train_mb * epochs), rb[TRAIN], train_mb * epochs,
+            rb[VALID] / (valid_mb * epochs), rb[VALID], valid_mb * epochs,
+            counts["outside"], sy[TRAIN] / (train_mb * epochs),
+            sy[VALID] / (valid_mb * epochs)))
+    say("   %s: TRAIN images/s by epoch %s (host clock); %.4f host ms a "
+        "minibatch over the run's %d minibatches (%.2f s, snapshots not "
+        "counted); %s" % (
+            what, " ".join("%.1f" % r for r in rates), 1e3 * run_s / n_mb,
+            n_mb, run_s, card))
     run["rates"], run["run_s"] = rates, run_s
     say("   host ms by unit over the run (Unit.run_time_; the evaluator's "
         "includes waiting for the device at its readback): %s" % (
@@ -2399,7 +2488,7 @@ def phase_ae(torch, card, cycles_per_ms):
     5x5 -> stochastic abs pooling 3x3/s2 -> depooling on the backward
     kernel -> deconv with the conv's weights, MSE against the input,
     GDDeconv the only gradient unit) through the CLI's unit graph at
-    minibatch 100 over MNIST's split for 2 epochs, then the fused
+    minibatch 100 over the units phase's rows for 2 epochs, then the fused
     autoencoder stage (``FusedNet(objective="mse")``, the forward kernel
     as the maxabs pool and the backward kernel as the depooling) over
     one epoch of the same TRAIN rows, and both kernels at the
@@ -2776,7 +2865,7 @@ def phase_mse(torch, card):
     """The seven-segment regressor (``root.mnist7``: all2all_tanh 100 ->
     100 -> 7, MSE against the digits' codes, the nearest-code n_err)
     through the CLI's unit graph and through ``--fused``, 2 epochs each
-    at minibatch 60 over MNIST's split, then the first 4 TRAIN
+    at minibatch 60 over the units phase's rows, then the first 4 TRAIN
     minibatches in f64 through both graphs on the card.  No pooling
     kernel is on this path; none may launch."""
     import math
@@ -2877,6 +2966,432 @@ def _mse_card_f64(torch):
     say("   mnist7 f64 on the card, 4 TRAIN minibatches: the fused graph's "
         "weights and biases within %.3g of the unit graph's (bound %g)"
         % (worst, AE_F64_RTOL))
+
+
+def _cifar_argv(snapdir, *extra, **sizes):
+    """The CLI's arguments for a CIFAR run; ``sizes`` may set
+    ``workflow``, ``n_train``, ``n_valid`` and ``epochs``."""
+    return _sample_argv(sizes.get("workflow", "cifar"), "cifar", snapdir,
+                        sizes.get("n_train", CIFAR_TRAIN),
+                        sizes.get("n_valid", CIFAR_VALID), CIFAR_BATCH,
+                        sizes.get("epochs", CIFAR_EPOCHS), *extra)
+
+
+def phase_cifar(torch, card, cycles_per_ms):
+    """The CIFAR-10 caffe config (``root.cifar``: conv 32 5x5 -> max pool
+    3x3/s2 -> strict relu -> LRN -> conv 32 -> relu -> avg pool -> LRN ->
+    conv 64 -> relu -> avg pool -> softmax 10, the ``arbitrary_step``
+    schedule, ``internal_mean``) at minibatch 100 over the loader's
+    synthetic set at CIFAR-10's split: both kernels at the path's shapes
+    first, bit for bit and timed; then the CLI's unit graph for 2 epochs
+    (launches, readbacks, rates), a second run and a resume from the
+    epoch-1 snapshot bit-equal to it, epoch 1 twice without
+    ``cudnn.deterministic``; the fused graph (``--fused
+    pool_impl=offsets``); the nin and mlp variants; and the schedule in
+    f64 with its boundary inside a fused window.  Returns the unit
+    graph's and the fused graph's launches and the timing rows."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    rows = _cifar_kernels(torch, card, cycles_per_ms)
+    base = os.path.join(HERE, "build", "znicz_tpu_torch", "cifar")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    train_mb = -(-CIFAR_TRAIN // CIFAR_BATCH)
+    valid_mb = -(-CIFAR_VALID // CIFAR_BATCH)
+    n_mb, n_tr = (train_mb + valid_mb) * CIFAR_EPOCHS, train_mb * CIFAR_EPOCHS
+    want = {"forward": n_mb, "forward_by_width": {WIDE: n_mb, NARROW: 0},
+            "backward": n_tr, "backward_by_width": {WIDE: n_tr, NARROW: 0},
+            "plain_on_card": 0}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    try:
+        say("== cifar: python -m znicz_tpu_torch %s"
+            % " ".join(_cifar_argv("build/...")))
+        _zero_counts()
+        with probe.readbacks:
+            run = _units_run(probe, cli, prng,
+                             _cifar_argv(os.path.join(base, "run")))
+        launches = _counts()
+        _check_graph_run(
+            torch, probe, run, launches, want,
+            "1 forward launch a minibatch and 1 backward a TRAIN minibatch, "
+            "all at 16-byte vectors",
+            (CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS),
+            CIFAR_SHAPES, card, "cifar unit graph")
+        _check_cifar_schedule(run["wf"], n_tr)
+        t0 = time.perf_counter()
+        replay = _units_run(probe, cli, prng,
+                            _cifar_argv(os.path.join(base, "replay")))
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the CIFAR replay's segment stats differ "
+                               "from the run's")
+        _units_equal(replay["state"], run["state"], "the CIFAR replay")
+        run["replay_rates"] = _units_rates(replay, CIFAR_TRAIN)[0]
+        say("   replay: a second CLI run from the same seeds: each epoch's "
+            "per-class n_err and confusion matrices, the final weights, "
+            "the optimizer Arrays, every GD's learning rates and the "
+            "adjuster's count bit-equal to the run's (%.2f s); TRAIN "
+            "images/s by epoch %s" % (
+                time.perf_counter() - t0,
+                " ".join("%.1f" % r for r in run["replay_rates"])))
+        del replay
+        _resume_units(probe, cli, prng, run, lambda *extra: _cifar_argv(
+            os.path.join(base, "resumed"), *extra))
+        _cifar_nondeterministic(torch, probe, cli, prng, run, base, card)
+        fused_launches = _cifar_fused(torch, probe, cli, prng, run, base,
+                                      want, card)
+        del run
+        gc.collect()
+        _cifar_variants(probe, cli, prng, base, card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+    shutil.rmtree(base, ignore_errors=True)
+    _cifar_schedule_f64(torch)
+    return launches, fused_launches, rows
+
+
+def _check_cifar_schedule(wf, n_tr):
+    """The caffe run's adjuster: linked before the GD chain, ticked once
+    a TRAIN minibatch, every GD at the schedule's first rates (its first
+    boundary, at 60,000 minibatches, lies past the run)."""
+    adj = wf.lr_adjuster
+    if adj not in wf.gds[-1].links_from or \
+            wf.snapshotter in wf.gds[-1].links_from:
+        raise RuntimeError("the adjuster does not feed the GD chain")
+    if adj._minibatches_count != n_tr:
+        raise RuntimeError("the adjuster ticked %d times, not %d"
+                           % (adj._minibatches_count, n_tr))
+    rates = {(g.name, g.learning_rate, g.learning_rate_bias)
+             for g in wf.gds if g.name in ("gd_conv1", "gd_conv3",
+                                           "gd_fc_softmax4")}
+    if rates != {("gd_conv1", 0.001, 0.002), ("gd_conv3", 0.001, 0.001),
+                 ("gd_fc_softmax4", 0.001, 0.002)}:
+        raise RuntimeError("the GD units' rates are %s" % sorted(rates))
+    if wf.loader.normalization_type != "internal_mean":
+        raise RuntimeError("the loader normalized with %s"
+                           % wf.loader.normalization_type)
+    say("   the adjuster ticked %d times (once a TRAIN minibatch) before "
+        "the GD chain; arbitrary_step at 1x until minibatch 60,000, past "
+        "this run" % n_tr)
+
+
+def _cifar_nondeterministic(torch, probe, cli, prng, run, base, card):
+    """Epoch 1 of the caffe unit graph twice with
+    ``cudnn.deterministic`` off (cuDNN picks its algorithms freely):
+    whether the two runs end bit-equal, and their images/s beside the
+    deterministic run's and its replay's epoch 1.  Measured and
+    printed; no bound."""
+    from znicz_tpu_torch.loader.base import TRAIN
+    torch.backends.cudnn.deterministic = False
+    try:
+        runs = [_units_run(probe, cli, prng, _cifar_argv(
+            os.path.join(base, "nondet%d" % i), epochs=1)) for i in (0, 1)]
+    finally:
+        torch.backends.cudnn.deterministic = True
+    same_err = _units_segments(runs[0]["segments"]) == \
+        _units_segments(runs[1]["segments"])
+    try:
+        _units_equal(runs[1]["state"], runs[0]["state"], "")
+        same_w = True
+    except RuntimeError:
+        same_w = False
+    errs = [[(s["class"], s["n_err"]) for s in r["segments"]]
+            for r in runs + [run]]
+    rates = [_units_rates(r, CIFAR_TRAIN)[0][0] for r in runs]
+    train = [s for s in runs[0]["segments"] if s["class"] == TRAIN][0]
+    say("   without cudnn.deterministic, epoch 1 twice: n_err and "
+        "confusion matrices %s, weights, optimizer Arrays and rates %s "
+        "between the two runs; (class, n_err) %s and %s, the "
+        "deterministic run's epoch 1 %s; TRAIN images/s %.1f and %.1f, "
+        "deterministic %.1f (the run) and %.1f (its replay); %d TRAIN "
+        "rows; %s" % (
+            "bit-equal" if same_err else "DIFFERENT",
+            "bit-equal" if same_w else "DIFFERENT", errs[0], errs[1],
+            errs[2][:2], rates[0], rates[1], run["rates"][0],
+            run["replay_rates"][0], train["n"], card))
+
+
+def _cifar_fused(torch, probe, cli, prng, run, base, want, card):
+    """The caffe config through ``--fused pool_impl=offsets`` for as many
+    epochs: each TRAIN segment reads the card exactly once with the
+    adjuster linked; the launches, worked out from the code before the
+    call, are one forward a TRAIN step (windows of 8) and a VALID
+    minibatch (``predict_with_idx``), and one backward a TRAIN step, all
+    at 16-byte vectors."""
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    readbacks = _Readbacks(torch, probe._where)
+    _zero_counts()
+    with readbacks:
+        fused = _units_run(probe, cli, prng, _cifar_argv(
+            os.path.join(base, "fused"), "--fused", "pool_impl=offsets"))
+    launches = _counts()
+    say("   fused graph (--fused pool_impl=offsets) launches: %s" % launches)
+    if launches != want:
+        raise RuntimeError("the fused graph launched %s, not %s"
+                           % (launches, want))
+    wf = fused["wf"]
+    trainer, adj = wf.fused_trainer, wf.lr_adjuster
+    if adj not in trainer.links_from or wf.loader in trainer.links_from or \
+            trainer.hyper_tick != adj.run or \
+            adj._minibatches_count != want["backward"] or \
+            trainer.window != 8:
+        raise RuntimeError("the fused graph's adjuster is not linked as "
+                           "link_lr_adjuster links it (count %d, window %d)"
+                           % (adj._minibatches_count, trainer.window))
+    per_train = [readbacks.counts[(TRAIN, e)] for e in range(CIFAR_EPOCHS)]
+    if per_train != [1] * CIFAR_EPOCHS:
+        raise RuntimeError("readbacks by TRAIN segment %s, not one each"
+                           % per_train)
+    valid = sum(v for k, v in readbacks.counts.items()
+                if k != "outside" and k[0] == VALID)
+    segs = fused["segments"]
+    for s in segs:
+        if not (0 <= s["n_err"] <= s["n"] and
+                int(s["confusion"].sum()) == s["n"]):
+            raise RuntimeError("fused segment stats out of range: %s" % s)
+    rates, run_s = _units_rates(fused, CIFAR_TRAIN)
+    say("   fused graph: one readback a TRAIN segment %s (%d over the VALID "
+        "minibatches); the adjuster between the loader and the trainer, "
+        "ticked %d times; TRAIN images/s by epoch %s against the unit "
+        "graph's %s, the run %.2f s against %.2f s; (TRAIN, VALID) n_err "
+        "by epoch %s, the unit graph's %s; %s" % (
+            per_train, valid, adj._minibatches_count,
+            " ".join("%.1f" % r for r in rates),
+            " ".join("%.1f" % r for r in run["rates"]), run_s, run["run_s"],
+            [(a["n_err"], b["n_err"]) for a, b in zip(segs[::2], segs[1::2])],
+            [(a["n_err"], b["n_err"]) for a, b in zip(
+                run["segments"][::2], run["segments"][1::2])], card))
+    return launches
+
+
+def _cifar_variants(probe, cli, prng, base, card):
+    """The nin and mlp variants (``cifar.build_variant``) through the
+    unit graph, from a workflow file each, at 2,000 TRAIN and 500 VALID
+    rows for one epoch: nin's pool3 launches the forward kernel once a
+    minibatch and the backward once a TRAIN minibatch at 16-byte vectors,
+    the mlp none."""
+    train_mb = -(-CIFAR_VARIANT_TRAIN // CIFAR_BATCH)
+    n_mb = train_mb + -(-CIFAR_VARIANT_VALID // CIFAR_BATCH)
+    for variant, fwd, bwd in (("nin", n_mb, train_mb), ("mlp", 0, 0)):
+        wf_file = os.path.join(base, "cifar_%s_wf.py" % variant)
+        with open(wf_file, "w") as f:
+            f.write("from znicz_tpu_torch.samples import cifar\n\n\n"
+                    "def run(load, main):\n"
+                    "    load(cifar.build_variant, variant=%r)\n"
+                    "    main()\n" % variant)
+        _zero_counts()
+        r = _units_run(probe, cli, prng, _cifar_argv(
+            os.path.join(base, variant), workflow=wf_file,
+            n_train=CIFAR_VARIANT_TRAIN, n_valid=CIFAR_VARIANT_VALID,
+            epochs=1))
+        launches = _counts()
+        want = {"forward": fwd, "forward_by_width": {WIDE: fwd, NARROW: 0},
+                "backward": bwd, "backward_by_width": {WIDE: bwd, NARROW: 0},
+                "plain_on_card": 0}
+        if launches != want:
+            raise RuntimeError("cifar %s launched %s, not %s"
+                               % (variant, launches, want))
+        wf = r["wf"]
+        if getattr(wf, "lr_adjuster", None) is not None:
+            raise RuntimeError("cifar %s linked an adjuster" % variant)
+        if variant == "nin" and \
+                tuple(wf.forwards[6].output.shape) != (100, 16, 16, 96):
+            raise RuntimeError("nin's pool3 output is %s"
+                               % (wf.forwards[6].output.shape,))
+        rates, run_s = _units_rates(r, CIFAR_VARIANT_TRAIN)
+        say("   cifar %s (unit graph, %d forwards): (class, n_err) %s; "
+            "TRAIN images/s %s; launches %s; %s" % (
+                variant, len(wf.forwards),
+                [(s["class"], s["n_err"]) for s in r["segments"]],
+                " ".join("%.1f" % v for v in rates), launches, card))
+
+
+def _cifar_schedule_f64(torch):
+    """The caffe config over 12 TRAIN minibatches (and a VALID one) in
+    f64 with the rate dropped 10x after the third: the card's unit graph
+    against the CPU's, and the card's fused graph (windows of 8, the
+    boundary inside the first) against the card's unit graph; every
+    weight and bias within ``UNITS_F64_RTOL`` of the tensor's largest,
+    the same n_err, the same rates at every step."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.samples import cifar
+    t0 = time.perf_counter()
+    steps = [(1, CIFAR_F64_BOUNDARY), (0.1, 100000)]
+    schedule = {"do": True, "lr_policy_name": "arbitrary_step",
+                "bias_lr_policy_name": "arbitrary_step",
+                "lr_parameters": {"lrs_with_lengths": steps},
+                "bias_lr_parameters": {"lrs_with_lengths": steps}}
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    got = {}
+    try:
+        for name, device, fused_cfg in (
+                ("card", "cuda", None), ("cpu", "cpu", None),
+                ("fused", "cuda", {"pool_impl": "offsets",
+                                   "window": CIFAR_F64_WINDOW})):
+            prng.get(1).seed(UNITS_SEED)
+            prng.get(2).seed(UNITS_SEED + 1)
+            with tempfile.TemporaryDirectory() as snapdir:
+                wf = cifar.build(
+                    loader_config={
+                        "synthetic_train": CIFAR_F64_MB * CIFAR_BATCH,
+                        "synthetic_valid": CIFAR_BATCH,
+                        "minibatch_size": CIFAR_BATCH},
+                    decision_config={"max_epochs": 1},
+                    snapshotter_config={"directory": snapdir},
+                    lr_adjuster_config=schedule, fused=fused_cfg)
+                log, adj = [], wf.lr_adjuster
+                gd, real = adj._gd_units[0], adj.run
+
+                def tick(log=log, gd=gd, real=real, adj=adj):
+                    count = adj._minibatches_count
+                    real()
+                    if adj._minibatches_count != count:
+                        log.append((gd.learning_rate, gd.learning_rate_bias))
+                adj.run = tick
+                if fused_cfg is not None:
+                    wf.fused_trainer.hyper_tick = tick
+                _zero_counts()
+                wf.initialize(device=device)
+                wf.run()
+            launched = _counts()
+            if fused_cfg is None:
+                params = [(numpy.array(f.weights.mem),
+                           numpy.array(f.bias.mem))
+                          for f in wf.forwards if f.weights]
+            else:
+                params = [(p["w"], p["b"]) for p in
+                          wf.fused_trainer.net.host_params() if p]
+            got[name] = (params, list(wf.decision.epoch_n_err), log,
+                         launched)
+            del wf
+    finally:
+        root.common.engine.precision_dtype = saved
+    want_rates = [(0.001, 0.002)] * CIFAR_F64_BOUNDARY + \
+        [(0.1 * 0.001, 0.1 * 0.002)] * (CIFAR_F64_MB - CIFAR_F64_BOUNDARY)
+    worst = {}
+    for name, ref in (("card", "cpu"), ("fused", "card")):
+        params, n_err, rates, launched = got[name]
+        if n_err != got[ref][1] or rates != got[ref][2] or \
+                rates != want_rates:
+            raise RuntimeError(
+                "f64 schedule parity: %s n_err %s rates %s, %s n_err %s "
+                "rates %s" % (name, n_err, rates, ref, got[ref][1],
+                              got[ref][2]))
+        if launched["forward"] != CIFAR_F64_MB + 1 or \
+                launched["backward"] != CIFAR_F64_MB or \
+                launched["plain_on_card"]:
+            raise RuntimeError("f64 %s launched %s" % (name, launched))
+        worst[name] = 0.0
+        for g, w in zip(params, got[ref][0]):
+            for a, b in zip(g, w):
+                if a.dtype != numpy.float64:
+                    raise RuntimeError("f64 %s ran in %s" % (name, a.dtype))
+                worst[name] = max(worst[name], numpy.abs(a - b).max() /
+                                  numpy.abs(b).max())
+        if not worst[name] <= UNITS_F64_RTOL:
+            raise RuntimeError("f64 schedule parity: %s %.3g relative from "
+                               "%s" % (name, worst[name], ref))
+    say("   f64, %d TRAIN minibatches, the rate 10x lower after %d of them: "
+        "the card's unit graph within %.3g of the CPU's, the card's fused "
+        "graph (windows of %d, the boundary inside the first) within %.3g "
+        "of the card's unit graph (bound %g); n_err %s in all three; the "
+        "same rate at every step %s (%.2f s)" % (
+            CIFAR_F64_MB, CIFAR_F64_BOUNDARY, worst["card"],
+            CIFAR_F64_WINDOW, worst["fused"], UNITS_F64_RTOL,
+            got["cpu"][1], got["cpu"][2], time.perf_counter() - t0))
+
+
+def _cifar_kernels(torch, card, cycles_per_ms):
+    """Both kernels at the CIFAR path's shapes (``CIFAR_POOLS``,
+    3x3/s2, ceil mode) bit-equal to their plain versions, on random
+    values and on ties, in f32 and f64, every launch at 16-byte vectors;
+    then in f32 cold beside their bounds, plain versions and the library
+    calls.  Returns the rows by kernel and pool."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    checked = 0
+    for label, shape in CIFAR_POOLS:
+        err_buf = torch.randn(shape[0] * 16 * 16 * shape[3] + 1,
+                              generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            for x in (torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=dtype),
+                      _tied(torch, gen, shape, dtype)):
+                what = "CIFAR %s %s %s" % (label, shape, dtype)
+                # both raise unless bit-equal to the plain version
+                _, width = _check_pool(torch, x, 3, 3, (2, 2), False, what)
+                _, _, (_, bwidth) = _check_backward(
+                    torch, x, err_buf.to(dtype), 3, 3, (2, 2), False, what)
+                if width != WIDE or bwidth != WIDE:
+                    raise RuntimeError("%s launched at %s / %s, not %s"
+                                       % (what, width, bwidth, WIDE))
+                checked += 1
+    say("   CIFAR pools %s, 3x3/s2 ceil mode: both kernels bit-equal to "
+        "their plain versions (values, offsets, the gradient) on %d inputs "
+        "(random and tied, f32 and f64), every launch at 16-byte vectors "
+        "(%.2f s)" % (", ".join("%s %s" % p for p in CIFAR_POOLS), checked,
+                      time.perf_counter() - t0))
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    rows = {"forward": {}, "backward": {}}
+    for label, shape in CIFAR_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x_nchw = x.permute(0, 3, 1, 2)
+        b, h, w, c = shape
+        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        n_in, n_out = x.numel(), b * ny * nx * c
+        _, offs = cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
+        err = torch.randn(offs.shape, generator=gen, device="cuda")
+        _, idx = F.max_pool2d(x_nchw, 3, 2, ceil_mode=True,
+                              return_indices=True)
+        err_nchw = err.permute(0, 3, 1, 2)
+        work = {
+            "forward": (n_in * 4 + n_out * 8, n_out * 9, {
+                "ms": lambda: cuda_pooling.max_pooling_offsets(
+                    x, 3, 3, (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_plain(
+                    x, 3, 3, (2, 2)),
+                "library_ms": lambda: F.max_pool2d(
+                    x_nchw, 3, 2, ceil_mode=True, return_indices=True)}),
+            "backward": (n_out * 8 + n_in * 4, n_out, {
+                "ms": lambda: cuda_pooling_backward
+                .max_pooling_offsets_backward(err, offs, shape, 3, 3,
+                                              (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_backward_plain(
+                    err, offs, shape, 3, 3, (2, 2)),
+                "library_ms": lambda: torch.ops.aten
+                .max_pool2d_with_indices_backward(
+                    err_nchw, x_nchw, [3, 3], [2, 2], [0, 0], [1, 1], True,
+                    idx)})}
+        for kind, (nbytes, ops, fns) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            row = {"bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            iters = SMALL_TIMING_ITERS if row["bound_ms"] < 0.01 else \
+                TIMING_ITERS
+            for key, fn in fns.items():
+                row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                    torch, fn, flush, cycles_per_ms, iters)
+            rows[kind][label] = row
+            say("   CIFAR %s %s %s f32 (16-byte): kernel %.4f ms (host "
+                "enqueue %.4f ms), plain %.4f ms, library %.4f ms, bound "
+                "%.4f ms (%.2f MB), %.0f%% of bound; %d samples; %s" % (
+                    kind, label, shape, row["ms"], row["host_ms"],
+                    row["plain_ms"], row["library_ms"], row["bound_ms"],
+                    nbytes / 1e6, 100 * row["bound_ms"] / row["ms"], iters,
+                    card))
+    return rows
 
 
 def phase_train(torch, card, cycles_per_ms):
@@ -3148,6 +3663,16 @@ def _sums(rows):
     return rec
 
 
+def _by_pool(rows):
+    """The timings of each pool on its own, ``host_ms`` named as in
+    :func:`_sums`."""
+    return {label: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                    "host_enqueue_ms": r["host_ms"],
+                    "bound_by": r["bound_by"]}
+            for label, r in rows.items()}
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -3194,13 +3719,17 @@ def _phases(torch, name, card, start):
     marks.append(("ae", time.perf_counter()))
     phase_mse(torch, card)
     marks.append(("mse", time.perf_counter()))
-    _MNIST_DRAWS.clear()
+    cifar_launches, cifar_fused_launches, cifar_rows = phase_cifar(
+        torch, card, cycles_per_ms)
+    marks.append(("cifar", time.perf_counter()))
+    _DRAWS.clear()
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
     paths = {"train": train_launches, "workflow": workflow_launches,
              "units": units_launches, "ae": ae_launches,
-             "ae_fused": ae_fused_launches}
+             "ae_fused": ae_fused_launches, "cifar": cifar_launches,
+             "cifar_fused": cifar_fused_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -3219,6 +3748,7 @@ def _phases(torch, name, card, start):
     forward["train"] = _sums(train_rows["forward"])
     forward["mnist"] = _sums(mnist_rows["forward"])
     forward["ae"] = _sums(ae_rows["forward"])
+    forward["cifar"] = _by_pool(cifar_rows["forward"])
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,
@@ -3234,6 +3764,7 @@ def _phases(torch, name, card, start):
     backward.update(_sums(train_rows["backward"]))
     backward["mnist"] = _sums(mnist_rows["backward"])
     backward["ae"] = _sums(ae_rows["backward"])
+    backward["cifar"] = _by_pool(cifar_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

@@ -89,7 +89,10 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.units.deconv",
                  "znicz_tpu_torch.units.depooling",
                  "znicz_tpu_torch.samples.mnist7",
-                 "znicz_tpu_torch.samples.mnist_ae"):
+                 "znicz_tpu_torch.samples.mnist_ae",
+                 "znicz_tpu_torch.units.lr_adjust",
+                 "znicz_tpu_torch.loader.loader_cifar",
+                 "znicz_tpu_torch.samples.cifar"):
         assert name in doc["modules"]
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``znicz_tpu/core/units.py`` (``Unit`` :40-248) without
 its telemetry hooks:
 
-* ``link_from(*parents)`` — control edges; a unit fires when ALL
-  parents have signalled (a ``Repeater`` fires on ANY);
+* ``link_from(*parents)`` / ``unlink_from(*parents)`` — control
+  edges; a unit fires when ALL parents have signalled (a ``Repeater``
+  fires on ANY);
 * ``link_attrs(other, "a", ("mine", "theirs"))`` — live attribute
   aliasing: reads and writes forward to the source unit;
 * ``gate_block`` / ``gate_skip`` — :class:`~znicz_tpu_torch.core.
@@ -103,6 +104,16 @@ class Unit(Logger):
             self._links_from[p] = False
             p._links_to[self] = True
         return self
+
+    def unlink_from(self, *parents):
+        for p in parents:
+            self._links_from.pop(p, None)
+            p._links_to.pop(self, None)
+        return self
+
+    @property
+    def links_from(self):
+        return self._links_from
 
     # -- firing protocol -----------------------------------------------------
     def _signal(self, src):

@@ -21,7 +21,14 @@ evaluator.py:334-556).
 """
 
 import torch
-import torch.nn.functional as F
+
+
+def _one_hot(idx, n, dtype):
+    """``(B, n)`` one-hot rows of ``idx``; an index at or past ``n``
+    gives a zero row, as ``jax.nn.one_hot``'s does (a label the head
+    has no column for: the softmax head's width is the count of
+    distinct labels, which a label past it can exceed)."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 def softmax_ce(output, max_idx, labels, batch_size, n_classes):
@@ -31,16 +38,16 @@ def softmax_ce(output, max_idx, labels, batch_size, n_classes):
     valid = (torch.arange(labels.shape[0], device=labels.device) <
              batch_size) & (labels >= 0)
     lbl = labels.clamp(min=0).long()
-    onehot = F.one_hot(lbl, output.shape[1]).to(output.dtype)
+    onehot = _one_hot(lbl, output.shape[1], output.dtype)
     err = torch.where(valid[:, None],
                       (output - onehot) * (1.0 / max(batch_size, 1)), 0)
     n_total = valid.sum()
     n_ok = (valid & (max_idx == labels)).sum()
     n_err = torch.stack([n_total - n_ok, n_total]).to(torch.int32)
     # a one-hot product in float32, exact for counts under 2^24
-    pred = F.one_hot(max_idx.long(), n_classes).to(torch.float32) * \
+    pred = _one_hot(max_idx.long(), n_classes, torch.float32) * \
         valid[:, None].to(torch.float32)
-    conf = (pred.T @ F.one_hot(lbl, n_classes).to(torch.float32)).to(
+    conf = (pred.T @ _one_hot(lbl, n_classes, torch.float32)).to(
         torch.int32)
     mx = torch.where(valid, err.abs().sum(dim=1), 0).max()
     return err, n_err, conf, mx

@@ -3,7 +3,8 @@
 Counterpart of ``znicz_tpu/standard_workflow.py`` (``create_workflow``
 :49-60, ``create_fused_workflow`` :62, ``link_fused_trainer`` :76,
 ``link_gds`` :120-172, ``link_evaluator`` :174-210, ``link_decision``
-:212, ``link_snapshotter`` :236, ``link_loop``, ``link_end_point``).
+:212, ``link_snapshotter`` :236, ``link_lr_adjuster`` :252-281,
+``link_loop``, ``link_end_point``).
 The unit-at-a-time graph, the default (``fused=None``)::
 
     repeater -> loader -> forwards[0..n] -> evaluator -> decision
@@ -21,9 +22,10 @@ and opening the end point, and the snapshotter firing at epoch ends
 that improved; the GD units skip VALID minibatches
 (``decision.gd_skip``).  ``loss_function="mse"`` trains against the
 loader's ``minibatch_targets`` through ``EvaluatorMSE`` and
-``DecisionMSE`` (and, fused, the trainer's MSE windows).  A mesh, the
-learning-rate adjuster, rollback and the plotters are not in this
-slice of the port (``ROADMAP.md``).
+``DecisionMSE`` (and, fused, the trainer's MSE windows).
+``link_lr_adjuster`` adds the learning-rate schedule to either graph.
+A mesh, rollback and the plotters are not in this slice of the port
+(``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -33,6 +35,7 @@ from znicz_tpu_torch.units.conv import ConvolutionalBase
 from znicz_tpu_torch.units.evaluator import EvaluatorsRegistry
 from znicz_tpu_torch.units.fused_trainer import FusedForwardBackward
 from znicz_tpu_torch.units.gd_pooling import GDPooling
+from znicz_tpu_torch.units.lr_adjust import LearningRateAdjust
 
 
 class StandardWorkflow(StandardWorkflowBase):
@@ -199,6 +202,32 @@ class StandardWorkflow(StandardWorkflowBase):
         self.snapshotter.gate_skip = ~self.loader.epoch_ended
         self.snapshotter.skip = ~self.decision.improved
         return self.snapshotter
+
+    def link_lr_adjuster(self, *parents, **kwargs):
+        """The learning-rate schedule on every GD unit, its config from
+        ``lr_adjuster_config`` or the keyword arguments.  Unit graph: it
+        takes the GD units and runs after ``parents`` (the caller
+        re-links the first GD unit after it).  Fused graph: it takes the
+        trainer's proxies and runs between the loader and the trainer
+        (``parents`` are not used), gated on the loader's TRAIN class,
+        and the trainer calls it after each minibatch it collects into
+        a window, so update k uses ``policy(k)`` in both graphs."""
+        cfg = dict(kwargs.pop("lr_adjuster_config", None) or kwargs)
+        self.lr_adjuster = LearningRateAdjust(
+            self, name="lr_adjuster", **cfg)
+        if self.fused_trainer is not None:
+            for proxy in self.fused_trainer.gd_proxies:
+                self.lr_adjuster.add_gd_unit(proxy)
+            self.lr_adjuster.train_gate_loader = self.loader
+            self.fused_trainer.unlink_from(self.loader)
+            self.lr_adjuster.link_from(self.loader)
+            self.fused_trainer.link_from(self.lr_adjuster)
+            self.fused_trainer.hyper_tick = self.lr_adjuster.run
+            return self.lr_adjuster
+        for gd in self.gds:
+            self.lr_adjuster.add_gd_unit(gd)
+        self.lr_adjuster.link_from(*parents)
+        return self.lr_adjuster
 
     def link_loop(self, *parents):
         """Close the training loop back into the repeater."""

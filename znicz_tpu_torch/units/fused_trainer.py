@@ -30,13 +30,18 @@ over the same rows), the segment-final readback carries the
 output and the per-sample MSE, and VALID minibatches run through
 ``FusedNet.predict``.
 
+A window's hypers are taken step by step: after each minibatch it
+collects, the unit calls ``hyper_tick`` (the learning-rate adjuster's
+``run``, set by ``StandardWorkflow.link_lr_adjuster``), so a schedule
+boundary inside a window takes effect at its own step, as in the unit
+graph.  A window in which no hyper changed reuses its stacked hypers.
+
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
 host-stacked window (a window over a loader whose fill the device
 gather cannot replay), the JAX trainer's other keys
 (:attr:`FusedForwardBackward.LATER_KEYS`: the mesh, the sliced window,
-the synchronous per-window readback, ...), ``FusedNNRollback``, the
-learning-rate schedules' per-minibatch tick, and the fault, health and
-profiler hooks.
+the synchronous per-window readback, ...), ``FusedNNRollback``, and the
+fault, health and profiler hooks.
 """
 
 import collections
@@ -48,11 +53,11 @@ import torch
 from znicz_tpu_torch.core import memory, prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.loader.base import (TRAIN, FullBatchLoader,
                                          FullBatchLoaderMSEMixin)
 from znicz_tpu_torch.parallel import fused
-from znicz_tpu_torch.params import tree_map
 
 _LATER = "not in this slice of the port (see ROADMAP.md)"
 
@@ -105,10 +110,24 @@ class _StagingRing(object):
         return dev
 
 
+def _stack_trees(trees, dtype):
+    """Pytrees of one structure (dicts and lists of floats) as one
+    tree whose leaves are ``dtype`` arrays with a leading axis over
+    ``trees``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees], dtype) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack_trees([t[i] for t in trees], dtype)
+                for i in range(len(first))]
+    return numpy.asarray(trees, dtype=dtype)
+
+
 class GDProxy(object):
     """Hyperparameters of one fused layer — the attribute surface of a
-    GD unit without its compute.  Every change of a value bumps
-    ``serial``, the trainer's key for its collected hypers."""
+    GD unit without its compute (and a ``gate_skip`` the learning-rate
+    adjuster takes).  Every change of a value bumps ``serial``, the
+    trainer's key for its collected hypers."""
 
     STATE_ATTRS = ("learning_rate", "learning_rate_bias",
                    "weights_decay", "weights_decay_bias",
@@ -120,6 +139,7 @@ class GDProxy(object):
     def __init__(self, name, hyper, hyper_bias):
         self.serial = 0
         self.name = name
+        self.gate_skip = Bool(False)
         self.learning_rate = hyper["lr"]
         self.learning_rate_bias = hyper_bias["lr"]
         self.weights_decay = hyper["wd"]
@@ -215,6 +235,9 @@ class FusedForwardBackward(Unit):
         #: the loader: driven directly during window collection, and
         #: its label count sets the head width
         self.loader_unit = None
+        #: called after each minibatch collected into a window (the
+        #: learning-rate adjuster's ``run``), or None
+        self.hyper_tick = None
         #: the stats of the window just run (host), the deferred
         #: sentinel, or None when no window ran
         self.window_stats = None
@@ -358,18 +381,22 @@ class FusedForwardBackward(Unit):
                 numpy.asarray(loader.original_targets.mem,
                               dtype=self.target.dtype) if mse else None)
         stage = self._staging.get((self.window, int(self.input.shape[0])))
-        sizes = []
+        sizes, hyper_steps = [], []
         while True:
             loader.fill_window_slot(stage[len(sizes)])
             sizes.append(int(self.minibatch_size))
+            hyper_steps.append(self._current_hypers())
             if len(sizes) >= self.window or bool(loader.last_minibatch):
                 break
             loader.run()
+            if self.hyper_tick is not None:
+                self.hyper_tick()
         n = len(sizes)
         final = bool(loader.last_minibatch)
         run = self.net.run_window_mse_indexed if mse else \
             self.net.run_window_indexed
-        stats = run(self._staging.upload(n), sizes, self._stacked_hypers(n))
+        stats = run(self._staging.upload(n), sizes,
+                    self._stacked_hypers(hyper_steps))
         if not final:
             # no readback: bound the windows in flight with events
             self.window_stats = DEFERRED_WINDOW_STATS
@@ -423,14 +450,19 @@ class FusedForwardBackward(Unit):
             self._hyper_stacked.clear()
         return self._hyper_cache
 
-    def _stacked_hypers(self, n):
-        """The live hypers stacked along a leading axis of ``n`` steps,
-        cast to the net's dtype as the JAX trainer casts them."""
-        hypers = self._current_hypers()
+    def _stacked_hypers(self, hyper_steps):
+        """The window's per-step hypers (one :meth:`_current_hypers`
+        tree a step) stacked along a leading step axis, cast to the
+        net's dtype as the JAX trainer casts them.  A window whose steps
+        all share one tree (no hyper changed in it) reuses the stack
+        cached for its length."""
+        n = len(hyper_steps)
+        if any(h is not hyper_steps[0] for h in hyper_steps):
+            return _stack_trees(hyper_steps, self.net.dtype)
         stacked = self._hyper_stacked.get(n)
         if stacked is None:
-            stacked = self._hyper_stacked[n] = tree_map(
-                lambda v: numpy.full(n, v, self.net.dtype), hypers)
+            stacked = self._hyper_stacked[n] = _stack_trees(
+                hyper_steps, self.net.dtype)
         return stacked
 
     def run(self):
