@@ -177,8 +177,8 @@ failure (the script then exits non-zero and prints no result line):
     TRAIN minibatch; a second run and the CLI resumed from the epoch-1
     snapshot bit-equal to it (each epoch's n_err and confusion, the
     weights, the optimizer Arrays, every GD's learning rates and the
-    adjuster's count); epoch 1 twice without ``cudnn.deterministic``
-    (whether the two agree is printed, with both runs' images/s); the
+    adjuster's count; cuDNN's deterministic algorithms are the training
+    default, ``core.backends.deterministic``); the
     same through ``--fused pool_impl=offsets`` (the same launches, one
     readback a TRAIN segment, the adjuster between the loader and the
     trainer); the nin and mlp variants (``build_variant``) through the
@@ -187,7 +187,34 @@ failure (the script then exits non-zero and prints no result line):
     after the third: the card's unit graph against the CPU's and the
     card's fused graph (windows of 8, the boundary inside the first)
     against it, every weight and bias within ``UNITS_F64_RTOL``, equal
-    n_err, the same rate at every step.
+    n_err, the same rate at every step.  The unit graph run's snapshots
+    stay for the next phase.
+13. serve_models — what the port trains, served, under
+    ``cudnn.deterministic``.  The AlexNet package of the serve phase in
+    f32, bf16 and int8: ``accuracy.dtype_delta_report`` on the card (its
+    own 64 seeded rows, uniform in [-1, 1], every bucket 1..64) within
+    its pins; per
+    dtype an engine behind ``ServingServer`` answers requests of 1, 3,
+    17 and 64 rows, each dispatch launching exactly 3 forward kernels at
+    16-byte vectors and no plain pooling (counts set to 0 just before,
+    read just after), then batch-64 dispatch ms, images/s and request
+    p50/p99; the bf16 forward bit-equal to the same forward with
+    ``max_pooling_plain`` in the kernel's place.  The CIFAR caffe
+    snapshot of the cifar phase through ``serve --latest cifar_caffe``
+    (``serving.server.serve``, the CLI's own) in f32 and bf16: 1 launch a
+    dispatch, f32 rows against the port's plain forward on the CPU
+    within ``LOG_P_TOL`` in log p, bf16 within its pin of f32.  Hot
+    reload over HTTP: a source failing at warmup answers 400 and v1
+    serves on; then, while a client thread keeps requesting, ``POST
+    /reload`` to the package with its weights x0.9: no request fails,
+    the version goes 1 -> 2, no warmup dispatch runs, and the replies
+    equal a fresh engine's bit for bit.  A registry of ``alexnet@f32``,
+    ``alexnet8@int8`` and ``cifar@bf16`` under a budget below their sum:
+    adding the last evicts the least recently used (alexnet) and
+    ``torch.cuda.memory_allocated`` falls by its device bytes within the
+    allocator's rounding, the next request restores it with bit-equal
+    replies, and int8 holds at most ``INT8_BYTES_RATIO`` of f32's bytes;
+    the reload's wall ms and the evict and restore ms are printed.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -197,8 +224,10 @@ batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
 ``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
 each CIFAR pool on its own, and ``launches`` counts the serve
 requests', the train epochs', the workflow run's, the unit graph's,
-both autoencoder paths' and both CIFAR graphs' launches
-(``launches_by_path``).  For the backward kernel the times are per
+both autoencoder paths', both CIFAR graphs' and the serve_models
+phase's launches (``launches_by_path``; the last also by serving dtype,
+``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
+timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` per
 pool) and ``launches`` counts the train epochs', the workflow run's,
@@ -217,16 +246,22 @@ import http.client
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: where the serve phases write their packages (git-ignored)
+SMOKE_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "smoke")
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 #: outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: bfloat16 FLOP/s, the data sheet's (dense, tensor cores) and the
+#: only bfloat16 rate it gives
+BF16_OPS_PER_S = 989e12
 #: least device spin before each timed launch, in ms: the host's enqueue
 #: of a launch takes tens of microseconds, and stalls of a millisecond
 #: were seen on a shared host
@@ -668,7 +703,50 @@ def phase_kernels(torch, card, cycles_per_ms):
         say("   %s kernel ms by tile budget in KB: %s" % (label, json.dumps(
             _tile_sweep(torch, cuda_pooling, kernel, flush, cycles_per_ms,
                         iters))))
-    return rows, max_err
+    return rows, _bf16_pool_rows(torch, gen, flush, card, cycles_per_ms), \
+        max_err
+
+
+def _bf16_pool_rows(torch, gen, flush, card, cycles_per_ms):
+    """The forward kernel in bfloat16 at AlexNet's three serving pools
+    (the ``--dtype bf16`` path), cold beside its bound (2 bytes a value
+    read and written, 4 an offset, over 3.35 TB/s), its plain version
+    and ``F.max_pool2d`` in bfloat16."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, pooling
+    rows = {}
+    for label, shape in ALEXNET_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        b, h, w, c = shape
+        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        n_out = b * ny * nx * c
+        nbytes = x.numel() * 2 + n_out * (2 + 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_out * 9 / BF16_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        iters = SMALL_TIMING_ITERS if bound < 0.01 else TIMING_ITERS
+        row = {"bound_ms": bound,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        x_nchw = x.permute(0, 3, 1, 2)
+        for key, fn in (
+                ("ms", lambda: cuda_pooling.max_pooling_offsets(
+                    x, 3, 3, (2, 2))),
+                ("plain_ms", lambda: pooling.max_pooling_plain(
+                    x, 3, 3, (2, 2))),
+                ("library_ms", lambda: F.max_pool2d(
+                    x_nchw, 3, 2, ceil_mode=True, return_indices=True))):
+            row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                torch, fn, flush, cycles_per_ms, iters)
+        row["vector_width"] = cuda_pooling.vector_width(x)
+        rows[label] = row
+        say("   %s %s bf16: kernel %.4f ms (host enqueue %.4f ms), plain "
+            "%.4f ms, max_pool2d %.4f ms, bound %.4f ms (%.1f MB moved), "
+            "%.0f%% of bound, %d channels a thread; %d samples; %s"
+            % (label, shape, row["ms"], row["host_ms"], row["plain_ms"],
+               row["library_ms"], bound, nbytes / 1e6,
+               100 * bound / row["ms"], row["vector_width"], iters, card))
+    return rows
 
 
 def kernel_record(rows, max_err, in_model):
@@ -685,8 +763,8 @@ def kernel_record(rows, max_err, in_model):
     return rec
 
 
-def _post(conn, body, ctype):
-    conn.request("POST", "/predict", body=body,
+def _post(conn, body, ctype, path="/predict"):
+    conn.request("POST", path, body=body,
                  headers={"Content-Type": ctype})
     resp = conn.getresponse()
     return resp.status, resp.read()
@@ -740,9 +818,8 @@ def phase_serve(torch, card, cycles_per_ms):
 
     t0 = time.perf_counter()
     manifest, arrays = alexnet.init_package(seed=0)
-    out_dir = os.path.join(HERE, "build", "znicz_tpu_torch", "smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    path = write_package(manifest, arrays, os.path.join(out_dir,
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = write_package(manifest, arrays, os.path.join(SMOKE_DIR,
                                                         "alexnet.zip"))
     n_params = sum(v.size for k, v in arrays.items() if "zero_filter" not in k)
     say("== serve: AlexNet package, %d parameters, %.1f MB zip, built in "
@@ -1885,8 +1962,9 @@ class _UnitsProbe(object):
     autoencoder and MSE phases and put back after each (nothing in the
     package reads them): every workflow run (its workflow and host start
     and end times), the decision at each segment end (after its
-    bookkeeping), each snapshot written (named by its epoch, since two
-    epochs with equal errors would share a file name; the readbacks it
+    bookkeeping), each snapshot written (its epoch joined to the
+    sample's prefix, since two epochs with equal errors would share a
+    file name; the readbacks it
     makes are not counted), and the MNIST and CIFAR loaders' synthetic
     draws, each made once (``_DRAWS``: a draw is a function of the
     sizes alone)."""
@@ -1934,7 +2012,9 @@ class _UnitsProbe(object):
         def export(snap):
             t0 = time.perf_counter()
             epoch = snap.workflow.loader.epoch_number
-            snap.prefix = "mnist_epoch%d" % epoch
+            # the sample's prefix stays first: serve --latest finds it
+            snap.prefix = "%s_epoch%d" % (
+                re.sub(r"_epoch\d+$", "", snap.prefix), epoch)
             probe.readbacks.paused = True
             try:
                 path = real["export"](snap)
@@ -2985,11 +3065,12 @@ def phase_cifar(torch, card, cycles_per_ms):
     synthetic set at CIFAR-10's split: both kernels at the path's shapes
     first, bit for bit and timed; then the CLI's unit graph for 2 epochs
     (launches, readbacks, rates), a second run and a resume from the
-    epoch-1 snapshot bit-equal to it, epoch 1 twice without
-    ``cudnn.deterministic``; the fused graph (``--fused
+    epoch-1 snapshot bit-equal to it; the fused graph (``--fused
     pool_impl=offsets``); the nin and mlp variants; and the schedule in
     f64 with its boundary inside a fused window.  Returns the unit
-    graph's and the fused graph's launches and the timing rows."""
+    graph's and the fused graph's launches, the timing rows and the
+    directory of the unit graph run's snapshots, left for the
+    serve_models phase."""
     import shutil
     from znicz_tpu_torch import __main__ as cli
     from znicz_tpu_torch.core import prng
@@ -3040,7 +3121,6 @@ def phase_cifar(torch, card, cycles_per_ms):
         del replay
         _resume_units(probe, cli, prng, run, lambda *extra: _cifar_argv(
             os.path.join(base, "resumed"), *extra))
-        _cifar_nondeterministic(torch, probe, cli, prng, run, base, card)
         fused_launches = _cifar_fused(torch, probe, cli, prng, run, base,
                                       want, card)
         del run
@@ -3049,9 +3129,10 @@ def phase_cifar(torch, card, cycles_per_ms):
     finally:
         probe.close()
         torch.backends.cudnn.deterministic = False
-    shutil.rmtree(base, ignore_errors=True)
     _cifar_schedule_f64(torch)
-    return launches, fused_launches, rows
+    # the unit graph run's snapshots stay for the serve_models phase,
+    # which deletes them
+    return launches, fused_launches, rows, os.path.join(base, "run")
 
 
 def _check_cifar_schedule(wf, n_tr):
@@ -3077,42 +3158,6 @@ def _check_cifar_schedule(wf, n_tr):
     say("   the adjuster ticked %d times (once a TRAIN minibatch) before "
         "the GD chain; arbitrary_step at 1x until minibatch 60,000, past "
         "this run" % n_tr)
-
-
-def _cifar_nondeterministic(torch, probe, cli, prng, run, base, card):
-    """Epoch 1 of the caffe unit graph twice with
-    ``cudnn.deterministic`` off (cuDNN picks its algorithms freely):
-    whether the two runs end bit-equal, and their images/s beside the
-    deterministic run's and its replay's epoch 1.  Measured and
-    printed; no bound."""
-    from znicz_tpu_torch.loader.base import TRAIN
-    torch.backends.cudnn.deterministic = False
-    try:
-        runs = [_units_run(probe, cli, prng, _cifar_argv(
-            os.path.join(base, "nondet%d" % i), epochs=1)) for i in (0, 1)]
-    finally:
-        torch.backends.cudnn.deterministic = True
-    same_err = _units_segments(runs[0]["segments"]) == \
-        _units_segments(runs[1]["segments"])
-    try:
-        _units_equal(runs[1]["state"], runs[0]["state"], "")
-        same_w = True
-    except RuntimeError:
-        same_w = False
-    errs = [[(s["class"], s["n_err"]) for s in r["segments"]]
-            for r in runs + [run]]
-    rates = [_units_rates(r, CIFAR_TRAIN)[0][0] for r in runs]
-    train = [s for s in runs[0]["segments"] if s["class"] == TRAIN][0]
-    say("   without cudnn.deterministic, epoch 1 twice: n_err and "
-        "confusion matrices %s, weights, optimizer Arrays and rates %s "
-        "between the two runs; (class, n_err) %s and %s, the "
-        "deterministic run's epoch 1 %s; TRAIN images/s %.1f and %.1f, "
-        "deterministic %.1f (the run) and %.1f (its replay); %d TRAIN "
-        "rows; %s" % (
-            "bit-equal" if same_err else "DIFFERENT",
-            "bit-equal" if same_w else "DIFFERENT", errs[0], errs[1],
-            errs[2][:2], rates[0], rates[1], run["rates"][0],
-            run["replay_rates"][0], train["n"], card))
 
 
 def _cifar_fused(torch, probe, cli, prng, run, base, want, card):
@@ -3652,6 +3697,472 @@ def phase_train_kernels(torch, card, cycles_per_ms):
     return rows, max_err
 
 
+#: the serve_models phase: AlexNet's serving dtypes and CIFAR's
+SERVE_DTYPES = ("f32", "bf16", "int8")
+CIFAR_SERVE_DTYPES = ("f32", "bf16")
+#: the caching allocator's rounding of one tensor's block: a block
+#: under 1 MB rounds up to 512 bytes; a larger one is split off a cached
+#: block only when more than 1 MB would remain, so it may hold up to
+#: 1 MB more than it asked for (CUDACachingAllocator's kMinBlockSize,
+#: kSmallSize)
+ALLOC_ROUND, ALLOC_LARGE_SLACK = 512, 1 << 20
+#: the int8 model's device bytes against the f32 twin's, at most
+INT8_BYTES_RATIO = 0.27
+#: rows of the CIFAR replies held against the CPU's plain forward
+CIFAR_SERVE_ROWS = 8
+
+
+def _npy(x):
+    import numpy
+    buf = io.BytesIO()
+    numpy.save(buf, x)
+    return buf.getvalue()
+
+
+def _serve_counted(torch, server, engine, images, label, card):
+    """Requests of 1, 3, 17 and 64 rows (``.npy``) through ``server``
+    with every count set to 0 just before and read just after: each must
+    answer 200 with finite rows, and each dispatch launch exactly one
+    forward kernel a max pool of the model (3 for AlexNet, 1 for CIFAR
+    caffe), all at 16-byte vectors, with no plain pooling on the card.  Returns the launches, the replies by
+    size and the request latencies (ms)."""
+    import numpy
+    per_dispatch = sum(e["type"] == "max_pooling" for e in engine.layers)
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+    replies = {}
+    try:
+        _zero_counts()
+        d0 = engine.dispatches
+        for n in (1, 3, 17, 64):
+            status, raw = _post(conn, _npy(images[:n]),
+                                "application/octet-stream")
+            if status != 200:
+                raise RuntimeError("%s: /predict answered %d: %r"
+                                   % (label, status, raw[:300]))
+            out = numpy.load(io.BytesIO(raw))
+            if out.shape[0] != n or not numpy.isfinite(out).all():
+                raise RuntimeError("%s: a reply of shape %s for %d rows"
+                                   % (label, out.shape, n))
+            replies[n] = out
+        counts = _counts()
+        dispatches = engine.dispatches - d0
+        lat = {}
+        for n, count in ((1, 20), (64, 5)):
+            ms = []
+            for _ in range(count):
+                t0 = time.perf_counter()
+                status, _ = _post(conn, _npy(images[:n]),
+                                  "application/octet-stream")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise RuntimeError("%s: /predict answered %d"
+                                       % (label, status))
+            lat[n] = sorted(ms)
+    finally:
+        conn.close()
+    launches = counts["forward"]
+    if launches == 0 or launches != per_dispatch * dispatches or \
+            counts["forward_by_width"][NARROW] or counts["plain_on_card"]:
+        raise RuntimeError(
+            "%s: %d dispatches launched %s forward kernels (%s, %d plain "
+            "pools on the card); expected %d a dispatch, all at 16-byte "
+            "vectors" % (label, dispatches, launches,
+                         counts["forward_by_width"],
+                         counts["plain_on_card"], per_dispatch))
+    say("   %s: 4 requests answered 200 in %d dispatches, %d forward "
+        "launches (%d a dispatch, all 16-byte), no plain pooling"
+        % (label, dispatches, launches, per_dispatch))
+    return launches, replies, lat
+
+
+def _percentile(ms, q):
+    return ms[min(len(ms) - 1, int(round(q * (len(ms) - 1))))]
+
+
+def _throughput(engine, images):
+    """Batch-64 dispatch ms (host wall, ``.npy`` in and out, ends on the
+    device's reply) and images/s over 10 back-to-back dispatches."""
+    engine.predict(images)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        engine.predict(images)
+    dt = (time.perf_counter() - t0) / 10
+    return {"dispatch_ms": dt * 1e3, "images_per_s": len(images) / dt}
+
+
+def _alexnet_dtypes(torch, source, images, card):
+    """AlexNet's package served in f32, bf16 and int8: the accuracy
+    report within its pins for every bucket, 3 forward launches a
+    dispatch, and the bf16 forward bit-equal to the same forward with
+    the plain pooling in the kernel's place.  Returns the launches by
+    dtype, the f32 engine and its server (for the reload), the timings
+    and the device bytes by dtype."""
+    from znicz_tpu_torch.ops import pooling
+    from znicz_tpu_torch.serving import accuracy, engine as engine_mod
+    from znicz_tpu_torch.serving.server import ServingServer
+    t0 = time.perf_counter()
+    report = accuracy.dtype_delta_report(
+        source, dtypes=("bf16", "int8"), n_rows=64, seed=0, max_batch=64,
+        device="cuda")
+    ok, failures = accuracy.check(report)
+    say("   accuracy report (%.2f s, buckets %s, %d rows): %s" % (
+        time.perf_counter() - t0, report["buckets"], report["rows"],
+        "; ".join("%s max_delta %.4g (pin %.4g), flip_rate %.4g (pin %.4g)"
+                  % (dt, b["max_delta"], b["tolerance"]["max_delta"],
+                     b["flip_rate"], b["tolerance"]["flip_rate"])
+                  for dt, b in sorted(report["dtypes"].items()))))
+    if not ok:
+        raise RuntimeError("AlexNet outside its accuracy pins: %s"
+                           % failures)
+    launches, timing, dev_bytes, keep = {}, {}, {}, None
+    for dt in SERVE_DTYPES:
+        engine = engine_mod.InferenceEngine(source, max_batch=64,
+                                            device="cuda", dtype=dt)
+        dev_bytes[dt] = engine.device_bytes
+        server = ServingServer(engine, port=0).start()
+        try:
+            n, _, lat = _serve_counted(torch, server, engine, images,
+                                       "alexnet %s" % dt, card)
+        except BaseException:
+            server.stop()
+            raise
+        launches[dt] = n
+        timing[dt] = dict(_throughput(engine, images),
+                          p50_1=_percentile(lat[1], 0.5),
+                          p99_1=_percentile(lat[1], 0.99),
+                          p50_64=_percentile(lat[64], 0.5),
+                          p99_64=_percentile(lat[64], 0.99))
+        say("   alexnet %s: batch-64 dispatch %.3f ms, %.1f images/s; "
+            "request p50/p99 %.2f/%.2f ms (1 row, 20 requests), "
+            "%.2f/%.2f ms (64 rows, 5); %.1f MB of parameters on the "
+            "card; %s" % (dt, timing[dt]["dispatch_ms"],
+                          timing[dt]["images_per_s"], timing[dt]["p50_1"],
+                          timing[dt]["p99_1"], timing[dt]["p50_64"],
+                          timing[dt]["p99_64"], dev_bytes[dt] / 1e6, card))
+        if dt == "bf16":
+            _bf16_plain_control(torch, engine, images, pooling)
+        if dt == "f32":
+            keep = (engine, server)
+        else:
+            server.stop()
+            del engine, server
+    return launches, keep, timing, dev_bytes
+
+
+def _bf16_plain_control(torch, engine, images, pooling):
+    """The bf16 engine's forward of a batch of 64, with the kernel and
+    with the plain pooling in its place, under cudnn.deterministic: the
+    replies must be bit-equal."""
+    import numpy
+    from znicz_tpu_torch.serving import engine as engine_mod
+    x = torch.from_numpy(images).to(engine.device)
+    real = pooling.max_pooling
+
+    def plain(t, ky, kx, sliding, use_abs=False):
+        return pooling.max_pooling_plain(t, ky, kx, sliding, use_abs)
+    with torch.inference_mode():
+        kernel = engine_mod.forward(engine.layers, engine.params, x,
+                                    "bf16").cpu().numpy()
+        pooling.max_pooling = plain
+        try:
+            ref = engine_mod.forward(engine.layers, engine.params, x,
+                                     "bf16").cpu().numpy()
+        finally:
+            pooling.max_pooling = real
+    if not numpy.array_equal(kernel.view(numpy.uint32),
+                             ref.view(numpy.uint32)):
+        raise RuntimeError("the bf16 forward on the kernel differs from "
+                           "the plain pooling's (max |diff| %g)"
+                           % float(numpy.abs(kernel - ref).max()))
+    say("   bf16: the served forward of 64 rows bit-equal to the same "
+        "forward with max_pooling_plain in the kernel's place")
+
+
+def _cifar_rows():
+    """64 rows of the data the CIFAR model was trained on: the VALID rows
+    of the CIFAR loader's synthetic set (its class prototypes plus
+    noise) at a 1,000-row TRAIN draw, after ``internal_mean``."""
+    import numpy
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.loader.loader_cifar import CifarLoader
+    loader = CifarLoader(Workflow(None), synthetic_train=1000,
+                         synthetic_valid=64, minibatch_size=64,
+                         normalization_type="internal_mean")
+    loader.load_data()
+    loader.initialize(device="cpu")
+    return numpy.array(loader.original_data.mem[:64], numpy.float32)
+
+
+def _cifar_latest(torch, snapdir, card):
+    """The CIFAR caffe snapshot through ``serve --latest cifar_caffe``
+    in f32 and bf16: 1 forward launch a dispatch; f32 rows against the
+    port's plain forward on the CPU within LOG_P_TOL in log p, bf16
+    within its accuracy pin of the f32 replies.  Returns the launches
+    by dtype, the snapshot's path and its device bytes by dtype."""
+    import numpy
+    from znicz_tpu_torch.launcher import newest_snapshot
+    from znicz_tpu_torch.serving import accuracy, engine as engine_mod
+    from znicz_tpu_torch.serving.server import serve
+    snapshot = newest_snapshot(snapdir, "cifar_caffe")
+    if snapshot is None:
+        raise RuntimeError("no cifar_caffe snapshot under %s" % snapdir)
+    images = _cifar_rows()
+    launches, replies, dev_bytes = {}, {}, {}
+    for dt in CIFAR_SERVE_DTYPES:
+        server, label = serve(["cifar_caffe", "--latest", "--directory",
+                               snapdir, "--dtype", dt, "--port", "0",
+                               "--max-batch", "64"])
+        try:
+            if label != snapshot:
+                raise RuntimeError("--latest served %s, not %s"
+                                   % (label, snapshot))
+            launches[dt], replies[dt], lat = _serve_counted(
+                torch, server, server.engine, images, "cifar %s" % dt, card)
+            tp = _throughput(server.engine, images)
+            dev_bytes[dt] = server.engine.device_bytes
+        finally:
+            server.drain()
+        say("   cifar %s: batch-64 dispatch %.3f ms, %.1f images/s; request "
+            "p50/p99 %.2f/%.2f ms (1 row); %s" % (
+                dt, tp["dispatch_ms"], tp["images_per_s"],
+                _percentile(lat[1], 0.5), _percentile(lat[1], 0.99), card))
+    cpu = engine_mod.InferenceEngine(snapshot, buckets=(CIFAR_SERVE_ROWS,),
+                                     warmup=False, device="cpu")
+    ref = cpu.predict(images[:CIFAR_SERVE_ROWS])
+    err = _prob_errors([(replies["f32"][64][:CIFAR_SERVE_ROWS], ref)])
+    delta = max(float(numpy.abs(replies["bf16"][n] - replies["f32"][n])
+                      .max()) for n in replies["f32"])
+    flips = numpy.mean(replies["bf16"][64].argmax(1) !=
+                       replies["f32"][64].argmax(1))
+    pin = accuracy.TOLERANCES["bf16"]
+    say("   cifar (%s): f32 rows against the CPU's plain forward max |diff "
+        "log p| %.3g (limit %g); bf16 against f32 max |diff| %.4g (pin "
+        "%g), flip rate %.4g (pin %g); replies spread %.3g"
+        % (os.path.basename(snapshot), err[1], LOG_P_TOL, delta,
+           pin["max_delta"], flips, pin["flip_rate"],
+           float(numpy.ptp(ref))))
+    if not err[1] <= LOG_P_TOL:
+        raise RuntimeError("CIFAR f32 replies differ from the CPU's: max "
+                           "|diff log p| %g" % err[1])
+    if delta > pin["max_delta"] or flips > pin["flip_rate"]:
+        raise RuntimeError("CIFAR bf16 outside its pin of f32")
+    return launches, snapshot, dev_bytes
+
+
+def _hot_reload(torch, engine, server, other, bad, images, card):
+    """POST /reload of ``bad`` (fails at warmup: answers an error,
+    version 1 serves on), then of ``other`` (AlexNet with other weights
+    and the same topology) while a client thread keeps requesting: no
+    request fails, the version goes 1 -> 2, no warmup dispatch runs, and
+    the replies after the swap equal a fresh engine's on ``other``'s
+    arrays bit for bit.  Returns the reload's wall ms."""
+    import threading
+    import numpy
+    from znicz_tpu_torch.serving import engine as engine_mod
+    row = images[:1]
+    statuses, versions = [], []
+    stop = threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=300)
+        body = json.dumps({"inputs": row.astype(int).tolist()})
+        try:
+            while not stop.is_set():
+                status, raw = _post(conn, body, "application/json")
+                statuses.append(status)
+                if status == 200:
+                    versions.append(json.loads(raw)["model_version"])
+        finally:
+            conn.close()
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+    try:
+        status, raw = _post(conn, json.dumps({"path": bad}),
+                            "application/json", "/reload")
+        if status != 400 or engine.version != 1 or not engine.ready:
+            raise RuntimeError("a reload failing at warmup answered %d, "
+                               "version %d" % (status, engine.version))
+        out = numpy.load(io.BytesIO(_post(conn, _npy(row),
+                                          "application/octet-stream")[1]))
+        if not numpy.array_equal(out, engine.predict(row)):
+            raise RuntimeError("after the failed reload v1 serves other "
+                               "replies")
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        try:
+            time.sleep(0.2)
+            warm0 = engine.warmup_dispatches
+            t0 = time.perf_counter()
+            status, raw = _post(conn, json.dumps({"path": other[0]}),
+                                "application/json", "/reload")
+            reload_ms = (time.perf_counter() - t0) * 1e3
+            if status != 200 or json.loads(raw)["model_version"] != 2:
+                raise RuntimeError("/reload answered %d: %r"
+                                   % (status, raw[:300]))
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            thread.join(timeout=120)
+    finally:
+        conn.close()
+    if thread.is_alive() or not statuses or set(statuses) != {200}:
+        raise RuntimeError("requests during the reload answered %s"
+                           % sorted(set(statuses)))
+    if versions[0] != 1 or versions[-1] != 2 or sorted(versions) != versions:
+        raise RuntimeError("the versions served went %s .. %s"
+                           % (versions[:3], versions[-3:]))
+    if engine.warmup_dispatches != warm0:
+        raise RuntimeError("the reload ran %d warmup dispatches"
+                           % (engine.warmup_dispatches - warm0))
+    fresh = engine_mod.InferenceEngine(other[1], max_batch=64,
+                                       device="cuda", warmup=False)
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+    try:
+        for n in (1, 64):
+            status, raw = _post(conn, _npy(images[:n]),
+                                "application/octet-stream")
+            got = numpy.load(io.BytesIO(raw))
+            if not numpy.array_equal(got.view(numpy.uint32), fresh.predict(
+                    images[:n]).view(numpy.uint32)):
+                raise RuntimeError("after the reload, %d rows differ from a "
+                                   "fresh engine's on the new package" % n)
+    finally:
+        conn.close()
+    say("   hot reload: a source failing at warmup answered 400 and v1 "
+        "served on; /reload to other weights in %.1f ms, %d requests "
+        "during it all 200 (versions %d..%d), no warmup dispatch, replies "
+        "after it bit-equal to a fresh engine's; %s"
+        % (reload_ms, len(statuses), versions[0], versions[-1], card))
+    return reload_ms
+
+
+def _registry_lru(torch, source, snapshot, sizes, images, card):
+    """``alexnet@f32``, ``alexnet8@int8`` and ``cifar@bf16`` under a
+    budget below their sum: the least recently used (alexnet) is
+    evicted and the card's allocated memory drops by its device bytes
+    within the allocator's rounding; the next request restores it with
+    its replies bit-equal; int8 takes at most INT8_BYTES_RATIO of f32's
+    bytes.  ``sizes`` are each model's device bytes, from the phases
+    that served them.  Returns the evict and restore ms."""
+    import numpy
+    from znicz_tpu_torch.serving.registry import ModelRegistry
+    budget = sum(sizes.values()) - 1
+    reg = ModelRegistry(memory_budget_bytes=budget, max_batch=64,
+                        device="cuda")
+    reg.add("alexnet", source)
+    before = reg.engine("alexnet").predict(images)
+    reg.add("alexnet8", source, dtype="int8")
+    reg.engine("alexnet8").predict(images[:1])
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    reg.add("cifar", snapshot, dtype="bf16")
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    alexnet = reg.peek("alexnet")
+    # the host copies have the device tensors' sizes
+    rounding = sum(ALLOC_LARGE_SLACK if v.nbytes >= ALLOC_LARGE_SLACK
+                   else ALLOC_ROUND
+                   for name in ("alexnet", "cifar")
+                   for p in reg.peek(name)._model.host_params
+                   for v in p.values())
+    drop = m0 - m1 + sizes["cifar"]
+    if alexnet.resident or not reg.peek("alexnet8").resident:
+        raise RuntimeError("the budget evicted %s" % {
+            n: not reg.peek(n).resident for n in reg.names()})
+    if abs(drop - sizes["alexnet"]) > rounding:
+        raise RuntimeError("the eviction freed %d bytes, alexnet holds %d"
+                           % (drop, sizes["alexnet"]))
+    ratio = sizes["alexnet8"] / sizes["alexnet"]
+    if ratio > INT8_BYTES_RATIO:
+        raise RuntimeError("int8 holds %.3f of f32's bytes" % ratio)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = reg.engine("alexnet")  # restores, evicting alexnet8
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    after = engine.predict(images)
+    if not numpy.array_equal(after.view(numpy.uint32),
+                             before.view(numpy.uint32)):
+        raise RuntimeError("the restored alexnet's replies differ")
+    if reg.peek("alexnet8").resident:
+        raise RuntimeError("restoring alexnet evicted nothing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.evict()
+    torch.cuda.synchronize()
+    evict_ms = (time.perf_counter() - t0) * 1e3
+    say("   registry, budget %d bytes (their sum less 1): alexnet@f32 %d, "
+        "alexnet8@int8 %d (%.4f of f32), cifar@bf16 %d bytes; adding cifar "
+        "evicted alexnet, the LRU, and memory_allocated fell by %d (its "
+        "bytes within %d); the next request restored it in %.1f ms "
+        "(upload and warmup of %d buckets; alexnet8 evicted) with "
+        "bit-equal replies; an evict takes %.2f ms; %s" % (
+            budget, sizes["alexnet"], sizes["alexnet8"], ratio,
+            sizes["cifar"], drop, rounding, restore_ms,
+            len(engine.buckets), evict_ms, card))
+    return {"evict_ms": evict_ms, "restore_ms": restore_ms}
+
+
+def phase_serve_models(torch, card, cifar_snapdir):
+    """What the port trains, served (see the module docstring, phase
+    13).  Returns the forward launches by dtype and the numbers."""
+    import shutil
+    import numpy
+    from znicz_tpu_torch.export import import_package, write_package
+    out_dir = SMOKE_DIR
+    path = os.path.join(out_dir, "alexnet.zip")
+    t0 = time.perf_counter()
+    source = import_package(path)
+    manifest, arrays = source
+    other = dict(arrays)
+    for entry in manifest["layers"]:
+        for attr, fname in entry.get("arrays", {}).items():
+            if attr == "weights":
+                other[fname] = arrays[fname] * numpy.float32(0.9)
+    other_path = write_package(manifest, other,
+                               os.path.join(out_dir, "alexnet_other.zip"))
+    bad_path = write_package(
+        {"format": 1, "input_sample_shape": manifest["input_sample_shape"],
+         "layers": [{"type": "softmax", "name": "fc",
+                     "arrays": {"weights": "w.npy"}}]},
+        {"w.npy": numpy.ones((10, 7), numpy.float32)},
+        os.path.join(out_dir, "bad.zip"))
+    say("== serve_models: AlexNet package read, a twin with its weights "
+        "x0.9 and a package failing at warmup written in %.2f s"
+        % (time.perf_counter() - t0))
+    images = numpy.random.RandomState(1).randint(
+        -128, 128, (64,) + tuple(manifest["input_sample_shape"])).astype(
+            numpy.float32)
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches, (engine, server), timing, dev_bytes = _alexnet_dtypes(
+            torch, source, images, card)
+        try:
+            reload_ms = _hot_reload(torch, engine, server,
+                                    (other_path, (manifest, other)),
+                                    bad_path, images, card)
+        finally:
+            server.stop()
+        del engine, server, other
+        cifar_launches, snapshot, cifar_bytes = _cifar_latest(
+            torch, cifar_snapdir, card)
+        reg = _registry_lru(torch, source, snapshot, {
+            "alexnet": dev_bytes["f32"], "alexnet8": dev_bytes["int8"],
+            "cifar": cifar_bytes["bf16"]}, images, card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for p in (os.path.join(out_dir, "alexnet_other.zip"),
+                  os.path.join(out_dir, "bad.zip")):
+            if os.path.exists(p):
+                os.remove(p)
+        shutil.rmtree(os.path.dirname(cifar_snapdir), ignore_errors=True)
+    by_dtype = {dt: launches.get(dt, 0) + cifar_launches.get(dt, 0)
+                for dt in SERVE_DTYPES}
+    return by_dtype, {"alexnet": timing, "reload_ms": reload_ms,
+                      "registry": reg, "device_bytes": dev_bytes,
+                      "cifar_device_bytes": cifar_bytes}
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -3695,7 +4206,7 @@ def _phases(torch, name, card, start):
     phase_build()
     marks.append(("build", time.perf_counter()))
     cycles_per_ms = _spin_cycles_per_ms(torch)
-    rows, max_err = phase_kernels(torch, card, cycles_per_ms)
+    rows, bf16_rows, max_err = phase_kernels(torch, card, cycles_per_ms)
     marks.append(("kernels", time.perf_counter()))
     backward_err = phase_backward_kernel(torch)
     marks.append(("backward kernel", time.perf_counter()))
@@ -3719,10 +4230,12 @@ def _phases(torch, name, card, start):
     marks.append(("ae", time.perf_counter()))
     phase_mse(torch, card)
     marks.append(("mse", time.perf_counter()))
-    cifar_launches, cifar_fused_launches, cifar_rows = phase_cifar(
-        torch, card, cycles_per_ms)
+    cifar_launches, cifar_fused_launches, cifar_rows, cifar_snaps = \
+        phase_cifar(torch, card, cycles_per_ms)
     marks.append(("cifar", time.perf_counter()))
     _DRAWS.clear()
+    by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
+    marks.append(("serve_models", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -3734,13 +4247,17 @@ def _phases(torch, name, card, start):
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
                "launches": sum(by_width.values()) + sum(
-                   p["forward"] for p in paths.values()),
+                   p["forward"] for p in paths.values()) + sum(
+                       by_dtype.values()),
                "launches_by_path": dict(
                    serve=sum(by_width.values()),
+                   serve_models=sum(by_dtype.values()),
                    **{k: p["forward"] for k, p in paths.items()}),
+               "launches_by_dtype": by_dtype,
                "launches_by_width": {
                    k: by_width[k] + sum(p["forward_by_width"][k]
-                                        for p in paths.values())
+                                        for p in paths.values()) + (
+                       sum(by_dtype.values()) if k == WIDE else 0)
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),
@@ -3749,6 +4266,7 @@ def _phases(torch, name, card, start):
     forward["mnist"] = _sums(mnist_rows["forward"])
     forward["ae"] = _sums(ae_rows["forward"])
     forward["cifar"] = _by_pool(cifar_rows["forward"])
+    forward["bf16"] = _by_pool(bf16_rows)
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,

@@ -22,6 +22,7 @@ from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.params import params_from_numpy
 from znicz_tpu_torch.samples import alexnet
+from znicz_tpu_torch.serving import accuracy, quant
 from znicz_tpu_torch.serving import engine as engine_mod
 from znicz_tpu_torch.serving.batcher import (MicroBatcher, QueueFullError,
                                              RequestTimeoutError)
@@ -119,9 +120,27 @@ def test_engine_single_sample_and_shape_checks(engine):
     assert stats["warm_buckets"] == [1, 2, 4] and stats["device"] == "cpu"
 
 
-def test_engine_serves_f32_only(package):
-    with pytest.raises(ValueError, match="f32 only"):
-        InferenceEngine(package, device="cpu", dtype="bf16")
+@pytest.mark.parametrize("dtype", ["f32", "f32-fast", "bf16", "int8",
+                                   "fp8"])
+def test_engine_serves_each_dtype(package, engine, dtype):
+    """The four serving dtypes serve within their accuracy pins of the
+    f32 engine; an unknown spelling still raises ValueError."""
+    if dtype == "fp8":
+        with pytest.raises(ValueError, match="unknown serving dtype"):
+            InferenceEngine(package, device="cpu", dtype=dtype)
+        return
+    served = InferenceEngine(package, max_batch=4, device="cpu",
+                             dtype=dtype)
+    assert served.serve_dtype == quant.normalize_dtype(dtype)
+    assert served.warm_buckets == (1, 2, 4)
+    x = _images(4, seed=11)
+    got, want = served.predict(x), engine.predict(x)
+    assert got.dtype == numpy.float32 and got.shape == want.shape
+    if dtype == "f32":
+        assert numpy.array_equal(got, want)
+    else:
+        pin = accuracy.TOLERANCES[served.serve_dtype]["max_delta"]
+        assert numpy.abs(got - want).max() <= pin
 
 
 def test_params_from_jax_host_params(engine, jax_engine):

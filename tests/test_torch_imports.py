@@ -92,7 +92,14 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.samples.mnist_ae",
                  "znicz_tpu_torch.units.lr_adjust",
                  "znicz_tpu_torch.loader.loader_cifar",
-                 "znicz_tpu_torch.samples.cifar"):
+                 "znicz_tpu_torch.samples.cifar",
+                 "znicz_tpu_torch.export",
+                 "znicz_tpu_torch.serving.quant",
+                 "znicz_tpu_torch.serving.breaker",
+                 "znicz_tpu_torch.serving.engine",
+                 "znicz_tpu_torch.serving.registry",
+                 "znicz_tpu_torch.serving.continuous",
+                 "znicz_tpu_torch.serving.accuracy"):
         assert name in doc["modules"]
 
 

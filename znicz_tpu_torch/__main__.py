@@ -11,6 +11,8 @@ Examples::
     python -m znicz_tpu_torch alexnet --fused --snapshot SNAP.pickle
     python -m znicz_tpu_torch --list
     python -m znicz_tpu_torch serve PKG.zip --port 8899
+    python -m znicz_tpu_torch serve --latest cifar_caffe --dtype bf16
+    python -m znicz_tpu_torch serve a=PKG.zip@int8 b=SNAP.pickle
 
 A workflow runs on the card unless ``--device cpu``, and without CUDA
 it raises instead of carrying on on the CPU.  ``--optimize``,

@@ -3,11 +3,10 @@
 Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
 reads: the ``root.common.serving`` knobs of the serving slice, the
 ``root.common.telemetry`` gate, ``root.common.engine.precision_dtype``
-and ``root.common.dirs.snapshots`` / ``datasets`` of the training
-workflows, and the
-CLI's ``--config`` parser :func:`apply_override` (:535).  Namespaces
-auto-vivify on attribute access; assigning a dict merges it into the
-node.
+and ``deterministic``, ``root.common.dirs.snapshots`` / ``datasets`` of
+the training workflows, and the CLI's ``--config`` parser
+:func:`apply_override` (:535).  Namespaces auto-vivify on attribute
+access; assigning a dict merges it into the node.
 """
 
 import ast
@@ -74,10 +73,30 @@ root.common.update({
         "timeout_ms": 1000.0,     # per-request deadline in the queue
         "warmup": True,           # run every bucket once before ready
         "max_body_bytes": 16 << 20,  # larger request bodies get 413
+        # the serving dtype an export or a snapshot records ("f32",
+        # "f32-fast", "bf16" or "int8"); an engine without dtype=
+        # adopts its source's
+        "dtype": "f32",
+        # per-bucket circuit breakers: consecutive dispatch failures
+        # that open one (0: no breakers), the open -> half-open delay
+        # and the concurrent half-open probes
+        "breaker_threshold": 5,
+        "breaker_cooldown_ms": 1000.0,
+        "breaker_half_open_max": 1,
+        # the continuous batcher's dispatch slots (registry mode)
+        "max_inflight": 2,
+        # the registry's LRU device-memory budget (0: never evict)
+        "registry_memory_budget_bytes": 0,
+        # the share of queue_limit each priority admits under
+        "priority_queue_pct": {"low": 50.0, "normal": 100.0,
+                               "high": 100.0},
     },
     "telemetry": {"enabled": False},
-    # minibatch and trainer dtype (None: follow the data, float32)
-    "engine": {"precision_dtype": None},
+    # minibatch and trainer dtype (None: follow the data, float32);
+    # deterministic: cuDNN's deterministic algorithms on the card
+    # (core.backends.deterministic), False lets it pick faster
+    # nondeterministic ones
+    "engine": {"precision_dtype": None, "deterministic": True},
     # the snapshotter's default directory and the datasets' (the MNIST
     # loader's IDX files), inside the checkout
     "dirs": {"snapshots": os.path.join(_CHECKOUT, ".snapshots"),

@@ -13,9 +13,14 @@ and holds numpy arrays and Python values only, never tensors (the
 trainer's ``torch.Generator`` state among them), so a snapshot taken
 on the card resumes on the card or on the CPU.  It is named
 ``<prefix>_<suffix>.<pid>.pickle[.<compression>]`` and published
-atomically.  Mid-epoch snapshots (``window_interval``) and the
-serving-topology sidecar are not in this slice of the port
-(``ROADMAP.md``).
+atomically.  A unit-graph workflow's snapshot also carries
+``"topology"``, the array-free manifest of its forward stack
+(:func:`znicz_tpu_torch.export.forward_topology`, the JAX package's
+``_forward_topology`` :199-201, :237-253) that lets the serving engine
+serve the snapshot; a fused workflow's forwards are its trainer alone,
+which no layer type describes, so its snapshots carry none.
+Mid-epoch snapshots (``window_interval``) are not in this slice of the
+port (``ROADMAP.md``).
 """
 
 import bz2
@@ -124,6 +129,9 @@ class SnapshotterToFile(SnapshotterBase):
             "suffix": self.suffix,
             "time": time.time(),
         }
+        topology = self._forward_topology()
+        if topology is not None:
+            payload["topology"] = topology
         ext = "." + self.compression if self.compression else ""
         name = "%s_%s.%d.pickle%s" % (
             self.prefix, self.suffix or "current", os.getpid(), ext)
@@ -141,6 +149,21 @@ class SnapshotterToFile(SnapshotterBase):
         os.replace(tmp, self.destination)
         self.info("snapshot -> %s", self.destination)
         return self.destination
+
+    def _forward_topology(self):
+        """The serving topology of the workflow's forward stack, or None
+        (with a warning) where no layer type describes it: a snapshot
+        never fails over serving metadata."""
+        wf = self.workflow
+        if not getattr(wf, "forwards", None):
+            return None
+        try:
+            from znicz_tpu_torch.export import forward_topology
+            topology = forward_topology(wf)
+        except Exception as e:  # noqa: BLE001 - serving is optional
+            self.warning("snapshot carries no serving topology (%s)", e)
+            return None
+        return topology if topology["layers"] else None
 
     @staticmethod
     def import_(file_name):

@@ -27,6 +27,9 @@ class HandlerBase(BaseHTTPRequestHandler):
 
     owner = None
     protocol_version = "HTTP/1.1"  # keep-alive for request streams
+    #: TCP_NODELAY: a reply's body leaves at once after its headers
+    #: instead of waiting on the client's delayed ACK of them
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):
         if self.owner is not None:

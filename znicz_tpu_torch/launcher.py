@@ -1,15 +1,18 @@
 """Workflow launcher — the ``run(load, main)`` contract behind the CLI.
 
 Counterpart of ``znicz_tpu/launcher.py`` (``Launcher`` :29 with
-``load`` :110 and ``main`` :282, ``resolve_workflow_module`` :356,
+``load`` :110 and ``main`` :282, ``snapshot_candidates`` and
+``newest_snapshot`` :335-353, ``resolve_workflow_module`` :356,
 ``run_workflow`` :401).  A workflow module ends with
 ``run(load, main)``, where
 
 * ``load(factory, **kwargs) -> (workflow, snapshot_loaded)`` builds
   the workflow and, with ``--snapshot``, reads the state to restore;
-* ``main(**kwargs)`` initializes the workflow on the launcher's device
-  (the card unless ``device="cpu"``), applies the snapshot, and runs
-  unless ``dry_run``.
+* ``main(**kwargs)`` chooses cuDNN's deterministic algorithms
+  (:func:`znicz_tpu_torch.core.backends.deterministic`), initializes
+  the workflow on the launcher's device (the card unless
+  ``device="cpu"``), applies the snapshot, and runs unless
+  ``dry_run``.
 
 Multi-process runs, auto-resume, supervised restarts and crash
 reports are not in this slice of the port (``ROADMAP.md``).
@@ -19,6 +22,7 @@ import importlib
 import importlib.util
 import os
 
+from znicz_tpu_torch.core.backends import default_device, deterministic
 from znicz_tpu_torch.core.logger import Logger
 
 
@@ -63,6 +67,8 @@ class Launcher(Logger):
         wf = self.workflow
         if wf is None:
             raise RuntimeError("main() before load()")
+        # the card's algorithms are chosen before the first one runs
+        deterministic(default_device(self.device))
         wf.initialize(device=self.device, **kwargs)
         if self._state is not None:
             from znicz_tpu_torch.units.nn_units import (
@@ -71,6 +77,26 @@ class Launcher(Logger):
         if not self.dry_run:
             wf.run()
         return wf
+
+
+def snapshot_candidates(directory, prefix):
+    """Snapshot paths under ``directory`` named for ``prefix`` by the
+    snapshotter, newest first; files still being written (``.part``)
+    are left out."""
+    if not directory or not os.path.isdir(directory):
+        return []
+    cands = [os.path.join(directory, f) for f in os.listdir(directory)
+             if f.startswith(prefix + "_")
+             and ".pickle" in f and not f.endswith(".part")]
+    cands.sort(key=os.path.getmtime, reverse=True)
+    return cands
+
+
+def newest_snapshot(directory, prefix):
+    """The newest snapshot for ``prefix`` (None when there is none) —
+    what ``serve --latest`` serves."""
+    cands = snapshot_candidates(directory, prefix)
+    return cands[0] if cands else None
 
 
 def resolve_workflow_module(spec):

@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.core import memory, prng
-from znicz_tpu_torch.core.backends import default_device, full_f32
+from znicz_tpu_torch.core.backends import (default_device,
+                                            deterministic, full_f32)
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
 from znicz_tpu_torch.ops import conv as conv_ops
 from znicz_tpu_torch.ops import init as init_ops
@@ -857,6 +858,7 @@ class FusedNet:
             raise ValueError("unknown pool_impl %r" % (pool_impl,))
         self.device = default_device(device)
         full_f32(self.device)
+        deterministic(self.device)
         self.specs = build_specs(layers, input_sample_shape, defaults)
         for spec in self.specs:
             if spec.kind == "pool" and not spec.record_offsets:

@@ -47,6 +47,9 @@ class DropoutForward(Dropout, Forward):
     """The masking forward."""
 
     MAPPING = {"dropout"}
+    #: the mask and the generator state resume a run; no served forward
+    #: reads them
+    RESUME_ONLY = ("mask", "generator_state")
 
     def __init__(self, workflow, **kwargs):
         super(DropoutForward, self).__init__(workflow, **kwargs)

@@ -29,7 +29,7 @@ import numpy
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.accelerated_units import AcceleratedWorkflow
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
-from znicz_tpu_torch.core.backends import full_f32
+from znicz_tpu_torch.core.backends import deterministic, full_f32
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.snapshotter import SnapshotterToFile
 from znicz_tpu_torch.core.workflow import Repeater
@@ -108,6 +108,8 @@ class Forward(ForwardBase):
 
     hide_from_registry = True
     MAPPING = set()
+    #: exports that only a resumed run needs, never a served forward
+    RESUME_ONLY = ()
 
     def __init__(self, workflow, **kwargs):
         super(Forward, self).__init__(workflow, **kwargs)
@@ -129,11 +131,35 @@ class Forward(ForwardBase):
     def initialize(self, device=None, **kwargs):
         super(Forward, self).initialize(device=device, **kwargs)
         full_f32(self.device)
+        deterministic(self.device)
         for arr in (self.output, self.weights, self.bias):
             arr.device = self.device
 
     def fill_array(self, filling, array, stddev):
         fill_array(self.rand, filling, array, stddev)
+
+    @property
+    def package_attrs(self):
+        """The exports a deployment package and a snapshot's serving
+        topology describe: :attr:`exports` less :attr:`RESUME_ONLY`."""
+        return [a for a in self.exports if a not in self.RESUME_ONLY]
+
+    def package_export(self):
+        """The unit's public state for a deployment package
+        (``znicz_tpu/units/nn_units.py:154``): every allocated Array of
+        :attr:`package_attrs` as a host copy, every other value as it
+        is."""
+        data = {}
+        for attr in self.package_attrs:
+            value = getattr(self, attr, None)
+            if value is None:
+                continue
+            if isinstance(value, Array):
+                if not value:
+                    continue
+                value = numpy.array(value.mem)
+            data[attr] = value
+        return data
 
     def apply_params(self, weights, bias):
         """Set the weights and bias from host arrays (either None to
@@ -251,6 +277,7 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
     def initialize(self, device=None, **kwargs):
         super(GradientDescentBase, self).initialize(device=device, **kwargs)
         full_f32(self.device)
+        deterministic(self.device)
         for attr in ("learning_rate", "weights_decay", "gradient_moment",
                      "learning_rate_bias", "weights_decay_bias",
                      "gradient_moment_bias"):
