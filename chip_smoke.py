@@ -84,12 +84,37 @@ failure (the script then exits non-zero and prints no result line):
    (``--snapshot``; the snapshotter writes after the epochs that
    improved) and must end bit-equal to the uninterrupted run.  Prints
    each epoch's TRAIN images/s and the host's wall time per window;
-7. units — the MNIST conv sample (``root.mnistr_conv``, published
+7. alexnet_units — full-width AlexNet trained by the workflow CLI
+   through the unit graph, ``python -m znicz_tpu_torch alexnet`` (no
+   ``--fused``: a forward and a GD unit a layer, the four
+   ``zero_filter`` units masking the next layer's weights, the
+   ``arbitrary_step`` schedule), in this process at batch 128 over the
+   workflow phase's prototype rows (2,048 TRAIN, 256 VALID) for 2
+   epochs, f32, TF32 off, ``cudnn.deterministic``, snapshots in a
+   temporary directory: exactly 3 forward launches a minibatch and 3
+   backward a TRAIN minibatch (108 / 96), all at 16-byte vectors, no
+   plain pooling; after every run of each filler, its weights' masked
+   entries are 0 (``conv_str2``, ``conv_str3``, ``conv_str5`` and
+   ``fc6``), and each mask zeroes half of them; a second run from the
+   same seeds and the CLI resumed from the epoch-1 snapshot bit-equal
+   to the run (per-class n_err, confusion, weights, optimizer Arrays,
+   the adjuster's count, the dropout generators); 2 TRAIN minibatches
+   of 8 in f64 at full width, the card's unit graph against the CPU's
+   and the card's fused graph against the CPU's unit graph, the
+   dropout units handed the same host-drawn masks, within
+   ``UNITS_F64_RTOL`` (grouped weights through their masks), the
+   offsets equal; Cutter / GDCutter, Cutter1D, Multiplier /
+   GDMultiplier, Summator / GDSummator, ResizableAll2All and GDRProp
+   once on the card against the CPU in f64 within ``REGISTRY_RTOL``.
+   Prints each epoch's TRAIN images/s beside the workflow phase's, the
+   host ms a minibatch and by unit (the run's and its last epoch's),
+   the readbacks and syncs a minibatch and the snapshot seconds;
+8. units — the MNIST conv sample (``root.mnistr_conv``, published
    widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
    through the workflow CLI (a workflow file building
    ``mnist.build(layers=root.mnistr_conv.layers)``, no ``--fused``),
    in this process, at minibatch 60 over the loader's synthetic set
-   (15,000 TRAIN rows, a quarter of MNIST's, and its 10,000 VALID) for
+   (7,500 TRAIN and 5,000 VALID rows, ``UNITS_TRAIN`` / ``UNITS_VALID``) for
    2 epochs, f32,
    TF32 off, ``cudnn.deterministic``: the forward kernel must launch
    exactly twice a minibatch and the backward twice a TRAIN minibatch,
@@ -107,7 +132,7 @@ failure (the script then exits non-zero and prints no result line):
    data through ``--fused pool_impl=offsets`` as the yardstick, and
    both kernels' cold times at the MNIST shapes beside their bounds,
    plain versions and library calls;
-8. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
+9. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
    batch 128: one step on the kernels against one on the "gather"
    lowering from the same state (loss and n_err equal, every update
    within ``GATHER_STEP_RTOL``, while a backward that drops the last
@@ -124,21 +149,21 @@ failure (the script then exits non-zero and prints no result line):
    on the card, every backward launch at 16-byte vectors; then a
    step's device time split forward / backward / update, with the host
    held ahead, and the host's enqueue time;
-9. train kernels — both kernels at batch 128 bit-equal to their plain
+10. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
    and the backward at its runtime-stride instantiation and at tile
    budgets of 16, 24, 32 and 64 KB.
-10. ae — the MNIST convolutional autoencoder (``root.mnist_ae``, published
+11. ae — the MNIST convolutional autoencoder (``root.mnist_ae``, published
     widths: conv 5 5x5 without bias -> stochastic abs pooling 3x3/s2 ->
     the depooling, ``GDMaxAbsPooling`` as a forward stage on the backward
     kernel -> deconv with the conv's weights -> MSE against the input,
     ``GDDeconv`` the only gradient unit) through the CLI's unit graph,
     ``python -m znicz_tpu_torch mnist_ae``, in this process at minibatch
-    100 over the synthetic MNIST rows of the units phase (15,000 /
-    10,000) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``: the
+    100 over the synthetic MNIST rows of the units phase (7,500 /
+    5,000) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``: the
     backward kernel must launch exactly once a minibatch, TRAIN and
-    VALID (500, one channel
+    VALID (250, one channel
     a thread), the forward kernel never, no plain pooling on the card; a
     second run and the CLI resumed from the epoch-1 snapshot must end
     with each epoch's metrics, the weights, the GD's optimizer Arrays and
@@ -156,23 +181,25 @@ failure (the script then exits non-zero and prints no result line):
     then cold beside their bounds, plain versions and library yardsticks
     (``F.max_pool2d``, which computes max and not maxabs, and
     ``index_add_``);
-11. mse — the seven-segment regressor (``root.mnist7``) through the
+12. mse — the seven-segment regressor (``root.mnist7``) through the
     CLI's unit graph and through ``--fused``, 2 epochs each at minibatch
     60 over the same split: each epoch's n_err and MSE printed, no
     pooling launch; 4 TRAIN minibatches in f64 on the card, the fused
     graph against the unit graph within ``AE_F64_RTOL``.
-12. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
+13. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
     its ``arbitrary_step`` schedule and ``internal_mean``) at minibatch
-    100 over the CIFAR loader's synthetic set at CIFAR-10's split (50,000
-    TRAIN, 10,000 VALID), f32, TF32 off, ``cudnn.deterministic``.  First
+    100 over the CIFAR loader's synthetic set, 25,000 TRAIN and 5,000
+    VALID rows (half CIFAR-10's split, 50,000 / 10,000, which it ran
+    until PR 10), f32,
+    TF32 off, ``cudnn.deterministic``.  First
     both kernels at the path's pools, (100, 32, 32, 32) (caffe pool1)
     and (100, 32, 32, 96) (nin pool3), 3x3/s2 in ceil mode with a row
     and a column of overhang: bit-equal to their plain versions on
     random and tied inputs in f32 and f64, every launch at 16-byte
     vectors, then cold beside their bounds, plain versions and library
     yardsticks.  Then ``python -m znicz_tpu_torch cifar`` (the unit
-    graph) for 2 epochs: exactly one forward launch a minibatch (1,200)
-    and one backward a TRAIN minibatch (1,000), all at 16-byte vectors,
+    graph) for 2 epochs: exactly one forward launch a minibatch (600)
+    and one backward a TRAIN minibatch (500), all at 16-byte vectors,
     no plain pooling; the adjuster before the GD chain, ticked once a
     TRAIN minibatch; a second run and the CLI resumed from the epoch-1
     snapshot bit-equal to it (each epoch's n_err and confusion, the
@@ -189,7 +216,7 @@ failure (the script then exits non-zero and prints no result line):
     against it, every weight and bias within ``UNITS_F64_RTOL``, equal
     n_err, the same rate at every step.  The unit graph run's snapshots
     stay for the next phase.
-13. serve_models — what the port trains, served, under
+14. serve_models — what the port trains, served, under
     ``cudnn.deterministic``.  The AlexNet package of the serve phase in
     f32, bf16 and int8: ``accuracy.dtype_delta_report`` on the card (its
     own 64 seeded rows, uniform in [-1, 1], every bucket 1..64) within
@@ -223,15 +250,16 @@ summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
 ``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
 each CIFAR pool on its own, and ``launches`` counts the serve
-requests', the train epochs', the workflow run's, the unit graph's,
-both autoencoder paths', both CIFAR graphs' and the serve_models
+requests', the train epochs', the workflow run's, AlexNet's unit
+graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
+autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches (``launches_by_path``; the last also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` per
 pool) and ``launches`` counts the train epochs', the workflow run's,
-the unit graph's, the autoencoder paths' and the CIFAR graphs'.
+both unit graphs', the autoencoder paths' and the CIFAR graphs'.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -250,6 +278,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -344,12 +373,13 @@ CPU_STEP_RATIO, CPU_STEP_FLOOR = 4.0, 1e-6
 SERVE_REPEATS = 5
 #: the unit phase: the MNIST conv sample through the unit-at-a-time
 #: graph at minibatch 60 (root.mnistr.loader) over the loader's
-#: synthetic set, 15,000 TRAIN rows (a quarter of MNIST's 60,000: the
-#: cut that makes room for the CIFAR phase) and MNIST's 10,000 VALID
-#: rows, for 2 epochs; the autoencoder and MSE phases take the same
+#: synthetic set, 7,500 TRAIN and 5,000 VALID rows (an eighth and a
+#: half of MNIST's 60,000 / 10,000; 15,000 / 10,000 from PR 8 to PR 9,
+#: cut to make room for the CIFAR and then the alexnet_units phase),
+#: for 2 epochs; the autoencoder and MSE phases take the same
 #: rows; the prng streams 1 and 2 seeded with UNITS_SEED and the next
 #: integer before each run
-UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 15000, 10000, 60, 2
+UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 7500, 5000, 60, 2
 UNITS_SEED = 1234
 #: the card's f64 parameters after 4 TRAIN minibatches against the
 #: CPU's, relative to each tensor's largest magnitude: f64 on either
@@ -364,11 +394,36 @@ AE_SHAPE = (AE_BATCH, 24, 24, 5)
 AE_F64_RTOL = UNITS_F64_RTOL
 #: the MSE phase: mnist7 (root.mnist7) at minibatch 60 for 2 epochs
 MSE_BATCH, MSE_EPOCHS = 60, 2
+#: the alexnet_units phase: the CLI's AlexNet through the unit graph
+#: at batch TRAIN_BATCH over the workflow phase's rows for 2 epochs (the
+#: fewest a resume from epoch 1 allows); the forwards' output shapes
+#: (a zero_filter has none); each filler's name and the (n_kernels,
+#: weights per kernel) shape of the weights it masks
+ALEXNET_UNITS_EPOCHS = 2
+ALEXNET_SHAPES = [(128, 55, 55, 96), (128, 27, 27, 96), (128, 27, 27, 96),
+                  (128, 27, 27, 256), (128, 13, 13, 256),
+                  (128, 13, 13, 256), (128, 13, 13, 384),
+                  (128, 13, 13, 384), (128, 13, 13, 256), (128, 6, 6, 256),
+                  (128, 4096), (128, 4096), (128, 4096), (128, 4096),
+                  (128, 4096), (128, 4096), (128, 10)]
+ALEXNET_FILLED = {"grouping1_forward": (256, 2400),
+                  "grouping2_forward": (384, 2304),
+                  "grouping3_forward": (256, 3456),
+                  "grouping5_forward": (4096, 9216)}
+#: its f64 checks: full width at minibatch 8 for 2 TRAIN minibatches;
+#: a snapshotter interval no run of the phase reaches but the main one's
+ALEXNET_F64_BATCH, ALEXNET_F64_MB = 8, 2
+NO_SNAPSHOT = 1000000
+#: the rest of the registry on the card against the CPU in f64: each
+#: array within this of the CPU's largest magnitude; their inputs' seed
+REGISTRY_RTOL, REGISTRY_SEED = 1e-12, 2024
 #: the CIFAR phase: the caffe config (root.cifar: published widths,
 #: schedule and internal_mean) at minibatch 100 over the CIFAR loader's
-#: synthetic set at CIFAR-10's split, 50,000 TRAIN and 10,000 VALID
+#: synthetic set, 25,000 TRAIN and 5,000 VALID (half CIFAR-10's split,
+#: 50,000 / 10,000, which it ran until PR 10: cut to make room for the
+#: alexnet_units phase)
 #: rows, for 2 epochs, through the unit graph and the fused graph
-CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 50000, 10000, 100, 2
+CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 25000, 5000, 100, 2
 #: the caffe graph's forward output shapes at minibatch 100
 CIFAR_SHAPES = [(100, 32, 32, 32), (100, 16, 16, 32), (100, 16, 16, 32),
                 (100, 16, 16, 32), (100, 16, 16, 32), (100, 16, 16, 32),
@@ -1442,24 +1497,43 @@ def _cpu_check(torch, net, sd0, data, labels):
 
 
 class _Prototypes(object):
-    """``alexnet.prototype_images`` drawn once, before the phases: a
-    draw of ``n`` images is the prefix of any larger draw with the same
-    seed, classes and size, so while installed (``with``) the workflow
-    phase's loader (2,304 images, in its run and in the resumed run)
-    and the train phase (2,048) take copies of this one draw."""
+    """``alexnet.prototype_images`` drawn once, in a thread started
+    before the build and joined after it (:meth:`join`): numpy's draws
+    release the GIL, so the draw overlaps ``nvcc``, and it is over
+    before any phase that times the card or computes a reference on
+    the host (a CPU forward under load once read 1.75e-4 in log p from
+    the same forward unloaded).  A draw of ``n`` images is the prefix
+    of any larger draw with the same seed, classes and size, so while
+    installed (``with``) the workflow phase's loader (2,304 images, in
+    its run and in the resumed run), the alexnet_units phase's and the
+    train phase (2,048) take copies of this one draw."""
 
     def __init__(self, alexnet, n, seed=0x1337, n_classes=TRAIN_CLASSES,
                  size=227):
         self.alexnet, self.real = alexnet, alexnet.prototype_images
         self.n, self.key = n, (seed, n_classes, size)
-        self.data, self.labels = self.real(n, *self.key)
+        self.data = self.labels = self.error = None
+        self._thread = threading.Thread(target=self._draw, daemon=True)
+        self._thread.start()
+
+    def _draw(self):
+        try:
+            self.data, self.labels = self.real(self.n, *self.key)
+        except Exception as e:   # raised again by __enter__
+            self.error = e
 
     def __call__(self, n, seed=0x1337, n_classes=10, size=227):
         if (seed, n_classes, size) != self.key or n > self.n:
             return self.real(n, seed, n_classes, size)
         return self.data[:n].copy(), self.labels[:n].copy()
 
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("the prototype draw failed") from self.error
+
     def __enter__(self):
+        self.join()
         self.alexnet.prototype_images = self
         return self
 
@@ -1694,7 +1768,8 @@ def phase_workflow(torch, card):
     launches, the readbacks and the segment stats checked; the run's
     windows replayed on a fresh FusedNet from its initial state, bit
     for bit; the run resumed from its newest snapshot of an epoch
-    before the last, bit for bit.  Returns the run's launches."""
+    before the last, bit for bit.  Returns the run's launches and each
+    epoch's TRAIN images/s."""
     import shutil
     from znicz_tpu_torch import __main__ as cli
 
@@ -1722,7 +1797,7 @@ def phase_workflow(torch, card):
         probe.close()
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(snapdir, ignore_errors=True)
-    return launches
+    return launches, probe.rates
 
 
 def _check_workflow_run(probe, launches, steps, run_s, card):
@@ -1783,9 +1858,11 @@ def _check_workflow_run(probe, launches, steps, run_s, card):
     if train_rb != [1] * WORKFLOW_EPOCHS:
         raise RuntimeError("expected one readback a TRAIN segment, got %s"
                            % train_rb)
+    probe.rates = []
     for e in range(WORKFLOW_EPOCHS):
         wins = [w for w in probe.windows if w[0] == e]
         seg_s = segs[2 * e]["t"] - wins[0][2]
+        probe.rates.append(WORKFLOW_TRAIN / seg_s)
         say("   epoch %d: TRAIN %d images in %.3f s, %.1f images/s; host "
             "wall ms per window (steps): %s; %s" % (
                 e + 1, WORKFLOW_TRAIN, seg_s, WORKFLOW_TRAIN / seg_s,
@@ -2007,6 +2084,7 @@ class _UnitsProbe(object):
                 "n": d.epoch_n_evaluated_samples[c],
                 "confusion": numpy.array(d.confusion_matrixes[c]),
                 "metrics": getattr(d, "epoch_metrics", (None,) * 3)[c],
+                "unit_s": {u.name: u.run_time_ for u in d.workflow.units},
                 "t": time.perf_counter()})
 
         def export(snap):
@@ -2068,9 +2146,9 @@ class _UnitsProbe(object):
 def _units_state(wf):
     """Host copies of the run's final forward weights and biases, its GD
     units' optimizer Arrays and learning rates, the learning-rate
-    adjuster's count where it has one and the prng streams' states (the
-    loader's shuffles and the stochastic pools draw from them), by
-    name."""
+    adjuster's count where it has one, the prng streams' states (the
+    loader's shuffles and the stochastic pools draw from them) and the
+    dropout units' generator states, by name."""
     import numpy
     from znicz_tpu_torch.core import prng
     out = {}
@@ -2085,6 +2163,9 @@ def _units_state(wf):
         if gd is not None:
             out["%s.learning_rates" % gd.name] = numpy.array(
                 [gd.learning_rate, gd.learning_rate_bias], numpy.float64)
+    for unit in wf.forwards:
+        if hasattr(unit, "generator_state"):   # a dropout unit's stream
+            out["%s.generator_state" % unit.name] = unit.generator_state
     for unit in list(wf.forwards) + [g for g in wf.gds if g is not None]:
         for attr in ("weights", "bias", "gradient_weights_with_moment",
                      "gradient_bias_with_moment",
@@ -2265,9 +2346,10 @@ def _check_graph_run(torch, probe, run, launches, want, said, sizes, shapes,
                 and int(s["confusion"].sum()) == s["n"]):
             raise RuntimeError("segment stats out of range: %s" % s)
     wf = run["wf"]
-    if [tuple(f.output.shape) for f in wf.forwards] != shapes:
-        raise RuntimeError("the graph's output shapes are %s" % [
-            tuple(f.output.shape) for f in wf.forwards])
+    got_shapes = [tuple(f.output.shape) for f in wf.forwards
+                  if getattr(f, "output", None) is not None]
+    if got_shapes != shapes:
+        raise RuntimeError("the graph's output shapes are %s" % got_shapes)
     for key, arr in run["state"].items():
         if not numpy.isfinite(arr).all():
             raise RuntimeError("%s is not finite" % key)
@@ -2310,6 +2392,14 @@ def _check_graph_run(torch, probe, run, launches, want, said, sizes, shapes,
     say("   host ms by unit over the run (Unit.run_time_; the evaluator's "
         "includes waiting for the device at its readback): %s" % (
             _unit_times(wf)))
+    if epochs > 1:
+        last, before = segs[-1]["unit_s"], segs[-3]["unit_s"]
+        spent = sorted(((last[k] - before[k], k) for k in last),
+                       reverse=True)
+        say("   host ms by unit in the last epoch (%d TRAIN and %d VALID "
+            "minibatches), the costliest ten: %s" % (
+                train_mb, valid_mb, ", ".join(
+                    "%s %.1f" % (k, 1e3 * dt) for dt, k in spent[:10])))
 
 
 def _unit_times(wf):
@@ -2533,6 +2623,436 @@ def _mnist_kernel_times(torch, card, cycles_per_ms):
                     100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS,
                     card))
     return rows
+
+
+def _alexnet_units_argv(snapdir, *extra):
+    """The CLI's arguments for AlexNet through the unit graph over the
+    workflow phase's prototype images."""
+    argv = ["alexnet"]
+    for key, value in (("loader.minibatch_size", TRAIN_BATCH),
+                       ("loader.n_train", WORKFLOW_TRAIN),
+                       ("loader.n_valid", WORKFLOW_VALID),
+                       ("decision.max_epochs", ALEXNET_UNITS_EPOCHS),
+                       ("snapshotter.directory", snapdir)):
+        argv += ["--config", "alexnet.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+class _FillerProbe(object):
+    """Wraps ``ZeroFiller.run`` while installed (``with``) and put back
+    after (nothing in the package reads it): after each run, the number
+    of the linked weights' entries that the mask zeroes but are not 0
+    is added, on the card, to a count by filler (read once, at the
+    end: no readback inside the run); the runs are counted by filler,
+    and each filler's weights shape and masked share are recorded."""
+
+    def __init__(self, torch):
+        from znicz_tpu_torch.units.zerofilling import ZeroFiller
+        self.torch, self.cls = torch, ZeroFiller
+        self.real = ZeroFiller.run
+        self.bad, self.runs, self.shapes, self.off = {}, {}, {}, {}
+
+    def __enter__(self):
+        probe = self
+
+        def run(unit):
+            probe.real(unit)
+            name = unit.name
+            w = unit.weights.dev
+            if name not in probe.off:
+                mask = unit.mask.dev
+                probe.off[name] = (mask == 0).reshape(w.shape)
+                probe.shapes[name] = (tuple(unit.effective_shape),
+                                      int((unit.mask.mem == 0).sum()),
+                                      unit.mask.size)
+                probe.bad[name] = probe.torch.zeros(
+                    (), dtype=probe.torch.int64, device=w.device)
+            probe.bad[name] += ((w != 0) & probe.off[name]).sum()
+            probe.runs[name] = probe.runs.get(name, 0) + 1
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.real
+
+    def check(self, n_runs):
+        """Each filler ran ``n_runs`` times, the masked entries were 0
+        after every run, and the mask zeroes half the entries."""
+        bad = {k: int(v) for k, v in self.bad.items()}
+        if sorted(self.shapes) != sorted(ALEXNET_FILLED) or any(
+                self.shapes[k][0] != shape
+                for k, shape in ALEXNET_FILLED.items()):
+            raise RuntimeError("the fillers masked %s, not %s"
+                               % (self.shapes, ALEXNET_FILLED))
+        for name, (shape, zeros, size) in self.shapes.items():
+            if 2 * zeros != size:
+                raise RuntimeError("%s masks %d of %d entries, not half"
+                                   % (name, zeros, size))
+        if any(bad.values()) or set(self.runs.values()) != {n_runs}:
+            raise RuntimeError("filler runs %s (want %d each); masked "
+                               "entries left nonzero after a run: %s"
+                               % (self.runs, n_runs, bad))
+        return bad
+
+
+def phase_alexnet_units(torch, card, workflow_rates):
+    """Full-width AlexNet trained by the workflow CLI through the unit
+    graph (``python -m znicz_tpu_torch alexnet``, no ``--fused``), in
+    this process, at batch 128 over the workflow phase's prototype
+    images (2,048 TRAIN, 256 VALID) for 2 epochs, f32, TF32 off,
+    ``cudnn.deterministic``, snapshots in a temporary directory: 3
+    forward kernel launches a minibatch and 3 backward a TRAIN
+    minibatch, all at 16-byte vectors, no plain pooling on the card;
+    after every run of each of the four ``zero_filter`` units, the
+    masked entries of the weights it holds are 0, and its mask zeroes
+    half of them; a second run from the same seeds and the CLI resumed
+    from the epoch-1 snapshot end bit-equal to the run.  Then
+    :func:`_alexnet_f64` and :func:`_registry_on_card`.  Prints each
+    epoch's TRAIN images/s beside the workflow phase's (the fused graph
+    on the same rows, this run), the host ms a minibatch and by unit,
+    the readbacks and syncs a minibatch and the snapshot seconds.
+    Returns the run's launches."""
+    import tempfile
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    train_mb = -(-WORKFLOW_TRAIN // TRAIN_BATCH)
+    valid_mb = -(-WORKFLOW_VALID // TRAIN_BATCH)
+    n_mb = (train_mb + valid_mb) * ALEXNET_UNITS_EPOCHS
+    # the replay and the resume write no snapshot: they change nothing
+    # the checks read, and each costs about a second
+    no_snapshots = ("--config", "alexnet.snapshotter.interval=%d"
+                    % NO_SNAPSHOT)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    fillers = _FillerProbe(torch)
+    tmp = tempfile.TemporaryDirectory(prefix="alexnet_units_")
+    try:
+        say("== alexnet_units: python -m znicz_tpu_torch %s"
+            % " ".join(_alexnet_units_argv("TMP")))
+        _zero_counts()
+        with probe.readbacks, fillers:
+            run = _units_run(probe, cli, prng, _alexnet_units_argv(
+                os.path.join(tmp.name, "run")))
+        launches = _counts()
+        bad = fillers.check(n_mb)
+        f_mb, b_mb = n_mb, train_mb * ALEXNET_UNITS_EPOCHS
+        _check_graph_run(
+            torch, probe, run, launches,
+            {"forward": 3 * f_mb, "forward_by_width": {WIDE: 3 * f_mb,
+                                                       NARROW: 0},
+             "backward": 3 * b_mb, "backward_by_width": {WIDE: 3 * b_mb,
+                                                         NARROW: 0},
+             "plain_on_card": 0},
+            "3 forward launches a minibatch and 3 backward a TRAIN "
+            "minibatch, all at 16-byte vectors",
+            (WORKFLOW_TRAIN, WORKFLOW_VALID, TRAIN_BATCH,
+             ALEXNET_UNITS_EPOCHS), ALEXNET_SHAPES, card,
+            "unit graph")
+        say("   masking: %s, each %d runs (TRAIN and VALID), half of "
+            "each mask zero, masked entries left nonzero after a run: %s"
+            % (", ".join("%s %s" % (k, v[0])
+                         for k, v in sorted(fillers.shapes.items())),
+               n_mb, bad))
+        say("   the fused workflow phase on the same rows, this run: "
+            "TRAIN images/s by epoch %s against the unit graph's %s; "
+            "snapshots %s s (not in the rates); %s" % (
+                " ".join("%.1f" % r for r in workflow_rates),
+                " ".join("%.1f" % r for r in run["rates"]),
+                " / ".join("%.2f" % s[3] for s in run["snapshots"]), card))
+        t0 = time.perf_counter()
+        replay = _units_run(probe, cli, prng, _alexnet_units_argv(
+            os.path.join(tmp.name, "replay"), *no_snapshots))
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the replay's segment stats differ from the "
+                               "run's")
+        _units_equal(replay["state"], run["state"], "the replay")
+        say("   replay: a second CLI run from the same seeds: each epoch's "
+            "per-class n_err and confusion matrices, the weights, the "
+            "optimizer Arrays, the adjuster's count and the dropout "
+            "generators bit-equal to the run's (%.2f s)"
+            % (time.perf_counter() - t0))
+        del replay
+        _resume_units(probe, cli, prng, run, lambda *extra:
+                      _alexnet_units_argv(os.path.join(tmp.name, "resumed"),
+                                          *(no_snapshots + extra)))
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        tmp.cleanup()
+    del run
+    gc.collect()
+    _alexnet_f64(torch)
+    _registry_on_card(torch)
+    return launches
+
+
+def _host_masks(wf, rand, drawn=None):
+    """Each dropout unit of ``wf`` takes its masks from ``rand``, a host
+    stream: the JAX package's formula (``ceil(max(u - ratio, 0)) / (1 -
+    ratio)``), uploaded to the unit's device; each mask is appended to
+    ``drawn`` in the order drawn."""
+    import numpy
+    import torch
+    from znicz_tpu_torch.units.dropout import DropoutForward
+    for f in wf.forwards:
+        if isinstance(f, DropoutForward):
+            def calc_mask(f=f):
+                leave = 1.0 - f.dropout_ratio
+                u = rand.uniform(-f.dropout_ratio, leave, f.input.shape)
+                m = (numpy.ceil(numpy.maximum(u, 0)) /
+                     leave).astype(f.input.dtype)
+                if drawn is not None:
+                    drawn.append((f.dropout_ratio, m))
+                f.mask.set_dev(torch.from_numpy(m).to(f.device))
+            f.calc_mask = calc_mask
+
+
+def _alexnet_f64(torch):
+    """Full-width AlexNet in f64, minibatch ``ALEXNET_F64_BATCH``, for
+    ``ALEXNET_F64_MB`` TRAIN minibatches (and one VALID minibatch), from
+    one initial state: the unit graph on the card (the f64 kernels) and
+    on the CPU (the plain versions), both handed the same host-drawn
+    dropout masks: every weight and bias within ``UNITS_F64_RTOL`` of
+    the tensor's largest, every pool's offsets equal; and the fused
+    graph (``pool_impl="offsets"``) on the card, its dropout handed the
+    unit graph's masks: n_err equal, its weights within the same bound
+    (each grouped layer's through its mask: the unit graph lets the
+    masked entries move between an update and the next filler run, the
+    fused graph keeps them 0) and its biases."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    from znicz_tpu_torch.params import unit_params_to_numpy
+    from znicz_tpu_torch.samples import alexnet
+    from znicz_tpu_torch.units.pooling import MaxPooling
+    t0 = time.perf_counter()
+    real_run, real_rand = MaxPooling.run, torch.rand
+    offsets, drawn, out = {}, [], {}
+
+    def run(unit):
+        real_run(unit)
+        offsets.setdefault(unit.device.type, []).append(
+            unit.input_offset.dev.cpu().numpy().copy())
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    MaxPooling.run = run
+    plain = pooling.PLAIN_CUDA_CALLS
+    launched = {}
+    try:
+        for key, device, fused in (("cuda", "cuda", None),
+                                   ("cpu", "cpu", None),
+                                   ("fused", "cuda",
+                                    {"pool_impl": "offsets"})):
+            prng.get(1).seed(UNITS_SEED)
+            prng.get(2).seed(UNITS_SEED + 1)
+            with tempfile.TemporaryDirectory() as snapdir:
+                wf = alexnet.build(
+                    loader_config={
+                        "n_train": ALEXNET_F64_MB * ALEXNET_F64_BATCH,
+                        "n_valid": ALEXNET_F64_BATCH,
+                        "minibatch_size": ALEXNET_F64_BATCH},
+                    decision_config={"max_epochs": 1},
+                    snapshotter_config={"directory": snapdir,
+                                        "interval": NO_SNAPSHOT},
+                    fused=fused)
+                wf.initialize(device=device)
+                if fused is None:
+                    _host_masks(wf, prng.RandomGenerator().seed(
+                        UNITS_SEED + 2), drawn if key == "cuda" else None)
+                else:
+                    gen = wf.fused_trainer.net._gen
+                    keeps = iter(drawn)
+
+                    def rand(*size, generator=None, **kwargs):
+                        if generator is not gen:
+                            return real_rand(*size, generator=generator,
+                                             **kwargs)
+                        ratio, m = next(keeps)
+                        # keep = rand >= ratio: 1 where the mask keeps
+                        return torch.from_numpy(m * (1.0 - ratio)).to(
+                            device=kwargs["device"], dtype=kwargs["dtype"])
+                    torch.rand = rand
+                c0 = (cuda_pooling.LAUNCHES, cuda_pooling_backward.LAUNCHES)
+                wf.run()
+                torch.rand = real_rand
+                launched[key] = (cuda_pooling.LAUNCHES - c0[0],
+                                 cuda_pooling_backward.LAUNCHES - c0[1])
+            out[key] = {"n_err": list(wf.decision.epoch_n_err)}
+            if fused is None:
+                out[key]["params"] = unit_params_to_numpy(wf.forwards)
+            else:
+                net = wf.fused_trainer.net
+                out[key]["params"] = [(p["w"], p["b"]) if p else None
+                                      for p in net.host_params()]
+                out[key]["masks"] = [getattr(s, "weight_mask", None)
+                                     for s in net.specs]
+                if next(keeps, None) is not None:
+                    raise RuntimeError("the fused graph drew fewer dropout "
+                                       "masks than the unit graph")
+            del wf
+    finally:
+        MaxPooling.run = real_run
+        torch.rand = real_rand
+        root.common.engine.precision_dtype = saved
+    if pooling.PLAIN_CUDA_CALLS != plain:
+        raise RuntimeError("plain pooling ran on the card in f64")
+    worst = {"cuda": 0.0, "fused": 0.0}
+    for key in worst:
+        masks = out["fused"]["masks"]
+        for i, (g, w) in enumerate(zip(out[key]["params"],
+                                       out["cpu"]["params"])):
+            if w is None:
+                continue
+            for j, (a, b) in enumerate(zip(g, w)):
+                if a.dtype != numpy.float64:
+                    raise RuntimeError("layer %d ran in %s" % (i, a.dtype))
+                if j == 0 and masks[i] is not None:
+                    a, b = a * masks[i], b * masks[i]
+                rel = numpy.abs(a - b).max() / numpy.abs(b).max()
+                worst[key] = max(worst[key], rel)
+                if not rel <= UNITS_F64_RTOL:
+                    raise RuntimeError(
+                        "layer %d: the card's f64 parameters (%s) %.3g "
+                        "relative from the CPU's, over %g"
+                        % (i, key, rel, UNITS_F64_RTOL))
+    n_pools = 3 * (ALEXNET_F64_MB + 1)
+    if len(offsets.get("cuda", ())) != n_pools or any(
+            not numpy.array_equal(a, b)
+            for a, b in zip(offsets["cuda"], offsets["cpu"])):
+        raise RuntimeError("the pools' offsets differ between the card and "
+                           "the CPU")
+    want = (n_pools, 3 * ALEXNET_F64_MB)
+    if launched["cuda"] != want or launched["fused"] != want or \
+            launched["cpu"] != (0, 0):
+        raise RuntimeError("the f64 runs launched %s kernels (forward, "
+                           "backward), not %s on the card" % (launched,
+                                                              want))
+    if not (out["cuda"]["n_err"] == out["cpu"]["n_err"] ==
+            out["fused"]["n_err"]):
+        raise RuntimeError("n_err: card %s, CPU %s, fused %s" % (
+            out["cuda"]["n_err"], out["cpu"]["n_err"],
+            out["fused"]["n_err"]))
+    say("   card vs CPU, f64, full width, minibatch %d, %d TRAIN "
+        "minibatches and a VALID one, the dropout units handed the same "
+        "host-drawn masks: every weight and bias within %.3g of the "
+        "tensor's largest (bound %g), the %d pools' offsets equal, n_err "
+        "%s equal; the fused graph (pool_impl='offsets', its dropout "
+        "handed the unit graph's %d masks) on the card within %.3g of the "
+        "CPU's unit graph, grouped weights through their masks; %s "
+        "kernel launches (forward, backward) each on the card, no plain "
+        "pooling (%.2f s)" % (
+            ALEXNET_F64_BATCH, ALEXNET_F64_MB, worst["cuda"],
+            UNITS_F64_RTOL, n_pools, out["cpu"]["n_err"], len(drawn),
+            worst["fused"], want, time.perf_counter() - t0))
+
+
+def _registry_on_card(torch):
+    """The rest of the layer registry once on the card and once on the
+    CPU in f64, from the same seeded inputs: Cutter / GDCutter,
+    Cutter1D, Multiplier / GDMultiplier, Summator / GDSummator,
+    ResizableAll2All (grow, then shrink) and GDRProp (three steps);
+    every array within ``REGISTRY_RTOL`` of the CPU's largest."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.accelerated_units import AcceleratedWorkflow
+    from znicz_tpu_torch.core.memory import Array
+    from znicz_tpu_torch.units import (all2all, cutter, multiplier,
+                                       resizable_all2all, rprop_gd,
+                                       summator)
+    t0 = time.perf_counter()
+
+    def case(device):
+        r = numpy.random.RandomState(REGISTRY_SEED)
+        wf = AcceleratedWorkflow(None)
+
+        def arr(shape, lo=-1.0, hi=1.0):
+            a = Array(r.uniform(lo, hi, shape))
+            a.device = torch.device(device)
+            return a
+
+        def take(**arrays):
+            for k, a in arrays.items():
+                if a.dev.device.type != device:
+                    raise RuntimeError("%s ran on %s" % (k, a.dev.device))
+                out[k] = numpy.array(a.mem)
+        out = {}
+        cut = cutter.Cutter(wf, padding=(1, 2, 1, 1))
+        cut.input = arr((2, 6, 7, 3))
+        cut.initialize(device=device)
+        cut.run()
+        gcut = cutter.GDCutter(wf, padding=(1, 2, 1, 1))
+        gcut.err_output = arr((2, 3, 5, 3))
+        gcut.link_attrs(cut, "input")
+        gcut.initialize(device=device)
+        gcut.run()
+        take(cutter=cut.output, gd_cutter=gcut.err_input)
+        c1 = cutter.Cutter1D(wf, alpha=2.0, beta=0.5, input_offset=3,
+                             output_offset=1, length=4)
+        c1.input = arr((3, 10))
+        c1.output.reset(r.uniform(-1, 1, (3, 8)))
+        c1.initialize(device=device)
+        c1.run()
+        take(cutter1d=c1.output)
+        m, gm = multiplier.Multiplier(wf), multiplier.GDMultiplier(wf)
+        s, gs = summator.Summator(wf), summator.GDSummator(wf)
+        m.x, m.y = arr((4, 5)), arr((4, 5))
+        gm.x, gm.y, gm.err_output = m.x, m.y, arr((4, 5))
+        s.x, s.y = m.x, m.y
+        gs.err_output = gm.err_output
+        for u in (m, gm, s, gs):
+            u.initialize(device=device)
+            u.run()
+        take(multiplier=m.output, gd_multiplier_x=gm.err_x,
+             gd_multiplier_y=gm.err_y, summator=s.output,
+             gd_summator_x=gs.err_x, gd_summator_y=gs.err_y)
+        rs = resizable_all2all.ResizableAll2All(
+            wf, output_sample_shape=(5,), weights_stddev=0.1,
+            bias_stddev=0.1, rand=prng.RandomGenerator().seed(3))
+        rs.input = arr((4, 6))
+        rs.initialize(device=device)
+        rs.output_sample_shape = (8,)
+        rs.run()
+        take(resizable_grown=rs.output)
+        rs.output_sample_shape = (3,)
+        rs.run()
+        take(resizable_shrunk=rs.output, resizable_w=rs.weights)
+        fwd = all2all.All2All(wf, output_sample_shape=(3,),
+                              weights_stddev=0.1, bias_stddev=0.1,
+                              rand=prng.RandomGenerator().seed(4))
+        fwd.input = arr((8, 4))
+        fwd.initialize(device=device)
+        fwd.run()
+        rp = rprop_gd.GDRProp(wf)
+        rp.err_output = arr((8, 3), -0.1, 0.1)
+        rp.link_attrs(fwd, "output", "input", "weights", "bias")
+        rp.initialize(device=device)
+        for _ in range(3):
+            rp.err_output = arr((8, 3), -0.1, 0.1)
+            rp.run()
+        take(rprop_w=rp.weights, rprop_b=rp.bias, rprop_lrs=rp.weight_lrs,
+             rprop_err=rp.err_input)
+        return out
+
+    got, want = case("cuda"), case("cpu")
+    worst = 0.0
+    for k, w in want.items():
+        if got[k].shape != w.shape or got[k].dtype != numpy.float64:
+            raise RuntimeError("%s: %s %s on the card" % (
+                k, got[k].shape, got[k].dtype))
+        rel = numpy.abs(got[k] - w).max() / max(numpy.abs(w).max(), 1e-300)
+        worst = max(worst, rel)
+        if not rel <= REGISTRY_RTOL:
+            raise RuntimeError("%s: the card %.3g relative from the CPU"
+                               % (k, rel))
+    say("   the rest of the registry on the card against the CPU, f64: %s "
+        "within %.3g (bound %g) (%.2f s)" % (
+            ", ".join(sorted(want)), worst, REGISTRY_RTOL,
+            time.perf_counter() - t0))
 
 
 def _ae_argv(snapdir, *extra):
@@ -4202,9 +4722,10 @@ def _phases(torch, name, card, start):
     from znicz_tpu_torch.samples import alexnet
     marks = [("start", start), ("device and import", time.perf_counter())]
     prototypes = _Prototypes(alexnet, WORKFLOW_TRAIN + WORKFLOW_VALID)
-    marks.append(("prototype draw", time.perf_counter()))
     phase_build()
     marks.append(("build", time.perf_counter()))
+    prototypes.join()
+    marks.append(("the prototype draw's rest", time.perf_counter()))
     cycles_per_ms = _spin_cycles_per_ms(torch)
     rows, bf16_rows, max_err = phase_kernels(torch, card, cycles_per_ms)
     marks.append(("kernels", time.perf_counter()))
@@ -4216,8 +4737,11 @@ def _phases(torch, name, card, start):
         say("   %s in the model: %.4f ms (warm L2), cold alone %.4f ms; %s"
             % (label, layer_ms[label], rows[label]["ms"], card))
     with prototypes:
-        workflow_launches = phase_workflow(torch, card)
+        workflow_launches, workflow_rates = phase_workflow(torch, card)
         marks.append(("workflow", time.perf_counter()))
+        alexnet_units_launches = phase_alexnet_units(torch, card,
+                                                     workflow_rates)
+        marks.append(("alexnet_units", time.perf_counter()))
         units_launches, mnist_rows = phase_units(torch, card, cycles_per_ms)
         marks.append(("units", time.perf_counter()))
         train_launches, _ = phase_train(torch, card, cycles_per_ms)
@@ -4240,6 +4764,7 @@ def _phases(torch, name, card, start):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
     paths = {"train": train_launches, "workflow": workflow_launches,
+             "alexnet_units": alexnet_units_launches,
              "units": units_launches, "ae": ae_launches,
              "ae_fused": ae_fused_launches, "cifar": cifar_launches,
              "cifar_fused": cifar_fused_launches}

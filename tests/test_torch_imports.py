@@ -88,6 +88,12 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.ops.normalization",
                  "znicz_tpu_torch.units.deconv",
                  "znicz_tpu_torch.units.depooling",
+                 "znicz_tpu_torch.units.zerofilling",
+                 "znicz_tpu_torch.units.cutter",
+                 "znicz_tpu_torch.units.multiplier",
+                 "znicz_tpu_torch.units.summator",
+                 "znicz_tpu_torch.units.resizable_all2all",
+                 "znicz_tpu_torch.units.rprop_gd",
                  "znicz_tpu_torch.samples.mnist7",
                  "znicz_tpu_torch.samples.mnist_ae",
                  "znicz_tpu_torch.units.lr_adjust",

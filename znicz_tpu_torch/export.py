@@ -138,15 +138,23 @@ def forward_topology(workflow):
     """The array-free manifest of the forward stack that a snapshot
     carries: each layer's type string, the unit whose snapshot state
     holds its arrays, the names of those arrays and the scalar
-    hyperparameters.  ``zero_filter`` units are skipped: they mask the
-    next layer's weights in place, so the snapshotted weights are
-    already masked.  Reads no array's contents."""
+    hyperparameters.  A ``zero_filter`` unit has no entry: the next
+    layer's carries its ``zero_filter_grouping``, and the serving engine
+    folds the grouping mask into that layer's weights (the unit graph
+    masks them before every forward, but a GD update after the last
+    masking may have moved the masked entries).  Reads no array's
+    contents."""
     layers = []
+    grouping = None
     for fwd in getattr(workflow, "forwards", ()):
         tpe = _layer_type(fwd)
         if tpe == "zero_filter":
+            grouping = int(fwd.grouping)
             continue
         entry = {"type": tpe, "unit": fwd.name, "arrays": []}
+        if grouping is not None:
+            entry["zero_filter_grouping"] = grouping
+            grouping = None
         for attr in fwd.package_attrs:
             value = getattr(fwd, attr, None)
             if value is None:

@@ -16,7 +16,10 @@ tensors on ``device``, in the layout the port computes with:
 :func:`unit_params_from_numpy` and :func:`unit_params_to_numpy` carry
 the unit graph's forward weights between host arrays and its forward
 units, layer by layer; a unit whose weights are another's (an
-autoencoder's deconv, which applies its conv's) has no pair of its own.
+autoencoder's deconv, which applies its conv's) has no pair of its own,
+and neither has a unit that links the next layer's weights
+(``LINKS_NEXT_WEIGHTS``: a ``zero_filter``, which comes before the
+layer whose weights it masks).
 
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry
 a fused trainer's state (parameters, optimizer slots, hypers) between
@@ -55,6 +58,11 @@ def unit_params_from_numpy(forwards, host_params):
     seen = set()
     for unit, pair in zip(forwards, host_params):
         w = getattr(unit, "weights", None)
+        if getattr(unit, "LINKS_NEXT_WEIGHTS", False):
+            if pair is not None:
+                raise ValueError("%s links the next layer's weights: its "
+                                 "pair must be None" % unit.name)
+            continue
         if w is not None and id(w) in seen:
             if pair is not None:
                 raise ValueError("%s shares its weights with an earlier "
@@ -68,9 +76,13 @@ def unit_params_from_numpy(forwards, host_params):
 def unit_params_to_numpy(forwards):
     """The inverse of :func:`unit_params_from_numpy`: one ``(weights,
     bias)`` pair of host arrays per forward unit (None where it has no
-    weights or shares an earlier unit's, and for a missing bias)."""
+    weights, shares an earlier unit's or links the next one's, and for a
+    missing bias)."""
     out, seen = [], set()
     for unit in forwards:
+        if getattr(unit, "LINKS_NEXT_WEIGHTS", False):
+            out.append(None)
+            continue
         w, b = getattr(unit, "weights", None), getattr(unit, "bias", None)
         out.append(None if not w or id(w) in seen else (
             numpy.array(w.mem), numpy.array(b.mem) if b else None))

@@ -1,6 +1,9 @@
 """AlexNet — the heaviest model of the zoo: served as a deployment
-package made from a seed, and trained by the workflow CLI
-(``python -m znicz_tpu_torch alexnet --fused``).
+package made from a seed, and trained by the workflow CLI through the
+unit-at-a-time graph (``python -m znicz_tpu_torch alexnet``: a forward
+unit and a GD unit a layer, the four ``zero_filter`` units masking the
+next layer's weights before each forward, TRAIN and VALID) or the fused
+graph (``--fused``).
 
 Counterpart of ``znicz_tpu/samples/research/alexnet.py``
 (``make_layers`` :27, a copy): conv_str 96 11x11 s4 -> max_pool 3x3 s2
@@ -29,9 +32,11 @@ prototype-class images of ``SyntheticImagenetLoader.load_data``
 The training workflow is the JAX sample's: ``SyntheticImagenetLoader``
 (the same rows from the same ``RandomState(0x1337)`` recipe), the
 ``root.alexnet`` config, :class:`AlexNetWorkflow`, :func:`build` and
-:func:`run`, the launcher contract.  The loader's label count (10)
-sets the softmax head's width; every hidden width is the published
-one.
+:func:`run`, the launcher contract, in either graph.  The workflow
+links the config's ``arbitrary_step`` schedule, which the JAX sample's
+build leaves unlinked; its factor is 1 for the first 100,000
+minibatches, so both train alike.  The loader's label count (10) sets
+the softmax head's width; every hidden width is the published one.
 """
 
 import numpy
@@ -46,6 +51,7 @@ from znicz_tpu_torch.ops.init import fill_array
 from znicz_tpu_torch.ops.conv import output_spatial as conv_spatial
 from znicz_tpu_torch.ops.pooling import output_spatial as pool_spatial
 from znicz_tpu_torch.standard_workflow import StandardWorkflow
+from znicz_tpu_torch.units.zerofilling import grouping_mask
 
 BASE_LR = 0.01
 WD = 0.0005
@@ -160,13 +166,6 @@ def synthetic_images(n, seed=0x1337, n_classes=10, size=227):
     return norm.normalize(data), labels
 
 
-def _grouping_mask(shape, grouping):
-    """The ZeroFiller mask over (kernels, weights per kernel)."""
-    k = numpy.arange(shape[0])[:, None] % grouping
-    c = numpy.arange(shape[1])[None, :] % grouping
-    return (k != c).astype(numpy.float32)
-
-
 def init_package(seed, n_classes=1000, size=227, layers=None):
     """``(manifest, arrays)`` of a freshly initialised AlexNet (or of
     ``layers``, a list in the same format) on a ``size`` x ``size`` x 3
@@ -213,7 +212,7 @@ def init_package(seed, n_classes=1000, size=227, layers=None):
                          fwd["bias_stddev"])
             entry["include_bias"] = True
             if grouping is not None:
-                mask = _grouping_mask(weights, grouping)
+                mask = grouping_mask(weights, grouping)
                 wts *= mask
                 arrays["layer%d_zero_filter_mask.npy" % i] = mask
                 entry["arrays"]["zero_filter_mask"] = \
@@ -261,8 +260,8 @@ class SyntheticImagenetLoader(FullBatchLoader, IFullBatchLoader):
         self.class_lengths[TRAIN] = self.n_train
 
 
-#: the sample's config (the JAX sample's, without its learning-rate
-#: schedule, which its build does not link either)
+#: the sample's config, the JAX sample's: its ``arbitrary_step``
+#: schedule keeps the base rates for the first 100,000 minibatches
 root.alexnet.update({
     "decision": {"fail_iterations": 10000, "max_epochs": 10000},
     "snapshotter": {"prefix": "alexnet", "interval": 1,
@@ -270,11 +269,25 @@ root.alexnet.update({
     "loss_function": "softmax",
     "loader_name": "synthetic_imagenet_loader",
     "loader": {"minibatch_size": 4, "n_classes": 10},
+    "lr_adjuster": {"do": True, "lr_policy_name": "arbitrary_step",
+                    "bias_lr_policy_name": "arbitrary_step",
+                    "lr_parameters": {
+                        "lrs_with_lengths": [(1, 100000), (0.1, 100000),
+                                             (0.01, 100000000)]},
+                    "bias_lr_parameters": {
+                        "lrs_with_lengths": [(1, 100000), (0.1, 100000),
+                                             (0.01, 100000000)]}},
 })
 
 
 class AlexNetWorkflow(StandardWorkflow):
-    """The AlexNet training workflow (``StandardWorkflow``)."""
+    """The AlexNet training workflow (``StandardWorkflow``) with the
+    ``root.alexnet.lr_adjuster`` schedule (``link_lr_schedule``), in
+    either graph."""
+
+    def create_workflow(self):
+        super(AlexNetWorkflow, self).create_workflow()
+        self.link_lr_schedule(root.alexnet.lr_adjuster.as_dict())
 
 
 def build(layers=None, loader_config=None, decision_config=None, **kwargs):

@@ -92,10 +92,8 @@ root.cifar.update({
 class CifarWorkflow(StandardWorkflow):
     """The CIFAR-10 workflow: ``StandardWorkflow`` with the
     learning-rate adjuster of ``lr_adjuster_config`` (``root.cifar.
-    lr_adjuster`` by default) when its ``do`` is true.  In the unit
-    graph the adjuster runs after the snapshotter and the first GD unit
-    after it; in the fused graph ``link_lr_adjuster`` puts it between
-    the loader and the trainer."""
+    lr_adjuster`` by default) when its ``do`` is true
+    (``link_lr_schedule``)."""
 
     def __init__(self, workflow=None, **kwargs):
         # read by create_workflow(), which super().__init__ calls
@@ -104,14 +102,9 @@ class CifarWorkflow(StandardWorkflow):
 
     def create_workflow(self):
         super(CifarWorkflow, self).create_workflow()
-        adj_cfg = dict(self.lr_adjuster_cfg
-                       if self.lr_adjuster_cfg is not None
-                       else root.cifar.lr_adjuster.as_dict())
-        if adj_cfg.pop("do", False):
-            self.link_lr_adjuster(self.snapshotter, **adj_cfg)
-            if self.fused_trainer is None:
-                self.gds[-1].unlink_from(self.snapshotter)
-                self.gds[-1].link_from(self.lr_adjuster)
+        self.link_lr_schedule(self.lr_adjuster_cfg
+                              if self.lr_adjuster_cfg is not None
+                              else root.cifar.lr_adjuster.as_dict())
 
 
 def build(layers=None, loader_config=None, decision_config=None,

@@ -79,6 +79,7 @@ from znicz_tpu_torch.ops import normalization as norm_ops
 from znicz_tpu_torch.ops import pooling as pool_ops
 from znicz_tpu_torch.params import params_from_numpy
 from znicz_tpu_torch.serving import quant
+from znicz_tpu_torch.units.zerofilling import grouping_mask
 
 
 def default_buckets(max_batch):
@@ -635,6 +636,13 @@ class InferenceEngine(Logger):
                 for attr in entry.get("arrays", ())
                 if ustate.get(attr) is not None})
         _fill_from_fused_state(state, topology, layers, arrays_list, label)
+        for entry, arrays in zip(layers, arrays_list):
+            grouping = entry.get("zero_filter_grouping")
+            w = arrays.get("weights")
+            if grouping is not None and w is not None:
+                shape = (w.shape[0], w.size // w.shape[0])
+                arrays["weights"] = w * grouping_mask(
+                    shape, grouping, w.dtype).reshape(w.shape)
         shape = topology.get("input_sample_shape")
         shape = tuple(int(d) for d in shape) if shape else None
         return layers, arrays_list, label, shape, topology.get("serving")

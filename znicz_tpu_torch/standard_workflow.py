@@ -229,6 +229,21 @@ class StandardWorkflow(StandardWorkflowBase):
         self.lr_adjuster.link_from(*parents)
         return self.lr_adjuster
 
+    def link_lr_schedule(self, cfg):
+        """The sample's schedule: ``link_lr_adjuster`` with ``cfg`` (an
+        ``lr_adjuster`` config dict) when its ``do`` is true.  In the
+        unit graph the adjuster runs after the snapshotter and the first
+        GD unit after it; in the fused graph ``link_lr_adjuster`` puts
+        it between the loader and the trainer."""
+        cfg = dict(cfg)
+        if not cfg.pop("do", False):
+            return None
+        self.link_lr_adjuster(self.snapshotter, **cfg)
+        if self.fused_trainer is None:
+            self.gds[-1].unlink_from(self.snapshotter)
+            self.gds[-1].link_from(self.lr_adjuster)
+        return self.lr_adjuster
+
     def link_loop(self, *parents):
         """Close the training loop back into the repeater."""
         self.repeater.link_from(*parents)

@@ -4,8 +4,11 @@ Counterpart of ``znicz_tpu/standard_workflow_base.py``:
 ``StandardWorkflowBase.__init__`` with the layer-type registry
 (``layer_map`` :34), the loader registry plumbing (``loader_name``),
 ``_get_layer_type_kwargs`` (:163-188), ``link_repeater``,
-``link_loader``, ``link_forwards`` (:203-259) and
-``_add_forward_unit`` (:261-284).  A ``layers`` config is a list of
+``link_loader``, ``link_forwards`` (:203-259, with the
+``LINKS_NEXT_WEIGHTS`` hook :213-216 that hands a ``zero_filter`` the
+next forward's weights) and ``_add_forward_unit`` (:261-284: a unit
+takes its input from the last forward with an output, never from a
+filler).  A ``layers`` config is a list of
 dicts::
 
     {"type": "conv", "->": {forward kwargs}, "<-": {backward kwargs},
@@ -26,8 +29,9 @@ from znicz_tpu_torch.loader.base import UserLoaderRegistry
 from znicz_tpu_torch.units import nn_units
 # importing the layer modules registers their type strings
 from znicz_tpu_torch.units import (  # noqa: F401
-    activation, all2all, conv, deconv, depooling, dropout, gd, gd_conv,
-    gd_pooling, normalization, pooling)
+    activation, all2all, conv, cutter, deconv, depooling, dropout, gd,
+    gd_conv, gd_pooling, multiplier, normalization, pooling,
+    resizable_all2all, rprop_gd, summator, zerofilling)
 from znicz_tpu_torch.units.all2all import All2AllSoftmax
 from znicz_tpu_torch.units.dropout import DropoutForward
 
@@ -112,6 +116,10 @@ class StandardWorkflowBase(nn_units.NNWorkflow):
                 raise ValueError("no Forward registered for %r" % tpe)
             unit = self.layer_map[tpe].forward(self, **kwargs)
             self._add_forward_unit(unit, init_attrs, *parents)
+        # a ZeroFiller masks the NEXT layer's weights
+        for prev_fwd, fwd in zip(self.forwards, self.forwards[1:]):
+            if getattr(prev_fwd, "LINKS_NEXT_WEIGHTS", False):
+                prev_fwd.link_attrs(fwd, "weights")
         last_fwd = self.forwards[-1]
         if isinstance(last_fwd, All2AllSoftmax) and self.loader is not None:
             loader = self.loader

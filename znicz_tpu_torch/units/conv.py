@@ -7,13 +7,58 @@ conv_tanh, conv_sigmoid, conv_relu, conv_str.  Layout NHWC, weights
 bottom)``, sliding ``(x, y)``; a 3-D ``(B, H, W)`` input is one
 channel (:func:`~znicz_tpu_torch.units.nn_units.as_nhwc`).  The
 product is :func:`znicz_tpu_torch.ops.conv.forward`.  The "gabor"
-weight filling is not in the port yet (``ROADMAP.md``).
+weight filling is the JAX package's (``gabor_kernel`` and
+``fill_gabor_filters`` :15-55, the hook :151-152).
 """
 
 import numpy
 
 from znicz_tpu_torch.ops import conv as conv_ops
 from znicz_tpu_torch.units.nn_units import NNLayerBase, as_nhwc
+
+
+def gabor_kernel(kx, ky, sigma, theta, lambd, gamma, psi):
+    """A real Gabor kernel on a (ky, kx) grid: the formula of
+    ``cv2.getGaborKernel``, computed directly."""
+    ymax, xmax = ky // 2, kx // 2
+    y, x = numpy.mgrid[-ymax:ky - ymax, -xmax:kx - xmax]
+    xr = x * numpy.cos(theta) + y * numpy.sin(theta)
+    yr = -x * numpy.sin(theta) + y * numpy.cos(theta)
+    return (numpy.exp(-(xr ** 2 + (gamma * yr) ** 2) / (2.0 * sigma ** 2))
+            * numpy.cos(2.0 * numpy.pi * xr / lambd + psi))
+
+
+def fill_gabor_filters(w, kx, ky, n_channels, stddev, rand):
+    """Fill ``(n_kernels, ky*kx*C)`` weights with the Gabor bank: 4
+    orientations x 2 phase shifts over the wavelength / deviation
+    ratios, 96 distinct filters, each normalized to [0, 255], scaled by
+    ``stddev`` and repeated over the channels; kernels past the 96 get
+    white noise from ``rand``."""
+    n_kernels = w.shape[0]
+    size = min(kx, ky)
+    orientations = (0.0, numpy.pi / 4, numpy.pi / 2, 3 * numpy.pi / 4)
+    phase_shifts = (0.0, numpy.pi)
+    count = 0
+    for wavelen_ratio in range(4):
+        for dev_ratio in range(1, 2 * wavelen_ratio + 1):
+            for ori in orientations:
+                for phase in phase_shifts:
+                    if count == n_kernels:
+                        return
+                    k2d = gabor_kernel(
+                        kx, ky, sigma=size / dev_ratio / 2.0, theta=ori,
+                        lambd=size / wavelen_ratio, gamma=1.0, psi=phase)
+                    k2d = k2d - k2d.min()
+                    mx = k2d.max()
+                    if mx:
+                        k2d = k2d * (255.0 / mx)
+                    k2d = k2d * stddev
+                    # (ky, kx, C) row-major: the flat layout of a row
+                    w[count] = numpy.repeat(
+                        k2d.reshape(-1), n_channels).astype(w.dtype)
+                    count += 1
+    if count < n_kernels:
+        rand.fill_normal_real(w[count:], 0, stddev)
 
 
 class ConvolutionalBase(object):
@@ -71,10 +116,6 @@ class Conv(ConvolutionalBase, NNLayerBase):
         if len(self.input.shape) not in (3, 4):
             raise ValueError("conv input must be (B,H,W[,C]), got shape %s"
                              % (self.input.shape,))
-        if self.weights_filling == "gabor":
-            raise NotImplementedError(
-                "the gabor weight filling is not in this slice of the port "
-                "(see ROADMAP.md)")
         if self.weights_stddev is None:
             self.weights_stddev = min(self.get_weights_magnitude(), 0.05)
         if self.bias_stddev is None:
@@ -83,7 +124,12 @@ class Conv(ConvolutionalBase, NNLayerBase):
         if not self.weights:
             w = numpy.zeros((self.n_kernels, kernel_size),
                             dtype=self.input.dtype)
-            self.fill_array(self.weights_filling, w, self.weights_stddev)
+            if self.weights_filling == "gabor":
+                fill_gabor_filters(w, self.kx, self.ky, self.n_channels,
+                                   self.weights_stddev, self.rand)
+            else:
+                self.fill_array(self.weights_filling, w,
+                                self.weights_stddev)
             if self.weights_transposed:
                 w = w.T.copy()
             self.weights.reset(w)
