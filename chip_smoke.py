@@ -16,14 +16,16 @@ failure (the script then exits non-zero and prints no result line):
 3. kernels — the forward kernel against its plain PyTorch version on
    the card at the shapes the serving path gives it (AlexNet's three
    max pools at batch 64: f32, and max_pool1 in bf16 and f16), at the
-   MNIST conv sample's two pools (minibatch 60) in f32 and f64, on a
+   MNIST conv sample's two pools (minibatch 60) and STL-10's pool1
+   (50, 96, 96, 32) in f32 and f64 (STL-10's also through the unstaged
+   instantiation, random and tied), on a
    global 128x128 pool whose window no shared memory holds (the
    unstaged instantiation), on small edge-overhanging geometries in
    f32, bf16, f16 and f64, on the kernel's tile edges (output rows not
    a multiple of a tile's, channels not a multiple of a slab's, the
    MNIST pool's 87 channels) in f32, bf16 and f64, and on storage that
    is not 16-byte aligned, with forced ties, values and offsets
-   BIT-equal (60 cases, max and maxabs); each case prints the vector
+   BIT-equal (82 cases, max and maxabs); each case prints the vector
    width it launched at, and AlexNet's and MNIST's pool1 shapes must
    take 16-byte vectors, 87 channels and unaligned storage one
    channel.  Then kernel, plain version and ``F.max_pool2d`` (the
@@ -42,7 +44,7 @@ failure (the script then exits non-zero and prints no result line):
    one channel a thread, runtime strides in row and column tiles,
    cells no window covers, a gradient off a 16-byte boundary) and on
    96x96 windows at stride 1 that no shared memory holds, BIT-equal,
-   zero cells included (132 cases); both staged instantiations (stride
+   zero cells included (144 cases); both staged instantiations (stride
    2, runtime stride) at both widths and the unstaged one at 16-byte
    vectors must be among the cases, and each one's count is printed;
 5. serve — a full-width AlexNet package (227x227x3, 1000 classes,
@@ -87,8 +89,9 @@ failure (the script then exits non-zero and prints no result line):
 7. alexnet_units — full-width AlexNet trained by the workflow CLI
    through the unit graph, ``python -m znicz_tpu_torch alexnet`` (no
    ``--fused``: a forward and a GD unit a layer, the four
-   ``zero_filter`` units masking the next layer's weights, the
-   ``arbitrary_step`` schedule), in this process at batch 128 over the
+   ``zero_filter`` units masking the next layer's weights, no
+   learning-rate adjuster, as in the JAX sample), in this process at
+   batch 128 over the
    workflow phase's prototype rows (2,048 TRAIN, 256 VALID) for 2
    epochs, f32, TF32 off, ``cudnn.deterministic``, snapshots in a
    temporary directory: exactly 3 forward launches a minibatch and 3
@@ -96,14 +99,16 @@ failure (the script then exits non-zero and prints no result line):
    plain pooling; after every run of each filler, its weights' masked
    entries are 0 (``conv_str2``, ``conv_str3``, ``conv_str5`` and
    ``fc6``), and each mask zeroes half of them; a second run from the
-   same seeds and the CLI resumed from the epoch-1 snapshot bit-equal
-   to the run (per-class n_err, confusion, weights, optimizer Arrays,
-   the adjuster's count, the dropout generators); 2 TRAIN minibatches
+   same seeds (its weights drawn afresh) and the CLI resumed from the
+   epoch-1 snapshot (its weight draw taken from the run's, which the
+   snapshot's replace) bit-equal to the run (per-class n_err, confusion,
+   weights, optimizer Arrays, the dropout generators); 2 TRAIN minibatches
    of 8 in f64 at full width, the card's unit graph against the CPU's
    and the card's fused graph against the CPU's unit graph, the
    dropout units handed the same host-drawn masks, within
    ``UNITS_F64_RTOL`` (grouped weights through their masks), the
-   offsets equal; Cutter / GDCutter, Cutter1D, Multiplier /
+   offsets equal, the CPU's and the fused graph's builds taking the
+   card build's weight draw; Cutter / GDCutter, Cutter1D, Multiplier /
    GDMultiplier, Summator / GDSummator, ResizableAll2All and GDRProp
    once on the card against the CPU in f64 within ``REGISTRY_RTOL``.
    Prints each epoch's TRAIN images/s beside the workflow phase's, the
@@ -188,9 +193,9 @@ failure (the script then exits non-zero and prints no result line):
     graph against the unit graph within ``AE_F64_RTOL``.
 13. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
     its ``arbitrary_step`` schedule and ``internal_mean``) at minibatch
-    100 over the CIFAR loader's synthetic set, 25,000 TRAIN and 5,000
-    VALID rows (half CIFAR-10's split, 50,000 / 10,000, which it ran
-    until PR 10), f32,
+    100 over the CIFAR loader's synthetic set, 15,000 TRAIN and 3,000
+    VALID rows (CIFAR-10's split is 50,000 / 10,000; cut for the
+    command's time), f32,
     TF32 off, ``cudnn.deterministic``.  First
     both kernels at the path's pools, (100, 32, 32, 32) (caffe pool1)
     and (100, 32, 32, 96) (nin pool3), 3x3/s2 in ceil mode with a row
@@ -198,8 +203,8 @@ failure (the script then exits non-zero and prints no result line):
     random and tied inputs in f32 and f64, every launch at 16-byte
     vectors, then cold beside their bounds, plain versions and library
     yardsticks.  Then ``python -m znicz_tpu_torch cifar`` (the unit
-    graph) for 2 epochs: exactly one forward launch a minibatch (600)
-    and one backward a TRAIN minibatch (500), all at 16-byte vectors,
+    graph) for 2 epochs: exactly one forward launch a minibatch (360)
+    and one backward a TRAIN minibatch (300), all at 16-byte vectors,
     no plain pooling; the adjuster before the GD chain, ticked once a
     TRAIN minibatch; a second run and the CLI resumed from the epoch-1
     snapshot bit-equal to it (each epoch's n_err and confusion, the
@@ -242,6 +247,32 @@ failure (the script then exits non-zero and prints no result line):
     allocator's rounding, the next request restores it with bit-equal
     replies, and int8 holds at most ``INT8_BYTES_RATIO`` of f32's bytes;
     the reload's wall ms and the evict and restore ms are printed.
+15. stl10 — STL-10's published network (``root.stl``: conv 32 5x5 pad 2
+    -> max pool 3x3/s2 -> strict relu -> LRN -> conv 32 5x5 -> strict
+    relu -> avg pool 3x3/s2 -> LRN -> softmax; ``internal_mean``) at
+    minibatch 50 over the sample's synthetic set in the real binary
+    format, 5,000 TRAIN and 1,000 VALID images (written with the JAX
+    package's bytes in a thread beside the build), f32, TF32 off,
+    ``cudnn.deterministic``.  Both kernels at pool1's shape, (50, 96,
+    96, 32) 3x3/s2 in ceil mode, bit-equal to their plain versions in
+    f32 and f64 (also among the kernel phases' cases, staged and
+    unstaged), then cold beside their bounds, plain versions and library
+    yardsticks.  ``python -m znicz_tpu_torch research.stl10`` (the unit
+    graph) for 2 epochs: exactly one forward launch a minibatch (240)
+    and one backward a TRAIN minibatch (200), all at 16-byte vectors, no
+    plain pooling, no adjuster; a second run and the CLI resumed from
+    the epoch-1 snapshot bit-equal to it; ``--fused pool_impl=offsets``
+    (windows of 8 over the rows on the card): the same launches, one
+    readback a TRAIN segment; the first 4 TRAIN minibatches in f64, the
+    card against the CPU and the fused graph against the CPU's unit
+    graph, within ``UNITS_F64_RTOL``, pool1's offsets equal.  Then the
+    rest of the zoo through the unit graph on the card, no kernel:
+    ``research.mnist_simple`` (an epoch at minibatch 88 over the units
+    phase's rows), ``research.wine_relu`` and ``wine``,
+    ``research.hands``, ``research.tv_channels`` and ``yale_faces``
+    (their synthetic images, where PIL imports; whether PIL and
+    scikit-learn import is tried in child processes and printed), each
+    ending on the card with every epoch's n_err within its rows.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -249,17 +280,19 @@ forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
 ``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
-each CIFAR pool on its own, and ``launches`` counts the serve
+and ``stl10`` each pool on its own, and ``launches`` counts the serve
 requests', the train epochs', the workflow run's, AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
-phase's launches (``launches_by_path``; the last also by serving dtype,
+phase's launches, and both STL-10 graphs' (``launches_by_path``; the
+serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
-depooling of a minibatch of 100 on stochastic offsets, ``cifar`` per
-pool) and ``launches`` counts the train epochs', the workflow run's,
-both unit graphs', the autoencoder paths' and the CIFAR graphs'.
+depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
+``stl10`` per pool) and ``launches`` counts the train epochs', the
+workflow run's, both unit graphs', the autoencoder paths' and the CIFAR
+and STL-10 graphs'.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -419,11 +452,10 @@ NO_SNAPSHOT = 1000000
 REGISTRY_RTOL, REGISTRY_SEED = 1e-12, 2024
 #: the CIFAR phase: the caffe config (root.cifar: published widths,
 #: schedule and internal_mean) at minibatch 100 over the CIFAR loader's
-#: synthetic set, 25,000 TRAIN and 5,000 VALID (half CIFAR-10's split,
-#: 50,000 / 10,000, which it ran until PR 10: cut to make room for the
-#: alexnet_units phase)
-#: rows, for 2 epochs, through the unit graph and the fused graph
-CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 25000, 5000, 100, 2
+#: synthetic set, 15,000 TRAIN and 3,000 VALID rows (CIFAR-10's split is
+#: 50,000 / 10,000; cut to make room for the alexnet_units and stl10
+#: phases), for 2 epochs, through the unit graph and the fused graph
+CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 15000, 3000, 100, 2
 #: the caffe graph's forward output shapes at minibatch 100
 CIFAR_SHAPES = [(100, 32, 32, 32), (100, 16, 16, 32), (100, 16, 16, 32),
                 (100, 16, 16, 32), (100, 16, 16, 32), (100, 16, 16, 32),
@@ -442,6 +474,23 @@ CIFAR_F64_MB, CIFAR_F64_WINDOW, CIFAR_F64_BOUNDARY = 12, 8, 3
 #: the nin and mlp variants through the unit graph: 2,000 TRAIN and 500
 #: VALID rows, 1 epoch
 CIFAR_VARIANT_TRAIN, CIFAR_VARIANT_VALID = 2000, 500
+#: the stl10 phase: STL-10's published network (root.stl) at its
+#: minibatch 50 over the sample's synthetic set at STL-10's labelled
+#: TRAIN split, 5,000 rows, and 1,000 VALID rows (the test split's
+#: 8,000, cut for time), for 2 epochs through both graphs
+STL_TRAIN, STL_VALID, STL_BATCH, STL_EPOCHS = 5000, 1000, 50, 2
+#: its max pool, pool1: 3x3/s2 in ceil mode over conv1's output (96 ->
+#: 48: the last row and column of windows overhang the edge)
+STL_POOLS = (("stl10 pool1", (50, 96, 96, 32)),)
+#: the graph's forward output shapes at minibatch 50 (the head as wide
+#: as the synthetic set's 4 labels, as in the JAX package)
+STL_SHAPES = [(50, 96, 96, 32)] + [(50, 48, 48, 32)] * 5 + \
+    [(50, 24, 24, 32)] * 2 + [(50, 4)]
+#: its f64 checks: the first 4 TRAIN minibatches and a VALID one
+STL_F64_MB = 4
+#: the zoo's MNIST MLP at its published minibatch, for one epoch over the
+#: units phase's rows; the other samples' epochs
+ZOO_MNIST_BATCH, ZOO_EPOCHS = 88, 2
 
 
 def say(*args):
@@ -556,6 +605,10 @@ def _cases(torch, gen):
             x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
             yield ("MNIST %s %s" % (label, dtype), x, 2, 2, (2, 2),
                    WIDE if shape[3] % 4 == 0 else NARROW)
+    for label, shape in STL_POOLS:
+        for dtype in (f32, f64):
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            yield "%s %s" % (label, dtype), x, 3, 3, (2, 2), WIDE
     b, h, w, c, ky, kx, sliding = UNSTAGED
     yield ("unstaged %s f32" % (UNSTAGED,),
            _tied(torch, gen, (b, h, w, c), f32), ky, kx, sliding, WIDE)
@@ -576,6 +629,40 @@ def _cases(torch, gen):
     buf = _tied(torch, gen, (2 * 27 * 27 * 36 + 1,), f32)
     yield ("unaligned %s f32" % (shape,), buf[1:].view(shape), 3, 3, (2, 2),
            NARROW)
+
+
+class _Unstaged(object):
+    """While installed (``with``), both wrappers plan every launch as
+    they plan a window that no shared memory holds: their unstaged
+    instantiations, on any shape (``MAX_SMEM`` set to 0, the plans'
+    caches cleared before and after); nothing in the package reads
+    it."""
+
+    def __enter__(self):
+        from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+        self.mods = (cuda_pooling, cuda_pooling_backward)
+        self.saved = [m.MAX_SMEM for m in self.mods]
+        for m in self.mods:
+            m.MAX_SMEM = 0
+            m.launch_plan.cache_clear()
+        return self
+
+    def __exit__(self, *exc):
+        for m, smem in zip(self.mods, self.saved):
+            m.MAX_SMEM = smem
+            m.launch_plan.cache_clear()
+
+
+def _stl_unstaged_cases(torch, gen):
+    """``(label, x)``: STL-10's pool1 input in f32 and f64, random and
+    tied, for the unstaged instantiations."""
+    for label, shape in STL_POOLS:
+        for dtype in (torch.float32, torch.float64):
+            yield ("%s %s unstaged" % (label, dtype),
+                   torch.randn(shape, generator=gen, device="cuda",
+                               dtype=dtype))
+            yield ("%s %s tied, unstaged" % (label, dtype),
+                   _tied(torch, gen, shape, dtype))
 
 
 def _spin_cycles_per_ms(torch):
@@ -707,6 +794,22 @@ def phase_kernels(torch, card, cycles_per_ms):
         if label.startswith("unstaged") == plan.staged:
             raise RuntimeError("%s launched %s" % (
                 label, "staged" if plan.staged else "unstaged"))
+    # STL-10's pool1 through the unstaged instantiation as well
+    with _Unstaged():
+        for label, x in _stl_unstaged_cases(torch, gen):
+            for use_abs in (False, True):
+                err, width = _check_pool(torch, x, 3, 3, (2, 2), use_abs,
+                                         "%s use_abs=%s" % (label, use_abs))
+                max_err = max(max_err, err)
+                n_cases += 1
+            plan = cuda_pooling.launch_plan(
+                tuple(x.shape), x.element_size(),
+                cuda_pooling.vector_width(x), 3, 3, (2, 2))
+            if plan.staged or width != WIDE:
+                raise RuntimeError("%s launched %s at %s" % (label, plan,
+                                                             width))
+            say("   %s: bit-equal, max and maxabs, at width %s; %s"
+                % (label, width, plan))
     say("== kernels: max_pooling_offsets bit-equal to max_pooling_plain "
         "on %d cases (values and int32 offsets), staged and unstaged"
         % n_cases)
@@ -1220,6 +1323,24 @@ def phase_backward_kernel(torch):
         say("   backward %s: bit-equal (%d nonzero cells), max and maxabs, "
             "%s" % (label, nonzero, "; ".join(
                 "%s, %s" % k for k in sorted(kinds))))
+    # STL-10's pool1 through the unstaged instantiations as well
+    with _Unstaged():
+        for label, x in _stl_unstaged_cases(torch, gen):
+            nonzero = 0
+            for use_abs in (False, True):
+                buf = torch.randn(x.numel() + 1, generator=gen,
+                                  device="cuda").to(x.dtype)
+                err, nz, kind = _check_backward(torch, x, buf, 3, 3, (2, 2),
+                                                use_abs, label)
+                max_err = max(max_err, err)
+                nonzero += nz
+                taken[kind] = taken.get(kind, 0) + 1
+                n_cases += 1
+                if kind != ("unstaged", WIDE):
+                    raise RuntimeError("%s launched %s, not unstaged at %s"
+                                       % (label, kind, WIDE))
+            say("   backward %s: bit-equal (%d nonzero cells), max and "
+                "maxabs, unstaged, %s" % (label, nonzero, WIDE))
     say("== backward kernel: max_pooling_offsets_backward bit-equal to "
         "max_pooling_backward_plain on %d cases; by instantiation and "
         "width: %s" % (n_cases, ", ".join(
@@ -2042,14 +2163,17 @@ class _UnitsProbe(object):
     bookkeeping), each snapshot written (its epoch joined to the
     sample's prefix, since two epochs with equal errors would share a
     file name; the readbacks it
-    makes are not counted), and the MNIST and CIFAR loaders' synthetic
+    makes are not counted), the MNIST and CIFAR loaders' synthetic
     draws, each made once (``_DRAWS``: a draw is a function of the
-    sizes alone)."""
+    sizes alone), and the STL-10 loader's decoded files, read once by
+    directory (``_DRAWS`` too: the files do not change within a
+    phase)."""
 
     def __init__(self, torch):
         import numpy
         from znicz_tpu_torch.core import workflow
         from znicz_tpu_torch.loader import loader_cifar, loader_mnist
+        from znicz_tpu_torch.loader import loader_stl
         from znicz_tpu_torch.loader.base import VALID
         from znicz_tpu_torch.units import decision, nn_units
         self.runs, self.segments, self.snapshots = [], [], []
@@ -2064,6 +2188,11 @@ class _UnitsProbe(object):
         loaders = (loader_mnist.MnistLoader, loader_cifar.CifarLoader)
         self.real_draws = {cls: cls.__dict__["_load_synthetic"]
                            for cls in loaders}
+        self.stl = loader_stl.STL10FullBatchLoader
+        # inherited (FullBatchImageLoader's): set on the class while
+        # installed; what the class itself held is put back after
+        self.saved_stl = self.stl.__dict__.get("load_data")
+        real_stl = self.stl.load_data
 
         def run(wf):
             if wf.workflow is not None:   # a nested workflow
@@ -2118,6 +2247,26 @@ class _UnitsProbe(object):
             loader.original_data.reset(data.copy())
             loader._original_labels[:] = labels
 
+        def load_stl(loader):
+            key = ("stl10", os.path.abspath(loader.directory))
+            if key not in _DRAWS:
+                real_stl(loader)
+                _DRAWS[key] = (
+                    list(loader.class_lengths),
+                    loader.original_data.mem.copy(),
+                    list(loader.original_labels),
+                    {c: list(k) for c, k in loader._keys.items()},
+                    dict(loader._label_to_int),
+                    set(loader._distinct_labels))
+                return
+            lengths, data, labels, keys, mapping, distinct = _DRAWS[key]
+            loader.class_lengths[:] = lengths
+            loader.original_data.reset(data.copy())
+            loader._original_labels[:] = labels
+            loader._keys = {c: list(k) for c, k in keys.items()}
+            loader._label_to_int = dict(mapping)
+            loader._distinct_labels = set(distinct)
+
         self._owners = owners
         for name, fn in (("run", run), ("_on_last_minibatch",
                                         on_last_minibatch),
@@ -2125,6 +2274,7 @@ class _UnitsProbe(object):
             setattr(owners[name], name, fn)
         for cls in loaders:
             cls._load_synthetic = _load_synthetic
+        self.stl.load_data = load_stl
 
     def _where(self):
         wf = self.ctx.get("wf")
@@ -2141,6 +2291,10 @@ class _UnitsProbe(object):
             setattr(owner, name, self.real[name])
         for cls, real in self.real_draws.items():
             cls._load_synthetic = real
+        if self.saved_stl is not None:
+            self.stl.load_data = self.saved_stl
+        elif "load_data" in self.stl.__dict__:   # a second close
+            del self.stl.load_data
 
 
 def _units_state(wf):
@@ -2455,13 +2609,30 @@ def _fused_yardstick(torch, probe, cli, prng, run, base, wf_file, card):
 
 def _units_card_vs_cpu(torch):
     """The first 4 TRAIN minibatches (and the VALID one after them) of
-    the full-width MNIST conv graph in f64, on the card (the f64
-    kernels) and on the CPU (the plain versions), from one initial
-    state: every forward's weights and bias within ``UNITS_F64_RTOL`` of
-    the tensor's largest magnitude, every pool's offsets equal; and the
-    same minibatches through the fused graph (``fused={"pool_impl":
-    "offsets"}``) in f64 on the card, its parameters within the same
-    bound of the CPU's unit graph."""
+    the full-width MNIST conv graph in f64 (:func:`_card_vs_cpu_f64`)."""
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.samples import mnist
+
+    def build(fused, snapdir):
+        return mnist.build(
+            layers=root.mnistr_conv.layers,
+            loader_config={"synthetic_train": 4 * UNITS_BATCH,
+                           "synthetic_valid": UNITS_BATCH,
+                           "minibatch_size": UNITS_BATCH},
+            decision_config={"max_epochs": 1},
+            snapshotter_config={"directory": snapdir}, fused=fused)
+    _card_vs_cpu_f64(torch, build, 2, 4, "")
+
+
+def _card_vs_cpu_f64(torch, build, pools, train_mb, what):
+    """A graph's first ``train_mb`` TRAIN minibatches and a VALID one in
+    f64, ``build(fused, snapdir)`` built, on the card (the f64 kernels)
+    and on the CPU (the plain versions), from one initial state: every
+    forward's weights and bias within ``UNITS_F64_RTOL`` of the tensor's
+    largest magnitude, every pool's offsets equal (``pools`` max pools a
+    minibatch); and the same minibatches through the fused graph
+    (``fused={"pool_impl": "offsets"}``) in f64 on the card, its
+    parameters within the same bound of the CPU's unit graph."""
     import tempfile
     import numpy
     from znicz_tpu_torch.core import prng
@@ -2469,7 +2640,6 @@ def _units_card_vs_cpu(torch):
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     from znicz_tpu_torch.ops import pooling
     from znicz_tpu_torch.params import unit_params_to_numpy
-    from znicz_tpu_torch.samples import mnist
     from znicz_tpu_torch.units.pooling import MaxPooling
     t0 = time.perf_counter()
     real_run = MaxPooling.run
@@ -2491,13 +2661,7 @@ def _units_card_vs_cpu(torch):
             prng.get(1).seed(UNITS_SEED)
             prng.get(2).seed(UNITS_SEED + 1)
             with tempfile.TemporaryDirectory() as snapdir:
-                wf = mnist.build(
-                    layers=root.mnistr_conv.layers,
-                    loader_config={"synthetic_train": 4 * UNITS_BATCH,
-                                   "synthetic_valid": UNITS_BATCH,
-                                   "minibatch_size": UNITS_BATCH},
-                    decision_config={"max_epochs": 1},
-                    snapshotter_config={"directory": snapdir}, fused=fused)
+                wf = build(fused, snapdir)
                 wf.initialize(device=device)
                 wf.run()
             if fused is None:
@@ -2534,24 +2698,25 @@ def _units_card_vs_cpu(torch):
                         "layer %d: the card's f64 parameters (%s) %.3g "
                         "relative from the CPU's, over %g" % (
                             i, graph, rel, UNITS_F64_RTOL))
-    if len(offsets["cuda"]) != 10 or any(
+    want = (pools * (train_mb + 1), pools * train_mb)
+    if len(offsets["cuda"]) != want[0] or any(
             not numpy.array_equal(a, b)
             for a, b in zip(offsets["cuda"], offsets["cpu"])):
         raise RuntimeError("the pools' offsets differ between the card and "
                            "the CPU")
-    if launched != (10, 8) or fused_launched != (10, 8):
+    if launched != want or fused_launched != want:
         raise RuntimeError("the f64 runs launched %s and %s kernels "
-                           "(forward, backward), not (10, 8)"
-                           % (launched, fused_launched))
-    say("   card vs CPU, f64, full width, 4 TRAIN minibatches and a VALID "
-        "one: every forward's weights and bias within %.3g of the "
-        "tensor's largest (bound %g), the 10 pools' offsets equal, on %d "
+                           "(forward, backward), not %s"
+                           % (launched, fused_launched, want))
+    say("   %scard vs CPU, f64, full width, %d TRAIN minibatches and a "
+        "VALID one: every forward's weights and bias within %.3g of the "
+        "tensor's largest (bound %g), the %d pools' offsets equal, on %d "
         "forward and %d backward f64 kernel launches; the fused graph "
         "(pool_impl='offsets') on the card within %.3g of the CPU's unit "
         "graph, on %d and %d; no plain pooling on the card (%.2f s)" % (
-            worst["cuda"], UNITS_F64_RTOL, launched[0], launched[1],
-            worst["fused"], fused_launched[0], fused_launched[1],
-            time.perf_counter() - t0))
+            what, train_mb, worst["cuda"], UNITS_F64_RTOL, want[0],
+            launched[0], launched[1], worst["fused"], fused_launched[0],
+            fused_launched[1], time.perf_counter() - t0))
 
 
 def _mnist_kernel_times(torch, card, cycles_per_ms):
@@ -2726,15 +2891,20 @@ def phase_alexnet_units(torch, card, workflow_rates):
     torch.backends.cudnn.benchmark = False
     probe = _UnitsProbe(torch)
     fillers = _FillerProbe(torch)
+    # the resume takes the run's weight draw, which it overwrites with
+    # the snapshot's; the replay draws afresh (what it checks)
+    memo = _DrawMemo()
     tmp = tempfile.TemporaryDirectory(prefix="alexnet_units_")
     try:
         say("== alexnet_units: python -m znicz_tpu_torch %s"
             % " ".join(_alexnet_units_argv("TMP")))
         _zero_counts()
-        with probe.readbacks, fillers:
+        with probe.readbacks, fillers, memo:
             run = _units_run(probe, cli, prng, _alexnet_units_argv(
                 os.path.join(tmp.name, "run")))
         launches = _counts()
+        if getattr(run["wf"], "lr_adjuster", None) is not None:
+            raise RuntimeError("AlexNet linked a learning-rate adjuster")
         bad = fillers.check(n_mb)
         f_mb, b_mb = n_mb, train_mb * ALEXNET_UNITS_EPOCHS
         _check_graph_run(
@@ -2768,20 +2938,24 @@ def phase_alexnet_units(torch, card, workflow_rates):
             raise RuntimeError("the replay's segment stats differ from the "
                                "run's")
         _units_equal(replay["state"], run["state"], "the replay")
-        say("   replay: a second CLI run from the same seeds: each epoch's "
-            "per-class n_err and confusion matrices, the weights, the "
-            "optimizer Arrays, the adjuster's count and the dropout "
-            "generators bit-equal to the run's (%.2f s)"
-            % (time.perf_counter() - t0))
+        say("   replay: a second CLI run from the same seeds, its weights "
+            "drawn afresh: each epoch's per-class n_err and confusion "
+            "matrices, the weights, the optimizer Arrays and the dropout "
+            "generators bit-equal to the run's; no learning-rate adjuster, "
+            "as in the JAX sample (%.2f s)" % (time.perf_counter() - t0))
         del replay
-        _resume_units(probe, cli, prng, run, lambda *extra:
-                      _alexnet_units_argv(os.path.join(tmp.name, "resumed"),
-                                          *(no_snapshots + extra)))
+        with memo:
+            _resume_units(probe, cli, prng, run, lambda *extra:
+                          _alexnet_units_argv(
+                              os.path.join(tmp.name, "resumed"),
+                              *(no_snapshots + extra)))
+        say("   the resume took %d of its weight draws from the run's "
+            "(the snapshot's weights replace them)" % memo.hits)
     finally:
         probe.close()
         torch.backends.cudnn.deterministic = False
         tmp.cleanup()
-    del run
+    del run, memo
     gc.collect()
     _alexnet_f64(torch)
     _registry_on_card(torch)
@@ -2843,6 +3017,9 @@ def _alexnet_f64(torch):
     MaxPooling.run = run
     plain = pooling.PLAIN_CUDA_CALLS
     launched = {}
+    # the three builds start from one state: the CPU's and the fused
+    # graph's take the card build's weight draw
+    memo = _DrawMemo().__enter__()
     try:
         for key, device, fused in (("cuda", "cuda", None),
                                    ("cpu", "cpu", None),
@@ -2896,6 +3073,7 @@ def _alexnet_f64(torch):
                                        "masks than the unit graph")
             del wf
     finally:
+        memo.__exit__()
         MaxPooling.run = real_run
         torch.rand = real_rand
         root.common.engine.precision_dtype = saved
@@ -2945,10 +3123,11 @@ def _alexnet_f64(torch):
         "handed the unit graph's %d masks) on the card within %.3g of the "
         "CPU's unit graph, grouped weights through their masks; %s "
         "kernel launches (forward, backward) each on the card, no plain "
-        "pooling (%.2f s)" % (
+        "pooling; %d weight draws made, %d taken from them (%.2f s)" % (
             ALEXNET_F64_BATCH, ALEXNET_F64_MB, worst["cuda"],
             UNITS_F64_RTOL, n_pools, out["cpu"]["n_err"], len(drawn),
-            worst["fused"], want, time.perf_counter() - t0))
+            worst["fused"], want, memo.draws, memo.hits,
+            time.perf_counter() - t0))
 
 
 def _registry_on_card(torch):
@@ -3682,23 +3861,13 @@ def _check_cifar_schedule(wf, n_tr):
 
 def _cifar_fused(torch, probe, cli, prng, run, base, want, card):
     """The caffe config through ``--fused pool_impl=offsets`` for as many
-    epochs: each TRAIN segment reads the card exactly once with the
-    adjuster linked; the launches, worked out from the code before the
-    call, are one forward a TRAIN step (windows of 8) and a VALID
-    minibatch (``predict_with_idx``), and one backward a TRAIN step, all
-    at 16-byte vectors."""
-    from znicz_tpu_torch.loader.base import TRAIN, VALID
-    readbacks = _Readbacks(torch, probe._where)
-    _zero_counts()
-    with readbacks:
-        fused = _units_run(probe, cli, prng, _cifar_argv(
-            os.path.join(base, "fused"), "--fused", "pool_impl=offsets"))
-    launches = _counts()
-    say("   fused graph (--fused pool_impl=offsets) launches: %s" % launches)
-    if launches != want:
-        raise RuntimeError("the fused graph launched %s, not %s"
-                           % (launches, want))
-    wf = fused["wf"]
+    epochs (:func:`_fused_graph`), with the adjuster linked between the
+    loader and the trainer and ticked once a TRAIN step."""
+    launches, wf = _fused_graph(
+        torch, probe, cli, prng, run,
+        _cifar_argv(os.path.join(base, "fused"), "--fused",
+                    "pool_impl=offsets"),
+        want, (CIFAR_TRAIN, CIFAR_EPOCHS), card)
     trainer, adj = wf.fused_trainer, wf.lr_adjuster
     if adj not in trainer.links_from or wf.loader in trainer.links_from or \
             trainer.hyper_tick != adj.run or \
@@ -3707,8 +3876,32 @@ def _cifar_fused(torch, probe, cli, prng, run, base, want, card):
         raise RuntimeError("the fused graph's adjuster is not linked as "
                            "link_lr_adjuster links it (count %d, window %d)"
                            % (adj._minibatches_count, trainer.window))
-    per_train = [readbacks.counts[(TRAIN, e)] for e in range(CIFAR_EPOCHS)]
-    if per_train != [1] * CIFAR_EPOCHS:
+    say("   fused graph: the adjuster between the loader and the trainer, "
+        "ticked %d times" % adj._minibatches_count)
+    return launches
+
+
+def _fused_graph(torch, probe, cli, prng, run, argv, want, sizes, card):
+    """A sample through ``--fused pool_impl=offsets`` (``argv``) for as
+    many epochs as the unit graph ``run`` (``sizes``: TRAIN rows,
+    epochs): each TRAIN segment reads the card exactly once; the
+    launches, worked out from the code before the call, are exactly
+    ``want``: one forward a TRAIN step and a VALID minibatch
+    (``predict_with_idx``) and one backward a TRAIN step a max pool.
+    Returns the launches and the workflow."""
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    n_train, epochs = sizes
+    readbacks = _Readbacks(torch, probe._where)
+    _zero_counts()
+    with readbacks:
+        fused = _units_run(probe, cli, prng, argv)
+    launches = _counts()
+    say("   fused graph (--fused pool_impl=offsets) launches: %s" % launches)
+    if launches != want:
+        raise RuntimeError("the fused graph launched %s, not %s"
+                           % (launches, want))
+    per_train = [readbacks.counts[(TRAIN, e)] for e in range(epochs)]
+    if per_train != [1] * epochs:
         raise RuntimeError("readbacks by TRAIN segment %s, not one each"
                            % per_train)
     valid = sum(v for k, v in readbacks.counts.items()
@@ -3718,19 +3911,26 @@ def _cifar_fused(torch, probe, cli, prng, run, base, want, card):
         if not (0 <= s["n_err"] <= s["n"] and
                 int(s["confusion"].sum()) == s["n"]):
             raise RuntimeError("fused segment stats out of range: %s" % s)
-    rates, run_s = _units_rates(fused, CIFAR_TRAIN)
+    rates, run_s = _units_rates(fused, n_train)
+    n_mb = sum(-(-s["n"] // fused["wf"].loader.max_minibatch_size)
+               for s in segs)
+    syncs = sum(v for k, v in readbacks.syncs.items() if k != "outside")
     say("   fused graph: one readback a TRAIN segment %s (%d over the VALID "
-        "minibatches); the adjuster between the loader and the trainer, "
-        "ticked %d times; TRAIN images/s by epoch %s against the unit "
-        "graph's %s, the run %.2f s against %.2f s; (TRAIN, VALID) n_err "
+        "minibatches); windows of %d steps; TRAIN images/s by epoch %s "
+        "against the unit graph's %s, the run %.2f s against %.2f s "
+        "(%.4f host ms a minibatch; %.3f synchronizing CUDA operations "
+        "a minibatch; snapshots %s s, not counted); (TRAIN, VALID) n_err "
         "by epoch %s, the unit graph's %s; %s" % (
-            per_train, valid, adj._minibatches_count,
+            per_train, valid, fused["wf"].fused_trainer.window,
             " ".join("%.1f" % r for r in rates),
             " ".join("%.1f" % r for r in run["rates"]), run_s, run["run_s"],
+            1e3 * run_s / n_mb, syncs / n_mb,
+            " / ".join("%.2f" % s[3] for s in fused["snapshots"]),
             [(a["n_err"], b["n_err"]) for a, b in zip(segs[::2], segs[1::2])],
             [(a["n_err"], b["n_err"]) for a, b in zip(
                 run["segments"][::2], run["segments"][1::2])], card))
-    return launches
+    say("   fused graph host ms by unit: %s" % _unit_times(fused["wf"]))
+    return launches, fused["wf"]
 
 
 def _cifar_variants(probe, cli, prng, base, card):
@@ -3875,8 +4075,13 @@ def _cifar_schedule_f64(torch):
 
 
 def _cifar_kernels(torch, card, cycles_per_ms):
-    """Both kernels at the CIFAR path's shapes (``CIFAR_POOLS``,
-    3x3/s2, ceil mode) bit-equal to their plain versions, on random
+    """Both kernels at the CIFAR path's shapes (``CIFAR_POOLS``)."""
+    return _pool_kernels(torch, card, cycles_per_ms, CIFAR_POOLS, "CIFAR")
+
+
+def _pool_kernels(torch, card, cycles_per_ms, pools, what):
+    """Both kernels at a path's 3x3/s2 ceil-mode pools (``pools``:
+    ``(label, NHWC shape)``) bit-equal to their plain versions, on random
     values and on ties, in f32 and f64, every launch at 16-byte vectors;
     then in f32 cold beside their bounds, plain versions and the library
     calls.  Returns the rows by kernel and pool."""
@@ -3886,30 +4091,31 @@ def _cifar_kernels(torch, card, cycles_per_ms):
     gen = torch.Generator(device="cuda").manual_seed(7)
     t0 = time.perf_counter()
     checked = 0
-    for label, shape in CIFAR_POOLS:
-        err_buf = torch.randn(shape[0] * 16 * 16 * shape[3] + 1,
+    for label, shape in pools:
+        ny, nx = pooling.output_spatial(shape[1], shape[2], 3, 3, (2, 2))
+        err_buf = torch.randn(shape[0] * ny * nx * shape[3] + 1,
                               generator=gen, device="cuda")
         for dtype in (torch.float32, torch.float64):
             for x in (torch.randn(shape, generator=gen, device="cuda",
                                   dtype=dtype),
                       _tied(torch, gen, shape, dtype)):
-                what = "CIFAR %s %s %s" % (label, shape, dtype)
+                case = "%s %s %s %s" % (what, label, shape, dtype)
                 # both raise unless bit-equal to the plain version
-                _, width = _check_pool(torch, x, 3, 3, (2, 2), False, what)
+                _, width = _check_pool(torch, x, 3, 3, (2, 2), False, case)
                 _, _, (_, bwidth) = _check_backward(
-                    torch, x, err_buf.to(dtype), 3, 3, (2, 2), False, what)
+                    torch, x, err_buf.to(dtype), 3, 3, (2, 2), False, case)
                 if width != WIDE or bwidth != WIDE:
                     raise RuntimeError("%s launched at %s / %s, not %s"
-                                       % (what, width, bwidth, WIDE))
+                                       % (case, width, bwidth, WIDE))
                 checked += 1
-    say("   CIFAR pools %s, 3x3/s2 ceil mode: both kernels bit-equal to "
+    say("   %s pools %s, 3x3/s2 ceil mode: both kernels bit-equal to "
         "their plain versions (values, offsets, the gradient) on %d inputs "
         "(random and tied, f32 and f64), every launch at 16-byte vectors "
-        "(%.2f s)" % (", ".join("%s %s" % p for p in CIFAR_POOLS), checked,
+        "(%.2f s)" % (what, ", ".join("%s %s" % p for p in pools), checked,
                       time.perf_counter() - t0))
     flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
     rows = {"forward": {}, "backward": {}}
-    for label, shape in CIFAR_POOLS:
+    for label, shape in pools:
         x = torch.randn(shape, generator=gen, device="cuda")
         x_nchw = x.permute(0, 3, 1, 2)
         b, h, w, c = shape
@@ -3949,14 +4155,318 @@ def _cifar_kernels(torch, card, cycles_per_ms):
                 row[key], row[key[:-2] + "host_ms"] = _median_ms(
                     torch, fn, flush, cycles_per_ms, iters)
             rows[kind][label] = row
-            say("   CIFAR %s %s %s f32 (16-byte): kernel %.4f ms (host "
+            say("   %s %s %s %s f32 (16-byte): kernel %.4f ms (host "
                 "enqueue %.4f ms), plain %.4f ms, library %.4f ms, bound "
                 "%.4f ms (%.2f MB), %.0f%% of bound; %d samples; %s" % (
-                    kind, label, shape, row["ms"], row["host_ms"],
+                    what, kind, label, shape, row["ms"], row["host_ms"],
                     row["plain_ms"], row["library_ms"], row["bound_ms"],
                     nbytes / 1e6, 100 * row["bound_ms"] / row["ms"], iters,
                     card))
     return rows
+
+
+class _StlData(object):
+    """The STL-10 sample's synthetic sets (``stl10.materialize_synthetic``,
+    the JAX package's bytes) written in a thread started before the build
+    and joined after it (:meth:`join`), as the prototype draw is: the
+    phase's set (``STL_TRAIN`` / ``STL_VALID`` rows) and the f64 checks'
+    (``STL_F64_MB`` minibatches and a VALID one), in a temporary
+    directory removed by :meth:`cleanup`."""
+
+    def __init__(self):
+        import tempfile
+        self.tmp = tempfile.TemporaryDirectory(prefix="stl10_")
+        self.main = os.path.join(self.tmp.name, "main")
+        self.small = os.path.join(self.tmp.name, "f64")
+        self.seconds = self.error = None
+        self._thread = threading.Thread(target=self._write, daemon=True)
+        self._thread.start()
+
+    def _write(self):
+        try:
+            from znicz_tpu_torch.samples.research import stl10
+            t0 = time.perf_counter()
+            stl10.materialize_synthetic(self.main, n_train=STL_TRAIN,
+                                        n_valid=STL_VALID)
+            stl10.materialize_synthetic(
+                self.small, n_train=STL_F64_MB * STL_BATCH,
+                n_valid=STL_BATCH)
+            self.seconds = time.perf_counter() - t0
+        except Exception as e:   # raised again by join
+            self.error = e
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("the STL-10 sets were not written") \
+                from self.error
+
+    def cleanup(self):
+        self._thread.join()
+        self.tmp.cleanup()
+
+
+class _Imports(object):
+    """Whether ``PIL`` and ``sklearn`` import on this host, each tried in
+    a child interpreter started with the script (an import of
+    scikit-learn takes seconds of the host, off this process): the zoo's
+    image samples read their files with PIL, and Wine's loader writes its
+    file from scikit-learn's copy where the checkout lacks it.
+    :meth:`result` waits for both children and returns ``{name: None if
+    it imports, else the error's last line}``."""
+
+    MODULES = {"PIL": "PIL.Image", "sklearn": "sklearn.datasets"}
+
+    def __init__(self):
+        self.procs = {
+            name: subprocess.Popen(
+                [sys.executable, "-c", "import " + mod],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)
+            for name, mod in self.MODULES.items()}
+
+    def result(self):
+        out = {}
+        for name, proc in self.procs.items():
+            _, err = proc.communicate()
+            lines = err.strip().splitlines()
+            out[name] = None if proc.returncode == 0 else (
+                lines[-1] if lines else "exit %d" % proc.returncode)
+        return out
+
+
+class _DrawMemo(object):
+    """While installed (``with``), each weight draw of the host streams
+    (``RandomGenerator.fill`` and ``fill_normal_real``) of at least a
+    million values is kept by the stream's state before it and the
+    draw's arguments; a later draw from the same state with the same
+    arguments is handed the kept values and leaves the stream in the
+    state the draw left it in, so the values and the streams are a fresh
+    draw's, without the host's seconds.  A check that rests on drawing
+    again runs with the memo out; nothing in the package reads it."""
+
+    SMALLEST = 1 << 20
+
+    def __init__(self):
+        from znicz_tpu_torch.core import prng
+        self.cls = prng.RandomGenerator
+        self.real = {n: getattr(self.cls, n)
+                     for n in ("fill", "fill_normal_real")}
+        self.kept = {}
+        self.hits = self.draws = 0
+
+    def _wrap(self, name, real):
+        memo = self
+
+        def draw(rg, arr, *args, **kwargs):
+            if arr.size < memo.SMALLEST:
+                return real(rg, arr, *args, **kwargs)
+            st = rg.state.get_state()
+            key = (name, st[1].tobytes(), st[2], st[3], st[4], arr.shape,
+                   arr.dtype.str, args, tuple(sorted(kwargs.items())))
+            if key in memo.kept:
+                values, after = memo.kept[key]
+                arr[...] = values
+                rg.state.set_state(after)
+                memo.hits += 1
+                return None
+            out = real(rg, arr, *args, **kwargs)
+            memo.kept[key] = (arr.copy(), rg.state.get_state())
+            memo.draws += 1
+            return out
+        return draw
+
+    def __enter__(self):
+        for name, real in self.real.items():
+            setattr(self.cls, name, self._wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.cls, name, real)
+
+
+def _stl_argv(directory, snapdir, *extra):
+    """The CLI's arguments for STL-10 over ``directory``'s files."""
+    argv = ["research.stl10"]
+    for key, value in (("loader.directory", directory),
+                       ("loader.minibatch_size", STL_BATCH),
+                       ("decision.max_epochs", STL_EPOCHS),
+                       ("snapshotter.directory", snapdir)):
+        argv += ["--config", "stl.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+def phase_stl10(torch, card, cycles_per_ms, data, imports):
+    """STL-10's published network (``root.stl``: conv 32 5x5 -> max pool
+    3x3/s2 -> strict relu -> LRN -> conv 32 5x5 -> strict relu -> avg
+    pool 3x3/s2 -> LRN -> softmax; ``internal_mean``, minibatch 50) over
+    the sample's synthetic set (``data``: 5,000 TRAIN and 1,000 VALID
+    rows in the real binary format), f32, TF32 off,
+    ``cudnn.deterministic``.  Both kernels at pool1's shape first, bit
+    for bit and timed; then ``python -m znicz_tpu_torch research.stl10``
+    (the unit graph) for 2 epochs: exactly one forward launch a
+    minibatch (240) and one backward a TRAIN minibatch (200), all at
+    16-byte vectors, no plain pooling, no adjuster; a second run from
+    the same seeds and the CLI resumed from the epoch-1 snapshot
+    bit-equal to it; the same through ``--fused pool_impl=offsets``
+    (the same launches, one readback a TRAIN segment); the first 4
+    TRAIN minibatches in f64, the card against the CPU and the fused
+    graph against the CPU's unit graph; then the zoo (:func:`_zoo`,
+    ``imports`` an :class:`_Imports`).
+    Returns the unit graph's and the fused graph's launches and the
+    timing rows."""
+    import tempfile
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.samples.research import stl10
+    rows = _pool_kernels(torch, card, cycles_per_ms, STL_POOLS, "STL-10")
+    train_mb, valid_mb = -(-STL_TRAIN // STL_BATCH), -(-STL_VALID // STL_BATCH)
+    n_mb, n_tr = (train_mb + valid_mb) * STL_EPOCHS, train_mb * STL_EPOCHS
+    want = {"forward": n_mb, "forward_by_width": {WIDE: n_mb, NARROW: 0},
+            "backward": n_tr, "backward_by_width": {WIDE: n_tr, NARROW: 0},
+            "plain_on_card": 0}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    tmp = tempfile.TemporaryDirectory(prefix="stl10_snapshots_")
+    base = tmp.name
+    try:
+        say("== stl10: python -m znicz_tpu_torch %s"
+            % " ".join(_stl_argv("DATA", "TMP")))
+        _zero_counts()
+        with probe.readbacks:
+            run = _units_run(probe, cli, prng, _stl_argv(
+                data.main, os.path.join(base, "run")))
+        launches = _counts()
+        _check_graph_run(
+            torch, probe, run, launches, want,
+            "1 forward launch a minibatch and 1 backward a TRAIN minibatch, "
+            "all at 16-byte vectors",
+            (STL_TRAIN, STL_VALID, STL_BATCH, STL_EPOCHS), STL_SHAPES, card,
+            "stl10 unit graph")
+        say("   snapshots %s s (not in the rates)" % " / ".join(
+            "%.2f" % s[3] for s in run["snapshots"]))
+        wf = run["wf"]
+        if getattr(wf, "lr_adjuster", None) is not None or \
+                wf.loader.normalization_type != "internal_mean" or \
+                wf.loader.labels_mapping != {"airplane": 0, "bird": 1,
+                                             "car": 2, "cat": 3}:
+            raise RuntimeError("the STL-10 graph is not the sample's: %s, "
+                               "%s" % (wf.loader.normalization_type,
+                                       wf.loader.labels_mapping))
+        t0 = time.perf_counter()
+        replay = _units_run(probe, cli, prng, _stl_argv(
+            data.main, os.path.join(base, "replay")))
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the STL-10 replay's segment stats differ "
+                               "from the run's")
+        _units_equal(replay["state"], run["state"], "the STL-10 replay")
+        say("   replay: a second CLI run from the same seeds: each epoch's "
+            "per-class n_err and confusion matrices, every weight and "
+            "bias and the optimizer Arrays bit-equal to the run's (%.2f s)"
+            % (time.perf_counter() - t0))
+        del replay
+        _resume_units(probe, cli, prng, run, lambda *extra: _stl_argv(
+            data.main, os.path.join(base, "resumed"), *extra))
+        fused_launches, _ = _fused_graph(
+            torch, probe, cli, prng, run,
+            _stl_argv(data.main, os.path.join(base, "fused"), "--fused",
+                      "pool_impl=offsets"),
+            want, (STL_TRAIN, STL_EPOCHS), card)
+        del run, wf
+        gc.collect()
+        _zoo(torch, probe, cli, prng, base, imports.result(), card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        tmp.cleanup()
+
+    def build(fused, snapdir):
+        return stl10.build(
+            loader_config={"directory": data.small,
+                           "minibatch_size": STL_BATCH},
+            decision_config={"max_epochs": 1},
+            snapshotter_config={"directory": snapdir}, fused=fused)
+    _card_vs_cpu_f64(torch, build, 1, STL_F64_MB, "STL-10 ")
+    return launches, fused_launches, rows
+
+
+def _zoo(torch, probe, cli, prng, base, found, card):
+    """The rest of the classification zoo through the CLI's unit graph
+    on the card, no kernel among them: ``research.mnist_simple`` for an
+    epoch at its minibatch 88 over the units phase's MNIST rows,
+    ``research.wine_relu`` and ``wine`` over the checkout's Wine file
+    (or one written from scikit-learn's copy), ``research.hands``,
+    ``research.tv_channels`` and ``yale_faces`` over their synthetic
+    images.  Each run must end on ``cuda`` with each epoch's per-class
+    n_err within its rows and neither ``jax`` nor ``znicz_tpu``
+    imported.  A sample whose data needs a package the card lacks (PIL
+    for the images; scikit-learn for Wine when its file is absent) is
+    printed as not run, with the reason: that is not a check.  ``found``
+    is :meth:`_Imports.result`."""
+    from znicz_tpu_torch.core.config import root
+    t0 = time.perf_counter()
+    say("== zoo: on this host PIL %s, scikit-learn %s" % (
+        "imports" if found["PIL"] is None else
+        "does not import (%s)" % found["PIL"],
+        "imports" if found["sklearn"] is None else
+        "does not import (%s)" % found["sklearn"]))
+    wine_file = os.path.join(root.common.dirs.datasets, "wine", "wine.txt")
+    images = {"research.hands": "hands", "research.tv_channels": "channels",
+              "yale_faces": "yalefaces"}
+    runs = [("research.mnist_simple", _sample_argv(
+        "research.mnist_simple", "mnist_simple", os.path.join(base, "ms"),
+        UNITS_TRAIN, UNITS_VALID, ZOO_MNIST_BATCH, 1), None)]
+    for name, ns in (("research.wine_relu", "wine_relu"), ("wine", "wine")):
+        why = None if os.path.exists(wine_file) or found["sklearn"] is None \
+            else "no %s and scikit-learn %s" % (wine_file, found["sklearn"])
+        argv = [name, "--config", "%s.decision.max_epochs=%d"
+                % (ns, ZOO_EPOCHS)]
+        if ns != "wine":   # wine's snapshotter takes the common directory
+            argv += ["--config", "%s.snapshotter.directory=%s"
+                     % (ns, os.path.join(base, ns))]
+        runs.append((name, argv, why))
+    for name, ns in images.items():
+        why = None if found["PIL"] is None else "PIL %s" % found["PIL"]
+        runs.append((name, [
+            name, "--config", "%s.loader.train_paths=[%r]"
+            % (ns, os.path.join(base, ns + "_images")),
+            "--config", "%s.decision.max_epochs=%d" % (ns, ZOO_EPOCHS),
+            "--config", "%s.snapshotter.directory=%s"
+            % (ns, os.path.join(base, ns))], why))
+    snapshots = root.common.dirs.snapshots
+    root.common.dirs.snapshots = os.path.join(base, "common")
+    try:
+        for name, argv, why in runs:
+            if why is not None:
+                say("   %s: not run (%s)" % (name, why))
+                continue
+            t1 = time.perf_counter()
+            _zero_counts()
+            r = _units_run(probe, cli, prng, argv)
+            wf, segs = r["wf"], r["segments"]
+            device = wf.forwards[0].weights.dev.device
+            bad = [s for s in segs if not (
+                isinstance(s["n_err"], int) and 0 <= s["n_err"] <= s["n"])]
+            if device.type != "cuda" or bad or not segs or \
+                    _counts()["plain_on_card"]:
+                raise RuntimeError("%s: device %s, segments %s"
+                                   % (name, device, segs))
+            for mod in ("jax", "znicz_tpu"):
+                if mod in sys.modules:
+                    raise RuntimeError("%s was imported" % mod)
+            say("   %s: (epoch, class, n_err of rows) %s on %s, %d forwards, "
+                "the head %d wide (%.2f s); %s" % (
+                    name, [(s["epoch"], s["class"], "%d/%d" % (s["n_err"],
+                                                               s["n"]))
+                           for s in segs], device, len(wf.forwards),
+                    wf.forwards[-1].output.shape[-1],
+                    time.perf_counter() - t1, card))
+    finally:
+        root.common.dirs.snapshots = snapshots
+    say("   zoo: %.2f s" % (time.perf_counter() - t0))
 
 
 def phase_train(torch, card, cycles_per_ms):
@@ -4722,10 +5232,18 @@ def _phases(torch, name, card, start):
     from znicz_tpu_torch.samples import alexnet
     marks = [("start", start), ("device and import", time.perf_counter())]
     prototypes = _Prototypes(alexnet, WORKFLOW_TRAIN + WORKFLOW_VALID)
+    stl_data = _StlData()
+    imports = _Imports()
     phase_build()
     marks.append(("build", time.perf_counter()))
     prototypes.join()
-    marks.append(("the prototype draw's rest", time.perf_counter()))
+    stl_data.join()
+    say("== stl10 data: %d TRAIN and %d VALID images (and the f64 checks' "
+        "%d and %d) written in %.2f s, in a thread beside the build"
+        % (STL_TRAIN, STL_VALID, STL_F64_MB * STL_BATCH, STL_BATCH,
+           stl_data.seconds))
+    marks.append(("the prototype and STL-10 draws' rest",
+                  time.perf_counter()))
     cycles_per_ms = _spin_cycles_per_ms(torch)
     rows, bf16_rows, max_err = phase_kernels(torch, card, cycles_per_ms)
     marks.append(("kernels", time.perf_counter()))
@@ -4757,6 +5275,10 @@ def _phases(torch, name, card, start):
     cifar_launches, cifar_fused_launches, cifar_rows, cifar_snaps = \
         phase_cifar(torch, card, cycles_per_ms)
     marks.append(("cifar", time.perf_counter()))
+    stl_launches, stl_fused_launches, stl_rows = phase_stl10(
+        torch, card, cycles_per_ms, stl_data, imports)
+    stl_data.cleanup()
+    marks.append(("stl10", time.perf_counter()))
     _DRAWS.clear()
     by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
     marks.append(("serve_models", time.perf_counter()))
@@ -4767,7 +5289,8 @@ def _phases(torch, name, card, start):
              "alexnet_units": alexnet_units_launches,
              "units": units_launches, "ae": ae_launches,
              "ae_fused": ae_fused_launches, "cifar": cifar_launches,
-             "cifar_fused": cifar_fused_launches}
+             "cifar_fused": cifar_fused_launches, "stl10": stl_launches,
+             "stl10_fused": stl_fused_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -4791,6 +5314,7 @@ def _phases(torch, name, card, start):
     forward["mnist"] = _sums(mnist_rows["forward"])
     forward["ae"] = _sums(ae_rows["forward"])
     forward["cifar"] = _by_pool(cifar_rows["forward"])
+    forward["stl10"] = _by_pool(stl_rows["forward"])
     forward["bf16"] = _by_pool(bf16_rows)
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
@@ -4808,6 +5332,7 @@ def _phases(torch, name, card, start):
     backward["mnist"] = _sums(mnist_rows["backward"])
     backward["ae"] = _sums(ae_rows["backward"])
     backward["cifar"] = _by_pool(cifar_rows["backward"])
+    backward["stl10"] = _by_pool(stl_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

@@ -246,12 +246,44 @@ def test_graph_structure(tmp_path):
             assert f.weights is nxt.weights
             assert nxt.input is prev.output
     assert wf.gds[0].need_err_input is False
-    assert wf.lr_adjuster is not None and wf.gds[-1].name == "gd_fc_softmax8"
+    # no learning-rate adjuster: the JAX sample links none
+    assert not hasattr(wf, "lr_adjuster")
+    assert wf.gds[-1].name == "gd_fc_softmax8"
+    assert wf.snapshotter in wf.gds[-1].links_from
     # a filler holds no weights of its own to carry
     pairs = [None] * len(wf.forwards)
     pairs[3] = (numpy.zeros((256, 2400)), None)
     with pytest.raises(ValueError, match="links the next layer's weights"):
         unit_params_from_numpy(wf.forwards, pairs)
+
+
+@pytest.mark.parametrize("fused", [None, {"pool_impl": "offsets"}],
+                         ids=["units", "fused"])
+def test_no_learning_rate_adjuster_as_in_jax(tmp_path, fused):
+    """The port's AlexNet links no learning-rate adjuster in either
+    graph, as ``znicz_tpu/samples/research/alexnet.py:145-163`` links
+    none: its units are the JAX build's, name for name, and every run
+    trains at the config's base rates whatever its length (the
+    ``lr_adjuster`` block is written, as in JAX, and not read)."""
+    loader = dict(LOADER, size=67)
+    wf = _build(alexnet, tmp_path / "torch", loader=loader, fused=fused)
+    jwf = _build(jax_alexnet, tmp_path / "jax", loader=loader, fused=fused)
+    assert [(type(u).__name__, u.name) for u in wf.units] == \
+        [(type(u).__name__, u.name) for u in jwf.units]
+    assert not hasattr(wf, "lr_adjuster") and \
+        not hasattr(jwf, "lr_adjuster")
+    assert not any(type(u).__name__ == "LearningRateAdjust"
+                   for u in wf.units)
+    assert root.alexnet.lr_adjuster.do is True
+    if fused is None:
+        assert [(g.learning_rate, g.learning_rate_bias)
+                for g in wf.gds] == [(g.learning_rate, g.learning_rate_bias)
+                                     for g in jwf.gds]
+        assert (wf.gds[-1].learning_rate,
+                wf.gds[-1].learning_rate_bias) == (0.01, 0.02)
+    else:
+        assert wf.fused_trainer.hyper_tick is None
+        assert wf.loader in wf.fused_trainer.links_from
 
 
 #: tests/functional/test_fused_workflow.py:297-315

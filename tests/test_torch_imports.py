@@ -105,7 +105,18 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.serving.engine",
                  "znicz_tpu_torch.serving.registry",
                  "znicz_tpu_torch.serving.continuous",
-                 "znicz_tpu_torch.serving.accuracy"):
+                 "znicz_tpu_torch.serving.accuracy",
+                 "znicz_tpu_torch.loader.image",
+                 "znicz_tpu_torch.loader.loader_stl",
+                 "znicz_tpu_torch.loader.loader_wine",
+                 "znicz_tpu_torch.samples.research",
+                 "znicz_tpu_torch.samples.research.stl10",
+                 "znicz_tpu_torch.samples.research.mnist_simple",
+                 "znicz_tpu_torch.samples.research.wine_relu",
+                 "znicz_tpu_torch.samples.research.hands",
+                 "znicz_tpu_torch.samples.research.tv_channels",
+                 "znicz_tpu_torch.samples.wine",
+                 "znicz_tpu_torch.samples.yale_faces"):
         assert name in doc["modules"]
 
 

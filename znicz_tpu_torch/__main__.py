@@ -9,6 +9,8 @@ Examples::
     python -m znicz_tpu_torch alexnet --fused pool_impl=offsets \\
         --config alexnet.decision.max_epochs=3
     python -m znicz_tpu_torch alexnet --fused --snapshot SNAP.pickle
+    python -m znicz_tpu_torch research.stl10 --fused pool_impl=offsets
+    python -m znicz_tpu_torch wine --config wine.decision.max_epochs=10
     python -m znicz_tpu_torch --list
     python -m znicz_tpu_torch serve PKG.zip --port 8899
     python -m znicz_tpu_torch serve --latest cifar_caffe --dtype bf16

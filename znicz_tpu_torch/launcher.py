@@ -99,11 +99,18 @@ def newest_snapshot(directory, prefix):
     return cands[0] if cands else None
 
 
+#: the JAX package's research samples that sit one level up in the
+#: port: ``research.alexnet`` is ``znicz_tpu_torch.samples.alexnet``
+FLAT_RESEARCH = ("alexnet", "mnist7", "mnist_ae")
+
+
 def resolve_workflow_module(spec):
     """The module of a CLI workflow argument: a file path
-    (``samples/alexnet.py``), a dotted module name
-    (``znicz_tpu_torch.samples.alexnet``) or a sample name
-    (``alexnet``)."""
+    (``samples/wine.py``), a dotted module name
+    (``znicz_tpu_torch.samples.wine``) or a sample name as the JAX
+    package names it (``wine``, ``research.stl10``); the port's flat
+    ``alexnet``, ``mnist7`` and ``mnist_ae`` also answer to their bare
+    names."""
     if os.path.sep in spec or spec.endswith(".py"):
         path = os.path.abspath(spec)
         name = os.path.splitext(os.path.basename(path))[0]
@@ -114,20 +121,34 @@ def resolve_workflow_module(spec):
     try:
         return importlib.import_module(spec)
     except ImportError as e:
-        # fall back to the samples only when SPEC itself was not found;
-        # an ImportError from inside a module must surface
+        # fall back to the samples only when SPEC itself was not found
+        # (for "research.stl10" the error names "research"); an
+        # ImportError from inside a module must surface
         first = spec.split(".")[0]
         if spec.startswith("znicz_tpu") or e.name not in (spec, first):
             raise
+        prefix, _, name = spec.partition(".")
+        if prefix == "research" and name in FLAT_RESEARCH:
+            spec = name
         return importlib.import_module("znicz_tpu_torch.samples." + spec)
 
 
 def list_samples():
-    """The sample names (modules under ``znicz_tpu_torch.samples``)."""
+    """The sample names as the JAX package lists them: the modules
+    under ``znicz_tpu_torch.samples``, then the research tier's as
+    ``research.<name>`` (``FLAT_RESEARCH`` among them), each sorted."""
     import znicz_tpu_torch.samples as samples_pkg
-    return sorted(fn[:-3] for fn in os.listdir(
-        os.path.dirname(samples_pkg.__file__))
-        if fn.endswith(".py") and not fn.startswith("_"))
+    pkg_dir = os.path.dirname(samples_pkg.__file__)
+    tiers = {"": [], "research.": []}
+    for prefix, directory in (("", pkg_dir),
+                              ("research.",
+                               os.path.join(pkg_dir, "research"))):
+        for fn in os.listdir(directory):
+            if fn.endswith(".py") and not fn.startswith("_"):
+                name = fn[:-3]
+                tier = "research." if name in FLAT_RESEARCH else prefix
+                tiers[tier].append(tier + name)
+    return sorted(tiers[""]) + sorted(tiers["research."])
 
 
 def run_workflow(spec, snapshot=None, dry_run=False, device=None,

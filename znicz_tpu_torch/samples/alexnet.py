@@ -32,11 +32,11 @@ prototype-class images of ``SyntheticImagenetLoader.load_data``
 The training workflow is the JAX sample's: ``SyntheticImagenetLoader``
 (the same rows from the same ``RandomState(0x1337)`` recipe), the
 ``root.alexnet`` config, :class:`AlexNetWorkflow`, :func:`build` and
-:func:`run`, the launcher contract, in either graph.  The workflow
-links the config's ``arbitrary_step`` schedule, which the JAX sample's
-build leaves unlinked; its factor is 1 for the first 100,000
-minibatches, so both train alike.  The loader's label count (10) sets
-the softmax head's width; every hidden width is the published one.
+:func:`run`, the launcher contract, in either graph.  As in the JAX
+sample, the config's ``lr_adjuster`` block is written but not linked
+(``znicz_tpu/samples/research/alexnet.py:145-163``): every run trains
+at the base rates.  The loader's label count (10) sets the softmax
+head's width; every hidden width is the published one.
 """
 
 import numpy
@@ -260,8 +260,8 @@ class SyntheticImagenetLoader(FullBatchLoader, IFullBatchLoader):
         self.class_lengths[TRAIN] = self.n_train
 
 
-#: the sample's config, the JAX sample's: its ``arbitrary_step``
-#: schedule keeps the base rates for the first 100,000 minibatches
+#: the sample's config, the JAX sample's; its ``lr_adjuster`` block is
+#: written as there, and as there no build links it
 root.alexnet.update({
     "decision": {"fail_iterations": 10000, "max_epochs": 10000},
     "snapshotter": {"prefix": "alexnet", "interval": 1,
@@ -281,13 +281,8 @@ root.alexnet.update({
 
 
 class AlexNetWorkflow(StandardWorkflow):
-    """The AlexNet training workflow (``StandardWorkflow``) with the
-    ``root.alexnet.lr_adjuster`` schedule (``link_lr_schedule``), in
-    either graph."""
-
-    def create_workflow(self):
-        super(AlexNetWorkflow, self).create_workflow()
-        self.link_lr_schedule(root.alexnet.lr_adjuster.as_dict())
+    """The AlexNet training workflow (``StandardWorkflow``), in either
+    graph, with no learning-rate adjuster (the JAX sample's)."""
 
 
 def build(layers=None, loader_config=None, decision_config=None, **kwargs):
