@@ -119,7 +119,7 @@ failure (the script then exits non-zero and prints no result line):
    through the workflow CLI (a workflow file building
    ``mnist.build(layers=root.mnistr_conv.layers)``, no ``--fused``),
    in this process, at minibatch 60 over the loader's synthetic set
-   (7,500 TRAIN and 5,000 VALID rows, ``UNITS_TRAIN`` / ``UNITS_VALID``) for
+   (1,500 TRAIN and 1,000 VALID rows, ``UNITS_TRAIN`` / ``UNITS_VALID``) for
    2 epochs, f32,
    TF32 off, ``cudnn.deterministic``: the forward kernel must launch
    exactly twice a minibatch and the backward twice a TRAIN minibatch,
@@ -165,10 +165,10 @@ failure (the script then exits non-zero and prints no result line):
     kernel -> deconv with the conv's weights -> MSE against the input,
     ``GDDeconv`` the only gradient unit) through the CLI's unit graph,
     ``python -m znicz_tpu_torch mnist_ae``, in this process at minibatch
-    100 over the synthetic MNIST rows of the units phase (7,500 /
-    5,000) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``: the
+    100 over the synthetic MNIST rows of the units phase (1,500 /
+    1,000) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``: the
     backward kernel must launch exactly once a minibatch, TRAIN and
-    VALID (250, one channel
+    VALID (50, one channel
     a thread), the forward kernel never, no plain pooling on the card; a
     second run and the CLI resumed from the epoch-1 snapshot must end
     with each epoch's metrics, the weights, the GD's optimizer Arrays and
@@ -273,6 +273,39 @@ failure (the script then exits non-zero and prints no result line):
     (their synthetic images, where PIL imports; whether PIL and
     scikit-learn import is tried in child processes and printed), each
     ending on the card with every epoch's n_err within its rows.
+16. mse_zoo — ImagenetAE's published ladder (``root.imagenet_ae``: conv
+    108 9x9/s3, 192 5x5, 224 5x5, 256 3x3, each with stochastic abs
+    pooling 3x3/s2 in ceil mode; the last stage's depooling on the
+    backward kernel, a deconv sharing its conv's weights, MSE against
+    the stage's input, ``GDDeconv`` the only gradient unit) at the
+    227x227 crop over 256 of the sample's synthetic images (192 TRAIN,
+    64 VALID) at its minibatch 8, f32, TF32 off,
+    ``cudnn.deterministic``.  First the depooling at the four stages'
+    shapes, (8, 73, 73, 108), (8, 32, 32, 192), (8, 12, 12, 224) and
+    (8, 4, 4, 256), on stochastic winners: bit-equal to its plain
+    version in f32 and f64, every launch at 16-byte vectors, then cold
+    beside its bound, plain version and ``index_add_``.  Then
+    ``python -m znicz_tpu_torch research.imagenet_ae`` for the four
+    stages, 2 epochs each, each grown from the last one's snapshot
+    (``--config imagenet_ae.n_stages=N``, ``imagenet_ae.restore_snapshot``):
+    exactly one backward launch a minibatch, TRAIN and VALID (64 a
+    stage), all at 16-byte vectors, no forward launch and no plain
+    pooling; the frozen stages bit-equal to the snapshot they came
+    from; a second run of the last stage from the same seeds and the
+    CLI resumed from its epoch-1 snapshot bit-equal to it (each epoch's
+    metrics, the shared weights, ``GDDeconv``'s optimizer Arrays, the
+    prng streams); stage 0's host ms by unit, its stochastic pool's host
+    draw and upload split out; stages 0 and 3 in f64, the first 4 TRAIN
+    minibatches and a VALID one, the card against the CPU within
+    ``UNITS_F64_RTOL``, every stochastic winner equal.  Each of the four
+    stochastic pooling types in ``FusedNet`` as ImagenetAE's stage 0
+    (4 steps, its stream drawn on the card, the depooling on the
+    backward kernel) replayed bit for bit.  Then ``research.video_ae``
+    at the published 90x160 frames, ``approximator`` in the fused
+    trainer's host-stacked, sliced and indexed windows (bit-equal to
+    each other, one readback a TRAIN segment) and ``kanji`` over its
+    synthetic glyphs (written under ``build/``), each ending on the
+    card with finite metrics.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -284,15 +317,17 @@ and ``stl10`` each pool on its own, and ``launches`` counts the serve
 requests', the train epochs', the workflow run's, AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
-phase's launches, and both STL-10 graphs' (``launches_by_path``; the
+phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
+fused stochastic stages (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
-``stl10`` per pool) and ``launches`` counts the train epochs', the
-workflow run's, both unit graphs', the autoencoder paths' and the CIFAR
-and STL-10 graphs'.
+``stl10`` per pool, ``imagenet_ae`` per depooling of each stage) and
+``launches`` counts the train epochs', the workflow run's, both unit
+graphs', the autoencoder paths', the CIFAR and STL-10 graphs' and
+ImagenetAE's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -306,6 +341,7 @@ import gc
 import http.client
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -333,6 +369,10 @@ SPIN_MS = 2.0
 TILE_SWEEP_KB = (16, 24, 32, 64)
 #: samples per kernel timing; shapes whose bound is under 10 us take more
 TIMING_ITERS, SMALL_TIMING_ITERS = 50, 200
+#: samples per kernel timing at the MNIST and autoencoder shapes, which
+#: launch-bound rows have read alike since PR 6 (200 until PR 11; their
+#: phases' seconds went to the mse_zoo phase)
+MNIST_TIMING_ITERS = TIMING_ITERS
 #: the serve phase's limit on |log p_card - log p_cpu|
 LOG_P_TOL = 1e-4
 ALEXNET_POOLS = (("max_pool1", (64, 55, 55, 96)),
@@ -406,13 +446,14 @@ CPU_STEP_RATIO, CPU_STEP_FLOOR = 4.0, 1e-6
 SERVE_REPEATS = 5
 #: the unit phase: the MNIST conv sample through the unit-at-a-time
 #: graph at minibatch 60 (root.mnistr.loader) over the loader's
-#: synthetic set, 7,500 TRAIN and 5,000 VALID rows (an eighth and a
-#: half of MNIST's 60,000 / 10,000; 15,000 / 10,000 from PR 8 to PR 9,
-#: cut to make room for the CIFAR and then the alexnet_units phase),
+#: synthetic set, 1,500 TRAIN and 1,000 VALID rows (15,000 / 10,000
+#: from PR 8 to PR 9 and 7,500 / 5,000 from PR 10 to PR 11 of MNIST's
+#: 60,000 / 10,000, cut to make room for the CIFAR, the alexnet_units
+#: and then the mse_zoo phase),
 #: for 2 epochs; the autoencoder and MSE phases take the same
 #: rows; the prng streams 1 and 2 seeded with UNITS_SEED and the next
 #: integer before each run
-UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 7500, 5000, 60, 2
+UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, UNITS_EPOCHS = 1500, 1000, 60, 2
 UNITS_SEED = 1234
 #: the card's f64 parameters after 4 TRAIN minibatches against the
 #: CPU's, relative to each tensor's largest magnitude: f64 on either
@@ -491,6 +532,26 @@ STL_F64_MB = 4
 #: the zoo's MNIST MLP at its published minibatch, for one epoch over the
 #: units phase's rows; the other samples' epochs
 ZOO_MNIST_BATCH, ZOO_EPOCHS = 88, 2
+#: the mse_zoo phase: ImagenetAE's published ladder (root.imagenet_ae) at
+#: the 227x227 ImageNet crop, over 256 of the sample's synthetic images
+#: (192 TRAIN, 64 VALID) at its minibatch 8, each of the four stages 2
+#: epochs, grown from the last one's snapshot
+IAE_SIZE, IAE_IMAGES, IAE_BATCH, IAE_EPOCHS, IAE_STAGES = 227, 256, 8, 2, 4
+#: the depooling of each stage, the pool's input: (label, NHWC shape)
+IAE_POOLS = (("imagenet_ae stage 0", (8, 73, 73, 108)),
+             ("imagenet_ae stage 1", (8, 32, 32, 192)),
+             ("imagenet_ae stage 2", (8, 12, 12, 224)),
+             ("imagenet_ae stage 3", (8, 4, 4, 256)))
+#: its f64 checks, on stages 0 and 3: 34 images, the first 4 TRAIN
+#: minibatches (8, 8, 8, 2) and a VALID one of 8
+IAE_F64_IMAGES, IAE_F64_STAGES = 34, (1, 4)
+#: the other MSE samples on the card: video_ae at the published 90x160
+#: frames, the approximator's three window forms at window 4, kanji;
+#: each for 2 epochs
+MSE_ZOO_EPOCHS, MSE_ZOO_WINDOW, VIDEO_FRAME = 2, 4, (90, 160)
+#: the fused stochastic pools: ImagenetAE's stage 0 as a fused
+#: autoencoder stage, 4 steps of minibatch 8 for each pooling type
+FUSED_STOCHASTIC_STEPS = 4
 
 
 def say(*args):
@@ -2777,7 +2838,7 @@ def _mnist_kernel_times(torch, card, cycles_per_ms):
                    "width": WIDE if c % 4 == 0 else NARROW}
             for key, fn in fns.items():
                 row[key], row[key[:-2] + "host_ms"] = _median_ms(
-                    torch, fn, flush, cycles_per_ms, SMALL_TIMING_ITERS)
+                    torch, fn, flush, cycles_per_ms, MNIST_TIMING_ITERS)
             rows[kind][label] = row
             say("   MNIST %s %s %s f32 (%s): kernel %.4f ms (host enqueue "
                 "%.4f ms), plain %.4f ms, library %.4f ms, bound %.4f ms "
@@ -2785,7 +2846,7 @@ def _mnist_kernel_times(torch, card, cycles_per_ms):
                     kind, label, shape, row["width"], row["ms"],
                     row["host_ms"], row["plain_ms"], row["library_ms"],
                     row["bound_ms"], nbytes / 1e6,
-                    100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS,
+                    100 * row["bound_ms"] / row["ms"], MNIST_TIMING_ITERS,
                     card))
     return rows
 
@@ -3621,7 +3682,7 @@ def _ae_kernel_times(torch, card, cycles_per_ms):
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         for key, fn in fns.items():
             row[key], row[key[:-2] + "host_ms"] = _median_ms(
-                torch, fn, flush, cycles_per_ms, SMALL_TIMING_ITERS)
+                torch, fn, flush, cycles_per_ms, MNIST_TIMING_ITERS)
         rows[kind]["ae"] = row
         say("   autoencoder %s %s f32 (one channel): kernel %.4f ms (host "
             "enqueue %.4f ms), plain %.4f ms, library %.4f ms (%s), bound "
@@ -3631,7 +3692,7 @@ def _ae_kernel_times(torch, card, cycles_per_ms):
                 "F.max_pool2d, max not maxabs: no one PyTorch call computes "
                 "maxabs" if kind == "forward" else "index_add_",
                 row["bound_ms"], nbytes / 1e6,
-                100 * row["bound_ms"] / row["ms"], SMALL_TIMING_ITERS, card))
+                100 * row["bound_ms"] / row["ms"], MNIST_TIMING_ITERS, card))
     return rows
 
 
@@ -4226,7 +4287,9 @@ class _Imports(object):
             for name, mod in self.MODULES.items()}
 
     def result(self):
-        out = {}
+        if getattr(self, "_out", None) is not None:
+            return self._out
+        out = self._out = {}
         for name, proc in self.procs.items():
             _, err = proc.communicate()
             lines = err.strip().splitlines()
@@ -4484,6 +4547,9 @@ def phase_train(torch, card, cycles_per_ms):
         "%.2f s" % (len(data), TRAIN_CLASSES, data.nbytes / 1e9,
                     time.perf_counter() - t0))
     t0 = time.perf_counter()
+    # the CPU check's f32 net takes this draw again (its state is then
+    # this net's): one draw, kept
+    memo = _DrawMemo().__enter__()
     net = fused.FusedNet(alexnet.make_layers(), (227, 227, 3),
                          rand=prng.RandomGenerator().seed(0),
                          pool_impl="offsets", dropout_seed=0)
@@ -4500,7 +4566,10 @@ def phase_train(torch, card, cycles_per_ms):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     _gather_check(torch, net, sd0, x, lbl)
-    _cpu_check(torch, net, sd0, data, labels)
+    try:
+        _cpu_check(torch, net, sd0, data, labels)
+    finally:
+        memo.__exit__()
     torch.backends.cudnn.deterministic = False
 
     # 3. the main path: 3 epochs of sliced windows, counts from 0
@@ -5193,6 +5262,639 @@ def phase_serve_models(torch, card, cifar_snapdir):
                       "cifar_device_bytes": cifar_bytes}
 
 
+def _iae_argv(snapdir, stage, restore, *extra):
+    """The CLI's arguments for ImagenetAE's first ``stage`` stages at
+    the phase's size, restoring the earlier stages from ``restore``."""
+    argv = ["research.imagenet_ae"]
+    for key, value in (("loader.size", IAE_SIZE),
+                       ("loader.n_images", IAE_IMAGES),
+                       ("loader.minibatch_size", IAE_BATCH),
+                       ("decision.max_epochs", IAE_EPOCHS),
+                       ("snapshotter.directory", snapdir),
+                       ("n_stages", stage), ("restore_snapshot", restore)):
+        argv += ["--config", "imagenet_ae.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+class _IaeData(object):
+    """While installed (``with``), ImagenetAE's synthetic images are
+    drawn once for each (size, count): a draw is a function of the two
+    alone, and 256 images of 227x227 take about a second of the host."""
+
+    def __init__(self):
+        from znicz_tpu_torch.samples.research import imagenet_ae
+        self.cls = imagenet_ae.SyntheticImageLoader
+        self.real = self.cls.__dict__["load_data"]
+        self.memo = {}
+
+    def __enter__(self):
+        memo, real = self.memo, self.real
+
+        def load_data(loader):
+            key = (loader.size, loader.n_images)
+            if key not in memo:
+                real(loader)
+                memo[key] = (list(loader.class_lengths),
+                             loader.original_data.mem.copy())
+                return
+            lengths, data = memo[key]
+            loader.class_lengths[:] = lengths
+            loader.original_data.reset(data.copy())
+        self.cls.load_data = load_data
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.load_data = self.real
+
+
+class _DrawTimes(object):
+    """While installed (``with``), the host seconds of each stochastic
+    pool's stream (``StochasticPoolingBase._rand``: the host draw from
+    ``prng.get()`` and its upload), and of the draw alone (the stream's
+    ``randint``), by unit name."""
+
+    def __init__(self):
+        from znicz_tpu_torch.core import prng
+        from znicz_tpu_torch.units.pooling import StochasticPoolingBase
+        self.cls, self.gen = StochasticPoolingBase, prng.get()
+        self.real = self.cls.__dict__["_rand"]
+        self.rand_s = collections.Counter()
+        self.draw_s = collections.Counter()
+
+    def __enter__(self):
+        real, gen, times = self.real, self.gen, self
+        real_randint = gen.randint
+
+        def randint(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_randint(*args, **kwargs)
+            times.draw_s[times.current] += time.perf_counter() - t0
+            return out
+
+        def _rand(unit):
+            times.current = unit.name
+            t0 = time.perf_counter()
+            out = real(unit)
+            times.rand_s[unit.name] += time.perf_counter() - t0
+            return out
+        gen.randint = randint
+        self.cls._rand = _rand
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._rand = self.real
+        del self.gen.randint
+
+
+def phase_mse_zoo(torch, card, cycles_per_ms, imports):
+    """ImagenetAE's published ladder at 227x227 through the CLI's unit
+    graph, the other MSE samples on the card, the fused trainer's three
+    window forms and its stochastic pools.  Returns ImagenetAE's
+    launches, the fused stochastic stages' and the depooling's timing
+    rows."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    rows = _iae_kernels(torch, card, cycles_per_ms)
+    base = os.path.join(HERE, "build", "znicz_tpu_torch", "mse_zoo")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    try:
+        with _IaeData() as data:
+            launches = _iae_ladder(torch, probe, cli, prng, base, card)
+            _iae_card_vs_cpu(torch)
+            fused_launches = _fused_stochastic(torch, data, card)
+        _mse_samples(torch, probe, cli, prng, base, imports.result(), card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        for key in ("n_stages", "restore_snapshot"):
+            root.imagenet_ae.__dict__.pop(key, None)
+        shutil.rmtree(base, ignore_errors=True)
+    return launches, fused_launches, rows
+
+
+def _iae_kernels(torch, card, cycles_per_ms):
+    """The backward kernel as ImagenetAE's depooling at the four stages'
+    shapes: on stochastic abs winners (``pooling.stochastic_pooling`` on
+    a stream drawn on the card) bit-equal to its plain version in f32
+    and f64, every launch at 16-byte vectors; then in f32 cold beside
+    its bound, its plain version and ``index_add_`` (median of 50)."""
+    from znicz_tpu_torch.ops import cuda_pooling_backward, pooling
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    cases = {}
+    for label, shape in IAE_POOLS:
+        b, h, w, c = shape
+        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        rand = torch.randint(0, 1 << 16, (b * ny * nx * c,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            values, offs = pooling.stochastic_pooling(x, rand, 3, 3, (2, 2),
+                                                      True)
+            wide = cuda_pooling_backward.LAUNCHES_WIDE
+            got = cuda_pooling_backward.max_pooling_offsets_backward(
+                values, offs, shape, 3, 3, (2, 2))
+            launched_wide = cuda_pooling_backward.LAUNCHES_WIDE - wide
+            want = pooling.max_pooling_backward_plain(values, offs, shape,
+                                                      3, 3, (2, 2))
+            torch.cuda.synchronize()
+            if not _bits_equal(torch, got, want) or launched_wide != 1:
+                raise RuntimeError(
+                    "the depooling at %s %s %s: bit-equal %s, %d 16-byte "
+                    "launches" % (label, shape, dtype,
+                                  _bits_equal(torch, got, want),
+                                  launched_wide))
+            if dtype == torch.float32:
+                cases[label] = (values, offs)
+    say("== mse_zoo: the depooling (the backward kernel on stochastic abs "
+        "winners) at ImagenetAE's stages %s, 3x3/s2 ceil mode: bit-equal to "
+        "its plain version in f32 and f64, every launch at 16-byte vectors "
+        "(%.2f s)" % (", ".join(str(s) for _, s in IAE_POOLS),
+                      time.perf_counter() - t0))
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    out = {}
+    for label, shape in IAE_POOLS:
+        values, offs = cases[label]
+        n_in, n_out = math.prod(shape), values.numel()
+        flat = offs.view(-1).long()
+        nbytes = n_out * 8 + n_in * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_out / F32_OPS_PER_S * 1e3
+        row = {"bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        for key, fn in (
+                ("ms", lambda: cuda_pooling_backward
+                 .max_pooling_offsets_backward(values, offs, shape, 3, 3,
+                                               (2, 2))),
+                ("plain_ms", lambda: pooling.max_pooling_backward_plain(
+                    values, offs, shape, 3, 3, (2, 2))),
+                ("library_ms", lambda: torch.zeros(
+                    n_in, device="cuda").index_add_(0, flat,
+                                                    values.view(-1)))):
+            row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                torch, fn, flush, cycles_per_ms, TIMING_ITERS)
+        out[label] = row
+        say("   depooling %s %s f32 (16-byte): kernel %.4f ms (host enqueue "
+            "%.4f ms), plain %.4f ms, library %.4f ms (index_add_), bound "
+            "%.5f ms (%.2f MB), %.0f%% of bound; %d samples; %s" % (
+                label, shape, row["ms"], row["host_ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"], nbytes / 1e6,
+                100 * row["bound_ms"] / row["ms"], TIMING_ITERS, card))
+    return {"forward": {}, "backward": out}
+
+
+def _iae_ladder(torch, probe, cli, prng, base, card):
+    """ImagenetAE's four stages through the CLI, each grown from the
+    last one's snapshot: exactly one backward launch a minibatch, TRAIN
+    and VALID, at 16-byte vectors at all four widths, no forward launch,
+    no plain pooling; the frozen stages bit-equal to the snapshot they
+    came from; the last stage replayed and resumed bit for bit."""
+    import numpy
+    from znicz_tpu_torch.core.snapshotter import SnapshotterToFile
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    n_valid = IAE_IMAGES // 4
+    n_train = IAE_IMAGES - n_valid
+    per_stage = (-(-n_train // IAE_BATCH) + -(-n_valid // IAE_BATCH)) * \
+        IAE_EPOCHS
+    say("== mse_zoo: python -m znicz_tpu_torch %s" % " ".join(
+        _iae_argv("build/...", "K", "PREVIOUS")))
+    restore, runs, by_stage = None, [], []
+    draws = _DrawTimes()
+    _zero_counts()
+    for stage in range(1, IAE_STAGES + 1):
+        before = _counts()
+        argv = _iae_argv(os.path.join(base, "stage%d" % stage), stage,
+                         restore)
+        if stage == 1:
+            with draws:
+                run = _units_run(probe, cli, prng, argv)
+        else:
+            run = _units_run(probe, cli, prng, argv)
+        after = _counts()
+        delta = {"backward": after["backward"] - before["backward"],
+                 "wide": after["backward_by_width"][WIDE] -
+                 before["backward_by_width"][WIDE]}
+        by_stage.append(delta)
+        wf, segs = run["wf"], run["segments"]
+        got = [(s["epoch"], s["class"]) for s in segs]
+        want = [(e, c) for e in range(IAE_EPOCHS) for c in (TRAIN, VALID)]
+        shape = tuple(wf.depool.err_input.shape)
+        if got != want or shape != IAE_POOLS[stage - 1][1] or \
+                wf.deconv.weights is not wf.conv.weights or \
+                delta != {"backward": per_stage, "wide": per_stage} or \
+                tuple(wf.deconv.output.shape) != tuple(wf.conv.input.shape):
+            raise RuntimeError(
+                "stage %d: segments %s, depooling %s, launches %s; want %s, "
+                "%s, %d at 16-byte" % (stage, got, shape, delta, want,
+                                       IAE_POOLS[stage - 1][1], per_stage))
+        if wf.loader.class_lengths != [0, n_valid, n_train]:
+            raise RuntimeError("stage %d: class lengths %s" % (
+                stage, wf.loader.class_lengths))
+        for s in segs:
+            m = s["metrics"]
+            if m is None or not all(numpy.isfinite(v) for v in m) or \
+                    not 0 <= m[2] <= m[0] <= m[1]:
+                raise RuntimeError("stage %d segment metrics: %s"
+                                   % (stage, s))
+        if restore is not None:
+            saved = SnapshotterToFile.import_(restore)["units"]
+            for conv in wf.convs[:-1]:
+                if not numpy.array_equal(
+                        numpy.asarray(conv.weights.mem).view(numpy.uint8),
+                        numpy.asarray(saved[conv.name]["weights"]).view(
+                            numpy.uint8)):
+                    raise RuntimeError("stage %d: the frozen %s moved"
+                                       % (stage, conv.name))
+        rates, run_s = _units_rates(run, n_train)
+        say("   stage %d (%s): (TRAIN, VALID) MSE (avg, max, min) by epoch "
+            "%s; depooling %s, %d backward launches at 16-byte vectors; "
+            "TRAIN images/s by epoch %s (host clock), %.4f host ms a "
+            "minibatch (%.2f s); %s" % (
+                stage - 1, " -> ".join("%s %dx%dx%d" % (
+                    c.name, c.output.shape[1], c.output.shape[2],
+                    c.output.shape[3]) for c in wf.convs),
+                [(a["metrics"], b["metrics"]) for a, b in
+                 zip(segs[::2], segs[1::2])], shape, delta["backward"],
+                " ".join("%.1f" % r for r in rates),
+                1e3 * run_s / (per_stage), run_s, card))
+        if stage == 1:
+            say("   stage 0 host ms by unit over the run: %s" %
+                _unit_times(wf))
+            say("   stage 0 stochastic pool: pool0 %.1f host ms over %d "
+                "runs, of which its stream %.1f (the host draw %.1f, the "
+                "int32 copy and its upload %.1f), the pooling op %.1f" % (
+                    1e3 * wf.pools[0].run_time_, wf.pools[0].run_count_,
+                    1e3 * draws.rand_s["pool0"], 1e3 * draws.draw_s["pool0"],
+                    1e3 * (draws.rand_s["pool0"] - draws.draw_s["pool0"]),
+                    1e3 * (wf.pools[0].run_time_ - draws.rand_s["pool0"])))
+        restore = run["snapshots"][-1][1]
+        if stage < IAE_STAGES:
+            del run, wf
+            gc.collect()
+    launches = _counts()
+    for mod in ("jax", "znicz_tpu"):
+        if mod in sys.modules:
+            raise RuntimeError("%s was imported" % mod)
+    n_mb = per_stage * IAE_STAGES
+    if launches["backward"] != n_mb or launches["forward"] or \
+            launches["backward_by_width"] != {WIDE: n_mb, NARROW: 0} or \
+            launches["plain_on_card"]:
+        raise RuntimeError("the ladder launched %s, not %d backward at "
+                           "16-byte vectors and nothing else"
+                           % (launches, n_mb))
+    say("   the ladder: %s; the frozen stages bit-equal to the snapshot "
+        "each stage grew from" % launches)
+    t0 = time.perf_counter()
+    previous = _iae_argv(os.path.join(base, "replay"), IAE_STAGES,
+                         run["wf"].restore_snapshot)
+    replay = _units_run(probe, cli, prng, previous)
+    if _units_segments(replay["segments"]) != \
+            _units_segments(run["segments"]):
+        raise RuntimeError("the last stage's replay differs from the run")
+    _units_equal(replay["state"], run["state"], "the last stage's replay")
+    say("   replay of stage 3 from the same seeds: each epoch's [sum, max, "
+        "min] metrics, the shared weights, GDDeconv's optimizer Arrays and "
+        "the prng streams bit-equal to the run's (%.2f s)"
+        % (time.perf_counter() - t0))
+    del replay
+    _resume_units(probe, cli, prng, run, lambda *extra: _iae_argv(
+        os.path.join(base, "resumed"), IAE_STAGES, run["wf"].restore_snapshot,
+        *extra))
+    return launches
+
+
+def _iae_card_vs_cpu(torch):
+    """ImagenetAE's stages 0 and 3 (the first four frozen at their drawn
+    weights) in f64, the first 4 TRAIN minibatches and a VALID one, on
+    the card (the f64 depooling kernel) and on the CPU (its plain
+    version) from one seed: every conv's weights and the velocity
+    within ``UNITS_F64_RTOL`` of each tensor's largest, every stochastic
+    winner equal."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.ops import cuda_pooling_backward, pooling
+    from znicz_tpu_torch.samples.research import imagenet_ae
+    from znicz_tpu_torch.units.pooling import StochasticPoolingBase
+    real_run = StochasticPoolingBase.run
+    offsets = {}
+
+    def run(unit):
+        real_run(unit)
+        offsets.setdefault(unit.device.type, []).append(
+            unit.input_offset.dev.cpu().numpy().copy())
+    saved = root.common.engine.precision_dtype
+    root.common.engine.precision_dtype = numpy.float64
+    StochasticPoolingBase.run = run
+    plain = pooling.PLAIN_CUDA_CALLS
+    try:
+        for stages in IAE_F64_STAGES:
+            t0 = time.perf_counter()
+            offsets.clear()
+            state, seconds = {}, {}
+            for device in ("cuda", "cpu"):
+                t1 = time.perf_counter()
+                prng.get(1).seed(UNITS_SEED)
+                prng.get(2).seed(UNITS_SEED + 1)
+                before = cuda_pooling_backward.LAUNCHES
+                with tempfile.TemporaryDirectory() as snapdir:
+                    wf = imagenet_ae.build(
+                        n_stages=stages,
+                        loader_config={"size": IAE_SIZE,
+                                       "n_images": IAE_F64_IMAGES,
+                                       "minibatch_size": IAE_BATCH},
+                        decision_config={"max_epochs": 1},
+                        snapshotter_config={"directory": snapdir})
+                    wf.initialize(device=device)
+                    wf.run()
+                state[device] = [numpy.array(c.weights.mem)
+                                 for c in wf.convs] + [numpy.array(
+                                     wf.gd_deconv
+                                     .gradient_weights_with_moment.mem)]
+                if device == "cuda":
+                    launched = cuda_pooling_backward.LAUNCHES - before
+                seconds[device] = time.perf_counter() - t1
+                del wf
+            worst = 0.0
+            for g, w in zip(state["cuda"], state["cpu"]):
+                if g.dtype != numpy.float64:
+                    raise RuntimeError("ImagenetAE ran in %s" % g.dtype)
+                worst = max(worst, numpy.abs(g - w).max() /
+                            numpy.abs(w).max())
+            n_mb = 5   # 4 TRAIN minibatches and a VALID one
+            if not worst <= UNITS_F64_RTOL or launched != n_mb or \
+                    len(offsets["cuda"]) != n_mb * stages or any(
+                        not numpy.array_equal(a, b) for a, b in zip(
+                            offsets["cuda"], offsets["cpu"])):
+                raise RuntimeError(
+                    "ImagenetAE stage %d in f64: %.3g relative from the CPU "
+                    "(bound %g), %d depooling launches, winners equal: %s"
+                    % (stages - 1, worst, UNITS_F64_RTOL, launched, all(
+                        numpy.array_equal(a, b) for a, b in zip(
+                            offsets["cuda"], offsets["cpu"]))))
+            say("   card vs CPU, f64, stage %d (4 TRAIN minibatches and a "
+                "VALID one of 8 at %dx%d): every conv's weights and the "
+                "velocity within %.3g of the tensor's largest (bound %g), "
+                "the %d pools' stochastic winners equal, on %d f64 "
+                "depooling launches (card %.2f s, CPU %.2f s, %.2f s)" % (
+                    stages - 1, IAE_SIZE, IAE_SIZE, worst, UNITS_F64_RTOL,
+                    len(offsets["cuda"]), launched, seconds["cuda"],
+                    seconds["cpu"], time.perf_counter() - t0))
+    finally:
+        StochasticPoolingBase.run = real_run
+        root.common.engine.precision_dtype = saved
+    if pooling.PLAIN_CUDA_CALLS != plain:
+        raise RuntimeError("plain pooling ran on the card in f64")
+
+
+def _stochastic_layers(tpe):
+    """ImagenetAE's stage 0 as a fused autoencoder stage with pooling
+    ``tpe``: conv 108 9x9/s3 without bias -> the pool (3x3/s2; a
+    pool-depool's windows are 3x3 apart) -> a depooling tied to it
+    (where the pool does not depool itself) -> a deconv tied to the
+    conv, the sample's hypers."""
+    from znicz_tpu_torch.core.config import root
+    cfg = root.imagenet_ae
+    geo = cfg.stages[0]
+    layers = [
+        {"name": "conv", "type": "conv",
+         "->": {"n_kernels": geo["n_kernels"], "kx": geo["kx"],
+                "ky": geo["ky"], "sliding": tuple(geo["sliding"]),
+                "include_bias": cfg.include_bias,
+                "weights_filling": "uniform"},
+         "<-": {"learning_rate": cfg.learning_rate,
+                "weights_decay": cfg.weights_decay,
+                "gradient_moment": cfg.gradient_moment}},
+        {"name": "pool", "type": tpe,
+         "->": {"kx": 3, "ky": 3, "sliding": (2, 2)}}]
+    if not tpe.endswith("_depool"):
+        layers.append({"name": "depool", "type": "depooling",
+                       "->": {"tied_to": "pool"}})
+    layers.append({"name": "deconv", "type": "deconv",
+                   "->": {"tied_to": "conv",
+                          "unsafe_padding": cfg.unsafe_padding}})
+    return layers
+
+
+def _fused_stochastic(torch, data, card):
+    """Each of the four stochastic pooling types in ``FusedNet`` as
+    ImagenetAE's stage 0 at 227x227, minibatch 8, f32: 4 steps whose
+    streams are drawn on the card (one draw a step), the depooling of
+    the two that have one on the backward kernel (one launch a step),
+    no plain pooling; a second net from the same seeds replays the steps
+    bit for bit (losses, parameters, optimizer slots)."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.parallel import fused
+    images = next(d for (size, _), (_, d) in data.memo.items()
+                  if size == IAE_SIZE)
+    x = torch.as_tensor(images[:IAE_BATCH]).cuda()
+    real_draw = fused.draw_u16
+    draws = []
+
+    def draw(generator, n):
+        out = real_draw(generator, n)
+        draws.append(out.device.type)
+        return out
+    fused.draw_u16 = draw
+    launches = {}
+    try:
+        for tpe in ("stochastic_pooling", "stochastic_abs_pooling",
+                    "stochastic_pool_depool", "stochastic_abs_pool_depool"):
+            t0 = time.perf_counter()
+            got = []
+            for _ in range(2):
+                net = fused.FusedNet(
+                    _stochastic_layers(tpe), x.shape[1:],
+                    rand=prng.RandomGenerator().seed(UNITS_SEED),
+                    objective="mse", dropout_seed=UNITS_SEED)
+                del draws[:]
+                _zero_counts()
+                losses = [net.step_mse(x, x)["loss"]
+                          for _ in range(FUSED_STOCHASTIC_STEPS)]
+                counts = _counts()
+                sd = net.state_dict()
+                got.append((torch.stack(losses).cpu().numpy(), sd, counts,
+                            list(draws)))
+                del net
+            (l0, s0, c0, d0), (l1, s1, c1, d1) = got
+            depools = 0 if tpe.endswith("_depool") else \
+                FUSED_STOCHASTIC_STEPS
+            want = {"forward": 0, "forward_by_width": {WIDE: 0, NARROW: 0},
+                    "backward": depools,
+                    "backward_by_width": {WIDE: depools, NARROW: 0},
+                    "plain_on_card": 0}
+            if d0 != ["cuda"] * FUSED_STOCHASTIC_STEPS or c0 != want or \
+                    not numpy.isfinite(l0).all():
+                raise RuntimeError("fused %s: draws on %s, launches %s "
+                                   "(want %s), losses %s"
+                                   % (tpe, d0, c0, want, l0))
+            if not numpy.array_equal(l0.view(numpy.uint8),
+                                     l1.view(numpy.uint8)):
+                raise RuntimeError("fused %s: the replay's losses differ"
+                                   % tpe)
+            _trees_bits_equal(s1, s0, "fused %s replay" % tpe)
+            launches[tpe] = c0
+            say("   fused %s (stage 0 at %dx%d, minibatch %d): %d steps, "
+                "losses %s, one stream a step drawn on the card, %d "
+                "depooling launches at 16-byte vectors; the replay bit-equal "
+                "(losses, parameters, optimizer slots, generator) (%.2f s); "
+                "%s" % (tpe, IAE_SIZE, IAE_SIZE, IAE_BATCH,
+                        FUSED_STOCHASTIC_STEPS,
+                        " ".join("%.6f" % v for v in l0), depools,
+                        time.perf_counter() - t0, card))
+    finally:
+        fused.draw_u16 = real_draw
+    total = dict(_counts(), forward=0, backward=0, plain_on_card=0)
+    for key in ("forward", "backward", "plain_on_card"):
+        total[key] = sum(c[key] for c in launches.values())
+    for key in ("forward_by_width", "backward_by_width"):
+        total[key] = {w: sum(c[key][w] for c in launches.values())
+                      for w in (WIDE, NARROW)}
+    return total
+
+
+def _trees_bits_equal(got, want, what):
+    """Two trees of host values (``FusedNet.state_dict``), bit for bit."""
+    import numpy
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise RuntimeError("%s: keys %s, not %s"
+                               % (what, sorted(got), sorted(want)))
+        for k in want:
+            _trees_bits_equal(got[k], want[k], "%s %s" % (what, k))
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise RuntimeError("%s: %d items, not %d"
+                               % (what, len(got), len(want)))
+        for i, (g, w) in enumerate(zip(got, want)):
+            _trees_bits_equal(g, w, "%s %d" % (what, i))
+    else:
+        g, w = numpy.atleast_1d(got), numpy.atleast_1d(want)
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not numpy.array_equal(g.view(numpy.uint8),
+                                      w.view(numpy.uint8)):
+            raise RuntimeError("%s differs" % what)
+
+
+def _mse_samples(torch, probe, cli, prng, base, found, card):
+    """The other MSE samples through the CLI on the card for 2 epochs:
+    ``research.video_ae`` at the published 90x160 frames,
+    ``approximator`` in the fused trainer's three window forms (window 4:
+    host-stacked, ``device_data=False``; sliced, ``device_perm=True``;
+    gathered by index, the default) bit-equal to each other with one
+    readback a TRAIN segment, and ``kanji`` over its synthetic glyphs
+    (written under ``build/``; PIL).  Each ends on ``cuda`` with finite
+    metrics, neither ``jax`` nor ``znicz_tpu`` imported."""
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.samples import kanji
+
+    def check(name, r):
+        wf = r["wf"]
+        trainer = getattr(wf, "fused_trainer", None)
+        device = trainer.net.device if trainer is not None else \
+            wf.forwards[0].weights.dev.device
+        bad = [s for s in r["segments"] if s["metrics"] is None or
+               not numpy.isfinite(s["metrics"]).all()]
+        if device.type != "cuda" or bad or \
+                len(r["segments"]) != 2 * MSE_ZOO_EPOCHS:
+            raise RuntimeError("%s: device %s, segments %s"
+                               % (name, device, r["segments"]))
+        for mod in ("jax", "znicz_tpu"):
+            if mod in sys.modules:
+                raise RuntimeError("%s was imported" % mod)
+        return device
+
+    t0 = time.perf_counter()
+    r = _units_run(probe, cli, prng, [
+        "research.video_ae", "--config",
+        "video_ae.loader.frame_shape=%r" % (VIDEO_FRAME,),
+        "--config", "video_ae.decision.max_epochs=%d" % MSE_ZOO_EPOCHS,
+        "--config", "video_ae.snapshotter.directory=%s"
+        % os.path.join(base, "video_ae")])
+    device = check("video_ae", r)
+    if tuple(r["wf"].forwards[-1].output.shape[1:]) != \
+            (VIDEO_FRAME[0] * VIDEO_FRAME[1],):
+        raise RuntimeError("video_ae reconstructs %s" %
+                           (r["wf"].forwards[-1].output.shape,))
+    say("   research.video_ae at %dx%d frames: (TRAIN, VALID) MSE (avg, max, "
+        "min) by epoch %s on %s (%.2f s); %s" % (
+            VIDEO_FRAME + ([(a["metrics"], b["metrics"]) for a, b in zip(
+                r["segments"][::2], r["segments"][1::2])], device,
+                time.perf_counter() - t0, card)))
+    forms = (("host-stacked", "window=%d,device_data=False"),
+             ("sliced", "window=%d,device_perm=True"),
+             ("indexed", "window=%d"))
+    runs = {}
+    for form, spec in forms:
+        t0 = time.perf_counter()
+        readbacks = _Readbacks(torch, probe._where)
+        with readbacks:
+            r = _units_run(probe, cli, prng, [
+                "approximator", "--fused", spec % MSE_ZOO_WINDOW,
+                "--config", "approximator.decision.max_epochs=%d"
+                % MSE_ZOO_EPOCHS,
+                "--config", "approximator.snapshotter.directory=%s"
+                % os.path.join(base, "approximator_" + form)])
+        check("approximator " + form, r)
+        trainer = r["wf"].fused_trainer
+        got_form = "indexed" if trainer._use_device_data and not \
+            trainer._use_sliced else "sliced" if trainer._use_sliced else \
+            "host-stacked"
+        per_train = [readbacks.counts[(TRAIN, e)]
+                     for e in range(MSE_ZOO_EPOCHS)]
+        if got_form != form or trainer.window != MSE_ZOO_WINDOW or \
+                per_train != [1] * MSE_ZOO_EPOCHS:
+            raise RuntimeError("approximator --fused %s: the %s form, "
+                               "window %d, readbacks by TRAIN segment %s"
+                               % (spec, got_form, trainer.window, per_train))
+        runs[form] = (_units_segments(r["segments"]),
+                      trainer.net.state_dict())
+        say("   approximator --fused %s: the %s window, (TRAIN, VALID) MSE "
+            "by epoch %s, one readback a TRAIN segment %s (%.2f s); %s" % (
+                spec % MSE_ZOO_WINDOW, form,
+                [(a["metrics"], b["metrics"]) for a, b in zip(
+                    r["segments"][::2], r["segments"][1::2])], per_train,
+                time.perf_counter() - t0, card))
+    segs, sd = runs["indexed"]
+    for form in ("host-stacked", "sliced"):
+        if runs[form][0] != segs:
+            raise RuntimeError("the approximator's %s window's segments "
+                               "differ from the indexed window's" % form)
+        _trees_bits_equal(runs[form][1], sd,
+                          "the approximator's %s window" % form)
+    say("   approximator: the host-stacked, sliced and indexed windows "
+        "bit-equal (each epoch's metrics, parameters, optimizer slots, "
+        "generator)")
+    if found["PIL"] is not None:
+        say("   kanji: not run (PIL %s)" % found["PIL"])
+        return
+    t0 = time.perf_counter()
+    data = kanji.materialize_synthetic(os.path.join(base, "kanji_data"))
+    r = _units_run(probe, cli, prng, [
+        "kanji", "--config", "kanji.loader.train_paths=[%r]"
+        % os.path.join(data, "train"),
+        "--config", "kanji.loader.target_paths=[%r]"
+        % os.path.join(data, "target"),
+        "--config", "kanji.decision.max_epochs=%d" % MSE_ZOO_EPOCHS,
+        "--config", "kanji.snapshotter.directory=%s"
+        % os.path.join(base, "kanji")])
+    device = check("kanji", r)
+    say("   kanji: (epoch, class, n_err of rows, avg MSE) %s on %s (%.2f s, "
+        "the glyphs written under build/); %s" % (
+            [(s["epoch"], s["class"], "%s/%d" % (s["n_err"], s["n"]),
+              "%.6f" % s["metrics"][0]) for s in r["segments"]], device,
+            time.perf_counter() - t0, card))
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -5280,6 +5982,9 @@ def _phases(torch, name, card, start):
     stl_data.cleanup()
     marks.append(("stl10", time.perf_counter()))
     _DRAWS.clear()
+    iae_launches, iae_fused_launches, iae_rows = phase_mse_zoo(
+        torch, card, cycles_per_ms, imports)
+    marks.append(("mse_zoo", time.perf_counter()))
     by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
     marks.append(("serve_models", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
@@ -5290,7 +5995,8 @@ def _phases(torch, name, card, start):
              "units": units_launches, "ae": ae_launches,
              "ae_fused": ae_fused_launches, "cifar": cifar_launches,
              "cifar_fused": cifar_fused_launches, "stl10": stl_launches,
-             "stl10_fused": stl_fused_launches}
+             "stl10_fused": stl_fused_launches, "imagenet_ae": iae_launches,
+             "imagenet_ae_fused": iae_fused_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -5333,6 +6039,7 @@ def _phases(torch, name, card, start):
     backward["ae"] = _sums(ae_rows["backward"])
     backward["cifar"] = _by_pool(cifar_rows["backward"])
     backward["stl10"] = _by_pool(stl_rows["backward"])
+    backward["imagenet_ae"] = _by_pool(iae_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

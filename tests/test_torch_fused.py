@@ -412,10 +412,29 @@ def test_later_options_raise(kwargs, match):
                                  "stochastic_pool_depool",
                                  "stochastic_abs_pool_depool"])
 def test_later_layers_raise(tpe):
-    layers = [{"type": tpe, "->": {"kx": 2, "ky": 2}},
+    """The four stochastic pooling types, once left for later (they
+    raised, naming ROADMAP.md), now build and train: the JAX package's
+    specs, and a step that draws the pool's winners on the net's
+    generator, moves the weights and keeps every value finite."""
+    layers = [_conv("conv", 2, 3, 0, 1, 0.0),
+              {"type": tpe, "->": {"kx": 2, "ky": 2}},
               _fc("softmax", 3, 0)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fused.build_specs(layers, (4, 4, 1))
+    spec = fused.build_specs(layers, (6, 6, 1))[1]
+    jspec = jax_fused.build_specs(layers, (6, 6, 1))[1]
+    assert (spec.mode, spec.out_shape, spec.sliding) == \
+        (jspec.mode, jspec.out_shape, jspec.sliding)
+    net = fused.FusedNet(layers, (6, 6, 1), rand=prng.RandomGenerator().seed(
+        2), dtype=numpy.float64, device="cpu")
+    r = numpy.random.RandomState(1)
+    before = net.host_params()
+    key = net.state_dict()["key"]
+    m = net.step(r.uniform(-1, 1, (4, 6, 6, 1)),
+                 numpy.array([0, 1, 2, 1], numpy.int32))
+    assert numpy.isfinite(float(m["loss"]))
+    assert not numpy.array_equal(net.state_dict()["key"], key)
+    after = net.host_params()
+    assert numpy.abs(after[0]["w"] - before[0]["w"]).max() > 0
+    assert all(numpy.isfinite(v).all() for p in after for v in p.values())
 
 
 @pytest.mark.parametrize("tpe", ["deconv", "depooling"])

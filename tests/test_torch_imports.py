@@ -116,7 +116,12 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.samples.research.hands",
                  "znicz_tpu_torch.samples.research.tv_channels",
                  "znicz_tpu_torch.samples.wine",
-                 "znicz_tpu_torch.samples.yale_faces"):
+                 "znicz_tpu_torch.samples.yale_faces",
+                 "znicz_tpu_torch.loader.image_mse",
+                 "znicz_tpu_torch.samples.approximator",
+                 "znicz_tpu_torch.samples.kanji",
+                 "znicz_tpu_torch.samples.research.video_ae",
+                 "znicz_tpu_torch.samples.research.imagenet_ae"):
         assert name in doc["modules"]
 
 

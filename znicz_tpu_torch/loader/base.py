@@ -92,6 +92,8 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.minibatch_indices = Array(name="minibatch_indices")
         self.minibatch_size = 0
         self.minibatch_class = TRAIN
+        #: the served minibatch's first row within its class's order
+        self.minibatch_class_offset = 0
         self.last_minibatch = Bool(False)
         self.epoch_ended = Bool(False)
         self.epoch_number = 0
@@ -196,6 +198,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
 
         self.minibatch_class = clazz
         self.minibatch_size = int(n)
+        self.minibatch_class_offset = int(off)
 
         self.minibatch_indices.map_write()
         idx = self.minibatch_indices.mem
@@ -222,11 +225,23 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         else:
             self._offset_in_class = off + n
 
-    def fill_window_slot(self, indices_out):
-        """Copy the just-served minibatch's indices into a row of the
-        caller's staging buffer (valid under ``skip_fill`` too)."""
-        indices_out[...] = self.minibatch_indices.mem.reshape(
-            indices_out.shape)
+    def fill_window_slot(self, x_out=None, labels_out=None,
+                         targets_out=None, indices_out=None):
+        """Copy the just-served minibatch's rows, labels, targets (the
+        MSE mixins') and indices into rows of the caller's staging
+        buffers, those given; the indices are valid under ``skip_fill``
+        too."""
+        if x_out is not None:
+            x_out[...] = self.minibatch_data.mem.reshape(x_out.shape)
+        if labels_out is not None:
+            labels_out[...] = self.minibatch_labels.mem.reshape(
+                labels_out.shape)
+        if targets_out is not None:
+            targets_out[...] = self.minibatch_targets.mem.reshape(
+                targets_out.shape)
+        if indices_out is not None:
+            indices_out[...] = self.minibatch_indices.mem.reshape(
+                indices_out.shape)
 
 
 class FullBatchLoader(Loader):
@@ -332,6 +347,9 @@ class FullBatchLoaderMSEMixin(LoaderMSEMixin):
         super(FullBatchLoaderMSEMixin, self).initialize(
             device=device, **kwargs)
         self.minibatch_targets.device = device
+        self._apply_target_normalization()
+
+    def _apply_target_normalization(self):
         self.target_normalizer = self._fit_and_normalize(
             self.original_targets, self.targets_normalization_type,
             self.targets_normalization_parameters)

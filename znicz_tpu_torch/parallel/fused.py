@@ -33,11 +33,21 @@ What maps to what:
   winners on the forward kernel (the JAX package forces that pool onto
   its gather, which computes the same function), and the depooling is
   the backward kernel; a deconv applies its tied conv's weights, which
-  the conv's own application does not train.
+  the conv's own application does not train;
+* the stochastic pools draw their uint16 stream on the device from the
+  net's generator, one draw a layer a step (the JAX package splits its
+  key there), into :func:`pool_ops.stochastic_pooling` /
+  ``stochastic_pool_depool``, in training and in :meth:`FusedNet.predict`
+  alike; only the distribution of the winners can match the JAX
+  package's;
+* windows take their minibatches host-stacked (:meth:`FusedNet.run_window`,
+  :meth:`FusedNet.run_window_mse`), gathered from the device dataset by
+  row index (``run_window_indexed``, ``run_window_mse_indexed``) or
+  sliced from the epoch's shuffled dataset on the device
+  (``run_window_sliced``, ``run_window_mse_sliced``).
 
 Not in this slice (each raises and is listed in ``ROADMAP.md``): a
-mesh, ``compute_dtype``, ``pool_impl="reshape"`` and the stochastic
-pooling layers.
+mesh, ``compute_dtype`` and ``pool_impl="reshape"``.
 """
 
 from dataclasses import dataclass, field
@@ -66,7 +76,11 @@ CONV_TYPES = {"conv": "linear", "conv_tanh": "tanh",
               "conv_sigmoid": "sigmoid", "conv_relu": "relu",
               "conv_str": "strict_relu"}
 POOL_TYPES = {"max_pooling": "max", "maxabs_pooling": "maxabs",
-              "avg_pooling": "avg"}
+              "avg_pooling": "avg",
+              "stochastic_pooling": "stochastic",
+              "stochastic_abs_pooling": "stochasticabs",
+              "stochastic_pool_depool": "stochastic_depool",
+              "stochastic_abs_pool_depool": "stochasticabs_depool"}
 ACTIVATION_TYPES = {"activation_tanh": "tanh",
                     "activation_sigmoid": "sigmoid",
                     "activation_relu": "relu",
@@ -74,10 +88,6 @@ ACTIVATION_TYPES = {"activation_tanh": "tanh",
                     "activation_log": "log",
                     "activation_tanhlog": "tanhlog",
                     "activation_sincos": "sincos"}
-#: layer types the JAX fused path trains and this port does not yet
-LATER_TYPES = ("stochastic_pooling", "stochastic_abs_pooling",
-               "stochastic_pool_depool", "stochastic_abs_pool_depool")
-
 #: strictly monotonically increasing activations — applied after a
 #: following max pool, where they commute with it.  "relu" (softplus,
 #: with a seam at 15) and strict relu are not strictly increasing.
@@ -388,12 +398,17 @@ def build_specs(layers, input_sample_shape, defaults=None):
                     % (tpe, shape))
             kx, ky = int(fwd["kx"]), int(fwd["ky"])
             sliding = tuple(fwd.get("sliding") or (kx, ky))
-            ny, nx = pool_ops.output_spatial(
-                shape[0], shape[1], ky, kx, sliding)
-            out_shape = (ny, nx, shape[2])
+            mode = POOL_TYPES[tpe]
+            if mode.endswith("_depool"):
+                # pooling and depooling in one: the input's shape
+                out_shape = shape
+            else:
+                ny, nx = pool_ops.output_spatial(
+                    shape[0], shape[1], ky, kx, sliding)
+                out_shape = (ny, nx, shape[2])
             specs.append(PoolSpec(
                 type=tpe, in_shape=shape, out_shape=out_shape,
-                mode=POOL_TYPES[tpe], kx=kx, ky=ky, sliding=sliding))
+                mode=mode, kx=kx, ky=ky, sliding=sliding))
             shape = out_shape
         elif tpe == "norm":
             if len(shape) != 3:
@@ -444,7 +459,7 @@ def build_specs(layers, input_sample_shape, defaults=None):
         elif tpe == "depooling":
             pool_spec = _tied_spec(fwd, names, specs, "a pooling layer")
             if pool_spec.kind != "pool" or pool_spec.mode not in (
-                    "max", "maxabs"):
+                    "max", "maxabs", "stochastic", "stochasticabs"):
                 raise ValueError(
                     "tied_to %r is not an offset-recording pooling"
                     % fwd["tied_to"])
@@ -456,8 +471,6 @@ def build_specs(layers, input_sample_shape, defaults=None):
                 type=tpe, in_shape=shape, out_shape=pool_spec.in_shape,
                 tied=names[fwd["tied_to"]]))
             shape = pool_spec.in_shape
-        elif tpe in LATER_TYPES:
-            raise NotImplementedError("layer type %r is %s" % (tpe, _LATER))
         else:
             raise ValueError("fused path does not support layer type %r"
                              % tpe)
@@ -554,8 +567,10 @@ def forward(params, x, specs, return_logits=False, generator=None,
 
     With ``return_logits`` the softmax head is left un-normalized.
     Dropout masks are drawn from ``generator`` when ``train``; otherwise
-    dropout is the identity.  A strictly monotonic conv activation is
-    applied after a following max pool (``_MONOTONIC_ACTS``)."""
+    dropout is the identity.  The stochastic pools draw their winners
+    from ``generator`` whenever it is given (in inference too).  A
+    strictly monotonic conv activation is applied after a following max
+    pool (``_MONOTONIC_ACTS``)."""
     y = x
     deferred_act = None
     offsets = {}         # spec index -> winner offsets, for a depooling
@@ -591,7 +606,9 @@ def forward(params, x, specs, return_logits=False, generator=None,
                                  activation=act, include_bias="b" in p)
         elif spec.kind == "pool":
             y = y.reshape((y.shape[0],) + spec.in_shape)
-            if spec.record_offsets:
+            if spec.mode.startswith("stochastic"):
+                y, offsets[i] = _stochastic_pool(spec, y, generator)
+            elif spec.record_offsets:
                 y, offsets[i] = pool_ops.max_pooling_train(
                     y, spec.ky, spec.kx, spec.sliding,
                     spec.mode == "maxabs")
@@ -641,6 +658,35 @@ def forward(params, x, specs, return_logits=False, generator=None,
         elif spec.kind != "zerofill":  # pragma: no cover
             raise AssertionError(spec.kind)
     return y
+
+
+def draw_u16(generator, n):
+    """``n`` uniform uint16 values (int32 tensor) drawn on
+    ``generator``'s device: a stochastic pool's stream for one step."""
+    return torch.randint(0, 1 << 16, (int(n),), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def _stochastic_pool(spec, y, generator):
+    """A stochastic pool's ``(output, int32 winner offsets)`` on
+    :func:`pool_ops.stochastic_pooling` (or ``stochastic_pool_depool``),
+    fed one uint16 a window from ``generator``: one draw a layer a
+    step, where the JAX package splits its key.  Only the distribution
+    matches the JAX package's draw."""
+    if generator is None:
+        raise ValueError("stochastic pooling needs the net's generator")
+    use_abs = "abs" in spec.mode
+    b, h, w, c = y.shape
+    if spec.mode.endswith("_depool"):
+        ny, nx = pool_ops.output_spatial(h, w, spec.ky, spec.kx,
+                                         (spec.kx, spec.ky))
+        return pool_ops.stochastic_pool_depool(
+            y, draw_u16(generator, b * ny * nx * c), spec.ky, spec.kx,
+            use_abs)
+    ny, nx, _ = spec.out_shape
+    return pool_ops.stochastic_pooling(
+        y, draw_u16(generator, b * ny * nx * c), spec.ky, spec.kx,
+        spec.sliding, use_abs)
 
 
 def _hits(spec, y):
@@ -881,7 +927,11 @@ class FusedNet:
         self._tdtype = _TORCH_DTYPES[self.dtype]
         self._win_acc = None
         self._data_d = self._labels_d = self._targets_d = None
-        self._data_p = self._labels_p = None
+        self._data_p = self._labels_p = self._targets_p = None
+        #: the stochastic pools draw from the generator in inference too
+        self._has_stochastic = any(
+            s.kind == "pool" and s.mode.startswith("stochastic")
+            for s in self.specs)
         #: the MSE windows' stats, read at every window: the evaluator's
         #: ``root`` and the nearest-class-target matrix (None: no n_err)
         self.mse_root = True
@@ -971,7 +1021,7 @@ class FusedNet:
             if labels is None or not len(labels) else labels)
         self._targets_d = None if targets is None else self._batch(
             numpy.ascontiguousarray(targets))[0]
-        self._data_p = self._labels_p = None
+        self._data_p = self._labels_p = self._targets_p = None
 
     @property
     def has_dataset(self):
@@ -979,18 +1029,22 @@ class FusedNet:
 
     def set_epoch_perm(self, perm, pad):
         """The epoch's shuffled dataset on the device, once per
-        reshuffle: ``data_p[i] = data[perm[i]]`` plus ``pad`` zero rows
-        labelled -1, so every window's slices stay in range."""
+        reshuffle: ``data_p[i] = data[perm[i]]`` (and the targets') plus
+        ``pad`` zero rows labelled -1, so every window's slices stay in
+        range."""
         if not self.has_dataset:
             raise RuntimeError("set_dataset() before set_epoch_perm")
         p = torch.as_tensor(numpy.array(perm, dtype=numpy.int64)).to(
             self.device)
-        data = self._data_d.index_select(0, p)
-        labels = self._labels_d.index_select(0, p)
-        self._data_p = torch.cat([data, data.new_zeros(
-            (int(pad),) + tuple(data.shape[1:]))])
-        self._labels_p = torch.cat([labels, labels.new_full((int(pad),),
-                                                            -1)])
+
+        def permuted(arr, fill):
+            rows = arr.index_select(0, p)
+            return torch.cat([rows, rows.new_full(
+                (int(pad),) + tuple(rows.shape[1:]), fill)])
+        self._data_p = permuted(self._data_d, 0)
+        self._labels_p = permuted(self._labels_d, -1)
+        self._targets_p = None if self._targets_d is None else \
+            permuted(self._targets_d, 0)
 
     @property
     def has_epoch_perm(self):
@@ -1034,6 +1088,24 @@ class FusedNet:
                 "confusion": conf, "max_err_sum": mx,
                 "output": m["output"], "max_idx": m["max_idx"],
                 "acc": acc}
+
+    def _stacked(self, arr, dtype=None):
+        """A host-stacked window array on the device (a tensor already
+        there is taken as it is)."""
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.as_tensor(numpy.ascontiguousarray(arr))
+        return arr.to(self.device, dtype or self._tdtype)
+
+    def run_window(self, xs, labels_s, batch_sizes, hypers_s):
+        """Windowed training over host-stacked minibatches ``xs (K, B,
+        ...)`` and ``labels_s (K, B)`` (host arrays, or tensors already
+        on the device); rows at or past ``batch_sizes[k]`` are
+        masked."""
+        xs = self._stacked(xs)
+        labels_s = self._stacked(labels_s, torch.int32)
+        return self._run_window(xs.shape[0], xs.shape[1],
+                                lambda k: (xs[k], labels_s[k]),
+                                batch_sizes, hypers_s)
 
     def run_window_indexed(self, idx_s, batch_sizes, hypers_s):
         """Windowed training over the device dataset (:meth:`set_dataset`)
@@ -1148,6 +1220,36 @@ class FusedNet:
         return self._run_window_mse(idx_s.shape[0], idx_s.shape[1], fetch,
                                     batch_sizes, hypers_s)
 
+    def run_window_mse(self, xs, ts, lbl_s, batch_sizes, hypers_s):
+        """K MSE steps over host-stacked minibatches ``xs (K, B, ...)``
+        and targets ``ts (K, B, ...)``; ``lbl_s (K, B)`` feeds the
+        nearest-class-target ``n_err`` where ``class_targets`` is set
+        (-1s otherwise).  Host arrays, or tensors already on the
+        device."""
+        xs, ts = self._stacked(xs), self._stacked(ts)
+        lbl_s = self._stacked(lbl_s, torch.int32)
+        return self._run_window_mse(xs.shape[0], xs.shape[1],
+                                    lambda k: (xs[k], lbl_s[k], ts[k]),
+                                    batch_sizes, hypers_s)
+
+    def run_window_mse_sliced(self, starts, batch, batch_sizes, hypers_s):
+        """K MSE steps over the epoch's shuffled dataset and targets
+        (:meth:`set_epoch_perm` after :meth:`set_dataset` with targets):
+        step k reads rows ``starts[k]`` to ``starts[k] + batch``."""
+        if not self.has_epoch_perm or self._targets_p is None:
+            raise RuntimeError("set_epoch_perm() with targets before "
+                               "run_window_mse_sliced")
+        starts = numpy.asarray(starts, dtype=numpy.int64)
+        batch = int(batch)
+        last = self._data_p.shape[0] - batch
+
+        def fetch(k):
+            s = min(max(int(starts[k]), 0), last)
+            return (self._data_p[s:s + batch], self._labels_p[s:s + batch],
+                    self._targets_p[s:s + batch])
+        return self._run_window_mse(len(starts), batch, fetch, batch_sizes,
+                                    hypers_s)
+
     # -- the epoch accumulator ----------------------------------------------
     def window_acc_zeros(self):
         """Host zeros of the epoch accumulator (the MSE metrics' min at
@@ -1211,7 +1313,9 @@ class FusedNet:
         regression), on the device."""
         x, _ = self._batch(x)
         with torch.no_grad():
-            return forward(self.params, x, self.specs)
+            return forward(self.params, x, self.specs,
+                           generator=self._gen if self._has_stochastic
+                           else None)
 
     def predict_with_idx(self, x):
         """(softmax output, int32 argmax) of a batch, on the device."""

@@ -8,27 +8,34 @@ update run in :class:`znicz_tpu_torch.parallel.fused.FusedNet`.
 :class:`FusedForwardBackward` stands for the whole forwards + GD chain
 and exposes ``output`` / ``max_idx`` as the last forward would.
 
-TRAIN minibatches run in windows of up to ``window`` steps over the
-dataset on the device (``FusedNet.run_window_indexed``): the unit
-drives the loader itself to collect a window's row indices and never
-crosses a segment boundary.  The control plane is asynchronous: a
-mid-segment window reads nothing back — its stats ride the net's
-device accumulator and the evaluator gets the deferred sentinel — and
-the segment-final window reads the accumulator, the output and the
-argmax back in ONE copy.  Index windows are staged in a ring of
-``pipeline_depth + 1`` host buffers (pinned on the card, copied
-without blocking), each reused only after the event recorded behind
-its copy has passed; dispatched windows are bounded at
-``pipeline_depth`` by events, a completion wait and not a transfer.
-VALID minibatches run through ``FusedNet.predict_with_idx``.
+TRAIN minibatches run in windows of up to ``window`` steps, in the
+form the JAX trainer chooses (``device_data``, ``device_perm``): over
+the dataset on the device, gathered by row index
+(``FusedNet.run_window_indexed``) or sliced from the epoch's shuffled
+dataset (``run_window_sliced``, ``device_perm=True``), or stacked on the
+host where the loader's rows cannot be read on the device
+(``run_window``; ``device_data=False`` asks for it).  The unit drives
+the loader itself to collect a window and never crosses a segment
+boundary.  The control plane is asynchronous: a mid-segment window
+reads nothing back — its stats ride the net's device accumulator and
+the evaluator gets the deferred sentinel — and the segment-final
+window reads the accumulator, the output and the argmax back in ONE
+copy.  A window's host arrays (row indices, or stacked rows, labels
+and targets) are staged in a ring of ``pipeline_depth + 1`` host
+buffers a key (pinned on the card, copied without blocking), each
+reused only after the event recorded behind its copy has passed;
+dispatched windows are bounded at ``pipeline_depth`` by events, a
+completion wait and not a transfer.  VALID minibatches run through
+``FusedNet.predict_with_idx``.
 
-With ``loss="mse"`` the unit trains against the loader's targets: its
-windows are ``FusedNet.run_window_mse_indexed`` over the dataset and its
-targets on the device (the JAX trainer takes the sliced window here,
-over the same rows), the segment-final readback carries the
-``[sum, max, min]`` metrics, the nearest-class-target ``n_err``, the
-output and the per-sample MSE, and VALID minibatches run through
-``FusedNet.predict``.
+With ``loss="mse"`` the unit trains against the loader's targets, in
+the MSE windows of the same three forms (``run_window_mse_indexed``,
+``run_window_mse_sliced``, ``run_window_mse``; the JAX trainer slices
+every device-data MSE window, the port gathers by index unless
+``device_perm=True``, over the same rows), the segment-final readback
+carries the ``[sum, max, min]`` metrics, the nearest-class-target
+``n_err``, the output and the per-sample MSE, and VALID minibatches
+run through ``FusedNet.predict``.
 
 A window's hypers are taken step by step: after each minibatch it
 collects, the unit calls ``hyper_tick`` (the learning-rate adjuster's
@@ -37,11 +44,9 @@ boundary inside a window takes effect at its own step, as in the unit
 graph.  A window in which no hyper changed reuses its stacked hypers.
 
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
-host-stacked window (a window over a loader whose fill the device
-gather cannot replay), the JAX trainer's other keys
-(:attr:`FusedForwardBackward.LATER_KEYS`: the mesh, the sliced window,
-the synchronous per-window readback, ...), ``FusedNNRollback``, and the
-fault, health and profiler hooks.
+JAX trainer's other keys (:attr:`FusedForwardBackward.LATER_KEYS`: the
+mesh, the synchronous per-window readback, ...), ``FusedNNRollback``,
+and the fault, health and profiler hooks.
 """
 
 import collections
@@ -56,7 +61,7 @@ from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.loader.base import (TRAIN, FullBatchLoader,
-                                         FullBatchLoaderMSEMixin)
+                                         FullBatchLoaderMSEMixin, Loader)
 from znicz_tpu_torch.parallel import fused
 
 _LATER = "not in this slice of the port (see ROADMAP.md)"
@@ -68,39 +73,45 @@ DEFERRED_WINDOW_STATS = {"deferred": True}
 
 
 class _StagingRing(object):
-    """Rotating host buffers for windows of row indices.
+    """Rotating host buffers for a window's arrays, by key ("idx" for
+    the row indices of a device-data window; "x", "lbl" and "tgt" for
+    a host-stacked window's rows, labels and targets).
 
-    ``depth`` buffers rotate round robin.  On the card each is pinned
-    and uploaded without blocking, so the host must not refill one
-    before its copy ran: the event recorded behind the copy is waited
-    on before the buffer is handed out again."""
+    ``depth`` buffers a key rotate round robin.  On the card each is
+    pinned and uploaded without blocking, so the host must not refill
+    one before its copy ran: the event recorded behind the copy is
+    waited on before the buffer is handed out again."""
 
     def __init__(self, depth, device):
         self.depth = max(1, int(depth))
         self.device = device
-        self._slots = [None] * self.depth   # [host tensor, event]
-        self._turn = 0
-        self._last = None                   # the slot get() handed out
+        self._slots = {}   # key -> [[host tensor, event] or None, ...]
+        self._turn = {}
+        self._last = {}    # key -> the slot get() handed out last
 
-    def get(self, shape):
-        """The next buffer, ``(K, B)`` int64, as a writable numpy array."""
-        i = self._turn
-        self._turn = (i + 1) % self.depth
-        slot = self._slots[i]
+    def get(self, key, shape, dtype):
+        """The next buffer of ``key``, ``shape`` of numpy ``dtype``, as
+        a writable numpy array."""
+        slots = self._slots.setdefault(key, [None] * self.depth)
+        i = self._turn.get(key, 0)
+        self._turn[key] = (i + 1) % self.depth
+        slot = slots[i]
         if slot is not None and slot[1] is not None:
             slot[1].synchronize()
             slot[1] = None
-        if slot is None or tuple(slot[0].shape) != tuple(shape):
-            host = torch.empty(tuple(shape), dtype=torch.int64,
+        want = torch.from_numpy(numpy.zeros(0, dtype)).dtype
+        if slot is None or tuple(slot[0].shape) != tuple(shape) or \
+                slot[0].dtype != want:
+            host = torch.empty(tuple(shape), dtype=want,
                                pin_memory=self.device.type == "cuda")
-            slot = self._slots[i] = [host, None]
-        self._last = slot
+            slot = slots[i] = [host, None]
+        self._last[key] = slot
         return slot[0].numpy()
 
-    def upload(self, n):
+    def upload(self, key, n):
         """The first ``n`` rows of the buffer :meth:`get` handed out
-        last, on the device."""
-        slot = self._last
+        last for ``key``, on the device."""
+        slot = self._last[key]
         rows = slot[0][:n]
         if self.device.type != "cuda":
             return rows.clone()   # a CPU tensor would alias the buffer
@@ -195,25 +206,36 @@ class FusedForwardBackward(Unit):
     "offsets" runs the hand-written kernels on the card; "gather"),
     ``dtype`` (default
     ``root.common.engine.precision_dtype``, else float32),
-    ``dropout_seed`` and ``window`` (default 8 where the loader's rows
-    can be gathered on the device, else 1: a step a minibatch)."""
+    ``dropout_seed``, ``window`` (default 8 where the loader's rows
+    can be gathered on the device, else 1: a step a minibatch),
+    ``device_data`` ("auto", True or False: whether a window reads its
+    rows from the dataset on the device; True raises where the loader
+    does not qualify, False stacks every window's rows on the host) and
+    ``device_perm`` ("auto", True or False: True slices each window
+    from the epoch's shuffled dataset on the device, and raises where
+    that path cannot engage), as the JAX trainer takes them."""
 
     #: dispatched windows in flight before collection waits for the
     #: oldest; the staging ring holds one more
     PIPELINE_DEPTH = 2
     #: the JAX trainer's keys this slice of the port leaves out
     LATER_KEYS = ("mesh", "model_parallel", "compute_dtype", "defaults",
-                  "device_data", "device_perm", "async_windows",
-                  "pipeline_depth", "rand")
+                  "async_windows", "pipeline_depth", "rand")
 
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
-                 dropout_seed=0, window=None, loss="softmax", **kwargs):
+                 dropout_seed=0, window=None, loss="softmax",
+                 device_data="auto", device_perm="auto", **kwargs):
         later = sorted(set(kwargs) & set(self.LATER_KEYS))
         if later:
             raise NotImplementedError(
                 "fused %s %s" % (", ".join(later), _LATER))
         if loss not in ("softmax", "mse"):
             raise ValueError("unknown fused loss %r" % (loss,))
+        for key, value in (("device_data", device_data),
+                           ("device_perm", device_perm)):
+            if value not in ("auto", True, False):
+                raise ValueError("fused %s must be 'auto', True or False, "
+                                 "not %r" % (key, value))
         super(FusedForwardBackward, self).__init__(workflow, **kwargs)
         self.layers = copy.deepcopy(list(layers))
         self.pool_impl = pool_impl
@@ -221,6 +243,8 @@ class FusedForwardBackward(Unit):
         self.dropout_seed = dropout_seed
         self.window = None if window is None else int(window)
         self.loss = loss
+        self.device_data = device_data
+        self.device_perm = device_perm
         #: the MSE evaluator's ``root``, mirrored into the net's windows
         #: (``StandardWorkflow.link_evaluator`` sets it)
         self.stats_root = True
@@ -243,6 +267,9 @@ class FusedForwardBackward(Unit):
         self.window_stats = None
         self.net = None
         self._use_device_data = False
+        self._use_sliced = False
+        #: the TRAIN order on the device for the sliced window (host)
+        self._perm_host = None
         self.gd_proxies = []
         # a tied deconv's "<-" governs its conv's shared weights
         overrides = {layer.get("->", {}).get("tied_to"): layer
@@ -350,40 +377,100 @@ class FusedForwardBackward(Unit):
         return (type(lu).fill_minibatch is FullBatchLoader.fill_minibatch
                 and len(lu.original_labels) > 0)
 
+    def _loader_serves_contiguous_slices(self):
+        """The loader's minibatch walk and reshuffle are the stock ones,
+        so a TRAIN minibatch at class offset ``o`` is the rows
+        ``train_indices[o:o + n]`` of the order current while it is
+        served (the sliced window's contract)."""
+        lu = self.loader_unit
+        return (type(lu).run is Loader.run
+                and type(lu)._shuffle is Loader._shuffle)
+
     def _setup_device_data(self):
-        qualifies = (self.loader_unit is not None
+        """Choose the TRAIN window's form as the JAX trainer does: rows
+        from the dataset on the device where the loader qualifies and a
+        window holds more than one minibatch (gathered by index, or
+        sliced from the epoch's shuffled dataset under
+        ``device_perm=True``), else stacked on the host.  The MSE
+        windows qualify only with ``device_perm`` not False and the
+        stock minibatch walk; unlike the JAX trainer, which slices them
+        always, they gather by index unless ``device_perm=True`` (the
+        same rows)."""
+        self._use_device_data = self._use_sliced = False
+        self._perm_host = None
+        lu = self.loader_unit
+        qualifies = (self.device_data in ("auto", True) and lu is not None
                      and self._loader_qualifies_for_device_data())
+        if self.loss == "mse":
+            qualifies = qualifies and self.device_perm in ("auto", True) \
+                and self._loader_serves_contiguous_slices()
         if self.window is None:
             self.window = 8 if qualifies else 1
-        if self.window > 1 and not qualifies:
-            raise NotImplementedError(
-                "a host-stacked window (fused window=%d over a loader "
-                "whose rows the device cannot gather) is %s"
-                % (self.window, _LATER))
-        self._use_device_data = self.window > 1
-        if self._use_device_data:
-            # TRAIN rows are gathered on the device; the loader skips
-            # their host fill (VALID still fills)
-            self.loader_unit.skip_fill = True
+        if qualifies and self.window > 1:
+            # TRAIN rows are read on the device; the loader skips their
+            # host fill (VALID still fills)
+            self._use_device_data = True
+            lu.skip_fill = True
+            self._use_sliced = self.device_perm is True and \
+                self._loader_serves_contiguous_slices()
+        elif self.device_data is True and not qualifies:
+            raise ValueError(
+                "fused device_data=True needs a stock FullBatchLoader "
+                "(no fill_minibatch override) with labels")
+        if self.device_perm is True and not self._use_sliced:
+            raise ValueError(
+                "fused device_perm=True needs the windowed device-data "
+                "path and the stock Loader run/_shuffle "
+                "(contiguous-slice contract)")
 
     # -- TRAIN windows --------------------------------------------------------
     def _run_train_window(self):
         """Collect up to ``window`` TRAIN minibatches, driving the loader
         directly and stopping at its segment's last minibatch, and run
-        them as one window.  Returns the number of steps."""
+        them as one window: sliced or gathered from the dataset on the
+        device, or stacked on the host in the pinned staging ring.
+        Returns the number of steps."""
         loader = self.loader_unit
         mse = self.loss == "mse"
-        if not self.net.has_dataset:
+        if self._use_device_data and not self.net.has_dataset:
             self.net.set_dataset(
                 numpy.asarray(loader.original_data.mem,
                               dtype=self.input.dtype),
                 loader.original_labels,
                 numpy.asarray(loader.original_targets.mem,
                               dtype=self.target.dtype) if mse else None)
-        stage = self._staging.get((self.window, int(self.input.shape[0])))
-        sizes, hyper_steps = [], []
+        batch = int(self.input.shape[0])
+        stage = {}
+        if self._use_device_data and not self._use_sliced:
+            stage["idx"] = self._staging.get(
+                "idx", (self.window, batch), numpy.int64)
+        elif not self._use_device_data:
+            stage["x"] = self._staging.get(
+                "x", (self.window,) + tuple(self.input.shape),
+                self.input.dtype)
+            stage["lbl"] = self._staging.get(
+                "lbl", (self.window, batch), numpy.int32)
+            if mse:
+                stage["tgt"] = self._staging.get(
+                    "tgt", (self.window,) + tuple(self.target.shape),
+                    self.target.dtype)
+        want_lbl = not mse or (
+            self.net.class_targets is not None and
+            bool(getattr(loader, "minibatch_labels", None)))
+        starts, sizes, hyper_steps = [], [], []
         while True:
-            loader.fill_window_slot(stage[len(sizes)])
+            i = len(sizes)
+            if self._use_sliced:
+                starts.append(self._sliced_start(first=not sizes))
+            elif self._use_device_data:
+                loader.fill_window_slot(indices_out=stage["idx"][i])
+            else:
+                loader.fill_window_slot(
+                    x_out=stage["x"][i],
+                    labels_out=stage["lbl"][i] if want_lbl else None,
+                    targets_out=stage["tgt"][i] if mse else None)
+                if not want_lbl:
+                    stage["lbl"][i] = -1
             sizes.append(int(self.minibatch_size))
             hyper_steps.append(self._current_hypers())
             if len(sizes) >= self.window or bool(loader.last_minibatch):
@@ -393,14 +480,28 @@ class FusedForwardBackward(Unit):
                 self.hyper_tick()
         n = len(sizes)
         final = bool(loader.last_minibatch)
-        run = self.net.run_window_mse_indexed if mse else \
-            self.net.run_window_indexed
-        stats = run(self._staging.upload(n), sizes,
-                    self._stacked_hypers(hyper_steps))
+        hypers_s = self._stacked_hypers(hyper_steps)
+        net = self.net
+        if self._use_sliced:
+            run = net.run_window_mse_sliced if mse else \
+                net.run_window_sliced
+            stats = run(starts, batch, sizes, hypers_s)
+        elif self._use_device_data:
+            run = net.run_window_mse_indexed if mse else \
+                net.run_window_indexed
+            stats = run(self._staging.upload("idx", n), sizes, hypers_s)
+        else:
+            up = self._staging.upload
+            if mse:
+                stats = net.run_window_mse(up("x", n), up("tgt", n),
+                                           up("lbl", n), sizes, hypers_s)
+            else:
+                stats = net.run_window(up("x", n), up("lbl", n), sizes,
+                                       hypers_s)
         if not final:
             # no readback: bound the windows in flight with events
             self.window_stats = DEFERRED_WINDOW_STATS
-            if self.net.device.type == "cuda":
+            if net.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record()
                 self._inflight.append(event)
@@ -411,7 +512,7 @@ class FusedForwardBackward(Unit):
             return n
         # the segment's one readback: the accumulator and the last
         # step's output (with its argmax, or its per-sample MSE)
-        acc = self.net.window_acc
+        acc = net.window_acc
         fetch = dict(acc, output=stats["output"])
         fetch.update({"mse_per": stats["mse_per"]} if mse else
                      {"max_idx": stats["max_idx"]})
@@ -425,11 +526,36 @@ class FusedForwardBackward(Unit):
                                  "confusion": host["confusion"],
                                  "max_err_sum": float(host["max_err_sum"])}
             self.max_idx.mem = host["max_idx"]
-        self.net.reset_window_acc()
+        net.reset_window_acc()
         self._inflight.clear()
         self.output.mem = host["output"].astype(self.output.dtype,
                                                 copy=False)
         return n
+
+    def _sliced_start(self, first):
+        """The served TRAIN minibatch's start in the epoch's order on the
+        device, its rows held against the loader's indices.  The order
+        is put on the device again (:meth:`FusedNet.set_epoch_perm`)
+        only at a window's first minibatch, where the loader's order
+        changed since: with no VALID segment, the epoch's last
+        minibatch reshuffles the loader in place after it is served,
+        so a window that starts with it still reads the old order."""
+        loader = self.loader_unit
+        n = int(self.minibatch_size)
+        start = int(loader.minibatch_class_offset)
+        served = loader.minibatch_indices.mem[:n]
+        perm = self._perm_host
+        if perm is None or \
+                not numpy.array_equal(perm[start:start + n], served):
+            if not first:
+                raise RuntimeError("the loader's TRAIN order changed "
+                                   "inside a sliced window")
+            perm = self._perm_host = numpy.array(loader.train_indices)
+            self.net.set_epoch_perm(perm, pad=int(loader.max_minibatch_size))
+            if not numpy.array_equal(perm[start:start + n], served):
+                raise RuntimeError("the loader's TRAIN minibatch is not a "
+                                   "slice of its order")
+        return start
 
     def _current_hypers(self):
         """The live hyper pytree from the proxies, rebuilt only when a
@@ -468,7 +594,7 @@ class FusedForwardBackward(Unit):
     def run(self):
         train = int(self.minibatch_class) == TRAIN
         self.window_stats = None
-        if train and self._use_device_data:
+        if train and self.window > 1:
             self._run_train_window()
             return
         x = self.input.mem
