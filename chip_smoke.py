@@ -86,16 +86,43 @@ failure (the script then exits non-zero and prints no result line):
    (``--snapshot``; the snapshotter writes after the epochs that
    improved) and must end bit-equal to the uninterrupted run.  Prints
    each epoch's TRAIN images/s and the host's wall time per window;
-7. alexnet_units — full-width AlexNet trained by the workflow CLI
+7. resilience — the workflow phase's command under the supervised
+   launcher (``--max-restarts 2 --restart-backoff-ms 0``) with
+   mid-epoch snapshots (``alexnet.snapshotter.window_interval=1``)
+   and a ``fused.dispatch`` crash injected at the 4th TRAIN window
+   (epoch 2's last, after its mid-epoch snapshot), from the prng
+   streams the workflow phase's run started from: exactly 1 fault, 1
+   restart, which restores epoch 2's ``midepoch`` snapshot; each
+   epoch's TRAIN n_err, confusion and max_err_sum, the VALID n_err and
+   the final parameters, optimizer state and dropout generator state
+   bit-equal to the workflow phase's run; the restart's run launches
+   both kernels (84 forward, 72 backward), all 16-byte, no plain
+   pooling; each TRAIN segment reads the card back twice (its
+   readback and a mid-epoch snapshot's accumulator drain); once the
+   supervised run returned, ``torch.cuda.memory_allocated`` within 64
+   MB of its value before the phase.  Prints the crash-to-resume
+   seconds and each snapshot's.  Two more checks run on the objects
+   of other phases: in the train phase, on its batch-128 ``FusedNet``,
+   4 steps each checked by the health monitor (interval 1, ``halt``),
+   clean with one readback a check and sums of squares within 1e-6 of
+   a CPU f64 recompute, ``FusedNNRollback`` storing the state on the
+   card and restoring it bit for bit after 2 steps, and a NaN weight
+   halting its step with a crash report under ``build/`` and no
+   restart; in the serve phase, its engine under ``serving.forward``
+   I/O faults every 3rd invocation: 6 batch-64 replies bit-equal to a
+   dispatch without faults, 2 retries, the breaker closed, 3 forward
+   launches a dispatch;
+8. alexnet_units — full-width AlexNet trained by the workflow CLI
    through the unit graph, ``python -m znicz_tpu_torch alexnet`` (no
    ``--fused``: a forward and a GD unit a layer, the four
    ``zero_filter`` units masking the next layer's weights, no
    learning-rate adjuster, as in the JAX sample), in this process at
    batch 128 over the
-   workflow phase's prototype rows (2,048 TRAIN, 256 VALID) for 2
-   epochs, f32, TF32 off, ``cudnn.deterministic``, snapshots in a
-   temporary directory: exactly 3 forward launches a minibatch and 3
-   backward a TRAIN minibatch (108 / 96), all at 16-byte vectors, no
+   workflow phase's prototype rows (the first 1,024 TRAIN since PR 13,
+   256 VALID) for 2 epochs, f32, TF32 off, ``cudnn.deterministic``,
+   snapshots in a temporary directory: exactly 3 forward launches a
+   minibatch and 3 backward a TRAIN minibatch (60 / 48), all at
+   16-byte vectors, no
    plain pooling; after every run of each filler, its weights' masked
    entries are 0 (``conv_str2``, ``conv_str3``, ``conv_str5`` and
    ``fc6``), and each mask zeroes half of them; a second run from the
@@ -114,7 +141,7 @@ failure (the script then exits non-zero and prints no result line):
    Prints each epoch's TRAIN images/s beside the workflow phase's, the
    host ms a minibatch and by unit (the run's and its last epoch's),
    the readbacks and syncs a minibatch and the snapshot seconds;
-8. units — the MNIST conv sample (``root.mnistr_conv``, published
+9. units — the MNIST conv sample (``root.mnistr_conv``, published
    widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
    through the workflow CLI (a workflow file building
    ``mnist.build(layers=root.mnistr_conv.layers)``, no ``--fused``),
@@ -137,7 +164,7 @@ failure (the script then exits non-zero and prints no result line):
    data through ``--fused pool_impl=offsets`` as the yardstick, and
    both kernels' cold times at the MNIST shapes beside their bounds,
    plain versions and library calls;
-9. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
+10. train — full-width AlexNet in ``FusedNet(pool_impl="offsets")`` at
    batch 128: one step on the kernels against one on the "gather"
    lowering from the same state (loss and n_err equal, every update
    within ``GATHER_STEP_RTOL``, while a backward that drops the last
@@ -154,12 +181,12 @@ failure (the script then exits non-zero and prints no result line):
    on the card, every backward launch at 16-byte vectors; then a
    step's device time split forward / backward / update, with the host
    held ahead, and the host's enqueue time;
-10. train kernels — both kernels at batch 128 bit-equal to their plain
+11. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
    and the backward at its runtime-stride instantiation and at tile
    budgets of 16, 24, 32 and 64 KB.
-11. ae — the MNIST convolutional autoencoder (``root.mnist_ae``, published
+12. ae — the MNIST convolutional autoencoder (``root.mnist_ae``, published
     widths: conv 5 5x5 without bias -> stochastic abs pooling 3x3/s2 ->
     the depooling, ``GDMaxAbsPooling`` as a forward stage on the backward
     kernel -> deconv with the conv's weights -> MSE against the input,
@@ -186,14 +213,14 @@ failure (the script then exits non-zero and prints no result line):
     then cold beside their bounds, plain versions and library yardsticks
     (``F.max_pool2d``, which computes max and not maxabs, and
     ``index_add_``);
-12. mse — the seven-segment regressor (``root.mnist7``) through the
+13. mse — the seven-segment regressor (``root.mnist7``) through the
     CLI's unit graph and through ``--fused``, 2 epochs each at minibatch
     60 over the same split: each epoch's n_err and MSE printed, no
     pooling launch; 4 TRAIN minibatches in f64 on the card, the fused
     graph against the unit graph within ``AE_F64_RTOL``.
-13. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
+14. cifar — the CIFAR-10 caffe config (``root.cifar``, published widths,
     its ``arbitrary_step`` schedule and ``internal_mean``) at minibatch
-    100 over the CIFAR loader's synthetic set, 15,000 TRAIN and 3,000
+    100 over the CIFAR loader's synthetic set, 7,500 TRAIN and 1,500
     VALID rows (CIFAR-10's split is 50,000 / 10,000; cut for the
     command's time), f32,
     TF32 off, ``cudnn.deterministic``.  First
@@ -203,8 +230,8 @@ failure (the script then exits non-zero and prints no result line):
     random and tied inputs in f32 and f64, every launch at 16-byte
     vectors, then cold beside their bounds, plain versions and library
     yardsticks.  Then ``python -m znicz_tpu_torch cifar`` (the unit
-    graph) for 2 epochs: exactly one forward launch a minibatch (360)
-    and one backward a TRAIN minibatch (300), all at 16-byte vectors,
+    graph) for 2 epochs: exactly one forward launch a minibatch (180)
+    and one backward a TRAIN minibatch (150), all at 16-byte vectors,
     no plain pooling; the adjuster before the GD chain, ticked once a
     TRAIN minibatch; a second run and the CLI resumed from the epoch-1
     snapshot bit-equal to it (each epoch's n_err and confusion, the
@@ -221,7 +248,7 @@ failure (the script then exits non-zero and prints no result line):
     against it, every weight and bias within ``UNITS_F64_RTOL``, equal
     n_err, the same rate at every step.  The unit graph run's snapshots
     stay for the next phase.
-14. serve_models — what the port trains, served, under
+15. serve_models — what the port trains, served, under
     ``cudnn.deterministic``.  The AlexNet package of the serve phase in
     f32, bf16 and int8: ``accuracy.dtype_delta_report`` on the card (its
     own 64 seeded rows, uniform in [-1, 1], every bucket 1..64) within
@@ -251,15 +278,15 @@ failure (the script then exits non-zero and prints no result line):
     -> max pool 3x3/s2 -> strict relu -> LRN -> conv 32 5x5 -> strict
     relu -> avg pool 3x3/s2 -> LRN -> softmax; ``internal_mean``) at
     minibatch 50 over the sample's synthetic set in the real binary
-    format, 5,000 TRAIN and 1,000 VALID images (written with the JAX
+    format, 2,500 TRAIN and 500 VALID images (written with the JAX
     package's bytes in a thread beside the build), f32, TF32 off,
     ``cudnn.deterministic``.  Both kernels at pool1's shape, (50, 96,
     96, 32) 3x3/s2 in ceil mode, bit-equal to their plain versions in
     f32 and f64 (also among the kernel phases' cases, staged and
     unstaged), then cold beside their bounds, plain versions and library
     yardsticks.  ``python -m znicz_tpu_torch research.stl10`` (the unit
-    graph) for 2 epochs: exactly one forward launch a minibatch (240)
-    and one backward a TRAIN minibatch (200), all at 16-byte vectors, no
+    graph) for 2 epochs: exactly one forward launch a minibatch (120)
+    and one backward a TRAIN minibatch (100), all at 16-byte vectors, no
     plain pooling, no adjuster; a second run and the CLI resumed from
     the epoch-1 snapshot bit-equal to it; ``--fused pool_impl=offsets``
     (windows of 8 over the rows on the card): the same launches, one
@@ -273,7 +300,7 @@ failure (the script then exits non-zero and prints no result line):
     (their synthetic images, where PIL imports; whether PIL and
     scikit-learn import is tried in child processes and printed), each
     ending on the card with every epoch's n_err within its rows.
-16. mse_zoo — ImagenetAE's published ladder (``root.imagenet_ae``: conv
+17. mse_zoo — ImagenetAE's published ladder (``root.imagenet_ae``: conv
     108 9x9/s3, 192 5x5, 224 5x5, 256 3x3, each with stochastic abs
     pooling 3x3/s2 in ceil mode; the last stage's depooling on the
     backward kernel, a deconv sharing its conv's weights, MSE against
@@ -314,7 +341,9 @@ summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
 ``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
 and ``stl10`` each pool on its own, and ``launches`` counts the serve
-requests', the train epochs', the workflow run's, AlexNet's unit
+requests', the serve retries' (``resilience_serve``), the train
+epochs', the workflow run's, the supervised run's (``resilience``),
+the train phase's resilience steps' (``resilience_net``), AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
@@ -325,9 +354,9 @@ timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
 ``stl10`` per pool, ``imagenet_ae`` per depooling of each stage) and
-``launches`` counts the train epochs', the workflow run's, both unit
-graphs', the autoencoder paths', the CIFAR and STL-10 graphs' and
-ImagenetAE's.
+``launches`` counts the train epochs', the workflow run's, the
+resilience phase's two paths', both unit graphs', the autoencoder
+paths', the CIFAR and STL-10 graphs' and ImagenetAE's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -474,6 +503,9 @@ MSE_BATCH, MSE_EPOCHS = 60, 2
 #: (a zero_filter has none); each filler's name and the (n_kernels,
 #: weights per kernel) shape of the weights it masks
 ALEXNET_UNITS_EPOCHS = 2
+#: its TRAIN rows: the first 1,024 of the workflow phase's 2,048 (cut
+#: in PR 13 to make room for the resilience phase), its 256 VALID rows
+ALEXNET_UNITS_TRAIN = 1024
 ALEXNET_SHAPES = [(128, 55, 55, 96), (128, 27, 27, 96), (128, 27, 27, 96),
                   (128, 27, 27, 256), (128, 13, 13, 256),
                   (128, 13, 13, 256), (128, 13, 13, 384),
@@ -493,10 +525,11 @@ NO_SNAPSHOT = 1000000
 REGISTRY_RTOL, REGISTRY_SEED = 1e-12, 2024
 #: the CIFAR phase: the caffe config (root.cifar: published widths,
 #: schedule and internal_mean) at minibatch 100 over the CIFAR loader's
-#: synthetic set, 15,000 TRAIN and 3,000 VALID rows (CIFAR-10's split is
-#: 50,000 / 10,000; cut to make room for the alexnet_units and stl10
-#: phases), for 2 epochs, through the unit graph and the fused graph
-CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 15000, 3000, 100, 2
+#: synthetic set, 7,500 TRAIN and 1,500 VALID rows (CIFAR-10's split is
+#: 50,000 / 10,000; cut to make room for the alexnet_units, stl10 and,
+#: in PR 13, resilience phases), for 2 epochs, through the unit graph
+#: and the fused graph
+CIFAR_TRAIN, CIFAR_VALID, CIFAR_BATCH, CIFAR_EPOCHS = 7500, 1500, 100, 2
 #: the caffe graph's forward output shapes at minibatch 100
 CIFAR_SHAPES = [(100, 32, 32, 32), (100, 16, 16, 32), (100, 16, 16, 32),
                 (100, 16, 16, 32), (100, 16, 16, 32), (100, 16, 16, 32),
@@ -517,9 +550,10 @@ CIFAR_F64_MB, CIFAR_F64_WINDOW, CIFAR_F64_BOUNDARY = 12, 8, 3
 CIFAR_VARIANT_TRAIN, CIFAR_VARIANT_VALID = 2000, 500
 #: the stl10 phase: STL-10's published network (root.stl) at its
 #: minibatch 50 over the sample's synthetic set at STL-10's labelled
-#: TRAIN split, 5,000 rows, and 1,000 VALID rows (the test split's
-#: 8,000, cut for time), for 2 epochs through both graphs
-STL_TRAIN, STL_VALID, STL_BATCH, STL_EPOCHS = 5000, 1000, 50, 2
+#: TRAIN split, 5,000 rows, cut to 2,500 in PR 13 to make room for the
+#: resilience phase, and 500 VALID rows (the test split's 8,000, cut
+#: for time), for 2 epochs through both graphs
+STL_TRAIN, STL_VALID, STL_BATCH, STL_EPOCHS = 2500, 500, 50, 2
 #: its max pool, pool1: 3x3/s2 in ceil mode over conv1's output (96 ->
 #: 48: the last row and column of windows overhang the edge)
 STL_POOLS = (("stl10 pool1", (50, 96, 96, 32)),)
@@ -1173,8 +1207,9 @@ def phase_serve(torch, card, cycles_per_ms):
             % (n, len(ms), ms[len(ms) // 2],
                ms[min(len(ms) - 1, int(round(0.99 * (len(ms) - 1))))],
                card))
+    retry_launches = _serve_retry(torch, engine, images, card)
     return by_width, _layer_breakdown(torch, engine, images, card,
-                                      cycles_per_ms)
+                                      cycles_per_ms), retry_launches
 
 
 def _serve_repeats(torch, engine, images, rows, ref):
@@ -1954,6 +1989,7 @@ def phase_workflow(torch, card):
     epoch's TRAIN images/s."""
     import shutil
     from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
 
     snapdir = os.path.join(HERE, "build", "znicz_tpu_torch",
                            "workflow_snapshots")
@@ -1965,6 +2001,8 @@ def phase_workflow(torch, card):
         say("== workflow: python -m znicz_tpu_torch %s"
             % " ".join(_workflow_argv("build/...")))
         _zero_counts()
+        prng.get(1), prng.get(2)   # the run's streams, made if new
+        prng0 = prng.states()
         t0 = time.perf_counter()
         with probe.readbacks:
             cli.main(_workflow_argv(snapdir))
@@ -1973,13 +2011,17 @@ def phase_workflow(torch, card):
         run = dict(probe.ctx)
         steps = sum(len(c[2]) for c in probe.calls)
         _check_workflow_run(probe, launches, steps, run_s, card)
+        # the resilience phase's reference: this run's segments and its
+        # final state on the host
+        reference = {"segments": list(probe.segments),
+                     "state": run["net"].state_dict(), "prng": prng0}
         _replay_workflow(torch, probe, run, card)
         _resume_workflow(torch, probe, run, cli, snapdir)
     finally:
         probe.close()
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(snapdir, ignore_errors=True)
-    return launches, probe.rates
+    return launches, probe.rates, reference
 
 
 def _check_workflow_run(probe, launches, steps, run_s, card):
@@ -2189,6 +2231,446 @@ def _resume_workflow(torch, probe, run, cli, snapdir):
             os.path.basename(path), epoch,
             ", ".join(str(e) for e in range(epoch + 1, WORKFLOW_EPOCHS + 1)),
             time.perf_counter() - t0))
+
+
+#: where the resilience checks write crash reports (git-ignored)
+CRASH_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "crash_reports")
+#: the chaos run's rule: the 4th TRAIN dispatch is epoch 2's last
+#: window (two a epoch), after epoch 2's mid-epoch snapshot
+CHAOS_RULE = "{'fused.dispatch': {'kind': 'crash', 'at': 4}}"
+#: the memory a finished supervised run may leave allocated on the card
+RESILIENCE_MEMORY_SLACK = 64 << 20
+
+
+class _ResilienceProbe(object):
+    """Wrappers for the resilience phase's supervised run, put back by
+    :meth:`close`; they hold no reference to a workflow, so the crashed
+    attempt's tensors can be freed.  They record the launch counts at
+    each attempt's trainer initialize, the segments as
+    :class:`_WorkflowProbe` records them, each snapshot's suffix and
+    seconds, the state each auto-resume restores, the injected fault's
+    time and the restart's first window's, and the finished run's
+    final state on the host.  Readbacks are counted by segment with the
+    snapshots paused, except the trainer's ``epoch_acc`` drain."""
+
+    def __init__(self, torch):
+        import weakref
+        import numpy
+        from znicz_tpu_torch import launcher
+        from znicz_tpu_torch.core import faults
+        from znicz_tpu_torch.loader.base import VALID
+        from znicz_tpu_torch.units import decision, fused_trainer, nn_units
+        self.attempt_counts, self.segments, self.snapshots = [], [], []
+        self.restored, self.final_state = [], None
+        self.t_fault = self.t_resumed = None
+        self._wf = lambda: None
+        self.readbacks = _Readbacks(torch, self._where)
+        probe = self
+        trainer_cls = fused_trainer.FusedForwardBackward
+        owners = {"initialize": trainer_cls,
+                  "_run_train_window": trainer_cls,
+                  "epoch_acc": trainer_cls,
+                  "on_last_minibatch": decision.DecisionGD,
+                  "export": nn_units.NNSnapshotterToFile,
+                  "_find_resume_state": launcher.Launcher,
+                  "main": launcher.Launcher,
+                  "check": faults}
+        self.real = real = {name: getattr(owner, name) if name != "epoch_acc"
+                            else owner.__dict__[name]
+                            for name, owner in owners.items()}
+
+        def initialize(unit, device=None, **kwargs):
+            real["initialize"](unit, device=device, **kwargs)
+            probe._wf = weakref.ref(unit.workflow)
+            probe.attempt_counts.append(_counts())
+
+        def _run_train_window(unit):
+            if probe.t_fault is not None and probe.t_resumed is None:
+                probe.t_resumed = time.perf_counter()
+            return real["_run_train_window"](unit)
+
+        def epoch_acc(unit):
+            paused, probe.readbacks.paused = probe.readbacks.paused, False
+            try:
+                return real["epoch_acc"].fget(unit)
+            finally:
+                probe.readbacks.paused = paused
+
+        def on_last_minibatch(d):
+            real["on_last_minibatch"](d)
+            c = d.minibatch_class
+            probe.segments.append({
+                "epoch": d.epoch_number - (c == VALID), "class": c,
+                "n_err": d.epoch_n_err[c],
+                "n": d.epoch_n_evaluated_samples[c],
+                "confusion": numpy.array(d.confusion_matrixes[c]),
+                "max_err_sum": d.max_err_y_sums[c]})
+
+        def export(snap):
+            t0 = time.perf_counter()
+            paused, probe.readbacks.paused = probe.readbacks.paused, True
+            try:
+                path = real["export"](snap)
+            finally:
+                probe.readbacks.paused = paused
+            probe.snapshots.append((snap.suffix or "midepoch",
+                                    time.perf_counter() - t0))
+            return path
+
+        def _find_resume_state(launcher_, wf):
+            state = real["_find_resume_state"](launcher_, wf)
+            probe.restored.append(None if state is None else (
+                state["suffix"], state["units"]["loader"]["epoch_number"]))
+            return state
+
+        def main(launcher_, **kwargs):
+            wf = real["main"](launcher_, **kwargs)
+            probe.final_state = wf.fused_trainer.net.state_dict()
+            return wf
+
+        def check(site):
+            try:
+                return real["check"](site)
+            except faults.FaultInjectedError:
+                probe.t_fault = time.perf_counter()
+                raise
+
+        wrappers = {"initialize": initialize,
+                    "_run_train_window": _run_train_window,
+                    "epoch_acc": property(epoch_acc,
+                                          real["epoch_acc"].fset),
+                    "on_last_minibatch": on_last_minibatch,
+                    "export": export, "_find_resume_state": _find_resume_state,
+                    "main": main, "check": check}
+        self._owners = owners
+        for name, owner in owners.items():
+            setattr(owner, name, wrappers[name])
+
+    def _where(self):
+        wf = self._wf()
+        if wf is None or not wf._running:
+            return "outside"
+        return (wf.loader.minibatch_class, wf.loader.epoch_number)
+
+    def close(self):
+        for name, owner in self._owners.items():
+            setattr(owner, name, self.real[name])
+
+
+def phase_resilience(torch, card, reference):
+    """Full-width AlexNet through the supervised workflow CLI on the
+    card, crashed mid-epoch by an injected fault and resumed from the
+    ``midepoch`` snapshot: the workflow phase's run is the reference.
+    Returns the run's launches."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import faults, prng
+    from znicz_tpu_torch.core.config import root
+
+    snapdir = os.path.join(HERE, "build", "znicz_tpu_torch",
+                           "resilience_snapshots")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    root.common.health.crash_dir = CRASH_DIR
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    argv = _workflow_argv(
+        snapdir, "--max-restarts", "2", "--restart-backoff-ms", "0",
+        "--config", "alexnet.snapshotter.window_interval=1",
+        "--config", "common.faults.enabled=True",
+        "--config", "common.faults.rules=" + CHAOS_RULE)
+    say("== resilience: python -m znicz_tpu_torch %s"
+        % " ".join(a if "snapshots" not in a else "...=build/..."
+                   for a in argv))
+    probe = _ResilienceProbe(torch)
+    try:
+        # the streams as the workflow phase's run found them: the same
+        # weight draw and TRAIN orders
+        prng.restore(reference["prng"])
+        _zero_counts()
+        t0 = time.perf_counter()
+        with probe.readbacks:
+            cli.main(argv)
+        launches = _counts()
+        run_s = time.perf_counter() - t0
+        final_state = probe.final_state
+        probe.final_state = None
+        _check_resilience_run(probe, launches, reference, final_state, run_s,
+                              card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        faults.disable()
+        faults.reset()
+        object.__setattr__(root.common.faults, "rules", type(root)(
+            "root.common.faults.rules"))
+        shutil.rmtree(snapdir, ignore_errors=True)
+    del final_state
+    gc.collect()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    say("   memory: %.1f MB allocated on the card before the phase, %+.1f "
+        "MB after the supervised run returned (limit %+.1f MB): the crashed "
+        "attempt's net and 1.3 GB dataset were freed"
+        % (mem0 / 1e6, grown / 1e6, RESILIENCE_MEMORY_SLACK / 1e6))
+    if grown > RESILIENCE_MEMORY_SLACK:
+        raise RuntimeError("the supervised run left %d bytes allocated on "
+                           "the card" % grown)
+    return launches
+
+
+def _check_resilience_run(probe, launches, reference, final_state, run_s,
+                          card):
+    """One fault, one restart from epoch 2's ``midepoch`` snapshot, the
+    workflow phase's segments and final state bit for bit, the
+    restart's launches, the readbacks by segment."""
+    import numpy
+    from znicz_tpu_torch.core import faults
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    st = faults.status()
+    injected = sum(s["injected"] for s in st["sites"].values())
+    attempts = len(probe.attempt_counts)
+    say("   %d fault(s) injected (%s), %d attempt(s), restored %s; %.2f s "
+        "(the CLI, from its start); %s" % (
+            injected, st["sites"].get("fused.dispatch"), attempts,
+            probe.restored, run_s, card))
+    if injected != 1 or attempts != 2 or probe.restored != [("midepoch", 1)]:
+        raise RuntimeError("expected 1 injected fault, 1 restart and a resume "
+                           "from epoch 2's midepoch snapshot")
+    keys = ("epoch", "class", "n_err", "n", "max_err_sum")
+    got = [[s[k] for k in keys] for s in probe.segments]
+    want = [[s[k] for k in keys] for s in reference["segments"]]
+    if got != want or not all(
+            (a["confusion"] == b["confusion"]).all()
+            for a, b in zip(probe.segments, reference["segments"])):
+        raise RuntimeError("the resumed run's segments %s differ from the "
+                           "workflow phase's %s" % (got, want))
+    _trees_bits_equal(final_state, reference["state"], "the resumed run")
+    say("   segments (epoch, class, n_err, rows, max_err_sum) and "
+        "confusions equal to the workflow phase's run: %s; the final "
+        "parameters, optimizer state and dropout generator state bit-equal"
+        % [tuple(g[:4]) for g in got])
+    restart = {k: launches[k] - probe.attempt_counts[1][k]
+               for k in ("forward", "backward", "plain_on_card")}
+    restart_wide = {k: launches[k + "_by_width"][WIDE] -
+                    probe.attempt_counts[1][k + "_by_width"][WIDE]
+                    for k in ("forward", "backward")}
+    per_epoch = -(-WORKFLOW_TRAIN // TRAIN_BATCH)
+    steps = per_epoch // 2 + per_epoch          # epoch 2's last window, 3
+    valid_mbs = 2 * -(-WORKFLOW_VALID // TRAIN_BATCH)
+    say("   launches: the run %s; the restart: forward %d, backward %d, "
+        "16-byte %s" % (launches, restart["forward"], restart["backward"],
+                        restart_wide))
+    if restart["forward"] != 3 * (steps + valid_mbs) or \
+            restart["backward"] != 3 * steps or \
+            restart_wide != {"forward": restart["forward"],
+                             "backward": restart["backward"]} or \
+            launches["forward_by_width"][NARROW] or \
+            launches["backward_by_width"][NARROW] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("expected the restart to launch 3 forward a step "
+                           "and a VALID minibatch and 3 backward a step, all "
+                           "16-byte, no plain pooling; got %s" % launches)
+    counts = probe.readbacks.counts
+    train_rb = [counts[(TRAIN, e)] for e in range(WORKFLOW_EPOCHS)]
+    mid = [t for suffix, t in probe.snapshots if suffix == "midepoch"]
+    say("   TRAIN segment readbacks by epoch %s (1 a segment + 1 a "
+        "mid-epoch drain); VALID %d; %d mid-epoch snapshots (%s s), %d "
+        "after an epoch (%s s); crash to the restart's first window %.2f "
+        "s; %s" % (
+            train_rb, sum(v for k, v in counts.items()
+                          if k != "outside" and k[0] == VALID), len(mid),
+            " / ".join("%.2f" % t for t in mid),
+            len(probe.snapshots) - len(mid),
+            " / ".join("%.2f" % t for s, t in probe.snapshots
+                       if s != "midepoch"),
+            probe.t_resumed - probe.t_fault, card))
+    if train_rb != [2] * WORKFLOW_EPOCHS or len(mid) != WORKFLOW_EPOCHS:
+        raise RuntimeError("expected 2 readbacks a TRAIN segment and one "
+                           "mid-epoch snapshot an epoch; got %s and %d"
+                           % (train_rb, len(mid)))
+    if not numpy.isfinite([s["max_err_sum"] for s in probe.segments]).all():
+        raise RuntimeError("a segment's max_err_sum is not finite")
+
+
+def _health_and_rollback(torch, net, x, lbl, card):
+    """The train phase's net (batch 128): 4 steps with the health
+    monitor at interval 1 and the halt policy, each check clean with one
+    readback and its sums of squares within 1e-6 of a CPU f64
+    recompute; ``FusedNNRollback`` storing the state on the card,
+    2 steps, the state restored bit for bit; a NaN weight halting its
+    step with a crash report under ``build/`` and no restart.  Returns
+    the launches of these steps."""
+    import types
+    from znicz_tpu_torch import launcher
+    from znicz_tpu_torch.core import health
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.units.fused_trainer import FusedNNRollback
+
+    root.common.health.update({"enabled": True, "interval": 1,
+                               "policy": "halt", "crash_dir": CRASH_DIR})
+    health.reset()
+    rb = _Readbacks(torch, lambda: "check")
+    _zero_counts()
+    try:
+        ms = []
+        for _ in range(4):
+            net.step(x, lbl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rb:
+                report = health.check_training_step(
+                    None, steps=1, params=net.params, updates=net.state,
+                    context="fused_step")
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if report is None or report["non_finite"]:
+                raise RuntimeError("a health check was not clean: %s"
+                                   % report)
+        checks = health.monitor().checks
+        if checks != 4 or rb.counts["check"] != 4:
+            raise RuntimeError("expected 4 checks with one readback each, "
+                               "got %d checks, %d readbacks"
+                               % (checks, rb.counts["check"]))
+        worst = 0.0
+        for name, tree in (("params", net.params), ("updates", net.state)):
+            sq = sum(float((t.detach().cpu().double() ** 2).sum())
+                     for t in health._leaves(tree))
+            worst = max(worst, abs(report["norms"][name] ** 2 - sq) / sq)
+        say("== resilience, health on the train phase's net: 4 checks "
+            "clean, 1 readback each, %s ms a check (%.3f after a synchronized "
+            "step); sums of squares against a CPU f64 recompute: %.3g "
+            "relative at most; %s" % (
+                " / ".join("%.3f" % m for m in ms), statistics.median(ms),
+                worst, card))
+        if worst > 1e-6:
+            raise RuntimeError("a sum of squares is %g off the CPU's" % worst)
+
+        # rollback: a history on the card, restored bit for bit
+        rollback = FusedNNRollback(
+            Workflow(None), trainer=types.SimpleNamespace(net=net,
+                                                          gd_proxies=[]),
+            minus_steps=1)
+        rollback.improved = True
+        t0 = time.perf_counter()
+        rollback.run()
+        torch.cuda.synchronize()
+        store_ms = 1e3 * (time.perf_counter() - t0)
+        stored = net.state_dict()
+        net.step(x, lbl)
+        net.step(x, lbl)
+        rollback.improved = False
+        t0 = time.perf_counter()
+        rollback.run()
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        history = health._leaves([rollback._history[0]["params"],
+                                  rollback._history[0]["opt"]])
+        if not all(t.device.type == net.device.type for t in history):
+            raise RuntimeError("the rollback's history is not on the card")
+        _trees_bits_equal(net.state_dict(), stored, "the rolled-back net")
+        say("   rollback: the state stored on the card (%d tensors, %.1f MB) "
+            "in %.2f ms, restored after 2 steps in %.2f ms (its NaN probe's "
+            "readback included): parameters, optimizer slots and generator "
+            "bit-equal; %s" % (
+                len(history), sum(t.numel() * t.element_size()
+                                  for t in history) / 1e6,
+                store_ms, restore_ms, card))
+
+        # a NaN weight: the step's check halts, and no restart follows
+        with torch.no_grad():
+            net.params[0]["w"].view(-1)[0] = float("nan")
+        attempts = []
+
+        def run(load, main):
+            attempts.append(1)
+            net.step(x, lbl)
+            health.check_training_step(None, steps=1, params=net.params,
+                                       updates=net.state)
+
+        mod = types.ModuleType("health_halt")
+        mod.__file__ = __file__
+        mod.run = run
+        try:
+            launcher.run_supervised(mod, max_restarts=2,
+                                    restart_backoff_ms=0.0,
+                                    device=net.device.type)
+        except health.HealthViolationError as e:
+            report_dir = e.crash_report
+        else:
+            raise RuntimeError("the NaN step did not halt")
+        if len(attempts) != 1 or not report_dir or \
+                not report_dir.startswith(CRASH_DIR) or \
+                not os.path.isfile(os.path.join(report_dir, "report.json")):
+            raise RuntimeError("expected one attempt and a crash report "
+                               "under build/: %d, %s"
+                               % (len(attempts), report_dir))
+        say("   NaN weight: HealthViolationError on that step (%s), a crash "
+            "report under build/, run_supervised did not restart it; %s"
+            % (health.monitor().last_violation["reason"], card))
+    finally:
+        root.common.health.enabled = False
+        health.reset()
+    return _counts()
+
+
+def _serve_retry(torch, engine, images, card):
+    """The serve phase's engine under ``serving.forward`` faults every
+    3rd invocation: replies bit-equal to a dispatch without faults, each
+    fault retried, the breaker closed, every dispatch launching the
+    forward kernel once a max pool.  Returns the forward launches."""
+    import numpy
+    from znicz_tpu_torch.core import faults
+    from znicz_tpu_torch.ops import cuda_pooling
+    want = engine.predict(images)
+    clean_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.predict(images)
+        clean_ms.append(1e3 * (time.perf_counter() - t0))
+    faults.reset()
+    faults.install("serving.forward", kind="io", every=3)
+    faults.enable()
+    cuda_pooling.LAUNCHES = 0
+    cuda_pooling.LAUNCHES_WIDE = cuda_pooling.LAUNCHES_NARROW = 0
+    dispatches0 = engine.dispatches
+    ms = []
+    try:
+        for _ in range(6):
+            t0 = time.perf_counter()
+            got = engine.predict(images)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if not numpy.array_equal(got.view(numpy.uint32),
+                                     want.view(numpy.uint32)):
+                raise RuntimeError("a reply under retries differs from the "
+                                   "dispatch without faults")
+        launches = cuda_pooling.LAUNCHES
+        dispatches = engine.dispatches - dispatches0
+        st = faults.status()
+        breaker = engine._bucket_breaker(engine.bucket_for(len(images)))
+    finally:
+        faults.disable()
+        faults.reset()
+    say("== resilience, serving retry: 6 batch-%d dispatches, %d faults "
+        "injected, %d retries, breaker %s; %d forward launches, 16-byte %d; "
+        "ms a reply %s (the retried ones include the 5 ms backoff), without "
+        "faults %s; replies bit-equal; %s" % (
+            len(images), st["sites"]["serving.forward"]["injected"],
+            st["retries"], breaker.state if breaker else None, launches,
+            cuda_pooling.LAUNCHES_WIDE, " / ".join("%.2f" % m for m in ms),
+            " / ".join("%.2f" % m for m in clean_ms), card))
+    pools = sum(layer.get("type") == "max_pooling" for layer in engine.layers)
+    if st["sites"]["serving.forward"]["injected"] != 2 or \
+            st["retries"] != 2 or dispatches != 6 or \
+            (breaker is not None and breaker.state != "closed") or \
+            launches != pools * dispatches or \
+            cuda_pooling.LAUNCHES_WIDE != launches:
+        raise RuntimeError("expected 2 faults retried, the breaker closed "
+                           "and %d forward launches (16-byte) a dispatch"
+                           % pools)
+    return launches
 
 
 def _units_argv(snapdir, wf_file, *extra):
@@ -2856,7 +3338,7 @@ def _alexnet_units_argv(snapdir, *extra):
     workflow phase's prototype images."""
     argv = ["alexnet"]
     for key, value in (("loader.minibatch_size", TRAIN_BATCH),
-                       ("loader.n_train", WORKFLOW_TRAIN),
+                       ("loader.n_train", ALEXNET_UNITS_TRAIN),
                        ("loader.n_valid", WORKFLOW_VALID),
                        ("decision.max_epochs", ALEXNET_UNITS_EPOCHS),
                        ("snapshotter.directory", snapdir)):
@@ -2925,7 +3407,7 @@ def phase_alexnet_units(torch, card, workflow_rates):
     """Full-width AlexNet trained by the workflow CLI through the unit
     graph (``python -m znicz_tpu_torch alexnet``, no ``--fused``), in
     this process, at batch 128 over the workflow phase's prototype
-    images (2,048 TRAIN, 256 VALID) for 2 epochs, f32, TF32 off,
+    images (the first 1,024 TRAIN, 256 VALID) for 2 epochs, f32, TF32 off,
     ``cudnn.deterministic``, snapshots in a temporary directory: 3
     forward kernel launches a minibatch and 3 backward a TRAIN
     minibatch, all at 16-byte vectors, no plain pooling on the card;
@@ -2934,14 +3416,14 @@ def phase_alexnet_units(torch, card, workflow_rates):
     half of them; a second run from the same seeds and the CLI resumed
     from the epoch-1 snapshot end bit-equal to the run.  Then
     :func:`_alexnet_f64` and :func:`_registry_on_card`.  Prints each
-    epoch's TRAIN images/s beside the workflow phase's (the fused graph
-    on the same rows, this run), the host ms a minibatch and by unit,
+    epoch's TRAIN images/s beside the workflow phase's (the fused graph,
+    this run), the host ms a minibatch and by unit,
     the readbacks and syncs a minibatch and the snapshot seconds.
     Returns the run's launches."""
     import tempfile
     from znicz_tpu_torch import __main__ as cli
     from znicz_tpu_torch.core import prng
-    train_mb = -(-WORKFLOW_TRAIN // TRAIN_BATCH)
+    train_mb = -(-ALEXNET_UNITS_TRAIN // TRAIN_BATCH)
     valid_mb = -(-WORKFLOW_VALID // TRAIN_BATCH)
     n_mb = (train_mb + valid_mb) * ALEXNET_UNITS_EPOCHS
     # the replay and the resume write no snapshot: they change nothing
@@ -2977,7 +3459,7 @@ def phase_alexnet_units(torch, card, workflow_rates):
              "plain_on_card": 0},
             "3 forward launches a minibatch and 3 backward a TRAIN "
             "minibatch, all at 16-byte vectors",
-            (WORKFLOW_TRAIN, WORKFLOW_VALID, TRAIN_BATCH,
+            (ALEXNET_UNITS_TRAIN, WORKFLOW_VALID, TRAIN_BATCH,
              ALEXNET_UNITS_EPOCHS), ALEXNET_SHAPES, card,
             "unit graph")
         say("   masking: %s, each %d runs (TRAIN and VALID), half of "
@@ -2985,7 +3467,7 @@ def phase_alexnet_units(torch, card, workflow_rates):
             % (", ".join("%s %s" % (k, v[0])
                          for k, v in sorted(fillers.shapes.items())),
                n_mb, bad))
-        say("   the fused workflow phase on the same rows, this run: "
+        say("   the fused workflow phase (its 2,048 TRAIN rows), this run: "
             "TRAIN images/s by epoch %s against the unit graph's %s; "
             "snapshots %s s (not in the rates); %s" % (
                 " ".join("%.1f" % r for r in workflow_rates),
@@ -4364,12 +4846,12 @@ def phase_stl10(torch, card, cycles_per_ms, data, imports):
     """STL-10's published network (``root.stl``: conv 32 5x5 -> max pool
     3x3/s2 -> strict relu -> LRN -> conv 32 5x5 -> strict relu -> avg
     pool 3x3/s2 -> LRN -> softmax; ``internal_mean``, minibatch 50) over
-    the sample's synthetic set (``data``: 5,000 TRAIN and 1,000 VALID
+    the sample's synthetic set (``data``: 2,500 TRAIN and 500 VALID
     rows in the real binary format), f32, TF32 off,
     ``cudnn.deterministic``.  Both kernels at pool1's shape first, bit
     for bit and timed; then ``python -m znicz_tpu_torch research.stl10``
     (the unit graph) for 2 epochs: exactly one forward launch a
-    minibatch (240) and one backward a TRAIN minibatch (200), all at
+    minibatch (120) and one backward a TRAIN minibatch (100), all at
     16-byte vectors, no plain pooling, no adjuster; a second run from
     the same seeds and the CLI resumed from the epoch-1 snapshot
     bit-equal to it; the same through ``--fused pool_impl=offsets``
@@ -4636,7 +5118,11 @@ def phase_train(torch, card, cycles_per_ms):
            EPOCHS, card))
     breakdown = _step_breakdown(torch, net, x_dev, lbl_dev, cycles_per_ms,
                                 card)
-    return launches, breakdown
+    t0 = time.perf_counter()
+    net_launches = _health_and_rollback(torch, net, x_dev, lbl_dev, card)
+    say("   the resilience checks on this net: %.2f s" % (
+        time.perf_counter() - t0))
+    return launches, breakdown, net_launches
 
 
 def _step_breakdown(torch, net, x, lbl, cycles_per_ms, card):
@@ -5951,20 +6437,26 @@ def _phases(torch, name, card, start):
     marks.append(("kernels", time.perf_counter()))
     backward_err = phase_backward_kernel(torch)
     marks.append(("backward kernel", time.perf_counter()))
-    by_width, layer_ms = phase_serve(torch, card, cycles_per_ms)
+    by_width, layer_ms, serve_retry_launches = phase_serve(
+        torch, card, cycles_per_ms)
     marks.append(("serve", time.perf_counter()))
     for label in rows:
         say("   %s in the model: %.4f ms (warm L2), cold alone %.4f ms; %s"
             % (label, layer_ms[label], rows[label]["ms"], card))
     with prototypes:
-        workflow_launches, workflow_rates = phase_workflow(torch, card)
+        workflow_launches, workflow_rates, reference = phase_workflow(
+            torch, card)
         marks.append(("workflow", time.perf_counter()))
+        resilience_launches = phase_resilience(torch, card, reference)
+        del reference
+        marks.append(("resilience", time.perf_counter()))
         alexnet_units_launches = phase_alexnet_units(torch, card,
                                                      workflow_rates)
         marks.append(("alexnet_units", time.perf_counter()))
         units_launches, mnist_rows = phase_units(torch, card, cycles_per_ms)
         marks.append(("units", time.perf_counter()))
-        train_launches, _ = phase_train(torch, card, cycles_per_ms)
+        train_launches, _, resilience_net_launches = phase_train(
+            torch, card, cycles_per_ms)
         marks.append(("train", time.perf_counter()))
     del prototypes
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
@@ -5996,22 +6488,26 @@ def _phases(torch, name, card, start):
              "ae_fused": ae_fused_launches, "cifar": cifar_launches,
              "cifar_fused": cifar_fused_launches, "stl10": stl_launches,
              "stl10_fused": stl_fused_launches, "imagenet_ae": iae_launches,
-             "imagenet_ae_fused": iae_fused_launches}
+             "imagenet_ae_fused": iae_fused_launches,
+             "resilience": resilience_launches,
+             "resilience_net": resilience_net_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
                "launches": sum(by_width.values()) + sum(
                    p["forward"] for p in paths.values()) + sum(
-                       by_dtype.values()),
+                       by_dtype.values()) + serve_retry_launches,
                "launches_by_path": dict(
                    serve=sum(by_width.values()),
                    serve_models=sum(by_dtype.values()),
+                   resilience_serve=serve_retry_launches,
                    **{k: p["forward"] for k, p in paths.items()}),
                "launches_by_dtype": by_dtype,
                "launches_by_width": {
                    k: by_width[k] + sum(p["forward_by_width"][k]
                                         for p in paths.values()) + (
-                       sum(by_dtype.values()) if k == WIDE else 0)
+                       sum(by_dtype.values()) + serve_retry_launches
+                       if k == WIDE else 0)
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),

@@ -121,7 +121,12 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.samples.approximator",
                  "znicz_tpu_torch.samples.kanji",
                  "znicz_tpu_torch.samples.research.video_ae",
-                 "znicz_tpu_torch.samples.research.imagenet_ae"):
+                 "znicz_tpu_torch.samples.research.imagenet_ae",
+                 "znicz_tpu_torch.core.telemetry",
+                 "znicz_tpu_torch.core.faults",
+                 "znicz_tpu_torch.core.health",
+                 "znicz_tpu_torch.core.status_server",
+                 "znicz_tpu_torch.units.nn_rollback"):
         assert name in doc["modules"]
 
 

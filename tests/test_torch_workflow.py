@@ -316,6 +316,20 @@ def test_left_out_modes_raise(kwargs):
                                   ["alexnet", "--max-restarts", "2"],
                                   ["alexnet", "--optimize", "2x2"],
                                   ["profile", "alexnet"]])
-def test_left_out_cli_options_raise(argv):
+def test_left_out_cli_options_raise(argv, monkeypatch):
+    """Left-out options raise, naming ROADMAP.md; ``--max-restarts``,
+    once among them, now supervises the run, and without CUDA (and
+    without ``--device cpu``) it raises at once instead of restarting."""
+    if "--max-restarts" in argv:
+        from znicz_tpu_torch import launcher
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        calls = []
+        real = launcher.run_workflow
+        monkeypatch.setattr(launcher, "run_workflow",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+        assert calls == []
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(argv)

@@ -15,12 +15,19 @@ Examples::
     python -m znicz_tpu_torch serve PKG.zip --port 8899
     python -m znicz_tpu_torch serve --latest cifar_caffe --dtype bf16
     python -m znicz_tpu_torch serve a=PKG.zip@int8 b=SNAP.pickle
+    python -m znicz_tpu_torch alexnet --fused pool_impl=offsets \
+        --max-restarts 2 --config alexnet.snapshotter.window_interval=1
 
 A workflow runs on the card unless ``--device cpu``, and without CUDA
-it raises instead of carrying on on the CPU.  ``--optimize``,
-``--parity``, ``--max-restarts``, ``--auto-resume``, ``--testing``,
-``--dump-graph`` and the ``profile`` and ``obs`` subcommands are not
-in this slice of the port (``ROADMAP.md``).
+it raises instead of carrying on on the CPU.  ``--auto-resume``
+restores the newest resumable snapshot of the workflow's snapshotter;
+``--max-restarts N`` supervises the run (``launcher.run_supervised``):
+a crash is backed off (``--restart-backoff-ms``, doubling, capped at
+30 s) and the run re-entered with auto-resume up to N times;
+``--testing`` sets ``testing`` on the units after ``initialize``, as
+the JAX launcher does.  ``--optimize``, ``--parity``, ``--dump-graph``
+and the ``profile`` and ``obs`` subcommands are not in this slice of
+the port (``ROADMAP.md``).
 """
 
 import argparse
@@ -71,6 +78,23 @@ def main(argv=None):
                         help="fused execution mode and its config, e.g. "
                              "--fused pool_impl=offsets,window=8")
     parser.add_argument("--snapshot", help="snapshot file to resume from")
+    parser.add_argument("--auto-resume", action="store_true",
+                        help="restore the newest resumable snapshot of "
+                             "the workflow's snapshotter, if there is "
+                             "one, and continue")
+    parser.add_argument("--max-restarts", type=int, default=0,
+                        metavar="N",
+                        help="supervised mode: catch a crashed run, back "
+                             "off and re-enter it with auto-resume up to "
+                             "N times (the snapshotter's window_interval "
+                             "makes the re-entry resume mid-epoch)")
+    parser.add_argument("--restart-backoff-ms", type=float, default=1000.0,
+                        metavar="MS",
+                        help="supervised restart backoff base (doubles "
+                             "a restart, capped at 30 s)")
+    parser.add_argument("--testing", action="store_true",
+                        help="set testing on the units after initialize "
+                             "(the decision then stops after one epoch)")
     parser.add_argument("--dry-run", action="store_true",
                         help="build and initialize only")
     parser.add_argument("--device", default=None,
@@ -79,14 +103,10 @@ def main(argv=None):
                         help="list the samples and exit")
     for flag, kwargs in (("--optimize", {}), ("--parity", {"action":
                                                             "store_true"}),
-                         ("--max-restarts", {"type": int}),
-                         ("--auto-resume", {"action": "store_true"}),
-                         ("--testing", {"action": "store_true"}),
                          ("--dump-graph", {})):
         parser.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
     args = parser.parse_args(argv)
-    for flag in ("optimize", "parity", "max_restarts", "auto_resume",
-                 "testing", "dump_graph"):
+    for flag in ("optimize", "parity", "dump_graph"):
         if getattr(args, flag):
             raise NotImplementedError(
                 "--%s %s" % (flag.replace("_", "-"), _LATER))
@@ -94,7 +114,7 @@ def main(argv=None):
     from znicz_tpu_torch.core.config import apply_override
     from znicz_tpu_torch.launcher import (list_samples,
                                           resolve_workflow_module,
-                                          run_workflow)
+                                          run_supervised, run_workflow)
     if args.list:
         for name in list_samples():
             print(name)
@@ -106,8 +126,16 @@ def main(argv=None):
     module = resolve_workflow_module(args.workflow)
     for assignment in args.config:
         apply_override(assignment)
-    wf = run_workflow(module, snapshot=args.snapshot, dry_run=args.dry_run,
-                      device=args.device, fused=parse_fused(args.fused))
+    run_args = dict(snapshot=args.snapshot, testing=args.testing,
+                    dry_run=args.dry_run, device=args.device,
+                    fused=parse_fused(args.fused),
+                    auto_resume=args.auto_resume)
+    if args.max_restarts > 0:
+        wf = run_supervised(module, max_restarts=args.max_restarts,
+                            restart_backoff_ms=args.restart_backoff_ms,
+                            **run_args)
+    else:
+        wf = run_workflow(module, **run_args)
     decision = getattr(wf, "decision", None)
     if decision is not None and hasattr(decision, "best_n_err_pt"):
         print("best val/train err%%: %s" % (decision.best_n_err_pt,))

@@ -2,11 +2,18 @@
 
 Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
 reads: the ``root.common.serving`` knobs of the serving slice, the
-``root.common.telemetry`` gate, ``root.common.engine.precision_dtype``
-and ``deterministic``, ``root.common.dirs.snapshots`` / ``datasets`` of
-the training workflows, and the CLI's ``--config`` parser
+``root.common.telemetry`` gate and journal size,
+``root.common.engine.precision_dtype`` and ``deterministic``,
+``root.common.dirs.snapshots`` / ``datasets`` / ``cache`` of the
+training workflows, the ``root.common.faults`` / ``retry`` / ``health``
+knobs of the fault-injection registry, the transient retry and the
+health monitor (:284-296, :329-348), and the CLI's ``--config`` parser
 :func:`apply_override` (:535).  Namespaces auto-vivify on attribute
 access; assigning a dict merges it into the node.
+
+The port declares no knob vocabulary; ``common.faults.rules`` is, as
+in the JAX package (:150-195), an open dict whose keys are injection
+sites and whose values are rule dicts: payload, not knobs.
 """
 
 import ast
@@ -91,16 +98,44 @@ root.common.update({
         "priority_queue_pct": {"low": 50.0, "normal": 100.0,
                                "high": 100.0},
     },
-    "telemetry": {"enabled": False},
+    "telemetry": {"enabled": False,
+                  # the flight-recorder journal's ring (events kept)
+                  "journal_capacity": 4096},
+    # the numeric training-health monitor (core/health.py); off, every
+    # check site is one config read
+    "health": {
+        "enabled": False,
+        "interval": 1,            # check every N train steps
+        "policy": "warn",         # "warn" | "snapshot" | "halt"
+        "grad_norm_limit": 0.0,   # 0 disables the limit
+        "param_norm_limit": 0.0,
+        "update_norm_limit": 0.0,
+        "loss_window": 8,         # divergence detector window (epochs)
+        "loss_ema_alpha": 0.3,    # EMA smoothing of the explosion test
+        "divergence_factor": 3.0,  # loss > factor * EMA: explosion
+        "loss_rise": 0.1,         # net rise across a window: a slope
+        "crash_dir": None,        # None: <dirs.cache>/crash_reports
+    },
+    # deterministic fault injection (core/faults.py); off, every
+    # injection site is one config read.  rules: {site: {"kind":
+    # "io" | "xla" | "crash" | "stall", "at": N | "every": K | "p": x,
+    # "times": M, "stall_ms": ...}}
+    "faults": {"enabled": False, "seed": 0, "rules": {}},
+    # bounded retry of transient faults (the loader's fill, the
+    # serving dispatch)
+    "retry": {"attempts": 3, "backoff_base_ms": 5.0,
+              "backoff_max_ms": 200.0},
     # minibatch and trainer dtype (None: follow the data, float32);
     # deterministic: cuDNN's deterministic algorithms on the card
     # (core.backends.deterministic), False lets it pick faster
     # nondeterministic ones
     "engine": {"precision_dtype": None, "deterministic": True},
-    # the snapshotter's default directory and the datasets' (the MNIST
-    # loader's IDX files), inside the checkout
+    # the snapshotter's default directory, the datasets' (the MNIST
+    # loader's IDX files) and the runtime cache (crash reports), inside
+    # the checkout
     "dirs": {"snapshots": os.path.join(_CHECKOUT, ".snapshots"),
-             "datasets": os.path.join(_CHECKOUT, ".data")},
+             "datasets": os.path.join(_CHECKOUT, ".data"),
+             "cache": os.path.join(_CHECKOUT, ".cache")},
 })
 
 

@@ -19,8 +19,17 @@ atomically.  A unit-graph workflow's snapshot also carries
 ``_forward_topology`` :199-201, :237-253) that lets the serving engine
 serve the snapshot; a fused workflow's forwards are its trainer alone,
 which no layer type describes, so its snapshots carry none.
-Mid-epoch snapshots (``window_interval``) are not in this slice of the
-port (``ROADMAP.md``).
+
+Mid-epoch snapshots (JAX :65-116): with ``window_interval`` N the
+fused trainer calls :meth:`SnapshotterBase.window_tick` after every
+TRAIN window that is not its segment's last, and every N-th writes a
+snapshot under the ``midepoch`` suffix.  With the loader's cursor, the
+prng streams, the trainer's drained epoch accumulator and its
+generator in the payload, a run killed mid-epoch resumes
+(``--auto-resume``) into the windows the uninterrupted run
+dispatches.  Both triggers advance their interval only after an export
+succeeded, so a failed write is tried again at the next one.  The
+``snapshot.write`` fault site sits before the write.
 """
 
 import bz2
@@ -32,7 +41,7 @@ import time
 
 import numpy
 
-from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core import faults, prng, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.units import Unit
@@ -55,10 +64,6 @@ class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
 
     def __init__(self, workflow, **kwargs):
         super(SnapshotterBase, self).__init__(workflow, **kwargs)
-        if kwargs.get("window_interval"):
-            raise NotImplementedError(
-                "mid-epoch snapshots (window_interval) are not in this "
-                "slice of the port (see ROADMAP.md)")
         self.prefix = kwargs.get("prefix", "snapshot")
         self.compression = kwargs.get("compression", "gz")
         if (self.compression or "") not in _WRITERS:
@@ -67,10 +72,13 @@ class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
         self.directory = kwargs.get("directory", root.common.dirs.snapshots)
         self.interval = kwargs.get("interval", 1)
         self.time_interval = kwargs.get("time_interval", 0)
+        #: every N fused TRAIN windows a ``midepoch`` snapshot (0: off)
+        self.window_interval = int(kwargs.get("window_interval", 0))
         self.suffix = None
         self.destination = None
         self._last_time = 0.0
         self._since_fire = 0
+        self._windows_since = 0
 
     def initialize(self, device=None, **kwargs):
         super(SnapshotterBase, self).initialize(device=device, **kwargs)
@@ -82,10 +90,42 @@ class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
             return
         if time.time() - self._last_time < self.time_interval:
             return
-        self.export()
+        self._metered_export()
         # the interval advances only after a successful export
         self._since_fire = 0
         self._last_time = time.time()
+
+    def window_tick(self):
+        """The fused trainer's call after each TRAIN window that is not
+        its segment's last: every ``window_interval``-th writes a
+        snapshot under the ``midepoch`` suffix and returns its path
+        (None when off or not due).  The count starts again only after
+        an export succeeded."""
+        if not self.window_interval:
+            return None
+        self._windows_since += 1
+        if self._windows_since < self.window_interval:
+            return None
+        saved = self.suffix
+        self.suffix = "midepoch"
+        try:
+            wrote = self._metered_export()
+        finally:
+            self.suffix = saved
+        self._windows_since = 0
+        return wrote
+
+    def _metered_export(self):
+        """:meth:`export`, counted (``snapshotter.exports``) and timed
+        (``snapshotter.export_seconds``) when telemetry is on."""
+        if not telemetry.enabled():
+            return self.export()
+        t0 = time.perf_counter()
+        wrote = self.export()
+        telemetry.counter("snapshotter.exports").inc()
+        telemetry.histogram("snapshotter.export_seconds").observe(
+            time.perf_counter() - t0)
+        return wrote
 
     def export(self):
         """Write a snapshot; return its path."""
@@ -136,8 +176,12 @@ class SnapshotterToFile(SnapshotterBase):
         name = "%s_%s.%d.pickle%s" % (
             self.prefix, self.suffix or "current", os.getpid(), ext)
         self.destination = os.path.join(self.directory, name)
+        if faults.enabled():
+            faults.check("snapshot.write")
         # atomic and durable publish: a crash mid-write never leaves a
-        # truncated file under the published name
+        # truncated file under the published name, and the file's blocks
+        # and then its directory entry are on disk before the name is
+        # announced
         tmp = self.destination + ".part"
         with _WRITERS[self.compression or ""](tmp, "wb") as f:
             pickle.dump(payload, f, protocol=4)
@@ -147,7 +191,14 @@ class SnapshotterToFile(SnapshotterBase):
         finally:
             os.close(fd)
         os.replace(tmp, self.destination)
+        dfd = os.open(os.path.dirname(self.destination) or ".", os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
         self.info("snapshot -> %s", self.destination)
+        telemetry.record_event("snapshot", path=self.destination,
+                               suffix=self.suffix)
         return self.destination
 
     def _forward_topology(self):

@@ -4,7 +4,12 @@ server lifecycle.
 Counterpart of the ``HttpServerBase`` / ``HandlerBase`` /
 ``BodyTooLargeError`` part of ``znicz_tpu/core/status_server.py`` —
 the part the serving front end (:mod:`znicz_tpu_torch.serving.server`)
-is built on.
+is built on — the ``GET /debug/faults`` and ``GET /debug/health``
+views (JAX :213, :252) that every server built on
+:class:`HandlerBase` answers (:meth:`HandlerBase._send_debug`), and
+:class:`StatusServer` (JAX :405), a training run's status over HTTP:
+``/status.json``, ``/metrics`` and the debug views.  The JAX server's
+HTML page and plots wait for the plotters (``ROADMAP.md``).
 """
 
 import json
@@ -76,6 +81,21 @@ class HandlerBase(BaseHTTPRequestHandler):
         except ValueError:
             pass  # close_connection is already set
 
+    def _send_debug(self, path):
+        """Answer ``GET /debug/faults`` (the fault registry's status)
+        and ``GET /debug/health`` (the health monitor's: 503 once a
+        violation was seen); False for any other path."""
+        if path == "/debug/faults":
+            from znicz_tpu_torch.core import faults
+            self._send_json(200, faults.status())
+            return True
+        if path == "/debug/health":
+            from znicz_tpu_torch.core import health
+            st = health.status()
+            self._send_json(200 if st.get("ok", True) else 503, st)
+            return True
+        return False
+
     def _send_metrics(self):
         self._send(200, "text/plain; version=0.0.4; charset=utf-8",
                    telemetry.prometheus_text().encode())
@@ -129,3 +149,51 @@ class HttpServerBase(Logger):
             httpd.server_close()
         if thread is not None:
             thread.join(timeout=5)
+
+
+class StatusServer(HttpServerBase):
+    """Serves one workflow's live status over HTTP."""
+
+    def __init__(self, workflow=None, port=0, host="127.0.0.1"):
+        super(StatusServer, self).__init__(port=port, host=host,
+                                           logger_name="StatusServer")
+        self.workflow = workflow
+
+    def status(self):
+        """The workflow's class, units and their run counts, the
+        decision's epoch and errors, and the telemetry snapshot when
+        telemetry is on; safe before ``initialize``."""
+        wf = self.workflow
+        payload = {"workflow": None}
+        if wf is not None:
+            payload["workflow"] = type(wf).__name__
+            units = list(getattr(wf, "units", ()))
+            payload["units"] = [u.name for u in units]
+            payload["run_counts"] = {u.name: int(getattr(u, "run_count_", 0))
+                                     for u in units}
+            decision = getattr(wf, "decision", None)
+            for attr in ("epoch_number", "complete", "best_n_err_pt",
+                         "epoch_n_err_pt"):
+                v = getattr(decision, attr, None)
+                if v is not None:
+                    payload[attr] = bool(v) if attr == "complete" else v
+        if telemetry.enabled():
+            payload["telemetry"] = telemetry.snapshot()
+        return payload
+
+    def make_handler(self):
+        server = self
+
+        class Handler(HandlerBase):
+            owner = server
+
+            def do_GET(self):
+                path = self.path.partition("?")[0]
+                if path == "/status.json":
+                    self._send_json(200, server.status())
+                elif path == "/metrics":
+                    self._send_metrics()
+                elif not self._send_debug(path):
+                    self._send_json(404, {"error": "not found"})
+
+        return Handler

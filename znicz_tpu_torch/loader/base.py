@@ -5,7 +5,9 @@ Counterpart of ``znicz_tpu/loader/base.py`` (:49-466): ``Loader``,
 ``TEST`` / ``VALID`` / ``TRAIN`` classes and the MSE mixins
 (``LoaderMSEMixin``, ``FullBatchLoaderMSEMixin``, ``FullBatchLoaderMSE``
 :467-530: per-sample regression targets, optional class targets, a
-targets normalizer), without the fault, telemetry and profiler hooks.
+targets normalizer), with the ``loader.fill`` fault site and its
+bounded retry (JAX :317-333), without the telemetry and profiler
+hooks.
 
 Epoch semantics, as the JAX package's:
 
@@ -30,7 +32,7 @@ seed serves the same rows in the same order in either package.
 
 import numpy
 
-from znicz_tpu_torch.core import normalization
+from znicz_tpu_torch.core import faults, normalization
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
@@ -94,6 +96,10 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.minibatch_class = TRAIN
         #: the served minibatch's first row within its class's order
         self.minibatch_class_offset = 0
+        #: the rows served in this epoch up to and with this minibatch
+        #: (the testing evaluator's merge position)
+        self.minibatch_offset = 0
+        self._global_offset = 0
         self.last_minibatch = Bool(False)
         self.epoch_ended = Bool(False)
         self.epoch_number = 0
@@ -105,7 +111,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         #: with the prng streams, the iteration state makes a resumed
         #: run serve exactly what the uninterrupted run would have
         self.exports = ["epoch_number", "_segment", "_offset_in_class",
-                        "_indices", "shuffle_serial"]
+                        "_global_offset", "_indices", "shuffle_serial"]
         self.normalizer = None
 
     # -- to be provided by subclasses ---------------------------------------
@@ -171,6 +177,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             arr.device = device
         self._segment = 0
         self._offset_in_class = 0
+        self._global_offset = 0
         if self.on_initialized is not None:
             self.on_initialized()
         self.info(
@@ -199,13 +206,15 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.minibatch_class = clazz
         self.minibatch_size = int(n)
         self.minibatch_class_offset = int(off)
+        self._global_offset += n
+        self.minibatch_offset = self._global_offset
 
         self.minibatch_indices.map_write()
         idx = self.minibatch_indices.mem
         idx[:n] = sel
         idx[n:] = -1
         if not (self.skip_fill and clazz == TRAIN):
-            self.fill_minibatch()
+            self._fill_resilient()
             if n < self.max_minibatch_size:
                 self.minibatch_labels.map_write()
                 self.minibatch_labels.mem[n:] = -1
@@ -218,12 +227,27 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             self.epoch_number += 1
             self._segment = 0
             self._offset_in_class = 0
+            self._global_offset = 0
             self._shuffle()
         elif seg_done:
             self._segment += 1
             self._offset_in_class = 0
         else:
             self._offset_in_class = off + n
+
+    def _serve_fill(self):
+        """One fill, with the ``loader.fill`` fault site inside the
+        retried region: an injected transient I/O error is recovered as
+        a flaky read would be, a ``stall`` delays the fill."""
+        if faults.enabled():
+            faults.check("loader.fill")
+        self.fill_minibatch()
+
+    def _fill_resilient(self):
+        """``fill_minibatch`` with the bounded exponential-backoff retry
+        of transient failures (``root.common.retry``); a terminal error
+        still fails the run."""
+        faults.retry_call(self._serve_fill, "loader.fill")
 
     def fill_window_slot(self, x_out=None, labels_out=None,
                          targets_out=None, indices_out=None):

@@ -3,12 +3,12 @@ classification stats of a minibatch, and the MSE gradient and metrics.
 
 Counterpart of ``znicz_tpu/ops/evaluator.py::softmax_ce_jax`` (:25)
 and of the single-device branch of the fused window's in-scan stats
-(``znicz_tpu/parallel/fused.py::_eval_stats`` :845-903), both with
-``mean`` on, as every caller runs them; reference evaluator.py:271-312:
+(``znicz_tpu/parallel/fused.py::_eval_stats`` :845-903); reference
+evaluator.py:271-312:
 
 * rows at or past ``batch_size`` and rows labelled -1 are masked out;
-* ``err_output = (softmax - onehot(label)) / batch_size``, zero on
-  masked rows;
+* ``err_output = (softmax - onehot(label)) / batch_size`` (without
+  the division under ``mean=False``), zero on masked rows;
 * ``n_err = [misclassified, evaluated]`` int32;
 * ``confusion[pred, label]`` int32, as a one-hot product in float32
   (exact for counts under 2^24);
@@ -31,7 +31,7 @@ def _one_hot(idx, n, dtype):
     return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def softmax_ce(output, max_idx, labels, batch_size, n_classes):
+def softmax_ce(output, max_idx, labels, batch_size, n_classes, mean=True):
     """``(err_output, n_err[2], confusion[C, C], max_err_sum)`` of one
     minibatch: softmax rows ``output (B, C)``, their int argmax and int
     labels ``(B,)``."""
@@ -39,8 +39,8 @@ def softmax_ce(output, max_idx, labels, batch_size, n_classes):
              batch_size) & (labels >= 0)
     lbl = labels.clamp(min=0).long()
     onehot = _one_hot(lbl, output.shape[1], output.dtype)
-    err = torch.where(valid[:, None],
-                      (output - onehot) * (1.0 / max(batch_size, 1)), 0)
+    mult = 1.0 / max(batch_size, 1) if mean else 1.0
+    err = torch.where(valid[:, None], (output - onehot) * mult, 0)
     n_total = valid.sum()
     n_ok = (valid & (max_idx == labels)).sum()
     n_err = torch.stack([n_total - n_ok, n_total]).to(torch.int32)
@@ -53,17 +53,19 @@ def softmax_ce(output, max_idx, labels, batch_size, n_classes):
     return err, n_err, conf, mx
 
 
-def eval_stats(probs, max_idx, labels, batch_size, n_classes):
+def eval_stats(probs, max_idx, labels, batch_size, n_classes, mean=True):
     """``(n_err[2], confusion[C, C], max_err_sum)`` of one minibatch,
     as the fused window folds them (those of :func:`softmax_ce`)."""
-    return softmax_ce(probs, max_idx, labels, batch_size, n_classes)[1:]
+    return softmax_ce(probs, max_idx, labels, batch_size, n_classes,
+                      mean)[1:]
 
 
-def mse(output, target, batch_size, root=False):
+def mse(output, target, batch_size, root=False, mean=True):
     """``(err_output, metrics[3], mse_per)`` of one minibatch:
 
-    * ``err_output = (output - target) / batch_size``, zero on rows at
-      or past ``batch_size``;
+    * ``err_output = (output - target) / batch_size`` (without the
+      division under ``mean=False``), zero on rows at or past
+      ``batch_size``;
     * ``mse_per`` the per-sample mean of the squared difference (its
       square root with ``root``), 0 on masked rows;
     * ``metrics = [sum, max, min]`` of ``mse_per`` over the batch, the
@@ -73,7 +75,7 @@ def mse(output, target, batch_size, root=False):
     t2 = target.reshape(b, -1).to(o2.dtype)
     in_batch = torch.arange(b, device=o2.device) < batch_size
     diff = torch.where(in_batch[:, None], o2 - t2, 0)
-    err = diff * (1.0 / max(batch_size, 1))
+    err = diff * (1.0 / max(batch_size, 1) if mean else 1.0)
     mse_per = (diff * diff).sum(dim=1) / o2.shape[1]
     if root:
         mse_per = torch.sqrt(mse_per)

@@ -44,7 +44,11 @@ What maps to what:
   :meth:`FusedNet.run_window_mse`), gathered from the device dataset by
   row index (``run_window_indexed``, ``run_window_mse_indexed``) or
   sliced from the epoch's shuffled dataset on the device
-  (``run_window_sliced``, ``run_window_mse_sliced``).
+  (``run_window_sliced``, ``run_window_mse_sliced``);
+* :meth:`FusedNet.host_fetch`, the trainer's readback, holds the
+  ``fused.host_fetch`` fault site (JAX :2160-2173), and
+  :meth:`FusedNet.device_state` / :meth:`FusedNet.load_device_state`
+  keep a state on the device for the fused rollback.
 
 Not in this slice (each raises and is listed in ``ROADMAP.md``): a
 mesh, ``compute_dtype`` and ``pool_impl="reshape"``.
@@ -56,7 +60,7 @@ import numpy
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.core import memory, prng
+from znicz_tpu_torch.core import faults, memory, prng
 from znicz_tpu_torch.core.backends import (default_device,
                                             deterministic, full_f32)
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
@@ -936,6 +940,9 @@ class FusedNet:
         #: ``root`` and the nearest-class-target matrix (None: no n_err)
         self.mse_root = True
         self.class_targets = None
+        #: the softmax windows' ``max_err_sum`` scale: the evaluator's
+        #: ``mean`` (err_output divided by the batch size, or not)
+        self.stats_mean = True
         self._ct_cache = None
         params_host = init_params(self.specs, rand, self.dtype)
         self.params = self._place(params_host)
@@ -1075,7 +1082,8 @@ class FusedNet:
                 self.params, self.state, x, lbl, self.specs, self._gen, hy,
                 with_output=True)
             d_nerr, d_conf, d_mx = evaluator.eval_stats(
-                m["output"], m["max_idx"], lbl, bs, n_classes)
+                m["output"], m["max_idx"], lbl, bs, n_classes,
+                mean=self.stats_mean)
             nerr, conf = nerr + d_nerr, conf + d_conf
             mx = torch.maximum(mx, d_mx)
             losses.append(m["loss"])
@@ -1295,10 +1303,14 @@ class FusedNet:
         self._win_acc = None if acc is None else self._place(acc)
 
     # -- reads ----------------------------------------------------------------
-    @staticmethod
-    def host_fetch(tree):
+    def host_fetch(self, tree):
         """Host numpy copies of a pytree of tensors, in one readback
-        (:func:`znicz_tpu_torch.core.memory.host_fetch`)."""
+        (:func:`znicz_tpu_torch.core.memory.host_fetch`), behind the
+        ``fused.host_fetch`` fault site.  Like the dispatch site it is
+        not retried in place: the supervised launcher's restart and
+        mid-epoch resume are the recovery."""
+        if faults.enabled():
+            faults.check("fused.host_fetch")
         return memory.host_fetch(tree)
 
     def params_finite(self):
@@ -1323,7 +1335,7 @@ class FusedNet:
         return probs, torch.argmax(probs, dim=1).to(torch.int32)
 
     def host_params(self):
-        return self.host_fetch(self.params)
+        return memory.host_fetch(self.params)
 
     # -- checkpoint / resume --------------------------------------------------
     def state_dict(self):
@@ -1332,6 +1344,28 @@ class FusedNet:
         sd = train_state_to_numpy(self.params, self.state, self.hypers)
         sd["key"] = self._gen.get_state().numpy()
         return sd
+
+    def device_state(self):
+        """Clones of the parameters and optimizer slots on the device,
+        the generator's state (a small host tensor, as PyTorch keeps
+        it) and the live hypers: :meth:`state_dict` without a copy to
+        the host."""
+        def clone(t):
+            return t.clone() if isinstance(t, torch.Tensor) else t
+        return {"params": tree_map(clone, self.params),
+                "opt": tree_map(clone, self.state),
+                "key": self._gen.get_state(),
+                "hypers": tree_map(clone, self.hypers)}
+
+    def load_device_state(self, sd):
+        """Restore a :meth:`device_state` (its tensors cloned again, so
+        the state can be restored more than once)."""
+        def clone(t):
+            return t.clone() if isinstance(t, torch.Tensor) else t
+        self.params = tree_map(clone, sd["params"])
+        self.state = tree_map(clone, sd["opt"])
+        self.hypers = tree_map(clone, sd["hypers"])
+        self._gen.set_state(sd["key"].clone())
 
     def load_state_dict(self, sd):
         """Restore :meth:`state_dict` output.  ``"key"`` is optional (a

@@ -57,7 +57,11 @@ of the parameters and keeps the host copies, in the serving dtype;
 :meth:`~InferenceEngine.restore` (or the next request) uploads them
 again.  :attr:`~InferenceEngine.device_bytes` is what the registry's
 budget meters.  A per-bucket :class:`~znicz_tpu_torch.serving.breaker.
-CircuitBreaker` turns a failing dispatch path into fast 503s.
+CircuitBreaker` turns a failing dispatch path into fast 503s.  Inside
+its region a dispatch passes the ``serving.forward`` and
+``serving.forward.<name>`` fault sites and retries transient faults
+(``faults.retry_call``, JAX :895-915): only an exhausted retry counts
+as the breaker's failure.
 """
 
 import json
@@ -69,7 +73,7 @@ import zipfile
 import numpy
 import torch
 
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import faults, telemetry
 from znicz_tpu_torch.core.backends import default_device, full_f32
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -729,8 +733,20 @@ class InferenceEngine(Logger):
             x = padded
         breaker = self._bucket_breaker(bucket)
         probe = breaker.allow() if breaker is not None else False
+
+        def dispatch():
+            if faults.enabled():
+                faults.check("serving.forward")
+                if self.name:
+                    # one model's site: a candidate generation can be
+                    # sabotaged without touching its peers
+                    faults.check("serving.forward.%s" % self.name)
+            return self._dispatch(m, params, x)
+
         try:
-            y = self._dispatch(m, params, x)[:n]
+            # transient faults are retried inside the breaker's region:
+            # only an exhausted retry counts as the breaker's failure
+            y = faults.retry_call(dispatch, "serving.forward")[:n]
         except (ValueError, TypeError):
             # the client's shapes: no evidence of the backend's health
             if breaker is not None:

@@ -30,6 +30,8 @@ Endpoints:
   before and while draining.  A registry answers 200 while any model
   is ready, with ``degraded`` and the per-model map.
 * ``GET /metrics`` — Prometheus text of the telemetry registry.
+* ``GET /debug/faults`` and ``GET /debug/health`` — the fault
+  registry's and the health monitor's status.
 
 CLI::
 
@@ -330,7 +332,7 @@ class ServingServer(HttpServerBase):
                     self._send_json(200, server.models())
                 elif path == "/metrics":
                     self._send_metrics()
-                else:
+                elif not self._send_debug(path):
                     self._send_json(404, {"error": "not found"})
 
             def do_POST(self):

@@ -4,7 +4,7 @@ Counterpart of ``znicz_tpu/standard_workflow.py`` (``create_workflow``
 :49-60, ``create_fused_workflow`` :62, ``link_fused_trainer`` :76,
 ``link_gds`` :120-172, ``link_evaluator`` :174-210, ``link_decision``
 :212, ``link_snapshotter`` :236, ``link_lr_adjuster`` :252-281,
-``link_loop``, ``link_end_point``).
+``link_rollback`` :283-300, ``link_loop``, ``link_end_point``).
 The unit-at-a-time graph, the default (``fused=None``)::
 
     repeater -> loader -> forwards[0..n] -> evaluator -> decision
@@ -23,9 +23,10 @@ that improved; the GD units skip VALID minibatches
 (``decision.gd_skip``).  ``loss_function="mse"`` trains against the
 loader's ``minibatch_targets`` through ``EvaluatorMSE`` and
 ``DecisionMSE`` (and, fused, the trainer's MSE windows).
-``link_lr_adjuster`` adds the learning-rate schedule to either graph.
-A mesh, rollback and the plotters are not in this slice of the port
-(``ROADMAP.md``).
+``link_lr_adjuster`` adds the learning-rate schedule to either graph,
+``link_rollback`` the divergence recovery (``NNRollback`` over the GD
+units, ``FusedNNRollback`` over the fused trainer).  A mesh and the
+plotters are not in this slice of the port (``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -33,9 +34,11 @@ from znicz_tpu_torch.standard_workflow_base import StandardWorkflowBase
 from znicz_tpu_torch.units.decision import DecisionsRegistry
 from znicz_tpu_torch.units.conv import ConvolutionalBase
 from znicz_tpu_torch.units.evaluator import EvaluatorsRegistry
-from znicz_tpu_torch.units.fused_trainer import FusedForwardBackward
+from znicz_tpu_torch.units.fused_trainer import (FusedForwardBackward,
+                                                 FusedNNRollback)
 from znicz_tpu_torch.units.gd_pooling import GDPooling
 from znicz_tpu_torch.units.lr_adjust import LearningRateAdjust
+from znicz_tpu_torch.units.nn_rollback import NNRollback
 
 
 class StandardWorkflow(StandardWorkflowBase):
@@ -155,7 +158,8 @@ class StandardWorkflow(StandardWorkflowBase):
         self.evaluator.link_from(*parents) \
             .link_attrs(self.forwards[-1], "output") \
             .link_attrs(self.loader, ("batch_size", "minibatch_size"),
-                        ("labels", "minibatch_labels"))
+                        ("labels", "minibatch_labels"), "class_lengths",
+                        ("offset", "minibatch_offset"))
         if self.loss_function == "softmax":
             self.evaluator.link_attrs(self.forwards[-1], "max_idx")
         else:
@@ -168,6 +172,8 @@ class StandardWorkflow(StandardWorkflowBase):
             # windowed TRAIN dispatches hand the evaluator their own
             # stats, computed with the evaluator's flags
             self.evaluator.stats_source = self.fused_trainer
+            self.fused_trainer.stats_sink = self.evaluator
+            self.fused_trainer.stats_mean = self.evaluator.mean
             if self.loss_function == "mse":
                 self.fused_trainer.stats_root = self.evaluator.root
         return self.evaluator
@@ -243,6 +249,23 @@ class StandardWorkflow(StandardWorkflowBase):
             self.gds[-1].unlink_from(self.snapshotter)
             self.gds[-1].link_from(self.lr_adjuster)
         return self.lr_adjuster
+
+    def link_rollback(self, *parents, **kwargs):
+        """Divergence recovery (reference standard_workflow.py:594-600)
+        after ``parents``, fed the decision's ``improved`` and gated on
+        the epoch's end: :class:`FusedNNRollback` over the fused
+        trainer, else :class:`NNRollback` over every GD unit."""
+        if self.fused_trainer is not None:
+            self.rollback = FusedNNRollback(
+                self, name="rollback", trainer=self.fused_trainer, **kwargs)
+        else:
+            self.rollback = NNRollback(self, name="rollback", **kwargs)
+            for gd in self.gds:
+                self.rollback.add_gd(gd)
+        self.rollback.link_from(*parents)
+        self.rollback.link_attrs(self.decision, "improved")
+        self.rollback.gate_skip = ~self.loader.epoch_ended
+        return self.rollback
 
     def link_loop(self, *parents):
         """Close the training loop back into the repeater."""

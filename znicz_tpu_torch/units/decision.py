@@ -2,21 +2,25 @@
 
 Counterpart of ``znicz_tpu/units/decision.py`` (``DecisionsRegistry``
 :38, ``DecisionBase`` :54, ``DecisionGD`` :201-383, ``DecisionMSE``
-:384-448) without the health and telemetry hooks and the master-slave
-protocol.  ``DecisionGD``
+:384-448) without the master-slave protocol.  ``DecisionGD``
 keeps the per-class epoch errors (``epoch_n_err``, ``best_n_err_pt``),
 the minimax(valid, train) improvement that gates the snapshotter
 (``improved``), early stopping (``fail_iterations``, ``max_epochs`` ->
 ``complete``), the snapshot suffix (``validation_1.92_train_0.04``)
 and ``gd_skip <<= minibatch_class != TRAIN``.  ``DecisionMSE`` keeps
 each class's epoch ``[avg, max, min]`` MSE (``epoch_metrics``) and
-improves on the average MSE of the epoch's last segment.
+improves on the average MSE of the epoch's last segment.  At each
+TRAIN segment's end the health monitor's divergence detector takes
+``health_metric()`` (the TRAIN error %, or the TRAIN average MSE; JAX
+:99-113), and every epoch end journals a ``train.epoch`` event.
+``testing`` (JAX :116-118) completes the run after one epoch.
 """
 
 import time
 
 import numpy
 
+from znicz_tpu_torch.core import health, telemetry
 from znicz_tpu_torch.core.mutable import Bool
 from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.loader.base import TEST, VALID, TRAIN, CLASS_NAME
@@ -60,6 +64,7 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
         self.max_epochs = kwargs.get("max_epochs", None)
         self.improved_epoch_number = 0
         self.snapshot_suffix = ""
+        self.testing = kwargs.get("testing", False)
         self._epoch_timestamp = None
         self.demand("last_minibatch", "minibatch_class", "epoch_number",
                     "epoch_ended")
@@ -87,9 +92,18 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
             self.fill_snapshot_suffixes(suffixes)
             self.snapshot_suffix = "_".join(suffixes)
             self.complete <<= self._stop_condition()
+            telemetry.record_event(
+                "train.epoch", epoch=int(self.epoch_number),
+                improved=bool(self.improved), suffix=self.snapshot_suffix)
+        if self.minibatch_class == TRAIN and health.enabled():
+            metric = self.health_metric()
+            if metric is not None:
+                health.observe_loss(metric, unit=self, source="epoch_train")
         self._print_statistics()
 
     def _stop_condition(self):
+        if self.testing:
+            return True
         return self.stop_condition() or (
             self.max_epochs is not None and
             self.epoch_number >= self.max_epochs)
@@ -121,6 +135,11 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
 
     def fill_snapshot_suffixes(self, suffixes):
         pass
+
+    def health_metric(self):
+        """The scalar the divergence detector watches at each TRAIN
+        segment's end (None: nothing to watch)."""
+        return None
 
 
 class DecisionGD(DecisionBase):
@@ -219,6 +238,9 @@ class DecisionGD(DecisionBase):
                     CLASS_NAME[clazz],
                     pt_str(self.epoch_n_err_pt[clazz], False)))
 
+    def health_metric(self):
+        return self.epoch_n_err_pt[TRAIN]
+
     def reset_statistics(self):
         for vec in (self.minibatch_n_err, self.minibatch_max_err_y_sum,
                     self.minibatch_confusion_matrix):
@@ -283,6 +305,10 @@ class DecisionMSE(DecisionGD):
             if self.epoch_metrics[clazz] is not None:
                 suffixes.append("%s_%.6f" % (CLASS_NAME[clazz],
                                              self.epoch_metrics[clazz][0]))
+
+    def health_metric(self):
+        m = self.epoch_metrics[TRAIN]
+        return m[0] if m is not None else None
 
     def reset_statistics(self):
         super(DecisionMSE, self).reset_statistics()

@@ -8,8 +8,13 @@ Counterpart of ``znicz_tpu/units/evaluator.py`` (``EvaluatorsRegistry``
 into host accumulators in one readback a minibatch, or — when the
 fused trainer ran a window — from the window's own stats
 (``_consume_window_stats``).  The accumulators keep the output's dtype,
-as the JAX package's do.  The testing mode (merged outputs) is not in
-this slice of the port (``ROADMAP.md``).
+as the JAX package's do, and ride a snapshot (a mid-epoch resume
+continues their fold).  ``mean`` (default True) divides ``err_output``
+by the batch size; ``testing`` (JAX :45-75) merges every minibatch's
+output into ``merged_output``, at the loader's running offset, when
+the evaluator is built with it: the launcher's ``--testing`` sets the
+flag after ``initialize``, as the JAX launcher does, and then nothing
+is merged.
 """
 
 import numpy
@@ -17,8 +22,6 @@ import numpy
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.memory import Array, host_fetch
 from znicz_tpu_torch.ops import evaluator as ev_ops
-
-_LATER = "not in this slice of the port (see ROADMAP.md)"
 
 
 class EvaluatorsRegistry(type):
@@ -39,20 +42,39 @@ class EvaluatorBase(AcceleratedUnit, metaclass=EvaluatorsRegistry):
     LOSS = None
 
     def __init__(self, workflow, **kwargs):
-        for key in ("testing", "mean"):
-            if key in kwargs:
-                raise NotImplementedError(
-                    "the evaluator's %s option is %s (the mean is always "
-                    "taken, as the fused trainer's windows take it)"
-                    % (key, _LATER))
         super(EvaluatorBase, self).__init__(workflow, **kwargs)
+        self.mean = kwargs.get("mean", True)
+        self.testing = kwargs.get("testing", False)
         self.err_output = Array(name="err_output")
+        self._merged_output = None
         self.demand("output", "batch_size")
+        if self.testing:
+            # the merge position is the loader's running offset
+            self.demand("offset")
+
+    @property
+    def merged_output(self):
+        return self._merged_output
 
     def initialize(self, device=None, **kwargs):
         super(EvaluatorBase, self).initialize(device=device, **kwargs)
         self.err_output.reset(numpy.zeros(self.output.shape,
                                           dtype=self.output.dtype))
+        if self.testing:
+            total = getattr(self, "class_lengths", None)
+            n = sum(total) if total else self.output.shape[0]
+            self._merged_output = numpy.zeros(
+                (n,) + tuple(self.output.shape[1:]), dtype=self.output.dtype)
+
+    def merge_output(self):
+        """Testing mode: the minibatch's output rows into
+        ``merged_output`` (reference evaluator.py:122-131)."""
+        if self._merged_output is None:
+            return
+        bs = int(self.batch_size)
+        off = int(self.offset)
+        self.output.map_read()
+        self._merged_output[off - bs:off] = self.output.mem[:bs]
 
 
 class EvaluatorSoftmax(EvaluatorBase):
@@ -98,12 +120,18 @@ class EvaluatorSoftmax(EvaluatorBase):
             return False
         if ws.get("deferred"):
             # a mid-segment window: its stats ride the trainer's device
-            # accumulators; the segment-final window delivers the whole
-            # segment's in one readback, and that is folded here
+            # accumulators (or were folded by the trainer already); the
+            # segment-final window delivers the rest, folded here
             return True
+        self.fold_window_stats(ws)
+        if self.testing:
+            self.merge_output()
+        return True
+
+    def fold_window_stats(self, ws):
+        """Fold a fused window's host stats."""
         self._accumulate_stats(ws["n_err"], ws["confusion"],
                                ws["max_err_sum"])
-        return True
 
     def run(self):
         if self._consume_window_stats():
@@ -112,9 +140,11 @@ class EvaluatorSoftmax(EvaluatorBase):
         out2 = out.reshape(out.shape[0], -1)
         err, n_err, conf, mx = ev_ops.softmax_ce(
             out2, self.max_idx.dev, self.labels.dev, int(self.batch_size),
-            int(out2.shape[1]))
+            int(out2.shape[1]), mean=self.mean)
         self.err_output.set_dev(err.reshape(out.shape))
         self._accumulate_stats(*host_fetch((n_err, conf, mx)))
+        if self.testing:
+            self.merge_output()
 
 
 class EvaluatorMSE(EvaluatorBase):
@@ -177,12 +207,18 @@ class EvaluatorMSE(EvaluatorBase):
         if ws.get("deferred"):
             # a mid-segment window: see EvaluatorSoftmax
             return True
+        self.fold_window_stats(ws)
+        if self.testing:
+            self.merge_output()
+        return True
+
+    def fold_window_stats(self, ws):
+        """Fold a fused MSE window's host stats."""
         if ws.get("mse_per") is not None:
             self.mse.mem = numpy.asarray(ws["mse_per"])
         self._accumulate_stats(
             ws["metrics"], ws.get("n_err") if self._counts_targets()
             else None)
-        return True
 
     def run(self):
         if self._consume_window_stats():
@@ -190,7 +226,7 @@ class EvaluatorMSE(EvaluatorBase):
         out = self.output.dev
         bs = int(self.batch_size)
         err, md, mse_per = ev_ops.mse(out, self.target.dev, bs,
-                                      root=self.root)
+                                      root=self.root, mean=self.mean)
         self.err_output.set_dev(err)
         self.mse.set_dev(mse_per)
         n_err = None
@@ -200,3 +236,5 @@ class EvaluatorMSE(EvaluatorBase):
             n_err = ev_ops.nearest_target_errors(
                 out, self.class_targets.dev, self.labels.dev, bs)
         self._accumulate_stats(*host_fetch((md, n_err)))
+        if self.testing:
+            self.merge_output()

@@ -43,10 +43,25 @@ collects, the unit calls ``hyper_tick`` (the learning-rate adjuster's
 boundary inside a window takes effect at its own step, as in the unit
 graph.  A window in which no hyper changed reuses its stacked hypers.
 
+``async_windows=False`` reads every window's own stats back and folds
+them into the evaluator's host accumulators (which ride a snapshot),
+the JAX trainer's synchronous mode; a mid-segment window's are folded
+at once, before the snapshotter's ``window_tick`` (the JAX trainer
+hands them to the evaluator after the tick, so its mid-epoch snapshot
+misses that window's stats).  The training control plane's
+hooks sit where the JAX trainer has them: the ``fused.dispatch`` fault
+site before a TRAIN window's dispatch and before a single step (not
+retried in place: the supervised launcher restarts and resumes), the
+health monitor's check after each window and step, and the
+snapshotter's ``window_tick`` after each window that is not its
+segment's last, so a resume splits the remaining minibatches into the
+windows the uninterrupted run dispatches.  :class:`FusedNNRollback`
+is the fused graph's rollback.
+
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
 JAX trainer's other keys (:attr:`FusedForwardBackward.LATER_KEYS`: the
-mesh, the synchronous per-window readback, ...), ``FusedNNRollback``,
-and the fault, health and profiler hooks.
+mesh, ``compute_dtype``, ``defaults``, ``rand``) and the profiler
+hooks.
 """
 
 import collections
@@ -55,7 +70,7 @@ import copy
 import numpy
 import torch
 
-from znicz_tpu_torch.core import memory, prng
+from znicz_tpu_torch.core import faults, health, prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.mutable import Bool
@@ -213,18 +228,19 @@ class FusedForwardBackward(Unit):
     does not qualify, False stacks every window's rows on the host) and
     ``device_perm`` ("auto", True or False: True slices each window
     from the epoch's shuffled dataset on the device, and raises where
-    that path cannot engage), as the JAX trainer takes them."""
+    that path cannot engage), ``async_windows`` (True: one readback a
+    segment; False: one a window) and ``pipeline_depth`` (dispatched
+    windows in flight before collection waits for the oldest; the
+    staging ring holds one more), as the JAX trainer takes them."""
 
-    #: dispatched windows in flight before collection waits for the
-    #: oldest; the staging ring holds one more
-    PIPELINE_DEPTH = 2
     #: the JAX trainer's keys this slice of the port leaves out
     LATER_KEYS = ("mesh", "model_parallel", "compute_dtype", "defaults",
-                  "async_windows", "pipeline_depth", "rand")
+                  "rand")
 
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
                  dropout_seed=0, window=None, loss="softmax",
-                 device_data="auto", device_perm="auto", **kwargs):
+                 device_data="auto", device_perm="auto",
+                 async_windows=True, pipeline_depth=2, **kwargs):
         later = sorted(set(kwargs) & set(self.LATER_KEYS))
         if later:
             raise NotImplementedError(
@@ -245,6 +261,14 @@ class FusedForwardBackward(Unit):
         self.loss = loss
         self.device_data = device_data
         self.device_perm = device_perm
+        self.async_windows = bool(async_windows)
+        self.pipeline_depth = int(pipeline_depth)
+        #: the evaluator's ``mean``, mirrored into the net's softmax
+        #: windows (``StandardWorkflow.link_evaluator`` sets it)
+        self.stats_mean = True
+        #: the evaluator, which folds a synchronous mid-segment window's
+        #: stats as soon as they are read (``link_evaluator`` sets it)
+        self.stats_sink = None
         #: the MSE evaluator's ``root``, mirrored into the net's windows
         #: (``StandardWorkflow.link_evaluator`` sets it)
         self.stats_root = True
@@ -338,13 +362,14 @@ class FusedForwardBackward(Unit):
             self.layers, input_sample_shape=tuple(self.input.shape[1:]),
             rand=prng.get(), dtype=dtype, dropout_seed=self.dropout_seed,
             pool_impl=self.pool_impl, objective=self.loss, device=device)
+        self.net.stats_mean = bool(self.stats_mean)
         if self.loss == "mse":
             self.net.mse_root = bool(self.stats_root)
             ct = getattr(self.loader_unit, "class_targets", None)
             if ct is not None and ct:
                 mem = numpy.asarray(ct.mem)
                 self.net.class_targets = mem.reshape(mem.shape[0], -1)
-        self._staging = _StagingRing(self.PIPELINE_DEPTH + 1,
+        self._staging = _StagingRing(self.pipeline_depth + 1,
                                      self.net.device)
         self._setup_device_data()
         batch = int(self.input.shape[0])
@@ -425,6 +450,25 @@ class FusedForwardBackward(Unit):
 
     # -- TRAIN windows --------------------------------------------------------
     def _run_train_window(self):
+        """One TRAIN window (:meth:`_run_train_window_inner`), then the
+        health check over the net's parameters and optimizer slots (the
+        velocity holds the last update), and the snapshotter's
+        ``window_tick`` where the window is not its segment's last:
+        always at a window boundary, so a run resumed from the
+        ``midepoch`` snapshot splits the remaining minibatches into the
+        same windows.  Returns the number of steps."""
+        n = self._run_train_window_inner()
+        if health.enabled():
+            health.check_training_step(
+                self, steps=n, params=self.net.params,
+                updates=self.net.state, context="fused_window")
+        snap = getattr(self.workflow, "snapshotter", None)
+        if snap is not None and getattr(snap, "window_interval", 0) \
+                and not bool(self.loader_unit.last_minibatch):
+            snap.window_tick()
+        return n
+
+    def _run_train_window_inner(self):
         """Collect up to ``window`` TRAIN minibatches, driving the loader
         directly and stopping at its segment's last minibatch, and run
         them as one window: sliced or gathered from the dataset on the
@@ -482,6 +526,10 @@ class FusedForwardBackward(Unit):
         final = bool(loader.last_minibatch)
         hypers_s = self._stacked_hypers(hyper_steps)
         net = self.net
+        if faults.enabled():
+            # a failed dispatch is not retried here: the supervised
+            # launcher's restart and mid-epoch resume recover it
+            faults.check("fused.dispatch")
         if self._use_sliced:
             run = net.run_window_mse_sliced if mse else \
                 net.run_window_sliced
@@ -498,7 +546,7 @@ class FusedForwardBackward(Unit):
             else:
                 stats = net.run_window(up("x", n), up("lbl", n), sizes,
                                        hypers_s)
-        if not final:
+        if self.async_windows and not final:
             # no readback: bound the windows in flight with events
             self.window_stats = DEFERRED_WINDOW_STATS
             if net.device.type == "cuda":
@@ -507,24 +555,36 @@ class FusedForwardBackward(Unit):
                 self._inflight.append(event)
                 while self._inflight and self._inflight[0].query():
                     self._inflight.popleft()
-                while len(self._inflight) > self.PIPELINE_DEPTH:
+                while len(self._inflight) > self.pipeline_depth:
                     self._inflight.popleft().synchronize()
             return n
-        # the segment's one readback: the accumulator and the last
-        # step's output (with its argmax, or its per-sample MSE)
-        acc = net.window_acc
-        fetch = dict(acc, output=stats["output"])
-        fetch.update({"mse_per": stats["mse_per"]} if mse else
-                     {"max_idx": stats["max_idx"]})
-        host = memory.host_fetch(fetch)
+        # one readback: the segment's accumulator (async), or this
+        # window's own stats (async_windows=False), with the segment's
+        # last output (and its argmax, or its per-sample MSE)
+        src = net.window_acc if self.async_windows else stats
+        fetch = {k: src[k] for k in (("metrics", "n_err") if mse else
+                                     ("n_err", "confusion", "max_err_sum"))}
+        if final:
+            fetch["output"] = stats["output"]
+            fetch.update({"mse_per": stats["mse_per"]} if mse else
+                         {"max_idx": stats["max_idx"]})
+        host = net.host_fetch(fetch)
         if mse:
             self.window_stats = {"metrics": host["metrics"],
                                  "n_err": host["n_err"],
-                                 "mse_per": host["mse_per"]}
+                                 "mse_per": host.get("mse_per")}
         else:
             self.window_stats = {"n_err": host["n_err"],
                                  "confusion": host["confusion"],
                                  "max_err_sum": float(host["max_err_sum"])}
+        if not final:
+            if self.stats_sink is not None:
+                # fold now, before the snapshotter's window_tick: a
+                # mid-epoch snapshot then holds the segment so far
+                self.stats_sink.fold_window_stats(self.window_stats)
+                self.window_stats = DEFERRED_WINDOW_STATS
+            return n
+        if not mse:
             self.max_idx.mem = host["max_idx"]
         net.reset_window_acc()
         self._inflight.clear()
@@ -597,6 +657,16 @@ class FusedForwardBackward(Unit):
         if train and self.window > 1:
             self._run_train_window()
             return
+        if train and faults.enabled():
+            faults.check("fused.dispatch")
+        self._run_minibatch(train)
+        if train and health.enabled():
+            health.check_training_step(
+                self, steps=1, params=self.net.params,
+                updates=self.net.state, context="fused_step")
+
+    def _run_minibatch(self, train):
+        """One minibatch: a train step, or the VALID forward."""
         x = self.input.mem
         if self.loss == "mse":
             out = self.net.step_mse(
@@ -628,6 +698,10 @@ class FusedForwardBackward(Unit):
         for proxy, ps in zip(self.gd_proxies, sd.get("proxies", ())):
             proxy.load_state_dict(ps)
 
+    def host_params(self):
+        """The net's parameters as host arrays, one dict a layer."""
+        return self.net.host_params()
+
     @property
     def epoch_acc(self):
         """The device accumulator drained to the host (None at a
@@ -637,3 +711,67 @@ class FusedForwardBackward(Unit):
     @epoch_acc.setter
     def epoch_acc(self, value):
         self.net.set_window_acc(value)
+
+
+class FusedNNRollback(Unit):
+    """Divergence recovery in the fused graph (the JAX trainer's
+    ``FusedNNRollback``, reference nn_rollback.py:44-190 over whole-net
+    states).  On an improvement every proxy's learning rates grow by
+    ``lr_plus`` and the net's state is pushed onto a history of
+    ``history_limit``; after ``minus_steps`` epochs without one (at once
+    when a parameter is not finite) the rates shrink by ``lr_minus``
+    and the oldest stored state is restored, the rates keeping their
+    shrunk values.  The history stays on the net's device
+    (:meth:`FusedNet.device_state`: clones of its tensors, no host
+    copy), and the NaN probe is one reduction on the device with one
+    scalar read (:meth:`FusedNet.params_finite`)."""
+
+    def __init__(self, workflow, **kwargs):
+        super(FusedNNRollback, self).__init__(workflow, **kwargs)
+        self.trainer = kwargs["trainer"]
+        self.lr_plus = kwargs.get("lr_plus", 1.04)
+        self.lr_minus = kwargs.get("lr_minus", 0.65)
+        self.plus_steps = kwargs.get("plus_steps", 1)
+        self.minus_steps = kwargs.get("minus_steps", 3)
+        self._plus_steps = self.plus_steps
+        self._minus_steps = self.minus_steps
+        self.history_limit = kwargs.get("history_limit", 2)
+        self.improved = None
+        self.demand("improved")
+        self._history = []
+        self._first_run = True
+
+    def _scale_lrs(self, k):
+        for proxy in self.trainer.gd_proxies:
+            proxy.learning_rate *= k
+            proxy.learning_rate_bias *= k
+
+    def run(self):
+        if self.improved:
+            self._plus_steps += 1
+            if self._plus_steps < self.plus_steps:
+                return
+            self._plus_steps = 0
+            self._minus_steps = 0
+            self._scale_lrs(self.lr_plus)
+            self._history.append(self.trainer.net.device_state())
+            while len(self._history) > self.history_limit:
+                self._history.pop(0)
+        elif not self._first_run:
+            if not self.trainer.net.params_finite():
+                self.warning("NaNs encountered, rolling back")
+                self._minus_steps = self.minus_steps
+            self._minus_steps += 1
+            if self._minus_steps < self.minus_steps:
+                return
+            self._minus_steps = 0
+            self._plus_steps = 0
+            self._scale_lrs(self.lr_minus)
+            if not self._history:
+                self.warning("No rollback state stored")
+            else:
+                self.info("Rolling back fused net state")
+                sd = self._history[0]
+                del self._history[1:]
+                self.trainer.net.load_device_state(sd)
+        self._first_run = False

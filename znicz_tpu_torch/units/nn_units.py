@@ -15,7 +15,9 @@ Counterpart of ``znicz_tpu/units/nn_units.py``:
   no ortho) and the exported optimizer Arrays; its update is
   :func:`znicz_tpu_torch.ops.gd_math.update`.  The JAX package's
   ``numpy_run`` / ``jax_run`` fork is one ``run`` on the unit's
-  device, and the per-minibatch path reads nothing back;
+  device, and the per-minibatch path reads nothing back; after each
+  run the health monitor checks the unit's arrays (:516-521), where it
+  is on;
 * ``NNWorkflow`` (:524), ``NNSnapshotterToFile`` ("nnfile", :570) and
   ``load_snapshot_into_workflow`` (:574) with the mapping of a snapshot
   between the fused and the unit-graph modes (:606-657).
@@ -26,7 +28,7 @@ multi-GPU item of ``ROADMAP.md``.
 
 import numpy
 
-from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.core import health, prng
 from znicz_tpu_torch.core.accelerated_units import AcceleratedWorkflow
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.backends import deterministic, full_f32
@@ -359,6 +361,15 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
                 arr.set_dev(new_state[key])
         for key in slots:
             slots[key] = new_state[key]
+
+    def _fire(self):
+        """The scheduler's call; after a run, the health monitor's check
+        of this unit's gradients, weights and updates (JAX
+        nn_units.py:516-521), interval-gated inside."""
+        runs = self.run_count_
+        super(GradientDescentBase, self)._fire()
+        if self.run_count_ != runs and health.enabled():
+            health.check_gd_unit(self)
 
     def set_err_input(self, err_in):
         """``err_input = alpha * err_in (+ beta * err_input)``."""
