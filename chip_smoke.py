@@ -100,8 +100,12 @@ failure (the script then exits non-zero and prints no result line):
    pooling; each TRAIN segment reads the card back twice (its
    readback and a mid-epoch snapshot's accumulator drain); once the
    supervised run returned, ``torch.cuda.memory_allocated`` within 64
-   MB of its value before the phase.  Prints the crash-to-resume
-   seconds and each snapshot's.  Two more checks run on the objects
+   MB of its value before the phase.  The run arms the durable
+   blackbox (``common.telemetry.blackbox``, a directory under
+   ``build/``): read back from disk by ``python -m znicz_tpu_torch
+   obs``, it holds the injected fault's event before the restart's,
+   with no torn byte.  Prints the crash-to-resume seconds and each
+   snapshot's.  Two more checks run on the objects
    of other phases: in the train phase, on its batch-128 ``FusedNet``,
    4 steps each checked by the health monitor (interval 1, ``halt``),
    clean with one readback a check and sums of squares within 1e-6 of
@@ -112,6 +116,35 @@ failure (the script then exits non-zero and prints no result line):
    I/O faults every 3rd invocation: 6 batch-64 replies bit-equal to a
    dispatch without faults, 2 retries, the breaker closed, 3 forward
    launches a dispatch;
+7b. profile — full-width AlexNet through ``python -m znicz_tpu_torch
+   profile`` in this process, each run under the profiler and one
+   ``torch.profiler`` trace of the host and the card, f32, TF32 off,
+   ``cudnn.deterministic``: ``alexnet --fused pool_impl=offsets`` for
+   one epoch (two windows) over the workflow phase's 2,048 TRAIN and
+   256 VALID rows (its prototype draw, no snapshot), then
+   ``alexnet`` through the unit graph over 384 / 128 of them.  The
+   profiler's first start (CUPTI's, about 10 s) is taken on the main
+   thread while the build runs in another.  Each run's trace holds as
+   many device events of the two kernels as their counters launched (54
+   / 48 fused, 12 / 9 in the unit graph), with no plain pooling (a run
+   whose trace differs is kept under ``build/`` and taken once
+   more, and the second must agree: CUPTI has lost one kernel record in
+   2 of about 40 traced runs); the report's
+   ledger is balanced, its high water at least its live bytes and no
+   leak suspected; the breakdown's parts sum to its wall within 5%;
+   ``fused.window`` entries count FLOPs within ``cost_rtol`` of the
+   analytic count, and the MFU against the float32 peak is printed
+   with the breakdown, each run's device time by category and its top
+   kernels; the counted window and VALID predict hold every kernel
+   launch of theirs (3 forward and 3 backward a step, the backward
+   ones launched from autograd's device thread); the unit graph
+   registers its GD updates.  Then ``GET /debug/profile?seconds=1`` on
+   a ``StatusServer``, requested at the first TRAIN window of the fused
+   workflow over 1,024 rows for an epoch: 200 with a trace holding the
+   forward kernel's device events, and a second request during the
+   capture answers 409.  The
+   profiler is reset and disarmed after, and after every phase the
+   script checks that it is off and holds no state;
 8. alexnet_units — full-width AlexNet trained by the workflow CLI
    through the unit graph, ``python -m znicz_tpu_torch alexnet`` (no
    ``--fused``: a forward and a GD unit a layer, the four
@@ -129,9 +162,10 @@ failure (the script then exits non-zero and prints no result line):
    same seeds (its weights drawn afresh) and the CLI resumed from the
    epoch-1 snapshot (its weight draw taken from the run's, which the
    snapshot's replace) bit-equal to the run (per-class n_err, confusion,
-   weights, optimizer Arrays, the dropout generators); 2 TRAIN minibatches
-   of 8 in f64 at full width, the card's unit graph against the CPU's
-   and the card's fused graph against the CPU's unit graph, the
+   weights, optimizer Arrays, the dropout generators); a TRAIN minibatch
+   of 8 (2 before the profile phase) and a VALID one in f64 at full
+   width, the card's unit graph against the CPU's and the card's fused
+   graph against the CPU's unit graph, the
    dropout units handed the same host-drawn masks, within
    ``UNITS_F64_RTOL`` (grouped weights through their masks), the
    offsets equal, the CPU's and the fused graph's builds taking the
@@ -242,9 +276,10 @@ failure (the script then exits non-zero and prints no result line):
     readback a TRAIN segment, the adjuster between the loader and the
     trainer); the nin and mlp variants (``build_variant``) through the
     unit graph at 2,000 / 500 rows for one epoch (nin's pool3 launches
-    both kernels); and 12 TRAIN minibatches in f64 with the rate cut 10x
-    after the third: the card's unit graph against the CPU's and the
-    card's fused graph (windows of 8, the boundary inside the first)
+    both kernels); and 8 TRAIN minibatches (12 before the profile
+    phase) in f64 with the rate cut 10x after the third: the card's
+    unit graph against the CPU's and the card's fused graph (windows of
+    8, the boundary inside the first)
     against it, every weight and bias within ``UNITS_F64_RTOL``, equal
     n_err, the same rate at every step.  The unit graph run's snapshots
     stay for the next phase.
@@ -290,9 +325,10 @@ failure (the script then exits non-zero and prints no result line):
     plain pooling, no adjuster; a second run and the CLI resumed from
     the epoch-1 snapshot bit-equal to it; ``--fused pool_impl=offsets``
     (windows of 8 over the rows on the card): the same launches, one
-    readback a TRAIN segment; the first 4 TRAIN minibatches in f64, the
-    card against the CPU and the fused graph against the CPU's unit
-    graph, within ``UNITS_F64_RTOL``, pool1's offsets equal.  Then the
+    readback a TRAIN segment; the first 2 TRAIN minibatches (4 before
+    the profile phase) and a VALID one in f64, the card against the CPU
+    and the fused graph against the CPU's unit graph, within
+    ``UNITS_F64_RTOL``, pool1's offsets equal.  Then the
     rest of the zoo through the unit graph on the card, no kernel:
     ``research.mnist_simple`` (an epoch at minibatch 88 over the units
     phase's rows), ``research.wine_relu`` and ``wine``,
@@ -343,7 +379,8 @@ batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
 and ``stl10`` each pool on its own, and ``launches`` counts the serve
 requests', the serve retries' (``resilience_serve``), the train
 epochs', the workflow run's, the supervised run's (``resilience``),
-the train phase's resilience steps' (``resilience_net``), AlexNet's unit
+the profile phase's three runs' (``profile``), the train phase's
+resilience steps' (``resilience_net``), AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
@@ -355,7 +392,8 @@ batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
 ``stl10`` per pool, ``imagenet_ae`` per depooling of each stage) and
 ``launches`` counts the train epochs', the workflow run's, the
-resilience phase's two paths', both unit graphs', the autoencoder
+resilience phase's two paths', the profile phase's, both unit graphs',
+the autoencoder
 paths', the CIFAR and STL-10 graphs' and ImagenetAE's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
@@ -516,9 +554,10 @@ ALEXNET_FILLED = {"grouping1_forward": (256, 2400),
                   "grouping2_forward": (384, 2304),
                   "grouping3_forward": (256, 3456),
                   "grouping5_forward": (4096, 9216)}
-#: its f64 checks: full width at minibatch 8 for 2 TRAIN minibatches;
-#: a snapshotter interval no run of the phase reaches but the main one's
-ALEXNET_F64_BATCH, ALEXNET_F64_MB = 8, 2
+#: its f64 checks: full width at minibatch 8 for one TRAIN minibatch
+#: (two before the profile phase took their time) and a VALID one; a
+#: snapshotter interval no run of the phase reaches but the main one's
+ALEXNET_F64_BATCH, ALEXNET_F64_MB = 8, 1
 NO_SNAPSHOT = 1000000
 #: the rest of the registry on the card against the CPU in f64: each
 #: array within this of the CPU's largest magnitude; their inputs' seed
@@ -540,11 +579,11 @@ CIFAR_SHAPES = [(100, 32, 32, 32), (100, 16, 16, 32), (100, 16, 16, 32),
 #: variant's pool3, both at 16-byte vectors
 CIFAR_POOLS = (("caffe pool1", (100, 32, 32, 32)),
                ("nin pool3", (100, 32, 32, 96)))
-#: the schedule-parity check: 12 TRAIN minibatches in f64, the rate
-#: dropped 10x after the third (tests/functional/test_fused_workflow.py's
-#: schedule), the fused graph in windows of 8: the boundary falls inside
-#: the first window
-CIFAR_F64_MB, CIFAR_F64_WINDOW, CIFAR_F64_BOUNDARY = 12, 8, 3
+#: the schedule-parity check: 8 TRAIN minibatches in f64 (12 before the
+#: profile phase took their time), the rate dropped 10x after
+#: the third (tests/functional/test_fused_workflow.py's schedule), the
+#: fused graph in windows of 8: the boundary falls inside the window
+CIFAR_F64_MB, CIFAR_F64_WINDOW, CIFAR_F64_BOUNDARY = 8, 8, 3
 #: the nin and mlp variants through the unit graph: 2,000 TRAIN and 500
 #: VALID rows, 1 epoch
 CIFAR_VARIANT_TRAIN, CIFAR_VARIANT_VALID = 2000, 500
@@ -561,8 +600,9 @@ STL_POOLS = (("stl10 pool1", (50, 96, 96, 32)),)
 #: as the synthetic set's 4 labels, as in the JAX package)
 STL_SHAPES = [(50, 96, 96, 32)] + [(50, 48, 48, 32)] * 5 + \
     [(50, 24, 24, 32)] * 2 + [(50, 4)]
-#: its f64 checks: the first 4 TRAIN minibatches and a VALID one
-STL_F64_MB = 4
+#: its f64 checks: the first 2 TRAIN minibatches (4 before the profile
+#: phase took their time) and a VALID one
+STL_F64_MB = 2
 #: the zoo's MNIST MLP at its published minibatch, for one epoch over the
 #: units phase's rows; the other samples' epochs
 ZOO_MNIST_BATCH, ZOO_EPOCHS = 88, 2
@@ -1713,6 +1753,42 @@ def _cpu_check(torch, net, sd0, data, labels):
                            "every tensor: the check cannot see it")
 
 
+class _BuildThread(object):
+    """:func:`phase_build` in a thread, so that the profiler's first
+    start (:func:`_profiler_first_start`, CUPTI's start-up, about 10 s
+    on the card's machine) runs on the main thread meanwhile instead of
+    in the profile phase; :meth:`join` raises what the build raised."""
+
+    def __init__(self):
+        self.error = None
+        self._thread = threading.Thread(target=self._run,
+                                        name="znicz:smoke-build",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            phase_build()
+        except Exception as e:   # raised again by join
+            self.error = e
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("the build failed") from self.error
+
+
+def _profiler_first_start(torch):
+    """An empty ``torch.profiler`` session over the CPU and the card,
+    on the main thread: CUPTI starts up once a process."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    say("== the profiler's first start: %.2f s, on the main thread while "
+        "the build ran" % (time.perf_counter() - t0))
+
+
 class _Prototypes(object):
     """``alexnet.prototype_images`` drawn once, in a thread started
     before the build and joined after it (:meth:`join`): numpy's draws
@@ -1831,6 +1907,42 @@ class _Readbacks(object):
                 delattr(self.torch.Tensor, name)
             else:
                 setattr(self.torch.Tensor, name, real)
+
+
+class _ConfigRestored(object):
+    """Puts config nodes back as they were when :meth:`__exit__` runs:
+    the CLI's ``--config`` overrides of one phase (a snapshotter's
+    ``window_interval``, an ``interval`` that writes no snapshot) must
+    not reach the next phase's runs.  Child nodes are restored in
+    place, so a module's reference to one (``profiler._cfg``,
+    ``pyprof._cfg``) stays the live node."""
+
+    def __init__(self, *nodes):
+        self.saved = [(n, self._save(n)) for n in nodes]
+
+    def _save(self, node):
+        import copy
+        return {k: (node, self._save(v)) if type(v) is type(node)
+                else (None, copy.deepcopy(v))
+                for k, v in node.__dict__.items()}
+
+    def _restore(self, node, saved):
+        for k in list(node.__dict__):
+            if k not in saved:
+                del node.__dict__[k]
+        for k, (child, value) in saved.items():
+            if child is not None:
+                self._restore(node.__dict__.setdefault(
+                    k, type(node)(node._path_ + "." + k)), value)
+            else:
+                node.__dict__[k] = value
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for node, saved in self.saved:
+            self._restore(node, saved)
 
 
 def _zero_counts():
@@ -2364,7 +2476,7 @@ def phase_resilience(torch, card, reference):
     Returns the run's launches."""
     import shutil
     from znicz_tpu_torch import __main__ as cli
-    from znicz_tpu_torch.core import faults, prng
+    from znicz_tpu_torch.core import blackbox, faults, prng
     from znicz_tpu_torch.core.config import root
 
     snapdir = os.path.join(HERE, "build", "znicz_tpu_torch",
@@ -2376,15 +2488,20 @@ def phase_resilience(torch, card, reference):
     gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
+    bbdir = os.path.join(HERE, "build", "znicz_tpu_torch", "blackbox")
+    shutil.rmtree(bbdir, ignore_errors=True)
     argv = _workflow_argv(
         snapdir, "--max-restarts", "2", "--restart-backoff-ms", "0",
         "--config", "alexnet.snapshotter.window_interval=1",
         "--config", "common.faults.enabled=True",
-        "--config", "common.faults.rules=" + CHAOS_RULE)
+        "--config", "common.faults.rules=" + CHAOS_RULE,
+        "--config", "common.telemetry.blackbox.enabled=True",
+        "--config", "common.telemetry.blackbox.dir=" + bbdir)
     say("== resilience: python -m znicz_tpu_torch %s"
         % " ".join(a if "snapshots" not in a else "...=build/..."
                    for a in argv))
     probe = _ResilienceProbe(torch)
+    config = _ConfigRestored(root.alexnet)
     try:
         # the streams as the workflow phase's run found them: the same
         # weight draw and TRAIN orders
@@ -2399,6 +2516,8 @@ def phase_resilience(torch, card, reference):
         probe.final_state = None
         _check_resilience_run(probe, launches, reference, final_state, run_s,
                               card)
+        blackbox.reset()
+        _check_blackbox(cli, bbdir)
     finally:
         probe.close()
         torch.backends.cudnn.deterministic = False
@@ -2406,7 +2525,12 @@ def phase_resilience(torch, card, reference):
         faults.reset()
         object.__setattr__(root.common.faults, "rules", type(root)(
             "root.common.faults.rules"))
+        blackbox.reset()
+        blackbox.disable()
+        root.common.telemetry.blackbox.dir = None
+        config.__exit__()
         shutil.rmtree(snapdir, ignore_errors=True)
+        shutil.rmtree(bbdir, ignore_errors=True)
     del final_state
     gc.collect()
     torch.cuda.synchronize()
@@ -2419,6 +2543,31 @@ def phase_resilience(torch, card, reference):
         raise RuntimeError("the supervised run left %d bytes allocated on "
                            "the card" % grown)
     return launches
+
+
+def _check_blackbox(cli, bbdir):
+    """``python -m znicz_tpu_torch obs`` over the supervised run's
+    blackbox (read back from disk, its writer closed): the injected
+    fault's event before the restart's, and no torn byte."""
+    import contextlib
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["obs", "--dir", bbdir, "-n", "0", "--json"])
+    doc = json.loads(out.getvalue())
+    kinds = [e["kind"] for e in doc["events"]]
+    fault = kinds.index("fault.injected") if "fault.injected" in kinds \
+        else None
+    restart = kinds.index("launcher.restart") \
+        if "launcher.restart" in kinds else None
+    segments = sorted(os.listdir(bbdir))
+    say("   obs --dir build/.../blackbox: %d journal events from %s; the "
+        "fault at %s, the restart at %s; torn tails %s; kinds %s" % (
+            len(kinds), segments, fault, restart, doc["torn"],
+            dict(collections.Counter(kinds))))
+    if rc != 0 or fault is None or restart is None or not fault < restart \
+            or doc["torn"]:
+        raise RuntimeError("the blackbox does not hold the injected fault "
+                           "before the restart, or holds a torn tail")
 
 
 def _check_resilience_run(probe, launches, reference, final_state, run_s,
@@ -2493,6 +2642,331 @@ def _check_resilience_run(probe, launches, reference, final_state, run_s,
                            % (train_rb, len(mid)))
     if not numpy.isfinite([s["max_err_sum"] for s in probe.segments]).all():
         raise RuntimeError("a segment's max_err_sum is not finite")
+
+
+#: the profile phase: the fused workflow for one epoch over the
+#: PROFILE_TRAIN TRAIN rows of the workflow phase (two windows: the
+#: first is the counted dispatch, so the second shows the breakdown
+#: without the count's own cost) and its VALID rows, then the unit
+#: graph over a few minibatches of them (PROFILE_UNITS_TRAIN TRAIN,
+#: PROFILE_UNITS_VALID VALID rows), and a /debug/profile capture of
+#: PROFILE_CAPTURE_S seconds during a short run (the fused graph over
+#: PROFILE_CAPTURE_TRAIN rows)
+PROFILE_TRAIN = 2048
+PROFILE_UNITS_TRAIN, PROFILE_UNITS_VALID = 384, 128
+PROFILE_CAPTURE_S, PROFILE_CAPTURE_TRAIN = 1.0, 1024
+PROFILE_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "profile")
+#: the breakdown's parts must sum to its wall time within this share
+PROFILE_WALL_RTOL = 0.05
+
+
+def _one_epoch_argv(out, n_train, n_valid, *extra, epochs=1):
+    """``alexnet`` over the prototype rows at batch 128 for one epoch
+    (or ``epochs``), no snapshot."""
+    argv = ["alexnet"]
+    for key, value in (("loader.minibatch_size", TRAIN_BATCH),
+                       ("loader.n_train", n_train),
+                       ("loader.n_valid", n_valid),
+                       ("decision.max_epochs", epochs),
+                       ("snapshotter.interval", NO_SNAPSHOT),
+                       ("snapshotter.directory", out)):
+        argv += ["--config", "alexnet.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+def _profile_argv(out, n_train, n_valid, *extra):
+    """``profile`` of :func:`_one_epoch_argv`'s run, its trace and
+    report into ``out``."""
+    return ["profile"] + _one_epoch_argv(out, n_train, n_valid, *extra) + [
+        "--out", out]
+
+
+#: profiled runs of one kind taken when a trace's kernel events differ
+#: from the counters: CUPTI lost one forward kernel record in 2 of
+#: about 40 traced runs on the card, each time in the unit graph's run
+#: after other phases had run (none in 12 runs alone)
+PROFILE_ATTEMPTS = 2
+
+
+def _profiled_run(torch, cli, profiler, label, argv, steps, valid_mbs,
+                  card):
+    """One ``python -m znicz_tpu_torch profile ...`` run in this process:
+    its launches equal the trace's kernel events, the report's ledger
+    and breakdown hold.  A trace whose kernel events differ from the
+    counters is kept under ``build/`` and the run taken again, up
+    to PROFILE_ATTEMPTS runs; the last must agree.  Returns (launches of
+    every attempt, report, seconds)."""
+    import shutil
+    out = argv[argv.index("--out") + 1]
+    runs = None
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        profiler.reset()
+        _zero_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        runs = launches if runs is None else {
+            k: (runs[k] + v if not isinstance(v, dict) else
+                {w: runs[k][w] + v[w] for w in v})
+            for k, v in launches.items()}
+        with open(os.path.join(out, "profiler_report.json")) as f:
+            report = json.load(f)
+        table = report["device_ops"]
+        fwd_events, fwd_ms = profiler.kernel_events(
+            table, "max_pooling_offsets_kernel")
+        bwd_events, bwd_ms = profiler.kernel_events(
+            table, "max_pooling_backward_kernel")
+        trace_mb = os.path.getsize(os.path.join(out, "trace.json")) / 1e6
+        say("   %s: %.2f s (the CLI under the trace, from its start; the "
+            "trace %.1f MB, %d device events, %.3f device ms); launches %s; "
+            "the trace's kernel events: forward %d (%.4f ms, %.4f ms each), "
+            "backward %d (%.4f ms, %.4f ms each); %s" % (
+                label, run_s, trace_mb, table["events"], table["total_ms"],
+                launches, fwd_events, fwd_ms, fwd_ms / max(fwd_events, 1),
+                bwd_events, bwd_ms, bwd_ms / max(bwd_events, 1), card))
+        want = (3 * (steps + valid_mbs), 3 * steps)
+        if (launches["forward"], launches["backward"]) != want or \
+                launches["plain_on_card"]:
+            raise RuntimeError("%s: expected %d forward and %d backward "
+                               "launches and no plain pooling; got %s"
+                               % (label, want[0], want[1], launches))
+        if (fwd_events, bwd_events) == (launches["forward"],
+                                        launches["backward"]):
+            break
+        keep = os.path.join(HERE, "build", "znicz_tpu_torch",
+                            "profile_mismatch",
+                            "%s_%d" % (label.replace(" ", "_"), attempt))
+        shutil.copytree(out, keep, dirs_exist_ok=True)
+        say("   %s, attempt %d of %d: the trace holds %d forward and %d "
+            "backward kernel events, the counters %d and %d; its pooling "
+            "rows %s; the trace kept in %s" % (
+                label, attempt, PROFILE_ATTEMPTS, fwd_events, bwd_events,
+                launches["forward"], launches["backward"],
+                [r for r in table["by_name"] if "pool" in r["name"]], keep))
+        if attempt == PROFILE_ATTEMPTS:
+            raise RuntimeError("%s: the trace holds %d forward and %d "
+                               "backward kernel events, the counters %d "
+                               "and %d" % (label, fwd_events, bwd_events,
+                                           launches["forward"],
+                                           launches["backward"]))
+    say("   %s device time by category (ms): %s; the top kernels: %s" % (
+        label, ", ".join("%s %.3f" % kv
+                         for kv in table["by_category"].items()),
+        "; ".join("%.3f ms x%d %s" % (r["ms"], r["count"], r["name"][:60])
+                  for r in table["by_name"][:5])))
+    led = report["ledger"]
+    say("   %s ledger: live %d B, high water %d B, %d allocs / %d frees, "
+        "balanced=%s, leak suspects %d; by name %s" % (
+            label, led["live_bytes"], led["high_water_bytes"],
+            led["allocs"], led["frees"], led["balanced"],
+            report["leak_suspects"], led["by_name"]))
+    if not (led["balanced"] and led["allocs"] > 0
+            and led["high_water_bytes"] >= led["live_bytes"]
+            and report["leak_suspects"] == 0):
+        raise RuntimeError("%s: the ledger is not balanced, or its high "
+                           "water is under its live bytes, or a leak was "
+                           "suspected: %s" % (label, led))
+    bd = report["breakdown"]
+    total = sum(bd["parts_seconds"].values())
+    say("   %s breakdown: %s, parts (s) %s over %.4f s of wall, %d "
+        "windows, %d steps; device memory %s" % (
+            label, bd["verdict"], bd["parts_seconds"], bd["wall_seconds"],
+            bd["windows"], bd["steps"], report["device_memory"]))
+    if abs(total - bd["wall_seconds"]) > \
+            PROFILE_WALL_RTOL * bd["wall_seconds"]:
+        raise RuntimeError("%s: the breakdown's parts sum to %.6f s, its "
+                           "wall is %.6f s" % (label, total,
+                                               bd["wall_seconds"]))
+    return runs, report, run_s
+
+
+def _debug_capture(torch, cli, card):
+    """``GET /debug/profile?seconds=1`` against a ``StatusServer`` while
+    the fused workflow trains (requested at its first TRAIN window, an
+    epoch of PROFILE_CAPTURE_TRAIN rows): 200 with a loadable
+    trace holding the forward kernel's device events; a second request
+    during the capture answers 409.  Returns the run's launches."""
+    import shutil
+    import urllib.error
+    import urllib.request
+    from znicz_tpu_torch.core import profiler
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.core.status_server import StatusServer
+    from znicz_tpu_torch.units import fused_trainer
+    out = os.path.join(PROFILE_DIR, "capture")
+    root.common.profiler.capture_dir = out
+    server = StatusServer(None, port=0).start()
+    base = "http://127.0.0.1:%d/debug/profile?seconds=" % server.port
+    replies = {}
+
+    def capture():
+        try:
+            with urllib.request.urlopen(base + "%g" % PROFILE_CAPTURE_S,
+                                        timeout=120) as r:
+                replies["capture"] = (r.status, json.loads(r.read()))
+        except Exception as e:   # raised again below
+            replies["capture"] = (None, repr(e))
+
+    thread = threading.Thread(target=capture, name="znicz:smoke-capture")
+    trainer_cls = fused_trainer.FusedForwardBackward
+    real = trainer_cls._run_train_window
+
+    def first_window(unit):
+        if not thread.is_alive() and "capture" not in replies:
+            thread.start()
+            time.sleep(0.2)   # the capture runs: a second one is refused
+            try:
+                urllib.request.urlopen(base + "0.1", timeout=60)
+                replies["second"] = 200
+            except urllib.error.HTTPError as e:
+                replies["second"] = e.code
+        return real(unit)
+
+    trainer_cls._run_train_window = first_window
+    try:
+        _zero_counts()
+        cli.main(_one_epoch_argv(out, PROFILE_CAPTURE_TRAIN, TRAIN_BATCH,
+                                 "--fused", "pool_impl=offsets"))
+        launches = _counts()
+        thread.join(timeout=120)
+    finally:
+        trainer_cls._run_train_window = real
+        server.stop()
+    status, doc = replies.get("capture", (None, "no reply"))
+    if status != 200:
+        raise RuntimeError("/debug/profile answered %s: %s" % (status, doc))
+    table = profiler.device_table(doc["trace"])
+    fwd = profiler.kernel_events(table, "max_pooling_offsets_kernel")[0]
+    bwd = profiler.kernel_events(table, "max_pooling_backward_kernel")[0]
+    say("   /debug/profile?seconds=%g from the run's first TRAIN window: "
+        "200, %d device events (forward pooling %d, backward %d), %s; a "
+        "second request during it: %s; the run's launches %s; %s" % (
+            PROFILE_CAPTURE_S, table["events"], fwd, bwd, doc["files"],
+            replies.get("second"), launches, card))
+    steps = -(-PROFILE_CAPTURE_TRAIN // TRAIN_BATCH)
+    if replies.get("second") != 409 or fwd < 1 or \
+            table["events"] != doc["device_events"]:
+        raise RuntimeError("expected a 409 for the concurrent capture and "
+                           "the forward kernel among the trace's device "
+                           "events; got %s, %s" % (replies.get("second"),
+                                                   doc))
+    if (launches["forward"], launches["backward"],
+            launches["plain_on_card"]) != (3 * (steps + 1), 3 * steps, 0):
+        raise RuntimeError("the run under the capture launched %s"
+                           % launches)
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def phase_profile(torch, card):
+    """Full-width AlexNet through ``python -m znicz_tpu_torch profile``
+    (in this process): the fused graph (``--fused pool_impl=offsets``)
+    for one epoch over the workflow phase's rows, then the unit graph
+    over a few minibatches, each under the profiler and one device
+    trace; then ``/debug/profile`` during a short run.  The profiler is
+    reset and disarmed after, and telemetry put back as it was.
+    Returns the launches of the three runs, summed."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import profiler, telemetry
+    from znicz_tpu_torch.core.config import root
+    telemetry_on = telemetry.enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    runs = []
+    config = _ConfigRestored(root.alexnet, root.common.profiler)
+    try:
+        fused_out = os.path.join(PROFILE_DIR, "fused")
+        argv = _profile_argv(fused_out, PROFILE_TRAIN, WORKFLOW_VALID,
+                             "--fused", "pool_impl=offsets")
+        say("== profile: python -m znicz_tpu_torch %s" % " ".join(
+            a if PROFILE_DIR not in a else a.replace(PROFILE_DIR, "build/...")
+            for a in argv))
+        steps = -(-PROFILE_TRAIN // TRAIN_BATCH)
+        valid_mbs = -(-WORKFLOW_VALID // TRAIN_BATCH)
+        launches, report, run_s = _profiled_run(
+            torch, cli, profiler, "fused", argv, steps, valid_mbs, card)
+        runs.append(launches)
+        wins = [e for e in report["cost_registry"]
+                if e["name"].startswith("fused.window")]
+        rtol = root.common.profiler.get("cost_rtol", 0.5)
+        for e in report["cost_registry"]:
+            say("   cost: %s %.4g GFLOP, %.4g MB, measured/analytic %s, "
+                "meta %s" % (e["name"], e["flops"] / 1e9,
+                             e["bytes_accessed"] / 1e6,
+                             "%.4f" % e["flops_ratio_measured_vs_analytic"]
+                             if "flops_ratio_measured_vs_analytic" in e
+                             else "-", e.get("meta")))
+        if not wins or not all(
+                e["flops"] > 0 and abs(e["flops_ratio_measured_vs_analytic"]
+                                       - 1.0) <= rtol for e in wins):
+            raise RuntimeError("fused.window FLOPs missing or outside "
+                               "cost_rtol %g of the analytic count: %s"
+                               % (rtol, wins))
+        # the counted dispatches hold every kernel launch of theirs, the
+        # backward's (run by autograd's device thread) among them
+        for e in report["cost_registry"]:
+            k = e["meta"]["steps"]
+            want = ({"max_pooling_offsets": 3 * k,
+                     "max_pooling_offsets_backward": 3 * k}
+                    if e["name"].startswith("fused.window") else
+                    {"max_pooling_offsets": 3})
+            if e["meta"].get("kernel_launches") != want:
+                raise RuntimeError("%s counted the kernels' launches %s, not "
+                                   "%s" % (e["name"],
+                                           e["meta"].get("kernel_launches"),
+                                           want))
+        bd = report["breakdown"]
+        train_flops = sum(e["flops"] / e["meta"]["steps"] for e in wins
+                          ) / len(wins) * bd["steps"]
+        busy = bd["parts_seconds"]["dispatch"] + \
+            bd["parts_seconds"]["device"]
+        say("   MFU: %.4g TFLOP in the epoch's %d steps over %.4f s of "
+            "dispatch + device: %.2f TFLOP/s, %.1f%% of the H100's float32 "
+            "peak (%.0f TFLOP/s, TF32 off); %s" % (
+                train_flops / 1e12, bd["steps"], busy,
+                train_flops / busy / 1e12,
+                100.0 * train_flops / busy / F32_OPS_PER_S,
+                F32_OPS_PER_S / 1e12, card))
+        if bd["windows"] != -(-steps // 8) or bd["steps"] != steps:
+            raise RuntimeError("the breakdown saw %d windows and %d steps"
+                               % (bd["windows"], bd["steps"]))
+        units_out = os.path.join(PROFILE_DIR, "units")
+        launches, report, _ = _profiled_run(
+            torch, cli, profiler, "unit graph",
+            _profile_argv(units_out, PROFILE_UNITS_TRAIN,
+                          PROFILE_UNITS_VALID),
+            -(-PROFILE_UNITS_TRAIN // TRAIN_BATCH),
+            -(-PROFILE_UNITS_VALID // TRAIN_BATCH), card)
+        runs.append(launches)
+        gd = [e for e in report["cost_registry"]
+              if e["name"].startswith("gd.update")]
+        say("   unit graph: %d GD updates registered, %.4g MB accessed in "
+            "all (their elementwise work has no matrix product to count)"
+            % (len(gd), sum(e["bytes_accessed"] for e in gd) / 1e6))
+        if not gd or report["breakdown"]["windows"]:
+            raise RuntimeError("the unit graph registered no GD update, "
+                               "or ran windows")
+        profiler.reset()
+        profiler.disable()
+        runs.append(_debug_capture(torch, cli, card))
+    finally:
+        profiler.reset()
+        profiler.disable()
+        config.__exit__()
+        if not telemetry_on:
+            telemetry.disable()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    total = {k: sum(r[k] for r in runs)
+             for k in ("forward", "backward", "plain_on_card")}
+    for k in ("forward", "backward"):
+        total[k + "_by_width"] = {
+            w: sum(r[k + "_by_width"][w] for r in runs) for w in (WIDE,
+                                                                  NARROW)}
+    return total
 
 
 def _health_and_rollback(torch, net, x, lbl, card):
@@ -4519,7 +4993,7 @@ def _cifar_variants(probe, cli, prng, base, card):
 
 
 def _cifar_schedule_f64(torch):
-    """The caffe config over 12 TRAIN minibatches (and a VALID one) in
+    """The caffe config over 8 TRAIN minibatches (and a VALID one) in
     f64 with the rate dropped 10x after the third: the card's unit graph
     against the CPU's, and the card's fused graph (windows of 8, the
     boundary inside the first) against the card's unit graph; every
@@ -6422,7 +6896,9 @@ def _phases(torch, name, card, start):
     prototypes = _Prototypes(alexnet, WORKFLOW_TRAIN + WORKFLOW_VALID)
     stl_data = _StlData()
     imports = _Imports()
-    phase_build()
+    build = _BuildThread()
+    _profiler_first_start(torch)
+    build.join()
     marks.append(("build", time.perf_counter()))
     prototypes.join()
     stl_data.join()
@@ -6450,6 +6926,8 @@ def _phases(torch, name, card, start):
         resilience_launches = phase_resilience(torch, card, reference)
         del reference
         marks.append(("resilience", time.perf_counter()))
+        profile_launches = phase_profile(torch, card)
+        marks.append(("profile", time.perf_counter()))
         alexnet_units_launches = phase_alexnet_units(torch, card,
                                                      workflow_rates)
         marks.append(("alexnet_units", time.perf_counter()))
@@ -6482,6 +6960,12 @@ def _phases(torch, name, card, start):
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
+    from znicz_tpu_torch.core import profiler
+    say("== the profiler after the other phases: enabled %s, state %s (the "
+        "off switch built nothing)" % (profiler.enabled(), profiler._state))
+    if profiler.enabled() or profiler._state is not None:
+        raise RuntimeError("the profiler is armed or holds state after the "
+                           "phases that ran with it off")
     paths = {"train": train_launches, "workflow": workflow_launches,
              "alexnet_units": alexnet_units_launches,
              "units": units_launches, "ae": ae_launches,
@@ -6490,7 +6974,8 @@ def _phases(torch, name, card, start):
              "stl10_fused": stl_fused_launches, "imagenet_ae": iae_launches,
              "imagenet_ae_fused": iae_fused_launches,
              "resilience": resilience_launches,
-             "resilience_net": resilience_net_launches}
+             "resilience_net": resilience_net_launches,
+             "profile": profile_launches}
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,

@@ -126,7 +126,11 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.core.faults",
                  "znicz_tpu_torch.core.health",
                  "znicz_tpu_torch.core.status_server",
-                 "znicz_tpu_torch.units.nn_rollback"):
+                 "znicz_tpu_torch.units.nn_rollback",
+                 "znicz_tpu_torch.core.profiler",
+                 "znicz_tpu_torch.core.timeseries",
+                 "znicz_tpu_torch.core.pyprof",
+                 "znicz_tpu_torch.core.blackbox"):
         assert name in doc["modules"]
 
 

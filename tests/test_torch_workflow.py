@@ -315,11 +315,23 @@ def test_left_out_modes_raise(kwargs):
 @pytest.mark.parametrize("argv", [["alexnet", "--parity"],
                                   ["alexnet", "--max-restarts", "2"],
                                   ["alexnet", "--optimize", "2x2"],
-                                  ["profile", "alexnet"]])
+                                  ["profile", "alexnet"],
+                                  ["obs", "--rid", "r1"]])
 def test_left_out_cli_options_raise(argv, monkeypatch):
-    """Left-out options raise, naming ROADMAP.md; ``--max-restarts``,
-    once among them, now supervises the run, and without CUDA (and
-    without ``--device cpu``) it raises at once instead of restarting."""
+    """Left-out options raise, naming ROADMAP.md; ``--max-restarts`` and
+    the ``profile`` subcommand, once among them, now supervise and
+    profile the run, and without CUDA (and without ``--device cpu``)
+    they raise at once instead of running."""
+    if argv[0] == "profile":
+        from znicz_tpu_torch import launcher
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        calls = []
+        monkeypatch.setattr(launcher, "run_workflow",
+                            lambda *a, **k: calls.append(1))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+        assert calls == []
+        return
     if "--max-restarts" in argv:
         from znicz_tpu_torch import launcher
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

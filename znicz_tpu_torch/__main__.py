@@ -25,9 +25,23 @@ restores the newest resumable snapshot of the workflow's snapshotter;
 a crash is backed off (``--restart-backoff-ms``, doubling, capped at
 30 s) and the run re-entered with auto-resume up to N times;
 ``--testing`` sets ``testing`` on the units after ``initialize``, as
-the JAX launcher does.  ``--optimize``, ``--parity``, ``--dump-graph``
-and the ``profile`` and ``obs`` subcommands are not in this slice of
-the port (``ROADMAP.md``).
+the JAX launcher does.  ``--dump-graph FILE.dot`` writes the workflow's
+control graph as Graphviz DOT; as in the JAX CLI, it skips training
+unless ``--testing`` is given too.  The observability plane::
+
+    python -m znicz_tpu_torch profile alexnet --fused pool_impl=offsets \
+        --out DIR               # the run under the profiler and a trace
+    python -m znicz_tpu_torch profile http://127.0.0.1:PORT --seconds 2
+    python -m znicz_tpu_torch obs --dir DIR [--postmortem train]
+
+``profile`` runs a workflow (its arguments as above) with telemetry and
+the profiler armed under one device trace and writes ``trace.json`` and
+``profiler_report.json`` into ``--out`` (:mod:`znicz_tpu_torch.core.
+profiler`), or captures a running server's trace; ``obs`` reads the
+durable blackbox (:mod:`znicz_tpu_torch.core.blackbox`), which a run
+arms with ``--config common.telemetry.blackbox.enabled=True`` (role
+"train").  ``--optimize``, ``--parity`` and ``obs --rid`` are not in
+this slice of the port (``ROADMAP.md``).
 """
 
 import argparse
@@ -59,8 +73,26 @@ def main(argv=None):
     if argv and argv[0] == "serve":
         from znicz_tpu_torch.serving.server import main as serve_main
         return serve_main(argv[1:])
-    if argv and argv[0] in ("profile", "obs"):
-        raise NotImplementedError("the %s subcommand %s" % (argv[0], _LATER))
+    if argv and argv[0] == "profile":
+        # a workflow under the profiler and one device trace, or a
+        # running server's capture (core/profiler.py)
+        from znicz_tpu_torch.core.profiler import cli_main as profile_main
+        return profile_main(argv[1:])
+    if argv and argv[0] == "obs":
+        # the durable blackbox's queries (core/blackbox.py)
+        from znicz_tpu_torch.core.blackbox import cli_main as obs_main
+        return obs_main(argv[1:])
+    wf = run_workflow_cli(argv)
+    decision = getattr(wf, "decision", None)
+    if decision is not None and hasattr(decision, "best_n_err_pt"):
+        print("best val/train err%%: %s" % (decision.best_n_err_pt,))
+    return 0
+
+
+def run_workflow_cli(argv):
+    """Build and run the workflow ``argv`` names (the workflow CLI's
+    arguments, without a subcommand); returns the workflow (None after
+    ``--list``)."""
     parser = argparse.ArgumentParser(
         prog="python -m znicz_tpu_torch",
         description="Train a znicz_tpu_torch workflow (sample name, "
@@ -101,16 +133,18 @@ def main(argv=None):
                         help="torch device (default: cuda)")
     parser.add_argument("--list", action="store_true",
                         help="list the samples and exit")
+    parser.add_argument("--dump-graph", metavar="FILE.dot",
+                        help="write the workflow's control graph as DOT; "
+                             "skips training unless --testing is given")
     for flag, kwargs in (("--optimize", {}), ("--parity", {"action":
-                                                            "store_true"}),
-                         ("--dump-graph", {})):
+                                                            "store_true"})):
         parser.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
     args = parser.parse_args(argv)
-    for flag in ("optimize", "parity", "dump_graph"):
+    for flag in ("optimize", "parity"):
         if getattr(args, flag):
-            raise NotImplementedError(
-                "--%s %s" % (flag.replace("_", "-"), _LATER))
+            raise NotImplementedError("--%s %s" % (flag, _LATER))
 
+    from znicz_tpu_torch.core import blackbox
     from znicz_tpu_torch.core.config import apply_override
     from znicz_tpu_torch.launcher import (list_samples,
                                           resolve_workflow_module,
@@ -118,7 +152,7 @@ def main(argv=None):
     if args.list:
         for name in list_samples():
             print(name)
-        return 0
+        return None
     if not args.workflow:
         parser.error("workflow required (or --list)")
     # import first: a sample installs its root.<ns> defaults at import,
@@ -126,9 +160,12 @@ def main(argv=None):
     module = resolve_workflow_module(args.workflow)
     for assignment in args.config:
         apply_override(assignment)
+    # the durable blackbox, when its knob is on (one config read off)
+    blackbox.maybe_arm("train")
     run_args = dict(snapshot=args.snapshot, testing=args.testing,
-                    dry_run=args.dry_run, device=args.device,
-                    fused=parse_fused(args.fused),
+                    dry_run=args.dry_run or (bool(args.dump_graph)
+                                             and not args.testing),
+                    device=args.device, fused=parse_fused(args.fused),
                     auto_resume=args.auto_resume)
     if args.max_restarts > 0:
         wf = run_supervised(module, max_restarts=args.max_restarts,
@@ -136,10 +173,9 @@ def main(argv=None):
                             **run_args)
     else:
         wf = run_workflow(module, **run_args)
-    decision = getattr(wf, "decision", None)
-    if decision is not None and hasattr(decision, "best_n_err_pt"):
-        print("best val/train err%%: %s" % (decision.best_n_err_pt,))
-    return 0
+    if args.dump_graph:
+        wf.dump_graph(args.dump_graph)
+    return wf
 
 
 if __name__ == "__main__":

@@ -7,9 +7,14 @@ reads: the ``root.common.serving`` knobs of the serving slice, the
 ``root.common.dirs.snapshots`` / ``datasets`` / ``cache`` of the
 training workflows, the ``root.common.faults`` / ``retry`` / ``health``
 knobs of the fault-injection registry, the transient retry and the
-health monitor (:284-296, :329-348), and the CLI's ``--config`` parser
-:func:`apply_override` (:535).  Namespaces auto-vivify on attribute
-access; assigning a dict merges it into the node.
+health monitor (:284-296, :329-348), the ``root.common.profiler``
+block with its ``pyprof`` child and the ``root.common.telemetry``
+``timeseries`` and ``blackbox`` blocks of the observability plane
+(:239-330; the time-series ``prefixes`` name the port's counter
+families, where the JAX package names a ``jax`` one), and the CLI's
+``--config`` parser :func:`apply_override` (:535).  Namespaces
+auto-vivify on attribute access; assigning a dict merges it into the
+node.
 
 The port declares no knob vocabulary; ``common.faults.rules`` is, as
 in the JAX package (:150-195), an open dict whose keys are injection
@@ -98,9 +103,66 @@ root.common.update({
         "priority_queue_pct": {"low": 50.0, "normal": 100.0,
                                "high": 100.0},
     },
-    "telemetry": {"enabled": False,
-                  # the flight-recorder journal's ring (events kept)
-                  "journal_capacity": 4096},
+    "telemetry": {
+        "enabled": False,
+        # the flight-recorder journal's ring (events kept)
+        "journal_capacity": 4096,
+        # the metric time-series (core/timeseries.py): a sampler thread
+        # snapshotting the counters and gauges of the listed families
+        # (and the p50 / p99 of their histograms) into bounded rings,
+        # served at GET /debug/timeseries; off, the thread never starts
+        "timeseries": {
+            "enabled": False,
+            "interval_ms": 1000.0,  # sampling period
+            "capacity": 512,        # points kept a series
+            # the port's counter families: the JAX package's "jax"
+            # family (its compile counters) has no counterpart here, and
+            # the profiler's, the fault registry's, the health monitor's
+            # and the launcher's families are the port's additions
+            "prefixes": "serving,slo,trainer,transfer,loader,pyprof,"
+                        "profiler,faults,health,launcher",
+        },
+        # the durable blackbox (core/blackbox.py): the journal and the
+        # time-series frontier written through to length-delimited
+        # JSONL segments <role>.<pid>.<boot>.<nnn> under one directory,
+        # read back by `python -m znicz_tpu_torch obs`; off, nothing
+        # touches the filesystem
+        "blackbox": {
+            "enabled": False,
+            "dir": None,              # None: <dirs.cache>/blackbox
+            "role": None,             # the segment names' role
+            "segment_bytes": 1 << 20,  # rotate (fsync file, then dir)
+            "retention_bytes": 64 << 20,  # oldest segments deleted
+                                          # past this total (0: never)
+            "checkpoint_every_sweeps": 5,  # the time-series frontier
+                                           # every Nth sampler sweep
+        },
+    },
+    # performance introspection (core/profiler.py): the cost registry,
+    # the device-memory ledger and the step-time breakdown; off, every
+    # hook site is one config read, with no device sync
+    "profiler": {
+        "enabled": False,
+        "cost_rtol": 0.5,         # measured/analytic FLOPs agreement
+                                  # band: [1 - rtol, 1 + rtol]
+        "leak_epochs": 3,         # consecutive growing epochs before
+                                  # the ledger flags a leak suspect
+        "leak_min_bytes": 1 << 20,  # smaller growth is not a leak
+        "capture_seconds_cap": 60.0,  # /debug/profile?seconds= ceiling
+        "capture_dir": None,      # None: <dirs.cache>/profiles
+        # the Python sampling profiler (core/pyprof.py); off, no
+        # sampler thread exists
+        "pyprof": {
+            "enabled": False,
+            "hz": 97.0,             # sample rate, off-beat on purpose
+            "capacity": 512,        # distinct collapsed stacks kept
+            "max_depth": 24,        # frames folded a stack
+            "gil_probe": True,      # the scheduling-delay probe thread
+            "gil_interval_ms": 5.0,  # the probe's sleep quantum
+            "gil_calib_probes": 20,  # overshoots -> median baseline
+            "capture_seconds_cap": 30.0,  # /debug/pyprof?seconds= cap
+        },
+    },
     # the numeric training-health monitor (core/health.py); off, every
     # check site is one config read
     "health": {

@@ -11,6 +11,10 @@ States:
   DEV   — the device tensor is authoritative (host stale/absent)
   SYNC  — both valid
 
+While the profiler is armed, every upload, ``set_dev`` and ``reset``
+accounts the device tensor's bytes in its memory ledger under the
+Array's name (JAX :42-64, :135-153).
+
 The two sides never share memory.  A CUDA tensor's ``.cpu()`` is a
 copy, but a CPU tensor's ``.numpy()`` and ``torch.from_numpy`` alias
 their buffer, so on the CPU an in-place write to ``mem`` would
@@ -22,6 +26,7 @@ copy, on either device.
 import numpy
 import torch
 
+from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.params import tree_map
 
 HOST, DEV, SYNC = "host", "dev", "sync"
@@ -71,7 +76,7 @@ def host_fetch(tree):
 class Array(object):
     """A tensor mirrored between host numpy and a device tensor."""
 
-    __slots__ = ("_host", "_dev", "_state", "name", "device")
+    __slots__ = ("_host", "_dev", "_state", "name", "device", "_dev_nbytes")
 
     def __init__(self, data=None, name=None):
         self._host = None
@@ -80,11 +85,25 @@ class Array(object):
         self.name = name
         #: the ``torch.device`` an upload (:attr:`dev`) goes to
         self.device = None
+        #: device bytes this Array has accounted in the profiler's
+        #: memory ledger (0 while the profiler is off)
+        self._dev_nbytes = 0
         if data is not None:
             self.mem = data
 
+    def _ledger_swap(self, new_dev):
+        """The device-memory ledger's hook, called only while the
+        profiler is armed, at the three points ``_dev`` changes (upload,
+        ``set_dev``, ``reset``)."""
+        nbytes = 0 if new_dev is None else \
+            new_dev.numel() * new_dev.element_size()
+        profiler.ledger_swap(self.name, self._dev_nbytes, nbytes)
+        self._dev_nbytes = nbytes
+
     def reset(self, arr=None):
         """Drop the current contents; optionally adopt a host array."""
+        if self._dev is not None and profiler.enabled():
+            self._ledger_swap(None)
         self._host = None if arr is None else numpy.asarray(arr)
         self._dev = None
         self._state = HOST
@@ -142,10 +161,14 @@ class Array(object):
                                  % self.name)
             self._dev = torch.tensor(self._host, device=self.device)
             self._state = SYNC
+            if profiler.enabled():
+                self._ledger_swap(self._dev)
         return self._dev
 
     def set_dev(self, t):
         """Adopt tensor ``t`` as authoritative (a device 'write')."""
+        if profiler.enabled():
+            self._ledger_swap(t)
         self._dev = t
         self.device = t.device
         self._state = DEV

@@ -4,21 +4,45 @@ server lifecycle.
 Counterpart of the ``HttpServerBase`` / ``HandlerBase`` /
 ``BodyTooLargeError`` part of ``znicz_tpu/core/status_server.py`` —
 the part the serving front end (:mod:`znicz_tpu_torch.serving.server`)
-is built on — the ``GET /debug/faults`` and ``GET /debug/health``
-views (JAX :213, :252) that every server built on
-:class:`HandlerBase` answers (:meth:`HandlerBase._send_debug`), and
-:class:`StatusServer` (JAX :405), a training run's status over HTTP:
-``/status.json``, ``/metrics`` and the debug views.  The JAX server's
+is built on — the debug views that every server built on
+:class:`HandlerBase` answers (:meth:`HandlerBase._send_debug`, JAX
+:183-300), and :class:`StatusServer` (JAX :405), a training run's
+status over HTTP: ``/status.json``, ``/metrics`` and the debug views:
+
+* ``GET /debug/faults`` and ``GET /debug/health``: the fault registry's
+  and the health monitor's status (503 once a violation was seen);
+* ``GET /debug/profile?seconds=N``: a device trace of the next N
+  seconds (``profiler.capture_trace``; the reply names the trace);
+* ``GET /debug/profiler``: the profiler's report (``profiler.snapshot``);
+* ``GET /debug/timeseries``: the metric rings (``timeseries.snapshot``);
+* ``GET /debug/pyprof?seconds=N[&format=collapsed|speedscope]``: the
+  Python sampler's profile of the next N seconds (``{"enabled":
+  false}`` when its knob is off);
+* ``GET /debug/blackbox``: the durable blackbox's writer stats.
+
+The two capture endpoints share one concurrency guard: while either
+runs, a request for either answers 409, and so does ``/debug/profile``
+while another device trace (the ``profile`` CLI's) runs.  A server's
+start starts the time-series sampler and the Python sampler and arms
+the blackbox where their knobs are on (JAX :387-389).  The JAX server's
 HTML page and plots wait for the plotters (``ROADMAP.md``).
 """
 
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import pyprof, telemetry
+
+#: one guard for both capture endpoints (/debug/profile, /debug/pyprof):
+#: a device trace and a frame-walk capture interleaved in one process
+#: would each distort what the other measures
+_capture_guard = threading.Lock()
+_BUSY = {"error": "another debug capture (profile or pyprof) is "
+                  "already running"}
 
 
 class BodyTooLargeError(ValueError):
@@ -82,9 +106,9 @@ class HandlerBase(BaseHTTPRequestHandler):
             pass  # close_connection is already set
 
     def _send_debug(self, path):
-        """Answer ``GET /debug/faults`` (the fault registry's status)
-        and ``GET /debug/health`` (the health monitor's: 503 once a
-        violation was seen); False for any other path."""
+        """Answer the ``GET /debug/*`` views (the module's docstring);
+        False for any other path.  ``path`` may carry the query."""
+        path, _, query = path.partition("?")
         if path == "/debug/faults":
             from znicz_tpu_torch.core import faults
             self._send_json(200, faults.status())
@@ -94,7 +118,68 @@ class HandlerBase(BaseHTTPRequestHandler):
             st = health.status()
             self._send_json(200 if st.get("ok", True) else 503, st)
             return True
+        if path == "/debug/timeseries":
+            from znicz_tpu_torch.core import timeseries
+            self._send_json(200, timeseries.snapshot())
+            return True
+        if path == "/debug/blackbox":
+            from znicz_tpu_torch.core import blackbox
+            self._send_json(200, blackbox.stats())
+            return True
+        if path == "/debug/profiler":
+            from znicz_tpu_torch.core import profiler
+            self._send_json(200, profiler.snapshot())
+            return True
+        if path == "/debug/profile":
+            self._send_capture(query, "3", self._profile_capture)
+            return True
+        if path == "/debug/pyprof":
+            if not pyprof.enabled():
+                # the honest disabled answer: no capture, no guard
+                self._send_json(200, {"enabled": False})
+                return True
+            self._send_capture(query, "2", self._pyprof_capture)
+            return True
         return False
+
+    def _send_capture(self, query, default_seconds, capture):
+        """One capture endpoint: parse ``seconds`` (400 when it is not a
+        number), take the shared guard (409 while a capture runs), run
+        ``capture(seconds, qs)`` in this handler thread (the server is
+        threaded; other requests keep flowing) and answer what it sends,
+        or 500 with the error."""
+        qs = parse_qs(query)
+        try:
+            seconds = float(qs.get("seconds", [default_seconds])[0])
+        except ValueError:
+            self._send_json(400, {"error": "seconds must be a number"})
+            return
+        if not _capture_guard.acquire(blocking=False):
+            self._send_json(409, _BUSY)
+            return
+        try:
+            capture(seconds, qs)
+        except RuntimeError as e:   # another device trace is running
+            self._send_json(409, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 - always answer HTTP
+            self._send_json(500, {"error": repr(e)})
+        finally:
+            _capture_guard.release()
+
+    def _profile_capture(self, seconds, qs):
+        from znicz_tpu_torch.core import profiler
+        self._send_json(200, profiler.capture_trace(seconds))
+
+    def _pyprof_capture(self, seconds, qs):
+        prof = pyprof.capture(seconds)
+        fmt = qs.get("format", ["json"])[0]
+        if fmt == "collapsed":
+            self._send(200, "text/plain; charset=utf-8",
+                       (pyprof.collapsed(prof) + "\n").encode())
+        elif fmt == "speedscope":
+            self._send_json(200, pyprof.speedscope(prof))
+        else:
+            self._send_json(200, prof)
 
     def _send_metrics(self):
         self._send(200, "text/plain; version=0.0.4; charset=utf-8",
@@ -134,8 +219,16 @@ class HttpServerBase(Logger):
             self.port = self._httpd.server_address[1]
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever,
-                name="znicz:" + type(self).__name__.lower(), daemon=True)
+                name=pyprof.thread_name(type(self).__name__.lower()),
+                daemon=True)
             self._thread.start()
+        # every HTTP surface serves /debug/timeseries and /debug/pyprof,
+        # so a server's start arms the samplers and the blackbox (each
+        # one config read when its knob is off)
+        from znicz_tpu_torch.core import blackbox, timeseries
+        timeseries.maybe_start()
+        pyprof.maybe_start()
+        blackbox.maybe_arm()
         self.info("%s on http://%s:%d/", type(self).__name__, self.host,
                   self.port)
         return self
@@ -193,7 +286,7 @@ class StatusServer(HttpServerBase):
                     self._send_json(200, server.status())
                 elif path == "/metrics":
                     self._send_metrics()
-                elif not self._send_debug(path):
+                elif not self._send_debug(self.path):
                     self._send_json(404, {"error": "not found"})
 
         return Handler

@@ -17,10 +17,13 @@ and the training control plane's ``faults.*``, ``health.*`` and
 
 The flight recorder (JAX :255-440): :func:`record_event` appends
 structured milestones (injected faults, retries, restarts, health
-violations, skipped snapshots) to a bounded journal, and
-:func:`write_crash_report` dumps it with the metrics and the traceback
-into a fresh directory under ``root.common.health.crash_dir`` (default
-``<root.common.dirs.cache>/crash_reports``); the launcher and the
+violations, skipped snapshots) to a bounded journal and hands each to
+the write-through sink of the durable blackbox when one is armed
+(:func:`set_journal_sink`), and :func:`write_crash_report` dumps it
+with the metrics and the traceback into a fresh directory under
+``root.common.health.crash_dir`` (default
+``<root.common.dirs.cache>/crash_reports``), its report naming the
+blackbox's live segment (``blackbox_segment``); the launcher and the
 health monitor's ``halt`` policy call it, and
 :func:`install_crash_handler` chains it into ``sys.excepthook`` and
 SIGTERM.
@@ -30,8 +33,8 @@ endpoint, which this port does not have yet; they come with it.
 
 The metrics sit behind one gate, ``root.common.telemetry.enabled``:
 when it is off the factories hand out a shared no-op and nothing is
-recorded.  The journal records while telemetry, the health monitor or
-the fault registry is on (:func:`journal_enabled`).
+recorded.  The journal records while telemetry, the health monitor,
+the fault registry or the blackbox is on (:func:`journal_enabled`).
 """
 
 import collections
@@ -292,24 +295,49 @@ _journal = _Ring()
 
 
 def journal_enabled():
-    """The journal records while telemetry, the health monitor or the
-    fault registry is on: a chaos run must journal what it injected
-    and how recovery went, a health-only run wants its black box."""
+    """The journal records while telemetry, the health monitor, the
+    fault registry or the durable blackbox is on: a chaos run must
+    journal what it injected and how recovery went, a health-only run
+    wants its black box, and an armed blackbox
+    (:mod:`znicz_tpu_torch.core.blackbox`) persists the events."""
     return bool(_cfg.get("enabled", False)
                 or root.common.health.get("enabled", False)
-                or root.common.faults.get("enabled", False))
+                or root.common.faults.get("enabled", False)
+                or _cfg.blackbox.get("enabled", False))
+
+
+#: the write-through sink: the armed blackbox installs a callable here
+#: and every journal event also lands on disk when it is emitted (a
+#: ring dumped at a crash cannot help a SIGKILLed process); None in
+#: every process without one
+_journal_sink = None
+
+
+def set_journal_sink(fn):
+    """Install (or, with None, remove) the durable write-through
+    journal sink.  A sink that raises is swallowed where the event is
+    emitted: instrumentation never takes down what it instruments."""
+    global _journal_sink
+    _journal_sink = fn
 
 
 def record_event(kind, **fields):
     """Append one event (a dict stamped with wall time and seconds
-    since import) to the journal and return it; None, and nothing
-    recorded, when :func:`journal_enabled` is false."""
+    since import) to the journal, hand it to the journal sink when one
+    is installed, and return it; None, and nothing recorded, when
+    :func:`journal_enabled` is false."""
     if not journal_enabled():
         return None
     ev = {"t": round(time.time(), 6),
           "elapsed": round(time.perf_counter() - _T0, 6), "kind": kind}
     ev.update(fields)
     _journal.append(ev)
+    sink = _journal_sink
+    if sink is not None:
+        try:
+            sink(ev)
+        except Exception:  # noqa: BLE001 - never fail the emitter
+            logger.debug("journal sink failed", exc_info=True)
     return ev
 
 
@@ -359,10 +387,16 @@ def write_crash_report(reason="unhandled-exception", exc_info=None,
     if exc_info and exc_info[0] is not None:
         with open(os.path.join(path, "traceback.txt"), "w") as f:
             f.write("".join(traceback.format_exception(*exc_info)))
+    try:
+        from znicz_tpu_torch.core import blackbox
+        blackbox_segment = blackbox.current_segment()
+    except Exception:  # noqa: BLE001 - a crash dump must not crash
+        blackbox_segment = None
     with open(os.path.join(path, "report.json"), "w") as f:
         json.dump({"reason": str(reason), "time": time.time(),
                    "pid": os.getpid(), "journal_events": len(_journal),
-                   "journal_dropped": _journal.dropped}, f, indent=2)
+                   "journal_dropped": _journal.dropped,
+                   "blackbox_segment": blackbox_segment}, f, indent=2)
     logger.error("crash report -> %s (%s)", path, reason)
     return path
 

@@ -1,8 +1,10 @@
 """Workflow — a container of units with a FIFO dataflow scheduler.
 
 Counterpart of ``znicz_tpu/core/workflow.py`` (:22-294: ``NoMoreJobs``,
-``StartPoint``, ``EndPoint``, ``Repeater``, ``Workflow``) without the
-profiler hooks and the Dummy* helpers.  Units fire when all their
+``StartPoint``, ``EndPoint``, ``Repeater``, ``Workflow``, with
+``as_dot``, ``dump_graph``, ``run_profiled`` and ``log_unit_timings``
+:228-300, and the armed profiler's device-memory sample at the end of a
+run) without the Dummy* helpers.  Units fire when all their
 parents have signalled and their gates permit; a ``Repeater`` fires
 on any parent and closes the training loop:
 
@@ -15,6 +17,7 @@ point.
 
 from collections import deque
 
+from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.core.units import Unit
 
 
@@ -120,7 +123,65 @@ class Workflow(Unit):
         except NoMoreJobs:
             pass
         self._running = False
+        if profiler.enabled():
+            # the caching allocator's counters at the end of a run
+            profiler.sample_device_memory()
         return self
 
     def _on_end_point(self):
         self._running = False
+
+    # -- graph, profiling and timings ---------------------------------------
+    def as_dot(self):
+        """Graphviz DOT text of the control graph: a box a unit (its
+        name, and its class where they differ), an edge a control
+        link."""
+        lines = ["digraph %s {" % type(self).__name__,
+                 '  rankdir=TB; node [shape=box, fontsize=10];']
+        ids = {u: "u%d" % i for i, u in enumerate(self._units)}
+        for u in self._units:
+            label = u.name if u.name == type(u).__name__ else \
+                "%s\\n(%s)" % (u.name, type(u).__name__)
+            lines.append('  %s [label="%s"];' % (ids[u], label))
+        for u in self._units:
+            for child in u._links_to:
+                if child in ids:
+                    lines.append("  %s -> %s;" % (ids[u], ids[child]))
+        lines.append("}")
+        return "\n".join(lines)
+
+    def dump_graph(self, path):
+        """Write the DOT graph to ``path`` (render with graphviz)."""
+        with open(path, "w") as f:
+            f.write(self.as_dot())
+        self.info("workflow graph -> %s", path)
+        return path
+
+    def run_profiled(self, log_dir):
+        """Run under the device trace the profiler's capture takes
+        (``profiler.traced``): ``<log_dir>/trace.json``, a Chrome trace
+        of the host and the card, drained before it closes.  Pair with
+        :meth:`log_unit_timings` for the host's view."""
+        with profiler.traced(str(log_dir)):
+            self.run()
+        return self
+
+    def unit_timings(self):
+        """``[(unit, total_seconds, run_count)]`` sorted by total time,
+        longest first.  Work on the card is enqueued asynchronously, so
+        a unit's time is its host time: the device's lands on whichever
+        unit waits for it first."""
+        rows = [(u, getattr(u, "run_time_", 0.0),
+                 getattr(u, "run_count_", 0)) for u in self._units
+                if getattr(u, "run_count_", 0)]
+        rows.sort(key=lambda r: -r[1])
+        return rows
+
+    def log_unit_timings(self):
+        """Log the per-unit wall-time table at INFO."""
+        rows = self.unit_timings()
+        total = sum(r[1] for r in rows) or 1.0
+        self.info("unit timings (%d runs total):", sum(r[2] for r in rows))
+        for unit, t, n in rows:
+            self.info("  %-28s %8.3fs %6d runs  %5.1f%%",
+                      unit.name, t, n, 100.0 * t / total)

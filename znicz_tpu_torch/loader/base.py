@@ -6,8 +6,9 @@ Counterpart of ``znicz_tpu/loader/base.py`` (:49-466): ``Loader``,
 (``LoaderMSEMixin``, ``FullBatchLoaderMSEMixin``, ``FullBatchLoaderMSE``
 :467-530: per-sample regression targets, optional class targets, a
 targets normalizer), with the ``loader.fill`` fault site and its
-bounded retry (JAX :317-333), without the telemetry and profiler
-hooks.
+bounded retry (JAX :317-333) and the profiler's hooks (JAX :254-304:
+the serve of a minibatch is its data wait, and the epoch boundary runs
+the memory ledger's leak check), without the telemetry hooks.
 
 Epoch semantics, as the JAX package's:
 
@@ -30,9 +31,11 @@ The loader's streams are numpy's, as in the JAX package, so the same
 seed serves the same rows in the same order in either package.
 """
 
+import time
+
 import numpy
 
-from znicz_tpu_torch.core import faults, normalization
+from znicz_tpu_torch.core import faults, normalization, profiler
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
@@ -196,6 +199,9 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.shuffle_serial += 1
 
     def run(self):
+        # the step-time breakdown: the whole serve (index walk, fill,
+        # epoch bookkeeping) is this minibatch's data wait
+        prof_t0 = time.perf_counter() if profiler.enabled() else None
         order = self._serve_order()
         clazz = order[self._segment]
         length = self.class_lengths[clazz]
@@ -225,6 +231,9 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.epoch_ended <<= epoch_done
         if epoch_done:
             self.epoch_number += 1
+            if prof_t0 is not None:
+                # the ledger's epoch-boundary leak check
+                profiler.epoch_check(self.epoch_number)
             self._segment = 0
             self._offset_in_class = 0
             self._global_offset = 0
@@ -234,6 +243,8 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             self._offset_in_class = 0
         else:
             self._offset_in_class = off + n
+        if prof_t0 is not None:
+            profiler.note_data_wait(time.perf_counter() - prof_t0)
 
     def _serve_fill(self):
         """One fill, with the ``loader.fill`` fault site inside the

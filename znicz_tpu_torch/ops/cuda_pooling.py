@@ -26,7 +26,8 @@ raises.  The library is built by :mod:`znicz_tpu_torch.ops.cuda_build`
 at the first launch and loaded with ``ctypes``.  ``LAUNCHES_WIDE``
 (16-byte vectors) and ``LAUNCHES_NARROW`` (one channel a thread) count
 the kernel's launches by width, ``LAUNCHES`` their sum; nothing else
-adds to them.
+adds to them.  Each launch reports its work (:func:`work`) to the
+profiler's cost registry, which cannot see a ctypes launch.
 """
 
 import collections
@@ -36,6 +37,7 @@ import threading
 
 import torch
 
+from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.ops import cuda_build
 from znicz_tpu_torch.ops.pooling import output_spatial
 
@@ -185,4 +187,14 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
     else:
         LAUNCHES_WIDE += 1
     LAUNCHES += 1
+    profiler.kernel_cost("max_pooling_offsets",
+                         *work(x.numel(), values.numel(), x.element_size(),
+                               ky, kx))
     return values, offsets
+
+
+def work(n_in, n_out, itemsize, ky, kx):
+    """``(operations, bytes)`` of one launch, as its bound counts them:
+    each window's ``ky * kx`` compares; the input read once, the values
+    and the int32 offsets written once."""
+    return n_out * ky * kx, n_in * itemsize + n_out * (itemsize + 4)

@@ -36,7 +36,8 @@ is chosen on a failed launch, which raises.  The library is built by
 with ``ctypes``.  ``LAUNCHES_WIDE`` (16-byte vectors) and
 ``LAUNCHES_NARROW`` (one channel a thread) count the kernel's launches
 by width, ``LAUNCHES`` their sum, both instantiations alike; nothing
-else adds to them.
+else adds to them.  Each launch reports its work (:func:`work`) to the
+profiler's cost registry, which cannot see a ctypes launch.
 """
 
 import collections
@@ -46,6 +47,7 @@ import threading
 
 import torch
 
+from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.ops import cuda_build
 from znicz_tpu_torch.ops.pooling import output_spatial
 
@@ -262,4 +264,15 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     else:
         LAUNCHES_WIDE += 1
     LAUNCHES += 1
+    profiler.kernel_cost("max_pooling_offsets_backward",
+                         *work(grad.numel(), err.numel(), err.element_size(),
+                               ky, kx))
     return grad
+
+
+def work(n_in, n_out, itemsize, ky, kx):
+    """``(operations, bytes)`` of one launch, as its bound counts them:
+    each window's offsets compared by its ``ky * kx`` cells and its err
+    added once; the err and the int32 offsets read once, the input
+    gradient written once."""
+    return n_out * (ky * kx + 1), n_out * (itemsize + 4) + n_in * itemsize

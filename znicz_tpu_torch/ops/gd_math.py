@@ -17,7 +17,8 @@ shares (reference nn_units.py:696-719, gd.py:314-419):
 The JAX package leaves this elementwise work to XLA; here it is plain
 torch ops under ``torch.no_grad()`` on the parameters' device, in the
 JAX package's operation order, returning new tensors (the inputs are
-not written).
+not written).  :func:`register_update_cost` counts an update's work for
+the profiler's cost registry (JAX :121-136).
 """
 
 import torch
@@ -103,3 +104,13 @@ def init_state(w, flags):
     if "fast" in solvers:
         state["fast"] = torch.zeros_like(w)
     return state
+
+
+def register_update_cost(name, w):
+    """The cost-registry hook of the GD update (the profiler's
+    :func:`~znicz_tpu_torch.core.profiler.count_cost`): a context in
+    which the first update dispatched under ``name`` is counted, with
+    the parameter's element count as meta.  Call sites guard with
+    ``profiler.enabled()``; a registered name is one dict lookup."""
+    from znicz_tpu_torch.core import profiler
+    return profiler.count_cost(name, param_elements=int(w.numel()))

@@ -45,6 +45,13 @@ What maps to what:
   row index (``run_window_indexed``, ``run_window_mse_indexed``) or
   sliced from the epoch's shuffled dataset on the device
   (``run_window_sliced``, ``run_window_mse_sliced``);
+* the armed profiler counts the first dispatch of each entry point
+  into its cost registry under the JAX package's names (``fused.step``,
+  ``fused.step_mse``, ``fused.window.<form>.k<K>``,
+  ``fused.predict.b<B>``, ``fused.predict_idx.b<B>``; JAX
+  :1229-1300, :1814-1874, :2114-2225), against 3 x
+  :func:`flops_per_image` a trained row (1 x for a predict); a window
+  is the K steps of its loop, counted whole;
 * :meth:`FusedNet.host_fetch`, the trainer's readback, holds the
   ``fused.host_fetch`` fault site (JAX :2160-2173), and
   :meth:`FusedNet.device_state` / :meth:`FusedNet.load_device_state`
@@ -54,13 +61,14 @@ Not in this slice (each raises and is listed in ``ROADMAP.md``): a
 mesh, ``compute_dtype`` and ``pool_impl="reshape"``.
 """
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.core import faults, memory, prng
+from znicz_tpu_torch.core import faults, memory, profiler, prng
 from znicz_tpu_torch.core.backends import (default_device,
                                             deterministic, full_f32)
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
@@ -102,6 +110,9 @@ DEFAULT_HYPER = dict(lr=0.01, wd=0.00005, l1_vs_l2=0.0, moment=0.0,
                      factor_ortho=0.0)
 
 _LATER = "not in this slice of the port (see ROADMAP.md)"
+
+#: the context of a dispatch the profiler does not count
+_UNCOUNTED = contextlib.nullcontext()
 
 
 def layer_hyper(layer, defaults=None):
@@ -969,6 +980,22 @@ class FusedNet:
             return x, None
         return x, torch.as_tensor(labels).to(self.device, torch.int32)
 
+    # -- cost accounting ------------------------------------------------------
+    def _cost(self, name, steps, batch, train=True):
+        """The profiler's count of the first dispatch of ``name`` (JAX
+        :1229-1250): a train step's analytic FLOPs are 3 x the forward's
+        (the MFU convention), a predict's 1 x.  A registered name costs
+        one dict lookup; the spec walk runs for the first dispatch only.
+        Call sites guard with ``profiler.enabled()``."""
+        if profiler.cost_entry(name) is not None:
+            return _UNCOUNTED
+        fpi = flops_per_image(self.specs)
+        mult = 3.0 if train else 1.0
+        return profiler.count_cost(
+            name, analytic_flops=mult * fpi * int(batch) * int(steps),
+            steps=int(steps), batch=int(batch),
+            analytic_flops_per_image=mult * fpi)
+
     # -- steps --------------------------------------------------------------
     def _need(self, objective, what):
         if self.objective != objective:
@@ -982,10 +1009,12 @@ class FusedNet:
         passed to the step (see :func:`_grad_step`)."""
         self._need("softmax", "step")
         x, labels = self._batch(x, labels)
-        self.params, self.state, metrics = _train_step(
-            self.params, self.state, x, labels, self.specs, self._gen,
-            self.hypers if hypers is None else hypers, with_output=True,
-            mark=mark)
+        with self._cost("fused.step", 1, x.shape[0]) \
+                if profiler.enabled() else _UNCOUNTED:
+            self.params, self.state, metrics = _train_step(
+                self.params, self.state, x, labels, self.specs, self._gen,
+                self.hypers if hypers is None else hypers, with_output=True,
+                mark=mark)
         return metrics
 
     def step_mse(self, x, target, batch_size=None, hypers=None, mark=None):
@@ -995,11 +1024,13 @@ class FusedNet:
         self._need("mse", "step_mse")
         x, _ = self._batch(x)
         t = self._batch(target)[0]
-        self.params, self.state, metrics = _train_step_mse(
-            self.params, self.state, x, t,
-            x.shape[0] if batch_size is None else int(batch_size),
-            self.specs, self._gen, self.hypers if hypers is None else hypers,
-            mark)
+        with self._cost("fused.step_mse", 1, x.shape[0]) \
+                if profiler.enabled() else _UNCOUNTED:
+            self.params, self.state, metrics = _train_step_mse(
+                self.params, self.state, x, t,
+                x.shape[0] if batch_size is None else int(batch_size),
+                self.specs, self._gen,
+                self.hypers if hypers is None else hypers, mark)
         return metrics
 
     def run_steps(self, xs, labels_s):
@@ -1058,12 +1089,20 @@ class FusedNet:
         return self._data_p is not None
 
     # -- windows --------------------------------------------------------------
-    def _run_window(self, n_steps, batch, fetch, batch_sizes, hypers_s):
+    def _run_window(self, form, n_steps, batch, fetch, batch_sizes,
+                    hypers_s):
         """K steps; ``fetch(k)`` gives step k's ``(x, labels)`` on the
         device; ``batch_sizes (K,)`` masks padded rows; ``hypers_s`` is
         the hyper pytree with a leading K axis (:func:`stack_hypers`).
-        Stats fold on the device; nothing is read back."""
+        Stats fold on the device; nothing is read back.  ``form`` names
+        the window in the cost registry (``fused.window.<form>.k<K>``)."""
         self._need("softmax", "a softmax window")
+        with self._cost("fused.window.%s.k%d" % (form, n_steps), n_steps,
+                        batch) if profiler.enabled() else _UNCOUNTED:
+            return self._window_steps(n_steps, batch, fetch, batch_sizes,
+                                      hypers_s)
+
+    def _window_steps(self, n_steps, batch, fetch, batch_sizes, hypers_s):
         n_classes = int(self.specs[-1].n_out)
         nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
         conf = torch.zeros((n_classes, n_classes), dtype=torch.int32,
@@ -1111,7 +1150,7 @@ class FusedNet:
         masked."""
         xs = self._stacked(xs)
         labels_s = self._stacked(labels_s, torch.int32)
-        return self._run_window(xs.shape[0], xs.shape[1],
+        return self._run_window("stacked", xs.shape[0], xs.shape[1],
                                 lambda k: (xs[k], labels_s[k]),
                                 batch_sizes, hypers_s)
 
@@ -1131,8 +1170,8 @@ class FusedNet:
             lbl = torch.where(idx < 0, -1,
                               self._labels_d.index_select(0, safe))
             return self._data_d.index_select(0, safe), lbl
-        return self._run_window(idx_s.shape[0], idx_s.shape[1], fetch,
-                                batch_sizes, hypers_s)
+        return self._run_window("indexed", idx_s.shape[0], idx_s.shape[1],
+                                fetch, batch_sizes, hypers_s)
 
     def run_window_sliced(self, starts, batch, batch_sizes, hypers_s):
         """Windowed training over the epoch's shuffled dataset
@@ -1148,8 +1187,8 @@ class FusedNet:
         def fetch(k):
             s = min(max(int(starts[k]), 0), last)
             return self._data_p[s:s + batch], self._labels_p[s:s + batch]
-        return self._run_window(len(starts), batch, fetch, batch_sizes,
-                                hypers_s)
+        return self._run_window("sliced", len(starts), batch, fetch,
+                                batch_sizes, hypers_s)
 
     # -- MSE windows ----------------------------------------------------------
     def _class_targets_tensor(self):
@@ -1165,15 +1204,23 @@ class FusedNet:
                 self.device))
         return self._ct_cache[1]
 
-    def _run_window_mse(self, n_steps, batch, fetch, batch_sizes, hypers_s):
+    def _run_window_mse(self, form, n_steps, batch, fetch, batch_sizes,
+                        hypers_s):
         """K MSE steps; ``fetch(k)`` gives step k's ``(x, labels,
         targets)`` on the device.  Each step's evaluator stats (the
         ``[sum, max, min]`` of :func:`evaluator.mse` with ``mse_root``,
         and the nearest-class-target ``n_err`` where ``class_targets``
         is set) fold on the device into the window's and then the epoch
         accumulator's, in the JAX package's order; nothing is read
-        back."""
+        back.  ``form`` names the window in the cost registry."""
         self._need("mse", "an MSE window")
+        with self._cost("fused.window.%s.k%d" % (form, n_steps), n_steps,
+                        batch) if profiler.enabled() else _UNCOUNTED:
+            return self._window_steps_mse(n_steps, batch, fetch,
+                                          batch_sizes, hypers_s)
+
+    def _window_steps_mse(self, n_steps, batch, fetch, batch_sizes,
+                          hypers_s):
         root, ct = bool(self.mse_root), self._class_targets_tensor()
         zero = torch.zeros((), dtype=self._tdtype, device=self.device)
         msum, mmax, mmin = zero, zero, zero + float("inf")
@@ -1225,8 +1272,9 @@ class FusedNet:
                               self._labels_d.index_select(0, safe))
             return (self._data_d.index_select(0, safe), lbl,
                     self._targets_d.index_select(0, safe))
-        return self._run_window_mse(idx_s.shape[0], idx_s.shape[1], fetch,
-                                    batch_sizes, hypers_s)
+        return self._run_window_mse("mse_indexed", idx_s.shape[0],
+                                    idx_s.shape[1], fetch, batch_sizes,
+                                    hypers_s)
 
     def run_window_mse(self, xs, ts, lbl_s, batch_sizes, hypers_s):
         """K MSE steps over host-stacked minibatches ``xs (K, B, ...)``
@@ -1236,7 +1284,7 @@ class FusedNet:
         device."""
         xs, ts = self._stacked(xs), self._stacked(ts)
         lbl_s = self._stacked(lbl_s, torch.int32)
-        return self._run_window_mse(xs.shape[0], xs.shape[1],
+        return self._run_window_mse("mse", xs.shape[0], xs.shape[1],
                                     lambda k: (xs[k], lbl_s[k], ts[k]),
                                     batch_sizes, hypers_s)
 
@@ -1255,8 +1303,8 @@ class FusedNet:
             s = min(max(int(starts[k]), 0), last)
             return (self._data_p[s:s + batch], self._labels_p[s:s + batch],
                     self._targets_p[s:s + batch])
-        return self._run_window_mse(len(starts), batch, fetch, batch_sizes,
-                                    hypers_s)
+        return self._run_window_mse("mse_sliced", len(starts), batch,
+                                    fetch, batch_sizes, hypers_s)
 
     # -- the epoch accumulator ----------------------------------------------
     def window_acc_zeros(self):
@@ -1320,19 +1368,28 @@ class FusedNet:
                                  for p in self.params
                                  for t in p.values()]).all())
 
-    def predict(self, x):
-        """The output of a batch (softmax, or the MSE objective's
-        regression), on the device."""
-        x, _ = self._batch(x)
+    def _forward_eval(self, x):
         with torch.no_grad():
             return forward(self.params, x, self.specs,
                            generator=self._gen if self._has_stochastic
                            else None)
 
+    def predict(self, x):
+        """The output of a batch (softmax, or the MSE objective's
+        regression), on the device."""
+        x, _ = self._batch(x)
+        with self._cost("fused.predict.b%d" % x.shape[0], 1, x.shape[0],
+                        train=False) if profiler.enabled() else _UNCOUNTED:
+            return self._forward_eval(x)
+
     def predict_with_idx(self, x):
         """(softmax output, int32 argmax) of a batch, on the device."""
-        probs = self.predict(x)
-        return probs, torch.argmax(probs, dim=1).to(torch.int32)
+        x, _ = self._batch(x)
+        with self._cost("fused.predict_idx.b%d" % x.shape[0], 1,
+                        x.shape[0], train=False) \
+                if profiler.enabled() else _UNCOUNTED:
+            probs = self._forward_eval(x)
+            return probs, torch.argmax(probs, dim=1).to(torch.int32)
 
     def host_params(self):
         return memory.host_fetch(self.params)

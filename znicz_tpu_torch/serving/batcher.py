@@ -24,7 +24,7 @@ import time
 
 import numpy
 
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.serving.engine import matches_sample_shape
@@ -94,8 +94,8 @@ class MicroBatcher(Logger):
             if not self._running:
                 self._running = True
                 self._thread = threading.Thread(
-                    target=self._worker, name="znicz:micro-batcher",
-                    daemon=True)
+                    target=self._worker,
+                    name=pyprof.thread_name("micro-batcher"), daemon=True)
                 self._thread.start()
         return self
 

@@ -32,7 +32,7 @@ import time
 
 import numpy
 
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.serving.batcher import (_DISPATCH_GRACE, _Request,
@@ -116,8 +116,9 @@ class ContinuousBatcher(Logger):
             if not self._running:
                 self._running = True
                 self._threads = [
-                    threading.Thread(target=self._worker, daemon=True,
-                                     name="znicz:continuous-%d" % i)
+                    threading.Thread(
+                        target=self._worker, daemon=True,
+                        name=pyprof.thread_name("continuous-%d" % i))
                     for i in range(self.max_inflight)]
                 for t in self._threads:
                     t.start()

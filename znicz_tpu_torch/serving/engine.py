@@ -62,6 +62,12 @@ its region a dispatch passes the ``serving.forward`` and
 ``serving.forward.<name>`` fault sites and retries transient faults
 (``faults.retry_call``, JAX :895-915): only an exhausted retry counts
 as the breaker's failure.
+
+**Profiling.**  While the profiler is armed, a bucket's first dispatch
+of a generation is counted into its cost registry
+(``serving.forward[.<name>].b<bucket>[.<dtype>]``, JAX :919-943), and a
+load, reload, eviction or restore moves the resident parameters' bytes
+in its memory ledger (``serving.model.<name>``, JAX :1033-1041).
 """
 
 import json
@@ -73,7 +79,7 @@ import zipfile
 import numpy
 import torch
 
-from znicz_tpu_torch.core import faults, telemetry
+from znicz_tpu_torch.core import faults, profiler, telemetry
 from znicz_tpu_torch.core.backends import default_device, full_f32
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -559,11 +565,13 @@ class InferenceEngine(Logger):
             else:
                 warm = set()
                 self._ready.clear()
+            old_bytes = self.device_bytes
             self._version += 1
             model = _Model(layers, params, key, dtype, shape, label,
                            self._version, warm, host_params, serve_dtype)
             self._model = model
         del params
+        self._ledger_swap(old_bytes, self.device_bytes)
         if telemetry.enabled():
             telemetry.gauge(self._label("serving.model_version")).set(
                 self._version)
@@ -585,6 +593,7 @@ class InferenceEngine(Logger):
                     self._version = old.version if old else 0
                     (self.buckets, self.max_batch,
                      self._warmup_manifest) = old_limits
+                    self._ledger_swap(model.dev_bytes, self.device_bytes)
             if old is not None:
                 self._ready.set()
                 self.warning("reload of %s failed at warmup; still serving "
@@ -732,6 +741,10 @@ class InferenceEngine(Logger):
             padded[:n] = x
             x = padded
         breaker = self._bucket_breaker(bucket)
+        # the armed profiler counts a bucket's first dispatch of this
+        # generation into its cost registry (JAX :919-943)
+        cost = self._cost(m, bucket) \
+            if profiler.enabled() and bucket not in m.warm else None
         probe = breaker.allow() if breaker is not None else False
 
         def dispatch():
@@ -741,6 +754,9 @@ class InferenceEngine(Logger):
                     # one model's site: a candidate generation can be
                     # sabotaged without touching its peers
                     faults.check("serving.forward.%s" % self.name)
+            if cost is not None:
+                with profiler.count_cost(cost[0], **cost[1]):
+                    return self._dispatch(m, params, x)
             return self._dispatch(m, params, x)
 
         try:
@@ -773,6 +789,29 @@ class InferenceEngine(Logger):
                 telemetry.gauge(self._label("serving.warm_buckets")).set(
                     len(m.warm))
         return y
+
+    def _cost(self, m, bucket):
+        """``(name, meta)`` of a bucket's cost-registry entry:
+        ``serving.forward[.<model>].b<bucket>[.<dtype>]`` (f32 keeps the
+        plain name), with the bucket, the generation, the dtype and the
+        model as meta, as the JAX engine registers it."""
+        name = ("serving.forward.b%d" % bucket if self.name is None
+                else "serving.forward.%s.b%d" % (self.name, bucket))
+        if m.serve_dtype != "f32":
+            name += "." + m.serve_dtype
+        meta = {"bucket": bucket, "model_version": m.version,
+                "dtype": m.serve_dtype}
+        if self.name is not None:
+            meta["model"] = self.name
+        return name, meta
+
+    def _ledger_swap(self, old_bytes, new_bytes):
+        """The resident parameters in the profiler's memory ledger, as
+        ``serving.model.<name>`` (JAX :1033-1041)."""
+        if not profiler.enabled() or old_bytes == new_bytes:
+            return
+        profiler.ledger_swap("serving.model.%s" % (self.name or "default"),
+                             int(old_bytes), int(new_bytes))
 
     def warmup(self):
         """Dispatch every bucket not yet warm once; sets :attr:`ready`."""
@@ -809,6 +848,7 @@ class InferenceEngine(Logger):
             m.warm.clear()
             self._ready.clear()
             self._evictions += 1
+        self._ledger_swap(released, 0)
         if telemetry.enabled():
             telemetry.counter(self._label("serving.evictions")).inc()
             telemetry.gauge(self._label("serving.warm_buckets")).set(0)
@@ -829,6 +869,7 @@ class InferenceEngine(Logger):
             m.params = _upload(m.layers, m.host_params, m.serve_dtype,
                                self.device)
             m.warm.clear()
+        self._ledger_swap(0, m.dev_bytes)
         if self._warmup_wanted and m.sample_shape is not None:
             self.warmup()
         else:

@@ -31,7 +31,14 @@ Endpoints:
   is ready, with ``degraded`` and the per-model map.
 * ``GET /metrics`` — Prometheus text of the telemetry registry.
 * ``GET /debug/faults`` and ``GET /debug/health`` — the fault
-  registry's and the health monitor's status.
+  registry's and the health monitor's status; ``GET /debug/profile``,
+  ``/debug/profiler``, ``/debug/timeseries``, ``/debug/pyprof`` and
+  ``/debug/blackbox`` — the observability plane's views
+  (:mod:`znicz_tpu_torch.core.status_server`).
+
+``serve`` names the process's main thread ``znicz:serve-main`` for the
+Python sampler and arms the durable blackbox (role "serve") before the
+engines build, where its knob is on (JAX :1136-1141).
 
 CLI::
 
@@ -54,7 +61,7 @@ import uuid
 
 import numpy
 
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import blackbox, pyprof, telemetry
 from znicz_tpu_torch.core.config import apply_override, root
 from znicz_tpu_torch.core.status_server import (BodyTooLargeError,
                                                 HandlerBase,
@@ -332,7 +339,7 @@ class ServingServer(HttpServerBase):
                     self._send_json(200, server.models())
                 elif path == "/metrics":
                     self._send_metrics()
-                elif not self._send_debug(path):
+                elif not self._send_debug(self.path):
                     self._send_json(404, {"error": "not found"})
 
             def do_POST(self):
@@ -445,6 +452,11 @@ def serve(argv):
     sample_shape = (tuple(int(d) for d in args.sample_shape.split(","))
                     if args.sample_shape else None)
     telemetry.enable()  # /metrics works out of the box
+    # the sampler's attribution of the thread that blocks in the drain
+    # loop, and the blackbox armed before the engines build, so their
+    # start-up lands on disk too (one config read when its knob is off)
+    pyprof.name_current_thread("serve-main")
+    blackbox.maybe_arm("serve")
     if named:
         registry = ModelRegistry(
             memory_budget_bytes=args.memory_budget_bytes,

@@ -58,10 +58,16 @@ segment's last, so a resume splits the remaining minibatches into the
 windows the uninterrupted run dispatches.  :class:`FusedNNRollback`
 is the fused graph's rollback.
 
+``defaults`` (the hyperparameter defaults under every layer's own) and
+``rand`` (the ``core/prng`` stream the net draws its weights from) are
+the JAX trainer's keys (:196, :205, :311, :380).  The armed profiler's
+window probe splits each TRAIN window (and a single step) into data
+wait, host collection, dispatch, device and readback (JAX :537-539,
+:885-886); its wait after the dispatch drains the window pipeline.
+
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
 JAX trainer's other keys (:attr:`FusedForwardBackward.LATER_KEYS`: the
-mesh, ``compute_dtype``, ``defaults``, ``rand``) and the profiler
-hooks.
+mesh and ``compute_dtype``).
 """
 
 import collections
@@ -70,7 +76,7 @@ import copy
 import numpy
 import torch
 
-from znicz_tpu_torch.core import faults, health, prng
+from znicz_tpu_torch.core import faults, health, prng, profiler
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.mutable import Bool
@@ -234,13 +240,13 @@ class FusedForwardBackward(Unit):
     staging ring holds one more), as the JAX trainer takes them."""
 
     #: the JAX trainer's keys this slice of the port leaves out
-    LATER_KEYS = ("mesh", "model_parallel", "compute_dtype", "defaults",
-                  "rand")
+    LATER_KEYS = ("mesh", "model_parallel", "compute_dtype")
 
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
                  dropout_seed=0, window=None, loss="softmax",
                  device_data="auto", device_perm="auto",
-                 async_windows=True, pipeline_depth=2, **kwargs):
+                 async_windows=True, pipeline_depth=2, defaults=None,
+                 rand=None, **kwargs):
         later = sorted(set(kwargs) & set(self.LATER_KEYS))
         if later:
             raise NotImplementedError(
@@ -254,6 +260,12 @@ class FusedForwardBackward(Unit):
                                  "not %r" % (key, value))
         super(FusedForwardBackward, self).__init__(workflow, **kwargs)
         self.layers = copy.deepcopy(list(layers))
+        #: the hyperparameter defaults under every layer's own
+        #: (``fused.layer_hyper``), and the ``core/prng`` stream the
+        #: net draws its weights from (None: ``prng.get()`` at
+        #: initialize)
+        self.defaults = defaults
+        self.rand = rand
         self.pool_impl = pool_impl
         self.dtype = dtype
         self.dropout_seed = dropout_seed
@@ -304,7 +316,7 @@ class FusedForwardBackward(Unit):
             if tpe in fused.FC_TYPES or tpe in fused.CONV_TYPES:
                 name = layer.get("name", "%s_%d" % (tpe, i))
                 hyper, hyper_bias, _ = fused.layer_hyper(
-                    overrides.get(name, layer))
+                    overrides.get(name, layer), self.defaults)
                 self.gd_proxies.append(GDProxy("gd_" + name, hyper,
                                                hyper_bias))
         self.demand("input", "minibatch_class", "minibatch_size",
@@ -360,8 +372,10 @@ class FusedForwardBackward(Unit):
             dtype = numpy.float32
         self.net = fused.FusedNet(
             self.layers, input_sample_shape=tuple(self.input.shape[1:]),
-            rand=prng.get(), dtype=dtype, dropout_seed=self.dropout_seed,
-            pool_impl=self.pool_impl, objective=self.loss, device=device)
+            rand=self.rand if self.rand is not None else prng.get(),
+            dtype=dtype, defaults=self.defaults,
+            dropout_seed=self.dropout_seed, pool_impl=self.pool_impl,
+            objective=self.loss, device=device)
         self.net.stats_mean = bool(self.stats_mean)
         if self.loss == "mse":
             self.net.mse_root = bool(self.stats_root)
@@ -457,7 +471,15 @@ class FusedForwardBackward(Unit):
         always at a window boundary, so a run resumed from the
         ``midepoch`` snapshot splits the remaining minibatches into the
         same windows.  Returns the number of steps."""
-        n = self._run_train_window_inner()
+        probe = profiler.window_probe() if profiler.enabled() else None
+        n = 0
+        try:
+            n = self._run_train_window_inner(probe)
+        finally:
+            if probe is not None:
+                # closed even when the window raises: a leaked probe
+                # would keep the loader's data wait off the wall
+                probe.done(steps=n)
         if health.enabled():
             health.check_training_step(
                 self, steps=n, params=self.net.params,
@@ -468,11 +490,13 @@ class FusedForwardBackward(Unit):
             snap.window_tick()
         return n
 
-    def _run_train_window_inner(self):
+    def _run_train_window_inner(self, probe=None):
         """Collect up to ``window`` TRAIN minibatches, driving the loader
         directly and stopping at its segment's last minibatch, and run
         them as one window: sliced or gathered from the dataset on the
         device, or stacked on the host in the pinned staging ring.
+        ``probe`` is the armed profiler's window probe (None otherwise):
+        its wait after the dispatch drains the window pipeline.
         Returns the number of steps."""
         loader = self.loader_unit
         mse = self.loss == "mse"
@@ -526,6 +550,8 @@ class FusedForwardBackward(Unit):
         final = bool(loader.last_minibatch)
         hypers_s = self._stacked_hypers(hyper_steps)
         net = self.net
+        if probe is not None:
+            probe.collected()
         if faults.enabled():
             # a failed dispatch is not retried here: the supervised
             # launcher's restart and mid-epoch resume recover it
@@ -546,6 +572,10 @@ class FusedForwardBackward(Unit):
             else:
                 stats = net.run_window(up("x", n), up("lbl", n), sizes,
                                        hypers_s)
+        if probe is not None:
+            # the armed profiler's per-window wait: the device's share
+            # of the window's wall time
+            probe.dispatched(stats)
         if self.async_windows and not final:
             # no readback: bound the windows in flight with events
             self.window_stats = DEFERRED_WINDOW_STATS
@@ -659,26 +689,41 @@ class FusedForwardBackward(Unit):
             return
         if train and faults.enabled():
             faults.check("fused.dispatch")
-        self._run_minibatch(train)
+        probe = profiler.window_probe() \
+            if train and profiler.enabled() else None
+        try:
+            self._run_minibatch(train, probe)
+        finally:
+            if probe is not None:
+                probe.done(steps=1)
         if train and health.enabled():
             health.check_training_step(
                 self, steps=1, params=self.net.params,
                 updates=self.net.state, context="fused_step")
 
-    def _run_minibatch(self, train):
-        """One minibatch: a train step, or the VALID forward."""
+    def _run_minibatch(self, train, probe=None):
+        """One minibatch: a train step, or the VALID forward.  ``probe``
+        (a train step's, armed profiler only) waits for the step."""
         x = self.input.mem
+        if probe is not None:
+            probe.collected()
         if self.loss == "mse":
-            out = self.net.step_mse(
-                x, self.target.mem, int(self.minibatch_size),
-                hypers=self._current_hypers())["output"] if train else \
-                self.net.predict(x)
+            if train:
+                out = self.net.step_mse(
+                    x, self.target.mem, int(self.minibatch_size),
+                    hypers=self._current_hypers())["output"]
+                if probe is not None:
+                    probe.dispatched(out)
+            else:
+                out = self.net.predict(x)
             self.output.set_dev(out)
             return
         if train:
             metrics = self.net.step(
                 x, numpy.asarray(self.labels.mem, dtype=numpy.int32),
                 hypers=self._current_hypers())
+            if probe is not None:
+                probe.dispatched(metrics)
             out, idx = metrics["output"], metrics["max_idx"]
         else:
             out, idx = self.net.predict_with_idx(x)

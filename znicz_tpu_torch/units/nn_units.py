@@ -17,7 +17,9 @@ Counterpart of ``znicz_tpu/units/nn_units.py``:
   ``numpy_run`` / ``jax_run`` fork is one ``run`` on the unit's
   device, and the per-minibatch path reads nothing back; after each
   run the health monitor checks the unit's arrays (:516-521), where it
-  is on;
+  is on, and the armed profiler splits the run into dispatch and device
+  time (``note_gd_step``, :507-513) and counts each update's first
+  dispatch (``gd.update.<unit>.<weights|bias>``, :440);
 * ``NNWorkflow`` (:524), ``NNSnapshotterToFile`` ("nnfile", :570) and
   ``load_snapshot_into_workflow`` (:574) with the mapping of a snapshot
   between the fused and the unit-graph modes (:606-657).
@@ -26,9 +28,11 @@ The weight-broadcast and master/slave gradient protocols wait for the
 multi-GPU item of ``ROADMAP.md``.
 """
 
+import time
+
 import numpy
 
-from znicz_tpu_torch.core import health, prng
+from znicz_tpu_torch.core import health, profiler, prng
 from znicz_tpu_torch.core.accelerated_units import AcceleratedWorkflow
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.backends import deterministic, full_f32
@@ -352,8 +356,14 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
         state = dict(slots, acc=acc.dev if acc else None,
                      vel=vel.dev if vel else None)
         bias = which == "bias"
-        new_w, new_state, _ = gd_math.update(
-            w, grad, state, self._hyper(bias), self._flags(bias))
+        if profiler.enabled():
+            with gd_math.register_update_cost(
+                    "gd.update.%s.%s" % (self.name, which), w):
+                new_w, new_state, _ = gd_math.update(
+                    w, grad, state, self._hyper(bias), self._flags(bias))
+        else:
+            new_w, new_state, _ = gd_math.update(
+                w, grad, state, self._hyper(bias), self._flags(bias))
         if self.apply_gradient:
             vec.set_dev(new_w)
         for arr, key in ((acc, "acc"), (vel, "vel")):
@@ -365,9 +375,19 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
     def _fire(self):
         """The scheduler's call; after a run, the health monitor's check
         of this unit's gradients, weights and updates (JAX
-        nn_units.py:516-521), interval-gated inside."""
+        nn_units.py:516-521), interval-gated inside.  The armed
+        profiler's step breakdown splits the run into dispatch and
+        device time (``profiler.note_gd_step``, a synchronize paid only
+        while armed): here, since the port's GD units' ``run`` does not
+        call a base ``run`` as the JAX units' does."""
         runs = self.run_count_
-        super(GradientDescentBase, self)._fire()
+        if profiler.enabled():
+            t0 = time.perf_counter()
+            super(GradientDescentBase, self)._fire()
+            if self.run_count_ != runs:
+                profiler.note_gd_step(self, t0)
+        else:
+            super(GradientDescentBase, self)._fire()
         if self.run_count_ != runs and health.enabled():
             health.check_gd_unit(self)
 
