@@ -369,6 +369,33 @@ failure (the script then exits non-zero and prints no result line):
     each other, one readback a TRAIN segment) and ``kanji`` over its
     synthetic glyphs (written under ``build/``), each ending on the
     card with finite metrics.
+18. fleet — the serving fleet, after serve_models, on the serve phase's
+    AlexNet package: the real CLI, ``python -m znicz_tpu_torch serve
+    alexnet=ZIP --fleet 2 --port 0`` (``--max-body-bytes`` 256 MB,
+    ``slo_enabled``, ``trace_sample_n=1``, ``wire.max_frame_mb=64``, the
+    blackbox armed under ``build/``), its banner parsed, both replicas
+    on ``cuda`` and the card's name, 0 libraries built by either.
+    Batches of 1, 8, 32 and 64 as ``.npy`` over HTTP and over the
+    router's wire, JSON at batch 1: each within ``LOG_P_TOL`` of an
+    in-process ``InferenceEngine`` on the card, the codecs bit-equal,
+    the batch-8 request alone to each replica the same bytes; each
+    replica's ``/statusz`` ``kernels`` block grown by 3 launches a
+    dispatch (read before and after: the counters live in the replica
+    processes), all 16-byte, no plain pooling.  A batch-128 frame (79
+    MB) to a replica's wire port gets the typed ``oversize`` error,
+    and a reader at the 32 MB default refuses batch 64.  One request's
+    trace: stitched at the router, its parts within [0.9, 1.05] of the
+    router's wall, ``device`` inside ``dispatch``, and ``obs --rid``
+    over the blackbox answering the same tree.  A replica SIGKILLed
+    mid-burst: every request 200 or an honest 503 that the survivor
+    never admitted, the dead one ejected, ``POST /fleet/scale_up``
+    bringing one that builds nothing and answers the survivor's bytes;
+    ``POST /fleet/retire`` mid-burst losing nothing, exit 0; SIGTERM:
+    the CLI exits 0 and no replica pid is left (``ps``,
+    ``nvidia-smi --query-compute-apps``).  Prints the router's overhead
+    p50 / p99, the batch-1 latency p50 / p99 / p999 through the fleet
+    and one replica, requests/s at 2 and 1 replicas and each process's
+    startup seconds, beside the card's name and power limit.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -384,7 +411,9 @@ resilience steps' (``resilience_net``), AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
-fused stochastic stages (``launches_by_path``; the
+fused stochastic stages, and the fleet's replicas' over the fleet
+phase's requests (``fleet``: the survivors' counters; a killed or
+retired replica's leave with it) (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
@@ -6855,6 +6884,641 @@ def _mse_samples(torch, probe, cli, prng, base, found, card):
             time.perf_counter() - t0, card))
 
 
+#: the fleet phase: batch sizes sent through the router, the frame
+#: ceiling the fleet is started with (MB), the burst clients, and the
+#: latency and throughput sample counts
+FLEET_BATCHES = (1, 8, 32, 64)
+FLEET_FRAME_MB = 64
+FLEET_CLIENTS = 4
+FLEET_LATENCY_REQUESTS = 300
+FLEET_RATE_REQUESTS = 240
+FLEET_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "fleet")
+
+
+class _FleetCli(object):
+    """``python -m znicz_tpu_torch serve alexnet=ZIP --fleet 2 --port 0``
+    as a child process, its output drained into ``lines`` by a thread;
+    :meth:`wait_banner` parses its banner."""
+
+    def __init__(self, path, bbdir):
+        argv = [sys.executable, "-u", "-m", "znicz_tpu_torch", "serve",
+                "alexnet=" + path, "--fleet", "2", "--port", "0",
+                "--max-batch", "64", "--max-body-bytes", str(256 << 20),
+                "--config", "common.serving.slo_enabled=True",
+                "--config", "common.serving.trace_sample_n=1",
+                "--config", "common.serving.wire.max_frame_mb=%d"
+                % FLEET_FRAME_MB,
+                "--config", "common.telemetry.blackbox.enabled=True",
+                "--config", "common.telemetry.blackbox.dir=" + bbdir]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self.url = None
+        self.banner_s = None
+        #: every replica pid seen, so a failed phase can stop them all
+        self.pids = set()
+        self._banner = threading.Event()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def wait_banner(self):
+        if not self._banner.wait(300) or self.url is None:
+            raise RuntimeError("fleet: no banner; output:\n%s"
+                               % "\n".join(self.lines[-40:]))
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if self.url is None and "replicas behind http://" in line:
+                self.url = line.split("behind ", 1)[1].split("/ ")[0]
+                self.banner_s = time.perf_counter() - self.t0
+                self.host, port = self.url.split("//")[1].split(":")
+                self.port = int(port)
+                self._banner.set()
+        self._banner.set()
+
+    def get(self, path, url=None, timeout=120):
+        import urllib.request
+        with urllib.request.urlopen((url or self.url) + path,
+                                    timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    def post(self, path, doc, timeout=300):
+        import urllib.request
+        req = urllib.request.Request(self.url + path,
+                                     json.dumps(doc).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    def replicas(self, state=None):
+        blocks = self.get("/statusz")["fleet"]["replicas"]
+        self.pids.update(b["pid"] for b in blocks)
+        return [b for b in blocks if state is None or b["state"] == state]
+
+    def stop(self):
+        """Stop the CLI and every replica it started, whatever state a
+        failed phase left them in: SIGTERM (the fleet's drain), then
+        SIGKILL for the CLI and for each replica still alive."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(60)
+        for pid in self.pids:
+            try:
+                with open("/proc/%d/cmdline" % pid, "rb") as f:
+                    if b"znicz_tpu_torch" not in f.read():
+                        continue  # gone, and the pid taken again
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass  # already gone
+
+
+def _fleet_npy(conn, x, rid, path="/predict/alexnet"):
+    """One ``.npy`` request on ``conn``: (status, body, headers)."""
+    conn.request("POST", path, body=_npy(x),
+                 headers={"Content-Type": "application/octet-stream",
+                          "X-Request-Id": rid})
+    resp = conn.getresponse()
+    return resp.status, resp.read(), dict(resp.getheaders())
+
+
+def _replica_counts(cli, url):
+    """A replica's forward launches (all, 16-byte), dispatches and plain
+    pools on the card, from its /statusz."""
+    doc = cli.get("/statusz", url=url)
+    k = doc["kernels"]
+    return {"launches": k["max_pooling_offsets"]["launches"],
+            "wide": k["max_pooling_offsets"]["wide"],
+            "plain": k["plain_cuda_calls"],
+            "built": k["libraries_built"],
+            "dispatches": doc["registry"]["models"]["alexnet"]["dispatches"],
+            "device": doc["device"], "device_name": doc.get("device_name")}
+
+
+def _burst(cli, images, stop, tag, on_reply=None):
+    """``FLEET_CLIENTS`` threads sending batch-1 and batch-8 ``.npy``
+    requests with unique rids through the router until ``stop`` is set;
+    returns (threads, replies, failures): a reply is (rid, rows, status,
+    the rows or the error document); ``on_reply(n)`` sees the count of
+    replies after each."""
+    import numpy
+    replies, failures = [], []
+    lock = threading.Lock()
+
+    def client(k):
+        conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+        i = 0
+        while not stop.is_set():
+            rows = 1 if i % 2 else 8
+            rid = "%s-%d-%d" % (tag, k, i)
+            try:
+                status, raw, _ = _fleet_npy(conn, images[:rows], rid)
+            except (OSError, http.client.HTTPException) as e:
+                with lock:
+                    failures.append((rid, repr(e)))
+                conn.close()
+                conn = http.client.HTTPConnection(cli.host, cli.port,
+                                                  timeout=300)
+                continue
+            body = (numpy.load(io.BytesIO(raw)) if status == 200
+                    else json.loads(raw))
+            with lock:
+                replies.append((rid, rows, status, body))
+                n = len(replies)
+            if on_reply is not None:
+                on_reply(n)
+            i += 1
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads, replies, failures
+
+
+def _until(predicate, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(0.05)
+    raise RuntimeError("fleet: %s not reached within %.0f s" % (what, timeout))
+
+
+def _rate(cli, images, n_requests):
+    """Requests/s of batch-1 ``.npy`` requests from ``FLEET_CLIENTS``
+    clients, ``n_requests`` in all, through the router."""
+    done = []
+    lock = threading.Lock()
+
+    def client(k):
+        conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+        for i in range(n_requests // FLEET_CLIENTS):
+            status, _, _ = _fleet_npy(conn, images[:1], "rate-%d-%d" % (k, i))
+            if status != 200:
+                raise RuntimeError("fleet: a rate request answered %d"
+                                   % status)
+            with lock:
+                done.append(1)
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    dt = time.perf_counter() - t0
+    if len(done) != n_requests // FLEET_CLIENTS * FLEET_CLIENTS:
+        raise RuntimeError("fleet: %d of the rate requests answered"
+                           % len(done))
+    return len(done) / dt
+
+
+def _latencies(host, port, images, n, path="/predict/alexnet"):
+    """``n`` sequential batch-1 ``.npy`` request latencies (s)."""
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    out = []
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            status, _, _ = _fleet_npy(conn, images[:1], "lat-%d" % i, path)
+            out.append(time.perf_counter() - t0)
+            if status != 200:
+                raise RuntimeError("fleet: a latency request answered %d"
+                                   % status)
+    finally:
+        conn.close()
+    return out
+
+
+def _compute_pids():
+    """PIDs of the processes that hold a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return {int(t) for t in out.split() if t.strip().isdigit()}
+
+
+def phase_fleet(torch, card):
+    """The serving fleet (slice 15): the real ``serve --fleet 2`` CLI in
+    front of two replica processes serving the serve phase's AlexNet
+    package on the card.  Returns the replicas' forward launches over
+    the phase's requests."""
+    import numpy
+    import urllib.error
+    from znicz_tpu_torch.serving import latency, wire
+    from znicz_tpu_torch.serving import engine as engine_mod
+
+    import shutil
+    t_phase = time.perf_counter()
+    path = os.path.join(SMOKE_DIR, "alexnet.zip")
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    bbdir = os.path.join(FLEET_DIR, "blackbox")
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    cli = _FleetCli(path, bbdir)
+    launches = 0
+    try:
+        # the reference engine loads while the fleet starts
+        ref_engine = engine_mod.InferenceEngine(path, max_batch=64,
+                                                device="cuda")
+        images = numpy.random.RandomState(15).randint(
+            -128, 128, (64,) + ref_engine.sample_shape).astype(
+                numpy.float32)
+        want = {n: ref_engine.predict(images[:n]) for n in FLEET_BATCHES}
+        del ref_engine
+        cli.wait_banner()
+        ups = cli.replicas("up")
+        name = torch.cuda.get_device_name(0)
+        counts0 = {}
+        for b in ups:
+            c = _replica_counts(cli, b["url"])
+            counts0[b["id"]] = c
+            if c["device"] != "cuda" or c["device_name"] != name:
+                raise RuntimeError("fleet: replica %s serves on %s (%s), "
+                                   "not on %s" % (b["id"], c["device"],
+                                                  c["device_name"], name))
+        if len(ups) != 2:
+            raise RuntimeError("fleet: %d replicas up" % len(ups))
+        say("== fleet: `serve alexnet=ZIP --fleet 2 --port 0` banner after "
+            "%.2f s, at %s; replicas %s, each on cuda %s, startup %s s, "
+            "libraries built %s; %s"
+            % (cli.banner_s, cli.url, [b["id"] for b in ups],
+               name, [b["startup_s"] for b in ups],
+               [counts0[b["id"]]["built"] for b in ups], card))
+        replies = _fleet_replies(cli, images, want)
+        counts1 = {b["id"]: _replica_counts(cli, b["url"]) for b in ups}
+        for rid, c1 in counts1.items():
+            c0 = counts0[rid]
+            d, dl = (c1["dispatches"] - c0["dispatches"],
+                     c1["launches"] - c0["launches"])
+            # AlexNet's three max pools: three forward launches a dispatch
+            if d <= 0 or dl != 3 * d or \
+                    c1["wide"] - c0["wide"] != dl or \
+                    c1["plain"] != c0["plain"]:
+                raise RuntimeError(
+                    "fleet: replica %s: %d dispatches, %d launches (%d at "
+                    "16 bytes), %d plain pools on the card; expected 3 "
+                    "launches a dispatch, every replica serving"
+                    % (rid, d, dl, c1["wide"] - c0["wide"],
+                       c1["plain"] - c0["plain"]))
+            launches += dl
+            say("   replica %s: %d dispatches, %d forward launches (3 a "
+                "dispatch, all 16-byte), no plain pooling" % (rid, d, dl))
+        _frame_ceiling(cli, ups[0], images)
+        rate2 = _rate(cli, images, FLEET_RATE_REQUESTS)
+        lat_fleet = latency.quantile_summary(_latencies(
+            cli.host, cli.port, images, FLEET_LATENCY_REQUESTS))
+        host, port = ups[0]["url"].split("//")[1].split(":")
+        lat_one = latency.quantile_summary(_latencies(
+            host, int(port), images, FLEET_LATENCY_REQUESTS))
+        traced = _fleet_trace(cli, images, bbdir)
+        launches += _fleet_kill(cli, images, want)
+        launches += _fleet_retire(cli, images, want)
+        rate1 = _rate(cli, images, FLEET_RATE_REQUESTS)
+        overhead = cli.get("/slo")["router_overhead_ms"]
+        startups = {b["id"]: b["startup_s"] for b in cli.replicas()}
+        pids = [b["pid"] for b in cli.replicas()]
+        _fleet_sigterm(cli, pids)
+    except BaseException:
+        say("   the fleet CLI's last output:\n" + "\n".join(cli.lines[-40:]))
+        raise
+    finally:
+        cli.stop()
+    say("   router overhead (router wall - X-Serving-Ms, %d proxied 200s): "
+        "p50 %.3f ms, p99 %.3f ms; %s"
+        % (overhead["count"], overhead["p50_ms"], overhead["p99_ms"], card))
+    for label, q in (("through the fleet", lat_fleet),
+                     ("one replica direct", lat_one)):
+        say("   batch-1 .npy latency %s (%d sequential): p50 %.3f ms, p99 "
+            "%.3f ms, p999 %.3f ms; %s" % (label, q["count"], q["p50_ms"],
+                                           q["p99_ms"], q["p999_ms"], card))
+    say("   requests/s (batch 1, %d clients, %d requests): %.1f at 2 "
+        "replicas, %.1f at 1; %s" % (FLEET_CLIENTS, FLEET_RATE_REQUESTS,
+                                     rate2, rate1, card))
+    say("   startup s: the CLI to its banner %.2f, replicas %s; %s"
+        % (cli.banner_s, startups, card))
+    say("   the traced request %s: router wall %.3f ms, parts %.3f ms"
+        % (traced["rid"], traced["wall_ms"], traced["parts_ms"]))
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    say("   fleet phase wall %.1f s, %d replica forward launches over its "
+        "requests" % (time.perf_counter() - t_phase, launches))
+    return launches
+
+
+def _fleet_replies(cli, images, want):
+    """Batches 1, 8, 32 and 64 as ``.npy`` over HTTP and over the
+    router's wire, JSON at batch 1: each within ``LOG_P_TOL`` of the
+    in-process engine's rows; the codecs bit-identical; the batch-8
+    request alone to each replica bit-identical."""
+    import numpy
+    from znicz_tpu_torch.serving import wire
+    conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+    wire_port = cli.get("/healthz")["wire_port"]
+    wconn = wire.WireConn(cli.host, wire_port, timeout=300)
+    outs = {}
+    try:
+        for n in FLEET_BATCHES:
+            status, raw, headers = _fleet_npy(conn, images[:n], "b%d" % n)
+            if status != 200:
+                raise RuntimeError("fleet: batch %d answered %d: %r"
+                                   % (n, status, raw[:300]))
+            y = numpy.load(io.BytesIO(raw))
+            kind, meta, body = wconn.request(
+                {"rid": "w%d" % n, "model": "alexnet"},
+                wire.npy_bytes(images[:n]), timeout=300)
+            if kind != wire.KIND_RESPONSE or meta["status"] != 200:
+                raise RuntimeError("fleet: the wire answered %s %s"
+                                   % (kind, meta))
+            yw = wire.parse_npy(body)
+            if y.shape != want[n].shape or not numpy.isfinite(y).all():
+                raise RuntimeError("fleet: a reply of shape %s" % (y.shape,))
+            err = _prob_errors([(y, want[n]), (yw, want[n])])
+            say("   batch %d: HTTP .npy and wire replies against the "
+                "in-process engine: max |diff log p| %.3g (bit-equal to "
+                "it: %s; HTTP and wire bit-equal: %s)"
+                % (n, err[1], bool((y == want[n]).all()),
+                   bool((y == yw).all())))
+            if not err[1] <= LOG_P_TOL:
+                raise RuntimeError("fleet: batch %d differs from the "
+                                   "engine: %g" % (n, err[1]))
+            outs[n] = y
+        conn.request("POST", "/predict/alexnet", body=json.dumps(
+            {"inputs": images[:1].astype(int).tolist()}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        doc = json.loads(resp.read())
+        if resp.status != 200:
+            raise RuntimeError("fleet: JSON answered %d" % resp.status)
+        yj = numpy.asarray(doc["outputs"], numpy.float32)
+        if not (yj == outs[1]).all():
+            raise RuntimeError("fleet: the JSON and .npy codecs differ")
+    finally:
+        conn.close()
+        wconn.close()
+    bodies = []
+    for b in cli.replicas("up"):
+        host, port = b["url"].split("//")[1].split(":")
+        direct = http.client.HTTPConnection(host, int(port), timeout=300)
+        try:
+            bodies.append(_fleet_npy(direct, images[:8], "alone")[1])
+        finally:
+            direct.close()
+    if len(set(bodies)) != 1:
+        raise RuntimeError("fleet: the replicas answer batch 8 apart")
+    say("   JSON at batch 1 bit-equal to .npy; batch 8 alone to each "
+        "replica: the same bytes")
+    return outs
+
+
+def _frame_ceiling(cli, replica, images):
+    """A batch-128 frame (over the fleet's ceiling) to a replica's wire
+    port gets the typed ``oversize`` error frame, and a reader at the
+    32 MB default refuses a batch-64 frame the same way."""
+    import struct
+    from znicz_tpu_torch.serving import wire
+    row = images[0].nbytes
+    npy_head = len(wire.npy_bytes(images[:1])) - row
+    big = npy_head + 128 * row
+    conn = wire.WireConn(cli.host, replica["wire_port"], timeout=120)
+    try:
+        meta = json.dumps({"rid": "big", "model": "alexnet"}).encode()
+        conn.sock.sendall(struct.pack("!2sBBII", wire.MAGIC, wire.VERSION,
+                                      wire.KIND_REQUEST, len(meta), big)
+                          + meta)
+        kind, doc, _ = conn.recv_frame(timeout=120)
+    finally:
+        conn.close()
+    if kind != wire.KIND_ERROR or doc["payload"].get("reason") != "oversize":
+        raise RuntimeError("fleet: a %d-byte frame got %s %s"
+                           % (big, kind, doc))
+    frame = wire.pack_frame(wire.KIND_REQUEST, {"rid": "b64"},
+                            wire.npy_bytes(images))
+    reader = wire.FrameReader()
+    reader.feed(frame[:64])
+    try:
+        reader.next_frame()
+        raise RuntimeError("fleet: the default reader took a %d-byte body"
+                           % (len(frame) - 12))
+    except wire.WireProtocolError as e:
+        if e.reason != "oversize":
+            raise
+    say("   frame ceiling: batch 128 (%.1f MB) over the fleet's %d MB "
+        "answered the typed oversize error; the %d MB default refuses "
+        "batch 64 (%.1f MB)" % (big / 1e6, FLEET_FRAME_MB,
+                                reader.max_body >> 20, len(frame) / 1e6))
+
+
+def _fleet_trace(cli, images, bbdir):
+    """One batch-1 request's trace: stitched at the router, its parts
+    summing to the router's wall within [0.9, 1.05], the replica's
+    ``device`` span inside ``dispatch``, and ``obs --rid`` over the
+    fleet's blackbox answering the same tree."""
+    conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+    try:
+        status, _, _ = _fleet_npy(conn, images[:1], "traced-1")
+    finally:
+        conn.close()
+    if status != 200:
+        raise RuntimeError("fleet: the traced request answered %d" % status)
+    tree = cli.get("/debug/trace/traced-1")
+    ratio = tree["parts_ms"] / tree["wall_ms"]
+    rep = [s for s in tree["spans"] if s["process"] == "replica"]
+    dev = [s for s in rep if s["kind"] == "device"]
+    disp = [s for s in rep if s["kind"] == "dispatch"]
+    if not (tree.get("stitched") and tree["complete"] and dev and disp
+            and 0.9 <= ratio <= 1.05):
+        raise RuntimeError("fleet: the trace of traced-1: %s"
+                           % json.dumps(tree)[:2000])
+    dev, disp = dev[0], disp[0]
+    if not (disp["start_ms"] - 1e-3 <= dev["start_ms"] and
+            dev["start_ms"] + dev["duration_ms"] <=
+            disp["start_ms"] + disp["duration_ms"] + 1e-3):
+        raise RuntimeError("fleet: device %s is not inside dispatch %s"
+                           % (dev, disp))
+
+    def persisted():
+        # the obs CLI's entry (``python -m znicz_tpu_torch obs``) in this
+        # process: a child would pay torch's import again
+        import contextlib
+        from znicz_tpu_torch.core import blackbox
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = blackbox.cli_main(["--dir", bbdir, "--rid", "traced-1",
+                                    "--json"])
+        doc = json.loads(out.getvalue().strip().splitlines()[-1])
+        return doc if rc == 0 and doc.get("stitched") else None
+
+    stitched = _until(persisted, 60, "the persisted trees of traced-1")[
+        "stitched"]
+    if stitched["span_kinds"] != tree["span_kinds"] or \
+            stitched["wall_ms"] != tree["wall_ms"]:
+        raise RuntimeError("fleet: obs --rid answered another tree")
+    say("   traced-1: stitched across the router and replica %s, parts / "
+        "wall %.3f, device (%.3f ms) inside dispatch (%.3f ms); obs --rid "
+        "over the fleet's blackbox answers the same tree"
+        % (tree["replica"], ratio, dev["duration_ms"],
+           disp["duration_ms"]))
+    return tree
+
+
+def _check_burst(replies, failures, want, what):
+    """Every burst request answered, 200 or 503, and every 200 within
+    ``LOG_P_TOL`` of the engine's rows."""
+    bad = [r for r in replies if r[2] not in (200, 503)]
+    if failures or bad:
+        raise RuntimeError("fleet %s: failures %s, statuses %s"
+                           % (what, failures[:3], bad[:3]))
+    ok = [(body, want[rows]) for _, rows, status, body in replies
+          if status == 200]
+    err = _prob_errors(ok)
+    if not err[1] <= LOG_P_TOL:
+        raise RuntimeError("fleet %s: a reply %g from the engine's"
+                           % (what, err[1]))
+    return err
+
+
+def _fleet_kill(cli, images, want):
+    """SIGKILL a replica mid-burst: every request answers 200 or an
+    honest 503; no rid the router gave up on reached the survivor (the
+    admitted oracle); the dead replica is ejected; ``/fleet/scale_up``
+    brings a replica that builds no library and answers the survivor's
+    batch-8 bytes.  Returns the survivor's and the new replica's
+    launches (the victim's counters die with it)."""
+    import signal
+    victim, survivor = cli.replicas("up")[:2]
+    c0 = _replica_counts(cli, survivor["url"])
+    stop = threading.Event()
+    killed = threading.Event()
+
+    def kill_at(n):
+        if n == 12 and not killed.is_set():
+            killed.set()
+            os.kill(victim["pid"], signal.SIGKILL)
+
+    threads, replies, failures = _burst(cli, images, stop, "kill", kill_at)
+    try:
+        killed.wait(300)
+        _until(lambda: [b for b in cli.replicas()
+                        if b["id"] == victim["id"]][0]["state"] == "dead",
+               60, "the dead replica's ejection")
+        n_after = len(replies)
+        _until(lambda: len(replies) >= n_after + 12, 120,
+               "traffic after it")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    _check_burst(replies, failures, want, "kill")
+    unsafe = [r for r in replies if r[2] == 503]
+    for rid, _, _, doc in unsafe:
+        if doc.get("retry_safe") is not False and "draining" not in \
+                str(doc.get("error")):
+            raise RuntimeError("fleet: a 503 that is not honest: %s" % doc)
+        if cli.get("/admitted/" + rid, url=survivor["url"])["admitted"]:
+            raise RuntimeError("fleet: %s was dispatched twice" % rid)
+    states = {b["id"]: b for b in cli.replicas()}
+    if states[survivor["id"]]["state"] != "up":
+        raise RuntimeError("fleet: the survivor is %s"
+                           % states[survivor["id"]])
+    t0 = time.perf_counter()
+    new = cli.post("/fleet/scale_up", {})["replica"]
+    up_s = time.perf_counter() - t0
+    c_new = _replica_counts(cli, new["url"])
+    if c_new["built"] != 0 or c_new["device"] != "cuda":
+        raise RuntimeError("fleet: the new replica built %d libraries on %s"
+                           % (c_new["built"], c_new["device"]))
+    bodies = []
+    for b in (survivor, new):
+        host, port = b["url"].split("//")[1].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=300)
+        try:
+            bodies.append(_fleet_npy(conn, images[:8], "alone-2")[1])
+        finally:
+            conn.close()
+    if bodies[0] != bodies[1]:
+        raise RuntimeError("fleet: the new replica answers batch 8 apart")
+    c1 = _replica_counts(cli, survivor["url"])
+    c_new1 = _replica_counts(cli, new["url"])
+    launches = (c1["launches"] - c0["launches"] +
+                c_new1["launches"] - c_new["launches"])
+    say("   SIGKILL of %s mid-burst: %d requests, %d answered 200, %d an "
+        "honest 503 none of which the survivor admitted; ejected; "
+        "scale_up brought %s in %.2f s (startup %.2f s, 0 libraries "
+        "built), its batch-8 bytes the survivor's"
+        % (victim["id"], len(replies), len(replies) - len(unsafe),
+           len(unsafe), new["id"], up_s, new["startup_s"]))
+    return launches
+
+
+def _fleet_retire(cli, images, want):
+    """``POST /fleet/retire {"wait_s": 60}`` mid-burst: no request lost
+    or failed, and the retired replica exits 0.  Returns the staying
+    replica's launches over the burst (the retired one's counters leave
+    with it)."""
+    ups = cli.replicas("up")
+    c0 = {b["id"]: _replica_counts(cli, b["url"]) for b in ups}
+    stop = threading.Event()
+    threads, replies, failures = _burst(cli, images, stop, "retire")
+    try:
+        _until(lambda: len(replies) >= 12, 120,
+               "traffic before the retire")
+        doc = cli.post("/fleet/retire", {"wait_s": 60})
+        n_after = len(replies)
+        _until(lambda: len(replies) >= n_after + 12, 120,
+               "traffic after the retire")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    _check_burst(replies, failures, want, "retire")
+    if any(r[2] != 200 for r in replies):
+        raise RuntimeError("fleet: the retire lost requests: %s"
+                           % [r[3] for r in replies if r[2] != 200][:3])
+    victim = doc["replica"]
+    if victim["exit_code"] != 0:
+        raise RuntimeError("fleet: the retired replica exited %s"
+                           % victim["exit_code"])
+    left = [b for b in ups if b["id"] != victim["id"]][0]
+    launches = _replica_counts(cli, left["url"])["launches"] - \
+        c0[left["id"]]["launches"]
+    say("   retire of %s mid-burst: %d requests, all 200; exit code 0"
+        % (victim["id"], len(replies)))
+    return launches
+
+
+def _fleet_sigterm(cli, pids):
+    """SIGTERM drains the fleet: the CLI exits 0 and no replica is left
+    on the card."""
+    import signal
+    cli.proc.send_signal(signal.SIGTERM)
+    code = cli.proc.wait(120)
+    if code != 0:
+        raise RuntimeError("fleet: the CLI exited %s after SIGTERM; "
+                           "output:\n%s" % (code, "\n".join(cli.lines[-20:])))
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    on_card = _compute_pids() & set(pids)
+    if left or on_card:
+        raise RuntimeError("fleet: replicas %s alive, %s on the card"
+                           % (left, sorted(on_card)))
+    say("   SIGTERM: the CLI drained and exited 0; no replica pid left "
+        "(ps, nvidia-smi)")
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -6890,6 +7554,9 @@ def main():
 
 
 def _phases(torch, name, card, start):
+    # numpy imports numpy.random lazily; the drawing threads below must
+    # not be the first to import it, two at once (a half-made module)
+    import numpy.random  # noqa: F401
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
     from znicz_tpu_torch.samples import alexnet
     marks = [("start", start), ("device and import", time.perf_counter())]
@@ -6957,6 +7624,8 @@ def _phases(torch, name, card, start):
     marks.append(("mse_zoo", time.perf_counter()))
     by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
     marks.append(("serve_models", time.perf_counter()))
+    fleet_launches = phase_fleet(torch, card)
+    marks.append(("fleet", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -6981,18 +7650,20 @@ def _phases(torch, name, card, start):
                "replaces": cuda_pooling.REPLACES,
                "launches": sum(by_width.values()) + sum(
                    p["forward"] for p in paths.values()) + sum(
-                       by_dtype.values()) + serve_retry_launches,
+                       by_dtype.values()) + serve_retry_launches +
+               fleet_launches,
                "launches_by_path": dict(
                    serve=sum(by_width.values()),
                    serve_models=sum(by_dtype.values()),
                    resilience_serve=serve_retry_launches,
+                   fleet=fleet_launches,
                    **{k: p["forward"] for k, p in paths.items()}),
                "launches_by_dtype": by_dtype,
                "launches_by_width": {
                    k: by_width[k] + sum(p["forward_by_width"][k]
                                         for p in paths.values()) + (
-                       sum(by_dtype.values()) + serve_retry_launches
-                       if k == WIDE else 0)
+                       sum(by_dtype.values()) + serve_retry_launches +
+                       fleet_launches if k == WIDE else 0)
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),

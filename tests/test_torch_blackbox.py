@@ -6,8 +6,8 @@ torn tails included; ``scan``, ``read_all``, ``timeline``,
 ``checkpoint_payloads``, ``query_rate`` and ``postmortem`` answer the
 same for the same segments in both (exactly: tolerance 0); the port's
 writer, sinks, rotation and retention, crash report, ``/debug/blackbox``
-and ``obs`` CLI behave as the JAX package's.  ``obs --rid`` raises
-(request traces are not in this slice of the port).
+and ``obs`` CLI behave as the JAX package's, ``obs --rid`` and
+``query_rid`` included.
 """
 
 import json
@@ -255,11 +255,47 @@ def test_timeline_merges_sources_and_filters(tmp_path, writers):
         ["b.two", "a.three"]
 
 
-def test_query_rid_raises_naming_the_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blackbox.query_rid(str(tmp_path), "q-1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blackbox.cli_main(["--dir", str(tmp_path), "--rid", "q-1"])
+def test_query_rid_raises_naming_the_roadmap(tmp_path, capsys):
+    """``obs --rid`` no longer raises (the request traces are in the
+    port now): ``query_rid`` answers JAX's payload for the same
+    segments — journal events by rid, the persisted trees, and the
+    router tree re-stitched with the replica's."""
+    from znicz_tpu.serving import reqtrace as jax_reqtrace
+    d = str(tmp_path / "bb")
+    _two_sources(d, (blackbox, blackbox))
+    assert blackbox.query_rid(d, "q-1") == jax_blackbox.query_rid(d, "q-1")
+    router_tree = {"rid": "r-1", "origin": "router", "complete": True,
+                   "wall_ms": 10.0, "spans": [
+                       {"kind": "replica_wait", "start_ms": 2.0,
+                        "duration_ms": 6.0,
+                        "attrs": {"replica": "r0"}}]}
+    replica_tree = {"rid": "r-1", "origin": "serving", "complete": True,
+                    "wall_ms": 4.0, "spans": [
+                        {"kind": "dispatch", "start_ms": 1.0,
+                         "duration_ms": 2.0}]}
+    w = blackbox._Writer("router", d)
+    w.boot = "e" + w.boot
+    w.write({"bb": "trace", "t": 5.0, "rid": "r-1", "tree": router_tree})
+    w.close()
+    w = blackbox._Writer("replica", d)
+    w.boot = "d" + w.boot
+    w.write({"bb": "trace", "t": 5.5, "rid": "r-1", "tree": replica_tree})
+    w.close()
+    got = blackbox.query_rid(d, "r-1")
+    assert got == jax_blackbox.query_rid(d, "r-1")
+    assert [e["kind"] for e in got["events"]] == ["b.two", "a.three"]
+    assert len(got["traces"]) == 2
+    source = [t["source"] for t in got["traces"]
+              if t["tree"]["origin"] == "serving"][0]
+    assert got["stitched"] == jax_reqtrace.stitch(
+        router_tree, replica_tree, replica=source)
+    capsys.readouterr()
+    assert blackbox.cli_main(["--dir", d, "--rid", "r-1", "--json"]) == 0
+    assert json.loads(capsys.readouterr().out) == json.loads(
+        json.dumps(got, default=str))
+    assert blackbox.cli_main(["--dir", d, "--rid", "r-1"]) == 0
+    out = capsys.readouterr().out
+    assert "2 persisted trace trees, stitched" in out
 
 
 def test_query_rate_spans_restarts(tmp_path):

@@ -239,7 +239,7 @@ def test_alexnet_sample_full_width_manifest():
 def test_batcher_coalesces_and_scatters():
     calls = []
 
-    def twice(x):
+    def twice(x, request_ids=None):
         calls.append(len(x))
         return x * 2
 
@@ -260,7 +260,7 @@ def _blocked_batcher(**kw):
     """A batcher whose dispatch blocks until the returned event is set."""
     release = threading.Event()
 
-    def blocked(x):
+    def blocked(x, request_ids=None):
         release.wait(10)
         return x
 

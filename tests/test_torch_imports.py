@@ -130,7 +130,12 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.core.profiler",
                  "znicz_tpu_torch.core.timeseries",
                  "znicz_tpu_torch.core.pyprof",
-                 "znicz_tpu_torch.core.blackbox"):
+                 "znicz_tpu_torch.core.blackbox",
+                 "znicz_tpu_torch.serving.latency",
+                 "znicz_tpu_torch.serving.slo",
+                 "znicz_tpu_torch.serving.reqtrace",
+                 "znicz_tpu_torch.serving.wire",
+                 "znicz_tpu_torch.serving.router"):
         assert name in doc["modules"]
 
 

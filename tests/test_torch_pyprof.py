@@ -349,7 +349,7 @@ def test_the_ports_threads_are_named():
         max_batch = 2
         sample_shape = (3,)
 
-        def predict(self, x):
+        def predict(self, x, request_ids=None):
             return numpy.zeros((len(x), 2), numpy.float32)
 
     server = StatusServer(None, port=0).start()

@@ -2,13 +2,18 @@
 the per-bucket circuit breaker, the model registry and their HTTP front
 end.
 
-* ``tests/unit/test_continuous_batcher.py`` case for case where the
-  port has the feature (the request-id cases belong to the fleet router,
-  which the port has not): immediate dispatch when idle, coalescing
+* ``tests/unit/test_continuous_batcher.py`` case for case: immediate
+  dispatch when idle, coalescing
   while the slots are busy, round-robin across models, shape lanes that
   never mix, the queue limit, deadlines, a failing dispatch failing only
   its batch, the draining stop, unknown models, the stale lane cap and
-  oversize requests; plus the priority lanes.
+  oversize requests; plus the priority lanes, and the request ids
+  (slice 15): the admitted ring's bounds and a shed request never
+  admitted (``tests/unit/test_priority_lanes.py``), the ids reaching
+  the engine that serves the model at dispatch, also after the model
+  is replaced (``test_rid_aware_cache_invalidates_on_model_replace``;
+  the port caches nothing per engine: every engine's ``predict`` takes
+  ``request_ids``).
 * The breaker cases of ``tests/functional/test_serving_resilience.py``,
   a monkeypatched dispatch that raises in place of fault injection:
   open after the threshold, 503 with ``Retry-After`` without a
@@ -63,7 +68,7 @@ class RecordingModel(object):
         self.fail = fail
         self.lock = threading.Lock()
 
-    def predict(self, x):
+    def predict(self, x, request_ids=None):
         self.gate.wait(10)
         if self.fail:
             raise RuntimeError("dispatch boom")
@@ -143,7 +148,7 @@ def test_round_robin_fairness_across_models():
             super().__init__()
             self.tag = tag
 
-        def predict(self, x):
+        def predict(self, x, request_ids=None):
             y = super().predict(x)
             order.append(self.tag)
             return y
@@ -171,7 +176,7 @@ def test_round_robin_fairness_across_models():
 def test_shape_lanes_never_mix():
     seen = []
 
-    def predict(x):
+    def predict(x, request_ids=None):
         seen.append(numpy.asarray(x).shape)
         return numpy.asarray(x)
 
@@ -648,3 +653,72 @@ def test_registry_over_http(packages):
         single.stop()
     with pytest.raises(ValueError, match="exactly one"):
         ServingServer(port=0)
+
+
+# -- request ids: the admitted ring and the engine's ids --------------------
+
+def _unstarted(model, **kw):
+    """A batcher that admits but has no slot running (as JAX's tests
+    hold one): what it admits stays queued."""
+    kw = dict(dict(max_inflight=1, queue_limit=64, timeout_ms=0), **kw)
+    b = ContinuousBatcher(model, **kw)
+    b._running = True
+    return b
+
+
+def test_admitted_ring_records_and_bounds(monkeypatch):
+    monkeypatch.setattr(root.common.serving, "admitted_rid_capacity", 4)
+    b = _unstarted(RecordingModel(), queue_limit=1024)
+    try:
+        for i in range(6):
+            b.submit(_rows(1), request_id="rid-%d" % i)
+        status = [b.admitted_status("rid-%d" % i)["admitted"]
+                  for i in range(6)]
+        assert status == [False, False, True, True, True, True]
+        st = b.admitted_status("never-seen")
+        assert st["admitted"] is False and st["evictions"] == 2
+        assert st["oldest_retained_ts"] <= time.time()
+        assert b.admitted_status(None)["admitted"] is False
+    finally:
+        b.stop(flush=False)
+
+
+def test_shed_request_is_never_marked_admitted():
+    b = _unstarted(RecordingModel(max_batch=100), queue_limit=10)
+    try:
+        b.submit(_rows(9), priority="high", request_id="kept")
+        with pytest.raises(QueueFullError):
+            b.submit(_rows(5), priority="high", request_id="shed")
+        kept = b.admitted_status("kept")
+        assert kept["admitted"] is True
+        assert b.admitted_status("shed") == dict(kept, admitted=False)
+    finally:
+        b.stop(flush=False)
+
+
+def test_rid_aware_cache_invalidates_on_model_replace():
+    class RidAwareModel(RecordingModel):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.rids = []
+
+        def predict(self, x, request_ids=None):
+            with self.lock:
+                self.rids.append(request_ids)
+            return numpy.asarray(x) + 1.0
+
+    first = RidAwareModel()
+    registry = FakeRegistry({"m": first})
+    b = _batcher(registry)
+    try:
+        b.submit(_rows(1), model="m", request_id="r1").result(timeout=5)
+        assert first.rids == [["r1"]]
+        aware = RidAwareModel()
+        registry.engines["m"] = aware
+        b.submit(_rows(1), model="m", request_id="r2").result(timeout=5)
+        b.submit(_rows(1), model="m").result(timeout=5)
+        assert aware.rids == [["r2"], None]
+        assert first.rids == [["r1"]]
+    finally:
+        b.stop()
+

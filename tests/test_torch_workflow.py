@@ -317,11 +317,19 @@ def test_left_out_modes_raise(kwargs):
                                   ["alexnet", "--optimize", "2x2"],
                                   ["profile", "alexnet"],
                                   ["obs", "--rid", "r1"]])
-def test_left_out_cli_options_raise(argv, monkeypatch):
+def test_left_out_cli_options_raise(argv, monkeypatch, tmp_path, capsys):
     """Left-out options raise, naming ROADMAP.md; ``--max-restarts`` and
     the ``profile`` subcommand, once among them, now supervise and
     profile the run, and without CUDA (and without ``--device cpu``)
-    they raise at once instead of running."""
+    they raise at once instead of running; ``obs --rid``, once among
+    them too, now follows a request's persisted traces (an empty
+    directory answers no event and no tree)."""
+    if argv[0] == "obs":
+        monkeypatch.setattr(root.common.telemetry.blackbox, "dir",
+                            str(tmp_path))
+        assert cli.main(argv + ["--json"]) == 0
+        assert '"stitched": null' in capsys.readouterr().out
+        return
     if argv[0] == "profile":
         from znicz_tpu_torch import launcher
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -40,8 +40,9 @@ the profiler armed under one device trace and writes ``trace.json`` and
 profiler`), or captures a running server's trace; ``obs`` reads the
 durable blackbox (:mod:`znicz_tpu_torch.core.blackbox`), which a run
 arms with ``--config common.telemetry.blackbox.enabled=True`` (role
-"train").  ``--optimize``, ``--parity`` and ``obs --rid`` are not in
-this slice of the port (``ROADMAP.md``).
+"train"); ``obs --rid`` follows one request's persisted trace trees.
+``--optimize`` and ``--parity`` are not in this slice of the port
+(``ROADMAP.md``).
 """
 
 import argparse

@@ -21,17 +21,18 @@ that survives the crash:
   closes a segment with an fsync of the file, then of its directory;
   size-based retention deletes the oldest segments first, never the
   live one;
+* request traces: every head-sampled tree
+  (:mod:`znicz_tpu_torch.serving.reqtrace`) is persisted when it
+  closes (:func:`_on_trace`, the reqtrace finish sink); a fleet's
+  router tree and replica tree for one rid land in their own
+  processes' segments and :func:`query_rid` re-stitches them;
 * the query CLI ``python -m znicz_tpu_torch obs`` (:func:`cli_main`):
-  the merged cross-process timeline, ``--rate`` over the checkpoints
-  across restarts and ``--postmortem ROLE``; ``GET /debug/blackbox``
-  on every :class:`~znicz_tpu_torch.core.status_server.HandlerBase`
-  server answers the writer's stats.
+  the merged cross-process timeline, ``--rid`` following one request,
+  ``--rate`` over the checkpoints across restarts and ``--postmortem
+  ROLE``; ``GET /debug/blackbox`` on every :class:`~znicz_tpu_torch.
+  core.status_server.HandlerBase` server answers the writer's stats.
 
-The JAX package also persists every head-sampled request trace and
-re-stitches a request's router and replica trees (``--rid``); both
-need ``serving/reqtrace.py``, which the port does not have yet, so
-``obs --rid`` raises ``NotImplementedError`` (``ROADMAP.md``).  The
-writer's lock is a ``threading.Lock``.
+The writer's lock is a ``threading.Lock``.
 
 Everything gates on ``root.common.telemetry.blackbox.enabled``: off,
 :func:`maybe_arm` returns after one config read, no sink is installed,
@@ -298,6 +299,15 @@ def _on_sweep(sweeps, now):
                  "sweeps": int(sweeps), "series": series})
 
 
+def _on_trace(rid, tree):
+    """reqtrace finish sink: one closed head-sampled tree -> one
+    durable record (JAX :319-328)."""
+    w = _writer
+    if w is not None and tree is not None:
+        w.write({"bb": "trace", "t": round(time.time(), 6),
+                 "rid": rid, "tree": tree})
+
+
 def maybe_arm(role=None):
     """Arm the durable blackbox iff the gate is on (idempotent; the
     first arm wins the role).  Called by ``HttpServerBase.start`` and,
@@ -315,8 +325,10 @@ def maybe_arm(role=None):
             _writer = _Writer(effective, configured_dir())
     from znicz_tpu_torch.core import telemetry
     from znicz_tpu_torch.core import timeseries
+    from znicz_tpu_torch.serving import reqtrace
     telemetry.set_journal_sink(_on_journal)
     timeseries.set_checkpoint_sink(_on_sweep)
+    reqtrace.set_finish_sink(_on_trace)
     return True
 
 
@@ -345,8 +357,10 @@ def reset():
         w.close()
     from znicz_tpu_torch.core import telemetry
     from znicz_tpu_torch.core import timeseries
+    from znicz_tpu_torch.serving import reqtrace
     telemetry.set_journal_sink(None)
     timeseries.set_checkpoint_sink(None)
+    reqtrace.set_finish_sink(None)
 
 
 def stats():
@@ -459,12 +473,43 @@ def timeline(directory, n=0, kind=None, rid=None, roles=None):
 
 
 def query_rid(directory, rid):
-    """Follow one request across every process's segments: needs the
-    persisted request traces and their re-stitch
-    (``serving/reqtrace.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "obs --rid needs serving/reqtrace.py, which is not in this slice "
-        "of the port (see ROADMAP.md)")
+    """Follow one request across every process's segments (JAX
+    :499-538): its journal events, every persisted trace tree, and —
+    when a router tree and a replica tree both survived — the
+    re-stitched cross-process trace (``reqtrace.stitch``, what ``GET
+    /debug/trace/<rid>`` on the router answered live)."""
+    records, torn = read_all(directory)
+    events = []
+    trees = []  # (source, tree)
+    for source, rec in records:
+        if rec.get("bb") == "trace" and rec.get("rid") == rid:
+            trees.append((source, rec.get("tree") or {}))
+        elif rec.get("bb") == "journal" and rid in (
+                rec.get("rid"), rec.get("exemplar_rid"),
+                rec.get("request_id")):
+            ev = dict(rec, source=source)
+            ev.pop("bb", None)
+            events.append(ev)
+    events.sort(key=lambda e: float(e.get("t", 0.0)))
+    router = replica = None
+    replica_source = None
+    for source, tree in trees:
+        if tree.get("origin") == "router":
+            router = tree
+        else:
+            replica = tree
+            replica_source = source
+    stitched = None
+    if router is not None and replica is not None:
+        from znicz_tpu_torch.serving import reqtrace
+        stitched = reqtrace.stitch(router, replica, replica=replica_source)
+    return {
+        "rid": rid,
+        "events": events,
+        "traces": [{"source": s, "tree": t} for s, t in trees],
+        "stitched": stitched,
+        "torn": torn,
+    }
 
 
 def checkpoint_payloads(directory, roles=None):
@@ -614,9 +659,9 @@ def cli_main(argv=None):
                         help="restrict to segments of this role "
                              "(repeatable)")
     parser.add_argument("--rid", default=None,
-                        help="follow ONE request (needs the request "
-                             "traces, not in this slice of the port: "
-                             "raises)")
+                        help="follow ONE request: its journal events "
+                             "and persisted trace trees, re-stitched "
+                             "across the router and the replica")
     parser.add_argument("--rate", metavar="SERIES", default=None,
                         help="cross-restart rate() of a counter "
                              "series from the persisted checkpoints")
@@ -630,13 +675,38 @@ def cli_main(argv=None):
     parser.add_argument("--json", action="store_true",
                         help="machine-readable output")
     args = parser.parse_args(argv)
-    if args.rid:
-        query_rid(args.dir, args.rid)   # raises: no request traces yet
     directory = args.dir or configured_dir()
     if not os.path.isdir(directory):
         print("no blackbox dir at %s (arm with --config common."  # noqa: T201
               "telemetry.blackbox.enabled=True)" % directory)
         return 1
+    if args.rid:
+        out = query_rid(directory, args.rid)
+        if args.json:
+            print(json.dumps(out, default=str))  # noqa: T201
+            return 0
+        print("rid %s: %d journal event%s, %d persisted trace "  # noqa: T201
+              "tree%s%s"
+              % (args.rid, len(out["events"]),
+                 "" if len(out["events"]) == 1 else "s",
+                 len(out["traces"]),
+                 "" if len(out["traces"]) == 1 else "s",
+                 ", stitched" if out["stitched"] else ""))
+        for ev in out["events"]:
+            _print_event(ev)
+        tree = out["stitched"] or (out["traces"][-1]["tree"]
+                                   if out["traces"] else None)
+        if tree:
+            print("trace (%s, wall %s ms, complete=%s):"  # noqa: T201
+                  % (tree.get("origin"), tree.get("wall_ms"),
+                     tree.get("complete")))
+            for span in tree.get("spans", ()):
+                print("  %8.3f ms  %-14s %8.3f ms  [%s]"  # noqa: T201
+                      % (span.get("start_ms", 0.0), span["kind"],
+                         span.get("duration_ms", 0.0),
+                         span.get("process", "serving")))
+        _print_torn(out["torn"])
+        return 0
     if args.rate:
         out = query_rate(directory, args.rate, window_s=args.window,
                          roles=args.role)

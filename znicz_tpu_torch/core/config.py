@@ -102,6 +102,42 @@ root.common.update({
         # the share of queue_limit each priority admits under
         "priority_queue_pct": {"low": 50.0, "normal": 100.0,
                                "high": 100.0},
+        # the server-side SLO plane (serving/slo.py): good/total from
+        # request admission against slo_ms, the two burn windows, the
+        # budget's target and the slo.burn threshold; off, the front
+        # end pays one predicate
+        "slo_ms": 100.0,
+        "slo_enabled": False,
+        "slo_target_pct": 99.0,
+        "slo_fast_window_s": 60.0,
+        "slo_slow_window_s": 600.0,
+        "slo_burn_threshold": 2.0,
+        # per-request trace trees (serving/reqtrace.py): every Nth
+        # admitted request gets a span tree (0: off), the newest
+        # trace_capacity trees are kept
+        "trace_sample_n": 0,
+        "trace_capacity": 256,
+        # the continuous batcher's admitted-request-id ring, the fleet
+        # router's retry-safety oracle (GET /admitted/<rid>)
+        "admitted_rid_capacity": 4096,
+        # the binary framed relay between the router and its replicas
+        # (serving/wire.py)
+        "wire": {
+            "enabled": True,
+            "conns_per_replica": 2,
+            "max_frame_mb": 32.0,     # frame-body ceiling (oversize)
+            "read_timeout_ms": 10000.0,  # half-frame sweep deadline
+            "workers": 128,           # listener dispatch threads
+        },
+        # the replica fleet behind the router (serving/router.py)
+        "fleet": {
+            "replicas": 2,
+            "spawn_timeout_s": 180.0,
+            "probe_interval_s": 1.0,
+            "probe_failures": 3,
+            "route_retries": 2,
+            "overhead_window": 512,
+        },
     },
     "telemetry": {
         "enabled": False,

@@ -233,6 +233,16 @@ def install(site, **spec):
     return rule
 
 
+def clear(site=None):
+    """Disarm one site's rule (or all of them)."""
+    reg = registry()
+    with reg._lock:
+        if site is None:
+            reg.rules.clear()
+        else:
+            reg.rules.pop(site, None)
+
+
 def check(site):
     """One injection-site hit: advance the site's invocation counter
     and fire the armed rule when its deterministic trigger matches.

@@ -36,3 +36,6 @@ class Logger(object):
 
     def warning(self, msg, *args):
         self.logger.warning(msg, *args)
+
+    def exception(self, msg="Exception", *args):
+        self.logger.exception(msg, *args)

@@ -18,6 +18,9 @@ status over HTTP: ``/status.json``, ``/metrics`` and the debug views:
 * ``GET /debug/pyprof?seconds=N[&format=collapsed|speedscope]``: the
   Python sampler's profile of the next N seconds (``{"enabled":
   false}`` when its knob is off);
+* ``GET /debug/trace`` and ``GET /debug/trace/<rid>``: the sampled
+  request ids and one request's span tree
+  (:mod:`znicz_tpu_torch.serving.reqtrace`; 404 for an unsampled rid);
 * ``GET /debug/blackbox``: the durable blackbox's writer stats.
 
 The two capture endpoints share one concurrency guard: while either
@@ -43,6 +46,13 @@ from znicz_tpu_torch.core import pyprof, telemetry
 _capture_guard = threading.Lock()
 _BUSY = {"error": "another debug capture (profile or pyprof) is "
                   "already running"}
+
+
+def _json_reply(code, obj):
+    """``(code, content type, body)`` of a JSON reply, built before
+    anything is written (a capture's reply leaves after its guard is
+    released)."""
+    return code, "application/json", json.dumps(obj, default=str).encode()
 
 
 class BodyTooLargeError(ValueError):
@@ -79,8 +89,7 @@ class HandlerBase(BaseHTTPRequestHandler):
             pass
 
     def _send_json(self, code, obj, headers=None):
-        self._send(code, "application/json",
-                   json.dumps(obj, default=str).encode(), headers=headers)
+        self._send(*_json_reply(code, obj), headers=headers)
 
     def _read_body(self):
         if self.headers.get("Transfer-Encoding"):
@@ -122,6 +131,22 @@ class HandlerBase(BaseHTTPRequestHandler):
             from znicz_tpu_torch.core import timeseries
             self._send_json(200, timeseries.snapshot())
             return True
+        if path == "/debug/trace" or path.startswith("/debug/trace/"):
+            from znicz_tpu_torch.serving import reqtrace
+            rid = path[len("/debug/trace/"):]
+            if not rid:
+                self._send_json(200, {"enabled": reqtrace.enabled(),
+                                      "rids": reqtrace.rids()})
+                return True
+            tree = reqtrace.get(rid)
+            if tree is None:
+                self._send_json(404, {
+                    "error": "no sampled trace for rid %r (sampling %s; "
+                             "see root.common.serving.trace_sample_n)"
+                             % (rid, "on" if reqtrace.enabled() else "off")})
+                return True
+            self._send_json(200, tree)
+            return True
         if path == "/debug/blackbox":
             from znicz_tpu_torch.core import blackbox
             self._send_json(200, blackbox.stats())
@@ -146,8 +171,11 @@ class HandlerBase(BaseHTTPRequestHandler):
         """One capture endpoint: parse ``seconds`` (400 when it is not a
         number), take the shared guard (409 while a capture runs), run
         ``capture(seconds, qs)`` in this handler thread (the server is
-        threaded; other requests keep flowing) and answer what it sends,
-        or 500 with the error."""
+        threaded; other requests keep flowing) and answer the ``(code,
+        content type, body)`` it returns, or 500 with the error.  The
+        guard is released BEFORE the reply is written: a client that
+        sends its next capture the moment it has this reply must find
+        the guard free, never a stale 409."""
         qs = parse_qs(query)
         try:
             seconds = float(qs.get("seconds", [default_seconds])[0])
@@ -158,28 +186,30 @@ class HandlerBase(BaseHTTPRequestHandler):
             self._send_json(409, _BUSY)
             return
         try:
-            capture(seconds, qs)
+            reply = capture(seconds, qs)
         except RuntimeError as e:   # another device trace is running
-            self._send_json(409, {"error": str(e)})
+            reply = _json_reply(409, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 - always answer HTTP
-            self._send_json(500, {"error": repr(e)})
+            reply = _json_reply(500, {"error": repr(e)})
         finally:
             _capture_guard.release()
+        self._send(*reply)
 
-    def _profile_capture(self, seconds, qs):
+    @staticmethod
+    def _profile_capture(seconds, qs):
         from znicz_tpu_torch.core import profiler
-        self._send_json(200, profiler.capture_trace(seconds))
+        return _json_reply(200, profiler.capture_trace(seconds))
 
-    def _pyprof_capture(self, seconds, qs):
+    @staticmethod
+    def _pyprof_capture(seconds, qs):
         prof = pyprof.capture(seconds)
         fmt = qs.get("format", ["json"])[0]
         if fmt == "collapsed":
-            self._send(200, "text/plain; charset=utf-8",
-                       (pyprof.collapsed(prof) + "\n").encode())
-        elif fmt == "speedscope":
-            self._send_json(200, pyprof.speedscope(prof))
-        else:
-            self._send_json(200, prof)
+            return (200, "text/plain; charset=utf-8",
+                    (pyprof.collapsed(prof) + "\n").encode())
+        if fmt == "speedscope":
+            return _json_reply(200, pyprof.speedscope(prof))
+        return _json_reply(200, prof)
 
     def _send_metrics(self):
         self._send(200, "text/plain; version=0.0.4; charset=utf-8",

@@ -4,7 +4,8 @@ shared libraries with a plain C interface, for ``ctypes``.
 Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC -Xptxas -v`` into
 ``build/znicz_tpu_torch/`` under the repository root, at first use,
-named by a hash of its content and flags so an edited source rebuilds.
+named by a hash of its content and flags so an edited source rebuilds;
+:data:`BUILT` counts the libraries this process compiled.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 ptxas's report of each kernel (registers, shared memory, spills) is
 kept beside the library, in ``<library>.log``; :func:`ptxas_report`
@@ -22,6 +23,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "znicz_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: libraries this process compiled (0 where every library was built
+#: already: a fleet replica started after the first finds them)
+BUILT = 0
 
 
 def _nvcc():
@@ -65,6 +70,7 @@ def build_all(names=None):
             [nvcc] + list(NVCC_FLAGS) +
             ["-o", tmp, os.path.join(CSRC_DIR, name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    global BUILT
     failed = []
     for name, (tmp, proc) in procs.items():
         log = proc.communicate()[0]
@@ -74,6 +80,7 @@ def build_all(names=None):
         with open(outs[name] + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, outs[name])  # atomic: no half-written library
+        BUILT += 1
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

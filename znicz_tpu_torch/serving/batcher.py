@@ -15,6 +15,10 @@ each caller its rows.  Overload fails fast:
 * a full queue rejects new work with :class:`QueueFullError` (HTTP 429);
 * a request whose deadline expires while queued fails with
   :class:`RequestTimeoutError` (HTTP 504) without costing a dispatch.
+
+A request's id (``request_id=``) rides to the engine's ``predict(x,
+request_ids=...)`` (every dispatch passes it), and keys the ``queue_wait``, ``assembly`` and
+``dispatch`` spans of a sampled trace tree (:func:`note_spans`).
 """
 
 import collections
@@ -27,6 +31,7 @@ import numpy
 from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
+from znicz_tpu_torch.serving import reqtrace
 from znicz_tpu_torch.serving.engine import matches_sample_shape
 
 #: extra seconds predict() waits past the request deadline — covers a
@@ -47,21 +52,23 @@ class RequestTimeoutError(TimeoutError):
 
 
 class _Request(object):
-    __slots__ = ("arr", "rows", "future", "arrived", "deadline")
+    __slots__ = ("arr", "rows", "future", "arrived", "deadline", "rid")
 
-    def __init__(self, arr, rows, future, arrived, deadline):
+    def __init__(self, arr, rows, future, arrived, deadline, rid=None):
         self.arr = arr
         self.rows = rows
         self.future = future
         self.arrived = arrived
         self.deadline = deadline
+        self.rid = rid
 
 
 class MicroBatcher(Logger):
     """Coalesces concurrent predict requests into micro-batches.
 
     ``engine`` is an :class:`~znicz_tpu_torch.serving.engine.
-    InferenceEngine` or any ``callable(batch) -> batch``.  Unset knobs
+    InferenceEngine` or any ``callable(batch, request_ids=None) ->
+    batch``.  Unset knobs
     come from ``root.common.serving``; ``timeout_ms`` is the default
     per-request queue deadline (0/None disables)."""
 
@@ -115,10 +122,11 @@ class MicroBatcher(Logger):
             thread.join(timeout=30)
 
     # -- submission ---------------------------------------------------------
-    def submit(self, x, timeout_ms=None):
+    def submit(self, x, timeout_ms=None, request_id=None):
         """Enqueue a request; returns a ``Future`` of its output rows.
-        Raises :class:`QueueFullError` at capacity and ``ValueError``
-        for empty or oversized requests."""
+        ``request_id`` rides to the engine and keys the request's trace
+        spans.  Raises :class:`QueueFullError` at capacity and
+        ``ValueError`` for empty or oversized requests."""
         x = numpy.asarray(x)
         sample = getattr(self._engine, "sample_shape", None)
         if sample is not None and matches_sample_shape(x.shape, sample):
@@ -143,18 +151,20 @@ class MicroBatcher(Logger):
                 raise QueueFullError("queue full (%d rows queued, limit %d)"
                                      % (self._rows_queued, self.queue_limit))
             self._queue.append(_Request(x, rows, future, now,
-                                        now + timeout if timeout else None))
+                                        now + timeout if timeout else None,
+                                        rid=request_id))
             self._rows_queued += rows
             telemetry.gauge("serving.queue_depth").set(self._rows_queued)
             self._cond.notify_all()
         return future
 
-    def predict(self, x, timeout_ms=None):
+    def predict(self, x, timeout_ms=None, request_id=None):
         """Blocking submit: the output rows, or what the worker raised.
         With a deadline the wait is bounded too (deadline + grace)."""
         timeout = (self.timeout if timeout_ms is None
                    else (float(timeout_ms) / 1e3 or None))
-        future = self.submit(x, timeout_ms=timeout_ms)
+        future = self.submit(x, timeout_ms=timeout_ms,
+                             request_id=request_id)
         if timeout is None:
             return future.result()
         try:
@@ -224,10 +234,12 @@ class MicroBatcher(Logger):
             # fails this batch's futures, never the worker thread
             bucket = (self._bucket_for(rows) if self._bucket_for
                       else self.max_batch)
+            t_asm = time.monotonic()
             x = (live[0].arr if len(live) == 1 else
                  numpy.concatenate([r.arr for r in live], axis=0))
             t_dev = time.monotonic()
-            y = numpy.asarray(self._predict(x))
+            rids = [r.rid for r in live if r.rid]
+            y = numpy.asarray(self._predict(x, request_ids=rids or None))
             dev_dt = time.monotonic() - t_dev
         except Exception as e:  # noqa: BLE001 - fail the batch, not us
             telemetry.counter("serving.errors").inc()
@@ -248,7 +260,25 @@ class MicroBatcher(Logger):
                     max(now - r.arrived, 0.0))
                 telemetry.histogram("serving.device_seconds").observe(
                     dev_dt)
+        note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
         offset = 0
         for r in live:
             r.future.set_result(y[offset:offset + r.rows])
             offset += r.rows
+
+
+def note_spans(live, t_take, t_asm, t_dev, dev_dt, rows, bucket):
+    """The batcher's legs of each sampled request's span tree:
+    ``queue_wait`` (arrival to the window's close), ``assembly`` (the
+    concatenation) and ``dispatch`` (the engine call; the engine's
+    ``device`` span nests inside it).  Spans are added before the
+    futures resolve, so a woken caller sees its tree whole."""
+    if not reqtrace.enabled():
+        return
+    for r in live:
+        if r.rid and reqtrace.sampled(r.rid):
+            reqtrace.add_span(r.rid, "queue_wait", r.arrived, t_take)
+            reqtrace.add_span(r.rid, "assembly", t_asm, t_dev)
+            reqtrace.add_span(r.rid, "dispatch", t_dev, t_dev + dev_dt,
+                              rows=rows, requests=len(live),
+                              bucket=bucket)

@@ -20,9 +20,17 @@ As the micro-batcher: a full queue raises :class:`QueueFullError`
 (429), a request whose deadline passes in the queue fails with
 :class:`RequestTimeoutError` (504) without a dispatch, ``stop(flush=
 True)`` serves every queued request before the slots exit, and a
-failing dispatch fails only its own batch.  The admitted-request-id
-ring of the JAX package, which only its fleet router reads, is not in
-the port (``ROADMAP.md``).
+failing dispatch fails only its own batch.
+
+**The admitted-request-id ring** (JAX :134-147, :364): the last
+``admitted_rid_capacity`` request ids admitted to a lane, recorded
+before the request is visible to a slot.  :meth:`ContinuousBatcher.
+admitted_status` is the fleet router's retry-safety oracle (``GET
+/admitted/<rid>``): an admitted rid may have been dispatched, so it is
+never resent to a peer; the eviction count and the oldest retained
+admission time say how far back a miss proves non-admission.  Request
+ids ride to the engine's ``predict(x, request_ids=...)`` and key the
+``queue_wait``, ``assembly`` and ``dispatch`` spans of sampled trees.
 """
 
 import collections
@@ -38,7 +46,8 @@ from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.serving.batcher import (_DISPATCH_GRACE, _Request,
                                              BatcherStoppedError,
                                              QueueFullError,
-                                             RequestTimeoutError)
+                                             RequestTimeoutError,
+                                             note_spans)
 from znicz_tpu_torch.serving.engine import matches_sample_shape
 
 #: priority lanes, best first (their dispatch rank)
@@ -68,9 +77,9 @@ class _Lane(object):
 class ContinuousBatcher(Logger):
     """Continuous batching over a :class:`~znicz_tpu_torch.serving.
     registry.ModelRegistry` (``submit(..., model=name)``), one engine,
-    or any ``callable(batch) -> batch``.  Unset knobs come from
-    ``root.common.serving`` (``max_inflight``, ``queue_limit``,
-    ``timeout_ms``)."""
+    or any ``callable(batch, request_ids=None) -> batch``.  Unset knobs
+    come from ``root.common.serving`` (``max_inflight``,
+    ``queue_limit``, ``timeout_ms``)."""
 
     def __init__(self, models, max_inflight=None, queue_limit=None,
                  timeout_ms=None):
@@ -95,6 +104,13 @@ class ContinuousBatcher(Logger):
         self._running = False
         self._threads = []
         self._inflight = 0
+        #: the admitted-request-id ring: a deque of (rid, wall time)
+        #: and a set for membership, both under the condition lock
+        self._admitted_cap = int(cfg.get("admitted_rid_capacity", 4096)
+                                 or 0)
+        self._admitted_ring = collections.deque()
+        self._admitted_set = set()
+        self._admitted_evictions = 0
 
     def _resolve(self, model):
         """The engine serving ``model`` at dispatch: marks it used and
@@ -142,9 +158,12 @@ class ContinuousBatcher(Logger):
             t.join(timeout=30)
 
     # -- submission ---------------------------------------------------------
-    def submit(self, x, model=None, timeout_ms=None, priority=None):
+    def submit(self, x, model=None, timeout_ms=None, priority=None,
+               request_id=None):
         """Enqueue; returns a Future of the output rows.  ``model``
-        routes within a registry (None: its default model)."""
+        routes within a registry (None: its default model);
+        ``request_id`` enters the admitted ring and keys the request's
+        trace spans."""
         if not self._running:
             raise BatcherStoppedError("batcher is not running")
         priority = normalize_priority(priority)
@@ -168,7 +187,7 @@ class ContinuousBatcher(Logger):
                    else (float(timeout_ms) / 1e3 or None))
         future = concurrent.futures.Future()
         req = _Request(x, rows, future, now,
-                       now + timeout if timeout else None)
+                       now + timeout if timeout else None, rid=request_id)
         # one lane per generation and dtype: a hot reload never
         # coalesces requests admitted against two generations
         key = (model, x.shape[1:], getattr(engine, "serve_dtype", None),
@@ -188,6 +207,17 @@ class ContinuousBatcher(Logger):
                     "queue full for %s priority (%d rows queued, lane "
                     "limit %d of %d)" % (priority, self._rows_queued,
                                          limit, self.queue_limit))
+            if request_id and self._admitted_cap > 0 and \
+                    request_id not in self._admitted_set:
+                # recorded before a slot can see the request: a router
+                # asking after a broken connection must never hear "not
+                # admitted" for a request a slot already runs
+                self._admitted_ring.append((request_id, time.time()))
+                self._admitted_set.add(request_id)
+                while len(self._admitted_ring) > self._admitted_cap:
+                    dropped, _ = self._admitted_ring.popleft()
+                    self._admitted_set.discard(dropped)
+                    self._admitted_evictions += 1
             lane = self._lanes.get(key)
             if lane is None:
                 lane = self._lanes[key] = _Lane(max_batch)
@@ -200,12 +230,13 @@ class ContinuousBatcher(Logger):
             self._cond.notify()
         return future
 
-    def predict(self, x, model=None, timeout_ms=None, priority=None):
+    def predict(self, x, model=None, timeout_ms=None, priority=None,
+                request_id=None):
         """Blocking submit; with a deadline the wait is bounded too."""
         timeout = (self.timeout if timeout_ms is None
                    else (float(timeout_ms) / 1e3 or None))
         future = self.submit(x, model=model, timeout_ms=timeout_ms,
-                             priority=priority)
+                             priority=priority, request_id=request_id)
         if timeout is None:
             return future.result()
         try:
@@ -221,6 +252,19 @@ class ContinuousBatcher(Logger):
     @property
     def inflight(self):
         return self._inflight
+
+    def admitted_status(self, rid):
+        """The router's oracle with its coverage: a miss proves
+        non-admission only for requests admitted after
+        ``oldest_retained_ts`` (for all time while ``evictions`` is
+        0)."""
+        with self._cond:
+            return {
+                "admitted": bool(rid) and rid in self._admitted_set,
+                "evictions": self._admitted_evictions,
+                "oldest_retained_ts": (self._admitted_ring[0][1]
+                                       if self._admitted_ring else None),
+            }
 
     # -- the dispatch slots -------------------------------------------------
     def _worker(self):
@@ -304,9 +348,16 @@ class ContinuousBatcher(Logger):
             # resolution (a removed model, a failed restore) and the
             # forward fail this batch, never the slot
             engine = self._resolve(model)
+            predict = getattr(engine, "predict", engine)
+            bucket_for = getattr(engine, "bucket_for", None)
+            bucket = bucket_for(rows) if bucket_for else rows
+            t_asm = time.monotonic()
             x = (live[0].arr if len(live) == 1 else
                  numpy.concatenate([r.arr for r in live], axis=0))
-            y = numpy.asarray(getattr(engine, "predict", engine)(x))
+            t_dev = time.monotonic()
+            rids = [r.rid for r in live if r.rid]
+            y = numpy.asarray(predict(x, request_ids=rids or None))
+            dev_dt = time.monotonic() - t_dev
         except Exception as e:  # noqa: BLE001 - fail the batch, not us
             if telemetry.enabled():
                 telemetry.counter("serving.errors").inc()
@@ -326,6 +377,7 @@ class ContinuousBatcher(Logger):
                     telemetry.histogram(telemetry.labeled(
                         "serving.request_seconds", model=model)).observe(
                             done - r.arrived)
+        note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
         offset = 0
         for r in live:
             r.future.set_result(y[offset:offset + r.rows])

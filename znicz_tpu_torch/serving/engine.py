@@ -74,6 +74,7 @@ import json
 import os
 import threading
 import time
+import warnings
 import zipfile
 
 import numpy
@@ -88,7 +89,7 @@ from znicz_tpu_torch.ops import conv as conv_ops
 from znicz_tpu_torch.ops import normalization as norm_ops
 from znicz_tpu_torch.ops import pooling as pool_ops
 from znicz_tpu_torch.params import params_from_numpy
-from znicz_tpu_torch.serving import quant
+from znicz_tpu_torch.serving import quant, reqtrace
 from znicz_tpu_torch.units.zerofilling import grouping_mask
 
 
@@ -699,17 +700,28 @@ class InferenceEngine(Logger):
 
     def _dispatch(self, m, params, x):
         """One padded batch through generation ``m``: host float32 in,
-        host float32 out."""
+        host float32 out.  A read-only ``x`` (a request body's bytes
+        parsed in place) is shared, not copied: the tensor over it is
+        only read, by the copy to the device."""
         with torch.inference_mode():
-            y = forward(m.layers, params, torch.from_numpy(x).to(
-                self.device), m.serve_dtype)
+            if x.flags.writeable:
+                xt = torch.from_numpy(x)
+            else:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    xt = torch.from_numpy(x)
+            y = forward(m.layers, params, xt.to(self.device), m.serve_dtype)
             return y.cpu().numpy()
 
-    def predict(self, x):
+    def predict(self, x, request_ids=None):
         """Forward ``x`` (batch-first) through the serving generation:
         pad to the enclosing bucket, run on the device, strip the
         padding, return a float32 numpy array.  An evicted model is
-        restored first."""
+        restored first.  Each sampled id of ``request_ids`` gets the
+        ``device`` span (JAX :990-997): from before the copy to the
+        device until the result is on the host — CUDA runs
+        asynchronously, so the span ends at the readback, not when the
+        forward's Python call returns."""
         m = self._model
         if m is None:
             raise RuntimeError("no model loaded")
@@ -759,10 +771,12 @@ class InferenceEngine(Logger):
                     return self._dispatch(m, params, x)
             return self._dispatch(m, params, x)
 
+        t_fwd0 = time.monotonic()
         try:
             # transient faults are retried inside the breaker's region:
             # only an exhausted retry counts as the breaker's failure
             y = faults.retry_call(dispatch, "serving.forward")[:n]
+            t_fwd1 = time.monotonic()
         except (ValueError, TypeError):
             # the client's shapes: no evidence of the backend's health
             if breaker is not None:
@@ -778,6 +792,11 @@ class InferenceEngine(Logger):
             raise
         if breaker is not None:
             breaker.record_success()
+        if request_ids and reqtrace.enabled():
+            for r in request_ids:
+                if reqtrace.sampled(r):
+                    reqtrace.add_span(r, "device", t_fwd0, t_fwd1,
+                                      bucket=bucket, rows=n)
         with self._lock:
             self.dispatches += 1
             first = bucket not in m.warm

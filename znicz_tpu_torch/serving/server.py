@@ -30,11 +30,34 @@ Endpoints:
   before and while draining.  A registry answers 200 while any model
   is ready, with ``degraded`` and the per-model map.
 * ``GET /metrics`` — Prometheus text of the telemetry registry.
+* ``GET /statusz`` (and ``/``) — the serving stats: the engine's or the
+  registry's, the queued rows, the wire port, the ``slo`` block (when
+  the SLO plane is on), the device and the ``kernels`` block (the
+  max-pool kernels' launch counters and the libraries this process
+  built).
+* ``GET /slo`` — the SLO plane (:mod:`znicz_tpu_torch.serving.slo`,
+  ``root.common.serving.slo_enabled``): per-model good/total from
+  request admission, the burn rates of both windows, the error budget
+  remaining.
+* ``GET /admitted/<rid>`` — the continuous batcher's admitted-rid
+  oracle, the fleet router's retry-safety check.
 * ``GET /debug/faults`` and ``GET /debug/health`` — the fault
   registry's and the health monitor's status; ``GET /debug/profile``,
-  ``/debug/profiler``, ``/debug/timeseries``, ``/debug/pyprof`` and
-  ``/debug/blackbox`` — the observability plane's views
-  (:mod:`znicz_tpu_torch.core.status_server`).
+  ``/debug/profiler``, ``/debug/timeseries``, ``/debug/pyprof``,
+  ``/debug/trace[/<rid>]`` and ``/debug/blackbox`` — the observability
+  plane's views (:mod:`znicz_tpu_torch.core.status_server`).
+
+**The binary relay** (:mod:`znicz_tpu_torch.serving.wire`, JAX
+:255-316): with ``root.common.serving.wire.enabled`` (the default) the
+server arms a frame listener before its HTTP surface opens and
+advertises its port as ``wire_port`` in ``/healthz``.  A REQUEST frame
+runs the same /predict state machine as HTTP (the SLO accounting, the
+lanes, the admitted ring, the breaker, the drain, the trace), its
+``.npy`` body parsed in place; ``reply="json"`` asks for the JSON 200
+(a router relaying a JSON client's request).  Every 200 carries
+``X-Serving-Ms`` (admission to reply, in ms), which the router
+subtracts from its own wall time.  A router's ``X-Trace-Sampled`` (or
+the frame's ``sampled``) decides whether this replica traces the rid.
 
 ``serve`` names the process's main thread ``znicz:serve-main`` for the
 Python sampler and arms the durable blackbox (role "serve") before the
@@ -46,17 +69,30 @@ CLI::
     python -m znicz_tpu_torch serve --latest cifar_caffe --directory DIR
     python -m znicz_tpu_torch serve alexnet=PKG.zip@int8 cifar=SNAP@bf16 \\
         --memory-budget-bytes N --max-inflight 2
+    python -m znicz_tpu_torch serve alexnet=PKG.zip --fleet 2 --port 0
 
-The fleet, wire, SLO, release, autoscaler and tracing options of the
-JAX package's server are not in the port (``ROADMAP.md``).
+``--fleet N`` (JAX :981-1048) serves N replica processes behind a
+:class:`~znicz_tpu_torch.serving.router.FleetRouter`: each replica runs
+this command's arguments without ``--fleet``, ``--port`` and
+``--host`` (``--device`` and ``--config`` pass through), the banner
+reads ``fleet of N replicas behind http://HOST:PORT/``, an armed
+blackbox is shared (roles "router" and "replica"), and SIGTERM drains
+the fleet.  A replica whose router is gone, even SIGKILLed, drains and
+exits within a second (the router's pid rides in its environment).  ``--autoscale`` and ``--compile-cache`` are not in this
+slice of the port (``ROADMAP.md``): the parser refuses them.  The
+release plane is not either; the replicas kernels' libraries are built
+once, under ``build/znicz_tpu_torch/``, and every later replica finds
+them (the port's counterpart of the JAX fleet's shared compile cache).
 """
 
 import argparse
 import io
 import json
 import math
+import os
 import signal
 import threading
+import time
 import uuid
 
 import numpy
@@ -66,7 +102,7 @@ from znicz_tpu_torch.core.config import apply_override, root
 from znicz_tpu_torch.core.status_server import (BodyTooLargeError,
                                                 HandlerBase,
                                                 HttpServerBase)
-from znicz_tpu_torch.serving import quant
+from znicz_tpu_torch.serving import quant, reqtrace, slo, wire
 from znicz_tpu_torch.serving.batcher import (BatcherStoppedError,
                                              MicroBatcher, QueueFullError,
                                              RequestTimeoutError)
@@ -76,16 +112,29 @@ from znicz_tpu_torch.serving.continuous import (ContinuousBatcher,
 from znicz_tpu_torch.serving.engine import InferenceEngine
 from znicz_tpu_torch.serving.registry import ModelRegistry, UnknownModelError
 
+#: the wording of an option that a later slice of the port brings
+_LATER = "is not in this slice of the port (see ROADMAP.md)"
+
 
 def _parse_predict(handler):
     """``(inputs, timeout_ms, raw_reply, model, priority)`` from the
-    request; an unknown priority raises here (400)."""
+    request; an unknown priority raises here (400).  A wire exchange's
+    body was parsed on the listener; an ``.npy`` HTTP body is parsed in
+    place over the body's bytes (``wire.parse_npy``), no copy."""
+    arr = getattr(handler, "wire_inputs", None)
+    if arr is not None:
+        meta = handler.meta
+        model = meta.get("model")
+        if model is not None and not isinstance(model, str):
+            raise ValueError('"model" must be a string')
+        return (arr, meta.get("timeout_ms"), meta.get("reply") != "json",
+                model, normalize_priority(meta.get("priority")))
     body = handler._read_body()
     ctype = (handler.headers.get("Content-Type") or "").split(";")[0]
     priority = (handler.headers.get("X-Priority") or "").strip() or None
     if ctype == "application/octet-stream" or body[:6] == b"\x93NUMPY":
-        return (numpy.load(io.BytesIO(body), allow_pickle=False), None,
-                True, None, normalize_priority(priority))
+        return (wire.parse_npy(body), None, True, None,
+                normalize_priority(priority))
     doc = json.loads(body.decode() or "null")
     if isinstance(doc, dict):
         inputs, timeout_ms, model = (doc.get("inputs"),
@@ -107,6 +156,90 @@ def _read_path(handler):
     if not isinstance(doc, dict) or "path" not in doc:
         raise ValueError('body needs {"path": "..."}')
     return doc
+
+
+def kernels_block():
+    """The ``kernels`` block of ``/statusz``: the max-pool kernels'
+    launch counters in this process, its plain max pools on the card
+    (0 on the main path) and the libraries it built — a fleet replica
+    started after the first builds none (the port's counterpart of the
+    JAX block ``compile_cache``)."""
+    from znicz_tpu_torch.ops import (cuda_build, cuda_pooling,
+                                     cuda_pooling_backward, pooling)
+    return {
+        "max_pooling_offsets": {
+            "launches": cuda_pooling.LAUNCHES,
+            "wide": cuda_pooling.LAUNCHES_WIDE,
+            "narrow": cuda_pooling.LAUNCHES_NARROW},
+        "max_pooling_offsets_backward": {
+            "launches": cuda_pooling_backward.LAUNCHES},
+        "plain_cuda_calls": pooling.PLAIN_CUDA_CALLS,
+        "libraries_built": cuda_build.BUILT,
+    }
+
+
+class _WireExchange(object):
+    """One REQUEST frame presented as the handler surface
+    :meth:`ServingServer._predict` speaks (JAX :123-199): the array
+    parsed in place rides in ``wire_inputs``, ``t_recv`` dates admission
+    at the frame's completion on the listener loop, ``pre_spans`` holds
+    the ``frame_decode`` span.  A 200 answers a RESPONSE frame, anything
+    else a typed ERROR frame; ``t_sent`` is stamped just before the
+    write, so the trace closes no later than the router's read."""
+
+    __slots__ = ("request", "meta", "wire_inputs", "t_recv", "pre_spans",
+                 "headers", "status", "t_sent")
+
+    def __init__(self, request, arr, decode_span):
+        meta = request.meta
+        self.request = request
+        self.meta = meta
+        self.wire_inputs = arr
+        self.t_recv = request.t_recv
+        self.pre_spans = (("frame_decode",) + decode_span,)
+        self.status = None
+        self.t_sent = None
+        headers = {"Content-Type": "application/octet-stream"}
+        for key, header in (("rid", "X-Request-Id"),
+                            ("priority", "X-Priority"),
+                            ("sampled", "X-Trace-Sampled")):
+            if meta.get(key) is not None:
+                headers[header] = str(meta[key])
+        self.headers = headers
+
+    def _read_body(self):
+        return b""
+
+    def _drain_body(self):
+        pass
+
+    def _send_json(self, code, obj, headers=None):
+        headers = headers or {}
+        self.status = int(code)
+        if int(code) == 200:
+            # a JSON 200 (reply="json"): the serializer of the HTTP
+            # surface, so both codecs answer the same bytes
+            self._reply_frame(code, "application/json",
+                              json.dumps(obj).encode(), headers)
+            return
+        self.t_sent = time.monotonic()
+        self.request.reply(wire.error_frame(
+            code, obj, rid=headers.get("X-Request-Id"),
+            retry_after=headers.get("Retry-After")))
+
+    def _send(self, code, ctype, body, headers=None):
+        self.status = int(code)
+        self._reply_frame(code, ctype, body, headers or {})
+
+    def _reply_frame(self, code, ctype, body, headers):
+        meta = {"status": int(code), "ctype": ctype}
+        for header, key in (("X-Request-Id", "rid"),
+                            ("X-Serving-Ms", "serving_ms"),
+                            ("X-Serving-Generation", "generation")):
+            if headers.get(header) is not None:
+                meta[key] = headers[header]
+        self.t_sent = time.monotonic()
+        self.request.reply(wire.pack_frame(wire.KIND_RESPONSE, meta, body))
 
 
 class ServingServer(HttpServerBase):
@@ -134,18 +267,84 @@ class ServingServer(HttpServerBase):
         self.batcher = batcher
         #: graceful-drain latch: /predict answers 503, /healthz not-ready
         self._draining = False
+        self._drained = False
+        #: /predict requests between admission and their reply's write;
+        #: the drain waits for them before the process may exit
+        self._active = 0
+        self._active_cv = threading.Condition()
+        #: the SLO plane, fed by _predict behind slo.enabled()
+        self.slo = slo.SloTracker()
+        #: the binary relay's listener (start() arms it)
+        self._wire = None
+
+    def start(self):
+        # the listener arms BEFORE the HTTP surface: the first /healthz
+        # a router reads must already carry wire_port
+        if root.common.serving.get("wire", {}).get("enabled", True):
+            self._wire = wire.WireListener(self._wire_group, host=self.host,
+                                           name="replica").start()
+        return super().start()
+
+    @property
+    def wire_port(self):
+        return self._wire.port if self._wire is not None else None
+
+    def _wire_group(self, group):
+        """The listener's handler: a group's ``.npy`` bodies are parsed
+        in one sweep, then each request runs the /predict state machine;
+        the first on this worker, the rest on the listener's pool."""
+        exchanges = []
+        for req in group:
+            t0 = time.monotonic()
+            try:
+                arr = wire.parse_npy(req.body)
+            except ValueError as e:
+                req.reply(wire.error_frame(
+                    400, {"error": repr(e),
+                          "request_id": req.meta.get("rid")},
+                    rid=req.meta.get("rid")))
+                continue
+            exchanges.append(_WireExchange(req, arr, (t0, time.monotonic())))
+        for ex in exchanges[1:]:
+            self._wire.submit(self._wire_one, ex)
+        if exchanges:
+            self._wire_one(exchanges[0])
+
+    def _wire_one(self, ex):
+        try:
+            self._predict(ex, model=ex.meta.get("model"))
+        except Exception as e:  # noqa: BLE001 - always answer a frame
+            self.warning("wire predict %s failed: %r", ex.meta.get("rid"), e)
+            if ex.status is None:
+                ex.request.reply(wire.error_frame(
+                    500, {"error": repr(e),
+                          "request_id": ex.meta.get("rid")},
+                    rid=ex.meta.get("rid")))
 
     def stop(self):
+        if self._wire is not None:
+            self._wire.stop()
+            self._wire = None
         super().stop()
         if self._owns_batcher:
             self.batcher.stop()
 
-    def drain(self):
-        """Graceful shutdown: refuse new work, flush what is queued,
-        stop the HTTP server.  Idempotent."""
+    def drain(self, timeout_s=30.0):
+        """Graceful shutdown: refuse new work, serve what the batcher
+        holds, wait (at most ``timeout_s``) until every admitted request
+        has written its reply, then stop.  Idempotent."""
+        if self._drained:
+            return
+        self._drained = True
         self._draining = True
+        telemetry.record_event("serving.drain")
         self.info("draining: flushing %d queued rows",
                   self.batcher.queued_rows)
+        if self._owns_batcher:
+            self.batcher.stop(flush=True)
+        with self._active_cv:
+            self._active_cv.wait_for(lambda: self._active == 0,
+                                     timeout=timeout_s)
         self.stop()
 
     def _engine_for(self, model=None):
@@ -157,10 +356,25 @@ class ServingServer(HttpServerBase):
             raise UnknownModelError(model, ())
         return self.engine
 
+    def _engines(self):
+        if self.registry is None:
+            return [self.engine]
+        return [self.registry.peek(n) for n in self.registry.names()]
+
+    def device(self):
+        """The device the engines serve on, with the card's name."""
+        engines = self._engines()
+        dev = engines[0].device if engines else None
+        out = {"device": str(dev.type) if dev is not None else None}
+        if dev is not None and dev.type == "cuda":
+            import torch
+            out["device_name"] = torch.cuda.get_device_name(dev)
+        return out
+
     def healthz(self):
         """``(status code, payload)`` of /healthz."""
         if self.registry is None:
-            stats = dict(self.engine.stats())
+            stats = dict(self.engine.stats(), wire_port=self.wire_port)
             if self._draining:
                 stats.update(ready=False, draining=True)
             return (200 if stats["ready"] else 503), stats
@@ -170,11 +384,28 @@ class ServingServer(HttpServerBase):
         payload = {"ready": all_ready and not self._draining,
                    "degraded": any_ready and not all_ready,
                    "models": readiness, "default": self.registry.default,
-                   "memory": self.registry.memory_stats()}
+                   "memory": self.registry.memory_stats(),
+                   "wire_port": self.wire_port}
         if self._draining:
             payload["draining"] = True
             return 503, payload
         return (200 if any_ready else 503), payload
+
+    def statusz(self):
+        """The /statusz payload."""
+        if self.registry is not None:
+            payload = {"registry": self.registry.stats(),
+                       "ready": self.registry.ready}
+        else:
+            payload = dict(self.engine.stats())
+        payload.update(self.device())
+        payload["queued_rows"] = self.batcher.queued_rows
+        payload["kernels"] = kernels_block()
+        if self._wire is not None:
+            payload["wire"] = {"port": self._wire.port}
+        if slo.enabled():
+            payload["slo"] = self.slo.status()
+        return payload
 
     def models(self):
         """The /models payload."""
@@ -183,16 +414,66 @@ class ServingServer(HttpServerBase):
         return {"models": {"default": self.engine.stats()},
                 "default": "default"}
 
+    def admitted(self, rid):
+        """The /admitted/<rid> payload: ``tracked`` False where the
+        batcher keeps no ring (the micro-batcher of one engine)."""
+        probe = getattr(self.batcher, "admitted_status", None)
+        payload = {"rid": rid, "tracked": probe is not None}
+        if probe is not None:
+            payload.update(probe(rid))
+        else:
+            payload["admitted"] = False
+        return payload
+
     def _predict(self, handler, model=None):
-        """The /predict state machine; returns the status code sent."""
+        """One /predict: opens the sampled trace tree, runs the state
+        machine, closes the tree and feeds the SLO tracker with the
+        status sent, measured from admission (JAX :468-518)."""
         rid = (handler.headers.get("X-Request-Id") or "").strip()[:64] or \
             uuid.uuid4().hex[:12]
+        t_admit = getattr(handler, "t_recv", None) or time.monotonic()
+        if telemetry.enabled():
+            telemetry.counter(telemetry.labeled(
+                "serving.codec_requests",
+                codec=("binary" if getattr(handler, "wire_inputs", None)
+                       is not None else "http"))).inc()
+        sampled = (handler.headers.get("X-Trace-Sampled") or "").strip()
+        if sampled == "0":
+            traced = False   # the router did not sample this rid
+        else:
+            # "1": a router upstream sampled it — trace it without
+            # moving this replica's own cursor
+            traced = reqtrace.enabled() and reqtrace.begin(
+                rid, now=t_admit, force=sampled == "1")
+        if traced:
+            for kind, t0, t1 in getattr(handler, "pre_spans", ()):
+                reqtrace.add_span(rid, kind, t0, t1)
+        with self._active_cv:
+            self._active += 1
+        try:
+            code, slo_model = self._predict_inner(handler, rid, model,
+                                                  t_admit, traced)
+        finally:
+            with self._active_cv:
+                self._active -= 1
+                self._active_cv.notify_all()
+        if traced:
+            reqtrace.finish(rid, model=slo_model,
+                            now=getattr(handler, "t_sent", None))
+        if slo.enabled():
+            self.slo.record(slo_model, code,
+                            (time.monotonic() - t_admit) * 1e3, rid=rid)
+        return code
+
+    def _predict_inner(self, handler, rid, model, t_admit, traced):
+        """The /predict state machine; returns ``(status code, model
+        name)``."""
         echo = {"X-Request-Id": rid}
 
-        def fail(code, error, **extra):
+        def fail(code, error, slo_model=model, **extra):
             handler._send_json(code, dict(error=error, request_id=rid),
                                headers=dict(echo, **extra))
-            return code
+            return code, slo_model
 
         if self._draining:
             handler._drain_body()
@@ -205,42 +486,55 @@ class ServingServer(HttpServerBase):
         except Exception as e:  # noqa: BLE001 - a parse error is a 400
             return fail(400, repr(e))
         model = model if model is not None else body_model
+        slo_model = model
         try:
             engine = self._engine_for(model)
+            if slo_model is None and self.registry is not None:
+                # budgets are per model: the default carries its name
+                slo_model = self.registry.default
         except UnknownModelError as e:
             return fail(404, str(e))
         if not engine.ready:
-            return fail(503, "model warming up")
+            return fail(503, "model warming up", slo_model)
         try:
             x = numpy.asarray(inputs, dtype=engine.dtype)
+            if traced:
+                reqtrace.add_span(rid, "admission", t_admit,
+                                  time.monotonic())
             if self.registry is not None:
                 y = self.batcher.predict(x, model=model,
                                          timeout_ms=timeout_ms,
-                                         priority=priority)
+                                         priority=priority, request_id=rid)
             else:
-                y = self.batcher.predict(x, timeout_ms=timeout_ms)
+                y = self.batcher.predict(x, timeout_ms=timeout_ms,
+                                         request_id=rid)
         except UnknownModelError as e:  # removed while queued
-            return fail(404, str(e))
+            return fail(404, str(e), slo_model)
         except QueueFullError as e:
-            return fail(429, str(e))
+            return fail(429, str(e), slo_model)
         except RequestTimeoutError as e:
-            return fail(504, str(e))
+            return fail(504, str(e), slo_model)
         except BatcherStoppedError:
-            return fail(503, "server draining", **{"Retry-After": "1"})
+            return fail(503, "server draining", slo_model,
+                        **{"Retry-After": "1"})
         except CircuitOpenError as e:
-            return fail(503, str(e), **{
+            return fail(503, str(e), slo_model, **{
                 "Retry-After": str(max(1, int(math.ceil(e.retry_after))))})
         except (ValueError, TypeError) as e:
             # shape/dtype mismatches are the client's fault
-            return fail(400, str(e))
+            return fail(400, str(e), slo_model)
         except Exception as e:  # noqa: BLE001 - always answer HTTP
             self.warning("predict %s failed: %r", rid, e)
-            return fail(500, repr(e))
+            return fail(500, repr(e), slo_model)
+        t_reply = time.monotonic()
+        ok = dict(echo, **{
+            "X-Serving-Ms": "%.3f" % ((t_reply - t_admit) * 1e3),
+            "X-Serving-Generation": "gen_%d" % int(engine.version or 0)})
         if raw:
             buf = io.BytesIO()
             numpy.save(buf, numpy.ascontiguousarray(y))
             handler._send(200, "application/octet-stream", buf.getvalue(),
-                          headers=echo)
+                          headers=ok)
         else:
             payload = {"outputs": y.tolist(),
                        "model_version": engine.version,
@@ -249,8 +543,12 @@ class ServingServer(HttpServerBase):
                 payload["model"] = model
             if y.ndim == 2:
                 payload["argmax"] = [int(i) for i in y.argmax(axis=1)]
-            handler._send_json(200, payload, headers=echo)
-        return 200
+            handler._send_json(200, payload, headers=ok)
+        if traced:
+            reqtrace.add_span(rid, "reply", t_reply,
+                              getattr(handler, "t_sent", None)
+                              or time.monotonic())
+        return 200, slo_model
 
     def _reload(self, handler, model=None):
         try:
@@ -337,6 +635,13 @@ class ServingServer(HttpServerBase):
                     self._send_json(200 if ready else 503, engine.stats())
                 elif path == "/models":
                     self._send_json(200, server.models())
+                elif path in ("/", "/statusz"):
+                    self._send_json(200, server.statusz())
+                elif path == "/slo":
+                    self._send_json(200, server.slo.status())
+                elif path.startswith("/admitted/"):
+                    self._send_json(200, server.admitted(
+                        path[len("/admitted/"):]))
                 elif path == "/metrics":
                     self._send_metrics()
                 elif not self._send_debug(self.path):
@@ -386,7 +691,8 @@ def _parser():
                     "zips) over HTTP, on the GPU unless --device cpu.  "
                     "One PATH serves one engine behind a micro-batcher; "
                     "NAME=PATH[@DTYPE] specs serve a registry behind a "
-                    "continuous batcher, at /predict/<name>.")
+                    "continuous batcher, at /predict/<name>.  --fleet N "
+                    "serves N such processes behind one router.")
     parser.add_argument("model", nargs="+",
                         help="snapshot or .zip path, NAME=PATH[@DTYPE] "
                              "specs, or with --latest a snapshot prefix "
@@ -425,21 +731,51 @@ def _parser():
     parser.add_argument("--config", action="append", default=[],
                         metavar="KEY=VALUE",
                         help="config-root override, e.g. common.serving."
-                             "breaker_threshold=0")
+                             "breaker_threshold=0; forwarded to every "
+                             "--fleet replica")
+    parser.add_argument("--fleet", type=int, default=None, metavar="N",
+                        help="serve N replica processes behind the fleet "
+                             "router: least-outstanding balancing, "
+                             "retry only where a request was provably "
+                             "never admitted, aggregated /metrics, /slo, "
+                             "/healthz and /models")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="the fleet's autoscaler " + _LATER)
+    parser.add_argument("--compile-cache", nargs="?", const="",
+                        default=None, metavar="DIR",
+                        help="the JAX package's compile cache " + _LATER)
     return parser
+
+
+def _parse(argv):
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.autoscale:
+        parser.error("--autoscale " + _LATER)
+    if args.compile_cache is not None:
+        parser.error("--compile-cache " + _LATER)
+    if args.fleet is not None and args.fleet < 1:
+        parser.error("--fleet needs at least 1 replica")
+    for assignment in args.config:
+        apply_override(assignment)
+    if args.max_body_bytes is not None:
+        root.common.serving.max_body_bytes = args.max_body_bytes
+    return parser, args
 
 
 def serve(argv):
     """Build and start what ``python -m znicz_tpu_torch serve ARGV``
-    serves: returns ``(server, label)``, the server started and owning
-    its batcher."""
-    parser = _parser()
-    args = parser.parse_args(argv)
-    for assignment in args.config:
-        apply_override(assignment)
+    serves (one process, without ``--fleet``): returns ``(server,
+    label)``, the server started and owning its batcher."""
+    parser, args = _parse(argv)
+    if args.fleet is not None:
+        parser.error("serve() builds one process; --fleet runs through "
+                     "main()")
+    return _serve(parser, args)
+
+
+def _serve(parser, args):
     cfg = root.common.serving
-    if args.max_body_bytes is not None:
-        cfg.max_body_bytes = args.max_body_bytes
     specs = [m.split("=", 1) if "=" in m else (None, m) for m in args.model]
     named = [s for s in specs if s[0] is not None]
     if named and len(named) != len(specs):
@@ -497,24 +833,108 @@ def serve(argv):
     return server.start(), label
 
 
-def main(argv=None):
-    """The ``python -m znicz_tpu_torch serve`` entry point: serves until
-    SIGTERM, then drains (in-flight requests are answered) and returns
-    0."""
-    server, label = serve(argv)
-    print("serving %s on http://%s:%d/  (predict: POST /predict[/<model>]; "
-          "health: GET /healthz; metrics: GET /metrics)"
-          % (label, server.host, server.port), flush=True)
+#: router-only serve flags, dropped from the replicas' argv (flag ->
+#: takes a value)
+_ROUTER_ONLY_FLAGS = {"--fleet": True, "--port": True, "--host": True}
+
+
+def replica_argv(raw_argv):
+    """The argv every fleet replica runs: the operator's serve
+    arguments without the router's own flags (each replica binds port
+    0; models, ``--device``, ``--config`` and the batching flags pass
+    through)."""
+    out, i = [], 0
+    while i < len(raw_argv):
+        tok = raw_argv[i]
+        flag = tok.split("=", 1)[0]
+        if flag in _ROUTER_ONLY_FLAGS:
+            i += 1
+            if _ROUTER_ONLY_FLAGS[flag] and "=" not in tok and \
+                    i < len(raw_argv):
+                i += 1  # the flag's value
+            continue
+        out.append(tok)
+        i += 1
+    return out
+
+
+def _serve_until_term(server, thread_of, parent=None):
+    """Block until SIGTERM (or Ctrl-C, or the HTTP thread's death, or,
+    where ``parent`` is a pid, until this process's parent is no longer
+    that process), then drain ``server``."""
     term = threading.Event()
+    orphaned = False
     try:
         signal.signal(signal.SIGTERM, lambda signum, frame: term.set())
     except ValueError:  # not the main thread (embedding)
         pass
     try:
         while not term.wait(1.0):
-            pass
+            thread = thread_of()
+            if thread is None or not thread.is_alive():
+                break
+            if parent is not None and os.getppid() != parent:
+                orphaned = True
+                break
     except KeyboardInterrupt:
         pass
     finally:
+        try:
+            if term.is_set():
+                print("SIGTERM: draining", flush=True)  # noqa: T201
+            elif orphaned:
+                print("the fleet router (pid %d) is gone: draining"  # noqa
+                      % parent, flush=True)
+        except OSError:
+            pass  # the router that read this output is gone
         server.drain()
     return 0
+
+
+def _fleet_main(args, raw_argv):
+    """``serve --fleet N``: N replicas behind the router, until SIGTERM
+    drains the fleet (JAX :981-1048)."""
+    from znicz_tpu_torch.serving.router import FleetRouter
+    telemetry.enable()  # the router's own series and journal
+    pyprof.name_current_thread("serve-main")
+    argv = replica_argv(raw_argv)
+    if blackbox.enabled():
+        # one blackbox directory for the fleet: the router's role is
+        # "router", the replicas get the resolved directory and theirs
+        blackbox.maybe_arm("router")
+        bb_dir = os.path.abspath(blackbox.configured_dir())
+        argv += ["--config", "common.telemetry.blackbox.dir=%s" % bb_dir,
+                 "--config", "common.telemetry.blackbox.role=replica"]
+    router = FleetRouter(
+        argv, replicas=args.fleet,
+        port=(args.port if args.port is not None
+              else root.common.serving.get("port", 8899)),
+        host=args.host).start()
+    print("fleet of %d replica%s behind http://%s:%d/  (predict: POST "  # noqa
+          "/predict[/<model>]; fleet health: GET /healthz; aggregated: "
+          "GET /metrics, GET /slo)"
+          % (args.fleet, "" if args.fleet == 1 else "s", router.host,
+             router.port), flush=True)
+    return _serve_until_term(router, lambda: router._thread)
+
+
+def main(argv=None):
+    """The ``python -m znicz_tpu_torch serve`` entry point: serves until
+    SIGTERM, then drains (in-flight requests are answered) and returns
+    0."""
+    import sys
+    raw = list(argv) if argv is not None else sys.argv[1:]
+    if argv is None and raw and raw[0] == "serve":
+        raw = raw[1:]
+    parser, args = _parse(raw)
+    if args.fleet is not None:
+        return _fleet_main(args, raw)
+    from znicz_tpu_torch.serving.router import ROUTER_PID_ENV
+    # a fleet replica lives no longer than its router
+    parent = os.environ.get(ROUTER_PID_ENV)
+    server, label = _serve(parser, args)
+    print("serving %s on http://%s:%d/  (predict: POST /predict[/<model>]; "
+          "health: GET /healthz; metrics: GET /metrics)"
+          % (label, server.host, server.port), flush=True)
+    return _serve_until_term(server, lambda: server._thread,
+                             parent=int(parent) if parent else None)
