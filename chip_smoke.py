@@ -129,7 +129,10 @@ failure (the script then exits non-zero and prints no result line):
    / 48 fused, 12 / 9 in the unit graph), with no plain pooling (a run
    whose trace differs is kept under ``build/`` and taken once
    more, and the second must agree: CUPTI has lost one kernel record in
-   2 of about 40 traced runs); the report's
+   2 of about 40 traced runs; a run whose trace lacks one prints, from
+   the profiler's launch log, each launch without its record: its
+   index in the launch order, its kernel, its stream against the
+   thread's current stream); the report's
    ledger is balanced, its high water at least its live bytes and no
    leak suspected; the breakdown's parts sum to its wall within 5%;
    ``fused.window`` entries count FLOPs within ``cost_rtol`` of the
@@ -395,7 +398,32 @@ failure (the script then exits non-zero and prints no result line):
     ``nvidia-smi --query-compute-apps``).  Prints the router's overhead
     p50 / p99, the batch-1 latency p50 / p99 / p999 through the fleet
     and one replica, requests/s at 2 and 1 replicas and each process's
-    startup seconds, beside the card's name and power limit.
+    startup seconds, beside the card's name and power limit;
+19. release — the release plane and the autoscaler, after fleet, on the
+    serve phase's package: ``python -m znicz_tpu_torch serve
+    alexnet=ZIP --fleet 1 --autoscale --max-inflight 1`` (min 1, max 2
+    replicas, a decision every 0.5 s, 32 queued rows a replica to scale
+    up, 5 s of cooldown, ``slo_ms`` 10 s).  A burst of 4 clients x
+    batch 64 scales it to 2 replicas on ``cuda``; ``POST
+    /release/alexnet`` of a copy of the package (ladder 50%, 100%, green
+    windows of 1 s, 12 requests a step, 8 compares) walks shadow,
+    canary and promoted under batch-1 and batch-8 clients: 0 shadow
+    mismatches, every reply 200 and bit-equal to an in-process engine
+    at the bucket the replica reports (``X-Serving-Bucket``), named by
+    its generation, a retried rid answered by the same generation;
+    then a package from another seed rolls back on a shadow mismatch
+    with an exemplar rid, every reply the live generation's, the
+    candidate gone from every replica and each replica's
+    ``memory_allocated`` back within 512 B a tensor; each replica's
+    ``/statusz`` before and after: 3 forward launches an engine
+    dispatch (shadow and candidate warmups included), all 16-byte, no
+    plain pooling; then, quiet but for one batch-1 client, the
+    autoscaler retires a replica (exit 0, every reply 200); the
+    router's blackbox holds ``autoscaler.scale_up`` / ``scale_down``,
+    ``release.promote`` and ``release.rollback`` (with its exemplar);
+    SIGTERM leaves no replica.  Prints the wall seconds by release
+    state, each candidate's deploy, the scale-up and scale-down seconds
+    and the shadow counts beside the card's name and power limit.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -413,7 +441,8 @@ autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
 fused stochastic stages, and the fleet's replicas' over the fleet
 phase's requests (``fleet``: the survivors' counters; a killed or
-retired replica's leave with it) (``launches_by_path``; the
+retired replica's leave with it) and over the release phase's
+(``release``) (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
@@ -2732,7 +2761,8 @@ def _profiled_run(torch, cli, profiler, label, argv, steps, valid_mbs,
         profiler.reset()
         _zero_counts()
         t0 = time.perf_counter()
-        cli.main(argv)
+        with profiler.launch_log() as launch_log:
+            cli.main(argv)
         run_s = time.perf_counter() - t0
         launches = _counts()
         runs = launches if runs is None else {
@@ -2767,6 +2797,17 @@ def _profiled_run(torch, cli, profiler, label, argv, steps, valid_mbs,
                             "profile_mismatch",
                             "%s_%d" % (label.replace(" ", "_"), attempt))
         shutil.copytree(out, keep, dirs_exist_ok=True)
+        # which launch lacks its record: its place in the launch order,
+        # its kernel, its stream against the thread's current stream
+        for m in profiler.unmatched_launches(
+                os.path.join(out, "trace.json"), launch_log):
+            say("   %s, attempt %d: launch %d of %d (%s) has no kernel "
+                "record: stream %#x, the thread's current stream %#x "
+                "(%s), thread %s" % (
+                    label, attempt, m["index"], len(launch_log),
+                    m["kernel"], m["stream"], m["current_stream"],
+                    "the same" if m["stream"] == m["current_stream"]
+                    else "another", m["thread"]) + "; " + m["why"])
         say("   %s, attempt %d of %d: the trace holds %d forward and %d "
             "backward kernel events, the counters %d and %d; its pooling "
             "rows %s; the trace kept in %s" % (
@@ -6896,13 +6937,14 @@ FLEET_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "fleet")
 
 
 class _FleetCli(object):
-    """``python -m znicz_tpu_torch serve alexnet=ZIP --fleet 2 --port 0``
-    as a child process, its output drained into ``lines`` by a thread;
-    :meth:`wait_banner` parses its banner."""
+    """``python -m znicz_tpu_torch serve alexnet=ZIP --fleet N --port 0``
+    (N 2 unless ``replicas`` says, ``extra`` arguments after the
+    others) as a child process, its output drained into ``lines`` by a
+    thread; :meth:`wait_banner` parses its banner."""
 
-    def __init__(self, path, bbdir):
+    def __init__(self, path, bbdir, replicas=2, extra=()):
         argv = [sys.executable, "-u", "-m", "znicz_tpu_torch", "serve",
-                "alexnet=" + path, "--fleet", "2", "--port", "0",
+                "alexnet=" + path, "--fleet", str(replicas), "--port", "0",
                 "--max-batch", "64", "--max-body-bytes", str(256 << 20),
                 "--config", "common.serving.slo_enabled=True",
                 "--config", "common.serving.trace_sample_n=1",
@@ -6910,6 +6952,7 @@ class _FleetCli(object):
                 % FLEET_FRAME_MB,
                 "--config", "common.telemetry.blackbox.enabled=True",
                 "--config", "common.telemetry.blackbox.dir=" + bbdir]
+        argv += list(extra)
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
@@ -6929,8 +6972,9 @@ class _FleetCli(object):
     def _drain(self):
         for line in self.proc.stdout:
             self.lines.append(line.rstrip("\n"))
-            if self.url is None and "replicas behind http://" in line:
+            if self.url is None and " behind http://" in line:
                 self.url = line.split("behind ", 1)[1].split("/ ")[0]
+                self.banner_line = line
                 self.banner_s = time.perf_counter() - self.t0
                 self.host, port = self.url.split("//")[1].split(":")
                 self.port = int(port)
@@ -7108,13 +7152,21 @@ def _compute_pids():
     return {int(t) for t in out.split() if t.strip().isdigit()}
 
 
-def phase_fleet(torch, card):
-    """The serving fleet (slice 15): the real ``serve --fleet 2`` CLI in
-    front of two replica processes serving the serve phase's AlexNet
-    package on the card.  Returns the replicas' forward launches over
-    the phase's requests."""
+def phase_fleet(torch, card, later):
+    """The serving fleet (slices 15 and 16): the real ``serve --fleet 2``
+    CLI in front of two replica processes serving the serve phase's
+    AlexNet package on the card, and the release plane on it (the copy
+    promoted, another seed's package rolled back, the copy promoted
+    again), before a replica is killed and one retired.  Starts the
+    autoscale phase's CLI into ``later`` (with the reference engine and
+    the images) when the releases begin.  Returns the replicas' forward
+    launches over the phase's requests but the releases', and the
+    releases'."""
     import numpy
     import urllib.error
+    from znicz_tpu_torch.core import blackbox
+    from znicz_tpu_torch.export import write_package
+    from znicz_tpu_torch.samples import alexnet
     from znicz_tpu_torch.serving import latency, wire
     from znicz_tpu_torch.serving import engine as engine_mod
 
@@ -7124,17 +7176,31 @@ def phase_fleet(torch, card):
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     bbdir = os.path.join(FLEET_DIR, "blackbox")
     os.makedirs(FLEET_DIR, exist_ok=True)
-    cli = _FleetCli(path, bbdir)
+    copy = os.path.join(FLEET_DIR, "alexnet_copy.zip")
+    other = os.path.join(FLEET_DIR, "alexnet_seed1.zip")
+    cli = _FleetCli(path, bbdir, extra=[
+        # the canary's judge: AlexNet's batch-8 replies well inside it
+        "--config", "common.serving.slo_ms=10000.0",
+        "--config", "common.serving.release.tick_interval_s=0.1"])
     launches = 0
     try:
-        # the reference engine loads while the fleet starts
+        # while the fleet starts: the reference engine, the releases'
+        # packages, a promote's memory in this process
         ref_engine = engine_mod.InferenceEngine(path, max_batch=64,
                                                 device="cuda")
         images = numpy.random.RandomState(15).randint(
             -128, 128, (64,) + ref_engine.sample_shape).astype(
                 numpy.float32)
         want = {n: ref_engine.predict(images[:n]) for n in FLEET_BATCHES}
-        del ref_engine
+        t0 = time.perf_counter()
+        shutil.copyfile(path, copy)
+        manifest, arrays = alexnet.init_package(seed=1)
+        write_package(manifest, arrays, other)
+        del arrays
+        say("== the releases' packages: a copy of the serve phase's and "
+            "another seed's, written in %.2f s while the fleet starts"
+            % (time.perf_counter() - t0))
+        _promote_memory(torch, path, copy, card)
         cli.wait_banner()
         ups = cli.replicas("up")
         name = torch.cuda.get_device_name(0)
@@ -7181,11 +7247,31 @@ def phase_fleet(torch, card):
         lat_one = latency.quantile_summary(_latencies(
             host, int(port), images, FLEET_LATENCY_REQUESTS))
         traced = _fleet_trace(cli, images, bbdir)
+        later.update(cli=_autoscale_cli(path), ref=ref_engine,
+                     images=images)
+        release_launches = _fleet_releases(cli, images, ref_engine, copy,
+                                           other, card)
+        del ref_engine
         launches += _fleet_kill(cli, images, want)
         launches += _fleet_retire(cli, images, want)
         rate1 = _rate(cli, images, FLEET_RATE_REQUESTS)
         overhead = cli.get("/slo")["router_overhead_ms"]
         startups = {b["id"]: b["startup_s"] for b in cli.replicas()}
+        # the router's journal, read back from the blackbox
+        events = blackbox.timeline(bbdir, roles=["router"])["events"]
+        kinds = [e["kind"] for e in events]
+        rollback = [e for e in events if e["kind"] == "release.rollback"]
+        if kinds.count("release.start") != 3 or \
+                kinds.count("release.promote") != 2 or len(rollback) != 1 \
+                or not rollback[0].get("exemplar_rid"):
+            raise RuntimeError("fleet: the router's journal holds %s; the "
+                               "rollbacks %s" % (sorted(set(kinds)),
+                                                 rollback))
+        say("   the router's journal (blackbox): %s; the rollback's "
+            "exemplar %s" % (", ".join(
+                "%s x%d" % (k, kinds.count(k)) for k in sorted(set(kinds))
+                if k.startswith("release.")),
+                rollback[0]["exemplar_rid"]))
         pids = [b["pid"] for b in cli.replicas()]
         _fleet_sigterm(cli, pids)
     except BaseException:
@@ -7210,8 +7296,9 @@ def phase_fleet(torch, card):
         % (traced["rid"], traced["wall_ms"], traced["parts_ms"]))
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     say("   fleet phase wall %.1f s, %d replica forward launches over its "
-        "requests" % (time.perf_counter() - t_phase, launches))
-    return launches
+        "requests but the releases'" % (time.perf_counter() - t_phase,
+                                         launches))
+    return launches, release_launches
 
 
 def _fleet_replies(cli, images, want):
@@ -7436,16 +7523,21 @@ def _fleet_kill(cli, images, want):
     if c_new["built"] != 0 or c_new["device"] != "cuda":
         raise RuntimeError("fleet: the new replica built %d libraries on %s"
                            % (c_new["built"], c_new["device"]))
-    bodies = []
+    bodies, gens = [], []
     for b in (survivor, new):
         host, port = b["url"].split("//")[1].split(":")
         conn = http.client.HTTPConnection(host, int(port), timeout=300)
         try:
-            bodies.append(_fleet_npy(conn, images[:8], "alone-2")[1])
+            _, body, headers = _fleet_npy(conn, images[:8], "alone-2")
         finally:
             conn.close()
-    if bodies[0] != bodies[1]:
-        raise RuntimeError("fleet: the new replica answers batch 8 apart")
+        bodies.append(body)
+        gens.append(headers.get("X-Serving-Generation"))
+    # after the releases' promotes, the new replica joins on the
+    # promoted package at the promoted generation
+    if bodies[0] != bodies[1] or gens[0] != gens[1]:
+        raise RuntimeError("fleet: the new replica answers batch 8 apart "
+                           "(generations %s)" % gens)
     c1 = _replica_counts(cli, survivor["url"])
     c_new1 = _replica_counts(cli, new["url"])
     launches = (c1["launches"] - c0["launches"] +
@@ -7453,9 +7545,9 @@ def _fleet_kill(cli, images, want):
     say("   SIGKILL of %s mid-burst: %d requests, %d answered 200, %d an "
         "honest 503 none of which the survivor admitted; ejected; "
         "scale_up brought %s in %.2f s (startup %.2f s, 0 libraries "
-        "built), its batch-8 bytes the survivor's"
+        "built), its batch-8 bytes and generation (%s) the survivor's"
         % (victim["id"], len(replies), len(replies) - len(unsafe),
-           len(unsafe), new["id"], up_s, new["startup_s"]))
+           len(unsafe), new["id"], up_s, new["startup_s"], gens[0]))
     return launches
 
 
@@ -7517,6 +7609,609 @@ def _fleet_sigterm(cli, pids):
                            % (left, sorted(on_card)))
     say("   SIGTERM: the CLI drained and exited 0; no replica pid left "
         "(ps, nvidia-smi)")
+
+
+#: the fleet phase's releases: the canary ladder and its judge's
+#: policy.  What a promote may leave on a replica's card: a thread that
+#: runs its first cuBLAS product (a handler thread warming the
+#: candidate) takes a cuBLAS handle and PyTorch gives the pair of handle
+#: and stream a workspace of CUBLAS_WORKSPACE, kept for the process (a
+#: later thread takes a returned handle and its workspace again); the
+#: reload reallocates the live parameters, and the caching allocator
+#: does not split a large block whose remainder is under 1 MiB, so each
+#: of AlexNet's 8 weight tensors may come back up to 1 MiB larger or
+#: smaller (RELOAD_SLACK).  The first promote may add two workspaces
+#: (two handler threads at once), a later one none
+RELEASE_POLICY = {"canary_steps": [50.0, 100.0], "green_window_s": 1.0,
+                  "min_requests": 12, "shadow_min_compares": 8}
+CUBLAS_WORKSPACE = 32 << 20
+RELOAD_SLACK = 8 << 20
+PROMOTE_GROWTH_MAX = 2 * CUBLAS_WORKSPACE + RELOAD_SLACK
+#: the autoscale phase's knobs (a replica's queued rows over
+#: AUTOSCALE_QUEUE_ROWS scale it up; AUTOSCALE_COOLDOWN_S between two
+#: actions) and its burst's clients
+AUTOSCALE_QUEUE_ROWS = 32
+AUTOSCALE_COOLDOWN_S = 5.0
+AUTOSCALE_BURST_CLIENTS = 4
+AUTOSCALE_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "autoscale")
+
+
+class _Traffic(object):
+    """Clients sending ``.npy`` requests of ``rows`` (one client a
+    entry) with unique rids through the router until :meth:`stop`; each
+    reply is kept with its status, generation and bucket headers."""
+
+    def __init__(self, cli, images, rows, tag):
+        import numpy
+        self.replies, self.failures = [], []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+
+        def client(k, n):
+            conn = http.client.HTTPConnection(cli.host, cli.port,
+                                              timeout=300)
+            i = 0
+            while not self._stop.is_set():
+                rid = "%s-%d-%d" % (tag, k, i)
+                i += 1
+                try:
+                    status, raw, headers = _fleet_npy(conn, images[:n], rid)
+                except (OSError, http.client.HTTPException) as e:
+                    with self._lock:
+                        self.failures.append((rid, repr(e)))
+                    conn.close()
+                    conn = http.client.HTTPConnection(cli.host, cli.port,
+                                                      timeout=300)
+                    continue
+                body = (numpy.load(io.BytesIO(raw)) if status == 200
+                        else json.loads(raw))
+                with self._lock:
+                    self.replies.append(
+                        (rid, n, status, body,
+                         headers.get("X-Serving-Generation"),
+                         int(headers.get("X-Serving-Bucket") or 0)))
+            conn.close()
+
+        self._threads = [threading.Thread(target=client, args=(k, n),
+                                          daemon=True)
+                         for k, n in enumerate(rows)]
+        for t in self._threads:
+            t.start()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(300)
+        return self.replies, self.failures
+
+
+def _check_replies(replies, failures, want, what, gens=None):
+    """Every reply 200 and bit-equal to the in-process engine's at the
+    bucket the replica's batch ran at (``want(rows, bucket)``), its
+    generation among ``gens``.  Returns the generations seen."""
+    bad = [r[:3] + r[4:] for r in replies if r[2] != 200]
+    if failures or bad or not replies:
+        raise RuntimeError("release %s: %d replies, failures %s, not 200: "
+                           "%s" % (what, len(replies), failures[:3], bad[:3]))
+    seen = set()
+    for rid, rows, _, body, gen, bucket in replies:
+        ref = want(rows, bucket)
+        if not (body.shape == ref.shape and (body.view("u4") ==
+                                             ref.view("u4")).all()):
+            import numpy
+            raise RuntimeError(
+                "release %s: %s (%d rows, bucket %d, %s) differs from the "
+                "engine at its bucket by %.3g" % (
+                    what, rid, rows, bucket, gen,
+                    float(numpy.abs(body - ref).max())))
+        seen.add(gen)
+    if gens is not None and not seen <= set(gens):
+        raise RuntimeError("release %s: generations %s, not among %s"
+                           % (what, sorted(seen), sorted(gens)))
+    return seen
+
+
+def _release_walk(cli, images, rows, tag, done, retries=None):
+    """Drive ``rows`` clients until the release of ``alexnet`` reaches a
+    state of ``done``: ``(the release's status, the replies, the
+    failures, wall s by state)``.  ``retries(state_doc)`` runs once in
+    each canary step."""
+    traffic = _Traffic(cli, images, rows, tag)
+    by_state, seen_steps = {}, set()
+    t_last, state, doc = time.perf_counter(), None, None
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            doc = cli.get("/release/alexnet")
+            now = time.perf_counter()
+            if state is not None:
+                by_state[state] = by_state.get(state, 0.0) + now - t_last
+            t_last, state = now, doc["state"]
+            if state in done:
+                break
+            # (a promote's reload runs with the state still canary, at
+            # a step past the ladder)
+            if state == "canary" and retries is not None and \
+                    doc["step"] < len(doc["steps"]) and \
+                    doc["step"] not in seen_steps:
+                seen_steps.add(doc["step"])
+                retries(doc)
+            time.sleep(0.05)
+        else:
+            raise RuntimeError("release %s: still %s after 300 s: %s"
+                               % (tag, state, json.dumps(doc)[:1500]))
+    finally:
+        replies, failures = traffic.stop()
+    return doc, replies, failures, by_state
+
+
+def _retried_rids(cli, images, gen_live, gen_cand):
+    """In a canary step: a rid under the split and one over it, each
+    sent twice, land on the same generation both times, the candidate's
+    under the split and the live one's over it."""
+    from znicz_tpu_torch.serving.release import split_point
+
+    def check(doc):
+        pct = doc["canary_pct"]
+        # a rid under the split, and one over it unless the step is 100%
+        picks = {}
+        for n in range(10000):
+            rid = "retry-%d-%d" % (doc["step"], n)
+            picks.setdefault(split_point(rid) < pct, rid)
+            if len(picks) == (1 if pct >= 100.0 else 2) and True in picks:
+                break
+        conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+        try:
+            for under, rid in picks.items():
+                gens = [_fleet_npy(conn, images[:1], rid)[2].get(
+                    "X-Serving-Generation") for _ in range(2)]
+                want = gen_cand if under else gen_live
+                if gens != [want, want]:
+                    raise RuntimeError(
+                        "release: rid %s (split %.2f, canary %.4g%%) "
+                        "answered by %s, twice %s" % (
+                            rid, split_point(rid), pct, gens, want))
+        finally:
+            conn.close()
+        say("   canary step %d (%.4g%%): a retried rid under the split "
+            "answered by %s twice%s" % (
+                doc["step"], pct, gen_cand,
+                ", one over it by %s twice" % gen_live if False in picks
+                else " (none is over it)"))
+    return check
+
+
+def _replica_state(cli):
+    """Each UP replica's counters and device memory, by replica id."""
+    out = {}
+    for b in cli.replicas("up"):
+        doc = cli.get("/statusz", url=b["url"])
+        k = doc["kernels"]
+        out[b["id"]] = {
+            "url": b["url"], "device": doc["device"],
+            "launches": k["max_pooling_offsets"]["launches"],
+            "wide": k["max_pooling_offsets"]["wide"],
+            "plain": k["plain_cuda_calls"],
+            "dispatches": k["engine_dispatches"],
+            "memory": doc.get("memory_allocated"),
+            "models": sorted(doc["registry"]["models"])}
+    return out
+
+
+def _walk_release(cli, images, source, tag, retries=None):
+    """``POST /release/alexnet`` of ``source`` under batch-1 and batch-8
+    clients until it ends: (its last status, the replies, the
+    failures, wall s by state, the deploy s, the candidate, the live
+    and the candidate generations)."""
+    t0 = time.perf_counter()
+    started = cli.post("/release/alexnet", {"path": source,
+                                            "policy": RELEASE_POLICY})
+    deploy_s = time.perf_counter() - t0
+    gen_live = "gen_%d" % (started["generation"] - 1)
+    gen_cand = "gen_%d" % started["generation"]
+    doc, replies, failures, by_state = _release_walk(
+        cli, images, [1, 8], tag,
+        {"promoted", "rolled_back", "failed", "aborted"},
+        retries=retries(gen_live, gen_cand) if retries else None)
+    return (doc, replies, failures, by_state, deploy_s,
+            started["candidate"], gen_live, gen_cand)
+
+
+def _settled(cli, cand, before, low, high, what):
+    """After a release: wait until no replica's ``/models`` holds
+    ``cand`` (a release's state is final before its candidate's
+    undeploy fan-out ends), then until each replica's
+    ``memory_allocated`` lies within [``low``, ``high``] B of its
+    reading in ``before`` (a dispatch on the candidate in flight at the
+    undeploy holds its parameters until it ends).  Returns the replicas'
+    state and the seconds the memory took after the candidate left."""
+    _until(lambda: all(cand not in r["models"] for r in
+                       _replica_state(cli).values()), 60,
+           "%s gone from every replica" % cand)
+    t0, last = time.perf_counter(), {}
+
+    def within():
+        last.update(_replica_state(cli))
+        return all(low <= r["memory"] - before[rid]["memory"] <= high
+                   for rid, r in last.items())
+    try:
+        _until(within, 30, "the replicas' memory after %s" % what)
+    except RuntimeError:
+        raise RuntimeError("release: memory_allocated after %s: %s B, "
+                           "before it %s B" % (
+                               what, {k: r["memory"] for k, r in
+                                      last.items()},
+                               {k: r["memory"] for k, r in
+                                before.items()}))
+    return dict(last), time.perf_counter() - t0
+
+
+def _fleet_releases(cli, images, ref, copy, other, card):
+    """The release plane on the fleet's two replicas: a copy of the
+    package walks shadow -> canary -> promoted, another seed's package
+    rolls back on a shadow mismatch, and the copy is promoted once more.
+    Every client reply 200 and bit-equal to ``ref`` at the bucket its
+    replica reports; ``memory_allocated`` a replica back within 512 B a
+    tensor after the rollback, within ``RELOAD_SLACK`` after the second
+    promote, at most ``PROMOTE_GROWTH_MAX`` over the first; 3 forward
+    launches a dispatch, shadow dispatches included.  Returns the
+    replicas' forward launches over the releases."""
+    memo = {}
+
+    def want(rows, bucket):
+        if (rows, bucket) not in memo:
+            memo[rows, bucket] = ref.predict(images[:rows], bucket=bucket)
+        return memo[rows, bucket]
+
+    def states(doc, by_state):
+        return ", ".join("%s %.2f s" % kv for kv in by_state.items())
+
+    t_releases = time.perf_counter()
+    mem = [_replica_state(cli)]
+    # 1. a copy of the package is promoted
+    doc, replies, failures, by_state, deploy_s, cand, gen_live, gen_cand = \
+        _walk_release(cli, images, copy, "good",
+                      retries=lambda live, new: _retried_rids(
+                          cli, images, live, new))
+    seen = _check_replies(replies, failures, want, "promote",
+                          {gen_live, gen_cand})
+    shadow = doc["shadow"]
+    if doc["state"] != "promoted" or shadow["mismatches"] or \
+            shadow["compares"] < RELEASE_POLICY["shadow_min_compares"] \
+            or gen_cand not in seen:
+        raise RuntimeError("release: the copy ended %s: %s"
+                           % (doc["state"], json.dumps(doc)[:2000]))
+    say("== release on the fleet's 2 replicas: the copy %s deployed in "
+        "%.2f s (%.2f s a replica); %s; shadow %d compares, %d mismatches, "
+        "%d dropped, %d errors; %d client replies (batch 1 and 8), all "
+        "200, bit-equal to the in-process engine at their buckets, from "
+        "%s; %s" % (cand, deploy_s, deploy_s / 2, states(doc, by_state),
+                    shadow["compares"], shadow["mismatches"],
+                    shadow["dropped"], shadow["errors"], len(replies),
+                    sorted(seen), card))
+    state, lag = _settled(cli, cand, mem[0], -RELOAD_SLACK,
+                          PROMOTE_GROWTH_MAX, "the first promote")
+    mem.append(state)
+    lags = [lag]
+    # 2. another seed's package rolls back on a shadow mismatch
+    doc, replies, failures, by_state, deploy_s, bad, gen_live, _ = \
+        _walk_release(cli, images, other, "bad")
+    _check_replies(replies, failures, want, "rollback", {gen_live})
+    if doc["state"] != "rolled_back" or not doc["shadow"]["exemplar_rid"]:
+        raise RuntimeError("release: the other seed ended %s: %s"
+                           % (doc["state"], json.dumps(doc)[:2000]))
+    # the rollback reloads nothing: the package's 16 tensors, 512 B
+    # each (as the registry's eviction is held in serve_models)
+    state, lag = _settled(cli, bad, mem[1], -16 * 512, 16 * 512,
+                          "the rollback")
+    lags.append(lag)
+    say("   %s: deployed in %.2f s; %s; shadow %d compares, %d mismatches "
+        "(exemplar %s); %d client replies, all 200 from %s, bit-equal to "
+        "the live generation's; gone from every replica's /models; %s" % (
+            bad, deploy_s, states(doc, by_state), doc["shadow"]["compares"],
+            doc["shadow"]["mismatches"], doc["shadow"]["exemplar_rid"],
+            len(replies), gen_live, card))
+    mem.append(state)
+    # 3. the copy once more: a second promote adds nothing on the card
+    doc, replies, failures, by_state, deploy_s, cand, gen_live, gen_cand = \
+        _walk_release(cli, images, copy, "again")
+    _check_replies(replies, failures, want, "second promote",
+                   {gen_live, gen_cand})
+    if doc["state"] != "promoted" or doc["shadow"]["mismatches"]:
+        raise RuntimeError("release: the copy's second release ended %s: "
+                           "%s" % (doc["state"], json.dumps(doc)[:2000]))
+    say("   the copy again as %s: deployed in %.2f s; %s; %d client "
+        "replies, all 200, bit-equal; %s" % (
+            cand, deploy_s, states(doc, by_state), len(replies), card))
+    state, lag = _settled(cli, cand, mem[2], -RELOAD_SLACK, RELOAD_SLACK,
+                          "the second promote")
+    mem.append(state)
+    lags.append(lag)
+    launches = 0
+    for rid, end in mem[-1].items():
+        m = [s[rid]["memory"] for s in mem]
+        say("   replica %s: memory_allocated %d B before the releases; "
+            "%+d B after the first promote, %+d B after the rollback, %+d "
+            "B after the second promote (settled %s s after each "
+            "candidate left)" % (rid, m[0], m[1] - m[0], m[2] - m[1],
+                                 m[3] - m[2], ", ".join(
+                                     "%.2f" % x for x in lags)))
+        r0 = mem[0][rid]
+        d, dl = end["dispatches"] - r0["dispatches"], \
+            end["launches"] - r0["launches"]
+        if d <= 0 or dl != 3 * d or end["wide"] - r0["wide"] != dl or \
+                end["plain"] != r0["plain"]:
+            raise RuntimeError(
+                "release: replica %s: %d dispatches, %d launches (%d at "
+                "16 bytes), %d plain pools" % (
+                    rid, d, dl, end["wide"] - r0["wide"],
+                    end["plain"] - r0["plain"]))
+        launches += dl
+        say("   replica %s: %d dispatches (live, canary, shadow and the "
+            "candidates' warmups), %d forward launches, 3 a dispatch, all "
+            "16-byte, no plain pooling" % (rid, d, dl))
+    say("   the three releases %.1f s, %d replica forward launches; %s"
+        % (time.perf_counter() - t_releases, launches, card))
+    return launches
+
+
+def _promote_memory(torch, path, copy, card):
+    """What a promote leaves on the card, in this process: a
+    ``ServingServer`` over a registry serving ``path`` takes, twice, the
+    requests a promote sends a replica (``POST /models/<candidate>``,
+    batch-1 and batch-8 predicts to it, ``POST /reload``, ``DELETE
+    /models/<candidate>``), each on a connection of its own as the
+    router's fan-out opens them, with the allocator's history on.
+    Prints each new live block with the Python frame that allocated it,
+    then clears cuBLAS's workspaces.  Fails unless the first promote
+    adds its new ``CUBLAS_WORKSPACE`` blocks (within ``RELOAD_SLACK``),
+    the second adds none, and the clear frees whole workspaces."""
+    import numpy
+    from znicz_tpu_torch.serving.registry import ModelRegistry
+    from znicz_tpu_torch.serving.server import ServingServer
+
+    registry = ModelRegistry(models={"alexnet": path}, max_batch=64,
+                             device="cuda")
+    srv = ServingServer(registry=registry, port=0).start()
+    images = numpy.random.RandomState(17).randint(
+        -128, 128, (8,) + registry.peek("alexnet").sample_shape).astype(
+            numpy.float32)
+
+    def call(method, route, body=None, ctype="application/json"):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=300)
+        try:
+            conn.request(method, route, body=body,
+                         headers={"Content-Type": ctype})
+            resp = conn.getresponse()
+            data = resp.read()
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise RuntimeError("promote memory: %s %s answered %d: %r"
+                               % (method, route, resp.status, data[:300]))
+
+    def predict(name):
+        for n in (1, 8):
+            call("POST", "/predict/" + name, _npy(images[:n]),
+                 "application/octet-stream")
+
+    def live_blocks():
+        torch.cuda.synchronize()
+        out = {}
+        for seg in torch.cuda.memory._snapshot()["segments"]:
+            for block in seg["blocks"]:
+                if block["state"] == "active_allocated":
+                    out[block.get("address")] = block
+        return out
+
+    def where(block):
+        for frame in block.get("frames") or ():
+            name = frame.get("filename", "")
+            if "znicz_tpu_torch" in name:
+                return "%s:%d %s" % (name.split("znicz_tpu_torch/")[-1],
+                                     frame["line"], frame["name"])
+        return "(no frame of the package)"
+
+    torch.cuda.memory._record_memory_history(stacks="python",
+                                             max_entries=200000)
+    try:
+        predict("alexnet")
+        base, blocks0 = torch.cuda.memory_allocated(), live_blocks()
+        after = []
+        for k in (2, 3):
+            cand = "alexnet.gen%d" % k
+            call("POST", "/models/" + cand,
+                 json.dumps({"path": copy}).encode())
+            predict(cand)
+            call("POST", "/reload",
+                 json.dumps({"path": copy, "model": "alexnet"}).encode())
+            call("DELETE", "/models/" + cand)
+            predict("alexnet")
+            after.append(torch.cuda.memory_allocated())
+        blocks1 = live_blocks()
+        new = [blocks1[a] for a in set(blocks1) - set(blocks0)]
+        gone = sum(blocks0[a]["size"] for a in set(blocks0) - set(blocks1))
+        torch._C._cuda_clearCublasWorkspaces()
+        cleared = torch.cuda.memory_allocated()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+        srv.stop()
+        del registry
+    grown = after[0] - base
+    workspaces = [b for b in new if b["size"] == CUBLAS_WORKSPACE]
+    # every workspace of the process goes: whole workspaces only
+    n_cleared = int(round((after[1] - cleared) / float(CUBLAS_WORKSPACE)))
+    say("== a promote's memory, in process (two promotes of the copy "
+        "through a ServingServer on the card): memory_allocated %d B, "
+        "then %+d B after the first promote and %+d B after the second; "
+        "%d new live blocks (%d B; %d B of old ones gone): %s; clearing "
+        "cuBLAS's workspaces freed %d B (%d of %d B); %s" % (
+            base, grown, after[1] - after[0], len(new),
+            sum(b["size"] for b in new), gone, "; ".join(
+                "%d B at %s" % (b["size"], where(b))
+                for b in sorted(new, key=lambda b: -b["size"])[:6]),
+            after[1] - cleared, n_cleared, CUBLAS_WORKSPACE, card))
+    if not (workspaces and after[1] - cleared ==
+            n_cleared * CUBLAS_WORKSPACE and
+            abs(grown - len(workspaces) * CUBLAS_WORKSPACE) <=
+            RELOAD_SLACK and abs(after[1] - after[0]) <= RELOAD_SLACK):
+        raise RuntimeError("a promote's memory: +%d B, then %+d B; %d new "
+                           "workspace blocks; %d B freed with the "
+                           "workspaces" % (grown, after[1] - after[0],
+                                           len(workspaces),
+                                           after[1] - cleared))
+
+
+def _autoscale_cli(path):
+    """The autoscale phase's ``serve alexnet=ZIP --fleet 1 --autoscale``
+    CLI, started (it comes up while the fleet phase runs its
+    releases)."""
+    import shutil
+    shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    os.makedirs(AUTOSCALE_DIR)
+    return _FleetCli(path, os.path.join(AUTOSCALE_DIR, "blackbox"),
+                     replicas=1, extra=[
+        # one dispatch slot: a burst's requests queue at the replica;
+        # an SLO the burst keeps, so its queued rows scale the fleet
+        # up and the error budget lets the quiet fleet scale down
+        "--autoscale", "--max-inflight", "1",
+        "--config", "common.serving.slo_ms=10000.0",
+        "--config", "common.serving.fleet.min_replicas=1",
+        "--config", "common.serving.fleet.max_replicas=2",
+        "--config", "common.serving.fleet.autoscale_interval_s=0.5",
+        "--config",
+        "common.serving.fleet.cooldown_s=%r" % AUTOSCALE_COOLDOWN_S,
+        "--config", "common.serving.fleet.scale_up_queue_rows=%r"
+        % float(AUTOSCALE_QUEUE_ROWS),
+        "--config", "common.serving.fleet.scale_down_evals=2"])
+
+
+def _launch_check(before, after, what):
+    """3 forward launches a dispatch, all 16-byte, no plain pooling,
+    from ``before`` to ``after`` (a replica's ``_replica_state``; None:
+    from the replica's start).  Returns the launches."""
+    b = before or {"dispatches": 0, "launches": 0, "wide": 0,
+                   "plain": after["plain"]}
+    d, dl = after["dispatches"] - b["dispatches"], \
+        after["launches"] - b["launches"]
+    if d <= 0 or dl != 3 * d or after["wide"] - b["wide"] != dl or \
+            after["plain"] != b["plain"]:
+        raise RuntimeError("autoscale: %s: %d dispatches, %d launches (%d "
+                           "at 16 bytes), %d plain pools" % (
+                               what, d, dl, after["wide"] - b["wide"],
+                               after["plain"] - b["plain"]))
+    say("   %s: %d dispatches, %d forward launches, 3 a dispatch, all "
+        "16-byte, no plain pooling" % (what, d, dl))
+    return dl
+
+
+def phase_autoscale(torch, card, fleet):
+    """The autoscaler (slice 16): ``serve alexnet=ZIP --fleet 1
+    --autoscale`` on the card (started during the fleet phase, in
+    ``fleet["cli"]``) scales to 2 replicas under a burst of batch-64
+    requests and back to 1 when quiet, losing no request.  Returns the
+    replicas' forward launches over the phase's requests."""
+    from znicz_tpu_torch.core import blackbox
+
+    t_phase = time.perf_counter()
+    cli, ref, images = fleet["cli"], fleet["ref"], fleet["images"]
+    memo = {}
+
+    def want(rows, bucket):
+        if (rows, bucket) not in memo:
+            memo[rows, bucket] = ref.predict(images[:rows], bucket=bucket)
+        return memo[rows, bucket]
+
+    launches = 0
+    try:
+        cli.wait_banner()
+        if "autoscaler armed" not in cli.banner_line:
+            raise RuntimeError("autoscale: the banner says no autoscaler: "
+                               "%s" % cli.banner_line)
+        first = _replica_state(cli)
+        if len(first) != 1:
+            raise RuntimeError("autoscale: %d replicas up at the start"
+                               % len(first))
+        # 1. the burst scales the fleet up
+        t0 = time.perf_counter()
+        burst = _Traffic(cli, images, [64] * AUTOSCALE_BURST_CLIENTS,
+                         "burst")
+        try:
+            _until(lambda: len(cli.replicas()) >= 2, 120,
+                   "the autoscaler's scale-up")
+            t_decided = time.perf_counter()
+        finally:
+            replies, failures = burst.stop()
+        _check_replies(replies, failures, want, "burst")
+        _until(lambda: len(cli.replicas("up")) == 2, 180,
+               "the new replica in rotation")
+        up_s = time.perf_counter() - t_decided
+        two = _replica_state(cli)
+        if any(r["device"] != "cuda" for r in two.values()):
+            raise RuntimeError("autoscale: replicas on %s"
+                               % {k: r["device"] for k, r in two.items()})
+        decision = cli.get("/statusz")["autoscaler"]["last_decision"]
+        say("== autoscale: `serve alexnet=ZIP --fleet 1 --autoscale` banner "
+            "after %.2f s (started during the fleet phase); a burst of %d "
+            "clients x batch 64 (%d replies, all 200, bit-equal to the "
+            "in-process engine) scaled it to %s in %.2f s from the "
+            "burst's start, the new replica in rotation %.2f s after the "
+            "decision (startup %s s), each on cuda; %s"
+            % (cli.banner_s, AUTOSCALE_BURST_CLIENTS, len(replies),
+               sorted(two), t_decided - t0, up_s,
+               [b["startup_s"] for b in cli.replicas("up")], card))
+        say("   the autoscaler's last decision: %s (%s)"
+            % (decision.get("action"), decision.get("reason")))
+        for rid, r in two.items():
+            launches += _launch_check(first.get(rid), r,
+                                      "replica %s over the burst" % rid)
+        # 2. quiet: the autoscaler retires one replica, losing nothing
+        t_quiet = time.perf_counter()
+        trickle = _Traffic(cli, images, [1], "quiet")
+        try:
+            _until(lambda: len(cli.replicas("up")) == 1, 120,
+                   "the autoscaler's scale-down")
+            down_s = time.perf_counter() - t_quiet
+            _until(lambda: all(b["state"] == "dead" for b in
+                               cli.replicas() if b["state"] != "up"), 120,
+                   "the retired replica's exit")
+        finally:
+            replies, failures = trickle.stop()
+        _check_replies(replies, failures, want, "scale-down")
+        retired = [b for b in cli.replicas() if b["state"] == "dead"]
+        if len(retired) != 1 or retired[0]["exit_code"] != 0:
+            raise RuntimeError("autoscale: retired %s" % retired)
+        say("   quiet: the autoscaler retired %s %.2f s after the burst "
+            "ended (exit code 0), %d trickle requests all 200 and "
+            "bit-equal; %s" % (retired[0]["id"], down_s, len(replies),
+                               card))
+        for rid, r in _replica_state(cli).items():
+            launches += _launch_check(two[rid], r,
+                                      "replica %s over the trickle" % rid)
+        # the router's journal, read back from the blackbox
+        events = blackbox.timeline(os.path.join(AUTOSCALE_DIR, "blackbox"),
+                                   roles=["router"])["events"]
+        kinds = [e["kind"] for e in events]
+        for kind in ("autoscaler.scale_up", "autoscaler.scale_down"):
+            if kind not in kinds:
+                raise RuntimeError("autoscale: the router's journal holds "
+                                   "no %s: %s" % (kind, sorted(set(kinds))))
+        say("   the router's journal (blackbox): %s" % ", ".join(
+            "%s x%d" % (k, kinds.count(k)) for k in sorted(set(kinds))
+            if k.startswith("autoscaler.scale")))
+        _fleet_sigterm(cli, [b["pid"] for b in cli.replicas()])
+    except BaseException:
+        say("   the autoscale CLI's last output:\n"
+            + "\n".join(cli.lines[-40:]))
+        raise
+    finally:
+        cli.stop()
+    import shutil
+    shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    say("   autoscale phase wall %.1f s, %d replica forward launches over "
+        "its requests; %s" % (time.perf_counter() - t_phase, launches, card))
+    return launches
 
 
 def _sums(rows):
@@ -7624,8 +8319,16 @@ def _phases(torch, name, card, start):
     marks.append(("mse_zoo", time.perf_counter()))
     by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
     marks.append(("serve_models", time.perf_counter()))
-    fleet_launches = phase_fleet(torch, card)
-    marks.append(("fleet", time.perf_counter()))
+    later = {}
+    try:
+        fleet_launches, release_launches = phase_fleet(torch, card, later)
+        marks.append(("fleet", time.perf_counter()))
+        autoscale_launches = phase_autoscale(torch, card, later)
+        marks.append(("autoscale", time.perf_counter()))
+    finally:
+        if "cli" in later:
+            later["cli"].stop()
+        later.clear()
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -7651,19 +8354,23 @@ def _phases(torch, name, card, start):
                "launches": sum(by_width.values()) + sum(
                    p["forward"] for p in paths.values()) + sum(
                        by_dtype.values()) + serve_retry_launches +
-               fleet_launches,
+               fleet_launches + release_launches + autoscale_launches,
                "launches_by_path": dict(
                    serve=sum(by_width.values()),
                    serve_models=sum(by_dtype.values()),
                    resilience_serve=serve_retry_launches,
                    fleet=fleet_launches,
+                   release=release_launches,
+                   autoscale=autoscale_launches,
                    **{k: p["forward"] for k, p in paths.items()}),
                "launches_by_dtype": by_dtype,
                "launches_by_width": {
                    k: by_width[k] + sum(p["forward_by_width"][k]
                                         for p in paths.values()) + (
                        sum(by_dtype.values()) + serve_retry_launches +
-                       fleet_launches if k == WIDE else 0)
+                       fleet_launches + release_launches +
+                       autoscale_launches if k == WIDE
+                       else 0)
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}
     forward.update(kernel_record(rows, max(max_err, train_err["forward"]),

@@ -39,13 +39,14 @@ import torch
 from test_torch_units import prng_streams_restored  # noqa: F401
 from znicz_tpu.core import prng as jax_prng
 from znicz_tpu.core.backends import JaxDevice
+from znicz_tpu.core.config import Config as JaxConfig
 from znicz_tpu.core.config import root as jax_root
 from znicz_tpu.loader import loader_mnist as jax_loader_mnist
 from znicz_tpu.samples import mnist as jax_mnist
 from znicz_tpu.units import nn_units as jax_nn_units
 from znicz_tpu_torch import __main__ as cli
 from znicz_tpu_torch.core import prng
-from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.config import Config, root
 from znicz_tpu_torch.core.snapshotter import SnapshotterToFile
 from znicz_tpu_torch.loader import loader_mnist
 from znicz_tpu_torch.loader.base import TRAIN, VALID
@@ -75,16 +76,40 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def _node_values(node):
+    """A config node's values, a child node's as a dict of its own."""
+    return {k: (_node_values(v) if isinstance(v, (Config, JaxConfig))
+                else copy.deepcopy(v))
+            for k, v in node.__dict__.items()
+            if not (k.startswith("_") and k.endswith("_"))}
+
+
+def _put_node_back(node, values):
+    """:func:`_node_values` back into the same node objects: modules
+    hold references to nodes (``_cfg = root.common.serving``), so a
+    node is never replaced by a copy."""
+    for k in [k for k in node.__dict__
+              if k not in values and not (k.startswith("_")
+                                          and k.endswith("_"))]:
+        del node.__dict__[k]
+    for k, v in values.items():
+        child = node.__dict__.get(k)
+        if isinstance(v, dict) and isinstance(child, (Config, JaxConfig)):
+            _put_node_back(child, v)
+        else:
+            object.__setattr__(node, k, v)
+
+
 @contextlib.contextmanager
 def _restored(*nodes):
-    """Put config nodes back as they were (overrides add keys)."""
-    saved = [(n, copy.deepcopy(n.__dict__)) for n in nodes]
+    """Put config nodes back as they were (overrides add keys), in
+    place."""
+    saved = [(n, _node_values(n)) for n in nodes]
     try:
         yield
     finally:
-        for n, d in saved:
-            n.__dict__.clear()
-            n.__dict__.update(d)
+        for n, values in saved:
+            _put_node_back(n, values)
 
 
 @pytest.fixture

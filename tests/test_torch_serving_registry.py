@@ -696,6 +696,35 @@ def test_shed_request_is_never_marked_admitted():
         b.stop(flush=False)
 
 
+def test_a_request_whose_model_went_while_queued_leaves_the_ring():
+    """A release's candidate removed while a canary request queued for
+    it: the request fails as an unknown model before any forward, and
+    its rid is no longer admitted (the router's fallback to the live
+    generation may send it to a peer); the served model's rid stays."""
+    live = RecordingModel()
+    live.gate.clear()                  # the one slot held on "live"
+    registry = FakeRegistry({"live": live, "cand": RecordingModel()})
+    b = _batcher(registry)
+    try:
+        kept = b.submit(_rows(1), model="live", request_id="to-live")
+        deadline = time.monotonic() + 5
+        while b.queued_rows and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert b.queued_rows == 0      # the slot holds it
+        gone = b.submit(_rows(1), model="cand", request_id="to-cand")
+        assert b.admitted_status("to-cand")["admitted"] is True
+        del registry.engines["cand"]
+        live.gate.set()
+        with pytest.raises(UnknownModelError):
+            gone.result(timeout=5)
+        kept.result(timeout=5)
+        assert b.admitted_status("to-cand")["admitted"] is False
+        assert b.admitted_status("to-live")["admitted"] is True
+        assert live.batches == [1]
+    finally:
+        b.stop(flush=False)
+
+
 def test_rid_aware_cache_invalidates_on_model_replace():
     class RidAwareModel(RecordingModel):
         def __init__(self, **kw):

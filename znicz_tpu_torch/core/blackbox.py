@@ -326,6 +326,9 @@ def maybe_arm(role=None):
     from znicz_tpu_torch.core import telemetry
     from znicz_tpu_torch.core import timeseries
     from znicz_tpu_torch.serving import reqtrace
+    telemetry.register_help(
+        "blackbox", "durable blackbox (core/blackbox.py): records "
+                    "and bytes persisted, rotations, torn tails")
     telemetry.set_journal_sink(_on_journal)
     timeseries.set_checkpoint_sink(_on_sweep)
     reqtrace.set_finish_sink(_on_trace)

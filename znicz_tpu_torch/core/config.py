@@ -1,7 +1,8 @@
 """A small attribute-dict configuration tree.
 
 Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
-reads: the ``root.common.serving`` knobs of the serving slice, the
+reads: the ``root.common.serving`` knobs of the serving slice (with
+the fleet's autoscaler and the ``release`` block, :375-519), the
 ``root.common.telemetry`` gate and journal size,
 ``root.common.engine.precision_dtype`` and ``deterministic``,
 ``root.common.dirs.snapshots`` / ``datasets`` / ``cache`` of the
@@ -85,6 +86,13 @@ root.common.update({
         "timeout_ms": 1000.0,     # per-request deadline in the queue
         "warmup": True,           # run every bucket once before ready
         "max_body_bytes": 16 << 20,  # larger request bodies get 413
+        # a request slower than this (admission to reply) is logged and
+        # journaled as serving.slow_request (0: never)
+        "slow_request_ms": 1000.0,
+        # f32-fast: buckets up to this size run the fast FC layer,
+        # larger ones the strict f32 layer (read at load, in the
+        # compile key)
+        "latency_bucket_max": 8,
         # the serving dtype an export or a snapshot records ("f32",
         # "f32-fast", "bf16" or "int8"); an engine without dtype=
         # adopts its source's
@@ -137,6 +145,37 @@ root.common.update({
             "probe_failures": 3,
             "route_retries": 2,
             "overhead_window": 512,
+            # the autoscaler (serving/autoscaler.py): the fleet's size
+            # bounds, its decision cadence, the scale-up signals (both
+            # burn windows over the threshold, or queued rows a replica
+            # over the ceiling), the scale-down hysteresis (a budget
+            # this green for this many decisions) and the seconds
+            # between two actions
+            "min_replicas": 1,
+            "max_replicas": 4,
+            "autoscale_interval_s": 5.0,
+            "scale_up_burn_threshold": 2.0,
+            "scale_up_queue_rows": 256.0,
+            "scale_down_budget_min": 0.97,
+            "scale_down_evals": 3,
+            "cooldown_s": 30.0,
+        },
+        # progressive delivery (serving/release.py): the share of live
+        # traffic mirrored in shadow, the compares shadow needs before
+        # it is green, the mismatches and candidate errors it tolerates,
+        # the canary ladder (% of traffic), the seconds each step stays
+        # green, the candidate requests a step needs, and the judge's
+        # cadence; a POST /release body's "policy" overrides any of them
+        # for that release
+        "release": {
+            "shadow_sample_pct": 100.0,
+            "shadow_min_compares": 8,
+            "shadow_mismatch_max": 0,
+            "shadow_error_max": 3,
+            "canary_steps": [5.0, 25.0, 50.0],
+            "green_window_s": 5.0,
+            "min_requests": 12,
+            "tick_interval_s": 0.25,
         },
     },
     "telemetry": {

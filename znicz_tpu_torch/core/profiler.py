@@ -47,6 +47,12 @@ at a time (a second raises ``RuntimeError``; HTTP answers 409), and a
 capture on the card that records no device event raises instead of
 passing off a CPU-only trace.
 
+The launch log (:func:`launch_log`): while armed, each hand-written
+kernel's launch is recorded (its index, kernel, stream and the thread's
+current stream) and annotated in the trace (``znicz_launch:<kernel>:
+<index>``), so :func:`unmatched_launches` can name the launch whose
+kernel record a trace lacks.  Off, the wrappers pay one global read.
+
 Disabled discipline, as in the JAX package: every hook site guards
 with ``if profiler.enabled():`` and every public hook guards again, so
 with the flag off there is no device sync, no allocation and no
@@ -723,6 +729,100 @@ def device_table(trace_path, top=None):
             "by_name": rows if top is None else rows[:top],
             "by_category": {k: round(v, 6) for k, v in
                             sorted(by_cat.items(), key=lambda kv: -kv[1])}}
+
+
+#: the launch log while :func:`launch_log` is armed, else None
+_LAUNCH_LOG = None
+#: the annotation prefix of a logged launch
+LAUNCH_PREFIX = "znicz_launch:"
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Yield a list that records every kernel launch of the body: a
+    dict of ``index`` (the launch order), ``kernel``, ``stream`` (the
+    one the launch went to), ``current_stream`` (the calling thread's
+    ``torch.cuda.current_stream()``) and ``thread``."""
+    global _LAUNCH_LOG
+    log = []
+    _LAUNCH_LOG = log
+    try:
+        yield log
+    finally:
+        _LAUNCH_LOG = None
+
+
+def launch_range(kernel, stream):
+    """The context a kernel wrapper launches in: nothing unless the
+    launch log is armed; then the launch is logged and annotated as
+    ``znicz_launch:<kernel>:<index>`` for the trace."""
+    log = _LAUNCH_LOG
+    if log is None:
+        return contextlib.nullcontext()
+    index = len(log)
+    log.append({"index": index, "kernel": kernel, "stream": int(stream),
+                "current_stream": int(torch.cuda.current_stream()
+                                      .cuda_stream),
+                "thread": threading.current_thread().name})
+    return torch.profiler.record_function(
+        "%s%s:%d" % (LAUNCH_PREFIX, kernel, index))
+
+
+#: the trace categories of a launch call on the host
+_LAUNCH_API_CATS = frozenset(("cuda_runtime", "cuda_driver"))
+
+
+def unmatched_launches(trace_path, log):
+    """The entries of ``log`` (:func:`launch_log`'s) whose kernel record
+    the Chrome trace at ``trace_path`` lacks, each with ``why``: the
+    launch call inside its annotation has a correlation id no kernel
+    event carries, or the trace holds no launch call inside it (then a
+    kernel event carrying the annotation's ``External id`` still
+    counts as its record)."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    spans, calls = {}, []
+    kernel_corr, kernel_ext = set(), set()
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat, name = ev.get("cat"), str(ev.get("name", ""))
+        args = ev.get("args") or {}
+        if cat == "kernel":
+            if args.get("correlation") is not None:
+                kernel_corr.add(args["correlation"])
+            if args.get("External id") is not None:
+                kernel_ext.add(args["External id"])
+        elif cat in _LAUNCH_API_CATS:
+            calls.append(ev)
+        elif name.startswith(LAUNCH_PREFIX) and cat != "gpu_user_annotation":
+            try:
+                index = int(name.rsplit(":", 1)[1])
+            except ValueError:
+                continue
+            spans[index] = ev
+    missing = []
+    for entry in log:
+        span = spans.get(entry["index"])
+        if span is None:
+            missing.append(dict(entry, why="no annotation in the trace"))
+            continue
+        t0 = float(span.get("ts", 0.0))
+        t1 = t0 + float(span.get("dur", 0.0))
+        corr = [c["args"]["correlation"] for c in calls
+                if c.get("tid") == span.get("tid")
+                and t0 <= float(c.get("ts", 0.0)) <= t1
+                and (c.get("args") or {}).get("correlation") is not None]
+        ext = (span.get("args") or {}).get("External id")
+        if corr:
+            if not any(c in kernel_corr for c in corr):
+                missing.append(dict(entry, why="launch call correlation %s "
+                                    "has no kernel event" % corr))
+        elif ext is None or ext not in kernel_ext:
+            missing.append(dict(entry, why="no launch call and no kernel "
+                                "event linked to the annotation"))
+    return missing
 
 
 def kernel_events(table, name):

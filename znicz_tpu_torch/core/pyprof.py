@@ -46,6 +46,10 @@ from znicz_tpu_torch.core import telemetry
 #: the config node (stable object identity — config.py declares it)
 _cfg = root.common.profiler.pyprof
 
+telemetry.register_help(
+    "pyprof", "continuous Python sampling profiler (core/pyprof.py): "
+              "stack samples folded and GIL-wait milliseconds")
+
 _lock = threading.Lock()
 
 #: the thread-name convention every spawn site uses

@@ -28,8 +28,12 @@ health monitor's ``halt`` policy call it, and
 :func:`install_crash_handler` chains it into ``sys.excepthook`` and
 SIGTERM.
 
-The JAX package's spans and their trace ring feed its ``/debug/trace``
-endpoint, which this port does not have yet; they come with it.
+Request traces live in :mod:`znicz_tpu_torch.serving.reqtrace` (the
+``/debug/trace`` endpoint of the servers and the fleet router); the
+JAX package's generic spans and their ring have no counterpart here.
+:func:`register_help` / :func:`help_for` keep the one-line help of each
+series family (JAX :696-752), which the release plane and the
+autoscaler register.
 
 The metrics sit behind one gate, ``root.common.telemetry.enabled``:
 when it is off the factories hand out a shared no-op and nothing is
@@ -199,6 +203,57 @@ def labeled(name, **labels):
         return name
     return name + "." + ".".join(
         "%s_%s" % (k, labels[k]) for k in sorted(labels))
+
+
+#: one-line help by series-family prefix (the longest dotted prefix
+#: of a series name wins), the JAX package's table less its ``jax``
+#: compile family; modules register their own families
+_HELP = {
+    "faults": "deterministic fault injection (core/faults.py)",
+    "health": "numeric training-health monitor (core/health.py)",
+    "launcher": "supervised-restart lifecycle (launcher.py)",
+    "loader": "minibatch loader pipeline",
+    "memory": "device-memory ledger (core/profiler.py)",
+    "profiler": "performance introspection (core/profiler.py)",
+    "registry": "multi-model registry lifecycle "
+                "(serving/registry.py)",
+    "serving.request_seconds": "end-to-end request latency "
+                               "(admission to reply)",
+    "serving.queue_wait_seconds": "time queued before a dispatch "
+                                  "slot took the request",
+    "serving.assembly_seconds": "batch concatenation time",
+    "serving.device_seconds": "engine dispatch time per request",
+    "serving.batch_rows": "coalesced rows per dispatch",
+    "serving.batch_fill": "coalesced rows over the dispatched bucket",
+    "serving.pad_overhead": "padding fraction of the dispatched "
+                            "bucket",
+    "serving.tail_seconds": "per-scenario batch-1 tail latency "
+                            "(serving/latency.py)",
+    "serving": "online inference serving tier (znicz_tpu/serving/)",
+    "snapshotter": "snapshot export/restore (core/snapshotter.py)",
+    "trainer": "fused training control plane",
+    "transfer": "host<->device transfer meters",
+    "unit": "unit-graph execution",
+    "workflow": "workflow lifecycle",
+}
+
+
+def register_help(prefix, text):
+    """Register (or override) the one-line help of a series family;
+    returns ``prefix``."""
+    _HELP[str(prefix)] = str(text)
+    return prefix
+
+
+def help_for(name):
+    """The help of a dotted series name: the longest registered dotted
+    prefix wins, else a generic family line."""
+    parts = name.split(".")
+    for i in range(len(parts), 0, -1):
+        text = _HELP.get(".".join(parts[:i]))
+        if text is not None:
+            return text
+    return "znicz_tpu telemetry series (family %s)" % parts[0]
 
 
 def _prom_name(name):

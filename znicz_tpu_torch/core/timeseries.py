@@ -41,6 +41,10 @@ from znicz_tpu_torch.core import telemetry
 #: the config node (stable object identity — config.py declares it)
 _cfg = root.common.telemetry.timeseries
 
+telemetry.register_help(
+    "timeseries", "metric time-series sampler (core/timeseries.py): "
+                  "sweeps completed and series ring count")
+
 _lock = threading.Lock()
 
 #: name -> _Series; created lazily per sampled series

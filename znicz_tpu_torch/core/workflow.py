@@ -3,7 +3,8 @@
 Counterpart of ``znicz_tpu/core/workflow.py`` (:22-294: ``NoMoreJobs``,
 ``StartPoint``, ``EndPoint``, ``Repeater``, ``Workflow``, with
 ``as_dot``, ``dump_graph``, ``run_profiled`` and ``log_unit_timings``
-:228-300, and the armed profiler's device-memory sample at the end of a
+:228-300, the journal's ``config`` and ``workflow.run`` events :134,
+:192, and the armed profiler's device-memory sample at the end of a
 run) without the Dummy* helpers.  Units fire when all their
 parents have signalled and their gates permit; a ``Repeater`` fires
 on any parent and closes the training loop:
@@ -17,7 +18,8 @@ point.
 
 from collections import deque
 
-from znicz_tpu_torch.core import profiler
+from znicz_tpu_torch.core import profiler, telemetry
+from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.units import Unit
 
 
@@ -72,6 +74,10 @@ class Workflow(Unit):
         demanded attributes another unit's initialize produces, until
         none is left (or none can make progress: then raise)."""
         super(Workflow, self).initialize(device=device, **kwargs)
+        if telemetry.journal_enabled():
+            # the journal's first entry: which workflow, which config
+            telemetry.record_event("config", workflow=self.name,
+                                   config=root.as_dict())
         pending = [u for u in self._units if not u.initialized]
         order = self._graph_order()
         pending.sort(key=lambda u: order.get(u, len(order)))
@@ -117,6 +123,7 @@ class Workflow(Unit):
         for u in self._units:
             u._reset_fired()
         self._schedule(self.start_point)
+        telemetry.record_event("workflow.run", workflow=self.name)
         try:
             while self._queue and self._running:
                 self._queue.popleft()._fire()

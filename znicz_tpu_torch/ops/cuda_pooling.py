@@ -173,11 +173,12 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
     lib = _lib or load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.max_pooling_offsets(
-            x.data_ptr(), values.data_ptr(), offsets.data_ptr(),
-            _DTYPES[x.dtype], vec, int(plan.staged), b, h, w, c, ny, nx,
-            ky, kx, sy, sx,
-            plan.lanes, plan.ti, plan.tj, int(bool(use_abs)), stream)
+        with profiler.launch_range("max_pooling_offsets", stream):
+            err = lib.max_pooling_offsets(
+                x.data_ptr(), values.data_ptr(), offsets.data_ptr(),
+                _DTYPES[x.dtype], vec, int(plan.staged), b, h, w, c, ny, nx,
+                ky, kx, sy, sx,
+                plan.lanes, plan.ti, plan.tj, int(bool(use_abs)), stream)
     if err:
         raise RuntimeError(
             "max_pooling_offsets launch failed: %s"

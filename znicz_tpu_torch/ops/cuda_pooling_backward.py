@@ -250,11 +250,12 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     lib = _lib or load()
     with torch.cuda.device(err.device):
         stream = torch.cuda.current_stream(err.device).cuda_stream
-        code = lib.max_pooling_offsets_backward(
-            err.data_ptr(), offsets.data_ptr(), grad.data_ptr(),
-            _DTYPES[err.dtype], vec, variant(plan), b, h, w, c,
-            err.shape[1], err.shape[2], ky, kx, sy, sx, plan.ti, plan.tj,
-            plan.rows, plan.cols, *plan.block, *plan.grid, stream)
+        with profiler.launch_range("max_pooling_offsets_backward", stream):
+            code = lib.max_pooling_offsets_backward(
+                err.data_ptr(), offsets.data_ptr(), grad.data_ptr(),
+                _DTYPES[err.dtype], vec, variant(plan), b, h, w, c,
+                err.shape[1], err.shape[2], ky, kx, sy, sx, plan.ti, plan.tj,
+                plan.rows, plan.cols, *plan.block, *plan.grid, stream)
     if code:
         raise RuntimeError(
             "max_pooling_offsets_backward launch failed: %s"

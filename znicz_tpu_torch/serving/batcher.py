@@ -18,7 +18,10 @@ each caller its rows.  Overload fails fast:
 
 A request's id (``request_id=``) rides to the engine's ``predict(x,
 request_ids=...)`` (every dispatch passes it), and keys the ``queue_wait``, ``assembly`` and
-``dispatch`` spans of a sampled trace tree (:func:`note_spans`).
+``dispatch`` spans of a sampled trace tree (:func:`note_spans`).  A
+request slower than ``root.common.serving.slow_request_ms`` is logged
+and journaled (:func:`note_slow`); each batch records the
+``serving.assembly_seconds`` and ``serving.pad_overhead`` series.
 """
 
 import collections
@@ -248,11 +251,15 @@ class MicroBatcher(Logger):
                 r.future.set_exception(e)
             return
         done = time.monotonic()
+        asm_dt = t_dev - t_asm
         if telemetry.enabled():
             telemetry.counter("serving.batches").inc()
             telemetry.histogram("serving.batch_rows").observe(rows)
             telemetry.histogram("serving.batch_fill").observe(
                 rows / float(bucket))
+            telemetry.histogram("serving.assembly_seconds").observe(asm_dt)
+            telemetry.histogram("serving.pad_overhead").observe(
+                (bucket - rows) / float(bucket))
             for r in live:
                 telemetry.histogram("serving.request_seconds").observe(
                     done - r.arrived)
@@ -261,10 +268,45 @@ class MicroBatcher(Logger):
                 telemetry.histogram("serving.device_seconds").observe(
                     dev_dt)
         note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
+        note_slow(self, live, now, done, asm_dt, dev_dt, rows, bucket)
         offset = 0
         for r in live:
             r.future.set_result(y[offset:offset + r.rows])
             offset += r.rows
+
+
+def note_slow(logger, live, t_take, done, asm_dt, dev_dt, rows, bucket,
+              **lane):
+    """Log and journal (``serving.slow_request``, JAX batcher.py:378,
+    continuous.py:597) each request of a batch slower than
+    ``root.common.serving.slow_request_ms`` (0: never), with its
+    breakdown; ``lane`` is the continuous batcher's ``model=``."""
+    slow_ms = float(root.common.serving.get("slow_request_ms", 1000.0)
+                    or 0.0)
+    if slow_ms <= 0.0:
+        return
+    tracing = reqtrace.enabled()
+    for r in live:
+        total = done - r.arrived
+        if total * 1e3 <= slow_ms:
+            continue
+        waited = max(t_take - r.arrived, 0.0)
+        logger.warning(
+            "slow request%s: total %.1f ms (queue %.1f ms, assembly %.2f "
+            "ms, device %.1f ms; %d rows in a %d-row batch, bucket %d%s)",
+            " " + r.rid if r.rid else "", total * 1e3, waited * 1e3,
+            asm_dt * 1e3, dev_dt * 1e3, r.rows, rows, bucket,
+            ", model %s" % (lane["model"] or "<default>") if lane else "")
+        telemetry.record_event(
+            "serving.slow_request", rid=r.rid, **lane,
+            total_ms=round(total * 1e3, 3),
+            queue_ms=round(waited * 1e3, 3),
+            assembly_ms=round(asm_dt * 1e3, 3),
+            device_ms=round(dev_dt * 1e3, 3),
+            rows=r.rows, batch_rows=rows, bucket=bucket,
+            # the rid is a trace exemplar where it was head-sampled
+            trace_sampled=bool(tracing and r.rid
+                               and reqtrace.sampled(r.rid)))
 
 
 def note_spans(live, t_take, t_asm, t_dev, dev_dt, rows, bucket):

@@ -16,6 +16,7 @@ shape bucket:
 The knobs are ``root.common.serving.breaker_threshold`` (0 turns the
 breakers off), ``breaker_cooldown_ms`` and ``breaker_half_open_max``;
 the engine reads them at every dispatch.  The clock is injectable.
+Every transition is journaled as ``serving.breaker`` (JAX :161).
 """
 
 import threading
@@ -112,10 +113,15 @@ class CircuitBreaker(object):
 
     def _transition(self, state):
         prev, self.state = self.state, state
-        if prev != state and telemetry.enabled():
+        if prev == state:
+            return
+        if telemetry.enabled():
             telemetry.gauge(telemetry.labeled(
                 "serving.breaker_open", breaker=self.name)).set(
                     0 if state == CLOSED else 1)
+        telemetry.record_event("serving.breaker", name=self.name,
+                               state=state, previous=prev,
+                               failures=self._failures)
 
     def status(self):
         with self._lock:

@@ -28,9 +28,26 @@ before the request is visible to a slot.  :meth:`ContinuousBatcher.
 admitted_status` is the fleet router's retry-safety oracle (``GET
 /admitted/<rid>``): an admitted rid may have been dispatched, so it is
 never resent to a peer; the eviction count and the oldest retained
-admission time say how far back a miss proves non-admission.  Request
+admission time say how far back a miss proves non-admission.  A request
+whose model was removed while it queued (a release's candidate undeployed
+by a rollback or an abort) ran no forward: it leaves the ring as it fails
+with :class:`~znicz_tpu_torch.serving.registry.UnknownModelError`, so the
+router's fallback to the live generation on a peer dispatches it once.  Request
 ids ride to the engine's ``predict(x, request_ids=...)`` and key the
 ``queue_wait``, ``assembly`` and ``dispatch`` spans of sampled trees.
+
+**Series** (JAX :380-613): ``serving.batches``, ``batch_rows``,
+``batch_fill``, ``assembly_seconds``, ``pad_overhead``,
+``request_seconds`` (also labelled by priority and by model),
+``queue_wait_seconds`` (also by model), ``device_seconds``, the
+``serving.inflight`` gauge, and ``serving.slow_request`` in the journal
+over ``root.common.serving.slow_request_ms``.
+
+**A pinned bucket.**  ``submit(..., bucket=B)`` dispatches the request
+padded to at least bucket ``B``, in a lane of its own; every resolved
+future carries the bucket its batch ran at (``future.bucket``, and
+``predict(..., info={})``'s ``info["bucket"]``).  A release's shadow
+compare replays a live request at its bucket that way.
 """
 
 import collections
@@ -47,8 +64,9 @@ from znicz_tpu_torch.serving.batcher import (_DISPATCH_GRACE, _Request,
                                              BatcherStoppedError,
                                              QueueFullError,
                                              RequestTimeoutError,
-                                             note_spans)
+                                             note_slow, note_spans)
 from znicz_tpu_torch.serving.engine import matches_sample_shape
+from znicz_tpu_torch.serving.registry import UnknownModelError
 
 #: priority lanes, best first (their dispatch rank)
 PRIORITIES = {"high": 0, "normal": 1, "low": 2}
@@ -159,11 +177,12 @@ class ContinuousBatcher(Logger):
 
     # -- submission ---------------------------------------------------------
     def submit(self, x, model=None, timeout_ms=None, priority=None,
-               request_id=None):
+               request_id=None, bucket=None):
         """Enqueue; returns a Future of the output rows.  ``model``
         routes within a registry (None: its default model);
         ``request_id`` enters the admitted ring and keys the request's
-        trace spans."""
+        trace spans; ``bucket`` pins the smallest bucket it is padded
+        to."""
         if not self._running:
             raise BatcherStoppedError("batcher is not running")
         priority = normalize_priority(priority)
@@ -191,7 +210,8 @@ class ContinuousBatcher(Logger):
         # one lane per generation and dtype: a hot reload never
         # coalesces requests admitted against two generations
         key = (model, x.shape[1:], getattr(engine, "serve_dtype", None),
-               priority, getattr(engine, "version", None))
+               priority, getattr(engine, "version", None),
+               int(bucket or 0))
         pct = root.common.serving.get("priority_queue_pct", {}).get(
             priority, 100.0)
         limit = min(self.queue_limit,
@@ -231,19 +251,23 @@ class ContinuousBatcher(Logger):
         return future
 
     def predict(self, x, model=None, timeout_ms=None, priority=None,
-                request_id=None):
-        """Blocking submit; with a deadline the wait is bounded too."""
+                request_id=None, bucket=None, info=None):
+        """Blocking submit; with a deadline the wait is bounded too.
+        ``info``, a dict, receives the ``bucket`` the batch ran at."""
         timeout = (self.timeout if timeout_ms is None
                    else (float(timeout_ms) / 1e3 or None))
         future = self.submit(x, model=model, timeout_ms=timeout_ms,
-                             priority=priority, request_id=request_id)
-        if timeout is None:
-            return future.result()
+                             priority=priority, request_id=request_id,
+                             bucket=bucket)
         try:
-            return future.result(timeout=timeout + _DISPATCH_GRACE)
+            y = future.result(timeout=None if timeout is None
+                              else timeout + _DISPATCH_GRACE)
         except concurrent.futures.TimeoutError:
             raise RequestTimeoutError("request did not complete within "
                                       "%.1f s" % (timeout + _DISPATCH_GRACE))
+        if info is not None:
+            info["bucket"] = getattr(future, "bucket", None)
+        return y
 
     @property
     def queued_rows(self):
@@ -252,6 +276,18 @@ class ContinuousBatcher(Logger):
     @property
     def inflight(self):
         return self._inflight
+
+    def _withdraw(self, rids):
+        """Take ``rids`` out of the admitted ring (requests that failed
+        before any forward ran for them)."""
+        with self._cond:
+            gone = set(rids) & self._admitted_set
+            if not gone:
+                return
+            self._admitted_set -= gone
+            self._admitted_ring = collections.deque(
+                (rid, t) for rid, t in self._admitted_ring
+                if rid not in gone)
 
     def admitted_status(self, rid):
         """The router's oracle with its coverage: a miss proves
@@ -274,11 +310,16 @@ class ContinuousBatcher(Logger):
                 return
             with self._cond:
                 self._inflight += 1
+                if telemetry.enabled():
+                    telemetry.gauge("serving.inflight").set(self._inflight)
             try:
                 self._run_batch(*taken)
             finally:
                 with self._cond:
                     self._inflight -= 1
+                    if telemetry.enabled():
+                        telemetry.gauge("serving.inflight").set(
+                            self._inflight)
 
     def _next_key(self):
         """The next model after the last one served that has work; its
@@ -327,15 +368,18 @@ class ContinuousBatcher(Logger):
             if telemetry.enabled():
                 telemetry.gauge("serving.queue_depth").set(
                     self._rows_queued)
-            return key[0], batch
+            return key[0], batch, key[3], key[5]
 
-    def _run_batch(self, model, batch):
+    def _run_batch(self, model, batch, priority="normal", pin=0):
         now = time.monotonic()
         live = []
         for r in batch:
             if r.deadline is not None and now > r.deadline:
                 if telemetry.enabled():
                     telemetry.counter("serving.timeouts").inc()
+                    if model is not None:
+                        telemetry.counter(telemetry.labeled(
+                            "serving.timeouts", model=model)).inc()
                 r.future.set_exception(RequestTimeoutError(
                     "request expired after %.1f ms in queue"
                     % ((now - r.arrived) * 1e3)))
@@ -347,38 +391,67 @@ class ContinuousBatcher(Logger):
         try:
             # resolution (a removed model, a failed restore) and the
             # forward fail this batch, never the slot
-            engine = self._resolve(model)
+            try:
+                engine = self._resolve(model)
+            except UnknownModelError:
+                # removed while queued: no forward ran for these
+                self._withdraw([r.rid for r in live if r.rid])
+                raise
             predict = getattr(engine, "predict", engine)
             bucket_for = getattr(engine, "bucket_for", None)
-            bucket = bucket_for(rows) if bucket_for else rows
+            bucket = bucket_for(max(rows, pin)) if bucket_for else rows
             t_asm = time.monotonic()
             x = (live[0].arr if len(live) == 1 else
                  numpy.concatenate([r.arr for r in live], axis=0))
             t_dev = time.monotonic()
             rids = [r.rid for r in live if r.rid]
-            y = numpy.asarray(predict(x, request_ids=rids or None))
+            pinned = {"bucket": pin} if pin else {}
+            y = numpy.asarray(predict(x, request_ids=rids or None,
+                                      **pinned))
             dev_dt = time.monotonic() - t_dev
         except Exception as e:  # noqa: BLE001 - fail the batch, not us
             if telemetry.enabled():
                 telemetry.counter("serving.errors").inc()
+                if model is not None:
+                    telemetry.counter(telemetry.labeled(
+                        "serving.errors", model=model)).inc()
             self.warning("batch of %d rows (model %s) failed: %r", rows,
                          model or "<default>", e)
             for r in live:
                 r.future.set_exception(e)
             return
         done = time.monotonic()
+        asm_dt = t_dev - t_asm
         if telemetry.enabled():
             telemetry.counter("serving.batches").inc()
             telemetry.histogram("serving.batch_rows").observe(rows)
+            telemetry.histogram("serving.batch_fill").observe(
+                rows / float(bucket))
+            telemetry.histogram("serving.assembly_seconds").observe(asm_dt)
+            telemetry.histogram("serving.pad_overhead").observe(
+                (bucket - rows) / float(bucket))
+            latency = [telemetry.histogram("serving.request_seconds"),
+                       telemetry.histogram(telemetry.labeled(
+                           "serving.request_seconds", priority=priority))]
+            queue_wait = [telemetry.histogram("serving.queue_wait_seconds")]
+            if model is not None:
+                latency.append(telemetry.histogram(telemetry.labeled(
+                    "serving.request_seconds", model=model)))
+                queue_wait.append(telemetry.histogram(telemetry.labeled(
+                    "serving.queue_wait_seconds", model=model)))
+            device = telemetry.histogram("serving.device_seconds")
             for r in live:
-                telemetry.histogram("serving.request_seconds").observe(
-                    done - r.arrived)
-                if model is not None:
-                    telemetry.histogram(telemetry.labeled(
-                        "serving.request_seconds", model=model)).observe(
-                            done - r.arrived)
+                for h in latency:
+                    h.observe(done - r.arrived)
+                for h in queue_wait:
+                    h.observe(max(now - r.arrived, 0.0))
+                # coalesced requests share their batch's dispatch
+                device.observe(dev_dt)
         note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
+        note_slow(self, live, now, done, asm_dt, dev_dt, rows, bucket,
+                  model=model)
         offset = 0
         for r in live:
+            r.future.bucket = bucket
             r.future.set_result(y[offset:offset + r.rows])
             offset += r.rows

@@ -30,11 +30,13 @@ dtype unless the constructor pinned them.
 
 * ``f32`` — the training forward; on the card TF32 is off for the
   process (``core.backends.full_f32``): TF32 is not float32;
-* ``f32-fast`` — fully-connected layers contract ``x @ W`` over weights
-  stored ``(in, out)``, the bias and the activation after.  Eager
-  PyTorch runs the JAX package's fast variant and its standard one as
-  the same operations, so every bucket takes the fast layer and
-  ``latency_bucket_max`` is not read;
+* ``f32-fast`` — the weights sit on the device in the f32 layout.
+  Buckets up to ``root.common.serving.latency_bucket_max`` (read at
+  load, part of :attr:`InferenceEngine.compile_key`) run the fast
+  layer: a fully-connected layer's bias and product in one
+  ``torch.addmm``, the activation after.  Larger buckets run the f32
+  layer itself, so their replies are bit-equal to ``f32``'s (JAX
+  :326-371);
 * ``bf16`` — the parameters are cast once at load, the padded batch is
   cast to bfloat16 before the first layer, every layer runs in
   bfloat16 (the max-pool kernel's bf16 instantiation, LRN and the
@@ -51,6 +53,14 @@ The products are plain ``torch`` operations (``F.conv2d``,
 (:mod:`znicz_tpu_torch.ops.cuda_pooling`) on the card, at every dtype,
 and its plain PyTorch version on the CPU; the winner offsets are
 dropped.
+
+**Padding.**  ``predict(x, bucket=B)`` pads to at least bucket ``B``:
+a release's shadow compare replays a live request at the bucket its
+coalesced batch ran at, since a product's rounding follows the bucket.
+
+**Journal.**  A load journals ``serving.reload``, an eviction
+``serving.evict`` and a restore ``serving.restore`` (JAX :697, :1072,
+:1101), with the JAX package's attributes.
 
 **Residency.**  :meth:`InferenceEngine.evict` drops the device copies
 of the parameters and keeps the host copies, in the serving dtype;
@@ -91,6 +101,13 @@ from znicz_tpu_torch.ops import pooling as pool_ops
 from znicz_tpu_torch.params import params_from_numpy
 from znicz_tpu_torch.serving import quant, reqtrace
 from znicz_tpu_torch.units.zerofilling import grouping_mask
+
+
+#: forward dispatches of every engine of this process (warmups among
+#: them): a replica's ``/statusz`` ``kernels`` block reports it beside
+#: the kernels' launch counters, engines that were removed included
+DISPATCHES = 0
+_DISPATCHES_LOCK = threading.Lock()
 
 
 def default_buckets(max_batch):
@@ -207,28 +224,33 @@ def _apply_quantized_layer(entry, params, y):
 
 
 def _apply_fast_layer(entry, params, y):
-    """One ``f32-fast`` layer: an FC layer contracts ``x @ W`` over its
-    ``(in, out)`` weights, then adds the bias and applies the
-    activation; every other layer is :func:`apply_layer`'s."""
+    """One ``f32-fast`` layer: an FC layer adds its bias inside the
+    product (``torch.addmm`` over the ``(out, in)`` weights), then
+    applies the activation; every other layer is
+    :func:`apply_layer`'s."""
     tpe = entry["type"]
     if not (tpe == "softmax" or tpe.startswith("all2all")):
         return apply_layer(entry, params, y)
-    z = y.reshape(y.shape[0], -1) @ params["weights"]
-    if _include_bias(entry, params):
-        z = z + params["bias"]
+    x2, w = y.reshape(y.shape[0], -1), params["weights"]
+    z = (torch.addmm(params["bias"], x2, w.t())
+         if _include_bias(entry, params) else x2 @ w.t())
     if tpe == "softmax":
         return dense.softmax(z)[0]
     return activations.apply(_FC_ACT[tpe], z)
 
 
-def forward(layers, params, x, serve_dtype="f32"):
+def forward(layers, params, x, serve_dtype="f32", fast_max=0):
     """The whole layer chain of a generation in ``serve_dtype`` on a
     device tensor; bf16 casts ``x`` to bfloat16 first and the reply
-    back to float32."""
+    back to float32; ``f32-fast`` runs the fast layer on batches of at
+    most ``fast_max`` rows and the strict one on larger ones."""
     if serve_dtype == "bf16":
         x = x.to(torch.bfloat16)
-    apply_one = _apply_fast_layer if serve_dtype == "f32_fast" \
-        else apply_layer
+    if serve_dtype == "f32_fast":
+        apply_one = (_apply_fast_layer if x.shape[0] <= fast_max
+                     else apply_layer)
+    else:
+        apply_one = apply_layer
     y = x
     for entry, p in zip(layers, params):
         y = (_apply_quantized_layer(entry, p, y) if "weights_q8" in p
@@ -259,12 +281,13 @@ def _validate_layers(layers):
 
 
 def _upload(layers, host_params, serve_dtype, device):
-    """The device copies of a generation's host parameters: f32 through
-    :func:`~znicz_tpu_torch.params.params_from_numpy` (the canonical
-    layout), the other dtypes as they are stored (bf16 tensors, int8
-    weights, f32-fast's ``(in, out)`` weights), floating numpy arrays as
-    float32."""
-    if serve_dtype == "f32":
+    """The device copies of a generation's host parameters: f32 and
+    f32-fast through :func:`~znicz_tpu_torch.params.params_from_numpy`
+    (the canonical layout: f32-fast's host ``(in, out)`` FC weights, the
+    JAX package's layout, go back to ``(out, in)`` once here), the other
+    dtypes as they are stored (bf16 tensors, int8 weights), floating
+    numpy arrays as float32."""
+    if serve_dtype in ("f32", "f32_fast"):
         return params_from_numpy(layers, host_params, device)
     out = []
     for p in host_params:
@@ -288,10 +311,10 @@ class _Model(object):
 
     __slots__ = ("layers", "params", "key", "dtype", "sample_shape",
                  "source", "version", "warm", "host_params", "dev_bytes",
-                 "serve_dtype")
+                 "serve_dtype", "fast_max")
 
     def __init__(self, layers, params, key, dtype, sample_shape, source,
-                 version, warm, host_params, serve_dtype):
+                 version, warm, host_params, serve_dtype, fast_max=0):
         self.layers = layers
         self.params = params
         self.key = key
@@ -303,6 +326,9 @@ class _Model(object):
         self.warm = warm
         self.host_params = host_params
         self.serve_dtype = serve_dtype
+        #: f32-fast only: the largest bucket the fast layer serves (the
+        #: ``latency_bucket_max`` knob captured at load)
+        self.fast_max = int(fast_max)
         #: the resident parameters' bytes, computed once
         self.dev_bytes = sum(v.numel() * v.element_size()
                              for p in params for v in p.values())
@@ -462,6 +488,14 @@ class InferenceEngine(Logger):
         return self._current("serve_dtype", self._dtype_pin or "f32")
 
     @property
+    def compile_key(self):
+        """The loaded generation's key (None before a load): the serving
+        dtype, the f32-fast threshold, the topology and the arrays'
+        shapes and dtypes.  A reload under the same key keeps the warm
+        set (JAX :484)."""
+        return self._current("key")
+
+    @property
     def warm_buckets(self):
         m = self._model
         return tuple(sorted(m.warm)) if m is not None else ()
@@ -510,6 +544,9 @@ class InferenceEngine(Logger):
         }
         if self.name is not None:
             payload["model"] = self.name
+        if m is not None and m.serve_dtype == "f32_fast":
+            # the fast layer's ceiling this generation loaded with
+            payload["latency_bucket_max"] = m.fast_max
         if self._warmup_manifest is not None:
             payload["warmup_manifest"] = self._warmup_manifest
         with self._lock:
@@ -519,8 +556,10 @@ class InferenceEngine(Logger):
         return payload
 
     # -- loading ------------------------------------------------------------
-    def load(self, source, sample_shape=None):
-        """Load (or hot-reload) a model; returns the new version.
+    def load(self, source, sample_shape=None, version=None):
+        """Load (or hot-reload) a model; returns the new version, the
+        old one plus one unless ``version`` pins it (a fleet replica
+        joining after a release's promote takes the fleet's).
 
         Requests go on being served by the old generation until the new
         one is swapped in.  With an unchanged topology and dtype the
@@ -534,6 +573,10 @@ class InferenceEngine(Logger):
                        for arrs in arrays_list]
         serve_dtype = self._dtype_pin or quant.normalize_dtype(
             (serving_mf or {}).get("dtype"))
+        # f32-fast: the fast layer's bucket ceiling, a live config read
+        # at each load (a reload adopts a changed knob), in the key
+        fast_max = (int(root.common.serving.get("latency_bucket_max", 8))
+                    if serve_dtype == "f32_fast" else 0)
         host_params = quant.convert_host_params(layers, host_params,
                                                 serve_dtype)
         dtype = quant.input_dtype(serve_dtype, torch.float32)
@@ -544,7 +587,7 @@ class InferenceEngine(Logger):
             shape = src_shape or self._sample_shape_override or \
                 _derived_sample_shape(layers, host_params)
         key = json.dumps(
-            [serve_dtype, layers,
+            [serve_dtype, fast_max, layers,
              [{a: [str(v.dtype)] + list(v.shape) for a, v in p.items()}
               for p in host_params]], sort_keys=True, default=str)
         with self._load_lock:
@@ -567,12 +610,20 @@ class InferenceEngine(Logger):
                 warm = set()
                 self._ready.clear()
             old_bytes = self.device_bytes
-            self._version += 1
+            self._version = (int(version) if version is not None
+                             else self._version + 1)
             model = _Model(layers, params, key, dtype, shape, label,
-                           self._version, warm, host_params, serve_dtype)
+                           self._version, warm, host_params, serve_dtype,
+                           fast_max)
             self._model = model
         del params
         self._ledger_swap(old_bytes, self.device_bytes)
+        event = {"version": model.version, "source": label,
+                 "topology_changed": not reused,
+                 "serve_dtype": serve_dtype}
+        if self.name is not None:
+            event["model"] = self.name
+        telemetry.record_event("serving.reload", **event)
         if telemetry.enabled():
             telemetry.gauge(self._label("serving.model_version")).set(
                 self._version)
@@ -710,18 +761,21 @@ class InferenceEngine(Logger):
                 with warnings.catch_warnings():
                     warnings.simplefilter("ignore", UserWarning)
                     xt = torch.from_numpy(x)
-            y = forward(m.layers, params, xt.to(self.device), m.serve_dtype)
+            kw = ({"fast_max": m.fast_max} if m.serve_dtype == "f32_fast"
+                  else {})
+            y = forward(m.layers, params, xt.to(self.device), m.serve_dtype,
+                        **kw)
             return y.cpu().numpy()
 
-    def predict(self, x, request_ids=None):
+    def predict(self, x, request_ids=None, bucket=None):
         """Forward ``x`` (batch-first) through the serving generation:
-        pad to the enclosing bucket, run on the device, strip the
-        padding, return a float32 numpy array.  An evicted model is
-        restored first.  Each sampled id of ``request_ids`` gets the
-        ``device`` span (JAX :990-997): from before the copy to the
-        device until the result is on the host — CUDA runs
-        asynchronously, so the span ends at the readback, not when the
-        forward's Python call returns."""
+        pad to the enclosing bucket (at least ``bucket`` where given),
+        run on the device, strip the padding, return a float32 numpy
+        array.  An evicted model is restored first.  Each sampled id
+        of ``request_ids`` gets the ``device`` span (JAX :990-997):
+        from before the copy to the device until the result is on the
+        host — CUDA runs asynchronously, so the span ends at the
+        readback, not when the forward's Python call returns."""
         m = self._model
         if m is None:
             raise RuntimeError("no model loaded")
@@ -747,7 +801,7 @@ class InferenceEngine(Logger):
                     "input shape %s" % (tuple(x.shape[1:]), sample))
             x = x.reshape((x.shape[0],) + sample)
         n = x.shape[0]
-        bucket = self.bucket_for(n)
+        bucket = self.bucket_for(max(n, int(bucket or 0)))
         if bucket > n:
             padded = numpy.zeros((bucket,) + x.shape[1:], numpy.float32)
             padded[:n] = x
@@ -797,6 +851,9 @@ class InferenceEngine(Logger):
                 if reqtrace.sampled(r):
                     reqtrace.add_span(r, "device", t_fwd0, t_fwd1,
                                       bucket=bucket, rows=n)
+        global DISPATCHES
+        with _DISPATCHES_LOCK:
+            DISPATCHES += 1
         with self._lock:
             self.dispatches += 1
             first = bucket not in m.warm
@@ -871,6 +928,10 @@ class InferenceEngine(Logger):
         if telemetry.enabled():
             telemetry.counter(self._label("serving.evictions")).inc()
             telemetry.gauge(self._label("serving.warm_buckets")).set(0)
+        event = {"version": self._version, "released_bytes": released}
+        if self.name is not None:
+            event["model"] = self.name
+        telemetry.record_event("serving.evict", **event)
         self.info("evicted: released %d device bytes%s", released,
                   " (model %s)" % self.name if self.name else "")
         return True
@@ -889,6 +950,10 @@ class InferenceEngine(Logger):
                                self.device)
             m.warm.clear()
         self._ledger_swap(0, m.dev_bytes)
+        event = {"version": self._version, "device_bytes": m.dev_bytes}
+        if self.name is not None:
+            event["model"] = self.name
+        telemetry.record_event("serving.restore", **event)
         if self._warmup_wanted and m.sample_shape is not None:
             self.warmup()
         else:

@@ -20,8 +20,17 @@ Counterpart of ``znicz_tpu/serving/registry.py`` (``ModelRegistry``
 * **Lazy restore.**  The next request to an evicted model restores it
   (:meth:`ModelRegistry.engine`), which may evict another cold one.
 
-The registry lock orders membership changes; each engine's own load
-lock orders its generation swaps.  Per-model telemetry carries a
+* **A mutation guard** (JAX :105-125): :meth:`ModelRegistry.
+  set_reload_guard` installs ``fn(name, action)``, consulted before a
+  hot reload, a remove and an add (a release controller vetoes
+  mutations of the model it is releasing with
+  :class:`~znicz_tpu_torch.serving.release.ReleaseConflictError`, a
+  409).
+
+Membership changes are journaled as ``registry.add`` and
+``registry.remove`` (JAX :174, :219).  The registry lock orders
+membership changes; each engine's own load lock orders its generation
+swaps.  Per-model telemetry carries a
 ``model_<name>`` label (the engine's ``name``).
 """
 
@@ -74,10 +83,25 @@ class ModelRegistry(Logger):
         self._budget_override = memory_budget_bytes
         self._engine_defaults = dict(engine_defaults)
         self._evictions = 0
+        #: the mutation guard (serving/release.py), None: no guard
+        self._reload_guard = None
         for name in sorted(models or ()):
             self.add(name, models[name])
 
     # -- membership ---------------------------------------------------------
+    def set_reload_guard(self, fn):
+        """Install (or clear, with None) the guard ``fn(name, action)``
+        consulted before every reload, remove and add; it raises to
+        veto."""
+        with self._lock:
+            self._reload_guard = fn
+
+    def _check_guard(self, name, action):
+        with self._lock:
+            guard = self._reload_guard
+        if guard is not None:
+            guard(name, action)
+
     def add(self, name, source, **engine_kwargs):
         """Load (or hot-reload) model ``name`` from ``source``; returns
         the engine's version.  A reload takes only ``sample_shape``:
@@ -90,6 +114,7 @@ class ModelRegistry(Logger):
                 "digits, '.', '_', '-'; max 64 chars)" % name)
         with self._lock:
             entry = self._entries.get(name)
+        self._check_guard(name, "add")
         if entry is not None:
             unsupported = set(engine_kwargs) - {"sample_shape"}
             if unsupported:
@@ -110,6 +135,10 @@ class ModelRegistry(Logger):
             if self._default is None:
                 self._default = name
             count = len(self._entries)
+        telemetry.record_event("registry.add", model=name,
+                               version=engine.version,
+                               source=str(engine.source),
+                               serve_dtype=engine.serve_dtype)
         if telemetry.enabled():
             telemetry.gauge("serving.registry_models").set(count)
         self.info("model %r added (v%d, %s, %d model%s registered)", name,
@@ -118,10 +147,12 @@ class ModelRegistry(Logger):
         self._enforce_budget(protect=name)
         return engine.version
 
-    def reload(self, name, source=None):
+    def reload(self, name, source=None, version=None):
         """Hot-reload ``name`` (the default model when None) from
-        ``source``, or from the path it was loaded from when None."""
+        ``source``, or from the path it was loaded from when None;
+        ``version`` pins the new generation's number."""
         key = name if name is not None else self._default
+        self._check_guard(key, "reload")
         entry = self._entry(key)
         src = source
         if src is None:
@@ -129,7 +160,7 @@ class ModelRegistry(Logger):
             if not src or str(src).startswith("<"):
                 raise ValueError("model %r has no source on disk to read "
                                  "again — pass a path" % key)
-        version = entry.engine.load(src)
+        version = entry.engine.load(src, version=version)
         self._touch(key)
         self._enforce_budget(protect=key)
         return version
@@ -137,6 +168,7 @@ class ModelRegistry(Logger):
     def remove(self, name):
         """Drop model ``name``; the default moves to the oldest one
         left.  Returns the engine."""
+        self._check_guard(name, "remove")
         with self._lock:
             entry = self._entries.pop(name, None)
             if entry is None:
@@ -146,6 +178,7 @@ class ModelRegistry(Logger):
                               key=lambda kv: kv[1].added)
                 self._default = left[0][0] if left else None
             count = len(self._entries)
+        telemetry.record_event("registry.remove", model=name)
         if telemetry.enabled():
             telemetry.gauge("serving.registry_models").set(count)
             telemetry.gauge("serving.registry_resident_bytes").set(

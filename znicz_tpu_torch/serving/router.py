@@ -1,8 +1,8 @@
 """Fleet front end: N replica processes behind one routing surface.
 
 Counterpart of ``znicz_tpu/serving/router.py`` (``_RawConn`` :158,
-``Replica`` :235, ``FleetRouter`` :607-2002, ``_merge_prometheus``
-:2032-2109), without the release plane:
+``Replica`` :235, ``_FleetTarget`` :490, ``FleetRouter`` :607-2002,
+``_merge_prometheus`` :2032-2109):
 
 * :class:`Replica` — one serving subprocess (``python -m
   znicz_tpu_torch serve ... --port 0``, ``--device`` and ``--config``
@@ -49,13 +49,32 @@ Counterpart of ``znicz_tpu/serving/router.py`` (``_RawConn`` :158,
     to the replicas and merge; ``router_overhead_ms`` is the router's
     wall minus the replica's ``X-Serving-Ms`` over the proxied 200s.
 
-``POST|GET|DELETE /release/...`` answer 404: the release plane is not
-in this slice of the port (``ROADMAP.md``).  The lock is a
+**The release plane** (:mod:`znicz_tpu_torch.serving.release`, JAX
+:1518-1580): ``POST /release/<model>`` (``{"path": ..., "policy":
+{...}}``) deploys the candidate on every UP replica and walks it
+through shadow and the canary ladder (``GET /release[/<model>]``
+reports, ``DELETE /release/<model>`` aborts), through
+:class:`_FleetTarget`.  The relay rewrites a canary rid's model to the
+candidate (a candidate gone by the time it answers: the live
+generation serves the rid, on the same replica, since an unknown model
+is refused before admission), and mirrors a shadowed request after its
+reply was written, with the bucket the replica's batch ran at
+(``X-Serving-Bucket``).  A mutation of a released model through
+``/reload`` or ``/models/`` answers 409.  A replica that enters
+rotation mid-release gets the active candidates first.
+
+**The autoscaler** (:mod:`znicz_tpu_torch.serving.autoscaler`,
+``serve --fleet N --autoscale``) is attached as ``autoscaler``; it
+reads :meth:`FleetRouter.aggregate_slo`, :meth:`FleetRouter.
+queued_rows_total` and :meth:`FleetRouter.alive_count`, acts through
+``scale_up`` and ``retire``, and stops with the router; ``/statusz``
+carries its status and the release plane's.  The lock is a
 ``threading.Lock``.
 """
 
 import collections
 import http.client
+import io
 import json
 import os
 import re
@@ -76,9 +95,19 @@ from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.core.status_server import (BodyTooLargeError,
                                                 HandlerBase, HttpServerBase)
 from znicz_tpu_torch.serving import reqtrace, wire
+from znicz_tpu_torch.serving.release import (ReleaseConflictError,
+                                             ReleaseController)
 
 _cfg = root.common.serving
 _fleet = root.common.serving.fleet
+
+telemetry.register_help(
+    "router", "fleet front end (serving/router.py): proxied "
+              "requests, peer retries, unsafe-retry 503s, replica "
+              "ejections")
+telemetry.register_help(
+    "fleet", "replica fleet state (serving/router.py): spawned/up "
+             "replica counts and scale events")
 
 #: the startup banner of ``python -m znicz_tpu_torch serve`` — the replica's
 #: chosen port rides in it (the child binds port 0).  The host may be
@@ -142,7 +171,8 @@ class _RawConn(object):
     def round_trip(self, request_bytes, timing=None):
         """Send one request; return ``(status, headers, body,
         close)`` where ``headers`` carries only Content-Type /
-        Retry-After / X-Serving-Ms / X-Serving-Generation.  Raises
+        Retry-After / X-Serving-Ms / X-Serving-Generation /
+        X-Serving-Bucket.  Raises
         ``OSError``/``ValueError``
         on any transport or framing failure (the caller maps it to
         the retry-safety machinery).  When ``timing`` is a dict it
@@ -182,6 +212,9 @@ class _RawConn(object):
                     value.strip().decode("latin-1")
             elif key == b"x-serving-generation":
                 headers["X-Serving-Generation"] = \
+                    value.strip().decode("latin-1")
+            elif key == b"x-serving-bucket":
+                headers["X-Serving-Bucket"] = \
                     value.strip().decode("latin-1")
             elif key == b"connection" and \
                     value.strip().lower() == b"close":
@@ -406,6 +439,7 @@ class _RouterWireExchange(object):
         meta = {"status": int(status), "ctype": ctype}
         for header, key in (("X-Request-Id", "rid"),
                             ("X-Serving-Generation", "generation"),
+                            ("X-Serving-Bucket", "bucket"),
                             ("Retry-After", "retry_after")):
             if headers.get(header) is not None:
                 meta[key] = headers[header]
@@ -454,6 +488,152 @@ def _wire_encode(handler, body, fwd_headers):
                                         dtype=numpy.float64)), extras
 
 
+def _decode_predict_body(data, ctype):
+    """A /predict reply body as an array: the ``.npy`` of an
+    octet-stream reply, a JSON reply's ``outputs``."""
+    if (ctype or "").startswith("application/octet-stream") or \
+            bytes(data[:6]) == b"\x93NUMPY":
+        return numpy.load(io.BytesIO(bytes(data)))
+    doc = json.loads(bytes(data).decode())
+    return numpy.asarray(doc["outputs"], dtype=numpy.float64)
+
+
+class _FleetTarget(object):
+    """The release controller's deployment surface over the fleet (JAX
+    :490-605): a candidate deploys by an admin fan-out to every UP
+    replica (the fleet stays homogeneous), a shadow predict runs on one
+    UP replica under a fresh ``shadow-`` rid (the live rid stays unique
+    in every admitted ring) and at the live batch's bucket, a promote is
+    a ``/reload`` fan-out; the SLO reads are the fleet's aggregate."""
+
+    def __init__(self, router):
+        self._router = router
+        self._default = None
+
+    def set_guard(self, fn):
+        self._router._release_guard = fn
+
+    def resolve_default(self):
+        # the fleet is homogeneous and its default stable for a release
+        if self._default is None:
+            self._default = self._router.models().get("default")
+        return self._default
+
+    def _block(self, name):
+        return (self._router.models().get("models") or {}).get(name)
+
+    def live_version(self, model):
+        block = self._block(model)
+        if block is None:
+            raise KeyError("model %r is not served by the fleet" % model)
+        return int(block.get("model_version") or 0)
+
+    def serve_dtype(self, name):
+        return (self._block(name) or {}).get("serve_dtype")
+
+    def alive(self, name):
+        block = self._block(name)
+        return bool(block) and bool(block.get("ready"))
+
+    def _fanout(self, method, path, body, replicas=None):
+        results, ok = {}, True
+        for replica in (replicas if replicas is not None
+                        else self._router.replicas()):
+            if replicas is None and replica.state != UP:
+                continue
+            try:
+                status, _, _ = self._router._send_to(
+                    replica, method, path, body,
+                    {"Content-Type": "application/json"})
+                results[replica.rid] = status
+                ok = ok and status < 400
+            except (_NeverSentError, _SentUnknownError) as e:
+                results[replica.rid] = repr(e)
+                ok = False
+        return ok, results
+
+    def deploy(self, name, source, replicas=None):
+        """Add the candidate on every UP replica (or on ``replicas``); a
+        failure anywhere undeploys it everywhere and raises: a fleet
+        where only some replicas hold it would skew every signal."""
+        ok, results = self._fanout(
+            "POST", "/models/" + name,
+            json.dumps({"path": str(source)}).encode(), replicas)
+        if not ok:
+            self.undeploy(name)
+            raise RuntimeError("candidate %s failed to deploy on the "
+                               "fleet: %s" % (name, results))
+
+    def undeploy(self, name):
+        self._fanout("DELETE", "/models/" + name, b"")
+
+    def promote(self, model, source):
+        # a replica boots on the replica argv's package: one entering
+        # rotation from now on loads this one, at this generation,
+        # first (recorded before the fan-out, which it may miss)
+        promoted = self._router._promoted
+        version = self.live_version(model) + 1
+        with self._router._lock:
+            before = promoted.get(model)
+            promoted[model] = (str(source), version)
+        ok, results = self._fanout(
+            "POST", "/reload",
+            json.dumps({"path": str(source), "model": model,
+                        "version": version}).encode())
+        if not ok:
+            with self._router._lock:
+                if before is None:
+                    promoted.pop(model, None)
+                else:
+                    promoted[model] = before
+            # each failed replica rolled back to its generation
+            raise RuntimeError("promote reload of %r failed on the "
+                               "fleet: %s" % (model, results))
+
+    def join_promoted(self, replica, promoted):
+        """Bring a replica entering rotation to each promoted model's
+        package and generation; raises when one does not load."""
+        for model, (source, version) in promoted.items():
+            ok, results = self._fanout(
+                "POST", "/reload",
+                json.dumps({"path": source, "model": model,
+                            "version": version}).encode(), [replica])
+            if not ok:
+                raise RuntimeError(
+                    "replica %s failed to load %r's promoted generation "
+                    "%d: %s" % (replica.rid, model, version, results))
+
+    def shadow_predict(self, name, payload, bucket=None):
+        body, ctype = payload
+        replica = self._router._pick()
+        if replica is None:
+            raise RuntimeError("no UP replica for shadow traffic")
+        headers = {"Content-Type": ctype or "application/json",
+                   "X-Request-Id": "shadow-" + uuid.uuid4().hex[:10]}
+        if bucket:
+            headers["X-Serving-Bucket"] = str(bucket)
+        status = None
+        try:
+            status, resp_headers, data = self._router._send_to(
+                replica, "POST", "/predict/" + name, body, headers)
+        finally:
+            self._router._release(
+                replica, served=status is not None and status < 500)
+        if status != 200:
+            raise RuntimeError("candidate %s answered %s: %s"
+                               % (name, status, bytes(data[:200]).decode(
+                                   "utf-8", "replace")))
+        return _decode_predict_body(data, resp_headers.get("Content-Type"))
+
+    @staticmethod
+    def decode_reply(reply):
+        data, ctype = reply
+        return _decode_predict_body(data, ctype)
+
+    def slo_models(self):
+        return self._router.aggregate_slo().get("models") or {}
+
+
 class FleetRouter(HttpServerBase):
     """The fleet front end (see the module's docstring).
 
@@ -484,6 +664,15 @@ class FleetRouter(HttpServerBase):
         self._draining = False
         self._monitor = None
         self._monitor_stop = threading.Event()
+        #: attached by ``serve --fleet N --autoscale``
+        self.autoscaler = None
+        #: the release plane, made at the first POST /release/<model>;
+        #: its mutation guard vetoes /reload and /models/ fan-outs
+        self.release = None
+        self._release_guard = None
+        #: model -> (source, version) of each promoted release: what a
+        #: replica spawned later loads before it enters rotation
+        self._promoted = {}
         #: the binary framed relay (serving/wire.py): the rid-
         #: multiplexed persistent-connection pool to the replicas
         #: (the default transport while serving.wire.enabled) and the
@@ -528,6 +717,28 @@ class FleetRouter(HttpServerBase):
             # normally stashed by wait_ready's 200 payload; a replica
             # entering by another path gets one discovery probe here
             replica.wire_port = self._discover_wire(replica)
+        with self._lock:
+            promoted = dict(self._promoted)
+        if promoted:
+            try:
+                _FleetTarget(self).join_promoted(replica, promoted)
+            except RuntimeError:
+                # never a fleet serving two generations of one model
+                replica.state = DEAD
+                replica.reason = "promoted_load_failed"
+                replica.kill()
+                raise
+        release = self.release
+        if release is not None:
+            # mid-release: the new replica holds every candidate before
+            # it takes a canary or shadow request
+            for name, source in release.candidates().items():
+                try:
+                    _FleetTarget(self).deploy(name, source,
+                                              replicas=[replica])
+                except RuntimeError as e:
+                    self.warning("replica %s entering rotation without "
+                                 "candidate %s: %s", replica.rid, name, e)
         replica.state = UP
         replica.probe_failures = 0
         telemetry.record_event("fleet.replica_spawn",
@@ -642,6 +853,10 @@ class FleetRouter(HttpServerBase):
         if self._monitor is not None:
             self._monitor.join(timeout=10)
             self._monitor = None
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        if self.release is not None:
+            self.release.stop()
         super(FleetRouter, self).stop()
         if self._wire is not None:
             self._wire.stop()
@@ -668,6 +883,18 @@ class FleetRouter(HttpServerBase):
     def replicas(self):
         with self._lock:
             return list(self._replicas)
+
+    def up_count(self):
+        with self._lock:
+            return sum(1 for r in self._replicas if r.state == UP)
+
+    def alive_count(self):
+        """The replicas that count toward the fleet's size: up, spawning
+        or draining out (a retire in progress must not read as a
+        replica missing, or the autoscaler would replace it)."""
+        with self._lock:
+            return sum(1 for r in self._replicas
+                       if r.state in (UP, SPAWNING, DRAINING))
 
     def _pick(self, exclude=()):
         """Least-outstanding-requests balancing over UP replicas;
@@ -887,6 +1114,8 @@ class FleetRouter(HttpServerBase):
             if rmeta.get("generation"):
                 resp_headers["X-Serving-Generation"] = \
                     rmeta["generation"]
+            if rmeta.get("bucket") is not None:
+                resp_headers["X-Serving-Bucket"] = str(rmeta["bucket"])
         if rmeta.get("retry_after") is not None:
             resp_headers["Retry-After"] = str(rmeta["retry_after"])
         if trace is not None:
@@ -1059,6 +1288,16 @@ class FleetRouter(HttpServerBase):
                 # lets the replica route it — and rides in the frame
                 # meta, not re-serialized into the body
                 model = wire_extras["model"]
+        # the canary split: an active release may send this rid to the
+        # candidate, the same generation at every retry of the rid; the
+        # shadow mirror keeps the live model's name
+        live_model, cand = model, None
+        ctl = self.release
+        if ctl is not None and ctl.active():
+            cand = ctl.route(model, rid)
+            if cand is not None:
+                path = "/predict/" + cand
+                model = cand
         hops = []   # committed (kind, t0, t1) spans — the histograms
         if traced:
             t_route = time.monotonic()
@@ -1090,7 +1329,7 @@ class FleetRouter(HttpServerBase):
                         if key != "model":  # the path wins
                             meta[key] = value
                     if model is not None:
-                        meta["model"] = model
+                        meta["model"] = model  # the path or the canary
                     if fwd_headers.get("X-Priority"):
                         meta["priority"] = fwd_headers["X-Priority"]
                     if "X-Trace-Sampled" in fwd_headers:
@@ -1166,19 +1405,45 @@ class FleetRouter(HttpServerBase):
                                           attempt_t0, replica,
                                           "refused_" + refusal)
                 continue
+            if cand is not None and status == 404:
+                # the candidate went between the split and the relay (a
+                # rollback removed it): an unknown model is refused
+                # before admission, so the live generation may serve the
+                # rid, on the same replica too
+                path = ("/predict/" + live_model if live_model
+                        else "/predict")
+                model, cand = live_model, None
+                tried.discard(replica.rid)
+                self._note_retry(replica, rid, "candidate_gone")
+                self._note_failed_attempt(rid, traced, hops,
+                                          attempt_t0, replica,
+                                          "candidate_gone")
+                continue
             ctype = resp_headers.get("Content-Type") or \
                 "application/json"
             out_headers = dict(echo)
             if resp_headers.get("Retry-After"):
                 out_headers["Retry-After"] = \
                     resp_headers["Retry-After"]
-            if resp_headers.get("X-Serving-Generation"):
-                # which generation answered rides to the client
-                out_headers["X-Serving-Generation"] = \
-                    resp_headers["X-Serving-Generation"]
+            for name in ("X-Serving-Generation", "X-Serving-Bucket"):
+                # which generation answered, at which bucket, rides to
+                # the client
+                if resp_headers.get(name):
+                    out_headers[name] = resp_headers[name]
             if telemetry.enabled():
                 telemetry.counter("router.proxied").inc()
             _relay_reply(handler, status, ctype, data, out_headers)
+            if ctl is not None and cand is None and status == 200 \
+                    and ctl.wants_mirror(live_model, rid):
+                # the shadow mirror, after the client has its reply; a
+                # frame's body is copied (its buffer is the listener's)
+                try:
+                    bucket = int(resp_headers.get("X-Serving-Bucket") or 0)
+                except ValueError:
+                    bucket = 0
+                ctl.mirror(live_model, rid,
+                           (bytes(body), fwd_headers.get("Content-Type")),
+                           (data, ctype), bucket=bucket or None)
             t_done = time.monotonic()
             if traced:
                 # commit the winning attempt's buffered phase spans,
@@ -1257,12 +1522,27 @@ class FleetRouter(HttpServerBase):
     def _admin_fanout(self, handler, method, path):
         """Admin mutations (add/reload/remove a model) apply to EVERY
         up replica — the fleet stays homogeneous.  Replies with the
-        per-replica outcomes; any failure is a 502."""
+        per-replica outcomes; any failure is a 502.  A mutation of a
+        model under release (or of its candidate) answers 409."""
         try:
             body = handler._read_body()
         except ValueError as e:
             handler._send_json(400, {"error": str(e)})
             return
+        guard = self._release_guard
+        if guard is not None:
+            if path.startswith("/models/"):
+                name = path[len("/models/"):]
+            else:
+                try:
+                    name = json.loads(body.decode() or "{}").get("model")
+                except (ValueError, AttributeError):
+                    name = None
+            try:
+                guard(name, method.lower() + " " + path)
+            except ReleaseConflictError as e:
+                handler._send_json(409, {"error": str(e)})
+                return
         results, ok = {}, True
         for replica in self.replicas():
             if replica.state != UP:
@@ -1284,6 +1564,65 @@ class FleetRouter(HttpServerBase):
                 ok = False
         handler._send_json(200 if ok else 502,
                            {"ok": ok, "replicas": results})
+
+    # -- the release plane --------------------------------------------------
+    def _release_controller(self):
+        """The fleet's release controller, made at first use."""
+        with self._lock:
+            if self.release is None:
+                self.release = ReleaseController(_FleetTarget(self))
+            return self.release
+
+    def _release_post(self, handler, name):
+        try:
+            doc = json.loads(handler._read_body().decode() or "{}")
+            source = doc["path"]
+        except (ValueError, TypeError) as e:
+            handler._send_json(400, {"error": str(e)})
+            return
+        except KeyError:
+            handler._send_json(400, {"error": 'body needs {"path": '
+                                              '"..."}'})
+            return
+        try:
+            payload = self._release_controller().start().start_release(
+                name, source, policy=doc.get("policy"))
+        except ReleaseConflictError as e:
+            handler._send_json(409, {"error": str(e)})
+            return
+        except ValueError as e:
+            handler._send_json(400, {"error": str(e)})
+            return
+        except KeyError as e:
+            handler._send_json(404, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 - a bad candidate file
+            handler._send_json(400, {"error": repr(e)})
+            return
+        handler._send_json(200, payload)
+
+    def _release_get(self, handler, name=None):
+        if self.release is None:
+            if name is None:
+                handler._send_json(200, {"active": {}, "recent": {}})
+            else:
+                handler._send_json(404, {
+                    "error": "no release record for model %r" % name})
+            return
+        try:
+            handler._send_json(200, self.release.status(name))
+        except KeyError as e:
+            handler._send_json(404, {"error": str(e)})
+
+    def _release_delete(self, handler, name):
+        if self.release is None:
+            handler._send_json(404, {
+                "error": "no active release for model %r" % name})
+            return
+        try:
+            handler._send_json(200, self.release.abort(name))
+        except KeyError as e:
+            handler._send_json(404, {"error": str(e)})
 
     # -- aggregation --------------------------------------------------------
     def _fetch(self, replica, path, timeout=10):
@@ -1557,6 +1896,10 @@ class FleetRouter(HttpServerBase):
                       ("device", "device_name", "kernels", "queued_rows")}
                 for rid, doc in sorted(replicas.items())},
         }
+        if self.autoscaler is not None:
+            payload["autoscaler"] = self.autoscaler.status()
+        if self.release is not None:
+            payload["release"] = self.release.status()
         if self._wire is not None:
             payload["wire"] = dict(self._wire_mux.stats(),
                                    port=self._wire.port)
@@ -1592,8 +1935,10 @@ class FleetRouter(HttpServerBase):
                     self._send_json(200, router.aggregate_slo())
                 elif path == "/models":
                     self._send_json(200, router.models())
-                elif path == "/release" or path.startswith("/release/"):
-                    self._send_json(404, _RELEASE_LATER)
+                elif path == "/release":
+                    router._release_get(self)
+                elif path.startswith("/release/"):
+                    router._release_get(self, path[len("/release/"):])
                 elif path in ("/", "/statusz"):
                     self._send_json(200, router.statusz())
                 elif path == "/debug/timeseries":
@@ -1678,8 +2023,7 @@ class FleetRouter(HttpServerBase):
                         path.startswith("/models/"):
                     router._admin_fanout(self, "POST", path)
                 elif path.startswith("/release/"):
-                    self._drain_body()
-                    self._send_json(404, _RELEASE_LATER)
+                    router._release_post(self, path[len("/release/"):])
                 else:
                     self._drain_body()
                     self._send_json(404, {"error": "not found"})
@@ -1690,7 +2034,7 @@ class FleetRouter(HttpServerBase):
                     router._admin_fanout(self, "DELETE", path)
                 elif path.startswith("/release/"):
                     self._drain_body()
-                    self._send_json(404, _RELEASE_LATER)
+                    router._release_delete(self, path[len("/release/"):])
                 else:
                     self._drain_body()
                     self._send_json(404, {"error": "not found"})
@@ -1728,11 +2072,6 @@ def _relay_reply(handler, status, ctype, data, headers):
             + data)
     except (BrokenPipeError, ConnectionResetError):
         pass  # the client went away; nothing to tell it
-
-
-#: the answer of every /release route
-_RELEASE_LATER = {"error": "the release plane (/release/...) is not in "
-                           "this slice of the port (see ROADMAP.md)"}
 
 
 #: per-series aggregation overrides for ratio-style gauges, matched

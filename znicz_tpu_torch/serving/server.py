@@ -41,6 +41,20 @@ Endpoints:
   remaining.
 * ``GET /admitted/<rid>`` — the continuous batcher's admitted-rid
   oracle, the fleet router's retry-safety check.
+* ``POST /release/<model>`` (``{"path": ..., "policy": {...}}``), ``GET
+  /release[/<model>]`` and ``DELETE /release/<model>`` — the release
+  plane of a registry server (:mod:`znicz_tpu_torch.serving.release`,
+  JAX :771-826): the candidate deploys as ``<model>.gen<N>``, shadow
+  mirrors live requests to it after their reply was written (with the
+  bucket their batch ran at), the canary split rewrites a rid's model
+  to the candidate (falling back to the live one where the candidate is
+  gone), promote reloads the live model.  While a release is active,
+  ``/reload`` and the ``/models/<name>`` mutations of its model and
+  candidate answer 409.  Every 200 names the generation that answered
+  (``X-Serving-Generation``, ``gen_<N>``) and, from a registry, the
+  bucket its batch ran at (``X-Serving-Bucket``, the frame's
+  ``bucket``); an HTTP request's ``X-Serving-Bucket`` pins the smallest
+  bucket it is padded to.
 * ``GET /debug/faults`` and ``GET /debug/health`` — the fault
   registry's and the health monitor's status; ``GET /debug/profile``,
   ``/debug/profiler``, ``/debug/timeseries``, ``/debug/pyprof``,
@@ -78,11 +92,15 @@ this command's arguments without ``--fleet``, ``--port`` and
 reads ``fleet of N replicas behind http://HOST:PORT/``, an armed
 blackbox is shared (roles "router" and "replica"), and SIGTERM drains
 the fleet.  A replica whose router is gone, even SIGKILLed, drains and
-exits within a second (the router's pid rides in its environment).  ``--autoscale`` and ``--compile-cache`` are not in this
-slice of the port (``ROADMAP.md``): the parser refuses them.  The
-release plane is not either; the replicas kernels' libraries are built
-once, under ``build/znicz_tpu_torch/``, and every later replica finds
-them (the port's counterpart of the JAX fleet's shared compile cache).
+exits within a second (the router's pid rides in its environment).
+``--autoscale`` arms the fleet's
+:class:`~znicz_tpu_torch.serving.autoscaler.Autoscaler` (JAX :959,
+:1017; the banner says "autoscaler armed"; without ``--fleet`` the
+parser refuses it).  ``--compile-cache`` is not in this slice of the
+port (``ROADMAP.md``): the parser refuses it; the replicas' kernel
+libraries are built once, under ``build/znicz_tpu_torch/``, and every
+later replica finds them (the port's counterpart of the JAX fleet's
+shared compile cache).
 """
 
 import argparse
@@ -111,6 +129,10 @@ from znicz_tpu_torch.serving.continuous import (ContinuousBatcher,
                                                 normalize_priority)
 from znicz_tpu_torch.serving.engine import InferenceEngine
 from znicz_tpu_torch.serving.registry import ModelRegistry, UnknownModelError
+from znicz_tpu_torch.serving.release import (LocalTarget,
+                                             ReleaseConflictError,
+                                             ReleaseController,
+                                             generation_label)
 
 #: the wording of an option that a later slice of the port brings
 _LATER = "is not in this slice of the port (see ROADMAP.md)"
@@ -161,12 +183,15 @@ def _read_path(handler):
 def kernels_block():
     """The ``kernels`` block of ``/statusz``: the max-pool kernels'
     launch counters in this process, its plain max pools on the card
-    (0 on the main path) and the libraries it built — a fleet replica
+    (0 on the main path), the libraries it built — a fleet replica
     started after the first builds none (the port's counterpart of the
-    JAX block ``compile_cache``)."""
+    JAX block ``compile_cache``) — and the engine dispatches of the
+    process (a removed candidate's among them)."""
     from znicz_tpu_torch.ops import (cuda_build, cuda_pooling,
                                      cuda_pooling_backward, pooling)
+    from znicz_tpu_torch.serving import engine
     return {
+        "engine_dispatches": engine.DISPATCHES,
         "max_pooling_offsets": {
             "launches": cuda_pooling.LAUNCHES,
             "wide": cuda_pooling.LAUNCHES_WIDE,
@@ -235,7 +260,8 @@ class _WireExchange(object):
         meta = {"status": int(code), "ctype": ctype}
         for header, key in (("X-Request-Id", "rid"),
                             ("X-Serving-Ms", "serving_ms"),
-                            ("X-Serving-Generation", "generation")):
+                            ("X-Serving-Generation", "generation"),
+                            ("X-Serving-Bucket", "bucket")):
             if headers.get(header) is not None:
                 meta[key] = headers[header]
         self.t_sent = time.monotonic()
@@ -274,6 +300,10 @@ class ServingServer(HttpServerBase):
         self._active_cv = threading.Condition()
         #: the SLO plane, fed by _predict behind slo.enabled()
         self.slo = slo.SloTracker()
+        #: the release plane over the registry (its threads start at
+        #: the first POST /release/<model>)
+        self.release = (ReleaseController(LocalTarget(registry, self.slo))
+                        if registry is not None else None)
         #: the binary relay's listener (start() arms it)
         self._wire = None
 
@@ -326,6 +356,8 @@ class ServingServer(HttpServerBase):
             self._wire.stop()
             self._wire = None
         super().stop()
+        if self.release is not None:
+            self.release.stop()
         if self._owns_batcher:
             self.batcher.stop()
 
@@ -369,6 +401,7 @@ class ServingServer(HttpServerBase):
         if dev is not None and dev.type == "cuda":
             import torch
             out["device_name"] = torch.cuda.get_device_name(dev)
+            out["memory_allocated"] = torch.cuda.memory_allocated(dev)
         return out
 
     def healthz(self):
@@ -405,6 +438,8 @@ class ServingServer(HttpServerBase):
             payload["wire"] = {"port": self._wire.port}
         if slo.enabled():
             payload["slo"] = self.slo.status()
+        if self.release is not None:
+            payload["release"] = self.release.status()
         return payload
 
     def models(self):
@@ -486,9 +521,23 @@ class ServingServer(HttpServerBase):
         except Exception as e:  # noqa: BLE001 - a parse error is a 400
             return fail(400, repr(e))
         model = model if model is not None else body_model
-        slo_model = model
+        # the canary split: an active release may serve this rid from
+        # its candidate, the same generation at every retry of the rid
+        routed = model
+        ctl = self.release
+        if ctl is not None and ctl.active():
+            routed = ctl.route(model, rid) or model
+        slo_model = routed
         try:
-            engine = self._engine_for(model)
+            try:
+                engine = self._engine_for(routed)
+            except UnknownModelError:
+                if routed is model:
+                    raise
+                # the candidate went between the split and here (a
+                # rollback removed it): the live generation answers
+                routed = slo_model = model
+                engine = self._engine_for(model)
             if slo_model is None and self.registry is not None:
                 # budgets are per model: the default carries its name
                 slo_model = self.registry.default
@@ -496,15 +545,19 @@ class ServingServer(HttpServerBase):
             return fail(404, str(e))
         if not engine.ready:
             return fail(503, "model warming up", slo_model)
+        info = {}
         try:
+            pin = handler.headers.get("X-Serving-Bucket")
+            pin = int(pin) if pin else None
             x = numpy.asarray(inputs, dtype=engine.dtype)
             if traced:
                 reqtrace.add_span(rid, "admission", t_admit,
                                   time.monotonic())
             if self.registry is not None:
-                y = self.batcher.predict(x, model=model,
+                y = self.batcher.predict(x, model=routed,
                                          timeout_ms=timeout_ms,
-                                         priority=priority, request_id=rid)
+                                         priority=priority, request_id=rid,
+                                         bucket=pin, info=info)
             else:
                 y = self.batcher.predict(x, timeout_ms=timeout_ms,
                                          request_id=rid)
@@ -529,7 +582,11 @@ class ServingServer(HttpServerBase):
         t_reply = time.monotonic()
         ok = dict(echo, **{
             "X-Serving-Ms": "%.3f" % ((t_reply - t_admit) * 1e3),
-            "X-Serving-Generation": "gen_%d" % int(engine.version or 0)})
+            # a candidate answers under its encoded generation
+            "X-Serving-Generation": generation_label(slo_model or "",
+                                                     engine.version)})
+        if info.get("bucket"):
+            ok["X-Serving-Bucket"] = str(info["bucket"])
         if raw:
             buf = io.BytesIO()
             numpy.save(buf, numpy.ascontiguousarray(y))
@@ -548,6 +605,13 @@ class ServingServer(HttpServerBase):
             reqtrace.add_span(rid, "reply", t_reply,
                               getattr(handler, "t_sent", None)
                               or time.monotonic())
+        if ctl is not None and routed is model and \
+                ctl.wants_mirror(slo_model, rid):
+            # the shadow mirror: the client has its reply; the compare
+            # runs on the controller's worker, at this batch's bucket
+            # (a frame's array is copied: its buffer is the listener's)
+            ctl.mirror(slo_model, rid, numpy.array(x), y,
+                       bucket=info.get("bucket"))
         return 200, slo_model
 
     def _reload(self, handler, model=None):
@@ -560,14 +624,21 @@ class ServingServer(HttpServerBase):
             return handler._send_json(400, {"error": repr(e)})
         path = doc["path"]
         try:
+            # "version" pins the generation's number: the fleet router
+            # brings a replica joining after a promote to the fleet's
+            pin = doc.get("version")
+            pin = None if pin is None else int(pin)
             if self.registry is not None:
-                version = self.registry.reload(model, path)
+                version = self.registry.reload(model, path, version=pin)
                 engine = self.registry.peek(model)
             else:
                 engine = self._engine_for(model)
-                version = engine.load(path)
+                version = engine.load(path, version=pin)
         except UnknownModelError as e:
             return handler._send_json(404, {"error": str(e)})
+        except ReleaseConflictError as e:
+            # mid-release, promote and rollback are the controller's
+            return handler._send_json(409, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 - a bad model file
             # the failed load rolled back: the old generation serves
             return handler._send_json(400, {"error": repr(e)})
@@ -595,6 +666,8 @@ class ServingServer(HttpServerBase):
                   if doc.get(k) is not None}
         try:
             version = self.registry.add(name, doc["path"], **kwargs)
+        except ReleaseConflictError as e:
+            return handler._send_json(409, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 - a bad model file or name
             return handler._send_json(400, {"error": repr(e)})
         handler._send_json(200, {"model": name, "model_version": version,
@@ -609,8 +682,55 @@ class ServingServer(HttpServerBase):
             self.registry.remove(name)
         except UnknownModelError as e:
             return handler._send_json(404, {"error": str(e)})
+        except ReleaseConflictError as e:
+            return handler._send_json(409, {"error": str(e)})
         handler._send_json(200, {"removed": name,
                                  "models": self.registry.names()})
+
+    # -- the release plane (JAX :771-826) ------------------------------------
+    def _release_post(self, handler, name):
+        """POST /release/<model>: deploy the candidate and enter
+        shadow."""
+        if self.release is None:
+            handler._drain_body()
+            return handler._send_json(400, {
+                "error": "releases need a model registry — serve "
+                         "NAME=PATH model specs"})
+        try:
+            doc = _read_path(handler)
+        except BodyTooLargeError as e:
+            return handler._send_json(413, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 - a client error
+            return handler._send_json(400, {"error": repr(e)})
+        try:
+            payload = self.release.start().start_release(
+                name, doc["path"], policy=doc.get("policy"))
+        except ReleaseConflictError as e:
+            return handler._send_json(409, {"error": str(e)})
+        except UnknownModelError as e:
+            return handler._send_json(404, {"error": str(e)})
+        except ValueError as e:
+            return handler._send_json(400, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 - a bad candidate file
+            return handler._send_json(400, {"error": repr(e)})
+        handler._send_json(200, payload)
+
+    def _release_get(self, handler, name=None):
+        if self.release is None:
+            return handler._send_json(200, {"active": {}, "recent": {}})
+        try:
+            handler._send_json(200, self.release.status(name))
+        except KeyError as e:
+            handler._send_json(404, {"error": str(e)})
+
+    def _release_delete(self, handler, name):
+        if self.release is None:
+            return handler._send_json(404, {
+                "error": "no release plane (one engine)"})
+        try:
+            handler._send_json(200, self.release.abort(name))
+        except KeyError as e:
+            handler._send_json(404, {"error": str(e)})
 
     def make_handler(self):
         server = self
@@ -642,6 +762,10 @@ class ServingServer(HttpServerBase):
                 elif path.startswith("/admitted/"):
                     self._send_json(200, server.admitted(
                         path[len("/admitted/"):]))
+                elif path == "/release":
+                    server._release_get(self)
+                elif path.startswith("/release/"):
+                    server._release_get(self, path[len("/release/"):])
                 elif path == "/metrics":
                     self._send_metrics()
                 elif not self._send_debug(self.path):
@@ -657,6 +781,8 @@ class ServingServer(HttpServerBase):
                     server._reload(self)
                 elif path.startswith("/models/"):
                     server._admin_add(self, path[len("/models/"):])
+                elif path.startswith("/release/"):
+                    server._release_post(self, path[len("/release/"):])
                 else:
                     self._drain_body()  # keep-alive hygiene
                     self._send_json(404, {"error": "not found"})
@@ -666,6 +792,8 @@ class ServingServer(HttpServerBase):
                 self._drain_body()
                 if path.startswith("/models/"):
                     server._admin_remove(self, path[len("/models/"):])
+                elif path.startswith("/release/"):
+                    server._release_delete(self, path[len("/release/"):])
                 else:
                     self._send_json(404, {"error": "not found"})
 
@@ -740,7 +868,10 @@ def _parser():
                              "never admitted, aggregated /metrics, /slo, "
                              "/healthz and /models")
     parser.add_argument("--autoscale", action="store_true",
-                        help="the fleet's autoscaler " + _LATER)
+                        help="with --fleet: arm the SLO-burn and "
+                             "queue-depth autoscaler (root.common.serving."
+                             "fleet.{min,max}_replicas, scale_*, "
+                             "cooldown_s)")
     parser.add_argument("--compile-cache", nargs="?", const="",
                         default=None, metavar="DIR",
                         help="the JAX package's compile cache " + _LATER)
@@ -750,8 +881,8 @@ def _parser():
 def _parse(argv):
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.autoscale:
-        parser.error("--autoscale " + _LATER)
+    if args.autoscale and args.fleet is None:
+        parser.error("--autoscale sizes a fleet: it needs --fleet N")
     if args.compile_cache is not None:
         parser.error("--compile-cache " + _LATER)
     if args.fleet is not None and args.fleet < 1:
@@ -835,7 +966,8 @@ def _serve(parser, args):
 
 #: router-only serve flags, dropped from the replicas' argv (flag ->
 #: takes a value)
-_ROUTER_ONLY_FLAGS = {"--fleet": True, "--port": True, "--host": True}
+_ROUTER_ONLY_FLAGS = {"--fleet": True, "--port": True, "--host": True,
+                      "--autoscale": False}
 
 
 def replica_argv(raw_argv):
@@ -894,6 +1026,7 @@ def _serve_until_term(server, thread_of, parent=None):
 def _fleet_main(args, raw_argv):
     """``serve --fleet N``: N replicas behind the router, until SIGTERM
     drains the fleet (JAX :981-1048)."""
+    from znicz_tpu_torch.serving.autoscaler import Autoscaler
     from znicz_tpu_torch.serving.router import FleetRouter
     telemetry.enable()  # the router's own series and journal
     pyprof.name_current_thread("serve-main")
@@ -910,11 +1043,14 @@ def _fleet_main(args, raw_argv):
         port=(args.port if args.port is not None
               else root.common.serving.get("port", 8899)),
         host=args.host).start()
+    if args.autoscale:
+        router.autoscaler = Autoscaler(router).start()
     print("fleet of %d replica%s behind http://%s:%d/  (predict: POST "  # noqa
           "/predict[/<model>]; fleet health: GET /healthz; aggregated: "
-          "GET /metrics, GET /slo)"
+          "GET /metrics, GET /slo%s)"
           % (args.fleet, "" if args.fleet == 1 else "s", router.host,
-             router.port), flush=True)
+             router.port, "; autoscaler armed" if args.autoscale else ""),
+          flush=True)
     return _serve_until_term(router, lambda: router._thread)
 
 

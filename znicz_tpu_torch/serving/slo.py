@@ -40,6 +40,10 @@ from znicz_tpu_torch.core.config import root
 
 _cfg = root.common.serving
 
+telemetry.register_help(
+    "slo", "server-side SLO accounting (serving/slo.py): per-model "
+           "good/total, window burn rates, error budget remaining")
+
 #: client-fault statuses excluded from the budget entirely
 EXCLUDED_STATUSES = frozenset((400, 404, 413))
 

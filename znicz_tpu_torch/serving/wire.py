@@ -58,6 +58,12 @@ MAGIC = b"zW"
 VERSION = 1
 _HDR = struct.Struct("!2sBBII")
 
+telemetry.register_help(
+    "wire", "binary framed relay (serving/wire.py): frames/bytes in "
+            "and out, protocol errors answered as typed error "
+            "frames, slowloris sweeps, mux round-trips and dead "
+            "connections")
+
 KIND_REQUEST, KIND_RESPONSE, KIND_ERROR = 1, 2, 3
 _KINDS = frozenset((KIND_REQUEST, KIND_RESPONSE, KIND_ERROR))
 

@@ -32,7 +32,7 @@ import time
 
 import numpy
 
-from znicz_tpu_torch.core import health, profiler, prng
+from znicz_tpu_torch.core import health, profiler, prng, telemetry
 from znicz_tpu_torch.core.accelerated_units import AcceleratedWorkflow
 from znicz_tpu_torch.core.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.core.backends import deterministic, full_f32
@@ -451,6 +451,9 @@ def load_snapshot_into_workflow(state, workflow):
     loader position).  Resuming this way continues bit for bit."""
     if "prng" in state:
         prng.restore(state["prng"])
+    telemetry.record_event("snapshot.restore",
+                           workflow=getattr(workflow, "name", None),
+                           suffix=state.get("suffix"))
     units = {u.name: u for u in workflow.units}
     for uname, ustate in state["units"].items():
         u = units.get(uname)
