@@ -423,15 +423,35 @@ failure (the script then exits non-zero and prints no result line):
     ``release.promote`` and ``release.rollback`` (with its exemplar);
     SIGTERM leaves no replica.  Prints the wall seconds by release
     state, each candidate's deploy, the scale-up and scale-down seconds
-    and the shadow counts beside the card's name and power limit.
+    and the shadow counts beside the card's name and power limit;
+20. lines — the Lines sample at its published mcdnnic topology
+    (``12x256x256-32C4-MP2-64C4-MP3-32N-4N`` over the checkout's 48
+    TRAIN and 16 VALID PNGs, ``mean_disp``): both kernels first at its
+    two pools, (12, 253, 253, 32) 2x2/s2 (an odd edge's ceil-mode
+    overhang) and (12, 124, 124, 64) 3x3/s3 (an overhang of one),
+    bit-equal to their plain versions and timed; then ``python -m
+    znicz_tpu_torch lines`` (the unit graph) and ``lines --fused
+    pool_impl=offsets`` for 2 epochs each: 2 forward launches a
+    minibatch (TRAIN and VALID, the 4-row VALID tail included) and 2
+    backward a TRAIN minibatch, all at 16-byte vectors, no plain pool;
+    then ``extract_forward_workflow`` from each with an
+    ``InteractiveLoader`` fed the 16 VALID images (12, then 4): the
+    outputs bit-equal to the trained workflow's own forward on the
+    same buffer (its forward units, or ``FusedNet.predict``);
+    then each exported with ``export_package`` and served in process
+    as ``serve lines=PKG.zip`` does: requests of 1, 4 and 12 rows, one
+    forward launch a pool a dispatch, each reply within 1e-4 of
+    ``export.run_package_numpy`` in float64 with equal argmax.  Prints
+    the seconds of training, extraction, export and serving beside the
+    card's name and power limit.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
 ``host_enqueue_ms`` and ``in_model_ms`` are per batch-64 dispatch,
 summed over the three AlexNet pools, ``train`` holds the same per
 batch-128 step, ``mnist`` per MNIST minibatch of 60 (both pools),
-``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``
-and ``stl10`` each pool on its own, and ``launches`` counts the serve
+``ae`` per autoencoder minibatch of 100 (the maxabs pool), ``cifar``,
+``stl10`` and ``lines`` each pool on its own, and ``launches`` counts the serve
 requests', the serve retries' (``resilience_serve``), the train
 epochs', the workflow run's, the supervised run's (``resilience``),
 the profile phase's three runs' (``profile``), the train phase's
@@ -442,17 +462,20 @@ phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
 fused stochastic stages, and the fleet's replicas' over the fleet
 phase's requests (``fleet``: the survivors' counters; a killed or
 retired replica's leave with it) and over the release phase's
-(``release``) (``launches_by_path``; the
+(``release``), and the lines phase's two graphs, its two extracted
+forward workflows (``lines_extract``) and its two served packages
+(``lines_serve``) (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
-``stl10`` per pool, ``imagenet_ae`` per depooling of each stage) and
+``stl10`` and ``lines`` per pool, ``imagenet_ae`` per depooling of
+each stage) and
 ``launches`` counts the train epochs', the workflow run's, the
 resilience phase's two paths', the profile phase's, both unit graphs',
 the autoencoder
-paths', the CIFAR and STL-10 graphs' and ImagenetAE's.
+paths', the CIFAR, STL-10 and Lines graphs' and ImagenetAE's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -684,6 +707,19 @@ MSE_ZOO_EPOCHS, MSE_ZOO_WINDOW, VIDEO_FRAME = 2, 4, (90, 160)
 #: the fused stochastic pools: ImagenetAE's stage 0 as a fused
 #: autoencoder stage, 4 steps of minibatch 8 for each pooling type
 FUSED_STOCHASTIC_STEPS = 4
+
+#: the Lines phase: the published topology's two pools (label, NHWC
+#: input, window k with sliding k), its rows, minibatch and epochs, its
+#: forwards' output shapes and the rows of its served requests
+LINES_POOLS = (("lines pool1", (12, 253, 253, 32), 2),
+               ("lines pool2", (12, 124, 124, 64), 3))
+LINES_TRAIN, LINES_VALID, LINES_BATCH, LINES_EPOCHS = 48, 16, 12, 2
+LINES_SHAPES = [(12, 253, 253, 32), (12, 127, 127, 32),
+                (12, 124, 124, 64), (12, 42, 42, 64), (12, 32), (12, 4)]
+LINES_SERVE_ROWS = (1, 4, 12)
+#: a served reply against ``run_package_numpy`` in float64
+LINES_SERVE_TOL = 1e-4
+LINES_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "lines")
 
 
 def say(*args):
@@ -5166,11 +5202,21 @@ def _cifar_kernels(torch, card, cycles_per_ms):
     return _pool_kernels(torch, card, cycles_per_ms, CIFAR_POOLS, "CIFAR")
 
 
+def _pool_geometry(entry):
+    """``(label, shape, k, sliding)`` of a ``pools`` entry: ``(label,
+    shape)`` is a 3x3/s2 pool, ``(label, shape, k)`` a k x k one with
+    sliding k."""
+    if len(entry) == 2:
+        return entry[0], entry[1], 3, (2, 2)
+    return entry[0], entry[1], entry[2], (entry[2], entry[2])
+
+
 def _pool_kernels(torch, card, cycles_per_ms, pools, what):
-    """Both kernels at a path's 3x3/s2 ceil-mode pools (``pools``:
-    ``(label, NHWC shape)``) bit-equal to their plain versions, on random
-    values and on ties, in f32 and f64, every launch at 16-byte vectors;
-    then in f32 cold beside their bounds, plain versions and the library
+    """Both kernels at a path's ceil-mode pools (``pools``: ``(label,
+    NHWC shape)`` for 3x3/s2, or ``(label, NHWC shape, k)`` for k x k
+    with sliding k) bit-equal to their plain versions, on random values
+    and on ties, in f32 and f64, every launch at 16-byte vectors; then
+    in f32 cold beside their bounds, plain versions and the library
     calls.  Returns the rows by kernel and pool."""
     import torch.nn.functional as F
     from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
@@ -5178,59 +5224,62 @@ def _pool_kernels(torch, card, cycles_per_ms, pools, what):
     gen = torch.Generator(device="cuda").manual_seed(7)
     t0 = time.perf_counter()
     checked = 0
-    for label, shape in pools:
-        ny, nx = pooling.output_spatial(shape[1], shape[2], 3, 3, (2, 2))
+    for entry in pools:
+        label, shape, k, sl = _pool_geometry(entry)
+        ny, nx = pooling.output_spatial(shape[1], shape[2], k, k, sl)
         err_buf = torch.randn(shape[0] * ny * nx * shape[3] + 1,
                               generator=gen, device="cuda")
         for dtype in (torch.float32, torch.float64):
             for x in (torch.randn(shape, generator=gen, device="cuda",
                                   dtype=dtype),
                       _tied(torch, gen, shape, dtype)):
-                case = "%s %s %s %s" % (what, label, shape, dtype)
+                case = "%s %s %s %dx%d/s%d %s" % (what, label, shape, k, k,
+                                                  sl[0], dtype)
                 # both raise unless bit-equal to the plain version
-                _, width = _check_pool(torch, x, 3, 3, (2, 2), False, case)
+                _, width = _check_pool(torch, x, k, k, sl, False, case)
                 _, _, (_, bwidth) = _check_backward(
-                    torch, x, err_buf.to(dtype), 3, 3, (2, 2), False, case)
+                    torch, x, err_buf.to(dtype), k, k, sl, False, case)
                 if width != WIDE or bwidth != WIDE:
                     raise RuntimeError("%s launched at %s / %s, not %s"
                                        % (case, width, bwidth, WIDE))
                 checked += 1
-    say("   %s pools %s, 3x3/s2 ceil mode: both kernels bit-equal to "
-        "their plain versions (values, offsets, the gradient) on %d inputs "
-        "(random and tied, f32 and f64), every launch at 16-byte vectors "
-        "(%.2f s)" % (what, ", ".join("%s %s" % p for p in pools), checked,
-                      time.perf_counter() - t0))
+    say("   %s pools %s, ceil mode: both kernels bit-equal to their plain "
+        "versions (values, offsets, the gradient) on %d inputs (random and "
+        "tied, f32 and f64), every launch at 16-byte vectors (%.2f s)" % (
+            what, ", ".join("%s %s %dx%d/s%d" % (g[0], g[1], g[2], g[2],
+                                                 g[3][0])
+                            for g in map(_pool_geometry, pools)),
+            checked, time.perf_counter() - t0))
     flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
     rows = {"forward": {}, "backward": {}}
-    for label, shape in pools:
+    for entry in pools:
+        label, shape, k, sl = _pool_geometry(entry)
         x = torch.randn(shape, generator=gen, device="cuda")
         x_nchw = x.permute(0, 3, 1, 2)
         b, h, w, c = shape
-        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        ny, nx = pooling.output_spatial(h, w, k, k, sl)
         n_in, n_out = x.numel(), b * ny * nx * c
-        _, offs = cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
+        _, offs = cuda_pooling.max_pooling_offsets(x, k, k, sl)
         err = torch.randn(offs.shape, generator=gen, device="cuda")
-        _, idx = F.max_pool2d(x_nchw, 3, 2, ceil_mode=True,
+        _, idx = F.max_pool2d(x_nchw, k, sl[0], ceil_mode=True,
                               return_indices=True)
         err_nchw = err.permute(0, 3, 1, 2)
         work = {
-            "forward": (n_in * 4 + n_out * 8, n_out * 9, {
-                "ms": lambda: cuda_pooling.max_pooling_offsets(
-                    x, 3, 3, (2, 2)),
-                "plain_ms": lambda: pooling.max_pooling_plain(
-                    x, 3, 3, (2, 2)),
+            "forward": (n_in * 4 + n_out * 8, n_out * k * k, {
+                "ms": lambda: cuda_pooling.max_pooling_offsets(x, k, k, sl),
+                "plain_ms": lambda: pooling.max_pooling_plain(x, k, k, sl),
                 "library_ms": lambda: F.max_pool2d(
-                    x_nchw, 3, 2, ceil_mode=True, return_indices=True)}),
+                    x_nchw, k, sl[0], ceil_mode=True,
+                    return_indices=True)}),
             "backward": (n_out * 8 + n_in * 4, n_out, {
                 "ms": lambda: cuda_pooling_backward
-                .max_pooling_offsets_backward(err, offs, shape, 3, 3,
-                                              (2, 2)),
+                .max_pooling_offsets_backward(err, offs, shape, k, k, sl),
                 "plain_ms": lambda: pooling.max_pooling_backward_plain(
-                    err, offs, shape, 3, 3, (2, 2)),
+                    err, offs, shape, k, k, sl),
                 "library_ms": lambda: torch.ops.aten
                 .max_pool2d_with_indices_backward(
-                    err_nchw, x_nchw, [3, 3], [2, 2], [0, 0], [1, 1], True,
-                    idx)})}
+                    err_nchw, x_nchw, [k, k], list(sl), [0, 0], [1, 1],
+                    True, idx)})}
         for kind, (nbytes, ops, fns) in work.items():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_OPS_PER_S * 1e3
@@ -8214,6 +8263,276 @@ def phase_autoscale(torch, card, fleet):
     return launches
 
 
+def _lines_argv(snapdir, *extra):
+    """The CLI's arguments for the Lines sample over the checkout's
+    images."""
+    argv = ["lines"]
+    for key, value in (("decision.max_epochs", LINES_EPOCHS),
+                       ("snapshotter.directory", snapdir)):
+        argv += ["--config", "lines.%s=%s" % (key, value)]
+    return argv + list(extra)
+
+
+def phase_lines(torch, card, cycles_per_ms):
+    """The Lines sample at its published topology: both kernels at its
+    two pools, the unit graph and the fused graph trained through the
+    CLI, the forward workflow extracted from each, each exported and
+    served (see the module's docstring).  Returns the launches by path
+    (``lines``, ``lines_fused``, ``lines_extract``, ``lines_serve``),
+    the kernel timing rows and the seconds of each step."""
+    import tempfile
+    import numpy
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.base import VALID
+    t_phase = time.perf_counter()
+    rows = _pool_kernels(torch, card, cycles_per_ms, LINES_POOLS, "Lines")
+    train_mb = -(-LINES_TRAIN // LINES_BATCH)
+    valid_mb = -(-LINES_VALID // LINES_BATCH)
+    n_fwd = 2 * (train_mb + valid_mb) * LINES_EPOCHS
+    n_bwd = 2 * train_mb * LINES_EPOCHS
+    want = {"forward": n_fwd, "forward_by_width": {WIDE: n_fwd, NARROW: 0},
+            "backward": n_bwd, "backward_by_width": {WIDE: n_bwd, NARROW: 0},
+            "plain_on_card": 0}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    tmp = tempfile.TemporaryDirectory(prefix="lines_snapshots_")
+    base = tmp.name
+    seconds = {}
+    paths = {}
+    try:
+        say("== lines: python -m znicz_tpu_torch %s"
+            % " ".join(_lines_argv("TMP")))
+        t0 = time.perf_counter()
+        _zero_counts()
+        with probe.readbacks:
+            run = _units_run(probe, cli, prng,
+                             _lines_argv(os.path.join(base, "units")))
+        paths["lines"] = launches = _counts()
+        seconds["train (unit graph)"] = time.perf_counter() - t0
+        _check_graph_run(
+            torch, probe, run, launches, want,
+            "2 forward launches a minibatch and 2 backward a TRAIN "
+            "minibatch, all at 16-byte vectors",
+            (LINES_TRAIN, LINES_VALID, LINES_BATCH, LINES_EPOCHS),
+            LINES_SHAPES, card, "lines unit graph")
+        wf = run["wf"]
+        if [f["type"] for f in wf.layers] != [
+                "conv", "max_pooling", "conv", "max_pooling", "all2all",
+                "softmax"] or wf.loader.normalization_type != "mean_disp":
+            raise RuntimeError("the Lines graph is not the sample's: %s"
+                               % wf.layers)
+        t0 = time.perf_counter()
+        paths["lines_fused"], fwf = _fused_graph(
+            torch, probe, cli, prng, run,
+            _lines_argv(os.path.join(base, "fused"), "--fused",
+                        "pool_impl=offsets"),
+            want, (LINES_TRAIN, LINES_EPOCHS), card)
+        seconds["train (fused graph)"] = time.perf_counter() - t0
+        extract, serve = {}, {}
+        lo, hi = wf.loader.class_index_range(VALID)
+        images = numpy.array(wf.loader.original_data.mem[lo:hi])
+        for tag, trained in (("unit graph", wf), ("fused graph", fwf)):
+            fwd_wf, extract[tag], secs = _lines_extract(trained, images,
+                                                        tag, card)
+            seconds["extract (%s)" % tag] = secs
+            # a fused workflow's forward chain is its trainer: its
+            # package is its forward workflow's
+            serve[tag], secs = _lines_export_serve(
+                fwd_wf if trained is fwf else trained, images, tag, base,
+                card)
+            seconds.update(("%s (%s)" % (k, tag), v)
+                           for k, v in secs.items())
+            del fwd_wf
+        paths["lines_extract"] = _sum_counts(list(extract.values()))
+        paths["lines_serve"] = _sum_counts(list(serve.values()))
+        del run, wf, fwf
+        gc.collect()
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        tmp.cleanup()
+    seconds["phase"] = time.perf_counter() - t_phase
+    say("   lines seconds: %s; %s" % (", ".join(
+        "%s %.2f" % kv for kv in seconds.items()), card))
+    return paths, rows, seconds
+
+
+def _sum_counts(counts):
+    """Launch counts (:func:`_counts`' form) summed."""
+    out = {"forward": 0, "forward_by_width": {WIDE: 0, NARROW: 0},
+           "backward": 0, "backward_by_width": {WIDE: 0, NARROW: 0},
+           "plain_on_card": 0}
+    for c in counts:
+        for key in ("forward", "backward", "plain_on_card"):
+            out[key] += c[key]
+        for key in ("forward_by_width", "backward_by_width"):
+            for width, n in c[key].items():
+                out[key][width] += n
+    return out
+
+
+def _lines_trained_forward(trained, buf):
+    """The trained workflow's own forward of the minibatch buffer
+    ``buf``: its forward units run on it, or its fused net's
+    ``predict``."""
+    import numpy
+    if trained.fused_trainer is None:
+        trained.forwards[0].input.reset(buf)
+        for fwd in trained.forwards:
+            fwd.run()
+        return numpy.array(trained.forwards[-1].output.mem)
+    return trained.fused_trainer.net.predict(buf).cpu().numpy()
+
+
+def _lines_extract(trained, images, tag, card):
+    """``extract_forward_workflow`` of ``trained`` with an
+    ``InteractiveLoader`` (minibatch 12) on the card, fed the 16 VALID
+    ``images`` in two sessions (12, then the 4-row tail): each session's
+    outputs, the whole minibatch buffer's, bit-equal to
+    :func:`_lines_trained_forward` of the same buffer; the second
+    session serves its new rows.  Returns the forward workflow, its
+    launches and its seconds."""
+    import numpy
+    from znicz_tpu_torch.loader.interactive import InteractiveLoader
+    t0 = time.perf_counter()
+    shape = tuple(images.shape[1:])
+    held = []
+
+    def factory(fwd_wf):
+        held.append(InteractiveLoader(fwd_wf, sample_shape=shape,
+                                      minibatch_size=LINES_BATCH))
+        return held[-1]
+    fwd_wf = trained.extract_forward_workflow(loader_factory=factory)
+    _zero_counts()
+    fwd_wf.initialize(device="cuda")
+    ldr = held[0]
+    if ldr.minibatch_data.shape != (LINES_BATCH,) + shape or \
+            any(not f.forward_mode for f in fwd_wf.forwards):
+        raise RuntimeError("lines %s: the forward workflow is not armed"
+                           % tag)
+    sessions = []
+    for a, b in ((0, LINES_BATCH), (LINES_BATCH, len(images))):
+        for row in images[a:b]:
+            ldr.feed(row)
+        ldr.finish()
+        fwd_wf.run()
+        n = int(ldr.minibatch_size)
+        out = numpy.array(fwd_wf.forwards[-1].output.mem)
+        buf = numpy.array(ldr.minibatch_data.mem)
+        if n != b - a or not numpy.array_equal(buf[:n], images[a:b]):
+            raise RuntimeError("lines %s: the session served %d rows, not "
+                               "rows %d-%d" % (tag, n, a, b))
+        counts = _counts()
+        want = _lines_trained_forward(trained, buf)
+        _zero_counts()
+        if out.shape != want.shape or not numpy.array_equal(
+                out.view(numpy.uint8), want.view(numpy.uint8)):
+            raise RuntimeError(
+                "lines %s: the extracted forward differs from the trained "
+                "one by %g on rows %d-%d" % (
+                    tag, float(numpy.abs(out - want).max()), a, b))
+        sessions.append((out[:n], counts))
+    if numpy.array_equal(sessions[0][0][:len(sessions[1][0])],
+                         sessions[1][0]):
+        raise RuntimeError("lines %s: the second session served stale rows"
+                           % tag)
+    launches = _sum_counts([c for _, c in sessions])
+    if launches["forward"] != 4 or launches["backward"] or \
+            launches["forward_by_width"][NARROW] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("lines %s: the two sessions launched %s, not 2 "
+                           "forward kernels each" % (tag, launches))
+    secs = time.perf_counter() - t0
+    say("   lines %s: extract_forward_workflow + InteractiveLoader, 16 VALID "
+        "images in sessions of 12 and 4: every output (and the whole "
+        "minibatch buffer's) bit-equal to the trained workflow's own "
+        "forward (%s); the second session served new rows; launches %s "
+        "(%.2f s; %s)" % (
+            tag, "its forward units" if trained.fused_trainer is None
+            else "FusedNet.predict", launches, secs, card))
+    return fwd_wf, launches, secs
+
+
+def _lines_export_serve(source, images, tag, base, card):
+    """``export_package`` of ``source`` (the trained unit-graph
+    workflow, or the forward workflow extracted from the fused one),
+    served in process as ``serve lines=PKG.zip`` does: requests of
+    ``LINES_SERVE_ROWS`` of the VALID ``images``, each reply within
+    ``LINES_SERVE_TOL`` of ``run_package_numpy`` in float64 with equal
+    argmax, one forward launch a pool a dispatch.  Returns the
+    launches and the seconds of the export, the serve and the numpy
+    replay."""
+    import numpy
+    from znicz_tpu_torch import export
+    from znicz_tpu_torch.serving.server import serve
+    secs = {}
+    t0 = time.perf_counter()
+    pkg = os.path.join(base, "lines_%s.zip" % tag.split()[0])
+    export.export_package(source, pkg)
+    secs["export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server, label = serve(["lines=%s" % pkg, "--port", "0", "--max-batch",
+                           "16", "--max-body-bytes", str(64 << 20)])
+    replies = {}
+    try:
+        engine = server.registry.peek("lines")
+        per_dispatch = sum(e["type"] == "max_pooling" for e in engine.layers)
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=300)
+        try:
+            _zero_counts()
+            d0 = engine.dispatches
+            for n in LINES_SERVE_ROWS:
+                status, raw = _post(conn, _npy(images[:n]),
+                                    "application/octet-stream",
+                                    path="/predict/lines")
+                if status != 200:
+                    raise RuntimeError("lines %s: /predict answered %d: %r"
+                                       % (tag, status, raw[:300]))
+                replies[n] = numpy.load(io.BytesIO(raw))
+            launches = _counts()
+            dispatches = engine.dispatches - d0
+        finally:
+            conn.close()
+    finally:
+        server.drain()
+    secs["serve"] = time.perf_counter() - t0
+    if launches["forward"] != per_dispatch * dispatches or \
+            per_dispatch != 2 or dispatches < len(LINES_SERVE_ROWS) or \
+            launches["backward"] or launches["forward_by_width"][NARROW] \
+            or launches["plain_on_card"]:
+        raise RuntimeError("lines %s: %d dispatches launched %s" % (
+            tag, dispatches, launches))
+    t0 = time.perf_counter()
+    worst = 0.0
+    for n, got in replies.items():
+        ref = export.run_package_numpy(pkg, images[:n])
+        if got.shape != ref.shape or not numpy.isfinite(got).all():
+            raise RuntimeError("lines %s: a reply of shape %s for %d rows"
+                               % (tag, got.shape, n))
+        diff = float(numpy.abs(got.astype(numpy.float64) - ref).max())
+        worst = max(worst, diff)
+        if diff > LINES_SERVE_TOL or not numpy.array_equal(
+                got.argmax(1), ref.argmax(1)):
+            raise RuntimeError(
+                "lines %s: the %d-row reply differs from run_package_numpy "
+                "by %g (limit %g) or in argmax" % (tag, n, diff,
+                                                   LINES_SERVE_TOL))
+    secs["numpy replay"] = time.perf_counter() - t0
+    say("   lines %s: export_package %.2f s (%s, %.1f MB); served as serve "
+        "lines=PKG.zip: requests of %s rows answered 200 in %d dispatches, "
+        "launches %s; every reply within %.3g of run_package_numpy (float64, "
+        "limit %g), argmax equal (serve %.2f s, numpy replay %.2f s; %s)"
+        % (tag, secs["export"], os.path.basename(pkg),
+           os.path.getsize(pkg) / 1e6, list(LINES_SERVE_ROWS), dispatches,
+           launches, worst, LINES_SERVE_TOL, secs["serve"],
+           secs["numpy replay"], card))
+    os.remove(pkg)
+    return launches, secs
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -8329,6 +8648,8 @@ def _phases(torch, name, card, start):
         if "cli" in later:
             later["cli"].stop()
         later.clear()
+    lines_paths, lines_rows, _ = phase_lines(torch, card, cycles_per_ms)
+    marks.append(("lines", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -8348,6 +8669,7 @@ def _phases(torch, name, card, start):
              "resilience": resilience_launches,
              "resilience_net": resilience_net_launches,
              "profile": profile_launches}
+    paths.update(lines_paths)
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -8380,6 +8702,7 @@ def _phases(torch, name, card, start):
     forward["ae"] = _sums(ae_rows["forward"])
     forward["cifar"] = _by_pool(cifar_rows["forward"])
     forward["stl10"] = _by_pool(stl_rows["forward"])
+    forward["lines"] = _by_pool(lines_rows["forward"])
     forward["bf16"] = _by_pool(bf16_rows)
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
@@ -8398,6 +8721,7 @@ def _phases(torch, name, card, start):
     backward["ae"] = _sums(ae_rows["backward"])
     backward["cifar"] = _by_pool(cifar_rows["backward"])
     backward["stl10"] = _by_pool(stl_rows["backward"])
+    backward["lines"] = _by_pool(lines_rows["backward"])
     backward["imagenet_ae"] = _by_pool(iae_rows["backward"])
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())

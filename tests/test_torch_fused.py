@@ -466,3 +466,84 @@ def test_synthetic_images():
     same = numpy.abs(data[0] - data[4]).mean()
     other = numpy.abs(data[0] - data[1]).mean()
     assert same < other
+
+
+# -- the fully-connected forms (build_fc_specs, FusedMLP) --------------------
+
+MLP_LAYERS = [
+    {"type": "all2all_tanh", "->": {"output_sample_shape": 8,
+                                    "weights_stddev": 0.05,
+                                    "bias_stddev": 0.05},
+     "<-": {"learning_rate": 0.3, "weights_decay": 0.0}},
+    {"type": "softmax", "->": {"output_sample_shape": 4,
+                               "weights_stddev": 0.05,
+                               "bias_stddev": 0.05},
+     "<-": {"learning_rate": 0.3, "weights_decay": 0.0}},
+]
+
+
+def _separable(n=16, f=13, c=4, seed=3):
+    """``tests/unit/test_fused.py``'s batch: labels are the argmax of a
+    fixed random linear map."""
+    r = numpy.random.RandomState(seed)
+    x = r.uniform(-1, 1, (n, f))
+    labels = numpy.argmax(x @ r.uniform(-1, 1, (f, c)), axis=1)
+    return x, labels.astype(numpy.int32)
+
+
+def test_fused_mlp_matches_jax_float64():
+    """``tests/unit/test_fused.py:82-100``: one step of the MLP from
+    the same seed, every parameter within 1e-10 of JAX's."""
+    x, labels = _separable()
+    jt = jax_fused.FusedMLP(MLP_LAYERS, input_sample_size=13,
+                            rand=jax_prng.RandomGenerator().seed(1234),
+                            dtype=numpy.float64)
+    tt = fused.FusedMLP(MLP_LAYERS, input_sample_size=13,
+                        rand=prng.RandomGenerator().seed(1234),
+                        dtype=numpy.float64, device="cpu")
+    jt.step(x, labels)
+    tt.step(x, labels)
+    for got, want in zip(tt.host_params(), jt.host_params()):
+        for key in ("w", "b"):
+            assert numpy.abs(numpy.asarray(got[key]) -
+                             numpy.asarray(want[key])).max() < 1e-10
+
+
+def test_build_fc_specs_and_init_match_jax():
+    """``tests/unit/test_fused.py:103-122``: the same seed draws the
+    same initial weights; a non-FC layer is refused before any draw."""
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 8}}]
+    specs = fused.build_fc_specs(layers, 13)
+    jspecs = jax_fused.build_fc_specs(layers, 13)
+    assert [(s.kind, s.n_in, s.n_out) for s in specs] == \
+        [(s.kind, s.n_in, s.n_out) for s in jspecs] == [("fc", 13, 8)]
+    got = fused.init_params(specs, prng.RandomGenerator().seed(7),
+                            dtype=numpy.float64)
+    want = jax_fused.init_params(jspecs, jax_prng.RandomGenerator().seed(7),
+                                 dtype=numpy.float64)
+    for key in ("w", "b"):
+        assert numpy.array_equal(got[0][key], want[0][key])
+    mixed = MLP_LAYERS[:1] + [{"type": "activation_tanh"}] + MLP_LAYERS[1:]
+    for mod in (fused, jax_fused):
+        with pytest.raises(ValueError, match="does not support layer type "
+                                             "'activation_tanh'"):
+            mod.build_fc_specs(mixed, 13)
+    rand = prng.RandomGenerator().seed(7)
+    with pytest.raises(ValueError, match="'activation_tanh'"):
+        fused.FusedMLP(mixed, 13, rand=rand, device="cpu")
+    assert rand.get_state()["np"][2] == \
+        prng.RandomGenerator().seed(7).get_state()["np"][2]
+
+
+def test_fused_mlp_momentum_and_solvers_run():
+    """``tests/unit/test_fused.py:139-146``."""
+    x, labels = _separable()
+    layers = copy.deepcopy(MLP_LAYERS)
+    layers[0]["<-"] = {"learning_rate": 0.1, "gradient_moment": 0.9,
+                       "solvers": ("adagrad",)}
+    trainer = fused.FusedMLP(layers, input_sample_size=13,
+                             rand=prng.RandomGenerator().seed(5),
+                             device="cpu")
+    for _ in range(3):
+        m = trainer.step(x, labels)
+    assert numpy.isfinite(float(m["loss"]))

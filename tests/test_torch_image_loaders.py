@@ -20,7 +20,7 @@ package's, on the same files, on the CPU.
 * Wine: the same rows and 0-based labels, pointwise normalization
   whatever the caller asks; an absent file is written from
   scikit-learn's copy as the JAX loader writes it, byte for byte; the
-  ``testing`` mode raises.
+  ``testing`` mode serves every row as TEST, as the JAX loader does.
 * Importing the image loaders and training STL-10 imports no PIL.
 """
 
@@ -282,8 +282,21 @@ def test_wine_file_is_written_as_jax_writes_it(tmp_path):
 
 
 def test_wine_testing_mode_is_not_in_this_slice():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        loader_wine.WineLoader(Workflow(None), testing=True)
+    """The ``testing`` mode, once left out, serves every row as TEST
+    with the JAX loader's class lengths (JAX ``loader_wine.py:44-49``);
+    without it every row is TRAIN."""
+    path = os.path.join(REPO, ".data", "wine", "wine.txt")
+    for testing in (True, False):
+        got = loader_wine.WineLoader(Workflow(None), dataset_file=path,
+                                     testing=testing)
+        want = JaxRegistry.get_factory("wine_loader")(
+            JaxWorkflow(None), dataset_file=path, testing=testing)
+        got.load_data()
+        want.load_data()
+        assert got.class_lengths == list(want.class_lengths)
+        assert got.class_lengths == ([178, 0, 0] if testing
+                                     else [0, 0, 178])
+        assert got.original_labels == list(want.original_labels)
 
 
 # -- lazy imports ---------------------------------------------------------

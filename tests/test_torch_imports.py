@@ -135,7 +135,10 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.serving.slo",
                  "znicz_tpu_torch.serving.reqtrace",
                  "znicz_tpu_torch.serving.wire",
-                 "znicz_tpu_torch.serving.router"):
+                 "znicz_tpu_torch.serving.router",
+                 "znicz_tpu_torch.samples.lines",
+                 "znicz_tpu_torch.loader.interactive",
+                 "znicz_tpu_torch.parity"):
         assert name in doc["modules"]
 
 

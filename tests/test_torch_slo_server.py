@@ -15,6 +15,7 @@ servers on the CPU, a 8-6-4 package):
 """
 
 import json
+import threading
 import urllib.error
 import urllib.request
 
@@ -123,13 +124,42 @@ def _get(url, path):
         return resp.status, json.loads(resp.read())
 
 
+class _Records(object):
+    """Counts a server's SLO records.  The server finishes a request's
+    trace and records its SLO after the reply was written, so a client
+    can read ``/slo``, ``/statusz``, the journal or the trace before
+    the record: it waits for the count first."""
+
+    def __init__(self, server):
+        self._cv = threading.Condition()
+        self.count = 0
+        record = server.slo.record
+
+        def noted(*args, **kwargs):
+            try:
+                return record(*args, **kwargs)
+            finally:
+                with self._cv:
+                    self.count += 1
+                    self._cv.notify_all()
+        server.slo.record = noted
+
+    def wait(self, n, timeout=30.0):
+        """True once ``n`` requests were recorded (False at the
+        deadline)."""
+        with self._cv:
+            return self._cv.wait_for(lambda: self.count >= n, timeout)
+
+
 def test_full_slo_loop_over_http(armed):
     server, url = _serve_registry()
+    records = _Records(server)
     try:
         n_ok = 20
         for i in range(n_ok):
             code, doc, _ = _predict(url, "ok-%d" % i)
             assert code == 200 and doc["request_id"] == "ok-%d" % i
+        assert records.wait(n_ok)
         timeseries.sample_once()
         code, healthy = _get(url, "/slo")
         m0 = healthy["models"]["m"]
@@ -148,6 +178,7 @@ def test_full_slo_loop_over_http(armed):
             faults.reset()
             root.common.faults.enabled = False
 
+        assert records.wait(n_ok + n_bad)
         code, burned = _get(url, "/slo")
         m1 = burned["models"]["m"]
         assert m1["bad"] == n_bad
@@ -183,6 +214,7 @@ def test_full_slo_loop_over_http(armed):
         v1 = float(telemetry.counter("serving.batches").value)
         for i in range(5):
             assert _predict(url, "ts-%d" % i)[0] == 200
+        assert records.wait(n_ok + n_bad + 5)
         timeseries.sample_once()
         assert timeseries.points("serving.batches")[-1][1] == v1 + 5
         assert (timeseries.rate("serving.batches") or 0) > 0

@@ -323,7 +323,21 @@ def test_left_out_cli_options_raise(argv, monkeypatch, tmp_path, capsys):
     profile the run, and without CUDA (and without ``--device cpu``)
     they raise at once instead of running; ``obs --rid``, once among
     them too, now follows a request's persisted traces (an empty
-    directory answers no event and no tree)."""
+    directory answers no event and no tree); ``--parity``, once among
+    them too, now reaches ``parity.run_parity`` with the sample's name
+    (JAX's ``test_cli_parity_flag_is_wired``)."""
+    if "--parity" in argv:
+        from znicz_tpu_torch import parity
+        called = {}
+
+        def fake(sample, device=None, fused="auto", **kwargs):
+            called.update(sample=sample, device=device, fused=fused)
+            return []
+        monkeypatch.setattr(parity, "run_parity", fake)
+        assert cli.main(argv) == 0
+        assert called == {"sample": "alexnet", "device": None,
+                          "fused": "auto"}
+        return
     if argv[0] == "obs":
         monkeypatch.setattr(root.common.telemetry.blackbox, "dir",
                             str(tmp_path))

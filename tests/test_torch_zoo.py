@@ -364,7 +364,8 @@ def test_list_prints_the_jax_names(capsys):
     assert names == launcher.list_samples()
     jax_names = jax_list_samples()
     assert [n for n in jax_names if n in names] == names
-    for name in ("wine", "yale_faces", "cifar", "mnist", "research.stl10",
+    for name in ("wine", "yale_faces", "cifar", "mnist", "lines",
+                 "research.stl10",
                  "research.mnist_simple", "research.wine_relu",
                  "research.hands", "research.tv_channels",
                  "research.alexnet", "research.mnist7",

@@ -41,7 +41,9 @@ profiler`), or captures a running server's trace; ``obs`` reads the
 durable blackbox (:mod:`znicz_tpu_torch.core.blackbox`), which a run
 arms with ``--config common.telemetry.blackbox.enabled=True`` (role
 "train"); ``obs --rid`` follows one request's persisted trace trees.
-``--optimize`` and ``--parity`` are not in this slice of the port
+``--parity`` runs :func:`znicz_tpu_torch.parity.run_parity` for the
+sample (the real dataset, fetched where absent: the network is
+required then).  ``--optimize`` is not in this slice of the port
 (``ROADMAP.md``).
 """
 
@@ -137,13 +139,15 @@ def run_workflow_cli(argv):
     parser.add_argument("--dump-graph", metavar="FILE.dot",
                         help="write the workflow's control graph as DOT; "
                              "skips training unless --testing is given")
-    for flag, kwargs in (("--optimize", {}), ("--parity", {"action":
-                                                            "store_true"})):
-        parser.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
+    parser.add_argument("--parity", action="store_true",
+                        help="real-data accuracy parity run: provision "
+                             "the dataset (network required where it is "
+                             "absent), train the published config, print "
+                             "the comparison row")
+    parser.add_argument("--optimize", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for flag in ("optimize", "parity"):
-        if getattr(args, flag):
-            raise NotImplementedError("--%s %s" % (flag, _LATER))
+    if args.optimize:
+        raise NotImplementedError("--optimize %s" % _LATER)
 
     from znicz_tpu_torch.core import blackbox
     from znicz_tpu_torch.core.config import apply_override
@@ -161,6 +165,17 @@ def run_workflow_cli(argv):
     module = resolve_workflow_module(args.workflow)
     for assignment in args.config:
         apply_override(assignment)
+    if args.parity:
+        if args.snapshot or args.testing or args.dry_run or \
+                args.dump_graph or args.max_restarts > 0:
+            parser.error("--parity runs the published training config "
+                         "standalone")
+        from znicz_tpu_torch import parity
+        fused = parse_fused(args.fused)
+        parity.run_parity(module.__name__.rsplit(".", 1)[-1],
+                          device=args.device,
+                          fused=fused if fused is not None else "auto")
+        return 0
     # the durable blackbox, when its knob is on (one config read off)
     blackbox.maybe_arm("train")
     run_args = dict(snapshot=args.snapshot, testing=args.testing,

@@ -15,6 +15,11 @@ While the profiler is armed, every upload, ``set_dev`` and ``reset``
 accounts the device tensor's bytes in its memory ledger under the
 Array's name (JAX :42-64, :135-153).
 
+The helpers of JAX :25-31 and :225-269: :func:`roundup`, the host-view
+reshapes :func:`reshape` and :func:`ravel`, :func:`interleave` (CHW to
+HWC) and :class:`NumDiff`, the five-point numeric derivative of the
+gradient checks.
+
 The two sides never share memory.  A CUDA tensor's ``.cpu()`` is a
 copy, but a CPU tensor's ``.numpy()`` and ``torch.from_numpy`` alias
 their buffer, so on the CPU an in-place write to ``mem`` would
@@ -30,6 +35,12 @@ from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.params import tree_map
 
 HOST, DEV, SYNC = "host", "dev", "sync"
+
+
+def roundup(n, m):
+    """``n`` rounded up to a multiple of ``m``."""
+    r = n % m
+    return n if r == 0 else n + m - r
 
 
 def _to_host(t):
@@ -214,3 +225,44 @@ class Array(object):
     def __repr__(self):
         return "<Array %s %s %s state=%s>" % (
             self.name or "", self.shape, self.dtype, self._state)
+
+
+def reshape(arr, shape):
+    """Reshape an Array's host copy in place; returns it."""
+    arr.mem = arr.mem.reshape(shape)
+    return arr.mem
+
+
+def ravel(arr):
+    """A flat view of an Array's host copy."""
+    return arr.mem.reshape(-1)
+
+
+def interleave(arr):
+    """A CHW image (or an NCHW batch) as HWC (NHWC)."""
+    if arr.ndim == 3:
+        return numpy.transpose(arr, (1, 2, 0))
+    if arr.ndim == 4:
+        return numpy.transpose(arr, (0, 2, 3, 1))
+    raise ValueError("interleave expects 3D/4D")
+
+
+class NumDiff(object):
+    """The five-point numeric derivative (float64 only): fill
+    :attr:`errs` with the function at ``x + p * h`` for each ``p`` of
+    :attr:`points`, then read :attr:`derivative`."""
+
+    #: the perturbations, in units of :attr:`h`
+    points = (2.0, 1.0, -1.0, -2.0)
+    #: the stencil's coefficients, over ``divizor * h``
+    coeffs = numpy.array([-1.0, 8.0, -8.0, 1.0], dtype=numpy.float64)
+    divizor = 12.0
+    h = 1.0e-4
+
+    def __init__(self):
+        self.errs = numpy.zeros(len(NumDiff.points), dtype=numpy.float64)
+
+    @property
+    def derivative(self):
+        return (self.errs * NumDiff.coeffs).sum() / (
+            NumDiff.divizor * NumDiff.h)

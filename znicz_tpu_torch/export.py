@@ -17,7 +17,9 @@ Counterpart of ``znicz_tpu/export.py`` (``_layer_type`` :31,
 ``zero_filter_*`` arrays are provenance: the grouping mask is already
 folded into the next layer's weights.  ``quant_*`` arrays are the int8
 sidecar of :func:`quantize_manifest`; the C++ runtime never sees them.
-``export.run_package_numpy`` is not in the port (``ROADMAP.md``).
+:func:`run_package_numpy` (JAX :336-415) runs a package's forward in
+float64 numpy: the executable spec the C++ runtime (``cpp/``) must
+match, through the numpy twins in the port's ``ops`` modules.
 """
 
 import io
@@ -287,3 +289,79 @@ def write_package(manifest, arrays, path):
             numpy.save(buf, numpy.ascontiguousarray(value))
             zf.writestr(fname, buf.getvalue())
     return path
+
+
+#: the FC family's activations (``softmax`` is linear, then softmax)
+_FC_ACTIVATIONS = {"all2all": "linear", "all2all_tanh": "tanh",
+                   "all2all_relu": "relu", "all2all_str": "strict_relu",
+                   "all2all_sigmoid": "sigmoid"}
+_CONV_ACTIVATIONS = {"conv": "linear", "conv_tanh": "tanh",
+                     "conv_relu": "relu", "conv_str": "strict_relu",
+                     "conv_sigmoid": "sigmoid"}
+_STANDALONE = {"activation_tanh": "tanh", "activation_sigmoid": "sigmoid",
+               "activation_relu": "relu", "activation_str": "strict_relu"}
+
+
+def _weights_bias(entry, arrays):
+    w = arrays[entry["arrays"]["weights"]]
+    if entry.get("weights_transposed"):
+        w = w.T
+    b = arrays.get(entry["arrays"].get("bias", ""), None)
+    include_bias = bool(entry.get("include_bias", True)) and b is not None
+    return w, b, include_bias
+
+
+def run_package_numpy(path, x):
+    """The package at ``path`` run forward on ``x`` in float64 numpy:
+    the FC family, the conv family, max and average pooling (ceil
+    mode), LRN, the standalone activations (``activation_mul`` and the
+    log / tanhlog / sincos family) and dropout as the identity.  A
+    spatial package takes NHWC input.  Returns the last layer's
+    output."""
+    from znicz_tpu_torch.ops import activations, dense
+    from znicz_tpu_torch.ops import conv as conv_ops
+    from znicz_tpu_torch.ops import normalization as norm_ops
+    from znicz_tpu_torch.ops import pooling as pool_ops
+    manifest, arrays = load_package(path)
+    y = numpy.asarray(x, dtype=numpy.float64)
+    for entry in manifest["layers"]:
+        tpe = entry["type"]
+        if tpe == "softmax" or tpe in _FC_ACTIVATIONS:
+            w, b, include_bias = _weights_bias(entry, arrays)
+            y = dense.forward_numpy(
+                y.reshape(len(y), -1), w, b,
+                activation=_FC_ACTIVATIONS.get(tpe, "linear"),
+                include_bias=include_bias)
+            if tpe == "softmax":
+                y, _ = dense.softmax_numpy(y)
+        elif tpe in _CONV_ACTIVATIONS:
+            w, b, include_bias = _weights_bias(entry, arrays)
+            y = conv_ops.forward_numpy(
+                y, w, b, int(entry["ky"]), int(entry["kx"]),
+                tuple(int(v) for v in entry["padding"]),
+                tuple(int(v) for v in entry["sliding"]),
+                activation=_CONV_ACTIVATIONS[tpe],
+                include_bias=include_bias)
+        elif tpe in ("max_pooling", "avg_pooling"):
+            sliding = tuple(int(v) for v in entry["sliding"])
+            if tpe == "max_pooling":
+                y, _ = pool_ops.max_pooling_numpy(
+                    y, int(entry["ky"]), int(entry["kx"]), sliding)
+            else:
+                y = pool_ops.avg_pooling_numpy(
+                    y, int(entry["ky"]), int(entry["kx"]), sliding)
+        elif tpe == "norm":
+            y = norm_ops.lrn_forward_numpy(
+                y, alpha=float(entry["alpha"]), beta=float(entry["beta"]),
+                k=float(entry["k"]), n=int(entry["n"]))
+        elif tpe == "activation_mul":
+            y = y * float(entry["factor"])
+        elif tpe in _STANDALONE:
+            y = activations.apply_numpy(_STANDALONE[tpe], y)
+        elif tpe.startswith("activation_"):
+            y = activations.ext_apply_numpy(tpe[len("activation_"):], y)
+        elif tpe == "dropout":
+            pass  # the identity in inference
+        else:
+            raise ValueError("package runner: unsupported type %r" % tpe)
+    return y

@@ -91,7 +91,10 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.normalization_type = kwargs.get("normalization_type", "none")
         self.normalization_parameters = kwargs.get(
             "normalization_parameters", {})
+        #: a loader that reads its test set serves it all as TEST
+        self.testing = kwargs.get("testing", False)
         self.class_lengths = [0, 0, 0]
+        self._labels_mapping = {}
         self.minibatch_data = Array(name="minibatch_data")
         self.minibatch_labels = Array(name="minibatch_labels")
         self.minibatch_indices = Array(name="minibatch_indices")
@@ -105,6 +108,11 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self._global_offset = 0
         self.last_minibatch = Bool(False)
         self.epoch_ended = Bool(False)
+        #: the TRAIN segment's last minibatch was served
+        self.train_ended = Bool(False)
+        #: the loader has nothing more to serve (a forward workflow's
+        #: stop, beside ``epoch_ended``; never set by a file loader)
+        self.complete = Bool(False)
         self.epoch_number = 0
         self.skip_fill = False
         self.shuffle_serial = 0
@@ -142,6 +150,29 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         if labels is not None and len(labels):
             return len(set(labels))
         raise AttributeError("loader cannot derive unique_labels_count")
+
+    @property
+    def labels_mapping(self):
+        """String label -> int (empty where the labels are ints)."""
+        return self._labels_mapping
+
+    @property
+    def has_labels(self):
+        """Whether the dataset carries labels: read from the loader's
+        label source, never from ``minibatch_labels`` (always
+        allocated)."""
+        return bool(self._labels_mapping)
+
+    @property
+    def shuffled_indices(self):
+        """The epoch's serving order as dataset indices, segment after
+        segment in ``SERVE_ORDER`` (what ``minibatch_offset`` walks):
+        where an exporter writes the row served at a position."""
+        parts = [self._indices[c] for c in self._serve_order()
+                 if c in self._indices and len(self._indices[c])]
+        if not parts:
+            return numpy.arange(0)
+        return numpy.concatenate(parts)
 
     def _serve_order(self):
         return [c for c in SERVE_ORDER if self.class_lengths[c] > 0]
@@ -229,6 +260,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         epoch_done = seg_done and self._segment == len(order) - 1
         self.last_minibatch <<= seg_done
         self.epoch_ended <<= epoch_done
+        self.train_ended <<= seg_done and clazz == TRAIN
         if epoch_done:
             self.epoch_number += 1
             if prof_t0 is not None:
@@ -292,6 +324,10 @@ class FullBatchLoader(Loader):
     @property
     def original_labels(self):
         return self._original_labels
+
+    @property
+    def has_labels(self):
+        return bool(self._original_labels) or bool(self._labels_mapping)
 
     def create_minibatch_data(self):
         dtype = root.common.engine.get("precision_dtype")

@@ -3,11 +3,11 @@
 Counterpart of ``znicz_tpu/loader/loader_wine.py``: ``dataset_file``
 (``root.common.dirs.datasets``/wine/wine.txt by default) holds CSV rows
 of ``label,feature...`` with 1-based labels, served 0-based; pointwise
-normalization, whatever the caller asks; every row is TRAIN.  Where the
-file is absent it is written once from scikit-learn's bundled copy of
-the same data, in the JAX loader's ``savetxt`` format (``%.6g``), so
-both packages read the same bytes; nothing is downloaded.  The
-``testing`` mode (every row TEST) is not in this slice of the port.
+normalization, whatever the caller asks; every row is TRAIN, or under
+``testing`` every row TEST (JAX :44-49).  Where the file is absent it
+is written once from scikit-learn's bundled copy of the same data, in
+the JAX loader's ``savetxt`` format (``%.6g``), so both packages read
+the same bytes; nothing is downloaded.
 """
 
 import os
@@ -23,10 +23,6 @@ class WineLoader(FullBatchLoader, IFullBatchLoader):
     MAPPING = "wine_loader"
 
     def __init__(self, workflow, **kwargs):
-        if kwargs.get("testing"):
-            raise NotImplementedError(
-                "the wine loader's testing mode is not in this slice of "
-                "the port (ROADMAP.md, queue 1 item 3)")
         kwargs["normalization_type"] = "pointwise"
         super(WineLoader, self).__init__(workflow, **kwargs)
         self.dataset_file = kwargs.get("dataset_file", os.path.join(
@@ -48,5 +44,9 @@ class WineLoader(FullBatchLoader, IFullBatchLoader):
         self.original_data.reset(arr[:, 1:].copy())
         self._original_labels[:] = (
             arr[:, 0].ravel().astype(numpy.int32) - 1).tolist()
-        self.class_lengths[TEST] = self.class_lengths[VALID] = 0
-        self.class_lengths[TRAIN] = self.original_data.shape[0]
+        if not self.testing:
+            self.class_lengths[TEST] = self.class_lengths[VALID] = 0
+            self.class_lengths[TRAIN] = self.original_data.shape[0]
+        else:
+            self.class_lengths[TEST] = self.original_data.shape[0]
+            self.class_lengths[VALID] = self.class_lengths[TRAIN] = 0

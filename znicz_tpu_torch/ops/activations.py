@@ -12,6 +12,9 @@ Counterpart of ``znicz_tpu/ops/activations.py`` (``apply_jax`` :71,
 * the standalone-unit family: log ``log(x + sqrt(x^2 + 1))``, the
   tanhlog hybrid and sincos (cos on even flat indices, sin on odd).
 
+:func:`apply_numpy` and :func:`ext_apply_numpy` are the numpy twins
+(JAX :131, :160) that ``export.run_package_numpy`` runs in float64.
+
 Gradients.  The JAX package differentiates tanh, softplus "relu",
 sigmoid and strict relu through their OUTPUT y with the reference's
 rounded constants (``_with_output_vjp`` :44-69): tanh'
@@ -23,6 +26,7 @@ autograd of ``torch.tanh`` differs from the rounded constants by about
 1e-9 per layer.
 """
 
+import numpy
 import torch
 
 TANH_A = 1.7159
@@ -122,4 +126,39 @@ def ext_derivative(name, x, y):
         odd = torch.arange(flat.shape[0], device=x.device) % 2 == 1
         return torch.where(odd, torch.cos(flat),
                            -torch.sin(flat)).reshape(x.shape)
+    raise ValueError("unknown activation %r" % name)
+
+
+# -- the numpy twins (the package runner's executable spec) -------------------
+
+def apply_numpy(name, x):
+    """:func:`apply` on a numpy array."""
+    if name == "linear":
+        return x
+    if name == "tanh":
+        return TANH_A * numpy.tanh(TANH_B * x)
+    if name == "relu":
+        return numpy.where(x > 15, x,
+                           numpy.log1p(numpy.exp(numpy.minimum(x, 15.0))))
+    if name == "strict_relu":
+        return numpy.maximum(x, 0)
+    if name == "sigmoid":
+        return 1.0 / (1.0 + numpy.exp(-x))
+    raise ValueError("unknown activation %r" % name)
+
+
+def ext_apply_numpy(name, x):
+    """:func:`ext_apply` on a numpy array: log, tanhlog or sincos."""
+    if name == "log":
+        return numpy.log(x + numpy.sqrt(numpy.square(x) + 1))
+    if name == "tanhlog":
+        big = numpy.log(numpy.abs(x) * TANHLOG_B + 1e-30) * TANHLOG_A
+        return numpy.where(x > TANHLOG_D, big,
+                           numpy.where(x < -TANHLOG_D, -big,
+                                       TANH_A * numpy.tanh(TANH_B * x)))
+    if name == "sincos":
+        flat = x.reshape(-1)
+        odd = numpy.arange(flat.shape[0]) % 2 == 1
+        return numpy.where(odd, numpy.sin(flat),
+                           numpy.cos(flat)).reshape(x.shape)
     raise ValueError("unknown activation %r" % name)

@@ -23,8 +23,14 @@ and so is ``weights`` reshaped to ``(K, ky, kx, C)`` and permuted to
 ``(K, C, ky, kx)``.  conv2d then runs in ``channels_last`` and its
 output, permuted back, is NHWC again: no layout copies on the way in
 or out.
+
+:func:`forward_numpy` (JAX :176-203, with ``_pad_numpy`` and
+``_patches_numpy``) is the numpy twin that ``export.run_package_numpy``
+runs: the same patches in the same ``(ky, kx, C)`` order and one
+product with the weights.
 """
 
+import numpy
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +42,33 @@ def output_spatial(sy, sx, ky, kx, padding, sliding):
     nx = (left + sx + right - kx) // sliding[0] + 1
     ny = (top + sy + bottom - ky) // sliding[1] + 1
     return ny, nx
+
+
+def _pad_numpy(x, padding):
+    left, top, right, bottom = padding
+    return numpy.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+
+
+def _patches_numpy(xp, ky, kx, sliding, ny, nx):
+    """im2col: ``(B, ny, nx, ky*kx*C)`` from the padded input, one
+    strided slice a window cell."""
+    b, _, _, c = xp.shape
+    sx, sy = sliding
+    cells = [xp[:, dy:dy + (ny - 1) * sy + 1:sy,
+                dx:dx + (nx - 1) * sx + 1:sx, :]
+             for dy in range(ky) for dx in range(kx)]
+    return numpy.stack(cells, axis=3).reshape(b, ny, nx, ky * kx * c)
+
+
+def forward_numpy(x, weights, bias, ky, kx, padding, sliding,
+                  activation="linear", include_bias=True):
+    """:func:`forward` on numpy arrays."""
+    ny, nx = output_spatial(x.shape[1], x.shape[2], ky, kx, padding, sliding)
+    patches = _patches_numpy(_pad_numpy(x, padding), ky, kx, sliding, ny, nx)
+    y = patches @ weights.T
+    if include_bias:
+        y = y + bias
+    return activations.apply_numpy(activation, y)
 
 
 def _nchw(x, weights, ky, kx, padding):

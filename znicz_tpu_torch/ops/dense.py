@@ -4,8 +4,11 @@ Counterpart of ``znicz_tpu/ops/dense.py`` (``forward_jax`` :27,
 ``softmax_jax`` :37, ``backward_jax`` :66).  ``weights`` is ``(neurons, input_size)`` unless
 ``weights_transposed``; the forward is ``y = x @ W^T + b``.  The
 products are ``torch.matmul`` — the JAX package leaves them to XLA.
+:func:`forward_numpy` and :func:`softmax_numpy` are the numpy twins
+(JAX :46, :55) that ``export.run_package_numpy`` runs.
 """
 
+import numpy
 import torch
 
 from znicz_tpu_torch.ops import activations
@@ -18,6 +21,23 @@ def forward(x, weights, bias, activation="linear",
     if include_bias:
         y = y + bias
     return activations.apply(activation, y)
+
+
+def forward_numpy(x, weights, bias, activation="linear",
+                  weights_transposed=False, include_bias=True):
+    """:func:`forward` on numpy arrays."""
+    x2 = x.reshape(x.shape[0], -1)
+    y = x2 @ weights if weights_transposed else x2 @ weights.T
+    if include_bias:
+        y = y + bias
+    return activations.apply_numpy(activation, y)
+
+
+def softmax_numpy(y):
+    """:func:`softmax` on a numpy array."""
+    max_idx = numpy.argmax(y, axis=1).astype(numpy.int32)
+    e = numpy.exp(y - numpy.max(y, axis=1, keepdims=True))
+    return e / numpy.sum(e, axis=1, keepdims=True), max_idx
 
 
 def softmax(y):

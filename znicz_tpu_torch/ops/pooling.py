@@ -43,8 +43,14 @@ Training lowerings of a max pool (the fused path's ``PoolSpec.impl``,
 ``PLAIN_CUDA_CALLS`` counts calls of the plain max-pool versions on
 CUDA tensors (the card's path runs the kernels; the plain versions
 run there only as a reference).
+
+:func:`max_pooling_numpy` and :func:`avg_pooling_numpy` (JAX :452,
+:474) are the numpy twins that ``export.run_package_numpy`` runs: the
+same ceil-mode windows, walked one window cell at a time over every
+window at once (the first cell wins a tie, as numpy's ``argmax``).
 """
 
+import numpy
 import torch
 import torch.nn.functional as F
 
@@ -385,3 +391,61 @@ def avg_pooling_backward(err, ky, kx, sliding, x_shape):
                         requires_grad=True)
         return torch.autograd.grad(avg_pooling(x, ky, kx, sliding), x,
                                    err)[0]
+
+
+# -- the numpy twins (the package runner's executable spec) -------------------
+
+def _cells_numpy(x, ky, kx, sliding, fill):
+    """Each window cell ``(dy, dx)`` in row-major order with the
+    ``(B, ny, nx, C)`` slice of ``x`` it covers (``fill`` where a
+    ceil-mode window overhangs the edge) and its input row and
+    column."""
+    b, sy, sx, c = x.shape
+    ny, nx = output_spatial(sy, sx, ky, kx, sliding)
+    stx, sty = sliding
+    py = max((ny - 1) * sty + ky - sy, 0)
+    px = max((nx - 1) * stx + kx - sx, 0)
+    xp = numpy.pad(x, ((0, 0), (0, py), (0, px), (0, 0)),
+                   constant_values=fill)
+    rows = numpy.arange(ny) * sty
+    cols = numpy.arange(nx) * stx
+    for dy in range(ky):
+        for dx in range(kx):
+            yield (xp[:, dy:dy + (ny - 1) * sty + 1:sty,
+                      dx:dx + (nx - 1) * stx + 1:stx, :],
+                   rows + dy, cols + dx)
+
+
+def max_pooling_numpy(x, ky, kx, sliding, use_abs=False):
+    """``(values, offsets)`` of the ceil-mode max (or maxabs) pool of
+    NHWC ``x``: each window's first largest cell (by magnitude under
+    ``use_abs``) and its flat NHWC input offset, int32."""
+    b, sy, sx, c = x.shape
+    out = key = offs = None
+    for cell, r, q in _cells_numpy(x, ky, kx, sliding, numpy.nan):
+        ck = numpy.abs(cell) if use_abs else cell
+        off = ((numpy.arange(b)[:, None, None, None] * sy +
+                r[None, :, None, None]) * sx +
+               q[None, None, :, None]) * c + numpy.arange(c)
+        if out is None:
+            out, key = cell.copy(), ck.copy()
+            offs = numpy.broadcast_to(off, cell.shape).astype(numpy.int32)
+            continue
+        # NaN marks a cell past the edge: it never wins
+        win = ck > key
+        out = numpy.where(win, cell, out)
+        key = numpy.where(win, ck, key)
+        offs = numpy.where(win, off, offs).astype(numpy.int32)
+    return out, offs
+
+
+def avg_pooling_numpy(x, ky, kx, sliding):
+    """The ceil-mode average pool of NHWC ``x``, each window's sum over
+    its cells inside the input divided by their count."""
+    total = count = None
+    for cell, _, _ in _cells_numpy(x, ky, kx, sliding, numpy.nan):
+        inside = ~numpy.isnan(cell)
+        value = numpy.where(inside, cell, 0)
+        total = value if total is None else total + value
+        count = inside.astype(x.dtype) if count is None else count + inside
+    return total / count

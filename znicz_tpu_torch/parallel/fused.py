@@ -9,7 +9,8 @@ functions (``init_params`` :570, ``init_opt_state`` :606, ``forward``
 ``default_hypers`` :2272, ``_apply_weight_masks`` :2291,
 ``_train_step`` :2305, ``_train_step_mse`` :905, ``flops_per_image``
 :981) and :class:`FusedNet` (:997-2258), with the softmax and the MSE
-objectives.
+objectives; ``build_fc_specs`` (:560) and :class:`FusedMLP` (:2260)
+are their fully-connected forms.
 
 What maps to what:
 
@@ -507,6 +508,17 @@ def build_specs(layers, input_sample_shape, defaults=None):
             ccol = numpy.arange(chans)[None, :] % g
             spec.weight_mask = (krow != ccol).astype(numpy.float64)
             pending_grouping = None
+    return specs
+
+
+def build_fc_specs(layers, input_sample_size, defaults=None):
+    """:func:`build_specs` for a fully-connected stack; any other layer
+    type raises."""
+    specs = build_specs(layers, int(input_sample_size), defaults)
+    for spec in specs:
+        if spec.kind != "fc":
+            raise ValueError("fused FC path does not support layer type %r"
+                             % spec.type)
     return specs
 
 
@@ -1439,3 +1451,14 @@ class FusedNet:
                 raise ValueError("'key' of dtype %s is not a torch "
                                  "generator state" % key.dtype)
             self._gen.set_state(torch.from_numpy(key.copy()))
+
+
+class FusedMLP(FusedNet):
+    """:class:`FusedNet` for a fully-connected stack over a flat input
+    (JAX :2260); any other layer type raises before a draw is made."""
+
+    def __init__(self, layers, input_sample_size, **kwargs):
+        build_fc_specs(layers, int(input_sample_size),
+                       kwargs.get("defaults"))
+        super(FusedMLP, self).__init__(
+            layers, int(input_sample_size), **kwargs)

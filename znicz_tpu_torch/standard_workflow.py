@@ -25,8 +25,12 @@ loader's ``minibatch_targets`` through ``EvaluatorMSE`` and
 ``DecisionMSE`` (and, fused, the trainer's MSE windows).
 ``link_lr_adjuster`` adds the learning-rate schedule to either graph,
 ``link_rollback`` the divergence recovery (``NNRollback`` over the GD
-units, ``FusedNNRollback`` over the fused trainer).  A mesh and the
-plotters are not in this slice of the port (``ROADMAP.md``).
+units, ``FusedNNRollback`` over the fused trainer).
+``extract_forward_workflow`` (JAX :612-642) builds the forward-only
+workflow of a trained one, from either graph, with its weights handed
+over through the forwards' weight broadcast (``apply_data_from_master``;
+a fused trainer's through ``host_params``).  A mesh and the plotters
+are not in this slice of the port (``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -53,11 +57,14 @@ class StandardWorkflow(StandardWorkflowBase):
             "decision_name", "decision_gd" if self.loss_function == "softmax"
             else "decision_mse")
         self.snapshotter_name = kwargs.get("snapshotter_name", "nnfile")
-        self.evaluator_config = dict(kwargs.get("evaluator_config") or {})
-        self.decision_config = dict(kwargs.get("decision_config") or {})
-        self.snapshotter_config = dict(
-            kwargs.get("snapshotter_config") or {})
-        self.create_workflow()
+        self.evaluator_config = self.config2kwargs(
+            kwargs.get("evaluator_config"))
+        self.decision_config = self.config2kwargs(
+            kwargs.get("decision_config"))
+        self.snapshotter_config = self.config2kwargs(
+            kwargs.get("snapshotter_config"))
+        if not self.preprocessing:
+            self.create_workflow()
 
     def create_workflow(self):
         if self.fused_config is not None:
@@ -276,3 +283,38 @@ class StandardWorkflow(StandardWorkflowBase):
         self.end_point.link_from(*parents)
         self.end_point.gate_block = ~self.decision.complete
         return self.end_point
+
+    def extract_forward_workflow(self, loader_name=None, loader_config=None,
+                                 loader_factory=None):
+        """A forward-only :class:`StandardWorkflowBase` of this
+        workflow's layers, its loader from ``loader_name`` (with
+        ``loader_config``), ``loader_factory`` or else this workflow's
+        factory, and its forwards holding this workflow's weights (in
+        ``forward_mode``).  Call ``initialize`` on it before ``run``."""
+        kwargs = dict(layers=self.layers, preprocessing=False)
+        if loader_name is not None:
+            kwargs["loader_name"] = loader_name
+        elif loader_factory is not None:
+            kwargs["loader_factory"] = loader_factory
+        else:
+            kwargs["loader_factory"] = self.loader_factory
+        if loader_config is not None:
+            kwargs["loader_config"] = loader_config
+        fwd_wf = StandardWorkflowBase(None, **kwargs)
+        fwd_wf.create_workflow()
+        if self.fused_trainer is not None:
+            # the fused parameters map one to one onto the layer list;
+            # a pool's dict is empty
+            params = self.fused_trainer.host_params()
+            for fwd_imp, p in zip(fwd_wf.forwards, params):
+                if p:
+                    fwd_imp.apply_data_from_master(
+                        [p.get("w"), p.get("b")])
+                fwd_imp.forward_mode = True
+            return fwd_wf
+        for fwd_exp, fwd_imp in zip(self.forwards, fwd_wf.forwards):
+            data = fwd_exp.generate_data_for_slave(None)
+            if data is not None:
+                fwd_imp.apply_data_from_master(data)
+            fwd_imp.forward_mode = True
+        return fwd_wf

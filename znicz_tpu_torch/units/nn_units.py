@@ -24,8 +24,12 @@ Counterpart of ``znicz_tpu/units/nn_units.py``:
   ``load_snapshot_into_workflow`` (:574) with the mapping of a snapshot
   between the fused and the unit-graph modes (:606-657).
 
-The weight-broadcast and master/slave gradient protocols wait for the
-multi-GPU item of ``ROADMAP.md``.
+``Forward.generate_data_for_slave`` / ``apply_data_from_master``
+(:169-192) are the forwards' weight broadcast, through which
+``StandardWorkflow.extract_forward_workflow`` hands a trained
+workflow's weights to its forward-only copy; a unit in
+``forward_mode`` neither sends nor takes.  The GD units' master/slave
+gradient protocol waits for the multi-GPU item of ``ROADMAP.md``.
 """
 
 import time
@@ -167,10 +171,40 @@ class Forward(ForwardBase):
             data[attr] = value
         return data
 
+    # -- the weight broadcast -------------------------------------------------
+    def generate_data_for_slave(self, slave=None):
+        """Host copies ``[weights, bias]`` (None where unallocated);
+        None in ``forward_mode``."""
+        if self.forward_mode:
+            return None
+        data = [None, None]
+        if self.weights:
+            data[0] = numpy.array(self.weights.mem)
+        if self.bias:
+            data[1] = numpy.array(self.bias.mem)
+        return data
+
+    def apply_data_from_master(self, data):
+        """Take ``[weights, bias]`` from the master: copied into the
+        allocated Arrays, or adopted as they are where none is
+        allocated yet (the unit's ``initialize`` then keeps them);
+        nothing in ``forward_mode``."""
+        if self.forward_mode:
+            return
+        for arr, value in zip((self.weights, self.bias), data):
+            if value is None:
+                continue
+            if arr:
+                arr.map_invalidate()
+                numpy.copyto(arr.mem, value)
+            else:
+                arr.reset(numpy.array(value))
+
     def apply_params(self, weights, bias):
         """Set the weights and bias from host arrays (either None to
-        leave it), in their dtype where they have one, as the JAX
-        package's ``apply_data_from_master``."""
+        leave it), in their dtype where they have one, whatever the
+        shape held before and in ``forward_mode`` too: a snapshot's or
+        the fused trainer's parameters restored into the unit."""
         for arr, value in ((self.weights, weights), (self.bias, bias)):
             if value is not None:
                 arr.reset(numpy.array(value, dtype=arr.dtype))

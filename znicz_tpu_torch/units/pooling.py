@@ -85,6 +85,13 @@ class Pooling(PoolingBase, Forward):
         if not self.output or self.output.shape[0] != shape[0]:
             self.output.reset(numpy.zeros(shape, self.input.dtype))
 
+    def generate_data_for_slave(self, slave=None):
+        """A pool has no weights to broadcast."""
+        return None
+
+    def apply_data_from_master(self, data):
+        pass
+
 
 class OffsetPooling(Pooling):
     """Records the flat input offsets of the values it passes through
