@@ -443,7 +443,33 @@ failure (the script then exits non-zero and prints no result line):
     forward launch a pool a dispatch, each reply within 1e-4 of
     ``export.run_package_numpy`` in float64 with equal argmax.  Prints
     the seconds of training, extraction, export and serving beside the
-    card's name and power limit.
+    card's name and power limit;
+21. families — the three model families that launch neither pooling
+    kernel, each trained on the card through its sample's
+    ``run_sample`` at its published widths (depth cut to
+    ``FAMILY_EPOCHS``), from prng seeds 1234 / 5678: ``demo_kohonen``
+    over the checkout's ``kohonen.txt.gz`` (20 epochs of 40 minibatches
+    of 10) and ``research.spam_kohonen`` (6 epochs, the golden test's):
+    the weights, winner counts, argmins and ``total`` on ``cuda``, the
+    card read back twice an epoch and no more (the decision's weights
+    and winners; spam's exporter once more at the end), the weights
+    within 1e-5 of the CPU's run and every
+    winner equal, the spam fitness printed beside
+    ``GOLDEN_SPAM_FITNESS`` and equal to the CPU's, 400 exported lines;
+    ``mnist_rbm`` at 784 -> 1000, minibatch 128, CD-1 (4 epochs): the
+    reconstruction MSE over each epoch's 1,000 rows falls from the first
+    epoch to the last (the last minibatch's, the JAX sample's reading,
+    is printed beside: at this width it moves less than its noise), and
+    its
+    first two minibatches equal the CPU's with the same host draws
+    (parameters and MSE within 1e-4 in float32 and 1e-9 in float64);
+    ``sequence`` at its published config (up to its 25 epochs; it stops
+    by itself once its errors are 0, after 3): TRAIN n_err
+    falls, and its first epoch's n_err equal the CPU's and its gate
+    parameters within 1e-4 (float32) and 1e-9 (float64).  Each family's
+    line gives the host wall a minibatch, and from one epoch under the
+    device trace the device time, kernels and copies a minibatch and
+    the card's busy share, beside the card's name and power limit.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -720,6 +746,26 @@ LINES_SERVE_ROWS = (1, 4, 12)
 #: a served reply against ``run_package_numpy`` in float64
 LINES_SERVE_TOL = 1e-4
 LINES_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "lines")
+
+#: the families phase: epochs of each card run (the samples' own are
+#: 200, 60, 100 and 25; the widths are the published ones; the sequence
+#: stops by itself once its errors are 0), and the seeds of prng
+#: streams 1 and 2 (the spam golden test's)
+FAMILY_EPOCHS = {"demo_kohonen": 20, "research.spam_kohonen": 6,
+                 "mnist_rbm": 4, "sequence": 25}
+FAMILY_SEEDS = (1234, 5678)
+#: tests/functional/test_research_models.py:94 (seeds 1234 / 5678, 6
+#: epochs, float32)
+GOLDEN_SPAM_FITNESS = 2.7375
+#: the card against the CPU on the same seeds: the Kohonen maps' float32
+#: weights (the winners equal), the first float32 RBM minibatches' and
+#: sequence epoch's parameters, and the same in float64
+FAMILY_KOHONEN_TOL = 1e-5
+FAMILY_F32_TOL = 1e-4
+FAMILY_F64_TOL = 1e-9
+#: the RBM's check rows: its first two minibatches of 128
+FAMILY_RBM_ROWS = 256
+FAMILIES_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "families")
 
 
 def say(*args):
@@ -7661,21 +7707,21 @@ def _fleet_sigterm(cli, pids):
 
 
 #: the fleet phase's releases: the canary ladder and its judge's
-#: policy.  What a promote may leave on a replica's card: a thread that
-#: runs its first cuBLAS product (a handler thread warming the
-#: candidate) takes a cuBLAS handle and PyTorch gives the pair of handle
-#: and stream a workspace of CUBLAS_WORKSPACE, kept for the process (a
-#: later thread takes a returned handle and its workspace again); the
-#: reload reallocates the live parameters, and the caching allocator
-#: does not split a large block whose remainder is under 1 MiB, so each
-#: of AlexNet's 8 weight tensors may come back up to 1 MiB larger or
-#: smaller (RELOAD_SLACK).  The first promote may add two workspaces
-#: (two handler threads at once), a later one none
+#: policy.  What a promote may leave on a replica's card: the reload
+#: reallocates the live parameters, and the caching allocator does not
+#: split a large block whose remainder is under 1 MiB, so each of
+#: AlexNet's 8 weight tensors may come back up to 1 MiB larger or
+#: smaller (RELOAD_SLACK).  No cuBLAS workspace: PyTorch gives each
+#: cuBLAS handle a workspace of CUBLAS_WORKSPACE, kept for the process,
+#: and a thread holds its handle until it exits, so a replica runs its
+#: products on threads that live as long as it does and take their
+#: handles as they start (the batcher's slots and the engines' one
+#: warm-up thread), never on the handler thread a deploy or a reload
+#: arrives on
 RELEASE_POLICY = {"canary_steps": [50.0, 100.0], "green_window_s": 1.0,
                   "min_requests": 12, "shadow_min_compares": 8}
 CUBLAS_WORKSPACE = 32 << 20
 RELOAD_SLACK = 8 << 20
-PROMOTE_GROWTH_MAX = 2 * CUBLAS_WORKSPACE + RELOAD_SLACK
 #: the autoscale phase's knobs (a replica's queued rows over
 #: AUTOSCALE_QUEUE_ROWS scale it up; AUTOSCALE_COOLDOWN_S between two
 #: actions) and its burst's clients
@@ -7901,8 +7947,8 @@ def _fleet_releases(cli, images, ref, copy, other, card):
     rolls back on a shadow mismatch, and the copy is promoted once more.
     Every client reply 200 and bit-equal to ``ref`` at the bucket its
     replica reports; ``memory_allocated`` a replica back within 512 B a
-    tensor after the rollback, within ``RELOAD_SLACK`` after the second
-    promote, at most ``PROMOTE_GROWTH_MAX`` over the first; 3 forward
+    tensor after the rollback and within ``RELOAD_SLACK`` after each
+    promote (no cuBLAS workspace taken by a release); 3 forward
     launches a dispatch, shadow dispatches included.  Returns the
     replicas' forward launches over the releases."""
     memo = {}
@@ -7938,8 +7984,8 @@ def _fleet_releases(cli, images, ref, copy, other, card):
                     shadow["compares"], shadow["mismatches"],
                     shadow["dropped"], shadow["errors"], len(replies),
                     sorted(seen), card))
-    state, lag = _settled(cli, cand, mem[0], -RELOAD_SLACK,
-                          PROMOTE_GROWTH_MAX, "the first promote")
+    state, lag = _settled(cli, cand, mem[0], -RELOAD_SLACK, RELOAD_SLACK,
+                          "the first promote")
     mem.append(state)
     lags = [lag]
     # 2. another seed's package rolls back on a shadow mismatch
@@ -7961,7 +8007,7 @@ def _fleet_releases(cli, images, ref, copy, other, card):
             doc["shadow"]["mismatches"], doc["shadow"]["exemplar_rid"],
             len(replies), gen_live, card))
     mem.append(state)
-    # 3. the copy once more: a second promote adds nothing on the card
+    # 3. the copy once more: a second promote adds nothing either
     doc, replies, failures, by_state, deploy_s, cand, gen_live, gen_cand = \
         _walk_release(cli, images, copy, "again")
     _check_replies(replies, failures, want, "second promote",
@@ -8012,9 +8058,12 @@ def _promote_memory(torch, path, copy, card):
     /models/<candidate>``), each on a connection of its own as the
     router's fan-out opens them, with the allocator's history on.
     Prints each new live block with the Python frame that allocated it,
-    then clears cuBLAS's workspaces.  Fails unless the first promote
-    adds its new ``CUBLAS_WORKSPACE`` blocks (within ``RELOAD_SLACK``),
-    the second adds none, and the clear frees whole workspaces."""
+    then clears cuBLAS's workspaces.  Fails if either promote moves
+    ``memory_allocated`` by more than ``RELOAD_SLACK``, if a new live
+    block has a workspace's size (the handler threads run no product:
+    the engines warm up on their one thread, the slots took their
+    handles as they started), or if the clear frees anything but whole
+    workspaces."""
     import numpy
     from znicz_tpu_torch.serving.registry import ModelRegistry
     from znicz_tpu_torch.serving.server import ServingServer
@@ -8101,10 +8150,10 @@ def _promote_memory(torch, path, copy, card):
                 "%d B at %s" % (b["size"], where(b))
                 for b in sorted(new, key=lambda b: -b["size"])[:6]),
             after[1] - cleared, n_cleared, CUBLAS_WORKSPACE, card))
-    if not (workspaces and after[1] - cleared ==
-            n_cleared * CUBLAS_WORKSPACE and
-            abs(grown - len(workspaces) * CUBLAS_WORKSPACE) <=
-            RELOAD_SLACK and abs(after[1] - after[0]) <= RELOAD_SLACK):
+    if workspaces or not (
+            n_cleared and after[1] - cleared ==
+            n_cleared * CUBLAS_WORKSPACE and abs(grown) <= RELOAD_SLACK
+            and abs(after[1] - after[0]) <= RELOAD_SLACK):
         raise RuntimeError("a promote's memory: +%d B, then %+d B; %d new "
                            "workspace blocks; %d B freed with the "
                            "workspaces" % (grown, after[1] - after[0],
@@ -8533,6 +8582,318 @@ def _lines_export_serve(source, images, tag, base, card):
     return launches, secs
 
 
+class _SegmentEnds(object):
+    """Calls ``fn(decision)`` after every decision's segment end
+    (``DecisionBase._on_last_minibatch``) while installed: each epoch's
+    reading of a sample run through its entry point."""
+
+    def __init__(self, fn):
+        from znicz_tpu_torch.units import decision
+        self.cls, self.fn = decision.DecisionBase, fn
+
+    def __enter__(self):
+        real = self.real = self.cls._on_last_minibatch
+        fn = self.fn
+
+        def hooked(decision):
+            real(decision)
+            fn(decision)
+        self.cls._on_last_minibatch = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._on_last_minibatch = self.real
+
+
+def _seeded(prng):
+    for key, seed in zip((1, 2), FAMILY_SEEDS):
+        prng.get(key).seed(seed)
+
+
+def _on_card(what, *arrays):
+    for arr in arrays:
+        if arr.dev.device.type != "cuda":
+            raise RuntimeError("%s: %s is on %s, not the card"
+                               % (what, arr.name, arr.dev.device))
+
+
+def _family_trace(torch, label, run, minibatches):
+    """One short card run under the device trace: its device events a
+    minibatch (kernels, and the copies apart) and device ms a
+    minibatch."""
+    from znicz_tpu_torch.core import profiler
+    with profiler.traced(os.path.join(FAMILIES_DIR, "trace_" + label)) \
+            as res:
+        run()
+    rows = res["device_ops"]["by_name"]
+    copies = [r for r in rows if r["name"].startswith(("Memcpy", "Memset"))]
+    return {"kernels": (sum(r["count"] for r in rows) -
+                        sum(r["count"] for r in copies)) / minibatches,
+            "copies": sum(r["count"] for r in copies) / minibatches,
+            "device_ms": res["device_ops"]["total_ms"] / minibatches}
+
+
+def _family_row(name, wall_s, minibatches, trace, readbacks, card):
+    """The printed line of one family: host wall, device time, events
+    and the device's busy share, a minibatch."""
+    wall_ms = wall_s * 1e3 / minibatches
+    row = dict(trace, wall_ms=wall_ms, readbacks=readbacks,
+               busy=trace["device_ms"] / wall_ms)
+    say("   %s: %.4f ms a minibatch of host wall (%d minibatches), "
+        "%.4f ms of device time, %.1f kernels and %.1f copies a "
+        "minibatch, the card busy %.1f%% of the wall (host-bound %.1f%%), "
+        "%.3g readbacks a minibatch; %s"
+        % (name, wall_ms, minibatches, trace["device_ms"],
+           trace["kernels"], trace["copies"], 100 * row["busy"],
+           100 * (1 - row["busy"]), readbacks, card))
+    return row
+
+
+def _kohonen_families(torch, card, rows):
+    """demo_kohonen over the checkout's data and spam_kohonen at the
+    golden test's seeds, on the card and on the CPU."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.samples import demo_kohonen
+    from znicz_tpu_torch.samples.research import spam_kohonen
+    for name, module, kwargs in (
+            ("demo_kohonen", demo_kohonen, {}),
+            ("research.spam_kohonen", spam_kohonen,
+             {"exporter_file": os.path.join(FAMILIES_DIR,
+                                            "classified.txt")})):
+        epochs = FAMILY_EPOCHS[name]
+        _seeded(prng)
+        probe = _Readbacks(torch, lambda: name)
+        t0 = time.perf_counter()
+        with probe:
+            wf = module.run_sample(epochs=epochs, **kwargs)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mbs = epochs * -(-wf.loader.total_samples //
+                         wf.loader.max_minibatch_size)
+        _on_card(name, wf.trainer.weights, wf.trainer.winners,
+                 wf.trainer.argmins, wf.forward.total)
+        if wf.loader.epoch_number != epochs:
+            raise RuntimeError("%s ran %d epochs, not %d" % (
+                name, wf.loader.epoch_number, epochs))
+        # the decision's weights and winners an epoch, and the
+        # exporter's table once at the end
+        reads = sum(probe.counts.values())
+        want_reads = 2 * epochs + (name == "research.spam_kohonen")
+        if reads != want_reads:
+            raise RuntimeError(
+                "%s read the card back %d times in %d epochs, not %d "
+                "(%s)" % (name, reads, epochs, want_reads,
+                          dict(probe.counts)))
+        if name == "demo_kohonen" and wf.loader.dataset_file != \
+                demo_kohonen.DATASET_FILE:
+            raise RuntimeError("demo_kohonen did not read %s"
+                               % demo_kohonen.DATASET_FILE)
+        _seeded(prng)
+        cpu = module.run_sample(device="cpu", epochs=epochs, **kwargs)
+        w_err = float(numpy.abs(wf.trainer.weights.mem -
+                                cpu.trainer.weights.mem).max())
+        same_total = numpy.array_equal(wf.forward.total.mem,
+                                       cpu.forward.total.mem)
+        same_winners = numpy.array_equal(wf.decision.winners_mem,
+                                         cpu.decision.winners_mem)
+        say("   %s, %d epochs: weights %s %s, card - CPU max |dw| %.3g "
+            "(limit %g), every sample's winner equal %s, the last "
+            "epoch's winner counts equal %s, weights diff at the end %.6g"
+            % (name, epochs, wf.trainer.weights.shape,
+               wf.trainer.weights.dev.dtype, w_err, FAMILY_KOHONEN_TOL,
+               same_total, same_winners, wf.decision.weights_diff))
+        if not (w_err <= FAMILY_KOHONEN_TOL and same_total and
+                same_winners and numpy.isfinite(wf.decision.weights_diff)):
+            raise RuntimeError("%s on the card is not its CPU run" % name)
+        if name == "research.spam_kohonen":
+            fitness = round(float(wf.validator.fitness), 9)
+            cpu_fitness = round(float(cpu.validator.fitness), 9)
+            lines = open(kwargs["exporter_file"]).read().splitlines()
+            say("   spam fitness on the card %r, on the CPU %r, "
+                "GOLDEN_SPAM_FITNESS %r; classified.txt %d lines"
+                % (fitness, cpu_fitness, GOLDEN_SPAM_FITNESS, len(lines)))
+            if fitness != cpu_fitness or len(lines) != 400:
+                raise RuntimeError("spam_kohonen's fitness or export "
+                                   "differs from the CPU's")
+        trace = _family_trace(
+            torch, name, lambda: module.run_sample(epochs=1, **kwargs),
+            mbs / epochs)
+        rows[name] = _family_row(name, wall, mbs, trace, reads / mbs, card)
+
+
+def _rbm_run(mnist_rbm, epochs, device=None, rows=None):
+    """``mnist_rbm`` from the seeded streams through ``run_sample``;
+    returns the workflow, each epoch's reconstruction MSE over all its
+    rows (from the evaluator's running sum) and its last minibatch's
+    (``reconstruction_mse()``, the JAX sample's reading)."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    sums, last = [0.0], []
+
+    def epoch_end(d):
+        sums.append(float(d.workflow.evaluator.mse.metrics.mem[0]))
+        last.append(d.workflow.reconstruction_mse())
+    _seeded(prng)
+    loader = {} if rows is None else {"synthetic_train": rows}
+    with _SegmentEnds(epoch_end):
+        wf = mnist_rbm.run_sample(device=device, max_epochs=epochs,
+                                  loader_config=loader)
+    return wf, list(numpy.diff(sums) / wf.loader.total_samples), last
+
+
+def _rbm_family(torch, card, rows):
+    """mnist_rbm at 784 -> 1000, minibatch 128: the reconstruction MSE
+    falls, and its first two minibatches equal the CPU's."""
+    import numpy
+    from znicz_tpu_torch import params
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.samples import mnist_rbm
+    epochs = FAMILY_EPOCHS["mnist_rbm"]
+    probe = _Readbacks(torch, lambda: "mnist_rbm")
+    t0 = time.perf_counter()
+    with probe:
+        wf, mses, last = _rbm_run(mnist_rbm, epochs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _on_card("mnist_rbm", wf.hidden.weights, wf.hidden.bias,
+             wf.vbias, wf.grad_rbm.v1, wf.evaluator.mse.mse)
+    mbs = epochs * -(-wf.loader.total_samples // 128)
+    say("   mnist_rbm %s -> %s, minibatch %d, %d epochs: reconstruction "
+        "MSE by epoch over its %d rows %s, of its last minibatch %s"
+        % (wf.hidden.weights.shape[1], wf.hidden.weights.shape[0],
+           wf.loader.max_minibatch_size, epochs, wf.loader.total_samples,
+           ["%.6f" % m for m in mses], ["%.6f" % m for m in last]))
+    if wf.hidden.weights.shape != (1000, 784) or len(mses) != epochs or \
+            not numpy.isfinite(mses + last).all() or \
+            not mses[-1] < mses[0]:
+        raise RuntimeError("mnist_rbm's reconstruction MSE did not fall: "
+                           "%s" % mses)
+    for dtype, tol in ((numpy.float32, FAMILY_F32_TOL),
+                       (numpy.float64, FAMILY_F64_TOL)):
+        with _ConfigRestored(root.common.engine):
+            root.common.engine.precision_dtype = dtype
+            got, got_mse, _ = _rbm_run(mnist_rbm, 1, rows=FAMILY_RBM_ROWS)
+            want, want_mse, _ = _rbm_run(mnist_rbm, 1, device="cpu",
+                                         rows=FAMILY_RBM_ROWS)
+        gp, wp = params.rbm_params_to_numpy(got), \
+            params.rbm_params_to_numpy(want)
+        err = max(float(numpy.abs(gp[k] - wp[k]).max()) for k in wp)
+        mse_err = abs(got_mse[0] - want_mse[0]) / abs(want_mse[0])
+        say("   mnist_rbm's first %d minibatches in %s, the same draws: "
+            "card - CPU max |d param| %.3g (limit %g), reconstruction "
+            "MSE %.9g vs %.9g" % (FAMILY_RBM_ROWS // 128,
+                                  numpy.dtype(dtype).name, err, tol,
+                                  got_mse[0], want_mse[0]))
+        if not (err <= tol and mse_err <= tol):
+            raise RuntimeError("mnist_rbm on the card is not its CPU run "
+                               "in %s" % numpy.dtype(dtype).name)
+    trace = _family_trace(torch, "mnist_rbm",
+                          lambda: _rbm_run(mnist_rbm, 1), mbs / epochs)
+    rows["mnist_rbm"] = _family_row("mnist_rbm", wall, mbs, trace,
+                                    sum(probe.counts.values()) / mbs, card)
+
+
+def _sequence_run(sequence, epochs, device=None):
+    """``sequence`` at its published config from the seeded streams
+    through ``run_sample``; returns the workflow and (class, n_err) at
+    each segment end."""
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.units.decision import DecisionGD
+    segments = []
+    _seeded(prng)
+    with _SegmentEnds(lambda d: segments.append(
+            (d.minibatch_class, d.epoch_n_err[d.minibatch_class]))
+            if isinstance(d, DecisionGD) else None):
+        wf = sequence.run_sample(
+            device=device, decision_config={"max_epochs": epochs},
+            snapshotter_config={"directory": os.path.join(
+                FAMILIES_DIR, "sequence")})
+    return wf, segments
+
+
+def _sequence_family(torch, card, rows):
+    """sequence at its published config: TRAIN n_err falls, and its
+    first epoch equals the CPU's."""
+    import numpy
+    from znicz_tpu_torch import params
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    from znicz_tpu_torch.samples import sequence
+    epochs = FAMILY_EPOCHS["sequence"]
+    probe = _Readbacks(torch, lambda: "sequence")
+    t0 = time.perf_counter()
+    with probe:
+        wf, segments = _sequence_run(sequence, epochs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lstm = wf.forwards[0]
+    _on_card("sequence", lstm.output, wf.gds[0].err_output,
+             *[a for p in lstm.gate_arrays.values() for a in p.values()])
+    train = [n for c, n in segments if c == TRAIN]
+    mbs = len(train) * (-(-wf.loader.class_lengths[TRAIN] // 50) +
+                        -(-wf.loader.class_lengths[VALID] // 50))
+    say("   sequence (lstm_scan %d hidden, softmax %d; %s minibatches), "
+        "%d epochs of at most %d (it stops once its errors are 0): "
+        "TRAIN n_err by epoch %s, VALID %s"
+        % (lstm.hidden, wf.forwards[1].output.shape[1],
+           wf.loader.minibatch_data.shape, len(train), epochs, train,
+           [n for c, n in segments if c != TRAIN]))
+    if lstm.hidden != 32 or not wf.decision.complete or \
+            not 1 < len(train) <= epochs or not train[-1] < train[0]:
+        raise RuntimeError("sequence's n_err did not fall: %s" % segments)
+    for dtype, tol in ((numpy.float32, FAMILY_F32_TOL),
+                       (numpy.float64, FAMILY_F64_TOL)):
+        with _ConfigRestored(root.common.engine):
+            root.common.engine.precision_dtype = dtype
+            got, got_seg = _sequence_run(sequence, 1)
+            want, want_seg = _sequence_run(sequence, 1, device="cpu")
+        gp, wp = (params.lstm_params_to_numpy(x.forwards[0])
+                  for x in (got, want))
+        err = max(float(numpy.abs(gp[g][k] - wp[g][k]).max())
+                  for g in wp for k in ("w", "b"))
+        say("   sequence's first epoch in %s: n_err card %s, CPU %s; card "
+            "- CPU max |d gate param| %.3g (limit %g)"
+            % (numpy.dtype(dtype).name, got_seg, want_seg, err, tol))
+        if got_seg != want_seg or not err <= tol:
+            raise RuntimeError("sequence on the card is not its CPU run "
+                               "in %s" % numpy.dtype(dtype).name)
+    trace = _family_trace(torch, "sequence",
+                          lambda: _sequence_run(sequence, 1),
+                          mbs / len(train))
+    rows["sequence"] = _family_row("sequence", wall, mbs, trace,
+                                   sum(probe.counts.values()) / mbs, card)
+
+
+def phase_families(torch, card):
+    """The Kohonen maps, the RBM and the LSTM trained on the card
+    through their samples' ``run_sample`` (see the module's docstring).
+    Returns the rows of :func:`_family_row` by sample and the phase's
+    seconds."""
+    import shutil
+    t_phase = time.perf_counter()
+    rows, seconds = {}, {}
+    os.makedirs(FAMILIES_DIR, exist_ok=True)
+    _zero_counts()
+    try:
+        for label, fn in (("kohonen", _kohonen_families),
+                          ("rbm", _rbm_family),
+                          ("sequence", _sequence_family)):
+            t0 = time.perf_counter()
+            fn(torch, card, rows)
+            seconds[label] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    counts = _counts()
+    if counts["forward"] or counts["backward"] or counts["plain_on_card"]:
+        raise RuntimeError("the families' path touched the pooling "
+                           "kernels: %s" % counts)
+    seconds["phase"] = time.perf_counter() - t_phase
+    say("   families seconds: %s (neither pooling kernel launched); %s"
+        % (", ".join("%s %.2f" % kv for kv in seconds.items()), card))
+    return rows, seconds
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -8650,6 +9011,8 @@ def _phases(torch, name, card, start):
         later.clear()
     lines_paths, lines_rows, _ = phase_lines(torch, card, cycles_per_ms)
     marks.append(("lines", time.perf_counter()))
+    phase_families(torch, card)
+    marks.append(("families", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)

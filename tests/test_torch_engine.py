@@ -5,11 +5,13 @@ package zip round trip, params_from_numpy fed from the JAX engine's
 host parameters, the micro-batcher and the HTTP server, and the
 full-width AlexNet sample's manifest."""
 
+import gc
 import http.client
 import io
 import json
 import threading
 import time
+import weakref
 
 import numpy
 import pytest
@@ -291,6 +293,92 @@ def test_batcher_queue_full_and_deadline():
     finally:
         release.set()
         b.stop()
+
+
+def test_warmups_run_on_one_long_lived_thread(package, monkeypatch):
+    """Every engine warms up on the process's one warm-up thread,
+    whatever thread loads it (a handler thread would take a cuBLAS
+    handle, and a workspace, of its own on the card); a predict runs on
+    its caller's thread."""
+    seen = []
+    dispatch = InferenceEngine._dispatch
+
+    def recording(self, m, params, x):
+        seen.append((threading.current_thread(), len(x)))
+        return dispatch(self, m, params, x)
+
+    monkeypatch.setattr(InferenceEngine, "_dispatch", recording)
+    engines = []
+    loaders = [threading.Thread(target=lambda: engines.append(
+        InferenceEngine(package, max_batch=2, device="cpu")))
+        for _ in range(2)]
+    for t in loaders:
+        t.start()
+    for t in loaders:
+        t.join(60)
+    assert len(engines) == 2 and all(e.ready for e in engines)
+    warm = {t for t, _ in seen}
+    assert len(seen) == 4 and len(warm) == 1  # buckets 1 and 2, twice
+    (thread,) = warm
+    assert thread.name == "znicz:warmup" and thread.is_alive()
+    assert thread not in loaders
+    del seen[:]
+    engines[0].predict(_images(1))
+    assert seen == [(threading.current_thread(), 1)]
+    # the warm-up thread keeps no engine it warmed: a removed model's
+    # parameters go with its last reference
+    gone = [weakref.ref(e) for e in engines]
+    del engines[:]
+    gc.collect()
+    assert [ref() for ref in gone] == [None, None]
+
+
+def test_on_warm_thread_result_error_and_nesting():
+    here = threading.current_thread()
+    there = engine_mod.on_warm_thread(threading.current_thread)
+    assert there is not here and there.name == "znicz:warmup"
+    # a job on the warm-up thread runs a nested one inline
+    assert engine_mod.on_warm_thread(lambda: engine_mod.on_warm_thread(
+        threading.current_thread)) is there
+    with pytest.raises(ZeroDivisionError):
+        engine_mod.on_warm_thread(lambda: 1 // 0)
+    assert engine_mod.on_warm_thread(lambda: 7) == 7
+
+
+def test_batcher_threads_take_their_blas_handles_as_they_start(
+        monkeypatch):
+    """Each dispatch slot takes its cuBLAS handle when it starts, once
+    the process uses the card (here a stand-in for one), not at its
+    first product; without the card nothing is taken."""
+    from znicz_tpu_torch.serving.continuous import ContinuousBatcher
+    taken = []
+    lock = threading.Lock()
+
+    def handle():
+        with lock:
+            taken.append(threading.current_thread().name)
+        return 1
+
+    monkeypatch.setattr(torch.cuda, "current_blas_handle", handle)
+
+    def ident(x, request_ids=None):
+        return x
+
+    engine_mod.claim_blas_handle()
+    assert taken == []  # no card in this process
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    batchers = [ContinuousBatcher(ident, max_inflight=3).start(),
+                MicroBatcher(ident, max_batch=4).start()]
+    try:
+        deadline = time.monotonic() + 10
+        while len(taken) < 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        for b in batchers:
+            b.stop()
+    assert sorted(taken) == ["znicz:continuous-0", "znicz:continuous-1",
+                             "znicz:continuous-2", "znicz:micro-batcher"]
 
 
 # -- HTTP front end ------------------------------------------------------

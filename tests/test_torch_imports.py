@@ -138,7 +138,19 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.serving.router",
                  "znicz_tpu_torch.samples.lines",
                  "znicz_tpu_torch.loader.interactive",
-                 "znicz_tpu_torch.parity"):
+                 "znicz_tpu_torch.parity",
+                 "znicz_tpu_torch.core.distributable",
+                 "znicz_tpu_torch.core.input_joiner",
+                 "znicz_tpu_torch.ops.kohonen",
+                 "znicz_tpu_torch.ops.recurrent",
+                 "znicz_tpu_torch.units.kohonen",
+                 "znicz_tpu_torch.units.rbm_units",
+                 "znicz_tpu_torch.units.lstm",
+                 "znicz_tpu_torch.units.lstm_scan",
+                 "znicz_tpu_torch.samples.demo_kohonen",
+                 "znicz_tpu_torch.samples.research.spam_kohonen",
+                 "znicz_tpu_torch.samples.mnist_rbm",
+                 "znicz_tpu_torch.samples.sequence"):
         assert name in doc["modules"]
 
 

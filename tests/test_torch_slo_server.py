@@ -5,8 +5,10 @@ servers on the CPU, a 8-6-4 package):
 * the full loop: healthy traffic keeps the budget full, injected
   dispatch faults answer 500s that burn it, ``slo.burn`` fires once with
   a bad request's rid as its exemplar, the healthy requests' trees are
-  complete and their parts sum to the wall, ``device`` nests in
-  ``dispatch``, and the time-series rings rate the batches;
+  complete and their five top-level spans tile the wall (each starting
+  where the one before ended, the parts summing to the wall within the
+  stamps' rounding), ``device`` nests in ``dispatch``, and the
+  time-series rings rate the batches;
 * head sampling, the bounded ring, the single-engine server, client
   faults excluded from the budget, and the plane inert when off;
 * the server's JSON replies equal the JAX package's server on the same
@@ -200,7 +202,17 @@ def test_full_slo_loop_over_http(armed):
         assert set(tree["span_kinds"]) == set(reqtrace.SPAN_KINDS)
         wall, parts = tree["wall_ms"], tree["parts_ms"]
         assert wall > 0
-        assert wall * 0.5 - 1.0 <= parts <= wall * 1.05 + 1.0, (parts, wall)
+        # the five top-level spans tile the wall, whatever the host's
+        # load: each starts where the one before it ended (the 3-decimal
+        # rounding of the stamps is the only slack)
+        assert abs(parts - wall) <= 0.005, (parts, wall)
+        top = [s for s in tree["spans"]
+               if s["kind"] in reqtrace.TOP_LEVEL_KINDS]
+        assert [s["kind"] for s in top] == list(reqtrace.TOP_LEVEL_KINDS)
+        assert abs(top[0]["start_ms"]) <= 0.001, top
+        for a, b in zip(top, top[1:]):
+            assert abs(a["start_ms"] + a["duration_ms"] - b["start_ms"]) \
+                <= 0.002, (a, b)
         spans = {s["kind"]: s for s in tree["spans"]}
         dev, disp = spans["device"], spans["dispatch"]
         assert dev["start_ms"] >= disp["start_ms"] - 1e-3

@@ -369,8 +369,10 @@ def test_list_prints_the_jax_names(capsys):
                  "research.mnist_simple", "research.wine_relu",
                  "research.hands", "research.tv_channels",
                  "research.alexnet", "research.mnist7",
-                 "research.mnist_ae"):
+                 "research.mnist_ae", "demo_kohonen",
+                 "research.spam_kohonen", "mnist_rbm", "sequence"):
         assert name in names
+    assert sorted(set(jax_names) - set(names)) == ["research.long_context"]
 
 
 @pytest.mark.parametrize("name,module", [

@@ -25,6 +25,13 @@ layer whose weights it masks).
 a fused trainer's state (parameters, optimizer slots, hypers) between
 host arrays — the JAX package's ``FusedNet.state_dict()`` among them —
 and the port's device tensors, in the fused path's layout, unchanged.
+
+The ``*_params_from_numpy`` / ``*_params_to_numpy`` pairs carry the
+state of the families outside the layer graph, in the JAX package's
+layouts: a Kohonen trainer's ``weights`` (``(neurons,
+sample_length)``), an RBM's ``weights``, ``hbias`` and ``vbias``, and
+the four gates' ``{"w", "b"}`` of an ``LSTMScan`` or a unit-graph
+``LSTM`` cell (``w`` ``(hidden, in + hidden)``).
 """
 
 import numpy
@@ -125,3 +132,67 @@ def train_state_to_numpy(params, opt, hypers=None):
         return t.detach().cpu().numpy()
     return {"params": tree_map(get, params), "opt": tree_map(get, opt),
             "hypers": None if hypers is None else tree_map(float, hypers)}
+
+
+def _set(arr, value):
+    """Host ``value`` into Array ``arr`` in its dtype (uploaded at the
+    next use; the Array object, and so every link to it, stays)."""
+    arr.reset(numpy.array(value, dtype=arr.dtype))
+
+
+def kohonen_params_from_numpy(trainer, weights):
+    """Set a ``KohonenTrainer``'s ``(neurons, sample_length)`` weights
+    from a host array (JAX's ``trainer.weights.mem``)."""
+    _set(trainer.weights, weights)
+
+
+def kohonen_params_to_numpy(trainer):
+    """A host copy of a ``KohonenTrainer``'s weights."""
+    return numpy.array(trainer.weights.mem)
+
+
+def _rbm_arrays(rbm):
+    """``(weights, hbias, vbias)`` Arrays of an RBM: a workflow with a
+    ``hidden`` layer and ``vbias`` (``MnistRBMWorkflow``), or a unit
+    with the three attributes (``GradientRBM``)."""
+    if hasattr(rbm, "hidden"):
+        return rbm.hidden.weights, rbm.hidden.bias, rbm.vbias
+    return rbm.weights, rbm.hbias, rbm.vbias
+
+
+def rbm_params_from_numpy(rbm, params):
+    """Set an RBM's ``weights`` (``(hidden, visible)``), ``hbias`` and
+    ``vbias`` from host arrays (``{"weights", "hbias", "vbias"}``)."""
+    for arr, key in zip(_rbm_arrays(rbm), ("weights", "hbias", "vbias")):
+        _set(arr, params[key])
+
+
+def rbm_params_to_numpy(rbm):
+    """The inverse of :func:`rbm_params_from_numpy`."""
+    return {key: numpy.array(arr.mem) for arr, key in zip(
+        _rbm_arrays(rbm), ("weights", "hbias", "vbias"))}
+
+
+def _gate_arrays(lstm):
+    """``{gate: {"w": Array, "b": Array}}`` of an ``LSTMScan`` or of a
+    unit-graph ``LSTM`` cell (its gate units' weights and bias)."""
+    if getattr(lstm, "gate_arrays", None):
+        return lstm.gate_arrays
+    from znicz_tpu_torch.ops.recurrent import GATES
+    return {name: {"w": getattr(lstm, name).weights,
+                   "b": getattr(lstm, name).bias} for name in GATES}
+
+
+def lstm_params_from_numpy(lstm, params):
+    """Set the four gates' ``{"w": (hidden, in + hidden), "b":
+    (hidden,)}`` of an ``LSTMScan`` or a unit-graph ``LSTM`` from host
+    arrays (JAX's ``gate_state`` or ``recurrent.params_from_cell``)."""
+    for name, arrays in _gate_arrays(lstm).items():
+        for key in ("w", "b"):
+            _set(arrays[key], params[name][key])
+
+
+def lstm_params_to_numpy(lstm):
+    """The inverse of :func:`lstm_params_from_numpy`."""
+    return {name: {key: numpy.array(arr.mem) for key, arr in arrays.items()}
+            for name, arrays in _gate_arrays(lstm).items()}

@@ -35,7 +35,8 @@ from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.serving import reqtrace
-from znicz_tpu_torch.serving.engine import matches_sample_shape
+from znicz_tpu_torch.serving.engine import (claim_blas_handle,
+                                            matches_sample_shape)
 
 #: extra seconds predict() waits past the request deadline — covers a
 #: dispatch that started just before the deadline
@@ -183,6 +184,7 @@ class MicroBatcher(Logger):
 
     # -- the worker ---------------------------------------------------------
     def _worker(self):
+        claim_blas_handle()  # the worker's cuBLAS handle lives as it does
         while True:
             batch = self._take_batch()
             if batch is None:
@@ -267,7 +269,7 @@ class MicroBatcher(Logger):
                     max(now - r.arrived, 0.0))
                 telemetry.histogram("serving.device_seconds").observe(
                     dev_dt)
-        note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
+        note_spans(live, now, t_dev, dev_dt, rows, bucket)
         note_slow(self, live, now, done, asm_dt, dev_dt, rows, bucket)
         offset = 0
         for r in live:
@@ -309,18 +311,22 @@ def note_slow(logger, live, t_take, done, asm_dt, dev_dt, rows, bucket,
                                and reqtrace.sampled(r.rid)))
 
 
-def note_spans(live, t_take, t_asm, t_dev, dev_dt, rows, bucket):
+def note_spans(live, t_take, t_dev, dev_dt, rows, bucket):
     """The batcher's legs of each sampled request's span tree:
-    ``queue_wait`` (arrival to the window's close), ``assembly`` (the
-    concatenation) and ``dispatch`` (the engine call; the engine's
-    ``device`` span nests inside it).  Spans are added before the
-    futures resolve, so a woken caller sees its tree whole."""
+    ``queue_wait`` (the end of the tree's ``admission``, or the arrival,
+    to the slot's taking of the batch), ``assembly`` (the taking to the
+    engine call) and ``dispatch`` (the engine call; the engine's
+    ``device`` span nests inside it): contiguous, as the partition
+    wants (``reqtrace``).  Spans are added before the futures resolve,
+    so a woken caller sees its tree whole."""
     if not reqtrace.enabled():
         return
     for r in live:
         if r.rid and reqtrace.sampled(r.rid):
-            reqtrace.add_span(r.rid, "queue_wait", r.arrived, t_take)
-            reqtrace.add_span(r.rid, "assembly", t_asm, t_dev)
+            admitted = reqtrace.span_end(r.rid, "admission")
+            reqtrace.add_span(r.rid, "queue_wait", r.arrived
+                              if admitted is None else admitted, t_take)
+            reqtrace.add_span(r.rid, "assembly", t_take, t_dev)
             reqtrace.add_span(r.rid, "dispatch", t_dev, t_dev + dev_dt,
                               rows=rows, requests=len(live),
                               bucket=bucket)

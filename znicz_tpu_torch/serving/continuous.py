@@ -65,7 +65,8 @@ from znicz_tpu_torch.serving.batcher import (_DISPATCH_GRACE, _Request,
                                              QueueFullError,
                                              RequestTimeoutError,
                                              note_slow, note_spans)
-from znicz_tpu_torch.serving.engine import matches_sample_shape
+from znicz_tpu_torch.serving.engine import (claim_blas_handle,
+                                            matches_sample_shape)
 from znicz_tpu_torch.serving.registry import UnknownModelError
 
 #: priority lanes, best first (their dispatch rank)
@@ -304,6 +305,7 @@ class ContinuousBatcher(Logger):
 
     # -- the dispatch slots -------------------------------------------------
     def _worker(self):
+        claim_blas_handle()  # a slot's cuBLAS handle lives as it does
         while True:
             taken = self._take()
             if taken is None:
@@ -447,7 +449,7 @@ class ContinuousBatcher(Logger):
                     h.observe(max(now - r.arrived, 0.0))
                 # coalesced requests share their batch's dispatch
                 device.observe(dev_dt)
-        note_spans(live, now, t_asm, t_dev, dev_dt, rows, bucket)
+        note_spans(live, now, t_dev, dev_dt, rows, bucket)
         note_slow(self, live, now, done, asm_dt, dev_dt, rows, bucket,
                   model=model)
         offset = 0

@@ -73,6 +73,18 @@ its region a dispatch passes the ``serving.forward`` and
 (``faults.retry_call``, JAX :895-915): only an exhausted retry counts
 as the breaker's failure.
 
+**Device threads.**  A thread's first product on the card takes a
+cuBLAS handle, and PyTorch gives the handle a workspace (32 MiB on
+Hopper) that lives as long as the process; a handle goes back to the
+pool only when its thread exits.  So device work runs on long-lived
+threads that take their handle when they start
+(:func:`claim_blas_handle`): the batchers' slots, and the one warm-up
+thread every engine's :meth:`~InferenceEngine.warmup` runs on
+(:func:`on_warm_thread`), where the JAX package warms on the caller's
+thread: warm-ups on the HTTP handler threads a deploy or a reload
+arrives on would take a new handle, and a workspace, whenever no
+returned handle is free.
+
 **Profiling.**  While the profiler is armed, a bucket's first dispatch
 of a generation is counted into its cost registry
 (``serving.forward[.<name>].b<bucket>[.<dtype>]``, JAX :919-943), and a
@@ -80,8 +92,10 @@ load, reload, eviction or restore moves the resident parameters' bytes
 in its memory ledger (``serving.model.<name>``, JAX :1033-1041).
 """
 
+import concurrent.futures
 import json
 import os
+import queue
 import threading
 import time
 import warnings
@@ -90,7 +104,7 @@ import zipfile
 import numpy
 import torch
 
-from znicz_tpu_torch.core import faults, profiler, telemetry
+from znicz_tpu_torch.core import faults, profiler, pyprof, telemetry
 from znicz_tpu_torch.core.backends import default_device, full_f32
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -108,6 +122,51 @@ from znicz_tpu_torch.units.zerofilling import grouping_mask
 #: the kernels' launch counters, engines that were removed included
 DISPATCHES = 0
 _DISPATCHES_LOCK = threading.Lock()
+
+#: the warm-up thread's job queue, made with the thread by the first
+#: warm-up
+_warm_jobs = []
+_warm_lock = threading.Lock()
+_warm_local = threading.local()
+
+
+def claim_blas_handle():
+    """Take the calling thread's cuBLAS handle, and the workspace
+    PyTorch gives it, now, when this process uses the card: a
+    long-lived device thread calls it as it starts, so its handle is
+    not taken at whatever product it happens to run first."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.current_blas_handle()
+
+
+def _warm_loop(jobs):
+    _warm_local.inside = True
+    claim_blas_handle()
+    while True:
+        fn, future = jobs.get()
+        try:
+            future.set_result(fn())
+        except BaseException as e:  # noqa: BLE001 - the caller's
+            future.set_exception(e)
+        # a finished job keeps no engine (a removed candidate) alive
+        del fn, future
+
+
+def on_warm_thread(fn):
+    """``fn()`` run on the process's warm-up thread (started by the
+    first call), its result returned and its exception raised here;
+    inline when called on that thread."""
+    if getattr(_warm_local, "inside", False):
+        return fn()
+    with _warm_lock:
+        if not _warm_jobs:
+            _warm_jobs.append(queue.SimpleQueue())
+            threading.Thread(target=_warm_loop, args=(_warm_jobs[0],),
+                             daemon=True,
+                             name=pyprof.thread_name("warmup")).start()
+    future = concurrent.futures.Future()
+    _warm_jobs[0].put((fn, future))
+    return future.result()
 
 
 def default_buckets(max_batch):
@@ -890,7 +949,11 @@ class InferenceEngine(Logger):
                              int(old_bytes), int(new_bytes))
 
     def warmup(self):
-        """Dispatch every bucket not yet warm once; sets :attr:`ready`."""
+        """Dispatch every bucket not yet warm once, on the warm-up
+        thread (:func:`on_warm_thread`); sets :attr:`ready`."""
+        on_warm_thread(self._warmup)
+
+    def _warmup(self):
         m = self._model
         if m is None:
             raise RuntimeError("no model loaded")

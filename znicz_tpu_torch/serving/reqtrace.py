@@ -7,15 +7,23 @@ the default, is off) gets a span tree keyed by its request id:
 * ``admission`` — HTTP receipt (or a wire frame's completion) to the
   batcher's submission;
 * ``queue_wait`` — queued until a dispatch slot took the request;
-* ``assembly`` — the batch's concatenation;
+* ``assembly`` — the slot's taking of the batch: the engine, the
+  bucket and the concatenation;
 * ``dispatch`` — the engine call as the batcher saw it;
 * ``device`` — the forward on the device, nested in ``dispatch``.  It
   ends when the result is on the host: CUDA runs asynchronously, so
   the span closes after the engine's readback, not when the forward's
   Python call returns;
-* ``reply`` — the future's resolution to the reply's bytes.
+* ``reply`` — the dispatch's end to the reply's bytes: the batch's
+  split, the future's resolution, the handler thread's wake-up and the
+  encoding.
 
-The five kinds other than ``device`` partition the request's wall time.
+The five kinds other than ``device`` partition the request's wall time:
+each starts where the one before it ended (``queue_wait`` at the end of
+the tree's ``admission``, ``assembly`` where the slot took the batch,
+``reply`` at the end of the tree's ``dispatch``, :func:`span_end`), so
+the hand-offs between threads, which a loaded host stretches to
+milliseconds, land in a span and the parts sum to the wall.
 Trees live in a bounded ring (``trace_capacity``), served at ``GET
 /debug/trace/<rid>`` with a ``traceEvents`` block in the Chrome-trace
 schema.  The fleet router (:mod:`znicz_tpu_torch.serving.router`)
@@ -189,6 +197,18 @@ def add_span(rid, kind, t0, t1, **attrs):
         tr.spans.append((kind, float(t0), float(t1),
                          attrs or None))
     return True
+
+
+def span_end(rid, kind):
+    """The end stamp of the newest ``kind`` span on ``rid``'s live tree,
+    or None (unsampled, closed, or no such span yet): where the next
+    span of a partition starts."""
+    with _lock:
+        tr = _traces.get(rid)
+        if tr is None or tr.t_end is not None:
+            return None
+        ends = [s[2] for s in tr.spans if s[0] == kind]
+    return ends[-1] if ends else None
 
 
 def set_model(rid, model):

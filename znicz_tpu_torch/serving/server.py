@@ -485,24 +485,28 @@ class ServingServer(HttpServerBase):
                 reqtrace.add_span(rid, kind, t0, t1)
         with self._active_cv:
             self._active += 1
+        stamps = {}
         try:
             code, slo_model = self._predict_inner(handler, rid, model,
-                                                  t_admit, traced)
+                                                  t_admit, traced, stamps)
         finally:
             with self._active_cv:
                 self._active -= 1
                 self._active_cv.notify_all()
         if traced:
             reqtrace.finish(rid, model=slo_model,
-                            now=getattr(handler, "t_sent", None))
+                            now=stamps.get("t_sent") or
+                            getattr(handler, "t_sent", None))
         if slo.enabled():
             self.slo.record(slo_model, code,
                             (time.monotonic() - t_admit) * 1e3, rid=rid)
         return code
 
-    def _predict_inner(self, handler, rid, model, t_admit, traced):
+    def _predict_inner(self, handler, rid, model, t_admit, traced,
+                       stamps):
         """The /predict state machine; returns ``(status code, model
-        name)``."""
+        name)``.  A traced 200 puts the stamp its reply's write ended
+        at into ``stamps["t_sent"]``, where the tree closes."""
         echo = {"X-Request-Id": rid}
 
         def fail(code, error, slo_model=model, **extra):
@@ -602,9 +606,14 @@ class ServingServer(HttpServerBase):
                 payload["argmax"] = [int(i) for i in y.argmax(axis=1)]
             handler._send_json(200, payload, headers=ok)
         if traced:
-            reqtrace.add_span(rid, "reply", t_reply,
-                              getattr(handler, "t_sent", None)
-                              or time.monotonic())
+            # the reply starts where the dispatch ended (the handler
+            # thread's wake-up is the reply's time, not a gap) and ends
+            # where the tree closes
+            dispatched = reqtrace.span_end(rid, "dispatch")
+            stamps["t_sent"] = getattr(handler, "t_sent", None) or \
+                time.monotonic()
+            reqtrace.add_span(rid, "reply", t_reply if dispatched is None
+                              else dispatched, stamps["t_sent"])
         if ctl is not None and routed is model and \
                 ctl.wants_mirror(slo_model, rid):
             # the shadow mirror: the client has its reply; the compare

@@ -134,6 +134,10 @@ class StandardWorkflow(StandardWorkflowBase):
                 continue
             unit = backward_cls(self, **kwargs)
             self.gds[i] = unit
+            if hasattr(unit, "bind_forward"):
+                # a pair sharing structured parameters (the scan LSTM's
+                # gates) takes its forward, not a singular weights/bias
+                unit.bind_forward(self.forwards[i])
             if first_gd is not None:
                 unit.link_from(first_gd) \
                     .link_attrs(first_gd, ("err_output", "err_input"))

@@ -51,8 +51,8 @@ from znicz_tpu_torch.units import nn_units
 # importing the layer modules registers their type strings
 from znicz_tpu_torch.units import (  # noqa: F401
     activation, all2all, conv, cutter, deconv, depooling, dropout, gd,
-    gd_conv, gd_pooling, multiplier, normalization, pooling,
-    resizable_all2all, rprop_gd, summator, zerofilling)
+    gd_conv, gd_pooling, lstm, lstm_scan, multiplier, normalization,
+    pooling, resizable_all2all, rprop_gd, summator, zerofilling)
 from znicz_tpu_torch.units.all2all import All2AllSoftmax
 from znicz_tpu_torch.units.dropout import DropoutForward
 

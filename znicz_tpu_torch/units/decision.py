@@ -1,8 +1,12 @@
 """Decision units — the training loop's termination and bookkeeping.
 
 Counterpart of ``znicz_tpu/units/decision.py`` (``DecisionsRegistry``
-:38, ``DecisionBase`` :54, ``DecisionGD`` :201-383, ``DecisionMSE``
-:384-448) without the master-slave protocol.  ``DecisionGD``
+:38, ``DecisionBase`` :54, ``TrivialDecision`` :197, ``DecisionGD``
+:201-383, ``DecisionMSE`` :384-448) without the master-slave protocol.
+At each epoch's end ``train_improved`` takes ``train_improve_condition``
+(JAX :89), and each TRAIN segment's end calls ``on_training_finished``
+(JAX :104), the hooks through which ``KohonenDecision`` stops on its
+weights' change.  ``DecisionGD``
 keeps the per-class epoch errors (``epoch_n_err``, ``best_n_err_pt``),
 the minimax(valid, train) improvement that gates the snapshotter
 (``improved``), early stopping (``fail_iterations``, ``max_epochs`` ->
@@ -61,6 +65,7 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
         super(DecisionBase, self).__init__(workflow, **kwargs)
         self.complete = Bool(False, name="complete")
         self.improved = Bool(False, name="improved")
+        self.train_improved = Bool(False, name="train_improved")
         self.max_epochs = kwargs.get("max_epochs", None)
         self.improved_epoch_number = 0
         self.snapshot_suffix = ""
@@ -84,6 +89,7 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
     def _on_last_minibatch(self):
         self.on_last_minibatch()
         if self.epoch_ended:
+            self.train_improved <<= self.train_improve_condition()
             improved = self.improve_condition()
             if improved:
                 self.improved_epoch_number = self.epoch_number
@@ -95,10 +101,13 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
             telemetry.record_event(
                 "train.epoch", epoch=int(self.epoch_number),
                 improved=bool(self.improved), suffix=self.snapshot_suffix)
-        if self.minibatch_class == TRAIN and health.enabled():
-            metric = self.health_metric()
-            if metric is not None:
-                health.observe_loss(metric, unit=self, source="epoch_train")
+        if self.minibatch_class == TRAIN:
+            self.on_training_finished()
+            if health.enabled():
+                metric = self.health_metric()
+                if metric is not None:
+                    health.observe_loss(metric, unit=self,
+                                        source="epoch_train")
         self._print_statistics()
 
     def _stop_condition(self):
@@ -127,8 +136,14 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
     def improve_condition(self):
         return False
 
+    def train_improve_condition(self):
+        return False
+
     def stop_condition(self):
         return False
+
+    def on_training_finished(self):
+        pass
 
     def fill_statistics(self, stats):
         pass
@@ -140,6 +155,12 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
         """The scalar the divergence detector watches at each TRAIN
         segment's end (None: nothing to watch)."""
         return None
+
+
+class TrivialDecision(DecisionBase):
+    """A decision with no condition of its own: it stops at
+    ``max_epochs`` (the RBM sample's, and the base of
+    ``KohonenDecision``)."""
 
 
 class DecisionGD(DecisionBase):
