@@ -178,6 +178,42 @@ failure (the script then exits non-zero and prints no result line):
    Prints each epoch's TRAIN images/s beside the workflow phase's, the
    host ms a minibatch and by unit (the run's and its last epoch's),
    the readbacks and syncs a minibatch and the snapshot seconds;
+8b. aux — the standard workflow's auxiliary plane, through
+   the workflow CLI with workflow files written under ``build/`` (no
+   sample links the linkers): (a) the alexnet_units run again (its rows,
+   seeds and 2 epochs) twice with ``link_avatar`` right after the
+   loader: first the avatar alone, then with the error, weights,
+   confusion, err_y, histogram and table plotters, the image saver (32
+   images a class) and the publisher linked from the decision (the
+   snapshotter waits for them, so an epoch's plots read that epoch's
+   end); plotting stays off: each run's per-class n_err, confusion,
+   every weight, bias, optimizer Array, dropout generator and prng
+   stream bit-equal to the alexnet_units run; 60 forward / 48 backward
+   launches, all 16-byte, no plain pooling; the producer thread ended
+   with the CLI, never called into torch (``threading.setprofile``), and
+   the mirrors and the first forward's input on the card; every plotter
+   fired once an epoch, read the card at most once a fire, and recorded
+   what a host recompute of the final arrays gives; the image saver's
+   files are one a misclassified sample with JAX's names; the report's
+   ``metrics.decision`` equals ``get_metric_values()``; prints the
+   avatar-alone run's epoch 2 TRAIN images/s beside the alexnet_units
+   run's, and its consumer's queue wait against the plain loader's
+   serve, host ms a minibatch, then the aux run's rate and the aux
+   units' host seconds in its last TRAIN segment;
+   (b) the MNIST conv sample (the units phase's rows, 2 epochs) behind
+   ``link_meandispnorm`` (the loader's raw rows' mean and 1 / (std + 1))
+   with ``link_gd_diff_stats`` and ``link_data_saver(only_epoch=0)``:
+   168 / 100 launches, the normalizer's every output within 1e-6 of the
+   host's (f32; a float64 unit within 1e-12), one diff-stats record a
+   TRAIN minibatch, flushed at the end, the stream's header and 2,500
+   rows the loader's; then a run on that stream (``MinibatchesLoader``,
+   behind the same normalizer, 1 epoch): 84 / 50 launches, its first
+   TRAIN minibatch the stream's rows at its indices and its first VALID
+   one bit-equal to the recorded one; (c) AlexNet's fused graph (1,024 /
+   256 rows, 1 epoch) with the weights and histogram plotters on the
+   trainer's ``weight_views``: each view the net's live tensor at the
+   end, one readback in the TRAIN segment, the grids equal to the live
+   weights';
 9. units — the MNIST conv sample (``root.mnistr_conv``, published
    widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
    through the workflow CLI (a workflow file building
@@ -490,7 +526,9 @@ phase's requests (``fleet``: the survivors' counters; a killed or
 retired replica's leave with it) and over the release phase's
 (``release``), and the lines phase's two graphs, its two extracted
 forward workflows (``lines_extract``) and its two served packages
-(``lines_serve``) (``launches_by_path``; the
+(``lines_serve``), and the aux phase's five runs (``aux_avatar``,
+``aux_alexnet``, ``aux_mnist``, ``aux_mnist_replay``, ``aux_fused``)
+(``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
 timings in bfloat16.  For the backward kernel the times are per
@@ -501,7 +539,8 @@ each stage) and
 ``launches`` counts the train epochs', the workflow run's, the
 resilience phase's two paths', the profile phase's, both unit graphs',
 the autoencoder
-paths', the CIFAR, STL-10 and Lines graphs' and ImagenetAE's.
+paths', the CIFAR, STL-10 and Lines graphs', ImagenetAE's and the aux
+phase's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -4045,7 +4084,9 @@ def phase_alexnet_units(torch, card, workflow_rates):
     epoch's TRAIN images/s beside the workflow phase's (the fused graph,
     this run), the host ms a minibatch and by unit,
     the readbacks and syncs a minibatch and the snapshot seconds.
-    Returns the run's launches."""
+    Returns the run's launches and the aux phase's reference (the run's
+    segments, final state, rates, loader ms a minibatch and weight
+    draws)."""
     import tempfile
     from znicz_tpu_torch import __main__ as cli
     from znicz_tpu_torch.core import prng
@@ -4120,6 +4161,12 @@ def phase_alexnet_units(torch, card, workflow_rates):
                               *(no_snapshots + extra)))
         say("   the resume took %d of its weight draws from the run's "
             "(the snapshot's weights replace them)" % memo.hits)
+        loader = run["wf"].real_loader
+        # the aux phase's yardstick: this run's stats, final state, rates
+        # and loader ms a minibatch, and its weight draws
+        reference = {"segments": run["segments"], "state": run["state"],
+                     "rates": run["rates"], "memo": memo,
+                     "loader_ms": 1e3 * loader.run_time_ / loader.run_count_}
     finally:
         probe.close()
         torch.backends.cudnn.deterministic = False
@@ -4128,7 +4175,7 @@ def phase_alexnet_units(torch, card, workflow_rates):
     gc.collect()
     _alexnet_f64(torch)
     _registry_on_card(torch)
-    return launches
+    return launches, reference
 
 
 def _host_masks(wf, rand, drawn=None):
@@ -4401,6 +4448,832 @@ def _registry_on_card(torch):
         "within %.3g (bound %g) (%.2f s)" % (
             ", ".join(sorted(want)), worst, REGISTRY_RTOL,
             time.perf_counter() - t0))
+
+
+#: the aux phase: the standard workflow's auxiliary plane.
+#: (a) AlexNet's unit graph as the alexnet_units phase runs it (its rows,
+#: seeds and epochs) with the loader's avatar, the plotters, the image
+#: saver (at most AUX_SAVER_LIMIT images a class) and the publisher;
+#: (b) MNIST conv at the units phase's rows with the minibatch
+#: normalizer, the gradient statistics and the data saver (epoch 0), then
+#: a run over the saved stream; (c) AlexNet's fused graph for one epoch
+#: over AUX_FUSED_TRAIN / WORKFLOW_VALID rows with the weights and
+#: histogram plotters on the trainer's weight views
+AUX_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "aux")
+AUX_SAVER_LIMIT = 32
+AUX_FUSED_TRAIN = 1024
+#: the normalizer on the card against a host recompute, relative to the
+#: output's largest magnitude
+AUX_NORM_RTOL = {"float32": 1e-6, "float64": 1e-12}
+AUX_ALEXNET_WF = '''"""AlexNet's unit graph with the loader's avatar and, with WITH_AUX,
+the plotters, the image saver and the publisher."""
+import os
+
+from znicz_tpu_torch.samples import alexnet
+
+REPORTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "reports")
+WITH_AUX = %s
+
+
+def build(**kwargs):
+    wf = alexnet.build(preprocessing=True, **kwargs)
+    wf.link_repeater(wf.start_point)
+    wf.link_loader(wf.repeater)
+    wf.link_avatar()
+    wf.link_forwards(("input", "minibatch_data"), wf.loader)
+    wf.link_evaluator(wf.forwards[-1])
+    wf.link_decision(wf.evaluator)
+    wf.link_snapshotter(wf.decision)
+    last_gd = wf.link_gds(wf.snapshotter)
+    if WITH_AUX:
+        # each linker returns its chain's last unit; the snapshotter (and
+        # the GD units and the next minibatch after it) waits for them, so
+        # an epoch's plots read that epoch's end
+        tails = [link(wf.decision) for link in (
+            wf.link_error_plotter, wf.link_weights_plotter,
+            wf.link_conf_matrix_plotter, wf.link_err_y_plotter,
+            wf.link_multi_hist_plotter, wf.link_table_plotter)]
+        tails.append(wf.link_image_saver(wf.decision, limit=%d))
+        tails.append(wf.link_publisher(wf.decision, directory=REPORTS))
+        wf.snapshotter.link_from(*tails)
+    wf.link_loop(last_gd)
+    wf.link_end_point(last_gd)
+    return wf
+
+
+def run(load, main):
+    load(build)
+    main()
+'''
+#: the MNIST part's normalizer statistics, the JAX test's: each sample
+#: element's mean and 1 / (std + 1) over the loader's raw rows
+_AUX_MEAN_RDISP = '''
+
+def _mean_rdisp(loader):
+    """Once the loader read its raw rows: their mean and reciprocal
+    dispersion 1 / (std + 1), sample element by element."""
+    real = loader.initialize
+
+    def initialize(device=None, **kwargs):
+        real(device=device, **kwargs)
+        data = loader.original_data.mem
+        loader.mean = Array(data.mean(axis=0).astype(data.dtype))
+        loader.rdisp = Array((1.0 / (data.std(axis=0) + 1.0)).astype(
+            data.dtype))
+        loader.mean.device = loader.rdisp.device = device
+    loader.initialize = initialize
+
+
+def _normalized(wf):
+    """The loader, the normalizer over its minibatches, the forwards on
+    the normalizer's output, the evaluator, the decision, the
+    snapshotter and the GD units; returns the last GD unit."""
+    wf.link_repeater(wf.start_point)
+    wf.link_loader(wf.repeater)
+    _mean_rdisp(wf.loader)
+    norm = wf.link_meandispnorm(wf.loader)
+    wf.link_forwards(("input", "output"), norm)
+    wf.link_evaluator(wf.forwards[-1])
+    wf.link_decision(wf.evaluator)
+    wf.link_snapshotter(wf.decision)
+    return wf.link_gds(wf.snapshotter)
+'''
+AUX_MNIST_WF = '''"""MNIST conv through the minibatch normalizer, with the gradient
+statistics and the data saver (epoch 0)."""
+import os
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.samples import mnist
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+STREAM = os.path.join(HERE, "stream.sav")
+DIFF_STATS = os.path.join(HERE, "diff_stats.pickle")
+%s
+
+def build(**kwargs):
+    wf = mnist.build(layers=root.mnistr_conv.layers, preprocessing=True,
+                     loader_config={"normalization_type": "none"}, **kwargs)
+    last_gd = _normalized(wf)
+    stats = wf.link_gd_diff_stats(last_gd, file_name=DIFF_STATS)
+    wf.link_data_saver(wf.loader, file_name=STREAM, only_epoch=0)
+    wf.link_loop(stats)
+    wf.link_end_point(stats)
+    return wf
+
+
+def run(load, main):
+    load(build)
+    main()
+''' % _AUX_MEAN_RDISP
+AUX_REPLAY_WF = '''"""MNIST conv through the same normalizer, trained on the raw
+stream the data saver recorded."""
+import os
+
+import znicz_tpu_torch.loader.saver  # noqa: F401 (the minibatches loader)
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.memory import Array
+from znicz_tpu_torch.standard_workflow import StandardWorkflow
+
+STREAM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "stream.sav")
+%s
+
+def build(**kwargs):
+    cfg = root.mnistr
+    wf = StandardWorkflow(
+        layers=root.mnistr_conv.layers, loader_name="minibatches",
+        loader_config={"file_name": STREAM,
+                       "minibatch_size": cfg.loader.minibatch_size},
+        decision_config=cfg.decision.as_dict(),
+        snapshotter_config=cfg.snapshotter.as_dict(), preprocessing=True,
+        **kwargs)
+    last_gd = _normalized(wf)
+    wf.link_loop(last_gd)
+    wf.link_end_point(last_gd)
+    return wf
+
+
+def run(load, main):
+    load(build)
+    main()
+''' % _AUX_MEAN_RDISP
+AUX_FUSED_WF = '''"""AlexNet's fused graph with the weights and histogram plotters on
+the trainer's weight views."""
+from znicz_tpu_torch.samples import alexnet
+
+
+def build(**kwargs):
+    wf = alexnet.build(**kwargs)
+    # the snapshotter, and the next minibatch after it, waits for the
+    # plotters' chains
+    wf.snapshotter.link_from(wf.link_weights_plotter(wf.decision),
+                             wf.link_multi_hist_plotter(wf.decision))
+    return wf
+
+
+def run(load, main):
+    load(build)
+    main()
+'''
+
+
+class _AuxProbe(_UnitsProbe):
+    """:class:`_UnitsProbe` and, while installed (put back by
+    :meth:`close`; nothing in the package reads them): each plotter's
+    fires, its readbacks counted apart (``("plot", name)``); each image
+    saver fire's epoch, class, labels, indices and predictions (read
+    with the readback count paused) before it runs; each normalizer
+    run's output against a host recompute (paused); the avatar's real
+    loader's serve seconds on the producer thread; the MinibatchesLoader's
+    first TRAIN and VALID minibatches; and, through
+    ``threading.setprofile`` while :meth:`watch_producer` is on, every
+    call into a ``torch`` module on an avatar's producer thread."""
+
+    def __init__(self, torch):
+        super(_AuxProbe, self).__init__(torch)
+        import numpy
+        from znicz_tpu_torch.core import avatar, plotting_units
+        from znicz_tpu_torch.core.workflow import Workflow
+        from znicz_tpu_torch.loader import saver
+        from znicz_tpu_torch.loader.base import TRAIN, VALID
+        from znicz_tpu_torch.units import image_saver, mean_disp_normalizer
+        self.avatar_mod = avatar
+        self.fires = collections.Counter()
+        self.saver_fires, self.norm_errs, self.gather_s = [], [], []
+        self.replay_first = {}
+        self.producer_torch = collections.Counter()
+        self.producer_threads = set()
+        self.plotting = None
+        probe = self
+        patches = []
+
+        def plot_run(unit, real=plotting_units.Plotter.run):
+            probe.plotting = unit.name
+            try:
+                real(unit)
+            finally:
+                probe.plotting = None
+            probe.fires[unit.name] += 1
+        patches.append((plotting_units.Plotter, "run", plot_run))
+
+        def saver_run(unit, real=image_saver.ImageSaver.run):
+            n = int(unit.minibatch_size)
+            probe.readbacks.paused = True
+            try:
+                probe.saver_fires.append((
+                    int(unit.epoch_number), int(unit.minibatch_class),
+                    numpy.array(unit.labels.mem[:n]),
+                    numpy.array(unit.indices.mem[:n]),
+                    numpy.array(unit.max_idx.mem[:n])))
+            finally:
+                probe.readbacks.paused = False
+            real(unit)
+        patches.append((image_saver.ImageSaver, "run", saver_run))
+
+        def norm_run(unit, real=mean_disp_normalizer.MeanDispNormalizer.run):
+            real(unit)
+            probe.readbacks.paused = True
+            try:
+                probe.norm_errs.append(_norm_err(unit))
+            finally:
+                probe.readbacks.paused = False
+        patches.append((mean_disp_normalizer.MeanDispNormalizer, "run",
+                        norm_run))
+
+        def replay_run(unit, real=saver.MinibatchesLoader.run):
+            real(unit)
+            c = unit.minibatch_class
+            if c in (TRAIN, VALID) and c not in probe.replay_first:
+                n = unit.minibatch_size
+                probe.replay_first[c] = (
+                    numpy.array(unit.minibatch_data.mem[:n]),
+                    numpy.array(unit.minibatch_labels.mem[:n]),
+                    numpy.array(unit.minibatch_indices.mem[:n]))
+        patches.append((saver.MinibatchesLoader, "run", replay_run))
+
+        def wf_run(wf, real=Workflow.run):
+            av = getattr(wf, "loader", None)
+            if isinstance(av, avatar.Avatar) and wf.workflow is None:
+                loader = av.loader
+
+                def timed(real_run=type(loader).run):
+                    t0 = time.perf_counter()
+                    real_run(loader)
+                    probe.gather_s.append(time.perf_counter() - t0)
+                loader.run = timed
+            return real(wf)
+        # installed under _UnitsProbe's run wrapper, which wraps
+        # Workflow.run: this one sits below it
+        self._patches = []
+        for owner, name, fn in patches:
+            # None: inherited, deleted again by close
+            self._patches.append((owner, name, owner.__dict__.get(name)))
+            setattr(owner, name, fn)
+        self._real_run = self.real["run"]
+        self.real["run"] = _chain_run(self._real_run, wf_run)
+
+    def _where(self):
+        if self.plotting is not None:
+            return ("plot", self.plotting)
+        return super(_AuxProbe, self)._where()
+
+    def _profile(self, frame, event, arg):
+        name = threading.current_thread().name
+        if not name.startswith(self.avatar_mod.THREAD_PREFIX):
+            return
+        self.producer_threads.add(name)
+        if event == "call":
+            mod = frame.f_globals.get("__name__", "")
+        elif event == "c_call":
+            mod = getattr(arg, "__module__", None) or ""
+        else:
+            return
+        if mod == "torch" or mod.startswith("torch."):
+            self.producer_torch["%s.%s" % (
+                mod, getattr(arg, "__name__", frame.f_code.co_name))] += 1
+
+    def watch_producer(self, on):
+        threading.setprofile(self._profile if on else None)
+
+    def reset(self):
+        super(_AuxProbe, self).reset()
+        # one probe serves the phase's runs: each counts its own readbacks
+        self.readbacks.counts.clear()
+        self.readbacks.syncs.clear()
+        self.fires.clear()
+        del self.saver_fires[:], self.norm_errs[:], self.gather_s[:]
+        self.replay_first.clear()
+
+    def close(self):
+        threading.setprofile(None)
+        for owner, name, real in self._patches:
+            if real is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, real)
+        self.real["run"] = self._real_run
+        super(_AuxProbe, self).close()
+
+
+def _chain_run(outer_real, inner):
+    """``outer_real`` (the workflow run the units probe calls) through
+    ``inner`` (a wrapper of the real run)."""
+    def run(wf):
+        return inner(wf, real=outer_real)
+    return run
+
+
+def _norm_err(unit):
+    """The normalizer's output on its device against ``(x.astype(f32) -
+    mean) * rdisp`` on the host, relative to the output's largest."""
+    import numpy
+    got = numpy.asarray(unit.output.mem, numpy.float64)
+    x = unit.input.mem.astype(numpy.float32)
+    want = (x - unit.mean.mem) * unit.rdisp.mem
+    scale = max(float(numpy.abs(want).max()), 1e-300)
+    return (str(want.dtype), float(numpy.abs(got - want).max()) / scale)
+
+
+def _aux_argv(wf_file, ns, sizes, *extra):
+    return [wf_file] + [a for key, value in sizes
+                        for a in ("--config", "%s.%s=%s" % (ns, key, value))] \
+        + list(extra)
+
+
+def phase_aux(torch, card, reference):
+    """The standard workflow's auxiliary plane on the card, through the
+    workflow CLI with workflow files written under ``build/`` (the
+    linkers are a workflow's, no sample links them): (a) AlexNet's unit
+    graph with the avatar, the plotters, the image saver and the
+    publisher, bit-equal to the alexnet_units phase's run (``reference``);
+    (b) MNIST conv with the normalizer, the gradient statistics and the
+    data saver, then a run on the saved stream; (c) AlexNet's fused
+    graph with plotters on the trainer's weight views.  Returns the
+    launches of each path."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    # the samples install their config defaults when imported: import
+    # them before their nodes are saved, or the restore would wipe them
+    from znicz_tpu_torch.samples import alexnet, mnist  # noqa: F401
+    t0 = time.perf_counter()
+    shutil.rmtree(AUX_DIR, ignore_errors=True)
+    os.makedirs(AUX_DIR)
+    files = {}
+    for key, text in (
+            ("avatar", AUX_ALEXNET_WF % (False, AUX_SAVER_LIMIT)),
+            ("alexnet", AUX_ALEXNET_WF % (True, AUX_SAVER_LIMIT)),
+            ("mnist", AUX_MNIST_WF), ("replay", AUX_REPLAY_WF),
+            ("fused", AUX_FUSED_WF)):
+        files[key] = os.path.join(AUX_DIR, "aux_%s_wf.py" % key)
+        with open(files[key], "w") as f:
+            f.write(text)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _AuxProbe(torch)
+    paths = {}
+    try:
+        with _ConfigRestored(root.common, root.alexnet, root.mnistr):
+            root.common.dirs.cache = os.path.join(AUX_DIR, "cache")
+            for key in ("avatar", "alexnet"):
+                paths["aux_" + key] = _aux_alexnet(
+                    torch, probe, cli, prng, files[key], reference, card,
+                    with_aux=key == "alexnet")
+            paths.update(_aux_mnist(torch, probe, cli, prng, files, card))
+            paths["aux_fused"] = _aux_fused(torch, probe, cli, prng,
+                                            files["fused"], card)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(AUX_DIR, ignore_errors=True)
+    _aux_norm_f64(torch)
+    say("   aux: %.2f s; %s" % (time.perf_counter() - t0, card))
+    return paths
+
+
+def _aux_alexnet(torch, probe, cli, prng, wf_file, reference, card,
+                 with_aux):
+    """(a): AlexNet's unit graph behind the avatar, alone (its rate and
+    queue wait) or ``with_aux`` (the plotters, image saver and
+    publisher, and their checks)."""
+    from znicz_tpu_torch.core import avatar
+    from znicz_tpu_torch.core.plotting_units import Plotter
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.units.nn_plotting_units import Weights2D
+    train_mb = -(-ALEXNET_UNITS_TRAIN // TRAIN_BATCH)
+    valid_mb = -(-WORKFLOW_VALID // TRAIN_BATCH)
+    n_mb = (train_mb + valid_mb) * ALEXNET_UNITS_EPOCHS
+    argv = [wf_file] + _alexnet_units_argv(
+        os.path.join(AUX_DIR, "snaps"), "--config",
+        "alexnet.snapshotter.interval=%d" % NO_SNAPSHOT)[1:]
+    say("== aux (a), %s: python -m znicz_tpu_torch %s" % (
+        "with the aux units" if with_aux else "the avatar alone",
+        " ".join([os.path.basename(wf_file)] + argv[1:])))
+    _zero_counts()
+    probe.watch_producer(True)
+    try:
+        with probe.readbacks, reference["memo"]:
+            run = _units_run(probe, cli, prng, argv)
+    finally:
+        probe.watch_producer(False)
+    launches = _counts()
+    wf = run["wf"]
+    av = wf.loader
+    if not isinstance(av, avatar.Avatar) or \
+            type(wf.real_loader).__name__ != "SyntheticImagenetLoader" or \
+            wf.real_loader in wf.units:
+        raise RuntimeError("the avatar does not stand in for the loader")
+    _check_graph_run(
+        torch, probe, run, launches,
+        {"forward": 3 * n_mb, "forward_by_width": {WIDE: 3 * n_mb,
+                                                   NARROW: 0},
+         "backward": 3 * train_mb * ALEXNET_UNITS_EPOCHS,
+         "backward_by_width": {WIDE: 3 * train_mb * ALEXNET_UNITS_EPOCHS,
+                               NARROW: 0},
+         "plain_on_card": 0},
+        "3 forward launches a minibatch and 3 backward a TRAIN minibatch, "
+        "all at 16-byte vectors",
+        (ALEXNET_UNITS_TRAIN, WORKFLOW_VALID, TRAIN_BATCH,
+         ALEXNET_UNITS_EPOCHS), ALEXNET_SHAPES, card, "unit graph, avatar")
+    if _units_segments(run["segments"]) != \
+            _units_segments(reference["segments"]):
+        raise RuntimeError("the avatar run's segment stats differ from the "
+                           "alexnet_units run's")
+    _units_equal(run["state"], reference["state"], "the avatar run")
+    say("   the avatar run: per-class n_err and confusion by epoch, every "
+        "weight and bias, the optimizer Arrays, the dropout generators and "
+        "the prng streams bit-equal to the alexnet_units run")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(avatar.THREAD_PREFIX)]
+    if alive or av._thread is not None or not probe.producer_threads:
+        raise RuntimeError("the avatar's producer ran in %s and is alive "
+                           "after the CLI returned: %s"
+                           % (sorted(probe.producer_threads), alive))
+    if probe.producer_torch:
+        raise RuntimeError("the producer thread called into torch: %s"
+                           % dict(probe.producer_torch))
+    x = wf.forwards[0].input
+    for name in ("minibatch_data", "minibatch_labels"):
+        arr = getattr(av, name)
+        if arr.device is None or arr.device.type != "cuda" or \
+                arr.dev.device.type != "cuda":
+            raise RuntimeError("the avatar's %s is on %s" % (name, arr.device))
+    if x is not av.minibatch_data or x.dev.device.type != "cuda":
+        raise RuntimeError("the first forward does not read the avatar's "
+                           "minibatch on the card")
+    say("   the producer thread (%s) ended with the CLI and called nothing "
+        "of torch; the mirrors and the first forward's input are on %s"
+        % (", ".join(sorted(probe.producer_threads)), x.dev.device))
+    rates = run["rates"]
+    wait_ms = 1e3 * av.run_time_ / av.run_count_
+    gather_ms = 1e3 * sum(probe.gather_s) / len(probe.gather_s)
+    if with_aux:
+        _check_aux_plotters(wf, run, probe, Plotter, Weights2D)
+        _check_image_saver(wf, probe)
+        _check_publisher(wf)
+        # the aux units' host seconds inside the last TRAIN segment (the
+        # image saver writes its files there)
+        segs = run["segments"]
+        last = max(i for i, s in enumerate(segs) if s["class"] == TRAIN)
+        aux_names = [u.name for u in wf.units if isinstance(u, Plotter) or
+                     u is wf.image_saver or u is wf.publisher]
+        aux_s = sum(segs[last]["unit_s"][n] - segs[last - 1]["unit_s"][n]
+                    for n in aux_names)
+        say("   with the aux units: epoch %d TRAIN images/s %.1f, of whose "
+            "segment the aux units took %.3f host s; the queue wait %.4f "
+            "host ms a minibatch (%d); %s" % (
+                ALEXNET_UNITS_EPOCHS, rates[-1], aux_s, wait_ms,
+                av.run_count_, card))
+    else:
+        say("   the avatar alone: epoch %d TRAIN images/s %.1f, %.1f without "
+            "it (the alexnet_units run); the consumer's wait on the "
+            "avatar's queue %.4f host ms a minibatch (%d), against the "
+            "plain loader's %.4f (its serve, gather included, on the "
+            "workflow's thread); the producer's serve %.4f ms a minibatch "
+            "(%d); %s" % (
+                ALEXNET_UNITS_EPOCHS, rates[-1], reference["rates"][-1],
+                wait_ms, av.run_count_, reference["loader_ms"], gather_ms,
+                len(probe.gather_s), card))
+    del run, wf
+    gc.collect()
+    return launches
+
+
+def _check_aux_plotters(wf, run, probe, Plotter, Weights2D):
+    """Each plotter fired once an epoch, read the card at most once a
+    fire, and recorded what a host recompute from the run's final
+    arrays (and its segment stats) gives."""
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    epochs = ALEXNET_UNITS_EPOCHS
+    plotters = [u for u in wf.units if isinstance(u, Plotter)]
+    reads = {u.name: probe.readbacks.counts[("plot", u.name)]
+             for u in plotters}
+    if any(probe.fires[u.name] != epochs for u in plotters) or \
+            any(v > epochs for v in reads.values()):
+        raise RuntimeError("plotter fires %s (want %d each), readbacks %s "
+                           "(at most one a fire)"
+                           % (dict(probe.fires), epochs, reads))
+    segs = run["segments"]
+    pts = {c: [100.0 * s["n_err"] / s["n"] for s in segs if s["class"] == c]
+           for c in (TRAIN, VALID)}
+    for i, p in enumerate(wf.error_plotter, 1):
+        if p.values != pts[VALID if i == 1 else TRAIN]:
+            raise RuntimeError("%s recorded %s, the segments give %s"
+                               % (p.name, p.values, pts))
+    for i, p in enumerate(wf.err_y_plotters, 1):
+        if len(p.values) != epochs or \
+                p.values[-1] != float(wf.decision.max_err_y_sums[i]) or \
+                not numpy.isfinite(p.values).all():
+            raise RuntimeError("%s recorded %s" % (p.name, p.values))
+    conf = wf.conf_matrix_plotter.current
+    if not numpy.array_equal(conf, wf.evaluator.confusion_matrix.mem):
+        raise RuntimeError("the confusion plotter's matrix differs from the "
+                           "evaluator's")
+    state, grids = run["state"], 0
+    for p in wf.weights_plotter + wf.multi_hist_plotter:
+        if not p.input:
+            if p.grid if hasattr(p, "grid") else p.histograms:
+                raise RuntimeError("%s recorded an empty Array" % p.name)
+            continue
+        w = p.input.mem
+        key = "%s.weights" % wf.forwards[int(p.name.split("_")[1])].name
+        if key in state and not numpy.array_equal(w, state[key]):
+            raise RuntimeError("%s read other weights than the run's final "
+                               "ones" % p.name)
+        if hasattr(p, "grid"):
+            want = _weights_grid(Weights2D, w, p.limit)
+            if len(p.grid) != len(want) or any(
+                    not numpy.array_equal(a, b)
+                    for a, b in zip(p.grid, want)):
+                raise RuntimeError("%s's grid differs from the final "
+                                   "weights'" % p.name)
+            grids += 1
+            continue
+        rows = w.reshape(w.shape[0], -1)
+        if len(p.histograms) != min(p.hist_number, rows.shape[0]):
+            raise RuntimeError("%s holds %d histograms" % (
+                p.name, len(p.histograms)))
+        for k, (hist, edges) in enumerate(p.histograms):
+            h2, e2 = numpy.histogram(rows[k], bins=p.n_bars)
+            if not (numpy.array_equal(hist, h2) and
+                    numpy.array_equal(edges, e2)):
+                raise RuntimeError("%s's histogram %d differs" % (p.name, k))
+    table = wf.table_plotter
+    want = [(float(y.mem.max()), float(y.mem.min())) if y
+            else (float("nan"),) * 2 for y in table.y]
+    if len(table.rows) != epochs or not numpy.array_equal(
+            numpy.array(table.rows[-1]), numpy.array(want), equal_nan=True):
+        raise RuntimeError("the table's last row %s, the final arrays give "
+                           "%s" % (table.rows[-1], want))
+    say("   plotters: %d, each fired %d times and read the card at most once "
+        "a fire (%d readbacks in all); the error curves equal the segments' "
+        "n_err %%, the %d weight grids and the histograms the final "
+        "weights', the table's max / min (%d columns) the final weights' "
+        "and gradients'" % (len(plotters), epochs, sum(reads.values()),
+                            grids, len(table.y)))
+
+
+def _weights_grid(Weights2D, mem, limit):
+    """:meth:`Weights2D.fill`'s grid of ``mem`` (host numpy)."""
+    import numpy
+    mem = mem.reshape(mem.shape[0], -1)[:limit]
+    side = int(numpy.round(numpy.sqrt(mem.shape[1])))
+    rgb = int(numpy.round(numpy.sqrt(mem.shape[1] // 3))) \
+        if mem.shape[1] % 3 == 0 else 0
+    if side * side == mem.shape[1]:
+        shape = (side, side)
+    elif rgb and rgb * rgb * 3 == mem.shape[1]:
+        shape = (rgb, rgb, 3)
+    else:
+        shape = (1, -1)
+    return [Weights2D.normalize_image(r.reshape(shape)) for r in mem]
+
+
+def _check_image_saver(wf, probe):
+    """The files equal one a misclassified sample of each fire since the
+    last epoch change, up to the limit a class, named as JAX names them
+    (``<label>_as_<prediction>.<index>``)."""
+    saver = wf.image_saver
+    names, saved, last = None, None, None
+    for epoch, klass, labels, indices, pred in probe.saver_fires:
+        if epoch != last:
+            names, saved, last = {0: [], 1: [], 2: []}, [0, 0, 0], epoch
+        for i in range(len(labels)):
+            if saved[klass] >= saver.limit:
+                break
+            if int(pred[i]) != int(labels[i]):
+                names[klass].append("%d_as_%d.%d" % (labels[i], pred[i],
+                                                     indices[i]))
+                saved[klass] += 1
+    if names is None:
+        raise RuntimeError("the image saver never fired")
+    for klass, want in names.items():
+        d = saver.out_dirs[klass]
+        got = sorted(os.path.splitext(f)[0] for f in os.listdir(d)) \
+            if os.path.isdir(d) else []
+        if got != sorted(want):
+            raise RuntimeError("the image saver wrote %d files for class %d, "
+                               "the fires give %d" % (len(got), klass,
+                                                      len(want)))
+    say("   image saver: %d fires, %s files (TEST, VALID, TRAIN) of "
+        "misclassified samples, JAX's names" % (
+            len(probe.saver_fires), [len(v) for _, v in sorted(names.items())]))
+
+
+def _check_publisher(wf):
+    """The report's ``metrics.decision`` equals the decision's."""
+    pub = wf.publisher
+    js = [d for d in pub.destinations if d.endswith(".json")]
+    if len(js) != 1:
+        raise RuntimeError("the publisher wrote %s" % pub.destinations)
+    with open(js[0]) as f:
+        report = json.load(f)
+    want = json.loads(json.dumps(wf.decision.get_metric_values(),
+                                 default=str))
+    if report["metrics"]["decision"] != want:
+        raise RuntimeError("the report's decision metrics %s, the "
+                           "decision's %s" % (report["metrics"]["decision"],
+                                              want))
+    say("   publisher: %s; metrics.decision equals get_metric_values(): %s"
+        % (", ".join(os.path.basename(d) for d in pub.destinations), want))
+
+
+def _aux_mnist(torch, probe, cli, prng, files, card):
+    """(b): MNIST conv behind the normalizer with the gradient statistics
+    and the data saver, then trained on the saved stream."""
+    import pickle
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    from znicz_tpu_torch.loader.saver import read_minibatch_stream
+    train_mb = -(-UNITS_TRAIN // UNITS_BATCH)
+    valid_mb = -(-UNITS_VALID // UNITS_BATCH)
+    no_snap = ("--config", "mnistr.snapshotter.interval=%d" % NO_SNAPSHOT)
+    argv = _units_argv(os.path.join(AUX_DIR, "snaps"), files["mnist"],
+                       *no_snap)
+    say("== aux (b): python -m znicz_tpu_torch %s"
+        % " ".join(["aux_mnist_wf.py"] + argv[1:]))
+    _zero_counts()
+    with probe.readbacks:
+        run = _units_run(probe, cli, prng, argv)
+    launches = _counts()
+    _check_units_run(torch, probe, run, launches, train_mb, valid_mb, card)
+    wf = run["wf"]
+    errs = [e for _, e in probe.norm_errs]
+    if len(errs) != (train_mb + valid_mb) * UNITS_EPOCHS or \
+            max(errs) > AUX_NORM_RTOL["float32"] or \
+            probe.norm_errs[0][0] != "float32":
+        raise RuntimeError("the normalizer ran %d times, its output %.3g of "
+                           "the host's (%s)" % (len(errs), max(errs),
+                                                probe.norm_errs[0][0]))
+    stats = wf.gd_diff_stats
+    if len(stats.history) != train_mb * UNITS_EPOCHS:
+        raise RuntimeError("%d diff-stats records, not one a TRAIN minibatch "
+                           "(%d)" % (len(stats.history),
+                                     train_mb * UNITS_EPOCHS))
+    with open(stats.file_name, "rb") as f:
+        flushed = pickle.load(f)
+    if flushed != stats.history:
+        raise RuntimeError("the flushed diff stats differ from the history")
+    header, records = read_minibatch_stream(wf.data_saver.file_name)
+    loader = wf.real_loader
+    if header["class_lengths"] != list(loader.class_lengths) or \
+            sum(r["minibatch_size"] for r in records) != \
+            sum(loader.class_lengths) or \
+            len(records) != train_mb + valid_mb:
+        raise RuntimeError("the stream's header %s and %d records of %d "
+                           "rows; the loader's %s" % (
+                               header["class_lengths"], len(records),
+                               sum(r["minibatch_size"] for r in records),
+                               loader.class_lengths))
+    say("   normalizer: %d runs, within %.3g of the host (float32); diff "
+        "stats: %d records, one a TRAIN minibatch, flushed at the end; "
+        "stream: class_lengths %s, %d records of epoch 0, %d rows"
+        % (len(errs), max(errs), len(stats.history),
+           header["class_lengths"], len(records),
+           sum(r["minibatch_size"] for r in records)))
+    first = {c: next(r for r in records if r["minibatch_class"] == c)
+             for c in (TRAIN, VALID)}
+    del run, wf
+    gc.collect()
+    replay_argv = _sample_argv(files["replay"], "mnistr",
+                               os.path.join(AUX_DIR, "snaps"), UNITS_TRAIN,
+                               UNITS_VALID, UNITS_BATCH, 1, *no_snap)
+    say("== aux (b) replay: python -m znicz_tpu_torch %s"
+        % " ".join(["aux_replay_wf.py"] + replay_argv[1:]))
+    _zero_counts()
+    with probe.readbacks:
+        replay = _units_run(probe, cli, prng, replay_argv)
+    replay_launches = _counts()
+    half_f, half_b = train_mb + valid_mb, train_mb
+    _check_graph_run(
+        torch, probe, replay, replay_launches,
+        {"forward": 2 * half_f,
+         "forward_by_width": {WIDE: half_f, NARROW: half_f},
+         "backward": 2 * half_b,
+         "backward_by_width": {WIDE: half_b, NARROW: half_b},
+         "plain_on_card": 0},
+        "2 forward launches a minibatch and 2 backward a TRAIN minibatch, "
+        "half at 16-byte vectors and half at one channel",
+        (UNITS_TRAIN, UNITS_VALID, UNITS_BATCH, 1),
+        [(60, 24, 24, 64), (60, 12, 12, 64), (60, 8, 8, 87), (60, 4, 4, 87),
+         (60, 791), (60, 10)], card, "the stream's replay")
+    ldr = replay["wf"].loader
+    start = ldr.class_index_range(TRAIN)[0]
+    train_rows = numpy.concatenate([r["data"] for r in records
+                                    if r["minibatch_class"] == TRAIN])
+    data, labels, idx = probe.replay_first[TRAIN]
+    if not (numpy.array_equal(data, train_rows[idx - start]) and
+            data.dtype == train_rows.dtype):
+        raise RuntimeError("the replay's first TRAIN minibatch is not the "
+                           "stream's rows")
+    data, labels, _ = probe.replay_first[VALID]
+    if not (numpy.array_equal(data, first[VALID]["data"]) and
+            numpy.array_equal(labels, first[VALID]["labels"])):
+        raise RuntimeError("the replay's first VALID minibatch differs from "
+                           "the recorded one")
+    say("   replay: the MinibatchesLoader's first TRAIN minibatch is the "
+        "stream's rows at its indices, its first VALID minibatch (and "
+        "labels) bit-equal to the recorded one; on %s" % card)
+    del replay
+    gc.collect()
+    return {"aux_mnist": launches, "aux_mnist_replay": replay_launches}
+
+
+def _aux_norm_f64(torch):
+    """The normalizer in float64 on the card against the host."""
+    import numpy
+    from znicz_tpu_torch.core.memory import Array
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.units.mean_disp_normalizer import MeanDispNormalizer
+    r = numpy.random.RandomState(UNITS_SEED)
+    x = r.uniform(0, 255, (UNITS_BATCH, 28, 28)).astype(numpy.float64)
+    unit = MeanDispNormalizer(Workflow())
+    unit.input = Array(x)
+    unit.mean = Array(x.mean(axis=0))
+    unit.rdisp = Array(1.0 / (x.std(axis=0) + 1.0))
+    unit.initialize(device="cuda")
+    unit.run()
+    dtype, err = _norm_err(unit)
+    if unit.output.dev.device.type != "cuda" or dtype != "float64" or \
+            err > AUX_NORM_RTOL["float64"]:
+        raise RuntimeError("the f64 normalizer on %s reads %.3g (%s)"
+                           % (unit.output.dev.device, err, dtype))
+    say("   normalizer in float64 on the card: within %.3g of the host" % err)
+
+
+def _aux_fused(torch, probe, cli, prng, wf_file, card):
+    """(c): the weights and histogram plotters on AlexNet's fused graph,
+    through the trainer's weight views."""
+    import numpy
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.units.nn_plotting_units import Weights2D
+    argv = [wf_file, "--fused", "pool_impl=offsets"] + [
+        a for key, value in (("loader.minibatch_size", TRAIN_BATCH),
+                             ("loader.n_train", AUX_FUSED_TRAIN),
+                             ("loader.n_valid", WORKFLOW_VALID),
+                             ("decision.max_epochs", 1),
+                             ("snapshotter.directory",
+                              os.path.join(AUX_DIR, "snaps")),
+                             ("snapshotter.interval", NO_SNAPSHOT))
+        for a in ("--config", "alexnet.%s=%s" % (key, value))]
+    say("== aux (c): python -m znicz_tpu_torch %s"
+        % " ".join(["aux_fused_wf.py"] + argv[1:]))
+    _zero_counts()
+    with probe.readbacks:
+        run = _units_run(probe, cli, prng, argv)
+    launches = _counts()
+    wf = run["wf"]
+    trainer = wf.fused_trainer
+    steps = -(-AUX_FUSED_TRAIN // TRAIN_BATCH)
+    valid_mb = -(-WORKFLOW_VALID // TRAIN_BATCH)
+    if launches["forward"] != 3 * (steps + valid_mb) or \
+            launches["backward"] != 3 * steps or \
+            launches["forward_by_width"][NARROW] or \
+            launches["backward_by_width"][NARROW] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("expected 3 forward launches a step and a VALID "
+                           "minibatch, 3 backward a step, all 16-byte, no "
+                           "plain pooling; got %s" % launches)
+    counts = probe.readbacks.counts
+    if counts[(TRAIN, 0)] != 1:
+        raise RuntimeError("%d readbacks in the TRAIN segment, not 1"
+                           % counts[(TRAIN, 0)])
+    probe.readbacks.paused = True
+    views = list(trainer.weight_views)
+    live = {i: trainer.net.params[i]["w"] for i, _ in views}
+    if not views or any(v.dev is not live[i] for i, v in views) or any(
+            not numpy.array_equal(v.mem, live[i].cpu().numpy())
+            for i, v in views):
+        raise RuntimeError("the weight views are not the net's live "
+                           "weights")
+    for p in wf.weights_plotter:
+        i = int(p.name.split("_")[1])
+        want = _weights_grid(Weights2D, live[i].cpu().numpy(), p.limit)
+        if len(p.grid) != len(want) or any(
+                not numpy.array_equal(a, b) for a, b in zip(p.grid, want)):
+            raise RuntimeError("%s's grid differs from the live weights'"
+                               % p.name)
+    probe.readbacks.paused = False
+    reads = {k[1]: v for k, v in counts.items()
+             if k != "outside" and k[0] == "plot"}
+    if sorted(probe.fires) != sorted(
+            [p.name for p in wf.weights_plotter + wf.multi_hist_plotter]) \
+            or set(probe.fires.values()) != {1} or \
+            any(v > 1 for v in reads.values()):
+        raise RuntimeError("plotter fires %s, readbacks %s"
+                           % (dict(probe.fires), reads))
+    say("   fused: %d weight views, each the net's live tensor at the end "
+        "and bit-equal to it; 1 readback in the TRAIN segment; %d plotters "
+        "fired once, %d readbacks among them, grids equal to the live "
+        "weights'; launches %s; %s" % (
+            len(views), len(probe.fires), sum(reads.values()), launches,
+            card))
+    del run, wf, trainer, live
+    gc.collect()
+    return launches
 
 
 def _ae_argv(snapdir, *extra):
@@ -8970,9 +9843,13 @@ def _phases(torch, name, card, start):
         marks.append(("resilience", time.perf_counter()))
         profile_launches = phase_profile(torch, card)
         marks.append(("profile", time.perf_counter()))
-        alexnet_units_launches = phase_alexnet_units(torch, card,
-                                                     workflow_rates)
+        alexnet_units_launches, reference = phase_alexnet_units(
+            torch, card, workflow_rates)
         marks.append(("alexnet_units", time.perf_counter()))
+        aux_paths = phase_aux(torch, card, reference)
+        del reference
+        gc.collect()
+        marks.append(("aux", time.perf_counter()))
         units_launches, mnist_rows = phase_units(torch, card, cycles_per_ms)
         marks.append(("units", time.perf_counter()))
         train_launches, _, resilience_net_launches = phase_train(
@@ -9033,6 +9910,7 @@ def _phases(torch, name, card, start):
              "resilience_net": resilience_net_launches,
              "profile": profile_launches}
     paths.update(lines_paths)
+    paths.update(aux_paths)
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,

@@ -6,12 +6,17 @@
   ``znicz_tpu``.
 * Entry points run on CUDA unless told ``device="cpu"``; without CUDA
   they raise instead of carrying on on the CPU.
+* The avatar's producer thread makes no call into ``torch.cuda`` (nor
+  into any other part of torch): a thread's first CUDA product would
+  take a cuBLAS workspace for the life of the process.
 """
 
+import collections
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy
 import pytest
@@ -150,7 +155,18 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.samples.demo_kohonen",
                  "znicz_tpu_torch.samples.research.spam_kohonen",
                  "znicz_tpu_torch.samples.mnist_rbm",
-                 "znicz_tpu_torch.samples.sequence"):
+                 "znicz_tpu_torch.samples.sequence",
+                 "znicz_tpu_torch.core.avatar",
+                 "znicz_tpu_torch.core.plotting_units",
+                 "znicz_tpu_torch.core.publishing",
+                 "znicz_tpu_torch.core.downloader",
+                 "znicz_tpu_torch.core.interaction",
+                 "znicz_tpu_torch.units.nn_plotting_units",
+                 "znicz_tpu_torch.units.diversity",
+                 "znicz_tpu_torch.units.image_saver",
+                 "znicz_tpu_torch.units.mean_disp_normalizer",
+                 "znicz_tpu_torch.units.diff_stats",
+                 "znicz_tpu_torch.loader.saver"):
         assert name in doc["modules"]
 
 
@@ -177,3 +193,47 @@ def test_engine_refuses_to_fall_back_to_cpu(no_cuda):
         InferenceEngine(package, max_batch=2)
     engine = InferenceEngine(package, max_batch=2, device="cpu")
     assert engine.device.type == "cpu" and engine.ready
+
+
+def test_the_avatar_producer_calls_nothing_of_torch_cuda():
+    """Every call on an avatar's producer thread is seen through
+    ``threading.setprofile``: none lands in ``torch.cuda`` or anywhere
+    else in torch, while the producer served minibatches."""
+    import znicz_tpu_torch.loader.loader_wine  # noqa: F401
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.avatar import THREAD_PREFIX, Avatar
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.loader.loader_wine import WineLoader
+    calls = collections.Counter()
+    cuda = collections.Counter()
+    seen = set()
+
+    def watch(frame, event, arg):
+        name = threading.current_thread().name
+        if not name.startswith(THREAD_PREFIX):
+            return
+        seen.add(name)
+        if event == "call":
+            mod = frame.f_globals.get("__name__", "")
+        elif event == "c_call":
+            mod = getattr(arg, "__module__", None) or ""
+        else:
+            return
+        calls[mod.split(".")[0]] += 1
+        if mod.startswith("torch"):
+            (cuda if mod.startswith("torch.cuda") else calls)[mod] += 1
+
+    loader = WineLoader(None, minibatch_size=16,
+                        prng=prng.RandomGenerator().seed(7))
+    av = Avatar(Workflow(), loader=loader)
+    av.initialize(device="cpu")
+    threading.setprofile(watch)
+    try:
+        for _ in range(24):
+            av.run()
+    finally:
+        threading.setprofile(None)
+        av.stop()
+    assert seen == {THREAD_PREFIX + loader.name}
+    assert calls["znicz_tpu_torch"] > 0 and calls["numpy"] > 0
+    assert not cuda and calls["torch"] == 0, (dict(cuda), dict(calls))

@@ -4,7 +4,10 @@ Counterpart of ``znicz_tpu/core/config.py``, cut to what the port
 reads: the ``root.common.serving`` knobs of the serving slice (with
 the fleet's autoscaler and the ``release`` block, :375-519), the
 ``root.common.telemetry`` gate and journal size,
-``root.common.engine.precision_dtype`` and ``deterministic``,
+``root.common.engine.precision_dtype`` (also read by :func:`dtype_map`)
+and ``deterministic``, ``root.common.disable.plotting`` (on, JAX
+:221: the plotters record their data and render nothing) and
+``root.common.interactive`` (the shell unit's gate),
 ``root.common.dirs.snapshots`` / ``datasets`` / ``cache`` of the
 training workflows, the ``root.common.faults`` / ``retry`` / ``health``
 knobs of the fault-injection registry, the transient retry and the
@@ -17,9 +20,13 @@ families, where the JAX package names a ``jax`` one), and the CLI's
 auto-vivify on attribute access; assigning a dict merges it into the
 node.
 
-The port declares no knob vocabulary; ``common.faults.rules`` is, as
-in the JAX package (:150-195), an open dict whose keys are injection
-sites and whose values are rule dicts: payload, not knobs.
+The knob registry (JAX :124-200): :func:`declare` installs a default
+(a scalar knob, or a whole namespace from a dict) and registers its
+path; :func:`declared_knobs` / :func:`declared_nodes` /
+:func:`knob_declared` read the vocabulary.  Every default below is
+declared.  ``common.faults.rules`` is, as in the JAX package, an
+open dict whose keys are injection sites and whose values are rule
+dicts: payload, not knobs.
 """
 
 import ast
@@ -76,7 +83,81 @@ root = Config("root")
 _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-root.common.update({
+#: declared leaf knobs and namespace nodes, dotted paths under ``root``
+_KNOBS = set()
+_NODES = set()
+
+
+def declare(path, value):
+    """Declare a knob (a scalar ``value``) or a whole namespace (a dict
+    ``value``) under ``root.<path>``: install its default and register
+    its path.  A scalar set before its declaration (an operator's
+    override) wins; an empty dict declares an open dict-valued knob."""
+    parts = path.split(".")
+    if not parts or not all(parts):
+        raise ValueError("bad knob path %r" % path)
+    node = root
+    for part in parts[:-1]:
+        node = getattr(node, part)
+        if not isinstance(node, Config):
+            raise ValueError("cannot declare %r: %s is a leaf knob, not a "
+                             "namespace" % (path, node))
+    if isinstance(value, (dict, Config)):
+        as_dict = value if isinstance(value, dict) else value.as_dict()
+        setattr(node, parts[-1], as_dict)
+        if as_dict:
+            _register(path, as_dict)
+        else:
+            _KNOBS.add(path)
+    else:
+        if parts[-1] not in node.__dict__:
+            setattr(node, parts[-1], value)
+        _KNOBS.add(path)
+    for i in range(1, len(parts)):
+        _NODES.add(".".join(parts[:i]))
+    return path
+
+
+def _register(prefix, tree):
+    _NODES.add(prefix)
+    for k, v in tree.items():
+        sub = "%s.%s" % (prefix, k)
+        if isinstance(v, dict) and v:
+            _register(sub, v)
+        else:
+            _KNOBS.add(sub)
+
+
+def declared_knobs():
+    """The declared leaf knob paths."""
+    return frozenset(_KNOBS)
+
+
+def declared_nodes():
+    """The declared namespace paths."""
+    return frozenset(_NODES)
+
+
+def knob_declared(path):
+    """Whether ``path`` is a declared knob or namespace, or lies under a
+    declared (dict-valued) knob."""
+    if path in _KNOBS or path in _NODES:
+        return True
+    parts = path.split(".")
+    return any(".".join(parts[:i]) in _KNOBS for i in range(1, len(parts)))
+
+
+def dtype_map():
+    """The numpy dtype the engine computes in:
+    ``root.common.engine.precision_dtype``, float32 while it is unset.
+    JAX :568 maps a second knob's spellings (``precision_type``); the
+    port has the one knob, which its loaders and trainers read."""
+    import numpy
+    dtype = root.common.engine.get("precision_dtype")
+    return numpy.dtype(numpy.float32 if dtype is None else dtype).type
+
+
+declare("common", {
     "serving": {
         "host": "127.0.0.1",
         "port": 8899,
@@ -267,6 +348,12 @@ root.common.update({
     # (core.backends.deterministic), False lets it pick faster
     # nondeterministic ones
     "engine": {"precision_dtype": None, "deterministic": True},
+    # the plotters' rendering (off: the plotters still record their
+    # data)
+    "disable": {"plotting": True},
+    # the shell unit (core/interaction.py) opens a console only when on
+    # and stdin is a terminal
+    "interactive": False,
     # the snapshotter's default directory, the datasets' (the MNIST
     # loader's IDX files) and the runtime cache (crash reports), inside
     # the checkout

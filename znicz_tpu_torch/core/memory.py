@@ -185,6 +185,12 @@ class Array(object):
         self._state = DEV
         return self
 
+    @property
+    def host_stale(self):
+        """Whether only the device copy is current (reading ``mem``
+        would copy from the device)."""
+        return self._state == DEV
+
     # -- shape & views ------------------------------------------------------
     def __bool__(self):
         return self._host is not None or self._dev is not None

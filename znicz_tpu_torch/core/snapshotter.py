@@ -20,6 +20,9 @@ atomically.  A unit-graph workflow's snapshot also carries
 serve the snapshot; a fused workflow's forwards are its trainer alone,
 which no layer type describes, so its snapshots carry none.
 
+``SnapshotterToDB`` (``odbc``, JAX :265) writes the same files: the
+reference's ODBC store has no server here.
+
 Mid-epoch snapshots (JAX :65-116): with ``window_interval`` N the
 fused trainer calls :meth:`SnapshotterBase.window_tick` after every
 TRAIN window that is not its segment's last, and every N-th writes a
@@ -223,3 +226,16 @@ class SnapshotterToFile(SnapshotterBase):
         ext = os.path.splitext(file_name)[1].lstrip(".")
         with _WRITERS.get(ext, open)(file_name, "rb") as f:
             return pickle.load(f)
+
+
+class SnapshotterToDB(SnapshotterBase):
+    """The ``odbc`` snapshotter: the JAX package's file-backed stand-in
+    for the reference's ODBC store, writing what
+    :class:`SnapshotterToFile` writes."""
+
+    MAPPING = "odbc"
+
+    def export(self, units_state=None):
+        return SnapshotterToFile.export(self, units_state)
+
+    _forward_topology = SnapshotterToFile._forward_topology

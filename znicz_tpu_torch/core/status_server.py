@@ -27,14 +27,19 @@ The two capture endpoints share one concurrency guard: while either
 runs, a request for either answers 409, and so does ``/debug/profile``
 while another device trace (the ``profile`` CLI's) runs.  A server's
 start starts the time-series sampler and the Python sampler and arms
-the blackbox where their knobs are on (JAX :387-389).  The JAX server's
-HTML page and plots wait for the plotters (``ROADMAP.md``).
+the blackbox where their knobs are on (JAX :387-389).  A
+:class:`StatusServer` also serves its HTML page at ``/`` (the status,
+refreshed every 5 s, and the plotters' PNGs) and each PNG at
+``/plots/<name>``, from ``<root.common.dirs.cache>/plots`` (JAX
+:57-62, :455-508).
 """
 
+import glob
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, quote, unquote
 
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -46,6 +51,14 @@ from znicz_tpu_torch.core import pyprof, telemetry
 _capture_guard = threading.Lock()
 _BUSY = {"error": "another debug capture (profile or pyprof) is "
                   "already running"}
+
+
+_PAGE = """<html><head><title>znicz_tpu_torch status</title>
+<meta http-equiv="refresh" content="5"></head>
+<body><h1>znicz_tpu_torch — %(name)s</h1>
+<pre id="status">%(status)s</pre>
+%(plots)s
+</body></html>"""
 
 
 def _json_reply(code, obj):
@@ -300,9 +313,24 @@ class StatusServer(HttpServerBase):
                 v = getattr(decision, attr, None)
                 if v is not None:
                     payload[attr] = bool(v) if attr == "complete" else v
+        payload["plots"] = [os.path.basename(p) for p in self._plot_files()]
         if telemetry.enabled():
             payload["telemetry"] = telemetry.snapshot()
         return payload
+
+    @staticmethod
+    def _plot_files():
+        return sorted(glob.glob(os.path.join(
+            root.common.dirs.cache, "plots", "*.png")))
+
+    def _render_page(self):
+        st = self.status()
+        plots = "".join('<img src="/plots/%s" width="400"/>' % quote(p)
+                        for p in st["plots"])
+        return _PAGE % {
+            "name": st.get("workflow") or "(no workflow)",
+            "status": json.dumps(st, indent=2, default=str),
+            "plots": plots}
 
     def make_handler(self):
         server = self
@@ -312,8 +340,19 @@ class StatusServer(HttpServerBase):
 
             def do_GET(self):
                 path = self.path.partition("?")[0]
-                if path == "/status.json":
+                if path in ("/", "/index.html"):
+                    self._send(200, "text/html",
+                               server._render_page().encode())
+                elif path == "/status.json":
                     self._send_json(200, server.status())
+                elif path.startswith("/plots/"):
+                    name = os.path.basename(unquote(path))
+                    png = os.path.join(root.common.dirs.cache, "plots", name)
+                    if name and os.path.isfile(png):
+                        with open(png, "rb") as f:
+                            self._send(200, "image/png", f.read())
+                    else:
+                        self._send_json(404, {"error": "not found"})
                 elif path == "/metrics":
                     self._send_metrics()
                 elif not self._send_debug(self.path):

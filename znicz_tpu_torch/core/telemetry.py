@@ -30,7 +30,15 @@ SIGTERM.
 
 Request traces live in :mod:`znicz_tpu_torch.serving.reqtrace` (the
 ``/debug/trace`` endpoint of the servers and the fleet router); the
-JAX package's generic spans and their ring have no counterpart here.
+JAX package's generic spans have no counterpart here, its zero-length
+markers do: :func:`instant` (JAX :198) records one into a bounded ring
+(:data:`TRACE_CAPACITY` events), read as
+Chrome-trace events by :func:`trace_events`.  :func:`merged_snapshot`
+(JAX :665) is :func:`snapshot`: the port runs one process a card.
+:func:`summary` and :func:`serving_summary` (JAX :814, :855) are the
+compact why-blocks a report stamps, without the JAX package's compile
+counters; :func:`parse_prometheus` (JAX :954) validates an
+exposition.
 :func:`register_help` / :func:`help_for` keep the one-line help of each
 series family (JAX :696-752), which the release plane and the
 autoscaler register.
@@ -45,6 +53,7 @@ import collections
 import json
 import logging
 import os
+import re
 import threading
 import time
 
@@ -297,6 +306,7 @@ def reset():
     with _lock:
         _metrics.clear()
     _journal.clear()
+    _trace.clear()
 
 
 def snapshot():
@@ -312,14 +322,99 @@ def snapshot():
     return snap
 
 
+def merged_snapshot():
+    """:func:`snapshot` of the run: a workflow of the port runs in one
+    process on one card, so there is nothing to merge."""
+    return snapshot()
+
+
+def summary():
+    """The compact why-block a report stamps: transfer bytes, the fused
+    trainer's readbacks and shard extents, step-time percentiles and
+    the serving block (:func:`serving_summary`)."""
+    snap = snapshot()
+    c, h, g = snap["counters"], snap["histograms"], snap["gauges"]
+    out = {"d2h_bytes": int(c.get("transfer.d2h_bytes", 0)),
+           "d2h_calls": int(c.get("transfer.d2h_calls", 0)),
+           "h2d_bytes": int(c.get("transfer.h2d_bytes", 0))}
+    if "trainer.readbacks" in c:
+        out["readbacks"] = int(c["trainer.readbacks"])
+    if "trainer.data_shards" in g:
+        out["data_shards"] = int(g["trainer.data_shards"])
+        out["model_shards"] = int(g.get("trainer.model_shards", 1))
+    steps = h.get("trainer.step_seconds") or h.get("unit.run_seconds")
+    if steps and steps.get("count"):
+        out["step_seconds"] = {"count": steps["count"],
+                               "p50": steps.get("p50"),
+                               "p99": steps.get("p99")}
+    serving = serving_summary(snap)
+    if serving is not None:
+        out["serving"] = serving
+    return out
+
+
+def serving_summary(snap=None):
+    """The serving tier's why-block (requests, rejections, latency p50
+    and p99, batch fill, queue wait and device p50); None when no
+    request was served."""
+    snap = snap or snapshot()
+    c, h = snap["counters"], snap["histograms"]
+    lat = h.get("serving.request_seconds")
+    if not lat or not lat.get("count"):
+        return None
+    out = {
+        "requests": int(lat["count"]),
+        "latency_p50_ms": (round(lat["p50"] * 1e3, 3)
+                           if lat.get("p50") is not None else None),
+        "latency_p99_ms": (round(lat["p99"] * 1e3, 3)
+                           if lat.get("p99") is not None else None),
+        "rejected": int(c.get("serving.rejected", 0)),
+        "timeouts": int(c.get("serving.timeouts", 0)),
+        "batches": int(c.get("serving.batches", 0)),
+    }
+    fill = h.get("serving.batch_fill")
+    if fill and fill.get("count"):
+        out["batch_fill_p50"] = fill.get("p50")
+    for series, key in (("serving.queue_wait_seconds", "queue_wait_p50_ms"),
+                        ("serving.device_seconds", "device_p50_ms")):
+        part = h.get(series)
+        if part and part.get("count") and part.get("p50") is not None:
+            out[key] = round(part["p50"] * 1e3, 3)
+    compiles = {name: int(v) for name, v in c.items()
+                if name.startswith("serving.compiles.")}
+    if compiles:
+        out["bucket_compiles"] = compiles
+    return out
+
+
+_PROM_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? [0-9eE+.-]+$")
+
+
+def parse_prometheus(text):
+    """Validate a Prometheus text exposition and return ``{family:
+    type}``; a malformed sample line raises ``ValueError``."""
+    families = {}
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE "):
+            _, _, fam, kind = line.split()
+            families[fam] = kind
+        elif line.startswith("#") or not line:
+            continue
+        elif not _PROM_SAMPLE_RE.match(line):
+            raise ValueError("bad exposition line: %r" % line)
+    return families
+
+
 # -- the flight recorder -----------------------------------------------------
 
 class _Ring(object):
-    """Bounded event buffer, oldest dropped first; its capacity is read
-    from ``root.common.telemetry.journal_capacity`` at the first
-    append."""
+    """Bounded event buffer, oldest dropped first; its capacity is
+    ``capacity``, else read from
+    ``root.common.telemetry.journal_capacity`` at the first append."""
 
-    def __init__(self):
+    def __init__(self, capacity=None):
+        self._capacity = capacity
         self._events = None
         self.dropped = 0
         self._lock = threading.Lock()
@@ -328,7 +423,8 @@ class _Ring(object):
         with self._lock:
             if self._events is None:
                 self._events = collections.deque(
-                    maxlen=int(_cfg.get("journal_capacity", 4096)))
+                    maxlen=self._capacity or
+                    int(_cfg.get("journal_capacity", 4096)))
             if len(self._events) == self._events.maxlen:
                 self.dropped += 1
             self._events.append(ev)
@@ -347,6 +443,30 @@ class _Ring(object):
 
 
 _journal = _Ring()
+#: the markers of :func:`instant` (JAX's ``trace_capacity`` default)
+TRACE_CAPACITY = 65536
+_trace = _Ring(TRACE_CAPACITY)
+
+
+def instant(name, **attrs):
+    """A zero-length marker (an epoch's end, a release step), recorded
+    while telemetry is on."""
+    if not enabled():
+        return
+    _trace.append(("i", name, (time.perf_counter() - _T0) * 1e6, 0.0,
+                   threading.get_ident(), attrs or None))
+
+
+def trace_events():
+    """The recorded markers as Chrome-trace events (one process)."""
+    out = []
+    for ph, name, ts, _, tid, args in _trace.events():
+        ev = {"name": name, "ph": ph, "ts": round(ts, 3), "pid": 0,
+              "tid": tid, "cat": "znicz", "s": "t"}
+        if args:
+            ev["args"] = args
+        out.append(ev)
+    return out
 
 
 def journal_enabled():

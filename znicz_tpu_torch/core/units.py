@@ -3,9 +3,9 @@
 Counterpart of ``znicz_tpu/core/units.py`` (``Unit`` :40-248) without
 its telemetry hooks:
 
-* ``link_from(*parents)`` / ``unlink_from(*parents)`` — control
-  edges; a unit fires when ALL parents have signalled (a ``Repeater``
-  fires on ANY);
+* ``link_from(*parents)`` / ``unlink_from(*parents)`` /
+  ``unlink_all()`` — control edges; a unit fires when ALL parents have
+  signalled (a ``Repeater`` fires on ANY);
 * ``link_attrs(other, "a", ("mine", "theirs"))`` — live attribute
   aliasing: reads and writes forward to the source unit;
 * ``gate_block`` / ``gate_skip`` — :class:`~znicz_tpu_torch.core.
@@ -13,7 +13,9 @@ its telemetry hooks:
   propagation); *skip* propagates without running;
 * ``demand("attr")`` — attributes that must be non-None by
   ``initialize``;
-* ``exports`` — the attribute names a snapshot captures.
+* ``exports`` — the attribute names a snapshot captures;
+* ``stop()`` — a hook a unit with a thread or an open file overrides
+  (the avatar's producer, the data saver's stream).
 
 The graph is the epoch-level control plane and, in the unit-at-a-time
 training graph, the per-minibatch one too (a unit a layer); in the
@@ -111,9 +113,21 @@ class Unit(Logger):
             p._links_to.pop(self, None)
         return self
 
+    def unlink_all(self):
+        """Drop every control edge into and out of this unit."""
+        for p in list(self._links_from):
+            self.unlink_from(p)
+        for d in list(self._links_to):
+            d.unlink_from(self)
+        return self
+
     @property
     def links_from(self):
         return self._links_from
+
+    @property
+    def links_to(self):
+        return self._links_to
 
     # -- firing protocol -----------------------------------------------------
     def _signal(self, src):
@@ -154,6 +168,9 @@ class Unit(Logger):
         self._initialized = True
 
     def run(self):
+        pass
+
+    def stop(self):
         pass
 
     def __repr__(self):

@@ -2,10 +2,14 @@
 
 Counterpart of ``znicz_tpu/core/workflow.py`` (:22-294: ``NoMoreJobs``,
 ``StartPoint``, ``EndPoint``, ``Repeater``, ``Workflow``, with
-``as_dot``, ``dump_graph``, ``run_profiled`` and ``log_unit_timings``
-:228-300, the journal's ``config`` and ``workflow.run`` events :134,
-:192, and the armed profiler's device-memory sample at the end of a
-run) without the Dummy* helpers.  Units fire when all their
+``del_ref`` :93, ``stop`` / ``stopped`` / ``on_workflow_finished``
+:213-219, ``as_dot``, ``dump_graph``, ``run_profiled`` and
+``log_unit_timings`` :228-300, the journal's ``config`` and
+``workflow.run`` events :134, :192, and the armed profiler's
+device-memory sample at the end of a run) without the Dummy* helpers.
+The callbacks given to ``on_workflow_finished`` run once each time
+``run`` returns, also when it raises (the avatar's producer thread is
+joined, the data saver's stream closed, either way).  Units fire when all their
 parents have signalled and their gates permit; a ``Repeater`` fires
 on any parent and closes the training loop:
 
@@ -53,6 +57,7 @@ class Workflow(Unit):
         self.end_point = EndPoint(self, name="end_point")
         self._queue = deque()
         self._running = False
+        self._finished_callbacks = []
 
     # -- container -----------------------------------------------------------
     def add_unit(self, unit):
@@ -63,6 +68,16 @@ class Workflow(Unit):
             unit.workflow = self
             self._units.append(unit)
         return unit
+
+    def add_ref(self, unit):
+        return self.add_unit(unit)
+
+    def del_ref(self, unit):
+        """Take ``unit`` out of the container (its links stay): it is
+        neither initialized nor snapshotted by this workflow."""
+        if unit in self._units:
+            self._units.remove(unit)
+            unit.workflow = None
 
     @property
     def units(self):
@@ -125,18 +140,50 @@ class Workflow(Unit):
         self._schedule(self.start_point)
         telemetry.record_event("workflow.run", workflow=self.name)
         try:
-            while self._queue and self._running:
-                self._queue.popleft()._fire()
-        except NoMoreJobs:
-            pass
+            try:
+                while self._queue and self._running:
+                    self._queue.popleft()._fire()
+            except NoMoreJobs:
+                pass
+        except BaseException:
+            self._running = False
+            self._run_finished_callbacks(raising=True)
+            raise
         self._running = False
         if profiler.enabled():
             # the caching allocator's counters at the end of a run
             profiler.sample_device_memory()
+        self._run_finished_callbacks()
         return self
+
+    def _run_finished_callbacks(self, raising=False):
+        """Each ``on_workflow_finished`` callback once; while the run
+        raises, a callback's own error is logged and the run's error
+        propagates."""
+        for cb in list(self._finished_callbacks):
+            if not raising:
+                cb()
+                continue
+            try:
+                cb()
+            except Exception:   # noqa: BLE001 - the run's error wins
+                self.exception("on_workflow_finished callback %r failed "
+                               "while the run raised", cb)
 
     def _on_end_point(self):
         self._running = False
+
+    def stop(self):
+        """End the run after the unit firing now."""
+        self._running = False
+
+    def stopped(self):
+        return not self._running
+
+    def on_workflow_finished(self, callback=None):
+        """Call ``callback()`` whenever :meth:`run` returns or raises."""
+        if callback is not None:
+            self._finished_callbacks.append(callback)
 
     # -- graph, profiling and timings ---------------------------------------
     def as_dot(self):

@@ -59,6 +59,16 @@ class Launcher(Logger):
         # a workflow built with the launcher as its parent registers here
         self.workflow = unit
 
+    add_ref = add_unit
+
+    def del_ref(self, unit):
+        """The workflow stays registered (JAX's ``Launcher.del_ref``)."""
+
+    def stop(self):
+        """Stop the workflow's run (JAX's ``DummyLauncher.stop``)."""
+        if self.workflow is not None:
+            self.workflow.stop()
+
     def load(self, factory, **kwargs):
         """Build the workflow.  ``factory`` is a Workflow subclass
         (instantiated with this launcher as parent) or a builder

@@ -7,8 +7,9 @@ Counterpart of ``znicz_tpu/loader/base.py`` (:49-466): ``Loader``,
 :467-530: per-sample regression targets, optional class targets, a
 targets normalizer), with the ``loader.fill`` fault site and its
 bounded retry (JAX :317-333) and the profiler's hooks (JAX :254-304:
-the serve of a minibatch is its data wait, and the epoch boundary runs
-the memory ledger's leak check), without the telemetry hooks.
+the serve of a minibatch is its data wait, unless an avatar serves
+it ahead and notes its own wait, and the epoch boundary runs the
+memory ledger's leak check), without the telemetry hooks.
 
 Epoch semantics, as the JAX package's:
 
@@ -124,6 +125,9 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.exports = ["epoch_number", "_segment", "_offset_in_class",
                         "_global_offset", "_indices", "shuffle_serial"]
         self.normalizer = None
+        #: the armed profiler's data wait is this loader's serve time
+        #: (an avatar, which serves it ahead, notes its own queue wait)
+        self.notes_data_wait = True
 
     # -- to be provided by subclasses ---------------------------------------
     def load_data(self):
@@ -275,7 +279,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             self._offset_in_class = 0
         else:
             self._offset_in_class = off + n
-        if prof_t0 is not None:
+        if prof_t0 is not None and self.notes_data_wait:
             profiler.note_data_wait(time.perf_counter() - prof_t0)
 
     def _serve_fill(self):

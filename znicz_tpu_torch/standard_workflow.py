@@ -29,8 +29,22 @@ units, ``FusedNNRollback`` over the fused trainer).
 ``extract_forward_workflow`` (JAX :612-642) builds the forward-only
 workflow of a trained one, from either graph, with its weights handed
 over through the forwards' weight broadcast (``apply_data_from_master``;
-a fused trainer's through ``host_params``).  A mesh and the plotters
-are not in this slice of the port (``ROADMAP.md``).
+a fused trainer's through ``host_params``).
+
+The auxiliary linkers (JAX :303-604) add, after the units they name:
+``link_avatar`` (the loader's prefetching mirror; call it right after
+``link_loader``, before anything links to the loader, in the unit
+graph), the plotters (``link_error_plotter``, ``link_weights_plotter``
+— through the fused trainer's ``weight_views`` in the fused graph —
+``link_conf_matrix_plotter``, ``link_mse_plotter``,
+``link_err_y_plotter``, ``link_multi_hist_plotter``,
+``link_similar_weights_plotter``, ``link_table_plotter``,
+``link_min_max_plotter``, ``link_image_plotter``,
+``link_immediate_plotter``; each fires at an epoch's end),
+``link_image_saver``, ``link_meandispnorm``, ``link_gd_diff_stats``,
+``link_downloader``, ``link_ipython``, ``link_publisher`` (at the
+decision's ``complete``) and ``link_data_saver``.  A mesh is not in
+this slice of the port (``ROADMAP.md``).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -277,6 +291,310 @@ class StandardWorkflow(StandardWorkflowBase):
         self.rollback.link_attrs(self.decision, "improved")
         self.rollback.gate_skip = ~self.loader.epoch_ended
         return self.rollback
+
+    def link_image_saver(self, *parents, **kwargs):
+        """Dump misclassified samples, gated on improvement
+        (reference standard_workflow.py:533-569)."""
+        from znicz_tpu_torch.units.image_saver import ImageSaver
+        self.image_saver = ImageSaver(self, name="image_saver", **kwargs)
+        self.image_saver.link_from(*parents)
+        self.image_saver.link_attrs(self.forwards[-1], "output")
+        if self.loss_function == "softmax":
+            self.image_saver.link_attrs(self.forwards[-1], "max_idx")
+        self.image_saver.link_attrs(
+            self.loader,
+            ("input", "minibatch_data"),
+            ("indices", "minibatch_indices"),
+            ("labels", "minibatch_labels"),
+            "minibatch_class", "minibatch_size", "epoch_number")
+        self.image_saver.gate_skip = ~self.decision.improved
+        return self.image_saver
+
+    def link_error_plotter(self, *parents):
+        """Per-epoch error curve (reference standard_workflow.py:672-700)."""
+        from znicz_tpu_torch.core.plotting_units import AccumulatingPlotter
+        self.error_plotter = []
+        prev = parents
+        for i in (1, 2):  # validation, train
+            p = AccumulatingPlotter(self, name="error_%d" % i,
+                                    input_field=i)
+            p.input = self.decision.epoch_n_err_pt
+            p.link_from(*prev)
+            p.gate_skip = ~self.decision.epoch_ended
+            self.error_plotter.append(p)
+            prev = (p,)
+        return self.error_plotter[-1]
+
+    def _plottable_weight_sources(self):
+        """``([(index, weights Array)], before_fill)`` across both
+        execution modes: the unit graph's forward units' weights and
+        None, or the fused trainer's weight views and the call that
+        points them at the net's live weights before a plotter reads
+        them."""
+        if self.fused_trainer is not None:
+            return (list(self.fused_trainer.weight_views),
+                    self.fused_trainer.point_weight_views)
+        return [(i, fwd.weights) for i, fwd in enumerate(self.forwards)
+                if getattr(fwd, "weights", None) is not None], None
+
+    def link_weights_plotter(self, *parents, **kwargs):
+        """Weight-image grids per layer
+        (reference standard_workflow.py:853-891); works in fused mode
+        through the trainer's weight views."""
+        from znicz_tpu_torch.units.nn_plotting_units import Weights2D
+        limit = kwargs.get("limit", 64)
+        self.weights_plotter = []
+        prev = parents
+        sources, before_fill = self._plottable_weight_sources()
+        for i, weights in sources:
+            p = Weights2D(self, name="weights_%d" % i, limit=limit)
+            p.input = weights
+            p.before_fill = before_fill
+            p.link_from(*prev)
+            p.gate_skip = ~self.decision.epoch_ended
+            self.weights_plotter.append(p)
+            prev = (p,)
+        return self.weights_plotter[-1] if self.weights_plotter \
+            else parents[0]
+
+    def link_conf_matrix_plotter(self, *parents):
+        """(reference standard_workflow.py:723-743)"""
+        from znicz_tpu_torch.core.plotting_units import MatrixPlotter
+        self.conf_matrix_plotter = MatrixPlotter(
+            self, name="conf_matrix")
+        self.conf_matrix_plotter.input = self.evaluator.confusion_matrix
+        self.conf_matrix_plotter.link_from(*parents)
+        self.conf_matrix_plotter.gate_skip = ~self.decision.epoch_ended
+        return self.conf_matrix_plotter
+
+    def link_mse_plotter(self, *parents):
+        """(reference standard_workflow.py:702-721)"""
+        from znicz_tpu_torch.units.nn_plotting_units import MSEHistogram
+        self.mse_plotter = MSEHistogram(self, name="mse_histogram")
+        self.mse_plotter.link_attrs(self.evaluator, "mse")
+        self.mse_plotter.link_from(*parents)
+        self.mse_plotter.gate_skip = ~self.decision.epoch_ended
+        return self.mse_plotter
+
+    def link_err_y_plotter(self, *parents):
+        """Last-layer max gradient sum curve
+        (reference standard_workflow.py:738-771)."""
+        from znicz_tpu_torch.core.plotting_units import AccumulatingPlotter
+        self.err_y_plotters = []
+        prev = parents
+        for i in (1, 2):  # validation, train
+            p = AccumulatingPlotter(
+                self, name="err_y_%d" % i, input_field=i)
+            p.input = self.decision.max_err_y_sums
+            p.link_from(*prev)
+            p.gate_skip = ~self.decision.epoch_ended
+            self.err_y_plotters.append(p)
+            prev = (p,)
+        return self.err_y_plotters[-1]
+
+    def link_multi_hist_plotter(self, *parents, **kwargs):
+        """Per-layer weight histograms
+        (reference standard_workflow.py:773-816)."""
+        from znicz_tpu_torch.core.plotting_units import MultiHistogram
+        weights_input = kwargs.get("weights_input", "weights")
+        self.multi_hist_plotter = []
+        prev = parents
+        if weights_input == "weights":
+            sources, before_fill = self._plottable_weight_sources()
+        else:
+            sources = [(i, getattr(fwd, weights_input))
+                       for i, fwd in enumerate(self.forwards)
+                       if getattr(fwd, weights_input, None) is not None]
+            before_fill = None
+        for i, arr in sources:
+            p = MultiHistogram(self, name="hist_%d" % i,
+                               hist_number=kwargs.get("hist_number", 16),
+                               n_bars=kwargs.get("n_bars", 25))
+            p.input = arr
+            p.before_fill = before_fill
+            p.link_from(*prev)
+            p.gate_skip = ~self.decision.epoch_ended
+            self.multi_hist_plotter.append(p)
+            prev = (p,)
+        return self.multi_hist_plotter[-1] if self.multi_hist_plotter \
+            else parents[0]
+
+    def link_similar_weights_plotter(self, *parents, **kwargs):
+        """Weight-diversity grids (reference standard_workflow.py:874-931,
+        znicz diversity.SimilarWeights2D)."""
+        from znicz_tpu_torch.units.diversity import SimilarWeights2D
+        weights_input = kwargs.pop("weights_input", "weights")
+        self.similar_weights_plotter = []
+        prev = parents
+        for i, fwd in enumerate(self.forwards):
+            if getattr(fwd, weights_input, None) is None:
+                continue
+            # non-square weight rows are skipped at RUN time by
+            # SimilarWeights2D.fill (shapes are unknown at link time)
+            p = SimilarWeights2D(self, name="similar_%d" % i, **kwargs)
+            p.input = getattr(fwd, weights_input)
+            p.link_from(*prev)
+            p.gate_skip = ~self.decision.epoch_ended
+            self.similar_weights_plotter.append(p)
+            prev = (p,)
+        return self.similar_weights_plotter[-1] \
+            if self.similar_weights_plotter else parents[0]
+
+    def link_table_plotter(self, *parents):
+        """Max/min table over weights and gradients
+        (reference standard_workflow.py:934-969)."""
+        from znicz_tpu_torch.core.plotting_units import TableMaxMin
+        self.table_plotter = TableMaxMin(self, name="table")
+        for i, fwd in enumerate(self.forwards):
+            if getattr(fwd, "weights", None) is None:
+                continue
+            self.table_plotter.y.append(fwd.weights)
+            self.table_plotter.col_labels.append("weights_%d" % i)
+        for i, g in enumerate(self.gds):
+            if g is None or getattr(g, "gradient_weights", None) is None:
+                continue
+            self.table_plotter.y.append(g.gradient_weights)
+            self.table_plotter.col_labels.append("gd_%d" % i)
+        self.table_plotter.link_from(*parents)
+        self.table_plotter.gate_skip = ~self.decision.epoch_ended
+        return self.table_plotter
+
+    def link_min_max_plotter(self, is_min, *parents):
+        """Epoch-metric extremum curve
+        (reference standard_workflow.py:1004-1042)."""
+        from znicz_tpu_torch.core.plotting_units import AccumulatingPlotter
+        p = AccumulatingPlotter(
+            self, name="mse_min" if is_min else "mse_max",
+            input_field=2, input_offset=2 if is_min else 1)
+        p.input = self.decision.epoch_metrics
+        p.link_from(*parents)
+        p.gate_skip = ~self.decision.epoch_ended
+        if is_min:
+            self.min_plotter = p
+        else:
+            self.max_plotter = p
+        return p
+
+    def link_image_plotter(self, *parents):
+        """Output vs input sample images
+        (reference standard_workflow.py:1044-1066)."""
+        from znicz_tpu_torch.core.plotting_units import ImagePlotter
+        self.image_plotter = ImagePlotter(self, name="output_sample")
+        self.image_plotter.inputs.append(self.forwards[-1].output)
+        self.image_plotter.input_fields.append(0)
+        self.image_plotter.inputs.append(self.forwards[0].input)
+        self.image_plotter.input_fields.append(0)
+        self.image_plotter.link_from(*parents)
+        self.image_plotter.gate_skip = ~self.decision.epoch_ended
+        return self.image_plotter
+
+    def link_immediate_plotter(self, *parents):
+        """Data / target / output curves
+        (reference standard_workflow.py:1068-1101)."""
+        from znicz_tpu_torch.core.plotting_units import ImmediatePlotter
+        self.immediate_plotter = ImmediatePlotter(
+            self, name="immediate")
+        del self.immediate_plotter.inputs[:]
+        del self.immediate_plotter.input_fields[:]
+        for src in (self.loader.minibatch_data,
+                    getattr(self.loader, "minibatch_targets", None),
+                    self.forwards[-1].output):
+            if src is None:
+                continue
+            self.immediate_plotter.inputs.append(src)
+            self.immediate_plotter.input_fields.append(0)
+        self.immediate_plotter.link_from(*parents)
+        self.immediate_plotter.gate_skip = ~self.decision.epoch_ended
+        return self.immediate_plotter
+
+    # -- aux-service linkers (reference 386-411, 648-670, 1121-1149) --------
+    def link_avatar(self, *extra_attrs):
+        """Replace the just-linked loader with its prefetching Avatar so
+        host-side loading overlaps device compute.  Call right after
+        link_loader, BEFORE anything links against the loader (same
+        constraint as the reference, standard_workflow.py:386-404)."""
+        from znicz_tpu_torch.core.avatar import Avatar
+        real = self.loader
+        avatar = Avatar(self, loader=real, extra_attrs=tuple(extra_attrs),
+                        name="avatar")
+        parents = list(real.links_from)
+        real.unlink_all()  # the producer thread drives the real loader
+        # out of the container too: a snapshot must not take the state
+        # of a loader that runs ahead of the consumed stream, so an
+        # avatar workflow's snapshot restarts the loader's stream
+        self.del_ref(real)
+        if parents:
+            avatar.link_from(*parents)
+        self.real_loader = real
+        self.loader = avatar
+        return avatar
+
+    def link_meandispnorm(self, *parents):
+        """On-the-fly minibatch normalization from the loader's
+        mean/rdisp arrays (reference standard_workflow.py:603-624);
+        wire the forwards from its ("input", "output")."""
+        from znicz_tpu_torch.units.mean_disp_normalizer import \
+            MeanDispNormalizer
+        self.meandispnorm = MeanDispNormalizer(self, name="meandispnorm")
+        self.meandispnorm.link_attrs(
+            self.loader, ("input", "minibatch_data"), "mean", "rdisp")
+        self.meandispnorm.link_from(*parents)
+        return self.meandispnorm
+
+    def link_gd_diff_stats(self, *parents, **kwargs):
+        """Gradient-statistics probe over the backward chain
+        (reference standard_workflow.py:626-646).  The history is
+        flushed to ``file_name`` when the workflow finishes."""
+        from znicz_tpu_torch.units.diff_stats import DiffStats
+        kwargs.setdefault("arrays",
+                          {u: ("gradient_weights",)
+                           for u in self.gds if u is not None})
+        self.gd_diff_stats = DiffStats(self, name="gd_diff_stats",
+                                       **kwargs)
+        self.gd_diff_stats.link_from(*parents)
+        self.gd_diff_stats.gate_skip = self.decision.gd_skip
+        self.on_workflow_finished(self.gd_diff_stats.flush)
+        return self.gd_diff_stats
+
+    def link_downloader(self, *parents, **kwargs):
+        """(reference standard_workflow.py:407-411)"""
+        from znicz_tpu_torch.core.downloader import Downloader
+        self.downloader = Downloader(self, name="downloader", **kwargs)
+        self.downloader.link_from(*parents)
+        return self.downloader
+
+    def link_ipython(self, *parents):
+        """Between-epochs interactive shell
+        (reference standard_workflow.py:648-661)."""
+        from znicz_tpu_torch.core.interaction import Shell
+        self.ipython = Shell(self, name="shell")
+        self.ipython.link_from(*parents)
+        self.ipython.gate_skip = ~self.decision.epoch_ended
+        return self.ipython
+
+    def link_publisher(self, *parents, **kwargs):
+        """End-of-training report (reference standard_workflow.py:663-670)."""
+        from znicz_tpu_torch.core.publishing import Publisher
+        self.publisher = Publisher(self, name="publisher", **kwargs)
+        self.publisher.link_from(*parents)
+        self.publisher.result_providers.add(self.decision)
+        self.publisher.loader_unit = getattr(self, "real_loader",
+                                             self.loader)
+        self.publisher.gate_skip = ~self.decision.complete
+        return self.publisher
+
+    def link_data_saver(self, *parents, **kwargs):
+        """Record the observed minibatch stream
+        (reference standard_workflow.py:1121-1149)."""
+        from znicz_tpu_torch.loader.saver import MinibatchesSaver
+        self.data_saver = MinibatchesSaver(self, name="data_saver",
+                                           **kwargs)
+        self.data_saver.link_attrs(
+            self.loader, "minibatch_data", "minibatch_labels",
+            "minibatch_class", "minibatch_size", "class_lengths",
+            "max_minibatch_size", "has_labels", "epoch_ended")
+        self.data_saver.link_from(*parents)
+        return self.data_saver
 
     def link_loop(self, *parents):
         """Close the training loop back into the repeater."""

@@ -18,6 +18,8 @@ TRAIN segment's end the health monitor's divergence detector takes
 ``health_metric()`` (the TRAIN error %, or the TRAIN average MSE; JAX
 :99-113), and every epoch end journals a ``train.epoch`` event.
 ``testing`` (JAX :116-118) completes the run after one epoch.
+``DecisionGD.get_metric_names`` / ``get_metric_values`` (JAX :330-348)
+are the best errors and epochs a publisher reports.
 """
 
 import time
@@ -261,6 +263,26 @@ class DecisionGD(DecisionBase):
 
     def health_metric(self):
         return self.epoch_n_err_pt[TRAIN]
+
+    def get_metric_names(self):
+        if not self.testing:
+            return {"Min errors", "Accuracy", "EvaluationFitness",
+                    "Best epoch"}
+        return set()
+
+    def get_metric_values(self):
+        if self.testing:
+            return {}
+        t, v = CLASS_NAME[TRAIN], CLASS_NAME[VALID]
+        return {
+            "Min errors": {t: pt_str(self.best_n_err_pt[TRAIN]),
+                           v: pt_str(self.best_n_err_pt[VALID])},
+            "EvaluationFitness": 1 - nvl(self.best_n_err_pt[VALID],
+                                         100.0) / 100.0,
+            "Best epoch": {
+                t: nvl(self.best_n_err_pt_epoch_number[TRAIN], "None"),
+                v: nvl(self.best_n_err_pt_epoch_number[VALID], "None")},
+        }
 
     def reset_statistics(self):
         for vec in (self.minibatch_n_err, self.minibatch_max_err_y_sum,

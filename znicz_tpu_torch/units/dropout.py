@@ -13,7 +13,8 @@ layers draw apart), so the masks differ from the JAX
 package's and the tests hand both the same one.  The mask and the
 generator's state ride snapshots, as the fused trainer's dropout
 stream does, so a resumed run draws the masks the uninterrupted one
-draws.
+draws.  ``DropoutFixer`` (JAX :123) sets every dropout forward's
+``forward_mode`` of a workflow at once.
 """
 
 import zlib
@@ -119,3 +120,16 @@ class DropoutBackward(Dropout, GradientDescentBase):
         if int(self.minibatch_class) == TRAIN:
             err = err * self.mask.dev
         self.err_input.set_dev(err)
+
+
+class DropoutFixer(object):
+    """Sets ``forward_mode`` on every :class:`DropoutForward` of a
+    workflow (inference passes the input through)."""
+
+    def __init__(self, workflow):
+        self._workflow = workflow
+
+    def fix(self, forward_mode=True):
+        for unit in self._workflow.units:
+            if isinstance(unit, DropoutForward):
+                unit.forward_mode = forward_mode

@@ -36,7 +36,18 @@ class EvaluatorsRegistry(type):
             EvaluatorsRegistry.evaluators[loss] = cls
 
 
-class EvaluatorBase(AcceleratedUnit, metaclass=EvaluatorsRegistry):
+class IResultProvider(object):
+    """A unit whose metrics a report gathers (JAX :29-34)."""
+
+    def get_metric_names(self):
+        return set()
+
+    def get_metric_values(self):
+        return {}
+
+
+class EvaluatorBase(AcceleratedUnit, IResultProvider,
+                    metaclass=EvaluatorsRegistry):
     """Allocates ``err_output`` like the last forward's ``output``."""
 
     LOSS = None
@@ -145,6 +156,14 @@ class EvaluatorSoftmax(EvaluatorBase):
         self._accumulate_stats(*host_fetch((n_err, conf, mx)))
         if self.testing:
             self.merge_output()
+
+    def get_metric_names(self):
+        return {"n_err", "confusion"} if not self.testing else {"Output"}
+
+    def get_metric_values(self):
+        if self.testing and self._merged_output is not None:
+            return {"Output": numpy.array(self._merged_output)}
+        return {}
 
 
 class EvaluatorMSE(EvaluatorBase):

@@ -56,7 +56,12 @@ health monitor's check after each window and step, and the
 snapshotter's ``window_tick`` after each window that is not its
 segment's last, so a resume splits the remaining minibatches into the
 windows the uninterrupted run dispatches.  :class:`FusedNNRollback`
-is the fused graph's rollback.
+is the fused graph's rollback.  ``weight_views`` (JAX :305-316, :986)
+are ``(layer index, Array)`` pairs a weighted layer, the plotters'
+way into the fused graph: a plotter of them calls
+:meth:`FusedForwardBackward.point_weight_views` before it reads them,
+which points them at the net's live weights (JAX re-points them after
+every step and restore).
 
 ``defaults`` (the hyperparameter defaults under every layer's own) and
 ``rand`` (the ``core/prng`` stream the net draws its weights from) are
@@ -307,6 +312,11 @@ class FusedForwardBackward(Unit):
         #: the TRAIN order on the device for the sliced window (host)
         self._perm_host = None
         self.gd_proxies = []
+        #: ``(layer index, Array)`` a weighted layer, for the plotters:
+        #: empty until :meth:`point_weight_views` points them at the
+        #: net's live weights, so a plotter reads the card only when it
+        #: fires
+        self.weight_views = []
         # a tied deconv's "<-" governs its conv's shared weights
         overrides = {layer.get("->", {}).get("tied_to"): layer
                      for layer in self.layers
@@ -319,6 +329,7 @@ class FusedForwardBackward(Unit):
                     overrides.get(name, layer), self.defaults)
                 self.gd_proxies.append(GDProxy("gd_" + name, hyper,
                                                hyper_bias))
+                self.weight_views.append((i, Array(name=name + "_weights")))
         self.demand("input", "minibatch_class", "minibatch_size",
                     "target" if loss == "mse" else "labels")
         #: params, optimizer state, generator and hypers (an exact
@@ -742,6 +753,18 @@ class FusedForwardBackward(Unit):
         self.net.load_state_dict(sd)
         for proxy, ps in zip(self.gd_proxies, sd.get("proxies", ())):
             proxy.load_state_dict(ps)
+
+    def point_weight_views(self):
+        """Point each weight view at the net's live weights tensor (a
+        step or a restore replaces the tensors; no copy is made).  A
+        view already on its tensor keeps its host copy, so plotters
+        sharing a view read it once."""
+        if self.net is None:
+            return
+        for i, view in self.weight_views:
+            live = self.net.params[i]["w"]
+            if view.dev is not live:
+                view.set_dev(live)
 
     def host_params(self):
         """The net's parameters as host arrays, one dict a layer."""
