@@ -254,6 +254,24 @@ failure (the script then exits non-zero and prints no result line):
    on the card, every backward launch at 16-byte vectors; then a
    step's device time split forward / backward / update, with the host
    held ahead, and the host's enqueue time;
+10b. bf16 — AlexNet trained in bfloat16 (``compute_dtype``): both
+   kernels in bfloat16 at the three batch-128 train shapes, bit-equal
+   to their plain versions on the card and timed as the serve shapes'
+   bf16 rows are (bound at 2 bytes a value and 4 an offset,
+   ``F.max_pool2d`` / ``max_pool2d_with_indices_backward`` in
+   bfloat16, host enqueue); 4 ``FusedNet`` steps at full width, batch
+   128, ``compute_dtype="bfloat16"``, ``pool_impl="offsets"``,
+   ``cudnn.deterministic``: exactly 3 forward and 3 backward bfloat16
+   launches a step (``LAUNCHES_BY_DTYPE``), no plain pooling, master
+   parameters and optimizer state float32, and losses, n_err,
+   parameters and optimizer state bit-equal to the same steps with the
+   pools on their plain versions; then ``alexnet --fused
+   compute_dtype=bfloat16,pool_impl=offsets`` over the workflow
+   phase's 2,048 / 256 rows for 2 epochs, twice from the same streams:
+   one readback a TRAIN segment, the second run's segments, parameters
+   and optimizer state bit-equal to the first's, the bfloat16 device
+   dataset half the f32 workflow run's bytes within 1 MiB; TRAIN
+   images/s printed beside the workflow phase's;
 11. train kernels — both kernels at batch 128 bit-equal to their plain
    versions, then cold beside their bounds, plain versions and library
    yardsticks (``F.max_pool2d``, ``max_pool2d_with_indices_backward``),
@@ -477,9 +495,13 @@ failure (the script then exits non-zero and prints no result line):
     then each exported with ``export_package`` and served in process
     as ``serve lines=PKG.zip`` does: requests of 1, 4 and 12 rows, one
     forward launch a pool a dispatch, each reply within 1e-4 of
-    ``export.run_package_numpy`` in float64 with equal argmax.  Prints
-    the seconds of training, extraction, export and serving beside the
-    card's name and power limit;
+    ``export.run_package_numpy`` in float64 with equal argmax; and the
+    fused topology on ``pool_impl="reshape"`` (2x2/s2, 3x3/s3) against
+    ``pool_impl="offsets"`` in float32 from one draw on a VALID
+    minibatch: loss, every gradient, and after a step the parameters
+    and optimizer state bit-equal, no kernel launch on the reshape
+    runs.  Prints the seconds of training, extraction, export and
+    serving beside the card's name and power limit;
 21. families — the three model families that launch neither pooling
     kernel, each trained on the card through its sample's
     ``run_sample`` at its published widths (depth cut to
@@ -505,7 +527,23 @@ failure (the script then exits non-zero and prints no result line):
     parameters within 1e-4 (float32) and 1e-9 (float64).  Each family's
     line gives the host wall a minibatch, and from one epoch under the
     device trace the device time, kernels and copies a minibatch and
-    the card's busy share, beside the card's name and power limit.
+    the card's busy share, beside the card's name and power limit (a
+    trace in which CUPTI recorded no device event at all, as happened
+    once in the families' first trace, is printed and the epoch traced
+    again, up to ``FAMILY_TRACE_ATTEMPTS`` traces; if none holds one,
+    the line says the device numbers were not measured: the ``profile``
+    phase is the check that the trace holds every launch);
+22. genetics — ``--optimize 2x8`` through the CLI on CIFAR caffe at its
+    published widths, a workflow file with two Range sites on conv1
+    (learning rate, weight decay), 2 epochs over 2,000 / 500 synthetic
+    rows: it prints "fused GA: vmapping each generation over
+    root.cifar" and a best fitness (each generation one batched
+    computation a step); then one generation of 8 in float64, one epoch
+    over the same rows, against 8 serial ``FusedNet`` runs with the same
+    hypers (in float32, as the population takes them): each fitness
+    equal (its n_err), each individual's final parameters within 1e-10
+    of the tensor's largest; the generation's wall and the serial runs'
+    printed.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -531,7 +569,10 @@ forward workflows (``lines_extract``) and its two served packages
 (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
-timings in bfloat16.  For the backward kernel the times are per
+timings in bfloat16; ``bf16_train`` each batch-128 training pool's
+in bfloat16 (both kernels), and ``bf16_train_launches_by_dtype`` the
+bf16 phase's launches by path and dtype (``bf16_fused``,
+``bf16_workflow``, also in ``launches_by_path``).  For the backward kernel the times are per
 batch-128 step (``mnist`` per TRAIN minibatch of 60, ``ae`` per
 depooling of a minibatch of 100 on stochastic offsets, ``cifar`` and
 ``stl10`` and ``lines`` per pool, ``imagenet_ae`` per depooling of
@@ -805,6 +846,10 @@ FAMILY_F64_TOL = 1e-9
 #: the RBM's check rows: its first two minibatches of 128
 FAMILY_RBM_ROWS = 256
 FAMILIES_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "families")
+#: traces of one family's epoch taken when CUPTI records no device event
+#: in a trace (not even the small op before the body): it did so once,
+#: in the first family trace of a run whose earlier phases had passed
+FAMILY_TRACE_ATTEMPTS = 3
 
 
 def say(*args):
@@ -2129,6 +2174,7 @@ def _zero_counts():
     from znicz_tpu_torch.ops import pooling
     for mod in (cuda_pooling, cuda_pooling_backward):
         mod.LAUNCHES = mod.LAUNCHES_WIDE = mod.LAUNCHES_NARROW = 0
+        mod.LAUNCHES_BY_DTYPE.clear()
     pooling.PLAIN_CUDA_CALLS = 0
 
 
@@ -2305,7 +2351,9 @@ def phase_workflow(torch, card):
         # the resilience phase's reference: this run's segments and its
         # final state on the host
         reference = {"segments": list(probe.segments),
-                     "state": run["net"].state_dict(), "prng": prng0}
+                     "state": run["net"].state_dict(), "prng": prng0,
+                     "data_bytes": run["net"]._data_d.numel() *
+                     run["net"]._data_d.element_size()}
         _replay_workflow(torch, probe, run, card)
         _resume_workflow(torch, probe, run, cli, snapdir)
     finally:
@@ -9252,6 +9300,9 @@ def phase_lines(torch, card, cycles_per_ms):
                         "pool_impl=offsets"),
             want, (LINES_TRAIN, LINES_EPOCHS), card)
         seconds["train (fused graph)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["lines_reshape"] = _lines_reshape(torch, fwf, card)
+        seconds["pool_impl='reshape'"] = time.perf_counter() - t0
         extract, serve = {}, {}
         lo, hi = wf.loader.class_index_range(VALID)
         images = numpy.array(wf.loader.original_data.mem[lo:hi])
@@ -9493,11 +9544,21 @@ def _on_card(what, *arrays):
 def _family_trace(torch, label, run, minibatches):
     """One short card run under the device trace: its device events a
     minibatch (kernels, and the copies apart) and device ms a
-    minibatch."""
+    minibatch.  A trace with no device event at all is taken again, up
+    to FAMILY_TRACE_ATTEMPTS traces; if none holds one, the three are
+    None (not measured)."""
     from znicz_tpu_torch.core import profiler
-    with profiler.traced(os.path.join(FAMILIES_DIR, "trace_" + label)) \
-            as res:
-        run()
+    for attempt in range(1, FAMILY_TRACE_ATTEMPTS + 1):
+        try:
+            with profiler.traced(os.path.join(
+                    FAMILIES_DIR, "trace_%s_%d" % (label, attempt))) as res:
+                run()
+            break
+        except profiler.EmptyDeviceTrace as e:
+            say("   %s, trace %d of %d: %s" % (
+                label, attempt, FAMILY_TRACE_ATTEMPTS, e))
+    else:
+        return {"kernels": None, "copies": None, "device_ms": None}
     rows = res["device_ops"]["by_name"]
     copies = [r for r in rows if r["name"].startswith(("Memcpy", "Memset"))]
     return {"kernels": (sum(r["count"] for r in rows) -
@@ -9510,6 +9571,12 @@ def _family_row(name, wall_s, minibatches, trace, readbacks, card):
     """The printed line of one family: host wall, device time, events
     and the device's busy share, a minibatch."""
     wall_ms = wall_s * 1e3 / minibatches
+    if trace["device_ms"] is None:
+        say("   %s: %.4f ms a minibatch of host wall (%d minibatches), "
+            "device time, kernels and copies not measured (no trace "
+            "held a device event), %.3g readbacks a minibatch; %s"
+            % (name, wall_ms, minibatches, readbacks, card))
+        return dict(trace, wall_ms=wall_ms, readbacks=readbacks, busy=None)
     row = dict(trace, wall_ms=wall_ms, readbacks=readbacks,
                busy=trace["device_ms"] / wall_ms)
     say("   %s: %.4f ms a minibatch of host wall (%d minibatches), "
@@ -9767,6 +9834,543 @@ def phase_families(torch, card):
     return rows, seconds
 
 
+#: the bf16 phase: FusedNet steps at full width in bfloat16 (the kernels
+#: against their plain versions), and the workflow CLI with
+#: ``compute_dtype=bfloat16`` over the workflow phase's rows for
+#: BF16_EPOCHS epochs, twice; the bf16 device dataset must take half
+#: the f32 run's bytes within BF16_DATASET_SLACK
+BF16_STEPS, BF16_EPOCHS = 4, 2
+BF16_DATASET_SLACK = 1 << 20
+BF16_FUSED = "compute_dtype=bfloat16,pool_impl=offsets"
+
+
+def _bf16_counts():
+    """The kernels' launches by dtype (``LAUNCHES_BY_DTYPE``)."""
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    return {"forward": dict(cuda_pooling.LAUNCHES_BY_DTYPE),
+            "backward": dict(cuda_pooling_backward.LAUNCHES_BY_DTYPE)}
+
+
+def phase_bf16(torch, card, cycles_per_ms, f32_workflow):
+    """AlexNet trained in bfloat16 (``compute_dtype``) on the card: (a)
+    both kernels in bfloat16 at the three batch-128 train shapes, bit
+    for bit against their plain versions, timed; (b) FusedNet steps at
+    full width with the pools on the kernels, bit for bit against the
+    same steps with the pools on their plain versions, 3 forward and 3
+    backward bfloat16 launches a step; (c) the workflow CLI with
+    ``--fused compute_dtype=bfloat16,pool_impl=offsets`` (one readback
+    a TRAIN segment, a second run bit-equal, the device dataset half
+    the f32 run's bytes).  ``f32_workflow`` is the workflow phase's
+    ``{"rates", "data_bytes"}``.  Returns the kernel rows, the launches
+    by path and by dtype, and the CLI's images/s."""
+    t_phase = time.perf_counter()
+    rows = _bf16_train_kernels(torch, card, cycles_per_ms)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        fused_launches, fused_dtypes = _bf16_fused_steps(torch, card)
+        wf_launches, wf_dtypes, rates = _bf16_workflow(torch, card,
+                                                       f32_workflow)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("   bf16 phase: %.2f s; %s" % (time.perf_counter() - t_phase, card))
+    return rows, {"bf16_fused": fused_launches,
+                  "bf16_workflow": wf_launches}, {
+                      "bf16_fused": fused_dtypes,
+                      "bf16_workflow": wf_dtypes}, rates
+
+
+def _bf16_train_kernels(torch, card, cycles_per_ms):
+    """Both kernels in bfloat16 at ``TRAIN_POOLS``: bit-equal to their
+    plain versions on the card, then timed cold beside their bounds (2
+    bytes a value, 4 an offset, over 3.35 TB/s), their plain versions
+    and ``F.max_pool2d`` / ``max_pool2d_with_indices_backward`` in
+    bfloat16, with the host's enqueue time."""
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.ops import pooling
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.ones(32 << 20, device="cuda").sum  # reads 128 MiB
+    rows = {"forward": {}, "backward": {}}
+    for label, shape in TRAIN_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x_nchw = x.permute(0, 3, 1, 2)
+        b, h, w, c = shape
+        ny, nx = pooling.output_spatial(h, w, 3, 3, (2, 2))
+        n_in, n_out = x.numel(), b * ny * nx * c
+        values, offs = cuda_pooling.max_pooling_offsets(x, 3, 3, (2, 2))
+        err = torch.randn(offs.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        grad = cuda_pooling_backward.max_pooling_offsets_backward(
+            err, offs, shape, 3, 3, (2, 2))
+        p_values, p_offs = pooling.max_pooling_plain(x, 3, 3, (2, 2))
+        p_grad = pooling.max_pooling_backward_plain(err, offs, shape, 3, 3,
+                                                    (2, 2))
+        torch.cuda.synchronize()
+        if not (_bits_equal(torch, values, p_values) and
+                torch.equal(offs, p_offs)):
+            raise RuntimeError("bf16 forward kernel disagrees with its "
+                               "plain version at %s %s" % (label, shape))
+        if not _bits_equal(torch, grad, p_grad):
+            raise RuntimeError("bf16 backward kernel disagrees with its "
+                               "plain version at %s %s (%d cells differ)"
+                               % (label, shape,
+                                  (grad != p_grad).sum().item()))
+        say("   %s %s bf16: both kernels bit-equal to their plain versions "
+            "(values and offsets; the gradient, %d nonzero cells)"
+            % (label, shape, (p_grad != 0).sum().item()))
+        del values, grad, p_values, p_offs, p_grad
+        err_nchw = err.permute(0, 3, 1, 2)
+        _, idx = F.max_pool2d(x_nchw, 3, 2, ceil_mode=True,
+                              return_indices=True)
+        work = {
+            # input read, values and offsets written
+            "forward": (n_in * 2 + n_out * 6, n_out * 9, {
+                "ms": lambda: cuda_pooling.max_pooling_offsets(
+                    x, 3, 3, (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_plain(
+                    x, 3, 3, (2, 2)),
+                "library_ms": lambda: F.max_pool2d(
+                    x_nchw, 3, 2, ceil_mode=True, return_indices=True)}),
+            # err and offsets read, the input gradient written
+            "backward": (n_out * 6 + n_in * 2, n_out * 10, {
+                "ms": lambda: cuda_pooling_backward
+                .max_pooling_offsets_backward(err, offs, shape, 3, 3,
+                                              (2, 2)),
+                "plain_ms": lambda: pooling.max_pooling_backward_plain(
+                    err, offs, shape, 3, 3, (2, 2)),
+                "library_ms": lambda: torch.ops.aten
+                .max_pool2d_with_indices_backward(
+                    err_nchw, x_nchw, [3, 3], [2, 2], [0, 0], [1, 1], True,
+                    idx)})}
+        for kind, (nbytes, ops, fns) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / BF16_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            iters = SMALL_TIMING_ITERS if bound < 0.01 else TIMING_ITERS
+            row = {"bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            for key, fn in fns.items():
+                row[key], row[key[:-2] + "host_ms"] = _median_ms(
+                    torch, fn, flush, cycles_per_ms, iters)
+            rows[kind][label] = row
+            say("   %s %s %s bf16: kernel %.4f ms (host enqueue %.4f ms), "
+                "plain %.4f ms, library %.4f ms, bound %.4f ms (%.1f MB), "
+                "%.0f%% of bound; %d samples; %s"
+                % (kind, label, shape, row["ms"], row["host_ms"],
+                   row["plain_ms"], row["library_ms"], bound, nbytes / 1e6,
+                   100 * bound / row["ms"], iters, card))
+    return rows
+
+
+class _PlainPools(object):
+    """While installed, the pooling module's kernel entry points
+    (``max_pooling``, ``max_pooling_backward``) run their plain
+    versions on CUDA tensors too: the control of a step on the kernels.
+    Nothing in the package reads it."""
+
+    def __enter__(self):
+        from znicz_tpu_torch.ops import pooling
+        self.pooling = pooling
+        self.real = (pooling.max_pooling, pooling.max_pooling_backward)
+        pooling.max_pooling = pooling.max_pooling_plain
+        pooling.max_pooling_backward = pooling.max_pooling_backward_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.pooling.max_pooling, self.pooling.max_pooling_backward = \
+            self.real
+
+
+def _bf16_fused_steps(torch, card):
+    """BF16_STEPS steps of full-width AlexNet at batch 128 with
+    ``compute_dtype=bfloat16`` and ``pool_impl="offsets"``: the counts
+    set to 0 before and read after (3 forward and 3 backward launches
+    a step, all bfloat16, no plain pooling), then the same steps from
+    the same state with the pools on their plain versions: losses,
+    n_err, parameters and optimizer state bit-equal; the master
+    parameters float32."""
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.samples import alexnet
+    t0 = time.perf_counter()
+    net = fused.FusedNet(alexnet.make_layers(), (227, 227, 3),
+                         rand=prng.RandomGenerator().seed(0),
+                         pool_impl="offsets", compute_dtype="bfloat16")
+    state0 = net.device_state()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batches = [(torch.rand((TRAIN_BATCH, 227, 227, 3), generator=gen,
+                           device="cuda"),
+                torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                              device="cuda", dtype=torch.int32))
+               for _ in range(BF16_STEPS)]
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+
+    def steps():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = [net.step(x, lbl) for x, lbl in batches]
+        metrics = [(m["loss"], m["n_err"]) for m in out]
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t
+    _zero_counts()
+    metrics, kernel_s = steps()
+    launches, dtypes = _counts(), _bf16_counts()
+    kernel_net = net.device_state()
+    masters = {t.dtype for p in net.params for t in p.values()} | {
+        t.dtype for s in net.state for d in s.values() for t in d.values()}
+    net.load_device_state(state0)
+    with _PlainPools():
+        plain_metrics, plain_s = steps()
+    n = BF16_STEPS
+    say("   bf16 FusedNet: full-width AlexNet, batch %d, compute_dtype "
+        "bfloat16, pool_impl='offsets', built in %.2f s; %d steps: losses "
+        "%s, n_err %s; %.3f s on the kernels, %.3f s on the plain pools; "
+        "launches %s, by dtype %s; master parameters and optimizer state "
+        "%s; %s" % (TRAIN_BATCH, built, n,
+                    " ".join("%.6f" % float(l) for l, _ in metrics),
+                    [int(e) for _, e in metrics], kernel_s, plain_s,
+                    launches, dtypes, sorted(str(d) for d in masters),
+                    card))
+    if launches["forward"] != 3 * n or launches["backward"] != 3 * n or \
+            dtypes != {"forward": {"bfloat16": 3 * n},
+                       "backward": {"bfloat16": 3 * n}} or \
+            launches["plain_on_card"]:
+        raise RuntimeError("expected 3 forward and 3 backward bfloat16 "
+                           "launches a step and no plain pooling, got %s "
+                           "by dtype %s" % (launches, dtypes))
+    if masters != {torch.float32}:
+        raise RuntimeError("master parameters or optimizer state in %s"
+                           % masters)
+    for (l, e), (pl, pe) in zip(metrics, plain_metrics):
+        if not (_bits_equal(torch, l, pl) and int(e) == int(pe)):
+            raise RuntimeError("a bf16 step's loss or n_err on the kernels "
+                               "differs from the plain pools' (%r %r vs %r "
+                               "%r)" % (float(l), int(e), float(pl), int(pe)))
+    if not all(torch.isfinite(l) for l, _ in metrics):
+        raise RuntimeError("a bf16 loss is not finite")
+    plain = fused.FusedNet.__new__(fused.FusedNet)
+    plain.params, plain.state = net.params, net.state
+    net.load_device_state(kernel_net)
+    _state_bits_equal(torch, net, plain, "the bf16 steps on the plain pools")
+    say("   bf16 FusedNet: losses, n_err, parameters and optimizer state "
+        "bit-equal on the kernels and on the plain pools")
+    return launches, dtypes
+
+
+def _bf16_workflow(torch, card, f32_workflow):
+    """The workflow CLI with ``--fused compute_dtype=bfloat16,
+    pool_impl=offsets`` over the workflow phase's rows for BF16_EPOCHS
+    epochs, twice from the same streams: one readback a TRAIN segment,
+    every segment's stats and the final state equal in the second run,
+    the device dataset half the f32 run's bytes.  Returns the first
+    run's launches, by dtype, and its TRAIN images/s by epoch."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.loader.base import TRAIN
+    snapdir = os.path.join(HERE, "build", "znicz_tpu_torch", "bf16")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    argv = _workflow_argv(snapdir, "--config",
+                          "alexnet.decision.max_epochs=%d" % BF16_EPOCHS,
+                          "--config", "alexnet.snapshotter.interval=%d"
+                          % NO_SNAPSHOT)
+    argv[argv.index("pool_impl=offsets")] = BF16_FUSED
+    say("== bf16 workflow: python -m znicz_tpu_torch %s" % " ".join(
+        a if a != snapdir else "build/..." for a in argv))
+    prng.get(1), prng.get(2)
+    prng0 = prng.states()
+    runs = []
+    try:
+        for attempt in range(2):
+            prng.restore(prng0)
+            probe = _WorkflowProbe(torch)
+            try:
+                _zero_counts()
+                t0 = time.perf_counter()
+                with _ConfigRestored(root.alexnet), probe.readbacks:
+                    cli.main(argv)
+                launches, dtypes = _counts(), _bf16_counts()
+                runs.append({"probe": probe, "ctx": dict(probe.ctx),
+                             "launches": launches, "dtypes": dtypes,
+                             "s": time.perf_counter() - t0})
+            finally:
+                probe.close()
+    finally:
+        shutil.rmtree(snapdir, ignore_errors=True)
+    first, second = runs
+    probe, net = first["probe"], first["ctx"]["net"]
+    steps = sum(len(c[2]) for c in probe.calls)
+    valid_mbs = -(-WORKFLOW_VALID // TRAIN_BATCH) * BF16_EPOCHS
+    want_steps = -(-WORKFLOW_TRAIN // TRAIN_BATCH) * BF16_EPOCHS
+    train_rb = [probe.readbacks.counts[(TRAIN, e)]
+                for e in range(BF16_EPOCHS)]
+    data_bytes = net._data_d.numel() * net._data_d.element_size()
+    rates = []
+    for e in range(BF16_EPOCHS):
+        wins = [w for w in probe.windows if w[0] == e]
+        rates.append(WORKFLOW_TRAIN / (probe.segments[2 * e]["t"] -
+                                       wins[0][2]))
+    say("   bf16 workflow: %d train steps, %d VALID minibatches, %.2f s and "
+        "%.2f s (the CLI from its start, two runs); launches %s, by dtype "
+        "%s; TRAIN readbacks by epoch %s; device dataset %s %.1f MB, the "
+        "f32 run's %.1f MB; TRAIN images/s by epoch %s, the f32 workflow "
+        "phase's %s; %s" % (
+            steps, probe.predicts, first["s"], second["s"], first["launches"],
+            first["dtypes"], train_rb, net._data_d.dtype, data_bytes / 1e6,
+            f32_workflow["data_bytes"] / 1e6,
+            " ".join("%.1f" % r for r in rates),
+            " ".join("%.1f" % r for r in f32_workflow["rates"]), card))
+    if steps != want_steps or probe.predicts != valid_mbs:
+        raise RuntimeError("%d steps and %d VALID minibatches, not %d and %d"
+                           % (steps, probe.predicts, want_steps, valid_mbs))
+    n_fwd, n_bwd = 3 * (steps + valid_mbs), 3 * steps
+    if first["launches"]["forward"] != n_fwd or \
+            first["launches"]["backward"] != n_bwd or \
+            first["launches"]["plain_on_card"] or \
+            first["dtypes"] != {"forward": {"bfloat16": n_fwd},
+                                "backward": {"bfloat16": n_bwd}}:
+        raise RuntimeError("expected %d forward and %d backward bfloat16 "
+                           "launches and no plain pooling, got %s by dtype "
+                           "%s" % (n_fwd, n_bwd, first["launches"],
+                                   first["dtypes"]))
+    if train_rb != [1] * BF16_EPOCHS:
+        raise RuntimeError("expected one readback a TRAIN segment, got %s"
+                           % train_rb)
+    if net.compute_dtype != torch.bfloat16 or \
+            net._data_d.dtype != torch.bfloat16 or \
+            abs(2 * data_bytes - f32_workflow["data_bytes"]) > \
+            2 * BF16_DATASET_SLACK:
+        raise RuntimeError("the bf16 device dataset is %s, %d bytes, the "
+                           "f32 run's %d" % (net._data_d.dtype, data_bytes,
+                                             f32_workflow["data_bytes"]))
+    for a, b in zip(probe.segments, second["probe"].segments):
+        if (a["epoch"], a["class"], a["n"], a["n_err"], a["max_err_sum"]) != \
+                (b["epoch"], b["class"], b["n"], b["n_err"],
+                 b["max_err_sum"]) or not (a["confusion"] ==
+                                           b["confusion"]).all():
+            raise RuntimeError("the second bf16 run's segment %s differs "
+                               "from the first's %s" % (b, a))
+    if len(probe.segments) != len(second["probe"].segments) or \
+            len(probe.segments) != 2 * BF16_EPOCHS:
+        raise RuntimeError("the bf16 runs served %d and %d segments" % (
+            len(probe.segments), len(second["probe"].segments)))
+    _state_bits_equal(torch, second["ctx"]["net"], net,
+                      "the second bf16 run")
+    say("   bf16 workflow: the second run's segments, parameters and "
+        "optimizer state bit-equal to the first's")
+    return first["launches"], first["dtypes"], rates
+
+
+def _lines_reshape(torch, fwf, card):
+    """Lines' fused topology (its 2x2/s2 and 3x3/s3 pools) in float32 on
+    ``pool_impl="reshape"`` against ``pool_impl="offsets"`` from one
+    draw, on a VALID minibatch: the loss and every gradient bit-equal,
+    then a step each with parameters and optimizer state bit-equal; no
+    kernel launch on the reshape runs.  Returns those runs' counts."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.base import VALID
+    from znicz_tpu_torch.parallel import fused
+    trainer = fwf.fused_trainer
+    lo, _ = fwf.loader.class_index_range(VALID)
+    x = torch.from_numpy(numpy.array(
+        fwf.loader.original_data.mem[lo:lo + LINES_BATCH])).to("cuda")
+    lbl = torch.from_numpy(numpy.asarray(
+        fwf.loader.original_labels[lo:lo + LINES_BATCH],
+        numpy.int32)).to("cuda")
+    nets, out = {}, {}
+    for impl in ("offsets", "reshape"):
+        net = fused.FusedNet(trainer.layers, tuple(trainer.input.shape[1:]),
+                             rand=prng.RandomGenerator().seed(7),
+                             pool_impl=impl)
+        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+                  for p in net.params]
+        if impl == "reshape":
+            _zero_counts()
+        loss, _ = fused._loss_and_stats(leaves, x, lbl, net.specs)
+        grads = torch.autograd.grad(
+            loss, [v for p in leaves for v in p.values()])
+        net.step(x, lbl)
+        torch.cuda.synchronize()
+        nets[impl], out[impl] = net, (loss.detach(), grads)
+    counts = _counts()
+    pools = [(s.kx, s.ky, s.sliding, s.impl) for s in nets["reshape"].specs
+             if s.kind == "pool"]
+    same = _bits_equal(torch, out["reshape"][0], out["offsets"][0]) and all(
+        _bits_equal(torch, a, b)
+        for a, b in zip(out["reshape"][1], out["offsets"][1]))
+    say("   lines pool_impl='reshape' (pools %s): loss %.9g, %d gradients "
+        "bit-equal to pool_impl='offsets' (loss %.9g): %s; launches on the "
+        "reshape runs %s; %s" % (
+            pools, float(out["reshape"][0]), len(out["reshape"][1]),
+            float(out["offsets"][0]), same, counts, card))
+    if not same:
+        raise RuntimeError("lines: the reshape lowering's loss or gradients "
+                           "differ from the kernels' in float32")
+    _state_bits_equal(torch, nets["reshape"], nets["offsets"],
+                      "lines pool_impl='reshape'")
+    if counts["forward"] or counts["backward"] or counts["plain_on_card"]:
+        raise RuntimeError("the reshape lowering launched pooling: %s"
+                           % counts)
+    return counts
+
+
+#: the genetics phase: CIFAR caffe at its published widths through the
+#: CLI's ``--optimize GA_SPEC`` (2 epochs over the CIFAR variants'
+#: synthetic rows), and one generation of GA_POPULATION in float64
+#: against as many serial FusedNet runs (the same synthetic rows,
+#: GA_F64_EPOCHS epochs at the sample's minibatch)
+GA_SPEC, GA_POPULATION, GA_F64_EPOCHS = "2x8", 8, 1
+GA_F64_RTOL = 1e-10
+GA_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "genetics")
+GA_WF = '''"""CIFAR-10 caffe with two Range sites on conv1: its learning rate
+and its weight decay."""
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.core.genetics import Range
+import znicz_tpu_torch.samples.cifar  # noqa: F401 (root.cifar)
+
+root.cifar.layers[0]["<-"]["learning_rate"] = Range(0.001, 0.0005, 0.004)
+root.cifar.layers[0]["<-"]["weights_decay"] = Range(0.0005, 0.0, 0.002)
+from znicz_tpu_torch.samples.cifar import run  # noqa: F401,E402
+'''
+
+
+def phase_genetics(torch, card):
+    """``--optimize`` on the card: CIFAR caffe through the CLI with two
+    Range sites, each generation trained as one batched computation a
+    step (JAX's "fused GA: vmapping each generation over root.cifar"
+    and a best fitness printed); then one generation in float64 against
+    GA_POPULATION serial FusedNet runs with the same hypers: each
+    fitness (n_err) equal, each individual's final parameters within
+    GA_F64_RTOL of the tensor's largest magnitude, the two walls
+    printed."""
+    import contextlib
+    import io
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core.config import root
+    # root.cifar's defaults first: the CLI's overrides are undone to them
+    from znicz_tpu_torch.samples import cifar  # noqa: F401
+    t_phase = time.perf_counter()
+    shutil.rmtree(GA_DIR, ignore_errors=True)
+    os.makedirs(GA_DIR)
+    wf_file = os.path.join(GA_DIR, "cifar_ga.py")
+    with open(wf_file, "w") as f:
+        f.write(GA_WF)
+    argv = _cifar_argv(GA_DIR, "--optimize", GA_SPEC, workflow=wf_file,
+                       n_train=CIFAR_VARIANT_TRAIN,
+                       n_valid=CIFAR_VARIANT_VALID)
+    say("== genetics: python -m znicz_tpu_torch %s" % " ".join(argv))
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with _ConfigRestored(root.cifar), contextlib.redirect_stdout(out):
+            cli.main(argv)
+    finally:
+        shutil.rmtree(GA_DIR, ignore_errors=True)
+    cli_s = time.perf_counter() - t0
+    text = out.getvalue()
+    lines = [ln for ln in text.splitlines()
+             if "GA" in ln or "fitness" in ln or " = " in ln]
+    say("   the CLI in %.2f s: %s; launches %s" % (cli_s, " | ".join(lines),
+                                                   _counts()))
+    if "fused GA: vmapping each generation over root.cifar" not in text or \
+            "best fitness (-err%)" not in text:
+        raise RuntimeError("--optimize did not take the population path or "
+                           "print a best fitness:\n%s" % text[-2000:])
+    _ga_f64(torch, card)
+    say("   genetics phase: %.2f s; %s" % (time.perf_counter() - t_phase,
+                                          card))
+
+
+def _ga_f64(torch, card):
+    import numpy
+    from znicz_tpu_torch.core import genetics, prng
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.loader.base import TRAIN, VALID, UserLoaderRegistry
+    from znicz_tpu_torch.parallel import fused, population
+    from znicz_tpu_torch.samples import cifar
+    layers = population._collapse_ranges(list(cifar.root.cifar.layers))
+    site = layers[0]["<-"]
+    sites = [(site, "learning_rate", None), (site, "weights_decay", None)]
+    specs = fused.build_specs(layers, (32, 32, 3))
+    mapper = population.config_values_to_hypers(sites, layers, specs)
+    # the CLI's rows: the loader's synthetic set, normalized
+    loader = UserLoaderRegistry.get_factory(cifar.root.cifar.loader_name)(
+        Workflow(None), **dict(cifar.root.cifar.loader.as_dict(),
+                               synthetic_train=CIFAR_VARIANT_TRAIN,
+                               synthetic_valid=CIFAR_VARIANT_VALID))
+    loader.initialize()
+    x = numpy.asarray(loader.original_data.mem, numpy.float64)
+    y = numpy.asarray(loader.original_labels, numpy.int32)
+    (ts, te), (vs, ve) = (loader.class_index_range(TRAIN),
+                          loader.class_index_range(VALID))
+    data = (x[ts:te], y[ts:te], x[vs:ve], y[vs:ve])
+    n_train, n_valid = te - ts, ve - vs
+    evaluate = population.make_population_evaluator(
+        layers, (32, 32, 3), *data, mapper, epochs=GA_F64_EPOCHS,
+        minibatch_size=CIFAR_BATCH, rand=prng.RandomGenerator().seed(12),
+        dtype=numpy.float64)
+    rand = numpy.random.RandomState(5)
+    vectors = [[genetics.Range(0.001, 0.0005, 0.004).sample(rand),
+                genetics.Range(0.0005, 0.0, 0.002).sample(rand)]
+               for _ in range(GA_POPULATION)]
+    hypers = [mapper(v, evaluate.specs) for v in vectors]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = evaluate.train(hypers)
+    fitness = [float(f) for f in
+               evaluate.fitness(params, GA_POPULATION).cpu().numpy()]
+    gen_s = time.perf_counter() - t0
+    perm = numpy.random.RandomState(0x5EED).permutation(n_train)
+    tx, ty = data[0][perm], data[1][perm]
+    scale = numpy.float32(-100.0) * (numpy.float32(1.0) /
+                                     numpy.float32(n_valid))
+    serial_s, worst = 0.0, 0.0
+    for i, hy in enumerate(hypers):
+        f32 = fused.tree_map(lambda v: float(numpy.float32(v)), hy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net = fused.FusedNet(layers, (32, 32, 3), dtype=numpy.float64,
+                             rand=prng.RandomGenerator().seed(12))
+        for _ in range(GA_F64_EPOCHS):
+            for s in range(n_train // CIFAR_BATCH):
+                net.step(tx[s * CIFAR_BATCH:(s + 1) * CIFAR_BATCH],
+                         ty[s * CIFAR_BATCH:(s + 1) * CIFAR_BATCH],
+                         hypers=f32)
+        _, idx = net.predict_with_idx(data[2])
+        n_err = int((idx.cpu().numpy() != data[3]).sum())
+        serial_s += time.perf_counter() - t0
+        if float(numpy.float32(n_err) * scale) != fitness[i]:
+            raise RuntimeError("individual %d: the population's fitness %r, "
+                               "the serial run's n_err %d" % (
+                                   i, fitness[i], n_err))
+        for layer, (p, sp) in enumerate(zip(params, net.params)):
+            for k in p:
+                want = sp[k]
+                diff = float((p[k][i] - want).abs().max())
+                rel = diff / max(float(want.abs().max()), 1e-300)
+                worst = max(worst, rel)
+                if rel > GA_F64_RTOL:
+                    raise RuntimeError(
+                        "individual %d: parameter %s of layer %d is %.3g "
+                        "of its largest magnitude from the serial run's"
+                        % (i, k, layer, rel))
+    say("   genetics f64: one generation of %d (CIFAR caffe, %d epochs of "
+        "%d TRAIN rows at batch %d, %d VALID): fitnesses %s equal %d serial "
+        "FusedNet runs', parameters within %.3g of each tensor's largest; "
+        "the generation %.3f s, the serial runs %.3f s; %s" % (
+            GA_POPULATION, GA_F64_EPOCHS, n_train, CIFAR_BATCH, n_valid,
+            " ".join("%.3f" % f for f in fitness), GA_POPULATION, worst,
+            gen_s, serial_s, card))
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -9837,6 +10441,8 @@ def _phases(torch, name, card, start):
     with prototypes:
         workflow_launches, workflow_rates, reference = phase_workflow(
             torch, card)
+        f32_workflow = {"rates": workflow_rates,
+                        "data_bytes": reference["data_bytes"]}
         marks.append(("workflow", time.perf_counter()))
         resilience_launches = phase_resilience(torch, card, reference)
         del reference
@@ -9855,6 +10461,12 @@ def _phases(torch, name, card, start):
         train_launches, _, resilience_net_launches = phase_train(
             torch, card, cycles_per_ms)
         marks.append(("train", time.perf_counter()))
+        bf16_train_rows, bf16_paths, bf16_dtypes, _ = phase_bf16(
+            torch, card, cycles_per_ms, f32_workflow)
+        # its workflows' cycles hold card memory until a collection,
+        # which would otherwise fall inside a later phase's measurement
+        gc.collect()
+        marks.append(("bf16", time.perf_counter()))
     del prototypes
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
     marks.append(("train kernels", time.perf_counter()))
@@ -9890,6 +10502,9 @@ def _phases(torch, name, card, start):
     marks.append(("lines", time.perf_counter()))
     phase_families(torch, card)
     marks.append(("families", time.perf_counter()))
+    phase_genetics(torch, card)
+    gc.collect()
+    marks.append(("genetics", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -9911,6 +10526,7 @@ def _phases(torch, name, card, start):
              "profile": profile_launches}
     paths.update(lines_paths)
     paths.update(aux_paths)
+    paths.update(bf16_paths)
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,
@@ -9945,6 +10561,9 @@ def _phases(torch, name, card, start):
     forward["stl10"] = _by_pool(stl_rows["forward"])
     forward["lines"] = _by_pool(lines_rows["forward"])
     forward["bf16"] = _by_pool(bf16_rows)
+    forward["bf16_train"] = _by_pool(bf16_train_rows["forward"])
+    forward["bf16_train_launches_by_dtype"] = {
+        k: d["forward"] for k, d in bf16_dtypes.items()}
     backward = {"name": "max_pooling_offsets_backward", "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/" +
                 cuda_pooling_backward.SOURCE,
@@ -9964,6 +10583,9 @@ def _phases(torch, name, card, start):
     backward["stl10"] = _by_pool(stl_rows["backward"])
     backward["lines"] = _by_pool(lines_rows["backward"])
     backward["imagenet_ae"] = _by_pool(iae_rows["backward"])
+    backward["bf16_train"] = _by_pool(bf16_train_rows["backward"])
+    backward["bf16_train_launches_by_dtype"] = {
+        k: d["backward"] for k, d in bf16_dtypes.items()}
     backward["runtime_stride_ms"] = sum(
         r["runtime_stride_ms"] for r in train_rows["backward"].values())
     say("== wall seconds by phase: %s"

@@ -393,15 +393,31 @@ def test_fused_net_needs_cuda_unless_cpu_asked(no_cuda):
 def test_later_options_raise(kwargs, match):
     """Options left for later raise, naming themselves; the MSE
     objective, once among them (``match`` None), now builds on the net
-    with a linear head and takes a step."""
+    with a linear head and takes a step; so do ``compute_dtype``
+    (bfloat16 products under float32 masters and a float32 loss) and
+    ``pool_impl="reshape"`` (every pool of the net, whose windows do
+    not overlap, on the reshape lowering)."""
     make, shape, _ = NETS["mnist_conv"]
+    x = numpy.random.RandomState(3).uniform(-1, 1, (2, 28, 28))
     if match is None:
         layers = make()
         layers[-1]["type"] = "all2all"
         net = fused.FusedNet(layers, shape, device="cpu", **kwargs)
-        x = numpy.random.RandomState(3).uniform(-1, 1, (2, 28, 28))
         m = net.step_mse(x, numpy.zeros((2, 10)))
         assert net.objective == "mse" and numpy.isfinite(float(m["loss"]))
+        return
+    if match != "mesh":
+        net = fused.FusedNet(make(), shape, device="cpu", **kwargs)
+        m = net.step(x, numpy.array([1, 2], numpy.int32))
+        assert numpy.isfinite(float(m["loss"]))
+        assert m["loss"].dtype == m["output"].dtype == torch.float32
+        assert all(t.dtype == torch.float32 for p in net.params
+                   for t in p.values())
+        if match == "compute_dtype":
+            assert net.compute_dtype == torch.bfloat16
+        else:
+            assert {s.impl for s in net.specs if s.kind == "pool"} == \
+                {"reshape"}
         return
     with pytest.raises(NotImplementedError, match=match):
         fused.FusedNet(make(), shape, device="cpu", **kwargs)

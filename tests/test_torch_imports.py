@@ -166,7 +166,9 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.units.image_saver",
                  "znicz_tpu_torch.units.mean_disp_normalizer",
                  "znicz_tpu_torch.units.diff_stats",
-                 "znicz_tpu_torch.loader.saver"):
+                 "znicz_tpu_torch.loader.saver",
+                 "znicz_tpu_torch.core.genetics",
+                 "znicz_tpu_torch.parallel.population"):
         assert name in doc["modules"]
 
 

@@ -12,6 +12,8 @@ run trains on is written into ``tmp_path``.
 * A parity run over small IDX files standing in for MNIST trains the
   MLP row through the fused graph (f32) after its cross-check against
   the unit graph, and returns its row.
+* The default ("auto") config is bf16 with a float32 retry of a row
+  that misses its bar, as in the JAX package.
 * ``--parity`` reaches ``parity.run_parity`` through the CLI, and
   refuses the options a parity run does not take.
 """
@@ -135,10 +137,13 @@ def test_cli_parity_flag_is_wired(monkeypatch):
     assert len(called) == 2
 
 
-def test_auto_is_the_fused_graph_in_float32(tmp_path, monkeypatch):
-    """A known difference: the port's fused trainer has no bf16
-    compute, so ``fused="auto"`` (bare ``--parity``) is the fused
-    graph's default config in float32, where JAX's is bf16."""
+def test_auto_is_the_fused_graph_in_float32(tmp_path, monkeypatch, capsys):
+    """``fused="auto"`` (bare ``--parity``) is JAX's default parity
+    config: the fused graph with bfloat16 products over float32 master
+    weights, and a row that misses its bar in bfloat16 is trained
+    again in float32 on the same path, the better of the two kept
+    (``znicz_tpu/parity.py:248-297``); a row that makes its bar in
+    bfloat16 is not retrained."""
     for f in parity.DATASETS["mnist"]["files"]:
         open(os.path.join(str(tmp_path), f), "wb").close()
     seen = []
@@ -154,9 +159,44 @@ def test_auto_is_the_fused_graph_in_float32(tmp_path, monkeypatch):
         with pytest.raises(Stop):
             parity.run_parity("mnist", device="cpu", data_dir=str(tmp_path),
                               fused=fused)
-    assert seen == [("znicz_tpu_torch.samples.mnist", {},
+    assert seen == [("znicz_tpu_torch.samples.mnist",
+                     {"compute_dtype": "bfloat16"},
                      {"synthetic": False, "data_path": str(tmp_path)},
                      "cpu")] * 2
+
+    built = []
+
+    class Decision(object):
+        def __init__(self, err):
+            self.best_n_err_pt = [None, err, None]
+
+    class Run(object):
+        def __init__(self, err):
+            self.decision = Decision(err)
+
+        def run(self):
+            pass
+
+    def seeded_build(module, kwargs, loader_config, fused, device):
+        built.append(dict(fused))
+        return Run({"bfloat16": errs[0], None: errs[1]}[
+            fused.get("compute_dtype")])
+    monkeypatch.setattr(parity, "_seeded_build", seeded_build)
+    monkeypatch.setitem(parity.PARITY_RUNS, "mnist",
+                        [("MNIST MLP", 1.92, {})])
+    for errs, want, mode, tried in (
+            ((5.0, 1.5), 1.5, "fused f32", 2),
+            ((1.0, 0.5), 1.0, "fused bf16", 1),
+            ((5.0, 6.0), 5.0, "fused bf16", 2)):
+        del built[:]
+        rows = parity.run_parity("mnist", device="cpu",
+                                 data_dir=str(tmp_path), cross_check=0)
+        assert rows == [("MNIST MLP", 1.92, want)]
+        assert built == [{"compute_dtype": "bfloat16"},
+                         {"compute_dtype": None}][:tried]
+        out = capsys.readouterr().out
+        assert ("retrying f32" in out) == (tried == 2)
+        assert "(%s)" % mode in out
 
 
 def test_unknown_sample_and_no_cuda(tmp_path, monkeypatch):

@@ -22,6 +22,7 @@ held against ``znicz_tpu/core/profiler.py``, case by case after
   and ``--ledger`` in a subprocess; the device table of a Chrome trace.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -546,3 +547,70 @@ def test_one_capture_at_a_time(tmp_path):
     assert result["device_ops"]["events"] == 0
     with profiler.traced(str(tmp_path / "c"), cuda=False):
         pass
+
+
+def test_a_card_capture_with_no_device_event_raises(tmp_path, monkeypatch):
+    """A capture on the card whose trace holds no device event raises
+    ``EmptyDeviceTrace`` (a ``RuntimeError``), so a caller can tell it
+    from other faults and take the trace again; the guard is free after
+    it.  Here the card is stood in for by the CPU: its small op and its
+    synchronize run on the CPU, and the trace holds no device event."""
+    class _Cuda(object):
+        @staticmethod
+        def synchronize():
+            pass
+
+    class _Torch(object):
+        cuda = _Cuda()
+
+        @staticmethod
+        def ones(n, device=None):
+            return torch.ones(n)
+
+    monkeypatch.setattr(profiler, "torch", _Torch())
+    with pytest.raises(profiler.EmptyDeviceTrace,
+                       match="holds no device event"):
+        with profiler.traced(str(tmp_path / "a"), cuda=True):
+            torch.ones(4).add_(1.0)
+    assert issubclass(profiler.EmptyDeviceTrace, RuntimeError)
+    assert os.path.exists(str(tmp_path / "a" / "trace.json"))
+    with profiler.traced(str(tmp_path / "b"), cuda=False) as result:
+        pass
+    assert result["device_ops"]["events"] == 0
+
+
+def test_family_trace_is_taken_again_when_empty(tmp_path, monkeypatch):
+    """``chip_smoke.py``'s family trace takes an epoch's trace again
+    when CUPTI recorded no device event, up to FAMILY_TRACE_ATTEMPTS
+    traces; with none, its numbers are None and its line says they were
+    not measured, while a trace that holds events gives them."""
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "FAMILIES_DIR", str(tmp_path))
+    said, runs, empty = [], [], [2]
+    monkeypatch.setattr(chip_smoke, "say", said.append)
+    table = {"events": 3, "total_ms": 0.6, "by_name": [
+        {"name": "k", "count": 2}, {"name": "Memcpy HtoD", "count": 1}]}
+
+    @contextlib.contextmanager
+    def traced(directory):
+        res = {}
+        yield res
+        if empty[0]:
+            empty[0] -= 1
+            raise profiler.EmptyDeviceTrace("no device event in " + directory)
+        res["device_ops"] = table
+
+    monkeypatch.setattr(profiler, "traced", traced)
+    got = chip_smoke._family_trace(torch, "f", lambda: runs.append(1), 2)
+    assert got == {"kernels": 1.0, "copies": 0.5,
+                   "device_ms": pytest.approx(0.3)}
+    assert len(runs) == 3 and len(said) == 2
+    assert "trace 2 of %d" % chip_smoke.FAMILY_TRACE_ATTEMPTS in said[1]
+    empty[0], runs[:], said[:] = 99, [], []
+    got = chip_smoke._family_trace(torch, "f", lambda: runs.append(1), 2)
+    assert got == {"kernels": None, "copies": None, "device_ms": None}
+    assert len(runs) == chip_smoke.FAMILY_TRACE_ATTEMPTS
+    row = chip_smoke._family_row("f", 1.0, 2, got, 1.0, "card")
+    assert row["busy"] is None and "not measured" in said[-1]

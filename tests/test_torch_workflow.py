@@ -325,7 +325,18 @@ def test_left_out_cli_options_raise(argv, monkeypatch, tmp_path, capsys):
     them too, now follows a request's persisted traces (an empty
     directory answers no event and no tree); ``--parity``, once among
     them too, now reaches ``parity.run_parity`` with the sample's name
-    (JAX's ``test_cli_parity_flag_is_wired``)."""
+    (JAX's ``test_cli_parity_flag_is_wired``); ``--optimize``, once
+    among them too, now runs the genetic optimizer, which asks for the
+    config's Range values first (``test_torch_genetics.py`` runs it)."""
+    if "--optimize" in argv:
+        from znicz_tpu_torch import launcher
+        calls = []
+        monkeypatch.setattr(launcher, "run_workflow",
+                            lambda *a, **k: calls.append(1))
+        with pytest.raises(SystemExit, match="needs Range"):
+            cli.main(argv)
+        assert calls == []
+        return
     if "--parity" in argv:
         from znicz_tpu_torch import parity
         called = {}

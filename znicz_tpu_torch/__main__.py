@@ -43,15 +43,24 @@ arms with ``--config common.telemetry.blackbox.enabled=True`` (role
 "train"); ``obs --rid`` follows one request's persisted trace trees.
 ``--parity`` runs :func:`znicz_tpu_torch.parity.run_parity` for the
 sample (the real dataset, fetched where absent: the network is
-required then).  ``--optimize`` is not in this slice of the port
-(``ROADMAP.md``).
+required then).  ``--optimize GENSxPOP`` evolves the ``Range`` values
+of the config (:mod:`znicz_tpu_torch.core.genetics`)::
+
+    python -m znicz_tpu_torch WF.py --optimize 4x8 [--device cpu]
+
+Each generation trains as one batched computation a step
+(:mod:`znicz_tpu_torch.parallel.population`) where the sites map onto
+the fused trainer's hyper slots: the sample's ``population_evaluator``
+where it has one, else the namespace of ``root`` that holds every
+site; otherwise each individual is a full run of the workflow, fused
+when ``--fused`` is given.
 """
 
 import argparse
 import ast
 import sys
 
-_LATER = "is not in this slice of the port (see ROADMAP.md)"
+from znicz_tpu_torch.core.config import root
 
 
 def parse_fused(value):
@@ -69,6 +78,115 @@ def parse_fused(value):
         except (ValueError, SyntaxError):
             cfg[key.strip()] = raw
     return cfg
+
+
+def _generic_population_evaluator(sites, device=None):
+    """The population evaluator of the one namespace of ``root`` (a
+    StandardWorkflow sample's, with ``layers`` and ``loader_name``)
+    whose Range sites are exactly ``sites``; None, the reason printed,
+    where there is none or it does not fit (JAX ``__main__.py:41``)."""
+    from znicz_tpu_torch.core.genetics import enumerate_ranges
+    from znicz_tpu_torch.parallel.population import \
+        workflow_population_evaluator
+    want = {(id(c), k) for c, k, _ in sites}
+    try:
+        for name, node in root.items():
+            if not isinstance(node, type(root)):
+                continue
+            if "layers" not in node or "loader_name" not in node:
+                continue
+            found = {(id(c), k) for c, k, _ in enumerate_ranges(node)}
+            if found and found == want:
+                ev = workflow_population_evaluator(node, sites,
+                                                   verbose=True,
+                                                   device=device)
+                if ev is not None:
+                    print("fused GA: vmapping each generation over "
+                          "root.%s (generic Range-site mapping)" % name)
+                return ev
+    except Exception as e:   # the serial path is the promised fallback
+        print("fused GA unavailable (%s); evaluating serially" % e)
+        return None
+    print("fused GA unavailable: no single sample namespace holds all "
+          "Range sites; evaluating serially")
+    return None
+
+
+def run_genetics(module, spec, fused=None, device=None):
+    """``--optimize GENSxPOP``: evolve the Range values under ``root``
+    (JAX ``__main__.py:74``).  A generation trains at once where the
+    sites map onto the fused trainer's hyper slots (the module's
+    ``population_evaluator(sites)`` where it has one, else
+    :func:`_generic_population_evaluator`); otherwise each fitness is a
+    full run of the workflow, fused when ``fused`` is given.  Prints
+    the best fitness and values; returns 0."""
+    from znicz_tpu_torch.core.genetics import (GeneticsOptimizer,
+                                               enumerate_ranges)
+    from znicz_tpu_torch.launcher import run_workflow
+    gens_s, _, pop_s = spec.partition("x")
+    try:
+        gens = int(gens_s or 4)
+        pop = int(pop_s or 8)
+    except ValueError:
+        raise SystemExit("--optimize wants GENSxPOP (e.g. 4x8), got %r"
+                         % spec)
+    if gens < 1 or pop < 1:
+        raise SystemExit("--optimize needs at least 1 generation and 1 "
+                         "individual, got %r" % spec)
+    if not enumerate_ranges(root):
+        raise SystemExit(
+            "--optimize needs Range(...) values in the config; e.g. "
+            'root.myns.learning_rate = Range(0.01, 0.001, 0.1)')
+    evaluate_population = None
+    factory = getattr(module, "population_evaluator", None)
+    if factory is not None:
+        # a factory that answers None has probed its namespace already
+        try:
+            evaluate_population = factory(enumerate_ranges(root),
+                                          device=device)
+        except Exception as e:
+            print("sample population evaluator unavailable (%s); "
+                  "evaluating serially" % e)
+    else:
+        evaluate_population = _generic_population_evaluator(
+            enumerate_ranges(root), device)
+    if evaluate_population is not None and fused:
+        print("note: --fused K=V settings do not apply to the vmapped "
+              "population path (it is already fused; pass a "
+              "population_evaluator for custom control)")
+    metric = {"label": "-err%"}
+
+    def evaluate(_cfg):
+        wf = run_workflow(module, fused=fused, device=device)
+        decision = getattr(wf, "decision", None)
+        err = None
+        if decision is not None:
+            pts = getattr(decision, "best_n_err_pt", None)
+            if pts is not None:
+                err = pts[1] if pts[1] is not None else pts[2]
+            if err is None:
+                # an MSE decision: the best (VALID, else TRAIN) mean
+                bm = getattr(decision, "best_metrics", None)
+                if bm is not None:
+                    for clazz in (1, 2):
+                        if bm[clazz] is not None:
+                            err = bm[clazz][0]
+                            metric["label"] = "-avg_mse"
+                            break
+        if err is None:
+            raise SystemExit("workflow exposes no error metric to "
+                             "optimize against")
+        return -float(err)
+
+    opt = GeneticsOptimizer(evaluate, root, generations=gens,
+                            population_size=pop,
+                            evaluate_population=evaluate_population)
+    values, fitness = opt.run()
+    print("best fitness (%s): %.4f" % (metric["label"], fitness))
+    for (_, key, rng), value in zip(opt.sites, values):
+        print("  %s = %s  (range %s..%s)" % (key, value, rng.min_value,
+                                             rng.max_value))
+    return 0
 
 
 def main(argv=None):
@@ -144,10 +262,12 @@ def run_workflow_cli(argv):
                              "the dataset (network required where it is "
                              "absent), train the published config, print "
                              "the comparison row")
-    parser.add_argument("--optimize", help=argparse.SUPPRESS)
+    parser.add_argument("--optimize", metavar="GENSxPOP",
+                        help="genetic hyperparameter search over the "
+                             "Range values of the config (e.g. 4x8: 4 "
+                             "generations of 8); fitness is -validation "
+                             "error")
     args = parser.parse_args(argv)
-    if args.optimize:
-        raise NotImplementedError("--optimize %s" % _LATER)
 
     from znicz_tpu_torch.core import blackbox
     from znicz_tpu_torch.core.config import apply_override
@@ -166,8 +286,8 @@ def run_workflow_cli(argv):
     for assignment in args.config:
         apply_override(assignment)
     if args.parity:
-        if args.snapshot or args.testing or args.dry_run or \
-                args.dump_graph or args.max_restarts > 0:
+        if args.optimize or args.snapshot or args.testing or \
+                args.dry_run or args.dump_graph or args.max_restarts > 0:
             parser.error("--parity runs the published training config "
                          "standalone")
         from znicz_tpu_torch import parity
@@ -176,6 +296,17 @@ def run_workflow_cli(argv):
                           device=args.device,
                           fused=fused if fused is not None else "auto")
         return 0
+    if args.optimize:
+        if args.snapshot or args.testing or args.dry_run or \
+                args.dump_graph:
+            parser.error("--optimize cannot be combined with --snapshot/"
+                         "--testing/--dry-run/--dump-graph")
+        if args.max_restarts > 0:
+            parser.error("--optimize cannot be combined with "
+                         "--max-restarts")
+        run_genetics(module, args.optimize, fused=parse_fused(args.fused),
+                     device=args.device)
+        return None
     # the durable blackbox, when its knob is on (one config read off)
     blackbox.maybe_arm("train")
     run_args = dict(snapshot=args.snapshot, testing=args.testing,

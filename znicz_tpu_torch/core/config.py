@@ -65,10 +65,17 @@ class Config(object):
     def __contains__(self, name):
         return name in self.__dict__
 
+    def items(self):
+        """The node's ``(key, value)`` pairs in the order they were set."""
+        return ((k, v) for k, v in self.__dict__.items()
+                if not (k.startswith("_") and k.endswith("_")))
+
+    def keys(self):
+        return (k for k, _ in self.items())
+
     def as_dict(self):
         return {k: (v.as_dict() if isinstance(v, Config) else v)
-                for k, v in self.__dict__.items()
-                if not (k.startswith("_") and k.endswith("_"))}
+                for k, v in self.items()}
 
     def to_json(self):
         """The tree as JSON text; values JSON cannot hold as their repr."""

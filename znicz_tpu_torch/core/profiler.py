@@ -44,8 +44,8 @@ reduced to a table of device time by kernel name and coarse category
 (:func:`device_table`, the counterpart of ``tools/profile_summary.py``'s
 trace-directory mode, which reads XLA's planes only).  One capture runs
 at a time (a second raises ``RuntimeError``; HTTP answers 409), and a
-capture on the card that records no device event raises instead of
-passing off a CPU-only trace.
+capture on the card that records no device event raises
+:class:`EmptyDeviceTrace` instead of passing off a CPU-only trace.
 
 The launch log (:func:`launch_log`): while armed, each hand-written
 kernel's launch is recorded (its index, kernel, stream and the thread's
@@ -669,6 +669,13 @@ def breakdown_summary():
 # ---------------------------------------------------------------------------
 
 _capture_lock = threading.Lock()
+
+
+class EmptyDeviceTrace(RuntimeError):
+    """A capture on the card whose trace holds no device event: CUPTI
+    traced nothing, not even the small op taken before the body."""
+
+
 #: the device table of the last whole-run trace, carried by the report
 _device_ops = None
 
@@ -842,7 +849,7 @@ def traced(directory, cuda=None):
     body, and the card is synchronized before the trace closes.  One
     capture at a time: a second raises ``RuntimeError``
     (Kineto cannot nest two profilers); a capture on the card with no
-    device event raises too."""
+    device event raises :class:`EmptyDeviceTrace`."""
     if cuda is None:
         cuda = torch.cuda.is_available()
     if not _capture_lock.acquire(blocking=False):
@@ -868,7 +875,7 @@ def traced(directory, cuda=None):
         _capture_lock.release()
     table = device_table(path)
     if cuda and not table["events"]:
-        raise RuntimeError(
+        raise EmptyDeviceTrace(
             "the device trace %s holds no device event: CUPTI did not "
             "trace the card" % path)
     result.update(trace=path, device_ops=table)

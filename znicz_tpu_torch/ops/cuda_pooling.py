@@ -25,8 +25,9 @@ alone, the vector width (:func:`vector_width`) and the tiles
 raises.  The library is built by :mod:`znicz_tpu_torch.ops.cuda_build`
 at the first launch and loaded with ``ctypes``.  ``LAUNCHES_WIDE``
 (16-byte vectors) and ``LAUNCHES_NARROW`` (one channel a thread) count
-the kernel's launches by width, ``LAUNCHES`` their sum; nothing else
-adds to them.  Each launch reports its work (:func:`work`) to the
+the kernel's launches by width, ``LAUNCHES`` their sum and
+``LAUNCHES_BY_DTYPE`` by the values' dtype; nothing else adds to them.
+Each launch reports its work (:func:`work`) to the
 profiler's cost registry, which cannot see a ctypes launch.
 """
 
@@ -50,6 +51,8 @@ REPLACES = "znicz_tpu/ops/pallas_pooling.py:97"
 LAUNCHES_WIDE = 0
 LAUNCHES_NARROW = 0
 LAUNCHES = 0
+#: the same launches by the values' dtype ("float32", "bfloat16", ...)
+LAUNCHES_BY_DTYPE = collections.Counter()
 
 #: shared memory a block's tile takes at most, so that the 227 KB an
 #: H100 SM gives its blocks never limits how many share it (registers
@@ -188,6 +191,7 @@ def max_pooling_offsets(x, ky, kx, sliding, use_abs=False):
     else:
         LAUNCHES_WIDE += 1
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(x.dtype).replace("torch.", "")] += 1
     profiler.kernel_cost("max_pooling_offsets",
                          *work(x.numel(), values.numel(), x.element_size(),
                                ky, kx))

@@ -35,8 +35,9 @@ is chosen on a failed launch, which raises.  The library is built by
 :mod:`znicz_tpu_torch.ops.cuda_build` at the first launch and loaded
 with ``ctypes``.  ``LAUNCHES_WIDE`` (16-byte vectors) and
 ``LAUNCHES_NARROW`` (one channel a thread) count the kernel's launches
-by width, ``LAUNCHES`` their sum, both instantiations alike; nothing
-else adds to them.  Each launch reports its work (:func:`work`) to the
+by width, ``LAUNCHES`` their sum, both instantiations alike, and
+``LAUNCHES_BY_DTYPE`` by the gradient's dtype; nothing else adds to
+them.  Each launch reports its work (:func:`work`) to the
 profiler's cost registry, which cannot see a ctypes launch.
 """
 
@@ -60,6 +61,8 @@ REPLACES = "znicz_tpu/ops/pooling.py:118"
 LAUNCHES_WIDE = 0
 LAUNCHES_NARROW = 0
 LAUNCHES = 0
+#: the same launches by the values' dtype ("float32", "bfloat16", ...)
+LAUNCHES_BY_DTYPE = collections.Counter()
 
 #: shared memory a block's staged windows take at most, so that the
 #: 227 KB an H100 SM gives its blocks never limits how many share it;
@@ -265,6 +268,7 @@ def max_pooling_offsets_backward(err, offsets, x_shape, ky, kx, sliding):
     else:
         LAUNCHES_WIDE += 1
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(err.dtype).replace("torch.", "")] += 1
     profiler.kernel_cost("max_pooling_offsets_backward",
                          *work(grad.numel(), err.numel(), err.element_size(),
                                ky, kx))

@@ -28,8 +28,10 @@ def _gradient_step(w, grad, lr, wd, l1_vs_l2, factor_ortho, use_ortho):
     step = grad + wd * ((1.0 - l1_vs_l2) * w +
                         0.5 * l1_vs_l2 * torch.sign(w))
     if use_ortho:
-        col_sums = w.sum(dim=0)
-        step = step + (col_sums[None, :] - w) * (factor_ortho / w.shape[0])
+        # over the rows of the last two axes: a leading axis is a
+        # population of weights (parallel/population.py)
+        col_sums = w.sum(dim=-2, keepdim=True)
+        step = step + (col_sums - w) * (factor_ortho / w.shape[-2])
     return lr * step
 
 
@@ -41,7 +43,8 @@ def update(w, grad, state, hyper, flags):
     gd_beta, factor_ortho[, adagrad_eps, adadelta_eps, adadelta_adom,
     fast_lr]); flags: dict(accumulate, apply, solvers, variant_moment,
     ortho); state: dict(acc, vel, [adagrad], [adadelta_v, adadelta_gv],
-    [fast])."""
+    [fast]).  A hyper may be a tensor that broadcasts against ``w``: a
+    population's, one value an individual along a leading axis."""
     gradient = -_gradient_step(
         w, grad, hyper["lr"], hyper["wd"], hyper["l1_vs_l2"],
         hyper.get("factor_ortho", 0.0), flags.get("ortho", False))

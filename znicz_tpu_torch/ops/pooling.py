@@ -38,7 +38,14 @@ Training lowerings of a max pool (the fused path's ``PoolSpec.impl``,
 * "gather" — :func:`max_pooling_gather`: the plain argmax, then a
   gather whose autograd backward is a scatter-add;
 * "reduce_window" — :func:`pooling_reduce_window`: ``F.max_pool2d`` on
-  the channels_last view; the JAX package leaves this one to XLA.
+  the channels_last view; the JAX package leaves this one to XLA;
+* "reshape" — :func:`max_pooling_reshape` and :func:`avg_pooling_reshape`
+  (JAX :214-311), for windows that do not overlap: the cell planes of
+  the disjoint windows and a compare/select chain, plain PyTorch as
+  the JAX package leaves them to XLA.  One known difference: the
+  backward's winner search skips the pad cells of an overhanging
+  window, where JAX's compares them too (a window's first cell is
+  always real and scanned first, so no input has shown the two apart).
 
 ``PLAIN_CUDA_CALLS`` counts calls of the plain max-pool versions on
 CUDA tensors (the card's path runs the kernels; the plain versions
@@ -362,6 +369,101 @@ def pooling_reduce_window(x, ky, kx, sliding, mode="max"):
         return mx
     mn = -pool(-xn)
     return torch.where(torch.abs(mx) >= torch.abs(mn), mx, mn)
+
+
+# -- the non-overlapping "reshape" lowering ----------------------------------
+
+def _pad_nonoverlap(x, ky, kx, fill):
+    """``x`` padded right/bottom with ``fill`` to multiples of the
+    kernel: with ``sliding == kernel`` that is the ceil-mode geometry."""
+    py, px = (-x.shape[1]) % ky, (-x.shape[2]) % kx
+    if py or px:
+        x = F.pad(x, (0, 0, 0, px, 0, py), value=fill)
+    return x
+
+
+def _nonoverlap_slices(xp, ky, kx):
+    """The ``ky*kx`` cell planes of the disjoint windows, in row-major
+    window order (dy outer, dx inner): the order of first-winner ties."""
+    return [xp[:, dy::ky, dx::kx, :] for dy in range(ky) for dx in range(kx)]
+
+
+def _reshape_max_val(x, ky, kx, use_abs):
+    """The window values: a strict compare/select chain over the cell
+    planes, so an earlier cell keeps a tie."""
+    xp = _pad_nonoverlap(x, ky, kx, 0.0 if use_abs else float("-inf"))
+    slices = _nonoverlap_slices(xp, ky, kx)
+    val = slices[0]
+    key = torch.abs(val) if use_abs else val
+    for s in slices[1:]:
+        k = torch.abs(s) if use_abs else s
+        take = k > key
+        val = torch.where(take, s, val)
+        key = torch.where(take, k, key)
+    return val
+
+
+class _MaxPoolingReshape(torch.autograd.Function):
+    """Non-overlapping max/maxabs pooling whose backward recomputes the
+    winner of each window from the saved input and output and routes
+    the window's gradient to it by interleaving reshapes."""
+
+    @staticmethod
+    def forward(ctx, x, ky, kx, use_abs):
+        y = _reshape_max_val(x, ky, kx, use_abs)
+        ctx.save_for_backward(x, y)
+        ctx.geometry = (ky, kx, use_abs)
+        return y
+
+    @staticmethod
+    def backward(ctx, err):
+        x, y = ctx.saved_tensors
+        ky, kx, use_abs = ctx.geometry
+        b, sy, sx, c = x.shape
+        ny, nx = y.shape[1], y.shape[2]
+        xp = _pad_nonoverlap(x, ky, kx, 0.0 if use_abs else float("-inf"))
+        wkey = torch.abs(y) if use_abs else y
+        zero = torch.zeros((), dtype=err.dtype, device=err.device)
+        seen = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+        rows = torch.arange(ny, device=x.device) * ky
+        cols = torch.arange(nx, device=x.device) * kx
+        parts = []
+        for q, s in enumerate(_nonoverlap_slices(xp, ky, kx)):
+            dy, dx = divmod(q, kx)
+            # a pad cell never wins, not even where the window's largest
+            # |x| is 0 and the pad's fill ties it
+            real = (((rows + dy) < sy).view(1, ny, 1, 1) &
+                    ((cols + dx) < sx).view(1, 1, nx, 1))
+            k = torch.abs(s) if use_abs else s
+            win = (k == wkey) & ~seen & real
+            seen = seen | win
+            parts.append(torch.where(win, err, zero))
+        full = torch.stack(parts, dim=3).reshape(b, ny, nx, ky, kx, c)
+        full = full.permute(0, 1, 3, 2, 4, 5).reshape(b, ny * ky, nx * kx, c)
+        return full[:, :sy, :sx, :], None, None, None
+
+
+def max_pooling_reshape(x, ky, kx, use_abs=False):
+    """Non-overlapping (``sliding == (kx, ky)``) max or maxabs pooling as
+    strided cell planes and a compare/select chain, first winner on a
+    tie, its gradient routed elementwise (counterpart of
+    ``max_pooling_reshape_jax``).  Plain PyTorch, as the JAX package
+    leaves it to XLA."""
+    return _MaxPoolingReshape.apply(x, int(ky), int(kx), bool(use_abs))
+
+
+def avg_pooling_reshape(x, ky, kx):
+    """Non-overlapping avg pooling as the sum of the cell planes over the
+    truncated window size (counterpart of ``avg_pooling_reshape_jax``);
+    its gradient is autograd's."""
+    b, sy, sx, c = x.shape
+    ny, nx = output_spatial(sy, sx, ky, kx, (kx, ky))
+    total = None
+    for s in _nonoverlap_slices(_pad_nonoverlap(x, ky, kx, 0.0), ky, kx):
+        total = s if total is None else total + s
+    cnt = _trunc_divisor(sy, sx, ky, kx, (kx, ky), ny, nx, torch.float32,
+                         x.device).to(x.dtype)
+    return total / cnt[None, :, :, None]
 
 
 def _trunc_divisor(sy, sx, ky, kx, sliding, ny, nx, dtype, device):

@@ -58,8 +58,15 @@ What maps to what:
   :meth:`FusedNet.device_state` / :meth:`FusedNet.load_device_state`
   keep a state on the device for the fused rollback.
 
-Not in this slice (each raises and is listed in ``ROADMAP.md``): a
-mesh, ``compute_dtype`` and ``pool_impl="reshape"``.
+* ``compute_dtype`` (bfloat16 as a rule) casts the input and the
+  parameters at each product; the master parameters, the optimizer
+  state, the loss and the accumulators stay float32 and the device
+  dataset is stored in it (the max pools' kernels run in it);
+* ``pool_impl="reshape"`` is :func:`pool_ops.max_pooling_reshape` /
+  ``avg_pooling_reshape``, plain PyTorch, for windows that do not
+  overlap.
+
+Not in this slice (it raises and is listed in ``ROADMAP.md``): a mesh.
 """
 
 import contextlib
@@ -589,35 +596,46 @@ def _mask(spec, w):
 
 
 def forward(params, x, specs, return_logits=False, generator=None,
-            train=False):
+            train=False, compute_dtype=None):
     """The forward pass through the whole spec stack.
 
+    ``compute_dtype`` (a torch dtype, e.g. ``torch.bfloat16``) casts the
+    input and each layer's parameters where they are used, so every
+    product runs in it; the parameters themselves keep their dtype and
+    a softmax head normalizes in float32 (JAX :622-690).
     With ``return_logits`` the softmax head is left un-normalized.
     Dropout masks are drawn from ``generator`` when ``train``; otherwise
     dropout is the identity.  The stochastic pools draw their winners
     from ``generator`` whenever it is given (in inference too).  A
     strictly monotonic conv activation is applied after a following max
     pool (``_MONOTONIC_ACTS``)."""
-    y = x
+    cd = compute_dtype
+
+    def _p(t):
+        return t if cd is None or t is None else t.to(cd)
+
+    y = x if cd is None else x.to(cd)
     deferred_act = None
     offsets = {}         # spec index -> winner offsets, for a depooling
     for i, (p, spec) in enumerate(zip(params, specs)):
         if deferred_act is not None and spec.kind != "pool":
             raise AssertionError("deferred activation not consumed")
         if spec.kind == "fc":
-            w = p["w"]
+            w = _p(p["w"])
             mask = _mask(spec, w)
             if mask is not None:
                 w = w * mask
-            y = dense.forward(y, w, p.get("b"),
+            y = dense.forward(y, w, _p(p.get("b")),
                               "linear" if spec.is_softmax
                               else spec.activation,
                               include_bias="b" in p)
             if spec.is_softmax and not return_logits:
+                if cd is not None:
+                    y = y.float()
                 y = torch.softmax(y, dim=1)
         elif spec.kind == "conv":
             y = y.reshape((y.shape[0],) + spec.in_shape)
-            w = p["w"]
+            w = _p(p["w"])
             mask = _mask(spec, w)
             if mask is not None:
                 w = w * mask
@@ -628,7 +646,7 @@ def forward(params, x, specs, return_logits=False, generator=None,
                     and specs[i + 1].kind == "pool"
                     and specs[i + 1].mode == "max"):
                 deferred_act, act = act, "linear"
-            y = conv_ops.forward(y, w, p.get("b"), spec.ky, spec.kx,
+            y = conv_ops.forward(y, w, _p(p.get("b")), spec.ky, spec.kx,
                                  spec.padding, spec.sliding,
                                  activation=act, include_bias="b" in p)
         elif spec.kind == "pool":
@@ -639,6 +657,12 @@ def forward(params, x, specs, return_logits=False, generator=None,
                 y, offsets[i] = pool_ops.max_pooling_train(
                     y, spec.ky, spec.kx, spec.sliding,
                     spec.mode == "maxabs")
+            elif spec.impl == "reshape":
+                if spec.mode == "avg":
+                    y = pool_ops.avg_pooling_reshape(y, spec.ky, spec.kx)
+                else:
+                    y = pool_ops.max_pooling_reshape(
+                        y, spec.ky, spec.kx, spec.mode == "maxabs")
             elif spec.mode != "avg" and spec.impl == "offsets":
                 y, _ = pool_ops.max_pooling_train(
                     y, spec.ky, spec.kx, spec.sliding,
@@ -656,7 +680,8 @@ def forward(params, x, specs, return_logits=False, generator=None,
         elif spec.kind == "deconv":
             y = y.reshape((y.shape[0],) + spec.in_shape)
             out_shape = (y.shape[0],) + spec.out_shape
-            y = conv_ops.deconv_forward(y, params[spec.tied]["w"], spec.ky,
+            y = conv_ops.deconv_forward(y, _p(params[spec.tied]["w"]),
+                                        spec.ky,
                                         spec.kx, spec.padding, spec.sliding,
                                         out_shape)
             if spec.unsafe_padding:
@@ -678,8 +703,12 @@ def forward(params, x, specs, return_logits=False, generator=None,
             y = activations.apply(spec.activation, y)
         elif spec.kind == "dropout":
             if train and generator is not None:
+                # drawn in at least float32: a bfloat16 compute draws
+                # the float32 run's masks
                 keep = torch.rand(y.shape, generator=generator,
-                                  device=y.device, dtype=y.dtype) >= \
+                                  device=y.device,
+                                  dtype=torch.promote_types(
+                                      y.dtype, torch.float32)) >= \
                     spec.ratio
                 y = y * keep.to(y.dtype) / (1.0 - spec.ratio)
         elif spec.kind != "zerofill":  # pragma: no cover
@@ -747,11 +776,15 @@ class _Depooling(torch.autograd.Function):
                 None)
 
 
-def _loss_and_stats(params, x, labels, specs, generator=None):
+def _loss_and_stats(params, x, labels, specs, generator=None,
+                    compute_dtype=None):
     """Mean softmax-CE loss over the rows labelled >= 0, the number of
-    them misclassified, the softmax output and its int32 argmax."""
+    them misclassified, the softmax output and its int32 argmax; the
+    loss is taken in float32 under a ``compute_dtype`` (JAX :805-812)."""
     y = forward(params, x, specs, return_logits=True, generator=generator,
-                train=True)
+                train=True, compute_dtype=compute_dtype)
+    if compute_dtype is not None:
+        y = y.float()
     logp = F.log_softmax(y, dim=1)
     valid = labels >= 0
     lbl = labels.clamp(min=0)
@@ -763,11 +796,16 @@ def _loss_and_stats(params, x, labels, specs, generator=None):
     return loss, (n_err, torch.exp(logp.detach()), max_idx)
 
 
-def _loss_mse(params, x, target, batch_size, specs, generator=None):
+def _loss_mse(params, x, target, batch_size, specs, generator=None,
+              compute_dtype=None):
     """``(loss, output)``: ``sum((y - t)^2) / (2 * batch_size)`` over the
     rows in the batch, whose gradient in ``y`` is the MSE evaluator's
-    ``err_output``, ``(y - t) / batch_size``."""
-    y = forward(params, x, specs, generator=generator, train=True)
+    ``err_output``, ``(y - t) / batch_size``; in float32 under a
+    ``compute_dtype`` (JAX :825-835)."""
+    y = forward(params, x, specs, generator=generator, train=True,
+                compute_dtype=compute_dtype)
+    if compute_dtype is not None:
+        y = y.float()
     b = y.shape[0]
     o2 = y.reshape(b, -1)
     valid = torch.arange(b, device=y.device) < batch_size
@@ -843,12 +881,14 @@ def _grad_step(params, state, specs, hypers, loss_fn, mark=None):
 
 
 def _train_step(params, state, x, labels, specs, generator=None,
-                hypers=None, with_output=False, mark=None):
+                hypers=None, with_output=False, mark=None,
+                compute_dtype=None):
     """One softmax step: ``(new_params, new_state, metrics)`` (see
     :func:`_grad_step` for ``mark``)."""
     new_params, new_state, loss, (n_err, probs, max_idx) = _grad_step(
         params, state, specs, hypers,
-        lambda p: _loss_and_stats(p, x, labels, specs, generator), mark)
+        lambda p: _loss_and_stats(p, x, labels, specs, generator,
+                                  compute_dtype), mark)
     metrics = {"loss": loss, "n_err": n_err}
     if with_output:
         metrics["output"] = probs
@@ -857,11 +897,13 @@ def _train_step(params, state, x, labels, specs, generator=None,
 
 
 def _train_step_mse(params, state, x, target, batch_size, specs,
-                    generator=None, hypers=None, mark=None):
+                    generator=None, hypers=None, mark=None,
+                    compute_dtype=None):
     """One MSE step: ``(new_params, new_state, {"loss", "output"})``."""
     new_params, new_state, loss, y = _grad_step(
         params, state, specs, hypers,
-        lambda p: _loss_mse(p, x, target, batch_size, specs, generator),
+        lambda p: _loss_mse(p, x, target, batch_size, specs, generator,
+                            compute_dtype),
         mark)
     return new_params, new_state, {"loss": loss, "output": y.detach()}
 
@@ -901,15 +943,51 @@ def stack_hypers(hypers, n_steps):
 _TORCH_DTYPES = {numpy.dtype(numpy.float32): torch.float32,
                  numpy.dtype(numpy.float64): torch.float64}
 
+#: the floating dtypes a ``compute_dtype`` may name, by the names the
+#: JAX package's ``astype`` takes (the CLI's ``compute_dtype=bfloat16``)
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                   "half": torch.float16, "float32": torch.float32,
+                   "single": torch.float32, "float64": torch.float64,
+                   "double": torch.float64}
+
+
+def compute_dtype_of(value):
+    """The torch dtype of a ``compute_dtype``: None, a torch floating
+    dtype, a numpy floating dtype or one of the names JAX's ``astype``
+    takes (``"bfloat16"``, ``"float16"``, ``"float32"``, ``"float64"``
+    and numpy's aliases); any other value raises ``TypeError``, as
+    ``astype`` does."""
+    if value is None or isinstance(value, torch.dtype) and \
+            value.is_floating_point:
+        return value
+    name = value if isinstance(value, str) else getattr(
+        value, "__name__", None)
+    if name is None:
+        try:
+            name = numpy.dtype(value).name
+        except TypeError:
+            name = None
+    if name not in _COMPUTE_DTYPES:
+        raise TypeError("compute_dtype %r is not a floating dtype"
+                        % (value,))
+    return _COMPUTE_DTYPES[name]
+
 
 class FusedNet:
     """Trainer for a feed-forward spec stack on one device.
 
     ``device`` is the card (``cuda``) unless the caller passes "cpu";
     without CUDA it raises.  ``pool_impl`` picks every max pool's
-    lowering ("offsets", "gather", or the default "reduce_window"); a
-    pool tied to a depooling records its winners on the forward kernel
-    whatever the choice.  ``dropout_seed`` seeds the net's
+    lowering ("offsets", "gather", "reshape" or the default
+    "reduce_window"; "reshape" lowers avg pools too and needs windows
+    that do not overlap); a pool tied to a depooling records its
+    winners on the forward kernel whatever the choice.
+    ``compute_dtype`` (see :func:`compute_dtype_of`; e.g. "bfloat16")
+    runs the products in that dtype: the parameters and the optimizer
+    state stay in ``dtype``, the gradient reaches them through the
+    cast, the loss, the window accumulators and :meth:`predict`'s
+    answer are float32 and :meth:`set_dataset` stores the rows in it
+    (JAX :1317, :1369-1395, :1490, :1663, :1915).  ``dropout_seed`` seeds the net's
     ``torch.Generator``.  ``objective`` is "softmax" (a softmax head,
     :meth:`step` and the softmax windows) or "mse" (no softmax layer,
     :meth:`step_mse` and the MSE windows, whose stats follow
@@ -923,18 +1001,22 @@ class FusedNet:
             raise NotImplementedError("a mesh is %s" % _LATER)
         if objective not in ("softmax", "mse"):
             raise ValueError("unknown objective %r" % (objective,))
-        if compute_dtype is not None:
-            raise NotImplementedError("compute_dtype is %s" % _LATER)
-        if pool_impl == "reshape":
-            raise NotImplementedError("pool_impl='reshape' is %s" % _LATER)
-        if pool_impl not in (None, "reduce_window", "offsets", "gather"):
+        if pool_impl not in (None, "reduce_window", "offsets", "gather",
+                             "reshape"):
             raise ValueError("unknown pool_impl %r" % (pool_impl,))
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.device = default_device(device)
         full_f32(self.device)
         deterministic(self.device)
         self.specs = build_specs(layers, input_sample_shape, defaults)
         for spec in self.specs:
             if spec.kind == "pool" and not spec.record_offsets:
+                if pool_impl == "reshape" and \
+                        tuple(spec.sliding) != (spec.kx, spec.ky):
+                    raise ValueError(
+                        "pool_impl='reshape' needs sliding == kernel "
+                        "(got %r vs (%d, %d))"
+                        % (spec.sliding, spec.kx, spec.ky))
                 spec.impl = pool_impl or "reduce_window"
         if objective == "mse":
             if any(s.is_softmax for s in self.specs):
@@ -952,6 +1034,9 @@ class FusedNet:
         self.objective = objective
         self.dtype = numpy.dtype(dtype)
         self._tdtype = _TORCH_DTYPES[self.dtype]
+        #: the dtype of the loss, the accumulators and predict's answer
+        self._out_tdtype = torch.float32 if self.compute_dtype is not None \
+            else self._tdtype
         self._win_acc = None
         self._data_d = self._labels_d = self._targets_d = None
         self._data_p = self._labels_p = self._targets_p = None
@@ -1026,7 +1111,7 @@ class FusedNet:
             self.params, self.state, metrics = _train_step(
                 self.params, self.state, x, labels, self.specs, self._gen,
                 self.hypers if hypers is None else hypers, with_output=True,
-                mark=mark)
+                mark=mark, compute_dtype=self.compute_dtype)
         return metrics
 
     def step_mse(self, x, target, batch_size=None, hypers=None, mark=None):
@@ -1042,7 +1127,8 @@ class FusedNet:
                 self.params, self.state, x, t,
                 x.shape[0] if batch_size is None else int(batch_size),
                 self.specs, self._gen,
-                self.hypers if hypers is None else hypers, mark)
+                self.hypers if hypers is None else hypers, mark,
+                self.compute_dtype)
         return metrics
 
     def run_steps(self, xs, labels_s):
@@ -1055,7 +1141,7 @@ class FusedNet:
             x, lbl = self._batch(x, lbl)
             self.params, self.state, m = _train_step(
                 self.params, self.state, x, lbl, self.specs, self._gen,
-                self.hypers)
+                self.hypers, compute_dtype=self.compute_dtype)
             losses.append(m["loss"])
             errs.append(m["n_err"])
         return {"loss": torch.stack(losses), "n_err": torch.stack(errs)}
@@ -1064,13 +1150,18 @@ class FusedNet:
     def set_dataset(self, data, labels, targets=None):
         """Place the whole training set on the device once (rows and
         the MSE objective's ``targets`` in the net's dtype, labels int32;
-        no labels: -1 each)."""
+        no labels: -1 each).  Under a ``compute_dtype`` the rows are
+        stored in it, since the forward's cast commutes with the row
+        gather, and the targets in float32, which the loss reads
+        unrounded (JAX :1369-1395)."""
         self._data_d, self._labels_d = self._batch(
             numpy.ascontiguousarray(data),
             numpy.full(len(data), -1, numpy.int32)
             if labels is None or not len(labels) else labels)
+        if self.compute_dtype is not None:
+            self._data_d = self._data_d.to(self.compute_dtype)
         self._targets_d = None if targets is None else self._batch(
-            numpy.ascontiguousarray(targets))[0]
+            numpy.ascontiguousarray(targets))[0].to(self._out_tdtype)
         self._data_p = self._labels_p = self._targets_p = None
 
     @property
@@ -1119,7 +1210,7 @@ class FusedNet:
         nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
         conf = torch.zeros((n_classes, n_classes), dtype=torch.int32,
                            device=self.device)
-        mx = torch.zeros((), dtype=self._tdtype, device=self.device)
+        mx = torch.zeros((), dtype=self._out_tdtype, device=self.device)
         rows = torch.arange(batch, device=self.device)
         sizes = numpy.asarray(batch_sizes, dtype=numpy.int64)
         losses = []
@@ -1131,7 +1222,7 @@ class FusedNet:
             hy = _hypers_at(hypers_s, k)
             self.params, self.state, m = _train_step(
                 self.params, self.state, x, lbl, self.specs, self._gen, hy,
-                with_output=True)
+                with_output=True, compute_dtype=self.compute_dtype)
             d_nerr, d_conf, d_mx = evaluator.eval_stats(
                 m["output"], m["max_idx"], lbl, bs, n_classes,
                 mean=self.stats_mean)
@@ -1213,7 +1304,7 @@ class FusedNet:
         key = (ct.shape, ct.tobytes())
         if self._ct_cache is None or self._ct_cache[0] != key:
             self._ct_cache = (key, torch.from_numpy(ct.copy()).to(
-                self.device))
+                self.device, self._out_tdtype))
         return self._ct_cache[1]
 
     def _run_window_mse(self, form, n_steps, batch, fetch, batch_sizes,
@@ -1234,7 +1325,7 @@ class FusedNet:
     def _window_steps_mse(self, n_steps, batch, fetch, batch_sizes,
                           hypers_s):
         root, ct = bool(self.mse_root), self._class_targets_tensor()
-        zero = torch.zeros((), dtype=self._tdtype, device=self.device)
+        zero = torch.zeros((), dtype=self._out_tdtype, device=self.device)
         msum, mmax, mmin = zero, zero, zero + float("inf")
         nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
         rows = torch.arange(batch, device=self.device)
@@ -1246,8 +1337,10 @@ class FusedNet:
             bs = int(sizes[k])
             self.params, self.state, m = _train_step_mse(
                 self.params, self.state, x, t, bs, self.specs, self._gen,
-                _hypers_at(hypers_s, k))
-            _, md, mse_per = evaluator.mse(m["output"], t, bs, root=root)
+                _hypers_at(hypers_s, k), compute_dtype=self.compute_dtype)
+            _, md, mse_per = evaluator.mse(m["output"],
+                                           t.to(self._out_tdtype), bs,
+                                           root=root)
             msum = msum + md[0]
             mmax = torch.maximum(mmax, md[1])
             mmin = torch.minimum(mmin, md[2])
@@ -1322,14 +1415,16 @@ class FusedNet:
     def window_acc_zeros(self):
         """Host zeros of the epoch accumulator (the MSE metrics' min at
         inf)."""
+        out_dtype = numpy.float32 if self.compute_dtype is not None \
+            else self.dtype
         if self.objective == "mse":
-            return {"metrics": numpy.array([0, 0, numpy.inf], self.dtype),
+            return {"metrics": numpy.array([0, 0, numpy.inf], out_dtype),
                     "n_err": numpy.zeros(2, numpy.int32)}
         n_classes = int(self.specs[-1].n_out)
         return {"n_err": numpy.zeros(2, numpy.int32),
                 "confusion": numpy.zeros((n_classes, n_classes),
                                          numpy.int32),
-                "max_err_sum": numpy.zeros((), self.dtype)}
+                "max_err_sum": numpy.zeros((), out_dtype)}
 
     def _window_acc(self):
         if self._win_acc is None:
@@ -1360,7 +1455,16 @@ class FusedNet:
     def set_window_acc(self, acc):
         """Restore a host copy of the accumulator (:meth:`window_acc_host`
         output, or None for zeros) — a mid-segment snapshot's."""
-        self._win_acc = None if acc is None else self._place(acc)
+        if acc is None:
+            self._win_acc = None
+            return
+
+        def put(v):
+            t = torch.as_tensor(numpy.asarray(v))
+            if t.is_floating_point():
+                t = t.to(self._out_tdtype)
+            return t.to(self.device)
+        self._win_acc = tree_map(put, acc)
 
     # -- reads ----------------------------------------------------------------
     def host_fetch(self, tree):
@@ -1382,9 +1486,10 @@ class FusedNet:
 
     def _forward_eval(self, x):
         with torch.no_grad():
-            return forward(self.params, x, self.specs,
-                           generator=self._gen if self._has_stochastic
-                           else None)
+            y = forward(self.params, x, self.specs,
+                        generator=self._gen if self._has_stochastic
+                        else None, compute_dtype=self.compute_dtype)
+            return y.to(self._out_tdtype)
 
     def predict(self, x):
         """The output of a batch (softmax, or the MSE objective's

@@ -13,9 +13,10 @@ synthetic fallback.
 
 Parity trains on the fused graph unless ``fused=None``, after a short
 cross-check of the first minibatches against the unit graph.  The
-port's fused trainer has no bf16 compute, so the default ("auto")
-parity config is the fused graph in float32, where the JAX package's
-is bf16 with a float32 retry.
+default ("auto") parity config is the JAX package's: the fused graph
+with bfloat16 products over float32 master weights, and a row that
+misses its bar in bfloat16 is trained again in float32 on the same
+path (``znicz_tpu/parity.py:248-297``).
 """
 
 import gzip
@@ -235,8 +236,9 @@ def run_parity(sample, device=None, data_dir=None, fused="auto",
     its stopping criterion on ``device`` (the card unless "cpu") and
     print the table; returns the rows ``(label, reference err %, our
     err %)``.  ``fused`` "auto" or True is the fused graph's default
-    config, a dict overrides it (e.g. ``{"window": 1}``), None trains
-    the unit graph."""
+    parity config, ``{"compute_dtype": "bfloat16"}`` with a float32
+    retry of a row that misses its bar; a dict overrides it (e.g.
+    ``{"window": 1}``), None trains the unit graph."""
     if sample not in PARITY_RUNS:
         raise SystemExit(
             "no parity baseline registered for %r (have: %s)"
@@ -246,7 +248,7 @@ def run_parity(sample, device=None, data_dir=None, fused="auto",
     data_dir = ensure_dataset(sample, directory=data_dir)
     module = importlib.import_module("znicz_tpu_torch.samples." + sample)
     if fused == "auto" or fused is True:
-        fused = {}
+        fused = {"compute_dtype": "bfloat16"}
     loader_config = {"synthetic": False, "data_path": data_dir}
     rows = []
     for label, ref_err, opts in PARITY_RUNS[sample]:
@@ -257,10 +259,25 @@ def run_parity(sample, device=None, data_dir=None, fused="auto",
         if fused is not None and cross_check:
             _cross_check(module, kwargs, loader_config, fused, device,
                          n_minibatches=cross_check)
-        wf = _seeded_build(module, kwargs, loader_config, fused, device)
-        wf.run()
-        ours = wf.decision.best_n_err_pt[1]
-        mode = "unit graph" if fused is None else "fused f32"
+
+        def train_full(fused_cfg):
+            wf = _seeded_build(module, kwargs, loader_config, fused_cfg,
+                               device)
+            wf.run()
+            return wf.decision.best_n_err_pt[1]
+
+        ours = train_full(fused)
+        bf16 = fused is not None and fused.get("compute_dtype") is not None
+        mode = "unit graph" if fused is None else \
+            "fused bf16" if bf16 else "fused f32"
+        if bf16 and (ours is None or ours > ref_err + TOLERANCE_PT):
+            # bf16 missed the bar: the row again in f32 on the same path
+            print("| %-22s | bf16 %s missed %.2f%% bar; retrying f32 |"
+                  % (label, "%.2f%%" % ours if ours is not None else "n/a",
+                     ref_err))
+            ours_f32 = train_full(dict(fused, compute_dtype=None))
+            if ours is None or (ours_f32 is not None and ours_f32 < ours):
+                ours, mode = ours_f32, "fused f32"
         rows.append((label, ref_err, ours))
         print("| %-22s | reference %6.2f%% | ours %8s (%s) | %s |"
               % (label, ref_err,

@@ -142,6 +142,12 @@ def run(load, main):
     main()
 
 
+# --optimize trains a whole GA generation as one batched computation a
+# step by default: the generic Range-site mapping in
+# __main__.run_genetics finds root.cifar itself, so this sample needs no
+# population_evaluator of its own.
+
+
 #: the MLP (the reference's cifar_config.py)
 root.cifar_mlp.update({
     "layers": [

@@ -164,3 +164,9 @@ def run(load, main):
     """The launcher contract (``python -m znicz_tpu_torch mnist``)."""
     load(build)
     main()
+
+
+# --optimize trains a whole GA generation as one batched computation a
+# step by default: the generic Range-site mapping in
+# __main__.run_genetics finds root.mnistr itself, so this sample needs no
+# population_evaluator of its own.

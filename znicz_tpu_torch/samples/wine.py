@@ -12,9 +12,10 @@ reference's canonical training loop wired unit by unit on an
       -> GDSoftmax -> GDTanh ... -> (back to repeater) / end_point
 
 :func:`run_sample` and :func:`run`, the launcher contract.  The data is
-:class:`~znicz_tpu_torch.loader.loader_wine.WineLoader`'s.  The JAX
-module's ``population_evaluator`` (the genetic optimizer's fused
-generation) is not in this slice of the port (``ROADMAP.md``).
+:class:`~znicz_tpu_torch.loader.loader_wine.WineLoader`'s.
+:func:`population_evaluator` is ``--optimize``'s population path, a
+whole generation trained at once (:mod:`znicz_tpu_torch.parallel.
+population`).
 """
 
 from znicz_tpu_torch.core.config import root
@@ -138,3 +139,41 @@ def run(load, main):
     """The launcher contract (``python -m znicz_tpu_torch wine``)."""
     load(WineWorkflow)
     main()
+
+
+def population_evaluator(sites, epochs=None, seed=12, device=None):
+    """``--optimize``'s population path for Wine (JAX :138): the
+    topology of ``root.wine.layers`` as fused layers, every Range site
+    with a key of ``population.HYPER_KEYS`` mapped onto their hyper
+    slots, and a generation trained as one batched computation a step
+    on ``device`` (the card unless "cpu") over all 178 rows; None (the
+    serial fallback) where a site is no hyper slot."""
+    import numpy
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.workflow import Workflow
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.parallel.population import (
+        config_values_to_hypers, make_population_evaluator)
+    n_hidden, n_classes = root.wine.layers
+    layers = [
+        {"type": "all2all_tanh",
+         "->": {"output_sample_shape": int(n_hidden)}},
+        {"type": "softmax", "->": {"output_sample_shape": int(n_classes)}},
+    ]
+    defaults = {"wd": float(root.wine.weights_decay),
+                "lr": float(root.wine.learning_rate)}
+    loader = WineLoader(Workflow(None),
+                        minibatch_size=root.wine.loader.minibatch_size)
+    loader.initialize()
+    x = numpy.array(loader.original_data.mem)
+    y = numpy.array(loader.original_labels, dtype=numpy.int32)
+    specs = tuple(fused.build_specs(layers, x.shape[1], defaults))
+    mapper = config_values_to_hypers(sites, layers, specs)
+    if mapper is None:
+        return None
+    return make_population_evaluator(
+        layers, x.shape[1], x, y, x, y, mapper,
+        epochs=epochs or int(root.wine.decision.max_epochs),
+        minibatch_size=int(root.wine.loader.minibatch_size),
+        rand=prng.RandomGenerator().seed(seed), defaults=defaults,
+        device=device)

@@ -72,7 +72,7 @@ wait, host collection, dispatch, device and readback (JAX :537-539,
 
 Not in this slice of the port (each raises, see ``ROADMAP.md``): the
 JAX trainer's other keys (:attr:`FusedForwardBackward.LATER_KEYS`: the
-mesh and ``compute_dtype``).
+mesh).
 """
 
 import collections
@@ -232,6 +232,8 @@ class FusedForwardBackward(Unit):
     "offsets" runs the hand-written kernels on the card; "gather"),
     ``dtype`` (default
     ``root.common.engine.precision_dtype``, else float32),
+    ``compute_dtype`` (None, or the dtype the products run in, e.g.
+    "bfloat16": ``fused.compute_dtype_of``; JAX :195, :382),
     ``dropout_seed``, ``window`` (default 8 where the loader's rows
     can be gathered on the device, else 1: a step a minibatch),
     ``device_data`` ("auto", True or False: whether a window reads its
@@ -245,10 +247,11 @@ class FusedForwardBackward(Unit):
     staging ring holds one more), as the JAX trainer takes them."""
 
     #: the JAX trainer's keys this slice of the port leaves out
-    LATER_KEYS = ("mesh", "model_parallel", "compute_dtype")
+    LATER_KEYS = ("mesh", "model_parallel")
 
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
-                 dropout_seed=0, window=None, loss="softmax",
+                 compute_dtype=None, dropout_seed=0, window=None,
+                 loss="softmax",
                  device_data="auto", device_perm="auto",
                  async_windows=True, pipeline_depth=2, defaults=None,
                  rand=None, **kwargs):
@@ -273,6 +276,7 @@ class FusedForwardBackward(Unit):
         self.rand = rand
         self.pool_impl = pool_impl
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
         self.dropout_seed = dropout_seed
         self.window = None if window is None else int(window)
         self.loss = loss
@@ -386,7 +390,8 @@ class FusedForwardBackward(Unit):
             rand=self.rand if self.rand is not None else prng.get(),
             dtype=dtype, defaults=self.defaults,
             dropout_seed=self.dropout_seed, pool_impl=self.pool_impl,
-            objective=self.loss, device=device)
+            compute_dtype=self.compute_dtype, objective=self.loss,
+            device=device)
         self.net.stats_mean = bool(self.stats_mean)
         if self.loss == "mse":
             self.net.mse_root = bool(self.stats_root)
