@@ -214,6 +214,34 @@ failure (the script then exits non-zero and prints no result line):
    trainer's ``weight_views``: each view the net's live tensor at the
    end, one readback in the TRAIN segment, the grids equal to the live
    weights';
+8c. loaders — the data paths a user feeds a real dataset through, on
+   files written under ``build/`` from seeds with numpy: (a) AlexNet's
+   unit graph through the CLI from a workflow file in the reference
+   imagenet workflow's shape (repeater, ``imagenet_loader_base``,
+   ``link_meandispnorm`` on the loader's own mean and 1 / (std + 1),
+   the forwards, evaluator, decision, snapshotter, GD units, loop) over
+   ImagenetLoaderBase's ``samples.dat`` (512 TRAIN / 128 VALID uint8
+   rows at 227x227x3, 98.9 MB, 10 classes), batch 128, 2 epochs: 30
+   forward / 24 backward launches, all 16-byte, no plain pooling; every
+   served minibatch's bytes and labels the files' at its indices; the
+   normalizer's first output within 1e-6 of the host's; ``samples.dat``
+   closed once the run returned; a second run from the same seeds
+   bit-equal; (b) its extracted forward workflow behind an
+   ``InteractiveLoader`` fed the VALID rows, normalized, with a
+   ``LabelsPrinter`` on ``max_idx``, a ``FixAccumulator`` (relu) on
+   relu7 and a ``RangeAccumulator`` on the softmax: the tally and the
+   bars equal the host's, at most one readback a fire; (c) CIFAR caffe's
+   unit graph over two Caffe LMDBs (``write_lmdb``, 2,000 / 500 CHW
+   Datums, ``normalization_type="linear"``), minibatch 100, 2 epochs:
+   50 / 40 launches, every minibatch the Datums' images in HWC; (d)
+   CIFAR caffe ``--fused pool_impl=offsets`` over CIFAR batch pickles of
+   the same rows: the loader's data and labels (c)'s, one launch of each
+   kernel a step (the forward also a VALID minibatch), one readback a
+   TRAIN segment; (e) ``testing.run_both_backends`` on the maximum
+   pooling unit at (8,55,55,96) at ``atol=0`` and an ``AcceleratedTest``
+   under ``unittest``; prints the phase's seconds and each run's images/s
+   and host ms a minibatch (the loader's fill, the normalizer's upload)
+   beside the alexnet_units run's;
 9. units — the MNIST conv sample (``root.mnistr_conv``, published
    widths 64 / 87 / 791 / 10) trained by the unit-at-a-time graph
    through the workflow CLI (a workflow file building
@@ -430,8 +458,10 @@ failure (the script then exits non-zero and prints no result line):
     AlexNet package: the real CLI, ``python -m znicz_tpu_torch serve
     alexnet=ZIP --fleet 2 --port 0`` (``--max-body-bytes`` 256 MB,
     ``slo_enabled``, ``trace_sample_n=1``, ``wire.max_frame_mb=64``, the
-    blackbox armed under ``build/``), its banner parsed, both replicas
-    on ``cuda`` and the card's name, 0 libraries built by either.
+    blackbox armed under ``build/``, ``--compile-cache`` on a fresh
+    directory under ``build/``), its banner parsed, both replicas on
+    ``cuda`` and the card's name, their kernel libraries built into
+    that directory.
     Batches of 1, 8, 32 and 64 as ``.npy`` over HTTP and over the
     router's wire, JSON at batch 1: each within ``LOG_P_TOL`` of an
     in-process ``InferenceEngine`` on the card, the codecs bit-equal,
@@ -446,7 +476,9 @@ failure (the script then exits non-zero and prints no result line):
     over the blackbox answering the same tree.  A replica SIGKILLed
     mid-burst: every request 200 or an honest 503 that the survivor
     never admitted, the dead one ejected, ``POST /fleet/scale_up``
-    bringing one that builds nothing and answers the survivor's bytes;
+    bringing one that builds nothing, loads both libraries from the
+    compile cache's directory (its ``/statusz`` ``compile_cache`` block)
+    and answers the survivor's bytes;
     ``POST /fleet/retire`` mid-burst losing nothing, exit 0; SIGTERM:
     the CLI exits 0 and no replica pid is left (``ps``,
     ``nvidia-smi --query-compute-apps``).  Prints the router's overhead
@@ -566,6 +598,8 @@ retired replica's leave with it) and over the release phase's
 forward workflows (``lines_extract``) and its two served packages
 (``lines_serve``), and the aux phase's five runs (``aux_avatar``,
 ``aux_alexnet``, ``aux_mnist``, ``aux_mnist_replay``, ``aux_fused``)
+and the loaders phase's three training runs (``imagenet_stream``,
+``cifar_lmdb``, ``cifar_pickles_fused``)
 (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
@@ -580,8 +614,8 @@ each stage) and
 ``launches`` counts the train epochs', the workflow run's, the
 resilience phase's two paths', the profile phase's, both unit graphs',
 the autoencoder
-paths', the CIFAR, STL-10 and Lines graphs', ImagenetAE's and the aux
-phase's.
+paths', the CIFAR, STL-10 and Lines graphs', ImagenetAE's, the aux
+phase's and the loaders phase's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -5324,6 +5358,617 @@ def _aux_fused(torch, probe, cli, prng, wf_file, card):
     return launches
 
 
+#: the loaders phase: the files written under LOADERS_DIR from seeds
+#: with numpy; ImagenetLoaderBase's set at AlexNet's 227x227x3 (98.9 MB
+#: of uint8 samples), 512 TRAIN and 128 VALID rows of 10 classes, 2
+#: epochs at batch TRAIN_BATCH through the unit graph; the Caffe LMDB
+#: and CIFAR pickles of 2,000 TRAIN and 500 VALID 32x32x3 rows at
+#: minibatch CIFAR_BATCH, 2 epochs
+LOADERS_DIR = os.path.join(HERE, "build", "znicz_tpu_torch", "loaders")
+IMAGENET_TRAIN, IMAGENET_VALID, IMAGENET_EPOCHS = 512, 128, 2
+IMAGENET_SIZE, IMAGENET_SEED = 227, 21
+LMDB_TRAIN, LMDB_VALID, LMDB_EPOCHS, LMDB_SEED = 2000, 500, 2, 22
+#: the normalizer's first output on the card against the host's
+#: (x - mean) * rdisp in float32, absolute
+LOADERS_NORM_ATOL = 1e-6
+#: the harness's maximum pooling unit (run_both_backends, atol 0)
+HARNESS_SHAPE = (8, 55, 55, 96)
+IMAGENET_WF = '''"""AlexNet's unit graph over ImagenetLoaderBase's files: the reference
+imagenet workflow's shape, the minibatches normalized on the card by
+MeanDispNormalizer from the loader's own mean and rdisp."""
+import os
+
+import znicz_tpu_torch.loader  # noqa: F401 (imagenet_loader_base)
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.samples import alexnet
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def build(**kwargs):
+    cfg = root.alexnet
+    wf = alexnet.AlexNetWorkflow(
+        layers=alexnet.make_layers(%d), loader_name="imagenet_loader_base",
+        loader_config={
+            "minibatch_size": cfg.loader.minibatch_size,
+            "sy": %d, "sx": %d, "channels": 3,
+            "samples_filename": os.path.join(HERE, "samples.dat"),
+            "original_labels_filename": os.path.join(HERE, "labels.pickle"),
+            "count_samples_filename": os.path.join(HERE, "count.json"),
+            "matrixes_filename": os.path.join(HERE, "matrixes.pickle")},
+        decision_config=cfg.decision.as_dict(),
+        snapshotter_config=cfg.snapshotter.as_dict(),
+        loss_function="softmax", preprocessing=True, **kwargs)
+    wf.link_repeater(wf.start_point)
+    wf.link_loader(wf.repeater)
+    norm = wf.link_meandispnorm(wf.loader)
+    wf.link_forwards(("input", "output"), norm)
+    wf.link_evaluator(wf.forwards[-1])
+    wf.link_decision(wf.evaluator)
+    wf.link_snapshotter(wf.decision)
+    last_gd = wf.link_gds(wf.snapshotter)
+    wf.link_loop(last_gd)
+    wf.link_end_point(last_gd)
+    return wf
+
+
+def run(load, main):
+    load(build)
+    main()
+''' % (TRAIN_CLASSES, IMAGENET_SIZE, IMAGENET_SIZE)
+
+
+def _imagenet_files(directory):
+    """ImagenetLoaderBase's four files from IMAGENET_SEED: the uint8
+    samples laid out [VALID | TRAIN], the (text, int) labels, the counts
+    and the ``[mean, 1 / (std + 1)]`` matrixes (float32, element by
+    element over the rows).  Returns (samples, labels)."""
+    import numpy
+    import pickle
+    n = IMAGENET_TRAIN + IMAGENET_VALID
+    r = numpy.random.RandomState(IMAGENET_SEED)
+    samples = r.randint(0, 256, (n, IMAGENET_SIZE, IMAGENET_SIZE, 3),
+                        dtype=numpy.uint8)
+    labels = r.randint(0, TRAIN_CLASSES, n).astype(numpy.int32)
+    samples.tofile(os.path.join(directory, "samples.dat"))
+    with open(os.path.join(directory, "labels.pickle"), "wb") as f:
+        pickle.dump([("class_%d" % v, int(v)) for v in labels], f)
+    with open(os.path.join(directory, "count.json"), "w") as f:
+        json.dump({"test": 0, "val": IMAGENET_VALID,
+                   "train": IMAGENET_TRAIN}, f)
+    flat = samples.reshape(n, -1)
+    mean = flat.mean(axis=0, dtype=numpy.float64)
+    std = flat.std(axis=0, dtype=numpy.float64)
+    with open(os.path.join(directory, "matrixes.pickle"), "wb") as f:
+        pickle.dump([mean.astype(numpy.float32).reshape(samples.shape[1:]),
+                     (1.0 / (std + 1.0)).astype(numpy.float32).reshape(
+                         samples.shape[1:])], f)
+    return samples, labels
+
+
+class _ServedRows(object):
+    """While installed (``with``), each ``fill_minibatch`` of ``cls`` is
+    held against ``expect(loader, indices)`` (the minibatch's rows and
+    labels): its bytes and labels must equal them; the fills' host
+    seconds are kept (``fill_s``)."""
+
+    def __init__(self, cls, expect):
+        self.cls, self.expect = cls, expect
+        self.saved = cls.__dict__.get("fill_minibatch")
+        self.real = cls.fill_minibatch
+        #: the fills' seconds, and the checks' (inside the loader's
+        #: serve, so its run time less these is the serve unchecked)
+        self.fill_s, self.check_s, self.rows = [], [], 0
+
+    def __enter__(self):
+        import numpy
+        probe, real = self, self.real
+
+        def fill_minibatch(loader):
+            t0 = time.perf_counter()
+            real(loader)
+            t1 = time.perf_counter()
+            probe.fill_s.append(t1 - t0)
+            n = int(loader.minibatch_size)
+            idx = numpy.array(loader.minibatch_indices.mem[:n])
+            data, labels = probe.expect(loader, idx)
+            got = loader.minibatch_data.mem[:n]
+            if got.dtype != data.dtype or not numpy.array_equal(
+                    got.view(numpy.uint8), data.view(numpy.uint8)) or \
+                    not numpy.array_equal(
+                        loader.minibatch_labels.mem[:n], labels):
+                raise RuntimeError("%s served rows or labels other than the "
+                                   "files' at %s" % (loader.name, idx[:8]))
+            probe.rows += n
+            probe.check_s.append(time.perf_counter() - t1)
+        self.cls.fill_minibatch = fill_minibatch
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:   # inherited: the class held none
+            del self.cls.fill_minibatch
+        else:
+            self.cls.fill_minibatch = self.saved
+
+
+def phase_loaders(torch, card, units_ref):
+    """The data paths a user feeds a real dataset through: (a) AlexNet's
+    unit graph over ImagenetLoaderBase's ``samples.dat`` behind the
+    mean/disp normalizer, through the workflow CLI, twice; (b) its
+    extracted forward workflow with a LabelsPrinter and the two
+    accumulators; (c) CIFAR caffe's unit graph over a Caffe LMDB; (d)
+    CIFAR caffe fused over CIFAR batch pickles of the same rows; (e)
+    ``testing.run_both_backends`` and an ``AcceleratedTest`` on the
+    maximum pooling unit.  ``units_ref`` is the alexnet_units run's
+    rates and loader ms.  Returns the launches of each path."""
+    import shutil
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.samples import alexnet, cifar  # noqa: F401
+    t0 = time.perf_counter()
+    shutil.rmtree(LOADERS_DIR, ignore_errors=True)
+    os.makedirs(LOADERS_DIR)
+    samples, labels = _imagenet_files(LOADERS_DIR)
+    wf_file = os.path.join(LOADERS_DIR, "imagenet_stream_wf.py")
+    with open(wf_file, "w") as f:
+        f.write(IMAGENET_WF)
+    say("== loaders: ImagenetLoaderBase's files (%d rows of %dx%dx3 uint8, "
+        "%.1f MB) written in %.2f s" % (
+            len(samples), IMAGENET_SIZE, IMAGENET_SIZE, samples.nbytes / 1e6,
+            time.perf_counter() - t0))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _UnitsProbe(torch)
+    paths = {}
+    try:
+        with _ConfigRestored(root.common, root.alexnet, root.cifar):
+            paths["imagenet_stream"], run = _imagenet_stream(
+                torch, probe, cli, prng, wf_file, samples, labels, units_ref,
+                card)
+            _imagenet_forward(torch, run, samples, card)
+            del run
+            gc.collect()
+            lmdb_paths = _cifar_loaders(torch, probe, cli, prng, card)
+            paths.update(lmdb_paths)
+    finally:
+        probe.close()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(LOADERS_DIR, ignore_errors=True)
+    _harness_on_card(torch, card)
+    # the workflows' cycles hold card memory until a collection, which
+    # would otherwise fall inside a later phase's measurement
+    gc.collect()
+    say("   loaders: %.2f s; %s" % (time.perf_counter() - t0, card))
+    return paths
+
+
+def _imagenet_stream(torch, probe, cli, prng, wf_file, samples, labels,
+                     units_ref, card):
+    """(a): the CLI twice from the same seeds, every served row and
+    label the files', the normalizer's first output against the host's,
+    3 forward launches a minibatch and 3 backward a TRAIN minibatch, the
+    file closed once each run returned, the second run bit-equal to the
+    first.  Returns the first run's launches and record."""
+    import numpy
+    from znicz_tpu_torch.loader.imagenet_loader import ImagenetLoaderBase
+    from znicz_tpu_torch.units.mean_disp_normalizer import \
+        MeanDispNormalizer
+    argv = [wf_file]
+    for key, value in (("loader.minibatch_size", TRAIN_BATCH),
+                       ("decision.max_epochs", IMAGENET_EPOCHS),
+                       ("snapshotter.interval", NO_SNAPSHOT),
+                       ("snapshotter.directory",
+                        os.path.join(LOADERS_DIR, "snaps"))):
+        argv += ["--config", "alexnet.%s=%s" % (key, value)]
+    say("== loaders (a): python -m znicz_tpu_torch %s" % " ".join(
+        [os.path.basename(wf_file)] + argv[1:]).replace(LOADERS_DIR,
+                                                        "build/..."))
+    served = _ServedRows(ImagenetLoaderBase,
+                         lambda loader, idx: (samples[idx], labels[idx]))
+    first_norm = {}
+    real_norm = MeanDispNormalizer.run
+
+    def norm_run(unit):
+        real_norm(unit)
+        if not first_norm:
+            probe.readbacks.paused = True
+            try:
+                got = unit.output.dev.cpu().numpy()
+            finally:
+                probe.readbacks.paused = False
+            x = unit.input.mem.astype(numpy.float32)
+            want = (x - unit.mean.mem) * unit.rdisp.mem
+            first_norm.update(err=float(numpy.abs(got - want).max()),
+                              dtype=str(got.dtype), device=str(
+                                  unit.output.dev.device))
+    train_mb = -(-IMAGENET_TRAIN // TRAIN_BATCH)
+    valid_mb = -(-IMAGENET_VALID // TRAIN_BATCH)
+    n_mb = (train_mb + valid_mb) * IMAGENET_EPOCHS
+    MeanDispNormalizer.run = norm_run
+    try:
+        _zero_counts()
+        probe.readbacks.counts.clear()
+        probe.readbacks.syncs.clear()
+        with probe.readbacks, served:
+            run = _units_run(probe, cli, prng, argv)
+        launches = _counts()
+        wf = run["wf"]
+        closed = wf.loader._file_samples is None
+        if type(wf.loader) is not ImagenetLoaderBase or \
+                wf.loader.minibatch_data.dtype != numpy.uint8:
+            raise RuntimeError("the run's loader is %r serving %s" % (
+                wf.loader, wf.loader.minibatch_data.dtype))
+        _check_graph_run(
+            torch, probe, run, launches,
+            {"forward": 3 * n_mb, "forward_by_width": {WIDE: 3 * n_mb,
+                                                       NARROW: 0},
+             "backward": 3 * train_mb * IMAGENET_EPOCHS,
+             "backward_by_width": {WIDE: 3 * train_mb * IMAGENET_EPOCHS,
+                                   NARROW: 0},
+             "plain_on_card": 0},
+            "3 forward launches a minibatch and 3 backward a TRAIN "
+            "minibatch, all at 16-byte vectors",
+            (IMAGENET_TRAIN, IMAGENET_VALID, TRAIN_BATCH, IMAGENET_EPOCHS),
+            ALEXNET_SHAPES, card, "unit graph over samples.dat")
+        if served.rows != (IMAGENET_TRAIN + IMAGENET_VALID) * \
+                IMAGENET_EPOCHS or not closed:
+            raise RuntimeError("samples.dat served %d rows (closed after "
+                               "the run: %s)" % (served.rows, closed))
+        if first_norm.get("err", 1.0) > LOADERS_NORM_ATOL or \
+                first_norm["dtype"] != "float32" or \
+                not first_norm["device"].startswith("cuda"):
+            raise RuntimeError("the normalizer's first output: %s"
+                               % first_norm)
+        norm = wf.meandispnorm
+        fill_ms = 1e3 * sum(served.fill_s) / len(served.fill_s)
+        serve_ms = 1e3 * (wf.loader.run_time_ - sum(served.check_s)) / \
+            wf.loader.run_count_
+        segs = run["segments"]
+        last = {k: segs[-1]["unit_s"][k] - segs[-3]["unit_s"][k]
+                for k in ("loader", "meandispnorm")}
+        say("   every served minibatch's bytes and labels equal samples.dat's "
+            "rows and the labels pickle's at minibatch_indices (%d rows); "
+            "the normalizer's first output (%s on %s) within %.3g of the "
+            "host's (x - mean) * rdisp; samples.dat closed once the run "
+            "returned" % (served.rows, first_norm["dtype"],
+                          first_norm["device"], first_norm["err"]))
+        say("   host ms a minibatch over the run's %d: the loader's serve "
+            "%.4f (this phase's row checks taken out; its per-row seek/read "
+            "fill %.4f), the normalizer's upload of the uint8 minibatch and "
+            "its (x - mean) * rdisp %.4f; in the last epoch (%d "
+            "minibatches, checks in) the loader %.4f and the normalizer "
+            "%.4f; the alexnet_units run (synthetic rows, normalized on the "
+            "host): TRAIN images/s by epoch %s, its loader %.4f ms a "
+            "minibatch; %s" % (
+                norm.run_count_, serve_ms, fill_ms,
+                1e3 * norm.run_time_ / norm.run_count_,
+                train_mb + valid_mb,
+                1e3 * last["loader"] / (train_mb + valid_mb),
+                1e3 * last["meandispnorm"] / (train_mb + valid_mb),
+                " ".join("%.1f" % r for r in units_ref["rates"]),
+                units_ref["loader_ms"], card))
+        t1 = time.perf_counter()
+        served.rows = 0
+        with served:
+            replay = _units_run(probe, cli, prng, argv)
+        if _units_segments(replay["segments"]) != \
+                _units_segments(run["segments"]):
+            raise RuntimeError("the second samples.dat run's segment stats "
+                               "differ from the first's")
+        _units_equal(replay["state"], run["state"], "the second samples.dat "
+                     "run")
+        say("   a second CLI run from the same seeds: per-class n_err and "
+            "confusion by epoch, the weights, the optimizer Arrays and the "
+            "dropout generators bit-equal (%.2f s)"
+            % (time.perf_counter() - t1))
+        del replay
+    finally:
+        MeanDispNormalizer.run = real_norm
+    return launches, run
+
+
+def _fix_bars(vals, bars, lo, hi):
+    """FixAccumulator's bars of one fire over a zeroed histogram, by
+    JAX's rule, in numpy."""
+    import numpy
+    out = numpy.zeros(bars + 2, numpy.int64)
+    scale = (bars - 1) / (hi - lo)
+    below = vals < lo
+    inside = (vals > lo) & (vals <= hi)
+    out[0] += int(below.sum())
+    out[bars + 1] += int((~below & ~inside).sum())
+    numpy.add.at(out, numpy.floor((vals[inside] - lo) * scale).astype(int),
+                 1)
+    return out
+
+
+def _imagenet_forward(torch, run, samples, card):
+    """(b): the trained graph's extracted forward workflow behind an
+    InteractiveLoader fed the VALID rows, normalized on the host, with a
+    LabelsPrinter on the softmax's ``max_idx``, a FixAccumulator (relu)
+    on relu7's output and a RangeAccumulator on the softmax's output:
+    the printer's tally equals the host's of the softmax's argmax, each
+    accumulator's bars a numpy recompute by JAX's rule, at most one
+    readback a fire, 3 forward launches."""
+    import numpy
+    from znicz_tpu_torch.loader.interactive import InteractiveLoader
+    from znicz_tpu_torch.units.accumulator import (FixAccumulator,
+                                                   RangeAccumulator)
+    from znicz_tpu_torch.units.labels_printer import LabelsPrinter
+    t0 = time.perf_counter()
+    trained = run["wf"]
+    loader = trained.loader
+    rows = samples[:IMAGENET_VALID].astype(numpy.float32)
+    rows = (rows - loader.mean.mem) * loader.rdisp.mem
+    held = []
+
+    def factory(fwd_wf):
+        held.append(InteractiveLoader(fwd_wf, sample_shape=rows.shape[1:],
+                                      minibatch_size=TRAIN_BATCH))
+        return held[-1]
+    fwd_wf = trained.extract_forward_workflow(loader_factory=factory)
+    by_name = {f.name: f for f in fwd_wf.forwards}
+    relu7, head = by_name["relu7_forward"], fwd_wf.forwards[-1]
+    printer = LabelsPrinter(fwd_wf, name="labels_printer")
+    printer.input = head.max_idx
+    fix = FixAccumulator(fwd_wf, name="fix_accumulator", type="relu")
+    fix.input = relu7.output
+    rng = RangeAccumulator(fwd_wf, name="range_accumulator")
+    rng.input = head.output
+    units = (printer, fix, rng)
+    for unit in units:
+        unit.link_from(head)
+    fwd_wf.end_point.link_from(*units)
+    where = {"unit": "outside"}
+    for unit in units:
+        def fire(real=unit.run, name=unit.name):
+            where["unit"] = name
+            try:
+                real()
+            finally:
+                where["unit"] = "outside"
+        unit.run = fire
+    reads = _Readbacks(torch, lambda: where["unit"])
+    _zero_counts()
+    fwd_wf.initialize(device="cuda")
+    for row in rows:
+        held[0].feed(row)
+    held[0].finish()
+    with reads:
+        fwd_wf.run()
+    launches = _counts()
+    out = head.output.dev.cpu().numpy()
+    hidden = relu7.output.dev.cpu().numpy()
+    tally = collections.Counter(int(v) for v in out.argmax(axis=1))
+    bars = _fix_bars(hidden.ravel(), fix.bars, 0, 10000)
+    hist, edges = numpy.histogram(out.ravel(), bins=rng.bars,
+                                  range=(float(out.min()), float(out.max())))
+    fires = {u.name: u.run_count_ for u in units}
+    per_fire = {k: v for k, v in reads.counts.items() if k != "outside"}
+    if dict(printer.counter) != dict(tally) or \
+            not numpy.array_equal(fix.output.mem, bars) or \
+            rng.y != hist.tolist() or \
+            rng.x != ((edges[:-1] + edges[1:]) / 2).tolist():
+        raise RuntimeError("(b): the printer's tally %s (the host's %s), "
+                           "the accumulators' bars against numpy: fix %s, "
+                           "range %s" % (
+                               dict(printer.counter), dict(tally),
+                               numpy.array_equal(fix.output.mem, bars),
+                               rng.y == hist.tolist()))
+    if set(fires.values()) != {1} or any(per_fire.get(u.name, 0) > 1
+                                         for u in units):
+        raise RuntimeError("(b): fires %s, readbacks by unit %s"
+                           % (fires, per_fire))
+    if launches["forward"] != 3 or launches["backward"] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("(b): the forward workflow launched %s"
+                           % launches)
+    say("   loaders (b): the extracted forward workflow over the %d VALID "
+        "rows (normalized on the host), one fire each: the LabelsPrinter's "
+        "tally %s equals the host's of the softmax's argmax; the "
+        "FixAccumulator's %d bars (relu7, %d in its overflow bar) and the "
+        "RangeAccumulator's %d equal numpy's by JAX's rule; readbacks by "
+        "unit %s; launches %s (%.2f s; %s)" % (
+            IMAGENET_VALID, dict(sorted(printer.counter.items())),
+            len(bars), int(bars[-1]), len(rng.y), per_fire, launches,
+            time.perf_counter() - t0, card))
+    del fwd_wf, held
+
+
+def _lmdb_rows():
+    """The CIFAR-shaped set of (c) and (d) from LMDB_SEED: CHW uint8
+    images and labels, VALID first."""
+    import numpy
+    r = numpy.random.RandomState(LMDB_SEED)
+    n = LMDB_VALID + LMDB_TRAIN
+    return (r.randint(0, 256, (n, 3, 32, 32), dtype=numpy.uint8),
+            r.randint(0, 10, n).astype(numpy.int32))
+
+
+def _cifar_loaders(torch, probe, cli, prng, card):
+    """(c) and (d): the Caffe LMDBs (written with ``write_lmdb``, CHW
+    Datums as Caffe writes them) through CIFAR caffe's unit graph, then
+    CIFAR batch pickles of the same rows through its fused graph.
+    Returns the launches of each."""
+    import numpy
+    import pickle
+    from znicz_tpu_torch.loader.caffe import Datum
+    from znicz_tpu_torch.loader.lmdb_native import write_lmdb
+    from znicz_tpu_torch.loader.loader_lmdb import LMDBLoader
+    from znicz_tpu_torch.loader.pickles import PicklesImageFullBatchLoader
+    t0 = time.perf_counter()
+    chw, labels = _lmdb_rows()
+    hwc = numpy.ascontiguousarray(chw.transpose(0, 2, 3, 1))
+    split = {"validation_path": (0, LMDB_VALID),
+             "train_path": (LMDB_VALID, LMDB_VALID + LMDB_TRAIN)}
+    dbs = {}
+    for key, (a, b) in split.items():
+        dbs[key] = os.path.join(LOADERS_DIR, key.split("_")[0] + "_lmdb")
+        write_lmdb(dbs[key], [
+            (b"%08d" % i, Datum(channels=3, height=32, width=32,
+                                data=chw[a + i].tobytes(),
+                                label=int(labels[a + i])).SerializeToString())
+            for i in range(b - a)])
+    pickles = {}
+    for key, (a, b) in (("validation_pickles", split["validation_path"]),
+                        ("train_pickles", split["train_path"])):
+        pickles[key] = os.path.join(LOADERS_DIR, key.split("_")[0] +
+                                    "_batch")
+        with open(pickles[key], "wb") as f:
+            pickle.dump({b"data": chw[a:b].reshape(b - a, -1),
+                         b"labels": labels[a:b].tolist()}, f)
+    say("== loaders (c)-(d): %d + %d CIFAR-shaped Datums in two LMDBs and "
+        "the same rows in two CIFAR batch pickles, written in %.2f s" % (
+            LMDB_TRAIN, LMDB_VALID, time.perf_counter() - t0))
+
+    def cifar_argv(name, *extra):
+        argv = ["cifar"] + list(extra)
+        for key, value in (("loader_name", name),
+                           ("loader.minibatch_size", CIFAR_BATCH),
+                           ("loader.normalization_type", "linear"),
+                           ("decision.max_epochs", LMDB_EPOCHS),
+                           ("snapshotter.interval", NO_SNAPSHOT),
+                           ("snapshotter.directory",
+                            os.path.join(LOADERS_DIR, "snaps"))):
+            argv += ["--config", "cifar.%s=%s" % (key, value)]
+        return argv
+    normalized = {}
+
+    def expect(loader, idx):
+        if "norm" not in normalized:
+            normalized["norm"] = loader.normalizer
+        x = hwc[idx].astype(numpy.float32)
+        loader.normalizer.normalize(x.reshape(len(idx), -1))
+        return x, labels[idx]
+    argv = cifar_argv("lmdb") + [a for key, path in dbs.items()
+                             for a in ("--config",
+                                       "cifar.loader.%s=%s" % (key, path))]
+    say("== loaders (c): python -m znicz_tpu_torch %s" % " ".join(
+        argv).replace(LOADERS_DIR, "build/..."))
+    served = _ServedRows(LMDBLoader, expect)
+    train_mb, valid_mb = LMDB_TRAIN // CIFAR_BATCH, LMDB_VALID // CIFAR_BATCH
+    n_mb = (train_mb + valid_mb) * LMDB_EPOCHS
+    _zero_counts()
+    probe.readbacks.counts.clear()
+    probe.readbacks.syncs.clear()
+    with probe.readbacks, served:
+        run = _units_run(probe, cli, prng, argv)
+    launches = {"cifar_lmdb": _counts()}
+    _check_graph_run(
+        torch, probe, run, launches["cifar_lmdb"],
+        {"forward": n_mb, "forward_by_width": {WIDE: n_mb, NARROW: 0},
+         "backward": train_mb * LMDB_EPOCHS,
+         "backward_by_width": {WIDE: train_mb * LMDB_EPOCHS, NARROW: 0},
+         "plain_on_card": 0},
+        "one forward launch a minibatch and one backward a TRAIN "
+        "minibatch, all at 16-byte vectors",
+        (LMDB_TRAIN, LMDB_VALID, CIFAR_BATCH, LMDB_EPOCHS), CIFAR_SHAPES,
+        card, "unit graph over the LMDBs")
+    loader = run["wf"].loader
+    if type(loader) is not LMDBLoader or served.rows != \
+            (LMDB_TRAIN + LMDB_VALID) * LMDB_EPOCHS:
+        raise RuntimeError("(c): the loader %r served %d rows"
+                           % (loader, served.rows))
+    say("   every minibatch's images equal the Datums' CHW bytes in HWC "
+        "through the loader's linear normalizer, and its labels the "
+        "Datums' (%d rows); the loader's fill %.4f host ms a minibatch "
+        "(Datum lookups %d, cache hits %d)" % (
+            served.rows, 1e3 * sum(served.fill_s) / len(served.fill_s),
+            loader.cache_misses, loader.cache_hits))
+    # (d): the same rows, pickled; the fused graph gathers them on the
+    # card
+    argv = cifar_argv("full_batch_pickles_image", "--fused",
+                  "pool_impl=offsets") + [
+        a for key, path in pickles.items()
+        for a in ("--config", "cifar.loader.%s=%r" % (key, [path]))]
+    say("== loaders (d): python -m znicz_tpu_torch %s" % " ".join(
+        argv).replace(LOADERS_DIR, "build/..."))
+    loaded = {}
+    real_load = PicklesImageFullBatchLoader.load_data
+
+    def load_data(ldr):
+        real_load(ldr)
+        loaded["data"] = ldr.original_data.mem.copy()
+        loaded["labels"] = list(ldr.original_labels)
+    PicklesImageFullBatchLoader.load_data = load_data
+    try:
+        steps = train_mb * LMDB_EPOCHS
+        launches["cifar_pickles_fused"], wf = _fused_graph(
+            torch, probe, cli, prng, run, argv,
+            {"forward": steps + valid_mb * LMDB_EPOCHS,
+             "forward_by_width": {WIDE: steps + valid_mb * LMDB_EPOCHS,
+                                  NARROW: 0},
+             "backward": steps, "backward_by_width": {WIDE: steps,
+                                                      NARROW: 0},
+             "plain_on_card": 0},
+            (LMDB_TRAIN, LMDB_EPOCHS), card)
+    finally:
+        PicklesImageFullBatchLoader.load_data = real_load
+    want = hwc.astype(numpy.float32)
+    raw_equal = numpy.array_equal(loaded["data"], want)
+    normalized["norm"].normalize(want.reshape(len(want), -1))
+    if type(wf.loader) is not PicklesImageFullBatchLoader or \
+            not raw_equal or loaded["labels"] != labels.tolist() or \
+            not numpy.array_equal(wf.loader.original_data.mem, want):
+        raise RuntimeError(
+            "(d): the pickles loader's rows or labels differ from the "
+            "LMDBs' decoded set (raw rows equal: %s, labels equal: %s, "
+            "normalized rows equal: %s)" % (
+                raw_equal, loaded["labels"] == labels.tolist(),
+                numpy.array_equal(wf.loader.original_data.mem, want)))
+    say("   (d): the pickles loader's original_data (raw, and after its "
+        "linear normalizer against (c)'s) and labels equal the LMDBs' "
+        "decoded set; "
+        "launches %s" % launches["cifar_pickles_fused"])
+    del run, wf
+    gc.collect()
+    return launches
+
+
+
+def _harness_on_card(torch, card):
+    """(e): ``testing.run_both_backends`` on the maximum pooling unit at
+    HARNESS_SHAPE, ``output`` and ``input_offset`` at ``atol=0`` (the
+    CPU's plain version and the card's kernel bit-equal), and an
+    ``AcceleratedTest`` with one such test under ``unittest``.  These
+    launches compare the kernel with its plain version: not counted."""
+    import numpy
+    import unittest
+    from znicz_tpu_torch import testing
+    from znicz_tpu_torch.core.memory import Array
+    from znicz_tpu_torch.units.pooling import MaxPooling
+    x = numpy.random.RandomState(55).uniform(
+        -1, 1, HARNESS_SHAPE).astype(numpy.float32)
+
+    def build(wf, device):
+        unit = MaxPooling(wf, kx=3, ky=3, sliding=(2, 2))
+        unit.input = Array(x.copy())
+        unit.input.device = torch.device(device)
+        unit.initialize(device=device)
+        return unit
+    t0 = time.perf_counter()
+    outs = testing.run_both_backends(build, outputs=("output",
+                                                     "input_offset"), atol=0)
+
+    class PoolingOnTheCard(testing.AcceleratedTest):
+        def test_max_pooling(self):
+            self.assertBackendsAgree(build, outputs=("output",
+                                                     "input_offset"), atol=0)
+    suite = unittest.defaultTestLoader.loadTestsFromTestCase(
+        PoolingOnTheCard)
+    result = unittest.TextTestRunner(stream=io.StringIO(), verbosity=0).run(
+        suite)
+    if not result.wasSuccessful() or result.testsRun != 1:
+        raise RuntimeError("(e): the AcceleratedTest failed: %s" % (
+            result.failures + result.errors))
+    say("   loaders (e): testing.run_both_backends on MaxPooling %s 3x3/s2: "
+        "output %s and input_offset %s bit-equal on cpu and cuda; an "
+        "AcceleratedTest (1 test) passed under unittest on cuda (%.2f s; "
+        "%s)" % (HARNESS_SHAPE, outs["output"].shape,
+                 outs["input_offset"].shape, time.perf_counter() - t0, card))
+
+
 def _ae_argv(snapdir, *extra):
     return _sample_argv("mnist_ae", "mnist_ae", snapdir, UNITS_TRAIN,
                         UNITS_VALID, AE_BATCH, AE_EPOCHS, *extra)
@@ -8057,7 +8702,13 @@ def _replica_counts(cli, url):
             "plain": k["plain_cuda_calls"],
             "built": k["libraries_built"],
             "dispatches": doc["registry"]["models"]["alexnet"]["dispatches"],
+            "cache": doc["registry"]["compile_cache"],
             "device": doc["device"], "device_name": doc.get("device_name")}
+
+
+def _sources():
+    from znicz_tpu_torch.ops import cuda_build
+    return cuda_build.sources()
 
 
 def _burst(cli, images, stop, tag, on_reply=None):
@@ -8194,10 +8845,14 @@ def phase_fleet(torch, card, later):
     os.makedirs(FLEET_DIR, exist_ok=True)
     copy = os.path.join(FLEET_DIR, "alexnet_copy.zip")
     other = os.path.join(FLEET_DIR, "alexnet_seed1.zip")
+    cache_dir = os.path.join(FLEET_DIR, "kernel_cache")
     cli = _FleetCli(path, bbdir, extra=[
         # the canary's judge: AlexNet's batch-8 replies well inside it
         "--config", "common.serving.slo_ms=10000.0",
-        "--config", "common.serving.release.tick_interval_s=0.1"])
+        "--config", "common.serving.release.tick_interval_s=0.1",
+        # the kernels' compile cache, fresh: the first replicas build
+        # into it, a later one loads from it
+        "--compile-cache", cache_dir])
     launches = 0
     try:
         # while the fleet starts: the reference engine, the releases'
@@ -8230,12 +8885,20 @@ def phase_fleet(torch, card, later):
                                                   c["device_name"], name))
         if len(ups) != 2:
             raise RuntimeError("fleet: %d replicas up" % len(ups))
-        say("== fleet: `serve alexnet=ZIP --fleet 2 --port 0` banner after "
-            "%.2f s, at %s; replicas %s, each on cuda %s, startup %s s, "
-            "libraries built %s; %s"
+        say("== fleet: `serve alexnet=ZIP --fleet 2 --port 0 --compile-cache "
+            "DIR` banner after %.2f s, at %s; replicas %s, each on cuda %s, "
+            "startup %s s, libraries built %s, the compile cache %s; %s"
             % (cli.banner_s, cli.url, [b["id"] for b in ups],
                name, [b["startup_s"] for b in ups],
-               [counts0[b["id"]]["built"] for b in ups], card))
+               [counts0[b["id"]]["built"] for b in ups],
+               [counts0[b["id"]]["cache"] for b in ups], card))
+        for b in ups:
+            cache = counts0[b["id"]]["cache"]
+            if not cache["enabled"] or cache["dir"] != cache_dir or \
+                    cache["libraries_built"] + cache["libraries_loaded"] \
+                    != len(_sources()):
+                raise RuntimeError("fleet: replica %s's compile cache is %s"
+                                   % (b["id"], cache))
         replies = _fleet_replies(cli, images, want)
         counts1 = {b["id"]: _replica_counts(cli, b["url"]) for b in ups}
         for rid, c1 in counts1.items():
@@ -8536,9 +9199,14 @@ def _fleet_kill(cli, images, want):
     new = cli.post("/fleet/scale_up", {})["replica"]
     up_s = time.perf_counter() - t0
     c_new = _replica_counts(cli, new["url"])
-    if c_new["built"] != 0 or c_new["device"] != "cuda":
-        raise RuntimeError("fleet: the new replica built %d libraries on %s"
-                           % (c_new["built"], c_new["device"]))
+    cache = c_new["cache"]
+    if c_new["built"] != 0 or c_new["device"] != "cuda" or \
+            cache["libraries_built"] != 0 or \
+            cache["libraries_loaded"] != len(_sources()) or \
+            cache["entries"] != len(_sources()):
+        raise RuntimeError("fleet: the new replica built %d libraries on "
+                           "%s; its compile cache %s"
+                           % (c_new["built"], c_new["device"], cache))
     bodies, gens = [], []
     for b in (survivor, new):
         host, port = b["url"].split("//")[1].split(":")
@@ -8561,9 +9229,12 @@ def _fleet_kill(cli, images, want):
     say("   SIGKILL of %s mid-burst: %d requests, %d answered 200, %d an "
         "honest 503 none of which the survivor admitted; ejected; "
         "scale_up brought %s in %.2f s (startup %.2f s, 0 libraries "
-        "built), its batch-8 bytes and generation (%s) the survivor's"
+        "built, %d loaded from the compile cache's %d entries, %d bytes), "
+        "its batch-8 bytes and generation (%s) the survivor's"
         % (victim["id"], len(replies), len(replies) - len(unsafe),
-           len(unsafe), new["id"], up_s, new["startup_s"], gens[0]))
+           len(unsafe), new["id"], up_s, new["startup_s"],
+           cache["libraries_loaded"], cache["entries"], cache["bytes"],
+           gens[0]))
     return launches
 
 
@@ -9036,6 +9707,9 @@ def _promote_memory(torch, path, copy, card):
                                              max_entries=200000)
     try:
         predict("alexnet")
+        # earlier code's cyclic garbage must not be collected inside
+        # the promotes, where it would read as memory a promote freed
+        gc.collect()
         base, blocks0 = torch.cuda.memory_allocated(), live_blocks()
         after = []
         for k in (2, 3):
@@ -9064,12 +9738,16 @@ def _promote_memory(torch, path, copy, card):
     say("== a promote's memory, in process (two promotes of the copy "
         "through a ServingServer on the card): memory_allocated %d B, "
         "then %+d B after the first promote and %+d B after the second; "
-        "%d new live blocks (%d B; %d B of old ones gone): %s; clearing "
-        "cuBLAS's workspaces freed %d B (%d of %d B); %s" % (
+        "%d new live blocks (%d B; %d B of old ones gone): %s; the old "
+        "ones gone: %s; clearing cuBLAS's workspaces freed %d B (%d of %d "
+        "B); %s" % (
             base, grown, after[1] - after[0], len(new),
             sum(b["size"] for b in new), gone, "; ".join(
                 "%d B at %s" % (b["size"], where(b))
                 for b in sorted(new, key=lambda b: -b["size"])[:6]),
+            "; ".join("%d B at %s" % (b["size"], where(b)) for b in sorted(
+                (blocks0[a] for a in set(blocks0) - set(blocks1)),
+                key=lambda b: -b["size"])[:8]),
             after[1] - cleared, n_cleared, CUBLAS_WORKSPACE, card))
     if workspaces or not (
             n_cleared and after[1] - cleared ==
@@ -10453,9 +11131,14 @@ def _phases(torch, name, card, start):
             torch, card, workflow_rates)
         marks.append(("alexnet_units", time.perf_counter()))
         aux_paths = phase_aux(torch, card, reference)
+        units_ref = {"rates": reference["rates"],
+                     "loader_ms": reference["loader_ms"]}
         del reference
         gc.collect()
         marks.append(("aux", time.perf_counter()))
+        loaders_paths = phase_loaders(torch, card, units_ref)
+        gc.collect()
+        marks.append(("loaders", time.perf_counter()))
         units_launches, mnist_rows = phase_units(torch, card, cycles_per_ms)
         marks.append(("units", time.perf_counter()))
         train_launches, _, resilience_net_launches = phase_train(
@@ -10526,6 +11209,7 @@ def _phases(torch, name, card, start):
              "profile": profile_launches}
     paths.update(lines_paths)
     paths.update(aux_paths)
+    paths.update(loaders_paths)
     paths.update(bf16_paths)
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,

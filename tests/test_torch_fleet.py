@@ -488,13 +488,20 @@ def test_obs_rid_over_the_fleet_blackbox(fleet, capsys):
         live["wall_ms"]
 
 
-def test_cli_refuses_compile_cache(capsys):
-    with pytest.raises(SystemExit) as exit_:
-        server.main(["m=unused.zip", "--device", "cpu", "--compile-cache",
-                     "/tmp/c"])
-    assert exit_.value.code == 2
-    err = capsys.readouterr().err
-    assert "not in this slice of the port (see ROADMAP.md)" in err
+def test_cli_refuses_compile_cache(tmp_path, capsys):
+    """The flag is no longer refused: the port maps it to the kernels'
+    build directory (``core/compile_cache.py``), so the CLI enables the
+    cache at DIR and goes on to the model, here a missing one."""
+    from znicz_tpu_torch.core import compile_cache
+    cache = str(tmp_path / "c")
+    try:
+        with pytest.raises(FileNotFoundError, match="unused.zip"):
+            server.main(["m=unused.zip", "--device", "cpu",
+                         "--compile-cache", cache])
+        assert compile_cache.active_dir() == cache
+    finally:
+        compile_cache.disable()
+    assert "not in this slice" not in capsys.readouterr().err
 
 
 def test_replica_argv_drops_the_routers_flags():

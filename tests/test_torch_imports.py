@@ -168,7 +168,16 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.units.diff_stats",
                  "znicz_tpu_torch.loader.saver",
                  "znicz_tpu_torch.core.genetics",
-                 "znicz_tpu_torch.parallel.population"):
+                 "znicz_tpu_torch.parallel.population",
+                 "znicz_tpu_torch.loader.caffe",
+                 "znicz_tpu_torch.loader.lmdb_native",
+                 "znicz_tpu_torch.loader.loader_lmdb",
+                 "znicz_tpu_torch.loader.pickles",
+                 "znicz_tpu_torch.loader.imagenet_loader",
+                 "znicz_tpu_torch.units.accumulator",
+                 "znicz_tpu_torch.units.labels_printer",
+                 "znicz_tpu_torch.testing",
+                 "znicz_tpu_torch.core.compile_cache"):
         assert name in doc["modules"]
 
 

@@ -355,6 +355,16 @@ declare("common", {
     # (core.backends.deterministic), False lets it pick faster
     # nondeterministic ones
     "engine": {"precision_dtype": None, "deterministic": True},
+    # the kernels' compile cache (core/compile_cache.py): where enabled,
+    # the CUDA libraries are built into and loaded from `dir`, so a
+    # fleet's replicas after the first build none; `serve
+    # --compile-cache` enables it.  JAX's XLA thresholds
+    # (min_compile_time_secs, min_entry_size_bytes) have nothing to
+    # select here: every kernel library is cached
+    "compile_cache": {
+        "enabled": False,
+        "dir": None,              # default: <cache dir>/kernel_cache
+    },
     # the plotters' rendering (off: the plotters still record their
     # data)
     "disable": {"plotting": True},

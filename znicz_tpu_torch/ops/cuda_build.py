@@ -3,9 +3,12 @@ shared libraries with a plain C interface, for ``ctypes``.
 
 Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC -Xptxas -v`` into
-``build/znicz_tpu_torch/`` under the repository root, at first use,
-named by a hash of its content and flags so an edited source rebuilds;
-:data:`BUILT` counts the libraries this process compiled.
+``build/znicz_tpu_torch/`` under the repository root (or, where the
+compile cache is enabled, its directory:
+:mod:`znicz_tpu_torch.core.compile_cache`), at first use, named by a
+hash of its content and flags so an edited source rebuilds;
+:data:`BUILT` counts the libraries this process compiled and
+:data:`LOADED` those it found built.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 ptxas's report of each kernel (registers, shared memory, spills) is
 kept beside the library, in ``<library>.log``; :func:`ptxas_report`
@@ -17,6 +20,8 @@ import hashlib
 import os
 import subprocess
 
+from znicz_tpu_torch.core import compile_cache
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -27,6 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: libraries this process compiled (0 where every library was built
 #: already: a fleet replica started after the first finds them)
 BUILT = 0
+#: distinct libraries this process found built and did not compile
+LOADED = 0
+_found = set()
+
+
+def build_dir():
+    """Where the libraries are built and loaded from: the compile
+    cache's directory where it is enabled, else :data:`BUILD_DIR`."""
+    return compile_cache.active_dir() or BUILD_DIR
 
 
 def _nvcc():
@@ -47,7 +61,7 @@ def library_path(source):
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "lib%s-%s.so"
+    return os.path.join(build_dir(), "lib%s-%s.so"
                         % (os.path.splitext(source)[0], digest))
 
 
@@ -56,12 +70,17 @@ def build_all(names=None):
     default) that is not built yet, one ``nvcc`` per source, all
     started together; returns ``{source: library path}``.  Raises with
     nvcc's output when a compile fails, after every compile ended."""
+    global BUILT, LOADED
     names = sources() if names is None else list(names)
     outs = {name: library_path(name) for name in names}
     todo = [name for name in names if not os.path.exists(outs[name])]
+    for name in names:
+        if name not in todo and outs[name] not in _found:
+            _found.add(outs[name])
+            LOADED += 1
     if not todo:
         return outs
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(outs[todo[0]]), exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in todo:
@@ -70,7 +89,6 @@ def build_all(names=None):
             [nvcc] + list(NVCC_FLAGS) +
             ["-o", tmp, os.path.join(CSRC_DIR, name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    global BUILT
     failed = []
     for name, (tmp, proc) in procs.items():
         log = proc.communicate()[0]
@@ -80,6 +98,7 @@ def build_all(names=None):
         with open(outs[name] + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, outs[name])  # atomic: no half-written library
+        _found.add(outs[name])
         BUILT += 1
     if failed:
         raise RuntimeError("\n".join(failed))

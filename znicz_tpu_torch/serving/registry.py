@@ -38,7 +38,7 @@ import re
 import threading
 import time
 
-from znicz_tpu_torch.core import telemetry
+from znicz_tpu_torch.core import compile_cache, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.serving.engine import InferenceEngine
@@ -272,7 +272,8 @@ class ModelRegistry(Logger):
             items = sorted(self._entries.items())
             default = self._default
         return {"models": {name: e.engine.stats() for name, e in items},
-                "default": default, "memory": self.memory_stats()}
+                "default": default, "memory": self.memory_stats(),
+                "compile_cache": compile_cache.stats()}
 
     # -- the LRU budget -----------------------------------------------------
     def _enforce_budget(self, protect=None):

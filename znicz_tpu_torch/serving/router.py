@@ -639,15 +639,21 @@ class FleetRouter(HttpServerBase):
 
     ``replica_argv`` is the ``serve`` argument list every replica runs
     (model specs and options, without ``--port`` and ``--fleet``);
-    ``env`` is the replicas' environment (None: this process's).
+    ``compile_cache_dir``, where given, is appended to it as
+    ``--compile-cache DIR`` (unless it holds that flag already), so the
+    fleet shares one kernel compile cache (JAX :612-626); ``env`` is
+    the replicas' environment (None: this process's).
     """
 
     def __init__(self, replica_argv, replicas=None, port=0, host=None,
-                 env=None):
+                 compile_cache_dir=None, env=None):
         super(FleetRouter, self).__init__(
             port=port, host=host or _cfg.get("host", "127.0.0.1"),
             logger_name="FleetRouter")
-        self._replica_argv = list(replica_argv)
+        argv = list(replica_argv)
+        if compile_cache_dir is not None and "--compile-cache" not in argv:
+            argv += ["--compile-cache", str(compile_cache_dir)]
+        self._replica_argv = argv
         self._env = env
         self._n_initial = int(replicas if replicas is not None
                               else _fleet.get("replicas", 2))

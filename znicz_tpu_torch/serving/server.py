@@ -96,11 +96,16 @@ exits within a second (the router's pid rides in its environment).
 ``--autoscale`` arms the fleet's
 :class:`~znicz_tpu_torch.serving.autoscaler.Autoscaler` (JAX :959,
 :1017; the banner says "autoscaler armed"; without ``--fleet`` the
-parser refuses it).  ``--compile-cache`` is not in this slice of the
-port (``ROADMAP.md``): the parser refuses it; the replicas' kernel
-libraries are built once, under ``build/znicz_tpu_torch/``, and every
-later replica finds them (the port's counterpart of the JAX fleet's
-shared compile cache).
+parser refuses it).  ``--compile-cache [DIR]`` enables the kernels'
+compile cache (:mod:`znicz_tpu_torch.core.compile_cache`, JAX :1142-1145;
+DIR defaults to ``root.common.compile_cache.dir``): the kernel libraries
+are built into and loaded from DIR, a server on the card builds or loads
+every one of them before it serves, and a fleet passes the flag to each
+replica, so a replica started later builds none.  Without it every
+replica builds
+into, and finds its libraries under, ``build/znicz_tpu_torch/``.
+``/statusz`` carries the cache's ``compile_cache`` block beside the
+``kernels`` block.
 """
 
 import argparse
@@ -115,7 +120,8 @@ import uuid
 
 import numpy
 
-from znicz_tpu_torch.core import blackbox, pyprof, telemetry
+from znicz_tpu_torch.core import blackbox, compile_cache, pyprof, telemetry
+from znicz_tpu_torch.core.backends import default_device
 from znicz_tpu_torch.core.config import apply_override, root
 from znicz_tpu_torch.core.status_server import (BodyTooLargeError,
                                                 HandlerBase,
@@ -133,9 +139,6 @@ from znicz_tpu_torch.serving.release import (LocalTarget,
                                              ReleaseConflictError,
                                              ReleaseController,
                                              generation_label)
-
-#: the wording of an option that a later slice of the port brings
-_LATER = "is not in this slice of the port (see ROADMAP.md)"
 
 
 def _parse_predict(handler):
@@ -183,10 +186,10 @@ def _read_path(handler):
 def kernels_block():
     """The ``kernels`` block of ``/statusz``: the max-pool kernels'
     launch counters in this process, its plain max pools on the card
-    (0 on the main path), the libraries it built — a fleet replica
-    started after the first builds none (the port's counterpart of the
-    JAX block ``compile_cache``) — and the engine dispatches of the
-    process (a removed candidate's among them)."""
+    (0 on the main path), the libraries it built (a fleet replica
+    started after the first builds none; the ``compile_cache`` block
+    says where they are) and the engine dispatches of the process (a
+    removed candidate's among them)."""
     from znicz_tpu_torch.ops import (cuda_build, cuda_pooling,
                                      cuda_pooling_backward, pooling)
     from znicz_tpu_torch.serving import engine
@@ -418,6 +421,7 @@ class ServingServer(HttpServerBase):
                    "degraded": any_ready and not all_ready,
                    "models": readiness, "default": self.registry.default,
                    "memory": self.registry.memory_stats(),
+                   "compile_cache": compile_cache.stats(),
                    "wire_port": self.wire_port}
         if self._draining:
             payload["draining"] = True
@@ -431,6 +435,7 @@ class ServingServer(HttpServerBase):
                        "ready": self.registry.ready}
         else:
             payload = dict(self.engine.stats())
+            payload["compile_cache"] = compile_cache.stats()
         payload.update(self.device())
         payload["queued_rows"] = self.batcher.queued_rows
         payload["kernels"] = kernels_block()
@@ -883,7 +888,9 @@ def _parser():
                              "cooldown_s)")
     parser.add_argument("--compile-cache", nargs="?", const="",
                         default=None, metavar="DIR",
-                        help="the JAX package's compile cache " + _LATER)
+                        help="build and load the kernel libraries in DIR "
+                             "(default: root.common.compile_cache.dir), "
+                             "so a fleet's later replicas build none")
     return parser
 
 
@@ -892,8 +899,6 @@ def _parse(argv):
     args = parser.parse_args(argv)
     if args.autoscale and args.fleet is None:
         parser.error("--autoscale sizes a fleet: it needs --fleet N")
-    if args.compile_cache is not None:
-        parser.error("--compile-cache " + _LATER)
     if args.fleet is not None and args.fleet < 1:
         parser.error("--fleet needs at least 1 replica")
     for assignment in args.config:
@@ -912,6 +917,21 @@ def serve(argv):
         parser.error("serve() builds one process; --fleet runs through "
                      "main()")
     return _serve(parser, args)
+
+
+def _warm_compile_cache(args):
+    """``--compile-cache [DIR]`` (or ``root.common.compile_cache.
+    enabled``): the kernels' libraries in the cache's directory, every
+    one built or loaded before the engines warm up where they run on the
+    card."""
+    if args.compile_cache is not None:
+        compile_cache.enable(args.compile_cache or None)
+    else:
+        compile_cache.maybe_enable()
+    if compile_cache.enabled() and \
+            default_device(args.device).type == "cuda":
+        from znicz_tpu_torch.ops import cuda_build
+        cuda_build.build_all()
 
 
 def _serve(parser, args):
@@ -933,6 +953,7 @@ def _serve(parser, args):
     # start-up lands on disk too (one config read when its knob is off)
     pyprof.name_current_thread("serve-main")
     blackbox.maybe_arm("serve")
+    _warm_compile_cache(args)
     if named:
         registry = ModelRegistry(
             memory_budget_bytes=args.memory_budget_bytes,

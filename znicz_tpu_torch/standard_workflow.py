@@ -635,7 +635,10 @@ class StandardWorkflow(StandardWorkflowBase):
                 fwd_imp.forward_mode = True
             return fwd_wf
         for fwd_exp, fwd_imp in zip(self.forwards, fwd_wf.forwards):
-            data = fwd_exp.generate_data_for_slave(None)
+            # a zero filter has no weights of its own (it masks the next
+            # forward's) and no broadcast: JAX's raises AttributeError
+            generate = getattr(fwd_exp, "generate_data_for_slave", None)
+            data = generate(None) if generate is not None else None
             if data is not None:
                 fwd_imp.apply_data_from_master(data)
             fwd_imp.forward_mode = True

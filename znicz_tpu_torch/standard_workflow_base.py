@@ -48,11 +48,13 @@ import numpy
 from znicz_tpu_torch.core.config import Config
 from znicz_tpu_torch.loader.base import UserLoaderRegistry
 from znicz_tpu_torch.units import nn_units
-# importing the layer modules registers their type strings
+# importing the layer modules registers their type strings (and the
+# accumulators and the labels printer, as JAX's units/__init__.py does)
 from znicz_tpu_torch.units import (  # noqa: F401
-    activation, all2all, conv, cutter, deconv, depooling, dropout, gd,
-    gd_conv, gd_pooling, lstm, lstm_scan, multiplier, normalization,
-    pooling, resizable_all2all, rprop_gd, summator, zerofilling)
+    accumulator, activation, all2all, conv, cutter, deconv, depooling,
+    dropout, gd, gd_conv, gd_pooling, labels_printer, lstm, lstm_scan,
+    multiplier, normalization, pooling, resizable_all2all, rprop_gd,
+    summator, zerofilling)
 from znicz_tpu_torch.units.all2all import All2AllSoftmax
 from znicz_tpu_torch.units.dropout import DropoutForward
 
