@@ -394,6 +394,34 @@ failure (the script then exits non-zero and prints no result line):
     allocator's rounding, the next request restores it with bit-equal
     replies, and int8 holds at most ``INT8_BYTES_RATIO`` of f32's bytes;
     the reload's wall ms and the evict and restore ms are printed.
+15b. locks — the card's serving plane in process under the armed
+    lock-order sanitizer (``znicz_tpu_torch.analysis.locksmith``,
+    armed before anything is built), on serve_models' AlexNet package,
+    its x0.9 twin and the package failing at warmup (deleted after),
+    with telemetry, the SLO plane and trace sampling on: a
+    ``ModelRegistry`` whose budget holds 1.5 f32 AlexNets
+    (``alexnet@f32``, ``alexnet8@int8``, then ``other@f32``, whose add
+    must evict), its ``ServingServer``'s continuous batcher and a
+    second one in process, 8 client threads (4 over HTTP ``.npy``, 4
+    through the second batcher) x 10 requests of 1-8 rows over
+    ``other`` and ``alexnet8`` while a thread hot-reloads ``other``
+    between the package and its twin, a request that restores the
+    evicted ``alexnet``, then with ``breaker_threshold`` 1 a reload of
+    ``alexnet`` to the bad package that rolls back and opens bucket
+    1's breaker: a one-row request answers 503, after the cooldown the
+    half-open probe answers 200 (the journal: open, half_open, closed)
+    while alexnet8's requests go on.  Disarmed, ``assert_clean()``
+    must pass; every reply must be bit-identical to an unarmed
+    engine's at its bucket (``other``'s to the package's or the
+    twin's); the forward kernel must launch 3 times a dispatch, all
+    16-byte, no plain pooling (counts set to 0 just before, read just
+    after, the ``locks`` path); then the off switch: the gate off,
+    ``Future.result`` restored, a fresh engine's, registry's and
+    batcher's locks and the module locks plain ``threading`` types.
+    Prints the tracked locks, acquisitions, order edges and violations
+    (0), and the batch-64 dispatch time armed and unarmed (the
+    sanitizer's cost).  The fleet's replicas are other processes and
+    run unarmed;
 15. stl10 — STL-10's published network (``root.stl``: conv 32 5x5 pad 2
     -> max pool 3x3/s2 -> strict relu -> LRN -> conv 32 5x5 -> strict
     relu -> avg pool 3x3/s2 -> LRN -> softmax; ``internal_mean``) at
@@ -591,7 +619,8 @@ resilience steps' (``resilience_net``), AlexNet's unit
 graph's (``alexnet_units``), MNIST's unit graph's (``units``), both
 autoencoder paths', both CIFAR graphs' and the serve_models
 phase's launches, both STL-10 graphs' and ImagenetAE's ladder and
-fused stochastic stages, and the fleet's replicas' over the fleet
+fused stochastic stages, the locks phase's armed serving plane
+(``locks``), and the fleet's replicas' over the fleet
 phase's requests (``fleet``: the survivors' counters; a killed or
 retired replica's leave with it) and over the release phase's
 (``release``), and the lines phase's two graphs, its two extracted
@@ -2064,7 +2093,8 @@ class _Prototypes(object):
         self.alexnet, self.real = alexnet, alexnet.prototype_images
         self.n, self.key = n, (seed, n_classes, size)
         self.data = self.labels = self.error = None
-        self._thread = threading.Thread(target=self._draw, daemon=True)
+        self._thread = threading.Thread(target=self._draw, daemon=True,
+                                        name="smoke-draw")
         self._thread.start()
 
     def _draw(self):
@@ -6927,7 +6957,8 @@ class _StlData(object):
         self.main = os.path.join(self.tmp.name, "main")
         self.small = os.path.join(self.tmp.name, "f64")
         self.seconds = self.error = None
-        self._thread = threading.Thread(target=self._write, daemon=True)
+        self._thread = threading.Thread(target=self._write, daemon=True,
+                                        name="smoke-stl10-write")
         self._thread.start()
 
     def _write(self):
@@ -7777,7 +7808,8 @@ def _hot_reload(torch, engine, server, other, bad, images, card):
         if not numpy.array_equal(out, engine.predict(row)):
             raise RuntimeError("after the failed reload v1 serves other "
                                "replies")
-        thread = threading.Thread(target=client, daemon=True)
+        thread = threading.Thread(target=client, daemon=True,
+                                  name="smoke-reload-client")
         thread.start()
         try:
             time.sleep(0.2)
@@ -7924,6 +7956,7 @@ def phase_serve_models(torch, card, cifar_snapdir):
         -128, 128, (64,) + tuple(manifest["input_sample_shape"])).astype(
             numpy.float32)
     torch.backends.cudnn.deterministic = True
+    kept = False
     try:
         launches, (engine, server), timing, dev_bytes = _alexnet_dtypes(
             torch, source, images, card)
@@ -7939,18 +7972,448 @@ def phase_serve_models(torch, card, cifar_snapdir):
         reg = _registry_lru(torch, source, snapshot, {
             "alexnet": dev_bytes["f32"], "alexnet8": dev_bytes["int8"],
             "cifar": cifar_bytes["bf16"]}, images, card)
+        kept = True
     finally:
         torch.backends.cudnn.deterministic = False
-        for p in (os.path.join(out_dir, "alexnet_other.zip"),
-                  os.path.join(out_dir, "bad.zip")):
-            if os.path.exists(p):
-                os.remove(p)
+        if not kept:  # else the locks phase reads them, then removes them
+            _remove_packages(other_path, bad_path)
         shutil.rmtree(os.path.dirname(cifar_snapdir), ignore_errors=True)
     by_dtype = {dt: launches.get(dt, 0) + cifar_launches.get(dt, 0)
                 for dt in SERVE_DTYPES}
     return by_dtype, {"alexnet": timing, "reload_ms": reload_ms,
                       "registry": reg, "device_bytes": dev_bytes,
-                      "cifar_device_bytes": cifar_bytes}
+                      "cifar_device_bytes": cifar_bytes}, (
+                          path, other_path, bad_path)
+
+
+def _remove_packages(*paths):
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+
+
+#: the locks phase (after serve_models): client threads and requests
+#: each, the rows a request takes (cycled), the registry's budget in
+#: f32 AlexNets, the breaker step's cooldown, and the rounds of the
+#: sanitizer's cost (an unarmed and an armed engine timed in turn)
+LOCKS_CLIENTS = 8
+LOCKS_REQUESTS = 10
+LOCKS_ROWS = (1, 2, 3, 5, 8)
+LOCKS_BUDGET = 1.5
+LOCKS_COOLDOWN_MS = 300.0
+LOCKS_ROUNDS = 3
+
+
+def phase_locks(torch, card, packages):
+    """The card's serving plane under the armed lock-order sanitizer (see
+    the module docstring, phase 15b).  ``packages`` are the serve_models
+    phase's AlexNet package, its x0.9 twin and the package failing at
+    warmup.  Returns the forward launches of the armed run and the
+    numbers."""
+    import concurrent.futures
+    from znicz_tpu_torch.analysis import locksmith
+    from znicz_tpu_torch.core.config import root
+    t0 = time.perf_counter()
+    result_fn = concurrent.futures.Future.result
+    torch.backends.cudnn.deterministic = True
+    try:
+        locksmith.reset()
+        locksmith.arm()
+        try:
+            with _ConfigRestored(root.common.serving,
+                                 root.common.telemetry):
+                run = _locks_armed(torch, card, *packages)
+        finally:
+            locksmith.disarm()
+        rep = locksmith.assert_clean()
+        locksmith.reset()
+        armed_s = time.perf_counter() - t0
+        matched = _locks_references(run)
+        _locks_off_switch(run, result_fn)
+        cost = _locks_cost(run)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        _remove_packages(*packages[1:])
+    edges = sorted(rep["edges"])
+    say("   sanitizer: %d tracked locks in %d roles, %d acquisitions, %d "
+        "order edges, %d violations (%d cycles, %d blocking calls under a "
+        "lock); edges: %s"
+        % (sum(rep["locks"].values()), len(rep["locks"]),
+           sum(rep["acquisitions"].values()), len(edges),
+           len(rep["cycles"]) + len(rep["blocking"]), len(rep["cycles"]),
+           len(rep["blocking"]), "; ".join(
+               "%s x%d" % (e, rep["edges"][e]) for e in edges)))
+    say("== locks: %d replies bit-equal to unarmed engines' at their "
+        "buckets (%s), %d forward launches (%d dispatches x %d, all "
+        "16-byte, no plain pooling); batch-64 dispatch (median of %d "
+        "rounds) %.3f ms armed, %.3f ms unarmed; armed run %.2f s, phase "
+        "%.2f s; %s"
+        % (sum(matched.values()), ", ".join(
+            "%s %d" % kv for kv in sorted(matched.items())),
+           run["launches"], run["dispatches"], run["per_dispatch"],
+           LOCKS_ROUNDS, cost["armed"], cost["unarmed"], armed_s,
+           time.perf_counter() - t0, card))
+    return run["launches"], {
+        "armed_dispatch_ms": cost["armed"],
+        "unarmed_dispatch_ms": cost["unarmed"],
+        "tracked_locks": sum(rep["locks"].values()),
+        "acquisitions": sum(rep["acquisitions"].values()),
+        "edges": len(edges),
+        "violations": len(rep["cycles"]) + len(rep["blocking"])}
+
+
+def _locks_client(k, server, batcher, images, replies, failures, start):
+    """Client ``k``: LOCKS_REQUESTS requests alternating over ``other``
+    and ``alexnet8``, rows cycling through LOCKS_ROWS, over HTTP
+    (``.npy``, the bucket from ``X-Serving-Bucket``) when ``k`` is even,
+    else through ``batcher`` in this process."""
+    import numpy
+    conn = (http.client.HTTPConnection(server.host, server.port,
+                                       timeout=300)
+            if k % 2 == 0 else None)
+    start.wait()
+    try:
+        for i in range(LOCKS_REQUESTS):
+            model = ("other", "alexnet8")[(i + k) % 2]
+            n = LOCKS_ROWS[(i + k) % len(LOCKS_ROWS)]
+            o = (i * 3 + k) % (len(images) - n + 1)
+            x = images[o:o + n]
+            if conn is not None:
+                conn.request("POST", "/predict/" + model, body=_npy(x),
+                             headers={"Content-Type":
+                                      "application/octet-stream"})
+                resp = conn.getresponse()
+                raw = resp.read()
+                if resp.status != 200:
+                    failures.append("client %d: %s answered %d: %r"
+                                    % (k, model, resp.status, raw[:200]))
+                    continue
+                y = numpy.load(io.BytesIO(raw))
+                bucket = int(resp.getheader("X-Serving-Bucket"))
+            else:
+                info = {}
+                y = batcher.predict(x, model=model, info=info)
+                bucket = info["bucket"]
+            replies.append((model, o, n, bucket, y))
+    except Exception as e:  # noqa: BLE001 - reported by the phase
+        failures.append("client %d: %r" % (k, e))
+    finally:
+        if conn is not None:
+            conn.close()
+
+
+def _locks_armed(torch, card, path, other_path, bad_path):
+    """Everything the phase runs armed: a registry over the card whose
+    budget holds LOCKS_BUDGET f32 AlexNets (``alexnet@f32``,
+    ``alexnet8@int8``, then ``other@f32`` evicts the LRU), its HTTP
+    server's continuous batcher and a second one in process, the
+    clients with a hot reload of ``other`` between the two weight sets
+    beside them, the lazy restore of the evicted model, a bad reload
+    that rolls back and opens bucket 1's breaker, its 503, and the
+    half-open probe that closes it."""
+    import numpy
+    from znicz_tpu_torch.core import telemetry
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.export import import_package
+    from znicz_tpu_torch.serving.continuous import ContinuousBatcher
+    from znicz_tpu_torch.serving.registry import ModelRegistry
+    from znicz_tpu_torch.serving.server import ServingServer
+    root.common.telemetry.enabled = True
+    root.common.serving.slo_enabled = True
+    root.common.serving.trace_sample_n = 2
+    source = import_package(path)
+    other = import_package(other_path)
+    shape = tuple(source[0]["input_sample_shape"])
+    images = numpy.random.RandomState(2).randint(
+        -128, 128, (2 * max(LOCKS_ROWS),) + shape).astype(numpy.float32)
+    reg = ModelRegistry(max_batch=64, device="cuda")
+    _zero_counts()
+    t0 = time.perf_counter()
+    reg.add("alexnet", source)
+    # the budget, read live, in the f32 model's device bytes (the
+    # package also holds the zero fillers' masks)
+    root.common.serving.registry_memory_budget_bytes = int(
+        LOCKS_BUDGET * reg.peek("alexnet").device_bytes)
+    reg.add("alexnet8", source, dtype="int8")
+    reg.add("other", other)
+    if reg.peek("alexnet").resident or not reg.peek("other").resident or \
+            not reg.peek("alexnet8").resident:
+        raise RuntimeError("adding other under a budget of %.1f AlexNets "
+                           "left %s resident" % (LOCKS_BUDGET, {
+                               n: reg.peek(n).resident
+                               for n in reg.names()}))
+    add_s = time.perf_counter() - t0
+    server = ServingServer(registry=reg, port=0).start()
+    batcher = ContinuousBatcher(reg, max_inflight=2).start()
+    replies, failures, reloads = [], [], []
+    start, done = threading.Event(), threading.Event()
+
+    def reloader():
+        start.wait()
+        try:
+            while len(reloads) < 2 or not done.is_set():
+                src = (source, other)[len(reloads) % 2]
+                reloads.append(reg.reload("other", src))
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append("reload: %r" % e)
+    try:
+        threads = [threading.Thread(
+            target=_locks_client, name="locks-client-%d" % k, daemon=True,
+            args=(k, server, batcher, images, replies, failures, start))
+            for k in range(LOCKS_CLIENTS)]
+        reload_thread = threading.Thread(target=reloader, daemon=True,
+                                         name="locks-reload")
+        for t in threads + [reload_thread]:
+            t.start()
+        t0 = time.perf_counter()
+        start.set()
+        for t in threads:
+            t.join(timeout=300)
+        done.set()
+        reload_thread.join(timeout=300)
+        storm_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads + [reload_thread]):
+            raise RuntimeError("a client or the reload thread hung")
+        if failures:
+            raise RuntimeError("the armed clients failed: %s" % failures[:5])
+        if reloads != list(range(2, 2 + len(reloads))):
+            raise RuntimeError("other's versions went %s" % reloads)
+        restored = _locks_restore(reg, server, images, replies)
+        breaker = _locks_breaker(reg, server, bad_path, images, replies,
+                                 telemetry)
+    finally:
+        batcher.stop()
+        server.stop()
+    counts = _counts()
+    dispatches = sum(reg.peek(n).dispatches for n in reg.names())
+    per = sum(e["type"] == "max_pooling" for e in reg.peek("alexnet").layers)
+    launches = counts["forward"]
+    if launches == 0 or launches != per * dispatches or \
+            counts["forward_by_width"][NARROW] or counts["plain_on_card"]:
+        raise RuntimeError(
+            "the armed run's %d dispatches launched %d forward kernels "
+            "(%s, %d plain pools on the card); expected %d a dispatch, all "
+            "16-byte" % (dispatches, launches, counts["forward_by_width"],
+                         counts["plain_on_card"], per))
+    say("   armed: adds in %.2f s (other evicted alexnet under %d bytes); "
+        "%d clients x %d requests (%d over HTTP, %d through a second "
+        "batcher) in %.2f s beside %d hot reloads of other (v%d..v%d); "
+        "alexnet restored %s; %s" % (
+            add_s, reg.budget_bytes(), LOCKS_CLIENTS, LOCKS_REQUESTS,
+            (LOCKS_CLIENTS + 1) // 2, LOCKS_CLIENTS // 2, storm_s,
+            len(reloads), reloads[0], reloads[-1], restored, breaker))
+    return {"replies": replies, "source": source, "other": other,
+            "images": images, "launches": launches,
+            "dispatches": dispatches, "per_dispatch": per}
+
+
+def _locks_restore(reg, server, images, replies):
+    """A request for the evicted ``alexnet`` restores it (evicting what
+    the budget needs); its reply joins the checked ones."""
+    import numpy
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+    try:
+        conn.request("POST", "/predict/alexnet", body=_npy(images[:4]),
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        raw = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200 or not reg.peek("alexnet").resident:
+        raise RuntimeError("the evicted alexnet answered %d: %r"
+                           % (resp.status, raw[:200]))
+    replies.append(("alexnet", 0, 4, int(resp.getheader("X-Serving-Bucket")),
+                    numpy.load(io.BytesIO(raw))))
+    return "(evictions %d, resident %s)" % (
+        reg.memory_stats()["evictions"],
+        sorted(n for n in reg.names() if reg.peek(n).resident))
+
+
+def _locks_breaker(reg, server, bad_path, images, replies, telemetry):
+    """With ``breaker_threshold`` 1: a reload of ``alexnet`` to the bad
+    package fails at warmup and rolls back, its bucket-1 warmup failure
+    opening bucket 1's breaker; a one-row request then answers 503
+    without a dispatch while alexnet8's clients go on; after the
+    cooldown a one-row request is the half-open probe, answers 200 and
+    closes it.  The journal must show closed -> open -> half_open ->
+    closed."""
+    import numpy
+    from znicz_tpu_torch.core.config import root
+    root.common.serving.breaker_threshold = 1
+    root.common.serving.breaker_cooldown_ms = LOCKS_COOLDOWN_MS
+    engine = reg.peek("alexnet")
+    version = engine.version
+    t_step = time.time()
+    try:
+        reg.reload("alexnet", bad_path)
+    except RuntimeError:
+        pass
+    else:
+        raise RuntimeError("the bad package's reload succeeded")
+    breaker = engine._breakers.get(1)
+    if engine.version != version or breaker is None or \
+            breaker.state != "open":
+        raise RuntimeError("after the bad reload: version %d (was %d), "
+                           "bucket 1's breaker %s" % (
+                               engine.version, version,
+                               breaker and breaker.status()))
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+    side, stop = [], threading.Event()
+
+    def side_client():
+        c = http.client.HTTPConnection(server.host, server.port, timeout=300)
+        try:
+            while not stop.is_set():
+                c.request("POST", "/predict/alexnet8", body=_npy(images[:2]),
+                          headers={"Content-Type":
+                                   "application/octet-stream"})
+                r = c.getresponse()
+                side.append((r.status, r.read(),
+                             r.getheader("X-Serving-Bucket")))
+        finally:
+            c.close()
+    thread = threading.Thread(target=side_client, daemon=True,
+                              name="locks-side")
+    thread.start()
+    try:
+        statuses = []
+        for wait_s in (0.0, LOCKS_COOLDOWN_MS / 1e3 + 0.05):
+            time.sleep(wait_s)
+            conn.request("POST", "/predict/alexnet", body=_npy(images[:1]),
+                         headers={"Content-Type":
+                                  "application/octet-stream"})
+            resp = conn.getresponse()
+            raw = resp.read()
+            statuses.append(resp.status)
+            if resp.status == 200:
+                replies.append(("alexnet", 0, 1,
+                                int(resp.getheader("X-Serving-Bucket")),
+                                numpy.load(io.BytesIO(raw))))
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+        conn.close()
+    states = [ev["state"] for ev in telemetry.journal_events()
+              if ev.get("kind") == "serving.breaker"
+              and ev.get("name") == breaker.name and ev["t"] >= t_step]
+    if statuses != [503, 200] or states != ["open", "half_open", "closed"]:
+        raise RuntimeError("bucket 1's breaker: requests answered %s, "
+                           "transitions %s" % (statuses, states))
+    if not side or any(s != 200 for s, _, _ in side):
+        raise RuntimeError("alexnet8 during the breaker step answered %s"
+                           % sorted(set(s for s, _, _ in side)))
+    for _, raw, bucket in side:
+        replies.append(("alexnet8", 0, 2, int(bucket),
+                        numpy.load(io.BytesIO(raw))))
+    return ("a bad reload rolled back (v%d serves on) and opened %s; a "
+            "one-row request answered 503, after %.0f ms the half-open "
+            "probe 200 (transitions %s; %d alexnet8 requests beside, all "
+            "200)" % (version, breaker.name, LOCKS_COOLDOWN_MS,
+                      " -> ".join(["closed"] + states), len(side)))
+
+
+def _locks_references(run):
+    """Every reply of the armed run against an unarmed engine's at its
+    bucket: ``alexnet8`` the int8 engine's, ``alexnet`` the package's,
+    ``other`` the twin's or the package's (the hot reload alternates
+    them), bit for bit.  Returns the replies matched by weights."""
+    import numpy
+    from znicz_tpu_torch.serving.engine import InferenceEngine
+    images = run["images"]
+    engines = {
+        "package": InferenceEngine(run["source"], max_batch=64,
+                                   device="cuda", warmup=False),
+        "twin": InferenceEngine(run["other"], max_batch=64,
+                                device="cuda", warmup=False),
+        "int8": InferenceEngine(run["source"], max_batch=64,
+                                device="cuda", warmup=False,
+                                dtype="int8")}
+    allowed = {"alexnet": ("package",), "alexnet8": ("int8",),
+               "other": ("twin", "package")}
+    refs, matched = {}, collections.Counter()
+    for model, o, n, bucket, y in run["replies"]:
+        for name in allowed[model]:
+            key = (name, o, n, bucket)
+            if key not in refs:
+                refs[key] = engines[name].predict(images[o:o + n],
+                                                  bucket=bucket)
+            if y.shape == refs[key].shape and numpy.array_equal(
+                    y.view(numpy.uint32), refs[key].view(numpy.uint32)):
+                matched["%s@%s" % (model, name)] += 1
+                break
+        else:
+            raise RuntimeError(
+                "%s rows %d:%d at bucket %d differ from the unarmed "
+                "engines' %s" % (model, o, o + n, bucket, allowed[model]))
+    return matched
+
+
+def _locks_off_switch(run, result_fn):
+    """After disarm: the gate is off, ``Future.result`` and the module
+    locks are the originals, and a fresh engine, registry and batcher
+    hold plain ``threading`` locks."""
+    import concurrent.futures
+    from znicz_tpu_torch.analysis import locksmith
+    from znicz_tpu_torch.ops import cuda_pooling
+    from znicz_tpu_torch.serving import engine as engine_mod
+    from znicz_tpu_torch.serving.continuous import ContinuousBatcher
+    from znicz_tpu_torch.serving.engine import InferenceEngine
+    from znicz_tpu_torch.serving.registry import ModelRegistry
+    engine = InferenceEngine(run["source"], max_batch=64,
+                             device="cuda", warmup=False)
+    reg = ModelRegistry(device="cuda")
+    batcher = ContinuousBatcher(reg)
+    plain = {"engine load lock": (engine._load_lock, threading.Lock),
+             "engine breakers lock": (engine._lock, threading.Lock),
+             "registry lock": (reg._lock, threading.RLock),
+             "batcher condition": (batcher._cond, threading.Condition),
+             "warm-up lock": (engine_mod._warm_lock, threading.Lock),
+             "kernel build lock": (cuda_pooling._lock, threading.Lock)}
+    wrong = [name for name, (obj, make) in plain.items()
+             if type(obj) is not type(make())]
+    if locksmith.enabled() or wrong or \
+            concurrent.futures.Future.result is not result_fn:
+        raise RuntimeError("after disarm: gate %s, tracked %s, Future.result "
+                           "patched %s" % (locksmith.enabled(), wrong,
+                                           concurrent.futures.Future.result
+                                           is not result_fn))
+    say("   off switch: gate off, Future.result restored, a fresh engine's, "
+        "registry's and batcher's locks and the module locks plain "
+        "threading types (%s)" % ", ".join(sorted(plain)))
+
+
+def _locks_cost(run):
+    """The sanitizer's cost on a batch-64 dispatch: two fresh engines
+    of the package, one built unarmed and one armed, timed in turn over
+    LOCKS_ROUNDS rounds, the unarmed one disarmed and the armed one
+    armed (the module locks wrapped too).  The rounds must stay clean.
+    Returns each side's median, in ms."""
+    import numpy
+    from znicz_tpu_torch.analysis import locksmith
+    from znicz_tpu_torch.serving.engine import InferenceEngine
+    images = run["images"]
+    x64 = numpy.concatenate([images] * (64 // len(images) + 1))[:64]
+    engines = {"unarmed": InferenceEngine(run["source"], max_batch=64,
+                                          device="cuda", warmup=False)}
+    locksmith.reset()
+    locksmith.arm()
+    try:
+        engines["armed"] = InferenceEngine(run["source"], max_batch=64,
+                                           device="cuda", warmup=False)
+        times = {"unarmed": [], "armed": []}
+        for _ in range(LOCKS_ROUNDS):
+            for side in ("unarmed", "armed"):
+                (locksmith.arm if side == "armed" else locksmith.disarm)()
+                times[side].append(
+                    _throughput(engines[side], x64)["dispatch_ms"])
+    finally:
+        locksmith.disarm()
+    locksmith.assert_clean()
+    locksmith.reset()
+    say("   sanitizer's cost: batch-64 dispatch ms by round, unarmed %s, "
+        "armed %s" % tuple(", ".join("%.3f" % t for t in times[side])
+                           for side in ("unarmed", "armed")))
+    return {side: float(numpy.median(times[side])) for side in times}
 
 
 def _iae_argv(snapdir, stage, restore, *extra):
@@ -8623,7 +9086,8 @@ class _FleetCli(object):
         #: every replica pid seen, so a failed phase can stop them all
         self.pids = set()
         self._banner = threading.Event()
-        threading.Thread(target=self._drain, daemon=True).start()
+        threading.Thread(target=self._drain, daemon=True,
+                         name="smoke-fleet-drain").start()
 
     def wait_banner(self):
         if not self._banner.wait(300) or self.url is None:
@@ -8746,7 +9210,8 @@ def _burst(cli, images, stop, tag, on_reply=None):
             i += 1
         conn.close()
 
-    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+    threads = [threading.Thread(target=client, args=(k,), daemon=True,
+                                name="smoke-fleet-client-%d" % k)
                for k in range(FLEET_CLIENTS)]
     for t in threads:
         t.start()
@@ -8780,7 +9245,8 @@ def _rate(cli, images, n_requests):
                 done.append(1)
         conn.close()
 
-    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+    threads = [threading.Thread(target=client, args=(k,), daemon=True,
+                                name="smoke-fleet-client-%d" % k)
                for k in range(FLEET_CLIENTS)]
     t0 = time.perf_counter()
     for t in threads:
@@ -9360,7 +9826,8 @@ class _Traffic(object):
             conn.close()
 
         self._threads = [threading.Thread(target=client, args=(k, n),
-                                          daemon=True)
+                                          daemon=True,
+                                          name="smoke-traffic-%d" % k)
                          for k, n in enumerate(rows)]
         for t in self._threads:
             t.start()
@@ -11169,8 +11636,10 @@ def _phases(torch, name, card, start):
     iae_launches, iae_fused_launches, iae_rows = phase_mse_zoo(
         torch, card, cycles_per_ms, imports)
     marks.append(("mse_zoo", time.perf_counter()))
-    by_dtype, _ = phase_serve_models(torch, card, cifar_snaps)
+    by_dtype, _, packages = phase_serve_models(torch, card, cifar_snaps)
     marks.append(("serve_models", time.perf_counter()))
+    locks_launches, _ = phase_locks(torch, card, packages)
+    marks.append(("locks", time.perf_counter()))
     later = {}
     try:
         fleet_launches, release_launches = phase_fleet(torch, card, later)
@@ -11217,10 +11686,12 @@ def _phases(torch, name, card, start):
                "launches": sum(by_width.values()) + sum(
                    p["forward"] for p in paths.values()) + sum(
                        by_dtype.values()) + serve_retry_launches +
-               fleet_launches + release_launches + autoscale_launches,
+               fleet_launches + release_launches + autoscale_launches +
+               locks_launches,
                "launches_by_path": dict(
                    serve=sum(by_width.values()),
                    serve_models=sum(by_dtype.values()),
+                   locks=locks_launches,
                    resilience_serve=serve_retry_launches,
                    fleet=fleet_launches,
                    release=release_launches,
@@ -11232,7 +11703,7 @@ def _phases(torch, name, card, start):
                                         for p in paths.values()) + (
                        sum(by_dtype.values()) + serve_retry_launches +
                        fleet_launches + release_launches +
-                       autoscale_launches if k == WIDE
+                       autoscale_launches + locks_launches if k == WIDE
                        else 0)
                    for k in by_width},
                "ptxas": _ptxas(cuda_pooling.SOURCE)}

@@ -3,7 +3,10 @@ AlexNet-shaped package through both InferenceEngines (rtol 1e-4 /
 atol 1e-6, float32 — different conv/matmul summation orders), the
 package zip round trip, params_from_numpy fed from the JAX engine's
 host parameters, the micro-batcher and the HTTP server, and the
-full-width AlexNet sample's manifest."""
+full-width AlexNet sample's manifest.  The micro-batcher's tests and
+the warm-up thread's run under the armed lock-order sanitizer (0
+cycles and 0 blocking calls under a lock at teardown), as the JAX
+package arms its batcher and breaker tests."""
 
 import gc
 import http.client
@@ -17,6 +20,7 @@ import numpy
 import pytest
 import torch
 
+from test_torch_locksmith import armed_clean
 from znicz_tpu import export as jax_export
 from znicz_tpu.serving.engine import InferenceEngine as JaxEngine
 from znicz_tpu_torch import export
@@ -79,6 +83,17 @@ def jax_engine(package):
 @pytest.fixture(scope="module")
 def engine(package):
     return InferenceEngine(package, max_batch=4, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_sanitizer(request):
+    """The batcher, breaker and warm-up tests run armed."""
+    name = request.node.name
+    if not any(w in name for w in ("batcher", "breaker", "warm")):
+        yield
+        return
+    with armed_clean():
+        yield
 
 
 def _images(n, seed=3):

@@ -6,11 +6,14 @@
   ``znicz_tpu``.
 * Entry points run on CUDA unless told ``device="cpu"``; without CUDA
   they raise instead of carrying on on the CPU.
+* The analysis layer (``znicz_tpu_torch.analysis``) imports only the
+  port's config, not torch itself.
 * The avatar's producer thread makes no call into ``torch.cuda`` (nor
   into any other part of torch): a thread's first CUDA product would
   take a cuBLAS workspace for the life of the process.
 """
 
+import ast
 import collections
 import json
 import os
@@ -177,8 +180,42 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.units.accumulator",
                  "znicz_tpu_torch.units.labels_printer",
                  "znicz_tpu_torch.testing",
-                 "znicz_tpu_torch.core.compile_cache"):
+                 "znicz_tpu_torch.core.compile_cache",
+                 "znicz_tpu_torch.analysis",
+                 "znicz_tpu_torch.analysis.locksmith",
+                 "znicz_tpu_torch.analysis.graftlint"):
         assert name in doc["modules"]
+
+
+def test_the_analysis_layer_imports_no_torch_itself():
+    """The sanitizer and the checkers import the port's config alone
+    (the package's ``__init__`` brings torch in, they do not), and
+    importing them brings in nothing of jax or ``znicz_tpu``."""
+    for name in ("locksmith", "graftlint"):
+        path = os.path.join(REPO, "znicz_tpu_torch", "analysis",
+                            name + ".py")
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        mods = {a.name for n in ast.walk(tree)
+                if isinstance(n, ast.Import) for a in n.names} | {
+            n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom)}
+        assert {m.split(".")[0] for m in mods} <= {
+            "ast", "os", "re", "sys", "threading", "traceback",
+            "concurrent", "znicz_tpu_torch"}, mods
+        assert {m for m in mods if m.startswith("znicz_tpu_torch")} <= {
+            "znicz_tpu_torch.core.config", "znicz_tpu_torch.core"}, mods
+    probe = ("import json, sys\n"
+             "from znicz_tpu_torch.analysis import graftlint, locksmith\n"
+             "graftlint.load_vocabulary()\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m in "
+             "('jax', 'znicz_tpu') or "
+             "m.startswith(('jax.', 'znicz_tpu.')))))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
 
 
 @pytest.fixture

@@ -20,6 +20,9 @@ end.
   dispatch, per-bucket isolation, recovery through a half-open probe on
   a fake clock, runtime disable and reconfigure, a ``BaseException``
   releasing its probe slot, a submit racing the drain answering 503.
+* Every test runs under the armed lock-order sanitizer (the JAX
+  package's conftest arms the three modules above): 0 cycles and 0
+  blocking calls under a lock at teardown.
 * The registry (``tests/functional/test_serving_dtype.py``'s mixed-dtype
   accounting among them): URL-safe names, hot reload by name, the LRU
   eviction under a budget below the models' sum with a lazy restore
@@ -37,6 +40,7 @@ import numpy
 import pytest
 
 from test_torch_engine import NARROW
+from test_torch_locksmith import armed_clean
 from test_torch_mnist import _one_torch_thread  # noqa: F401
 from znicz_tpu_torch import export
 from znicz_tpu_torch.core.config import root
@@ -51,6 +55,17 @@ from znicz_tpu_torch.serving.continuous import (ContinuousBatcher,
 from znicz_tpu_torch.serving.engine import InferenceEngine
 from znicz_tpu_torch.serving.registry import ModelRegistry, UnknownModelError
 from znicz_tpu_torch.serving.server import ServingServer
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_sanitizer():
+    """Every test here runs under the armed lock-order sanitizer, as
+    the JAX package arms ``test_model_registry``,
+    ``test_continuous_batcher`` and ``test_serving_resilience``: the
+    teardown asserts 0 lock-order cycles and 0 blocking calls under a
+    lock."""
+    with armed_clean():
+        yield
 
 
 # -- the continuous batcher ------------------------------------------------
@@ -135,6 +150,11 @@ def test_queued_requests_coalesce_when_slots_busy():
             assert numpy.array_equal(f.result(timeout=5),
                                      _rows(1, base=float(i)) + 1.0)
         assert model.batches == [1, 4]
+        # a slot leaves the inflight count just after it resolves its
+        # batch's futures
+        deadline = time.monotonic() + 5
+        while b.inflight and time.monotonic() < deadline:
+            time.sleep(0.001)
         assert b.inflight == 0 and b.queued_rows == 0
     finally:
         b.stop()

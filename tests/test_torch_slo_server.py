@@ -18,6 +18,7 @@ servers on the CPU, a 8-6-4 package):
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -124,6 +125,18 @@ def _predict(url, rid, rows=1, model="m", width=WIDTH, headers=None):
 def _get(url, path):
     with urllib.request.urlopen(url + path, timeout=30) as resp:
         return resp.status, json.loads(resp.read())
+
+
+def _closed_tree(url, rid, wait_s=5.0):
+    """``rid``'s trace tree once the server has closed it: the server
+    finishes a tree just after it sends the reply, so a read right
+    after the reply may come first.  The last read after ``wait_s``."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        code, tree = _get(url, "/debug/trace/%s" % rid)
+        if tree.get("complete") or time.monotonic() > deadline:
+            return code, tree
+        time.sleep(0.01)
 
 
 class _Records(object):
@@ -277,7 +290,7 @@ def test_single_engine_server_traces_too(armed):
     url = "http://127.0.0.1:%d" % server.port
     try:
         assert _predict(url, "single-1", model=None)[0] == 200
-        code, tree = _get(url, "/debug/trace/single-1")
+        code, tree = _closed_tree(url, "single-1")
         assert tree["complete"] is True
         assert set(tree["span_kinds"]) == set(reqtrace.SPAN_KINDS)
         # the micro-batcher keeps no admitted ring: the oracle says so

@@ -13,6 +13,6 @@ The hand-written Hopper kernels are max pooling with winner offsets
 (:mod:`znicz_tpu_torch.ops.cuda_pooling_backward`).
 """
 
-from znicz_tpu_torch.core.backends import default_device
+from znicz_tpu_torch.core.backends import default_device  # noqa: F401
 
 __all__ = ["default_device"]

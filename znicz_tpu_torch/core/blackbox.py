@@ -32,7 +32,7 @@ that survives the crash:
   ROLE``; ``GET /debug/blackbox`` on every :class:`~znicz_tpu_torch.
   core.status_server.HandlerBase` server answers the writer's stats.
 
-The writer's lock is a ``threading.Lock``.
+The writer's lock is a ``locksmith`` lock.
 
 Everything gates on ``root.common.telemetry.blackbox.enabled``: off,
 :func:`maybe_arm` returns after one config read, no sink is installed,
@@ -44,15 +44,15 @@ survives a SIGKILL; the fsync comes at rotation).
 import json
 import os
 import re
-import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 
 #: the config node (stable object identity — config.py declares it)
 _cfg = root.common.telemetry.blackbox
 
-_lock = threading.Lock()
+_lock = locksmith.lock("blackbox.writer")
 
 #: lazily created on the first ARMED use — the disabled path never
 #: allocates (zero-overhead-off contract)

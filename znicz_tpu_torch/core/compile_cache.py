@@ -21,12 +21,12 @@ before it serves.
 
 import glob
 import os
-import threading
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import root
 
-_lock = threading.Lock()
+_lock = locksmith.lock("compile_cache")
 #: the active cache directory (None: the libraries live under
 #: ``build/znicz_tpu_torch/``)
 _dir = None

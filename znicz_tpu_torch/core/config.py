@@ -8,6 +8,8 @@ the fleet's autoscaler and the ``release`` block, :375-519), the
 and ``deterministic``, ``root.common.disable.plotting`` (on, JAX
 :221: the plotters record their data and render nothing) and
 ``root.common.interactive`` (the shell unit's gate),
+``root.common.analysis.lock_sanitizer`` (the lock-order sanitizer's
+gate, JAX :226-231),
 ``root.common.dirs.snapshots`` / ``datasets`` / ``cache`` of the
 training workflows, the ``root.common.faults`` / ``retry`` / ``health``
 knobs of the fault-injection registry, the transient retry and the
@@ -371,6 +373,9 @@ declare("common", {
     # the shell unit (core/interaction.py) opens a console only when on
     # and stdin is a terminal
     "interactive": False,
+    # the analysis layer (analysis/): off, the locksmith lock factories
+    # hand out plain threading primitives after ONE config predicate
+    "analysis": {"lock_sanitizer": False},
     # the snapshotter's default directory, the datasets' (the MNIST
     # loader's IDX files) and the runtime cache (crash reports), inside
     # the checkout

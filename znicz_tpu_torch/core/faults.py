@@ -38,12 +38,12 @@ attempts.
 """
 
 import logging
-import threading
 import time
 
 import numpy
 import torch
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import Config, root
 
@@ -173,7 +173,7 @@ class _Registry(object):
     and the armed rules."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("faults.registry")
         self.rules = {}        # site -> _Rule
         self.invocations = {}  # site -> int
         self.injected = {}     # site -> int
@@ -202,7 +202,7 @@ class _Registry(object):
         return rule
 
 
-_registry_lock = threading.Lock()
+_registry_lock = locksmith.lock("faults.module")
 _registry = None
 
 

@@ -27,12 +27,12 @@ serves :func:`status`.
 import collections
 import logging
 import math
-import threading
 import time
 
 import numpy
 import torch
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import DEV, SYNC, Array, host_fetch
@@ -259,7 +259,7 @@ class HealthMonitor(object):
             maxlen=self.VIOLATION_HISTORY)
         self._steps = 0
         self._next_check = 0
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("health.monitor")
 
     # -- interval ------------------------------------------------------------
     def due(self, steps=1):
@@ -388,7 +388,7 @@ class HealthMonitor(object):
         }
 
 
-_monitor_lock = threading.Lock()
+_monitor_lock = locksmith.lock("health.module")
 _monitor = None
 
 

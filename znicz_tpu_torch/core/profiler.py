@@ -71,6 +71,7 @@ import time
 
 import torch
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core import telemetry
 
@@ -123,7 +124,7 @@ class DeviceLedger(object):
         #: keep counts non-negative): the observation missed
         #: allocations, and the live totals are lower bounds
         self.clamped_frees = 0
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("profiler.ledger")
 
     def swap(self, name, old_nbytes, new_nbytes):
         name = name or "<unnamed>"
@@ -176,11 +177,11 @@ class _ProfilerState(object):
         #: (epoch, ledger live bytes) at each epoch boundary
         self.epoch_bytes = []
         self.leak_suspects = 0
-        self.lock = threading.Lock()
+        self.lock = locksmith.lock("profiler.state")
 
 
 _state = None
-_state_lock = threading.Lock()
+_state_lock = locksmith.lock("profiler.module")
 
 
 def _prof():
@@ -256,7 +257,7 @@ class _CostCount(object):
 #: counted dispatches running in the process (0: kernel_cost returns at
 #: once)
 _running = 0
-_running_lock = threading.Lock()
+_running_lock = locksmith.lock("profiler.running")
 
 
 def _active_count():
@@ -668,7 +669,7 @@ def breakdown_summary():
 # The device trace (/debug/profile, the CLI, Workflow.run_profiled)
 # ---------------------------------------------------------------------------
 
-_capture_lock = threading.Lock()
+_capture_lock = locksmith.lock("profiler.capture")
 
 
 class EmptyDeviceTrace(RuntimeError):

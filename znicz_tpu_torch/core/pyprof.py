@@ -26,7 +26,7 @@ the GIL:
 dispatch frames where the JAX package recognises ``jax`` / ``jaxlib``
 ones: frames under ``torch/`` and the ctypes launches of the
 hand-written kernels (``ops/cuda_pooling.py``,
-``ops/cuda_pooling_backward.py``).  Its lock is a ``threading.Lock``.
+``ops/cuda_pooling_backward.py``).  Its lock is a ``locksmith`` lock.
 
 Everything gates on ``root.common.profiler.pyprof.enabled``: off,
 :func:`maybe_start` returns without touching anything, no thread
@@ -40,6 +40,7 @@ import sys
 import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core import telemetry
 
@@ -50,7 +51,7 @@ telemetry.register_help(
     "pyprof", "continuous Python sampling profiler (core/pyprof.py): "
               "stack samples folded and GIL-wait milliseconds")
 
-_lock = threading.Lock()
+_lock = locksmith.lock("pyprof.state")
 
 #: the thread-name convention every spawn site uses
 THREAD_PREFIX = "znicz:"

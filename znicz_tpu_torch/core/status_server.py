@@ -41,6 +41,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, quote, unquote
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.core import pyprof, telemetry
@@ -48,7 +49,7 @@ from znicz_tpu_torch.core import pyprof, telemetry
 #: one guard for both capture endpoints (/debug/profile, /debug/pyprof):
 #: a device trace and a frame-walk capture interleaved in one process
 #: would each distort what the other measures
-_capture_guard = threading.Lock()
+_capture_guard = locksmith.lock("status_server.debug_capture")
 _BUSY = {"error": "another debug capture (profile or pyprof) is "
                   "already running"}
 
@@ -248,7 +249,7 @@ class HttpServerBase(Logger):
         self.port = port
         self._httpd = None
         self._thread = None
-        self._lifecycle_lock = threading.Lock()
+        self._lifecycle_lock = locksmith.lock("status_server.lifecycle")
 
     def make_handler(self):
         raise NotImplementedError

@@ -57,10 +57,11 @@ import re
 import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 
 _cfg = root.common.telemetry
-_lock = threading.Lock()
+_lock = locksmith.lock("telemetry.registry")
 _T0 = time.perf_counter()
 logger = logging.getLogger("telemetry")
 
@@ -107,7 +108,7 @@ class Counter(object):
     def __init__(self, name):
         self.name = name
         self.value = 0
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("telemetry.metric")
 
     def inc(self, n=1):
         with self._lock:
@@ -146,7 +147,7 @@ class Histogram(object):
         self.count = 0
         self.sum = 0.0
         self._recent = collections.deque(maxlen=self.WINDOW)
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("telemetry.metric")
 
     def observe(self, value, count=1):
         value = float(value)
@@ -218,6 +219,7 @@ def labeled(name, **labels):
 #: of a series name wins), the JAX package's table less its ``jax``
 #: compile family; modules register their own families
 _HELP = {
+    "analysis": "static/runtime analysis layer (graftlint, locksmith)",
     "faults": "deterministic fault injection (core/faults.py)",
     "health": "numeric training-health monitor (core/health.py)",
     "launcher": "supervised-restart lifecycle (launcher.py)",
@@ -417,7 +419,7 @@ class _Ring(object):
         self._capacity = capacity
         self._events = None
         self.dropped = 0
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("telemetry.ring")
 
     def append(self, ev):
         with self._lock:

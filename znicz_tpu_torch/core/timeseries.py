@@ -23,7 +23,7 @@ This module keeps the over-time view in process:
 The families differ from the JAX package's: it samples a ``jax``
 family (its compile counters), which the port has no counterpart of,
 and the port adds its profiler's, fault registry's, health monitor's
-and launcher's families.  Its registry lock is a ``threading.Lock``.
+and launcher's families.  Its registry lock is a ``locksmith`` lock.
 
 Everything gates on ``root.common.telemetry.timeseries.enabled``: off,
 :func:`maybe_start` returns without touching anything, no thread
@@ -35,6 +35,7 @@ import collections
 import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core import telemetry
 
@@ -45,7 +46,7 @@ telemetry.register_help(
     "timeseries", "metric time-series sampler (core/timeseries.py): "
                   "sweeps completed and series ring count")
 
-_lock = threading.Lock()
+_lock = locksmith.lock("timeseries.registry")
 
 #: name -> _Series; created lazily per sampled series
 _series = {}

@@ -34,10 +34,10 @@ profiler's cost registry, which cannot see a ctypes launch.
 import collections
 import ctypes
 import functools
-import threading
 
 import torch
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.ops import cuda_build
 from znicz_tpu_torch.ops.pooling import output_spatial
@@ -73,7 +73,7 @@ Plan = collections.namedtuple("Plan", "lanes ti tj smem staged",
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
            torch.float64: 3}
 _lib = None
-_lock = threading.Lock()
+_lock = locksmith.lock("ops.cuda_pooling.build")
 
 
 def load():

@@ -17,16 +17,16 @@ row, with int32 index arithmetic and no division per cell; each block
 stages the err and offsets of the windows that touch its tile once in
 shared memory with 16-byte ``cp.async``, and every cell reads its
 covering windows there instead of through L1/L2 once for each cell a
-window covers; each thread owns a 16-byte vector of channels and
-stores it as one; float64 sums in double.  The kernel is instantiated with the stride as the
-constant 2 (every pool on the port's paths), where the window walk
-shifts instead of dividing, and once with runtime strides for every
-other geometry, and once more with runtime strides and nothing staged,
-for windows too large for shared memory, which it reads from device
-memory.  Tiles stage at most ``TILE_BYTES`` = 24 KB, the
-budget that timed fastest on the H100: 4, 9 and 13 input rows at
-AlexNet's three training pools.  Each pool still takes one launch, a
-floor that at max_pool5 is about half the bound.
+window covers; each thread owns a 16-byte vector of channels and stores
+it as one; float64 sums in double.  The kernel is instantiated with the
+stride as the constant 2 (every pool on the port's paths), where the
+window walk shifts instead of dividing, and once with runtime strides
+for every other geometry, and once more with runtime strides and nothing
+staged, for windows too large for shared memory, which it reads from
+device memory.  Tiles stage at most ``TILE_BYTES`` = 24 KB, the budget
+that timed fastest on the H100: 4, 9 and 13 input rows at AlexNet's
+three training pools.  Each pool still takes one launch, a floor that at
+max_pool5 is about half the bound.
 
 Before each launch the wrapper chooses, from shape and alignment
 alone, the vector width (:func:`vector_width`), the tiles, the block
@@ -44,10 +44,10 @@ profiler's cost registry, which cannot see a ctypes launch.
 import collections
 import ctypes
 import functools
-import threading
 
 import torch
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import profiler
 from znicz_tpu_torch.ops import cuda_build
 from znicz_tpu_torch.ops.pooling import output_spatial
@@ -93,7 +93,7 @@ Plan = collections.namedtuple(
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
            torch.float64: 3}
 _lib = None
-_lock = threading.Lock()
+_lock = locksmith.lock("ops.cuda_pooling_backward.build")
 
 
 def load():
@@ -115,8 +115,8 @@ def load():
 
 def vector_width(err, offsets, grad):
     """Channels each thread owns: a 16-byte vector of ``err``'s type (2
-    in float64, 4 in float32, 8 in float16/bfloat16) when C and the three tensors'
-    addresses allow 16-byte accesses to both ``err``/``grad`` and the
+    in float64, 4 in float32, 8 in float16/bfloat16) when C and the three
+    tensors' addresses allow 16-byte accesses to both ``err``/``grad`` and the
     int32 offsets, else 1."""
     vec = 16 // err.element_size()
     if err.shape[-1] % vec == 0 and all(

@@ -1,11 +1,12 @@
 """Fully-connected forward, softmax and backward on tensors.
 
 Counterpart of ``znicz_tpu/ops/dense.py`` (``forward_jax`` :27,
-``softmax_jax`` :37, ``backward_jax`` :66).  ``weights`` is ``(neurons, input_size)`` unless
-``weights_transposed``; the forward is ``y = x @ W^T + b``.  The
-products are ``torch.matmul`` — the JAX package leaves them to XLA.
-:func:`forward_numpy` and :func:`softmax_numpy` are the numpy twins
-(JAX :46, :55) that ``export.run_package_numpy`` runs.
+``softmax_jax`` :37, ``backward_jax`` :66).  ``weights`` is
+``(neurons, input_size)`` unless ``weights_transposed``; the forward
+is ``y = x @ W^T + b``.  The products are ``torch.matmul`` — the JAX
+package leaves them to XLA.  :func:`forward_numpy` and
+:func:`softmax_numpy` are the numpy twins (JAX :46, :55) that
+``export.run_package_numpy`` runs.
 """
 
 import numpy

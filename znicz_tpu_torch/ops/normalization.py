@@ -2,8 +2,9 @@
 forward and backward, on NHWC tensors.
 
 Counterpart of ``znicz_tpu/ops/normalization.py`` (``lrn_forward_jax``
-:21-50, ``lrn_backward_jax`` :53): with ``s_i = k + alpha * sum_{j in window(i)} x_j^2`` over the
-channel window ``[i - n//2, i + n//2]``, ``y_i = x_i / s_i^beta``.  The
+:21-50, ``lrn_backward_jax`` :53): with
+``s_i = k + alpha * sum_{j in window(i)} x_j^2`` over the channel
+window ``[i - n//2, i + n//2]``, ``y_i = x_i / s_i^beta``.  The
 windowed channel sum is one product with a (C, C) 0/1 band matrix on
 the channel axis, as in the JAX package.  :func:`lrn_forward_numpy`
 (JAX :62-77) is the numpy twin that ``export.run_package_numpy`` runs.

@@ -987,8 +987,8 @@ class FusedNet:
     state stay in ``dtype``, the gradient reaches them through the
     cast, the loss, the window accumulators and :meth:`predict`'s
     answer are float32 and :meth:`set_dataset` stores the rows in it
-    (JAX :1317, :1369-1395, :1490, :1663, :1915).  ``dropout_seed`` seeds the net's
-    ``torch.Generator``.  ``objective`` is "softmax" (a softmax head,
+    (JAX :1317, :1369-1395, :1490, :1663, :1915).  ``dropout_seed`` seeds
+    the net's ``torch.Generator``.  ``objective`` is "softmax" (a softmax head,
     :meth:`step` and the softmax windows) or "mse" (no softmax layer,
     :meth:`step_mse` and the MSE windows, whose stats follow
     ``mse_root`` and ``class_targets`` as they stand at each window)."""

@@ -379,7 +379,8 @@ def workflow_population_evaluator(ns, sites, epochs=None, seed=12,
 
     def bail(reason):
         if verbose:
-            print("fused GA unavailable: %s; evaluating serially" % reason)
+            print("fused GA unavailable: %s; evaluating serially"  # noqa
+                  % reason)
         return None
 
     layers = _collapse_ranges(list(ns.layers))

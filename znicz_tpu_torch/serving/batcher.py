@@ -17,11 +17,12 @@ each caller its rows.  Overload fails fast:
   :class:`RequestTimeoutError` (HTTP 504) without costing a dispatch.
 
 A request's id (``request_id=``) rides to the engine's ``predict(x,
-request_ids=...)`` (every dispatch passes it), and keys the ``queue_wait``, ``assembly`` and
-``dispatch`` spans of a sampled trace tree (:func:`note_spans`).  A
-request slower than ``root.common.serving.slow_request_ms`` is logged
-and journaled (:func:`note_slow`); each batch records the
-``serving.assembly_seconds`` and ``serving.pad_overhead`` series.
+request_ids=...)`` (every dispatch passes it), and keys the
+``queue_wait``, ``assembly`` and ``dispatch`` spans of a sampled trace
+tree (:func:`note_spans`).  A request slower than
+``root.common.serving.slow_request_ms`` is logged and journaled
+(:func:`note_slow`); each batch records the ``serving.assembly_seconds``
+and ``serving.pad_overhead`` series.
 """
 
 import collections
@@ -31,6 +32,7 @@ import time
 
 import numpy
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -95,7 +97,7 @@ class MicroBatcher(Logger):
         self.timeout = float(timeout_ms) / 1e3 if timeout_ms else None
         self._queue = collections.deque()
         self._rows_queued = 0
-        self._cond = threading.Condition()
+        self._cond = locksmith.condition("serving.batcher")
         self._running = False
         self._thread = None
 

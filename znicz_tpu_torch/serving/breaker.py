@@ -19,9 +19,9 @@ the engine reads them at every dispatch.  The clock is injectable.
 Every transition is journaled as ``serving.breaker`` (JAX :161).
 """
 
-import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
@@ -48,7 +48,7 @@ class CircuitBreaker(object):
         self.cooldown_s = float(cooldown_s)
         self.half_open_max = max(int(half_open_max), 1)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("serving.breaker")
         self.state = CLOSED
         self._failures = 0
         self._opened_at = None

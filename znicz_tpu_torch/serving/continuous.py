@@ -57,6 +57,7 @@ import time
 
 import numpy
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import pyprof, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -119,7 +120,7 @@ class ContinuousBatcher(Logger):
         self._lanes = {}
         self._rows_queued = 0
         self._last_model = None    # the round-robin cursor
-        self._cond = threading.Condition()
+        self._cond = locksmith.condition("serving.continuous")
         self._running = False
         self._threads = []
         self._inflight = 0

@@ -35,9 +35,9 @@ swaps.  Per-model telemetry carries a
 """
 
 import re
-import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import compile_cache, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -77,7 +77,7 @@ class ModelRegistry(Logger):
     def __init__(self, models=None, memory_budget_bytes=None,
                  **engine_defaults):
         super().__init__(logger_name="ModelRegistry")
-        self._lock = threading.RLock()
+        self._lock = locksmith.rlock("serving.registry")
         self._entries = {}
         self._default = None
         self._budget_override = memory_budget_bytes

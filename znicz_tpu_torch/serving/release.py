@@ -40,7 +40,8 @@ Knobs: ``root.common.serving.release.*``, read live, and a release's
 ``shadow_mismatches`` / ``shadow_dropped`` counters, labelled by model
 and generation.  The clock is injectable and :meth:`ReleaseController.
 tick` is public, so tests drive the state machine without sleeping.
-The locks are ``threading.Lock`` (JAX takes ``locksmith`` locks).
+The controller's lock is a ``locksmith`` lock, as in JAX; the queue's
+condition and the lifecycle lock stay plain, as JAX leaves them.
 """
 
 import collections
@@ -51,6 +52,7 @@ import zlib
 
 import numpy
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -281,7 +283,7 @@ class ReleaseController(Logger):
             logger_name="ReleaseController")
         self._target = target
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("serving.release")
         self._active = {}           # model -> Release
         self._done = {}             # model -> its last ended Release
         self._starting = 0          # start_release calls deploying

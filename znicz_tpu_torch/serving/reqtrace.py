@@ -37,13 +37,13 @@ tree into the router's ``replica_wait`` window.  The binary relay adds
 
 :func:`set_finish_sink` lets the durable blackbox persist every closed
 tree.  Every hook checks :func:`enabled` first; an unsampled rid costs
-one dict lookup.  The lock is a ``threading.Lock``.
+one dict lookup.  The lock is a ``locksmith`` lock.
 """
 
 import collections
-import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
 
 _cfg = root.common.serving
@@ -92,7 +92,7 @@ _ORIGINS = {
                frozenset(ROUTER_TOP_LEVEL_KINDS)),
 }
 
-_lock = threading.Lock()
+_lock = locksmith.lock("serving.reqtrace")
 #: rid -> _Trace, insertion-ordered (the bounded ring)
 _traces = collections.OrderedDict()
 #: admissions seen since process start — the head-sampling cursor

@@ -68,8 +68,9 @@ rotation mid-release gets the active candidates first.
 reads :meth:`FleetRouter.aggregate_slo`, :meth:`FleetRouter.
 queued_rows_total` and :meth:`FleetRouter.alive_count`, acts through
 ``scale_up`` and ``retire``, and stops with the router; ``/statusz``
-carries its status and the release plane's.  The lock is a
-``threading.Lock``.
+carries its status and the release plane's.  The router's lock is a
+``locksmith`` lock; each replica's connection lock stays plain, as in
+JAX.
 """
 
 import collections
@@ -89,6 +90,7 @@ import uuid
 
 import numpy
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import pyprof, telemetry, timeseries
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.logger import Logger
@@ -659,7 +661,7 @@ class FleetRouter(HttpServerBase):
                               else _fleet.get("replicas", 2))
         if self._n_initial < 1:
             raise ValueError("a fleet needs at least 1 replica")
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("serving.router")
         self._replicas = []
         self._next_id = 0
         self._rr = 0               # least-outstanding tie-break cursor

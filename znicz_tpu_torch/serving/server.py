@@ -1099,7 +1099,7 @@ def main(argv=None):
     # a fleet replica lives no longer than its router
     parent = os.environ.get(ROUTER_PID_ENV)
     server, label = _serve(parser, args)
-    print("serving %s on http://%s:%d/  (predict: POST /predict[/<model>]; "
+    print("serving %s on http://%s:%d/  (predict: POST /predict[/<model>]; "  # noqa
           "health: GET /healthz; metrics: GET /metrics)"
           % (label, server.host, server.port), flush=True)
     return _serve_until_term(server, lambda: server._thread,

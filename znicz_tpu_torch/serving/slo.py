@@ -28,13 +28,13 @@ Surfaces: ``GET /slo`` and the ``slo`` block of ``/statusz``
 (:meth:`SloTracker.status`), and the ``slo.*`` series.  The front end
 checks :func:`enabled` (``root.common.serving.slo_enabled``) before it
 touches the tracker.  The clock is injectable, so the window math is
-testable without sleeping.  The lock is a ``threading.Lock``.
+testable without sleeping.  The lock is a ``locksmith`` lock.
 """
 
 import collections
-import threading
 import time
 
+from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core import telemetry
 from znicz_tpu_torch.core.config import root
 
@@ -122,7 +122,7 @@ class SloTracker(object):
     def __init__(self, clock=time.time):
         self._clock = clock
         self._models = {}
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("serving.slo")
 
     # -- knobs (live reads) -------------------------------------------------
     @staticmethod
