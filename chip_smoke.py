@@ -603,7 +603,35 @@ failure (the script then exits non-zero and prints no result line):
     hypers (in float32, as the population takes them): each fitness
     equal (its n_err), each individual's final parameters within 1e-10
     of the tensor's largest; the generation's wall and the serial runs'
-    printed.
+    printed;
+23. mesh — the multi-GPU slice on the one card, last.  (a) the workflow
+    phase's command as ``--fused mesh=1,pool_impl=offsets`` under
+    torchrun's variables (``WORLD_SIZE=1``), so the launcher brings up
+    a one-rank NCCL world and every step's gradient all-reduce, every
+    TRAIN segment's fold and every VALID minibatch's row gather run
+    over the one-rank groups (their count printed and checked): the
+    workflow phase's run checks (launches, one readback a TRAIN
+    segment, trained rows), and every segment's stats and the final
+    parameters, optimizer state and generator bit-equal to that run's.
+    (b) two ranks of a gloo world sharing the card (NCCL refuses two
+    ranks on one device), spawned first and run beside (a) and (c),
+    each training full-width AlexNet in
+    ``FusedNet(mesh=make_mesh(2, devices=["cuda:0", "cuda:0"]))`` for 4
+    f32 steps at global batch 128 (64 rows a rank, ``pool_impl=
+    "offsets"``, ``cudnn.deterministic``): 3 forward and 3 backward
+    launches a rank a step at (64, 55, 55, 96), (64, 27, 27, 256) and
+    (64, 13, 13, 256), one all-reduce a step, the ranks' final states
+    bit-equal, the losses within 1e-5 of the single-device batch-128
+    steps' (n_err equal) and every parameter and optimizer slot within
+    1e-5 of its layer's largest parameter (the control, the same
+    single-device steps on inputs each one ulp apart, printed beside),
+    then one f64 step at minibatch 8 within 1e-10 of each tensor's
+    largest.  (c) ``research.long_context`` at its
+    published config on one rank: the ring's forward and gradient at
+    (2, 64, 2, 16) within 1e-5 of the plain attention (f32, TF32 off),
+    then ``run_sample()``'s 800 steps to an accuracy above 0.95, with
+    no pooling launch.  The model axis and rings of more than one rank
+    need more than one card and are checked on the CPU only.
 
 The line before the last is the ``{"kernels": [...]}`` JSON.  For the
 forward kernel, ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``,
@@ -628,7 +656,8 @@ forward workflows (``lines_extract``) and its two served packages
 (``lines_serve``), and the aux phase's five runs (``aux_avatar``,
 ``aux_alexnet``, ``aux_mnist``, ``aux_mnist_replay``, ``aux_fused``)
 and the loaders phase's three training runs (``imagenet_stream``,
-``cifar_lmdb``, ``cifar_pickles_fused``)
+``cifar_lmdb``, ``cifar_pickles_fused``), and the mesh phase's NCCL
+rank (``mesh_nccl``) and two gloo ranks, summed (``mesh_gloo``)
 (``launches_by_path``; the
 serve_models phase's also by serving dtype,
 ``launches_by_dtype``), and ``bf16`` holds each AlexNet serving pool's
@@ -644,7 +673,7 @@ each stage) and
 resilience phase's two paths', the profile phase's, both unit graphs',
 the autoencoder
 paths', the CIFAR, STL-10 and Lines graphs', ImagenetAE's, the aux
-phase's and the loaders phase's.
+phase's, the loaders phase's and the mesh phase's.
 ``launches_by_width`` splits each kernel's launches by vector width,
 and ``ptxas`` gives the registers and spilled bytes of its
 instantiations.  ``max_abs_err`` is the largest difference from
@@ -11516,6 +11545,480 @@ def _ga_f64(torch, card):
             gen_s, serial_s, card))
 
 
+#: the mesh phase: (b)'s f32 steps at the global batch of the train
+#: phase, split over two ranks, and its f64 step's minibatch
+MESH_STEPS, MESH_BATCH, MESH_F64_BATCH = 4, 128, 8
+MESH_SEED = 23
+#: (b)'s f32 tolerance, stated before the run: each parameter and
+#: optimizer slot within 1e-5 of its layer's largest parameter
+#: magnitude of the single-device run's (the gradient's batch sum is
+#: taken in two halves and added; a layer's scale, not each tensor's
+#: own, since an early layer's gradient and velocity are sums that
+#: nearly cancel, 1e-6 against weights of 1e-2; the control, the
+#: single-device run on inputs each one ulp apart, is measured the
+#: same way beside it)
+MESH_F32_RTOL = 1e-5
+MESH_F64_RTOL = 1e-10
+#: (c): the ring against the plain attention (f32, TF32 off), and the
+#: JAX tests' accuracy pin of the published run
+MESH_RING_SHAPE = (2, 64, 2, 16)
+MESH_RING_TOL = 1e-5
+LONG_CONTEXT_PIN = 0.95
+MESH_GANG_TIMEOUT_S = 300
+
+
+def phase_mesh(torch, card, reference):
+    """The multi-GPU slice on the one card: (a) the workflow CLI with
+    ``--fused mesh=1,pool_impl=offsets`` in a one-rank NCCL world
+    (torchrun's variables), whose step all-reduces and segment folds
+    run over the one-rank groups, bit-equal to the workflow phase's
+    run; (b) full-width AlexNet on two ranks of a gloo world sharing
+    the card, ``FusedNet(mesh=make_mesh(2, devices=...))``, against the
+    single-device steps; (c) ``research.long_context`` at its published
+    config on one rank.  (b)'s ranks are other processes: they start
+    first and run beside (a) and (c), and are checked after them.
+    Returns the launches of (a) and of (b)'s two ranks by path."""
+    t0 = time.perf_counter()
+    gang = _MeshGang()
+    try:
+        nccl = _mesh_nccl(torch, card, reference)
+        t_a = time.perf_counter()
+        _mesh_long_context(torch, card)
+        t_c = time.perf_counter()
+    finally:
+        outs = gang.join()
+    t_b = time.perf_counter()
+    gloo = _mesh_gloo(card, outs, gang.seconds)
+    say("   mesh phase: %.1f s ((a) NCCL rank %.1f, (c) long_context %.1f, "
+        "(b)'s two gloo ranks %.1f beside them, %.1f more after them); %s"
+        % (time.perf_counter() - t0, t_a - t0, t_c - t_a, gang.seconds,
+           t_b - t_c, card))
+    return {"mesh_nccl": nccl, "mesh_gloo": gloo}
+
+
+class _MeshGang(object):
+    """(b)'s two ranks (:func:`_mesh_rank`) through
+    ``testing.run_gang``, in a thread so that this process runs (a) and
+    (c) meanwhile; :meth:`join` returns their results or raises what
+    the gang raised."""
+
+    def __init__(self):
+        from znicz_tpu_torch import testing
+        say("== mesh (b): full-width AlexNet on 2 ranks of a gloo world on "
+            "the card, FusedNet(mesh=make_mesh(2, devices=['cuda:0', "
+            "'cuda:0'])): %d f32 steps at global batch %d (%d a rank), then "
+            "one f64 step at minibatch %d (%d a rank); started now, checked "
+            "after (a) and (c)" % (MESH_STEPS, MESH_BATCH, MESH_BATCH // 2,
+                                   MESH_F64_BATCH, MESH_F64_BATCH // 2))
+        self.outs = self.error = None
+        self.seconds = 0.0
+        self._testing = testing
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-mesh-gang")
+        self._thread.start()
+
+    def _run(self):
+        t0 = time.perf_counter()
+        try:
+            self.outs = self._testing.run_gang(
+                _mesh_rank, 2, args=(MESH_SEED,),
+                timeout_s=MESH_GANG_TIMEOUT_S)
+        except Exception as e:   # raised again by join
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("the gloo ranks failed") from self.error
+        return self.outs
+
+
+def _host_bits_equal(got, want, what):
+    """Two trees of host values equal, arrays bit for bit."""
+    import numpy
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise RuntimeError("%s: keys %s, not %s" % (what, sorted(got),
+                                                       sorted(want)))
+        for k in want:
+            _host_bits_equal(got[k], want[k], "%s.%s" % (what, k))
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise RuntimeError("%s: %d entries, not %d" % (what, len(got),
+                                                          len(want)))
+        for i, (a, b) in enumerate(zip(got, want)):
+            _host_bits_equal(a, b, "%s[%d]" % (what, i))
+    elif isinstance(want, numpy.ndarray):
+        got = numpy.asarray(got)
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                got.tobytes() != want.tobytes():
+            raise RuntimeError("%s differs from the workflow phase's run"
+                               % what)
+    elif got != want:
+        raise RuntimeError("%s: %r, not %r" % (what, got, want))
+
+
+def _mesh_nccl(torch, card, reference):
+    """(a): the workflow phase's run again, through ``--fused
+    mesh=1,pool_impl=offsets`` under torchrun's variables with
+    ``WORLD_SIZE=1``, so the launcher brings NCCL up; the same checks
+    of the run (launches, readbacks, trained rows) as the workflow
+    phase's, its segments' stats and its final parameters and optimizer
+    state bit-equal to that run's, and the collectives it made."""
+    import shutil
+    import torch.distributed as dist
+    from znicz_tpu_torch import __main__ as cli
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.parallel import multihost
+    from znicz_tpu_torch.testing import free_port
+
+    snapdir = os.path.join(HERE, "build", "znicz_tpu_torch",
+                           "mesh_snapshots")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    argv = _workflow_argv(snapdir)
+    argv[2] = "mesh=1,pool_impl=offsets"
+    say("== mesh (a): %s python -m znicz_tpu_torch %s"
+        % (" ".join("%s=%s" % kv for kv in sorted(env.items())),
+           " ".join(_workflow_argv("build/...")).replace(
+               "pool_impl=offsets", argv[2], 1)))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = _WorkflowProbe(torch)
+    config = _ConfigRestored(root.alexnet)
+    os.environ.update(env)
+    try:
+        prng.restore(reference["prng"])
+        _zero_counts()
+        t0 = time.perf_counter()
+        with probe.readbacks:
+            cli.main(argv)
+        launches = _counts()
+        run_s = time.perf_counter() - t0
+        net = probe.ctx["net"]
+        if not dist.is_initialized() or dist.get_backend() != "nccl" or \
+                dist.get_world_size() != 1:
+            raise RuntimeError("the launcher did not bring up a one-rank "
+                               "NCCL world")
+        steps = sum(len(c[2]) for c in probe.calls)
+        _check_workflow_run(probe, launches, steps, run_s, card)
+        valid_mbs = -(-WORKFLOW_VALID // TRAIN_BATCH) * WORKFLOW_EPOCHS
+        counts = dict(net.mesh.counts)
+        want = {"all_reduce": steps + WORKFLOW_EPOCHS + valid_mbs}
+        say("   collectives over the one-rank NCCL groups: %s (%d step "
+            "all-reduces, %d TRAIN segment folds, %d VALID row gathers); "
+            "mesh %s" % (counts, steps, WORKFLOW_EPOCHS, valid_mbs,
+                         net.mesh))
+        if counts != want:
+            raise RuntimeError("collectives %s, not %s" % (counts, want))
+        keys = ("epoch", "class", "n_err", "n", "confusion", "max_err_sum")
+        _host_bits_equal([{k: s[k] for k in keys} for s in probe.segments],
+                         [{k: s[k] for k in keys}
+                          for s in reference["segments"]], "segments")
+        _host_bits_equal(net.state_dict(), reference["state"], "state")
+        say("   every segment's n_err, confusion and max_err_sum, and the "
+            "final parameters, optimizer state and generator, bit-equal "
+            "to the workflow phase's run")
+    finally:
+        probe.close()
+        config.__exit__()
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        multihost._initialized = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(snapdir, ignore_errors=True)
+    return launches
+
+
+def _mesh_batches(seed):
+    """(b)'s minibatches: ``MESH_STEPS`` f32 batches of ``MESH_BATCH``
+    images and labels, and the f64 step's."""
+    import numpy
+    r = numpy.random.RandomState(seed)
+    xs = r.uniform(-1, 1, (MESH_STEPS, MESH_BATCH, 227, 227, 3)).astype(
+        numpy.float32)
+    ls = r.randint(0, 1000, (MESH_STEPS, MESH_BATCH)).astype(numpy.int32)
+    x64 = r.uniform(-1, 1, (MESH_F64_BATCH, 227, 227, 3))
+    l64 = r.randint(0, 1000, MESH_F64_BATCH).astype(numpy.int32)
+    return xs, ls, x64, l64
+
+
+def _rel_err(got, want):
+    """max over the tensors of a tree of ``max|got - want|`` over the
+    tensor's largest magnitude."""
+    import numpy
+    if isinstance(want, dict):
+        return max([_rel_err(got[k], want[k]) for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        return max([_rel_err(a, b) for a, b in zip(got, want)] or [0.0])
+    want = numpy.asarray(want, numpy.float64)
+    if not want.size:
+        return 0.0
+    diff = float(numpy.abs(numpy.asarray(got, numpy.float64) - want).max())
+    return diff / (float(numpy.abs(want).max()) or 1.0)
+
+
+def _layer_err(got, want):
+    """``(distance, layer)``: the max over the layers of ``max|got -
+    want|`` over every parameter and optimizer slot of the layer,
+    relative to the layer's largest parameter magnitude of ``want``,
+    and the layer where it is."""
+    import numpy
+    worst = (0.0, None)
+    for i, p in enumerate(want["params"]):
+        if not p:
+            continue
+        scale = max(float(numpy.abs(t).max()) for t in p.values()) or 1.0
+        a, b = [], []
+        _leaves([got["params"][i], got["opt"][i]], a)
+        _leaves([p, want["opt"][i]], b)
+        for x, y in zip(a, b):
+            diff = numpy.abs(numpy.asarray(x, numpy.float64) - y)
+            worst = max(worst, (float(diff.max()) / scale, i))
+    return worst
+
+
+def _mesh_states(net):
+    sd = net.state_dict()
+    return {"params": sd["params"], "opt": sd["opt"]}
+
+
+def _mesh_rank(rank, seed):
+    """One of (b)'s two ranks, both on ``cuda:0`` in a gloo world: the
+    f32 steps and the f64 step of full-width AlexNet over
+    ``make_mesh(2, devices=["cuda:0", "cuda:0"])``, with each kernel
+    launch's shape recorded.  Then, beside each other, rank 0 runs the
+    single-device f32 steps on the whole batches and the control (the
+    same steps on inputs each moved by one ulp) and rank 1 the
+    single-device f64 step, each returning the distances; both return a
+    digest of their final states, which must agree."""
+    import hashlib
+    import numpy
+    import torch
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.ops import cuda_pooling, cuda_pooling_backward
+    from znicz_tpu_torch.parallel import FusedNet, make_mesh
+    from znicz_tpu_torch.samples import alexnet
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    shapes = collections.Counter()
+    fwd, bwd = (cuda_pooling.max_pooling_offsets,
+                cuda_pooling_backward.max_pooling_offsets_backward)
+
+    def counted_fwd(x, *args, **kwargs):
+        shapes["forward %s %s" % (tuple(x.shape), x.dtype)] += 1
+        return fwd(x, *args, **kwargs)
+
+    def counted_bwd(err, offsets, x_shape, *args, **kwargs):
+        shapes["backward %s %s" % (tuple(x_shape), err.dtype)] += 1
+        return bwd(err, offsets, x_shape, *args, **kwargs)
+    cuda_pooling.max_pooling_offsets = counted_fwd
+    cuda_pooling_backward.max_pooling_offsets_backward = counted_bwd
+    xs, ls, x64, l64 = _mesh_batches(seed)
+
+    def make(dtype, mesh=None):
+        return FusedNet(alexnet.make_layers(), (227, 227, 3), mesh=mesh,
+                        rand=prng.RandomGenerator().seed(seed),
+                        dropout_seed=seed, pool_impl="offsets", dtype=dtype)
+
+    def steps(net, batches):
+        ms = [net.step(x, lbl) for x, lbl in batches]
+        return [float(m["loss"]) for m in ms], [int(m["n_err"]) for m in ms]
+    t0 = time.perf_counter()
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"])
+    net = make(numpy.float32, mesh)
+    _zero_counts()
+    t1 = time.perf_counter()
+    losses, n_err = steps(net, zip(xs, ls))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _counts()
+    f32 = _mesh_states(net)
+    del net
+    net64 = make(numpy.float64, mesh)
+    _zero_counts()
+    loss64, _ = steps(net64, [(x64, l64)])
+    launches64 = _counts()
+    f64 = _mesh_states(net64)
+    del net64
+    digest = hashlib.sha256()
+    for tree in (f32, f64):
+        fetch = []
+        _leaves(tree, fetch)
+        for a in fetch:
+            digest.update(numpy.ascontiguousarray(a).tobytes())
+    out = {"losses": losses, "n_err": n_err, "loss64": loss64[0],
+           "launches": launches, "launches64": launches64,
+           "shapes": dict(shapes), "counts": dict(mesh.counts),
+           "digest": digest.hexdigest(), "build_s": t1 - t0,
+           "steps_s": t2 - t1}
+    cuda_pooling.max_pooling_offsets = fwd
+    cuda_pooling_backward.max_pooling_offsets_backward = bwd
+    if rank == 0:
+        single = make(numpy.float32)
+        sd0 = single.state_dict()
+        out["single"] = steps(single, zip(xs, ls))
+        ref32 = _mesh_states(single)
+        out["f32_err"] = _layer_err(f32, ref32)
+        # the control: the same single-device steps on inputs each moved
+        # by one ulp, the f32 computation's own noise at these steps
+        single.load_state_dict(sd0)
+        nudged = numpy.nextafter(xs, numpy.float32(numpy.inf))
+        out["control"] = steps(single, zip(nudged, ls))
+        out["control_err"] = _layer_err(_mesh_states(single), ref32)
+    else:
+        single64 = make(numpy.float64)
+        out["single64"] = steps(single64, [(x64, l64)])[0][0]
+        out["f64_err"] = _rel_err(f64, _mesh_states(single64))
+    return out
+
+
+def _leaves(tree, out):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+
+
+def _mesh_gloo(card, outs, gang_s):
+    """(b)'s checks of its two ranks' results ``outs`` (NCCL refuses two
+    ranks on one device; gloo runs ``all_reduce`` on CUDA tensors, all
+    the data axis needs): each rank's 3 forward and 3 backward kernel
+    launches a step at its 64 rows' shapes, the ranks' final states
+    equal, the f32 steps within ``MESH_F32_RTOL`` of the single-device
+    steps (n_err equal) and the f64 step within ``MESH_F64_RTOL``.
+    Returns the two ranks' launches summed."""
+    say("== mesh (b), checked: the two gloo ranks' results")
+    r0, r1 = outs
+    half, half64 = MESH_BATCH // 2, MESH_F64_BATCH // 2
+    want_shapes = {}
+    for b, dtype, n in ((half, "torch.float32", MESH_STEPS),
+                        (half64, "torch.float64", 1)):
+        for shape in ((b, 55, 55, 96), (b, 27, 27, 256), (b, 13, 13, 256)):
+            for kind in ("forward", "backward"):
+                want_shapes["%s %s %s" % (kind, shape, dtype)] = n
+    for rank, out in enumerate(outs):
+        say("   rank %d: built in %.2f s, %d f32 steps in %.2f s; launches "
+            "%s (f32) and %s (f64); by shape %s; collectives %s"
+            % (rank, out["build_s"], MESH_STEPS, out["steps_s"],
+               out["launches"], out["launches64"], out["shapes"],
+               out["counts"]))
+        for launches, steps in ((out["launches"], MESH_STEPS),
+                                (out["launches64"], 1)):
+            if launches["forward"] != 3 * steps or \
+                    launches["backward"] != 3 * steps or \
+                    launches["forward_by_width"][NARROW] or \
+                    launches["backward_by_width"][NARROW] or \
+                    launches["plain_on_card"]:
+                raise RuntimeError("rank %d: expected 3 forward and 3 "
+                                   "backward launches a step, 16-byte, no "
+                                   "plain pooling; got %s" % (rank, launches))
+        if out["shapes"] != want_shapes:
+            raise RuntimeError("rank %d: launches by shape %s, not %s"
+                               % (rank, out["shapes"], want_shapes))
+        if out["counts"] != {"all_reduce": MESH_STEPS + 1}:
+            raise RuntimeError("rank %d: collectives %s, not one all-reduce "
+                               "a step" % (rank, out["counts"]))
+    if outs[1]["digest"] != r0["digest"]:
+        raise RuntimeError("the two ranks' final states differ")
+    losses, n_err = r0["single"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses))
+    say("   losses %s, n_err %s; single device on the whole batches: "
+        "losses %s, n_err %s (largest relative loss difference %.3g); the "
+        "ranks' final states bit-equal (sha256 %s...)"
+        % (r0["losses"], r0["n_err"], losses, n_err, loss_err,
+           r0["digest"][:12]))
+    say("   f32 parameters and optimizer state: largest distance from the "
+        "single-device steps %.3g of the layer's largest parameter, at "
+        "layer %s (limit %.0e); the control, the single-device steps on "
+        "inputs one ulp apart, %.3g, at layer %s (losses %s, n_err %s); "
+        "f64 step: %.3g of each tensor's largest (limit %.0e), loss %r "
+        "against %r; (b) took %.1f s; %s"
+        % (r0["f32_err"][0], r0["f32_err"][1], MESH_F32_RTOL,
+           r0["control_err"][0], r0["control_err"][1], r0["control"][0],
+           r0["control"][1], r1["f64_err"], MESH_F64_RTOL, r1["loss64"],
+           r1["single64"], gang_s, card))
+    if r0["n_err"] != n_err or loss_err > MESH_F32_RTOL or \
+            r0["f32_err"][0] > MESH_F32_RTOL:
+        raise RuntimeError("the mesh's f32 steps are not the single "
+                           "device's within %g" % MESH_F32_RTOL)
+    if r1["f64_err"] > MESH_F64_RTOL or \
+            abs(r1["loss64"] - r1["single64"]) > \
+            MESH_F64_RTOL * abs(r1["single64"]):
+        raise RuntimeError("the mesh's f64 step is not the single device's "
+                           "within %g" % MESH_F64_RTOL)
+    return _sum_counts([o[k] for o in outs
+                        for k in ("launches", "launches64")])
+
+
+def _mesh_long_context(torch, card):
+    """(c): ``research.long_context`` at its published config on one
+    rank: the ring's forward and gradient at ``MESH_RING_SHAPE``
+    against the plain attention (f32, TF32 off), then ``run_sample()``
+    to its 800 steps, above JAX's accuracy pin; no pooling launch."""
+    import numpy
+    from znicz_tpu_torch.core.backends import full_f32
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.parallel.mesh import make_mesh
+    from znicz_tpu_torch.parallel.sequence import (attention_reference,
+                                                   ring_attention)
+    from znicz_tpu_torch.samples.research import long_context
+    say("== mesh (c): research.long_context at its published config %s "
+        "on one rank" % root.long_context.as_dict())
+    full_f32(torch.device("cuda"))
+    _zero_counts()
+    mesh = make_mesh(1)
+    r = numpy.random.RandomState(MESH_SEED)
+    errs = []
+    for causal in (False, True):
+        q, k, v = (torch.tensor(r.uniform(-1, 1, MESH_RING_SHAPE).astype(
+            numpy.float32), device="cuda", requires_grad=True)
+            for _ in range(3))
+        got = ring_attention(q, k, v, mesh, causal=causal)
+        want = attention_reference(q, k, v, causal=causal)
+        g_got = torch.autograd.grad((got ** 2).sum(), (q, k, v))
+        g_want = torch.autograd.grad((want ** 2).sum(), (q, k, v))
+        errs.append((float((got - want).detach().abs().max()),
+                     max(float((a - b).abs().max())
+                         for a, b in zip(g_got, g_want))))
+    say("   the ring at %s against the plain attention: largest |diff| "
+        "(forward, gradient) full %s, causal %s (limit %g)"
+        % (MESH_RING_SHAPE, errs[0], errs[1], MESH_RING_TOL))
+    if max(max(e) for e in errs) > MESH_RING_TOL:
+        raise RuntimeError("the ring is not the attention within %g"
+                           % MESH_RING_TOL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, params, _ = long_context.run_sample()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    say("   run_sample(): %d steps in %.2f s, needle-retrieval accuracy "
+        "%.4f (JAX's pin > %.2f); parameters on %s; pooling launches %s; "
+        "%s" % (root.long_context.steps, run_s, acc, LONG_CONTEXT_PIN,
+                params["embed"].device, launches, card))
+    if not acc > LONG_CONTEXT_PIN:
+        raise RuntimeError("long_context's accuracy %.4f is not above %.2f"
+                           % (acc, LONG_CONTEXT_PIN))
+    if launches["forward"] or launches["backward"] or \
+            launches["plain_on_card"]:
+        raise RuntimeError("long_context launched pooling: %s" % launches)
+
+
 def _sums(rows):
     """Per-step sums of the timings over the three pools."""
     rec = {k: sum(r[k] for r in rows.values())
@@ -11590,6 +12093,9 @@ def _phases(torch, name, card, start):
                         "data_bytes": reference["data_bytes"]}
         marks.append(("workflow", time.perf_counter()))
         resilience_launches = phase_resilience(torch, card, reference)
+        # the mesh phase's reference, kept on the host to the end
+        mesh_reference = {k: reference[k]
+                          for k in ("segments", "state", "prng")}
         del reference
         marks.append(("resilience", time.perf_counter()))
         profile_launches = phase_profile(torch, card)
@@ -11617,7 +12123,6 @@ def _phases(torch, name, card, start):
         # which would otherwise fall inside a later phase's measurement
         gc.collect()
         marks.append(("bf16", time.perf_counter()))
-    del prototypes
     train_rows, train_err = phase_train_kernels(torch, card, cycles_per_ms)
     marks.append(("train kernels", time.perf_counter()))
     ae_launches, ae_fused_launches, ae_rows = phase_ae(torch, card,
@@ -11657,6 +12162,12 @@ def _phases(torch, name, card, start):
     phase_genetics(torch, card)
     gc.collect()
     marks.append(("genetics", time.perf_counter()))
+    # the mesh phase's workflow run takes the workflow phase's images
+    with prototypes:
+        mesh_paths = phase_mesh(torch, card, mesh_reference)
+    del prototypes, mesh_reference
+    gc.collect()
+    marks.append(("mesh", time.perf_counter()))
     for mod in ("jax", "znicz_tpu"):
         if mod in sys.modules:
             raise RuntimeError("%s was imported" % mod)
@@ -11680,6 +12191,7 @@ def _phases(torch, name, card, start):
     paths.update(aux_paths)
     paths.update(loaders_paths)
     paths.update(bf16_paths)
+    paths.update(mesh_paths)
     forward = {"name": "max_pooling_offsets", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/" + cuda_pooling.SOURCE,
                "replaces": cuda_pooling.REPLACES,

@@ -386,19 +386,34 @@ def test_fused_net_needs_cuda_unless_cpu_asked(no_cuda):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "mesh"),
+    ({"mesh": 1}, "mesh"),
     pytest.param({"objective": "mse"}, None, id="kwargs1-mse"),
     ({"compute_dtype": "bfloat16"}, "compute_dtype"),
     ({"pool_impl": "reshape"}, "reshape")])
 def test_later_options_raise(kwargs, match):
-    """Options left for later raise, naming themselves; the MSE
-    objective, once among them (``match`` None), now builds on the net
-    with a linear head and takes a step; so do ``compute_dtype``
-    (bfloat16 products under float32 masters and a float32 loss) and
-    ``pool_impl="reshape"`` (every pool of the net, whose windows do
-    not overlap, on the reshape lowering)."""
+    """The options once left for later build and step: the MSE
+    objective (``match`` None) on the net with a linear head;
+    ``compute_dtype`` (bfloat16 products under float32 masters and a
+    float32 loss); ``pool_impl="reshape"`` (every pool of the net,
+    whose windows do not overlap, on the reshape lowering); and a
+    ``mesh``, here of the one rank of a process without a
+    ``torch.distributed`` world, whose step is the net's without one,
+    bit for bit."""
     make, shape, _ = NETS["mnist_conv"]
     x = numpy.random.RandomState(3).uniform(-1, 1, (2, 28, 28))
+    if match == "mesh":
+        from znicz_tpu_torch.parallel.mesh import make_mesh
+        labels = numpy.array([1, 2], numpy.int32)
+        nets = [fused.FusedNet(make(), shape, device="cpu",
+                               rand=prng.RandomGenerator().seed(5), **kw)
+                for kw in ({"mesh": make_mesh(kwargs["mesh"])}, {})]
+        steps = [net.step(x, labels) for net in nets]
+        assert float(steps[0]["loss"]) == float(steps[1]["loss"])
+        for pa, pb in zip(*[net.host_params() for net in nets]):
+            for k in pa:
+                numpy.testing.assert_array_equal(pa[k], pb[k])
+        assert nets[0].data_shards == 1 and not nets[0].mesh.counts
+        return
     if match is None:
         layers = make()
         layers[-1]["type"] = "all2all"

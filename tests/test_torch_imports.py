@@ -3,7 +3,7 @@
 * Importing every module of ``znicz_tpu_torch`` (and ``chip_smoke``)
   in a fresh interpreter brings in no ``jax*`` module and nothing of
   ``znicz_tpu`` — careful: ``znicz_tpu_torch`` itself starts with
-  ``znicz_tpu``.
+  ``znicz_tpu``; nor do the ranks of a gloo gang.
 * Entry points run on CUDA unless told ``device="cpu"``; without CUDA
   they raise instead of carrying on on the CPU.
 * The analysis layer (``znicz_tpu_torch.analysis``) imports only the
@@ -183,8 +183,24 @@ def test_port_imports_no_jax_and_no_znicz_tpu():
                  "znicz_tpu_torch.core.compile_cache",
                  "znicz_tpu_torch.analysis",
                  "znicz_tpu_torch.analysis.locksmith",
-                 "znicz_tpu_torch.analysis.graftlint"):
+                 "znicz_tpu_torch.analysis.graftlint",
+                 "znicz_tpu_torch.parallel.mesh",
+                 "znicz_tpu_torch.parallel.multihost",
+                 "znicz_tpu_torch.parallel.sequence",
+                 "znicz_tpu_torch.samples.research.long_context"):
         assert name in doc["modules"]
+
+
+def test_a_gang_s_ranks_import_no_jax_and_no_znicz_tpu():
+    """The ranks of a gloo gang (``testing.run_gang``, fresh spawned
+    processes) that import every multi-process module of the port and
+    the gang's test bodies hold no ``jax*`` module and nothing of
+    ``znicz_tpu``, although the test process holds both."""
+    import torch_gang
+    from znicz_tpu_torch import testing
+    assert "jax" in sys.modules
+    assert testing.run_gang(torch_gang.imported, 2, timeout_s=120) == \
+        [[], []]
 
 
 def test_the_analysis_layer_imports_no_torch_itself():

@@ -17,8 +17,8 @@ packages' prng streams 1 and 2 seeded alike:
   ``epoch_acc``);
 * ``python -m znicz_tpu_torch WORKFLOW.py --device cpu`` trains and
   prints the best error; without CUDA and without ``--device cpu`` it
-  raises; the MSE loss (in either mode) and a mesh raise
-  ``NotImplementedError`` naming ROADMAP.md.
+  raises; the MSE loss builds in either mode, and a mesh of more ranks
+  than the world has raises with the launch recipe.
 """
 
 import contextlib
@@ -298,16 +298,17 @@ def test_cli_needs_cuda_unless_cpu_asked(tmp_path, monkeypatch):
     {"fused": None, "loss_function": "mse"}, {"fused": {"mesh": 2}},
     {"fused": True, "loss_function": "mse"}])
 def test_left_out_modes_raise(kwargs):
-    """Left-out modes raise, naming ROADMAP.md; ``loss_function="mse"``,
-    once left out, now builds the MSE evaluator and decision in both
-    modes (the mnist7 sample)."""
+    """The modes once left out now build: ``loss_function="mse"`` the
+    MSE evaluator and decision in both modes (the mnist7 sample), and a
+    ``mesh`` of 2 ranks a mesh over the ``torch.distributed`` world,
+    which in a process without one raises and says how to launch."""
     if kwargs.get("loss_function") == "mse":
         wf = mnist7.build(loader_config={"minibatch_size": 8}, **kwargs)
         assert isinstance(wf.evaluator, EvaluatorMSE)
         assert isinstance(wf.decision, DecisionMSE)
         assert (wf.fused_trainer is None) == (kwargs["fused"] is None)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         alexnet.build(layers=narrow_alexnet(), loader_config=dict(LOADER),
                       **kwargs)
 

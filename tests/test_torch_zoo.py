@@ -370,9 +370,10 @@ def test_list_prints_the_jax_names(capsys):
                  "research.hands", "research.tv_channels",
                  "research.alexnet", "research.mnist7",
                  "research.mnist_ae", "demo_kohonen",
-                 "research.spam_kohonen", "mnist_rbm", "sequence"):
+                 "research.spam_kohonen", "mnist_rbm", "sequence",
+                 "research.long_context"):
         assert name in names
-    assert sorted(set(jax_names) - set(names)) == ["research.long_context"]
+    assert names == jax_names and len(names) == 22
 
 
 @pytest.mark.parametrize("name,module", [

@@ -17,7 +17,15 @@ Examples::
     python -m znicz_tpu_torch serve a=PKG.zip@int8 b=SNAP.pickle
     python -m znicz_tpu_torch alexnet --fused pool_impl=offsets \
         --max-restarts 2 --config alexnet.snapshotter.window_interval=1
+    torchrun --nproc-per-node 4 -m znicz_tpu_torch mnist --device cpu \
+        --fused mesh=4,model_parallel=2
 
+Under ``torchrun`` the launcher brings the ``torch.distributed`` world
+up from its variables (NCCL on the card, gloo under ``--device cpu``),
+and ``--fused mesh=N[,model_parallel=M]`` trains data-parallel (and
+model-parallel over M) over the world's N ranks, each on its rows of
+every minibatch; a ``mesh`` of another size than the world raises and
+says how to launch.
 A workflow runs on the card unless ``--device cpu``, and without CUDA
 it raises instead of carrying on on the CPU.  ``--auto-resume``
 restores the newest resumable snapshot of the workflow's snapshotter;
@@ -229,7 +237,9 @@ def run_workflow_cli(argv):
     parser.add_argument("--fused", nargs="?", const=True, default=None,
                         metavar="K=V[,K=V...]",
                         help="fused execution mode and its config, e.g. "
-                             "--fused pool_impl=offsets,window=8")
+                             "--fused pool_impl=offsets,window=8 or, "
+                             "under torchrun, --fused "
+                             "mesh=8,model_parallel=2")
     parser.add_argument("--snapshot", help="snapshot file to resume from")
     parser.add_argument("--auto-resume", action="store_true",
                         help="restore the newest resumable snapshot of "

@@ -171,7 +171,18 @@ TRACED_BODIES = {
         "FusedNet._window_steps_mse": ("batch_sizes",),
         "FusedNet._forward_eval": (), "FusedNet.predict": (),
         "FusedNet.predict_with_idx": (),
-        "FusedNet.set_epoch_perm": ("perm", "pad")},
+        "FusedNet.set_epoch_perm": ("perm", "pad"),
+        # the sharded step's one all-reduce and the window fold
+        "_rank_labels": (), "_all_reduce_step": (),
+        "FusedNet.fold_shards": ()},
+    # the ring (JAX's shard_map body fwd and its fori_loop body)
+    "znicz_tpu_torch/parallel/sequence.py": {
+        "attention_reference": ("causal",), "_ring_body": ("scale",
+                                                          "causal"),
+        "_ring_local": ("axis", "n", "t_local", "causal")},
+    # long_context's jitted gradient
+    "znicz_tpu_torch/samples/research/long_context.py": {
+        "forward": ("heads",), "loss_fn": ("heads",)},
     # the genetic optimizer's batched generation (JAX's vmapped
     # train_eval with its epoch and step scans)
     "znicz_tpu_torch/parallel/population.py": {
@@ -192,7 +203,9 @@ TRACED_BODIES = {
         "backward": ("need_err_input", "include_bias")},
     "znicz_tpu_torch/ops/normalization.py": {"lrn_forward": (),
                                              "lrn_backward": ()},
-    "znicz_tpu_torch/ops/kohonen.py": {"winners": (), "train_step": ()},
+    "znicz_tpu_torch/ops/kohonen.py": {
+        "winners": (), "train_step": (),
+        "train_step_sharded": ("sigma", "gmult")},
     "znicz_tpu_torch/ops/recurrent.py": {"lstm_cell": (),
                                          "lstm_scan": ()},
     "znicz_tpu_torch/ops/pooling.py": {

@@ -1,10 +1,11 @@
 """The IDistributable protocol.
 
 Counterpart of ``znicz_tpu/core/distributable.py``: the master-slave
-data-parallel contract's methods, each a no-op by default.  The port
-runs one process on one card; the multi-GPU item of ``ROADMAP.md``
-will give them work.  Units that declare the protocol (``GDLSTMScan``)
-keep these defaults or override the subset they need.
+data-parallel contract's methods, each a no-op by default.  The GD
+units implement the gradient protocol (``units/nn_units.py``); units
+that declare the protocol (``GDLSTMScan``) keep these defaults or
+override the subset they need.  The port's multi-process training is
+SPMD over a mesh (``parallel/mesh.py``), as JAX's is.
 """
 
 

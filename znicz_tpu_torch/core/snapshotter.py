@@ -33,6 +33,12 @@ generator in the payload, a run killed mid-epoch resumes
 dispatches.  Both triggers advance their interval only after an export
 succeeded, so a failed write is tried again at the next one.  The
 ``snapshot.write`` fault site sits before the write.
+
+In a multi-process run (a ``torch.distributed`` world) every rank
+collects the state, since a mesh's trainer gathers its split layers
+and folds its accumulator there (collectives), and only rank 0 writes
+(JAX :132, :176); every rank restores from the shared directory.  The
+time trigger is rank 0's, so the ranks export together.
 """
 
 import bz2
@@ -50,6 +56,12 @@ from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.units import Unit
 
 _WRITERS = {"": open, "gz": gzip.open, "bz2": bz2.open, "xz": lzma.open}
+
+
+def _world():
+    """``(rank, size)`` of the ``torch.distributed`` world."""
+    from znicz_tpu_torch.parallel.mesh import world
+    return world()
 
 
 class SnapshotterRegistry(type):
@@ -91,7 +103,11 @@ class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
         self._since_fire += 1
         if self._since_fire < self.interval:
             return
-        if time.time() - self._last_time < self.time_interval:
+        due = time.time() - self._last_time >= self.time_interval
+        if self.time_interval and _world()[1] > 1:
+            from znicz_tpu_torch.parallel import multihost
+            due = multihost.agree(due)
+        if not due:
             return
         self._metered_export()
         # the interval advances only after a successful export
@@ -125,13 +141,19 @@ class SnapshotterBase(Unit, metaclass=SnapshotterRegistry):
             return self.export()
         t0 = time.perf_counter()
         wrote = self.export()
-        telemetry.counter("snapshotter.exports").inc()
-        telemetry.histogram("snapshotter.export_seconds").observe(
-            time.perf_counter() - t0)
+        # created on every rank (the ranks' series must match for the
+        # merged view) but recorded for a write only: merged counters
+        # must not multiply one snapshot by the world's size
+        exports = telemetry.counter("snapshotter.exports")
+        seconds = telemetry.histogram("snapshotter.export_seconds")
+        if wrote:
+            exports.inc()
+            seconds.observe(time.perf_counter() - t0)
         return wrote
 
     def export(self):
-        """Write a snapshot; return its path."""
+        """Write a snapshot; return its path, or None where this rank
+        does not write."""
         raise NotImplementedError
 
     def collect_state(self):
@@ -160,12 +182,28 @@ class SnapshotterToFile(SnapshotterBase):
     MAPPING = "file"
 
     def export(self, units_state=None):
+        units_state = self.collect_state() if units_state is None \
+            else units_state
+        rank, size = _world()
+        if size == 1:
+            return self._write(units_state)
+        # one writer: the ranks hold the same state, and concurrent
+        # writers would race on the same prefix; the others wait for its
+        # file, which a restart of any rank may resume from
+        import torch.distributed as dist
+        try:
+            return self._write(units_state) if rank == 0 else None
+        finally:
+            dist.barrier()
+
+    def _write(self, units_state):
+        """Publish ``units_state`` as this snapshotter's file; returns
+        its path."""
         payload = {
             "format": 1,
             "workflow": type(self.workflow).__name__,
             "config": root.to_json(),
-            "units": self.collect_state() if units_state is None
-            else units_state,
+            "units": units_state,
             # the streams' states make a resumed run draw what the
             # uninterrupted one draws
             "prng": prng.states(),
@@ -238,4 +276,5 @@ class SnapshotterToDB(SnapshotterBase):
     def export(self, units_state=None):
         return SnapshotterToFile.export(self, units_state)
 
+    _write = SnapshotterToFile._write
     _forward_topology = SnapshotterToFile._forward_topology

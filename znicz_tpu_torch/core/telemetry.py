@@ -33,8 +33,11 @@ Request traces live in :mod:`znicz_tpu_torch.serving.reqtrace` (the
 JAX package's generic spans have no counterpart here, its zero-length
 markers do: :func:`instant` (JAX :198) records one into a bounded ring
 (:data:`TRACE_CAPACITY` events), read as
-Chrome-trace events by :func:`trace_events`.  :func:`merged_snapshot`
-(JAX :665) is :func:`snapshot`: the port runs one process a card.
+Chrome-trace events by :func:`trace_events`, whose ``pid`` is the
+process's rank in the ``torch.distributed`` world (JAX :206-216).
+:func:`merged_snapshot` (JAX :665-677) is :func:`snapshot`, reduced
+over the world's ranks when it has more than one
+(:func:`znicz_tpu_torch.parallel.multihost.aggregate_telemetry`).
 :func:`summary` and :func:`serving_summary` (JAX :814, :855) are the
 compact why-blocks a report stamps, without the JAX package's compile
 counters; :func:`parse_prometheus` (JAX :954) validates an
@@ -324,10 +327,28 @@ def snapshot():
     return snap
 
 
+def add_bytes(direction, nbytes):
+    """The host-device transfer meter (``direction`` "d2h" or "h2d";
+    JAX :626-631): ``transfer.<direction>_bytes`` and ``_calls``.  Call
+    sites guard with :func:`enabled`."""
+    counter("transfer.%s_bytes" % direction).inc(int(nbytes))
+    counter("transfer.%s_calls" % direction).inc()
+
+
 def merged_snapshot():
-    """:func:`snapshot` of the run: a workflow of the port runs in one
-    process on one card, so there is nothing to merge."""
-    return snapshot()
+    """:func:`snapshot`, reduced over the ranks of a multi-process run
+    (one merged view of the gang; a collective every rank calls); the
+    snapshot itself in one process."""
+    snap = snapshot()
+    from znicz_tpu_torch.parallel.mesh import world
+    if world()[1] > 1:
+        from znicz_tpu_torch.parallel import multihost
+        try:
+            snap = multihost.aggregate_telemetry(snap)
+        except RuntimeError as e:
+            logger.warning("telemetry aggregation failed (%s); "
+                           "reporting this rank only", e)
+    return snap
 
 
 def summary():
@@ -460,10 +481,13 @@ def instant(name, **attrs):
 
 
 def trace_events():
-    """The recorded markers as Chrome-trace events (one process)."""
+    """The recorded markers as Chrome-trace events, ``pid`` the
+    process's rank in the ``torch.distributed`` world."""
+    from znicz_tpu_torch.parallel.mesh import world
+    pid = world()[0]
     out = []
     for ph, name, ts, _, tid, args in _trace.events():
-        ev = {"name": name, "ph": ph, "ts": round(ts, 3), "pid": 0,
+        ev = {"name": name, "ph": ph, "ts": round(ts, 3), "pid": pid,
               "tid": tid, "cat": "znicz", "s": "t"}
         if args:
             ev["args"] = args

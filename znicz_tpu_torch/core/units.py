@@ -15,7 +15,9 @@ its telemetry hooks:
   ``initialize``;
 * ``exports`` — the attribute names a snapshot captures;
 * ``stop()`` — a hook a unit with a thread or an open file overrides
-  (the avatar's producer, the data saver's stream).
+  (the avatar's producer, the data saver's stream);
+* ``is_master`` / ``is_slave`` / ``is_standalone`` (:216-229) — the
+  role of the unit's workflow in the reference's master-slave run.
 
 The graph is the epoch-level control plane and, in the unit-at-a-time
 training graph, the per-minibatch one too (a unit a layer); in the
@@ -162,6 +164,21 @@ class Unit(Logger):
     @property
     def initialized(self):
         return self._initialized
+
+    # -- the role in a master-slave run -----------------------------------
+    @property
+    def is_slave(self):
+        wf = self.workflow
+        return wf.is_slave if wf is not None else False
+
+    @property
+    def is_master(self):
+        wf = self.workflow
+        return wf.is_master if wf is not None else False
+
+    @property
+    def is_standalone(self):
+        return not self.is_slave and not self.is_master
 
     def initialize(self, device=None, **kwargs):
         """Allocate buffers etc.  Subclasses override; call super() first."""

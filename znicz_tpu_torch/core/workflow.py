@@ -58,6 +58,8 @@ class Workflow(Unit):
         self._queue = deque()
         self._running = False
         self._finished_callbacks = []
+        self._is_slave = False
+        self._is_master = False
 
     # -- container -----------------------------------------------------------
     def add_unit(self, unit):
@@ -82,6 +84,20 @@ class Workflow(Unit):
     @property
     def units(self):
         return list(self._units)
+
+    # -- roles (JAX :105-116): a workflow is standalone unless a
+    # master-slave launcher marks it -----------------------------------------
+    @property
+    def is_slave(self):
+        return self._is_slave
+
+    @property
+    def is_master(self):
+        return self._is_master
+
+    @property
+    def is_standalone(self):
+        return not (self._is_slave or self._is_master)
 
     # -- lifecycle -----------------------------------------------------------
     def initialize(self, device=None, **kwargs):

@@ -19,8 +19,14 @@ module ends with ``run(load, main)``, where
   journal on.
 
 :func:`run_supervised` runs a workflow again after a crash, with
-``auto_resume``, up to ``max_restarts`` times.  Multi-process runs are
-not in this slice of the port (``ROADMAP.md``).
+``auto_resume``, up to ``max_restarts`` times.  A launcher brings up
+the ``torch.distributed`` world from torchrun's variables
+(:func:`znicz_tpu_torch.parallel.multihost.initialize`, JAX :43-69)
+before the workflow touches a device: with an explicit configuration
+(``MASTER_ADDR`` or ``WORLD_SIZE``) a failure is fatal, while one from
+autodetected cluster markers degrades to a single process with a
+warning.  A launcher is standalone (JAX :89-99): the SPMD gang has no
+master and no slaves.
 """
 
 import gc
@@ -44,6 +50,23 @@ class Launcher(Logger):
     def __init__(self, snapshot=None, device=None, dry_run=False,
                  fused=None, testing=False, auto_resume=False):
         super(Launcher, self).__init__(logger_name="Launcher")
+        from znicz_tpu_torch.parallel import multihost
+        explicit = bool(os.environ.get("MASTER_ADDR")
+                        or os.environ.get("WORLD_SIZE"))
+        try:
+            up = multihost.initialize(device=device)
+        except (RuntimeError, ValueError) as e:
+            if explicit:
+                # training alone while the gang waits for this rank's
+                # gradients would corrupt the job
+                raise
+            self.warning("torch.distributed init failed (%s); continuing "
+                         "single-process", e)
+            up = False
+        if up:
+            import torch.distributed as dist
+            self.info("torch.distributed up: rank %d of %d",
+                      dist.get_rank(), dist.get_world_size())
         self.snapshot_path = snapshot
         self.testing = testing
         self.auto_resume = auto_resume
@@ -54,6 +77,19 @@ class Launcher(Logger):
         self.fused = fused
         self.workflow = None
         self._state = None
+
+    # -- the role the workflow sees (JAX :89-99) ---------------------------
+    @property
+    def is_master(self):
+        return False
+
+    @property
+    def is_slave(self):
+        return False
+
+    @property
+    def is_standalone(self):
+        return True
 
     def add_unit(self, unit):
         # a workflow built with the launcher as its parent registers here

@@ -16,9 +16,9 @@ matrix-product expansion above 25 rows, which rounds differently and
 can flip a near-tie), ``argmin`` takes the first index of a tie as
 ``jnp.argmin`` does, and the histogram is an integer ``index_add_``,
 exact in any order (``torch.bincount`` would read the largest index
-back to size its output, a host sync a step).  ``train_step_sharded``
-(JAX :69) waits for the multi-GPU item of ``ROADMAP.md``.  The numpy
-twins are the reference loop, the CPU tests' second reference.
+back to size its output, a host sync a step).  :func:`train_step_sharded`
+(JAX :69) is the step over a mesh's data axis.  The numpy twins are the
+reference loop, the CPU tests' second reference.
 """
 
 import numpy
@@ -104,3 +104,44 @@ def train_step_numpy(x, w, coords, sigma, gmult):
         gravity = numpy.exp(dists / (-2 * sigma * sigma))
         gradients += gravity[:, None] * (x2[i] - w) * gmult
     return w + gradients, hist, argmins
+
+
+def train_step_sharded(mesh, x, w, coords, sigma, gmult, device=None):
+    """The data-parallel SOM step over ``mesh`` (JAX :69), called by
+    every rank with the same global batch ``x`` and the same ``w`` and
+    ``coords`` (host arrays go to ``device``, default the mesh's, else
+    the card): each rank of the data axis takes its rows, and one
+    all-reduce over the axis sums the batch-additive ``gravity.T @ x``
+    and ``gravity.sum(0)`` and the winner histogram and gathers the
+    argmins.  Returns :func:`train_step`'s ``(new_w, winner_histogram,
+    argmins)`` of the global batch, the same on every rank."""
+    from znicz_tpu_torch.core.backends import default_device
+    from znicz_tpu_torch.parallel.mesh import check_data_batch
+
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.as_tensor(numpy.asarray(a)).to(
+            default_device(device or mesh.device))
+    x, w = put(x), put(w)
+    coords = put(coords).to(w.dtype)
+    check_data_batch(mesh, x.shape[0])
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    b = x.shape[0] // n
+    x2 = x.reshape(x.shape[0], -1)[i * b:(i + 1) * b]
+    argmins = winners(x2, w)
+    idx = argmins.long()
+    cd2 = ((coords[:, None, :] - coords[None, :, :]) ** 2).sum(dim=2)
+    gravity = torch.exp(cd2[idx] / (-2.0 * sigma * sigma))
+    gtx = gravity.T @ x2
+    gw = gravity.sum(dim=0)
+    hist = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device
+                       ).index_add_(0, idx, torch.ones_like(idx, dtype=w.dtype))
+    placed = torch.zeros(n * b, dtype=w.dtype, device=w.device)
+    placed[i * b:(i + 1) * b] = argmins.to(w.dtype)
+    parts = [gtx.reshape(-1), gw, hist, placed]
+    buf = mesh.all_reduce(torch.cat(parts), "data")
+    gtx, gw, hist, argmins = torch.split(buf, [p.numel() for p in parts])
+    gradients = (gtx.reshape(w.shape) - gw[:, None] * w) * gmult
+    return (w + gradients, hist.to(torch.int32),
+            argmins.to(torch.int32))

@@ -66,17 +66,36 @@ What maps to what:
   ``avg_pooling_reshape``, plain PyTorch, for windows that do not
   overlap.
 
-Not in this slice (it raises and is listed in ``ROADMAP.md``): a mesh.
+* a ``mesh`` (:func:`znicz_tpu_torch.parallel.mesh.make_mesh`, a
+  ``(data, model)`` grid of ``torch.distributed`` ranks, JAX
+  :1079-1226) splits the work as GSPMD splits JAX's: every rank is
+  given the global batch and trains on its contiguous rows of it; the
+  step's gradient, loss and ``n_err`` (and a single step's output rows)
+  are summed over the data axis in one all-reduce, so the step equals
+  the single-device step over the global batch up to the order of the
+  batch sum; an FC layer whose ``n_out`` divides by the model axis (and
+  that has no ortho term, which sums over all rows) keeps its rows
+  ``[m*n_out/M, (m+1)*n_out/M)`` of ``w``, ``b`` and their optimizer
+  slots (``_param_spec``, JAX :1184-1191), its input's gradient summed
+  and its output all-gathered over the model axis; the window
+  statistics stay per-rank partials, folded in one all-reduce when the
+  caller reads them (:meth:`FusedNet.fold_shards`, JAX ``_eval_stats``
+  :845-901, ``_fold`` :959); dropout masks and the stochastic pools'
+  draws are made for the global batch from the shared stream, each
+  rank keeping its rows.  Unlike JAX, which leaves its Pallas forward
+  off under a mesh (JAX :1026-1029), the pooling kernels run on every
+  rank's rows: a rank's share is an ordinary single-device batch.
 """
 
 import contextlib
+from collections import namedtuple
 from dataclasses import dataclass, field
 
 import numpy
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.core import faults, memory, profiler, prng
+from znicz_tpu_torch.core import faults, memory, profiler, prng, telemetry
 from znicz_tpu_torch.core.backends import (default_device,
                                             deterministic, full_f32)
 from znicz_tpu_torch.ops import activations, dense, evaluator, gd_math
@@ -84,6 +103,7 @@ from znicz_tpu_torch.ops import conv as conv_ops
 from znicz_tpu_torch.ops import init as init_ops
 from znicz_tpu_torch.ops import normalization as norm_ops
 from znicz_tpu_torch.ops import pooling as pool_ops
+from znicz_tpu_torch.parallel import mesh as mesh_mod
 from znicz_tpu_torch.params import (tree_map, train_state_from_numpy,
                                     train_state_to_numpy)
 
@@ -117,10 +137,12 @@ DEFAULT_HYPER = dict(lr=0.01, wd=0.00005, l1_vs_l2=0.0, moment=0.0,
                      acc_alpha=0.0, acc_beta=0.0, gd_alpha=0.0, gd_beta=1.0,
                      factor_ortho=0.0)
 
-_LATER = "not in this slice of the port (see ROADMAP.md)"
-
 #: the context of a dispatch the profiler does not count
 _UNCOUNTED = contextlib.nullcontext()
+
+#: this rank's rows ``[lo, hi)`` of a global batch of ``batch`` rows
+#: under ``mesh``: what a forward and a loss under a mesh are given
+Shard = namedtuple("Shard", "mesh lo hi batch")
 
 
 def layer_hyper(layer, defaults=None):
@@ -583,10 +605,14 @@ def init_opt_state(specs, params):
 
 def _mask(spec, w):
     """The spec's grouping mask as a tensor like ``w`` (cached on the
-    spec per dtype and device), or None."""
+    spec per dtype and device), or None; a layer split over the model
+    axis takes its rows of it."""
     mask = getattr(spec, "weight_mask", None)
     if mask is None:
         return None
+    rows = getattr(spec, "rows", None)
+    if rows is not None:
+        mask = mask[rows[0]:rows[1]]
     cache = spec.__dict__.setdefault("_mask_tensors", {})
     key = (w.dtype, w.device)
     if key not in cache:
@@ -596,7 +622,7 @@ def _mask(spec, w):
 
 
 def forward(params, x, specs, return_logits=False, generator=None,
-            train=False, compute_dtype=None):
+            train=False, compute_dtype=None, shard=None):
     """The forward pass through the whole spec stack.
 
     ``compute_dtype`` (a torch dtype, e.g. ``torch.bfloat16``) casts the
@@ -608,7 +634,11 @@ def forward(params, x, specs, return_logits=False, generator=None,
     dropout is the identity.  The stochastic pools draw their winners
     from ``generator`` whenever it is given (in inference too).  A
     strictly monotonic conv activation is applied after a following max
-    pool (``_MONOTONIC_ACTS``)."""
+    pool (``_MONOTONIC_ACTS``).  Under a mesh, ``shard`` (a
+    :data:`Shard`) says which rows of the global batch ``x`` holds: the
+    random draws are made for the global batch and cut to those rows,
+    and a layer split over the model axis (``spec.rows``) sums its
+    input's gradient and gathers its output over that axis."""
     cd = compute_dtype
 
     def _p(t):
@@ -625,10 +655,15 @@ def forward(params, x, specs, return_logits=False, generator=None,
             mask = _mask(spec, w)
             if mask is not None:
                 w = w * mask
+            split = getattr(spec, "rows", None) is not None
+            if split:
+                y = mesh_mod.SumGradAxis.apply(y, shard.mesh, "model")
             y = dense.forward(y, w, _p(p.get("b")),
                               "linear" if spec.is_softmax
                               else spec.activation,
                               include_bias="b" in p)
+            if split:
+                y = mesh_mod.GatherAxis.apply(y, shard.mesh, "model", 1)
             if spec.is_softmax and not return_logits:
                 if cd is not None:
                     y = y.float()
@@ -652,7 +687,7 @@ def forward(params, x, specs, return_logits=False, generator=None,
         elif spec.kind == "pool":
             y = y.reshape((y.shape[0],) + spec.in_shape)
             if spec.mode.startswith("stochastic"):
-                y, offsets[i] = _stochastic_pool(spec, y, generator)
+                y, offsets[i] = _stochastic_pool(spec, y, generator, shard)
             elif spec.record_offsets:
                 y, offsets[i] = pool_ops.max_pooling_train(
                     y, spec.ky, spec.kx, spec.sliding,
@@ -705,11 +740,15 @@ def forward(params, x, specs, return_logits=False, generator=None,
             if train and generator is not None:
                 # drawn in at least float32: a bfloat16 compute draws
                 # the float32 run's masks
-                keep = torch.rand(y.shape, generator=generator,
+                shape = tuple(y.shape) if shard is None else \
+                    (shard.batch,) + tuple(y.shape[1:])
+                keep = torch.rand(shape, generator=generator,
                                   device=y.device,
                                   dtype=torch.promote_types(
                                       y.dtype, torch.float32)) >= \
                     spec.ratio
+                if shard is not None:
+                    keep = keep[shard.lo:shard.hi]
                 y = y * keep.to(y.dtype) / (1.0 - spec.ratio)
         elif spec.kind != "zerofill":  # pragma: no cover
             raise AssertionError(spec.kind)
@@ -723,12 +762,13 @@ def draw_u16(generator, n):
                          device=generator.device, dtype=torch.int32)
 
 
-def _stochastic_pool(spec, y, generator):
+def _stochastic_pool(spec, y, generator, shard=None):
     """A stochastic pool's ``(output, int32 winner offsets)`` on
     :func:`pool_ops.stochastic_pooling` (or ``stochastic_pool_depool``),
     fed one uint16 a window from ``generator``: one draw a layer a
     step, where the JAX package splits its key.  Only the distribution
-    matches the JAX package's draw."""
+    matches the JAX package's draw.  Under a mesh the stream is drawn
+    for the global batch and each rank takes its rows' part."""
     if generator is None:
         raise ValueError("stochastic pooling needs the net's generator")
     use_abs = "abs" in spec.mode
@@ -736,13 +776,19 @@ def _stochastic_pool(spec, y, generator):
     if spec.mode.endswith("_depool"):
         ny, nx = pool_ops.output_spatial(h, w, spec.ky, spec.kx,
                                          (spec.kx, spec.ky))
-        return pool_ops.stochastic_pool_depool(
-            y, draw_u16(generator, b * ny * nx * c), spec.ky, spec.kx,
-            use_abs)
-    ny, nx, _ = spec.out_shape
-    return pool_ops.stochastic_pooling(
-        y, draw_u16(generator, b * ny * nx * c), spec.ky, spec.kx,
-        spec.sliding, use_abs)
+    else:
+        ny, nx, _ = spec.out_shape
+    per = ny * nx * c
+    if shard is None:
+        rand = draw_u16(generator, b * per)
+    else:
+        rand = draw_u16(generator, shard.batch * per)[
+            shard.lo * per:shard.hi * per]
+    if spec.mode.endswith("_depool"):
+        return pool_ops.stochastic_pool_depool(y, rand, spec.ky, spec.kx,
+                                               use_abs)
+    return pool_ops.stochastic_pooling(y, rand, spec.ky, spec.kx,
+                                       spec.sliding, use_abs)
 
 
 def _hits(spec, y):
@@ -777,12 +823,15 @@ class _Depooling(torch.autograd.Function):
 
 
 def _loss_and_stats(params, x, labels, specs, generator=None,
-                    compute_dtype=None):
+                    compute_dtype=None, shard=None, n_valid=None):
     """Mean softmax-CE loss over the rows labelled >= 0, the number of
     them misclassified, the softmax output and its int32 argmax; the
-    loss is taken in float32 under a ``compute_dtype`` (JAX :805-812)."""
+    loss is taken in float32 under a ``compute_dtype`` (JAX :805-812).
+    Under a mesh the rows are this rank's (``shard``) and the mean is
+    over ``n_valid``, the global batch's count: the ranks' losses sum
+    to the global one."""
     y = forward(params, x, specs, return_logits=True, generator=generator,
-                train=True, compute_dtype=compute_dtype)
+                train=True, compute_dtype=compute_dtype, shard=shard)
     if compute_dtype is not None:
         y = y.float()
     logp = F.log_softmax(y, dim=1)
@@ -790,25 +839,28 @@ def _loss_and_stats(params, x, labels, specs, generator=None,
     lbl = labels.clamp(min=0)
     ce = -torch.gather(logp, 1, lbl[:, None].long())[:, 0]
     ce = torch.where(valid, ce, 0.0)
-    loss = ce.sum() / valid.sum().clamp(min=1)
+    loss = ce.sum() / (valid.sum() if n_valid is None
+                       else n_valid).clamp(min=1)
     max_idx = torch.argmax(y, dim=1).to(torch.int32)
     n_err = (valid & (max_idx != lbl)).sum()
     return loss, (n_err, torch.exp(logp.detach()), max_idx)
 
 
 def _loss_mse(params, x, target, batch_size, specs, generator=None,
-              compute_dtype=None):
+              compute_dtype=None, shard=None):
     """``(loss, output)``: ``sum((y - t)^2) / (2 * batch_size)`` over the
     rows in the batch, whose gradient in ``y`` is the MSE evaluator's
     ``err_output``, ``(y - t) / batch_size``; in float32 under a
-    ``compute_dtype`` (JAX :825-835)."""
+    ``compute_dtype`` (JAX :825-835).  Under a mesh the rows are this
+    rank's (``shard``), masked by their place in the global batch."""
     y = forward(params, x, specs, generator=generator, train=True,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, shard=shard)
     if compute_dtype is not None:
         y = y.float()
     b = y.shape[0]
     o2 = y.reshape(b, -1)
-    valid = torch.arange(b, device=y.device) < batch_size
+    valid = torch.arange(b, device=y.device) < batch_size - (
+        0 if shard is None else shard.lo)
     diff = torch.where(valid[:, None],
                        o2 - target.reshape(b, -1).to(o2.dtype), 0)
     return 0.5 * (diff * diff).sum() / max(int(batch_size), 1), y
@@ -842,11 +894,14 @@ def _apply_weight_masks(params, specs):
     return out
 
 
-def _grad_step(params, state, specs, hypers, loss_fn, mark=None):
+def _grad_step(params, state, specs, hypers, loss_fn, mark=None,
+               sync=None):
     """``(new_params, new_state, loss, aux)``: the gradient of
     ``loss_fn(params) -> (loss, aux)`` and every layer's update.
     ``mark``, when given, is called with "forward", "backward" and
-    "update" as each part has been enqueued."""
+    "update" as each part has been enqueued.  ``sync(grads, loss, aux)
+    -> (grads, loss, aux)``, under a mesh, sums them over the data
+    axis before the update."""
     with torch.no_grad():
         params = _apply_weight_masks(params, specs)
     leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
@@ -856,7 +911,11 @@ def _grad_step(params, state, specs, hypers, loss_fn, mark=None):
         if mark is not None:
             mark("forward")
         flat = [v for p in leaves for v in p.values()]
-        grads = iter(torch.autograd.grad(loss, flat))
+        grads = torch.autograd.grad(loss, flat)
+    loss = loss.detach()
+    if sync is not None:
+        grads, loss, aux = sync(grads, loss, aux)
+    grads = iter(grads)
     if mark is not None:
         mark("backward")
     if hypers is None:
@@ -877,18 +936,69 @@ def _grad_step(params, state, specs, hypers, loss_fn, mark=None):
         new_state.append(nst)
     if mark is not None:
         mark("update")
-    return new_params, new_state, loss.detach(), aux
+    return new_params, new_state, loss, aux
+
+
+def _rank_labels(labels, shard):
+    """``(labels, n_valid)``: a global batch's labels cut to this rank's
+    rows and the global count of rows labelled >= 0, under a mesh
+    (``shard``); the labels and None without one."""
+    if shard is None:
+        return labels, None
+    return labels[shard.lo:shard.hi], (labels >= 0).sum()
+
+
+def _all_reduce_step(shard, grads, scalars, rows):
+    """The step's one all-reduce over the data axis: the gradients and
+    the ``scalars`` (the loss, ``n_err``) summed, and each of ``rows``
+    (this rank's rows of an output) gathered into the global batch's
+    by a sum over zeros; all in the gradients' dtype (exact for the
+    counts and indices it carries)."""
+    mesh = shard.mesh
+    dtype = grads[0].dtype
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    flat = [g.reshape(-1) for g in grads]
+    flat += [t.reshape(1).to(dtype) for t in scalars]
+    for r in rows:
+        block = r.reshape(r.shape[0], -1).to(dtype)
+        full = block.new_zeros((n,) + tuple(block.shape))
+        full[i] = block
+        flat.append(full.reshape(-1))
+    buf = mesh.all_reduce(torch.cat(flat), "data")
+    out = iter(torch.split(buf, [t.numel() for t in flat]))
+    grads = [next(out).view_as(g) for g in grads]
+    scalars = [next(out).reshape(()).to(t.dtype) for t in scalars]
+    rows = [next(out).reshape((n * r.shape[0],) + tuple(r.shape[1:])).to(
+        r.dtype) for r in rows]
+    return grads, scalars, rows
 
 
 def _train_step(params, state, x, labels, specs, generator=None,
                 hypers=None, with_output=False, mark=None,
-                compute_dtype=None):
+                compute_dtype=None, shard=None, n_valid=None,
+                gather_output=False):
     """One softmax step: ``(new_params, new_state, metrics)`` (see
-    :func:`_grad_step` for ``mark``)."""
+    :func:`_grad_step` for ``mark``).  Under a mesh (``shard``, with the
+    global ``n_valid``) the loss and ``n_err`` are the global batch's,
+    and the output rows this rank's, or the global batch's with
+    ``gather_output``."""
+    sync = None
+    if shard is not None and shard.mesh.distributed("data"):
+        def sync(grads, loss, aux):
+            n_err, probs, max_idx = aux
+            rows = [probs, max_idx] if gather_output else []
+            grads, (loss, n_err), rows = _all_reduce_step(
+                shard, grads, [loss, n_err], rows)
+            if gather_output:
+                probs, max_idx = rows
+            return grads, loss, (n_err, probs, max_idx)
+    # the mesh's arguments only under a mesh: the single-device call is
+    # the plain one
+    on_mesh = {} if shard is None else {"shard": shard, "n_valid": n_valid}
     new_params, new_state, loss, (n_err, probs, max_idx) = _grad_step(
         params, state, specs, hypers,
         lambda p: _loss_and_stats(p, x, labels, specs, generator,
-                                  compute_dtype), mark)
+                                  compute_dtype, **on_mesh), mark, sync)
     metrics = {"loss": loss, "n_err": n_err}
     if with_output:
         metrics["output"] = probs
@@ -898,13 +1008,22 @@ def _train_step(params, state, x, labels, specs, generator=None,
 
 def _train_step_mse(params, state, x, target, batch_size, specs,
                     generator=None, hypers=None, mark=None,
-                    compute_dtype=None):
-    """One MSE step: ``(new_params, new_state, {"loss", "output"})``."""
+                    compute_dtype=None, shard=None, gather_output=False):
+    """One MSE step: ``(new_params, new_state, {"loss", "output"})``;
+    under a mesh as :func:`_train_step`."""
+    sync = None
+    if shard is not None and shard.mesh.distributed("data"):
+        def sync(grads, loss, y):
+            rows = [y.detach()] if gather_output else []
+            grads, (loss,), rows = _all_reduce_step(shard, grads, [loss],
+                                                    rows)
+            return grads, loss, rows[0] if gather_output else y
     new_params, new_state, loss, y = _grad_step(
         params, state, specs, hypers,
         lambda p: _loss_mse(p, x, target, batch_size, specs, generator,
-                            compute_dtype),
-        mark)
+                            compute_dtype, **({} if shard is None
+                                              else {"shard": shard})),
+        mark, sync)
     return new_params, new_state, {"loss": loss, "output": y.detach()}
 
 
@@ -974,7 +1093,10 @@ def compute_dtype_of(value):
 
 
 class FusedNet:
-    """Trainer for a feed-forward spec stack on one device.
+    """Trainer for a feed-forward spec stack on one device, or on the
+    ranks of a ``mesh`` (see the module's notes; every rank of the mesh
+    builds the net from the same ``rand`` stream and ``dropout_seed``,
+    and calls each entry point with the same global batch).
 
     ``device`` is the card (``cuda``) unless the caller passes "cpu";
     without CUDA it raises.  ``pool_impl`` picks every max pool's
@@ -991,21 +1113,30 @@ class FusedNet:
     the net's ``torch.Generator``.  ``objective`` is "softmax" (a softmax head,
     :meth:`step` and the softmax windows) or "mse" (no softmax layer,
     :meth:`step_mse` and the MSE windows, whose stats follow
-    ``mse_root`` and ``class_targets`` as they stand at each window)."""
+    ``mse_root`` and ``class_targets`` as they stand at each window).
+    Under a mesh the net runs on the mesh's device for this rank where
+    the mesh maps one, else on ``device``."""
 
     def __init__(self, layers, input_sample_shape, mesh=None, rand=None,
                  dtype=numpy.float32, defaults=None, dropout_seed=0,
                  compute_dtype=None, pool_impl=None, objective="softmax",
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("a mesh is %s" % _LATER)
         if objective not in ("softmax", "mse"):
             raise ValueError("unknown objective %r" % (objective,))
         if pool_impl not in (None, "reduce_window", "offsets", "gather",
                              "reshape"):
             raise ValueError("unknown pool_impl %r" % (pool_impl,))
         self.compute_dtype = compute_dtype_of(compute_dtype)
+        if mesh is not None and mesh.device is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError("device %s is not the mesh's %s for rank "
+                                 "%d" % (device, mesh.device, mesh.rank))
+            device = mesh.device
         self.device = default_device(device)
+        self.mesh = mesh
+        #: the mesh's data and model extents (1 and 1 without one)
+        self._dp = mesh_mod.data_parallel_size(mesh)
+        self._mp = mesh_mod.model_parallel_size(mesh)
         full_f32(self.device)
         deterministic(self.device)
         self.specs = build_specs(layers, input_sample_shape, defaults)
@@ -1018,6 +1149,10 @@ class FusedNet:
                         "(got %r vs (%d, %d))"
                         % (spec.sliding, spec.kx, spec.ky))
                 spec.impl = pool_impl or "reduce_window"
+            if self._param_split(spec):
+                per = spec.n_out // self._mp
+                m = mesh.coords["model"]
+                spec.rows = (m * per, (m + 1) * per)
         if objective == "mse":
             if any(s.is_softmax for s in self.specs):
                 raise ValueError(
@@ -1053,12 +1188,108 @@ class FusedNet:
         self.stats_mean = True
         self._ct_cache = None
         params_host = init_params(self.specs, rand, self.dtype)
-        self.params = self._place(params_host)
+        self.params = self._place(self._local_rows(params_host))
         self.state = init_opt_state(self.specs, self.params)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(dropout_seed))
         #: live hyperparameters (python floats), used by :meth:`step`
         self.hypers = default_hypers(self.specs)
+
+    # -- the mesh -------------------------------------------------------------
+    @property
+    def data_shards(self):
+        """The mesh's data-parallel extent (1 without a mesh)."""
+        return self._dp
+
+    def _param_split(self, spec):
+        """Whether ``spec``'s parameters split over the model axis (JAX's
+        ``_param_spec``, :1184-1191): an FC layer whose ``n_out`` divides
+        by it.  A layer with an ortho term stays whole: the term sums
+        over all its rows."""
+        return (spec.kind == "fc" and self._mp > 1
+                and spec.n_out % self._mp == 0
+                and not spec.flags.get("ortho"))
+
+    def _local_rows(self, tree):
+        """A per-spec tree of whole host arrays or tensors (parameters,
+        optimizer slots) cut to this rank's rows of each split layer."""
+        out = []
+        for spec, leaf in zip(self.specs, tree):
+            rows = getattr(spec, "rows", None)
+            if rows is not None:
+                leaf = tree_map(lambda a: a[rows[0]:rows[1]], leaf)
+            out.append(leaf)
+        return out
+
+    def _whole(self, tree):
+        """A per-spec tree of this rank's tensors with each split layer
+        gathered whole over the model axis (a collective: every rank of
+        the model line calls it)."""
+        out = []
+        for spec, leaf in zip(self.specs, tree):
+            if getattr(spec, "rows", None) is not None:
+                leaf = tree_map(
+                    lambda t: self.mesh.all_gather(t, "model", 0)
+                    if isinstance(t, torch.Tensor) else t, leaf)
+            out.append(leaf)
+        return out
+
+    def _shard(self, batch):
+        """This rank's :data:`Shard` of a global batch of ``batch`` rows
+        (None without a mesh); raises when the data axis does not divide
+        it."""
+        if self.mesh is None:
+            return None
+        mesh_mod.check_data_batch(self.mesh, batch)
+        b = batch // self._dp
+        lo = self.mesh.coords["data"] * b
+        return Shard(self.mesh, lo, lo + b, int(batch))
+
+    def _rows(self, batch):
+        """``(lo, hi)``: this rank's rows of a global batch."""
+        shard = self._shard(batch)
+        return (0, batch) if shard is None else (shard.lo, shard.hi)
+
+    #: how :meth:`fold_shards` folds each leaf over the data axis
+    _FOLDS = {"n_err": "sum", "confusion": "sum", "max_err_sum": "max",
+              "metrics": "sum_max_min", "output": "rows",
+              "max_idx": "rows", "mse_per": "rows"}
+
+    def fold_shards(self, tree):
+        """Under a data mesh, a dict of this rank's window statistics
+        (``n_err``, ``confusion`` and ``max_err_sum``, or the MSE
+        ``metrics`` and ``n_err``: partials over its rows) and of its
+        rows of the last step (``output``, ``max_idx``, ``mse_per``),
+        folded over the data axis as JAX folds its per-shard partials
+        (``_fold``, :959): counts summed, the max maxed, the MSE
+        ``[sum, max, min]`` each by its own, the rows gathered.  One
+        all-reduce in float64 (exact for the counts and for every float
+        it carries; a sum of the ranks' float partials reassociates).
+        The tree itself without a mesh."""
+        if self.mesh is None or not self.mesh.distributed("data"):
+            return tree
+        n, i = self._dp, self.mesh.coords["data"]
+        keys = list(tree)
+        flat = [tree[k].reshape(-1).to(torch.float64) for k in keys]
+        sizes = [f.numel() for f in flat]
+        buf = torch.zeros((n, sum(sizes)), dtype=torch.float64,
+                          device=self.device)
+        buf[i] = torch.cat(flat)
+        self.mesh.all_reduce(buf, "data")
+        out = {}
+        for k, part in zip(keys, torch.split(buf, sizes, dim=1)):
+            leaf, how = tree[k], self._FOLDS[k]
+            if how == "rows":
+                v = part.reshape((n * leaf.shape[0],) + tuple(leaf.shape[1:]))
+            elif how == "sum":
+                v = part.sum(dim=0).reshape(leaf.shape)
+            elif how == "max":
+                v = part.max(dim=0).values.reshape(leaf.shape)
+            else:
+                v = torch.stack([part[:, 0].sum(), part[:, 1].max(),
+                                 part[:, 2].min()])
+            out[k] = v.to(leaf.dtype)
+        return out
 
     # -- placement ----------------------------------------------------------
     def _place(self, tree):
@@ -1071,8 +1302,13 @@ class FusedNet:
             return t.to(self.device)
         return tree_map(put, tree)
 
-    def _batch(self, x, labels=None):
-        x = torch.as_tensor(x).to(self.device, self._tdtype)
+    def _batch(self, x, labels=None, rows=None):
+        """A host or device batch on the net's device; ``rows`` (lo, hi)
+        cuts ``x`` to them before the copy (the labels stay whole)."""
+        x = torch.as_tensor(x)
+        if rows is not None:
+            x = x[rows[0]:rows[1]]
+        x = x.to(self.device, self._tdtype)
         if labels is None:
             return x, None
         return x, torch.as_tensor(labels).to(self.device, torch.int32)
@@ -1105,13 +1341,18 @@ class FusedNet:
         overrides the live hyperparameters for this step; ``mark`` is
         passed to the step (see :func:`_grad_step`)."""
         self._need("softmax", "step")
-        x, labels = self._batch(x, labels)
-        with self._cost("fused.step", 1, x.shape[0]) \
+        batch = len(x)
+        shard = self._shard(batch)
+        x, labels = self._batch(x, labels, None if shard is None
+                                else (shard.lo, shard.hi))
+        labels, n_valid = _rank_labels(labels, shard)
+        with self._cost("fused.step", 1, batch) \
                 if profiler.enabled() else _UNCOUNTED:
             self.params, self.state, metrics = _train_step(
                 self.params, self.state, x, labels, self.specs, self._gen,
                 self.hypers if hypers is None else hypers, with_output=True,
-                mark=mark, compute_dtype=self.compute_dtype)
+                mark=mark, compute_dtype=self.compute_dtype, shard=shard,
+                n_valid=n_valid, gather_output=True)
         return metrics
 
     def step_mse(self, x, target, batch_size=None, hypers=None, mark=None):
@@ -1119,16 +1360,19 @@ class FusedNet:
         ``target``; rows at or past ``batch_size`` (all by default) are
         masked.  Returns {"loss", "output"} as device tensors."""
         self._need("mse", "step_mse")
-        x, _ = self._batch(x)
-        t = self._batch(target)[0]
-        with self._cost("fused.step_mse", 1, x.shape[0]) \
+        batch = len(x)
+        shard = self._shard(batch)
+        rows = None if shard is None else (shard.lo, shard.hi)
+        x, _ = self._batch(x, rows=rows)
+        t = self._batch(target, rows=rows)[0]
+        with self._cost("fused.step_mse", 1, batch) \
                 if profiler.enabled() else _UNCOUNTED:
             self.params, self.state, metrics = _train_step_mse(
                 self.params, self.state, x, t,
-                x.shape[0] if batch_size is None else int(batch_size),
+                batch if batch_size is None else int(batch_size),
                 self.specs, self._gen,
                 self.hypers if hypers is None else hypers, mark,
-                self.compute_dtype)
+                self.compute_dtype, shard, gather_output=True)
         return metrics
 
     def run_steps(self, xs, labels_s):
@@ -1138,10 +1382,14 @@ class FusedNet:
         self._need("softmax", "run_steps")
         losses, errs = [], []
         for x, lbl in zip(xs, labels_s):
-            x, lbl = self._batch(x, lbl)
+            shard = self._shard(len(x))
+            x, lbl = self._batch(x, lbl, None if shard is None
+                                 else (shard.lo, shard.hi))
+            lbl, n_valid = _rank_labels(lbl, shard)
             self.params, self.state, m = _train_step(
                 self.params, self.state, x, lbl, self.specs, self._gen,
-                self.hypers, compute_dtype=self.compute_dtype)
+                self.hypers, compute_dtype=self.compute_dtype, shard=shard,
+                n_valid=n_valid)
             losses.append(m["loss"])
             errs.append(m["n_err"])
         return {"loss": torch.stack(losses), "n_err": torch.stack(errs)}
@@ -1206,6 +1454,10 @@ class FusedNet:
                                       hypers_s)
 
     def _window_steps(self, n_steps, batch, fetch, batch_sizes, hypers_s):
+        """The softmax window's loop: ``fetch(k)`` gives this rank's
+        rows of step k and the global batch's labels; the stats are
+        this rank's partials (:meth:`fold_shards` folds them)."""
+        shard = self._shard(batch)
         n_classes = int(self.specs[-1].n_out)
         nerr = torch.zeros(2, dtype=torch.int32, device=self.device)
         conf = torch.zeros((n_classes, n_classes), dtype=torch.int32,
@@ -1219,10 +1471,12 @@ class FusedNet:
             x, lbl = fetch(k)
             bs = int(sizes[k])
             lbl = torch.where(rows < bs, lbl, -1)
+            lbl, n_valid = _rank_labels(lbl, shard)
             hy = _hypers_at(hypers_s, k)
             self.params, self.state, m = _train_step(
                 self.params, self.state, x, lbl, self.specs, self._gen, hy,
-                with_output=True, compute_dtype=self.compute_dtype)
+                with_output=True, compute_dtype=self.compute_dtype,
+                shard=shard, n_valid=n_valid)
             d_nerr, d_conf, d_mx = evaluator.eval_stats(
                 m["output"], m["max_idx"], lbl, bs, n_classes,
                 mean=self.stats_mean)
@@ -1253,8 +1507,9 @@ class FusedNet:
         masked."""
         xs = self._stacked(xs)
         labels_s = self._stacked(labels_s, torch.int32)
+        lo, hi = self._rows(xs.shape[1])
         return self._run_window("stacked", xs.shape[0], xs.shape[1],
-                                lambda k: (xs[k], labels_s[k]),
+                                lambda k: (xs[k][lo:hi], labels_s[k]),
                                 batch_sizes, hypers_s)
 
     def run_window_indexed(self, idx_s, batch_sizes, hypers_s):
@@ -1266,13 +1521,14 @@ class FusedNet:
         if not isinstance(idx_s, torch.Tensor):
             idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64))
         idx_s = idx_s.to(self.device, torch.int64)
+        lo, hi = self._rows(idx_s.shape[1])
 
         def fetch(k):
             idx = idx_s[k]
             safe = idx.clamp(min=0)
             lbl = torch.where(idx < 0, -1,
                               self._labels_d.index_select(0, safe))
-            return self._data_d.index_select(0, safe), lbl
+            return self._data_d.index_select(0, safe[lo:hi]), lbl
         return self._run_window("indexed", idx_s.shape[0], idx_s.shape[1],
                                 fetch, batch_sizes, hypers_s)
 
@@ -1286,10 +1542,11 @@ class FusedNet:
         starts = numpy.asarray(starts, dtype=numpy.int64)
         batch = int(batch)
         last = self._data_p.shape[0] - batch
+        lo, hi = self._rows(batch)
 
         def fetch(k):
             s = min(max(int(starts[k]), 0), last)
-            return self._data_p[s:s + batch], self._labels_p[s:s + batch]
+            return self._data_p[s + lo:s + hi], self._labels_p[s:s + batch]
         return self._run_window("sliced", len(starts), batch, fetch,
                                 batch_sizes, hypers_s)
 
@@ -1324,6 +1581,11 @@ class FusedNet:
 
     def _window_steps_mse(self, n_steps, batch, fetch, batch_sizes,
                           hypers_s):
+        """The MSE window's loop: ``fetch(k)`` gives this rank's rows and
+        targets of step k and the global batch's labels; the stats are
+        this rank's partials (:meth:`fold_shards` folds them)."""
+        shard = self._shard(batch)
+        lo, hi = self._rows(batch)
         root, ct = bool(self.mse_root), self._class_targets_tensor()
         zero = torch.zeros((), dtype=self._out_tdtype, device=self.device)
         msum, mmax, mmin = zero, zero, zero + float("inf")
@@ -1335,18 +1597,22 @@ class FusedNet:
         for k in range(n_steps):
             x, lbl, t = fetch(k)
             bs = int(sizes[k])
+            # the rows of this rank's part that are in the batch
+            bs_local = min(max(bs - lo, 0), hi - lo)
             self.params, self.state, m = _train_step_mse(
                 self.params, self.state, x, t, bs, self.specs, self._gen,
-                _hypers_at(hypers_s, k), compute_dtype=self.compute_dtype)
+                _hypers_at(hypers_s, k), compute_dtype=self.compute_dtype,
+                shard=shard)
             _, md, mse_per = evaluator.mse(m["output"],
-                                           t.to(self._out_tdtype), bs,
+                                           t.to(self._out_tdtype), bs_local,
                                            root=root)
             msum = msum + md[0]
             mmax = torch.maximum(mmax, md[1])
             mmin = torch.minimum(mmin, md[2])
             if ct is not None:
                 nerr = nerr + evaluator.nearest_target_errors(
-                    m["output"], ct, torch.where(rows < bs, lbl, -1), bs)
+                    m["output"], ct, torch.where(rows < bs, lbl, -1)[lo:hi],
+                    bs_local)
             losses.append(m["loss"])
         acc = self._window_acc()
         acc = {"metrics": torch.stack([
@@ -1369,14 +1635,16 @@ class FusedNet:
         if not isinstance(idx_s, torch.Tensor):
             idx_s = torch.as_tensor(numpy.asarray(idx_s, numpy.int64))
         idx_s = idx_s.to(self.device, torch.int64)
+        lo, hi = self._rows(idx_s.shape[1])
 
         def fetch(k):
             idx = idx_s[k]
             safe = idx.clamp(min=0)
             lbl = torch.where(idx < 0, -1,
                               self._labels_d.index_select(0, safe))
-            return (self._data_d.index_select(0, safe), lbl,
-                    self._targets_d.index_select(0, safe))
+            mine = safe[lo:hi]
+            return (self._data_d.index_select(0, mine), lbl,
+                    self._targets_d.index_select(0, mine))
         return self._run_window_mse("mse_indexed", idx_s.shape[0],
                                     idx_s.shape[1], fetch, batch_sizes,
                                     hypers_s)
@@ -1389,9 +1657,11 @@ class FusedNet:
         device."""
         xs, ts = self._stacked(xs), self._stacked(ts)
         lbl_s = self._stacked(lbl_s, torch.int32)
-        return self._run_window_mse("mse", xs.shape[0], xs.shape[1],
-                                    lambda k: (xs[k], lbl_s[k], ts[k]),
-                                    batch_sizes, hypers_s)
+        lo, hi = self._rows(xs.shape[1])
+        return self._run_window_mse(
+            "mse", xs.shape[0], xs.shape[1],
+            lambda k: (xs[k][lo:hi], lbl_s[k], ts[k][lo:hi]),
+            batch_sizes, hypers_s)
 
     def run_window_mse_sliced(self, starts, batch, batch_sizes, hypers_s):
         """K MSE steps over the epoch's shuffled dataset and targets
@@ -1403,11 +1673,13 @@ class FusedNet:
         starts = numpy.asarray(starts, dtype=numpy.int64)
         batch = int(batch)
         last = self._data_p.shape[0] - batch
+        lo, hi = self._rows(batch)
 
         def fetch(k):
             s = min(max(int(starts[k]), 0), last)
-            return (self._data_p[s:s + batch], self._labels_p[s:s + batch],
-                    self._targets_p[s:s + batch])
+            return (self._data_p[s + lo:s + hi],
+                    self._labels_p[s:s + batch],
+                    self._targets_p[s + lo:s + hi])
         return self._run_window_mse("mse_sliced", len(starts), batch,
                                     fetch, batch_sizes, hypers_s)
 
@@ -1443,10 +1715,11 @@ class FusedNet:
         return self._win_acc
 
     def window_acc_host(self):
-        """One host copy of the epoch accumulator, or None."""
+        """One host copy of the epoch accumulator, or None; under a data
+        mesh folded over it first (:meth:`fold_shards`, a collective)."""
         if self._win_acc is None:
             return None
-        return self.host_fetch(self._win_acc)
+        return self.host_fetch(self.fold_shards(self._win_acc))
 
     def reset_window_acc(self):
         """Zero the epoch accumulator (at every epoch boundary)."""
@@ -1454,10 +1727,15 @@ class FusedNet:
 
     def set_window_acc(self, acc):
         """Restore a host copy of the accumulator (:meth:`window_acc_host`
-        output, or None for zeros) — a mid-segment snapshot's."""
+        output, or None for zeros) — a mid-segment snapshot's.  Under a
+        data mesh the folded values go to the ranks at data coordinate 0
+        and zeros to the others, so that the next fold gives them
+        back."""
         if acc is None:
             self._win_acc = None
             return
+        if self.mesh is not None and self.mesh.coords["data"] != 0:
+            acc = self.window_acc_zeros()
 
         def put(v):
             t = torch.as_tensor(numpy.asarray(v))
@@ -1472,24 +1750,40 @@ class FusedNet:
         (:func:`znicz_tpu_torch.core.memory.host_fetch`), behind the
         ``fused.host_fetch`` fault site.  Like the dispatch site it is
         not retried in place: the supervised launcher's restart and
-        mid-epoch resume are the recovery."""
+        mid-epoch resume are the recovery.  Metered on the telemetry d2h
+        counters as one call (JAX :2160-2190)."""
         if faults.enabled():
             faults.check("fused.host_fetch")
-        return memory.host_fetch(tree)
+        host = memory.host_fetch(tree)
+        if telemetry.enabled():
+            nbytes = []
+            tree_map(lambda v: nbytes.append(v.nbytes)
+                     if isinstance(v, numpy.ndarray) else None, host)
+            telemetry.add_bytes("d2h", sum(nbytes))
+        return host
 
     def params_finite(self):
         """Whether every parameter is finite: one reduction on the
-        device and one readback."""
-        return bool(torch.stack([torch.isfinite(t).all()
-                                 for p in self.params
-                                 for t in p.values()]).all())
+        device and one readback (under a model axis, agreed over it)."""
+        ok = torch.stack([torch.isfinite(t).all()
+                          for p in self.params for t in p.values()]).all()
+        if self._mp > 1 and self.mesh.distributed("model"):
+            ok = self.mesh.all_reduce(ok.to(torch.int32), "model", "min")
+        return bool(ok)
 
     def _forward_eval(self, x):
+        """The forward of a global batch; under a mesh of this rank's
+        rows, gathered over the data axis."""
+        shard = self._shard(x.shape[0])
+        if shard is not None:
+            x = x[shard.lo:shard.hi]
         with torch.no_grad():
             y = forward(self.params, x, self.specs,
                         generator=self._gen if self._has_stochastic
-                        else None, compute_dtype=self.compute_dtype)
-            return y.to(self._out_tdtype)
+                        else None, compute_dtype=self.compute_dtype,
+                        shard=shard)
+            y = y.to(self._out_tdtype)
+        return y if shard is None else self.mesh.gather_rows(y)
 
     def predict(self, x):
         """The output of a batch (softmax, or the MSE objective's
@@ -1509,13 +1803,16 @@ class FusedNet:
             return probs, torch.argmax(probs, dim=1).to(torch.int32)
 
     def host_params(self):
-        return memory.host_fetch(self.params)
+        """The parameters as host arrays, one dict a layer; a layer split
+        over the model axis gathered whole (a collective there)."""
+        return memory.host_fetch(self._whole(self.params))
 
     # -- checkpoint / resume --------------------------------------------------
     def state_dict(self):
         """Parameters, optimizer slots, the generator's state and the
         live hypers as host values: resuming from it is exact."""
-        sd = train_state_to_numpy(self.params, self.state, self.hypers)
+        sd = train_state_to_numpy(self._whole(self.params),
+                                  self._whole(self.state), self.hypers)
         sd["key"] = self._gen.get_state().numpy()
         return sd
 
@@ -1545,8 +1842,10 @@ class FusedNet:
         """Restore :meth:`state_dict` output.  ``"key"`` is optional (a
         state carried over from the JAX package has none the port can
         use) and must be this port's generator state."""
-        self.params, self.state, hypers = train_state_from_numpy(
+        params, state, hypers = train_state_from_numpy(
             sd, self.device, self._tdtype)
+        self.params = self._local_rows(params)
+        self.state = self._local_rows(state)
         if hypers is not None:
             self.hypers = hypers
         key = sd.get("key")

@@ -43,8 +43,9 @@ graph), the plotters (``link_error_plotter``, ``link_weights_plotter``
 ``link_immediate_plotter``; each fires at an epoch's end),
 ``link_image_saver``, ``link_meandispnorm``, ``link_gd_diff_stats``,
 ``link_downloader``, ``link_ipython``, ``link_publisher`` (at the
-decision's ``complete``) and ``link_data_saver``.  A mesh is not in
-this slice of the port (``ROADMAP.md``).
+decision's ``complete``) and ``link_data_saver``.
+``link_fused_trainer`` takes the ``fused`` config's ``mesh`` (a rank
+count, or "hybrid") and ``model_parallel`` (JAX :84-95).
 """
 
 from znicz_tpu_torch.core.snapshotter import SnapshotterRegistry
@@ -105,11 +106,24 @@ class StandardWorkflow(StandardWorkflowBase):
 
     def link_fused_trainer(self, *parents):
         """The fused train-step unit from the ``layers`` config; the
-        ``fused`` config's keys are its keyword arguments."""
+        ``fused`` config's keys are its keyword arguments, but ``mesh``
+        (a rank count: a mesh over the ``torch.distributed`` world, or
+        "hybrid": its model axis inside one host) and
+        ``model_parallel`` (the model axis of either), which become
+        the trainer's mesh (JAX :84-95)."""
         cfg = dict(self.fused_config)
+        mesh = cfg.pop("mesh", None)
+        model_parallel = int(cfg.pop("model_parallel", 1))
+        if mesh == "hybrid":
+            from znicz_tpu_torch.parallel import multihost
+            mesh = multihost.make_hybrid_mesh(model_parallel=model_parallel)
+        elif isinstance(mesh, int):
+            from znicz_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(mesh, model_parallel=model_parallel)
         cfg.setdefault("loss", self.loss_function)
         self.fused_trainer = FusedForwardBackward(
-            self, name="fused_trainer", layers=self.layers, **cfg)
+            self, name="fused_trainer", layers=self.layers, mesh=mesh,
+            **cfg)
         self.fused_trainer.link_from(*parents)
         self.fused_trainer.link_attrs(
             self.loader, ("input", "minibatch_data"),

@@ -16,16 +16,27 @@ test their own units the way the framework tests its.
   give identical outputs (hidden state leaking between runs shows);
 * :func:`timeout` and :class:`AcceleratedTest`, a ``unittest`` base with
   the prng streams seeded as JAX's (:199-202), the comparisons as
-  methods and every ``test*`` method under the class ``TIMEOUT``.
-
-JAX's ``multi_device_mesh`` comes with the port's multi-GPU slice.
+  methods and every ``test*`` method under the class ``TIMEOUT``;
+* :func:`multi_device_mesh` (JAX :142-154) — the mesh the sharding
+  tests take, over the ranks of the current ``torch.distributed``
+  world (one process a device, where JAX forces virtual CPU devices);
+  a smaller world skips with the launch recipe;
+* :func:`run_gang` — a function run in ``n`` gloo ranks on the CPU,
+  each in a fresh process, under a hard timeout, the gang killed in a
+  ``finally`` whatever happens (JAX's ``_finish_gang``).
 """
 
+import datetime
 import functools
 import io
 import json
+import multiprocessing
 import os
+import queue as queue_mod
+import socket
 import threading
+import time
+import traceback
 import unittest
 import zipfile
 
@@ -173,6 +184,94 @@ def timeout(seconds):
             return result.get("value")
         return wrapper
     return deco
+
+
+def multi_device_mesh(n=8, model_parallel=1):
+    """An ``n``-rank mesh for sharding tests, over the current
+    ``torch.distributed`` world; raises ``unittest.SkipTest`` with the
+    launch recipe where the world has fewer ranks."""
+    from znicz_tpu_torch.parallel.mesh import make_mesh, world
+    if world()[1] < n:
+        raise unittest.SkipTest(
+            "need %d ranks; launch them with torchrun --nproc-per-node %d "
+            "(gloo under --device cpu) or run the test body through "
+            "znicz_tpu_torch.testing.run_gang(fn, %d)" % (n, n, n))
+    return make_mesh(n, model_parallel=model_parallel)
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gang_rank(fn, rank, n, port, timeout_s, args, results):
+    """One rank of :func:`run_gang`: a gloo world over localhost, then
+    ``fn(rank, *args)``, its value or its traceback put on
+    ``results``; the rank runs one thread at niceness 10."""
+    import torch
+    import torch.distributed as dist
+    # one thread a rank, at a lower priority: a gang of CPU ranks must
+    # not starve the processes beside it (a test run's other workers)
+    torch.set_num_threads(1)
+    os.nice(10)
+    dist.init_process_group(
+        "gloo", init_method="tcp://127.0.0.1:%d" % port, world_size=n,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        results.put((rank, True, fn(rank, *args)))
+    except BaseException:  # reported to the caller, which fails
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_gang(fn, n, args=(), timeout_s=120):
+    """``fn(rank, *args)`` in ``n`` ranks of a gloo world on the CPU, each
+    a fresh (spawned) process: returns their values by rank.  ``fn`` is
+    imported by its module's name there, and its values are pickled.
+    A collective waits at most ``timeout_s`` seconds and the gang has as
+    long to finish; a rank that raises, dies or runs past it fails the
+    call with the reason, and every process still alive is killed in a
+    ``finally``."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_gang_rank, daemon=True,
+                         args=(fn, r, n, port, timeout_s, tuple(args),
+                               results))
+             for r in range(n)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.start()
+        values = {}
+        while len(values) < n:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError("gang of %d ranks ran past %ss (%d "
+                                   "reported)" % (n, timeout_s, len(values)))
+            try:
+                rank, ok, value = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [(i, p.exitcode) for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in values]
+                if dead:
+                    raise RuntimeError("gang rank(s) died: %s" % dead)
+                continue
+            if not ok:
+                raise RuntimeError("gang rank %d failed:\n%s"
+                                   % (rank, value))
+            values[rank] = value
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        return [values[r] for r in range(n)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
 
 
 class AcceleratedTest(unittest.TestCase):

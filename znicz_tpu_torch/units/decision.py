@@ -2,7 +2,9 @@
 
 Counterpart of ``znicz_tpu/units/decision.py`` (``DecisionsRegistry``
 :38, ``DecisionBase`` :54, ``TrivialDecision`` :197, ``DecisionGD``
-:201-383, ``DecisionMSE`` :384-448) without the master-slave protocol.
+:201-383, ``DecisionMSE`` :384-448).  A slave's decision (``is_slave``)
+completes every minibatch and keeps its statistics for the master
+(JAX :80-83, :308-309).
 At each epoch's end ``train_improved`` takes ``train_improve_condition``
 (JAX :89), and each TRAIN segment's end calls ``on_training_finished``
 (JAX :104), the hooks through which ``KohonenDecision`` stops on its
@@ -85,7 +87,11 @@ class DecisionBase(Unit, metaclass=DecisionsRegistry):
         if self._epoch_timestamp is None:
             self._epoch_timestamp = time.time()
         self.on_run()
-        if self.last_minibatch:
+        if self.is_slave:
+            self.complete <<= True
+            self.on_last_minibatch()
+            self._print_statistics()
+        elif self.last_minibatch:
             self._on_last_minibatch()
 
     def _on_last_minibatch(self):
@@ -252,7 +258,8 @@ class DecisionGD(DecisionBase):
                 self.epoch_n_err[clazz],
                 self.epoch_n_evaluated_samples[clazz],
                 nvl(self.epoch_n_err_pt[clazz], 0.0)))
-        self.reset_statistics()
+        if not self.is_slave:
+            self.reset_statistics()
 
     def fill_snapshot_suffixes(self, suffixes):
         for clazz in (TEST, VALID, TRAIN):

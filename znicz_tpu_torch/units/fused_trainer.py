@@ -70,9 +70,15 @@ window probe splits each TRAIN window (and a single step) into data
 wait, host collection, dispatch, device and readback (JAX :537-539,
 :885-886); its wait after the dispatch drains the window pipeline.
 
-Not in this slice of the port (each raises, see ``ROADMAP.md``): the
-JAX trainer's other keys (:attr:`FusedForwardBackward.LATER_KEYS`: the
-mesh).
+``mesh`` (a :class:`znicz_tpu_torch.parallel.mesh.Mesh`; the workflow's
+``fused`` config takes a rank count or "hybrid" and ``model_parallel``,
+``StandardWorkflow.link_fused_trainer``) trains data-parallel over the
+ranks of a ``torch.distributed`` world, each running this trainer on
+the same loader stream: the net cuts its rows of every global
+minibatch, and the segment's readback folds the ranks' partials
+(:meth:`FusedNet.fold_shards`) before its one copy to the host.  The
+``trainer.data_shards`` and ``trainer.model_shards`` gauges carry the
+mesh's extents (JAX :396-403).
 """
 
 import collections
@@ -81,7 +87,7 @@ import copy
 import numpy
 import torch
 
-from znicz_tpu_torch.core import faults, health, prng, profiler
+from znicz_tpu_torch.core import faults, health, prng, profiler, telemetry
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.core.memory import Array
 from znicz_tpu_torch.core.mutable import Bool
@@ -89,8 +95,6 @@ from znicz_tpu_torch.core.units import Unit
 from znicz_tpu_torch.loader.base import (TRAIN, FullBatchLoader,
                                          FullBatchLoaderMSEMixin, Loader)
 from znicz_tpu_torch.parallel import fused
-
-_LATER = "not in this slice of the port (see ROADMAP.md)"
 
 #: ``window_stats`` of a mid-segment window: its stats ride the net's
 #: device accumulator until the segment-final readback; the evaluator
@@ -244,21 +248,15 @@ class FusedForwardBackward(Unit):
     that path cannot engage), ``async_windows`` (True: one readback a
     segment; False: one a window) and ``pipeline_depth`` (dispatched
     windows in flight before collection waits for the oldest; the
-    staging ring holds one more), as the JAX trainer takes them."""
-
-    #: the JAX trainer's keys this slice of the port leaves out
-    LATER_KEYS = ("mesh", "model_parallel")
+    staging ring holds one more) and ``mesh`` (None: one device), as
+    the JAX trainer takes them."""
 
     def __init__(self, workflow, layers, pool_impl=None, dtype=None,
                  compute_dtype=None, dropout_seed=0, window=None,
                  loss="softmax",
                  device_data="auto", device_perm="auto",
                  async_windows=True, pipeline_depth=2, defaults=None,
-                 rand=None, **kwargs):
-        later = sorted(set(kwargs) & set(self.LATER_KEYS))
-        if later:
-            raise NotImplementedError(
-                "fused %s %s" % (", ".join(later), _LATER))
+                 rand=None, mesh=None, **kwargs):
         if loss not in ("softmax", "mse"):
             raise ValueError("unknown fused loss %r" % (loss,))
         for key, value in (("device_data", device_data),
@@ -284,6 +282,7 @@ class FusedForwardBackward(Unit):
         self.device_perm = device_perm
         self.async_windows = bool(async_windows)
         self.pipeline_depth = int(pipeline_depth)
+        self.mesh = mesh
         #: the evaluator's ``mean``, mirrored into the net's softmax
         #: windows (``StandardWorkflow.link_evaluator`` sets it)
         self.stats_mean = True
@@ -391,7 +390,12 @@ class FusedForwardBackward(Unit):
             dtype=dtype, defaults=self.defaults,
             dropout_seed=self.dropout_seed, pool_impl=self.pool_impl,
             compute_dtype=self.compute_dtype, objective=self.loss,
-            device=device)
+            mesh=self.mesh, device=device)
+        if telemetry.enabled() and self.mesh is not None:
+            # the mesh's extents, read against the per-rank counters
+            telemetry.gauge("trainer.data_shards").set(self.net.data_shards)
+            telemetry.gauge("trainer.model_shards").set(
+                int(self.mesh.shape["model"]))
         self.net.stats_mean = bool(self.stats_mean)
         if self.loss == "mse":
             self.net.mse_root = bool(self.stats_root)
@@ -614,7 +618,9 @@ class FusedForwardBackward(Unit):
             fetch["output"] = stats["output"]
             fetch.update({"mse_per": stats["mse_per"]} if mse else
                          {"max_idx": stats["max_idx"]})
-        host = net.host_fetch(fetch)
+        host = net.host_fetch(net.fold_shards(fetch))
+        if telemetry.enabled():
+            telemetry.counter("trainer.readbacks").inc()
         if mse:
             self.window_stats = {"metrics": host["metrics"],
                                  "n_err": host["n_err"],

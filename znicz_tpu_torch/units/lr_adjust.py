@@ -160,6 +160,9 @@ class LearningRateAdjust(Unit):
         return float(policy(self._minibatches_count))
 
     def run(self):
+        if self.is_slave:
+            # a slave takes its rates from the master (JAX :157)
+            return
         if self.train_gate_loader is not None and \
                 int(self.train_gate_loader.minibatch_class) != TRAIN:
             return

@@ -29,7 +29,13 @@ Counterpart of ``znicz_tpu/units/nn_units.py``:
 ``StandardWorkflow.extract_forward_workflow`` hands a trained
 workflow's weights to its forward-only copy; a unit in
 ``forward_mode`` neither sends nor takes.  The GD units' master/slave
-gradient protocol waits for the multi-GPU item of ``ROADMAP.md``.
+gradient protocol (:457-500) is JAX's: a slave's units apply no update
+(``apply_gradient = not workflow.is_slave``) and send their velocity
+(``generate_data_for_master``), which the master folds into its
+weights (``apply_data_from_slave``); the master sends its rates
+(``generate_data_for_slave``), which a slave takes with zeroed
+gradients (``apply_data_from_master``).  Outside a standalone run the
+velocity Arrays always exist (:350-362).
 """
 
 import time
@@ -305,7 +311,10 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
         self.accumulated_gradient_bias = Array()
         self.gradient_weights_with_moment = Array()
         self.gradient_bias_with_moment = Array()
-        self.apply_gradient = kwargs.get("apply_gradient", True)
+        self.apply_gradient = kwargs.get(
+            "apply_gradient", not getattr(workflow, "is_slave", False))
+        #: set by each run, cleared when the velocity goes to the master
+        self.gradient_changed = False
         self.exports = ["gradient_weights_with_moment",
                         "gradient_bias_with_moment",
                         "accumulated_gradient_weights",
@@ -336,7 +345,8 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
                 grad.reset(zeros.copy())
             if self.accumulate_gradient and not acc:
                 acc.reset(zeros.copy())
-            if (moment or self.solvers) and not vel:
+            if (moment or not self.is_standalone or self.solvers) and \
+                    not vel:
                 vel.reset(zeros.copy())
         if self.need_err_input and not self.err_input:
             self.err_input.reset(numpy.zeros(self.input.shape,
@@ -412,8 +422,9 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
         nn_units.py:516-521), interval-gated inside.  The armed
         profiler's step breakdown splits the run into dispatch and
         device time (``profiler.note_gd_step``, a synchronize paid only
-        while armed): here, since the port's GD units' ``run`` does not
-        call a base ``run`` as the JAX units' does."""
+        while armed), and a run sets ``gradient_changed``: here, since
+        the port's GD units' ``run`` does not call a base ``run`` as the
+        JAX units' does."""
         runs = self.run_count_
         if profiler.enabled():
             t0 = time.perf_counter()
@@ -422,8 +433,59 @@ class GradientDescentBase(AcceleratedUnit, metaclass=MatchingObject):
                 profiler.note_gd_step(self, t0)
         else:
             super(GradientDescentBase, self)._fire()
-        if self.run_count_ != runs and health.enabled():
-            health.check_gd_unit(self)
+        if self.run_count_ != runs:
+            # JAX's GD run marks it (nn_units.py:500)
+            self.gradient_changed = True
+            if health.enabled():
+                health.check_gd_unit(self)
+
+    # -- the master-slave gradient protocol (JAX :457-500) ----------------
+    def generate_data_for_slave(self, slave=None):
+        return (self.learning_rate, self.weights_decay, self.gradient_moment,
+                self.learning_rate_bias, self.weights_decay_bias,
+                self.gradient_moment_bias)
+
+    @staticmethod
+    def fill_zeros(vector):
+        if not vector:
+            return
+        vector.map_invalidate()
+        vector.mem[:] = 0
+
+    def apply_data_from_master(self, data):
+        (self.learning_rate, self.weights_decay, self.gradient_moment,
+         self.learning_rate_bias, self.weights_decay_bias,
+         self.gradient_moment_bias) = data
+        for v in (self.gradient_weights_with_moment,
+                  self.gradient_bias_with_moment,
+                  self.gradient_weights, self.gradient_bias,
+                  self.accumulated_gradient_weights,
+                  self.accumulated_gradient_bias):
+            self.fill_zeros(v)
+        self._solver_state = {}
+
+    def generate_data_for_master(self):
+        if not self.gradient_changed:
+            return None
+        self.gradient_changed = False
+        return (numpy.array(self.gradient_weights_with_moment.mem)
+                if self.gradient_weights_with_moment else None,
+                numpy.array(self.gradient_bias_with_moment.mem)
+                if self.gradient_bias_with_moment else None)
+
+    def apply_data_from_slave(self, data, slave=None):
+        if self.weights and data[0] is not None:
+            self.weights.map_write()
+            self.gradient_weights_with_moment.map_write()
+            self.gradient_weights_with_moment.mem *= self.gradient_moment
+            self.gradient_weights_with_moment.mem += data[0]
+            self.weights.mem += self.gradient_weights_with_moment.mem
+        if self.bias and data[1] is not None:
+            self.bias.map_write()
+            self.gradient_bias_with_moment.map_write()
+            self.gradient_bias_with_moment.mem *= self.gradient_moment_bias
+            self.gradient_bias_with_moment.mem += data[1]
+            self.bias.mem += self.gradient_bias_with_moment.mem
 
     def set_err_input(self, err_in):
         """``err_input = alpha * err_in (+ beta * err_input)``."""
