@@ -126,8 +126,8 @@ GATED_MODULES = {
     },
     "znicz_tpu_torch/core/telemetry.py": {
         "gates": ("enabled", "journal_enabled", "_get_metric"),
-        "required": ("instant", "record_event", "counter", "gauge",
-                     "histogram"),
+        "required": ("span", "instant", "record_event", "counter",
+                     "gauge", "histogram"),
     },
     "znicz_tpu_torch/analysis/locksmith.py": {
         "gates": ("enabled",),

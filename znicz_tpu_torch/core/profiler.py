@@ -40,9 +40,11 @@ Plus the device trace: ``torch.profiler`` over the CPU and the card
 (:func:`traced`, the one capture, taken by ``GET /debug/profile``
 through :func:`capture_trace`, by the ``profile`` CLI over a whole run
 and by ``Workflow.run_profiled``), exported as a Chrome trace and
-reduced to a table of device time by kernel name and coarse category
-(:func:`device_table`, the counterpart of ``tools/profile_summary.py``'s
-trace-directory mode, which reads XLA's planes only).  One capture runs
+reduced to a table of device time by kernel name, by coarse category
+and by the fused trainer's spans, matched to their launch calls by
+correlation id (:func:`device_table`, the counterpart of
+``tools/profile_summary.py``'s trace-directory mode, which reads XLA's
+planes only).  One capture runs
 at a time (a second raises ``RuntimeError``; HTTP answers 409), and a
 capture on the card that records no device event raises
 :class:`EmptyDeviceTrace` instead of passing off a CPU-only trace.
@@ -61,6 +63,7 @@ profiler state (``_state`` stays None).  The report (:func:`snapshot`,
 ``tools/profile_summary.py --roofline`` and ``--ledger`` render it.
 """
 
+import bisect
 import collections
 import contextlib
 import json
@@ -708,14 +711,92 @@ def categorize(name):
     return "other"
 
 
-def device_table(trace_path, top=None):
-    """Device time of a Chrome trace that ``torch.profiler`` wrote, by
-    kernel name and by :func:`categorize`'s category: ``{"events",
-    "total_ms", "by_name": [{"name", "category", "count", "ms"}, ...]
-    (longest first), "by_category": {category: ms}}``."""
+def _trace_events(trace_path):
+    """The events of a Chrome trace file."""
     with open(trace_path) as f:
         doc = json.load(f)
-    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    return doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+
+
+#: the trace categories of a launch call on the host
+_LAUNCH_API_CATS = frozenset(("cuda_runtime", "cuda_driver"))
+#: the name prefix of the fused trainer's spans
+#: (:mod:`znicz_tpu_torch.parallel.fused`)
+SPAN_PREFIX = "fused."
+
+
+class _Launches(object):
+    """The launch calls of a Chrome trace (the runtime and driver API
+    events that carry a correlation id), by start, and the device events
+    each issued, matched by that id."""
+
+    def __init__(self, events):
+        calls = []
+        self.issued = collections.defaultdict(list)
+        for ev in events:
+            if ev.get("ph") != "X":
+                continue
+            cat = ev.get("cat")
+            corr = (ev.get("args") or {}).get("correlation")
+            if corr is None:
+                continue
+            if cat in _LAUNCH_API_CATS:
+                calls.append(ev)
+            elif cat in _DEVICE_CATS:
+                self.issued[corr].append(ev)
+        calls.sort(key=lambda c: float(c.get("ts", 0.0)))
+        self.calls = calls
+        self._starts = [float(c.get("ts", 0.0)) for c in calls]
+
+    def calls_in(self, span, same_thread=False):
+        """The launch calls that start inside ``span`` (a trace event),
+        those of its thread alone with ``same_thread``."""
+        t0 = float(span.get("ts", 0.0))
+        t1 = t0 + float(span.get("dur", 0.0))
+        calls = self.calls[bisect.bisect_left(self._starts, t0):
+                           bisect.bisect_right(self._starts, t1)]
+        if same_thread:
+            calls = [c for c in calls if c.get("tid") == span.get("tid")]
+        return calls
+
+    def issued_by(self, call):
+        return self.issued.get(call["args"]["correlation"], [])
+
+
+def _by_span(events, launches):
+    """Device ms and event count by the innermost ``fused.*`` span
+    whose time holds the launch call that issued the event: ``{name:
+    {"count", "ms"}}``, longest first.  Innermost by time, on any
+    thread: autograd's backward launches from a thread of its own."""
+    spans = sorted((ev for ev in events if ev.get("ph") == "X" and
+                    ev.get("cat") == "cpu_op" and
+                    str(ev.get("name", "")).startswith(SPAN_PREFIX)),
+                   key=lambda ev: float(ev.get("ts", 0.0)))
+    owner = {}
+    for span in spans:   # by start: a nested span overwrites its parent
+        for call in launches.calls_in(span):
+            owner[id(call)] = span["name"]
+    rows = collections.defaultdict(lambda: [0, 0.0])
+    for call in launches.calls:
+        name = owner.get(id(call))
+        if name is None:
+            continue
+        for ev in launches.issued_by(call):
+            rows[name][0] += 1
+            rows[name][1] += float(ev.get("dur", 0.0)) / 1e3
+    return {name: {"count": c, "ms": round(ms, 6)} for name, (c, ms) in
+            sorted(rows.items(), key=lambda kv: -kv[1][1])}
+
+
+def device_table(trace_path, top=None):
+    """Device time of a Chrome trace that ``torch.profiler`` wrote, by
+    kernel name, by :func:`categorize`'s category and by the fused
+    trainer's spans: ``{"events", "total_ms", "by_name": [{"name",
+    "category", "count", "ms"}, ...] (longest first), "by_category":
+    {category: ms}, "by_span": {span: {"count", "ms"}}}``, a device
+    event counted under the innermost ``fused.*`` span that holds its
+    launch call (:func:`_by_span`)."""
+    events = _trace_events(trace_path)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     n = 0
     for ev in events:
@@ -736,7 +817,8 @@ def device_table(trace_path, top=None):
             "total_ms": round(sum(r["ms"] for r in rows), 6),
             "by_name": rows if top is None else rows[:top],
             "by_category": {k: round(v, 6) for k, v in
-                            sorted(by_cat.items(), key=lambda kv: -kv[1])}}
+                            sorted(by_cat.items(), key=lambda kv: -kv[1])},
+            "by_span": _by_span(events, _Launches(events))}
 
 
 #: the launch log while :func:`launch_log` is armed, else None
@@ -776,10 +858,6 @@ def launch_range(kernel, stream):
         "%s%s:%d" % (LAUNCH_PREFIX, kernel, index))
 
 
-#: the trace categories of a launch call on the host
-_LAUNCH_API_CATS = frozenset(("cuda_runtime", "cuda_driver"))
-
-
 def unmatched_launches(trace_path, log):
     """The entries of ``log`` (:func:`launch_log`'s) whose kernel record
     the Chrome trace at ``trace_path`` lacks, each with ``why``: the
@@ -787,23 +865,17 @@ def unmatched_launches(trace_path, log):
     event carries, or the trace holds no launch call inside it (then a
     kernel event carrying the annotation's ``External id`` still
     counts as its record)."""
-    with open(trace_path) as f:
-        doc = json.load(f)
-    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
-    spans, calls = {}, []
-    kernel_corr, kernel_ext = set(), set()
+    events = _trace_events(trace_path)
+    launches = _Launches(events)
+    spans, kernel_ext = {}, set()
     for ev in events:
         if ev.get("ph") != "X":
             continue
         cat, name = ev.get("cat"), str(ev.get("name", ""))
         args = ev.get("args") or {}
         if cat == "kernel":
-            if args.get("correlation") is not None:
-                kernel_corr.add(args["correlation"])
             if args.get("External id") is not None:
                 kernel_ext.add(args["External id"])
-        elif cat in _LAUNCH_API_CATS:
-            calls.append(ev)
         elif name.startswith(LAUNCH_PREFIX) and cat != "gpu_user_annotation":
             try:
                 index = int(name.rsplit(":", 1)[1])
@@ -816,17 +888,14 @@ def unmatched_launches(trace_path, log):
         if span is None:
             missing.append(dict(entry, why="no annotation in the trace"))
             continue
-        t0 = float(span.get("ts", 0.0))
-        t1 = t0 + float(span.get("dur", 0.0))
-        corr = [c["args"]["correlation"] for c in calls
-                if c.get("tid") == span.get("tid")
-                and t0 <= float(c.get("ts", 0.0)) <= t1
-                and (c.get("args") or {}).get("correlation") is not None]
+        calls = launches.calls_in(span, same_thread=True)
         ext = (span.get("args") or {}).get("External id")
-        if corr:
-            if not any(c in kernel_corr for c in corr):
-                missing.append(dict(entry, why="launch call correlation %s "
-                                    "has no kernel event" % corr))
+        if calls:
+            if not any(ev.get("cat") == "kernel" for c in calls
+                       for ev in launches.issued_by(c)):
+                missing.append(dict(
+                    entry, why="launch call correlation %s has no kernel "
+                    "event" % [c["args"]["correlation"] for c in calls]))
         elif ext is None or ext not in kernel_ext:
             missing.append(dict(entry, why="no launch call and no kernel "
                                 "event linked to the annotation"))
@@ -884,7 +953,8 @@ def traced(directory, cuda=None):
 
 def capture_trace(seconds=3.0, directory=None):
     """Capture a device trace for ``seconds`` and return ``{"trace_dir",
-    "trace", "seconds", "files", "device_events"}``.  Works whether or
+    "trace", "seconds", "files", "device_events", "by_span"}`` (the
+    device table's, :func:`device_table`).  Works whether or
     not the profiler flag is armed (the request is the opt-in).  One
     small op on the device (and a synchronize) runs inside the window,
     so the trace holds at least one device event."""
@@ -917,7 +987,8 @@ def capture_trace(seconds=3.0, directory=None):
                 seconds, path, len(files))
     return {"trace_dir": path, "trace": result["trace"],
             "seconds": seconds, "files": files,
-            "device_events": result["device_ops"]["events"]}
+            "device_events": result["device_ops"]["events"],
+            "by_span": result["device_ops"]["by_span"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1047,4 +1118,7 @@ def cli_main(argv=None):
         print("  %10.3f ms %7d  %-14s %s"  # noqa: T201
               % (row["ms"], row["count"], row["category"],
                  row["name"][:80]))
+    for name, row in ops["by_span"].items():
+        print("  %10.3f ms %7d  span %s"  # noqa: T201
+              % (row["ms"], row["count"], name))
     return 0

@@ -29,12 +29,31 @@ health monitor's ``halt`` policy call it, and
 SIGTERM.
 
 Request traces live in :mod:`znicz_tpu_torch.serving.reqtrace` (the
-``/debug/trace`` endpoint of the servers and the fleet router); the
-JAX package's generic spans have no counterpart here, its zero-length
-markers do: :func:`instant` (JAX :198) records one into a bounded ring
-(:data:`TRACE_CAPACITY` events), read as
-Chrome-trace events by :func:`trace_events`, whose ``pid`` is the
-process's rank in the ``torch.distributed`` world (JAX :206-216).
+``/debug/trace`` endpoint of the servers and the fleet router).  The
+span tracer is JAX's (:166-195): ``with telemetry.span("name",
+**attrs):`` nests and records a complete ("X") event, and
+:func:`instant` (JAX :198) a zero-length marker, into one bounded ring
+(:data:`TRACE_CAPACITY` events), read as Chrome-trace events by
+:func:`trace_events`, whose ``pid`` is the process's rank in the
+``torch.distributed`` world (JAX :206-216).  Unlike JAX's, which
+stamps ``perf_counter``, the ring stamps ``time.time_ns()``, the clock
+of ``torch.profiler``'s events, and a span records more:
+
+* it is armed while telemetry is on or a ``torch.profiler`` capture
+  runs (the capture is an opt-in, as ``GET /debug/profile`` takes it);
+  under a capture it is also a host range of the Kineto trace (a
+  function-scope ``cpu_op``, with no copy on the card's timeline), so
+  it sits in the trace beside the device's records;
+* a span of work on the card (``device=True``) records a CUDA event
+  pair on the current stream, read by ``query()`` when the outermost
+  span closes (no wait; at most :data:`PENDING_CAPACITY` pairs
+  pending) and on read;
+* :func:`span_totals` gives each name's count, host seconds and
+  device seconds since :func:`reset`.
+
+Off, a span is one config read, one flag read and the shared no-op.
+The fused trainer's spans are listed in
+:mod:`znicz_tpu_torch.parallel.fused`.
 :func:`merged_snapshot` (JAX :665-677) is :func:`snapshot`, reduced
 over the world's ranks when it has more than one
 (:func:`znicz_tpu_torch.parallel.multihost.aggregate_telemetry`).
@@ -59,6 +78,9 @@ import os
 import re
 import threading
 import time
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from znicz_tpu_torch.analysis import locksmith
 from znicz_tpu_torch.core.config import root
@@ -306,10 +328,13 @@ def prometheus_text():
 
 
 def reset():
-    """Drop every metric and the journal (tests: one test's events must
-    not reach the next one's crash report)."""
+    """Drop every metric, the span totals, the ring and the journal
+    (tests: one test's events must not reach the next one's crash
+    report)."""
     with _lock:
         _metrics.clear()
+        _totals.clear()
+        _pending.clear()
     _journal.clear()
     _trace.clear()
 
@@ -471,24 +496,184 @@ TRACE_CAPACITY = 65536
 _trace = _Ring(TRACE_CAPACITY)
 
 
+class _NullSpan(object):
+    """The shared no-op context of a span that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+#: each thread's stack of open span names (the ``parent`` of the next)
+_open = threading.local()
+#: ``{name: [count, host_ns, device_ms or None]}`` of the spans closed
+#: while armed, under the registry lock
+_totals = {}
+#: device spans whose CUDA event pair has not been read:
+#: ``(name, start, end)``, oldest first, under the registry lock
+_pending = collections.deque()
+#: the most pending pairs; past it the oldest is waited for
+PENDING_CAPACITY = 4096
+
+
+class _Span(object):
+    """A live span: a host range in the trace while a capture runs, a
+    CUDA event pair on the current stream when timed on the card, and
+    on exit its totals and, while telemetry is on, one Chrome-trace
+    complete ("X") event in the ring.  Exceptions propagate; the span
+    still closes."""
+
+    __slots__ = ("name", "args", "device", "parent", "t0", "range",
+                 "start")
+
+    def __init__(self, name, args, device):
+        self.name = name
+        self.args = args or None
+        self.device = device
+        self.parent = self.range = self.start = None
+        self.t0 = 0
+
+    def __enter__(self):
+        stack = getattr(_open, "names", None)
+        if stack is None:
+            stack = _open.names = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = torch._C._profiler._RecordFunctionFast(self.name)
+            self.range.__enter__()
+        if self.device:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.time_ns()
+        end = None
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        stack = _open.names
+        stack.pop()
+        if enabled():
+            _trace.append(("X", self.name, self.t0, t1 - self.t0,
+                           threading.get_ident(), self.args, self.parent))
+        _book(self.name, t1 - self.t0, self.start, end)
+        if not stack:
+            _resolve()
+        return False
+
+
+def span(name, *, device=False, **attrs):
+    """``with telemetry.span("fused.step", device=True):`` — a nestable
+    region, armed while telemetry is on or a ``torch.profiler`` capture
+    runs (the capture is the opt-in, as ``GET /debug/profile`` takes
+    it).  Armed, it is a range of the trace under a capture, books its
+    count and host time into :func:`span_totals`, and records an "X"
+    event with ``attrs`` and the enclosing span's name as ``parent``
+    while telemetry is on.  The range is a function-scope ``cpu_op``,
+    on the host alone: ``record_function``'s user scope also puts a
+    copy of the range on the card's timeline, which a reader of device
+    time counts as work where the trace's events carry no activity type
+    (torch 2.11).
+    ``device`` says the region's work runs on the CUDA card: armed, a
+    CUDA event pair on the current stream times it there.  Otherwise
+    the shared no-op: one config read and one flag read."""
+    if not (enabled() or _autograd_profiler._is_profiler_enabled):
+        return _NULL_SPAN
+    return _Span(name, attrs, device)
+
+
+def _book(name, host_ns, start, end):
+    with _lock:
+        row = _totals.get(name)
+        if row is None:
+            row = _totals[name] = [0, 0, None]
+        row[0] += 1
+        row[1] += host_ns
+        if start is None:
+            return
+        if row[2] is None:
+            row[2] = 0.0
+        _pending.append((name, start, end))
+        if len(_pending) > PENDING_CAPACITY:
+            _resolve_locked()
+        if len(_pending) > PENDING_CAPACITY:
+            _resolve_locked(wait=1)
+
+
+def _resolve_locked(wait=0):
+    """Read the device times of the pending pairs the card has passed,
+    oldest first, waiting for the first ``wait`` of them.  A pair's two
+    events are on one stream, the one current where its ``with`` block
+    opens and closes, so its end passed means its start has."""
+    while _pending:
+        name, start, end = _pending[0]
+        if wait > 0:
+            end.synchronize()
+            wait -= 1
+        elif not end.query():
+            return
+        _pending.popleft()
+        row = _totals.get(name)
+        if row is not None:
+            row[2] += start.elapsed_time(end)
+
+
+def _resolve():
+    """Read the pairs the card has passed (``query()``, never a
+    wait)."""
+    with _lock:
+        _resolve_locked()
+
+
+def span_totals():
+    """``{name: {"count", "host_s", "device_s"}}`` of the spans closed
+    while armed since the last :func:`reset`; ``device_s`` is None for
+    a span not timed on the card.  The read waits until the card has
+    passed every pending event pair."""
+    with _lock:
+        _resolve_locked(wait=len(_pending))
+        return {name: {"count": c, "host_s": ns / 1e9,
+                       "device_s": None if ms is None else ms / 1e3}
+                for name, (c, ns, ms) in _totals.items()}
+
+
 def instant(name, **attrs):
     """A zero-length marker (an epoch's end, a release step), recorded
     while telemetry is on."""
     if not enabled():
         return
-    _trace.append(("i", name, (time.perf_counter() - _T0) * 1e6, 0.0,
-                   threading.get_ident(), attrs or None))
+    _trace.append(("i", name, time.time_ns(), 0,
+                   threading.get_ident(), attrs or None, None))
 
 
 def trace_events():
-    """The recorded markers as Chrome-trace events, ``pid`` the
-    process's rank in the ``torch.distributed`` world."""
+    """The recorded spans and markers as Chrome-trace events, ``ts``
+    and ``dur`` in microseconds on the wall clock that
+    ``torch.profiler`` stamps its events with, ``pid`` the process's
+    rank in the ``torch.distributed`` world; a nested span names its
+    enclosing one as ``parent``."""
     from znicz_tpu_torch.parallel.mesh import world
     pid = world()[0]
     out = []
-    for ph, name, ts, _, tid, args in _trace.events():
-        ev = {"name": name, "ph": ph, "ts": round(ts, 3), "pid": pid,
-              "tid": tid, "cat": "znicz", "s": "t"}
+    for ph, name, ts, dur, tid, args, parent in _trace.events():
+        ev = {"name": name, "ph": ph, "ts": round(ts / 1e3, 3),
+              "pid": pid, "tid": tid, "cat": "znicz"}
+        if ph == "X":
+            ev["dur"] = round(dur / 1e3, 3)
+        else:
+            ev["s"] = "t"
+        if parent is not None:
+            ev["parent"] = parent
         if args:
             ev["args"] = args
         out.append(ev)

@@ -85,6 +85,28 @@ What maps to what:
   rank keeping its rows.  Unlike JAX, which leaves its Pallas forward
   off under a mesh (JAX :1026-1029), the pooling kernels run on every
   rank's rows: a rank's share is an ordinary single-device batch.
+
+The spans (:func:`znicz_tpu_torch.core.telemetry.span`, armed while
+telemetry is on or a ``torch.profiler`` capture runs), one fixed
+vocabulary, each booked in ``telemetry.span_totals()``; those marked
+"card" are also timed on the card by CUDA events when the net is
+there:
+
+* ``fused.window`` (``form``, ``steps``): a window, the fused
+  trainer's included (JAX's trainer span ``fused.window`` covers
+  them);
+* ``fused.step`` (card): one step of a window, or :meth:`FusedNet.step`
+  / :meth:`FusedNet.step_mse`;
+* ``fused.fetch``: a window step's rows and labels;
+* ``fused.forward``, ``fused.backward``, ``fused.update`` (card): the
+  parts of a step, at the boundaries of ``mark``'s "forward",
+  "backward" and "update" (:func:`_grad_step`); a mesh's all-reduce
+  falls inside ``fused.backward``;
+* ``fused.stats``: the evaluator's statistics of a window step and the
+  fold into the epoch accumulator;
+* ``fused.epoch_perm``: :meth:`FusedNet.set_epoch_perm`;
+* ``fused.readback``: :meth:`FusedNet.host_fetch`, the accumulator's
+  readback at each epoch turn.
 """
 
 import contextlib
@@ -895,45 +917,52 @@ def _apply_weight_masks(params, specs):
 
 
 def _grad_step(params, state, specs, hypers, loss_fn, mark=None,
-               sync=None):
+               sync=None, on_card=False):
     """``(new_params, new_state, loss, aux)``: the gradient of
     ``loss_fn(params) -> (loss, aux)`` and every layer's update.
     ``mark``, when given, is called with "forward", "backward" and
     "update" as each part has been enqueued.  ``sync(grads, loss, aux)
     -> (grads, loss, aux)``, under a mesh, sums them over the data
-    axis before the update."""
-    with torch.no_grad():
-        params = _apply_weight_masks(params, specs)
-    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
-              for p in params]
-    with torch.enable_grad():
-        loss, aux = loss_fn(leaves)
-        if mark is not None:
-            mark("forward")
+    axis before the update.  ``on_card`` times the spans
+    ``fused.forward``, ``fused.backward`` and ``fused.update`` on the
+    card."""
+    with telemetry.span("fused.forward", device=on_card):
+        with torch.no_grad():
+            params = _apply_weight_masks(params, specs)
+        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+                  for p in params]
+        with torch.enable_grad():
+            loss, aux = loss_fn(leaves)
+    if mark is not None:
+        mark("forward")
+    with telemetry.span("fused.backward", device=on_card):
         flat = [v for p in leaves for v in p.values()]
-        grads = torch.autograd.grad(loss, flat)
-    loss = loss.detach()
-    if sync is not None:
-        grads, loss, aux = sync(grads, loss, aux)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss, flat)
+        loss = loss.detach()
+        if sync is not None:
+            grads, loss, aux = sync(grads, loss, aux)
     grads = iter(grads)
     if mark is not None:
         mark("backward")
     if hypers is None:
         hypers = [None] * len(params)
     new_params, new_state = [], []
-    for spec, p, st, hy in zip(specs, params, state, hypers):
-        np_, nst = {}, {}
-        for name in p:   # "w" then "b", the order of ``flat``
-            g = next(grads)
-            if name == "w":
-                hyper, flags = hy["w"] if hy else spec.hyper, spec.flags
-            else:
-                hyper = hy["b"] if hy else spec.hyper_bias
-                flags = dict(spec.flags, ortho=False)
-            np_[name], nst[name], _ = gd_math.update(
-                p[name], g.to(p[name].dtype), st[name], hyper, flags)
-        new_params.append(np_)
-        new_state.append(nst)
+    with telemetry.span("fused.update", device=on_card):
+        for spec, p, st, hy in zip(specs, params, state, hypers):
+            np_, nst = {}, {}
+            for name in p:   # "w" then "b", the order of ``flat``
+                g = next(grads)
+                if name == "w":
+                    hyper = hy["w"] if hy else spec.hyper
+                    flags = spec.flags
+                else:
+                    hyper = hy["b"] if hy else spec.hyper_bias
+                    flags = dict(spec.flags, ortho=False)
+                np_[name], nst[name], _ = gd_math.update(
+                    p[name], g.to(p[name].dtype), st[name], hyper, flags)
+            new_params.append(np_)
+            new_state.append(nst)
     if mark is not None:
         mark("update")
     return new_params, new_state, loss, aux
@@ -998,7 +1027,8 @@ def _train_step(params, state, x, labels, specs, generator=None,
     new_params, new_state, loss, (n_err, probs, max_idx) = _grad_step(
         params, state, specs, hypers,
         lambda p: _loss_and_stats(p, x, labels, specs, generator,
-                                  compute_dtype, **on_mesh), mark, sync)
+                                  compute_dtype, **on_mesh), mark, sync,
+        x.is_cuda)
     metrics = {"loss": loss, "n_err": n_err}
     if with_output:
         metrics["output"] = probs
@@ -1023,7 +1053,7 @@ def _train_step_mse(params, state, x, target, batch_size, specs,
         lambda p: _loss_mse(p, x, target, batch_size, specs, generator,
                             compute_dtype, **({} if shard is None
                                               else {"shard": shard})),
-        mark, sync)
+        mark, sync, x.is_cuda)
     return new_params, new_state, {"loss": loss, "output": y.detach()}
 
 
@@ -1133,6 +1163,8 @@ class FusedNet:
                                  "%d" % (device, mesh.device, mesh.rank))
             device = mesh.device
         self.device = default_device(device)
+        #: whether the spans of the steps are timed on the card
+        self._on_card = self.device.type == "cuda"
         self.mesh = mesh
         #: the mesh's data and model extents (1 and 1 without one)
         self._dp = mesh_mod.data_parallel_size(mesh)
@@ -1347,7 +1379,8 @@ class FusedNet:
                                 else (shard.lo, shard.hi))
         labels, n_valid = _rank_labels(labels, shard)
         with self._cost("fused.step", 1, batch) \
-                if profiler.enabled() else _UNCOUNTED:
+                if profiler.enabled() else _UNCOUNTED, \
+                telemetry.span("fused.step", device=self._on_card):
             self.params, self.state, metrics = _train_step(
                 self.params, self.state, x, labels, self.specs, self._gen,
                 self.hypers if hypers is None else hypers, with_output=True,
@@ -1366,7 +1399,8 @@ class FusedNet:
         x, _ = self._batch(x, rows=rows)
         t = self._batch(target, rows=rows)[0]
         with self._cost("fused.step_mse", 1, batch) \
-                if profiler.enabled() else _UNCOUNTED:
+                if profiler.enabled() else _UNCOUNTED, \
+                telemetry.span("fused.step", device=self._on_card):
             self.params, self.state, metrics = _train_step_mse(
                 self.params, self.state, x, t,
                 batch if batch_size is None else int(batch_size),
@@ -1423,17 +1457,18 @@ class FusedNet:
         range."""
         if not self.has_dataset:
             raise RuntimeError("set_dataset() before set_epoch_perm")
-        p = torch.as_tensor(numpy.array(perm, dtype=numpy.int64)).to(
-            self.device)
 
         def permuted(arr, fill):
             rows = arr.index_select(0, p)
             return torch.cat([rows, rows.new_full(
                 (int(pad),) + tuple(rows.shape[1:]), fill)])
-        self._data_p = permuted(self._data_d, 0)
-        self._labels_p = permuted(self._labels_d, -1)
-        self._targets_p = None if self._targets_d is None else \
-            permuted(self._targets_d, 0)
+        with telemetry.span("fused.epoch_perm"):
+            p = torch.as_tensor(numpy.array(perm, dtype=numpy.int64)).to(
+                self.device)
+            self._data_p = permuted(self._data_d, 0)
+            self._labels_p = permuted(self._labels_d, -1)
+            self._targets_p = None if self._targets_d is None else \
+                permuted(self._targets_d, 0)
 
     @property
     def has_epoch_perm(self):
@@ -1449,7 +1484,8 @@ class FusedNet:
         the window in the cost registry (``fused.window.<form>.k<K>``)."""
         self._need("softmax", "a softmax window")
         with self._cost("fused.window.%s.k%d" % (form, n_steps), n_steps,
-                        batch) if profiler.enabled() else _UNCOUNTED:
+                        batch) if profiler.enabled() else _UNCOUNTED, \
+                telemetry.span("fused.window", form=form, steps=n_steps):
             return self._window_steps(n_steps, batch, fetch, batch_sizes,
                                       hypers_s)
 
@@ -1468,25 +1504,29 @@ class FusedNet:
         losses = []
         m = None
         for k in range(n_steps):
-            x, lbl = fetch(k)
-            bs = int(sizes[k])
-            lbl = torch.where(rows < bs, lbl, -1)
-            lbl, n_valid = _rank_labels(lbl, shard)
-            hy = _hypers_at(hypers_s, k)
-            self.params, self.state, m = _train_step(
-                self.params, self.state, x, lbl, self.specs, self._gen, hy,
-                with_output=True, compute_dtype=self.compute_dtype,
-                shard=shard, n_valid=n_valid)
-            d_nerr, d_conf, d_mx = evaluator.eval_stats(
-                m["output"], m["max_idx"], lbl, bs, n_classes,
-                mean=self.stats_mean)
-            nerr, conf = nerr + d_nerr, conf + d_conf
-            mx = torch.maximum(mx, d_mx)
+            with telemetry.span("fused.step", device=self._on_card):
+                with telemetry.span("fused.fetch"):
+                    x, lbl = fetch(k)
+                    bs = int(sizes[k])
+                    lbl = torch.where(rows < bs, lbl, -1)
+                    lbl, n_valid = _rank_labels(lbl, shard)
+                hy = _hypers_at(hypers_s, k)
+                self.params, self.state, m = _train_step(
+                    self.params, self.state, x, lbl, self.specs, self._gen,
+                    hy, with_output=True, compute_dtype=self.compute_dtype,
+                    shard=shard, n_valid=n_valid)
+                with telemetry.span("fused.stats"):
+                    d_nerr, d_conf, d_mx = evaluator.eval_stats(
+                        m["output"], m["max_idx"], lbl, bs, n_classes,
+                        mean=self.stats_mean)
+                    nerr, conf = nerr + d_nerr, conf + d_conf
+                    mx = torch.maximum(mx, d_mx)
             losses.append(m["loss"])
-        acc = self._window_acc()
-        acc = {"n_err": acc["n_err"] + nerr,
-               "confusion": acc["confusion"] + conf,
-               "max_err_sum": torch.maximum(acc["max_err_sum"], mx)}
+        with telemetry.span("fused.stats"):
+            acc = self._window_acc()
+            acc = {"n_err": acc["n_err"] + nerr,
+                   "confusion": acc["confusion"] + conf,
+                   "max_err_sum": torch.maximum(acc["max_err_sum"], mx)}
         self._win_acc = acc
         return {"loss": torch.stack(losses), "n_err": nerr,
                 "confusion": conf, "max_err_sum": mx,
@@ -1575,7 +1615,8 @@ class FusedNet:
         back.  ``form`` names the window in the cost registry."""
         self._need("mse", "an MSE window")
         with self._cost("fused.window.%s.k%d" % (form, n_steps), n_steps,
-                        batch) if profiler.enabled() else _UNCOUNTED:
+                        batch) if profiler.enabled() else _UNCOUNTED, \
+                telemetry.span("fused.window", form=form, steps=n_steps):
             return self._window_steps_mse(n_steps, batch, fetch,
                                           batch_sizes, hypers_s)
 
@@ -1595,30 +1636,36 @@ class FusedNet:
         losses = []
         m = mse_per = None
         for k in range(n_steps):
-            x, lbl, t = fetch(k)
-            bs = int(sizes[k])
-            # the rows of this rank's part that are in the batch
-            bs_local = min(max(bs - lo, 0), hi - lo)
-            self.params, self.state, m = _train_step_mse(
-                self.params, self.state, x, t, bs, self.specs, self._gen,
-                _hypers_at(hypers_s, k), compute_dtype=self.compute_dtype,
-                shard=shard)
-            _, md, mse_per = evaluator.mse(m["output"],
-                                           t.to(self._out_tdtype), bs_local,
-                                           root=root)
-            msum = msum + md[0]
-            mmax = torch.maximum(mmax, md[1])
-            mmin = torch.minimum(mmin, md[2])
-            if ct is not None:
-                nerr = nerr + evaluator.nearest_target_errors(
-                    m["output"], ct, torch.where(rows < bs, lbl, -1)[lo:hi],
-                    bs_local)
+            with telemetry.span("fused.step", device=self._on_card):
+                with telemetry.span("fused.fetch"):
+                    x, lbl, t = fetch(k)
+                bs = int(sizes[k])
+                # the rows of this rank's part that are in the batch
+                bs_local = min(max(bs - lo, 0), hi - lo)
+                self.params, self.state, m = _train_step_mse(
+                    self.params, self.state, x, t, bs, self.specs,
+                    self._gen, _hypers_at(hypers_s, k),
+                    compute_dtype=self.compute_dtype, shard=shard)
+                with telemetry.span("fused.stats"):
+                    _, md, mse_per = evaluator.mse(
+                        m["output"], t.to(self._out_tdtype), bs_local,
+                        root=root)
+                    msum = msum + md[0]
+                    mmax = torch.maximum(mmax, md[1])
+                    mmin = torch.minimum(mmin, md[2])
+                    if ct is not None:
+                        nerr = nerr + evaluator.nearest_target_errors(
+                            m["output"], ct,
+                            torch.where(rows < bs, lbl, -1)[lo:hi],
+                            bs_local)
             losses.append(m["loss"])
-        acc = self._window_acc()
-        acc = {"metrics": torch.stack([
-            acc["metrics"][0] + msum, torch.maximum(acc["metrics"][1], mmax),
-            torch.minimum(acc["metrics"][2], mmin)]),
-            "n_err": acc["n_err"] + nerr}
+        with telemetry.span("fused.stats"):
+            acc = self._window_acc()
+            acc = {"metrics": torch.stack([
+                acc["metrics"][0] + msum,
+                torch.maximum(acc["metrics"][1], mmax),
+                torch.minimum(acc["metrics"][2], mmin)]),
+                "n_err": acc["n_err"] + nerr}
         self._win_acc = acc
         return {"loss": torch.stack(losses),
                 "metrics": torch.stack([msum, mmax, mmin]),
@@ -1754,7 +1801,8 @@ class FusedNet:
         counters as one call (JAX :2160-2190)."""
         if faults.enabled():
             faults.check("fused.host_fetch")
-        host = memory.host_fetch(tree)
+        with telemetry.span("fused.readback"):
+            host = memory.host_fetch(tree)
         if telemetry.enabled():
             nbytes = []
             tree_map(lambda v: nbytes.append(v.nbytes)
